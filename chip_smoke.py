@@ -11,26 +11,32 @@ Phases (any failure exits nonzero, before the final line):
              source, in parallel) and print the build time and ptxas use;
   2. kernels each kernel and its twin on the same card tensors at the
              main path's shapes (64 videos x 10 crops x 512 points, S=K=64,
-             SA widths 4-64-64-256): B1 bit-equal; B2/B3 accumulators to
-             1e-4 of their max-abs, row outputs at rtol 1e-5 / atol 1e-5 x
-             scale, pool indices equal except where the twin's own values
-             tie. Times: CUDA events, median of 10 after 2 warm-up runs;
-             Then the whole SA stage (forward + backward) on the same
-             inputs as kernels, twins and float64 twins: the kernels must
-             be as close to float64 as the twins are;
-  3. cpu-vs-card one full-width train step at B=8 on the CPU (twins) and
-             on the card (kernels, then twins), same weights, points and
-             permutation: loss at rtol 1e-4, BN-absorbed biases near zero;
-             the ReLU and pool decisions that flipped between the devices
-             are counted, gradients held at max-abs 2e-4 of their scale
-             where no flip reaches and at relative L2 1e-2 everywhere
-             (phase_cpu_vs_card says why);
-  4. main    the Trainer at full width, f32, B=64 (bench.py's workload):
-             2 warm-up steps (run_epoch), then 40 steps timed by CUDA
-             events between steps (median and spread); losses finite and
-             every kernel launched (counters zeroed just before).
-             --profile adds one profiled step: kernel time over that
-             step's own span gives the device's idle share.
+             SA widths 4-64-64-256): B1 bit-equal; B2/B3/B6/B7/B8
+             accumulators to 1e-4 of their max-abs (cnt1 exactly), row
+             outputs and pooled values at rtol 1e-5 / atol 1e-5 x scale,
+             pool indices equal except where the twin's own values tie.
+             Times: CUDA events, median of 10 after 2 warm-up runs. Then
+             the whole SA stage (forward + backward) of each sa_impl with
+             kernels (pair3, pair, hybrid2, hybrid) on the same inputs as
+             kernels, twins and float64 twins: the kernels must be as
+             close to float64 as the twins are;
+  3. cpu-vs-card one full-width train step at B=8 for pair3, pair and
+             hybrid2 on the CPU (twins) and on the card (kernels, then
+             twins), same weights, points and permutation: loss at rtol
+             1e-4, BN-absorbed biases near zero; the ReLU and pool
+             decisions that flipped between the devices are counted,
+             gradients held at max-abs 2e-4 of their scale where no flip
+             reaches and at relative L2 1e-2 everywhere (phase_cpu_vs_card
+             says why);
+  4. main    the Trainer at full width, f32, B=64 (bench.py's workload),
+             sa_impl pair3 (the default; the headline): 2 warm-up steps
+             (run_epoch), then 40 steps timed by CUDA events between steps
+             (median and spread); then pair, hybrid2 and hybrid, 2 warm-up
+             and 20 timed steps each. Losses finite and every kernel of
+             each path launched on every step (counters zeroed just before
+             each path, read just after). --profile adds one profiled
+             step to each path: kernel time over that step's own span
+             gives the device's idle share.
 Output: a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -125,66 +131,235 @@ def index_err(k_idx, t_idx, t_vals, t_best, name):
     return int(bad.sum())
 
 
+def sweep_modules():
+    from facl_tpu_torch.ops import sa_bwd, sa_fwd, sa_pair
+    return sa_pair, sa_fwd, sa_bwd
+
+
 @contextlib.contextmanager
 def twins_on_card():
     """Route the SA stage's sweeps to their plain twins for card tensors
     (for the yardstick chains below; the port itself never does this)."""
-    from facl_tpu_torch.ops import sa_pair as SP
-    saved = {k.__name__: k for k in SP.KERNELS}
-    for name in saved:
-        setattr(SP, name, getattr(SP, name + "_plain"))
+    saved = [(m, k) for m in sweep_modules() for k in m.KERNELS]
+    for m, k in saved:
+        setattr(m, k.__name__, getattr(m, k.__name__ + "_plain"))
     try:
         yield
     finally:
-        for name, k in saved.items():
-            setattr(SP, name, k)
+        for m, k in saved:
+            setattr(m, k.__name__, k)
 
 
-def sa_chain_vs_f64(x3, layers, dpooled, pool):
-    """The whole pair3 stage — forward, then the slim backward for a
+def near_ties(z, pool: int, tol: float):
+    """(P, C3) bool: the (group, channel) pairs whose two-sweep routing is
+    a decision within ``tol`` of a switch — the group's largest z within
+    tol of zero (the ReLU), or a distinct value of relu(z) within tol
+    below a positive max. z: (R, C3), the layer-3 BN output before its
+    ReLU. Exact ties (identical rows) are not near-ties: every evaluation
+    splits them alike; nor are dead groups far below zero."""
+    zg = z.reshape(-1, pool, z.shape[1])
+    zmax = zg.amax(1, keepdim=True)
+    gap = zmax - zg
+    return (zmax[:, 0].abs() <= tol) | \
+        ((zmax[:, 0] > 0) & ((gap > 0) & (gap <= tol)).any(1))
+
+
+def _z64(p2, stats, lp2, lp3, eps=1e-5):
+    """z of one chain's forward, in float64 (for near_ties)."""
+    from facl_tpu_torch.ops.sa_bwd import _fold_affine, _h_from_p
+    mul2, shift2 = _fold_affine(lp2, *stats[1], eps)
+    mul3, shift3 = _fold_affine(lp3, *stats[2], eps)
+    h2 = _h_from_p(p2, mul2, shift2).double()
+    return (h2 @ lp3.kernel.double() + lp3.bias.double()) * mul3.double() \
+        + shift3.double()
+
+
+def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3"):
+    """The whole SA stage of ``impl`` — forward, then the backward for a
     given pooled cotangent — three times on the same card inputs:
     kernels (f32), twins (f32) and twins in float64. Every output
     (pooled, stats, gradients; not the BN-absorbed biases) must be as
     close to float64 as the twins are: relative L2 error at most
-    max(2x the twins', 1e-6). The backward of all three takes the
-    kernels' pool routing (argmax and dead-ReLU sentinel): where a
-    group's pre-activation sits within round-off of a tie or of zero,
-    routing is a discrete choice, and one flipped choice moves a whole
-    dpooled entry (measured: 4e-4 on dbeta3 from such flips)."""
-    from facl_tpu_torch.ops import sa_pair as SP
+    max(2x the twins', 1e-6). Pool routing is a discrete choice where a
+    group's pre-activation sits within round-off of a tie or of zero, and
+    one flipped choice moves a whole dpooled entry (measured: 4e-4 on
+    dbeta3 from such flips). So pair/pair3 give all three backwards the
+    kernels' routing (argmax and dead-ReLU sentinel); hybrid/hybrid2,
+    whose routing is made inside B8a, take a dpooled that is zero on the
+    pairs near_ties finds in the float64 forward (tolerance 1e-4 of the
+    largest |z|)."""
+    SP, SF, SB = sweep_modules()
+    pair = impl in ("pair", "pair3")
+    rows = x3.transpose(1, 2).reshape(-1, x3.shape[1]).contiguous()
 
     def fwd(dt):
         L = [SP.SALayerParams(*(t.to(dt) for t in lp)) for lp in layers]
-        pooled, stats, res = SP.sa_forward_pair(x3.to(dt), L, pool, 1e-5)
+        if pair:
+            pooled, stats, res = SP.sa_forward_pair(x3.to(dt), L, pool, 1e-5)
+        else:
+            f = SF.sa_forward_4sweep if impl == "hybrid2" else SB._forward_ps
+            pooled, stats, p1, p2 = f(rows.to(dt), L, pool, 1e-5)
+            res = dict(p1=p1, p2=p2)
         outs = {"pooled": pooled}
         for i, (m, v) in enumerate(stats, 1):
             outs[f"mean{i}"], outs[f"var{i}"] = m, v
         return L, stats, res, outs
 
-    def bwd(dt, L, stats, res, idx, outs):
-        grads = SP.sa_backward_pair(x3.to(dt), L, stats, dict(res, idx=idx),
-                                    dpooled.to(dt), pool, 1e-5)
+    def bwd(dt, L, stats, res, outs, route):
+        if pair:
+            grads = SP.sa_backward_pair(
+                x3.to(dt), L, stats, dict(res, idx=route), dpooled.to(dt),
+                pool, 1e-5, slim=impl == "pair3")
+        else:
+            grads = SB.sa_backward_2sweep(rows.to(dt), res["p1"], res["p2"],
+                                          L, stats, route.to(dt), pool, 1e-5)
         for i, (dw, db, dg, dbe) in enumerate(grads, 1):
             outs.update({f"dW{i}": dw, f"dgamma{i}": dg, f"dbeta{i}": dbe})
         return {k: v.double() for k, v in outs.items()}
 
-    Lk, sk, rk, ok = fwd(torch.float32)
-    kern = bwd(torch.float32, Lk, sk, rk, rk["idx"], ok)
     with twins_on_card():
-        Lt, st, rt, ot = fwd(torch.float32)
-        twin = bwd(torch.float32, Lt, st, rt, rk["idx"], ot)
-        L64, s64, r64, o64 = fwd(torch.float64)
-        ref = bwd(torch.float64, L64, s64, r64, rk["idx"], o64)
+        f64 = fwd(torch.float64)
+    note = ""
+    if pair:
+        fk = fwd(torch.float32)
+        route = fk[2]["idx"]
+    else:
+        z = _z64(f64[2]["p2"], f64[1], *f64[0][1:])
+        near = near_ties(z, pool, 1e-4 * float(z.abs().max()))
+        del z
+        route = torch.where(near, 0.0, dpooled)
+        note = f"; dpooled zeroed on {int(near.sum())} near-tie pairs"
+        fk = fwd(torch.float32)
+    kern = bwd(torch.float32, *fk, route)
+    with twins_on_card():
+        twin = bwd(torch.float32, *fwd(torch.float32), route)
+        ref = bwd(torch.float64, *f64, route)
     worst = {}
     for k in ref:
         ek, et = _rel_l2(kern[k], ref[k]), _rel_l2(twin[k], ref[k])
-        check(ek <= max(2 * et, 1e-6), f"SA chain {k}: kernels {ek:.2e} "
-                                       f"vs float64, twins {et:.2e}")
+        check(ek <= max(2 * et, 1e-6), f"SA chain {impl} {k}: kernels "
+                                       f"{ek:.2e} vs float64, twins {et:.2e}")
         worst[k] = (ek, et)
     wk = max(v[0] for v in worst.values())
     wt = max(v[1] for v in worst.values())
-    print(f"SA chain vs float64 ({len(ref)} outputs): worst relative L2 "
-          f"kernels {wk:.2e}, twins {wt:.2e}", flush=True)
+    print(f"SA chain {impl} K={pool} vs float64 ({len(ref)} outputs): worst "
+          f"relative L2 kernels {wk:.2e}, twins {wt:.2e}{note}", flush=True)
+    return wk, wt
+
+
+SRC2 = "facl_tpu_torch/ops/csrc/sa_2sweep.cu"
+#: The SA impls with kernels, in the order the main phase drives them.
+IMPLS = ("pair3", "pair", "hybrid2", "hybrid")
+
+
+def sweep2_err(k, t, name):
+    """B6/B8b: every accumulator within 1e-4 of its max-abs, cnt1 exact."""
+    check(torch.equal(k["cnt1"], t["cnt1"]), f"{name}: cnt1 not exact")
+    return max(acc_err(k[n], t[n], f"{name} {n}") for n in t)
+
+
+def sweep2_ops(C0, C1=64, C2=64):
+    """Operations per row of B6/B8b past h1: h2 (3 C2); dy2 (2 C2 C2 +
+    3 C2); q2 (C2 + 2 C2 C1); mq (C1); A2 (2 C2 C1); G1 (symmetric, C1
+    (C1 + 1)); TM1 and the C0 U1 blocks ((C0 + 1)(2 C1 C1 + C1)); the four
+    colsums (4 C1); T1x, P1 (4 C1 C0); Gx (symmetric, C0 (C0 + 1)); cx."""
+    return (3 * C2 + 2 * C2 * C2 + 3 * C2 + C2 + 2 * C2 * C1 + C1
+            + 2 * C2 * C1 + C1 * (C1 + 1) + (C0 + 1) * (2 * C1 * C1 + C1)
+            + 4 * C1 + 4 * C1 * C0 + C0 * (C0 + 1) + C0)
+
+
+def two_sweep_rows(x3, layers, dpooled, K):
+    """B7 (both call shapes of B7a, B7b, B7c) and B8 (B8a, B8b) against
+    their twins on the hybrid2 forward of the main path's tensors. B8a
+    routes inside the kernel: its dpooled is zero on the near_ties pairs
+    of a float64 recompute (tolerance 1e-5 of the largest |z|), where a
+    kernel and a twin that sum in another order may route differently."""
+    SP, SF, SB = sweep_modules()
+    from facl_tpu_torch.ops.sa_bwd import _fold_affine, _layer_terms
+    lp1, lp2, lp3 = layers
+    eps = 1e-5
+    Bc, C0, N = x3.shape
+    R, P = Bc * N, Bc * N // K
+    C1, C2, C3 = 64, 64, 256
+    xr = x3.transpose(1, 2).reshape(R, C0).contiguous()    # channels-last
+    rows = []
+
+    def add(name, args, err, nbytes, ops, fn, replaces):
+        rows.append(dict(name=name, args=args, err=err, nbytes=nbytes,
+                         ops=ops, fn=fn, plain=getattr(SF if fn in
+                                                       SF.KERNELS else SB,
+                                                       fn.__name__ + "_plain"),
+                         source=SRC2, replaces=replaces))
+
+    a1 = (xr, lp1.kernel, lp1.bias)
+    p1, s1, ss1 = SF.sa_fwd_layer_plain(*a1)
+    k = SF.sa_fwd_layer(*a1)
+    add("sa_fwd_layer (x->p1)", a1,
+        max(row_err(k[0], p1, "B7a p1"), acc_err(k[1], s1, "B7a s1"),
+            acc_err(k[2], ss1, "B7a ss1")),
+        R * (C0 + C1) * 4, R * (2 * C0 * C1 + 4 * C1), SF.sa_fwd_layer,
+        "facl_tpu/ops/pallas/sa_fwd.py:189")
+    m1, v1 = SF._finalize(s1, ss1, R)
+    mul1, shift1 = _fold_affine(lp1, m1, v1, eps)
+    a2 = (p1, lp2.kernel, lp2.bias, mul1, shift1)
+    p2, s2, ss2 = SF.sa_fwd_layer_plain(*a2)
+    k = SF.sa_fwd_layer(*a2)
+    add("sa_fwd_layer (p1->p2)", a2,
+        max(row_err(k[0], p2, "B7a p2"), acc_err(k[1], s2, "B7a s2"),
+            acc_err(k[2], ss2, "B7a ss2")),
+        R * (C1 + C2) * 4, R * (3 * C1 + 2 * C1 * C2 + 4 * C2),
+        SF.sa_fwd_layer, "facl_tpu/ops/pallas/sa_fwd.py:189")
+    m2, v2 = SF._finalize(s2, ss2, R)
+    mul2, shift2 = _fold_affine(lp2, m2, v2, eps)
+    ag = (p2, mul2, shift2)
+    G2, ch2 = SF.sa_fwd_gram_plain(*ag)
+    k = SF.sa_fwd_gram(*ag)
+    add("sa_fwd_gram", ag,
+        max(acc_err(k[0], G2, "B7b G2"), acc_err(k[1], ch2, "B7b ch2")),
+        R * C2 * 4, R * (3 * C2 + C2 * (C2 + 1) + C2), SF.sa_fwd_gram,
+        "facl_tpu/ops/pallas/sa_fwd.py:219")
+    m3, v3 = SF._moments_from_gram(G2, ch2, lp3.kernel, lp3.bias, R)
+    mul3, shift3 = _fold_affine(lp3, m3, v3, eps)
+    ap = (p2, mul2, shift2, lp3.kernel, lp3.bias, mul3, shift3, K)
+    add("sa_fwd_pool", ap,
+        row_err(SF.sa_fwd_pool(*ap), SF.sa_fwd_pool_plain(*ap), "B7c pooled"),
+        R * C2 * 4 + P * C3 * 4, R * (3 * C2 + 2 * C2 * C3 + 4 * C3),
+        SF.sa_fwd_pool, "facl_tpu/ops/pallas/sa_fwd.py:242")
+
+    z = _z64(p2, [(m1, v1), (m2, v2), (m3, v3)], lp2, lp3)
+    near = near_ties(z, K, 1e-5 * float(z.abs().max()))
+    del z
+    dp = torch.where(near, 0.0, dpooled)
+    gi2 = lp2.scale * torch.rsqrt(v2 + eps)
+    gi3 = lp3.scale * torch.rsqrt(v3 + eps)
+    as1 = (p2, mul2, shift2, lp3.kernel, lp3.bias, mul3, shift3, gi3, dp, K)
+    A3, u3, G2b, ch2b, q3 = SB.sa_bwd2_sweep1_plain(*as1)
+    h2 = SB._h_from_p(p2, mul2, shift2)
+    nnz = int((SB._dy_top((h2 @ lp3.kernel + lp3.bias) * mul3 + shift3, dp,
+                          K) != 0).sum())
+    del h2
+    k = SB.sa_bwd2_sweep1(*as1)
+    add("sa_bwd2_sweep1", as1,
+        max(acc_err(k[0], A3, "B8a A3"), acc_err(k[1], u3, "B8a u3"),
+            acc_err(k[2], G2b, "B8a G2"), acc_err(k[3], ch2b, "B8a ch2"),
+            row_err(k[4], q3, "B8a q3")),
+        2 * R * C2 * 4 + P * C3 * 4,
+        R * (3 * C2 + 2 * C2 * C3 + 4 * C3 + C2 * (C2 + 1) + C2)
+        + nnz * (4 * C2 + 2), SB.sa_bwd2_sweep1,
+        "facl_tpu/ops/pallas/sa_bwd.py:275")
+    print(f"B8a: dpooled zeroed on {int(near.sum())} of {near.numel()} "
+          f"near-tie (group, channel) pairs; {nnz} nonzero dy3 entries "
+          f"({nnz / max(int((dp != 0).sum()), 1):.2f} rows per routed pair)",
+          flush=True)
+    t3 = _layer_terms(A3, u3, lp3, m3, v3, G2b, ch2b, R, eps)
+    as2 = (xr, p1, mul1, shift1, p2, mul2, shift2, q3, t3["M"].contiguous(),
+           t3["rc"], gi2, lp2.kernel)
+    add("sa_bwd2_sweep2", as2,
+        sweep2_err(SB.sa_bwd2_sweep2(*as2), SB.sa_bwd2_sweep2_plain(*as2),
+                   "B8b"),
+        R * (C0 + 3 * C1) * 4, R * (3 * C1 + sweep2_ops(C0)),
+        SB.sa_bwd2_sweep2, "facl_tpu/ops/pallas/sa_bwd.py:298")
+    return rows
 
 
 def phase_kernels(dev, model, points):
@@ -331,8 +506,20 @@ def phase_kernels(dev, model, points):
                          nbytes=R * (C0 + C1) * 4, ops=ops,
                          fn=SP.sa_bwd_sweep3, plain=SP.sa_bwd_sweep3_plain,
                          replaces="facl_tpu/ops/pallas/sa_pair.py:835"))
+        # B6: sweep 2 of the pair (non-slim) backward, on B3b's inputs.
+        km = SP.sa_bwd_sweep2_full(*as2)
+        e = sweep2_err(km, SP.sa_bwd_sweep2_full_plain(*as2), "B6")
+        rows.append(dict(name="sa_bwd_sweep2_full", args=as2, err=e,
+                         nbytes=R * (C0 + 2 * C2) * 4,
+                         ops=R * (2 * C0 * C1 + C1 + sweep2_ops(C0)),
+                         fn=SP.sa_bwd_sweep2_full,
+                         plain=SP.sa_bwd_sweep2_full_plain, source=SRC2,
+                         replaces="facl_tpu/ops/pallas/sa_pair.py:863"))
+        del km
+        rows += two_sweep_rows(x3, (lp1, lp2, lp3), dpooled, K)
         torch.cuda.synchronize()
-        sa_chain_vs_f64(x3, [lp1, lp2, lp3], dpooled, K)
+        for impl in IMPLS:
+            sa_chain_vs_f64(x3, [lp1, lp2, lp3], dpooled, K, impl)
 
         # The fine variant's grouping (S=32, K=128): B1, and pool groups
         # that span two of the sweeps' 64-row tiles.
@@ -340,7 +527,9 @@ def phase_kernels(dev, model, points):
         gf = b1_case("fine", flat, r2, Sf, Kf)
         gf[:, :3] -= flat[:, :Sf, :3].transpose(1, 2)[..., None]
         dpf = torch.randn(Bc * Sf, C3, generator=g).to(dev)
-        sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf, Kf)
+        for impl in IMPLS:
+            sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf,
+                            Kf, impl)
 
         for r in rows[1:]:
             args, fn, plain = r.pop("args"), r["fn"], r.pop("plain")
@@ -348,7 +537,7 @@ def phase_kernels(dev, model, points):
             r["plain_ms"] = median_ms(lambda: plain(*args))
             r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("ops"))
             r["max_abs_err"] = r.pop("err")
-            r["source"] = "facl_tpu_torch/ops/csrc/sa_pair.cu"
+            r.setdefault("source", "facl_tpu_torch/ops/csrc/sa_pair.cu")
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}"
               f" ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "
@@ -356,31 +545,36 @@ def phase_kernels(dev, model, points):
     return rows
 
 
-def _cfg(batch):
+def _cfg(batch, impl="pair3"):
     import dataclasses
     from facl_tpu_torch.config import Config
     cfg = Config()
-    return cfg.replace(train=dataclasses.replace(cfg.train, batch_size=batch))
+    return cfg.replace(train=dataclasses.replace(cfg.train, batch_size=batch),
+                       model=dataclasses.replace(cfg.model, sa_impl=impl))
 
 
 def _f64_grads(tr, pts, perm):
-    """Loss and gradients of the same step in float64 on the CPU: the
-    yardstick of how far float32 itself moves this step's gradients."""
+    """Loss, gradients and discrete decisions (``_decisions``) of the same
+    step in float64 on the CPU: the yardstick of how far float32 itself
+    moves this step."""
     from facl_tpu_torch.losses import circle_infonce, global_local_infonce
     from facl_tpu_torch.train.trainer import make_grouping_fn
     G, B = pts.shape[:2]
     model = tr.init_state(SEED).model.double().train()
     with torch.no_grad():
-        neigh5, cent4 = make_grouping_fn(tr.g_cfg, "bcsk")(
+        neigh5, cent4 = make_grouping_fn(
+            tr.g_cfg, "bcsk" if tr.cfg.model.channels_first else "bskc")(
             pts.transpose(0, 1))
-    x, _, _, x_global = model(
-        neigh5.reshape(B * G, *neigh5.shape[2:]).double(),
-        cent4.reshape(B * G, -1, 3).double())
-    xg = x.reshape(B, G, -1).transpose(0, 1)
-    loss = global_local_infonce(xg, x_global) + circle_infonce(xg, perm)
+    dec = {}
+    with _decisions(model, tr.cfg.model.sa_impl, B, dec):
+        x, _, _, x_global = model(
+            neigh5.reshape(B * G, *neigh5.shape[2:]).double(),
+            cent4.reshape(B * G, -1, 3).double())
+        xg = x.reshape(B, G, -1).transpose(0, 1)
+        loss = global_local_infonce(xg, x_global) + circle_infonce(xg, perm)
     loss.backward()
     return loss.item(), {n: p.grad.float() for n, p in
-                         model.named_parameters() if p.grad is not None}
+                         model.named_parameters() if p.grad is not None}, dec
 
 
 def _rel_l2(a, b):
@@ -388,33 +582,45 @@ def _rel_l2(a, b):
 
 
 @contextlib.contextmanager
-def sa_routing(store: list):
-    """Record the SA stage's pool routing (the argmax residual, with the
-    dead-ReLU sentinel) of every forward into ``store``."""
-    from facl_tpu_torch.ops import sa_pair as SP
-    fwd = SP.sa_forward_pair
+def sa_routing(store: list, impl: str):
+    """Record the SA stage's pool routing of every forward into ``store``:
+    for pair/pair3 the argmax residual (first index, dead-ReLU sentinel);
+    for hybrid2 the rows B8a's rule routes to (relu(z) at the group's max,
+    z > 0, ties split), recomputed by the plain ops from the forward's p2
+    and statistics on the same device (on the card the kernel's own
+    choice may differ from that recompute at near-ties)."""
+    SP, SF, SB = sweep_modules()
+    pair = impl in ("pair", "pair3")
+    mod, name = (SP, "sa_forward_pair") if pair else \
+        (SF, "sa_forward_4sweep")
+    fwd = getattr(mod, name)
 
     def capture(*args, **kwargs):
         out = fwd(*args, **kwargs)
-        store.append(out[2]["idx"].cpu())
+        if pair:
+            store.append(out[2]["idx"].cpu())
+        else:
+            _, (_, lp2, lp3), pool, eps = args
+            mul2, shift2 = SB._fold_affine(lp2, *out[1][1], eps)
+            mul3, shift3 = SB._fold_affine(lp3, *out[1][2], eps)
+            z = (SB._h_from_p(out[3], mul2, shift2) @ lp3.kernel + lp3.bias) \
+                * mul3 + shift3
+            ones = torch.ones(z.shape[0] // pool, z.shape[1], device=z.device)
+            store.append((SB._dy_top(z, ones, pool) != 0).cpu())
         return out
-    SP.sa_forward_pair = capture
+    setattr(mod, name, capture)
     try:
         yield
     finally:
-        SP.sa_forward_pair = fwd
+        setattr(mod, name, fwd)
 
 
-def _step_decisions(d, B, pts, perm, twins=False):
-    """One step_fn on device ``d`` from the seed's weights (the SA sweeps'
-    twins on the card with ``twins``). Returns the loss, the gradients and
-    the step's discrete decisions: the ReLU mask of every stage-2 and head
-    BatchNorm output, the stage-2 local and global pool argmaxes, and the
-    SA stage's pool routing."""
-    from facl_tpu_torch.train import Trainer
-    tr = Trainer(_cfg(B), steps_per_epoch=100, device=d)
-    st = tr.init_state(SEED)
-    model = st.model
+@contextlib.contextmanager
+def _decisions(model, impl, B, dec: dict):
+    """Record the discrete decisions of the forward run inside into
+    ``dec``: the ReLU mask of every stage-2 and head BatchNorm output, the
+    stage-2 local and global pool argmaxes, and the SA stage's pool
+    routing (``sa_routing``)."""
     masks, seen, routes = {}, {}, []
 
     def keep(name):
@@ -428,20 +634,34 @@ def _step_decisions(d, B, pts, perm, twins=False):
     hooks = [m.register_forward_hook(keep(n)) for n, m in mods.items()]
     hooks.append(model.stage2_mlp.register_forward_hook(
         lambda mod, inp, out: seen.__setitem__("local", out.detach())))
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(sa_routing(routes))
-        if twins:
-            stack.enter_context(twins_on_card())
-        st, m = tr.step_fn(st, pts, perm=perm)
-    for h in hooks:
-        h.remove()
+    try:
+        with sa_routing(routes, impl):
+            yield
+    finally:
+        for h in hooks:
+            h.remove()
     local = seen["local"]                                  # (B*G, S, F)
-    dec = {n: torch.cat(v) for n, v in masks.items()}
+    dec.update({n: torch.cat(v) for n, v in masks.items()})
     dec["argmax_local"] = local.argmax(1).cpu()
     dec["argmax_global"] = local.reshape(B, -1, local.shape[-1]) \
         .argmax(1).cpu()
     dec["sa_route"] = routes[0]
-    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+
+
+def _step_decisions(d, B, pts, perm, impl, twins=False):
+    """One step_fn on device ``d`` from the seed's weights (the SA sweeps'
+    twins on the card with ``twins``). Returns the loss, the gradients and
+    the step's discrete decisions (``_decisions``)."""
+    from facl_tpu_torch.train import Trainer
+    tr = Trainer(_cfg(B, impl), steps_per_epoch=100, device=d)
+    st = tr.init_state(SEED)
+    dec = {}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_decisions(st.model, impl, B, dec))
+        if twins:
+            stack.enter_context(twins_on_card())
+        st, m = tr.step_fn(st, pts, perm=perm)
+    grads = {n: p.grad.detach().cpu() for n, p in st.model.named_parameters()
              if p.grad is not None}
     return float(m["loss"]), grads, dec
 
@@ -500,10 +720,12 @@ def _compare(gc, gk, touched, absorbed):
 
 
 def phase_cpu_vs_card(dev):
-    """One step_fn on the CPU (twins) and on the card (kernels), same
-    weights, points and permutation: loss at rtol 1e-4; BN-absorbed
-    biases near zero; gradients at max-abs 2e-4 of their scale wherever
-    no flipped decision reaches, and at relative L2 1e-2 everywhere.
+    """For pair3, pair and hybrid2 (between them B2, B3, B6, B7, B8; hybrid
+    adds no kernel): one step_fn on the CPU (twins) and on the card
+    (kernels), same weights, points and permutation: loss at rtol 1e-4;
+    BN-absorbed biases near zero; gradients at max-abs 2e-4 of their
+    scale wherever no flipped decision reaches, and at relative L2 1e-2
+    everywhere.
 
     Why two bars: the step's gradients are discontinuous in the
     activations. Each ReLU unit and pool argmax is a discrete decision;
@@ -512,26 +734,33 @@ def phase_cpu_vs_card(dev):
     by up to ~1% of its scale (a row's contribution out of ~10^4), and
     everything below it in the network. So the script records every
     stage-2 and head ReLU mask, the stage-2 local/global argmaxes and
-    the SA routing on both devices, counts the flips, and holds the
-    entries that no flip reaches (``_touched``) at the small-width parity
-    tests' 2e-4. Everything is also held at relative L2 1e-2, and the same
-    step with the SA sweeps' twins on the card is printed beside it: the
-    gap that flips leave owes nothing to the kernels if the twins show it
-    too. B=8, not 2: with 2 videos the global head BatchNorm normalises 2
-    rows per channel, whose outputs are +-1 whatever the input, so the
-    gradient through it is a near-total cancellation and rounding
-    noise."""
-    from facl_tpu_torch.train import Trainer
+    the SA routing (``sa_routing``) on both devices, counts the flips, and
+    holds the entries that no flip reaches (``_touched``) at the
+    small-width parity tests' 2e-4. Everything is also held at relative
+    L2 1e-2, and the same step with the SA sweeps' twins on the card is
+    printed beside it: the gap that flips leave owes nothing to the
+    kernels if the twins show it too. B=8, not 2: with 2 videos the
+    global head BatchNorm normalises 2 rows per channel, whose outputs are
+    +-1 whatever the input, so the gradient through it is a near-total
+    cancellation and rounding noise."""
     G, B, N, C = 10, 8, 512, 4
     g = torch.Generator().manual_seed(SEED + 2)
     pts = torch.randn(G, B, N, C, generator=g)
     perm = torch.randperm(G, generator=g)
-    lc, gc, dc = _step_decisions("cpu", B, pts, perm)
-    lk, gk, dk = _step_decisions(dev, B, pts, perm)
-    lt, gt, dt = _step_decisions(dev, B, pts, perm, twins=True)
-    l64, g64 = _f64_grads(Trainer(_cfg(B), 100, device="cpu"), pts, perm)
+    for impl in IMPLS[:3]:
+        _cpu_vs_card(dev, impl, pts, perm)
+
+
+def _cpu_vs_card(dev, impl, pts, perm):
+    from facl_tpu_torch.train import Trainer
+    B = pts.shape[1]
+    lc, gc, dc = _step_decisions("cpu", B, pts, perm, impl)
+    lk, gk, dk = _step_decisions(dev, B, pts, perm, impl)
+    lt, gt, dt = _step_decisions(dev, B, pts, perm, impl, twins=True)
+    l64, g64, d64 = _f64_grads(Trainer(_cfg(B, impl), 100, device="cpu"),
+                               pts, perm)
     check(math.isclose(lk, lc, rel_tol=1e-4),
-          f"cpu-vs-card loss {lk} vs {lc}")
+          f"cpu-vs-card {impl} loss {lk} vs {lc}")
     check(set(gc) == set(gk) == set(gt) == set(g64),
           "cpu-vs-card: gradient sets differ")
     # Parameters whose exact gradient is zero (a bias that a BatchNorm
@@ -541,7 +770,7 @@ def phase_cpu_vs_card(dev):
     for n in absorbed:
         check(float(gc[n].abs().max()) < 1e-3 * gscale and
               float(gk[n].abs().max()) < 1e-3 * gscale,
-              f"cpu-vs-card: BN-absorbed {n} not near zero")
+              f"cpu-vs-card {impl}: BN-absorbed {n} not near zero")
     n2 = sum(1 for n in dc if n.startswith("stage2_mlp."))
     floor = max(_rel_l2(a, g64[n]) for n, a in gc.items()
                 if n not in absorbed)
@@ -555,34 +784,63 @@ def phase_cpu_vs_card(dev):
                                            flips.items()}, n2), absorbed))
     counts, (l2, free, n_free, dnorm) = readings["card"]
     total = sum(t.numel() for n, t in gc.items() if n not in absorbed)
-    print(f"cpu-vs-card B={B} step: loss cpu {lc:.6f} card {lk:.6f} card "
-          f"twins {lt:.6f} (f64 {l64:.6f}); {len(gc)} gradients "
+    r = dc["sa_route"]
+    route = f"{r.numel()} pool indices" if impl.startswith("pair") else \
+        f"{int(r.sum())} of {r.numel()} row entries routed on the cpu"
+    print(f"cpu-vs-card {impl} B={B} step: loss cpu {lc:.6f} card {lk:.6f} "
+          f"card twins {lt:.6f} (f64 {l64:.6f}); {len(gc)} gradients "
           f"({len(absorbed)} BN-absorbed); cpu f32-vs-f64 relative L2 "
-          f"{floor:.3e}", flush=True)
+          f"{floor:.3e}, with flipped decisions "
+          f"{ {n: int((dc[n] != d64[n]).sum()) for n in dc} }; SA routing: "
+          f"{route}", flush=True)
     for label, (cnt, (r_l2, r_free, r_n, r_norm)) in readings.items():
         print(f"  {label} vs cpu: flipped decisions {cnt} of "
               f"{ {n: dc[n].numel() for n in dc} }; relative L2 worst "
               f"{r_l2:.3e}; max-abs/scale worst {r_free:.3e} on the "
               f"{r_n} of {total} entries no flip reaches (norms "
               f"{r_norm:.1e})", flush=True)
-    check(l2 <= 1e-2, f"cpu-vs-card: gradient relative L2 {l2:.3e} > 1e-2")
-    check(free <= 2e-4, f"cpu-vs-card: max-abs/scale {free:.3e} > 2e-4 "
-                        "where no decision flipped")
-    check(dnorm <= 1e-3, f"cpu-vs-card: gradient norms differ by "
+    check(l2 <= 1e-2, f"cpu-vs-card {impl}: gradient relative L2 {l2:.3e} "
+                      "> 1e-2")
+    check(free <= 2e-4, f"cpu-vs-card {impl}: max-abs/scale {free:.3e} > "
+                        "2e-4 where no decision flipped")
+    check(dnorm <= 1e-3, f"cpu-vs-card {impl}: gradient norms differ by "
                          f"{dnorm:.3e} > 1e-3 where no decision flipped")
 
 
+#: Launches per step of each kernel wrapper on each impl's path.
+PATHS = {
+    "pair3": {"select_gather": 1, "sa_fwd_layer12": 1, "sa_fwd_gram_pool": 1,
+              "sa_bwd_sweep1": 1, "sa_bwd_sweep2": 1, "sa_bwd_sweep3": 1},
+    "pair": {"select_gather": 1, "sa_fwd_layer12": 1, "sa_fwd_gram_pool": 1,
+             "sa_bwd_sweep1": 1, "sa_bwd_sweep2_full": 1},
+    "hybrid2": {"select_gather": 1, "sa_fwd_layer": 2, "sa_fwd_gram": 1,
+                "sa_fwd_pool": 1, "sa_bwd2_sweep1": 1, "sa_bwd2_sweep2": 1},
+    "hybrid": {"select_gather": 1, "sa_bwd2_sweep1": 1, "sa_bwd2_sweep2": 1},
+}
+
+
 def phase_main(dev, profile: bool, card: str):
-    from facl_tpu_torch.ops import sa_pair as SP
+    """Each impl's Trainer at full width; returns {impl: launches}."""
     from facl_tpu_torch.ops import select as SEL
-    from facl_tpu_torch.train import Trainer
-    kernels = (SEL.select_gather,) + SP.KERNELS
+    kernels = (SEL.select_gather,) + tuple(k for m in sweep_modules()
+                                           for k in m.KERNELS)
     cfg = _cfg(64)
     G, B = cfg.model.num_crops, cfg.train.batch_size
     N, C = cfg.data.num_points, cfg.model.in_features
     g = torch.Generator().manual_seed(SEED + 3)
     batches = torch.randn(2, G, B, N, C, generator=g).to(dev)
-    tr = Trainer(cfg, steps_per_epoch=100, device=dev)
+    out = {}
+    for impl in IMPLS:
+        out[impl] = _run_path(dev, impl, 40 if impl == "pair3" else 20,
+                              batches, g, kernels, card, profile)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _run_path(dev, impl, steps, batches, g, kernels, card, profile):
+    from facl_tpu_torch.train import Trainer
+    G, B, N = batches.shape[1:4]
+    tr = Trainer(_cfg(B, impl), steps_per_epoch=100, device=dev)
     state = tr.init_state(SEED)
     state, _ = tr.run_epoch(state, [batches[0], batches[1]], epoch=0,
                             generator=g)
@@ -593,7 +851,7 @@ def phase_main(dev, profile: bool, card: str):
     # Step boundaries are CUDA events recorded between steps, so timing
     # adds no synchronisation: each step's time is the distance between
     # the device reaching one boundary and the next.
-    steps, losses = 40, []
+    losses = []
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     t0 = time.perf_counter()
     ev[0].record()
@@ -605,19 +863,22 @@ def phase_main(dev, profile: bool, card: str):
     wall = (time.perf_counter() - t0) / steps * 1e3
     launches = {k.__name__: k.launches for k in kernels}
     losses = [float(v) for v in losses]
-    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(all(math.isfinite(v) for v in losses),
+          f"{impl}: non-finite loss {losses}")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+        want = PATHS[impl].get(name, 0) * steps
+        check(n == want, f"{impl}: kernel {name} launched {n} times in "
+                         f"{steps} steps, expected {want}")
     per = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(steps))
     ms = statistics.median(per)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    print(f"main path on {card}: B={B} G={G} N={N} f32, {steps} steps: "
-          f"median {ms:.2f} ms/step (min {per[0]:.2f}, quartiles "
-          f"{per[steps // 4]:.2f}-{per[3 * steps // 4]:.2f}, max "
+    print(f"main path sa_impl={impl} on {card}: B={B} G={G} N={N} f32, "
+          f"{steps} steps: median {ms:.2f} ms/step (min {per[0]:.2f}, "
+          f"quartiles {per[steps // 4]:.2f}-{per[3 * steps // 4]:.2f}, max "
           f"{per[-1]:.2f}; wall-clock mean {wall:.2f}), {B / ms * 1e3:.1f} "
           f"clips/s at the median, peak {peak:.2f} GiB; losses first "
-          f"{losses[0]:.4f} last {losses[-1]:.4f}; launches {launches}",
-          flush=True)
+          f"{losses[0]:.4f} last {losses[-1]:.4f}; launches "
+          f"{ {n: c for n, c in launches.items() if c} }", flush=True)
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -632,8 +893,8 @@ def phase_main(dev, profile: bool, card: str):
         table = ka.table(sort_by="self_cuda_time_total", row_limit=25)
         busy = sum(x.self_device_time_total for x in p.events()
                    if x.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        print(f"profile of one step: device busy {busy:.2f} ms (sum of "
-              f"kernel times) over the step's own span of {span:.2f} ms "
+        print(f"profile of one {impl} step: device busy {busy:.2f} ms (sum "
+              f"of kernel times) over the step's own span of {span:.2f} ms "
               f"(CUDA events; the profiler's host overhead lengthens it): "
               f"idle share {max(0.0, 1 - busy / span):.3f}\n" + table,
               flush=True)
@@ -671,8 +932,15 @@ def main() -> None:
     del model, points
     torch.cuda.empty_cache()
     phase_cpu_vs_card(dev)
-    launches = phase_main(dev, args.profile, name_power)
+    paths = phase_main(dev, args.profile, name_power)
 
+    # Each kernel's launches: from the first path (in IMPLS order) that
+    # runs it — B1-B3 on pair3, B6 on pair, B7 and B8 on hybrid2.
+    launches = {}
+    for impl in IMPLS:
+        for name, n in paths[impl].items():
+            if n:
+                launches.setdefault(name, n)
     out = []
     for r in rows:
         out.append({"name": r["name"], "route": "cuda", "source": r["source"],

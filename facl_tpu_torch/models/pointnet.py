@@ -20,11 +20,11 @@ from facl_tpu_torch.models.layers import EmbedHead, PointMLP, dense, \
     l2_normalize
 from facl_tpu_torch.models.sa_stage import SetAbstractionStage
 
-#: sa_impl values the port accepts; "auto" resolves to "pair3" on every
-#: device. The JAX package's other SA paths ("reference", "covar",
-#: "pallas", "analytic", "hybrid", "hybrid2", "pair") wait for kernels
-#: B6-B9 (ROADMAP Queue 1 item 7) and raise NotImplementedError here.
-SA_IMPLS = ("auto", "pair3")
+#: sa_impl values the port accepts: every value of the JAX package but
+#: "pallas" (kernel B9, not ported yet: resolve_model_config raises
+#: NotImplementedError). "auto" resolves to "pair3" on every device.
+SA_IMPLS = ("auto", "reference", "covar", "analytic", "hybrid", "hybrid2",
+            "pair", "pair3")
 
 
 class PointNetPlus(nn.Module):
@@ -33,10 +33,11 @@ class PointNetPlus(nn.Module):
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg = cfg = resolve_model_config(cfg)
         self.sa_stage = SetAbstractionStage(
             cfg.in_features, cfg.sa_widths, cfg.bn_momentum,
-            channels_first=bool(cfg.channels_first), generator=generator)
+            channels_first=cfg.channels_first, impl=cfg.sa_impl,
+            generator=generator)
         self.stage2_mlp = PointMLP(3 + cfg.sa_widths[-1], cfg.stage2_widths,
                                    cfg.bn_momentum, generator=generator)
         self.head = EmbedHead(cfg.stage2_widths[-1], cfg.fc_hidden,
@@ -72,16 +73,25 @@ class PointNetPlus(nn.Module):
 
 
 def resolve_model_config(model_cfg: ModelConfig) -> ModelConfig:
-    """Resolve ``sa_impl="auto"`` to "pair3" and ``channels_first=None``
-    to True (the layout the pair3 stage and kernel B1 share)."""
+    """Resolve ``sa_impl="auto"`` to "pair3" (on every device: the port's
+    rule) and ``channels_first=None`` to True exactly for "pair"/"pair3",
+    the impls that read the channel-major layout of kernel B1
+    (facl_tpu/models/pointnet.py:171-173). An explicit ``sa_impl`` is
+    honoured; "pallas" raises NotImplementedError."""
     impl = model_cfg.sa_impl
-    if impl not in SA_IMPLS:
+    if impl == "pallas":
         raise NotImplementedError(
-            f"sa_impl={impl!r} is not ported yet (ROADMAP Queue 1 item 7); "
-            f"the port runs {SA_IMPLS}")
-    cf = True if model_cfg.channels_first is None else \
-        model_cfg.channels_first
-    return dataclasses.replace(model_cfg, sa_impl="pair3", channels_first=cf)
+            "sa_impl='pallas' (kernel B9, the generic L-layer fused SA) is "
+            "not ported yet (ROADMAP Queue 1 item 7, Queue 2 B9)")
+    if impl not in SA_IMPLS:
+        raise ValueError(f"unknown sa_impl {impl!r}; expected one of "
+                         f"{SA_IMPLS + ('pallas',)}")
+    if impl == "auto":
+        impl = "pair3"
+    cf = model_cfg.channels_first
+    if cf is None:
+        cf = impl in ("pair", "pair3")
+    return dataclasses.replace(model_cfg, sa_impl=impl, channels_first=cf)
 
 
 def resolve_grouping(cfg: Config) -> GroupingConfig:
@@ -108,4 +118,4 @@ def resolve_model(cfg: Config, generator: Optional[torch.Generator] = None
     are made on the CPU from ``generator``; move the module to its device
     afterwards."""
     g = resolve_grouping(cfg)
-    return PointNetPlus(resolve_model_config(cfg.model), generator), g
+    return PointNetPlus(cfg.model, generator), g

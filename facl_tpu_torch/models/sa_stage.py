@@ -3,10 +3,25 @@
 
 The stage owns its parameters directly — ``kernel_i`` (Cin, Cout),
 ``bias_i``, ``scale_i``, ``shift_i`` and the running buffers ``mean_i``,
-``var_i``, named as in the JAX module (sa_stage.py:114-125). Train mode
-runs the pair3 kernels (ops/sa_pair.py; their plain twins for CPU
-tensors); eval mode is plain math with the running statistics
-(sa_stage.py:221-268).
+``var_i``, named as in the JAX module (sa_stage.py:114-125), so one
+``state_dict`` serves every ``impl``. Train mode dispatches on ``impl``
+(sa_stage.py:133-220):
+
+  reference, covar  plain torch, differentiated by autograd; "covar" takes
+                    the batch moments from Gram(h) (:func:`covar_moments`)
+  analytic          plain torch with the hand-derived backward
+                    (ops/analytic_sa.py); the only impl with an input
+                    gradient
+  hybrid            plain forward + the two-sweep backward (B8,
+                    ops/sa_bwd.py)
+  hybrid2           the four-sweep forward (B7, ops/sa_fwd.py) + B8
+  pair, pair3       B2 + B3 sweep 1, then B6 (pair) or B3's slim sweeps
+                    (pair3) (ops/sa_pair.py)
+
+Eval mode is plain math with the running statistics (sa_stage.py:221-268).
+With ``channels_first`` the input is (B, C, S, K); every impl but
+pair/pair3, and eval, transposes it to channels-last first
+(sa_stage.py:98-105).
 """
 from __future__ import annotations
 
@@ -16,8 +31,26 @@ import torch
 from torch import nn
 
 from facl_tpu_torch.models.layers import lecun_normal_
-from facl_tpu_torch.ops.fused_sa import SALayerParams, sa_eval_reference
-from facl_tpu_torch.ops.sa_pair import sa_train_pair3
+from facl_tpu_torch.ops.analytic_sa import sa_train_analytic
+from facl_tpu_torch.ops.fused_sa import SALayerParams, sa_reference_4d
+from facl_tpu_torch.ops.sa_bwd import sa_train_hybrid
+from facl_tpu_torch.ops.sa_fwd import _moments_from_gram, sa_train_pfwd
+from facl_tpu_torch.ops.sa_pair import sa_train_pair
+
+#: Train-mode implementations of the stage.
+IMPLS = ("reference", "covar", "analytic", "hybrid", "hybrid2", "pair",
+         "pair3")
+#: The impls whose input cotangent is zero by contract.
+ZERO_DX = ("hybrid", "hybrid2", "pair", "pair3")
+
+
+def covar_moments(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor):
+    """Batch (mean, var) of p = h @ kernel + bias from Gram(h) and
+    colsum(h), without reducing p (facl_tpu/models/sa_stage.py:33-68);
+    the variance clamped at 0."""
+    flat = h.reshape(-1, h.shape[-1])
+    return _moments_from_gram(flat.T @ flat, flat.sum(0), kernel, bias,
+                              flat.shape[0])
 
 
 class SetAbstractionStage(nn.Module):
@@ -26,12 +59,17 @@ class SetAbstractionStage(nn.Module):
 
     def __init__(self, in_features: int, widths: Sequence[int],
                  bn_momentum: float = 0.9, epsilon: float = 1e-5,
-                 channels_first: bool = True,
+                 channels_first: bool = True, impl: str = "pair3",
+                 input_grad: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if impl not in IMPLS:
+            raise ValueError(f"unknown SA impl {impl!r}; expected one of "
+                             f"{IMPLS}")
         self.widths = tuple(widths)
         self.bn_momentum, self.epsilon = bn_momentum, epsilon
         self.channels_first = channels_first
+        self.impl, self.input_grad = impl, input_grad
         cin = in_features
         for i, w in enumerate(self.widths):
             self.register_parameter(f"kernel_{i}", nn.Parameter(
@@ -58,24 +96,35 @@ class SetAbstractionStage(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim != 4:
             raise ValueError(f"expected 4-D neighbourhoods, got {x.shape}")
+        impl, layers, eps = self.impl, self.layers(), self.epsilon
+        pair = impl in ("pair", "pair3")
+        if self.training and self.input_grad and impl in ZERO_DX:
+            raise ValueError(
+                f"sa impl {impl!r} defines a zero input cotangent; use "
+                "'analytic' when input gradients are needed")
+        if self.channels_first and not (self.training and pair):
+            x = x.permute(0, 2, 3, 1)                       # (B, S, K, C)
         if not self.training:
-            if self.channels_first:
-                x = x.permute(0, 2, 3, 1)
-            return self._reference_4d(x)
-        x_cf = x if self.channels_first else x.permute(0, 3, 1, 2)
-        pooled, stats = sa_train_pair3(x_cf, self.layers(),
-                                       self.epsilon)
+            pooled, _, _, _ = sa_reference_4d(x, layers, eps, self.running())
+            return pooled
+        if pair:
+            x_cf = x if self.channels_first else x.permute(0, 3, 1, 2)
+            pooled, stats = sa_train_pair(x_cf, layers, eps,
+                                          slim=impl == "pair3")
+        elif impl == "hybrid":
+            pooled, stats = sa_train_hybrid(x, layers, eps)
+        elif impl == "hybrid2":
+            pooled, stats = sa_train_pfwd(x, layers, eps)
+        elif impl == "analytic":
+            pooled, stats = sa_train_analytic(x, layers, eps)
+        else:
+            moments = (lambda h, lp: covar_moments(h, lp.kernel, lp.bias)) \
+                if impl == "covar" else None
+            pooled, stats, _, _ = sa_reference_4d(x, layers, eps,
+                                                  moments=moments)
         m = self.bn_momentum
         with torch.no_grad():
             for (mean_b, var_b), (mean, var) in zip(self.running(), stats):
                 mean_b.copy_(m * mean_b + (1 - m) * mean)
                 var_b.copy_(m * var_b + (1 - m) * var)
         return pooled
-
-    def _reference_4d(self, x: torch.Tensor) -> torch.Tensor:
-        """Eval mode on (B, S, K, C): the running statistics' affine,
-        ReLU, max over K (ops/fused_sa.py::sa_eval_reference on rows)."""
-        B, S, K, C = x.shape
-        pooled = sa_eval_reference(x.reshape(B * S * K, C), self.layers(),
-                                   self.running(), K, self.epsilon)
-        return pooled.reshape(B, S, -1)

@@ -1,8 +1,8 @@
 """Set-abstraction stage semantics: [Dense -> BatchNorm(train) -> ReLU] x L
 then a max-pool over the neighbour axis (counterpart of
 facl_tpu/ops/fused_sa.py:27-92). The plain references here define what
-the pair3 kernels (ops/sa_pair.py) compute; tests hold both against each
-other and against the JAX package.
+the SA kernels (ops/sa_pair.py, sa_fwd.py, sa_bwd.py) compute; tests hold
+both against each other and against the JAX package.
 
 Statistics are float32 and biased (flax convention); the returned
 (mean, var) per layer feed the caller's running-statistics update.
@@ -56,3 +56,36 @@ def sa_eval_reference(x: torch.Tensor, layers: Sequence[SALayerParams],
                        + lp.shift)
     R, C = h.shape
     return h.reshape(R // pool_size, pool_size, C).amax(1)
+
+
+def sa_reference_4d(x: torch.Tensor, layers: Sequence[SALayerParams],
+                    eps: float = 1e-5, running=None, moments=None):
+    """The op sequence of facl_tpu/models/sa_stage.py::_reference_4d on
+    (..., K, C0) neighbourhoods: per layer p = h W + b, its batch moments
+    (reductions over every axis but the last, the variance clamped at 0;
+    or ``moments(h, lp)``; or ``running[i]`` in eval mode), the folded
+    affine y = p * mul + shift, ReLU; then the max over K. Returns (pooled
+    (..., C_L), [(mean, var)] per layer, the pre-activations [p1, ..,
+    pL], the layer inputs [x, h1, .., h_{L-1}]). Plain torch,
+    differentiable by autograd; also the forward of the hybrid and
+    analytic paths (facl_tpu/ops/pallas/sa_bwd.py:351-373,
+    facl_tpu/ops/analytic_sa.py:47-70)."""
+    h = x
+    stats, ps, hs = [], [], [x]
+    for i, lp in enumerate(layers):
+        p = h @ lp.kernel + lp.bias
+        if running is not None:
+            mean, var = running[i]
+        elif moments is not None:
+            mean, var = moments(h, lp)
+        else:
+            flat = p.reshape(-1, p.shape[-1])
+            mean = flat.mean(0)
+            var = ((flat * flat).mean(0) - mean * mean).clamp_min(0.0)
+        stats.append((mean, var))
+        mul = torch.rsqrt(var + eps) * lp.scale
+        shift = lp.shift - mean * mul
+        h = torch.relu(p * mul + shift)
+        ps.append(p)
+        hs.append(h)
+    return h.amax(-2), stats, ps, hs[:-1]

@@ -1,17 +1,45 @@
-"""Host-side algebra of the SA sweeps (counterpart of the plain-JAX
-helpers in facl_tpu/ops/pallas/sa_bwd.py:56-67,198-229), in float32.
+"""The two-sweep SA backward: kernel B8 and ``sa_impl="hybrid"``
+(counterpart of facl_tpu/ops/pallas/sa_bwd.py), plus the host algebra
+every SA backward shares (sa_bwd.py:56-67,198-229), in float32.
 
-Every contraction here is a tiny (<= 256-wide) matrix with O(rows)
-entries; with TF32 off (facl_tpu_torch/__init__.py) they run in full f32
-on the card, as the JAX side forces Precision.HIGHEST.
+The backward reads the stored pre-activations p1, p2 and recomputes the
+hidden activations from them with each layer's folded affine:
+
+  B8a sa_bwd2_sweep1   recompute the top layer per tile, split each pooled
+                       cotangent evenly among its group's exact ties;
+                       A3 = dy3^T h2, u3, Gram(h2), colsum(h2); q3 rows
+  B8b sa_bwd2_sweep2   dy2 = [h2 > 0] (q3 - h2 M3 - rc3) and layer 1 in
+                       third-order-moment form: A2, G1, TM1, U1, P1, T1x,
+                       cnt1, acc1, Gx, cx (h1 from the stored p1)
+
+Layer 1 then follows in closed form (``_layer1_terms``). Each sweep has a
+CUDA kernel (``csrc/sa_2sweep.cu``) and a plain PyTorch twin; a CPU tensor
+takes the twin, a CUDA tensor launches the kernel or raises, and each
+wrapper counts its launches in ``<wrapper>.launches``. Every host
+contraction is a tiny (<= 256-wide) matrix with O(rows) entries; with
+TF32 off (facl_tpu_torch/__init__.py) they run in full f32 on the card,
+as the JAX side forces Precision.HIGHEST.
+
+Pool ties follow this kernel's rule (sa_bwd.py:70-91), not pair3's: the
+max is taken on the sweep's own recomputed f32 relu(z), and dpooled is
+split evenly among exact ties where z > 0. In ``hybrid`` the forward's p3
+comes from a cuBLAS product and B8a recomputes it in its own order, so at
+near-ties the backward may route to another row than the one the forward
+pooled — as in JAX (sa_bwd.py:30-35).
+
+Input cotangent contract: ZERO (sa_bwd.py:37-39) — the grouped
+neighbourhoods are data in the training step; ``sa_impl="analytic"``
+(ops/analytic_sa.py) returns the input gradient.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 
-from facl_tpu_torch.ops.fused_sa import SALayerParams
+from facl_tpu_torch.ops._launch import I, L, P, TRUNK, check_c0, \
+    check_pool, grid, launch, need, on_cpu, ptr, reduce, stream_of
+from facl_tpu_torch.ops.fused_sa import SALayerParams, sa_reference_4d
 
 
 def _fold_affine(lp: SALayerParams, mean, var, eps):
@@ -23,7 +51,7 @@ def _fold_affine(lp: SALayerParams, mean, var, eps):
 
 def _h_from_p(p, mul, shift):
     """h = relu(p*mul + shift) from a stored pre-activation — the op chain
-    the kernels use (ops/csrc/sa_pair.cu::relu_affine)."""
+    the kernels use (ops/csrc/sa_tile.cuh::relu_affine)."""
     return torch.relu(p * mul + shift)
 
 
@@ -45,3 +73,250 @@ def _layer_terms(A, u, lp: SALayerParams, mean, var, G, ch, n: int,
     M = (W * (inv * s)[None, :]) @ W.T
     rc = (gi * u / n + (b - mean) * inv * s) @ W.T
     return dict(v=v, dW=dW, db=db, dgamma=v, dbeta=u, M=M, rc=rc, gi=gi)
+
+
+def _layer1_terms(m: Dict[str, torch.Tensor], t2, lp1: SALayerParams,
+                  mean1, var1, n: int, eps: float):
+    """Layer 1 in closed form from the sweep-2 moments ``m``
+    (sa_bwd.py:333-339): dy1 = m1 (q2 - h1 M2 - rc2) contracted through
+    acc1, TM1, cnt1 (u1) and P1, U1, T1x (A1 = dy1^T x)."""
+    M2, rc2 = t2["M"], t2["rc"]
+    u1 = m["acc1"] - torch.einsum("cj,jc->c", m["TM1"], M2) \
+        - m["cnt1"] * rc2
+    A1 = (m["P1"] - torch.einsum("jc,cji->ci", M2, m["U1"])
+          - rc2[:, None] * m["T1x"])
+    return _layer_terms(A1, u1, lp1, mean1, var1, m["Gx"], m["cx"], n, eps)
+
+
+# -- plain twins --------------------------------------------------------
+
+def _dy_top(z, dpooled, pool: int):
+    """dy3 (R, C3) from z (R, C3), the layer-3 BatchNorm output before its
+    ReLU: each group's dpooled split evenly among the rows whose relu(z)
+    equals the group's max, where z > 0 (sa_bwd.py:70-91)."""
+    C = z.shape[1]
+    zg = z.reshape(-1, pool, C)
+    h3 = torch.relu(zg)
+    eq = h3 == h3.amax(1, keepdim=True)
+    ties = eq.sum(1, keepdim=True).to(z.dtype)
+    return torch.where(eq & (zg > 0), dpooled[:, None, :] / ties,
+                       0.0).reshape(-1, C)
+
+
+def sa_bwd2_sweep1_plain(p2, mul2, shift2, w3, b3, mul3, shift3, gi3,
+                         dpooled, pool: int):
+    """-> (A3 = dy3^T h2 (C3, C2), u3 = sum dy3, Gram(h2), colsum(h2),
+    q3 = (gi3 dy3) W3^T (R, C2))."""
+    h2 = _h_from_p(p2, mul2, shift2)
+    dy3 = _dy_top((h2 @ w3 + b3) * mul3 + shift3, dpooled, pool)
+    return dy3.T @ h2, dy3.sum(0), h2.T @ h2, h2.sum(0), (dy3 * gi3) @ w3.T
+
+
+def _sweep2_plain(x, h1, p2, mul2, shift2, q3, M3, rc3, gi2, w2):
+    """The accumulators of B6 / B8b from rows x (R, C0) and h1 (R, C1):
+    A2 = dy2^T h1, u2, G1 = Gram(h1), ch1, and with m1 = [h1 > 0] and
+    mq = m1 q2: cnt1 = sum m1, acc1 = sum mq, T1x = m1^T x, P1 = mq^T x,
+    Gx = Gram(x), cx, TM1 = m1^T h1, U1[c, j, i] = sum m1_c x_i h1_j."""
+    h2 = _h_from_p(p2, mul2, shift2)
+    dy2 = torch.where(h2 > 0, q3 - h2 @ M3 - rc3, 0.0)
+    m1 = (h1 > 0).to(h1.dtype)
+    mq = torch.where(h1 > 0, (dy2 * gi2) @ w2.T, 0.0)
+    U1 = torch.stack([(m1 * x[:, i:i + 1]).T @ h1
+                      for i in range(x.shape[1])], -1)
+    return dict(A2=dy2.T @ h1, u2=dy2.sum(0), G1=h1.T @ h1, ch1=h1.sum(0),
+                cnt1=m1.sum(0), acc1=mq.sum(0), T1x=m1.T @ x, P1=mq.T @ x,
+                Gx=x.T @ x, cx=x.sum(0), TM1=m1.T @ h1, U1=U1)
+
+
+def sa_bwd2_sweep2_plain(x, p1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3,
+                         gi2, w2):
+    return _sweep2_plain(x, _h_from_p(p1, mul1, shift1), p2, mul2, shift2,
+                         q3, M3, rc3, gi2, w2)
+
+
+# -- kernel wrappers ----------------------------------------------------
+
+def sa_bwd2_sweep1(p2, mul2, shift2, w3, b3, mul3, shift3, gi3, dpooled,
+                   pool: int):
+    """B8a. -> (A3 (C3, C2), u3 (C3,), G2 (C2, C2), ch2 (C2,), q3 (R, C2))."""
+    if on_cpu(p2):
+        return sa_bwd2_sweep1_plain(p2, mul2, shift2, w3, b3, mul3, shift3,
+                                    gi3, dpooled, pool)
+    R = p2.shape[0]
+    C2, C3 = TRUNK[1], TRUNK[2]
+    check_pool(R, pool)
+    need(p2, (R, C2), "p2")
+    need(w3, (C2, C3), "w3")
+    need(dpooled, (R // pool, C3), "dpooled")
+    vec = torch.cat([mul2, shift2, b3, mul3, shift3, gi3]).contiguous()
+    need(vec, (2 * C2 + 4 * C3,), "mul2|shift2|b3|mul3|shift3|gi3")
+    nblk = grid(p2, R)
+    dev = p2.device
+    q3 = torch.empty((R, C2), dtype=torch.float32, device=dev)
+    partA = torch.empty((nblk, C3, C2), dtype=torch.float64, device=dev)
+    partu = torch.empty((nblk, C3), dtype=torch.float64, device=dev)
+    partG = torch.empty((nblk, C2, C2), dtype=torch.float64, device=dev)
+    partc = torch.empty((nblk, C2), dtype=torch.float64, device=dev)
+    launch("sa_2sweep", "facl_sa_bwd2_sweep1",
+           [P, L, I, P, P, P, P, P, P, P, P, I, P],
+           ptr(p2), R, pool, ptr(vec), ptr(w3), ptr(dpooled), ptr(q3),
+           ptr(partA), ptr(partu), ptr(partG), ptr(partc), nblk,
+           stream_of(p2), what="sa_bwd2_sweep1")
+    sa_bwd2_sweep1.launches += 1
+    return reduce(partA), reduce(partu), reduce(partG), reduce(partc), q3
+
+
+def _launch_sweep2(x, B: int, C0: int, N: int, p1, w1, b1, mul1, shift1,
+                   p2, mul2, shift2, q3, M3, rc3, gi2, w2
+                   ) -> Dict[str, torch.Tensor]:
+    """Launch csrc/sa_2sweep.cu::bwd2_sweep2 (B6 with p1=None, h1 from x;
+    B8b with the stored p1) and unpack its accumulators."""
+    R = B * N
+    C1, C2 = TRUNK[0], TRUNK[1]
+    need(p2, (R, C2), "p2")
+    need(q3, (R, C2), "q3")
+    need(M3, (C2, C2), "M3")
+    need(w2, (C1, C2), "w2")
+    if p1 is None:
+        need(w1, (C0, C1), "w1")
+    else:
+        need(p1, (R, C1), "p1")
+    vec = torch.cat([b1, mul1, shift1, mul2, shift2, rc3, gi2]).contiguous()
+    need(vec, (7 * C1,), "vectors")
+    nblk = grid(x, R)
+    dev = x.device
+    nx = 2 * C1 * C0 + C0 * (C0 + 1)
+    partM = torch.empty((nblk, 2, C2, C1), dtype=torch.float64, device=dev)
+    partV = torch.empty((nblk, 4, C1), dtype=torch.float64, device=dev)
+    partX = torch.empty((nblk, nx), dtype=torch.float64, device=dev)
+    partU = torch.empty((nblk, C0 + 1, C1, C1), dtype=torch.float64,
+                        device=dev)
+    launch("sa_2sweep", "facl_sa_bwd2_sweep2",
+           [P, I, I, I, P, P, P, P, P, P, P, P, P, P, P, I, P],
+           ptr(x), B, C0, N, None if p1 is None else ptr(p1),
+           None if p1 is not None else ptr(w1), ptr(vec), ptr(p2), ptr(q3),
+           ptr(M3), ptr(w2), ptr(partM), ptr(partV), ptr(partX),
+           ptr(partU), nblk, stream_of(x),
+           what="sa_bwd2_sweep2" if p1 is not None else
+           "sa_bwd_sweep2_full")
+    M, V, X, U = (reduce(t) for t in (partM, partV, partX, partU))
+    n1 = C1 * C0
+    gx = X[2 * n1:].view(C0, C0 + 1)
+    return dict(A2=M[0], u2=V[0], G1=M[1], ch1=V[1], cnt1=V[2], acc1=V[3],
+                T1x=X[:n1].view(C1, C0), P1=X[n1:2 * n1].view(C1, C0),
+                Gx=gx[:, :C0], cx=gx[:, C0], TM1=U[0],
+                U1=U[1:].permute(1, 2, 0))
+
+
+def sa_bwd2_sweep2(x, p1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3, gi2,
+                   w2) -> Dict[str, torch.Tensor]:
+    """B8b. x (R, C0) rows, p1/p2 (R, 64) the stored pre-activations.
+    -> the accumulators of ``_sweep2_plain`` by name."""
+    if on_cpu(x):
+        return sa_bwd2_sweep2_plain(x, p1, mul1, shift1, p2, mul2, shift2,
+                                    q3, M3, rc3, gi2, w2)
+    R, C0 = x.shape
+    need(x, (R, C0), "x")
+    check_c0(C0, R)
+    out = _launch_sweep2(x, R, C0, 1, p1, None, torch.zeros_like(mul1),
+                         mul1, shift1, p2, mul2, shift2, q3, M3, rc3, gi2,
+                         w2)
+    sa_bwd2_sweep2.launches += 1
+    return out
+
+
+KERNELS = (sa_bwd2_sweep1, sa_bwd2_sweep2)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+# -- the stage ----------------------------------------------------------
+
+def sa_backward_2sweep(x, p1, p2, layers: Sequence[SALayerParams], stats,
+                       dpooled, pool: int, eps: float):
+    """The two-sweep backward (sa_bwd.py:232-348). x (R, C0) input rows,
+    p1/p2 (R, 64) stored pre-activations, dpooled (R // pool, C3).
+    Returns ((dW, db, dgamma, dbeta) per layer)."""
+    lp1, lp2, lp3 = layers
+    (mean1, var1), (mean2, var2), (mean3, var3) = stats
+    n = x.shape[0]
+    mul1, shift1 = _fold_affine(lp1, mean1, var1, eps)
+    mul2, shift2 = _fold_affine(lp2, mean2, var2, eps)
+    mul3, shift3 = _fold_affine(lp3, mean3, var3, eps)
+    gi2 = lp2.scale * torch.rsqrt(var2 + eps)
+    gi3 = lp3.scale * torch.rsqrt(var3 + eps)
+
+    A3, u3, G2, ch2, q3 = sa_bwd2_sweep1(p2, mul2, shift2, lp3.kernel,
+                                         lp3.bias, mul3, shift3, gi3,
+                                         dpooled, pool)
+    t3 = _layer_terms(A3, u3, lp3, mean3, var3, G2, ch2, n, eps)
+    m = sa_bwd2_sweep2(x, p1, mul1, shift1, p2, mul2, shift2, q3,
+                       t3["M"].contiguous(), t3["rc"], gi2, lp2.kernel)
+    t2 = _layer_terms(m["A2"], m["u2"], lp2, mean2, var2, m["G1"],
+                      m["ch1"], n, eps)
+    t1 = _layer1_terms(m, t2, lp1, mean1, var1, n, eps)
+    return [(t["dW"], t["db"], t["dgamma"], t["dbeta"]) for t in (t1, t2, t3)]
+
+
+class _TwoSweep(torch.autograd.Function):
+    """pooled, *stats = f(x, eps, forward, *12 layer tensors) for x (...,
+    K, C0), where ``forward(rows, layers, K, eps)`` returns (pooled rows,
+    stats, p1, p2); the backward is :func:`sa_backward_2sweep` on the
+    stored p1/p2. Stats carry no gradient (they feed the running-statistics
+    update); the input cotangent is zero by contract."""
+
+    @staticmethod
+    def forward(ctx, x, eps, forward, *flat):
+        layers = [SALayerParams(*flat[4 * i:4 * i + 4]) for i in range(3)]
+        K, C0 = x.shape[-2:]
+        rows = x.reshape(-1, C0).contiguous()
+        pooled, stats, p1, p2 = forward(rows, layers, K, eps)
+        flat_stats = [m for s in stats for m in s]
+        ctx.eps, ctx.pool, ctx.x_shape = eps, K, x.shape
+        ctx.save_for_backward(rows, p1, p2, *flat, *flat_stats)
+        ctx.mark_non_differentiable(*flat_stats)
+        return (pooled.reshape(*x.shape[:-2], -1), *flat_stats)
+
+    @staticmethod
+    def backward(ctx, dpooled, *_):
+        rows, p1, p2, *rest = ctx.saved_tensors
+        layers = [SALayerParams(*rest[4 * i:4 * i + 4]) for i in range(3)]
+        st = rest[12:]
+        stats = [(st[0], st[1]), (st[2], st[3]), (st[4], st[5])]
+        grads = sa_backward_2sweep(
+            rows, p1, p2, layers, stats,
+            dpooled.reshape(-1, dpooled.shape[-1]).contiguous(), ctx.pool,
+            ctx.eps)
+        return (torch.zeros(ctx.x_shape, dtype=rows.dtype,
+                            device=rows.device), None, None,
+                *(g for layer in grads for g in layer))
+
+
+def two_sweep_train(forward, x: torch.Tensor,
+                    layers: Sequence[SALayerParams], eps: float, name: str
+                    ) -> Tuple[torch.Tensor, list]:
+    if len(layers) != 3:
+        raise ValueError(f"the {name} stage is specialised to 3 layers")
+    out = _TwoSweep.apply(x, eps, forward, *(t for lp in layers for t in lp))
+    st = out[1:]
+    return out[0], [(st[0], st[1]), (st[2], st[3]), (st[4], st[5])]
+
+
+def _forward_ps(rows, layers, pool: int, eps: float):
+    """The reference op sequence on rows grouped ``pool`` at a time
+    (sa_bwd.py:351-373): pooled, stats and the pre-activations p1, p2 as
+    residuals. Plain torch, the matmuls too: the JAX package computes
+    this forward in XLA, outside Pallas."""
+    pooled, stats, ps, _ = sa_reference_4d(
+        rows.view(-1, pool, rows.shape[1]), layers, eps)
+    return (pooled, stats, ps[0].reshape(rows.shape[0], -1),
+            ps[1].reshape(rows.shape[0], -1))
+
+
+def sa_train_hybrid(x: torch.Tensor, layers: Sequence[SALayerParams],
+                    eps: float = 1e-5) -> Tuple[torch.Tensor, list]:
+    """``sa_impl="hybrid"``: the plain reference forward + the two-sweep
+    backward (B8). x (..., K, C0), max-pooled over K. Returns (pooled
+    (..., C3), [(mean, var)] x 3). Differentiable in every layer
+    parameter; the input cotangent is ZERO."""
+    return two_sweep_train(_forward_ps, x, layers, eps, "hybrid")

@@ -1,44 +1,52 @@
-"""The pair3 set-abstraction stage: kernels B2 (forward) and B3 (slim
-backward) and the autograd function that joins them.
+"""The pair and pair3 set-abstraction stages: kernels B2 (forward), B3
+(slim backward) and B6 (the non-slim backward's sweep 2), and the autograd
+function that joins them.
 
-Counterpart of facl_tpu/ops/pallas/sa_pair.py::sa_train_pair_cf with
-``slim=True`` (forward ``sa_forward_pair`` :557, backward
-``sa_backward_pair`` :711). Train-mode [Dense -> BN -> ReLU] x 3 + a
-max-pool over K, computed in five row sweeps:
+Counterpart of facl_tpu/ops/pallas/sa_pair.py::sa_train_pair_cf
+(forward ``sa_forward_pair`` :557, backward ``sa_backward_pair`` :711).
+Train-mode [Dense -> BN -> ReLU] x 3 + a max-pool over K, computed in row
+sweeps:
 
-  B2  sa_fwd_layer12    x -> p1 -> h1 -> p2, sums of p2 and p2^2
-      sa_fwd_gram_pool  Gram(h2), colsum(h2), per-group max/min of raw p3
-                        with first indices
-  B3  sa_bwd_sweep1     dy3 from the argmax residual; A3, u3; q3 rows
-      sa_bwd_sweep2     dy2; A2, G1, u2, ch1; mq = m1 * q2 rows
-      sa_bwd_sweep3     dy1 = m1 (mq - h1 M2 - rc2); dy1^T [x | 1]
+  B2  sa_fwd_layer12      x -> p1 -> h1 -> p2, sums of p2 and p2^2
+      sa_fwd_gram_pool    Gram(h2), colsum(h2), per-group max/min of raw
+                          p3 with first indices
+  B3  sa_bwd_sweep1       dy3 from the argmax residual; A3, u3; q3 rows
+  pair3 (slim=True):
+  B3  sa_bwd_sweep2       dy2; A2, G1, u2, ch1; mq = m1 * q2 rows
+      sa_bwd_sweep3       dy1 = m1 (mq - h1 M2 - rc2); dy1^T [x | 1]
+  pair (slim=False):
+  B6  sa_bwd_sweep2_full  dy2; A2, G1, u2, ch1 and layer 1 in third-order
+                          moment form (TM1, U1, P1, T1x, cnt1, acc1, Gx, cx;
+                          ops/sa_bwd.py::_layer1_terms closes it)
 
-Each sweep has a CUDA kernel (``csrc/sa_pair.cu``) and a plain PyTorch
-twin that returns the same tensors. A wrapper runs the twin for a CPU
-tensor and launches the kernel for a CUDA tensor (or raises); it counts
-its launches in ``<wrapper>.launches``. The moments of layer 1 (from
-Gram(x)), the layer-3 finalize, the pool finalize and the closed-form
-layer algebra between sweeps are plain PyTorch in f32, as XLA did them
-outside Pallas. The TPU's paired-row layout is not ported; rows are
-(R, C) and the input is read channel-major, (B, C0, S*K).
+Each sweep has a CUDA kernel (``csrc/sa_pair.cu``; B6 shares B8b's
+template in ``csrc/sa_2sweep.cu``, with h1 recomputed from x by the
+forward's own h1_tile) and a plain PyTorch twin that returns the same
+tensors. A wrapper runs the twin for a CPU tensor and launches the kernel
+for a CUDA tensor (or raises); it counts its launches in
+``<wrapper>.launches``. The moments of layer 1 (from Gram(x)), the layer-3
+finalize, the pool finalize and the closed-form layer algebra between
+sweeps are plain PyTorch in f32, as XLA did them outside Pallas. The
+TPU's paired-row layout is not ported; rows are (R, C) and the input is
+read channel-major, (B, C0, S*K). Both backwards route each pooled
+cotangent to the first index of the raw-p3 max (or min) the forward
+found.
 
 Input cotangent contract: ZERO (facl_tpu/ops/pallas/sa_pair.py:67-68) —
 the grouped neighbourhoods are data in the training step.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence, Tuple
 
 import torch
 
-from facl_tpu_torch.ops import _build
+from facl_tpu_torch.ops._launch import I, L, P, TRUNK, check_pool, \
+    check_x, grid, launch, need, on_cpu, ptr, reduce, stream_of
 from facl_tpu_torch.ops.fused_sa import SALayerParams
-from facl_tpu_torch.ops.sa_bwd import _fold_affine, _h_from_p, _layer_terms
-from facl_tpu_torch.ops.sa_fwd import _finalize
-
-TILE = 64          # rows per kernel tile (csrc/sa_pair.cu TR)
-TRUNK = (64, 64, 256)
+from facl_tpu_torch.ops.sa_bwd import _fold_affine, _h_from_p, \
+    _launch_sweep2, _layer1_terms, _layer_terms, _sweep2_plain
+from facl_tpu_torch.ops.sa_fwd import _finalize, _moments_from_gram
 
 
 # -- plain twins --------------------------------------------------------
@@ -99,6 +107,14 @@ def sa_bwd_sweep2_plain(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3,
     return dy2.T @ h1, h1.T @ h1, dy2.sum(0), h1.sum(0), mq
 
 
+def sa_bwd_sweep2_full_plain(x3, w1, b1, mul1, shift1, p2, mul2, shift2,
+                             q3, M3, rc3, gi2, w2):
+    """-> the accumulators of ops/sa_bwd.py::_sweep2_plain by name, h1
+    recomputed from x."""
+    return _sweep2_plain(_rows(x3), _h1_plain(x3, w1, b1, mul1, shift1), p2,
+                         mul2, shift2, q3, M3, rc3, gi2, w2)
+
+
 def sa_bwd_sweep3_plain(x3, w1, b1, mul1, shift1, mq, M2, rc2):
     """-> (A1 = dy1^T x (C1, C0), u1 = sum dy1 (C1,))."""
     h1 = _h1_plain(x3, w1, b1, mul1, shift1)
@@ -108,101 +124,44 @@ def sa_bwd_sweep3_plain(x3, w1, b1, mul1, shift1, mq, M2, rc2):
 
 # -- kernel wrappers ----------------------------------------------------
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    """True for a CPU tensor (run the twin); False for CUDA (launch)."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"sa_pair: unsupported device {t.device}")
-    return False
-
-
-def _need(t: torch.Tensor, shape, name: str, dtype=torch.float32):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _check_x(x3: torch.Tensor):
-    B, C0, N = x3.shape
-    _need(x3, (B, C0, N), "x")
-    if not 1 <= C0 <= 7 or (B * N) % TILE:
-        raise ValueError(f"sa_pair kernels take 1 <= C0 <= 7 input channels"
-                         f" and a row count divisible by {TILE}; got "
-                         f"C0={C0}, rows={B * N}")
-    return B, C0, N
-
-
-def _check_pool(R: int, pool: int):
-    if R % TILE or R % pool or (TILE % pool and pool % TILE):
-        raise ValueError(f"sa_pair kernels take pool sizes dividing or "
-                         f"divisible by {TILE}, and row counts divisible by "
-                         f"both; got pool={pool}, rows={R}")
-
-
-def _reduce(part: torch.Tensor) -> torch.Tensor:
-    """Sum per-block float64 partials in a fixed order; float32 out."""
-    return part.sum(0).float()
-
-
-def _grid(t: torch.Tensor, R: int) -> int:
-    return min(R // TILE, 2 * _build.sm_count(t.device))
-
-
-def _launch(name: str, argtypes, *args, what: str):
-    lib, fn = _build.function("sa_pair", name, argtypes)
-    _build.check(lib, fn(*args), what)
-
-
-P, I = _build.P, _build.I
-L = ctypes.c_int64
-_ptr = _build.ptr
-
-
 def sa_fwd_layer12(x3, w1, b1, mul1, shift1, w2, b2):
     """B2 sweep A. x3 (B, C0, N) -> (p2 (B*N, 64), sum p2, sum p2^2)."""
-    if _on_cpu(x3):
+    if on_cpu(x3):
         return sa_fwd_layer12_plain(x3, w1, b1, mul1, shift1, w2, b2)
-    B, C0, N = _check_x(x3)
+    B, C0, N = check_x(x3)
     C1, C2 = TRUNK[0], TRUNK[1]
-    _need(w1, (C0, C1), "w1")
-    _need(w2, (C1, C2), "w2")
-    _need(b2, (C2,), "b2")
+    need(w1, (C0, C1), "w1")
+    need(w2, (C1, C2), "w2")
+    need(b2, (C2,), "b2")
     vec1 = torch.cat([b1, mul1, shift1]).contiguous()
-    _need(vec1, (3 * C1,), "b1|mul1|shift1")
+    need(vec1, (3 * C1,), "b1|mul1|shift1")
     R = B * N
-    nblk = _grid(x3, R)
+    nblk = grid(x3, R)
     p2 = torch.empty((R, C2), dtype=torch.float32, device=x3.device)
     part = torch.empty((nblk, 2, C2), dtype=torch.float64,
                        device=x3.device)
-    _launch("facl_sa_fwd_layer12", [P, I, I, I, P, P, P, P, P, P, I, P],
-            _ptr(x3), B, C0, N, _ptr(w1), _ptr(vec1), _ptr(w2), _ptr(b2),
-            _ptr(p2), _ptr(part), nblk, _build.stream_of(x3),
-            what="sa_fwd_layer12")
+    launch("sa_pair", "facl_sa_fwd_layer12",
+           [P, I, I, I, P, P, P, P, P, P, I, P],
+           ptr(x3), B, C0, N, ptr(w1), ptr(vec1), ptr(w2), ptr(b2), ptr(p2),
+           ptr(part), nblk, stream_of(x3), what="sa_fwd_layer12")
     sa_fwd_layer12.launches += 1
-    s = _reduce(part)
+    s = reduce(part)
     return p2, s[0], s[1]
 
 
 def sa_fwd_gram_pool(p2, mul2, shift2, w3, b3, pool: int):
     """B2 sweep B. -> (Gram(h2), colsum(h2), max, min, argmax, argmin)."""
-    if _on_cpu(p2):
+    if on_cpu(p2):
         return sa_fwd_gram_pool_plain(p2, mul2, shift2, w3, b3, pool)
     R = p2.shape[0]
     C2, C3 = TRUNK[1], TRUNK[2]
-    _need(p2, (R, C2), "p2")
-    _need(w3, (C2, C3), "w3")
-    _need(b3, (C3,), "b3")
-    _check_pool(R, pool)
+    need(p2, (R, C2), "p2")
+    need(w3, (C2, C3), "w3")
+    need(b3, (C3,), "b3")
+    check_pool(R, pool)
     vec2 = torch.cat([mul2, shift2]).contiguous()
-    _need(vec2, (2 * C2,), "mul2|shift2")
-    nblk = _grid(p2, R)
+    need(vec2, (2 * C2,), "mul2|shift2")
+    nblk = grid(p2, R)
     dev, Pn = p2.device, R // pool
     partG = torch.empty((nblk, C2, C2), dtype=torch.float64, device=dev)
     partc = torch.empty((nblk, C2), dtype=torch.float64, device=dev)
@@ -210,115 +169,121 @@ def sa_fwd_gram_pool(p2, mul2, shift2, w3, b3, pool: int):
     mn = torch.empty_like(mx)
     imx = torch.empty((Pn, C3), dtype=torch.int32, device=dev)
     imn = torch.empty_like(imx)
-    _launch("facl_sa_fwd_gram_pool", [P, L, I, P, P, P, P, P, P, P, P, P, I,
-                                      P],
-            _ptr(p2), R, pool, _ptr(vec2), _ptr(w3), _ptr(b3), _ptr(partG),
-            _ptr(partc), _ptr(mx), _ptr(mn), _ptr(imx), _ptr(imn), nblk,
-            _build.stream_of(p2), what="sa_fwd_gram_pool")
+    launch("sa_pair", "facl_sa_fwd_gram_pool",
+           [P, L, I, P, P, P, P, P, P, P, P, P, I, P],
+           ptr(p2), R, pool, ptr(vec2), ptr(w3), ptr(b3), ptr(partG),
+           ptr(partc), ptr(mx), ptr(mn), ptr(imx), ptr(imn), nblk,
+           stream_of(p2), what="sa_fwd_gram_pool")
     sa_fwd_gram_pool.launches += 1
-    return _reduce(partG), _reduce(partc), mx, mn, imx, imn
+    return reduce(partG), reduce(partc), mx, mn, imx, imn
 
 
 def sa_bwd_sweep1(p2, mul2, shift2, dpooled, idx, gi3, w3, pool: int):
     """B3 sweep 1. -> (A3 (C3, C2), u3 (C3,), q3 (R, C2))."""
-    if _on_cpu(p2):
+    if on_cpu(p2):
         return sa_bwd_sweep1_plain(p2, mul2, shift2, dpooled, idx, gi3, w3,
                                    pool)
     R = p2.shape[0]
     C2, C3 = TRUNK[1], TRUNK[2]
-    _check_pool(R, pool)
-    _need(p2, (R, C2), "p2")
-    _need(dpooled, (R // pool, C3), "dpooled")
-    _need(idx, (R // pool, C3), "idx", torch.int32)
-    _need(gi3, (C3,), "gi3")
-    _need(w3, (C2, C3), "w3")
+    check_pool(R, pool)
+    need(p2, (R, C2), "p2")
+    need(dpooled, (R // pool, C3), "dpooled")
+    need(idx, (R // pool, C3), "idx", torch.int32)
+    need(gi3, (C3,), "gi3")
+    need(w3, (C2, C3), "w3")
     vec2 = torch.cat([mul2, shift2]).contiguous()
-    nblk = _grid(p2, R)
+    nblk = grid(p2, R)
     dev = p2.device
     q3 = torch.empty((R, C2), dtype=torch.float32, device=dev)
     partA = torch.empty((nblk, C3, C2), dtype=torch.float64, device=dev)
     partu = torch.empty((nblk, C3), dtype=torch.float64, device=dev)
-    _launch("facl_sa_bwd_sweep1", [P, L, I, P, P, P, P, P, P, P, P, I, P],
-            _ptr(p2), R, pool, _ptr(vec2), _ptr(dpooled), _ptr(idx),
-            _ptr(gi3), _ptr(w3), _ptr(q3), _ptr(partA), _ptr(partu), nblk,
-            _build.stream_of(p2), what="sa_bwd_sweep1")
+    launch("sa_pair", "facl_sa_bwd_sweep1",
+           [P, L, I, P, P, P, P, P, P, P, P, I, P],
+           ptr(p2), R, pool, ptr(vec2), ptr(dpooled), ptr(idx), ptr(gi3),
+           ptr(w3), ptr(q3), ptr(partA), ptr(partu), nblk, stream_of(p2),
+           what="sa_bwd_sweep1")
     sa_bwd_sweep1.launches += 1
-    return _reduce(partA), _reduce(partu), q3
+    return reduce(partA), reduce(partu), q3
 
 
 def sa_bwd_sweep2(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3,
                   gi2, w2):
     """B3 sweep 2. -> (A2 (C2, C1), G1 (C1, C1), u2, ch1, mq (R, C1))."""
-    if _on_cpu(x3):
+    if on_cpu(x3):
         return sa_bwd_sweep2_plain(x3, w1, b1, mul1, shift1, p2, mul2,
                                    shift2, q3, M3, rc3, gi2, w2)
-    B, C0, N = _check_x(x3)
+    B, C0, N = check_x(x3)
     C1, C2 = TRUNK[0], TRUNK[1]
     R = B * N
-    _need(w1, (C0, C1), "w1")
-    _need(p2, (R, C2), "p2")
-    _need(q3, (R, C2), "q3")
-    _need(M3, (C2, C2), "M3")
-    _need(w2, (C1, C2), "w2")
+    need(w1, (C0, C1), "w1")
+    need(p2, (R, C2), "p2")
+    need(q3, (R, C2), "q3")
+    need(M3, (C2, C2), "M3")
+    need(w2, (C1, C2), "w2")
     vec = torch.cat([b1, mul1, shift1, mul2, shift2, rc3, gi2]).contiguous()
-    _need(vec, (7 * C1,), "vectors")
-    nblk = _grid(x3, R)
+    need(vec, (7 * C1,), "vectors")
+    nblk = grid(x3, R)
     dev = x3.device
     mq = torch.empty((R, C1), dtype=torch.float32, device=dev)
     partA = torch.empty((nblk, C2, C1), dtype=torch.float64, device=dev)
     partG = torch.empty((nblk, C1, C1), dtype=torch.float64, device=dev)
     partu = torch.empty((nblk, C2), dtype=torch.float64, device=dev)
     partc = torch.empty((nblk, C1), dtype=torch.float64, device=dev)
-    _launch("facl_sa_bwd_sweep2", [P, I, I, I, P, P, P, P, P, P, P, P, P, P,
-                                   P, I, P],
-            _ptr(x3), B, C0, N, _ptr(w1), _ptr(vec), _ptr(p2), _ptr(q3),
-            _ptr(M3), _ptr(w2), _ptr(mq), _ptr(partA), _ptr(partG),
-            _ptr(partu), _ptr(partc), nblk, _build.stream_of(x3),
-            what="sa_bwd_sweep2")
+    launch("sa_pair", "facl_sa_bwd_sweep2",
+           [P, I, I, I, P, P, P, P, P, P, P, P, P, P, P, I, P],
+           ptr(x3), B, C0, N, ptr(w1), ptr(vec), ptr(p2), ptr(q3), ptr(M3),
+           ptr(w2), ptr(mq), ptr(partA), ptr(partG), ptr(partu), ptr(partc),
+           nblk, stream_of(x3), what="sa_bwd_sweep2")
     sa_bwd_sweep2.launches += 1
-    return (_reduce(partA), _reduce(partG), _reduce(partu), _reduce(partc),
+    return (reduce(partA), reduce(partG), reduce(partu), reduce(partc),
             mq)
 
 
 def sa_bwd_sweep3(x3, w1, b1, mul1, shift1, mq, M2, rc2):
     """B3 sweep 3. -> (A1 (C1, C0), u1 (C1,))."""
-    if _on_cpu(x3):
+    if on_cpu(x3):
         return sa_bwd_sweep3_plain(x3, w1, b1, mul1, shift1, mq, M2, rc2)
-    B, C0, N = _check_x(x3)
+    B, C0, N = check_x(x3)
     C1 = TRUNK[0]
     R = B * N
-    _need(w1, (C0, C1), "w1")
-    _need(mq, (R, C1), "mq")
-    _need(M2, (C1, C1), "M2")
+    need(w1, (C0, C1), "w1")
+    need(mq, (R, C1), "mq")
+    need(M2, (C1, C1), "M2")
     vec = torch.cat([b1, mul1, shift1, rc2]).contiguous()
-    _need(vec, (4 * C1,), "vectors")
-    nblk = _grid(x3, R)
+    need(vec, (4 * C1,), "vectors")
+    nblk = grid(x3, R)
     part = torch.empty((nblk, C1, C0 + 1), dtype=torch.float64,
                        device=x3.device)
-    _launch("facl_sa_bwd_sweep3", [P, I, I, I, P, P, P, P, P, I, P],
-            _ptr(x3), B, C0, N, _ptr(w1), _ptr(vec), _ptr(mq), _ptr(M2),
-            _ptr(part), nblk, _build.stream_of(x3), what="sa_bwd_sweep3")
+    launch("sa_pair", "facl_sa_bwd_sweep3",
+           [P, I, I, I, P, P, P, P, P, I, P],
+           ptr(x3), B, C0, N, ptr(w1), ptr(vec), ptr(mq), ptr(M2), ptr(part),
+           nblk, stream_of(x3), what="sa_bwd_sweep3")
     sa_bwd_sweep3.launches += 1
-    out = _reduce(part)
+    out = reduce(part)
     return out[:, :C0], out[:, C0]
 
 
+def sa_bwd_sweep2_full(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3,
+                       rc3, gi2, w2):
+    """B6: sweep 2 of the non-slim backward. -> the accumulators of
+    ops/sa_bwd.py::_sweep2_plain by name."""
+    if on_cpu(x3):
+        return sa_bwd_sweep2_full_plain(x3, w1, b1, mul1, shift1, p2, mul2,
+                                        shift2, q3, M3, rc3, gi2, w2)
+    B, C0, N = check_x(x3)
+    out = _launch_sweep2(x3, B, C0, N, None, w1, b1, mul1, shift1, p2, mul2,
+                         shift2, q3, M3, rc3, gi2, w2)
+    sa_bwd_sweep2_full.launches += 1
+    return out
+
+
 KERNELS = (sa_fwd_layer12, sa_fwd_gram_pool, sa_bwd_sweep1, sa_bwd_sweep2,
-           sa_bwd_sweep3)
+           sa_bwd_sweep3, sa_bwd_sweep2_full)
 for _k in KERNELS:
     _k.launches = 0
 
 
 # -- the stage ----------------------------------------------------------
-
-def _moments_from_gram(G, colsum, w, b, n: int):
-    """Batch mean/var of p = h W + b from Gram(h), colsum(h) (the
-    covariance identity, facl_tpu/ops/pallas/sa_pair.py:601-629,683-692),
-    clamped at 0."""
-    mean = colsum @ w / n + b
-    e2 = ((G @ w) * w).sum(0) / n + b * (2.0 * mean - b)
-    return mean, (e2 - mean * mean).clamp_min(0.0)
-
 
 def sa_forward_pair(x3: torch.Tensor, layers: Sequence[SALayerParams],
                     pool: int, eps: float):
@@ -358,10 +323,11 @@ def sa_forward_pair(x3: torch.Tensor, layers: Sequence[SALayerParams],
 
 
 def sa_backward_pair(x3, layers, stats, res, dpooled, pool: int,
-                     eps: float):
-    """The 3-sweep (slim) backward. Returns ((dW, db, dgamma, dbeta) per
-    layer), the same closed-form algebra as
-    facl_tpu/ops/pallas/sa_pair.py:711-855."""
+                     eps: float, slim: bool = True):
+    """The backward of the stage (facl_tpu/ops/pallas/sa_pair.py:711-947):
+    B3's sweep 1, then the slim sweeps 2 and 3 (``slim``, pair3) or B6 and
+    layer 1 in closed form from its third-order moments (pair). Returns
+    ((dW, db, dgamma, dbeta) per layer)."""
     lp1, lp2, lp3 = layers
     (mean1, var1), (mean2, var2), (mean3, var3) = stats
     n = x3.shape[0] * x3.shape[2]
@@ -374,28 +340,35 @@ def sa_backward_pair(x3, layers, stats, res, dpooled, pool: int,
                                res["idx"], gi3, lp3.kernel, pool)
     t3 = _layer_terms(A3, u3, lp3, mean3, var3, res["G2"], res["ch2"], n,
                       eps)
-    A2, G1, u2, ch1, mq = sa_bwd_sweep2(
-        x3, lp1.kernel, lp1.bias, mul1, shift1, res["p2"], mul2, shift2, q3,
-        t3["M"].contiguous(), t3["rc"], gi2, lp2.kernel)
-    t2 = _layer_terms(A2, u2, lp2, mean2, var2, G1, ch1, n, eps)
-    A1, u1 = sa_bwd_sweep3(x3, lp1.kernel, lp1.bias, mul1, shift1, mq,
-                           t2["M"].contiguous(), t2["rc"])
-    t1 = _layer_terms(A1, u1, lp1, mean1, var1, res["Gx"], res["cx"], n, eps)
+    args2 = (x3, lp1.kernel, lp1.bias, mul1, shift1, res["p2"], mul2, shift2,
+             q3, t3["M"].contiguous(), t3["rc"], gi2, lp2.kernel)
+    if slim:
+        A2, G1, u2, ch1, mq = sa_bwd_sweep2(*args2)
+        t2 = _layer_terms(A2, u2, lp2, mean2, var2, G1, ch1, n, eps)
+        A1, u1 = sa_bwd_sweep3(x3, lp1.kernel, lp1.bias, mul1, shift1, mq,
+                               t2["M"].contiguous(), t2["rc"])
+        t1 = _layer_terms(A1, u1, lp1, mean1, var1, res["Gx"], res["cx"], n,
+                          eps)
+    else:
+        m = sa_bwd_sweep2_full(*args2)
+        t2 = _layer_terms(m["A2"], m["u2"], lp2, mean2, var2, m["G1"],
+                          m["ch1"], n, eps)
+        t1 = _layer1_terms(m, t2, lp1, mean1, var1, n, eps)
     return [(t["dW"], t["db"], t["dgamma"], t["dbeta"]) for t in (t1, t2, t3)]
 
 
-class _Pair3(torch.autograd.Function):
-    """pooled, stats = f(x_cf, eps, *12 layer tensors). Stats carry no
-    gradient (they feed the running-statistics update); the input
+class _Pair(torch.autograd.Function):
+    """pooled, *stats = f(x_cf, eps, slim, *12 layer tensors). Stats carry
+    no gradient (they feed the running-statistics update); the input
     cotangent is zero by contract."""
 
     @staticmethod
-    def forward(ctx, x_cf, eps, *flat):
+    def forward(ctx, x_cf, eps, slim, *flat):
         layers = [SALayerParams(*flat[4 * i:4 * i + 4]) for i in range(3)]
         Bv, C0, S, K = x_cf.shape
         x3 = x_cf.reshape(Bv, C0, S * K)
         pooled, stats, res = sa_forward_pair(x3, layers, K, eps)
-        ctx.eps, ctx.pool, ctx.x_shape = eps, K, x_cf.shape
+        ctx.eps, ctx.pool, ctx.slim, ctx.x_shape = eps, K, slim, x_cf.shape
         keys = sorted(res)
         ctx.res_keys = keys
         ctx.save_for_backward(x3, *flat, *(m for s in stats for m in s),
@@ -415,21 +388,31 @@ class _Pair3(torch.autograd.Function):
         stats = [(st[0], st[1]), (st[2], st[3]), (st[4], st[5])]
         C3 = dpooled.shape[-1]
         grads = sa_backward_pair(x3, layers, stats, res,
-                                 dpooled.reshape(-1, C3), ctx.pool, ctx.eps)
+                                 dpooled.reshape(-1, C3), ctx.pool, ctx.eps,
+                                 ctx.slim)
         flat_grads = [g for layer in grads for g in layer]
         return (torch.zeros(ctx.x_shape, dtype=x3.dtype, device=x3.device),
-                None, *flat_grads)
+                None, None, *flat_grads)
+
+
+def sa_train_pair(x_cf: torch.Tensor, layers: Sequence[SALayerParams],
+                  eps: float = 1e-5, slim: bool = False
+                  ) -> Tuple[torch.Tensor, list]:
+    """Train-mode SA stage on channel-major neighbourhoods x_cf (B, C0, S,
+    K), max-pooled over K: ``sa_impl="pair"`` (B6 backward), or "pair3"
+    with ``slim``. Returns (pooled (B, S, C3), [(mean, var)] x 3).
+    Differentiable in every layer parameter; the input cotangent is ZERO."""
+    if len(layers) != 3:
+        raise ValueError("the pair stage is specialised to 3 layers")
+    flat = [t for lp in layers for t in lp]
+    out = _Pair.apply(x_cf.contiguous(), eps, slim, *flat)
+    pooled, st = out[0], out[1:]
+    return pooled, [(st[0], st[1]), (st[2], st[3]), (st[4], st[5])]
 
 
 def sa_train_pair3(x_cf: torch.Tensor, layers: Sequence[SALayerParams],
                    eps: float = 1e-5
                    ) -> Tuple[torch.Tensor, list]:
-    """Train-mode SA stage on channel-major neighbourhoods x_cf (B, C0, S,
-    K), max-pooled over K. Returns (pooled (B, S, C3), [(mean, var)] x 3).
-    Differentiable in every layer parameter; the input cotangent is ZERO."""
-    if len(layers) != 3:
-        raise ValueError("the pair3 stage is specialised to 3 layers")
-    flat = [t for lp in layers for t in lp]
-    out = _Pair3.apply(x_cf.contiguous(), eps, *flat)
-    pooled, st = out[0], out[1:]
-    return pooled, [(st[0], st[1]), (st[2], st[3]), (st[4], st[5])]
+    """``sa_impl="pair3"``: :func:`sa_train_pair` with the slim 3-sweep
+    backward (B3)."""
+    return sa_train_pair(x_cf, layers, eps, slim=True)

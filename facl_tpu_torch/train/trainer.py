@@ -2,15 +2,20 @@
 (counterpart of facl_tpu/train/trainer.py:35-229,267-347).
 
 One step: points (G, B, N, C) crop-major -> batch-major (B, G, ...) ->
-grouping (kernel B1) -> encoder (the pair3 SA stage, kernels B2/B3) ->
-global-local + circle InfoNCE -> backward -> Adam -> LR schedule. The
-BatchNorm running statistics update during the forward, which reads only
-batch statistics, so the order against Adam does not change any value.
+grouping (kernel B1; channel-major (B, C, S, K) neighbourhoods for the
+pair/pair3 SA stage, channels-last (B, S, K, C) for the other impls) ->
+encoder (the SA stage of ``ModelConfig.sa_impl``: pair3 by default,
+kernels B2/B3; pair B2/B3/B6; hybrid2 B7/B8; hybrid B8; reference,
+covar and analytic plain) -> global-local + circle InfoNCE -> backward ->
+Adam -> LR schedule. The BatchNorm running statistics update during the
+forward, which reads only batch statistics, so the order against Adam
+does not change any value.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-SwAV and CLD (Queue 1 item 14), the two-program ``split_step`` (a JAX
-scratch-arena workaround, Queue 1 item 16) and any ``compute_dtype``
-other than float32 (bf16, Queue 1 item 8).
+``sa_impl="pallas"`` (kernel B9, Queue 1 item 7), SwAV and CLD (Queue 1
+item 14), the two-program ``split_step`` (a JAX scratch-arena
+workaround, Queue 1 item 16) and any ``compute_dtype`` other than
+float32 (bf16, Queue 1 item 8).
 """
 from __future__ import annotations
 

@@ -28,33 +28,36 @@ def test_select_gather_bit_equal(dev, rng):
     assert torch.equal(i, ip) and torch.equal(g, gp)
 
 
-@pytest.mark.parametrize("K", [64, 128])   # a pool group in one / two tiles
-def test_pair3_stage_matches_twins(dev, rng, K):
+def _layers(rng, d="cpu"):
     from facl_tpu_torch.ops.fused_sa import SALayerParams
-    from facl_tpu_torch.ops.sa_pair import sa_train_pair3
-
-    x = rng.normal(size=(4, 4, 16, K)).astype(np.float32)
-    layers, cin = [], 4
+    out, cin = [], 4
     for w in (64, 64, 256):
-        layers.append([rng.normal(size=(cin, w), scale=0.3),
-                       rng.normal(size=(w,), scale=0.1),
-                       1.0 + 0.3 * rng.normal(size=(w,)),
-                       rng.normal(size=(w,), scale=0.1)])
+        out.append([rng.normal(size=(cin, w), scale=0.3),
+                    rng.normal(size=(w,), scale=0.1),
+                    1.0 + 0.3 * rng.normal(size=(w,)),
+                    rng.normal(size=(w,), scale=0.1)])
         cin = w
+    return out
+
+
+def _stage_vs_twins(dev, rng, K, train):
+    """train(x_cf or x, layers) on the CPU (twins) and on the card
+    (kernels), same inputs; pooled at the bar of tests/test_sa_pair.py,
+    gradients at 2e-4 of their scale (tests/test_torch_parity.py)."""
+    from facl_tpu_torch.ops.fused_sa import SALayerParams
+    x = rng.normal(size=(4, 4, 16, K)).astype(np.float32)
+    layers = _layers(rng)
     wvec = torch.from_numpy(rng.normal(size=(256,)).astype(np.float32))
     out = {}
     for d in ("cpu", dev):
         lp = [SALayerParams(*(torch.tensor(a, dtype=torch.float32,
                                            device=d, requires_grad=True)
                               for a in layer)) for layer in layers]
-        pooled, _ = sa_train_pair3(torch.from_numpy(x).to(d), lp)
+        pooled, _ = train(torch.from_numpy(x).to(d), lp)
         (torch.sin(pooled) * wvec.to(d)).sum().backward()
         out[str(d)] = (pooled.detach().cpu(),
                        [t.grad.cpu() for layer in lp for t in layer])
     (pc, gc), (pg, gg) = out["cpu"], out[str(dev)]
-    # Sums taken in another order on the card: pooled at the bar of
-    # tests/test_sa_pair.py, gradients at 2e-4 of their scale (the bar of
-    # tests/test_torch_parity.py).
     torch.testing.assert_close(pg, pc, rtol=1e-4, atol=1e-5)
     gscale = max(float(t.abs().max()) for t in gc)
     for i, (a, b) in enumerate(zip(gg, gc)):
@@ -63,3 +66,78 @@ def test_pair3_stage_matches_twins(dev, rng, K):
             continue
         scale = max(float(b.abs().max()), 1e-8)
         torch.testing.assert_close(a / scale, b / scale, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("K", [64, 128])   # a pool group in one / two tiles
+def test_pair3_stage_matches_twins(dev, rng, K):
+    from facl_tpu_torch.ops.sa_pair import sa_train_pair3
+    _stage_vs_twins(dev, rng, K, sa_train_pair3)
+
+
+@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("impl", ["pair", "hybrid2", "hybrid"])
+def test_two_sweep_stages_match_twins(dev, rng, impl, K):
+    from facl_tpu_torch.ops.sa_bwd import sa_train_hybrid
+    from facl_tpu_torch.ops.sa_fwd import sa_train_pfwd
+    from facl_tpu_torch.ops.sa_pair import sa_train_pair
+    if impl == "pair":
+        _stage_vs_twins(dev, rng, K, sa_train_pair)
+        return
+    fn = sa_train_pfwd if impl == "hybrid2" else sa_train_hybrid
+    _stage_vs_twins(dev, rng, K,
+                    lambda x, lp: fn(x.permute(0, 2, 3, 1), lp))
+
+
+@pytest.mark.parametrize("K", [64, 128])
+def test_b6_b7_b8_kernels_match_twins(dev, rng, K):
+    """Each new wrapper against its plain twin on the same card tensors:
+    accumulators within 1e-4 of their max-abs, row outputs and pooled
+    values at rtol 1e-5 / atol 1e-5 x scale, cnt1 exactly."""
+    from facl_tpu_torch.ops import sa_bwd as SB
+    from facl_tpu_torch.ops import sa_fwd as SF
+    from facl_tpu_torch.ops import sa_pair as SP
+
+    def close(k, t, acc):
+        if acc:
+            assert float((k - t).abs().max()) <= 1e-4 * float(t.abs().max())
+        else:
+            torch.testing.assert_close(k, t, rtol=1e-5,
+                                       atol=1e-5 * float(t.abs().max()))
+
+    def both(fn, plain, *args, acc):
+        k, t = fn(*args), plain(*args)
+        if isinstance(k, dict):
+            assert torch.equal(k["cnt1"], t["cnt1"])
+            for n in t:
+                close(k[n], t[n], True)
+        else:
+            for a, b, is_acc in zip(k, t, acc):
+                close(a, b, is_acc)
+        return t
+
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    (w1, b1, _, _), (w2, b2, _, _), (w3, b3, _, _) = \
+        [[t(a) for a in layer] for layer in _layers(rng)]
+    R = 4 * 16 * K
+    x = t(rng.normal(size=(R, 4)))
+    vec = lambda n, s=1.0: t(s * rng.normal(size=(n,)))
+    mul1, shift1, mul2, shift2 = vec(64, 2), vec(64), vec(64, 0.3), vec(64)
+    mul3, shift3, gi2, gi3 = vec(256, 0.2), vec(256), vec(64), vec(256)
+    p1, _, _ = both(SF.sa_fwd_layer, SF.sa_fwd_layer_plain, x, w1, b1,
+                    acc=(False, True, True))
+    p2, _, _ = both(SF.sa_fwd_layer, SF.sa_fwd_layer_plain, p1, w2, b2,
+                    mul1, shift1, acc=(False, True, True))
+    both(SF.sa_fwd_gram, SF.sa_fwd_gram_plain, p2, mul2, shift2,
+         acc=(True, True))
+    both(SF.sa_fwd_pool, SF.sa_fwd_pool_plain, p2, mul2, shift2, w3, b3,
+         mul3, shift3, K, acc=(False,))
+    dp = vec(R // K * 256).view(R // K, 256)
+    q3 = both(SB.sa_bwd2_sweep1, SB.sa_bwd2_sweep1_plain, p2, mul2, shift2,
+              w3, b3, mul3, shift3, gi3, dp, K,
+              acc=(True, True, True, True, False))[-1]
+    M3, rc3 = t(0.01 * rng.normal(size=(64, 64))), vec(64, 0.1)
+    both(SB.sa_bwd2_sweep2, SB.sa_bwd2_sweep2_plain, x, p1, mul1, shift1,
+         p2, mul2, shift2, q3, M3, rc3, gi2, w2, acc=None)
+    x3 = x.view(4, 16 * K, 4).transpose(1, 2).contiguous()
+    both(SP.sa_bwd_sweep2_full, SP.sa_bwd_sweep2_full_plain, x3, w1, b1,
+         mul1, shift1, p2, mul2, shift2, q3, M3, rc3, gi2, w2, acc=None)

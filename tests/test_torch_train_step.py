@@ -8,13 +8,16 @@ rtol 2e-3; final parameters (entries whose step-0 gradient is well above
 the frameworks' agreed noise floor; BN-absorbed biases skipped — their
 gradient is mathematically zero and Adam random-walks the noise) at
 atol 3e-3 of the parameter scale; BN running means at rtol 2e-3 /
-atol 3e-3 sigma and variances at rtol 3e-3.
+atol 3e-3 sigma and variances at rtol 3e-3. The same holds for three
+steps with the kernel-backed SA paths ``hybrid2`` and ``pair`` on both
+sides.
 """
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from facl_tpu.config import Config as JaxConfig
@@ -48,43 +51,48 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-def test_six_steps_match_jax_trainer(rng):
+def _run_both(rng, steps, sa_impl):
+    """``steps`` steps of the JAX Trainer (``sa_impl`` as given, else
+    "reference") and of the port's (its default, else ``sa_impl``) from
+    the same weights, points and permutations. Returns (JAX losses, JAX
+    final state, port losses, port state, the port's step-0 gradients)."""
     batches = [rng.normal(size=(G, B, N, 4)).astype(np.float32)
-               for _ in range(STEPS)]
+               for _ in range(steps)]
     keys = [jax.random.fold_in(jax.random.PRNGKey(11), i)
-            for i in range(STEPS)]
+            for i in range(steps)]
     # The JAX step draws its circle permutation from split(key)[1].
     perms = [np.asarray(jax.random.permutation(jax.random.split(k)[1], G))
              for k in keys]
 
     jt = JaxTrainer(_cfg(JaxConfig, JaxGroupingConfig,
-                         sa_impl="reference"), steps_per_epoch=1)
+                         sa_impl=sa_impl or "reference"), steps_per_epoch=1)
     jstate = jt.init_state(jax.random.PRNGKey(0), jnp.asarray(batches[0]))
     params0 = jax.tree_util.tree_map(np.asarray, jstate.params)
     stats0 = jax.tree_util.tree_map(np.asarray, jstate.batch_stats)
     jlosses = []
-    for i in range(STEPS):
+    for i in range(steps):
         jstate, m = jt.step_fn(jstate, jnp.asarray(batches[i]), keys[i],
                                jnp.asarray(0, jnp.int32))
         jlosses.append(float(m["loss"]))
 
     from facl_tpu_torch.config import GroupingConfig
-    tt = Trainer(_cfg(Config, GroupingConfig), steps_per_epoch=1,
+    kw = {"sa_impl": sa_impl} if sa_impl else {}
+    tt = Trainer(_cfg(Config, GroupingConfig, **kw), steps_per_epoch=1,
                  device="cpu")
     tstate = tt.init_state(0)
     tstate.model.load_state_dict(from_jax(params0, stats0))
     tlosses, grads0 = [], {}
-    for i in range(STEPS):
+    for i in range(steps):
         tstate, m = tt.step_fn(tstate, torch.from_numpy(batches[i]),
                                perm=torch.tensor(perms[i]))
         tlosses.append(float(m["loss"]))
         if i == 0:
             grads0 = {n: p.grad.clone() for n, p in
                       tstate.model.named_parameters() if p.grad is not None}
-    assert tstate.step == STEPS
-    assert tstate.scheduler.get_last_lr()[0] == 3e-4 * 0.7
-    np.testing.assert_allclose(tlosses, jlosses, rtol=2e-3)
+    return jlosses, jstate, tlosses, tstate, grads0
 
+
+def _assert_states(jstate, tstate, grads0):
     tparams = from_jax(jax.tree_util.tree_map(np.asarray, jstate.params),
                        {})
     live = dict(tstate.model.named_parameters())
@@ -118,3 +126,20 @@ def test_six_steps_match_jax_trainer(rng):
         else:
             np.testing.assert_allclose(tv, jv, rtol=3e-3, atol=1e-6,
                                        err_msg=name)
+
+
+def test_six_steps_match_jax_trainer(rng):
+    jlosses, jstate, tlosses, tstate, grads0 = _run_both(rng, STEPS, None)
+    assert tstate.step == STEPS
+    assert tstate.scheduler.get_last_lr()[0] == 3e-4 * 0.7
+    np.testing.assert_allclose(tlosses, jlosses, rtol=2e-3)
+    _assert_states(jstate, tstate, grads0)
+
+
+@pytest.mark.parametrize("sa_impl", ["hybrid2", "pair"])
+def test_steps_match_jax_trainer_with_impl(rng, sa_impl):
+    jlosses, jstate, tlosses, tstate, grads0 = _run_both(rng, 3, sa_impl)
+    assert tstate.model.cfg.sa_impl == sa_impl
+    assert tstate.model.cfg.channels_first == (sa_impl == "pair")
+    np.testing.assert_allclose(tlosses, jlosses, rtol=2e-3)
+    _assert_states(jstate, tstate, grads0)
