@@ -11,17 +11,21 @@ Phases (any failure exits nonzero, before the final line):
              source, in parallel) and print the build time and ptxas use;
   2. kernels each kernel and its twin on the same card tensors at the
              main path's shapes (64 videos x 10 crops x 512 points, S=K=64,
-             SA widths 4-64-64-256): B1 bit-equal; B2/B3/B6/B7/B8
-             accumulators to 1e-4 of their max-abs (cnt1 exactly), row
-             outputs and pooled values at rtol 1e-5 / atol 1e-5 x scale,
-             pool indices equal except where the twin's own values tie.
-             Times: CUDA events, median of 10 after 2 warm-up runs. Then
+             SA widths 4-64-64-256): B1, B4 and B5a bit-equal (B4's idx
+             also to B1's); B5b within 1e-5 of the scale of index_add_;
+             B2/B3/B6/B7/B8 accumulators to 1e-4 of their max-abs (cnt1
+             exactly); B9's eight launches (stats to 1e-5, BN sums and dW
+             to 1e-4 of their max-abs, db near zero); row outputs, pooled
+             values and B9's dx at rtol 1e-5 / atol 1e-5 x scale; pool
+             indices equal except where the twin's own values tie.
+             Times: CUDA events, median of 10 after 2 warm-up runs; beside
+             B5a and B5b one library call (torch.gather, index_add_). Then
              the whole SA stage (forward + backward) of each sa_impl with
-             kernels (pair3, pair, hybrid2, hybrid) on the same inputs as
-             kernels, twins and float64 twins: the kernels must be as
-             close to float64 as the twins are;
-  3. cpu-vs-card one full-width train step at B=8 for pair3, pair and
-             hybrid2 on the CPU (twins) and on the card (kernels, then
+             kernels (pair3, pair, hybrid2, hybrid, pallas) at K=64 and
+             K=128 on the same inputs as kernels, twins and float64
+             twins: the kernels must be as close to float64 as the twins;
+  3. cpu-vs-card one full-width train step at B=8 for pair3, pair, hybrid2
+             and pallas on the CPU (twins) and on the card (kernels, then
              twins), same weights, points and permutation: loss at rtol
              1e-4, BN-absorbed biases near zero; the ReLU and pool
              decisions that flipped between the devices are counted,
@@ -31,12 +35,18 @@ Phases (any failure exits nonzero, before the final line):
   4. main    the Trainer at full width, f32, B=64 (bench.py's workload),
              sa_impl pair3 (the default; the headline): 2 warm-up steps
              (run_epoch), then 40 steps timed by CUDA events between steps
-             (median and spread); then pair, hybrid2 and hybrid, 2 warm-up
-             and 20 timed steps each. Losses finite and every kernel of
-             each path launched on every step (counters zeroed just before
-             each path, read just after). --profile adds one profiled
-             step to each path: kernel time over that step's own span
-             gives the device's idle share.
+             (median and spread); then pair, hybrid2, hybrid and pallas, 2
+             warm-up and 20 timed steps each, and pallas on the split
+             grouping routes (select_impl=pallas / gather_impl=xla: B4;
+             xla / pallas: B5a), 2 + 5 steps each. Losses finite and every
+             kernel of each path launched exactly its count per step
+             (counters zeroed just before each path, read just after).
+             --profile adds one profiled step to each impl's path: kernel
+             time over that step's own span gives the device's idle share;
+  5. input   d(loss)/d(points) through each grouping route and the
+             pallas SA stage with input_grad (B9's dx, B5b) at B=8: card
+             kernels vs card twins vs CPU (phase_input_grad), with exact
+             launches per route.
 Output: a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -136,18 +146,45 @@ def sweep_modules():
     return sa_pair, sa_fwd, sa_bwd
 
 
+def sa_modules():
+    """Every module with SA sweep kernels: sweep_modules() and B9's."""
+    from facl_tpu_torch.ops import sa_kernel
+    return sweep_modules() + (sa_kernel,)
+
+
 @contextlib.contextmanager
-def twins_on_card():
-    """Route the SA stage's sweeps to their plain twins for card tensors
-    (for the yardstick chains below; the port itself never does this)."""
-    saved = [(m, k) for m in sweep_modules() for k in m.KERNELS]
-    for m, k in saved:
-        setattr(m, k.__name__, getattr(m, k.__name__ + "_plain"))
+def swapped(pairs):
+    """Set each (module, name, value) for the block, then restore."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in pairs]
+    for m, n, v in pairs:
+        setattr(m, n, v)
     try:
         yield
     finally:
-        for m, k in saved:
-            setattr(m, k.__name__, k)
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def twins_on_card():
+    """Route the SA stage's sweeps to their plain twins for card tensors
+    (for the yardstick chains below; the port itself never does this)."""
+    return swapped([(m, k.__name__, getattr(m, k.__name__ + "_plain"))
+                    for m in sa_modules() for k in m.KERNELS])
+
+
+def grouping_twins_on_card():
+    """The same for the grouping kernels B1, B4, B5a and B5b."""
+    from facl_tpu_torch.ops import gather as GA
+    from facl_tpu_torch.ops import grouping as GR
+    from facl_tpu_torch.ops import select as SEL
+
+    def sg(points, S, K, r2, return_idx=False):
+        return SEL.select_gather_plain(points, S, K, r2)
+    return swapped([(SEL, "select_gather", sg),
+                    (SEL, "select_knn_ball", SEL.select_knn_ball_plain),
+                    (GR, "select_knn_ball", SEL.select_knn_ball_plain),
+                    (GA, "gather_rows", GA.gather_rows_plain),
+                    (GA, "scatter_add_rows", GA.scatter_add_rows_plain)])
 
 
 def near_ties(z, pool: int, tol: float):
@@ -162,6 +199,19 @@ def near_ties(z, pool: int, tol: float):
     gap = zmax - zg
     return (zmax[:, 0].abs() <= tol) | \
         ((zmax[:, 0] > 0) & ((gap > 0) & (gap <= tol)).any(1))
+
+
+def b9_z(x, layers, packed):
+    """z (R, C_L) of B9's top layer, its BatchNorm output before the ReLU,
+    recomputed by the twins' op chain in x's dtype from the forward's
+    packed statistics (for near_ties and the routing records)."""
+    from facl_tpu_torch.ops import sa_kernel as SK
+    layers = [SK.SALayerParams(*(t.to(x.dtype) for t in lp)) for lp in layers]
+    v = SK.vectors(layers, packed.to(x.dtype), None, x.shape[0])
+    h = SK._forward_plain(x, layers, v, len(layers) - 1)[1][-1]
+    w = layers[-1].kernel.shape[1]
+    return (h @ layers[-1].kernel + v[-1, 0, :w]) * v[-1, 3, :w] \
+        + v[-1, 4, :w]
 
 
 def _z64(p2, stats, lp2, lp3, eps=1e-5):
@@ -184,11 +234,11 @@ def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3"):
     group's pre-activation sits within round-off of a tie or of zero, and
     one flipped choice moves a whole dpooled entry (measured: 4e-4 on
     dbeta3 from such flips). So pair/pair3 give all three backwards the
-    kernels' routing (argmax and dead-ReLU sentinel); hybrid/hybrid2,
-    whose routing is made inside B8a, take a dpooled that is zero on the
-    pairs near_ties finds in the float64 forward (tolerance 1e-4 of the
-    largest |z|)."""
-    SP, SF, SB = sweep_modules()
+    kernels' routing (argmax and dead-ReLU sentinel); hybrid/hybrid2 and
+    pallas, whose routing is made inside B8a / B9, take a dpooled that is
+    zero on the pairs near_ties finds in the float64 forward (tolerance
+    1e-4 of the largest |z|). pallas also returns, and is held on, dx."""
+    SP, SF, SB, SK = sa_modules()
     pair = impl in ("pair", "pair3")
     rows = x3.transpose(1, 2).reshape(-1, x3.shape[1]).contiguous()
 
@@ -196,6 +246,10 @@ def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3"):
         L = [SP.SALayerParams(*(t.to(dt) for t in lp)) for lp in layers]
         if pair:
             pooled, stats, res = SP.sa_forward_pair(x3.to(dt), L, pool, 1e-5)
+        elif impl == "pallas":
+            pooled, stats, packed = SK.sa_train_forward_unified(
+                rows.to(dt), L, pool, 1e-5)
+            res = dict(packed=packed)
         else:
             f = SF.sa_forward_4sweep if impl == "hybrid2" else SB._forward_ps
             pooled, stats, p1, p2 = f(rows.to(dt), L, pool, 1e-5)
@@ -210,6 +264,9 @@ def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3"):
             grads = SP.sa_backward_pair(
                 x3.to(dt), L, stats, dict(res, idx=route), dpooled.to(dt),
                 pool, 1e-5, slim=impl == "pair3")
+        elif impl == "pallas":
+            outs["dx"], grads = SK.sa_train_backward_unified(
+                rows.to(dt), L, res["packed"], route.to(dt), pool)
         else:
             grads = SB.sa_backward_2sweep(rows.to(dt), res["p1"], res["p2"],
                                           L, stats, route.to(dt), pool, 1e-5)
@@ -224,7 +281,8 @@ def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3"):
         fk = fwd(torch.float32)
         route = fk[2]["idx"]
     else:
-        z = _z64(f64[2]["p2"], f64[1], *f64[0][1:])
+        z = b9_z(rows.double(), f64[0], f64[2]["packed"]) \
+            if impl == "pallas" else _z64(f64[2]["p2"], f64[1], *f64[0][1:])
         near = near_ties(z, pool, 1e-4 * float(z.abs().max()))
         del z
         route = torch.where(near, 0.0, dpooled)
@@ -362,6 +420,173 @@ def two_sweep_rows(x3, layers, dpooled, K):
     return rows
 
 
+SRC_SEL = "facl_tpu_torch/ops/csrc/select.cu"
+SRC_GA = "facl_tpu_torch/ops/csrc/gather.cu"
+SRC9 = "facl_tpu_torch/ops/csrc/sa_fused.cu"
+
+
+def grouping_rows(flat, S, K, r2, g):
+    """B4, B5a and B5b against their twins on the main path's clouds: B4's
+    idx bit-equal to its twin and to B1's; B5a bit-equal; B5b (rows summed
+    in a fixed order) within 1e-5 of the scale of index_add_ (atomics).
+    Library calls: torch.gather for B5a, index_add_ for B5b."""
+    from facl_tpu_torch.ops import gather as GA
+    from facl_tpu_torch.ops import select as SEL
+    Bc, N, C = flat.shape
+    ki = SEL.select_knn_ball(flat, S, K, r2)
+    check(torch.equal(ki, SEL.select_knn_ball_plain(flat, S, K, r2)),
+          "B4: idx differ from the twin")
+    check(torch.equal(ki, SEL.select_gather(flat, S, K, r2, True)[1]),
+          "B4: idx differ from B1's")
+    rows = [dict(name="select_knn_ball", args=(flat, S, K, r2), err=0.0,
+                 nbytes=Bc * N * 3 * 4 + Bc * S * K * 4,
+                 ops=Bc * S * N * 12, fn=SEL.select_knn_ball,
+                 plain=SEL.select_knn_ball_plain, source=SRC_SEL,
+                 replaces="facl_tpu/ops/pallas/select.py:258")]
+    idx = ki.reshape(Bc, S * K)
+    check(torch.equal(GA.gather_rows(flat, idx),
+                      GA.gather_rows_plain(flat, idx)), "B5a: not bit-equal")
+    i64 = idx.long()[..., None].expand(Bc, S * K, C)
+    rows.append(dict(name="gather_rows", args=(flat, idx), err=0.0,
+                     nbytes=(Bc * N * C + Bc * S * K + Bc * S * K * C) * 4,
+                     ops=0, fn=GA.gather_rows, plain=GA.gather_rows_plain,
+                     library=lambda: torch.gather(flat, 1, i64),
+                     source=SRC_GA,
+                     replaces="facl_tpu/ops/pallas/gather.py:72"))
+    gr = torch.randn(Bc, S * K, C, generator=g).to(flat.device)
+    k, t = GA.scatter_add_rows(idx, gr, N), GA.scatter_add_rows_plain(idx,
+                                                                      gr, N)
+    err = float((k - t).abs().max())
+    check(err <= 1e-5 * float(t.abs().max()),
+          f"B5b: {err:.3e} from index_add_ beyond 1e-5 x scale")
+    check(torch.equal(k, GA.scatter_add_rows(idx, gr, N)),
+          "B5b: two runs differ")
+    flat_i = (idx.long() + N * torch.arange(Bc, device=flat.device)[:, None]
+              ).reshape(-1)
+    acc = torch.zeros(Bc * N, C, device=flat.device)
+    gflat = gr.reshape(-1, C)
+    rows.append(dict(name="scatter_add_rows", args=(idx, gr, N), err=err,
+                     nbytes=(Bc * S * K + Bc * S * K * C + Bc * N * C) * 4,
+                     ops=Bc * S * K * C, fn=GA.scatter_add_rows,
+                     plain=GA.scatter_add_rows_plain,
+                     library=lambda: acc.index_add_(0, flat_i, gflat),
+                     source=SRC_GA,
+                     replaces="facl_tpu/ops/pallas/gather.py:126"))
+    print(f"B4 select_knn_ball {tuple(flat.shape)} S={S} K={K}: idx "
+          f"bit-equal to its twin and B1; B5a gather_rows bit-equal; B5b "
+          f"scatter_add_rows {err:.3e} from index_add_, deterministic",
+          flush=True)
+    return rows
+
+
+def b9_ops(widths, C0, sweep, target=-1):
+    """f32 operations per row of one B9 launch, from the TPU kernel's own
+    recomputes: a layer costs 2 cin w for its product and 4 w for bias,
+    affine and ReLU; stats sweeps 4 w more for the sums; the pool 1 per
+    top element, its cotangent split 3; the backward per layer 8 w for
+    mask, xhat and dp (6 w for the target's sums), 2 cin w for da = dp
+    W^T below the top, and in the final sweep 2 cin w + w for dW and db
+    and the dx product."""
+    cins = [C0] + list(widths[:-1])
+    L = len(widths)
+
+    def fwd(n):
+        return sum(2 * cins[l] * widths[l] + 4 * widths[l] for l in range(n))
+    if sweep == "stats":
+        return fwd(target) + 2 * cins[target] * widths[target] \
+            + 4 * widths[target]
+    if sweep == "pool":
+        return fwd(L) + widths[-1]
+    ops = fwd(L) + 3 * widths[-1]
+    stop = target if sweep == "bnsum" else -1
+    for l in range(L - 1, stop, -1):
+        ops += 8 * widths[l]
+        if l or sweep == "final":
+            ops += 2 * cins[l] * widths[l]            # da (dx at l = 0)
+        if sweep == "final":
+            ops += 2 * cins[l] * widths[l] + widths[l]
+    if sweep == "bnsum":
+        ops += 6 * widths[target]
+    return ops
+
+
+def b9_rows(xr, layers, K, dpooled):
+    """B9's eight launches of a main-path step (three stats sweeps, the
+    pool sweep, three BN-sum sweeps, the final sweep) against their twins
+    on the same card tensors, each fed its twin's inputs: sums and dW to
+    1e-4 of their max-abs (stats to 1e-5), pooled and dx at rtol 1e-5 /
+    atol 1e-5 x scale, db (exactly zero: a BatchNorm follows each Dense)
+    near zero. dpooled is zero on the near_ties pairs of a float64
+    recompute (tolerance 1e-5 of the largest |z|), where a kernel and a
+    twin that sum in another order may route differently."""
+    from facl_tpu_torch.ops import sa_kernel as SK
+    from facl_tpu_torch.ops.sa_fwd import _finalize
+    R, C0 = xr.shape
+    widths = [lp.kernel.shape[1] for lp in layers]
+    L, P, eps = len(layers), R // K, 1e-5
+    rows = []
+
+    def add(name, args, err, nbytes, ops, fn):
+        rows.append(dict(name=name, args=args, err=err, nbytes=nbytes,
+                         ops=R * ops, fn=fn,
+                         plain=getattr(SK, fn.__name__ + "_plain"),
+                         source=SRC9,
+                         replaces="facl_tpu/ops/pallas/sa_kernel.py:282"
+                         if fn in (SK.sa_fused_stats, SK.sa_fused_pool) else
+                         "facl_tpu/ops/pallas/sa_kernel.py:480"))
+
+    packed = torch.zeros(L, 2, max(widths), device=xr.device)
+    for l, w in enumerate(widths):
+        a = (xr, layers, packed.clone(), K, l)
+        k, t = SK.sa_fused_stats(*a), SK.sa_fused_stats_plain(*a)
+        err = 0.0
+        for kk, tt, n in zip(k, t, ("sum p", "sum p^2")):
+            e = float((kk - tt).abs().max())
+            check(e <= 1e-5 * float(tt.abs().max()),
+                  f"B9 stats layer {l} {n}: {e:.3e} beyond 1e-5 x scale")
+            err = max(err, e)
+        add(f"sa_fused_stats (layer {l})", a, err, R * C0 * 4,
+            b9_ops(widths, C0, "stats", l), SK.sa_fused_stats)
+        mean, var = _finalize(t[0], t[1], R)
+        packed[l, 0, :w], packed[l, 1, :w] = mean, torch.rsqrt(var + eps)
+    a = (xr, layers, packed, K)
+    add("sa_fused_pool", a, row_err(SK.sa_fused_pool(*a),
+                                    SK.sa_fused_pool_plain(*a), "B9 pooled"),
+        R * C0 * 4 + P * widths[-1] * 4, b9_ops(widths, C0, "pool"),
+        SK.sa_fused_pool)
+
+    z = b9_z(xr.double(), layers, packed)
+    near = near_ties(z, K, 1e-5 * float(z.abs().max()))
+    del z
+    dp = torch.where(near, 0.0, dpooled)
+    bsums = torch.zeros_like(packed)
+    for l in reversed(range(L)):
+        a = (xr, layers, packed, bsums.clone(), dp, K, l)
+        k, t = SK.sa_fused_bnsum(*a), SK.sa_fused_bnsum_plain(*a)
+        add(f"sa_fused_bnsum (layer {l})", a,
+            max(acc_err(k[0], t[0], f"B9 bnsum {l} sum dy"),
+                acc_err(k[1], t[1], f"B9 bnsum {l} sum dy xhat")),
+            R * C0 * 4 + P * widths[-1] * 4,
+            b9_ops(widths, C0, "bnsum", l), SK.sa_fused_bnsum)
+        bsums[l, 0, :widths[l]], bsums[l, 1, :widths[l]] = t
+    a = (xr, layers, packed, bsums, dp, K, True)
+    (kd, kw, kb), (td, tw, tb) = SK.sa_fused_final(*a), \
+        SK.sa_fused_final_plain(*a)
+    err = max([row_err(kd, td, "B9 dx")] +
+              [acc_err(kk, tt, f"B9 dW{l}") for l, (kk, tt) in
+               enumerate(zip(kw, tw))])
+    gscale = max(float(t.abs().max()) for t in tw)
+    for l, (kk, tt) in enumerate(zip(kb, tb)):
+        check(max(float(kk.abs().max()), float(tt.abs().max())) <
+              1e-4 * gscale, f"B9 db{l} (exactly zero) not near zero")
+    add("sa_fused_final", a, err, 2 * R * C0 * 4 + P * widths[-1] * 4,
+        b9_ops(widths, C0, "final"), SK.sa_fused_final)
+    print(f"B9: dpooled zeroed on {int(near.sum())} of {near.numel()} "
+          "near-tie (group, channel) pairs; every sweep within its bars",
+          flush=True)
+    return rows
+
+
 def phase_kernels(dev, model, points):
     """Each kernel against its twin on real main-path tensors."""
     from facl_tpu_torch.ops import sa_pair as SP
@@ -391,15 +616,13 @@ def phase_kernels(dev, model, points):
     b1_case("duplicates", torch.cat([half, half], 1).to(dev), 0.2)
     far = torch.randn(flat.shape, generator=g) * 10.0
     b1_case("all-out-of-radius", far.to(dev), 1e-6)
-    ms = median_ms(lambda: SEL.select_gather(flat, S, K, r2))
-    pms = median_ms(lambda: SEL.select_gather_plain(flat, S, K, r2))
     Bc = flat.shape[0]
-    bms, bby = bound(Bc * N * C * 4 + Bc * C * S * K * 4, Bc * S * N * 12)
-    rows.append(dict(name="select_gather",
-                     source="facl_tpu_torch/ops/csrc/select.cu",
-                     replaces="facl_tpu/ops/pallas/select.py:302",
-                     max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=bms,
-                     bound_by=bby, fn=SEL.select_gather))
+    rows.append(dict(name="select_gather", args=(flat, S, K, r2), err=0.0,
+                     nbytes=Bc * N * C * 4 + Bc * C * S * K * 4,
+                     ops=Bc * S * N * 12, fn=SEL.select_gather,
+                     plain=SEL.select_gather_plain, source=SRC_SEL,
+                     replaces="facl_tpu/ops/pallas/select.py:302"))
+    rows += grouping_rows(flat, S, K, r2, g)
 
     # Real SA inputs: the grouped clouds and the model's SA weights.
     grouped, _ = SEL.select_gather(flat, S, K, r2)
@@ -517,8 +740,10 @@ def phase_kernels(dev, model, points):
                          replaces="facl_tpu/ops/pallas/sa_pair.py:863"))
         del km
         rows += two_sweep_rows(x3, (lp1, lp2, lp3), dpooled, K)
+        rows += b9_rows(x3.transpose(1, 2).reshape(R, C0).contiguous(),
+                        [lp1, lp2, lp3], K, dpooled)
         torch.cuda.synchronize()
-        for impl in IMPLS:
+        for impl in IMPLS + ("pallas",):
             sa_chain_vs_f64(x3, [lp1, lp2, lp3], dpooled, K, impl)
 
         # The fine variant's grouping (S=32, K=128): B1, and pool groups
@@ -527,30 +752,37 @@ def phase_kernels(dev, model, points):
         gf = b1_case("fine", flat, r2, Sf, Kf)
         gf[:, :3] -= flat[:, :Sf, :3].transpose(1, 2)[..., None]
         dpf = torch.randn(Bc * Sf, C3, generator=g).to(dev)
-        for impl in IMPLS:
+        for impl in IMPLS + ("pallas",):
             sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf,
                             Kf, impl)
 
-        for r in rows[1:]:
+        for r in rows:
             args, fn, plain = r.pop("args"), r["fn"], r.pop("plain")
             r["ms"] = median_ms(lambda: fn(*args))
             r["plain_ms"] = median_ms(lambda: plain(*args))
+            lib = r.pop("library", None)
+            r["library_ms"] = median_ms(lib) if lib else None
             r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("ops"))
             r["max_abs_err"] = r.pop("err")
             r.setdefault("source", "facl_tpu_torch/ops/csrc/sa_pair.cu")
     for r in rows:
+        lib = "" if r["library_ms"] is None else \
+            f", library {r['library_ms']:.4f} ms"
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}"
-              f" ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "
+              f" ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}{lib}), "
               f"max |kernel - twin| = {r['max_abs_err']:.3e}", flush=True)
     return rows
 
 
-def _cfg(batch, impl="pair3"):
+def _cfg(batch, impl="pair3", select_impl="auto", gather_impl="auto"):
     import dataclasses
     from facl_tpu_torch.config import Config
     cfg = Config()
     return cfg.replace(train=dataclasses.replace(cfg.train, batch_size=batch),
-                       model=dataclasses.replace(cfg.model, sa_impl=impl))
+                       model=dataclasses.replace(cfg.model, sa_impl=impl),
+                       grouping=dataclasses.replace(
+                           cfg.grouping, select_impl=select_impl,
+                           gather_impl=gather_impl))
 
 
 def _f64_grads(tr, pts, perm):
@@ -588,7 +820,14 @@ def sa_routing(store: list, impl: str):
     for hybrid2 the rows B8a's rule routes to (relu(z) at the group's max,
     z > 0, ties split), recomputed by the plain ops from the forward's p2
     and statistics on the same device (on the card the kernel's own
-    choice may differ from that recompute at near-ties)."""
+    choice may differ from that recompute at near-ties); for pallas the
+    same rule on B9's top layer (b9_decisions)."""
+    if impl == "pallas":
+        records = []
+        with b9_decisions(records):
+            yield
+        store.extend(r[-1] for r in records)
+        return
     SP, SF, SB = sweep_modules()
     pair = impl in ("pair", "pair3")
     mod, name = (SP, "sa_forward_pair") if pair else \
@@ -720,8 +959,8 @@ def _compare(gc, gk, touched, absorbed):
 
 
 def phase_cpu_vs_card(dev):
-    """For pair3, pair and hybrid2 (between them B2, B3, B6, B7, B8; hybrid
-    adds no kernel): one step_fn on the CPU (twins) and on the card
+    """For pair3, pair, hybrid2 and pallas (between them B2, B3, B6, B7,
+    B8, B9; hybrid adds no kernel): one step_fn on the CPU (twins) and on the card
     (kernels), same weights, points and permutation: loss at rtol 1e-4;
     BN-absorbed biases near zero; gradients at max-abs 2e-4 of their
     scale wherever no flipped decision reaches, and at relative L2 1e-2
@@ -747,7 +986,7 @@ def phase_cpu_vs_card(dev):
     g = torch.Generator().manual_seed(SEED + 2)
     pts = torch.randn(G, B, N, C, generator=g)
     perm = torch.randperm(G, generator=g)
-    for impl in IMPLS[:3]:
+    for impl in IMPLS[:3] + ("pallas",):
         _cpu_vs_card(dev, impl, pts, perm)
 
 
@@ -807,6 +1046,120 @@ def _cpu_vs_card(dev, impl, pts, perm):
                          f"{dnorm:.3e} > 1e-3 where no decision flipped")
 
 
+#: B9: L = 3 stats sweeps + the pool sweep, 3 BN-sum sweeps + the final.
+B9_STEP = {"sa_fused_stats": 3, "sa_fused_pool": 1, "sa_fused_bnsum": 3,
+           "sa_fused_final": 1}
+ROUTES = (("pallas", "pallas"), ("pallas", "xla"), ("xla", "pallas"),
+          ("xla", "xla"))
+#: Launches of one input-gradient step per grouping route: B9's forward
+#: and backward (final sweep with dx), and the route's grouping kernels
+#: (B1 and B5a differentiate through the scatter-add B5b).
+ROUTE_LAUNCHES = {
+    ("pallas", "pallas"): dict(B9_STEP, select_gather=1, scatter_add_rows=1),
+    ("pallas", "xla"): dict(B9_STEP, select_knn_ball=1),
+    ("xla", "pallas"): dict(B9_STEP, gather_rows=1, scatter_add_rows=1),
+    ("xla", "xla"): dict(B9_STEP),
+}
+
+
+@contextlib.contextmanager
+def b9_decisions(store: list):
+    """Record every B9 forward's discrete decisions into ``store``: the
+    ReLU masks of the layers below the top and the top layer's pool
+    routing (relu(z) at the group's max, z > 0), recomputed by the twins'
+    ops from the forward's statistics on the same device."""
+    from facl_tpu_torch.ops import sa_bwd as SB
+    from facl_tpu_torch.ops import sa_kernel as SK
+    fwd = SK.sa_train_forward_unified
+
+    def capture(x, layers, pool, eps=1e-5):
+        out = fwd(x, layers, pool, eps)
+        v = SK.vectors(layers, out[2], None, x.shape[0])
+        ps, _ = SK._forward_plain(x, layers, v, len(layers) - 1)
+        masks = [(p * v[l, 3, :p.shape[1]] + v[l, 4, :p.shape[1]] > 0).cpu()
+                 for l, p in enumerate(ps)]
+        z = b9_z(x, layers, out[2])
+        ones = torch.ones(z.shape[0] // pool, z.shape[1], device=z.device,
+                          dtype=z.dtype)
+        store.append(masks + [(SB._dy_top(z, ones, pool) != 0).cpu()])
+        return out
+    with swapped([(SK, "sa_train_forward_unified", capture)]):
+        yield
+
+
+def phase_input_grad(dev):
+    """d(loss)/d(points) through each grouping route and
+    SetAbstractionStage(impl="pallas", input_grad=True) — the path that
+    launches B9's dx and the scatter-add B5b — at B=8 videos x 10 crops,
+    N=512, S=K=64, widths 4-64-64-256: on the card with the kernels, on
+    the card with every kernel's twin, and on the CPU (twins), from the
+    same weights and points (xyz uniform in a 0.8 cube, so ~12% of each
+    cloud lies in a centroid's ball and the gather term is real). loss =
+    sum(sin(pooled) w). The gradient is held at relative L2 1e-2 and,
+    where no ReLU or pool decision of the SA stage flipped between the
+    devices, at max-abs 2e-4 of its scale (a flip moves the BatchNorm
+    sums, so it reaches every entry: phase_cpu_vs_card). Launches per
+    route are counted with the counters zeroed just before the card run.
+    Returns {route label: launches}."""
+    import copy
+    from facl_tpu_torch.models.sa_stage import SetAbstractionStage
+    from facl_tpu_torch.ops.grouping import group_points
+    g = torch.Generator().manual_seed(SEED + 4)
+    Bc, N, S, K = 80, 512, 64, 64
+    pts = torch.cat([torch.rand(Bc, N, 3, generator=g) * 0.8 - 0.4,
+                     torch.randn(Bc, N, 1, generator=g)], 2)
+    w = torch.randn(256, generator=g)
+    stage0 = SetAbstractionStage(4, (64, 64, 256), impl="pallas",
+                                 input_grad=True, channels_first=False,
+                                 generator=g)
+    kernels = all_kernels()
+    out = {}
+    for route in ROUTES:
+        def run(d, twins=False):
+            stage = copy.deepcopy(stage0).to(d).train()
+            p = pts.to(d, copy=True).requires_grad_(True)
+            dec = []
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(b9_decisions(dec))
+                if twins:
+                    stack.enter_context(twins_on_card())
+                    stack.enter_context(grouping_twins_on_card())
+                neigh, _ = group_points(p, S, K, 0.06, select_impl=route[0],
+                                        gather_impl=route[1])
+                (torch.sin(stage(neigh)) * w.to(d)).sum().backward()
+            return p.grad.cpu(), dec[0]
+        gc, dc = run("cpu")
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        gk, dk = run(dev)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels}
+        want = ROUTE_LAUNCHES[route]
+        for name, n in launches.items():
+            check(n == want.get(name, 0), f"input grad {route}: kernel {name}"
+                  f" launched {n} times, expected {want.get(name, 0)}")
+        gt, dt = run(dev, twins=True)
+        flips = [int((a != b).sum()) for a, b in zip(dc, dk)]
+        tflips = [int((a != b).sum()) for a, b in zip(dc, dt)]
+        scale = max(float(gc.abs().max()), 1e-30)
+        l2, free = _rel_l2(gk, gc), float((gk - gc).abs().max()) / scale
+        print(f"input grad select={route[0]} gather={route[1]}: |grad| max "
+              f"{scale:.3e}, nonzero rows {int((gc.abs().sum(2) > 0).sum())}"
+              f" of {Bc * N}; card vs cpu relative L2 {l2:.3e}, max-abs/scale"
+              f" {free:.3e}, flipped decisions (ReLU layers 1-2, pool "
+              f"routing) {flips}; card twins vs cpu {_rel_l2(gt, gc):.3e} / "
+              f"{float((gt - gc).abs().max()) / scale:.3e}, flips {tflips}; "
+              f"launches { {n: c for n, c in launches.items() if c} }",
+              flush=True)
+        check(l2 <= 1e-2, f"input grad {route}: relative L2 {l2:.3e} > 1e-2")
+        if not any(flips):
+            check(free <= 2e-4, f"input grad {route}: max-abs/scale "
+                                f"{free:.3e} > 2e-4 with no flipped decision")
+        out[f"input grad {route[0]}/{route[1]}"] = launches
+    return out
+
+
 #: Launches per step of each kernel wrapper on each impl's path.
 PATHS = {
     "pair3": {"select_gather": 1, "sa_fwd_layer12": 1, "sa_fwd_gram_pool": 1,
@@ -817,13 +1170,18 @@ PATHS = {
                 "sa_fwd_pool": 1, "sa_bwd2_sweep1": 1, "sa_bwd2_sweep2": 1},
     "hybrid": {"select_gather": 1, "sa_bwd2_sweep1": 1, "sa_bwd2_sweep2": 1},
 }
+#: The pallas paths: (label, select_impl, gather_impl, timed steps,
+#: launches per step).
+PALLAS_PATHS = (
+    ("pallas", "auto", "auto", 20, dict(B9_STEP, select_gather=1)),
+    ("pallas B4", "pallas", "xla", 5, dict(B9_STEP, select_knn_ball=1)),
+    ("pallas B5a", "xla", "pallas", 5, dict(B9_STEP, gather_rows=1)),
+)
 
 
 def phase_main(dev, profile: bool, card: str):
-    """Each impl's Trainer at full width; returns {impl: launches}."""
-    from facl_tpu_torch.ops import select as SEL
-    kernels = (SEL.select_gather,) + tuple(k for m in sweep_modules()
-                                           for k in m.KERNELS)
+    """Each impl's Trainer at full width; returns {path: launches}."""
+    kernels = all_kernels()
     cfg = _cfg(64)
     G, B = cfg.model.num_crops, cfg.train.batch_size
     N, C = cfg.data.num_points, cfg.model.in_features
@@ -832,15 +1190,32 @@ def phase_main(dev, profile: bool, card: str):
     out = {}
     for impl in IMPLS:
         out[impl] = _run_path(dev, impl, 40 if impl == "pair3" else 20,
-                              batches, g, kernels, card, profile)
+                              batches, g, kernels, card, profile,
+                              PATHS[impl])
+        torch.cuda.empty_cache()
+    for label, si, gi, steps, want in PALLAS_PATHS:
+        out[label] = _run_path(dev, "pallas", steps, batches, g, kernels,
+                               card, profile and label == "pallas", want,
+                               label, si, gi)
         torch.cuda.empty_cache()
     return out
 
 
-def _run_path(dev, impl, steps, batches, g, kernels, card, profile):
+def all_kernels():
+    """Every kernel wrapper of the port (each counts its launches)."""
+    from facl_tpu_torch.ops import gather as GA
+    from facl_tpu_torch.ops import select as SEL
+    return SEL.KERNELS + GA.KERNELS + tuple(k for m in sa_modules()
+                                            for k in m.KERNELS)
+
+
+def _run_path(dev, impl, steps, batches, g, kernels, card, profile, want,
+              label=None, select_impl="auto", gather_impl="auto"):
     from facl_tpu_torch.train import Trainer
     G, B, N = batches.shape[1:4]
-    tr = Trainer(_cfg(B, impl), steps_per_epoch=100, device=dev)
+    label = label or impl
+    tr = Trainer(_cfg(B, impl, select_impl, gather_impl), steps_per_epoch=100,
+                 device=dev)
     state = tr.init_state(SEED)
     state, _ = tr.run_epoch(state, [batches[0], batches[1]], epoch=0,
                             generator=g)
@@ -866,13 +1241,14 @@ def _run_path(dev, impl, steps, batches, g, kernels, card, profile):
     check(all(math.isfinite(v) for v in losses),
           f"{impl}: non-finite loss {losses}")
     for name, n in launches.items():
-        want = PATHS[impl].get(name, 0) * steps
-        check(n == want, f"{impl}: kernel {name} launched {n} times in "
-                         f"{steps} steps, expected {want}")
+        check(n == want.get(name, 0) * steps,
+              f"{label}: kernel {name} launched {n} times in {steps} steps, "
+              f"expected {want.get(name, 0) * steps}")
     per = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(steps))
     ms = statistics.median(per)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    print(f"main path sa_impl={impl} on {card}: B={B} G={G} N={N} f32, "
+    print(f"main path {label} (sa_impl={impl}, select_impl={select_impl}, "
+          f"gather_impl={gather_impl}) on {card}: B={B} G={G} N={N} f32, "
           f"{steps} steps: median {ms:.2f} ms/step (min {per[0]:.2f}, "
           f"quartiles {per[steps // 4]:.2f}-{per[3 * steps // 4]:.2f}, max "
           f"{per[-1]:.2f}; wall-clock mean {wall:.2f}), {B / ms * 1e3:.1f} "
@@ -893,7 +1269,7 @@ def _run_path(dev, impl, steps, batches, g, kernels, card, profile):
         table = ka.table(sort_by="self_cuda_time_total", row_limit=25)
         busy = sum(x.self_device_time_total for x in p.events()
                    if x.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        print(f"profile of one {impl} step: device busy {busy:.2f} ms (sum "
+        print(f"profile of one {label} step: device busy {busy:.2f} ms (sum "
               f"of kernel times) over the step's own span of {span:.2f} ms "
               f"(CUDA events; the profiler's host overhead lengthens it): "
               f"idle share {max(0.0, 1 - busy / span):.3f}\n" + table,
@@ -933,12 +1309,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_cpu_vs_card(dev)
     paths = phase_main(dev, args.profile, name_power)
+    paths.update(phase_input_grad(dev))
 
-    # Each kernel's launches: from the first path (in IMPLS order) that
-    # runs it — B1-B3 on pair3, B6 on pair, B7 and B8 on hybrid2.
+    # Each kernel's launches: from the first path (in the order run) that
+    # runs it — B1-B3 on pair3, B6 on pair, B7 and B8 on hybrid2, B9 on
+    # pallas, B4 and B5a on its split routes, B5b on the input gradient.
     launches = {}
-    for impl in IMPLS:
-        for name, n in paths[impl].items():
+    for counts in paths.values():
+        for name, n in counts.items():
             if n:
                 launches.setdefault(name, n)
     out = []
@@ -948,7 +1326,8 @@ def main() -> None:
                     "launches": launches[r["fn"].__name__],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": None})
+                    "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": out}))
     print(gpu_name_power())
     print(json.dumps({"ok": True, "device": {

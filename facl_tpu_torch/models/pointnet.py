@@ -20,11 +20,10 @@ from facl_tpu_torch.models.layers import EmbedHead, PointMLP, dense, \
     l2_normalize
 from facl_tpu_torch.models.sa_stage import SetAbstractionStage
 
-#: sa_impl values the port accepts: every value of the JAX package but
-#: "pallas" (kernel B9, not ported yet: resolve_model_config raises
-#: NotImplementedError). "auto" resolves to "pair3" on every device.
+#: sa_impl values the port accepts: every value of the JAX package.
+#: "auto" resolves to "pair3" on every device.
 SA_IMPLS = ("auto", "reference", "covar", "analytic", "hybrid", "hybrid2",
-            "pair", "pair3")
+            "pair", "pair3", "pallas")
 
 
 class PointNetPlus(nn.Module):
@@ -77,15 +76,11 @@ def resolve_model_config(model_cfg: ModelConfig) -> ModelConfig:
     rule) and ``channels_first=None`` to True exactly for "pair"/"pair3",
     the impls that read the channel-major layout of kernel B1
     (facl_tpu/models/pointnet.py:171-173). An explicit ``sa_impl`` is
-    honoured; "pallas" raises NotImplementedError."""
+    honoured."""
     impl = model_cfg.sa_impl
-    if impl == "pallas":
-        raise NotImplementedError(
-            "sa_impl='pallas' (kernel B9, the generic L-layer fused SA) is "
-            "not ported yet (ROADMAP Queue 1 item 7, Queue 2 B9)")
     if impl not in SA_IMPLS:
         raise ValueError(f"unknown sa_impl {impl!r}; expected one of "
-                         f"{SA_IMPLS + ('pallas',)}")
+                         f"{SA_IMPLS}")
     if impl == "auto":
         impl = "pair3"
     cf = model_cfg.channels_first

@@ -10,13 +10,16 @@ The stage owns its parameters directly — ``kernel_i`` (Cin, Cout),
   reference, covar  plain torch, differentiated by autograd; "covar" takes
                     the batch moments from Gram(h) (:func:`covar_moments`)
   analytic          plain torch with the hand-derived backward
-                    (ops/analytic_sa.py); the only impl with an input
-                    gradient
+                    (ops/analytic_sa.py), with an input gradient
   hybrid            plain forward + the two-sweep backward (B8,
                     ops/sa_bwd.py)
   hybrid2           the four-sweep forward (B7, ops/sa_fwd.py) + B8
   pair, pair3       B2 + B3 sweep 1, then B6 (pair) or B3's slim sweeps
                     (pair3) (ops/sa_pair.py)
+  pallas            the generic fused kernel B9 (ops/sa_kernel.py via
+                    ops/fused_sa.py::sa_train_fused) on rows (B*S*K, C);
+                    with ``input_grad`` its final sweep returns the true
+                    input gradient, else the input cotangent is zeros
 
 Eval mode is plain math with the running statistics (sa_stage.py:221-268).
 With ``channels_first`` the input is (B, C, S, K); every impl but
@@ -32,14 +35,15 @@ from torch import nn
 
 from facl_tpu_torch.models.layers import lecun_normal_
 from facl_tpu_torch.ops.analytic_sa import sa_train_analytic
-from facl_tpu_torch.ops.fused_sa import SALayerParams, sa_reference_4d
+from facl_tpu_torch.ops.fused_sa import SALayerParams, sa_reference_4d, \
+    sa_train_fused
 from facl_tpu_torch.ops.sa_bwd import sa_train_hybrid
 from facl_tpu_torch.ops.sa_fwd import _moments_from_gram, sa_train_pfwd
 from facl_tpu_torch.ops.sa_pair import sa_train_pair
 
 #: Train-mode implementations of the stage.
 IMPLS = ("reference", "covar", "analytic", "hybrid", "hybrid2", "pair",
-         "pair3")
+         "pair3", "pallas")
 #: The impls whose input cotangent is zero by contract.
 ZERO_DX = ("hybrid", "hybrid2", "pair", "pair3")
 
@@ -115,6 +119,11 @@ class SetAbstractionStage(nn.Module):
             pooled, stats = sa_train_hybrid(x, layers, eps)
         elif impl == "hybrid2":
             pooled, stats = sa_train_pfwd(x, layers, eps)
+        elif impl == "pallas":
+            B, S, K, C = x.shape
+            pooled, stats = sa_train_fused(x.reshape(B * S * K, C), layers, K,
+                                           eps, need_dx=self.input_grad)
+            pooled = pooled.view(B, S, -1)
         elif impl == "analytic":
             pooled, stats = sa_train_analytic(x, layers, eps)
         else:

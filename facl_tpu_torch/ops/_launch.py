@@ -1,5 +1,5 @@
-"""What every SA sweep wrapper (ops/sa_pair.py, sa_fwd.py, sa_bwd.py)
-shares: the device rule (a CPU tensor takes the plain twin, a CUDA tensor
+"""What every kernel wrapper past B1 (ops/sa_pair.py, sa_fwd.py, sa_bwd.py,
+sa_kernel.py, gather.py) shares: the device rule (a CPU tensor takes the plain twin, a CUDA tensor
 launches), the argument checks that raise ``ValueError`` on what a kernel
 does not take, the grid, the fixed-order reduction of per-block float64
 partials, and the ctypes launch."""
@@ -20,12 +20,12 @@ ptr = _build.ptr
 stream_of = _build.stream_of
 
 
-def on_cpu(t: torch.Tensor) -> bool:
+def on_cpu(t: torch.Tensor, what: str = "SA sweeps") -> bool:
     """True for a CPU tensor (run the twin); False for CUDA (launch)."""
     if t.device.type == "cpu":
         return True
     if t.device.type != "cuda":
-        raise ValueError(f"SA sweeps: unsupported device {t.device}")
+        raise ValueError(f"{what}: unsupported device {t.device}")
     return False
 
 

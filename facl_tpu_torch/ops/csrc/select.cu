@@ -1,8 +1,13 @@
-// B1: fused kNN + ball-query selection and channel-major gather.
+// B1: fused kNN + ball-query selection and channel-major gather, and
+// B4: the same selection without the gather.
 //
-// Replaces the TPU kernel facl_tpu/ops/pallas/select.py::_select_gather
+// B1 replaces the TPU kernel facl_tpu/ops/pallas/select.py::_select_gather
 // (pallas_call at select.py:302, kernel body _make_select_kernel :51),
-// reached on the main path through select_gather_knn_ball (:330).
+// reached on the main path through select_gather_knn_ball (:330). B4
+// replaces select.py::select_knn_ball (pallas_call :258), the same kernel
+// body with gather_channels=0: here one template, the gather switched off
+// at compile time (kGather = false), so the two select bit-identical
+// index sets.
 //
 // Per (cloud b, centroid s < S): squared distances of the N points to
 // point s as c2 - 2ab + p2 clamped at 0 (select.py:66-79); keys are the
@@ -35,6 +40,7 @@ constexpr int kIntMax = 0x7fffffff;
 constexpr int kMaxJ = 32;          // keys per lane: N <= 32 * 32
 constexpr int kThreads = 256;
 
+template <bool kGather>
 __global__ void __launch_bounds__(kThreads)
 select_gather_kernel(const float* __restrict__ pts, int N, int C, int S,
                      int K, float radius_sq, float* __restrict__ grouped,
@@ -124,9 +130,10 @@ select_gather_kernel(const float* __restrict__ pts, int N, int C, int S,
     for (int q = lane; q < K; q += 32) {
       const int i = myidx[q];
       if (idx_out) idx_out[(static_cast<int64_t>(b) * S + s) * K + q] = i;
-      for (int c = 0; c < C; ++c)
-        grouped[((static_cast<int64_t>(b) * C + c) * S + s) * K + q] =
-            P[static_cast<int64_t>(i) * C + c];
+      if (kGather)
+        for (int c = 0; c < C; ++c)
+          grouped[((static_cast<int64_t>(b) * C + c) * S + s) * K + q] =
+              P[static_cast<int64_t>(i) * C + c];
     }
     __syncwarp();
   }
@@ -141,8 +148,22 @@ extern "C" int facl_select_gather(const float* pts, int B, int N, int C,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 4 * static_cast<size_t>(N) * sizeof(float) +
                       (kThreads / 32) * static_cast<size_t>(K) * sizeof(int);
-  select_gather_kernel<<<B, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  select_gather_kernel<true><<<B, kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
       pts, N, C, S, K, radius_sq, grouped, idx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B4: idx (B, S, K) only; pts (B, N, C) with xyz in channels 0:3.
+extern "C" int facl_select_knn_ball(const float* pts, int B, int N, int C,
+                                    int S, int K, float radius_sq, int* idx,
+                                    void* stream) {
+  if (N > 32 * kMaxJ || K > N || S > N || C < 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 4 * static_cast<size_t>(N) * sizeof(float) +
+                      (kThreads / 32) * static_cast<size_t>(K) * sizeof(int);
+  select_gather_kernel<false><<<B, kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      pts, N, C, S, K, radius_sq, nullptr, idx);
   return static_cast<int>(cudaGetLastError());
 }

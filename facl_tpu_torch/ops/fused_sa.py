@@ -6,6 +6,11 @@ both against each other and against the JAX package.
 
 Statistics are float32 and biased (flax convention); the returned
 (mean, var) per layer feed the caller's running-statistics update.
+
+:func:`sa_train_fused` is ``sa_impl="pallas"`` (facl_tpu/ops/fused_sa.py:
+95-160): the forward and backward sweeps of kernel B9 (ops/sa_kernel.py)
+behind one ``torch.autograd.Function``, differentiable in x and every
+layer parameter.
 """
 from __future__ import annotations
 
@@ -89,3 +94,60 @@ def sa_reference_4d(x: torch.Tensor, layers: Sequence[SALayerParams],
         ps.append(p)
         hs.append(h)
     return h.amax(-2), stats, ps, hs[:-1]
+
+
+class _SAFused(torch.autograd.Function):
+    """pooled, *stats = f(x, pool, eps, need_dx, *layer tensors) for rows
+    x (R, C0); forward and backward are B9's sweeps. The statistics carry
+    no gradient (they feed the running-statistics update); without
+    ``need_dx`` the input cotangent is zeros (fused_sa.py:133-134)."""
+
+    @staticmethod
+    def forward(ctx, x, pool, eps, need_dx, *flat):
+        from facl_tpu_torch.ops.sa_kernel import sa_train_forward_unified
+        L = len(flat) // 4
+        layers = [SALayerParams(*flat[4 * i:4 * i + 4]) for i in range(L)]
+        pooled, stats, packed = sa_train_forward_unified(x, layers, pool,
+                                                         eps)
+        flat_stats = [m for st in stats for m in st]
+        ctx.pool, ctx.need_dx = pool, need_dx
+        ctx.save_for_backward(x, packed, *flat)
+        ctx.mark_non_differentiable(*flat_stats)
+        return (pooled, *flat_stats)
+
+    @staticmethod
+    def backward(ctx, dpooled, *_):
+        from facl_tpu_torch.ops.sa_kernel import sa_train_backward_unified
+        x, packed, *flat = ctx.saved_tensors
+        L = len(flat) // 4
+        layers = [SALayerParams(*flat[4 * i:4 * i + 4]) for i in range(L)]
+        dx, grads = sa_train_backward_unified(
+            x, layers, packed, dpooled.contiguous(), ctx.pool, ctx.need_dx)
+        if dx is None:
+            dx = torch.zeros_like(x)
+        return (dx, None, None, None, *(g for layer in grads for g in layer))
+
+
+def sa_train_fused(x: torch.Tensor, layers: Sequence[SALayerParams],
+                   pool_size: int, eps: float = 1e-5, need_dx: bool = True
+                   ) -> Tuple[torch.Tensor,
+                              List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Kernel B9's stage: x (R, C0) rows, R a multiple of pool_size.
+    Returns (pooled (R // pool_size, C_last), [(mean, var)] per layer)."""
+    out = _SAFused.apply(x.contiguous(), pool_size, eps, need_dx,
+                         *(t for lp in layers for t in lp))
+    st = out[1:]
+    return out[0], [(st[2 * i], st[2 * i + 1]) for i in range(len(layers))]
+
+
+def sa_train(x: torch.Tensor, layers: Sequence[SALayerParams],
+             pool_size: int, eps: float = 1e-5, impl: str = "auto"):
+    """Dispatching train-mode SA (facl_tpu/ops/fused_sa.py:163-176): impl
+    "pallas" or "auto" (the port's rule: B9 on every device, its twins on
+    the CPU) -> :func:`sa_train_fused`; "reference" -> the plain math."""
+    if impl in ("auto", "pallas"):
+        return sa_train_fused(x, layers, pool_size, eps)
+    if impl == "reference":
+        return sa_train_reference(x, layers, pool_size, eps)
+    raise ValueError(f"unknown SA impl {impl!r}; expected auto, reference "
+                     "or pallas")

@@ -1,0 +1,332 @@
+"""B9: the generic fused SA kernel of ``sa_impl="pallas"`` (counterpart of
+facl_tpu/ops/pallas/sa_kernel.py).
+
+[Dense -> BatchNorm(train) -> ReLU] x L, then the max over each group of
+``pool`` consecutive rows, for L <= 4 layers of width <= 256 on C0 <= 8
+input channels and pool <= 128. Nothing but the input, the pooled output
+and per-channel vectors reaches device memory: every sweep recomputes the
+activations it needs (csrc/sa_fused.cu). A grid-wide barrier on the TPU is
+a launch boundary here, so
+
+  forward   L stats sweeps (:func:`sa_fused_stats`, layer l's sums of p
+            and p^2 with layers < l recomputed from their finalised
+            statistics), then the pool sweep (:func:`sa_fused_pool`);
+  backward  L BN-sum sweeps top-down (:func:`sa_fused_bnsum`, layer l's
+            sums of dy and dy * xhat), then the final sweep
+            (:func:`sa_fused_final`: dW, db of every layer and, with
+            ``need_dx``, the input gradient).
+
+The max-pool cotangent is split evenly among each group's exact ties
+(sa_kernel.py:513-529). Each sweep has a plain PyTorch twin (``*_plain``,
+the same op chain on whole tensors); a CPU tensor takes the twin, a CUDA
+tensor launches the kernel or raises, and each wrapper counts its
+launches. The kernel sums its per-block float64 partials in a fixed order
+here, so every result is deterministic.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from facl_tpu_torch.ops import _build
+from facl_tpu_torch.ops._launch import need, on_cpu, reduce
+from facl_tpu_torch.ops.fused_sa import SALayerParams
+from facl_tpu_torch.ops.sa_fwd import _finalize
+
+LMAX, WMAX, C0MAX, POOLMAX = 4, 256, 8, 128
+SMEM_MAX = 227 * 1024
+NVEC = 8     # rows of the per-layer vectors (csrc/sa_fused.cu enum)
+
+_P, _I = _build.P, _build.I
+_LL = ctypes.c_longlong
+_ARGS = [_I, _I, _P, _LL, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P]
+
+
+def _widths(layers: Sequence[SALayerParams]) -> List[int]:
+    return [int(lp.kernel.shape[1]) for lp in layers]
+
+
+def vectors(layers: Sequence[SALayerParams], packed: torch.Tensor,
+            bsums: Optional[torch.Tensor], R: int) -> torch.Tensor:
+    """(L, 8, 256) per-channel vectors of every sweep, from the statistics
+    ``packed`` (L, 2, cmax) [mean, inv] and the backward's BN sums
+    ``bsums`` (L, 2, cmax) [sum dy, sum dy * xhat] (zeros if None): b,
+    inv, bx = -mean inv, ay = inv gamma, by = beta - mean ay, gi = gamma
+    inv, sum dy / R, sum dy xhat / R — the JAX kernel's folded affines
+    (sa_kernel.py:54-80, :532-560)."""
+    L = len(layers)
+    v = torch.zeros(L, NVEC, WMAX, dtype=packed.dtype, device=packed.device)
+    for l, lp in enumerate(layers):
+        w = lp.kernel.shape[1]
+        mean, inv = packed[l, 0, :w], packed[l, 1, :w]
+        ay = inv * lp.scale
+        v[l, 0, :w] = lp.bias
+        v[l, 1, :w] = inv
+        v[l, 2, :w] = -mean * inv
+        v[l, 3, :w] = ay
+        v[l, 4, :w] = lp.shift - mean * ay
+        v[l, 5, :w] = lp.scale * inv
+        if bsums is not None:
+            v[l, 6, :w] = bsums[l, 0, :w] / R
+            v[l, 7, :w] = bsums[l, 1, :w] / R
+    return v
+
+
+# -- plain twins --------------------------------------------------------
+
+def _forward_plain(x, layers, v, upto: int):
+    """Layers < upto on whole tensors with the kernel's op chain. Returns
+    (pre-activations [p_l], layer inputs [x, h_0, .., h_{upto-1}])."""
+    ps, hs = [], [x]
+    for l in range(upto):
+        w = layers[l].kernel.shape[1]
+        p = hs[-1] @ layers[l].kernel + v[l, 0, :w]
+        ps.append(p)
+        hs.append(torch.relu(p * v[l, 3, :w] + v[l, 4, :w]))
+    return ps, hs
+
+
+def _pool_grad(h, dout, pool: int):
+    """Even split of each group's cotangent among its exact ties
+    (sa_kernel.py:513-529)."""
+    C = h.shape[1]
+    hg = h.reshape(-1, pool, C)
+    ties = (hg == hg.amax(1, keepdim=True)).to(h.dtype)
+    cnt = ties.sum(1, keepdim=True)
+    return (ties * dout[:, None, :] / cnt).reshape(-1, C)
+
+
+def _backward_plain(x, layers, v, dout, pool: int, target: int,
+                    need_dx: bool):
+    """Propagate the pooled cotangent down to layer ``target`` (BN sums:
+    returns (sum dy, sum dy xhat)), or with target -1 to the input
+    (returns (dx or None, [dW], [db]))."""
+    L = len(layers)
+    ps, hs = _forward_plain(x, layers, v, L)
+    da = _pool_grad(hs.pop(), dout, pool)
+    dws, dbs = [None] * L, [None] * L
+    for l in range(L - 1, -1, -1):
+        w = layers[l].kernel.shape[1]
+        p = ps.pop()           # freed as the walk goes down (memory)
+        dy = torch.where(p * v[l, 3, :w] + v[l, 4, :w] > 0, da, 0.0)
+        xh = p * v[l, 1, :w] + v[l, 2, :w]
+        if l == target:
+            return dy.sum(0), (dy * xh).sum(0)
+        dp = v[l, 5, :w] * ((dy - v[l, 6, :w]) - xh * v[l, 7, :w])
+        dws[l], dbs[l] = hs[l].T @ dp, dp.sum(0)
+        if l or need_dx:
+            da = dp @ layers[l].kernel.T
+    return (da if need_dx else None), dws, dbs
+
+
+def sa_fused_stats_plain(x, layers, packed, pool: int, target: int):
+    v = vectors(layers, packed, None, x.shape[0])
+    ps, hs = _forward_plain(x, layers, v, target)
+    w = layers[target].kernel.shape[1]
+    p = hs[-1] @ layers[target].kernel + v[target, 0, :w]
+    return p.sum(0), (p * p).sum(0)
+
+
+def sa_fused_pool_plain(x, layers, packed, pool: int):
+    v = vectors(layers, packed, None, x.shape[0])
+    h = _forward_plain(x, layers, v, len(layers))[1][-1]
+    return h.reshape(-1, pool, h.shape[1]).amax(1)
+
+
+def sa_fused_bnsum_plain(x, layers, packed, bsums, dout, pool: int,
+                         target: int):
+    v = vectors(layers, packed, bsums, x.shape[0])
+    return _backward_plain(x, layers, v, dout, pool, target, False)
+
+
+def sa_fused_final_plain(x, layers, packed, bsums, dout, pool: int,
+                         need_dx: bool = True):
+    v = vectors(layers, packed, bsums, x.shape[0])
+    return _backward_plain(x, layers, v, dout, pool, -1, need_dx)
+
+
+# -- kernel wrappers ----------------------------------------------------
+
+def _widths_arg(widths: List[int]):
+    return (ctypes.c_int * LMAX)(*(widths + [0] * (LMAX - len(widths))))
+
+
+def _check(x, layers, pool: int) -> List[int]:
+    """The kernel's range; raises ValueError outside it."""
+    R, C0 = x.shape
+    need(x, (R, C0), "x")
+    widths = _widths(layers)
+    L = len(widths)
+    if not (1 <= L <= LMAX and 1 <= C0 <= C0MAX and 1 <= pool <= POOLMAX
+            and R % pool == 0 and all(1 <= w <= WMAX for w in widths)):
+        raise ValueError(
+            f"the B9 kernel takes 1 <= L <= {LMAX} layers of width <= "
+            f"{WMAX}, C0 <= {C0MAX} input channels and pool <= {POOLMAX} "
+            f"dividing the rows; got L={L}, widths={widths}, C0={C0}, "
+            f"pool={pool}, rows={R}")
+    cin = C0
+    for lp, w in zip(layers, widths):
+        need(lp.kernel, (cin, w), "kernel")
+        cin = w
+    lib = _build.REGISTRY.get("sa_fused")
+    fn = lib.facl_sa_fused_smem
+    fn.argtypes = [_LL, _I, _I, _P, _I]
+    fn.restype = _LL
+    smem = fn(R, C0, L, ctypes.cast(_widths_arg(widths), _P), pool)
+    if not 0 < smem <= SMEM_MAX:
+        raise ValueError(
+            f"B9: a tile of widths {widths} at pool={pool} needs {smem} "
+            f"bytes of shared memory, more than the {SMEM_MAX} a block has "
+            "(the layers below the top are kept per tile)")
+    return widths
+
+
+def _prm(layers) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for lp in layers
+                      for t in (lp.kernel, lp.kernel.T.contiguous())]) \
+        .contiguous()
+
+
+def _nblk(x, R: int, pool: int) -> int:
+    tiles = -(-(R // pool) // ((64 if pool <= 64 else 128) // pool))
+    return max(1, min(tiles, 2 * _build.sm_count(x.device)))
+
+
+def _launch(mode, target, x, layers, widths, v, pool, dout, out, part,
+            nblk, what):
+    R, C0 = x.shape
+    wa = _widths_arg(widths)
+    handle, fn = _build.function("sa_fused", "facl_sa_fused", _ARGS)
+    code = fn(mode, target, _build.ptr(x), R, C0, len(widths),
+              ctypes.cast(wa, _P), pool, _build.ptr(_prm(layers)),
+              _build.ptr(v), None if dout is None else _build.ptr(dout),
+              None if out is None else _build.ptr(out), _build.ptr(part),
+              nblk, _build.stream_of(x))
+    _build.check(handle, code, what)
+
+
+def _sums(mode, x, layers, v, pool, target, dout, what):
+    widths = _check(x, layers, pool)
+    nblk = _nblk(x, x.shape[0], pool)
+    part = torch.empty((nblk, 2, widths[target]), dtype=torch.float64,
+                       device=x.device)
+    _launch(mode, target, x, layers, widths, v, pool, dout, None, part,
+            nblk, what)
+    s = reduce(part)
+    return s[0], s[1]
+
+
+def sa_fused_stats(x, layers, packed, pool: int, target: int):
+    """Stats sweep of layer ``target`` -> (sum p, sum p^2), float32 (w,)."""
+    if on_cpu(x, "B9"):
+        return sa_fused_stats_plain(x, layers, packed, pool, target)
+    v = vectors(layers, packed, None, x.shape[0])
+    out = _sums(0, x, layers, v, pool, target, None, "sa_fused_stats")
+    sa_fused_stats.launches += 1
+    return out
+
+
+def sa_fused_pool(x, layers, packed, pool: int):
+    """Pool sweep -> pooled (R // pool, w_top)."""
+    if on_cpu(x, "B9"):
+        return sa_fused_pool_plain(x, layers, packed, pool)
+    widths = _check(x, layers, pool)
+    R = x.shape[0]
+    v = vectors(layers, packed, None, R)
+    nblk = _nblk(x, R, pool)
+    pooled = torch.empty((R // pool, widths[-1]), dtype=torch.float32,
+                         device=x.device)
+    part = torch.empty(1, dtype=torch.float64, device=x.device)
+    _launch(1, 0, x, layers, widths, v, pool, None, pooled, part, nblk,
+            "sa_fused_pool")
+    sa_fused_pool.launches += 1
+    return pooled
+
+
+def sa_fused_bnsum(x, layers, packed, bsums, dout, pool: int, target: int):
+    """BN-sum sweep of layer ``target`` -> (sum dy, sum dy xhat)."""
+    if on_cpu(x, "B9"):
+        return sa_fused_bnsum_plain(x, layers, packed, bsums, dout, pool,
+                                    target)
+    need(dout, (x.shape[0] // pool, _widths(layers)[-1]), "dout")
+    v = vectors(layers, packed, bsums, x.shape[0])
+    out = _sums(2, x, layers, v, pool, target, dout, "sa_fused_bnsum")
+    sa_fused_bnsum.launches += 1
+    return out
+
+
+def sa_fused_final(x, layers, packed, bsums, dout, pool: int,
+                   need_dx: bool = True):
+    """Final sweep -> (dx (R, C0) or None, [dW_l], [db_l])."""
+    if on_cpu(x, "B9"):
+        return sa_fused_final_plain(x, layers, packed, bsums, dout, pool,
+                                    need_dx)
+    widths = _check(x, layers, pool)
+    R, C0 = x.shape
+    need(dout, (R // pool, widths[-1]), "dout")
+    v = vectors(layers, packed, bsums, R)
+    nblk = _nblk(x, R, pool)
+    cins = [C0] + widths[:-1]
+    ndw = sum(c * w for c, w in zip(cins, widths))
+    part = torch.zeros((nblk, ndw + sum(widths)), dtype=torch.float64,
+                       device=x.device)
+    dx = torch.empty((R, C0), dtype=torch.float32, device=x.device) \
+        if need_dx else None
+    _launch(3, 0, x, layers, widths, v, pool, dout, dx, part, nblk,
+            "sa_fused_final")
+    sa_fused_final.launches += 1
+    s = reduce(part)
+    dws, dbs, o, ob = [], [], 0, ndw
+    for c, w in zip(cins, widths):
+        dws.append(s[o:o + c * w].view(c, w))
+        dbs.append(s[ob:ob + w])
+        o, ob = o + c * w, ob + w
+    return dx, dws, dbs
+
+
+KERNELS = (sa_fused_stats, sa_fused_pool, sa_fused_bnsum, sa_fused_final)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+# -- the forward and backward of the stage ------------------------------
+
+def sa_train_forward_unified(x: torch.Tensor,
+                             layers: Sequence[SALayerParams], pool: int,
+                             eps: float = 1e-5):
+    """x (R, C0) -> (pooled (R // pool, C_L), [(mean, var)] per layer,
+    packed (L, 2, cmax) [mean, inv], zero past each width)
+    (sa_kernel.py:247-297)."""
+    R = x.shape[0]
+    widths = _widths(layers)
+    packed = torch.zeros(len(layers), 2, max(widths), dtype=x.dtype,
+                         device=x.device)
+    stats = []
+    for l, w in enumerate(widths):
+        s, ss = sa_fused_stats(x, layers, packed, pool, l)
+        mean, var = _finalize(s, ss, R)
+        packed[l, 0, :w] = mean
+        packed[l, 1, :w] = torch.rsqrt(var + eps)
+        stats.append((mean, var))
+    return sa_fused_pool(x, layers, packed, pool), stats, packed
+
+
+def sa_train_backward_unified(x: torch.Tensor,
+                              layers: Sequence[SALayerParams],
+                              packed: torch.Tensor, dout: torch.Tensor,
+                              pool: int, need_dx: bool = True):
+    """-> (dx (R, C0) or None, [(dW, db, dgamma, dbeta)] per layer)
+    (sa_kernel.py:424-505): dgamma = sum dy xhat and dbeta = sum dy are
+    the BN sums of the top-down sweeps."""
+    widths = _widths(layers)
+    bsums = torch.zeros_like(packed)
+    for l in reversed(range(len(layers))):
+        s_dy, s_dyx = sa_fused_bnsum(x, layers, packed, bsums, dout, pool, l)
+        bsums[l, 0, :widths[l]] = s_dy
+        bsums[l, 1, :widths[l]] = s_dyx
+    dx, dws, dbs = sa_fused_final(x, layers, packed, bsums, dout, pool,
+                                  need_dx)
+    return dx, [(dw, db, bsums[l, 1, :w], bsums[l, 0, :w])
+                for l, (dw, db, w) in enumerate(zip(dws, dbs, widths))]

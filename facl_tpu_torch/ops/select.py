@@ -13,8 +13,14 @@ the tail — the TPU kernel's order — and the C channels are gathered into
 :func:`select_gather` launches the CUDA kernel (``csrc/select.cu``) for a
 CUDA tensor and runs :func:`select_gather_plain` for a CPU tensor. The two
 compute the distance with the same rounded operations in the same order,
-so they agree bit for bit. The selection is forward-only: neighbourhoods
-are data in the training step.
+so they agree bit for bit.
+
+:func:`select_knn_ball` is kernel B4 (select.py::select_knn_ball,
+pallas_call :258): the same selection without the gather, the same CUDA
+template with the gather compiled out. :func:`select_gather_knn_ball` is
+B1 made differentiable (select.py:329-363): the selection is piecewise
+constant in the points, so the gradient is the gather's, the scatter-add
+B5b (ops/gather.py) over the saved indices, on every device.
 """
 from __future__ import annotations
 
@@ -39,11 +45,10 @@ def sqdist_to_centroids(points: torch.Tensor, S: int) -> torch.Tensor:
     return d.clamp_min(0.0)
 
 
-def select_gather_plain(points: torch.Tensor, S: int, K: int,
-                        radius_sq: float) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
-    """Plain PyTorch twin of the B1 kernel. Returns (grouped (B, C, S, K)
-    f32, idx (B, S, K) int32)."""
+def select_knn_ball_plain(points: torch.Tensor, S: int, K: int,
+                          radius_sq: float) -> torch.Tensor:
+    """Plain PyTorch twin of the B4 kernel (and B1's selection): idx
+    (B, S, K) int32."""
     B, N, C = points.shape
     d = sqdist_to_centroids(points, S)
     r2 = torch.tensor(radius_sq, dtype=torch.float32, device=points.device)
@@ -57,11 +62,37 @@ def select_gather_plain(points: torch.Tensor, S: int, K: int,
     cand = torch.where(valid, chosen, torch.full_like(chosen, N))
     cand = torch.sort(cand, dim=-1).values
     s_col = torch.arange(S, device=points.device).view(1, S, 1)
-    idx = torch.where(cand < N, cand, s_col.expand_as(cand))
+    return torch.where(cand < N, cand, s_col.expand_as(cand)).to(torch.int32)
+
+
+def select_gather_plain(points: torch.Tensor, S: int, K: int,
+                        radius_sq: float) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Plain PyTorch twin of the B1 kernel. Returns (grouped (B, C, S, K)
+    f32, idx (B, S, K) int32)."""
+    B, N, C = points.shape
+    idx = select_knn_ball_plain(points, S, K, radius_sq)
     pts_t = points.transpose(1, 2)                           # (B, C, N)
     grouped = torch.gather(
-        pts_t, 2, idx.reshape(B, 1, S * K).expand(B, C, S * K))
-    return grouped.reshape(B, C, S, K), idx.to(torch.int32)
+        pts_t, 2, idx.long().reshape(B, 1, S * K).expand(B, C, S * K))
+    return grouped.reshape(B, C, S, K), idx
+
+
+def _check_points(points: torch.Tensor, S: int, K: int, what: str) -> bool:
+    """Shared argument rule of B1 and B4; True for a CPU tensor (twin)."""
+    B, N, C = points.shape
+    if K > N or S > N:
+        raise ValueError(f"S={S}, K={K} must not exceed the {N} points")
+    if points.device.type == "cpu":
+        return True
+    if points.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {points.device}")
+    if points.dtype != torch.float32 or not points.is_contiguous():
+        raise ValueError(f"{what}: points must be contiguous float32")
+    if C < 3 or N > 1024:
+        raise ValueError(f"{what} kernel takes C >= 3 and N <= 1024, "
+                         f"got C={C}, N={N}")
+    return False
 
 
 def select_gather(points: torch.Tensor, S: int, K: int, radius_sq: float,
@@ -73,18 +104,9 @@ def select_gather(points: torch.Tensor, S: int, K: int, radius_sq: float,
     A CPU tensor takes the plain twin; a CUDA tensor launches the kernel
     (building it at first use) or raises."""
     B, N, C = points.shape
-    if K > N or S > N:
-        raise ValueError(f"S={S}, K={K} must not exceed the {N} points")
-    if points.device.type == "cpu":
+    if _check_points(points, S, K, "select_gather"):
         grouped, idx = select_gather_plain(points, S, K, radius_sq)
         return grouped, (idx if return_idx else None)
-    if points.device.type != "cuda":
-        raise ValueError(f"select_gather: unsupported device {points.device}")
-    if points.dtype != torch.float32 or not points.is_contiguous():
-        raise ValueError("select_gather: points must be contiguous float32")
-    if C < 3 or N > 1024:
-        raise ValueError(f"select_gather kernel takes C >= 3 and N <= 1024, "
-                         f"got C={C}, N={N}")
     lib, fn = _build.function(
         "select", "facl_select_gather",
         [_build.P] + [_build.I] * 5 + [_build.F] + [_build.P] * 3)
@@ -101,4 +123,54 @@ def select_gather(points: torch.Tensor, S: int, K: int, radius_sq: float,
     return grouped, idx
 
 
-select_gather.launches = 0
+def select_knn_ball(points: torch.Tensor, S: int, K: int,
+                    radius_sq: float) -> torch.Tensor:
+    """B4: the selection of :func:`select_gather` alone. points (B, N, C)
+    f32, xyz in channels 0:3. Returns idx (B, S, K) int32, bit-equal to
+    B1's."""
+    B, N, C = points.shape
+    if _check_points(points, S, K, "select_knn_ball"):
+        return select_knn_ball_plain(points, S, K, radius_sq)
+    lib, fn = _build.function(
+        "select", "facl_select_knn_ball",
+        [_build.P] + [_build.I] * 5 + [_build.F] + [_build.P] * 2)
+    idx = torch.empty((B, S, K), dtype=torch.int32, device=points.device)
+    code = fn(_build.ptr(points), B, N, C, S, K, float(radius_sq),
+              _build.ptr(idx), _build.stream_of(points))
+    select_knn_ball.launches += 1
+    _build.check(lib, code, "select_knn_ball")
+    return idx
+
+
+KERNELS = (select_gather, select_knn_ball)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+class _SelectGather(torch.autograd.Function):
+    """B1 forward; backward the scatter-add (B5b) of the channel-major
+    cotangent, transposed to rows first (select.py:345-363)."""
+
+    @staticmethod
+    def forward(ctx, points, S, K, radius_sq):
+        grouped, idx = select_gather(points, S, K, radius_sq,
+                                     return_idx=True)
+        ctx.save_for_backward(idx)
+        ctx.n = points.shape[1]
+        return grouped
+
+    @staticmethod
+    def backward(ctx, g):
+        from facl_tpu_torch.ops.gather import scatter_add_rows
+        idx, = ctx.saved_tensors
+        B, C, S, K = g.shape
+        rows = g.permute(0, 2, 3, 1).reshape(B, S * K, C).contiguous()
+        return (scatter_add_rows(idx.reshape(B, S * K), rows, ctx.n),
+                None, None, None)
+
+
+def select_gather_knn_ball(points: torch.Tensor, S: int, K: int,
+                           radius_sq: float) -> torch.Tensor:
+    """Differentiable B1: gathered neighbourhoods (B, C, S, K), not
+    re-centred."""
+    return _SelectGather.apply(points, S, K, radius_sq)

@@ -2,20 +2,22 @@
 (counterpart of facl_tpu/train/trainer.py:35-229,267-347).
 
 One step: points (G, B, N, C) crop-major -> batch-major (B, G, ...) ->
-grouping (kernel B1; channel-major (B, C, S, K) neighbourhoods for the
-pair/pair3 SA stage, channels-last (B, S, K, C) for the other impls) ->
-encoder (the SA stage of ``ModelConfig.sa_impl``: pair3 by default,
-kernels B2/B3; pair B2/B3/B6; hybrid2 B7/B8; hybrid B8; reference,
-covar and analytic plain) -> global-local + circle InfoNCE -> backward ->
-Adam -> LR schedule. The BatchNorm running statistics update during the
-forward, which reads only batch statistics, so the order against Adam
-does not change any value.
+grouping (routed by ``GroupingConfig.select_impl`` / ``gather_impl``,
+resolved once at build time as facl_tpu/train/trainer.py:83-87 does:
+kernel B1 by default, B4 or B5a on the split routes, ops/grouping.py;
+channel-major (B, C, S, K) neighbourhoods for the pair/pair3 SA stage,
+channels-last (B, S, K, C) for the other impls) -> encoder (the SA stage
+of ``ModelConfig.sa_impl``: pair3 by default, kernels B2/B3; pair
+B2/B3/B6; hybrid2 B7/B8; hybrid B8; pallas B9; reference, covar and
+analytic plain) -> global-local + circle InfoNCE -> backward -> Adam ->
+LR schedule. The BatchNorm running statistics update during the forward,
+which reads only batch statistics, so the order against Adam does not
+change any value.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-``sa_impl="pallas"`` (kernel B9, Queue 1 item 7), SwAV and CLD (Queue 1
-item 14), the two-program ``split_step`` (a JAX scratch-arena
-workaround, Queue 1 item 16) and any ``compute_dtype`` other than
-float32 (bf16, Queue 1 item 8).
+SwAV and CLD (Queue 1 item 14), the two-program ``split_step`` (a JAX
+scratch-arena workaround, Queue 1 item 16) and any ``compute_dtype``
+other than float32 (bf16, Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from facl_tpu_torch.losses.infonce import circle_infonce, \
     global_local_infonce
 from facl_tpu_torch.models.pointnet import resolve_grouping, \
     resolve_model, resolve_model_config
-from facl_tpu_torch.ops.grouping import group_points
+from facl_tpu_torch.ops.grouping import group_points, \
+    resolve_gather_impl, resolve_select_impl
 from facl_tpu_torch.train.optim import make_optimizer
 from facl_tpu_torch.train.state import TrainState
 
@@ -54,12 +57,15 @@ def _reject_unported(cfg: Config) -> None:
 def make_grouping_fn(g_cfg: GroupingConfig, layout: str = "bcsk"
                      ) -> Callable:
     """Grouping over a 4-D batch (A0, A1, N, C) of clouds -> neighbourhoods
-    (A0, A1, ...) and centers (A0, A1, S, 3)."""
+    (A0, A1, ...) and centers (A0, A1, S, 3), on the route of
+    ``g_cfg.select_impl`` / ``gather_impl``, resolved here once."""
+    si, gi = resolve_select_impl(g_cfg), resolve_gather_impl(g_cfg)
+
     def group4d(points4d: torch.Tensor):
         A0, A1, N, C = points4d.shape
         neigh, cent = group_points(
             points4d.reshape(A0 * A1, N, C), g_cfg.num_centroids,
-            g_cfg.knn_k, g_cfg.radius_sq, layout)
+            g_cfg.knn_k, g_cfg.radius_sq, layout, g_cfg.method, si, gi)
         return (neigh.reshape(A0, A1, *neigh.shape[1:]),
                 cent.reshape(A0, A1, -1, 3))
     return group4d

@@ -141,3 +141,119 @@ def test_b6_b7_b8_kernels_match_twins(dev, rng, K):
     x3 = x.view(4, 16 * K, 4).transpose(1, 2).contiguous()
     both(SP.sa_bwd_sweep2_full, SP.sa_bwd_sweep2_full_plain, x3, w1, b1,
          mul1, shift1, p2, mul2, shift2, q3, M3, rc3, gi2, w2, acc=None)
+
+
+def test_select_knn_ball_bit_equal(dev, rng):
+    """B4 against its twin and against B1's indices."""
+    from facl_tpu_torch.ops.select import select_gather, select_knn_ball, \
+        select_knn_ball_plain
+    pts = torch.from_numpy(
+        rng.uniform(-0.5, 0.5, size=(8, 512, 4)).astype(np.float32)).to(dev)
+    i = select_knn_ball(pts, 64, 64, 0.06)
+    assert torch.equal(i, select_knn_ball_plain(pts, 64, 64, 0.06))
+    assert torch.equal(i, select_gather(pts, 64, 64, 0.06, True)[1])
+
+
+@pytest.mark.parametrize("N", [512, 7])
+def test_gather_and_scatter_match_twins(dev, rng, N):
+    """B5a bit-equal; B5b (fixed order) against index_add_ (atomics) at
+    1e-5 of the scale."""
+    from facl_tpu_torch.ops import gather as GA
+    B, R, C = 6, 4096, 4
+    t = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, N, size=(B, R))
+                           .astype(np.int32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(B, R, C)).astype(np.float32)).to(dev)
+    assert torch.equal(GA.gather_rows(t, idx), GA.gather_rows_plain(t, idx))
+    k, p = GA.scatter_add_rows(idx, g, N), GA.scatter_add_rows_plain(idx, g, N)
+    assert float((k - p).abs().max()) <= 1e-5 * float(p.abs().max())
+    assert torch.equal(k, GA.scatter_add_rows(idx, g, N))   # deterministic
+
+
+@pytest.mark.parametrize("route", [("pallas", "pallas"), ("pallas", "xla"),
+                                   ("xla", "pallas"), ("xla", "xla")])
+def test_group_points_points_grad_card_vs_cpu(dev, rng, route):
+    """d/d(points) through each grouping route: the card (B1 + B5b, B4, or
+    B5a + B5b) against the CPU (twins)."""
+    from facl_tpu_torch.ops.grouping import group_points
+    pts = rng.uniform(-0.5, 0.5, size=(4, 256, 4)).astype(np.float32)
+    w = torch.from_numpy(rng.normal(size=(4,)).astype(np.float32))
+    grads = []
+    for d in ("cpu", dev):
+        p = torch.from_numpy(pts).to(d).requires_grad_(True)
+        n, c = group_points(p, 32, 32, 0.06, select_impl=route[0],
+                            gather_impl=route[1])
+        ((torch.sin(n) * w.to(d)).sum() + (c ** 2).sum()).backward()
+        grads.append(p.grad.cpu())
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-5)
+    assert torch.count_nonzero(grads[1][:, 32:]) > 0
+
+
+@pytest.mark.parametrize("K,widths", [(64, (64, 64, 256)), (128, (64, 64, 256)),
+                                      (8, (8, 16, 32)), (48, (32,))])
+def test_b9_sweeps_match_twins(dev, rng, K, widths):
+    """Each B9 sweep against its twin on the same card tensors: stats, BN
+    sums and dW to 1e-4 of their max-abs; pooled and dx at rtol 1e-5 /
+    atol 1e-5 x scale; db, whose exact value is zero (a BatchNorm follows
+    each Dense), near zero on both. dpooled is zero where the float64
+    recompute of the top layer has a near-tie (chip_smoke.py's
+    near_ties)."""
+    from facl_tpu_torch.ops import sa_kernel as SK
+    from facl_tpu_torch.ops.fused_sa import SALayerParams
+    R, C0 = 16 * K, 4
+    x = torch.from_numpy(rng.normal(size=(R, C0)).astype(np.float32)).to(dev)
+    lp, cin = [], C0
+    for w in widths:
+        lp.append(SALayerParams(*(torch.tensor(a, dtype=torch.float32,
+                                               device=dev) for a in (
+            rng.normal(size=(cin, w), scale=0.5),
+            rng.normal(size=(w,), scale=0.1), 1 + 0.1 * rng.normal(size=(w,)),
+            rng.normal(size=(w,), scale=0.1)))))
+        cin = w
+
+    def acc(k, t):
+        err, scale = float((k - t).abs().max()), float(t.abs().max())
+        assert err <= 1e-4 * scale, (err, scale)
+
+    def row(k, t):
+        torch.testing.assert_close(k, t, rtol=1e-5,
+                                   atol=1e-5 * float(t.abs().max()))
+
+    pooled, stats, packed = SK.sa_train_forward_unified(x, lp, K)
+    for l in range(len(widths)):
+        for a, b in zip(SK.sa_fused_stats(x, lp, packed, K, l),
+                        SK.sa_fused_stats_plain(x, lp, packed, K, l)):
+            acc(a, b)
+    row(pooled, SK.sa_fused_pool_plain(x, lp, packed, K))
+    v = SK.vectors(lp, packed, None, R).double()
+    ps, hs = SK._forward_plain(x.double(), [SALayerParams(
+        *(t.double() for t in l)) for l in lp], v, len(lp) - 1)
+    wt = widths[-1]
+    z = (hs[-1] @ lp[-1].kernel.double() + v[-1, 0, :wt]) * v[-1, 3, :wt] \
+        + v[-1, 4, :wt]
+    zg = z.reshape(-1, K, wt)
+    zmax = zg.amax(1, keepdim=True)
+    gap = zmax - zg
+    tol = 1e-5 * float(z.abs().max())
+    near = (zmax[:, 0].abs() <= tol) | \
+        ((zmax[:, 0] > 0) & ((gap > 0) & (gap <= tol)).any(1))
+    dout = torch.from_numpy(rng.normal(size=(R // K, wt)).astype(np.float32)
+                            ).to(dev)
+    dout = torch.where(near.to(dev), 0.0, dout)
+    bsums = torch.zeros_like(packed)
+    for l in reversed(range(len(widths))):
+        k = SK.sa_fused_bnsum(x, lp, packed, bsums, dout, K, l)
+        t = SK.sa_fused_bnsum_plain(x, lp, packed, bsums, dout, K, l)
+        for a, b in zip(k, t):
+            acc(a, b)
+        bsums[l, 0, :widths[l]], bsums[l, 1, :widths[l]] = t
+    kd, kw, kb = SK.sa_fused_final(x, lp, packed, bsums, dout, K)
+    td, tw, tb = SK.sa_fused_final_plain(x, lp, packed, bsums, dout, K)
+    row(kd, td)
+    for a, b in zip(kw, tw):
+        acc(a, b)
+    gscale = max(float(t.abs().max()) for t in tw)
+    for a, b in zip(kb, tb):
+        assert max(float(a.abs().max()), float(b.abs().max())) < \
+            1e-4 * gscale
+    assert SK.sa_fused_final(x, lp, packed, bsums, dout, K, False)[0] is None

@@ -113,7 +113,62 @@ def test_resolve_model_config_impls():
     r = resolve_model_config(dataclasses.replace(cfg, sa_impl="hybrid2",
                                                  channels_first=True))
     assert r.channels_first is True                  # explicit: honoured
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_model_config(dataclasses.replace(cfg, sa_impl="pallas"))
+    r = resolve_model_config(dataclasses.replace(cfg, sa_impl="pallas"))
+    assert (r.sa_impl, r.channels_first) == ("pallas", False)
     with pytest.raises(ValueError, match="unknown sa_impl"):
         resolve_model_config(dataclasses.replace(cfg, sa_impl="nope"))
+
+
+@pytest.mark.parametrize("cf", [False, True])
+@pytest.mark.parametrize("input_grad", [False, True])
+def test_pallas_stage_matches_jax_reference(rng, cf, input_grad):
+    """The port's ``pallas`` stage (kernel B9's twins here) against the JAX
+    stage with ``impl="reference"``, whose semantics define B9 (JAX runs
+    its own pallas stage only on a TPU: sa_stage.py:137-139 compiles the
+    kernel, no interpret mode). Bars as test_stage_matches_jax; with
+    ``input_grad`` the input gradient at the analytic impl's bar, without
+    it zeros."""
+    x = rng.normal(size=(4, 6, 8, 4)).astype(np.float32)
+    variables, jloss, jbs, jg, jgx = _jax_run("reference", x)
+    st = _torch_stage(variables, impl="pallas", channels_first=cf,
+                      input_grad=input_grad)
+    xt = torch.from_numpy(x)
+    xt = (xt.permute(0, 3, 1, 2).contiguous() if cf else xt) \
+        .requires_grad_(True)
+    loss = (st(xt) ** 2).sum()
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), jloss, rtol=1e-4)
+    buffers = dict(st.named_buffers())
+    for name, jv in jbs.items():
+        np.testing.assert_allclose(buffers[name].numpy(), np.asarray(jv),
+                                   rtol=5e-4, atol=1e-5, err_msg=name)
+    params = dict(st.named_parameters())
+    for name, jv in jg.items():
+        if name.startswith("bias"):
+            continue
+        r = np.asarray(jv)
+        sc = max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(params[name].grad.numpy(), r, rtol=2e-3,
+                                   atol=2e-3 * sc, err_msg=name)
+    if input_grad:
+        gx = xt.grad.permute(0, 2, 3, 1) if cf else xt.grad
+        sc = max(1.0, float(np.abs(np.asarray(jgx)).max()))
+        np.testing.assert_allclose(gx.numpy(), np.asarray(jgx), rtol=2e-3,
+                                   atol=2e-3 * sc)
+    else:
+        assert torch.count_nonzero(xt.grad) == 0
+
+
+def test_from_jax_loads_into_pallas_stage(rng):
+    """JAX variables of a ``pallas`` stage (initialised in eval mode, which
+    runs no kernel) load into the port's ``pallas`` stage by name, and the
+    two eval forwards agree."""
+    x = rng.normal(size=(2, 4, 8, 4)).astype(np.float32)
+    stage = JaxStage(WIDTHS, impl="pallas")
+    variables = stage.init(jax.random.PRNGKey(3), jnp.asarray(x),
+                           train=False)
+    st = _torch_stage(variables, impl="pallas", channels_first=False)
+    out = st.eval()(torch.from_numpy(x))
+    ref = stage.apply(variables, jnp.asarray(x), train=False)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-6)

@@ -7,6 +7,7 @@ squared distances with the same rounded operations in the same order as
 the TPU kernel's reference formula, and selection/gather are exact
 integer and copy operations, so idx and grouped must be EQUAL, not close.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,8 +16,15 @@ import torch
 from facl_tpu.ops.grouping import group_points as jax_group_points
 from facl_tpu.ops.grouping import pairwise_sqdist as jax_pairwise_sqdist
 from facl_tpu.ops.pallas.select import _select_gather
-from facl_tpu_torch.ops.grouping import group_points, pairwise_sqdist
-from facl_tpu_torch.ops.select import select_gather
+from facl_tpu.ops.pallas.select import select_knn_ball as jax_select_knn_ball
+from facl_tpu_torch.config import GroupingConfig
+from facl_tpu_torch.ops.grouping import group_points, group_points_cfg, \
+    pairwise_sqdist
+from facl_tpu_torch.ops.select import select_gather, select_knn_ball
+
+CASES = ["random", "wide_ball", "duplicates", "all_out_of_radius"]
+ROUTES = [("pallas", "pallas"), ("pallas", "xla"), ("xla", "pallas"),
+          ("xla", "xla")]
 
 
 def _clouds(rng, case):
@@ -35,8 +43,7 @@ def _clouds(rng, case):
     return pts, 1e-6
 
 
-@pytest.mark.parametrize("case", ["random", "wide_ball", "duplicates",
-                                  "all_out_of_radius"])
+@pytest.mark.parametrize("case", CASES)
 def test_select_gather_equals_tpu_kernel(rng, case):
     pts, r2 = _clouds(rng, case)
     S, K = 8, 12
@@ -75,3 +82,74 @@ def test_pairwise_sqdist_matches_jax(rng):
     assert td.shape == jd.shape == (2, 8, 48)
     assert (td >= 0).all()
     np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_select_knn_ball_equals_tpu_kernel(rng, case):
+    """B4: the selection alone, bit-equal to the TPU kernel and to B1's."""
+    pts, r2 = _clouds(rng, case)
+    S, K = 8, 12
+    jidx = jax_select_knn_ball(jnp.asarray(pts), S, K, r2, interpret=True)
+    tidx = select_knn_ball(torch.from_numpy(pts), S, K, r2)
+    assert tidx.dtype == torch.int32
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    _, b1_idx = select_gather(torch.from_numpy(pts), S, K, r2,
+                              return_idx=True)
+    assert torch.equal(tidx, b1_idx)
+
+
+@pytest.mark.parametrize("select_impl,gather_impl", ROUTES)
+def test_group_points_routes_equal_jax(rng, select_impl, gather_impl):
+    """Each (select_impl, gather_impl) route, through group_points_cfg,
+    against JAX's group_points with the same arguments: centers exact, neighbourhoods exact once each channel is
+    sorted over K (the routes list neighbours in different orders)."""
+    pts = rng.uniform(-0.5, 0.5, size=(2, 48, 4)).astype(np.float32)
+    jn, jc = jax_group_points(jnp.asarray(pts), 8, 8, 0.2,
+                              select_impl=select_impl,
+                              gather_impl=gather_impl)
+    tn, tc = group_points_cfg(torch.from_numpy(pts), GroupingConfig(
+        num_centroids=8, knn_k=8, radius_sq=0.2, select_impl=select_impl,
+        gather_impl=gather_impl))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(np.sort(tn.numpy(), axis=2),
+                                  np.sort(np.asarray(jn), axis=2))
+
+
+@pytest.mark.parametrize("select_impl,gather_impl", ROUTES)
+def test_group_points_points_grad_equals_jax(rng, select_impl, gather_impl):
+    """d/d(points) of tests/test_pallas_select.py's set-invariant loss on
+    every route, against jax.grad: the gather term reaches the points
+    through B1's and B5a's scatter-add backward, the centers term through
+    the re-centring."""
+    B, N, S, K = 2, 96, 12, 16
+    base = rng.uniform(-0.5, 0.5, size=(B, N // 2, 4)).astype(np.float32)
+    pts = np.concatenate([base, base], axis=1)
+
+    # jax.grad cannot pass the selection-only pallas_call (it has no VJP
+    # rule, even for its integer output); the xla selection picks the same
+    # index set, so it gives that route's reference gradient.
+    jsel = "xla" if (select_impl, gather_impl) == ("pallas", "xla") \
+        else select_impl
+
+    def jloss(p):
+        n, c = jax_group_points(p, S, K, 0.2, select_impl=jsel,
+                                gather_impl=gather_impl)
+        return jnp.sum(n ** 2) + jnp.sum(c ** 2)
+
+    gj = jax.grad(jloss)(jnp.asarray(pts))
+    tp = torch.from_numpy(pts).requires_grad_(True)
+    n, c = group_points(tp, S, K, 0.2, select_impl=select_impl,
+                        gather_impl=gather_impl)
+    ((n ** 2).sum() + (c ** 2).sum()).backward()
+    np.testing.assert_allclose(tp.grad.numpy(), np.asarray(gj), rtol=1e-5,
+                               atol=1e-5)
+    # The gather term is there: without it only the centroids' rows move.
+    assert torch.count_nonzero(tp.grad[:, S:]) > 0
+
+
+def test_group_points_rejects_unknown_impl_and_approx():
+    pts = torch.zeros(1, 16, 4)
+    with pytest.raises(ValueError, match="select_impl"):
+        group_points(pts, 4, 4, select_impl="cuda")
+    with pytest.raises(NotImplementedError, match="approximate"):
+        group_points(pts, 4, 4, method="approx")

@@ -10,7 +10,9 @@ gradient is mathematically zero and Adam random-walks the noise) at
 atol 3e-3 of the parameter scale; BN running means at rtol 2e-3 /
 atol 3e-3 sigma and variances at rtol 3e-3. The same holds for three
 steps with the kernel-backed SA paths ``hybrid2`` and ``pair`` on both
-sides.
+sides, and for six steps of the port's ``pallas`` path (kernel B9's
+twins) against JAX's ``reference``, whose semantics define B9 (JAX runs
+its pallas stage only on a TPU).
 """
 import dataclasses
 
@@ -51,11 +53,12 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-def _run_both(rng, steps, sa_impl):
+def _run_both(rng, steps, sa_impl, port_impl=None):
     """``steps`` steps of the JAX Trainer (``sa_impl`` as given, else
-    "reference") and of the port's (its default, else ``sa_impl``) from
-    the same weights, points and permutations. Returns (JAX losses, JAX
-    final state, port losses, port state, the port's step-0 gradients)."""
+    "reference") and of the port's (its default, else ``port_impl`` or
+    ``sa_impl``) from the same weights, points and permutations. Returns
+    (JAX losses, JAX final state, port losses, port state, the port's
+    step-0 gradients)."""
     batches = [rng.normal(size=(G, B, N, 4)).astype(np.float32)
                for _ in range(steps)]
     keys = [jax.random.fold_in(jax.random.PRNGKey(11), i)
@@ -76,7 +79,8 @@ def _run_both(rng, steps, sa_impl):
         jlosses.append(float(m["loss"]))
 
     from facl_tpu_torch.config import GroupingConfig
-    kw = {"sa_impl": sa_impl} if sa_impl else {}
+    port_impl = port_impl or sa_impl
+    kw = {"sa_impl": port_impl} if port_impl else {}
     tt = Trainer(_cfg(Config, GroupingConfig, **kw), steps_per_epoch=1,
                  device="cpu")
     tstate = tt.init_state(0)
@@ -143,3 +147,54 @@ def test_steps_match_jax_trainer_with_impl(rng, sa_impl):
     assert tstate.model.cfg.channels_first == (sa_impl == "pair")
     np.testing.assert_allclose(tlosses, jlosses, rtol=2e-3)
     _assert_states(jstate, tstate, grads0)
+
+
+def test_six_pallas_steps_match_jax_reference(rng):
+    jlosses, jstate, tlosses, tstate, grads0 = _run_both(rng, STEPS, None,
+                                                         "pallas")
+    assert tstate.model.cfg.sa_impl == "pallas"
+    assert tstate.model.cfg.channels_first is False
+    np.testing.assert_allclose(tlosses, jlosses, rtol=2e-3)
+    _assert_states(jstate, tstate, grads0)
+
+
+@pytest.mark.parametrize("select_impl,gather_impl,called", [
+    ("auto", "auto", "select_gather_knn_ball"),
+    ("pallas", "pallas", "select_gather_knn_ball"),
+    ("pallas", "xla", "select_knn_ball"),
+    ("xla", "pallas", "gather_rows_vjp"),
+    ("xla", "xla", "knn_ball_plain")])
+def test_grouping_fn_honours_select_and_gather_impl(rng, monkeypatch,
+                                                    select_impl, gather_impl,
+                                                    called):
+    """make_grouping_fn routes on the config's select_impl / gather_impl
+    (facl_tpu/train/trainer.py:83-87): each route calls its own function,
+    and every route gives the same neighbourhood sets."""
+    from facl_tpu_torch.config import GroupingConfig
+    from facl_tpu_torch.ops import grouping
+    from facl_tpu_torch.train.trainer import make_grouping_fn
+    names = ("select_gather_knn_ball", "select_knn_ball", "gather_rows_vjp",
+             "knn_ball_plain")
+    calls = dict.fromkeys(names, 0)
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+    for n in names:
+        monkeypatch.setattr(grouping, n, spy(n, getattr(grouping, n)))
+    pts = torch.from_numpy(rng.uniform(-0.5, 0.5, size=(2, 3, N, 4))
+                           .astype(np.float32))
+    fn = make_grouping_fn(GroupingConfig(num_centroids=S, knn_k=K,
+                                         radius_sq=0.2,
+                                         select_impl=select_impl,
+                                         gather_impl=gather_impl), "bskc")
+    neigh, cent = fn(pts)
+    assert calls[called] == 1
+    # xla select + pallas gather is the one route of two spied calls.
+    assert sum(calls.values()) == (2 if called == "gather_rows_vjp" else 1)
+    ref, rc = make_grouping_fn(GroupingConfig(num_centroids=S, knn_k=K,
+                                              radius_sq=0.2), "bskc")(pts)
+    assert torch.equal(cent, rc)
+    assert torch.equal(neigh.sort(3).values, ref.sort(3).values)
