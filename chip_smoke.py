@@ -12,14 +12,18 @@ Phases (any failure exits nonzero, before the final line):
   2. kernels each kernel and its twin on the same card tensors at the
              main path's shapes (64 videos x 10 crops x 512 points, S=K=64,
              SA widths 4-64-64-256): B1, B4 and B5a bit-equal (B4's idx
-             also to B1's); B5b within 1e-5 of the scale of index_add_;
+             also to B1's); B5b within 1e-5 of the scale of index_add_,
+             two runs equal;
              B2/B3/B6/B7/B8 accumulators to 1e-4 of their max-abs (cnt1
              exactly); B9's eight launches (stats to 1e-5, BN sums and dW
              to 1e-4 of their max-abs, db near zero); row outputs, pooled
              values and B9's dx at rtol 1e-5 / atol 1e-5 x scale; pool
              indices equal except where the twin's own values tie.
-             Times: CUDA events, median of 10 after 2 warm-up runs; beside
-             B5a and B5b one library call (torch.gather, index_add_). Then
+             B5a and B5b again on 0.8-cube clouds (spread rows).
+             Times (device_ms): CUDA events around 20 back-to-back calls
+             queued behind a spin of the card, so the device time excludes
+             the host's; the host's time per call beside it; beside B5a
+             and B5b one library call (torch.gather, index_add_). Then
              the whole SA stage (forward + backward) of each sa_impl with
              kernels (pair3, pair, hybrid2, hybrid, pallas) at K=64 and
              K=128 on the same inputs as kernels, twins and float64
@@ -89,20 +93,55 @@ def gpu_name_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
+_SPIN = {}
+
+
+def _spin_cycles_per_ms() -> float:
+    """Clock cycles of torch.cuda._sleep per ms on this card, measured."""
+    if "rate" not in _SPIN:
+        torch.cuda._sleep(1000)
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
-        fn()
+        torch.cuda._sleep(10_000_000)
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
+        _SPIN["rate"] = 1e7 / s.elapsed_time(e)
+    return _SPIN["rate"]
+
+
+def device_ms(fn, n: int = 20):
+    """(device ms per call, host us per call) of ``fn``. After two warm-up
+    calls the card is set spinning (torch.cuda._sleep) ahead of the start
+    event, for twice the time the host takes to queue n calls behind it;
+    the start and end events then bracket n back-to-back calls that the
+    device runs without waiting for the host. The host clock stamps each
+    of the same n calls: the host time is the median call's. If the spin
+    ended before the last call was queued (the start event had already
+    passed), the run is repeated once with a spin sized from that median.
+    A call that launches many kernels can fill the device's queue while
+    the spin runs; the host then waits on the device (the device never
+    idles), which the median skips while fewer than half the calls wait."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for _ in range(2):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(int((2e3 * n * host + 1.0) * _spin_cycles_per_ms()))
+        s.record()
+        stamps = [time.perf_counter()]
+        for _ in range(n):
+            fn()
+            stamps.append(time.perf_counter())
+        late = s.query()
+        e.record()
+        e.synchronize()
+        host = statistics.median(b - a for a, b in zip(stamps, stamps[1:]))
+        if not late:
+            break
+    return s.elapsed_time(e) / n, host * 1e6
 
 
 def bound(nbytes: float, ops: float):
@@ -427,10 +466,7 @@ SRC9 = "facl_tpu_torch/ops/csrc/sa_fused.cu"
 
 def grouping_rows(flat, S, K, r2, g):
     """B4, B5a and B5b against their twins on the main path's clouds: B4's
-    idx bit-equal to its twin and to B1's; B5a bit-equal; B5b (rows summed
-    in a fixed order) within 1e-5 of the scale of index_add_ (atomics).
-    Library calls: torch.gather for B5a, index_add_ for B5b."""
-    from facl_tpu_torch.ops import gather as GA
+    idx bit-equal to its twin and to B1's; B5 on B4's idx (b5_rows)."""
     from facl_tpu_torch.ops import select as SEL
     Bc, N, C = flat.shape
     ki = SEL.select_knn_ball(flat, S, K, r2)
@@ -443,40 +479,56 @@ def grouping_rows(flat, S, K, r2, g):
                  ops=Bc * S * N * 12, fn=SEL.select_knn_ball,
                  plain=SEL.select_knn_ball_plain, source=SRC_SEL,
                  replaces="facl_tpu/ops/pallas/select.py:258")]
-    idx = ki.reshape(Bc, S * K)
+    print(f"B4 select_knn_ball {tuple(flat.shape)} S={S} K={K}: idx "
+          f"bit-equal to its twin and B1", flush=True)
+    return rows + b5_rows(flat, ki.reshape(Bc, S * K), g, "main path")
+
+
+def b5_rows(flat, idx, g, label):
+    """B5a and B5b against their twins on one set of clouds and indices:
+    B5a bit-equal; B5b (rows summed in a fixed order) within 1e-5 of the
+    scale of index_add_ (atomics) and equal across two runs. Library
+    calls: torch.gather on the int64 index (made once, outside the timed
+    call: it is the library's own index type), and index_add_ into a
+    zeroed output allocated inside the timed call, as B5b returns a fresh
+    one."""
+    from facl_tpu_torch.ops import gather as GA
+    Bc, N, C = flat.shape
+    R = idx.shape[1]
     check(torch.equal(GA.gather_rows(flat, idx),
-                      GA.gather_rows_plain(flat, idx)), "B5a: not bit-equal")
-    i64 = idx.long()[..., None].expand(Bc, S * K, C)
-    rows.append(dict(name="gather_rows", args=(flat, idx), err=0.0,
-                     nbytes=(Bc * N * C + Bc * S * K + Bc * S * K * C) * 4,
-                     ops=0, fn=GA.gather_rows, plain=GA.gather_rows_plain,
-                     library=lambda: torch.gather(flat, 1, i64),
-                     source=SRC_GA,
-                     replaces="facl_tpu/ops/pallas/gather.py:72"))
-    gr = torch.randn(Bc, S * K, C, generator=g).to(flat.device)
+                      GA.gather_rows_plain(flat, idx)),
+          f"B5a [{label}]: not bit-equal")
+    i64 = idx.long()[..., None].expand(Bc, R, C)
+    gr = torch.randn(Bc, R, C, generator=g).to(flat.device)
     k, t = GA.scatter_add_rows(idx, gr, N), GA.scatter_add_rows_plain(idx,
                                                                       gr, N)
     err = float((k - t).abs().max())
     check(err <= 1e-5 * float(t.abs().max()),
-          f"B5b: {err:.3e} from index_add_ beyond 1e-5 x scale")
+          f"B5b [{label}]: {err:.3e} from index_add_ beyond 1e-5 x scale")
     check(torch.equal(k, GA.scatter_add_rows(idx, gr, N)),
-          "B5b: two runs differ")
+          f"B5b [{label}]: two runs differ")
     flat_i = (idx.long() + N * torch.arange(Bc, device=flat.device)[:, None]
               ).reshape(-1)
-    acc = torch.zeros(Bc * N, C, device=flat.device)
     gflat = gr.reshape(-1, C)
-    rows.append(dict(name="scatter_add_rows", args=(idx, gr, N), err=err,
-                     nbytes=(Bc * S * K + Bc * S * K * C + Bc * N * C) * 4,
-                     ops=Bc * S * K * C, fn=GA.scatter_add_rows,
-                     plain=GA.scatter_add_rows_plain,
-                     library=lambda: acc.index_add_(0, flat_i, gflat),
-                     source=SRC_GA,
-                     replaces="facl_tpu/ops/pallas/gather.py:126"))
-    print(f"B4 select_knn_ball {tuple(flat.shape)} S={S} K={K}: idx "
-          f"bit-equal to its twin and B1; B5a gather_rows bit-equal; B5b "
-          f"scatter_add_rows {err:.3e} from index_add_, deterministic",
-          flush=True)
-    return rows
+    per_point = torch.zeros(Bc, N, device=flat.device).scatter_add_(
+        1, idx.long(), torch.ones(Bc, R, device=flat.device))
+    top = float(per_point.topk(64, 1).values.sum()) / (Bc * R)
+    print(f"B5 [{label}] {tuple(flat.shape)}, R={R}: the 64 most-hit points "
+          f"of a cloud own {top:.3f} of its rows; B5a gather_rows "
+          f"bit-equal; B5b scatter_add_rows {err:.3e} from index_add_, "
+          "deterministic", flush=True)
+    return [dict(name="gather_rows", args=(flat, idx), err=0.0,
+                 nbytes=(Bc * N * C + Bc * R + Bc * R * C) * 4,
+                 ops=0, fn=GA.gather_rows, plain=GA.gather_rows_plain,
+                 library=lambda: torch.gather(flat, 1, i64),
+                 source=SRC_GA, replaces="facl_tpu/ops/pallas/gather.py:72"),
+            dict(name="scatter_add_rows", args=(idx, gr, N), err=err,
+                 nbytes=(Bc * R + Bc * R * C + Bc * N * C) * 4,
+                 ops=Bc * R * C, fn=GA.scatter_add_rows,
+                 plain=GA.scatter_add_rows_plain,
+                 library=lambda: torch.zeros(Bc * N, C, device=flat.device)
+                 .index_add_(0, flat_i, gflat),
+                 source=SRC_GA, replaces="facl_tpu/ops/pallas/gather.py:126")]
 
 
 def b9_ops(widths, C0, sweep, target=-1):
@@ -623,6 +675,14 @@ def phase_kernels(dev, model, points):
                      plain=SEL.select_gather_plain, source=SRC_SEL,
                      replaces="facl_tpu/ops/pallas/select.py:302"))
     rows += grouping_rows(flat, S, K, r2, g)
+    # B5 again on spread rows: phase_input_grad's clouds (xyz uniform in a
+    # 0.8 cube) at the main path's Bc, from a generator of their own so
+    # that the draws of g below stay as they were.
+    gc = torch.Generator().manual_seed(SEED + 5)
+    cube = torch.cat([torch.rand(Bc, N, 3, generator=gc) * 0.8 - 0.4,
+                      torch.randn(Bc, N, 1, generator=gc)], 2).to(dev)
+    cube_rows = b5_rows(cube, SEL.select_knn_ball(cube, S, K, r2).reshape(
+        Bc, S * K), gc, "0.8 cube")
 
     # Real SA inputs: the grouped clouds and the model's SA weights.
     grouped, _ = SEL.select_gather(flat, S, K, r2)
@@ -756,22 +816,36 @@ def phase_kernels(dev, model, points):
             sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf,
                             Kf, impl)
 
-        for r in rows:
-            args, fn, plain = r.pop("args"), r["fn"], r.pop("plain")
-            r["ms"] = median_ms(lambda: fn(*args))
-            r["plain_ms"] = median_ms(lambda: plain(*args))
-            lib = r.pop("library", None)
-            r["library_ms"] = median_ms(lib) if lib else None
-            r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("ops"))
-            r["max_abs_err"] = r.pop("err")
-            r.setdefault("source", "facl_tpu_torch/ops/csrc/sa_pair.cu")
+        for r in rows + cube_rows:
+            measure(r)
     for r in rows:
-        lib = "" if r["library_ms"] is None else \
-            f", library {r['library_ms']:.4f} ms"
-        print(f"kernel {r['name']}: {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}"
-              f" ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}{lib}), "
-              f"max |kernel - twin| = {r['max_abs_err']:.3e}", flush=True)
+        print_row(r)
+    for r in cube_rows:
+        print_row(r, " [0.8 cube]")
     return rows
+
+
+def measure(r):
+    """Time one row's kernel, twin and library call (device_ms) and set
+    its bound from the row's bytes and operations."""
+    args, fn, plain = r.pop("args"), r["fn"], r.pop("plain")
+    r["ms"], r["host_us"] = device_ms(lambda: fn(*args))
+    r["plain_ms"] = device_ms(lambda: plain(*args))[0]
+    lib = r.pop("library", None)
+    r["library_ms"] = device_ms(lib)[0] if lib else None
+    r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("ops"))
+    r["max_abs_err"] = r.pop("err")
+    r.setdefault("source", "facl_tpu_torch/ops/csrc/sa_pair.cu")
+
+
+def print_row(r, label=""):
+    lib = "" if r["library_ms"] is None else \
+        f", library {r['library_ms']:.4f} ms"
+    print(f"kernel {r['name']}{label}: {r['ms']:.4f} ms on the device, "
+          f"{r['host_us']:.1f} us on the host per call (twin "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}{lib}), max |kernel - twin| = "
+          f"{r['max_abs_err']:.3e}", flush=True)
 
 
 def _cfg(batch, impl="pair3", select_impl="auto", gather_impl="auto"):
@@ -1325,6 +1399,7 @@ def main() -> None:
                     "replaces": r["replaces"],
                     "launches": launches[r["fn"].__name__],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "host_us": r["host_us"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})

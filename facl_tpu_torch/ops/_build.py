@@ -12,6 +12,7 @@ explicit :func:`build_all`) builds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -121,15 +122,21 @@ def build_all() -> float:
     return dt
 
 
+_FUNCTIONS: Dict[tuple, tuple] = {}
+
+
 def function(lib_name: str, fn_name: str, argtypes):
     """A launcher of library ``lib_name`` with its ctypes signature set;
-    launchers return an int (cudaGetLastError())."""
-    lib = REGISTRY.get(lib_name)
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
+    launchers return an int (cudaGetLastError()). Resolved once per
+    process: only a name's first use takes the registry's lock."""
+    hit = _FUNCTIONS.get((lib_name, fn_name))
+    if hit is None:
+        lib = REGISTRY.get(lib_name)
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib, fn
+        hit = _FUNCTIONS[(lib_name, fn_name)] = (lib, fn)
+    return hit
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
@@ -151,8 +158,17 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_of(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """The raw handle of the current stream on ``t``'s device (without
+    building a ``torch.cuda.Stream`` per launch)."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """The device's SM count, queried once per device and process."""
+    index = device.index
+    return _sm_count(torch.cuda.current_device() if index is None else index)

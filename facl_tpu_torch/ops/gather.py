@@ -7,10 +7,12 @@ scatter-add. The CUDA kernels live in ``csrc/gather.cu``.
 
 A CPU tensor takes the plain twin (``torch.gather``, ``index_add_``); a
 CUDA tensor launches the kernel or raises. B5a is a copy and equals its
-twin bit for bit. B5b sorts each cloud's rows by point and sums each
-point's rows in ascending row order, so it is deterministic; on the CPU
-its twin adds in the same order, on the card ``index_add_`` adds with
-atomics in no fixed order.
+twin bit for bit. B5b sorts each cloud's rows by point (stably, so each
+point's rows stay in ascending order) and sums them in an order fixed
+by the rows per point and the block size (spans of the sorted list, the
+runs that cross a span's end combined left to right), so it is
+deterministic; ``index_add_`` adds with atomics on the card, in no
+fixed order.
 """
 from __future__ import annotations
 
@@ -37,6 +39,27 @@ def scatter_add_rows_plain(idx: torch.Tensor, grads: torch.Tensor,
     return out.view(B, n, C)
 
 
+_ARGS = [_build.P, _build.P] + [_build.I] * 4 + [_build.P, _build.P]
+#: Threads of a B5b block (csrc/gather.cu kSThreads).
+_THREADS = 512
+#: Dynamic shared memory a B5b block may take (csrc/gather.cu kMaxSmem:
+#: Hopper's 227 KB less 1 KB for the kernel's static shared variables).
+MAX_SMEM = 226 * 1024
+
+
+def scatter_smem(n: int, R: int, C: int) -> int:
+    """Bytes of shared memory B5b needs for one cloud of n points and R
+    rows of C channels, g not staged (csrc/gather.cu scatter_words): idx
+    (R ints, at least 4 a thread: the span sums take its room after the
+    sort), the sorted rows (R ints) and the counts (16 warps' 16-bit
+    counts a point: n x 8 ints), whose room takes the output (n x C
+    floats) after the sort; each region rounded up to 16 bytes. g (R x C
+    floats) is staged too where two blocks still fit on an SM."""
+    def pad(k):
+        return -(-k // 4) * 4
+    return 4 * (max(pad(R), 4 * _THREADS) + pad(R) + pad(n * max(C, 8)))
+
+
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """B5a. table (B, N, C) f32, idx (B, R) int32 in [0, N) -> (B, R, C):
     out[b, r] = table[b, idx[b, r]]."""
@@ -47,14 +70,9 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     need(table, (B, N, C), "gather_rows table")
     need(idx, (B, R), "gather_rows idx", torch.int32)
     out = torch.empty((B, R, C), dtype=torch.float32, device=table.device)
-    lib, fn = _build.function(
-        "gather", "facl_gather_rows",
-        [_build.P, _build.P] + [_build.I] * 4 + [_build.P, _build.I,
-                                                 _build.P])
-    nblk = max(1, min(-(-B * R * C // 256), 8 * _build.sm_count(
-        table.device)))
+    lib, fn = _build.function("gather", "facl_gather_rows", _ARGS)
     code = fn(_build.ptr(table), _build.ptr(idx), B, N, R, C,
-              _build.ptr(out), nblk, _build.stream_of(table))
+              _build.ptr(out), _build.stream_of(table))
     gather_rows.launches += 1
     _build.check(lib, code, "gather_rows")
     return out
@@ -69,13 +87,13 @@ def scatter_add_rows(idx: torch.Tensor, grads: torch.Tensor,
     B, R, C = grads.shape
     need(grads, (B, R, C), "scatter_add_rows grads")
     need(idx, (B, R), "scatter_add_rows idx", torch.int32)
-    if (2 * n + 1 + R) * 4 > 227 * 1024:
-        raise ValueError(f"scatter_add_rows kernel: n={n} points and R={R} "
-                         "rows per cloud do not fit its shared-memory sort")
+    if scatter_smem(n, R, C) > MAX_SMEM:
+        raise ValueError(f"scatter_add_rows kernel: n={n} points, R={R} "
+                         f"rows and C={C} channels per cloud need "
+                         f"{scatter_smem(n, R, C)} bytes of shared memory, "
+                         f"more than {MAX_SMEM}")
     out = torch.empty((B, n, C), dtype=torch.float32, device=grads.device)
-    lib, fn = _build.function(
-        "gather", "facl_scatter_add_rows",
-        [_build.P, _build.P] + [_build.I] * 4 + [_build.P, _build.P])
+    lib, fn = _build.function("gather", "facl_scatter_add_rows", _ARGS)
     code = fn(_build.ptr(idx), _build.ptr(grads), B, n, R, C,
               _build.ptr(out), _build.stream_of(grads))
     scatter_add_rows.launches += 1

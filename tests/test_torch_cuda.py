@@ -154,20 +154,59 @@ def test_select_knn_ball_bit_equal(dev, rng):
     assert torch.equal(i, select_gather(pts, 64, 64, 0.06, True)[1])
 
 
+@pytest.mark.parametrize("dist", ["uniform", "skewed"])
+@pytest.mark.parametrize("R", [4096, 4000])
 @pytest.mark.parametrize("N", [512, 7])
-def test_gather_and_scatter_match_twins(dev, rng, N):
+@pytest.mark.parametrize("C", [1, 3, 4, 8])
+def test_gather_and_scatter_match_twins(dev, rng, C, N, R, dist):
     """B5a bit-equal; B5b (fixed order) against index_add_ (atomics) at
-    1e-5 of the scale."""
+    1e-5 of the scale, and equal across two runs. skewed: 64 points own
+    ~90% of the rows, as the padded centroids of the main path do."""
     from facl_tpu_torch.ops import gather as GA
-    B, R, C = 6, 4096, 4
+    B = 6
     t = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev)
-    idx = torch.from_numpy(rng.integers(0, N, size=(B, R))
-                           .astype(np.int32)).to(dev)
+    i = rng.integers(0, N, size=(B, R))
+    if dist == "skewed":
+        hot = rng.choice(N, size=min(64, N), replace=False)
+        i = np.where(rng.random((B, R)) < 0.9, rng.choice(hot, size=(B, R)),
+                     i)
+    idx = torch.from_numpy(i.astype(np.int32)).to(dev)
     g = torch.from_numpy(rng.normal(size=(B, R, C)).astype(np.float32)).to(dev)
     assert torch.equal(GA.gather_rows(t, idx), GA.gather_rows_plain(t, idx))
     k, p = GA.scatter_add_rows(idx, g, N), GA.scatter_add_rows_plain(idx, g, N)
     assert float((k - p).abs().max()) <= 1e-5 * float(p.abs().max())
     assert torch.equal(k, GA.scatter_add_rows(idx, g, N))   # deterministic
+
+
+def test_gather_and_scatter_unaligned(dev, rng):
+    """Contiguous views that start 4 bytes past a 16-byte boundary take
+    the kernels' word-copy and scalar paths: same results."""
+    from facl_tpu_torch.ops import gather as GA
+    B, N, R, C = 3, 64, 1000, 4
+
+    def shifted(a):
+        buf = torch.empty(a.size + 1, dtype=torch.from_numpy(a).dtype,
+                          device=dev)
+        v = buf[1:].view(a.shape)
+        v.copy_(torch.from_numpy(a))
+        return v
+    t = shifted(rng.normal(size=(B, N, C)).astype(np.float32))
+    idx = shifted(rng.integers(0, N, size=(B, R)).astype(np.int32))
+    g = shifted(rng.normal(size=(B, R, C)).astype(np.float32))
+    assert torch.equal(GA.gather_rows(t, idx), GA.gather_rows_plain(t, idx))
+    k, p = GA.scatter_add_rows(idx, g, N), GA.scatter_add_rows_plain(idx, g, N)
+    assert float((k - p).abs().max()) <= 1e-5 * float(p.abs().max())
+
+
+def test_scatter_too_large_raises(dev):
+    """A cloud whose B5b layout exceeds the block's shared memory raises
+    ValueError before any launch; there is no fallback."""
+    from facl_tpu_torch.ops import gather as GA
+    R = 40000
+    assert GA.scatter_smem(512, R, 4) > GA.MAX_SMEM
+    idx = torch.zeros(1, R, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        GA.scatter_add_rows(idx, torch.zeros(1, R, 4, device=dev), 512)
 
 
 @pytest.mark.parametrize("route", [("pallas", "pallas"), ("pallas", "xla"),

@@ -39,6 +39,49 @@ def test_scatter_add_rows_matches_tpu_kernel(rng, N):
     np.testing.assert_allclose(got.numpy(), np.asarray(out), atol=1e-5)
 
 
+def _idx(rng, B, N, R, dist):
+    """(B, R) int32 indices: uniform over the N points, or skewed as on the
+    padded clouds of the main path, where 64 centroid points own ~90% of
+    the rows."""
+    if dist == "uniform":
+        return rng.integers(0, N, size=(B, R)).astype(np.int32)
+    hot = rng.choice(N, size=min(64, N), replace=False)
+    return np.where(rng.random((B, R)) < 0.9, rng.choice(hot, size=(B, R)),
+                    rng.integers(0, N, size=(B, R))).astype(np.int32)
+
+
+# The shapes the card kernels branch on: C % 4 (16-byte rows or scalar
+# channels, C = 8 in two 4-channel passes of B5b), few or many points.
+SHAPES = [(C, N, "uniform") for C in (1, 3, 4, 8) for N in (5, 512)] + \
+    [(C, 512, "skewed") for C in (1, 3, 4, 8)]
+
+
+@pytest.mark.parametrize("C,N,dist", SHAPES)
+def test_gather_rows_shapes_equal_tpu_kernel(rng, C, N, dist):
+    B, R = 1, 4096
+    table = rng.normal(size=(B, N, C)).astype(np.float32)
+    idx = _idx(rng, B, N, R, dist)
+    out = jax_gather_rows(jnp.asarray(table), jnp.asarray(idx),
+                          interpret=True)
+    got = gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(out))
+
+
+@pytest.mark.parametrize("C,N,dist", SHAPES)
+def test_scatter_add_rows_shapes_match_tpu_kernel(rng, C, N, dist):
+    B, R = 1, 4096
+    idx = _idx(rng, B, N, R, dist)
+    g = rng.normal(size=(B, R, C)).astype(np.float32)
+    out = np.asarray(jax_scatter(jnp.asarray(idx), jnp.asarray(g), N,
+                                 interpret=True))
+    got = scatter_add_rows(torch.from_numpy(idx), torch.from_numpy(g), N)
+    assert tuple(got.shape) == (B, N, C)
+    # With N = 5 each point sums ~800 rows to a magnitude of ~30; two f32
+    # summation orders then differ by ~1e-5 of that scale.
+    np.testing.assert_allclose(got.numpy(), out,
+                               atol=1e-5 * max(1.0, np.abs(out).max()))
+
+
 def test_gather_vjp_grad_matches_jax(rng):
     B, N, C, R = 2, 64, 4, 128
     table = rng.normal(size=(B, N, C)).astype(np.float32)
