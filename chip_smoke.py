@@ -5,6 +5,10 @@ every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py             # needs one CUDA device
     python3 chip_smoke.py --profile   # + a torch.profiler breakdown of
                                       #   one main-path step
+    python3 chip_smoke.py --parent DIR  # + B2b and B3b of the tree in DIR
+                                        #   (a git archive of another
+                                        #   commit) timed against this
+                                        #   tree's, in turns
 
 Phases (any failure exits nonzero, before the final line):
   1. build   every kernel from facl_tpu_torch/ops/csrc (one nvcc per
@@ -23,7 +27,11 @@ Phases (any failure exits nonzero, before the final line):
              Times (device_ms): CUDA events around 20 back-to-back calls
              queued behind a spin of the card, so the device time excludes
              the host's; the host's time per call beside it; beside B5a
-             and B5b one library call (torch.gather, index_add_). Then
+             and B5b one library call (torch.gather, index_add_). B2b and
+             B3b (tensor cores, 3xTF32) print two bounds: the
+             tensor-core one (bound_ms) and the f32 CUDA-core one
+             (bound_f32_ms), and are checked again, run to run
+             bit-identical, on the fine variant's K = 128. Then
              the whole SA stage (forward + backward) of each sa_impl with
              kernels (pair3, pair, hybrid2, hybrid, pallas) at K=64 and
              K=128 on the same inputs as kernels, twins and float64
@@ -69,8 +77,9 @@ import time
 import torch
 
 # H100 SXM (NVIDIA data sheet, dense, at the 700 W limit): f32 on CUDA
-# cores and HBM3 bandwidth.
+# cores, TF32 on tensor cores and HBM3 bandwidth.
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 SEED = 0
 
@@ -144,8 +153,13 @@ def device_ms(fn, n: int = 20):
     return s.elapsed_time(e) / n, host * 1e6
 
 
-def bound(nbytes: float, ops: float):
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+def bound(nbytes: float, ops: float, tc_ops: float = 0.0):
+    """(ms, "bytes" or "operations"): the larger of bytes over the memory
+    rate and the operations over their peak rates — ``ops`` f32 on CUDA
+    cores, ``tc_ops`` (f32-equivalent product flops) on tensor cores in
+    3xTF32, three TF32 passes each."""
+    tb = nbytes / PEAK_BYTES * 1e3
+    to = (ops / PEAK_F32 + 3 * tc_ops / PEAK_TF32) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -639,6 +653,64 @@ def b9_rows(xr, layers, K, dpooled):
     return rows
 
 
+def check_b2b_b3b(x3, layers, K, dpooled, label):
+    """B2b (sa_fwd_gram_pool) and B3b (sa_bwd_sweep2) against their twins
+    on one grouping's tensors, at phase_kernels' bars, and run to run
+    bit-identical (the fine variant's K = 128: pool groups spanning two of
+    the sweeps' 64-row tiles)."""
+    SP = sweep_modules()[0]
+    from facl_tpu_torch.ops.sa_bwd import _fold_affine, _h_from_p, \
+        _layer_terms
+    from facl_tpu_torch.ops.sa_fwd import _finalize
+    lp1, lp2, lp3 = layers
+    Bc, C0, N = x3.shape
+    R, eps = Bc * N, 1e-5
+    m1, v1 = SP._moments_from_gram(torch.einsum("bcn,bdn->cd", x3, x3),
+                                   x3.sum((0, 2)), lp1.kernel, lp1.bias, R)
+    mul1, shift1 = _fold_affine(lp1, m1, v1, eps)
+    p2, s2, ss2 = SP.sa_fwd_layer12_plain(x3, lp1.kernel, lp1.bias, mul1,
+                                          shift1, lp2.kernel, lp2.bias)
+    m2, v2 = _finalize(s2, ss2, R)
+    mul2, shift2 = _fold_affine(lp2, m2, v2, eps)
+    agp = (p2, mul2, shift2, lp3.kernel, lp3.bias, K)
+    k, t = SP.sa_fwd_gram_pool(*agp), SP.sa_fwd_gram_pool_plain(*agp)
+    check(all(torch.equal(a, b) for a, b in
+              zip(k, SP.sa_fwd_gram_pool(*agp))),
+          f"gram_pool [{label}]: two runs differ")
+    p3 = (_h_from_p(p2, mul2, shift2) @ lp3.kernel + lp3.bias).reshape(
+        R // K, K, -1)
+    e = max(acc_err(k[0], t[0], f"gram_pool [{label}] G2"),
+            acc_err(k[1], t[1], f"gram_pool [{label}] ch2"),
+            row_err(k[2], t[2], f"gram_pool [{label}] max"),
+            row_err(k[3], t[3], f"gram_pool [{label}] min"))
+    nmis = index_err(k[4], t[4], p3, t[2], f"gram_pool [{label}] argmax") \
+        + index_err(k[5], t[5], p3, t[3], f"gram_pool [{label}] argmin")
+    del p3
+    G2, ch2, mx, mn, imx, imn = t
+    m3, v3 = SP._moments_from_gram(G2, ch2, lp3.kernel, lp3.bias, R)
+    mul3, shift3 = _fold_affine(lp3, m3, v3, eps)
+    sel = mul3 >= 0
+    zstar = torch.where(sel, mx, mn) * mul3 + shift3
+    idx = torch.where(zstar > 0, torch.where(sel, imx, imn),
+                      torch.full_like(imx, K))
+    gi2 = lp2.scale * torch.rsqrt(v2 + eps)
+    gi3 = lp3.scale * torch.rsqrt(v3 + eps)
+    A3, u3, q3 = SP.sa_bwd_sweep1_plain(p2, mul2, shift2, dpooled, idx, gi3,
+                                        lp3.kernel, K)
+    t3 = _layer_terms(A3, u3, lp3, m3, v3, G2, ch2, R, eps)
+    as2 = (x3, lp1.kernel, lp1.bias, mul1, shift1, p2, mul2, shift2, q3,
+           t3["M"].contiguous(), t3["rc"], gi2, lp2.kernel)
+    k, t = SP.sa_bwd_sweep2(*as2), SP.sa_bwd_sweep2_plain(*as2)
+    check(all(torch.equal(a, b) for a, b in zip(k, SP.sa_bwd_sweep2(*as2))),
+          f"sweep2 [{label}]: two runs differ")
+    e2 = max([acc_err(a, b, f"sweep2 [{label}] {n}") for a, b, n in
+              zip(k[:4], t[:4], ("A2", "G1", "u2", "ch1"))] +
+             [row_err(k[4], t[4], f"sweep2 [{label}] mq")])
+    print(f"B2b/B3b [{label}] K={K}, R={R}: gram_pool max |kernel - twin| "
+          f"{e:.3e}, {nmis} pool indices differ, all at twin ties; sweep2 "
+          f"{e2:.3e}; both run to run bit-identical", flush=True)
+
+
 def phase_kernels(dev, model, points):
     """Each kernel against its twin on real main-path tensors."""
     from facl_tpu_torch.ops import sa_pair as SP
@@ -749,9 +821,11 @@ def phase_kernels(dev, model, points):
         print(f"gram_pool: {nmis} pool indices differ, all at twin ties",
               flush=True)
         # Gram(h2) is symmetric: C2 (C2 + 1) operations per row suffice.
-        ops = R * (3 * C2 + C2 * (C2 + 1) + C2 + 2 * C2 * C3 + C3 + 2 * C3)
+        # Its products run on tensor cores (3xTF32), the rest on CUDA cores.
         rows.append(dict(name="sa_fwd_gram_pool", args=agp, err=e,
-                         nbytes=R * C2 * 4 + 4 * P * C3 * 4, ops=ops,
+                         nbytes=R * C2 * 4 + 4 * P * C3 * 4,
+                         ops=R * (3 * C2 + C2 + C3 + 2 * C3),
+                         tc_ops=R * (C2 * (C2 + 1) + 2 * C2 * C3),
                          fn=SP.sa_fwd_gram_pool,
                          plain=SP.sa_fwd_gram_pool_plain,
                          replaces="facl_tpu/ops/pallas/sa_pair.py:660"))
@@ -771,12 +845,14 @@ def phase_kernels(dev, model, points):
                 acc_err(ku2, u2, "sweep2 u2"),
                 acc_err(kch1, ch1, "sweep2 ch1"),
                 row_err(kmq, mq, "sweep2 mq"))
-        # G1 = h1^T h1 is symmetric: C1 (C1 + 1) operations per row.
-        ops = R * (2 * C0 * C1 + 4 * C1 + 3 * C2 + 2 * C2 * C2 + 4 * C2
-                   + 2 * C2 * C1 + C1 + 2 * C2 * C1 + C1 * (C1 + 1) + C1
-                   + C2)
+        # G1 = h1^T h1 is symmetric: C1 (C1 + 1) operations per row. The
+        # products (h2 M3, q2, A2, G1) run on tensor cores (3xTF32).
         rows.append(dict(name="sa_bwd_sweep2", args=as2, err=e,
-                         nbytes=R * (C0 + 2 * C2 + C1) * 4, ops=ops,
+                         nbytes=R * (C0 + 2 * C2 + C1) * 4,
+                         ops=R * (2 * C0 * C1 + 4 * C1 + 3 * C2 + 4 * C2
+                                  + C1 + C1 + C2),
+                         tc_ops=R * (2 * C2 * C2 + 2 * C2 * C1 + 2 * C2 * C1
+                                     + C1 * (C1 + 1)),
                          fn=SP.sa_bwd_sweep2, plain=SP.sa_bwd_sweep2_plain,
                          replaces="facl_tpu/ops/pallas/sa_pair.py:800"))
         # B3 sweep 3
@@ -812,6 +888,8 @@ def phase_kernels(dev, model, points):
         gf = b1_case("fine", flat, r2, Sf, Kf)
         gf[:, :3] -= flat[:, :Sf, :3].transpose(1, 2)[..., None]
         dpf = torch.randn(Bc * Sf, C3, generator=g).to(dev)
+        check_b2b_b3b(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], Kf, dpf,
+                      "fine")
         for impl in IMPLS + ("pallas",):
             sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf,
                             Kf, impl)
@@ -833,19 +911,96 @@ def measure(r):
     r["plain_ms"] = device_ms(lambda: plain(*args))[0]
     lib = r.pop("library", None)
     r["library_ms"] = device_ms(lib)[0] if lib else None
-    r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("ops"))
+    nbytes, ops, tc = r.pop("nbytes"), r.pop("ops"), r.pop("tc_ops", 0)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, ops, tc)
+    if tc:
+        r["bound_f32_ms"] = bound(nbytes, ops + tc)[0]
+    if PARENT and fn.__name__ in PARENT_AB:
+        r["parent_ab"] = parent_ab(fn, args)
     r["max_abs_err"] = r.pop("err")
     r.setdefault("source", "facl_tpu_torch/ops/csrc/sa_pair.cu")
+
+
+#: --parent: the parent tree's sa_pair library, and the kernels whose
+#: launchers are timed against this tree's (wrapper -> launcher name).
+PARENT = {}
+PARENT_AB = {"sa_fwd_gram_pool": "facl_sa_fwd_gram_pool",
+             "sa_bwd_sweep2": "facl_sa_bwd_sweep2"}
+
+
+def start_parent_build(root: str):
+    """Start nvcc on ``root``'s sa_pair.cu (a checkout of the parent
+    commit) with this tree's flags; returns the process and its output."""
+    from facl_tpu_torch.ops import _build
+    src = os.path.join(root, "facl_tpu_torch", "ops", "csrc", "sa_pair.cu")
+    check(os.path.exists(src), f"--parent: no {src}")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / "parent-sa_pair.so"
+    return subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                             str(out), src], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+def load_parent(started) -> None:
+    import ctypes
+    proc, out = started
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"--parent: nvcc failed:\n{log}")
+    lib = ctypes.CDLL(str(out))
+    lib.facl_error_string.argtypes = [ctypes.c_int]
+    lib.facl_error_string.restype = ctypes.c_char_p
+    PARENT["lib"] = lib
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"ptxas parent sa_pair: {line.strip()}", flush=True)
+
+
+def parent_ab(fn, args):
+    """Device ms of wrapper ``fn`` on ``args`` with the parent tree's
+    launcher (at the parent's grid, two blocks per SM) and with this
+    tree's, in turns: parent, this tree, this tree, parent."""
+    import ctypes
+    from facl_tpu_torch.ops import _build
+    from facl_tpu_torch.ops import sa_pair as SP
+    key = ("sa_pair", PARENT_AB[fn.__name__])
+    ours = _build._FUNCTIONS[key]          # resolved by the timed calls
+    lib = PARENT["lib"]
+    pfn = getattr(lib, key[1])
+    pfn.argtypes, pfn.restype = ours[1].argtypes, ctypes.c_int
+
+    def parent_grid(t, R, per_sm=2):
+        return min(R // 64, 2 * _build.sm_count(t.device))
+
+    def run_parent():
+        _build._FUNCTIONS[key] = (lib, pfn)
+        try:
+            with swapped([(SP, "grid", parent_grid)]):
+                return device_ms(lambda: fn(*args))[0]
+        finally:
+            _build._FUNCTIONS[key] = ours
+
+    def run_ours():
+        return device_ms(lambda: fn(*args))[0]
+    return [run_parent(), run_ours(), run_ours(), run_parent()]
 
 
 def print_row(r, label=""):
     lib = "" if r["library_ms"] is None else \
         f", library {r['library_ms']:.4f} ms"
+    tc = "" if "bound_f32_ms" not in r else \
+        f" with products on tensor cores in 3xTF32 (f32 CUDA-core bound " \
+        f"{r['bound_f32_ms']:.4f} ms)"
     print(f"kernel {r['name']}{label}: {r['ms']:.4f} ms on the device, "
           f"{r['host_us']:.1f} us on the host per call (twin "
           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-          f"{r['bound_by']}{lib}), max |kernel - twin| = "
+          f"{r['bound_by']}{tc}{lib}), max |kernel - twin| = "
           f"{r['max_abs_err']:.3e}", flush=True)
+    if "parent_ab" in r:
+        ab = r["parent_ab"]
+        print(f"  A/B {r['name']} in turns (parent, this tree, this tree, "
+              f"parent): {' / '.join(f'{v:.4f}' for v in ab)} ms on the "
+              f"device; parent mean {(ab[0] + ab[3]) / 2:.4f}, this tree "
+              f"{(ab[1] + ab[2]) / 2:.4f}", flush=True)
 
 
 def _cfg(batch, impl="pair3", select_impl="auto", gather_impl="auto"):
@@ -1354,6 +1509,10 @@ def _run_path(dev, impl, steps, batches, g, kernels, card, profile, want,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of the parent commit: its sa_pair.cu "
+                         "is built and its B2b and B3b timed against this "
+                         "tree's in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures the "
@@ -1366,6 +1525,7 @@ def main() -> None:
     name_power = gpu_name_power()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name_power}", flush=True)
+    parent = start_parent_build(args.parent) if args.parent else None
     t_build = _build.build_all()
     print(f"build: {t_build:.1f} s for {len(_build.SOURCES)} sources "
           "(parallel nvcc)", flush=True)
@@ -1373,6 +1533,8 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {src}: {line.strip()}", flush=True)
+    if parent:
+        load_parent(parent)
 
     from facl_tpu_torch.train import Trainer
     model = Trainer(_cfg(64), 100, device=dev).init_state(SEED).model
@@ -1402,6 +1564,8 @@ def main() -> None:
                     "host_us": r["host_us"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
+                    **{k: r[k] for k in ("bound_f32_ms", "parent_ab")
+                       if k in r},
                     "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": out}))
     print(gpu_name_power())

@@ -68,8 +68,18 @@ def reduce(part: torch.Tensor) -> torch.Tensor:
     return part.sum(0).float()
 
 
-def grid(t: torch.Tensor, R: int) -> int:
-    return min(R // TILE, 2 * _build.sm_count(t.device))
+def grid(t: torch.Tensor, R: int, per_sm: int = 2) -> int:
+    """Persistent blocks: ``per_sm`` per SM (what the kernel's shared
+    memory lets reside at once), at most one per row tile."""
+    return min(R // TILE, per_sm * _build.sm_count(t.device))
+
+
+def need_aligned(t: torch.Tensor, name: str):
+    """Kernels that stage rows by TMA bulk copies take 16-byte aligned
+    rows."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel stages rows by 16-byte bulk "
+                         "copies and takes a 16-byte aligned tensor")
 
 
 def launch(lib: str, name: str, argtypes, *args, what: str):

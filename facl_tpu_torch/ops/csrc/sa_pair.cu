@@ -14,16 +14,32 @@
 // MACs, only to fill 128 lanes) is not carried over: these kernels work
 // on plain (R, 64) rows and read the (B, C0, S*K) channel-major input.
 //
-// Bounds on the card (R = 2,621,440 rows at the main path): layer12,
-// gram_pool and sweep2 are bound by f32 operations (the 64-wide matmuls:
-// ~23, ~107 and ~86 GFLOP against 67 TFLOP/s on CUDA cores; strict f32,
-// no TF32), sweep3 by operations too (~23 GFLOP), sweep1 by bytes (it
-// reads p2 and writes q3, 671 MB each; dy3 has one nonzero per (group,
-// channel), so its products are taken sparsely). Design, kept simple: a
-// persistent grid of blocks, each looping over 64-row tiles with the
-// weights resident in shared memory and a register-tiled 64x64 product
-// (each of 256 threads owns a 4x4 or 4x16 output patch). Row tiles are
-// staged in shared memory so device-memory reads and writes are coalesced.
+// Bounds on the card (R = 2,621,440 rows at the main path). layer12 and
+// sweep3 are bound by f32 operations on CUDA cores (~23 GFLOP each
+// against 67 TFLOP/s), sweep1 by bytes (it reads p2 and writes q3, 671 MB
+// each; dy3 has one nonzero per (group, channel), so its products are
+// taken sparsely). Their design: a persistent grid of blocks, each
+// looping over 64-row tiles with the weights resident in shared memory
+// and a register-tiled 64x64 product (each of 256 threads owns a 4x4 or
+// 4x16 output patch), row tiles staged in shared memory.
+//
+// gram_pool (B2b) and sweep2 (B3b) run their 64-wide products on tensor
+// cores in 3xTF32 (sa_mma.cuh; f32-level accuracy). Their bounds there:
+// gram_pool ~0.63 ms by operations (~97 GFLOP of products, three TF32
+// passes each at 495 TFLOP/s, plus its CUDA-core work), sweep2 ~0.61 ms
+// by bytes (x, p2, q3 in and mq out: 784 B a row); on CUDA cores in f32
+// they would be bound at 1.48 and 1.18 ms. What holds them above that on
+// mma.sync: each warp reads its A and B fragments from shared memory
+// (hi and lo), ~640 KB per gram_pool tile against 128 B a clock, and the
+// per-(group, column) pool and the ReLU/split passes are CUDA-core work
+// between barriers that the products do not overlap. The designs keep
+// what they can off that path: one TMA bulk copy per row tile, several
+// tiles in flight; operands used by several warps (W3, M3, gi2 * W2^T,
+// h2 in gram_pool, h1 and dy2 in sweep2) split into hi/lo once; the pool
+// reduced from the accumulators (no p3 tile in shared memory); sweep2's
+// mq leaving by a TMA bulk store. The backward recomputes h1 in B3b
+// with h1_tile's op chain (h1_rows in sa_mma.cuh), and 3xTF32 moves no
+// ReLU mask: masks come from the CUDA-core chains only.
 //
 // The TPU grid runs in order and carries its accumulators across steps;
 // CUDA blocks run in parallel, so every block writes its own partial sums
@@ -39,11 +55,12 @@
 //
 // The backward recomputes p1 -> h1 from x with the forward's exact op
 // chain (h1_tile in sa_tile.cuh, shared by every x-reading kernel, B6 in
-// sa_2sweep.cu too), so the ReLU masks agree bit for bit with the
-// forward's (sa_pair.py:316-330).
+// sa_2sweep.cu too, and h1_rows in sa_mma.cuh), so the ReLU masks agree
+// bit for bit with the forward's (sa_pair.py:316-330).
 #include <cstdint>
 #include "common.cuh"
 #include "sa_tile.cuh"
+#include "sa_mma.cuh"
 
 namespace {
 
@@ -122,122 +139,238 @@ fwd_layer12_kernel(const float* __restrict__ x, int C0, int64_t N,
 // sa_pair.py:179-209).
 // partG: (blocks, 64, 64), partc: (blocks, 64), both float64;
 // mx/mn/imx/imn: (P, 256).
-__global__ void __launch_bounds__(NT)
-fwd_gram_pool_kernel(const float* __restrict__ p2, int64_t ntiles, int pool,
+//
+// Tensor cores (sa_mma.cuh), 16 warps: warp w = (mw, nw) = (w % 4, w / 4)
+// takes the Gram's rows 16 mw.. and columns 16 nw..; for p3 it takes the
+// columns 16 w.. of all 64 rows, so each (group, column) max and min is
+// reduced from the accumulators inside one warp (pool_tile). p2 tiles arrive by
+// TMA, one bulk copy each, three in flight; h2 and W3 are split into
+// hi/lo once (the tile after its ReLU, W3 when the block starts), so the
+// products load their fragments ready. One block per SM (220 KB of shared
+// memory).
+
+constexpr uint32_t FULL = 0xffffffffu;
+
+// Per (group, column) max and min of one tile's raw p3 (acc + b3) for the
+// 16 columns n0.. of a warp, with the first in-group row of each (the
+// smallest row holding the group's max, or min). LP = log2(min(pool,
+// TR)). Lane (g, t) holds rows 8 i + g (i < 8) of columns n0 + 8 nj + 2t
+// (+1); a group's rows span SI of a lane's i and the low SH bits of g.
+// pool > TR (upt > 1): a group spans upt consecutive tiles, walked in
+// order by one block; the running max/min sit in run.
+template <int LP>
+__device__ __forceinline__ void pool_tile(const float c[4][2][4], int n0,
+                                          const float* b3s, int64_t tile,
+                                          int upt, float* run, float* mx,
+                                          float* mn, int* imx, int* imn) {
+  constexpr int SI = LP > 3 ? 1 << (LP - 3) : 1;
+  constexpr int SH = LP < 3 ? LP : 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  int* irun = reinterpret_cast<int*>(run + 2 * C3W);
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int cj = 0; cj < 2; ++cj) {
+      const int col = n0 + 8 * nj + 2 * t + cj;
+      const float bias = b3s[col];
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        v[i] = __fadd_rn(c[i >> 1][nj][((i & 1) << 1) | cj], bias);
+      // Per group: its max and min over the lane's rows and then the
+      // group's lanes; then the first row holding each (min over rows).
+      float vx[8], vn[8];
+      int ix[8], in[8];
+#pragma unroll
+      for (int i = 0; i < 8; i += SI) {
+        float m = v[i], n = v[i];
+#pragma unroll
+        for (int k = 1; k < SI; ++k) {
+          m = fmaxf(m, v[i + k]);
+          n = fminf(n, v[i + k]);
+        }
+#pragma unroll
+        for (int b = 0; b < SH; ++b) {
+          m = fmaxf(m, __shfl_xor_sync(FULL, m, 4 << b));
+          n = fminf(n, __shfl_xor_sync(FULL, n, 4 << b));
+        }
+        int jm = TR, jn = TR;
+#pragma unroll
+        for (int k = SI - 1; k >= 0; --k) {
+          if (v[i + k] == m) jm = 8 * (i + k) + g;
+          if (v[i + k] == n) jn = 8 * (i + k) + g;
+        }
+#pragma unroll
+        for (int b = 0; b < SH; ++b) {
+          jm = min(jm, __shfl_xor_sync(FULL, jm, 4 << b));
+          jn = min(jn, __shfl_xor_sync(FULL, jn, 4 << b));
+        }
+        vx[i] = m;
+        vn[i] = n;
+        ix[i] = jm;
+        in[i] = jn;
+      }
+      if ((g & ((1 << SH) - 1)) != 0) continue;
+#pragma unroll
+      for (int i = 0; i < 8; i += SI) {
+        const int grp = (8 * i + g) >> LP;      // group within the tile
+        const int base = grp << LP;
+        if (upt == 1) {
+          const int64_t o = (tile * (TR >> LP) + grp) * C3W + col;
+          mx[o] = vx[i];
+          mn[o] = vn[i];
+          imx[o] = ix[i] - base;
+          imn[o] = in[i] - base;
+        } else {                                // LP == 6: one group
+          const int j = static_cast<int>(tile % upt);
+          if (j == 0 || vx[i] > run[col]) {
+            run[col] = vx[i];
+            irun[col] = ix[i] + j * TR;
+          }
+          if (j == 0 || vn[i] < run[C3W + col]) {
+            run[C3W + col] = vn[i];
+            irun[C3W + col] = in[i] + j * TR;
+          }
+          if (j == upt - 1) {
+            const int64_t o = (tile / upt) * C3W + col;
+            mx[o] = run[col];
+            mn[o] = run[C3W + col];
+            imx[o] = irun[col];
+            imn[o] = irun[C3W + col];
+          }
+        }
+      }
+    }
+}
+
+constexpr int GP_STAGES = 3;    // p2 tiles in flight per block
+
+template <int LP>
+__global__ void __launch_bounds__(NTM, 1)
+fwd_gram_pool_kernel(const float* __restrict__ p2, int64_t ntiles, int upt,
                      const float* __restrict__ vec2,
                      const float* __restrict__ W3, const float* __restrict__ b3,
                      double* __restrict__ partG, double* __restrict__ partc,
                      float* __restrict__ mx, float* __restrict__ mn,
                      int* __restrict__ imx, int* __restrict__ imn) {
-  extern __shared__ float sm[];
-  float* W3s = sm;                      // CW*C3W
-  float* p3s = W3s + CW * C3W;          // TR*C3W
-  float* h2s = p3s + TR * C3W;          // TR*LD
-  float* v2 = h2s + TR * LD;            // mul2 | shift2
-  float* b3s = v2 + 2 * CW;             // C3W
+  extern __shared__ __align__(128) float smt[];
+  float* stage = smt;                         // GP_STAGES x (TR, CW): p2
+  float* Hh = stage + GP_STAGES * TR * CW;    // h2, split: hi
+  float* Hl = Hh + TILE_F;                    //            lo
+  float* W3h = Hl + TILE_F;                   // W3, split, paired layout
+  float* W3l = W3h + 32 * b_stride(C3W);
+  float* v2 = W3l + 32 * b_stride(C3W);       // mul2 | shift2
+  float* b3s = v2 + 2 * CW;                   // C3W
+  float* run = b3s + C3W;                     // 4 x C3W (pool > TR)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(run + 4 * C3W);
+  const SplitBuf H{Hh, Hl}, W{W3h, W3l};
 
-  copy_vec(W3s, W3, CW * C3W);
-  copy_vec(v2, vec2, 2 * CW);
-  copy_vec(b3s, b3, C3W);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, mw = warp & 3, nw = warp >> 2;
+  // This block's tiles in order: whole units of upt tiles (a pool group
+  // spanning tiles stays with one block), units strided over the grid.
+  const int64_t units = ntiles / upt;
+  const int64_t count =
+      units > blockIdx.x ? ((units - 1 - blockIdx.x) / gridDim.x + 1) * upt
+                         : 0;
+  auto tile_at = [&](int64_t i) {
+    return (blockIdx.x + (i / upt) * gridDim.x) * upt + i % upt;
+  };
+  auto fetch = [&](int64_t i) {               // thread 0: one bulk copy
+    uint64_t* bar = &bars[i % GP_STAGES];
+    mbar_expect(bar, TR * CW * 4);
+    bulk_load(stage + (i % GP_STAGES) * TR * CW, p2 + tile_at(i) * TR * CW,
+              TR * CW * 4, bar);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GP_STAGES; ++s) mbar_init(&bars[s]);
+    for (int64_t i = 0; i < GP_STAGES && i < count; ++i) fetch(i);
+  }
+  load_b_split(W3h, W3l, W3, C3W, C3W, 1);
+  copy_block(v2, vec2, 2 * CW);
+  copy_block(b3s, b3, C3W);
   __syncthreads();
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  // pool <= TR: gpt whole groups per tile. pool > TR: a group spans upt
-  // consecutive tiles, walked in order by one block with the running
-  // max/min in registers (thread c owns channel c; NT == C3W).
-  const int gpt = pool <= TR ? TR / pool : 1;
-  const int upt = pool <= TR ? 1 : pool / TR;
-  double g[4][4] = {};
-  double ch = 0.0;
+  // Gram(h2) is symmetric: warps with nw < mw (blocks below the diagonal)
+  // skip it, and the warps above it write their block twice.
+  double G[2][4] = {};        // rows 16 mw + g (+8), cols 16 nw + 8 nj + 2t
+  double ch[2] = {0.0, 0.0};  // diagonal warps: channels 16 mw + g, + 8
+  for (int64_t i = 0; i < count; ++i) {
+    const int64_t tile = tile_at(i);
+    mbar_wait(&bars[i % GP_STAGES],
+              static_cast<uint32_t>((i / GP_STAGES) & 1));
+    relu_split_rows(stage + (i % GP_STAGES) * TR * CW, v2, v2 + CW, Hh, Hl);
+    __syncthreads();
+    if (threadIdx.x == 0 && i + GP_STAGES < count) fetch(i + GP_STAGES);
 
-  for (int64_t u = blockIdx.x; u < ntiles / upt; u += gridDim.x) {
-    float rmax = 0.f, rmin = 0.f;
-    int amax = 0, amin = 0;
-    for (int j = 0; j < upt; ++j) {
-      const int64_t t = u * upt + j;
-      const int64_t r0 = t * TR;
-      load_h_tile(p2, r0, v2, v2 + CW, h2s);
-      __syncthreads();
-      {
-        float tg[4][4];
-        zero_patch(tg);
-        acc_atb(h2s, h2s, tg);
-        add_patch(g, tg);
-      }
-      if (threadIdx.x < CW) {
-        float tc = 0.f;
-        for (int r = 0; r < TR; ++r) tc += h2s[r * LD + threadIdx.x];
-        ch += tc;
-      }
-
-      float acc[4][16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+    if (nw >= mw) {   // Gram(h2); the column sums from the same fragments
+      float c[2][4];
+      float s0 = 0.f, s1 = 0.f;
+      zero4(c[0]);
+      zero4(c[1]);
 #pragma unroll 2
-      for (int k = 0; k < CW; ++k) {
-        float a[4], bb[16];
+      for (int kb = 0; kb < 8; ++kb) {
+        const FragA a = frag_a_cols(H, 16 * mw, kb, lane);
+        if (nw == mw) {
+          s0 += col_pair(a, 0);
+          s1 += col_pair(a, 1);
+        }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = h2s[(ty + 16 * i) * LD + k];
-#pragma unroll
-        for (int j = 0; j < 16; ++j) bb[j] = W3s[k * C3W + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+        for (int nj = 0; nj < 2; ++nj)
+          mma3(c[nj], a, frag_b_rows(H, 16 * nw + 8 * nj, kb, lane));
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int nj = 0; nj < 2; ++nj)
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int c = tx + 16 * j;
-          p3s[(ty + 16 * i) * C3W + c] = __fadd_rn(acc[i][j], b3s[c]);
-        }
-      __syncthreads();
+        for (int q = 0; q < 4; ++q) G[nj][q] += c[nj][q];
+      ch[0] += s0;
+      ch[1] += s1;
+    }
 
-      if (pool <= TR) {
-        for (int e = threadIdx.x; e < gpt * C3W; e += NT) {
-          const int gi = e / C3W, c = e % C3W;
-          const int base = gi * pool;
-          float vmax = p3s[base * C3W + c], vmin = vmax;
-          int imax = 0, imin = 0;
-          for (int r = 1; r < pool; ++r) {
-            const float v = p3s[(base + r) * C3W + c];
-            if (v > vmax) { vmax = v; imax = r; }
-            if (v < vmin) { vmin = v; imin = r; }
-          }
-          const int64_t o = (t * gpt + gi) * C3W + c;
-          mx[o] = vmax;
-          mn[o] = vmin;
-          imx[o] = imax;
-          imn[o] = imin;
-        }
-      } else {
-        const int c = threadIdx.x;
-        for (int r = 0; r < TR; ++r) {
-          const float v = p3s[r * C3W + c];
-          const int rg = j * TR + r;      // row within the group
-          if (rg == 0) {
-            rmax = rmin = v;
-          } else {
-            if (v > rmax) { rmax = v; amax = rg; }
-            if (v < rmin) { rmin = v; amin = rg; }
-          }
-        }
-        if (j == upt - 1) {
-          const int64_t o = u * C3W + c;
-          mx[o] = rmax;
-          mn[o] = rmin;
-          imx[o] = amax;
-          imn[o] = amin;
+    {   // p3 = h2 W3 (+ b3 in pool_tile) for the columns 16 w..
+      const int n0 = 16 * warp;
+      float c[4][2][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        zero4(c[mi][0]);
+        zero4(c[mi][1]);
+      }
+#pragma unroll 4
+      for (int kb = 0; kb < 8; ++kb) {
+        const FragB b0 = frag_b_paired(W, b_stride(C3W), n0, kb, lane);
+        const FragB b1 = frag_b_paired(W, b_stride(C3W), n0 + 8, kb, lane);
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          const FragA a = frag_a_rows(H, 16 * mi, kb, lane);
+          mma3(c[mi][0], a, b0);
+          mma3(c[mi][1], a, b1);
         }
       }
-      __syncthreads();
+      pool_tile<LP>(c, n0, b3s, tile, upt, run, mx, mn, imx, imn);
+    }
+    __syncthreads();
+  }
+
+  double* pg = partG + (int64_t)blockIdx.x * CW * CW;
+  if (nw >= mw) {
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = 16 * mw + g + 8 * (q >> 1);
+        const int cc = 16 * nw + 8 * nj + 2 * t + (q & 1);
+        pg[r * CW + cc] = G[nj][q];
+        if (nw > mw) pg[cc * CW + r] = G[nj][q];
+      }
+  }
+  if (nw == mw) {
+    const double a = sum_over_t(ch[0]), b = sum_over_t(ch[1]);
+    if (t == 0) {
+      partc[(int64_t)blockIdx.x * CW + 16 * mw + g] = a;
+      partc[(int64_t)blockIdx.x * CW + 16 * mw + g + 8] = b;
     }
   }
-  write_patch(g, partG + (int64_t)blockIdx.x * CW * CW);
-  if (threadIdx.x < CW) partc[(int64_t)blockIdx.x * CW + threadIdx.x] = ch;
 }
 
 // ---------------------------------------------------------------------
@@ -340,7 +473,30 @@ bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int pool,
 // [h2 > 0] (q3 - h2 M3 - rc3); q2 = (gi2 * dy2) W2^T; row output mq =
 // [h1 > 0] q2; per-block A2 = dy2^T h1, G1 = h1^T h1, u2 = sum dy2,
 // ch1 = sum h1. vec holds [b1 | mul1 | shift1 | mul2 | shift2 | rc3 | gi2].
-__global__ void __launch_bounds__(NT)
+//
+// Tensor cores (sa_mma.cuh), 16 warps: warp w = (mw, nw) = (w % 4, w / 4)
+// takes rows 16 mw.. and columns 16 nw.. of h2 M3 and q2, and rows
+// (channels) 16 mw.. and columns 16 nw.. of A2 and G1, whose B fragments
+// (h1) it shares. x (channel-major: one bulk copy per channel when
+// N % TR == 0), p2 and q3 tiles arrive by TMA (one bulk copy each; p2 and
+// x two tiles ahead, q3 one); h2 is copied into a padded tile after its
+// ReLU, q3 is read where it landed. mq is staged in shared memory and
+// leaves by a TMA bulk store. M3, gi2 * W2^T (once per block), h1 and dy2
+// (per tile) are split into hi/lo ahead of the products, h2 at fragment
+// load; h1's ReLU mask is kept as bytes. One block per SM (218 KB of
+// shared memory).
+__device__ __forceinline__ void load_x_rows(const float* __restrict__ x,
+                                            int C0, int64_t N, int64_t r0,
+                                            float* xs) {
+  for (int e = threadIdx.x; e < TR * C0; e += NTM) {
+    const int i = e % TR, c = e / TR;
+    const int64_t r = r0 + i;
+    const int64_t b = r / N, n = r - b * N;
+    xs[c * TR + i] = x[(b * C0 + c) * N + n];
+  }
+}
+
+__global__ void __launch_bounds__(NTM, 1)
 bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
                   int64_t ntiles, const float* __restrict__ W1,
                   const float* __restrict__ vec,
@@ -349,87 +505,210 @@ bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
                   float* __restrict__ mq, double* __restrict__ partA,
                   double* __restrict__ partG, double* __restrict__ partu,
                   double* __restrict__ partc) {
-  extern __shared__ float sm[];
-  float* M3s = sm;                      // CW*CW
-  float* W2t = M3s + CW * CW;           // CW*CW, W2t[c][j] = W2[j][c]
-  float* h1s = W2t + CW * CW;           // TR*LD
-  float* h2s = h1s + TR * LD;           // TR*LD (later: the mq tile)
-  float* dys = h2s + TR * LD;           // TR*LD (q3, then dy2)
-  float* xs = dys + TR * LD;            // TR*C0MAX
-  float* W1s = xs + TR * C0MAX;         // C0MAX*CW
-  float* v = W1s + C0MAX * CW;          // 7*CW
-  const float* v1 = v;                  // b1 | mul1 | shift1
+  constexpr int STAGE = TR * CW + C0MAX * TR;      // p2 | x
+  constexpr int WB = 32 * b_stride(CW);            // a 64x64 paired B
+  extern __shared__ __align__(128) float smt[];
+  float* stage = smt;                       // 2 x STAGE, as TMA lands them
+  float* Q = stage + 2 * STAGE;             // q3 (TR, CW), as TMA lands it
+  float* H2 = Q + TR * CW;                  // (TR, LDT): h2; then mq
+  float* dyh = H2 + TILE_F;                 // dy2, split: hi
+  float* dyl = dyh + TILE_F;                //             lo
+  float* h1h = dyl + TILE_F;                // h1, split: hi
+  float* h1l = h1h + TILE_F;                //            lo
+  float* Mh = h1l + TILE_F;                 // M3, split, paired layout
+  float* Ml = Mh + WB;
+  float* W2h = Ml + WB;                     // gi2 * W2^T, split, paired
+  float* W2l = W2h + WB;
+  float* W1s = W2l + WB;                    // C0MAX * CW
+  float* v = W1s + C0MAX * CW;              // 7 * CW
+  uint8_t* m1 = reinterpret_cast<uint8_t*>(v + 7 * CW);   // TR * CW
+  uint64_t* bars = reinterpret_cast<uint64_t*>(m1 + TR * CW);  // 3
   const float* mul2 = v + 3 * CW;
   const float* shift2 = v + 4 * CW;
   const float* rc3 = v + 5 * CW;
-  const float* gi2 = v + 6 * CW;
+  const SplitBuf H1{h1h, h1l}, DY{dyh, dyl}, Ms{Mh, Ml}, W2s{W2h, W2l};
 
-  copy_vec(M3s, M3, CW * CW);
-  for (int e = threadIdx.x; e < CW * CW; e += NT) {
-    const int c = e / CW, j = e % CW;
-    W2t[e] = W2[j * CW + c];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, mw = warp & 3, nw = warp >> 2;
+  const int m0 = 16 * mw, n0 = 16 * nw;
+  const bool xbulk =
+      N % TR == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int64_t count =
+      ntiles > blockIdx.x ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  auto row0 = [&](int64_t i) { return (blockIdx.x + i * gridDim.x) * TR; };
+  auto fetch = [&](int64_t i) {             // thread 0: p2 and x of tile i
+    uint64_t* bar = &bars[i & 1];
+    float* S = stage + (i & 1) * STAGE;
+    const int64_t r0 = row0(i);
+    mbar_expect(bar, TR * CW * 4 + (xbulk ? C0 * TR * 4 : 0));
+    bulk_load(S, p2 + r0 * CW, TR * CW * 4, bar);
+    if (xbulk) {
+      const int64_t b = r0 / N, n = r0 - b * N;
+      for (int c = 0; c < C0; ++c)
+        bulk_load(S + TR * CW + c * TR, x + (b * C0 + c) * N + n, TR * 4,
+                  bar);
+    }
+  };
+  auto fetch_q3 = [&](int64_t i) {        // thread 0: q3 of tile i
+    mbar_expect(&bars[2], TR * CW * 4);
+    bulk_load(Q, q3 + row0(i) * CW, TR * CW * 4, &bars[2]);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 3; ++s) mbar_init(&bars[s]);
+    for (int64_t i = 0; i < 2 && i < count; ++i) fetch(i);
+    if (count > 0) fetch_q3(0);
   }
-  copy_vec(W1s, W1, C0 * CW);
-  copy_vec(v, vec, 7 * CW);
+  load_b_split(Mh, Ml, M3, CW, CW, 1);
+  load_b_split(W2h, W2l, W2, CW, 1, CW, vec + 6 * CW);  // gi2[k] W2[n][k]
+  copy_block(W1s, W1, C0 * CW);
+  copy_block(v, vec, 7 * CW);
   __syncthreads();
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  double a2[4][4] = {}, g1[4][4] = {};
-  double colsum = 0.0;   // threads 0..63: u2[c]; 64..127: ch1[c - 64]
+  double A2[2][4] = {}, G1[2][4] = {};  // rows m0 + g (+8), cols n0 + 8 nj
+  double cs[2] = {0.0, 0.0};  // nw 0: u2, nw 1: ch1; channels m0 + g, + 8
+  for (int64_t i = 0; i < count; ++i) {
+    const int64_t r0 = row0(i);
+    const float* S = stage + (i & 1) * STAGE;
+    float* X = stage + (i & 1) * STAGE + TR * CW;
+    mbar_wait(&bars[i & 1], static_cast<uint32_t>((i >> 1) & 1));
+    if (!xbulk) {
+      load_x_rows(x, C0, N, r0, X);
+      __syncthreads();
+    }
+    relu_rows(S, mul2, shift2, H2);
+    h1_rows(X, C0, W1s, v, h1h, h1l, m1);
+    __syncthreads();
+    if (threadIdx.x == 0 && i + 2 < count) fetch(i + 2);
 
-  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int64_t r0 = t * TR;
-    load_x_tile(x, C0, N, r0, xs);
-    load_h_tile(p2, r0, mul2, shift2, h2s);
-    load_tile(q3, r0, dys);
-    __syncthreads();
-    h1_tile(xs, C0, W1s, v1, h1s);
-    float acc[4][4];
-    mm64(h2s, M3s, nullptr, acc);
+    {   // dy2 = [h2 > 0] (q3 - h2 M3 - rc3), written split; each warp on
+        // its own (16, 16) block
+      float c[2][4];
+      zero4(c[0]);
+      zero4(c[1]);
+#pragma unroll 2
+      for (int kb = 0; kb < 8; ++kb) {
+        const FragA a = split_a(raw_a_rows(H2, m0, kb, lane));
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float dh = __fsub_rn(__fsub_rn(dys[r * LD + c], acc[i][j]),
-                                   rc3[c]);
-        dys[r * LD + c] = h2s[r * LD + c] > 0.f ? dh : 0.f;
+        for (int nj = 0; nj < 2; ++nj)
+          mma3(c[nj], a,
+               frag_b_paired(Ms, b_stride(CW), n0 + 8 * nj, kb, lane));
       }
-    __syncthreads();
-    mm64(dys, W2t, gi2, acc);          // q2
+      mbar_wait(&bars[2], static_cast<uint32_t>(i & 1));
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int nj = 0; nj < 2; ++nj)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        h2s[r * LD + c] = h1s[r * LD + c] > 0.f ? acc[i][j] : 0.f;
-      }
-    {
-      float ta[4][4];
-      zero_patch(ta);
-      acc_atb(dys, h1s, ta);
-      add_patch(a2, ta);
-      zero_patch(ta);
-      acc_atb(h1s, h1s, ta);
-      add_patch(g1, ta);
-    }
-    if (threadIdx.x < 2 * CW) {
-      const float* src = threadIdx.x < CW ? dys + threadIdx.x
-                                          : h1s + threadIdx.x - CW;
-      float tc = 0.f;
-      for (int r = 0; r < TR; ++r) tc += src[r * LD];
-      colsum += tc;
+        for (int h = 0; h < 2; ++h) {
+          const int r = m0 + g + 8 * h, cc = n0 + 8 * nj + 2 * t;
+          const float2 hv = ld2(H2 + r * LDT + cc);
+          const float2 qv = ld2(Q + r * CW + cc);
+          const float dx =
+              hv.x > 0.f
+                  ? __fsub_rn(__fsub_rn(qv.x, c[nj][2 * h]), rc3[cc])
+                  : 0.f;
+          const float dy =
+              hv.y > 0.f
+                  ? __fsub_rn(__fsub_rn(qv.y, c[nj][2 * h + 1]), rc3[cc + 1])
+                  : 0.f;
+          const Split sx = split(dx), sy = split(dy);
+          *reinterpret_cast<float2*>(dyh + r * LDT + cc) =
+              make_float2(__uint_as_float(sx.hi), __uint_as_float(sy.hi));
+          *reinterpret_cast<float2*>(dyl + r * LDT + cc) =
+              make_float2(__uint_as_float(sx.lo), __uint_as_float(sy.lo));
+        }
     }
     __syncthreads();
-    store_tile(h2s, r0, mq);
+    if (threadIdx.x == 0 && i + 1 < count) fetch_q3(i + 1);
+
+    {   // q2 = dy2 (gi2 W2^T) -> mq = [h1 > 0] q2, staged unpadded in H2
+      float c[2][4];
+      zero4(c[0]);
+      zero4(c[1]);
+#pragma unroll 2
+      for (int kb = 0; kb < 8; ++kb) {
+        const FragA a = frag_a_rows(DY, m0, kb, lane);
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj)
+          mma3(c[nj], a,
+               frag_b_paired(W2s, b_stride(CW), n0 + 8 * nj, kb, lane));
+      }
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = m0 + g + 8 * h, cc = n0 + 8 * nj + 2 * t;
+          const uint32_t mk =
+              *reinterpret_cast<const uint16_t*>(m1 + r * CW + cc);
+          float2 o;
+          o.x = (mk & 0xff) ? c[nj][2 * h] : 0.f;
+          o.y = (mk >> 8) ? c[nj][2 * h + 1] : 0.f;
+          *reinterpret_cast<float2*>(H2 + r * CW + cc) = o;
+        }
+    }
+    fence_async_smem();
+    __syncthreads();
+    if (threadIdx.x == 0) bulk_store(mq + r0 * CW, H2, TR * CW * 4);
+
+    {   // A2 = dy2^T h1, G1 = h1^T h1, and the column sums (hi + lo)
+      float ca[2][4], cg[2][4];
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        zero4(ca[nj]);
+        zero4(cg[nj]);
+      }
+#pragma unroll 2
+      for (int kb = 0; kb < 8; ++kb) {
+        const FragA ad = frag_a_cols(DY, m0, kb, lane);
+        const FragA ah = frag_a_cols(H1, m0, kb, lane);
+        if (nw == 0) {
+          s0 += col_pair(ad, 0);
+          s1 += col_pair(ad, 1);
+        } else if (nw == 1) {
+          s0 += col_pair(ah, 0);
+          s1 += col_pair(ah, 1);
+        }
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj) {
+          const FragB b = frag_b_rows(H1, n0 + 8 * nj, kb, lane);
+          mma3(ca[nj], ad, b);
+          mma3(cg[nj], ah, b);
+        }
+      }
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          A2[nj][q] += ca[nj][q];
+          G1[nj][q] += cg[nj][q];
+        }
+      cs[0] += s0;
+      cs[1] += s1;
+    }
+    if (threadIdx.x == 0) bulk_store_drain();   // H2 is rewritten next
     __syncthreads();
   }
-  write_patch(a2, partA + (int64_t)blockIdx.x * CW * CW);
-  write_patch(g1, partG + (int64_t)blockIdx.x * CW * CW);
-  if (threadIdx.x < CW)
-    partu[(int64_t)blockIdx.x * CW + threadIdx.x] = colsum;
-  else if (threadIdx.x < 2 * CW)
-    partc[(int64_t)blockIdx.x * CW + threadIdx.x - CW] = colsum;
+
+  double* pa = partA + (int64_t)blockIdx.x * CW * CW;
+  double* pg = partG + (int64_t)blockIdx.x * CW * CW;
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj) {
+    const int r = m0 + g, cc = n0 + 8 * nj + 2 * t;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int o = (r + 8 * (q >> 1)) * CW + cc + (q & 1);
+      pa[o] = A2[nj][q];
+      pg[o] = G1[nj][q];
+    }
+  }
+  if (nw < 2) {
+    const double a = sum_over_t(cs[0]), b = sum_over_t(cs[1]);
+    if (t == 0) {
+      double* out = (nw == 0 ? partu : partc) + (int64_t)blockIdx.x * CW;
+      out[m0 + g] = a;
+      out[m0 + g + 8] = b;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -534,12 +813,26 @@ extern "C" int facl_sa_fwd_gram_pool(const float* p2, int64_t R, int pool,
                                      void* stream) {
   if (bad_pool(R, pool)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
-      sizeof(float) * (CW * C3W + TR * C3W + TR * LD + 2 * CW + C3W);
-  cudaError_t e = prepare(fwd_gram_pool_kernel, smem);
+      sizeof(float) * (GP_STAGES * TR * CW + 2 * TILE_F +
+                       2 * 32 * b_stride(C3W) + 2 * CW + 5 * C3W) +
+      GP_STAGES * sizeof(uint64_t);
+  const int upt = pool > TR ? pool / TR : 1;
+  int lp = 0;
+  while ((1 << lp) < pool && lp < 6) ++lp;      // log2(min(pool, TR))
+  decltype(&fwd_gram_pool_kernel<0>) kern;
+  switch (lp) {
+    case 0: kern = fwd_gram_pool_kernel<0>; break;
+    case 1: kern = fwd_gram_pool_kernel<1>; break;
+    case 2: kern = fwd_gram_pool_kernel<2>; break;
+    case 3: kern = fwd_gram_pool_kernel<3>; break;
+    case 4: kern = fwd_gram_pool_kernel<4>; break;
+    case 5: kern = fwd_gram_pool_kernel<5>; break;
+    default: kern = fwd_gram_pool_kernel<6>; break;
+  }
+  cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fwd_gram_pool_kernel<<<nblk, NT, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      p2, R / TR, pool, vec2, W3, b3, partG, partc, mx, mn, imx, imn);
+  kern<<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
+      p2, R / TR, upt, vec2, W3, b3, partG, partc, mx, mn, imx, imn);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -568,11 +861,14 @@ extern "C" int facl_sa_bwd_sweep2(const float* x, int B, int C0, int N,
                                   void* stream) {
   const int64_t R = (int64_t)B * N;
   if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (2 * CW * CW + 3 * TR * LD +
-                                       TR * C0MAX + C0MAX * CW + 7 * CW);
+  const size_t smem =
+      sizeof(float) * (2 * (TR * CW + C0MAX * TR) + TR * CW + 5 * TILE_F +
+                       4 * 32 * b_stride(CW) + C0MAX * CW + 7 * CW) +
+      TR * CW + 3 * sizeof(uint64_t);
   cudaError_t e = prepare(bwd_sweep2_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_sweep2_kernel<<<nblk, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  bwd_sweep2_kernel<<<nblk, NTM, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       x, C0, N, R / TR, W1, vec, p2, q3, M3, W2, mq, partA, partG, partu,
       partc);
   return static_cast<int>(cudaGetLastError());

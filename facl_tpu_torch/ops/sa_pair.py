@@ -42,7 +42,8 @@ from typing import Sequence, Tuple
 import torch
 
 from facl_tpu_torch.ops._launch import I, L, P, TRUNK, check_pool, \
-    check_x, grid, launch, need, on_cpu, ptr, reduce, stream_of
+    check_x, grid, launch, need, need_aligned, on_cpu, ptr, reduce, \
+    stream_of
 from facl_tpu_torch.ops.fused_sa import SALayerParams
 from facl_tpu_torch.ops.sa_bwd import _fold_affine, _h_from_p, \
     _launch_sweep2, _layer1_terms, _layer_terms, _sweep2_plain
@@ -159,9 +160,10 @@ def sa_fwd_gram_pool(p2, mul2, shift2, w3, b3, pool: int):
     need(w3, (C2, C3), "w3")
     need(b3, (C3,), "b3")
     check_pool(R, pool)
+    need_aligned(p2, "p2")
     vec2 = torch.cat([mul2, shift2]).contiguous()
     need(vec2, (2 * C2,), "mul2|shift2")
-    nblk = grid(p2, R)
+    nblk = grid(p2, R, per_sm=1)
     dev, Pn = p2.device, R // pool
     partG = torch.empty((nblk, C2, C2), dtype=torch.float64, device=dev)
     partc = torch.empty((nblk, C2), dtype=torch.float64, device=dev)
@@ -220,9 +222,11 @@ def sa_bwd_sweep2(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3,
     need(q3, (R, C2), "q3")
     need(M3, (C2, C2), "M3")
     need(w2, (C1, C2), "w2")
+    need_aligned(p2, "p2")
+    need_aligned(q3, "q3")
     vec = torch.cat([b1, mul1, shift1, mul2, shift2, rc3, gi2]).contiguous()
     need(vec, (7 * C1,), "vectors")
-    nblk = grid(x3, R)
+    nblk = grid(x3, R, per_sm=1)
     dev = x3.device
     mq = torch.empty((R, C1), dtype=torch.float32, device=dev)
     partA = torch.empty((nblk, C2, C1), dtype=torch.float64, device=dev)

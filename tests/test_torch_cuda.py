@@ -143,6 +143,80 @@ def test_b6_b7_b8_kernels_match_twins(dev, rng, K):
          mul1, shift1, p2, mul2, shift2, q3, M3, rc3, gi2, w2, acc=None)
 
 
+@pytest.mark.parametrize("K,B,N", [(64, 2, 1024), (128, 2, 1024),
+                                   (16, 2, 1024), (4, 2, 1024),
+                                   (192, 2, 768), (64, 4, 96)])
+def test_b2b_b3b_kernels_match_twins(dev, rng, K, B, N):
+    """The tensor-core sweeps B2b (sa_fwd_gram_pool) and B3b
+    (sa_bwd_sweep2) against their twins on the same card tensors:
+    accumulators within 1e-4 of their max-abs; pooled values and mq at
+    rtol 1e-5 / atol 1e-5 x scale; pool indices equal except where the
+    twin's own values tie (within 1e-5 x scale); two calls bit-identical.
+    K: one group in a tile (64), groups spanning two or three tiles (128,
+    192), several groups per tile (16, 4). N = 96 puts tiles across two
+    clouds of channel-major x (the unstaged x path of B3b)."""
+    from facl_tpu_torch.ops import sa_pair as SP
+    from facl_tpu_torch.ops.sa_bwd import _h_from_p
+
+    def acc(k, t):
+        assert float((k - t).abs().max()) <= 1e-4 * float(t.abs().max())
+
+    def row(k, t):
+        torch.testing.assert_close(k, t, rtol=1e-5,
+                                   atol=1e-5 * float(t.abs().max()))
+
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    (w1, b1, _, _), (w2, b2, _, _), (w3, b3, _, _) = \
+        [[t(a) for a in layer] for layer in _layers(rng)]
+    x3 = t(rng.normal(size=(B, 4, N)))
+    R = B * N
+    vec = lambda n, s=1.0: t(s * rng.normal(size=(n,)))
+    mul1, shift1, mul2, shift2 = vec(64, 2), vec(64), vec(64, 2), vec(64)
+    p2 = SP.sa_fwd_layer12_plain(x3, w1, b1, mul1, shift1, w2, b2)[0]
+    args = (p2, mul2, shift2, w3, b3, K)
+    k, tw = SP.sa_fwd_gram_pool(*args), SP.sa_fwd_gram_pool_plain(*args)
+    acc(k[0], tw[0])
+    acc(k[1], tw[1])
+    row(k[2], tw[2])
+    row(k[3], tw[3])
+    p3 = (_h_from_p(p2, mul2, shift2) @ w3 + b3).reshape(-1, K, 256)
+    scale = float(p3.abs().max())
+    for ki, ti, best in ((k[4], tw[4], tw[2]), (k[5], tw[5], tw[3])):
+        assert int(ki.min()) >= 0 and int(ki.max()) < K
+        g, c = (ki != ti).nonzero(as_tuple=True)
+        v = p3[g, ki[g, c].long(), c]
+        assert bool(((v - best[g, c]).abs() <= 1e-5 * scale).all())
+    assert all(torch.equal(a, b) for a, b in
+               zip(k, SP.sa_fwd_gram_pool(*args)))
+    q3 = vec(R * 64, 0.1).view(R, 64)
+    M3, rc3, gi2 = t(0.01 * rng.normal(size=(64, 64))), vec(64, 0.1), vec(64)
+    args = (x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3, gi2, w2)
+    k, tw = SP.sa_bwd_sweep2(*args), SP.sa_bwd_sweep2_plain(*args)
+    for a, b in zip(k[:4], tw[:4]):
+        acc(a, b)
+    row(k[4], tw[4])
+    assert all(torch.equal(a, b) for a, b in zip(k, SP.sa_bwd_sweep2(*args)))
+
+
+def test_b2b_b3b_misaligned_rows_raise(dev, rng):
+    """B2b and B3b stage rows by 16-byte TMA copies: a view 4 bytes past
+    a 16-byte boundary raises ValueError; there is no fallback."""
+    from facl_tpu_torch.ops import sa_pair as SP
+    R = 256
+    buf = torch.zeros(R * 64 + 1, device=dev)
+    p2 = buf[1:].view(R, 64)
+    v64 = torch.ones(64, device=dev)
+    w3, b3 = torch.zeros(64, 256, device=dev), torch.zeros(256, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        SP.sa_fwd_gram_pool(p2, v64, v64, w3, b3, 64)
+    x3 = torch.zeros(1, 4, R, device=dev)
+    w = torch.zeros(64, 64, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        SP.sa_bwd_sweep2(x3, torch.zeros(4, 64, device=dev), v64, v64, v64,
+                         p2, v64, v64, torch.zeros(R, 64, device=dev), w,
+                         v64, v64, w)
+
+
 def test_select_knn_ball_bit_equal(dev, rng):
     """B4 against its twin and against B1's indices."""
     from facl_tpu_torch.ops.select import select_gather, select_knn_ball, \
