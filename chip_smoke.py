@@ -5,10 +5,10 @@ every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py             # needs one CUDA device
     python3 chip_smoke.py --profile   # + a torch.profiler breakdown of
                                       #   one main-path step
-    python3 chip_smoke.py --parent DIR  # + B2b and B3b of the tree in DIR
-                                        #   (a git archive of another
-                                        #   commit) timed against this
-                                        #   tree's, in turns
+    python3 chip_smoke.py --parent DIR  # + B2b, B3a, B3b and B3c of the
+                                        #   tree in DIR (a git archive of
+                                        #   another commit) timed against
+                                        #   this tree's, in turns
 
 Phases (any failure exits nonzero, before the final line):
   1. build   every kernel from facl_tpu_torch/ops/csrc (one nvcc per
@@ -27,11 +27,12 @@ Phases (any failure exits nonzero, before the final line):
              Times (device_ms): CUDA events around 20 back-to-back calls
              queued behind a spin of the card, so the device time excludes
              the host's; the host's time per call beside it; beside B5a
-             and B5b one library call (torch.gather, index_add_). B2b and
-             B3b (tensor cores, 3xTF32) print two bounds: the
+             and B5b one library call (torch.gather, index_add_). B2b, B3b
+             and B3c (tensor cores, 3xTF32) print two bounds: the
              tensor-core one (bound_ms) and the f32 CUDA-core one
-             (bound_f32_ms), and are checked again, run to run
-             bit-identical, on the fine variant's K = 128. Then
+             (bound_f32_ms). B2b and B3a-B3c are run to run
+             bit-identical, and are checked again on the fine variant's
+             K = 128. Then
              the whole SA stage (forward + backward) of each sa_impl with
              kernels (pair3, pair, hybrid2, hybrid, pallas) at K=64 and
              K=128 on the same inputs as kernels, twins and float64
@@ -653,11 +654,11 @@ def b9_rows(xr, layers, K, dpooled):
     return rows
 
 
-def check_b2b_b3b(x3, layers, K, dpooled, label):
-    """B2b (sa_fwd_gram_pool) and B3b (sa_bwd_sweep2) against their twins
-    on one grouping's tensors, at phase_kernels' bars, and run to run
-    bit-identical (the fine variant's K = 128: pool groups spanning two of
-    the sweeps' 64-row tiles)."""
+def check_b2b_b3(x3, layers, K, dpooled, label):
+    """B2b (sa_fwd_gram_pool) and B3a-B3c (sa_bwd_sweep1-3) against their
+    twins on one grouping's tensors, at phase_kernels' bars, and run to
+    run bit-identical (the fine variant's K = 128: pool groups spanning
+    two of the sweeps' 64-row tiles)."""
     SP = sweep_modules()[0]
     from facl_tpu_torch.ops.sa_bwd import _fold_affine, _h_from_p, \
         _layer_terms
@@ -695,8 +696,14 @@ def check_b2b_b3b(x3, layers, K, dpooled, label):
                       torch.full_like(imx, K))
     gi2 = lp2.scale * torch.rsqrt(v2 + eps)
     gi3 = lp3.scale * torch.rsqrt(v3 + eps)
-    A3, u3, q3 = SP.sa_bwd_sweep1_plain(p2, mul2, shift2, dpooled, idx, gi3,
-                                        lp3.kernel, K)
+    as1 = (p2, mul2, shift2, dpooled, idx, gi3, lp3.kernel, K)
+    k, t = SP.sa_bwd_sweep1(*as1), SP.sa_bwd_sweep1_plain(*as1)
+    check(all(torch.equal(a, b) for a, b in zip(k, SP.sa_bwd_sweep1(*as1))),
+          f"sweep1 [{label}]: two runs differ")
+    e1 = max(acc_err(k[0], t[0], f"sweep1 [{label}] A3"),
+             acc_err(k[1], t[1], f"sweep1 [{label}] u3"),
+             row_err(k[2], t[2], f"sweep1 [{label}] q3"))
+    A3, u3, q3 = t
     t3 = _layer_terms(A3, u3, lp3, m3, v3, G2, ch2, R, eps)
     as2 = (x3, lp1.kernel, lp1.bias, mul1, shift1, p2, mul2, shift2, q3,
            t3["M"].contiguous(), t3["rc"], gi2, lp2.kernel)
@@ -706,9 +713,19 @@ def check_b2b_b3b(x3, layers, K, dpooled, label):
     e2 = max([acc_err(a, b, f"sweep2 [{label}] {n}") for a, b, n in
               zip(k[:4], t[:4], ("A2", "G1", "u2", "ch1"))] +
              [row_err(k[4], t[4], f"sweep2 [{label}] mq")])
-    print(f"B2b/B3b [{label}] K={K}, R={R}: gram_pool max |kernel - twin| "
-          f"{e:.3e}, {nmis} pool indices differ, all at twin ties; sweep2 "
-          f"{e2:.3e}; both run to run bit-identical", flush=True)
+    A2, G1, u2, ch1, mq = t
+    t2 = _layer_terms(A2, u2, lp2, m2, v2, G1, ch1, R, eps)
+    as3 = (x3, lp1.kernel, lp1.bias, mul1, shift1, mq, t2["M"].contiguous(),
+           t2["rc"])
+    k, t = SP.sa_bwd_sweep3(*as3), SP.sa_bwd_sweep3_plain(*as3)
+    check(all(torch.equal(a, b) for a, b in zip(k, SP.sa_bwd_sweep3(*as3))),
+          f"sweep3 [{label}]: two runs differ")
+    e3 = max(acc_err(k[0], t[0], f"sweep3 [{label}] A1"),
+             acc_err(k[1], t[1], f"sweep3 [{label}] u1"))
+    print(f"B2b/B3 [{label}] K={K}, R={R}: gram_pool max |kernel - twin| "
+          f"{e:.3e}, {nmis} pool indices differ, all at twin ties; sweep1 "
+          f"{e1:.3e}, sweep2 {e2:.3e}, sweep3 {e3:.3e}; all four run to run "
+          "bit-identical", flush=True)
 
 
 def phase_kernels(dev, model, points):
@@ -833,7 +850,15 @@ def phase_kernels(dev, model, points):
         kA3, ku3, kq3 = SP.sa_bwd_sweep1(*as1)
         e = max(acc_err(kA3, A3, "sweep1 A3"), acc_err(ku3, u3, "sweep1 u3"),
                 row_err(kq3, q3, "sweep1 q3"))
+        check(all(torch.equal(a, b) for a, b in
+                  zip((kA3, ku3, kq3), SP.sa_bwd_sweep1(*as1))),
+              "sweep1: two runs differ")
         nnz = int((idx < K).sum())
+        hits = torch.zeros(P, K + 1, device=dev).scatter_add_(
+            1, idx.long(), torch.ones(P, C3, device=dev))[:, :K]
+        print(f"sweep1: {nnz} live (group, channel) entries of {P * C3}; a "
+              f"group's most-hit row takes {float(hits.amax(1).sum()) / nnz:.3f}"
+              " of its live entries", flush=True)
         rows.append(dict(name="sa_bwd_sweep1", args=as1, err=e,
                          nbytes=2 * R * C2 * 4 + P * C3 * 8,
                          ops=nnz * (4 * C2 + 2) + R * 3 * C2,
@@ -859,10 +884,16 @@ def phase_kernels(dev, model, points):
         kA1, ku1 = SP.sa_bwd_sweep3(*as3)
         A1, u1 = SP.sa_bwd_sweep3_plain(*as3)
         e = max(acc_err(kA1, A1, "sweep3 A1"), acc_err(ku1, u1, "sweep3 u1"))
-        ops = R * (2 * C0 * C1 + 4 * C1 + 2 * C1 * C1 + 3 * C1
-                   + 2 * C1 * (C0 + 1))
+        check(all(torch.equal(a, b) for a, b in
+                  zip((kA1, ku1), SP.sa_bwd_sweep3(*as3))),
+              "sweep3: two runs differ")
+        print("sweep1, sweep3: run to run bit-identical", flush=True)
+        # h1 and dy1 on CUDA cores; h1 M2 and dy1^T [x | 1] on tensor
+        # cores (3xTF32).
         rows.append(dict(name="sa_bwd_sweep3", args=as3, err=e,
-                         nbytes=R * (C0 + C1) * 4, ops=ops,
+                         nbytes=R * (C0 + C1) * 4,
+                         ops=R * (2 * C0 * C1 + 4 * C1 + 3 * C1),
+                         tc_ops=R * (2 * C1 * C1 + 2 * C1 * (C0 + 1)),
                          fn=SP.sa_bwd_sweep3, plain=SP.sa_bwd_sweep3_plain,
                          replaces="facl_tpu/ops/pallas/sa_pair.py:835"))
         # B6: sweep 2 of the pair (non-slim) backward, on B3b's inputs.
@@ -888,8 +919,8 @@ def phase_kernels(dev, model, points):
         gf = b1_case("fine", flat, r2, Sf, Kf)
         gf[:, :3] -= flat[:, :Sf, :3].transpose(1, 2)[..., None]
         dpf = torch.randn(Bc * Sf, C3, generator=g).to(dev)
-        check_b2b_b3b(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], Kf, dpf,
-                      "fine")
+        check_b2b_b3(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], Kf, dpf,
+                     "fine")
         for impl in IMPLS + ("pallas",):
             sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf,
                             Kf, impl)
@@ -922,10 +953,13 @@ def measure(r):
 
 
 #: --parent: the parent tree's sa_pair library, and the kernels whose
-#: launchers are timed against this tree's (wrapper -> launcher name).
+#: launchers are timed against this tree's (wrapper -> (launcher name, the
+#: blocks per SM the parent's wrapper launches it with)).
 PARENT = {}
-PARENT_AB = {"sa_fwd_gram_pool": "facl_sa_fwd_gram_pool",
-             "sa_bwd_sweep2": "facl_sa_bwd_sweep2"}
+PARENT_AB = {"sa_fwd_gram_pool": ("facl_sa_fwd_gram_pool", 1),
+             "sa_bwd_sweep1": ("facl_sa_bwd_sweep1", 2),
+             "sa_bwd_sweep2": ("facl_sa_bwd_sweep2", 1),
+             "sa_bwd_sweep3": ("facl_sa_bwd_sweep3", 2)}
 
 
 def start_parent_build(root: str):
@@ -957,19 +991,21 @@ def load_parent(started) -> None:
 
 def parent_ab(fn, args):
     """Device ms of wrapper ``fn`` on ``args`` with the parent tree's
-    launcher (at the parent's grid, two blocks per SM) and with this
-    tree's, in turns: parent, this tree, this tree, parent."""
+    launcher (at the parent's grid for it) and with this tree's, in turns:
+    parent, this tree, this tree, parent. The launchers' C signatures are
+    the same in both trees."""
     import ctypes
     from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_pair as SP
-    key = ("sa_pair", PARENT_AB[fn.__name__])
+    launcher, parent_per_sm = PARENT_AB[fn.__name__]
+    key = ("sa_pair", launcher)
     ours = _build._FUNCTIONS[key]          # resolved by the timed calls
     lib = PARENT["lib"]
     pfn = getattr(lib, key[1])
     pfn.argtypes, pfn.restype = ours[1].argtypes, ctypes.c_int
 
     def parent_grid(t, R, per_sm=2):
-        return min(R // 64, 2 * _build.sm_count(t.device))
+        return min(R // 64, parent_per_sm * _build.sm_count(t.device))
 
     def run_parent():
         _build._FUNCTIONS[key] = (lib, pfn)
@@ -1511,8 +1547,8 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of the parent commit: its sa_pair.cu "
-                         "is built and its B2b and B3b timed against this "
-                         "tree's in turns")
+                         "is built and its B2b, B3a, B3b and B3c timed "
+                         "against this tree's in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures the "

@@ -19,9 +19,11 @@ from facl_tpu_torch.config import Config, GroupingConfig, ModelConfig
 from facl_tpu_torch.models.layers import EmbedHead, PointMLP, dense, \
     l2_normalize
 from facl_tpu_torch.models.sa_stage import SetAbstractionStage
+from facl_tpu_torch.ops._launch import TRUNK
 
 #: sa_impl values the port accepts: every value of the JAX package.
-#: "auto" resolves to "pair3" on every device.
+#: "auto" resolves to "pair3" where the sweep kernels take the widths, else
+#: to "reference" (resolve_model_config).
 SA_IMPLS = ("auto", "reference", "covar", "analytic", "hybrid", "hybrid2",
             "pair", "pair3", "pallas")
 
@@ -72,17 +74,24 @@ class PointNetPlus(nn.Module):
 
 
 def resolve_model_config(model_cfg: ModelConfig) -> ModelConfig:
-    """Resolve ``sa_impl="auto"`` to "pair3" (on every device: the port's
-    rule) and ``channels_first=None`` to True exactly for "pair"/"pair3",
-    the impls that read the channel-major layout of kernel B1
-    (facl_tpu/models/pointnet.py:171-173). An explicit ``sa_impl`` is
-    honoured."""
+    """Resolve ``sa_impl="auto"`` and ``channels_first=None``.
+
+    "auto" is "pair3" where its kernels take the stage: SA widths
+    ``TRUNK`` (64, 64, 256) and at most 7 input channels (the sweeps'
+    C0 limit). Any other stage resolves to "reference", the JAX package's
+    choice off the TPU (facl_tpu/models/pointnet.py:161-170), so "auto"
+    then gives the JAX result. ``channels_first=None`` becomes True
+    exactly for "pair"/"pair3", the impls that read the channel-major
+    layout of kernel B1 (facl_tpu/models/pointnet.py:171-173). An
+    explicit ``sa_impl`` is honoured."""
     impl = model_cfg.sa_impl
     if impl not in SA_IMPLS:
         raise ValueError(f"unknown sa_impl {impl!r}; expected one of "
                          f"{SA_IMPLS}")
     if impl == "auto":
-        impl = "pair3"
+        fits = tuple(model_cfg.sa_widths) == TRUNK and \
+            model_cfg.in_features <= 7
+        impl = "pair3" if fits else "reference"
     cf = model_cfg.channels_first
     if cf is None:
         cf = impl in ("pair", "pair3")

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from facl_tpu_torch.models.layers import lecun_normal_
+from facl_tpu_torch.ops._launch import TRUNK
 from facl_tpu_torch.ops.analytic_sa import sa_train_analytic
 from facl_tpu_torch.ops.fused_sa import SALayerParams, sa_reference_4d, \
     sa_train_fused
@@ -44,8 +45,9 @@ from facl_tpu_torch.ops.sa_pair import sa_train_pair
 #: Train-mode implementations of the stage.
 IMPLS = ("reference", "covar", "analytic", "hybrid", "hybrid2", "pair",
          "pair3", "pallas")
-#: The impls whose input cotangent is zero by contract.
-ZERO_DX = ("hybrid", "hybrid2", "pair", "pair3")
+#: The impls that run the sweep kernels B2-B8: their input cotangent is
+#: zero by contract, and on the card they take only SA widths TRUNK.
+SWEEPS = ("hybrid", "hybrid2", "pair", "pair3")
 
 
 def covar_moments(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor):
@@ -102,10 +104,17 @@ class SetAbstractionStage(nn.Module):
             raise ValueError(f"expected 4-D neighbourhoods, got {x.shape}")
         impl, layers, eps = self.impl, self.layers(), self.epsilon
         pair = impl in ("pair", "pair3")
-        if self.training and self.input_grad and impl in ZERO_DX:
+        if self.training and self.input_grad and impl in SWEEPS:
             raise ValueError(
                 f"sa impl {impl!r} defines a zero input cotangent; use "
                 "'analytic' when input gradients are needed")
+        if self.training and impl in SWEEPS and x.device.type == "cuda" \
+                and self.widths != TRUNK:
+            others = tuple(i for i in IMPLS if i not in SWEEPS)
+            raise ValueError(
+                f"sa impl {impl!r} runs kernels that take SA widths {TRUNK} "
+                f"(TRUNK) on the card; got widths {self.widths}. Use one of "
+                f"{others}, which take these widths, or sa_impl='auto'")
         if self.channels_first and not (self.training and pair):
             x = x.permute(0, 2, 3, 1)                       # (B, S, K, C)
         if not self.training:

@@ -1,9 +1,10 @@
 // Tensor-core tile machinery of the redesigned SA sweeps (sa_pair.cu:
-// fwd_gram_pool, bwd_sweep2). Products run as mma.sync m16n8k8 TF32 in
-// the 3xTF32 split, which keeps f32 accuracy: each f32 operand a becomes
-// hi = tf32(a) and lo = tf32(a - hi), and a product sums lo.hi' + hi.lo'
-// + hi.hi' in f32 (the dropped lo.lo' term is ~2^-22 relative). Row tiles
-// arrive by TMA bulk copies into a ring of stages, one mbarrier each.
+// fwd_gram_pool, bwd_sweep2, bwd_sweep3; bwd_sweep1 uses the TMA staging).
+// Products run as mma.sync m16n8k8 TF32 in the 3xTF32 split, which keeps
+// f32 accuracy: each f32 operand a becomes hi = tf32(a) and lo = tf32(a -
+// hi), and a product sums lo.hi' + hi.lo' + hi.hi' in f32 (the dropped
+// lo.lo' term is ~2^-22 relative). Row tiles arrive by TMA bulk copies
+// into a ring of stages, one mbarrier each.
 //
 // Layouts (floats):
 //  - Row tiles: (TR, LDT) row-major, LDT = 72. A row-major fragment reads
@@ -99,6 +100,11 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
 // The issuing thread: wait until its bulk stores have read shared memory.
 __device__ __forceinline__ void bulk_store_drain() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// The same for all but its latest bulk store (a double-buffered source).
+__device__ __forceinline__ void bulk_store_drain_prior() {
+  asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
 }
 
 // -- 3xTF32 mma -------------------------------------------------------
@@ -307,24 +313,30 @@ __device__ __forceinline__ void relu_split_rows(const float* S,
 // channel-major (xs[c * TR + r]): its split into (TR, LDT) tiles hi/lo,
 // and its ReLU mask (h1 > 0) as bytes, mask[r * CW + c]. vec1 = [b1 |
 // mul1 | shift1]. The op chain is h1_tile's (sa_tile.cuh), so the masks
-// are the forward's.
+// are the forward's. Thread tid of nth (a multiple of 16) takes rows
+// tid / 16, + nth / 16, ...
 __device__ __forceinline__ void h1_rows(const float* xs, int C0,
                                         const float* W1s, const float* vec1,
-                                        float* hi, float* lo,
-                                        uint8_t* mask) {
-  const int c = (threadIdx.x & 15) * 4;
+                                        float* hi, float* lo, uint8_t* mask,
+                                        int tid, int nth) {
+  const int c = (tid & 15) * 4;
   const float4 b1 = *reinterpret_cast<const float4*>(vec1 + c);
   const float4 mul = *reinterpret_cast<const float4*>(vec1 + CW + c);
   const float4 sh = *reinterpret_cast<const float4*>(vec1 + 2 * CW + c);
-  for (int r = threadIdx.x >> 4; r < TR; r += NTM / 16) {
+  float4 w[C0MAX - 1];                  // this thread's columns of W1
+#pragma unroll
+  for (int k = 0; k < C0MAX - 1; ++k)
+    if (k < C0) w[k] = *reinterpret_cast<const float4*>(W1s + k * CW + c);
+  for (int r = tid >> 4; r < TR; r += nth / 16) {
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int k = 0; k < C0; ++k) {
+#pragma unroll
+    for (int k = 0; k < C0MAX - 1; ++k) {
+      if (k >= C0) break;
       const float xv = xs[k * TR + r];
-      const float4 w = *reinterpret_cast<const float4*>(W1s + k * CW + c);
-      a.x = __fadd_rn(a.x, __fmul_rn(xv, w.x));
-      a.y = __fadd_rn(a.y, __fmul_rn(xv, w.y));
-      a.z = __fadd_rn(a.z, __fmul_rn(xv, w.z));
-      a.w = __fadd_rn(a.w, __fmul_rn(xv, w.w));
+      a.x = __fadd_rn(a.x, __fmul_rn(xv, w[k].x));
+      a.y = __fadd_rn(a.y, __fmul_rn(xv, w[k].y));
+      a.z = __fadd_rn(a.z, __fmul_rn(xv, w[k].z));
+      a.w = __fadd_rn(a.w, __fmul_rn(xv, w[k].w));
     }
     float4 h;
     h.x = relu_affine(__fadd_rn(a.x, b1.x), mul.x, sh.x);

@@ -14,39 +14,42 @@
 // MACs, only to fill 128 lanes) is not carried over: these kernels work
 // on plain (R, 64) rows and read the (B, C0, S*K) channel-major input.
 //
-// Bounds on the card (R = 2,621,440 rows at the main path). layer12 and
-// sweep3 are bound by f32 operations on CUDA cores (~23 GFLOP each
-// against 67 TFLOP/s), sweep1 by bytes (it reads p2 and writes q3, 671 MB
-// each; dy3 has one nonzero per (group, channel), so its products are
-// taken sparsely). Their design: a persistent grid of blocks, each
-// looping over 64-row tiles with the weights resident in shared memory
-// and a register-tiled 64x64 product (each of 256 threads owns a 4x4 or
-// 4x16 output patch), row tiles staged in shared memory.
+// Bounds on the card (R = 2,621,440 rows at the main path). layer12 is
+// bound by f32 operations on CUDA cores (~23 GFLOP against 67 TFLOP/s).
+// Its design: a persistent grid of blocks, each looping over 64-row tiles
+// with the weights resident in shared memory and a register-tiled 64x64
+// product (each of 256 threads owns a 4x4 output patch), row tiles staged
+// in shared memory. sweep1 (B3a) is bound by bytes (it reads p2 and
+// writes q3, 671 MB each; dy3 has one nonzero per (group, channel), so
+// its products are taken sparsely): it streams tiles by TMA and builds q3
+// from row bitmaps of each tile's entries (see there).
 //
-// gram_pool (B2b) and sweep2 (B3b) run their 64-wide products on tensor
-// cores in 3xTF32 (sa_mma.cuh; f32-level accuracy). Their bounds there:
-// gram_pool ~0.63 ms by operations (~97 GFLOP of products, three TF32
-// passes each at 495 TFLOP/s, plus its CUDA-core work), sweep2 ~0.61 ms
-// by bytes (x, p2, q3 in and mq out: 784 B a row); on CUDA cores in f32
-// they would be bound at 1.48 and 1.18 ms. What holds them above that on
-// mma.sync: each warp reads its A and B fragments from shared memory
-// (hi and lo), ~640 KB per gram_pool tile against 128 B a clock, and the
-// per-(group, column) pool and the ReLU/split passes are CUDA-core work
-// between barriers that the products do not overlap. The designs keep
-// what they can off that path: one TMA bulk copy per row tile, several
-// tiles in flight; operands used by several warps (W3, M3, gi2 * W2^T,
-// h2 in gram_pool, h1 and dy2 in sweep2) split into hi/lo once; the pool
-// reduced from the accumulators (no p3 tile in shared memory); sweep2's
-// mq leaving by a TMA bulk store. The backward recomputes h1 in B3b
-// with h1_tile's op chain (h1_rows in sa_mma.cuh), and 3xTF32 moves no
-// ReLU mask: masks come from the CUDA-core chains only.
+// gram_pool (B2b), sweep2 (B3b) and sweep3 (B3c) run their 64-wide
+// products on tensor cores in 3xTF32 (sa_mma.cuh; f32-level accuracy).
+// Their bounds there: gram_pool ~0.63 ms by operations (~97 GFLOP of
+// products, three TF32 passes each at 495 TFLOP/s, plus its CUDA-core
+// work), sweep2 ~0.61 ms by bytes (x, p2, q3 in and mq out: 784 B a row),
+// sweep3 ~0.21 ms by bytes (x and mq in: 272 B a row); on CUDA cores in
+// f32 they would be bound at 1.48, 1.18 and 0.38 ms. What holds them above
+// that on mma.sync: each warp reads its A and B fragments from shared
+// memory (hi and lo), ~640 KB per gram_pool tile against 128 B a clock,
+// and the per-(group, column) pool and the ReLU/split passes are CUDA-core
+// work between barriers that the products do not overlap. The designs
+// keep what they can off that path: one TMA bulk copy per row tile,
+// several tiles in flight; operands used by several warps (W3, M3, M2,
+// gi2 * W2^T, h2 in gram_pool, h1 and dy2 in sweep2, h1 and dy1 in
+// sweep3) split into hi/lo once; the pool reduced from the accumulators
+// (no p3 tile in shared memory); sweep2's mq leaving by a TMA bulk store.
+// The backward recomputes h1 in B3b and B3c with h1_tile's op chain
+// (h1_rows in sa_mma.cuh), and 3xTF32 moves no ReLU mask: masks come from
+// the CUDA-core chains only.
 //
 // The TPU grid runs in order and carries its accumulators across steps;
 // CUDA blocks run in parallel, so every block writes its own partial sums
 // (moments, Grams, A-matrices) to a (blocks, ...) float64 buffer and the
 // caller reduces them in a fixed order — no float atomics, so runs are
 // deterministic. Within a block each 64-row tile is summed in float32 and
-// the tile sums are carried in float64 (except sweep 1, see there): a
+// the tile sums are carried in float64 (except A3 in sweep 1, see there): a
 // block covers ~10^4 rows, and the moments feed E[p^2] - E[p]^2 and the
 // Gram identities, where cancellation magnifies a running sum's error.
 // Layer-1 moments, the layer-3 finalize, the pool finalize and the
@@ -379,93 +382,332 @@ fwd_gram_pool_kernel(const float* __restrict__ p2, int64_t ntiles, int upt,
 // ReLU), per-block A3 = dy3^T h2 (256, 64) and u3 = sum dy3, and the row
 // output q3 = (gi3 * dy3) W3^T (R, 64). dy3 has one nonzero per (group,
 // channel), so A3 and q3 are accumulated from those entries only.
-__global__ void __launch_bounds__(NT)
-bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int pool,
-                  const float* __restrict__ vec2,
+//
+// Bound by bytes (p2 in, q3 out); its own work is sparse (one 64-wide FMA
+// row per live entry for A3 and one for q3), so what costs is the chain of
+// short dependent steps between barriers: the design keeps them few and
+// parallel. 512 threads, one block per SM;
+// each tile's p2 rows, dpooled and idx arrive by three TMA bulk copies
+// into a ring of up to four stages, and q3 leaves by a TMA bulk store
+// from one of two staging tiles. A tile's entries e = (group, channel) are
+// binned by argmax row as bitmaps: bit e % 32 of word (row, e / 32 % 8) is
+// set when e's argmax is the row (match.any: one store per row present in
+// a 32-entry word), so q3 row r is the sum over the set bits of its 8
+// words, in entry order. One warp counts the rows and cuts them into
+// tasks: a row of at most T = max(32, live entries / 16) entries is one
+// task, a longer one eight (a word each), so the skew of random points
+// (most channels on one padded row) is spread over the warps, which take
+// the tasks round-robin, a lane per column pair; a split row is summed
+// from its eight partials in word order. A3 takes a thread per (channel,
+// 32 columns), reading its argmax row of h2 (formed once per tile into a
+// padded tile) as eight 16-byte loads. Sums keep a fixed order: runs are
+// bit-identical from one run to the next. A tile holds U rows:
+// 64, or 8 pool for pool < 8, so it spans at most 8 pool groups (2,048
+// entries).
+
+constexpr int NWARP = NTM / 32;
+constexpr int DEAD = 255;                 // entry key: no argmax row here
+constexpr int MAX_SMEM = 232448;          // a block's shared memory, bytes
+constexpr int SPLITS = 8 * NWARP;         // partial rows: <= 16 split rows
+constexpr int LDH = CW + 4;               // h2 tile stride: rows 4 banks
+                                          // apart for 16-byte loads
+
+__host__ __device__ constexpr int sweep1_rows(int pool) {
+  return pool >= 8 ? TR : 8 * pool;
+}
+
+// Byte offsets of sweep 1's shared memory for U rows, gpt pool groups and
+// S stages a tile: S x [p2 (U, CW) | dpooled (gpt, C3W) | idx (gpt, C3W)],
+// W3^T, two q3 tiles, the split rows' partials, mul2 | shift2 | gi3, h2
+// (U, LDH), the row bitmaps (TR, 8) and tasks, a 32-entry list per warp,
+// and each entry's key.
+struct S1Layout {
+  int w3t, out, part, vec, h2, bits, info, lists, key, bars, total;
+};
+
+__host__ __device__ inline S1Layout s1_layout(int U, int gpt, int S) {
+  const int E = gpt * C3W;
+  S1Layout l;
+  l.w3t = S * (U * CW + 2 * E) * 4;
+  l.out = l.w3t + C3W * CW * 4;
+  l.part = l.out + 2 * TR * CW * 4;
+  l.vec = l.part + SPLITS * CW * 4;
+  l.h2 = l.vec + (2 * CW + C3W) * 4;
+  l.bits = l.h2 + U * LDH * 4;
+  l.info = l.bits + TR * 8 * 4;
+  l.lists = l.info + (TR + 4) * 4;
+  l.key = l.lists + NWARP * 32 * 8;
+  l.bars = (l.key + E + 7) & ~7;
+  l.total = l.bars + S * 8;
+  return l;
+}
+
+// Inclusive sum over a warp's lanes.
+__device__ __forceinline__ int warp_scan(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(FULL, v, d);
+    if (lane >= d) v += o;
+  }
+  return v;
+}
+
+__device__ __forceinline__ void fma4(float* a, float s, const float4& w) {
+  a[0] = fmaf(s, w.x, a[0]);
+  a[1] = fmaf(s, w.y, a[1]);
+  a[2] = fmaf(s, w.z, a[2]);
+  a[3] = fmaf(s, w.w, a[3]);
+}
+
+// Word jw of row r's bitmap: rows 2l and 2l + 1 in four 16-byte blocks
+// that lane l reads without bank conflicts.
+__device__ __forceinline__ int bit_slot(int r, int jw) {
+  return (r & 1) * 256 + (jw >> 2) * 128 + (r >> 1) * 4 + (jw & 3);
+}
+
+__device__ __forceinline__ uint4 ld4u(const uint32_t* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ int popc4(const uint4& a) {
+  return __popc(a.x) + __popc(a.y) + __popc(a.z) + __popc(a.w);
+}
+
+__global__ void __launch_bounds__(NTM, 1)
+bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
+                  int pool, int S, const float* __restrict__ vec2,
                   const float* __restrict__ dpooled,
                   const int* __restrict__ idx, const float* __restrict__ gi3,
                   const float* __restrict__ W3, float* __restrict__ q3,
                   double* __restrict__ partA, double* __restrict__ partu) {
-  extern __shared__ float sm[];
-  // Groups per tile (pool <= TR) or tiles per group (pool > TR, walked
-  // in order by one block), as in fwd_gram_pool_kernel.
-  const int gpt = pool <= TR ? TR / pool : 1;
-  const int upt = pool <= TR ? 1 : pool / TR;
-  float* W3t = sm;                      // C3W*CW, W3t[c][j] = W3[j][c]
-  float* h2s = W3t + C3W * CW;          // TR*LD
-  float* q3s = h2s + TR * LD;           // TR*LD
-  float* v2 = q3s + TR * LD;            // mul2 | shift2
-  float* gis = v2 + 2 * CW;             // C3W
-  float* dvs = gis + C3W;               // gpt*C3W: dpooled
-  float* vgs = dvs + gpt * C3W;         // gpt*C3W: dpooled * gi3
-  // rs: the tile row that takes dpooled[g, c], or -1 (dead ReLU, or the
-  // argmax row lies in another tile of a group spanning tiles).
-  int* rs = reinterpret_cast<int*>(vgs + gpt * C3W);   // gpt*C3W
+  extern __shared__ __align__(128) unsigned char smb[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // Groups per tile (pool <= U) or tiles per group (pool > U = TR).
+  const int gpt = pool <= U ? U / pool : 1;
+  const int upt = pool > U ? pool / U : 1;
+  const int gr = pool <= U ? pool : U;        // rows of a group in a tile
+  const int E = gpt * C3W;                    // entries of a tile
+  const int SF = U * CW + 2 * E;              // floats of one stage
+  const S1Layout ly = s1_layout(U, gpt, S);
+  float* stage = reinterpret_cast<float*>(smb);
+  float* W3t = reinterpret_cast<float*>(smb + ly.w3t);   // W3t[c][j]
+  float* outs = reinterpret_cast<float*>(smb + ly.out);
+  float* part = reinterpret_cast<float*>(smb + ly.part);
+  float* v = reinterpret_cast<float*>(smb + ly.vec);
+  float* h2 = reinterpret_cast<float*>(smb + ly.h2);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smb + ly.bits);
+  int* info = reinterpret_cast<int*>(smb + ly.info);
+  float2* list = reinterpret_cast<float2*>(smb + ly.lists) + warp * 32;
+  uint8_t* key = smb + ly.key;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smb + ly.bars);
+  const float* gis = v + 2 * CW;
+  const int io = NTM - 32;            // the thread that issues TMA copies
 
-  for (int e = threadIdx.x; e < C3W * CW; e += NT) {
-    const int c = e / CW, j = e % CW;
-    W3t[e] = W3[j * C3W + c];
+  const int64_t count =
+      ntiles > blockIdx.x ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  auto tile_at = [&](int64_t i) { return blockIdx.x + i * gridDim.x; };
+  auto fetch = [&](int64_t i, int s) {      // thread io: tile i to slot s
+    float* st = stage + s * SF;
+    const int64_t t = tile_at(i), g0 = upt > 1 ? t / upt : t * gpt;
+    mbar_expect(&bars[s], SF * 4);
+    bulk_load(st, p2 + t * U * CW, U * CW * 4, &bars[s]);
+    bulk_load(st + U * CW, dpooled + g0 * C3W, E * 4, &bars[s]);
+    bulk_load(st + U * CW + E, idx + g0 * C3W, E * 4, &bars[s]);
+  };
+
+  if (threadIdx.x == io) {
+    for (int s = 0; s < S; ++s) mbar_init(&bars[s]);
+    for (int i = 0; i < S && i < count; ++i) fetch(i, i);
   }
-  copy_vec(v2, vec2, 2 * CW);
-  copy_vec(gis, gi3, C3W);
+  for (int e = threadIdx.x; e < C3W * CW; e += NTM)
+    W3t[(e % C3W) * CW + e / C3W] = W3[e];
+  copy_block(v, vec2, 2 * CW);
+  copy_block(v + 2 * CW, gi3, C3W);
   __syncthreads();
 
-  const int c_own = threadIdx.x;        // A3 row owned by this thread
-  // float32 running sums here: at K = 64 a block adds one product per
-  // tile (~150 at the main path), and 64 float64 registers would halve
-  // the blocks per SM (measured 2.8 -> 6.9 ms).
-  float a3[CW];
-#pragma unroll
-  for (int k = 0; k < CW; ++k) a3[k] = 0.f;
-  float u3 = 0.f;
-  const int jq = threadIdx.x % CW, quarter = threadIdx.x / CW;
+  // A3: thread (ac, ah) owns channel ac, columns 32 ah.. (and, for ah = 0,
+  // the channel's u3). A3 is carried in f32 (at most one product per
+  // channel and group, ~310 tiles a block at the main path): 32 float64
+  // registers would spill at 512 threads.
+  const int ac = threadIdx.x >> 1, ah = threadIdx.x & 1;
+  float a3[32] = {};
+  double u3 = 0.0;
+  const int hc = (threadIdx.x % (CW / 4)) * 4;    // the h2 pass's columns
+  const float4 mul = *reinterpret_cast<const float4*>(v + hc);
+  const float4 sh = *reinterpret_cast<const float4*>(v + CW + hc);
+  int s = 0;                          // this tile's stage
+  uint32_t phase = 0;                 // and its mbarrier parity
+  for (int64_t i = 0; i < count; ++i) {
+    const int64_t t = tile_at(i);
+    const int j = upt > 1 ? static_cast<int>(t % upt) : 0;
+    const float* P = stage + s * SF;          // p2 (U, CW)
+    const float* DP = P + U * CW;             // dpooled (gpt, C3W)
+    const int* IX = reinterpret_cast<const int*>(DP + E);
+    float* out = outs + (i & 1) * TR * CW;
+    mbar_wait(&bars[s], phase);
 
-  for (int64_t u = blockIdx.x; u < ntiles / upt; u += gridDim.x) {
-    for (int j = 0; j < upt; ++j) {
-      const int64_t t = u * upt + j;
-      const int64_t r0 = t * TR;
-      const int64_t g0 = pool <= TR ? t * gpt : u;     // first group
-      load_h_tile(p2, r0, v2, v2 + CW, h2s);
-      for (int e = threadIdx.x; e < TR * LD; e += NT) q3s[e] = 0.f;
-      for (int e = threadIdx.x; e < gpt * C3W; e += NT) {
-        const int64_t o = g0 * C3W + e;
-        const float dv = dpooled[o];
-        const int rr = idx[o];
-        const int lr = pool <= TR ? (e / C3W) * pool + rr : rr - j * TR;
-        dvs[e] = dv;
-        vgs[e] = __fmul_rn(dv, gis[e % C3W]);
-        rs[e] = (rr < pool && lr >= 0 && lr < TR) ? lr : -1;
-      }
-      __syncthreads();
+    // 1. Each entry's tile row (key) or DEAD, and the row bitmaps, a warp
+    // per 32-entry word (its group's rows cleared first, then one store
+    // per row present); h2 = relu(p2 mul2 + shift2), padded.
+    for (int w = warp; w < E / 32; w += NWARP) {
+      const int e = 32 * w + lane, gi = e / C3W;
+      const int rr = IX[e];
+      const int lr = upt > 1 ? rr - j * U : gi * pool + rr;
+      const int k = rr < pool && lr >= 0 && lr < U ? lr : DEAD;
+      key[e] = static_cast<uint8_t>(k);
+      for (int r = lane; r < gr; r += 32)
+        bits[bit_slot(gi * gr + r, w & 7)] = 0u;
+      const unsigned peers = __match_any_sync(FULL, k);
+      __syncwarp();
+      if (k != DEAD && lane == __ffs(peers) - 1)
+        bits[bit_slot(k, w & 7)] = peers;
+    }
+    for (int q = threadIdx.x; q < U * CW / 4; q += NTM) {
+      const int r = q / (CW / 4);
+      float4 p = *reinterpret_cast<const float4*>(P + r * CW + hc);
+      p.x = relu_affine(p.x, mul.x, sh.x);
+      p.y = relu_affine(p.y, mul.y, sh.y);
+      p.z = relu_affine(p.z, mul.z, sh.z);
+      p.w = relu_affine(p.w, mul.w, sh.w);
+      *reinterpret_cast<float4*>(h2 + r * LDH + hc) = p;
+    }
+    __syncthreads();
 
+    // 2. The last warp counts the rows, the live total and the tasks (row
+    // r of n_r entries is 0, 1 or, if n_r > T, 8 tasks; task and split
+    // starts by one scan), kept per row as first task | first split << 16
+    // | tasks << 24, and the task count. Every thread: A3 and u3 from the
+    // argmax rows of h2.
+    if (warp == NWARP - 1) {
+      const int n0 = 2 * lane < U ? popc4(ld4u(bits + 4 * lane)) +
+                                        popc4(ld4u(bits + 128 + 4 * lane))
+                                  : 0;
+      const int n1 = 2 * lane + 1 < U ? popc4(ld4u(bits + 256 + 4 * lane)) +
+                                            popc4(ld4u(bits + 384 + 4 * lane))
+                                      : 0;
+      const int nlive = __reduce_add_sync(FULL, n0 + n1);
+      const int T = max(32, (nlive + NWARP - 1) / NWARP);
+      const int u0 = n0 == 0 ? 0 : n0 > T ? 8 : 1;
+      const int u1 = n1 == 0 ? 0 : n1 > T ? 8 : 1;
+      const int x0 = ((u0 == 8) << 16) | u0, x1 = ((u1 == 8) << 16) | u1;
+      const int xs = warp_scan(x0 + x1, lane);    // splits high, tasks low
+      *reinterpret_cast<int2*>(info + 2 * lane) =
+          make_int2((xs - x0 - x1) | (u0 << 24), (xs - x1) | (u1 << 24));
+      if (lane == 31) info[TR] = xs & 0xffff;
+    }
+    {
+      float su = 0.f;
       for (int gi = 0; gi < gpt; ++gi) {
-        const int lr = rs[gi * C3W + c_own];
-        if (lr >= 0) {
-          const float dv = dvs[gi * C3W + c_own];
-          const float* hrow = h2s + lr * LD;
+        const int e = gi * C3W + ac;
+        const int k = key[e];
+        if (k != DEAD) {
+          const float dv = DP[e];
+          const float* hr = h2 + k * LDH + 32 * ah;
 #pragma unroll
-          for (int k = 0; k < CW; ++k) a3[k] = fmaf(dv, hrow[k], a3[k]);
-          u3 += dv;
+          for (int q = 0; q < 8; ++q)
+            fma4(a3 + 4 * q, dv,
+                 *reinterpret_cast<const float4*>(hr + 4 * q));
+          su += dv;
         }
       }
-      // q3: thread (quarter, jq) owns column jq of rows [16 quarter, +16).
-      for (int gi = 0; gi < gpt; ++gi) {
-        for (int c = 0; c < C3W; ++c) {
-          const int row = rs[gi * C3W + c];
-          if (row >= 0 && (row >> 4) == quarter)
-            q3s[row * LD + jq] =
-                fmaf(vgs[gi * C3W + c], W3t[c * CW + jq], q3s[row * LD + jq]);
+      if (ah == 0) u3 += su;
+    }
+    if (threadIdx.x == io) bulk_store_drain_prior();   // out was read
+    __syncthreads();
+
+    // 3. q3 rows, task by task, task k to warp k % NWARP, a lane per
+    // column pair (lane l holds the tasks of rows 2l, 2l + 1): the set
+    // bits of the row's words (all 8, or the task's one for a split row),
+    // in order. A whole row goes to out, a split row's word to its
+    // partial.
+    const int2 inf = *reinterpret_cast<const int2*>(info + 2 * lane);
+    const int ta = inf.x & 0xffff, tb = inf.y & 0xffff;
+    const int sa = (inf.x >> 16) & 0xff, sb = (inf.y >> 16) & 0xff;
+    const int t0 = inf.x >> 24, t1 = inf.y >> 24;
+    const int ntask = info[TR];
+    for (int k = warp; k < ntask; k += NWARP) {
+      const int L = 31 - __clz(__ballot_sync(FULL, ta <= k));
+      const int ka = __shfl_sync(FULL, ta, L), kb = __shfl_sync(FULL, tb, L);
+      const int ntb = __shfl_sync(FULL, t1, L);
+      const int sl = __shfl_sync(FULL, k >= kb ? sb : sa, L);
+      const bool hi = k >= kb;
+      const int r = 2 * L + hi, tk = hi ? kb : ka;
+      const bool split = (hi ? ntb : kb - ka) == 8;
+      const int gb = upt > 1 ? 0 : (r / pool) * 8;   // the group's words
+      const uint4 wa = ld4u(bits + bit_slot(r, 0));
+      const uint4 wb = ld4u(bits + bit_slot(r, 4));
+      const uint32_t wd[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+      float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int jw = 0; jw < 8; ++jw) {
+        const uint32_t m = wd[jw];
+        if (m == 0u || (split && jw != k - tk)) continue;
+        // The word's entries, listed in order: (dpooled * gi3, channel).
+        const int e = 32 * (gb + jw) + lane, c = e & (C3W - 1);
+        if ((m >> lane) & 1u)
+          list[__popc(m & ((1u << lane) - 1))] =
+              make_float2(__fmul_rn(DP[e], gis[c]), __int_as_float(c));
+        __syncwarp();
+        const int n = __popc(m);
+        int q = 0;
+#pragma unroll 4
+        for (; q + 1 < n; q += 2) {
+          const float4 vc = *reinterpret_cast<const float4*>(list + q);
+          const float2 w0 = ld2(W3t + __float_as_int(vc.y) * CW + 2 * lane);
+          const float2 w1 = ld2(W3t + __float_as_int(vc.w) * CW + 2 * lane);
+          acc.x = fmaf(vc.x, w0.x, acc.x);
+          acc.y = fmaf(vc.x, w0.y, acc.y);
+          acc.x = fmaf(vc.z, w1.x, acc.x);
+          acc.y = fmaf(vc.z, w1.y, acc.y);
+        }
+        if (q < n) {
+          const float2 vc = list[q];
+          const float2 w = ld2(W3t + __float_as_int(vc.y) * CW + 2 * lane);
+          acc.x = fmaf(vc.x, w.x, acc.x);
+          acc.y = fmaf(vc.x, w.y, acc.y);
+        }
+        __syncwarp();
+      }
+      float* dst = split ? part + (sl * 8 + k - tk) * CW : out + r * CW;
+      *reinterpret_cast<float2*>(dst + 2 * lane) = acc;
+    }
+    __syncthreads();
+    if (threadIdx.x == io && i + S < count) fetch(i + S, s);
+
+    // 4. Split rows: their eight partials summed in word order. Rows with
+    // no entry: zeros.
+    for (int r = warp; r < U; r += NWARP) {
+      const int nt = __shfl_sync(FULL, (r & 1) ? t1 : t0, r >> 1);
+      const int sl = __shfl_sync(FULL, (r & 1) ? sb : sa, r >> 1);
+      if (nt == 1) continue;
+      float2 acc = make_float2(0.f, 0.f);
+      if (nt == 8) {
+        const float* pr = part + sl * 8 * CW + 2 * lane;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float2 pv = ld2(pr + q * CW);
+          acc.x += pv.x;
+          acc.y += pv.y;
         }
       }
-      __syncthreads();
-      store_tile(q3s, r0, q3);
-      __syncthreads();
+      *reinterpret_cast<float2*>(out + r * CW + 2 * lane) = acc;
+    }
+    fence_async_smem();
+    __syncthreads();
+    if (threadIdx.x == io) bulk_store(q3 + t * U * CW, out, U * CW * 4);
+    if (++s == S) {
+      s = 0;
+      phase ^= 1u;
     }
   }
+  if (threadIdx.x == io) bulk_store_drain();
+
+  double* pa = partA + ((int64_t)blockIdx.x * C3W + ac) * CW + 32 * ah;
 #pragma unroll
-  for (int k = 0; k < CW; ++k)
-    partA[((int64_t)blockIdx.x * C3W + c_own) * CW + k] = a3[k];
-  partu[(int64_t)blockIdx.x * C3W + c_own] = u3;
+  for (int q = 0; q < 16; ++q)
+    *reinterpret_cast<double2*>(pa + 2 * q) =
+        make_double2(a3[2 * q], a3[2 * q + 1]);
+  if (ah == 0) partu[(int64_t)blockIdx.x * C3W + ac] = u3;
 }
 
 // ---------------------------------------------------------------------
@@ -487,8 +729,8 @@ bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int pool,
 // shared memory).
 __device__ __forceinline__ void load_x_rows(const float* __restrict__ x,
                                             int C0, int64_t N, int64_t r0,
-                                            float* xs) {
-  for (int e = threadIdx.x; e < TR * C0; e += NTM) {
+                                            float* xs, int tid, int nth) {
+  for (int e = tid; e < TR * C0; e += nth) {
     const int i = e % TR, c = e / TR;
     const int64_t r = r0 + i;
     const int64_t b = r / N, n = r - b * N;
@@ -573,11 +815,11 @@ bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
     float* X = stage + (i & 1) * STAGE + TR * CW;
     mbar_wait(&bars[i & 1], static_cast<uint32_t>((i >> 1) & 1));
     if (!xbulk) {
-      load_x_rows(x, C0, N, r0, X);
+      load_x_rows(x, C0, N, r0, X, threadIdx.x, NTM);
       __syncthreads();
     }
     relu_rows(S, mul2, shift2, H2);
-    h1_rows(X, C0, W1s, v, h1h, h1l, m1);
+    h1_rows(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);
     __syncthreads();
     if (threadIdx.x == 0 && i + 2 < count) fetch(i + 2);
 
@@ -715,72 +957,191 @@ bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
 // B3 sweep 3: recompute h1 from x; dy1 = [h1 > 0] (mq - (h1 M2 + rc2));
 // per-block dy1^T [x | 1] -> part (blocks, 64, C0 + 1) = [A1 | u1].
 // vec holds [b1 | mul1 | shift1 | rc2].
-__global__ void __launch_bounds__(NT)
+//
+// Tensor cores (sa_mma.cuh). The block's 16 warps form two groups of 8,
+// each on every other tile of the block, with barriers of its own: one
+// group's CUDA-core pass (h1 and its split) runs beside the other's
+// products. In a group, warp w = (mw, nh) = (w % 4, w / 4) takes rows
+// 16 mw.. and columns 32 nh.. of h1 M2 and forms dy1 there from the
+// accumulators; then [A1 | u1] = dy1^T [x | 1 | 0] (64 x 8, one more small
+// product) for the same rows and channels, its A fragments gathered from
+// the accumulators by shuffles, so dy1 never leaves the registers and a
+// tile takes two barriers. The eight (group, row quarter) partials are
+// summed in order once, at the end. mq (one bulk copy) and x (one bulk
+// copy per channel when N % TR == 0) arrive by TMA, four tiles in flight.
+// M2 is split into hi/lo once per block; h1 (with its ReLU mask as bytes,
+// from h1_rows' CUDA-core chain: the forward's masks bit for bit) and
+// [x | 1] once per tile. Bound by bytes (x and mq in, 272 B a row). One
+// block per SM (~200 KB of shared memory).
+constexpr int S3_STAGES = 4;
+constexpr int S3_GT = NTM / 2;      // threads of a warp group
+constexpr int XLD = 68;             // [x | 1] tile stride: conflict-free B
+constexpr int S3_GROUP = 2 * TILE_F + 2 * 8 * XLD + TR * CW / 4;  // floats
+
+__global__ void __launch_bounds__(NTM, 1)
 bwd_sweep3_kernel(const float* __restrict__ x, int C0, int64_t N,
                   int64_t ntiles, const float* __restrict__ W1,
                   const float* __restrict__ vec, const float* __restrict__ mq,
                   const float* __restrict__ M2, double* __restrict__ part) {
-  extern __shared__ float sm[];
-  float* M2s = sm;                      // CW*CW
-  float* h1s = M2s + CW * CW;           // TR*LD
-  float* dys = h1s + TR * LD;           // TR*LD (mq, then dy1)
-  float* xs = dys + TR * LD;            // TR*C0MAX
-  float* W1s = xs + TR * C0MAX;         // C0MAX*CW
-  float* v = W1s + C0MAX * CW;          // 4*CW
+  constexpr int STAGE = TR * CW + C0MAX * TR;      // mq | x
+  constexpr int WB = 32 * b_stride(CW);
+  extern __shared__ __align__(128) float smt[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp >> 3, gt = threadIdx.x % S3_GT;
+  float* stage = smt;                       // S3_STAGES x STAGE
+  float* Mh = stage + S3_STAGES * STAGE;    // M2, split, paired layout
+  float* Ml = Mh + WB;
+  float* W1s = Ml + WB;                     // C0MAX * CW
+  float* v = W1s + C0MAX * CW;              // 4 * CW
+  float* gb = v + 4 * CW + grp * S3_GROUP;  // this group's:
+  float* hh = gb;                           //   h1, split: hi
+  float* hl = hh + TILE_F;                  //                lo
+  float* Xh = hl + TILE_F;                  //   [x | 1 | 0], split (8, XLD)
+  float* Xl = Xh + 8 * XLD;
+  uint8_t* m1 = reinterpret_cast<uint8_t*>(Xl + 8 * XLD);  // TR * CW
+  uint64_t* bars = reinterpret_cast<uint64_t*>(v + 4 * CW + 2 * S3_GROUP);
   const float* rc2 = v + 3 * CW;
+  const SplitBuf H{hh, hl}, Ms{Mh, Ml};
 
-  copy_vec(M2s, M2, CW * CW);
-  copy_vec(W1s, W1, C0 * CW);
-  copy_vec(v, vec, 4 * CW);
+  const int lw = warp & 7, g = lane >> 2, t = lane & 3;
+  const int mw = lw & 3, nh = lw >> 2, m0 = 16 * mw;
+  const bool xbulk =
+      N % TR == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int64_t count =
+      ntiles > blockIdx.x ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  auto row0 = [&](int64_t i) { return (blockIdx.x + i * gridDim.x) * TR; };
+  auto fetch = [&](int64_t i) {             // one thread: mq and x of tile i
+    const int s = static_cast<int>(i % S3_STAGES);
+    float* S = stage + s * STAGE;
+    const int64_t r0 = row0(i);
+    mbar_expect(&bars[s], TR * CW * 4 + (xbulk ? C0 * TR * 4 : 0));
+    bulk_load(S, mq + r0 * CW, TR * CW * 4, &bars[s]);
+    if (xbulk) {
+      const int64_t b = r0 / N, n = r0 - b * N;
+      for (int c = 0; c < C0; ++c)
+        bulk_load(S + TR * CW + c * TR, x + (b * C0 + c) * N + n, TR * 4,
+                  &bars[s]);
+    }
+  };
+  auto gsync = [&]() {                      // this group's barrier
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + grp), "r"(S3_GT) : "memory");
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S3_STAGES; ++s) mbar_init(&bars[s]);
+    for (int64_t i = 0; i < S3_STAGES && i < count; ++i) fetch(i);
+  }
+  load_b_split(Mh, Ml, M2, CW, CW, 1);
+  copy_block(W1s, W1, C0 * CW);
+  copy_block(v, vec, 4 * CW);
   __syncthreads();
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int ne = CW * (C0 + 1);         // <= 2 * NT for C0 <= 7
-  double out[2] = {0.0, 0.0};
+  // [A1 | u1]: channels 32 nh + 16 mt + g (+8), columns 2t (+1) of [x | 1]
+  double acc[2][4] = {};
+  for (int64_t i = grp; i < count; i += 2) {
+    const int s = static_cast<int>(i % S3_STAGES);
+    const float* Q = stage + s * STAGE;
+    float* X = stage + s * STAGE + TR * CW;
+    mbar_wait(&bars[s], static_cast<uint32_t>((i / S3_STAGES) & 1));
+    float2 qv[4][2];                    // this warp's mq, read early so
+#pragma unroll                        // that the stage is free sooner
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        qv[nj][hf] = ld2(Q + (m0 + g + 8 * hf) * CW + 32 * nh + 8 * nj + 2 * t);
+    if (!xbulk) {
+      load_x_rows(x, C0, N, row0(i), X, gt, S3_GT);
+      gsync();
+    }
+    h1_rows(X, C0, W1s, v, hh, hl, m1, gt, S3_GT);
+    for (int e = gt; e < 8 * TR; e += S3_GT) {   // [x | 1 | 0], split
+      const int c = e / TR, r = e % TR;
+      const Split sp = split(c < C0 ? X[c * TR + r] : c == C0 ? 1.f : 0.f);
+      Xh[c * XLD + r] = __uint_as_float(sp.hi);
+      Xl[c * XLD + r] = __uint_as_float(sp.lo);
+    }
+    gsync();
+    if (gt == 0 && i + S3_STAGES < count) fetch(i + S3_STAGES);
 
-  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int64_t r0 = t * TR;
-    load_x_tile(x, C0, N, r0, xs);
-    load_tile(mq, r0, dys);
-    __syncthreads();
-    h1_tile(xs, C0, W1s, v, h1s);
-    __syncthreads();
-    float acc[4][4];
-    mm64(h1s, M2s, nullptr, acc);
+    // h1 M2 for the warp's rows 16 mw.. and columns 32 nh..
+    float c[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nj = 0; nj < 4; ++nj) zero4(c[nj]);
+#pragma unroll 2
+    for (int kb = 0; kb < 8; ++kb) {
+      const FragA a = frag_a_rows(H, m0, kb, lane);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float corr = __fadd_rn(acc[i][j], rc2[c]);
-        dys[r * LD + c] =
-            h1s[r * LD + c] > 0.f ? __fsub_rn(dys[r * LD + c], corr) : 0.f;
+      for (int nj = 0; nj < 4; ++nj)
+        mma3(c[nj], a,
+             frag_b_paired(Ms, b_stride(CW), 32 * nh + 8 * nj, kb, lane));
+    }
+    // dy1 = [h1 > 0] (mq - (h1 M2 + rc2)), in the accumulators' places
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = m0 + g + 8 * hf, cc = 32 * nh + 8 * nj + 2 * t;
+        const uint32_t mk =
+            *reinterpret_cast<const uint16_t*>(m1 + r * CW + cc);
+        const float2 q = qv[nj][hf];
+        float* cv = c[nj] + 2 * hf;
+        cv[0] = (mk & 0xff) ? __fsub_rn(q.x, __fadd_rn(cv[0], rc2[cc])) : 0.f;
+        cv[1] = (mk >> 8) ? __fsub_rn(q.y, __fadd_rn(cv[1], rc2[cc + 1]))
+                          : 0.f;
       }
-    __syncthreads();
+    // [A1 | u1] += dy1^T [x | 1] over the warp's 16 rows, for its 32
+    // channels (two 16-channel tiles mt): the A fragment (channel g (+8),
+    // row t (+4) of a k step) is gathered from the lanes holding those
+    // rows (t, t + 4) and channels (g) by shuffles.
+    {
+      const int src = 4 * t + (g >> 1), odd = g & 1;
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int e = threadIdx.x + u * NT;
-      if (e < ne) {
-        const int j = e % CW, i = e / CW;
-        float a = 0.f;
-        if (i < C0) {
-          for (int r = 0; r < TR; ++r)
-            a = fmaf(dys[r * LD + j], xs[r * C0MAX + i], a);
-        } else {
-          for (int r = 0; r < TR; ++r) a += dys[r * LD + j];
+      for (int mt = 0; mt < 2; ++mt) {
+        float d[4];
+        zero4(d);
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          float av[4];
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            const float* cf = c[2 * mt + (f & 1)];
+            const int sl = src + 16 * (f >> 1);
+            const float ev = __shfl_sync(FULL, cf[2 * ks], sl);
+            const float ov = __shfl_sync(FULL, cf[2 * ks + 1], sl);
+            av[f] = odd ? ov : ev;
+          }
+          const int k = g * XLD + m0 + 8 * ks + t;
+          const FragB b{{Split{__float_as_uint(Xh[k]), __float_as_uint(Xl[k])},
+                         Split{__float_as_uint(Xh[k + 4]),
+                               __float_as_uint(Xl[k + 4])}}};
+          mma3(d, FragA{{split(av[0]), split(av[1]), split(av[2]),
+                         split(av[3])}},
+               b);
         }
-        out[u] += a;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][q] += d[q];
       }
     }
-    __syncthreads();
+    gsync();                                  // h1 and [x | 1] read
   }
+
+  // The eight (group, row quarter) partials summed in order: staged in the
+  // (idle) stage area, then one thread per output.
+  __syncthreads();
+  double* red = reinterpret_cast<double*>(smt);    // (8, CW, 8)
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int e = threadIdx.x + u * NT;
-    if (e < ne) {
-      const int j = e % CW, i = e / CW;
-      part[(int64_t)blockIdx.x * ne + j * (C0 + 1) + i] = out[u];
-    }
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      red[((4 * grp + mw) * CW + 32 * nh + 16 * mt + g + 8 * (q >> 1)) * 8 +
+          2 * t + (q & 1)] = acc[mt][q];
+  __syncthreads();
+  const int ne = CW * (C0 + 1);
+  for (int e = threadIdx.x; e < ne; e += NTM) {
+    const int j = e / (C0 + 1), col = e % (C0 + 1);
+    double sum = 0.0;
+    for (int w = 0; w < 8; ++w) sum += red[(w * CW + j) * 8 + col];
+    part[(int64_t)blockIdx.x * ne + e] = sum;
   }
 }
 
@@ -842,13 +1203,16 @@ extern "C" int facl_sa_bwd_sweep1(const float* p2, int64_t R, int pool,
                                   const float* W3, float* q3, double* partA,
                                   double* partu, int nblk, void* stream) {
   if (bad_pool(R, pool)) return static_cast<int>(cudaErrorInvalidValue);
-  const int gpt = pool <= TR ? TR / pool : 1;
-  const size_t smem = sizeof(float) * (C3W * CW + 2 * TR * LD + 2 * CW +
-                                       C3W + 3 * gpt * C3W);
+  const int U = sweep1_rows(pool);
+  const int gpt = pool <= U ? U / pool : 1;
+  int S = 4;                          // stages: as many as fit, up to 4
+  while (S > 0 && s1_layout(U, gpt, S).total > MAX_SMEM) --S;
+  if (S == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = s1_layout(U, gpt, S).total;
   cudaError_t e = prepare(bwd_sweep1_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_sweep1_kernel<<<nblk, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      p2, R / TR, pool, vec2, dpooled, idx, gi3, W3, q3, partA, partu);
+  bwd_sweep1_kernel<<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
+      p2, R / U, U, pool, S, vec2, dpooled, idx, gi3, W3, q3, partA, partu);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -880,11 +1244,14 @@ extern "C" int facl_sa_bwd_sweep3(const float* x, int B, int C0, int N,
                                   double* part, int nblk, void* stream) {
   const int64_t R = (int64_t)B * N;
   if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (CW * CW + 2 * TR * LD + TR * C0MAX +
-                                       C0MAX * CW + 4 * CW);
+  const size_t smem =
+      sizeof(float) * (S3_STAGES * (TR * CW + C0MAX * TR) +
+                       2 * 32 * b_stride(CW) + C0MAX * CW + 4 * CW +
+                       2 * S3_GROUP) +
+      S3_STAGES * sizeof(uint64_t);
   cudaError_t e = prepare(bwd_sweep3_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_sweep3_kernel<<<nblk, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  bwd_sweep3_kernel<<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
       x, C0, N, R / TR, W1, vec, mq, M2, part);
   return static_cast<int>(cudaGetLastError());
 }

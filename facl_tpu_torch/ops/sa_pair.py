@@ -193,8 +193,12 @@ def sa_bwd_sweep1(p2, mul2, shift2, dpooled, idx, gi3, w3, pool: int):
     need(idx, (R // pool, C3), "idx", torch.int32)
     need(gi3, (C3,), "gi3")
     need(w3, (C2, C3), "w3")
+    need_aligned(p2, "p2")
+    need_aligned(dpooled, "dpooled")
+    need_aligned(idx, "idx")
     vec2 = torch.cat([mul2, shift2]).contiguous()
-    nblk = grid(p2, R)
+    need(vec2, (2 * C2,), "mul2|shift2")
+    nblk = grid(p2, R, per_sm=1)
     dev = p2.device
     q3 = torch.empty((R, C2), dtype=torch.float32, device=dev)
     partA = torch.empty((nblk, C3, C2), dtype=torch.float64, device=dev)
@@ -253,9 +257,10 @@ def sa_bwd_sweep3(x3, w1, b1, mul1, shift1, mq, M2, rc2):
     need(w1, (C0, C1), "w1")
     need(mq, (R, C1), "mq")
     need(M2, (C1, C1), "M2")
+    need_aligned(mq, "mq")
     vec = torch.cat([b1, mul1, shift1, rc2]).contiguous()
     need(vec, (4 * C1,), "vectors")
-    nblk = grid(x3, R)
+    nblk = grid(x3, R, per_sm=1)
     part = torch.empty((nblk, C1, C0 + 1), dtype=torch.float64,
                        device=x3.device)
     launch("sa_pair", "facl_sa_bwd_sweep3",

@@ -217,6 +217,94 @@ def test_b2b_b3b_misaligned_rows_raise(dev, rng):
                          v64, v64, w)
 
 
+@pytest.mark.parametrize("K,B,N", [(64, 2, 1024), (128, 2, 1024),
+                                   (16, 2, 1024), (4, 2, 1024),
+                                   (2, 2, 1024), (1, 2, 1024),
+                                   (192, 2, 768), (64, 4, 96)])
+def test_b3a_b3c_kernels_match_twins(dev, rng, K, B, N):
+    """B3a (sa_bwd_sweep1: counting-sorted q3 rows, TMA-staged tiles) and
+    B3c (sa_bwd_sweep3, tensor cores in 3xTF32) against their twins on the
+    same card tensors: A3, u3, A1 and u1 within 1e-4 of their max-abs, q3
+    at rtol 1e-5 / atol 1e-5 x scale, two calls bit-identical. The argmax
+    rows are skewed as on random points (most channels on a group's first
+    row) with dead ReLUs (idx == K) among them. K: one group in a tile
+    (64), groups spanning tiles (128, 192), several groups per tile (16, 4,
+    2, 1). N = 96 puts tiles across two clouds of channel-major x (the
+    unstaged x path of B3c)."""
+    from facl_tpu_torch.ops import sa_pair as SP
+
+    def acc(k, t):
+        assert float((k - t).abs().max()) <= 1e-4 * float(t.abs().max())
+
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    (w1, b1, _, _), (w2, b2, _, _), (w3, _, _, _) = \
+        [[t(a) for a in layer] for layer in _layers(rng)]
+    x3 = t(rng.normal(size=(B, 4, N)))
+    R, P = B * N, B * N // K
+    vec = lambda n, s=1.0: t(s * rng.normal(size=(n,)))
+    mul1, shift1, mul2, shift2 = vec(64, 2), vec(64), vec(64, 2), vec(64)
+    p2 = SP.sa_fwd_layer12_plain(x3, w1, b1, mul1, shift1, w2, b2)[0]
+    u = rng.random(size=(P, 256))
+    idx = np.where(u < 0.6, 0, np.where(u < 0.7, K,
+                                        rng.integers(0, K, size=(P, 256))))
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    args = (p2, mul2, shift2, vec(P * 256).view(P, 256), idx, vec(256),
+            w3, K)
+    k, tw = SP.sa_bwd_sweep1(*args), SP.sa_bwd_sweep1_plain(*args)
+    acc(k[0], tw[0])
+    acc(k[1], tw[1])
+    torch.testing.assert_close(k[2], tw[2], rtol=1e-5,
+                               atol=1e-5 * float(tw[2].abs().max()))
+    assert all(torch.equal(a, b) for a, b in zip(k, SP.sa_bwd_sweep1(*args)))
+    args = (x3, w1, b1, mul1, shift1, vec(R * 64, 0.1).view(R, 64),
+            t(0.01 * rng.normal(size=(64, 64))), vec(64, 0.1))
+    k, tw = SP.sa_bwd_sweep3(*args), SP.sa_bwd_sweep3_plain(*args)
+    acc(k[0], tw[0])
+    acc(k[1], tw[1])
+    assert all(torch.equal(a, b) for a, b in zip(k, SP.sa_bwd_sweep3(*args)))
+
+
+def test_b3a_b3c_bad_inputs_raise(dev):
+    """B3a takes a mul2|shift2 vector of 2 x 64 float32 values and, like
+    B3c, rows staged by 16-byte TMA copies: anything else raises
+    ValueError before a launch; there is no fallback."""
+    from facl_tpu_torch.ops import sa_pair as SP
+    R, K = 256, 64
+    v64 = torch.ones(64, device=dev)
+    p2 = torch.zeros(R, 64, device=dev)
+    dp = torch.zeros(R // K, 256, device=dev)
+    idx = torch.zeros(R // K, 256, dtype=torch.int32, device=dev)
+    g3, w3 = torch.ones(256, device=dev), torch.zeros(64, 256, device=dev)
+    for mul2, shift2 in ((torch.ones(63, device=dev), v64),
+                         (v64.double(), v64.double())):
+        with pytest.raises(ValueError, match="mul2|shift2"):
+            SP.sa_bwd_sweep1(p2, mul2, shift2, dp, idx, g3, w3, K)
+    off = torch.zeros(R * 64 + 1, device=dev)[1:].view(R, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        SP.sa_bwd_sweep1(off, v64, v64, dp, idx, g3, w3, K)
+    x3 = torch.zeros(1, 4, R, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        SP.sa_bwd_sweep3(x3, torch.zeros(4, 64, device=dev), v64, v64, v64,
+                         off, torch.zeros(64, 64, device=dev), v64)
+
+
+@pytest.mark.parametrize("impl", ["pair", "pair3", "hybrid2", "hybrid"])
+def test_sweep_impls_at_other_widths_raise(dev, impl):
+    """The B2-B8 sweeps take SA widths TRUNK only: a stage of other widths
+    that names one of their impls raises ValueError naming TRUNK before
+    any launch; the same stage runs its twins on CPU tensors."""
+    from facl_tpu_torch.models.sa_stage import SetAbstractionStage
+    from facl_tpu_torch.ops import sa_bwd, sa_fwd, sa_pair
+    st = SetAbstractionStage(4, (8, 8, 16), impl=impl).train()
+    x = torch.randn(2, 4, 4, 8, generator=torch.Generator().manual_seed(0))
+    assert st(x).shape == (2, 4, 16)
+    kernels = [k for m in (sa_bwd, sa_fwd, sa_pair) for k in m.KERNELS]
+    before = [k.launches for k in kernels]
+    with pytest.raises(ValueError, match="TRUNK"):
+        st.to(dev)(x.to(dev))
+    assert [k.launches for k in kernels] == before
+
+
 def test_select_knn_ball_bit_equal(dev, rng):
     """B4 against its twin and against B1's indices."""
     from facl_tpu_torch.ops.select import select_gather, select_knn_ball, \

@@ -17,6 +17,7 @@ import torch
 
 from facl_tpu.config import ModelConfig as JaxModelConfig
 from facl_tpu.models import PointNetPlus as JaxPointNetPlus
+from facl_tpu.models.pointnet import resolve_model_config as jax_resolve
 from facl_tpu.ops.grouping import group_points as jax_group_points
 from facl_tpu_torch.config import ModelConfig
 from facl_tpu_torch.convert import from_jax
@@ -42,7 +43,8 @@ def built(rng):
     jmodel = JaxPointNetPlus(JaxModelConfig(sa_impl="reference",
                                             channels_first=False, **KW))
     variables = jmodel.init(jax.random.PRNGKey(0), neigh, cent, train=False)
-    tmodel = PointNetPlus(resolve_model_config(ModelConfig(**KW)))
+    tmodel = PointNetPlus(resolve_model_config(ModelConfig(sa_impl="pair3",
+                                                           **KW)))
     tmodel.load_state_dict(from_jax(variables["params"],
                                     variables["batch_stats"]))
     tneigh = torch.from_numpy(np.array(neigh)).permute(0, 3, 1, 2)
@@ -95,3 +97,31 @@ def test_fine_variant_grouping():
     model, g = resolve_model(cfg, torch.Generator().manual_seed(0))
     assert (g.num_centroids, g.knn_k) == (32, 128)
     assert model.cfg.sa_impl == "pair3" and model.cfg.channels_first
+
+
+def test_auto_at_small_widths_matches_jax_auto(rng):
+    """``sa_impl="auto"`` at widths the sweep kernels do not take resolves
+    to "reference" (channels-last) in the port, as the JAX package's
+    "auto" does off the TPU: same weights, same train forward and running
+    statistics."""
+    G, B, S, K = 3, 2, 8, 8
+    pts = jnp.asarray(rng.normal(size=(G * B, 48, 4)).astype(np.float32))
+    neigh, cent = jax_group_points(pts, S, K, radius_sq=10.0)
+    jcfg = jax_resolve(JaxModelConfig(sa_impl="auto", **KW))
+    assert (jcfg.sa_impl, jcfg.channels_first) == ("reference", False)
+    jmodel = JaxPointNetPlus(jcfg)
+    variables = jmodel.init(jax.random.PRNGKey(1), neigh, cent, train=False)
+    tmodel = PointNetPlus(ModelConfig(**KW))
+    assert (tmodel.cfg.sa_impl, tmodel.cfg.channels_first) == \
+        ("reference", False)
+    tmodel.load_state_dict(from_jax(variables["params"],
+                                    variables["batch_stats"]))
+    j_out, mutated = jmodel.apply(variables, neigh, cent, train=True,
+                                  mutable=["batch_stats"])
+    t_out = tmodel.train()(torch.from_numpy(np.array(neigh)),
+                           torch.from_numpy(np.array(cent)))
+    _assert_outputs(t_out, j_out)
+    buffers = dict(tmodel.named_buffers())
+    for name, j in _leaves(mutated["batch_stats"]):
+        np.testing.assert_allclose(buffers[name].numpy(), j, rtol=1e-4,
+                                   atol=1e-5, err_msg=name)

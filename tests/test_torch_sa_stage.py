@@ -119,6 +119,25 @@ def test_resolve_model_config_impls():
         resolve_model_config(dataclasses.replace(cfg, sa_impl="nope"))
 
 
+@pytest.mark.parametrize("widths,in_features,impl,cf", [
+    ((64, 64, 256), 4, "pair3", True),
+    ((64, 64, 256), 7, "pair3", True),
+    ((8, 8, 16), 4, "reference", False),
+    ((16, 16, 32), 4, "reference", False),
+    ((64, 64, 256), 8, "reference", False),
+    ((64, 64, 128), 4, "reference", False),
+])
+def test_resolve_auto_by_widths(widths, in_features, impl, cf):
+    """``auto`` is pair3 only where the sweep kernels take the stage (SA
+    widths TRUNK, at most 7 input channels), else the JAX package's
+    off-TPU choice, reference; an explicit impl is kept at any width."""
+    cfg = ModelConfig(sa_widths=widths, in_features=in_features)
+    r = resolve_model_config(cfg)
+    assert (r.sa_impl, r.channels_first) == (impl, cf)
+    r = resolve_model_config(dataclasses.replace(cfg, sa_impl="pair3"))
+    assert (r.sa_impl, r.channels_first) == ("pair3", True)
+
+
 @pytest.mark.parametrize("cf", [False, True])
 @pytest.mark.parametrize("input_grad", [False, True])
 def test_pallas_stage_matches_jax_reference(rng, cf, input_grad):
