@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Where the redesigned SA sweeps B2b (sa_fwd_gram_pool), B3a
-(sa_bwd_sweep1), B3b (sa_bwd_sweep2) and B3c (sa_bwd_sweep3) spend their
-time on the card.
+"""Where the redesigned kernels B1 (select_gather), B2a
+(sa_fwd_layer12), B2b (sa_fwd_gram_pool), B3a (sa_bwd_sweep1), B3b
+(sa_bwd_sweep2) and B3c (sa_bwd_sweep3) spend their time on the card.
 
     python3 chip_ablate.py                  # one CUDA device, nvcc
     python3 chip_ablate.py sweep1 sweep3    # those kernels' variants only
+                                            # (select, layer12, gram_pool,
+                                            # sweep1, sweep2, sweep3)
+    python3 chip_ablate.py precision        # B2a's arithmetic variants:
+                                            # precision against float64
 
 Each kernel is rebuilt from facl_tpu_torch/ops/csrc/sa_pair.cu with one
 part cut out (the pool, the Gram, a product, the CUDA-core row passes;
@@ -12,7 +16,11 @@ B3a's A3, its q3 rows, its row bins), and every variant is timed by
 chip_smoke.device_ms on the main path's shapes (640 clouds x 4,096 rows,
 random data; B3a's argmax rows skewed as chip_smoke.py reads them on
 the main path: 47% of a group's channels on its first row, 37% dead, the
-rest spread), twice, in turns. A
+rest spread), twice, in turns. B2a (sa_fwd_layer12) is cut the same way
+in sa_pair.cu (its product, its h1 pass, its p2 store), and B1
+(select_gather, with idx) in select.cu (the selection, the gather, the
+idx store), timed on chip_smoke.py's body-like slab clouds and on randn
+clouds (640 x 512 points, S = K = 64). A
 variant's outputs are wrong by design; only its time is read. The full
 kernel's time less a variant's is what the part costs where it overlaps
 nothing else. Exits nonzero without a card or if a variant does not
@@ -49,8 +57,59 @@ S3_NOA1 = ("      for (int mt = 0; mt < 2; ++mt) {\n        float d[4];",
            "c[1][1] + c[2][2];\n      for (int mt = 0; mt < 0; ++mt) {\n"
            "        float d[4];")
 S3_NOH1 = ("    h1_rows(X, C0, W1s, v, hh, hl, m1, gt, S3_GT);\n", "")
+L12_MMA = ("          mma6(d, a, frag_b3_paired(Wp, b_stride(CW), 8 * nj, kb, "
+           "lane));")
+L12_NOPROD = (L12_MMA, "          d[0] = __uint_as_float(a.v[0][nj & 3]);")
+L12_NOH1 = ("        h1_pair(xa, xb, C0, W1s, v, col, ha, hb);",
+            "        ha = make_float2(xa[0], xa[0] + col);\n"
+            "        hb = make_float2(xb[0], xb[0] + col);")
+# B2a's product in 3xTF32 (its two leading pieces), as the sweeps B2b-B3c
+# run theirs: rounded per k step as here, or accumulated in the tensor
+# cores across k steps.
+L12_3X = ("mma3({acc}, FragA{{{{Split{{a.v[0][0], a.v[1][0]}}, "
+          "Split{{a.v[0][1], a.v[1][1]}}, Split{{a.v[0][2], a.v[1][2]}}, "
+          "Split{{a.v[0][3], a.v[1][3]}}}}}}, frag_b_paired(SplitBuf{{Wp[0], "
+          "Wp[1]}}, b_stride(CW), 8 * nj, kb, lane));")
+L12_STEP = ("          float d[4];\n          zero4(d);\n" + L12_MMA + "\n"
+            "#pragma unroll\n          for (int r = 0; r < 4; ++r) "
+            "c[nj][r] = __fadd_rn(c[nj][r], d[r]);")
+#: --precision: B2a's arithmetic variants (p2 against float64, the layer-2
+#: ReLU decisions it moves, the pair3 SA chain against float64).
+PRECISION = {
+    "layer12 (6xTF32)": [],
+    "layer12 in 3xTF32, rounded per k step": [
+        (L12_MMA, "          " + L12_3X.format(acc="d"))],
+    "layer12 in 3xTF32, accumulated in the tensor cores": [
+        (L12_STEP, "          " + L12_3X.format(acc="c[nj]"))],
+}
+L12_NOSTORE = ("        *reinterpret_cast<float2*>(out + 8 * nj) = u;\n"
+               "        *reinterpret_cast<float2*>(out + 8 * CW + 8 * nj) = "
+               "w;\n", "")
+SEL_NOSELECT = ("      select_kth(w, K, __float_as_uint(radius_sq), hist, "
+                "lane, t, take,\n                 ties);",
+                "      t = 0u;\n      take = K;\n      ties = -1;")
+SEL_NOGATHER = ("      if (!kGather) continue;", "      if (true) continue;")
+SEL_NOIDX = ("      if (idx_out) idx_out[row * K + q] = i;\n", "")
 #: variant -> (kernel, [(text, replacement)]) on that kernel's source.
 VARIANTS = {
+    "layer12": ("l12", []),
+    "layer12 without h1 W2": ("l12", [L12_NOPROD]),
+    "layer12 without h1_rows": ("l12", [L12_NOH1]),
+    "layer12 without the p2 store": ("l12", [L12_NOSTORE]),
+    "layer12 loads only": ("l12", [L12_NOPROD, L12_NOH1, L12_NOSTORE]),
+    "layer12 with its k loop rolled": ("l12", [
+        ("#pragma unroll 2\n      for (int kb = 0; kb < 8; ++kb) {",
+         "#pragma unroll 1\n      for (int kb = 0; kb < 8; ++kb) {")]),
+    "select": ("sel", []),
+    "select without the selection": ("sel", [SEL_NOSELECT]),
+    "select without the gather": ("sel", [SEL_NOGATHER]),
+    "select without the idx store": ("sel", [SEL_NOIDX]),
+    "select with 8 centroids a block": ("sel", [
+        ("constexpr int kCPB = 16;", "constexpr int kCPB = 8;")]),
+    "select with 32 centroids a block": ("sel", [
+        ("constexpr int kCPB = 16;", "constexpr int kCPB = 32;")]),
+    "select with distances and compaction only": (
+        "sel", [SEL_NOSELECT, SEL_NOGATHER, SEL_NOIDX]),
     "gram_pool": ("gp", []),
     "gram_pool without the pool": ("gp", [NOPOOL]),
     "gram_pool without the Gram": ("gp", [
@@ -86,15 +145,29 @@ VARIANTS = {
 }
 
 
+#: kernel -> (source file, launcher's library and name).
+KERNEL_SRC = {"l12": ("sa_pair", "facl_sa_fwd_layer12"),
+              "gp": ("sa_pair", "facl_sa_fwd_gram_pool"),
+              "s1": ("sa_pair", "facl_sa_bwd_sweep1"),
+              "s2": ("sa_pair", "facl_sa_bwd_sweep2"),
+              "s3": ("sa_pair", "facl_sa_bwd_sweep3"),
+              "sel": ("select", "facl_select_gather")}
+
+
 def variant_source(src: str, kernel: str, pairs) -> str:
-    lo, hi = {"gp": (src.index("fwd_gram_pool_kernel(const float*"),
-                     src.index("// B3 sweep 1:")),
-              "s1": (src.index("bwd_sweep1_kernel(const float*"),
-                     src.index("// B3 sweep 2 (slim)")),
-              "s2": (src.index("bwd_sweep2_kernel(const float*"),
-                     src.index("// B3 sweep 3:")),
-              "s3": (src.index("bwd_sweep3_kernel(const float*"),
-                     src.index("}  // namespace"))}[kernel]
+    if kernel == "sel":
+        lo, hi = 0, len(src)
+    else:
+        lo, hi = {"l12": (src.index("fwd_layer12_kernel(const float*"),
+                          src.index("// B2 sweep B:")),
+                  "gp": (src.index("fwd_gram_pool_kernel(const float*"),
+                         src.index("// B3 sweep 1:")),
+                  "s1": (src.index("bwd_sweep1_kernel(const float*"),
+                         src.index("// B3 sweep 2 (slim)")),
+                  "s2": (src.index("bwd_sweep2_kernel(const float*"),
+                         src.index("// B3 sweep 3:")),
+                  "s3": (src.index("bwd_sweep3_kernel(const float*"),
+                         src.index("}  // namespace"))}[kernel]
     part = src[lo:hi]
     for old, new in pairs:
         if old not in part:
@@ -165,6 +238,80 @@ def clocked_source(src: str, kernel: str) -> str:
     return src[:lo] + body + tail + src[end:]
 
 
+def precision(cs, libs) -> dict:
+    """B2a's arithmetic variants on chip_smoke.py's main-path tensors (the
+    model's weights, randn clouds grouped at S = K = 64 and at the fine
+    variant's S = 32, K = 128): p2 against float64 (root mean square
+    error on the padded rows, the centroid repeated, and on the others),
+    the layer-2 ReLU decisions (p2 mul2 + shift2 > 0, float64 statistics)
+    that the variant's p2 flips, each variant's device time, and the pair3
+    SA chain against float64 (chip_smoke.sa_chain_vs_f64; a miss is
+    printed here, not fatal)."""
+    from facl_tpu_torch.ops import _build
+    from facl_tpu_torch.ops import sa_pair as SP
+    from facl_tpu_torch.ops import select as SEL
+    from facl_tpu_torch.ops.sa_bwd import _fold_affine
+    from facl_tpu_torch.ops.sa_fwd import _finalize
+    from facl_tpu_torch.train import Trainer
+    dev = "cuda"
+    model = Trainer(cs._cfg(64), 100, device=dev).init_state(cs.SEED).model
+    layers = [SP.SALayerParams(*(t.detach() for t in lp))
+              for lp in model.sa_stage.layers()]
+    g = torch.Generator().manual_seed(cs.SEED)
+    flat = torch.randn(10, 64, 512, 4, generator=g).to(dev).transpose(
+        0, 1).reshape(640, 512, 4).contiguous()
+    key = ("sa_pair", "facl_sa_fwd_layer12")
+    out = {}
+    with cs.swapped([(cs, "check", lambda ok, msg: ok or print(
+            f"  miss: {msg}", flush=True))]):
+        for S, K in ((64, 64), (32, 128)):
+            grouped, _ = SEL.select_gather(flat, S, K, 0.06)
+            grouped[:, :3] -= flat[:, :S, :3].transpose(1, 2)[..., None]
+            x3 = grouped.reshape(640, 4, S * K)
+            R = x3.shape[0] * x3.shape[2]
+            rows = x3.transpose(1, 2).reshape(-1, K, 4)
+            pad = (rows == rows[:, -1:, :]).all(-1).reshape(-1)
+            m1, v1 = SP._moments_from_gram(
+                torch.einsum("bcn,bdn->cd", x3, x3), x3.sum((0, 2)),
+                layers[0].kernel, layers[0].bias, R)
+            mul1, shift1 = _fold_affine(layers[0], m1, v1, 1e-5)
+            a12 = (x3, layers[0].kernel, layers[0].bias, mul1, shift1,
+                   layers[1].kernel, layers[1].bias)
+            p64, s64, ss64 = SP.sa_fwd_layer12_plain(
+                *(t.double() for t in a12))
+            mul2, shift2 = _fold_affine(
+                SP.SALayerParams(*(t.double() for t in layers[1])),
+                *_finalize(s64, ss64, R), 1e-5)
+            z64 = p64 * mul2 + shift2
+            dp = torch.randn(640 * S, 256, generator=g).to(dev)
+            SP.sa_fwd_layer12(*a12)
+            ours = _build._FUNCTIONS[key]
+            for name in PRECISION:
+                f = getattr(libs[name], key[1])
+                f.argtypes, f.restype = ours[1].argtypes, ctypes.c_int
+                _build._FUNCTIONS[key] = (libs[name], f)
+                try:
+                    ms = cs.device_ms(lambda: SP.sa_fwd_layer12(*a12))[0]
+                    e = SP.sa_fwd_layer12(*a12)[0].double() - p64
+                    flips = ((e + p64) * mul2 + shift2 > 0) != (z64 > 0)
+                    rms = [float(v.pow(2).mean().sqrt())
+                           for v in (e[pad], e[~pad])]
+                    near = float(z64[flips].abs().min()) if flips.any() \
+                        else 0.0
+                    print(f"{name} K={K}: {ms:.4f} ms; p2 vs float64 rms "
+                          f"{rms[0]:.3e} on padded rows, {rms[1]:.3e} on "
+                          f"the others, max {float(e.abs().max()):.3e}; "
+                          f"layer-2 ReLU decisions flipped "
+                          f"{int(flips.sum())} (the nearest flipped |z| "
+                          f"{near:.3e})", flush=True)
+                    wk, wt = cs.sa_chain_vs_f64(x3, layers, dp, K, "pair3")
+                finally:
+                    _build._FUNCTIONS[key] = ours
+                out[f"{name} K={K}"] = dict(ms=ms, flips=int(flips.sum()),
+                                            chain=wk, twins=wt)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_ablate: needs a CUDA device")
@@ -173,18 +320,26 @@ def main() -> None:
     import facl_tpu_torch  # noqa: F401  (sets TF32 off)
     from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_pair as SP
+    from facl_tpu_torch.ops import select as SEL
 
-    src = open(os.path.join(CSRC, "sa_pair.cu")).read()
+    src = {f: open(os.path.join(CSRC, f + ".cu")).read()
+           for f in ("sa_pair", "select")}
     out_dir = _build.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     only = tuple(sys.argv[1:])           # kernel names: every variant of
-    sources = {name: variant_source(src, kernel, pairs)   # those only
-               for name, (kernel, pairs) in VARIANTS.items()
-               if not only or name.split()[0] in only}
+    if only == ("precision",):
+        sources = {name: variant_source(src["sa_pair"], "l12", pairs)
+                   for name, pairs in PRECISION.items()}
+    else:
+        sources = {name: variant_source(src[KERNEL_SRC[kernel][0]], kernel,
+                                        pairs)     # those only
+                   for name, (kernel, pairs) in VARIANTS.items()
+                   if not only or name.split()[0] in only}
     for kernel in ("s1", "s3"):
         if not only or {"s1": "sweep1", "s3": "sweep3"}[kernel] in only:
-            sources[f"{kernel} clocks"] = clocked_source(src, kernel)
+            sources[f"{kernel} clocks"] = clocked_source(src["sa_pair"],
+                                                         kernel)
     procs = {}
     for i, (name, text) in enumerate(sources.items()):
         cu = out_dir / f"v{i}.cu"
@@ -200,6 +355,10 @@ def main() -> None:
         if proc.returncode:
             raise SystemExit(f"chip_ablate: {name} did not build:\n{log}")
         libs[name] = ctypes.CDLL(str(so))
+    if only == ("precision",):
+        print(json.dumps({"precision": precision(cs, libs),
+                          "gpu": cs.gpu_name_power()}))
+        return
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
@@ -211,6 +370,7 @@ def main() -> None:
     x3 = r(Bc, C0, N)
     w1, b1 = r(C0, 64, sc=0.5), r(64, sc=0.1)
     w2, w3, b3 = r(64, 64, sc=0.125), r(64, 256, sc=0.125), r(256, sc=0.1)
+    b2 = b3[:64].contiguous()
     mul1, shift1, mul2, shift2 = r(64), r(64), r(64, sc=0.3), r(64)
     p2, q3 = r(R, 64), r(R, 64, sc=0.1)
     M3, rc3, gi2 = r(64, 64, sc=0.01), r(64, sc=0.1), r(64)
@@ -218,7 +378,18 @@ def main() -> None:
     u = torch.rand(P, 256, device=dev, generator=g)
     idx = torch.where(u < 0.47, 0, torch.where(u < 0.84, K, torch.randint(
         0, K, (P, 256), device=dev, generator=g))).to(torch.int32)
-    calls = {"gp": (SP.sa_fwd_gram_pool, (p2, mul2, shift2, w3, b3, K),
+    # B1 on chip_smoke.py's body-like slab clouds (a selection at almost
+    # every centroid) and on randn clouds (none): 640 x 512 points.
+    gs = torch.Generator().manual_seed(cs.SEED + 6)
+    slab = cs.slab_clouds(Bc, 512, 4, gs).to(dev)
+    rnd = torch.randn(Bc, 512, 4, generator=gs).to(dev)
+    calls = {"l12": (SP.sa_fwd_layer12, (x3, w1, b1, mul1, shift1, w2, b2),
+                     "facl_sa_fwd_layer12"),
+             "sel": (SEL.select_gather, (slab, 64, K, 0.06, True),
+                     "facl_select_gather"),
+             "sel randn": (SEL.select_gather, (rnd, 64, K, 0.06, True),
+                           "facl_select_gather"),
+             "gp": (SP.sa_fwd_gram_pool, (p2, mul2, shift2, w3, b3, K),
                     "facl_sa_fwd_gram_pool"),
              "s1": (SP.sa_bwd_sweep1, (p2, mul2, shift2, r(P, 256), idx,
                                        r(256), w3, K), "facl_sa_bwd_sweep1"),
@@ -231,9 +402,10 @@ def main() -> None:
     for fn, args, _ in calls.values():
         fn(*args)                         # resolves this tree's launchers
 
-    def timed(name):
-        fn, args, launcher = calls[VARIANTS[name][0]]
-        key = ("sa_pair", launcher)
+    def timed(name, call=None):
+        kernel = VARIANTS[name][0]
+        fn, args, launcher = calls[call or kernel]
+        key = (KERNEL_SRC[kernel][0], launcher)
         ours = _build._FUNCTIONS[key]
         vfn = getattr(libs[name], launcher)
         vfn.argtypes, vfn.restype = ours[1].argtypes, ctypes.c_int
@@ -263,10 +435,14 @@ def main() -> None:
         tiles = R / 64 / (1 if kernel == "s1" else 2)   # per thread 0
         return {p: float(flat[k]) / tiles for k, p in enumerate(phases)}
 
-    times = {name: [] for name in sources if not name.endswith("clocks")}
+    runs = [(name, None) for name in sources if not name.endswith("clocks")]
+    runs += [(f"{name} [randn]", name) for name, _ in runs
+             if VARIANTS[name][0] == "sel"]
+    times = {name: [] for name, _ in runs}
     for _ in range(2):
-        for name in times:
-            times[name].append(timed(name))
+        for name, base in runs:
+            times[name].append(timed(base or name,
+                                     "sel randn" if base else None))
     cyc = {k: clocks(k) for k in ("s1", "s3") if f"{k} clocks" in libs}
     gpu = cs.gpu_name_power()
     for name, ms in times.items():

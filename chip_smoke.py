@@ -5,10 +5,11 @@ every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py             # needs one CUDA device
     python3 chip_smoke.py --profile   # + a torch.profiler breakdown of
                                       #   one main-path step
-    python3 chip_smoke.py --parent DIR  # + B2b, B3a, B3b and B3c of the
-                                        #   tree in DIR (a git archive of
-                                        #   another commit) timed against
-                                        #   this tree's, in turns
+    python3 chip_smoke.py --parent DIR  # + B1, B2a, B2b, B3a, B3b and
+                                        #   B3c of the tree in DIR (a git
+                                        #   archive of another commit)
+                                        #   timed against this tree's, in
+                                        #   turns
 
 Phases (any failure exits nonzero, before the final line):
   1. build   every kernel from facl_tpu_torch/ops/csrc (one nvcc per
@@ -23,16 +24,23 @@ Phases (any failure exits nonzero, before the final line):
              to 1e-4 of their max-abs, db near zero); row outputs, pooled
              values and B9's dx at rtol 1e-5 / atol 1e-5 x scale; pool
              indices equal except where the twin's own values tie.
-             B5a and B5b again on 0.8-cube clouds (spread rows).
+             B5a and B5b again on 0.8-cube clouds (spread rows); B1
+             and B4 bit-equal also on those clouds, on body-like slab
+             clouds (B1's selection runs at most centroids there; never
+             on randn clouds) and at the fine variant's S=32, K=128, each
+             case with its share of centroids holding more than K points
+             in their ball; B1 timed with idx on the randn, cube and slab
+             clouds.
              Times (device_ms): CUDA events around 20 back-to-back calls
              queued behind a spin of the card, so the device time excludes
              the host's; the host's time per call beside it; beside B5a
-             and B5b one library call (torch.gather, index_add_). B2b, B3b
-             and B3c (tensor cores, 3xTF32) print two bounds: the
-             tensor-core one (bound_ms) and the f32 CUDA-core one
-             (bound_f32_ms). B2b and B3a-B3c are run to run
-             bit-identical, and are checked again on the fine variant's
-             K = 128. Then
+             and B5b one library call (torch.gather, index_add_). B2a
+             (tensor cores, 6xTF32), B2b, B3b and B3c (3xTF32) print two
+             bounds:
+             the tensor-core one (bound_ms) and the f32 CUDA-core one
+             (bound_f32_ms). B2a, B2b and B3a-B3c are run to run
+             bit-identical; B2b and B3a-B3c are checked again on the fine
+             variant's K = 128. Then
              the whole SA stage (forward + backward) of each sa_impl with
              kernels (pair3, pair, hybrid2, hybrid, pallas) at K=64 and
              K=128 on the same inputs as kernels, twins and float64
@@ -154,13 +162,13 @@ def device_ms(fn, n: int = 20):
     return s.elapsed_time(e) / n, host * 1e6
 
 
-def bound(nbytes: float, ops: float, tc_ops: float = 0.0):
+def bound(nbytes: float, ops: float, tc_ops: float = 0.0, passes: int = 3):
     """(ms, "bytes" or "operations"): the larger of bytes over the memory
     rate and the operations over their peak rates — ``ops`` f32 on CUDA
     cores, ``tc_ops`` (f32-equivalent product flops) on tensor cores in
-    3xTF32, three TF32 passes each."""
+    ``passes`` TF32 passes each (3xTF32, or B2a's 6xTF32)."""
     tb = nbytes / PEAK_BYTES * 1e3
-    to = (ops / PEAK_F32 + 3 * tc_ops / PEAK_TF32) * 1e3
+    to = (ops / PEAK_F32 + passes * tc_ops / PEAK_TF32) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -474,6 +482,24 @@ def two_sweep_rows(x3, layers, dpooled, K):
     return rows
 
 
+def slab_clouds(B: int, N: int, C: int, g) -> torch.Tensor:
+    """(B, N, C) body-like clouds: xyz uniform in +-0.2 x +-0.5 x +-0.05
+    (a depth crop normalised by its y extent, as facl_tpu's
+    normalize_xyz does), the other channels randn. At r^2 = 0.06 almost
+    every centroid holds more than 64 points in its ball, so B1's
+    selection runs there; on randn clouds it never does."""
+    xyz = (torch.rand(B, N, 3, generator=g) * 2 - 1) * torch.tensor(
+        [0.2, 0.5, 0.05])
+    return torch.cat([xyz, torch.randn(B, N, C - 3, generator=g)], 2)
+
+
+def over_k_share(pts, S: int, K: int, r2: float) -> float:
+    """The share of centroids with more than K points in their ball."""
+    from facl_tpu_torch.ops.select import sqdist_to_centroids
+    return float(((sqdist_to_centroids(pts, S) <= r2).sum(-1) > K)
+                 .float().mean())
+
+
 SRC_SEL = "facl_tpu_torch/ops/csrc/select.cu"
 SRC_GA = "facl_tpu_torch/ops/csrc/gather.cu"
 SRC9 = "facl_tpu_torch/ops/csrc/sa_fused.cu"
@@ -747,9 +773,23 @@ def phase_kernels(dev, model, points):
         torch.cuda.synchronize()
         check(torch.equal(ki, ti), f"B1 {name}: idx differ")
         check(torch.equal(kg, tg), f"B1 {name}: grouped differ")
+        check(torch.equal(SEL.select_knn_ball(pts, S, K, radius), ti),
+              f"B4 {name}: idx differ from the twin")
         print(f"B1 select_gather [{name}] {tuple(pts.shape)} S={S} K={K}: "
-              "bit-equal", flush=True)
+              f"bit-equal, B4 too; {over_k_share(pts, S, K, radius):.3f} of "
+              f"the centroids hold more than K={K} points in their ball",
+              flush=True)
         return kg
+
+    def b1_row(pts):
+        """B1 as every path calls it (_SelectGather: with idx)."""
+        return dict(name="select_gather", args=(pts, S, K, r2, True),
+                    err=0.0, nbytes=Bc * N * C * 4 + Bc * C * S * K * 4
+                    + Bc * S * K * 4, ops=Bc * S * N * 12,
+                    fn=SEL.select_gather,
+                    plain=lambda p, s, k, r, _: SEL.select_gather_plain(
+                        p, s, k, r), source=SRC_SEL,
+                    replaces="facl_tpu/ops/pallas/select.py:302")
 
     b1_case("random", flat, r2)
     g = torch.Generator(device="cpu").manual_seed(SEED + 1)
@@ -758,11 +798,7 @@ def phase_kernels(dev, model, points):
     far = torch.randn(flat.shape, generator=g) * 10.0
     b1_case("all-out-of-radius", far.to(dev), 1e-6)
     Bc = flat.shape[0]
-    rows.append(dict(name="select_gather", args=(flat, S, K, r2), err=0.0,
-                     nbytes=Bc * N * C * 4 + Bc * C * S * K * 4,
-                     ops=Bc * S * N * 12, fn=SEL.select_gather,
-                     plain=SEL.select_gather_plain, source=SRC_SEL,
-                     replaces="facl_tpu/ops/pallas/select.py:302"))
+    rows.append(b1_row(flat))
     rows += grouping_rows(flat, S, K, r2, g)
     # B5 again on spread rows: phase_input_grad's clouds (xyz uniform in a
     # 0.8 cube) at the main path's Bc, from a generator of their own so
@@ -772,6 +808,14 @@ def phase_kernels(dev, model, points):
                       torch.randn(Bc, N, 1, generator=gc)], 2).to(dev)
     cube_rows = b5_rows(cube, SEL.select_knn_ball(cube, S, K, r2).reshape(
         Bc, S * K), gc, "0.8 cube")
+    # B1 on the same cube and on body-like slab clouds (their own
+    # generator), where the selection runs at most centroids.
+    b1_case("0.8 cube", cube, r2)
+    cube_rows.append(b1_row(cube))
+    slab = slab_clouds(Bc, N, C, torch.Generator().manual_seed(SEED + 6)
+                       ).to(dev)
+    b1_case("slab", slab, r2)
+    slab_rows = [b1_row(slab)]
 
     # Real SA inputs: the grouped clouds and the model's SA weights.
     grouped, _ = SEL.select_gather(flat, S, K, r2)
@@ -817,9 +861,15 @@ def phase_kernels(dev, model, points):
         kp2, ks, kss = SP.sa_fwd_layer12(*a12)
         e = max(row_err(kp2, p2, "layer12 p2"), acc_err(ks, s2, "layer12 s"),
                 acc_err(kss, ss2, "layer12 ss"))
-        ops = R * (2 * C0 * C1 + 4 * C1 + 2 * C1 * C2 + 4 * C2)
+        check(all(torch.equal(a, b) for a, b in
+                  zip((kp2, ks, kss), SP.sa_fwd_layer12(*a12))),
+              "layer12: two runs differ")
+        # h1, + b2 and the sums on CUDA cores; h1 W2 on tensor cores
+        # (6xTF32: six TF32 passes).
         rows.append(dict(name="sa_fwd_layer12", args=a12, err=e,
-                         nbytes=R * (C0 + C2) * 4, ops=ops,
+                         nbytes=R * (C0 + C2) * 4,
+                         ops=R * (2 * C0 * C1 + 4 * C1 + 4 * C2),
+                         tc_ops=R * 2 * C1 * C2, passes=6,
                          fn=SP.sa_fwd_layer12,
                          plain=SP.sa_fwd_layer12_plain,
                          replaces="facl_tpu/ops/pallas/sa_pair.py:634"))
@@ -925,12 +975,14 @@ def phase_kernels(dev, model, points):
             sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf,
                             Kf, impl)
 
-        for r in rows + cube_rows:
+        for r in rows + cube_rows + slab_rows:
             measure(r)
     for r in rows:
         print_row(r)
     for r in cube_rows:
         print_row(r, " [0.8 cube]")
+    for r in slab_rows:
+        print_row(r, " [slab]")
     return rows
 
 
@@ -943,7 +995,8 @@ def measure(r):
     lib = r.pop("library", None)
     r["library_ms"] = device_ms(lib)[0] if lib else None
     nbytes, ops, tc = r.pop("nbytes"), r.pop("ops"), r.pop("tc_ops", 0)
-    r["bound_ms"], r["bound_by"] = bound(nbytes, ops, tc)
+    r["passes"] = r.pop("passes", 3)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, ops, tc, r["passes"])
     if tc:
         r["bound_f32_ms"] = bound(nbytes, ops + tc)[0]
     if PARENT and fn.__name__ in PARENT_AB:
@@ -952,56 +1005,65 @@ def measure(r):
     r.setdefault("source", "facl_tpu_torch/ops/csrc/sa_pair.cu")
 
 
-#: --parent: the parent tree's sa_pair library, and the kernels whose
-#: launchers are timed against this tree's (wrapper -> (launcher name, the
-#: blocks per SM the parent's wrapper launches it with)).
+#: --parent: the parent tree's kernel libraries, and the kernels whose
+#: launchers are timed against this tree's (wrapper -> (library, launcher
+#: name, the blocks per SM the parent's wrapper launches it with; None
+#: for a launcher that takes no grid)).
 PARENT = {}
-PARENT_AB = {"sa_fwd_gram_pool": ("facl_sa_fwd_gram_pool", 1),
-             "sa_bwd_sweep1": ("facl_sa_bwd_sweep1", 2),
-             "sa_bwd_sweep2": ("facl_sa_bwd_sweep2", 1),
-             "sa_bwd_sweep3": ("facl_sa_bwd_sweep3", 2)}
+PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
+             "sa_fwd_layer12": ("sa_pair", "facl_sa_fwd_layer12", 2),
+             "sa_fwd_gram_pool": ("sa_pair", "facl_sa_fwd_gram_pool", 1),
+             "sa_bwd_sweep1": ("sa_pair", "facl_sa_bwd_sweep1", 2),
+             "sa_bwd_sweep2": ("sa_pair", "facl_sa_bwd_sweep2", 1),
+             "sa_bwd_sweep3": ("sa_pair", "facl_sa_bwd_sweep3", 2)}
+PARENT_LIBS = ("select", "sa_pair")
 
 
 def start_parent_build(root: str):
-    """Start nvcc on ``root``'s sa_pair.cu (a checkout of the parent
-    commit) with this tree's flags; returns the process and its output."""
+    """Start nvcc on ``root``'s select.cu and sa_pair.cu (a checkout of the
+    parent commit) with this tree's flags; returns {library: (process,
+    output)}."""
     from facl_tpu_torch.ops import _build
-    src = os.path.join(root, "facl_tpu_torch", "ops", "csrc", "sa_pair.cu")
-    check(os.path.exists(src), f"--parent: no {src}")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / "parent-sa_pair.so"
-    return subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                             str(out), src], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), out
+    started = {}
+    for name in PARENT_LIBS:
+        src = os.path.join(root, "facl_tpu_torch", "ops", "csrc",
+                           f"{name}.cu")
+        check(os.path.exists(src), f"--parent: no {src}")
+        out = _build.BUILD_DIR / f"parent-{name}.so"
+        started[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+    return started
 
 
 def load_parent(started) -> None:
     import ctypes
-    proc, out = started
-    log, _ = proc.communicate()
-    check(proc.returncode == 0, f"--parent: nvcc failed:\n{log}")
-    lib = ctypes.CDLL(str(out))
-    lib.facl_error_string.argtypes = [ctypes.c_int]
-    lib.facl_error_string.restype = ctypes.c_char_p
-    PARENT["lib"] = lib
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas parent sa_pair: {line.strip()}", flush=True)
+    for name, (proc, out) in started.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"--parent: nvcc failed:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        lib.facl_error_string.argtypes = [ctypes.c_int]
+        lib.facl_error_string.restype = ctypes.c_char_p
+        PARENT[name] = lib
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas parent {name}: {line.strip()}", flush=True)
 
 
 def parent_ab(fn, args):
     """Device ms of wrapper ``fn`` on ``args`` with the parent tree's
-    launcher (at the parent's grid for it) and with this tree's, in turns:
-    parent, this tree, this tree, parent. The launchers' C signatures are
-    the same in both trees."""
+    launcher (at the parent's grid for it, where it takes one) and with
+    this tree's, in turns: parent, this tree, this tree, parent. The
+    launchers' C signatures are the same in both trees."""
     import ctypes
     from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_pair as SP
-    launcher, parent_per_sm = PARENT_AB[fn.__name__]
-    key = ("sa_pair", launcher)
+    lib_name, launcher, parent_per_sm = PARENT_AB[fn.__name__]
+    key = (lib_name, launcher)
     ours = _build._FUNCTIONS[key]          # resolved by the timed calls
-    lib = PARENT["lib"]
-    pfn = getattr(lib, key[1])
+    lib = PARENT[lib_name]
+    pfn = getattr(lib, launcher)
     pfn.argtypes, pfn.restype = ours[1].argtypes, ctypes.c_int
 
     def parent_grid(t, R, per_sm=2):
@@ -1010,7 +1072,8 @@ def parent_ab(fn, args):
     def run_parent():
         _build._FUNCTIONS[key] = (lib, pfn)
         try:
-            with swapped([(SP, "grid", parent_grid)]):
+            with swapped([(SP, "grid", parent_grid)] if parent_per_sm
+                         else []):
                 return device_ms(lambda: fn(*args))[0]
         finally:
             _build._FUNCTIONS[key] = ours
@@ -1024,8 +1087,8 @@ def print_row(r, label=""):
     lib = "" if r["library_ms"] is None else \
         f", library {r['library_ms']:.4f} ms"
     tc = "" if "bound_f32_ms" not in r else \
-        f" with products on tensor cores in 3xTF32 (f32 CUDA-core bound " \
-        f"{r['bound_f32_ms']:.4f} ms)"
+        f" with products on tensor cores in {r['passes']}xTF32 (f32 " \
+        f"CUDA-core bound {r['bound_f32_ms']:.4f} ms)"
     print(f"kernel {r['name']}{label}: {r['ms']:.4f} ms on the device, "
           f"{r['host_us']:.1f} us on the host per call (twin "
           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
@@ -1546,9 +1609,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout of the parent commit: its sa_pair.cu "
-                         "is built and its B2b, B3a, B3b and B3c timed "
-                         "against this tree's in turns")
+                    help="a checkout of the parent commit: its select.cu "
+                         "and sa_pair.cu are built and its B1, B2a, B2b, "
+                         "B3a, B3b and B3c timed against this tree's in "
+                         "turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures the "

@@ -1,10 +1,12 @@
 // Tensor-core tile machinery of the redesigned SA sweeps (sa_pair.cu:
-// fwd_gram_pool, bwd_sweep2, bwd_sweep3; bwd_sweep1 uses the TMA staging).
+// fwd_layer12, fwd_gram_pool, bwd_sweep2, bwd_sweep3; bwd_sweep1 uses the
+// TMA staging).
 // Products run as mma.sync m16n8k8 TF32 in the 3xTF32 split, which keeps
-// f32 accuracy: each f32 operand a becomes hi = tf32(a) and lo = tf32(a -
-// hi), and a product sums lo.hi' + hi.lo' + hi.hi' in f32 (the dropped
-// lo.lo' term is ~2^-22 relative). Row tiles arrive by TMA bulk copies
-// into a ring of stages, one mbarrier each.
+// f32-level accuracy: each f32 operand a becomes hi = tf32(a) and lo =
+// tf32(a - hi), and a product sums lo.hi' + hi.lo' + hi.hi' in f32 (the
+// dropped lo.lo' term is ~2^-22 relative). fwd_layer12 uses 6xTF32
+// (below): exact operands, more accurate than f32. Row tiles arrive by
+// TMA bulk copies into a ring of stages, one mbarrier each.
 //
 // Layouts (floats):
 //  - Row tiles: (TR, LDT) row-major, LDT = 72. A row-major fragment reads
@@ -240,6 +242,77 @@ __device__ __forceinline__ FragB frag_b_paired(const SplitBuf& Bs, int ld,
   return b;
 }
 
+// -- 6xTF32: exact operands ------------------------------------------
+// An f32 value is exactly hi + mid + lo in TF32 (11 + 11 + at most 2
+// significant bits: a - hi and (a - hi) - mid are exact in f32). A product
+// keeps every term down to 2^-22 of a b (lo.hi', hi.lo', mid.mid', then
+// mid.hi', hi.mid', hi.hi'; the dropped ones are below 2^-33), so it is
+// more accurate than an f32 product, where 3xTF32 is off by up to 2^-21
+// (it drops mid.mid' and each operand's third piece). For outputs that
+// feed a ReLU decision made elsewhere (B2a's p2).
+struct Split3 {
+  uint32_t v[3];
+};
+
+__device__ __forceinline__ Split3 split3(float a) {
+  Split3 s;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(s.v[0]) : "f"(a));
+  const float r = __fsub_rn(a, __uint_as_float(s.v[0]));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(s.v[1]) : "f"(r));
+  s.v[2] = __float_as_uint(__fsub_rn(r, __uint_as_float(s.v[1])));
+  return s;
+}
+
+// A (16 x 8) and B (8 x 8) fragments in three pieces: v[piece][register].
+struct FragA3 {
+  uint32_t v[3][4];
+};
+struct FragB3 {
+  uint32_t v[3][2];
+};
+
+__device__ __forceinline__ void mma6(float c[4], const FragA3& a,
+                                     const FragB3& b) {
+  const int order[6][2] = {{2, 0}, {0, 2}, {1, 1}, {1, 0}, {0, 1}, {0, 0}};
+#pragma unroll
+  for (int q = 0; q < 6; ++q) {
+    const uint32_t* x = a.v[order[q][0]];
+    const uint32_t* y = b.v[order[q][1]];
+    mma_tf32(c, x[0], x[1], x[2], x[3], y[0], y[1]);
+  }
+}
+
+// Block: three paired layouts <- the pieces of B[k][n] = src[k * sk + n *
+// sn], k < 64, n < ncols (as load_b_split).
+__device__ __forceinline__ void load_b_split3(float* const p[3],
+                                              const float* src, int ncols,
+                                              int sk, int sn) {
+  const int ld = b_stride(ncols);
+  for (int e = threadIdx.x; e < CW * ncols; e += NTM) {
+    const int k = e / ncols, n = e % ncols;
+    const int i = (4 * (k >> 3) + ((k & 7) >> 1)) * ld + 2 * n + (k & 1);
+    const Split3 s = split3(src[k * sk + n * sn]);
+#pragma unroll
+    for (int q = 0; q < 3; ++q) p[q][i] = __uint_as_float(s.v[q]);
+  }
+}
+
+// The B fragment of n-tile n0, step kb from the three paired layouts.
+__device__ __forceinline__ FragB3 frag_b3_paired(const float* const p[3],
+                                                 int ld, int n0, int kb,
+                                                 int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int i = (4 * kb + t) * ld + 2 * (n0 + g);
+  FragB3 b;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const float2 u = ld2(p[q] + i);
+    b.v[q][0] = __float_as_uint(u.x);
+    b.v[q][1] = __float_as_uint(u.y);
+  }
+  return b;
+}
+
 __device__ __forceinline__ void copy_block(float* dst, const float* src,
                                            int n) {
   for (int i = threadIdx.x; i < n; i += NTM) dst[i] = src[i];
@@ -348,6 +421,33 @@ __device__ __forceinline__ void h1_rows(const float* xs, int C0,
         (h.x > 0.f ? 1u : 0u) | (h.y > 0.f ? 1u << 8 : 0u) |
         (h.z > 0.f ? 1u << 16 : 0u) | (h.w > 0.f ? 1u << 24 : 0u);
   }
+}
+
+// h1 of two rows (x values xa, xb) at columns col, col + 1, in registers:
+// ha for row a, hb for row b. vec1 = [b1 | mul1 | shift1]. The op chain is
+// h1_tile's (and h1_rows'), so the masks are the ones every sweep that
+// recomputes h1 gets.
+__device__ __forceinline__ void h1_pair(const float (&xa)[C0MAX - 1],
+                                        const float (&xb)[C0MAX - 1],
+                                        int C0, const float* W1s,
+                                        const float* vec1, int col,
+                                        float2& ha, float2& hb) {
+  float2 a = make_float2(0.f, 0.f), b = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < C0MAX - 1; ++k) {
+    if (k >= C0) break;
+    const float2 w = ld2(W1s + k * CW + col);
+    a.x = __fadd_rn(a.x, __fmul_rn(xa[k], w.x));
+    a.y = __fadd_rn(a.y, __fmul_rn(xa[k], w.y));
+    b.x = __fadd_rn(b.x, __fmul_rn(xb[k], w.x));
+    b.y = __fadd_rn(b.y, __fmul_rn(xb[k], w.y));
+  }
+  const float2 b1 = ld2(vec1 + col), mul = ld2(vec1 + CW + col);
+  const float2 sh = ld2(vec1 + 2 * CW + col);
+  ha.x = relu_affine(__fadd_rn(a.x, b1.x), mul.x, sh.x);
+  ha.y = relu_affine(__fadd_rn(a.y, b1.y), mul.y, sh.y);
+  hb.x = relu_affine(__fadd_rn(b.x, b1.x), mul.x, sh.x);
+  hb.y = relu_affine(__fadd_rn(b.y, b1.y), mul.y, sh.y);
 }
 
 // Sum over the lanes of one t group (lanes 4g .. 4g + 3): a column sum

@@ -14,35 +14,33 @@
 // MACs, only to fill 128 lanes) is not carried over: these kernels work
 // on plain (R, 64) rows and read the (B, C0, S*K) channel-major input.
 //
-// Bounds on the card (R = 2,621,440 rows at the main path). layer12 is
-// bound by f32 operations on CUDA cores (~23 GFLOP against 67 TFLOP/s).
-// Its design: a persistent grid of blocks, each looping over 64-row tiles
-// with the weights resident in shared memory and a register-tiled 64x64
-// product (each of 256 threads owns a 4x4 output patch), row tiles staged
-// in shared memory. sweep1 (B3a) is bound by bytes (it reads p2 and
-// writes q3, 671 MB each; dy3 has one nonzero per (group, channel), so
-// its products are taken sparsely): it streams tiles by TMA and builds q3
-// from row bitmaps of each tile's entries (see there).
+// Bounds on the card (R = 2,621,440 rows at the main path). sweep1 (B3a)
+// is bound by bytes (it reads p2 and writes q3, 671 MB each; dy3 has one
+// nonzero per (group, channel), so its products are taken sparsely): it
+// streams tiles by TMA and builds q3 from row bitmaps of each tile's
+// entries (see there).
 //
-// gram_pool (B2b), sweep2 (B3b) and sweep3 (B3c) run their 64-wide
-// products on tensor cores in 3xTF32 (sa_mma.cuh; f32-level accuracy).
-// Their bounds there: gram_pool ~0.63 ms by operations (~97 GFLOP of
-// products, three TF32 passes each at 495 TFLOP/s, plus its CUDA-core
-// work), sweep2 ~0.61 ms by bytes (x, p2, q3 in and mq out: 784 B a row),
-// sweep3 ~0.21 ms by bytes (x and mq in: 272 B a row); on CUDA cores in
-// f32 they would be bound at 1.48, 1.18 and 0.38 ms. What holds them above
-// that on mma.sync: each warp reads its A and B fragments from shared
-// memory (hi and lo), ~640 KB per gram_pool tile against 128 B a clock,
-// and the per-(group, column) pool and the ReLU/split passes are CUDA-core
-// work between barriers that the products do not overlap. The designs
-// keep what they can off that path: one TMA bulk copy per row tile,
-// several tiles in flight; operands used by several warps (W3, M3, M2,
-// gi2 * W2^T, h2 in gram_pool, h1 and dy2 in sweep2, h1 and dy1 in
-// sweep3) split into hi/lo once; the pool reduced from the accumulators
-// (no p3 tile in shared memory); sweep2's mq leaving by a TMA bulk store.
-// The backward recomputes h1 in B3b and B3c with h1_tile's op chain
-// (h1_rows in sa_mma.cuh), and 3xTF32 moves no ReLU mask: masks come from
-// the CUDA-core chains only.
+// layer12 (B2a; in 6xTF32, see there), gram_pool (B2b), sweep2 (B3b) and
+// sweep3 (B3c) run their 64-wide products on tensor cores in 3xTF32
+// (sa_mma.cuh; f32-level accuracy). Their bounds there: layer12 ~0.30 ms
+// by operations (x in, p2 out: 272 B a row, 0.21 ms), gram_pool ~0.63 ms
+// by operations (~97 GFLOP of products, three TF32 passes each at 495
+// TFLOP/s, plus its CUDA-core work), sweep2 ~0.61 ms by bytes (x, p2, q3
+// in and mq out: 784 B a row), sweep3 ~0.21 ms by bytes (x and mq in: 272
+// B a row); on CUDA cores in f32 they would be bound at 0.36, 1.48, 1.18
+// and 0.38 ms. What holds them above that on mma.sync: each warp reads
+// its A and B fragments from shared memory (hi and lo), ~640 KB per
+// gram_pool tile against 128 B a clock, and the per-(group, column) pool
+// and the ReLU/split passes are CUDA-core work between barriers that the
+// products do not overlap. The designs keep what they can off that path:
+// one TMA bulk copy per row tile, several tiles in flight; operands used
+// by several warps (W3, M3, M2, gi2 * W2^T, h2 in gram_pool, h1 and dy2 in
+// sweep2, h1 and dy1 in sweep3) split into hi/lo once; the pool reduced
+// from the accumulators (no p3 tile in shared memory); sweep2's mq leaving
+// by a TMA bulk store; layer12's h1 made in registers as its A fragments.
+// layer12 computes h1, and B3b and B3c recompute it, with h1_tile's op
+// chain (h1_pair and h1_rows in sa_mma.cuh), and the split products move
+// no ReLU mask: masks come from the CUDA-core chains only.
 //
 // The TPU grid runs in order and carries its accumulators across steps;
 // CUDA blocks run in parallel, so every block writes its own partial sums
@@ -68,69 +66,213 @@
 namespace {
 
 // ---------------------------------------------------------------------
-// B2 sweep A: x -> p1 -> h1 -> p2, plus per-block sums of p2 and p2^2.
-// part: (blocks, 2, 64) float64 = [sum p2 | sum p2^2].
-__global__ void __launch_bounds__(NT)
+// x rows r0.. of a tile, channel-major: xs[c * TR + i] = x[b, c, n] for
+// row r0 + i = b*N + n, by threads tid of nth (where a tile crosses a
+// cloud boundary, or x is not staged by TMA).
+__device__ __forceinline__ void load_x_rows(const float* __restrict__ x,
+                                            int C0, int64_t N, int64_t r0,
+                                            float* xs, int tid, int nth) {
+  for (int e = tid; e < TR * C0; e += nth) {
+    const int i = e % TR, c = e / TR;
+    const int64_t r = r0 + i;
+    const int64_t b = r / N, n = r - b * N;
+    xs[c * TR + i] = x[(b * C0 + c) * N + n];
+  }
+}
+
+// ---------------------------------------------------------------------
+// B2 sweep A: x -> p1 -> h1 -> p2 = h1 W2 + b2, plus per-block sums of p2
+// and p2^2. part: (blocks, 2, 64) float64 = [sum p2 | sum p2^2].
+//
+// p2 feeds the layer-2 ReLU decisions (h2 = relu(p2 mul2 + shift2)) of
+// every later sweep, so its error decides which rows sit on which side of
+// zero, and a padded row (the centroid repeated, most rows of random
+// clouds) repeats each decision up to K times. 3xTF32, as the other sweeps
+// run their products, is f32-accurate on average but up to ~4x off an f32
+// product (its pieces are not exact, and the tensor cores' accumulation
+// truncates): on the main path's clouds it flipped a padded row's
+// decision that float64 and f32 keep, 125 rows at once (chip_ablate.py
+// precision). So h1 W2 runs in 6xTF32 (sa_mma.cuh): h1 and W2 split
+// exactly into three TF32 pieces, six products down to 2^-22 of each
+// term, each 8-wide k step summed apart and added to the accumulators in
+// f32 with rounding: more accurate than an f32 product.
+//
+// Bound on the card at the main path: 0.30 ms by operations (the six
+// passes, 129 GFLOP of TF32 at 495 TFLOP/s, and ~2.7 GFLOP on CUDA cores
+// at 67); bytes alone (x in, p2 out: 272 B a row) would take 0.21 ms. A
+// tile-per-block design is held back by shared memory (an h1 tile
+// written, split, and read back as fragments by every warp next to W2's)
+// and by block barriers between those phases. So h1 never touches shared
+// memory: each warp computes the h1 values of its own A fragments in
+// registers with h1_tile's op chain (h1_pair in sa_mma.cuh; B3b, B3c and
+// B6 recompute h1 with the same chain, so the ReLU masks agree bit for
+// bit) and splits them; W2's three pieces are split once per block. The
+// warps are independent: warp w of the block walks its own 64-row tiles
+// as four 16-row slices (16 x 64 of p2 in its accumulators), its x tile
+// arriving by TMA (one bulk copy per channel when N % TR == 0) into its
+// own two stages, one tile ahead; where a tile crosses a cloud boundary
+// the warp reads its rows itself. No barrier runs in the loop. b2 is
+// added in the accumulators, and p2 leaves from them as 8-byte stores
+// that fill whole 32-byte sectors (no staging tile: it would cost shared
+// memory traffic and a barrier for the one copy). The sums of p2 and
+// p2^2 are reduced from the accumulators by shuffles that leave each lane
+// two columns' pairs (summed in f32 within a tile, carried in float64),
+// and the 16 warps' partials are summed in order at the end. 512 threads,
+// one block per SM; 128 registers with 8 bytes of spill (the k loop
+// unrolled by 2: rolled, it spills none and runs ~5% slower).
+constexpr int L12_WARPS = NTM / 32;
+
+// One step of a sum over lanes that halves what each lane keeps: the lane
+// with bit m set keeps hi (plus its partner's), the other lo.
+__device__ __forceinline__ void halve(float& lo, float& hi, int lane, int m) {
+  const bool up = lane & m;
+  const float send = up ? lo : hi;
+  lo = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, send, m);
+}
+
+__global__ void __launch_bounds__(NTM, 1)
 fwd_layer12_kernel(const float* __restrict__ x, int C0, int64_t N,
                    int64_t ntiles, const float* __restrict__ W1,
                    const float* __restrict__ vec1, const float* __restrict__ W2,
                    const float* __restrict__ b2, float* __restrict__ p2,
                    double* __restrict__ part) {
-  extern __shared__ float sm[];
-  float* W2s = sm;                      // CW*CW
-  float* h1s = W2s + CW * CW;           // TR*LD
-  float* xs = h1s + TR * LD;            // TR*C0MAX
-  float* W1s = xs + TR * C0MAX;         // C0MAX*CW
-  float* v1 = W1s + C0MAX * CW;         // 3*CW
-  float* b2s = v1 + 3 * CW;             // CW
-  double* red = reinterpret_cast<double*>(b2s + CW);   // 2*16*CW
+  constexpr int STAGE = C0MAX * TR;
+  constexpr int WB = 32 * b_stride(CW);
+  extern __shared__ __align__(128) float smt[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* const Wp[3] = {smt, smt + WB, smt + 2 * WB};  // W2 in 3 pieces
+  float* W1s = smt + 3 * WB;                    // C0MAX * CW
+  float* v = W1s + C0MAX * CW;                  // b1 | mul1 | shift1 | b2
+  float* stage = v + 4 * CW + warp * 2 * STAGE; // this warp's two x tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+                       v + 4 * CW + L12_WARPS * 2 * STAGE) + 2 * warp;
+  const bool xbulk = N % TR == 0;     // x is 16-byte aligned (the wrapper)
+  const int64_t gw = static_cast<int64_t>(blockIdx.x) * L12_WARPS + warp;
+  const int64_t nw = static_cast<int64_t>(gridDim.x) * L12_WARPS;
+  const int64_t count = ntiles > gw ? (ntiles - 1 - gw) / nw + 1 : 0;
+  auto fetch = [&](int64_t i) {             // lane 0: x of the warp's tile i
+    const int64_t r0 = (gw + i * nw) * TR, b = r0 / N, n = r0 - b * N;
+    uint64_t* bar = &bars[i & 1];
+    mbar_expect(bar, C0 * TR * 4);
+    for (int c = 0; c < C0; ++c)
+      bulk_load(stage + (i & 1) * STAGE + c * TR, x + (b * C0 + c) * N + n,
+                TR * 4, bar);
+  };
 
-  copy_vec(W2s, W2, CW * CW);
-  copy_vec(W1s, W1, C0 * CW);
-  copy_vec(v1, vec1, 3 * CW);
-  copy_vec(b2s, b2, CW);
+  if (lane == 0 && xbulk) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    for (int64_t i = 0; i < 2 && i < count; ++i) fetch(i);
+  }
+  load_b_split3(Wp, W2, CW, CW, 1);
+  copy_block(W1s, W1, C0 * CW);
+  copy_block(v, vec1, 3 * CW);
+  copy_block(v + 3 * CW, b2, CW);
   __syncthreads();
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  double s[4] = {0.0, 0.0, 0.0, 0.0}, ss[4] = {0.0, 0.0, 0.0, 0.0};
-  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int64_t r0 = t * TR;
-    load_x_tile(x, C0, N, r0, xs);
-    __syncthreads();
-    h1_tile(xs, C0, W1s, v1, h1s);
-    __syncthreads();
-    float acc[4][4];
-    mm64(h1s, W2s, nullptr, acc);
-    __syncthreads();                   // h1s is reused as the p2 tile
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      float ts = 0.f, tss = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float v = __fadd_rn(acc[i][j], b2s[c]);
-        h1s[(ty + 16 * i) * LD + c] = v;
-        ts += v;
-        tss = fmaf(v, v, tss);
-      }
-      s[j] += ts;
-      ss[j] += tss;
+  // Sums of p2 and p2^2 of columns 8 g + 2 t (+1): [s, ss, s', ss'].
+  double run[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int64_t i = 0; i < count; ++i) {
+    const int64_t r0 = (gw + i * nw) * TR;
+    const float* X = stage + (i & 1) * STAGE;
+    if (xbulk) {
+      mbar_wait(&bars[i & 1], static_cast<uint32_t>((i >> 1) & 1));
+    } else {
+      __syncwarp();
+      load_x_rows(x, C0, N, r0, stage + (i & 1) * STAGE, lane, 32);
+      __syncwarp();
     }
-    __syncthreads();
-    store_tile(h1s, r0, p2);
-    __syncthreads();
-  }
+    float tile[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int sl = 0; sl < TR / 16; ++sl) {
+      const int ra = 16 * sl + g;           // the lane's rows ra, ra + 8
+      float xa[C0MAX - 1], xb[C0MAX - 1];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red[ty * CW + tx + 16 * j] = s[j];
-    red[(16 + ty) * CW + tx + 16 * j] = ss[j];
+      for (int k = 0; k < C0MAX - 1; ++k)
+        if (k < C0) {
+          xa[k] = X[k * TR + ra];
+          xb[k] = X[k * TR + ra + 8];
+        }
+      if (sl == TR / 16 - 1) {              // the stage is read: refill
+        __syncwarp();
+        if (lane == 0 && xbulk && i + 2 < count) fetch(i + 2);
+      }
+      // h1 W2 for rows ra, ra + 8 (and the slice's others) and all 64
+      // columns: the A fragment of step kb is h1 at columns 8 kb + 2t
+      // (+1), made here.
+      float c[8][4];
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj) zero4(c[nj]);
+#pragma unroll 2
+      for (int kb = 0; kb < 8; ++kb) {
+        const int col = 8 * kb + 2 * t;
+        float2 ha, hb;
+        h1_pair(xa, xb, C0, W1s, v, col, ha, hb);
+        const Split3 s[4] = {split3(ha.x), split3(hb.x), split3(ha.y),
+                             split3(hb.y)};
+        FragA3 a;
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a.v[q][r] = s[r].v[q];
+        // Each step's six products summed apart, then added in f32 with
+        // rounding (the tensor cores' own accumulation truncates).
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj) {
+          float d[4];
+          zero4(d);
+          mma6(d, a, frag_b3_paired(Wp, b_stride(CW), 8 * nj, kb, lane));
+#pragma unroll
+          for (int r = 0; r < 4; ++r) c[nj][r] = __fadd_rn(c[nj][r], d[r]);
+        }
+      }
+      // p2 = acc + b2 -> global (rows ra, ra + 8); per column j of the
+      // lane, its two rows summed: vs[2 j] (p2), vs[2 j + 1] (p2^2).
+      float* out = p2 + (r0 + ra) * CW + 2 * t;
+      float vs[32];
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj) {
+        const float2 bb = ld2(v + 3 * CW + 8 * nj + 2 * t);
+        const float2 u = make_float2(__fadd_rn(c[nj][0], bb.x),
+                                     __fadd_rn(c[nj][1], bb.y));
+        const float2 w = make_float2(__fadd_rn(c[nj][2], bb.x),
+                                     __fadd_rn(c[nj][3], bb.y));
+        *reinterpret_cast<float2*>(out + 8 * nj) = u;
+        *reinterpret_cast<float2*>(out + 8 * CW + 8 * nj) = w;
+        vs[4 * nj] = u.x + w.x;
+        vs[4 * nj + 1] = fmaf(u.x, u.x, w.x * w.x);
+        vs[4 * nj + 2] = u.y + w.y;
+        vs[4 * nj + 3] = fmaf(u.y, u.y, w.y * w.y);
+      }
+      // Over the eight g lanes: each exchange halves the values a lane
+      // keeps, so lane (g, t) ends with n-tile g's: vs[0..3].
+#pragma unroll
+      for (int q = 0; q < 16; ++q) halve(vs[q], vs[16 + q], lane, 16);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) halve(vs[q], vs[8 + q], lane, 8);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) halve(vs[q], vs[4 + q], lane, 4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) tile[q] += vs[q];
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) run[q] += tile[q];
   }
+
+  // The 16 warps' partials summed in order: staged in the (idle) stage
+  // area, then one thread per output.
+  __syncthreads();
+  double* red = reinterpret_cast<double*>(v + 4 * CW);   // (warps, 2, CW)
+  const int col = 8 * g + 2 * t;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    red[(warp * 2 + (q & 1)) * CW + col + (q >> 1)] = run[q];
   __syncthreads();
   if (threadIdx.x < 2 * CW) {
-    const int w = threadIdx.x / CW, c = threadIdx.x % CW;
+    const int q = threadIdx.x / CW, cl = threadIdx.x % CW;
     double a = 0.0;
-    for (int y = 0; y < 16; ++y) a += red[(w * 16 + y) * CW + c];
-    part[(int64_t)blockIdx.x * 2 * CW + w * CW + c] = a;
+    for (int w = 0; w < L12_WARPS; ++w) a += red[(w * 2 + q) * CW + cl];
+    part[(int64_t)blockIdx.x * 2 * CW + threadIdx.x] = a;
   }
 }
 
@@ -727,17 +869,6 @@ bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
 // (per tile) are split into hi/lo ahead of the products, h2 at fragment
 // load; h1's ReLU mask is kept as bytes. One block per SM (218 KB of
 // shared memory).
-__device__ __forceinline__ void load_x_rows(const float* __restrict__ x,
-                                            int C0, int64_t N, int64_t r0,
-                                            float* xs, int tid, int nth) {
-  for (int e = tid; e < TR * C0; e += nth) {
-    const int i = e % TR, c = e / TR;
-    const int64_t r = r0 + i;
-    const int64_t b = r / N, n = r - b * N;
-    xs[c * TR + i] = x[(b * C0 + c) * N + n];
-  }
-}
-
 __global__ void __launch_bounds__(NTM, 1)
 bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
                   int64_t ntiles, const float* __restrict__ W1,
@@ -1156,12 +1287,13 @@ extern "C" int facl_sa_fwd_layer12(const float* x, int B, int C0, int N,
                                    void* stream) {
   const int64_t R = (int64_t)B * N;
   if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (CW * CW + TR * LD + TR * C0MAX +
-                                       C0MAX * CW + 4 * CW) +
-                      sizeof(double) * 2 * 16 * CW;
+  const size_t smem =
+      sizeof(float) * (3 * 32 * b_stride(CW) + C0MAX * CW + 4 * CW +
+                       L12_WARPS * 2 * C0MAX * TR) +
+      L12_WARPS * 2 * sizeof(uint64_t);
   cudaError_t e = prepare(fwd_layer12_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fwd_layer12_kernel<<<nblk, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  fwd_layer12_kernel<<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
       x, C0, N, R / TR, W1, vec1, W2, b2, p2, part);
   return static_cast<int>(cudaGetLastError());
 }

@@ -126,7 +126,9 @@ def sa_bwd_sweep3_plain(x3, w1, b1, mul1, shift1, mq, M2, rc2):
 # -- kernel wrappers ----------------------------------------------------
 
 def sa_fwd_layer12(x3, w1, b1, mul1, shift1, w2, b2):
-    """B2 sweep A. x3 (B, C0, N) -> (p2 (B*N, 64), sum p2, sum p2^2)."""
+    """B2 sweep A. x3 (B, C0, N) -> (p2 (B*N, 64), sum p2, sum p2^2).
+    The kernel stages x by 16-byte TMA copies: a CUDA x3 that is not
+    16-byte aligned raises."""
     if on_cpu(x3):
         return sa_fwd_layer12_plain(x3, w1, b1, mul1, shift1, w2, b2)
     B, C0, N = check_x(x3)
@@ -134,10 +136,11 @@ def sa_fwd_layer12(x3, w1, b1, mul1, shift1, w2, b2):
     need(w1, (C0, C1), "w1")
     need(w2, (C1, C2), "w2")
     need(b2, (C2,), "b2")
+    need_aligned(x3, "x")
     vec1 = torch.cat([b1, mul1, shift1]).contiguous()
     need(vec1, (3 * C1,), "b1|mul1|shift1")
     R = B * N
-    nblk = grid(x3, R)
+    nblk = grid(x3, R, per_sm=1)
     p2 = torch.empty((R, C2), dtype=torch.float32, device=x3.device)
     part = torch.empty((nblk, 2, C2), dtype=torch.float64,
                        device=x3.device)

@@ -458,3 +458,61 @@ def test_b9_sweeps_match_twins(dev, rng, K, widths):
         assert max(float(a.abs().max()), float(b.abs().max())) < \
             1e-4 * gscale
     assert SK.sa_fused_final(x, lp, packed, bsums, dout, K, False)[0] is None
+
+
+@pytest.mark.parametrize("case", ["count_K-1", "count_K", "count_K+1",
+                                  "ties_at_K", "duplicates",
+                                  "all_out_of_radius", "N_100", "N_1024"])
+def test_select_cases_bit_equal(dev, rng, case):
+    """B1 (with idx) and B4 on the selection's edge cases of
+    tests/test_torch_select.py (in-ball counts K - 1, K and K + 1, a tie
+    across the K-th key, duplicates, nothing in the ball, N = 100 and
+    1024): bit-equal to the twin, each launching its kernel."""
+    from test_torch_select import select_cases
+    from facl_tpu_torch.ops import select as SEL
+    pts, S, K, r2 = select_cases(rng)[case]
+    p = torch.from_numpy(pts).to(dev)
+    before = (SEL.select_gather.launches, SEL.select_knn_ball.launches)
+    g, i = SEL.select_gather(p, S, K, r2, return_idx=True)
+    i4 = SEL.select_knn_ball(p, S, K, r2)
+    assert (SEL.select_gather.launches, SEL.select_knn_ball.launches) == \
+        (before[0] + 1, before[1] + 1)
+    gp, ip = SEL.select_gather_plain(p, S, K, r2)
+    assert torch.equal(i, ip) and torch.equal(g, gp) and torch.equal(i4, ip)
+
+
+@pytest.mark.parametrize("B,N", [(4, 96), (3, 320), (2, 1024)])
+def test_b2a_layer12_matches_twin(dev, rng, B, N):
+    """B2a (sa_fwd_layer12: 3xTF32 tensor cores, x by TMA) against its
+    twin: p2 at rtol 1e-5 / atol 1e-5 x scale, the sums of p2 and p2^2
+    within 1e-4 of their max-abs, two calls bit-identical. N % 64 != 0
+    (96, 320) puts tiles across two clouds: the kernel reads those rows
+    itself, and launches all the same."""
+    from facl_tpu_torch.ops import sa_pair as SP
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    (w1, b1, _, _), (w2, b2, _, _), _ = \
+        [[t(a) for a in layer] for layer in _layers(rng)]
+    x3 = t(rng.normal(size=(B, 4, N)))
+    mul1, shift1 = t(2 * rng.normal(size=64)), t(rng.normal(size=64))
+    args = (x3, w1, b1, mul1, shift1, w2, b2)
+    n0 = SP.sa_fwd_layer12.launches
+    k, tw = SP.sa_fwd_layer12(*args), SP.sa_fwd_layer12_plain(*args)
+    assert SP.sa_fwd_layer12.launches == n0 + 1
+    torch.testing.assert_close(k[0], tw[0], rtol=1e-5,
+                               atol=1e-5 * float(tw[0].abs().max()))
+    for a, b in zip(k[1:], tw[1:]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert all(torch.equal(a, b) for a, b in zip(k, SP.sa_fwd_layer12(*args)))
+
+
+def test_b2a_misaligned_x_raises(dev):
+    """B2a stages x by 16-byte TMA copies: an x 4 bytes past a 16-byte
+    boundary raises ValueError before any launch; there is no fallback."""
+    from facl_tpu_torch.ops import sa_pair as SP
+    x3 = torch.zeros(4 * 256 + 1, device=dev)[1:].view(1, 4, 256)
+    w1, w2 = torch.zeros(4, 64, device=dev), torch.zeros(64, 64, device=dev)
+    v64 = torch.ones(64, device=dev)
+    n0 = SP.sa_fwd_layer12.launches
+    with pytest.raises(ValueError, match="aligned"):
+        SP.sa_fwd_layer12(x3, w1, v64, v64, v64, w2, v64)
+    assert SP.sa_fwd_layer12.launches == n0

@@ -153,3 +153,148 @@ def test_group_points_rejects_unknown_impl_and_approx():
         group_points(pts, 4, 4, select_impl="cuda")
     with pytest.raises(NotImplementedError, match="approximate"):
         group_points(pts, 4, 4, method="approx")
+
+
+# -- B1's selection as the CUDA kernel makes it (csrc/select.cu) ----------
+# A counting pass; with more than K points in the ball, a radix select of
+# the K-th key over the bits in which the candidates differ (first the
+# range [0, bits(r^2)], then each chosen bin's min and max), 8 bits a pass,
+# until the bin is one value or holds at most 32 keys (ranked against each
+# other); then the tie rule, with one test (key <= t) where every tie is
+# taken.
+
+OUT = 0xFFFFFFFF
+
+
+def radix_kth(w, k, rbits):
+    """(t, take, ties, passes) for uint32 keys w (out of the ball: OUT):
+    the kernel's select_kth."""
+    lo, hi, ties, passes = 0, rbits, -1, 0
+    while True:
+        if lo == hi:
+            return lo, k, ties, passes
+        passes += 1
+        hb = (lo ^ hi).bit_length() - 1
+        sh = max(hb - 7, 0)
+        dmask = (2 << (hb - sh)) - 1
+        cand = w[(w >= lo) & (w <= hi)]
+        hist = np.bincount((cand >> sh) & dmask, minlength=256)
+        cum = np.cumsum(hist)
+        b = int(np.argmax(cum >= k))
+        k -= int(cum[b] - hist[b])
+        ties = int(hist[b])
+        base = ((lo >> (hb + 1)) << (hb + 1)) | (b << sh)
+        if sh == 0:
+            return base, k, ties, passes
+        c = w[(w >= base) & (w <= base + (1 << sh) - 1)]
+        assert len(c) == ties
+        if ties <= 32:           # ranked one a lane: less < k <= less + eq
+            less = (c[None, :] < c[:, None]).sum(1)
+            eq = (c[None, :] == c[:, None]).sum(1)
+            m = int(np.argmax((less < k) & (k <= less + eq)))
+            return int(c[m]), k - int(less[m]), int(eq[m]), passes
+        lo, hi = int(c.min()), int(c.max())
+
+
+def radix_select_idx(points, S, K, radius_sq):
+    """idx (B, S, K) int32 by the kernel's algorithm, on the twin's
+    distances (the same rounded chain as the kernel's)."""
+    from facl_tpu_torch.ops.select import sqdist_to_centroids
+    d = sqdist_to_centroids(torch.from_numpy(points), S).numpy()
+    r2 = np.float32(radius_sq)
+    keys = np.where(d <= r2, d.view(np.uint32), np.uint32(OUT)).astype(
+        np.int64)
+    rbits = int(np.array(r2, np.float32).view(np.uint32))
+    B, _, N = keys.shape
+    out = np.empty((B, S, K), np.int32)
+    stats = []
+    for b in range(B):
+        for s in range(S):
+            w = keys[b, s]
+            inball = w != OUT
+            if int(inball.sum()) <= K:
+                sel = inball
+            else:
+                t, take, ties, passes = radix_kth(w, K, rbits)
+                srt = np.sort(w)
+                assert t == srt[K - 1]                  # the K-th key
+                assert take == K - int((w < t).sum())   # ties to take
+                stats.append(passes)
+                if take == ties:
+                    sel = w <= t
+                else:
+                    tie = w == t
+                    sel = (w < t) | (tie & (np.cumsum(tie) - 1 < take))
+            n = np.nonzero(sel)[0]
+            out[b, s] = np.concatenate([n, np.full(K - len(n), s)])
+    return out, stats
+
+
+def _count_in_ball(pts, S, r2):
+    from facl_tpu_torch.ops.select import sqdist_to_centroids
+    d = sqdist_to_centroids(torch.from_numpy(pts), S).numpy()
+    return (d <= np.float32(r2)).sum(-1)
+
+
+def select_cases(rng):
+    """name -> (points (B, N, C) f32, S, K, r^2): the selection's edges.
+    count_K-1 / count_K / count_K+1: centroid 0 of cloud 0 holds exactly
+    that many points in its ball; ties_at_K: six copies of one point sit
+    at ranks 9-14 of centroid 0's keys, straddling the K-th (K = 12)."""
+    cases = {}
+    S, K = 8, 12
+    base = rng.uniform(-0.5, 0.5, size=(2, 64, 4)).astype(np.float32)
+    from facl_tpu_torch.ops.select import sqdist_to_centroids
+    d0 = np.sort(sqdist_to_centroids(torch.from_numpy(base), S).numpy()[0, 0])
+    for m in (K - 1, K, K + 1):
+        r2 = float(np.float32((d0[m - 1] + d0[m]) / 2))
+        assert _count_in_ball(base, S, r2)[0, 0] == m
+        cases[f"count_K{m - K:+d}".replace("+0", "")] = (base, S, K, r2)
+    tied = base.copy()
+    order = np.argsort(sqdist_to_centroids(torch.from_numpy(tied),
+                                           S).numpy()[0, 0])
+    far = [i for i in order[::-1] if i >= S][:5]
+    tied[0, far] = tied[0, order[8]]            # ranks 8..13 (0-based)
+    cases["ties_at_K"] = (tied, S, K, 0.3)
+    half = rng.uniform(-0.5, 0.5, size=(2, 32, 4)).astype(np.float32)
+    cases["duplicates"] = (np.concatenate([half, half], 1), S, K, 0.4)
+    far_pts = np.zeros((2, 64, 4), np.float32)
+    far_pts[..., :3] = rng.normal(size=(2, 64, 3)) * 10.0
+    cases["all_out_of_radius"] = (far_pts, S, K, 1e-6)
+    cases["N_100"] = (rng.uniform(-0.5, 0.5, size=(2, 100, 3))
+                      .astype(np.float32), 16, 12, 0.3)
+    cases["N_1024"] = (rng.uniform(0, 1, size=(2, 1024, 4))
+                       .astype(np.float32), 8, 64, 0.1)
+    return cases
+
+
+SELECT_CASES = ["count_K-1", "count_K", "count_K+1", "ties_at_K",
+                "duplicates", "all_out_of_radius", "N_100", "N_1024"]
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_radix_selection_equals_twin_and_tpu_kernel(rng, case):
+    """The kernel's selection (counting shortcut, radix select of the K-th
+    key, tie rule), emulated, against the twin and the TPU kernel in
+    interpret mode: bit-equal idx."""
+    from facl_tpu_torch.ops.select import select_knn_ball_plain
+    pts, S, K, r2 = select_cases(rng)[case]
+    idx, passes = radix_select_idx(pts, S, K, r2)
+    twin = select_knn_ball_plain(torch.from_numpy(pts), S, K, r2).numpy()
+    np.testing.assert_array_equal(idx, twin)
+    tpu = np.asarray(jax_select_knn_ball(jnp.asarray(pts), S, K, r2,
+                                         interpret=True))
+    np.testing.assert_array_equal(idx, tpu)
+    n = _count_in_ball(pts, S, r2)
+    assert len(passes) == int((n > K).sum())    # selection only past K
+    if case == "count_K+1":
+        assert n[0, 0] == K + 1 and len(passes) > 0
+    if case == "ties_at_K":
+        from facl_tpu_torch.ops.select import sqdist_to_centroids
+        w = np.sort(sqdist_to_centroids(torch.from_numpy(pts), S)
+                    .numpy()[0, 0])
+        assert w[K - 2] == w[K - 1] == w[K]     # a tie across the K-th
+    if case == "all_out_of_radius":
+        assert (idx == np.arange(S)[None, :, None]).all()
+    if case == "N_1024":
+        assert 1 <= max(passes) <= 4

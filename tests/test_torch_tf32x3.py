@@ -1,5 +1,5 @@
-"""The 3xTF32 split of the tensor-core SA sweeps (csrc/sa_mma.cuh), in
-arithmetic the CPU can check.
+"""The 3xTF32 split of the tensor-core SA sweeps (csrc/sa_mma.cuh), and
+B2a's exact 6xTF32 split, in arithmetic the CPU can check.
 
 B2b (sa_fwd_gram_pool), B3b (sa_bwd_sweep2) and B3c (sa_bwd_sweep3) run
 their 64-wide products on tensor cores in TF32, split in three passes: a = hi + lo with
@@ -135,3 +135,105 @@ def test_b3c_dy1_from_three_passes():
         err = (d.double() - ref).abs()
         assert bool((err <= 1e-5 * ref.abs() + 1e-5 * scale).all())
     assert torch.equal(k != 0, mask) and torch.equal(t != 0, mask)
+
+
+def _layer12_operands(rows, seed=3):
+    """B2a's product at the main path's magnitudes: h1 a BatchNorm output
+    after its ReLU, W2 at flax's Dense init (std 1/sqrt(64)), b2 small."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape))
+                                .astype(np.float32))
+    return torch.relu(f(rows, 64)), f(64, 64, scale=0.125), f(64, scale=0.1)
+
+
+def _layer12_sums(p2):
+    """B2a's sums of p2 and p2^2 in its order: two rows of a lane, then its
+    16-row slice (shuffles), summed in f32 over a 64-row tile, the tiles in
+    float64."""
+    def tiles(v):
+        s16 = v.reshape(-1, 16, v.shape[1]).sum(1)            # f32
+        return s16.reshape(-1, TILE // 16, v.shape[1]).sum(1).double().sum(0)
+    return tiles(p2), tiles(p2 * p2)
+
+
+@pytest.mark.parametrize("rows", [TILE, R])
+def test_b2a_layer12_product_meets_the_bars(rows):
+    """B2a's product p2 = h1 W2 + b2 with h1 W2 in 3xTF32 (b2 added after
+    the product), as the other sweeps run theirs, within chip_smoke.py's
+    row bar of the float64 product, rtol 1e-5 / atol 1e-5 x scale; the
+    sums of p2 and p2^2 in the kernel's order within 1e-4 of their max-abs
+    of float64's. One pass of TF32 misses the row bar. (The kernel runs
+    six passes, below: p2 feeds the layer-2 ReLU decisions.)"""
+    h1, w2, b2 = _layer12_operands(rows)
+    p2 = mm_3x(h1, w2) + b2
+    ref = h1.double() @ w2.double() + b2.double()
+    scale = float(ref.abs().max())
+    d = (p2.double() - ref).abs()
+    assert bool((d <= 1e-5 * ref.abs() + 1e-5 * scale).all())
+    s, ss = _layer12_sums(p2)
+    for k, r in ((s, ref.sum(0)), (ss, (ref * ref).sum(0))):
+        assert float((k - r).abs().max()) <= 1e-4 * float(r.abs().max())
+    d1 = (mm_1x(h1, w2) + b2).double() - ref
+    assert not bool((d1.abs() <= 1e-5 * ref.abs() + 1e-5 * scale).all())
+
+
+def split3(a: torch.Tensor):
+    """B2a's exact split (csrc/sa_mma.cuh split3): hi = tf32(a), mid =
+    tf32(a - hi), lo = (a - hi) - mid, all three exact in f32."""
+    hi = tf32(a)
+    r = a - hi
+    mid = tf32(r)
+    return hi, mid, r - mid
+
+
+#: B2a's six products, small to large: (piece of h1, piece of W2).
+SIX = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def mm_6x(a, b):
+    """B2a's h1 W2: per 8-wide k step the six piece products summed (the
+    tensor cores multiply TF32 pieces exactly; the step's sum is rounded
+    to f32 here), and the steps added in f32 with rounding, in order."""
+    pa, pb = split3(a), split3(b)
+    c = torch.zeros(a.shape[0], b.shape[1])
+    for k in range(0, a.shape[1], 8):
+        d = sum(pa[i][:, k:k + 8].double() @ pb[j][k:k + 8].double()
+                for i, j in SIX)
+        c = c + d.float()
+    return c
+
+
+def test_b2a_split3_is_exact():
+    """hi + mid + lo is the f32 value itself (11 + 11 + at most 2
+    significant bits), every piece a TF32 value, at the magnitudes of h1
+    and W2 and at the f32 extremes."""
+    rng = np.random.default_rng(4)
+    a = np.concatenate([rng.normal(size=4000), rng.normal(size=1000) * 1e-30,
+                        rng.normal(size=1000) * 1e30, [0.0, -0.0, 1.0]])
+    a = torch.from_numpy(a.astype(np.float32))
+    hi, mid, lo = split3(a)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), a.double())
+    for piece in (hi, mid, lo):
+        assert bool(((piece.view(torch.int32) & 0x1FFF) == 0).all())
+
+
+@pytest.mark.parametrize("rows", [TILE, R])
+def test_b2a_six_passes_beat_an_f32_product(rows):
+    """B2a's 6xTF32 product p2 = h1 W2 + b2 at the main path's magnitudes:
+    within the row bar of float64 and no farther from it, element by
+    element at worst and in root mean square, than the f32 product the
+    twin takes; its sums of p2 and p2^2 within 1e-4 of their max-abs."""
+    h1, w2, b2 = _layer12_operands(rows)
+    ref = h1.double() @ w2.double() + b2.double()
+    p2 = mm_6x(h1, w2) + b2
+    scale = float(ref.abs().max())
+    d6 = (p2.double() - ref).abs()
+    d32 = ((h1 @ w2 + b2).double() - ref).abs()
+    assert bool((d6 <= 1e-5 * ref.abs() + 1e-5 * scale).all())
+    assert float(d6.max()) <= float(d32.max())
+    assert float(d6.pow(2).mean()) <= float(d32.pow(2).mean())
+    s, ss = _layer12_sums(p2)
+    for k, r in ((s, ref.sum(0)), (ss, (ref * ref).sum(0))):
+        assert float((k - r).abs().max()) <= 1e-4 * float(r.abs().max())
