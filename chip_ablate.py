@@ -37,10 +37,11 @@ import sys
 import torch
 
 CSRC = os.path.join("facl_tpu_torch", "ops", "csrc")
-NOPOOL = ("      pool_tile<LP>(c, n0, b3s, tile, upt, run, mx, mn, imx, imn);",
+NOPOOL = ("      pool_tile<LP, BF>(c, n0, b3s, tile, upt, run, mx, mn, imx, "
+          "imn);",
           "      { float z = 0.f; for (int mi = 0; mi < 4; ++mi) for (int nj "
           "= 0; nj < 2; ++nj) for (int q = 0; q < 4; ++q) z += c[mi][nj][q]; "
-          "if (z == 1.2345f) mx[threadIdx.x] = z; }")
+          "if (z == 1.2345f) mx[threadIdx.x] = static_cast<T>(z); }")
 S1_NOA3 = ("      for (int gi = 0; gi < gpt; ++gi) {\n        const int e = gi",
            "      for (int gi = 0; gi < 0; ++gi) {\n        const int e = gi")
 S1_NOQ3 = [("    for (int k = warp; k < ntask; k += NWARP) {",
@@ -56,11 +57,11 @@ S3_NOA1 = ("      for (int mt = 0; mt < 2; ++mt) {\n        float d[4];",
            "      if (c[0][0] == 1.5f && c[3][3] == 0.5f)\n        acc[0][0] += "
            "c[1][1] + c[2][2];\n      for (int mt = 0; mt < 0; ++mt) {\n"
            "        float d[4];")
-S3_NOH1 = ("    h1_rows(X, C0, W1s, v, hh, hl, m1, gt, S3_GT);\n", "")
-L12_MMA = ("          mma6(d, a, frag_b3_paired(Wp, b_stride(CW), 8 * nj, kb, "
-           "lane));")
-L12_NOPROD = (L12_MMA, "          d[0] = __uint_as_float(a.v[0][nj & 3]);")
-L12_NOH1 = ("        h1_pair(xa, xb, C0, W1s, v, col, ha, hb);",
+S3_NOH1 = ("    h1_rows<BF>(X, C0, W1s, v, hh, hl, m1, gt, S3_GT);\n", "")
+L12_MMA = ("            mma6(d, a, frag_b3_paired(Wp, b_stride(CW), 8 * nj, "
+           "kb, lane));")
+L12_NOPROD = (L12_MMA, "            d[0] = __uint_as_float(a.v[0][nj & 3]);")
+L12_NOH1 = ("        h1_pair<BF>(xa, xb, C0, W1s, v, col, ha, hb);",
             "        ha = make_float2(xa[0], xa[0] + col);\n"
             "        hb = make_float2(xb[0], xb[0] + col);")
 # B2a's product in 3xTF32 (its two leading pieces), as the sweeps B2b-B3c
@@ -70,21 +71,20 @@ L12_3X = ("mma3({acc}, FragA{{{{Split{{a.v[0][0], a.v[1][0]}}, "
           "Split{{a.v[0][1], a.v[1][1]}}, Split{{a.v[0][2], a.v[1][2]}}, "
           "Split{{a.v[0][3], a.v[1][3]}}}}}}, frag_b_paired(SplitBuf{{Wp[0], "
           "Wp[1]}}, b_stride(CW), 8 * nj, kb, lane));")
-L12_STEP = ("          float d[4];\n          zero4(d);\n" + L12_MMA + "\n"
-            "#pragma unroll\n          for (int r = 0; r < 4; ++r) "
+L12_STEP = ("            float d[4];\n            zero4(d);\n" + L12_MMA + "\n"
+            "#pragma unroll\n            for (int r = 0; r < 4; ++r) "
             "c[nj][r] = __fadd_rn(c[nj][r], d[r]);")
 #: --precision: B2a's arithmetic variants (p2 against float64, the layer-2
 #: ReLU decisions it moves, the pair3 SA chain against float64).
 PRECISION = {
     "layer12 (6xTF32)": [],
     "layer12 in 3xTF32, rounded per k step": [
-        (L12_MMA, "          " + L12_3X.format(acc="d"))],
+        (L12_MMA, "            " + L12_3X.format(acc="d"))],
     "layer12 in 3xTF32, accumulated in the tensor cores": [
-        (L12_STEP, "          " + L12_3X.format(acc="c[nj]"))],
+        (L12_STEP, "            " + L12_3X.format(acc="c[nj]"))],
 }
-L12_NOSTORE = ("        *reinterpret_cast<float2*>(out + 8 * nj) = u;\n"
-               "        *reinterpret_cast<float2*>(out + 8 * CW + 8 * nj) = "
-               "w;\n", "")
+L12_NOSTORE = ("        st2r(out + 8 * nj, u);\n"
+               "        st2r(out + 8 * CW + 8 * nj, w);\n", "")
 SEL_NOSELECT = ("      select_kth(w, K, __float_as_uint(radius_sq), hist, "
                 "lane, t, take,\n                 ties);",
                 "      t = 0u;\n      take = K;\n      ties = -1;")
@@ -119,18 +119,19 @@ VARIANTS = {
     "sweep2": ("s2", []),
     "sweep2 without h2 M3": ("s2", [
         ("      for (int kb = 0; kb < 8; ++kb) {\n        const FragA a = "
-         "split_a(raw_a_rows(H2",
+         "split_a_p<BF>(raw_a_rows(H2",
          "      for (int kb = 0; kb < 0; ++kb) {\n        const FragA a = "
-         "split_a(raw_a_rows(H2")]),
+         "split_a_p<BF>(raw_a_rows(H2")]),
     "sweep2 without q2 and mq": ("s2", [
         ("    {   // q2 = dy2 (gi2 W2^T)", "    if (0) {   // q2")]),
     "sweep2 without A2 and G1": ("s2", [
         ("    {   // A2 = dy2^T h1", "    if (0) {   // A2")]),
     "sweep2 without h1": ("s2", [
-        ("    h1_rows(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);\n", "")]),
+        ("    h1_rows<BF>(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);\n",
+         "")]),
     "sweep2 without the row passes": ("s2", [
-        ("    relu_rows(S, mul2, shift2, H2);\n"
-         "    h1_rows(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);\n",
+        ("    relu_rows<BF>(S, mul2, shift2, H2);\n"
+         "    h1_rows<BF>(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);\n",
          "")]),
     "sweep1": ("s1", []),
     "sweep1 without A3": ("s1", [S1_NOA3]),
@@ -158,15 +159,15 @@ def variant_source(src: str, kernel: str, pairs) -> str:
     if kernel == "sel":
         lo, hi = 0, len(src)
     else:
-        lo, hi = {"l12": (src.index("fwd_layer12_kernel(const float*"),
+        lo, hi = {"l12": (src.index("fwd_layer12_kernel(const typename"),
                           src.index("// B2 sweep B:")),
-                  "gp": (src.index("fwd_gram_pool_kernel(const float*"),
+                  "gp": (src.index("fwd_gram_pool_kernel(const typename"),
                          src.index("// B3 sweep 1:")),
-                  "s1": (src.index("bwd_sweep1_kernel(const float*"),
+                  "s1": (src.index("bwd_sweep1_kernel(const typename"),
                          src.index("// B3 sweep 2 (slim)")),
-                  "s2": (src.index("bwd_sweep2_kernel(const float*"),
+                  "s2": (src.index("bwd_sweep2_kernel(const typename"),
                          src.index("// B3 sweep 3:")),
-                  "s3": (src.index("bwd_sweep3_kernel(const float*"),
+                  "s3": (src.index("bwd_sweep3_kernel(const typename"),
                          src.index("}  // namespace"))}[kernel]
     part = src[lo:hi]
     for old, new in pairs:
@@ -210,8 +211,8 @@ CLOCKED = {
 
 def clocked_source(src: str, kernel: str) -> str:
     loop, last, out, marks = CLOCKED[kernel]
-    lo = src.index(loop, src.index({"s1": "bwd_sweep1_kernel(const float*",
-                                    "s3": "bwd_sweep3_kernel(const float*"}
+    lo = src.index(loop, src.index({"s1": "bwd_sweep1_kernel(const typename",
+                                    "s3": "bwd_sweep3_kernel(const typename"}
                                    [kernel]))
     hi = src.index(last, lo)
     lines, k = [], 0

@@ -9,7 +9,7 @@ every hand-written kernel against its plain PyTorch twin.
                                         #   B3c of the tree in DIR (a git
                                         #   archive of another commit)
                                         #   timed against this tree's, in
-                                        #   turns
+                                        #   turns, their outputs bit-equal
 
 Phases (any failure exits nonzero, before the final line):
   1. build   every kernel from facl_tpu_torch/ops/csrc (one nvcc per
@@ -41,10 +41,18 @@ Phases (any failure exits nonzero, before the final line):
              (bound_f32_ms). B2a, B2b and B3a-B3c are run to run
              bit-identical; B2b and B3a-B3c are checked again on the fine
              variant's K = 128. Then
+             the five bf16 sweeps (B2a-B3c at compute_dtype bfloat16)
+             against their bf16 twins on the same card tensors: bf16
+             outputs within one bf16 ulp but at counted flips (at most
+             1e-3 of the entries; the counts printed), pool indices
+             outside bf16 near-ties, f32 accumulators within 1e-3 of their
+             max-abs, run to run bit-identical; timed, with bounds at bf16
+             bytes or one TF32 pass per product. Then
              the whole SA stage (forward + backward) of each sa_impl with
-             kernels (pair3, pair, hybrid2, hybrid, pallas) at K=64 and
-             K=128 on the same inputs as kernels, twins and float64
-             twins: the kernels must be as close to float64 as the twins;
+             kernels (pair3, pair, hybrid2, hybrid, pallas, and pair3 at
+             bf16) at K=64 and K=128 on the same inputs as kernels, twins
+             and float64 twins: the kernels must be as close to float64
+             as the twins (the bf16 kernels as the bf16 twins);
   3. cpu-vs-card one full-width train step at B=8 for pair3, pair, hybrid2
              and pallas on the CPU (twins) and on the card (kernels, then
              twins), same weights, points and permutation: loss at rtol
@@ -52,14 +60,18 @@ Phases (any failure exits nonzero, before the final line):
              decisions that flipped between the devices are counted,
              gradients held at max-abs 2e-4 of their scale where no flip
              reaches and at relative L2 1e-2 everywhere (phase_cpu_vs_card
-             says why);
+             says why); and pair3 at bf16, CPU (bf16 twins) vs card (bf16
+             kernels): loss at rtol 1e-2, the card's gradients no farther
+             from float64 than twice the CPU's (_cpu_vs_card_bf16);
   4. main    the Trainer at full width, f32, B=64 (bench.py's workload),
              sa_impl pair3 (the default; the headline): 2 warm-up steps
              (run_epoch), then 40 steps timed by CUDA events between steps
              (median and spread); then pair, hybrid2, hybrid and pallas, 2
              warm-up and 20 timed steps each, and pallas on the split
              grouping routes (select_impl=pallas / gather_impl=xla: B4;
-             xla / pallas: B5a), 2 + 5 steps each. Losses finite and every
+             xla / pallas: B5a), 2 + 5 steps each; then compute_dtype
+             bfloat16 (the shipped training configs' dtype): pair3 (the
+             bf16 sweeps) 40 steps and reference 20. Losses finite and every
              kernel of each path launched exactly its count per step
              (counters zeroed just before each path, read just after).
              --profile adds one profiled step to each impl's path: kernel
@@ -286,11 +298,13 @@ def _z64(p2, stats, lp2, lp3, eps=1e-5):
         + shift3.double()
 
 
-def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3"):
+def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3", dtype=None):
     """The whole SA stage of ``impl`` — forward, then the backward for a
     given pooled cotangent — three times on the same card inputs:
-    kernels (f32), twins (f32) and twins in float64. Every output
-    (pooled, stats, gradients; not the BN-absorbed biases) must be as
+    kernels (f32), twins (f32) and twins in float64 (``dtype=
+    torch.bfloat16``, pair3: the bf16 kernels and the bf16 twins, on x and
+    dpooled rounded to bf16, which the float64 chain takes too). Every
+    output (pooled, stats, gradients; not the BN-absorbed biases) must be as
     close to float64 as the twins are: relative L2 error at most
     max(2x the twins', 1e-6). Pool routing is a discrete choice where a
     group's pre-activation sits within round-off of a tie or of zero, and
@@ -302,12 +316,20 @@ def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3"):
     1e-4 of the largest |z|). pallas also returns, and is held on, dx."""
     SP, SF, SB, SK = sa_modules()
     pair = impl in ("pair", "pair3")
+    bf = dtype == torch.bfloat16
+    if bf:          # the stage's inputs as the bf16 path sees them
+        x3, dpooled = x3.to(dtype).float(), dpooled.to(dtype).float()
+    low = dtype if bf else torch.float32
     rows = x3.transpose(1, 2).reshape(-1, x3.shape[1]).contiguous()
 
     def fwd(dt):
+        # dt: float64, or float32 for the kernels' (and twins') run, which
+        # stores its rows as ``low``; parameters stay f32.
         L = [SP.SALayerParams(*(t.to(dt) for t in lp)) for lp in layers]
         if pair:
-            pooled, stats, res = SP.sa_forward_pair(x3.to(dt), L, pool, 1e-5)
+            xd = x3.to(low) if dt == torch.float32 else x3.to(dt)
+            pooled, stats, res = SP.sa_forward_pair(
+                xd, L, pool, 1e-5, low if dt == torch.float32 else dt)
         elif impl == "pallas":
             pooled, stats, packed = SK.sa_train_forward_unified(
                 rows.to(dt), L, pool, 1e-5)
@@ -323,9 +345,11 @@ def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3"):
 
     def bwd(dt, L, stats, res, outs, route):
         if pair:
+            k = dt == torch.float32
             grads = SP.sa_backward_pair(
-                x3.to(dt), L, stats, dict(res, idx=route), dpooled.to(dt),
-                pool, 1e-5, slim=impl == "pair3")
+                x3.to(low if k else dt), L, stats, dict(res, idx=route),
+                dpooled.to(low if k else dt), pool, 1e-5,
+                slim=impl == "pair3", dtype=low if k else dt)
         elif impl == "pallas":
             outs["dx"], grads = SK.sa_train_backward_unified(
                 rows.to(dt), L, res["packed"], route.to(dt), pool)
@@ -362,7 +386,8 @@ def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3"):
         worst[k] = (ek, et)
     wk = max(v[0] for v in worst.values())
     wt = max(v[1] for v in worst.values())
-    print(f"SA chain {impl} K={pool} vs float64 ({len(ref)} outputs): worst "
+    label = f"{impl} bf16" if bf else impl
+    print(f"SA chain {label} K={pool} vs float64 ({len(ref)} outputs): worst "
           f"relative L2 kernels {wk:.2e}, twins {wt:.2e}{note}", flush=True)
     return wk, wt
 
@@ -754,6 +779,179 @@ def check_b2b_b3(x3, layers, K, dpooled, label):
           "bit-identical", flush=True)
 
 
+BF16 = torch.bfloat16
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at |v| (f32 tensor of bf16 values): 2^(e - 8) for |v|
+    in [2^(e - 1), 2^e); at zero the smallest normal's."""
+    _, e = torch.frexp(v.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+def bf16_flips(k, t, name, bar=1e-3):
+    """A bf16 row output against its twin: every entry within one bf16 ulp
+    of the twin's (the larger of the two values' ulps), except where a
+    bf16 rounding or ReLU decision upstream went the other way between
+    the two summation orders: those entries are counted, and held to at
+    most ``bar`` of the entries. Returns (entries beyond one ulp, max |k -
+    t|)."""
+    a, b = k.float(), t.float()
+    d = (a - b).abs()
+    n = int((d > bf16_ulp(torch.maximum(a.abs(), b.abs()))).sum())
+    check(n <= bar * a.numel(), f"{name}: {n} of {a.numel()} entries beyond "
+                                f"one bf16 ulp of the twin (bar {bar:g})")
+    return n, float(d.max())
+
+
+def bf16_index_flips(k_idx, t_idx, t_vals, t_best, name):
+    """Pool indices equal but where the twin's value at the kernel's index
+    is within one bf16 ulp of its best (a near-tie that the two summation
+    orders break apart). Returns the number of differing indices."""
+    bad = k_idx != t_idx
+    if bool(bad.any()):
+        g, c = bad.nonzero(as_tuple=True)
+        v = t_vals[g, k_idx[g, c].long(), c]
+        best = t_best[g, c].float()
+        near = (v - best).abs() <= bf16_ulp(best.abs())
+        check(bool(near.all()), f"{name}: {int((~near).sum())} pool indices "
+                                "differ beyond a bf16 near-tie")
+    return int(bad.sum())
+
+
+def acc_rel(k, t, name, bar=1e-3):
+    """An f32 accumulator of a bf16 sweep: within ``bar`` of its max-abs."""
+    err = float((k - t).abs().max())
+    scale = float(t.abs().max())
+    check(err <= bar * max(scale, 1e-30),
+          f"{name}: accumulator error {err:.3e} > {bar:g} x {scale:.3e}")
+    return err
+
+
+def bf16_rows(x3, layers, dpooled, K):
+    """The five bf16 sweeps (B2a, B2b, B3a, B3b, B3c at bf16) against
+    their bf16 twins on the same card tensors, each fed the twin chain's
+    inputs: the main path's grouped x rounded to bf16, the model's SA
+    weights, dpooled as a bf16 cotangent. Bars: bf16 outputs within one
+    bf16 ulp outside counted flips (bf16_flips: at most 1e-3 of the
+    entries), pool indices outside bf16 near-ties (bf16_index_flips), f32
+    accumulators within 1e-3 of their max-abs (acc_rel); run to run
+    bit-identical. Returns the kernel-table rows."""
+    SP = sweep_modules()[0]
+    from facl_tpu_torch.ops.sa_bwd import _fold_affine, _layer_terms
+    from facl_tpu_torch.ops.sa_fwd import _finalize
+    lp1, lp2, lp3 = layers
+    Bc, C0, N = x3.shape
+    R, P, eps = Bc * N, Bc * N // K, 1e-5
+    C1, C2, C3 = 64, 64, 256
+    xb = x3.to(BF16).contiguous()
+    dpb = dpooled.to(BF16).contiguous()
+    xf = xb.float()
+    rows, notes = [], []
+    m1, v1 = SP._moments_from_gram(torch.einsum("bcn,bdn->cd", xf, xf),
+                                   xf.sum((0, 2)), lp1.kernel, lp1.bias, R)
+    mul1, shift1 = _fold_affine(lp1, m1, v1, eps)
+
+    def same(fn, args, out, name):
+        check(all(torch.equal(a, b) for a, b in zip(out, fn(*args))),
+              f"{name}: two runs differ")
+
+    def add(name, fn, args, err, nbytes, ops, tc_ops, replaces):
+        rows.append(dict(name=name, args=args, err=err, nbytes=nbytes,
+                         ops=ops, tc_ops=tc_ops, passes=1, fn=fn,
+                         plain=getattr(SP, fn.__name__ + "_plain"),
+                         replaces=replaces))
+
+    a12 = (xb, lp1.kernel, lp1.bias, mul1, shift1, lp2.kernel, lp2.bias)
+    p2, s2, ss2 = SP.sa_fwd_layer12_bf16_plain(*a12)
+    k = SP.sa_fwd_layer12_bf16(*a12)
+    same(SP.sa_fwd_layer12_bf16, a12, k, "layer12 bf16")
+    n, e = bf16_flips(k[0], p2, "layer12 bf16 p2")
+    e = max(e, acc_rel(k[1], s2, "layer12 bf16 s"),
+            acc_rel(k[2], ss2, "layer12 bf16 ss"))
+    notes.append(f"B2a p2 {n}")
+    add("sa_fwd_layer12 [bf16]", SP.sa_fwd_layer12_bf16, a12, e,
+        R * (C0 + C2) * 2, R * (2 * C0 * C1 + 6 * C1 + 5 * C2),
+        R * 2 * C1 * C2, "facl_tpu/ops/pallas/sa_pair.py:634")
+
+    m2, v2 = _finalize(s2, ss2, R)
+    mul2, shift2 = _fold_affine(lp2, m2, v2, eps)
+    agp = (p2, mul2, shift2, lp3.kernel, lp3.bias, K)
+    G2, ch2, mx, mn, imx, imn = SP.sa_fwd_gram_pool_bf16_plain(*agp)
+    k = SP.sa_fwd_gram_pool_bf16(*agp)
+    same(SP.sa_fwd_gram_pool_bf16, agp, k, "gram_pool bf16")
+    h2 = SP._h2_bf16(p2, mul2, shift2)
+    p3 = (SP._rb(h2 @ SP._rb(lp3.kernel)) + SP._rb(lp3.bias)).reshape(P, K,
+                                                                      C3)
+    del h2
+    nx, ex = bf16_flips(k[2], mx, "gram_pool bf16 max")
+    nn, en = bf16_flips(k[3], mn, "gram_pool bf16 min")
+    ni = bf16_index_flips(k[4], imx, p3, mx, "gram_pool bf16 argmax") + \
+        bf16_index_flips(k[5], imn, p3, mn, "gram_pool bf16 argmin")
+    del p3
+    e = max(ex, en, acc_rel(k[0], G2, "gram_pool bf16 G2"),
+            acc_rel(k[1], ch2, "gram_pool bf16 ch2"))
+    notes.append(f"B2b max/min {nx}/{nn}, indices {ni}")
+    add("sa_fwd_gram_pool [bf16]", SP.sa_fwd_gram_pool_bf16, agp, e,
+        R * C2 * 2 + P * C3 * (2 + 2 + 4 + 4),
+        R * (4 * C2 + 4 * C3 + 2 * C3), R * (C2 * (C2 + 1) + 2 * C2 * C3),
+        "facl_tpu/ops/pallas/sa_pair.py:660")
+
+    m3, v3 = SP._moments_from_gram(G2, ch2, lp3.kernel, lp3.bias, R)
+    mul3, shift3 = _fold_affine(lp3, m3, v3, eps)
+    sel = mul3 >= 0
+    zstar = torch.where(sel, mx.float(), mn.float()) * mul3 + shift3
+    idx = torch.where(zstar > 0, torch.where(sel, imx, imn),
+                      torch.full_like(imx, K))
+    gi2 = lp2.scale * torch.rsqrt(v2 + eps)
+    gi3 = lp3.scale * torch.rsqrt(v3 + eps)
+    as1 = (p2, mul2, shift2, dpb, idx, gi3, lp3.kernel, K)
+    A3, u3, q3 = SP.sa_bwd_sweep1_bf16_plain(*as1)
+    k = SP.sa_bwd_sweep1_bf16(*as1)
+    same(SP.sa_bwd_sweep1_bf16, as1, k, "sweep1 bf16")
+    n, e = bf16_flips(k[2], q3, "sweep1 bf16 q3")
+    e = max(e, acc_rel(k[0], A3, "sweep1 bf16 A3"),
+            acc_rel(k[1], u3, "sweep1 bf16 u3"))
+    notes.append(f"B3a q3 {n}")
+    nnz = int((idx < K).sum())
+    add("sa_bwd_sweep1 [bf16]", SP.sa_bwd_sweep1_bf16, as1, e,
+        2 * R * C2 * 2 + P * C3 * (2 + 4), nnz * (4 * C2 + 3) + R * 4 * C2,
+        0, "facl_tpu/ops/pallas/sa_pair.py:772")
+
+    t3 = _layer_terms(A3, u3, lp3, m3, v3, G2, ch2, R, eps)
+    as2 = (xb, lp1.kernel, lp1.bias, mul1, shift1, p2, mul2, shift2, q3,
+           t3["M"].contiguous(), t3["rc"], gi2, lp2.kernel)
+    A2, G1, u2, ch1, mq = SP.sa_bwd_sweep2_bf16_plain(*as2)
+    k = SP.sa_bwd_sweep2_bf16(*as2)
+    same(SP.sa_bwd_sweep2_bf16, as2, k, "sweep2 bf16")
+    n, e = bf16_flips(k[4], mq, "sweep2 bf16 mq")
+    e = max([e] + [acc_rel(a, b, f"sweep2 bf16 {nm}") for a, b, nm in
+                   zip(k[:4], (A2, G1, u2, ch1), ("A2", "G1", "u2", "ch1"))])
+    notes.append(f"B3b mq {n}")
+    add("sa_bwd_sweep2 [bf16]", SP.sa_bwd_sweep2_bf16, as2, e,
+        R * (C0 + 2 * C2 + C1) * 2,
+        R * (2 * C0 * C1 + 6 * C1 + 4 * C2 + 6 * C2 + 3 * C1 + C2),
+        R * (2 * C2 * C2 + 2 * C2 * C1 + 2 * C2 * C1 + C1 * (C1 + 1)),
+        "facl_tpu/ops/pallas/sa_pair.py:800")
+
+    t2 = _layer_terms(A2, u2, lp2, m2, v2, G1, ch1, R, eps)
+    as3 = (xb, lp1.kernel, lp1.bias, mul1, shift1, mq, t2["M"].contiguous(),
+           t2["rc"])
+    A1, u1 = SP.sa_bwd_sweep3_bf16_plain(*as3)
+    k = SP.sa_bwd_sweep3_bf16(*as3)
+    same(SP.sa_bwd_sweep3_bf16, as3, k, "sweep3 bf16")
+    e = max(acc_rel(k[0], A1, "sweep3 bf16 A1"),
+            acc_rel(k[1], u1, "sweep3 bf16 u1"))
+    add("sa_bwd_sweep3 [bf16]", SP.sa_bwd_sweep3_bf16, as3, e,
+        R * (C0 + C1) * 2, R * (2 * C0 * C1 + 6 * C1 + 4 * C1),
+        R * (2 * C1 * C1 + 2 * C1 * (C0 + 1)),
+        "facl_tpu/ops/pallas/sa_pair.py:835")
+    print(f"bf16 sweeps vs their bf16 twins (R={R}, K={K}): entries beyond "
+          f"one bf16 ulp: {'; '.join(notes)}; all five run to run "
+          "bit-identical", flush=True)
+    return rows
+
+
 def phase_kernels(dev, model, points):
     """Each kernel against its twin on real main-path tensors."""
     from facl_tpu_torch.ops import sa_pair as SP
@@ -956,12 +1154,14 @@ def phase_kernels(dev, model, points):
                          plain=SP.sa_bwd_sweep2_full_plain, source=SRC2,
                          replaces="facl_tpu/ops/pallas/sa_pair.py:863"))
         del km
+        rows += bf16_rows(x3, (lp1, lp2, lp3), dpooled, K)
         rows += two_sweep_rows(x3, (lp1, lp2, lp3), dpooled, K)
         rows += b9_rows(x3.transpose(1, 2).reshape(R, C0).contiguous(),
                         [lp1, lp2, lp3], K, dpooled)
         torch.cuda.synchronize()
         for impl in IMPLS + ("pallas",):
             sa_chain_vs_f64(x3, [lp1, lp2, lp3], dpooled, K, impl)
+        sa_chain_vs_f64(x3, [lp1, lp2, lp3], dpooled, K, "pair3", BF16)
 
         # The fine variant's grouping (S=32, K=128): B1, and pool groups
         # that span two of the sweeps' 64-row tiles.
@@ -974,6 +1174,8 @@ def phase_kernels(dev, model, points):
         for impl in IMPLS + ("pallas",):
             sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf,
                             Kf, impl)
+        sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf, Kf,
+                        "pair3", BF16)
 
         for r in rows + cube_rows + slab_rows:
             measure(r)
@@ -1011,11 +1213,11 @@ def measure(r):
 #: for a launcher that takes no grid)).
 PARENT = {}
 PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
-             "sa_fwd_layer12": ("sa_pair", "facl_sa_fwd_layer12", 2),
+             "sa_fwd_layer12": ("sa_pair", "facl_sa_fwd_layer12", 1),
              "sa_fwd_gram_pool": ("sa_pair", "facl_sa_fwd_gram_pool", 1),
-             "sa_bwd_sweep1": ("sa_pair", "facl_sa_bwd_sweep1", 2),
+             "sa_bwd_sweep1": ("sa_pair", "facl_sa_bwd_sweep1", 1),
              "sa_bwd_sweep2": ("sa_pair", "facl_sa_bwd_sweep2", 1),
-             "sa_bwd_sweep3": ("sa_pair", "facl_sa_bwd_sweep3", 2)}
+             "sa_bwd_sweep3": ("sa_pair", "facl_sa_bwd_sweep3", 1)}
 PARENT_LIBS = ("select", "sa_pair")
 
 
@@ -1054,8 +1256,10 @@ def load_parent(started) -> None:
 def parent_ab(fn, args):
     """Device ms of wrapper ``fn`` on ``args`` with the parent tree's
     launcher (at the parent's grid for it, where it takes one) and with
-    this tree's, in turns: parent, this tree, this tree, parent. The
-    launchers' C signatures are the same in both trees."""
+    this tree's, in turns: parent, this tree, this tree, parent; and the
+    outputs of one call of each, which must be bit-equal (fails
+    otherwise). The launchers' C signatures are the same in both trees
+    (pointers are void* to ctypes)."""
     import ctypes
     from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_pair as SP
@@ -1069,18 +1273,26 @@ def parent_ab(fn, args):
     def parent_grid(t, R, per_sm=2):
         return min(R // 64, parent_per_sm * _build.sm_count(t.device))
 
-    def run_parent():
+    def run_parent(out=None):
         _build._FUNCTIONS[key] = (lib, pfn)
         try:
             with swapped([(SP, "grid", parent_grid)] if parent_per_sm
                          else []):
+                if out is not None:
+                    out.extend(fn(*args))
                 return device_ms(lambda: fn(*args))[0]
         finally:
             _build._FUNCTIONS[key] = ours
 
     def run_ours():
         return device_ms(lambda: fn(*args))[0]
-    return [run_parent(), run_ours(), run_ours(), run_parent()]
+    theirs = []
+    ab = [run_parent(theirs), run_ours(), run_ours(), run_parent()]
+    mine = fn(*args)
+    check(len(mine) == len(theirs) and
+          all(torch.equal(a, b) for a, b in zip(mine, theirs)),
+          f"--parent: {fn.__name__}'s outputs differ from the parent's")
+    return ab
 
 
 def print_row(r, label=""):
@@ -1099,15 +1311,18 @@ def print_row(r, label=""):
         print(f"  A/B {r['name']} in turns (parent, this tree, this tree, "
               f"parent): {' / '.join(f'{v:.4f}' for v in ab)} ms on the "
               f"device; parent mean {(ab[0] + ab[3]) / 2:.4f}, this tree "
-              f"{(ab[1] + ab[2]) / 2:.4f}", flush=True)
+              f"{(ab[1] + ab[2]) / 2:.4f}; outputs bit-equal to the "
+              "parent's", flush=True)
 
 
-def _cfg(batch, impl="pair3", select_impl="auto", gather_impl="auto"):
+def _cfg(batch, impl="pair3", select_impl="auto", gather_impl="auto",
+         dtype="float32"):
     import dataclasses
     from facl_tpu_torch.config import Config
     cfg = Config()
     return cfg.replace(train=dataclasses.replace(cfg.train, batch_size=batch),
-                       model=dataclasses.replace(cfg.model, sa_impl=impl),
+                       model=dataclasses.replace(cfg.model, sa_impl=impl,
+                                                 compute_dtype=dtype),
                        grouping=dataclasses.replace(
                            cfg.grouping, select_impl=select_impl,
                            gather_impl=gather_impl))
@@ -1215,12 +1430,12 @@ def _decisions(model, impl, B, dec: dict):
     dec["sa_route"] = routes[0]
 
 
-def _step_decisions(d, B, pts, perm, impl, twins=False):
+def _step_decisions(d, B, pts, perm, impl, twins=False, dtype="float32"):
     """One step_fn on device ``d`` from the seed's weights (the SA sweeps'
     twins on the card with ``twins``). Returns the loss, the gradients and
     the step's discrete decisions (``_decisions``)."""
     from facl_tpu_torch.train import Trainer
-    tr = Trainer(_cfg(B, impl), steps_per_epoch=100, device=d)
+    tr = Trainer(_cfg(B, impl, dtype=dtype), steps_per_epoch=100, device=d)
     st = tr.init_state(SEED)
     dec = {}
     with contextlib.ExitStack() as stack:
@@ -1316,6 +1531,52 @@ def phase_cpu_vs_card(dev):
     perm = torch.randperm(G, generator=g)
     for impl in IMPLS[:3] + ("pallas",):
         _cpu_vs_card(dev, impl, pts, perm)
+    _cpu_vs_card_bf16(dev, pts, perm)
+
+
+def _cpu_vs_card_bf16(dev, pts, perm):
+    """The same B=8 step at compute_dtype bfloat16 with pair3: the CPU
+    (bf16 twins, torch's CPU bf16 GEMMs) against the card (the bf16
+    kernels, cuBLAS bf16 GEMMs with f32 accumulation), from the same
+    weights, points and permutation, and both against the float64 step.
+    At bf16 a flipped rounding moves a value by 2^-8 of itself, and two
+    bf16 steps that sum in different orders put thousands of ReLU and
+    pool decisions on different sides, so the f32 bars do not apply.
+    Bars: loss at rtol 1e-2; over all gradients but the BN-absorbed
+    biases together, the card's relative L2 from float64 at most twice
+    the CPU's. Printed beside them: each gradient's card-vs-CPU relative
+    L2 and cosine at their worst, and the flipped decisions."""
+    from facl_tpu_torch.train import Trainer
+    B, impl = pts.shape[1], "pair3"
+    lc, gc, dc = _step_decisions("cpu", B, pts, perm, impl, dtype="bfloat16")
+    lk, gk, dk = _step_decisions(dev, B, pts, perm, impl, dtype="bfloat16")
+    l64, g64, _ = _f64_grads(Trainer(_cfg(B, impl), 100, device="cpu"),
+                             pts, perm)
+    check(math.isclose(lk, lc, rel_tol=1e-2),
+          f"cpu-vs-card {impl} bf16 loss {lk} vs {lc}")
+    gscale = max(float(t.abs().max()) for t in g64.values())
+    absorbed = {n for n in gc if float(g64[n].abs().max()) < 1e-9 * gscale}
+    live = [n for n in gc if n not in absorbed]
+
+    def dist(g):
+        num = sum(float((g[n] - g64[n]).norm()) ** 2 for n in live)
+        return (num / sum(float(g64[n].norm()) ** 2 for n in live)) ** 0.5
+    e_cpu, e_card = dist(gc), dist(gk)
+    l2 = {n: _rel_l2(gk[n].double(), gc[n].double()) for n in live}
+    cos = {n: float(gk[n].double().flatten() @ gc[n].double().flatten()
+                    / max(float(gk[n].double().norm() *
+                                gc[n].double().norm()), 1e-300))
+           for n in live}
+    wl, wc = max(l2, key=l2.get), min(cos, key=cos.get)
+    flips = {n: int((dc[n] != dk[n]).sum()) for n in dc}
+    print(f"cpu-vs-card {impl} bf16 B={B} step: loss cpu {lc:.6f} card "
+          f"{lk:.6f} (f64 {l64:.6f}); relative L2 from float64 over "
+          f"{len(live)} gradients: cpu {e_cpu:.3e}, card {e_card:.3e}; card "
+          f"vs cpu worst relative L2 {l2[wl]:.3e} ({wl}), worst cosine "
+          f"{cos[wc]:.6f} ({wc}); flipped decisions {flips} of "
+          f"{ {n: dc[n].numel() for n in dc} }", flush=True)
+    check(e_card <= 2 * e_cpu, f"cpu-vs-card {impl} bf16: card {e_card:.3e} "
+                               f"from float64, cpu {e_cpu:.3e}")
 
 
 def _cpu_vs_card(dev, impl, pts, perm):
@@ -1498,6 +1759,15 @@ PATHS = {
                 "sa_fwd_pool": 1, "sa_bwd2_sweep1": 1, "sa_bwd2_sweep2": 1},
     "hybrid": {"select_gather": 1, "sa_bwd2_sweep1": 1, "sa_bwd2_sweep2": 1},
 }
+#: The bf16 paths (compute_dtype bfloat16): (label, sa_impl, timed steps,
+#: launches per step). pair3 runs the bf16 sweeps; reference only B1.
+BF16_PATHS = (
+    ("pair3 bf16", "pair3", 40,
+     {"select_gather": 1, "sa_fwd_layer12_bf16": 1,
+      "sa_fwd_gram_pool_bf16": 1, "sa_bwd_sweep1_bf16": 1,
+      "sa_bwd_sweep2_bf16": 1, "sa_bwd_sweep3_bf16": 1}),
+    ("reference bf16", "reference", 20, {"select_gather": 1}),
+)
 #: The pallas paths: (label, select_impl, gather_impl, timed steps,
 #: launches per step).
 PALLAS_PATHS = (
@@ -1521,6 +1791,11 @@ def phase_main(dev, profile: bool, card: str):
                               batches, g, kernels, card, profile,
                               PATHS[impl])
         torch.cuda.empty_cache()
+    for label, impl, steps, want in BF16_PATHS:
+        out[label] = _run_path(dev, impl, steps, batches, g, kernels, card,
+                               profile and impl == "pair3", want, label,
+                               dtype="bfloat16")
+        torch.cuda.empty_cache()
     for label, si, gi, steps, want in PALLAS_PATHS:
         out[label] = _run_path(dev, "pallas", steps, batches, g, kernels,
                                card, profile and label == "pallas", want,
@@ -1538,12 +1813,13 @@ def all_kernels():
 
 
 def _run_path(dev, impl, steps, batches, g, kernels, card, profile, want,
-              label=None, select_impl="auto", gather_impl="auto"):
+              label=None, select_impl="auto", gather_impl="auto",
+              dtype="float32"):
     from facl_tpu_torch.train import Trainer
     G, B, N = batches.shape[1:4]
     label = label or impl
-    tr = Trainer(_cfg(B, impl, select_impl, gather_impl), steps_per_epoch=100,
-                 device=dev)
+    tr = Trainer(_cfg(B, impl, select_impl, gather_impl, dtype),
+                 steps_per_epoch=100, device=dev)
     state = tr.init_state(SEED)
     state, _ = tr.run_epoch(state, [batches[0], batches[1]], epoch=0,
                             generator=g)
@@ -1576,7 +1852,8 @@ def _run_path(dev, impl, steps, batches, g, kernels, card, profile, want,
     ms = statistics.median(per)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     print(f"main path {label} (sa_impl={impl}, select_impl={select_impl}, "
-          f"gather_impl={gather_impl}) on {card}: B={B} G={G} N={N} f32, "
+          f"gather_impl={gather_impl}) on {card}: B={B} G={G} N={N} "
+          f"{'bf16' if dtype == 'bfloat16' else 'f32'}, "
           f"{steps} steps: median {ms:.2f} ms/step (min {per[0]:.2f}, "
           f"quartiles {per[steps // 4]:.2f}-{per[3 * steps // 4]:.2f}, max "
           f"{per[-1]:.2f}; wall-clock mean {wall:.2f}), {B / ms * 1e3:.1f} "
@@ -1631,7 +1908,8 @@ def main() -> None:
           "(parallel nvcc)", flush=True)
     for src, log in _build.REGISTRY.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or \
+                    "Compiling entry" in line:
                 print(f"ptxas {src}: {line.strip()}", flush=True)
     if parent:
         load_parent(parent)

@@ -8,6 +8,8 @@ the SA stage's batch moments come from Gram-matrix identities whose
 entries are O(rows), and a reduced-precision contraction there breaks
 BatchNorm parity while every small CPU test still passes (docs/DESIGN.md
 section 3 records the same failure under the TPU's default precision).
+It also keeps bf16 GEMMs accumulating in f32 (cuBLAS may otherwise reduce
+in bf16), as the JAX package's bf16 ``nn.Dense`` does.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __version__ = "0.1.0"
 

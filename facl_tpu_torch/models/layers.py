@@ -7,6 +7,14 @@ biased variance (E[x^2] - E[x]^2 clamped at 0) both for normalising and
 for the running update ``m*old + (1-m)*new`` with m = 0.9. Parameter and
 buffer names follow flax's (``scale``/``bias``, ``mean``/``var``) so that
 ``facl_tpu_torch.convert.from_jax`` maps variable trees one to one.
+
+``dtype`` is the compute dtype, as flax's ``dtype=`` (facl_tpu/models/
+layers.py): at ``torch.bfloat16`` a Dense multiplies in bf16 from its f32
+parameters (f32 accumulation) and adds its bf16 bias to the bf16 product;
+a BatchNorm takes its statistics over the f32 upcast, updates its running
+buffers in f32, normalises in f32 and casts its output to bf16
+(flax/linen/normalization.py ``_compute_stats`` / ``_normalize``).
+Parameters and buffers stay f32.
 """
 from __future__ import annotations
 
@@ -41,19 +49,33 @@ def dense(cin: int, cout: int, bias: bool = True,
     return lin
 
 
+def apply_dense(lin: nn.Linear, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``lin(x)``; at bf16 as flax's ``nn.Dense(dtype=bfloat16)``: the
+    product of the bf16 input and kernel (rounded once), plus the bf16
+    bias."""
+    if dtype != torch.bfloat16:
+        return lin(x)
+    y = nn.functional.linear(x.to(dtype), lin.weight.to(dtype))
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the trailing channel axis, flax semantics."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.momentum, self.eps = momentum, eps
+        self.momentum, self.eps, self.dtype = momentum, eps, dtype
         self.scale = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bf = self.dtype == torch.bfloat16
+        if bf:
+            x = x.float()
         if self.training:
             flat = x.reshape(-1, x.shape[-1])
             mean = flat.mean(0)
@@ -64,8 +86,9 @@ class BatchNorm(nn.Module):
                 self.var.copy_(m * self.var + (1 - m) * var)
         else:
             mean, var = self.mean, self.var
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
             + self.bias
+        return y.to(self.dtype) if bf else y
 
 
 class PointMLP(nn.Module):
@@ -74,18 +97,20 @@ class PointMLP(nn.Module):
 
     def __init__(self, in_features: int, widths: Sequence[int],
                  bn_momentum: float = 0.9,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.n = len(widths)
+        self.n, self.dtype = len(widths), dtype
         cin = in_features
         for i, w in enumerate(widths):
             setattr(self, f"dense_{i}", dense(cin, w, generator=generator))
-            setattr(self, f"BatchNorm_{i}", BatchNorm(w, bn_momentum))
+            setattr(self, f"BatchNorm_{i}",
+                    BatchNorm(w, bn_momentum, dtype=dtype))
             cin = w
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n):
-            x = getattr(self, f"dense_{i}")(x)
+            x = apply_dense(getattr(self, f"dense_{i}"), x, self.dtype)
             x = torch.relu(getattr(self, f"BatchNorm_{i}")(x))
         return x
 
@@ -96,14 +121,18 @@ class EmbedHead(nn.Module):
 
     def __init__(self, in_features: int, hidden: int = 1024, out: int = 512,
                  bn_momentum: float = 0.9,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.Dense_0 = dense(in_features, hidden, generator=generator)
-        self.BatchNorm_0 = BatchNorm(hidden, bn_momentum)
+        self.BatchNorm_0 = BatchNorm(hidden, bn_momentum, dtype=dtype)
         self.Dense_1 = dense(hidden, out, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Dense_1(torch.relu(self.BatchNorm_0(self.Dense_0(x))))
+        h = torch.relu(self.BatchNorm_0(apply_dense(self.Dense_0, x,
+                                                    self.dtype)))
+        return apply_dense(self.Dense_1, h, self.dtype)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,

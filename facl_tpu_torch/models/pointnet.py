@@ -6,6 +6,12 @@ Rows are BATCH-major: crop g of video b sits at row b*G + g
 of a video — is a pure reshape. The embed head is shared by the local and
 the global branch, so in train mode its BatchNorm running statistics
 update twice per step, local before global (pointnet.py:111-112).
+
+``ModelConfig.compute_dtype`` "bfloat16" follows facl_tpu/models/
+pointnet.py:97-117: the grouped neighbourhoods (grouping stays f32) and
+the centers are cast to bf16, the SA stage, stage-2 MLP and head compute
+in bf16, the head outputs are cast to f32, and the prototype mapping runs
+in bf16 on the f32 ``x_nor`` and is cast to f32.
 """
 from __future__ import annotations
 
@@ -16,8 +22,8 @@ import torch
 from torch import nn
 
 from facl_tpu_torch.config import Config, GroupingConfig, ModelConfig
-from facl_tpu_torch.models.layers import EmbedHead, PointMLP, dense, \
-    l2_normalize
+from facl_tpu_torch.models.layers import EmbedHead, PointMLP, apply_dense, \
+    dense, l2_normalize
 from facl_tpu_torch.models.sa_stage import SetAbstractionStage
 from facl_tpu_torch.ops._launch import TRUNK
 
@@ -35,15 +41,17 @@ class PointNetPlus(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg = resolve_model_config(cfg)
+        self.dtype = dtype = compute_dtype(cfg)
         self.sa_stage = SetAbstractionStage(
             cfg.in_features, cfg.sa_widths, cfg.bn_momentum,
             channels_first=cfg.channels_first, impl=cfg.sa_impl,
-            generator=generator)
+            generator=generator, dtype=dtype)
         self.stage2_mlp = PointMLP(3 + cfg.sa_widths[-1], cfg.stage2_widths,
-                                   cfg.bn_momentum, generator=generator)
+                                   cfg.bn_momentum, generator=generator,
+                                   dtype=dtype)
         self.head = EmbedHead(cfg.stage2_widths[-1], cfg.fc_hidden,
                               cfg.embed_dim, cfg.bn_momentum,
-                              generator=generator)
+                              generator=generator, dtype=dtype)
         # Prototype scores; no bias (cn3d_model_conbag.py:91).
         self.mapping = dense(cfg.embed_dim, cfg.num_prototypes, bias=False,
                              generator=generator)
@@ -62,6 +70,9 @@ class PointNetPlus(nn.Module):
                 f"encoder configured for in_features={self.cfg.in_features} "
                 f"but got {C}-channel neighborhoods")
         B = GB // G
+        bf = self.dtype == torch.bfloat16
+        if bf:
+            neighborhoods = neighborhoods.to(self.dtype)
         h = self.sa_stage(neighborhoods)                        # (GB, S, C3)
         h = torch.cat([centers.to(h.dtype), h], dim=-1)
         local = self.stage2_mlp(h)                              # (GB, S, F)
@@ -69,8 +80,25 @@ class PointNetPlus(nn.Module):
         x_global = local.reshape(B, G * S, local.shape[-1]).amax(1)
         x = self.head(x)
         x_global = self.head(x_global)
+        if bf:
+            x, x_global = x.float(), x_global.float()
         x_nor = l2_normalize(x, dim=1)
-        return x, self.mapping(x_nor), x_nor, x_global
+        code = apply_dense(self.mapping, x_nor, self.dtype)
+        return x, code.float() if bf else code, x_nor, x_global
+
+
+#: ModelConfig.compute_dtype values the port runs.
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(model_cfg: ModelConfig) -> torch.dtype:
+    """The torch dtype of ``model_cfg.compute_dtype``."""
+    name = model_cfg.compute_dtype
+    if name not in COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"compute_dtype={name!r} is not ported; the port runs "
+            f"{tuple(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
 
 
 def resolve_model_config(model_cfg: ModelConfig) -> ModelConfig:
@@ -111,7 +139,7 @@ def resolve_grouping(cfg: Config) -> GroupingConfig:
             knn_k=cfg.model.fine_knn_k)
     if name == "slow_fast":
         raise NotImplementedError("slow_fast is not ported yet (ROADMAP "
-                                  "Queue 1 item 15)")
+                                  "Queue 1 item 16)")
     raise ValueError(f"unknown model name {name!r}; expected pointnet_plus, "
                      "pointnet_plus_fine or slow_fast")
 

@@ -25,6 +25,12 @@ Eval mode is plain math with the running statistics (sa_stage.py:221-268).
 With ``channels_first`` the input is (B, C, S, K); every impl but
 pair/pair3, and eval, transposes it to channels-last first
 (sa_stage.py:98-105).
+
+``dtype`` is the compute dtype (facl_tpu/models/sa_stage.py:227-268): at
+``torch.bfloat16`` train mode runs pair3 (the bf16 sweeps of B2/B3) or
+reference (plain bf16), eval the bf16 reference, and the pooled output is
+bf16 (sa_stage.py:225); parameters and statistics stay f32. Every other
+impl raises NotImplementedError at bf16 in train mode, on every device.
 """
 from __future__ import annotations
 
@@ -36,8 +42,8 @@ from torch import nn
 from facl_tpu_torch.models.layers import lecun_normal_
 from facl_tpu_torch.ops._launch import TRUNK
 from facl_tpu_torch.ops.analytic_sa import sa_train_analytic
-from facl_tpu_torch.ops.fused_sa import SALayerParams, sa_reference_4d, \
-    sa_train_fused
+from facl_tpu_torch.ops.fused_sa import BF16, SALayerParams, \
+    reject_bf16, sa_reference_4d, sa_train_fused
 from facl_tpu_torch.ops.sa_bwd import sa_train_hybrid
 from facl_tpu_torch.ops.sa_fwd import _moments_from_gram, sa_train_pfwd
 from facl_tpu_torch.ops.sa_pair import sa_train_pair
@@ -48,6 +54,8 @@ IMPLS = ("reference", "covar", "analytic", "hybrid", "hybrid2", "pair",
 #: The impls that run the sweep kernels B2-B8: their input cotangent is
 #: zero by contract, and on the card they take only SA widths TRUNK.
 SWEEPS = ("hybrid", "hybrid2", "pair", "pair3")
+#: The train-mode impls with a bf16 form.
+BF16_IMPLS = ("pair3", "reference")
 
 
 def covar_moments(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor):
@@ -67,11 +75,13 @@ class SetAbstractionStage(nn.Module):
                  bn_momentum: float = 0.9, epsilon: float = 1e-5,
                  channels_first: bool = True, impl: str = "pair3",
                  input_grad: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"unknown SA impl {impl!r}; expected one of "
                              f"{IMPLS}")
+        self.dtype = dtype
         self.widths = tuple(widths)
         self.bn_momentum, self.epsilon = bn_momentum, epsilon
         self.channels_first = channels_first
@@ -104,6 +114,9 @@ class SetAbstractionStage(nn.Module):
             raise ValueError(f"expected 4-D neighbourhoods, got {x.shape}")
         impl, layers, eps = self.impl, self.layers(), self.epsilon
         pair = impl in ("pair", "pair3")
+        bf = self.dtype == BF16
+        if bf and self.training and impl not in BF16_IMPLS:
+            reject_bf16(BF16, impl)
         if self.training and self.input_grad and impl in SWEEPS:
             raise ValueError(
                 f"sa impl {impl!r} defines a zero input cotangent; use "
@@ -118,12 +131,14 @@ class SetAbstractionStage(nn.Module):
         if self.channels_first and not (self.training and pair):
             x = x.permute(0, 2, 3, 1)                       # (B, S, K, C)
         if not self.training:
-            pooled, _, _, _ = sa_reference_4d(x, layers, eps, self.running())
+            pooled, _, _, _ = sa_reference_4d(x, layers, eps, self.running(),
+                                              dtype=self.dtype)
             return pooled
         if pair:
             x_cf = x if self.channels_first else x.permute(0, 3, 1, 2)
             pooled, stats = sa_train_pair(x_cf, layers, eps,
-                                          slim=impl == "pair3")
+                                          slim=impl == "pair3",
+                                          dtype=self.dtype)
         elif impl == "hybrid":
             pooled, stats = sa_train_hybrid(x, layers, eps)
         elif impl == "hybrid2":
@@ -139,7 +154,8 @@ class SetAbstractionStage(nn.Module):
             moments = (lambda h, lp: covar_moments(h, lp.kernel, lp.bias)) \
                 if impl == "covar" else None
             pooled, stats, _, _ = sa_reference_4d(x, layers, eps,
-                                                  moments=moments)
+                                                  moments=moments,
+                                                  dtype=self.dtype)
         m = self.bn_momentum
         with torch.no_grad():
             for (mean_b, var_b), (mean, var) in zip(self.running(), stats):

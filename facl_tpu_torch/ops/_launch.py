@@ -48,10 +48,10 @@ def check_c0(C0: int, R: int):
                          f"C0={C0}, rows={R}")
 
 
-def check_x(x3: torch.Tensor):
-    """Channel-major input (B, C0, N)."""
+def check_x(x3: torch.Tensor, dtype=torch.float32):
+    """Channel-major input (B, C0, N) stored as ``dtype``."""
     B, C0, N = x3.shape
-    need(x3, (B, C0, N), "x")
+    need(x3, (B, C0, N), "x", dtype)
     check_c0(C0, B * N)
     return B, C0, N
 

@@ -21,7 +21,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-from facl_tpu_torch.ops.fused_sa import SALayerParams, sa_reference_4d
+from facl_tpu_torch.ops.fused_sa import SALayerParams, reject_bf16, \
+    sa_reference_4d
 from facl_tpu_torch.ops.sa_bwd import _dy_top, _fold_affine, _layer_terms
 
 
@@ -72,6 +73,7 @@ def sa_train_analytic(x: torch.Tensor, layers: Sequence[SALayerParams],
     """x (..., K, C0), max-pooled over K. Returns (pooled (..., C_L),
     [(mean, var)] per layer): the reference path's values, with the
     hand-derived backward (module docstring)."""
+    reject_bf16(x.dtype, "analytic")
     L = len(layers)
     out = _Analytic.apply(x, eps, L, *(t for lp in layers for t in lp))
     st = out[1:]

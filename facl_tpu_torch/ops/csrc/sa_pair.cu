@@ -54,6 +54,13 @@
 // closed-form layer algebra between sweeps stay in PyTorch at full f32
 // (ops/sa_pair.py), as XLA did them outside Pallas.
 //
+// Each sweep is a template on BF: f32 rows (facl_sa_*) or bf16 rows
+// (facl_sa_*_bf16, compute_dtype bfloat16): x, p2, q3, mq and B2b's
+// max/min stored as bf16, every product in one TF32 pass (exact for bf16
+// operands), results rounded to bf16 at the TPU kernels' cast points
+// (sa_mma.cuh, and the bf16 twins in ops/sa_pair.py). The bf16 forms
+// keep the f32 forms' tiling, staging and fixed-order float64 partials.
+//
 // The backward recomputes p1 -> h1 from x with the forward's exact op
 // chain (h1_tile in sa_tile.cuh, shared by every x-reading kernel, B6 in
 // sa_2sweep.cu too, and h1_rows in sa_mma.cuh), so the ReLU masks agree
@@ -69,9 +76,10 @@ namespace {
 // x rows r0.. of a tile, channel-major: xs[c * TR + i] = x[b, c, n] for
 // row r0 + i = b*N + n, by threads tid of nth (where a tile crosses a
 // cloud boundary, or x is not staged by TMA).
-__device__ __forceinline__ void load_x_rows(const float* __restrict__ x,
+template <typename R>
+__device__ __forceinline__ void load_x_rows(const R* __restrict__ x,
                                             int C0, int64_t N, int64_t r0,
-                                            float* xs, int tid, int nth) {
+                                            R* xs, int tid, int nth) {
   for (int e = tid; e < TR * C0; e += nth) {
     const int i = e % TR, c = e / TR;
     const int64_t r = r0 + i;
@@ -130,12 +138,22 @@ __device__ __forceinline__ void halve(float& lo, float& hi, int lane, int m) {
   lo = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, send, m);
 }
 
+//
+// bf16 (BF): x and p2 stored as bf16, W1, b1, W2 and b2 rounded to bf16;
+// h1 by the bf16 chain (h1_of), h1 W2 in one TF32 pass (exact bf16
+// products) per k step, p2 = bf16(acc) + b2 summed in f32 and stored
+// rounded to bf16, its sums taken before that rounding (the TPU kernel's
+// chain, ops/sa_pair.py sa_fwd_layer12_bf16_plain). Same layout, the x
+// stages half filled.
+template <bool BF>
 __global__ void __launch_bounds__(NTM, 1)
-fwd_layer12_kernel(const float* __restrict__ x, int C0, int64_t N,
-                   int64_t ntiles, const float* __restrict__ W1,
+fwd_layer12_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
+                   int64_t N, int64_t ntiles, const float* __restrict__ W1,
                    const float* __restrict__ vec1, const float* __restrict__ W2,
-                   const float* __restrict__ b2, float* __restrict__ p2,
+                   const float* __restrict__ b2,
+                   typename Row<BF>::T* __restrict__ p2,
                    double* __restrict__ part) {
+  using T = typename Row<BF>::T;
   constexpr int STAGE = C0MAX * TR;
   constexpr int WB = 32 * b_stride(CW);
   extern __shared__ __align__(128) float smt[];
@@ -144,7 +162,8 @@ fwd_layer12_kernel(const float* __restrict__ x, int C0, int64_t N,
   float* const Wp[3] = {smt, smt + WB, smt + 2 * WB};  // W2 in 3 pieces
   float* W1s = smt + 3 * WB;                    // C0MAX * CW
   float* v = W1s + C0MAX * CW;                  // b1 | mul1 | shift1 | b2
-  float* stage = v + 4 * CW + warp * 2 * STAGE; // this warp's two x tiles
+  // this warp's two x tiles (STAGE values each, in STAGE floats of room)
+  T* stage = reinterpret_cast<T*>(v + 4 * CW + warp * 2 * STAGE);
   uint64_t* bars = reinterpret_cast<uint64_t*>(
                        v + 4 * CW + L12_WARPS * 2 * STAGE) + 2 * warp;
   const bool xbulk = N % TR == 0;     // x is 16-byte aligned (the wrapper)
@@ -154,10 +173,10 @@ fwd_layer12_kernel(const float* __restrict__ x, int C0, int64_t N,
   auto fetch = [&](int64_t i) {             // lane 0: x of the warp's tile i
     const int64_t r0 = (gw + i * nw) * TR, b = r0 / N, n = r0 - b * N;
     uint64_t* bar = &bars[i & 1];
-    mbar_expect(bar, C0 * TR * 4);
+    mbar_expect(bar, C0 * TR * sizeof(T));
     for (int c = 0; c < C0; ++c)
       bulk_load(stage + (i & 1) * STAGE + c * TR, x + (b * C0 + c) * N + n,
-                TR * 4, bar);
+                TR * sizeof(T), bar);
   };
 
   if (lane == 0 && xbulk) {
@@ -165,17 +184,26 @@ fwd_layer12_kernel(const float* __restrict__ x, int C0, int64_t N,
     mbar_init(&bars[1]);
     for (int64_t i = 0; i < 2 && i < count; ++i) fetch(i);
   }
-  load_b_split3(Wp, W2, CW, CW, 1);
-  copy_block(W1s, W1, C0 * CW);
-  copy_block(v, vec1, 3 * CW);
-  copy_block(v + 3 * CW, b2, CW);
+  if constexpr (BF) {                   // W2 in one piece: bf16(W2)
+    for (int e = threadIdx.x; e < CW * CW; e += NTM) {
+      const int k = e / CW, n = e % CW;
+      Wp[0][(4 * (k >> 3) + ((k & 7) >> 1)) * b_stride(CW) + 2 * n +
+            (k & 1)] = rb(W2[e]);
+    }
+  } else {
+    load_b_split3(Wp, W2, CW, CW, 1);
+  }
+  copy_block_p<BF>(W1s, W1, C0 * CW);
+  copy_block_p<BF>(v, vec1, CW);
+  copy_block(v + CW, vec1 + CW, 2 * CW);
+  copy_block_p<BF>(v + 3 * CW, b2, CW);
   __syncthreads();
 
   // Sums of p2 and p2^2 of columns 8 g + 2 t (+1): [s, ss, s', ss'].
   double run[4] = {0.0, 0.0, 0.0, 0.0};
   for (int64_t i = 0; i < count; ++i) {
     const int64_t r0 = (gw + i * nw) * TR;
-    const float* X = stage + (i & 1) * STAGE;
+    const T* X = stage + (i & 1) * STAGE;
     if (xbulk) {
       mbar_wait(&bars[i & 1], static_cast<uint32_t>((i >> 1) & 1));
     } else {
@@ -190,8 +218,8 @@ fwd_layer12_kernel(const float* __restrict__ x, int C0, int64_t N,
 #pragma unroll
       for (int k = 0; k < C0MAX - 1; ++k)
         if (k < C0) {
-          xa[k] = X[k * TR + ra];
-          xb[k] = X[k * TR + ra + 8];
+          xa[k] = to_f(X[k * TR + ra]);
+          xb[k] = to_f(X[k * TR + ra + 8]);
         }
       if (sl == TR / 16 - 1) {              // the stage is read: refill
         __syncwarp();
@@ -207,38 +235,55 @@ fwd_layer12_kernel(const float* __restrict__ x, int C0, int64_t N,
       for (int kb = 0; kb < 8; ++kb) {
         const int col = 8 * kb + 2 * t;
         float2 ha, hb;
-        h1_pair(xa, xb, C0, W1s, v, col, ha, hb);
-        const Split3 s[4] = {split3(ha.x), split3(hb.x), split3(ha.y),
-                             split3(hb.y)};
-        FragA3 a;
+        h1_pair<BF>(xa, xb, C0, W1s, v, col, ha, hb);
+        if constexpr (BF) {
+          // h1 and W2 are bf16 values: one exact pass per k step.
+          const uint32_t a0 = __float_as_uint(ha.x), a1 = __float_as_uint(hb.x);
+          const uint32_t a2 = __float_as_uint(ha.y), a3 = __float_as_uint(hb.y);
 #pragma unroll
-        for (int q = 0; q < 3; ++q)
+          for (int nj = 0; nj < 8; ++nj) {
+            const float2 w = ld2(Wp[0] + (4 * kb + t) * b_stride(CW) +
+                                 2 * (8 * nj + g));
+            float d[4];
+            zero4(d);
+            mma_tf32(d, a0, a1, a2, a3, __float_as_uint(w.x),
+                     __float_as_uint(w.y));
 #pragma unroll
-          for (int r = 0; r < 4; ++r) a.v[q][r] = s[r].v[q];
-        // Each step's six products summed apart, then added in f32 with
-        // rounding (the tensor cores' own accumulation truncates).
+            for (int r = 0; r < 4; ++r) c[nj][r] = __fadd_rn(c[nj][r], d[r]);
+          }
+        } else {
+          const Split3 s[4] = {split3(ha.x), split3(hb.x), split3(ha.y),
+                               split3(hb.y)};
+          FragA3 a;
 #pragma unroll
-        for (int nj = 0; nj < 8; ++nj) {
-          float d[4];
-          zero4(d);
-          mma6(d, a, frag_b3_paired(Wp, b_stride(CW), 8 * nj, kb, lane));
+          for (int q = 0; q < 3; ++q)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) c[nj][r] = __fadd_rn(c[nj][r], d[r]);
+            for (int r = 0; r < 4; ++r) a.v[q][r] = s[r].v[q];
+          // Each step's six products summed apart, then added in f32 with
+          // rounding (the tensor cores' own accumulation truncates).
+#pragma unroll
+          for (int nj = 0; nj < 8; ++nj) {
+            float d[4];
+            zero4(d);
+            mma6(d, a, frag_b3_paired(Wp, b_stride(CW), 8 * nj, kb, lane));
+#pragma unroll
+            for (int r = 0; r < 4; ++r) c[nj][r] = __fadd_rn(c[nj][r], d[r]);
+          }
         }
       }
       // p2 = acc + b2 -> global (rows ra, ra + 8); per column j of the
       // lane, its two rows summed: vs[2 j] (p2), vs[2 j + 1] (p2^2).
-      float* out = p2 + (r0 + ra) * CW + 2 * t;
+      T* out = p2 + (r0 + ra) * CW + 2 * t;
       float vs[32];
 #pragma unroll
       for (int nj = 0; nj < 8; ++nj) {
         const float2 bb = ld2(v + 3 * CW + 8 * nj + 2 * t);
-        const float2 u = make_float2(__fadd_rn(c[nj][0], bb.x),
-                                     __fadd_rn(c[nj][1], bb.y));
-        const float2 w = make_float2(__fadd_rn(c[nj][2], bb.x),
-                                     __fadd_rn(c[nj][3], bb.y));
-        *reinterpret_cast<float2*>(out + 8 * nj) = u;
-        *reinterpret_cast<float2*>(out + 8 * CW + 8 * nj) = w;
+        const float2 u = make_float2(__fadd_rn(rb_if<BF>(c[nj][0]), bb.x),
+                                     __fadd_rn(rb_if<BF>(c[nj][1]), bb.y));
+        const float2 w = make_float2(__fadd_rn(rb_if<BF>(c[nj][2]), bb.x),
+                                     __fadd_rn(rb_if<BF>(c[nj][3]), bb.y));
+        st2r(out + 8 * nj, u);
+        st2r(out + 8 * CW + 8 * nj, w);
         vs[4 * nj] = u.x + w.x;
         vs[4 * nj + 1] = fmaf(u.x, u.x, w.x * w.x);
         vs[4 * nj + 2] = u.y + w.y;
@@ -302,12 +347,16 @@ constexpr uint32_t FULL = 0xffffffffu;
 // TR)). Lane (g, t) holds rows 8 i + g (i < 8) of columns n0 + 8 nj + 2t
 // (+1); a group's rows span SI of a lane's i and the low SH bits of g.
 // pool > TR (upt > 1): a group spans upt consecutive tiles, walked in
-// order by one block; the running max/min sit in run.
-template <int LP>
+// order by one block; the running max/min sit in run. BF: p3 = bf16(acc)
+// + b3 (b3 rounded, the sum in f32), its max and min stored as bf16.
+template <int LP, bool BF>
 __device__ __forceinline__ void pool_tile(const float c[4][2][4], int n0,
                                           const float* b3s, int64_t tile,
-                                          int upt, float* run, float* mx,
-                                          float* mn, int* imx, int* imn) {
+                                          int upt, float* run,
+                                          typename Row<BF>::T* mx,
+                                          typename Row<BF>::T* mn, int* imx,
+                                          int* imn) {
+  using T = typename Row<BF>::T;
   constexpr int SI = LP > 3 ? 1 << (LP - 3) : 1;
   constexpr int SH = LP < 3 ? LP : 3;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -321,7 +370,8 @@ __device__ __forceinline__ void pool_tile(const float c[4][2][4], int n0,
       float v[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        v[i] = __fadd_rn(c[i >> 1][nj][((i & 1) << 1) | cj], bias);
+        v[i] = __fadd_rn(rb_if<BF>(c[i >> 1][nj][((i & 1) << 1) | cj]),
+                         bias);
       // Per group: its max and min over the lane's rows and then the
       // group's lanes; then the first row holding each (min over rows).
       float vx[8], vn[8];
@@ -362,8 +412,8 @@ __device__ __forceinline__ void pool_tile(const float c[4][2][4], int n0,
         const int base = grp << LP;
         if (upt == 1) {
           const int64_t o = (tile * (TR >> LP) + grp) * C3W + col;
-          mx[o] = vx[i];
-          mn[o] = vn[i];
+          mx[o] = static_cast<T>(vx[i]);
+          mn[o] = static_cast<T>(vn[i]);
           imx[o] = ix[i] - base;
           imn[o] = in[i] - base;
         } else {                                // LP == 6: one group
@@ -378,8 +428,8 @@ __device__ __forceinline__ void pool_tile(const float c[4][2][4], int n0,
           }
           if (j == upt - 1) {
             const int64_t o = (tile / upt) * C3W + col;
-            mx[o] = run[col];
-            mn[o] = run[C3W + col];
+            mx[o] = static_cast<T>(run[col]);
+            mn[o] = static_cast<T>(run[C3W + col]);
             imx[o] = irun[col];
             imn[o] = irun[C3W + col];
           }
@@ -390,17 +440,22 @@ __device__ __forceinline__ void pool_tile(const float c[4][2][4], int n0,
 
 constexpr int GP_STAGES = 3;    // p2 tiles in flight per block
 
-template <int LP>
+// bf16 (BF): p2 stored as bf16 (the stages half filled), h2 by the bf16
+// chain, W3 and b3 rounded, every product in one TF32 pass; max/min out
+// as bf16 (pool_tile).
+template <int LP, bool BF>
 __global__ void __launch_bounds__(NTM, 1)
-fwd_gram_pool_kernel(const float* __restrict__ p2, int64_t ntiles, int upt,
-                     const float* __restrict__ vec2,
+fwd_gram_pool_kernel(const typename Row<BF>::T* __restrict__ p2,
+                     int64_t ntiles, int upt, const float* __restrict__ vec2,
                      const float* __restrict__ W3, const float* __restrict__ b3,
                      double* __restrict__ partG, double* __restrict__ partc,
-                     float* __restrict__ mx, float* __restrict__ mn,
+                     typename Row<BF>::T* __restrict__ mx,
+                     typename Row<BF>::T* __restrict__ mn,
                      int* __restrict__ imx, int* __restrict__ imn) {
+  using T = typename Row<BF>::T;
   extern __shared__ __align__(128) float smt[];
-  float* stage = smt;                         // GP_STAGES x (TR, CW): p2
-  float* Hh = stage + GP_STAGES * TR * CW;    // h2, split: hi
+  T* stage = reinterpret_cast<T*>(smt);       // GP_STAGES x (TR, CW): p2
+  float* Hh = smt + GP_STAGES * TR * CW;      // h2, split: hi
   float* Hl = Hh + TILE_F;                    //            lo
   float* W3h = Hl + TILE_F;                   // W3, split, paired layout
   float* W3l = W3h + 32 * b_stride(C3W);
@@ -423,18 +478,18 @@ fwd_gram_pool_kernel(const float* __restrict__ p2, int64_t ntiles, int upt,
   };
   auto fetch = [&](int64_t i) {               // thread 0: one bulk copy
     uint64_t* bar = &bars[i % GP_STAGES];
-    mbar_expect(bar, TR * CW * 4);
+    mbar_expect(bar, TR * CW * sizeof(T));
     bulk_load(stage + (i % GP_STAGES) * TR * CW, p2 + tile_at(i) * TR * CW,
-              TR * CW * 4, bar);
+              TR * CW * sizeof(T), bar);
   };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < GP_STAGES; ++s) mbar_init(&bars[s]);
     for (int64_t i = 0; i < GP_STAGES && i < count; ++i) fetch(i);
   }
-  load_b_split(W3h, W3l, W3, C3W, C3W, 1);
+  load_b_split<BF>(W3h, W3l, W3, C3W, C3W, 1);
   copy_block(v2, vec2, 2 * CW);
-  copy_block(b3s, b3, C3W);
+  copy_block_p<BF>(b3s, b3, C3W);
   __syncthreads();
 
   // Gram(h2) is symmetric: warps with nw < mw (blocks below the diagonal)
@@ -445,7 +500,8 @@ fwd_gram_pool_kernel(const float* __restrict__ p2, int64_t ntiles, int upt,
     const int64_t tile = tile_at(i);
     mbar_wait(&bars[i % GP_STAGES],
               static_cast<uint32_t>((i / GP_STAGES) & 1));
-    relu_split_rows(stage + (i % GP_STAGES) * TR * CW, v2, v2 + CW, Hh, Hl);
+    relu_split_rows<BF>(stage + (i % GP_STAGES) * TR * CW, v2, v2 + CW, Hh,
+                        Hl);
     __syncthreads();
     if (threadIdx.x == 0 && i + GP_STAGES < count) fetch(i + GP_STAGES);
 
@@ -463,7 +519,7 @@ fwd_gram_pool_kernel(const float* __restrict__ p2, int64_t ntiles, int upt,
         }
 #pragma unroll
         for (int nj = 0; nj < 2; ++nj)
-          mma3(c[nj], a, frag_b_rows(H, 16 * nw + 8 * nj, kb, lane));
+          mma_p<BF>(c[nj], a, frag_b_rows(H, 16 * nw + 8 * nj, kb, lane));
       }
 #pragma unroll
       for (int nj = 0; nj < 2; ++nj)
@@ -488,11 +544,11 @@ fwd_gram_pool_kernel(const float* __restrict__ p2, int64_t ntiles, int upt,
 #pragma unroll
         for (int mi = 0; mi < 4; ++mi) {
           const FragA a = frag_a_rows(H, 16 * mi, kb, lane);
-          mma3(c[mi][0], a, b0);
-          mma3(c[mi][1], a, b1);
+          mma_p<BF>(c[mi][0], a, b0);
+          mma_p<BF>(c[mi][1], a, b1);
         }
       }
-      pool_tile<LP>(c, n0, b3s, tile, upt, run, mx, mn, imx, imn);
+      pool_tile<LP, BF>(c, n0, b3s, tile, upt, run, mx, mn, imx, imn);
     }
     __syncthreads();
   }
@@ -562,17 +618,19 @@ __host__ __device__ constexpr int sweep1_rows(int pool) {
 // S stages a tile: S x [p2 (U, CW) | dpooled (gpt, C3W) | idx (gpt, C3W)],
 // W3^T, two q3 tiles, the split rows' partials, mul2 | shift2 | gi3, h2
 // (U, LDH), the row bitmaps (TR, 8) and tasks, a 32-entry list per warp,
-// and each entry's key.
+// and each entry's key. esz: bytes of a stored p2, dpooled or q3 value.
 struct S1Layout {
-  int w3t, out, part, vec, h2, bits, info, lists, key, bars, total;
+  int stage, w3t, out, part, vec, h2, bits, info, lists, key, bars, total;
 };
 
-__host__ __device__ inline S1Layout s1_layout(int U, int gpt, int S) {
+__host__ __device__ inline S1Layout s1_layout(int U, int gpt, int S,
+                                              int esz = 4) {
   const int E = gpt * C3W;
   S1Layout l;
-  l.w3t = S * (U * CW + 2 * E) * 4;
+  l.stage = (U * CW + E) * esz + E * 4;
+  l.w3t = S * l.stage;
   l.out = l.w3t + C3W * CW * 4;
-  l.part = l.out + 2 * TR * CW * 4;
+  l.part = l.out + 2 * TR * CW * esz;
   l.vec = l.part + SPLITS * CW * 4;
   l.h2 = l.vec + (2 * CW + C3W) * 4;
   l.bits = l.h2 + U * LDH * 4;
@@ -615,13 +673,20 @@ __device__ __forceinline__ int popc4(const uint4& a) {
   return __popc(a.x) + __popc(a.y) + __popc(a.z) + __popc(a.w);
 }
 
+// bf16 (BF): p2, dpooled and q3 stored as bf16 (the stages and q3 tiles
+// at half the bytes); h2 by the bf16 chain; W3 and gi3 rounded; each q3
+// term bf16(dpooled gi3) W3 (exact products summed in f32), q3 rounded
+// at its store. A3 and u3 as in f32 (the products of bf16 values exact).
+template <bool BF>
 __global__ void __launch_bounds__(NTM, 1)
-bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
-                  int pool, int S, const float* __restrict__ vec2,
-                  const float* __restrict__ dpooled,
+bwd_sweep1_kernel(const typename Row<BF>::T* __restrict__ p2, int64_t ntiles,
+                  int U, int pool, int S, const float* __restrict__ vec2,
+                  const typename Row<BF>::T* __restrict__ dpooled,
                   const int* __restrict__ idx, const float* __restrict__ gi3,
-                  const float* __restrict__ W3, float* __restrict__ q3,
+                  const float* __restrict__ W3,
+                  typename Row<BF>::T* __restrict__ q3,
                   double* __restrict__ partA, double* __restrict__ partu) {
+  using T = typename Row<BF>::T;
   extern __shared__ __align__(128) unsigned char smb[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // Groups per tile (pool <= U) or tiles per group (pool > U = TR).
@@ -629,11 +694,9 @@ bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
   const int upt = pool > U ? pool / U : 1;
   const int gr = pool <= U ? pool : U;        // rows of a group in a tile
   const int E = gpt * C3W;                    // entries of a tile
-  const int SF = U * CW + 2 * E;              // floats of one stage
-  const S1Layout ly = s1_layout(U, gpt, S);
-  float* stage = reinterpret_cast<float*>(smb);
+  const S1Layout ly = s1_layout(U, gpt, S, sizeof(T));
   float* W3t = reinterpret_cast<float*>(smb + ly.w3t);   // W3t[c][j]
-  float* outs = reinterpret_cast<float*>(smb + ly.out);
+  T* outs = reinterpret_cast<T*>(smb + ly.out);
   float* part = reinterpret_cast<float*>(smb + ly.part);
   float* v = reinterpret_cast<float*>(smb + ly.vec);
   float* h2 = reinterpret_cast<float*>(smb + ly.h2);
@@ -649,11 +712,11 @@ bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
       ntiles > blockIdx.x ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   auto tile_at = [&](int64_t i) { return blockIdx.x + i * gridDim.x; };
   auto fetch = [&](int64_t i, int s) {      // thread io: tile i to slot s
-    float* st = stage + s * SF;
+    T* st = reinterpret_cast<T*>(smb + s * ly.stage);
     const int64_t t = tile_at(i), g0 = upt > 1 ? t / upt : t * gpt;
-    mbar_expect(&bars[s], SF * 4);
-    bulk_load(st, p2 + t * U * CW, U * CW * 4, &bars[s]);
-    bulk_load(st + U * CW, dpooled + g0 * C3W, E * 4, &bars[s]);
+    mbar_expect(&bars[s], ly.stage);
+    bulk_load(st, p2 + t * U * CW, U * CW * sizeof(T), &bars[s]);
+    bulk_load(st + U * CW, dpooled + g0 * C3W, E * sizeof(T), &bars[s]);
     bulk_load(st + U * CW + E, idx + g0 * C3W, E * 4, &bars[s]);
   };
 
@@ -662,9 +725,9 @@ bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
     for (int i = 0; i < S && i < count; ++i) fetch(i, i);
   }
   for (int e = threadIdx.x; e < C3W * CW; e += NTM)
-    W3t[(e % C3W) * CW + e / C3W] = W3[e];
+    W3t[(e % C3W) * CW + e / C3W] = rb_if<BF>(W3[e]);
   copy_block(v, vec2, 2 * CW);
-  copy_block(v + 2 * CW, gi3, C3W);
+  copy_block_p<BF>(v + 2 * CW, gi3, C3W);
   __syncthreads();
 
   // A3: thread (ac, ah) owns channel ac, columns 32 ah.. (and, for ah = 0,
@@ -682,10 +745,10 @@ bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
   for (int64_t i = 0; i < count; ++i) {
     const int64_t t = tile_at(i);
     const int j = upt > 1 ? static_cast<int>(t % upt) : 0;
-    const float* P = stage + s * SF;          // p2 (U, CW)
-    const float* DP = P + U * CW;             // dpooled (gpt, C3W)
+    const T* P = reinterpret_cast<const T*>(smb + s * ly.stage);  // p2
+    const T* DP = P + U * CW;                 // dpooled (gpt, C3W)
     const int* IX = reinterpret_cast<const int*>(DP + E);
-    float* out = outs + (i & 1) * TR * CW;
+    T* out = outs + (i & 1) * TR * CW;
     mbar_wait(&bars[s], phase);
 
     // 1. Each entry's tile row (key) or DEAD, and the row bitmaps, a warp
@@ -706,11 +769,11 @@ bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
     }
     for (int q = threadIdx.x; q < U * CW / 4; q += NTM) {
       const int r = q / (CW / 4);
-      float4 p = *reinterpret_cast<const float4*>(P + r * CW + hc);
-      p.x = relu_affine(p.x, mul.x, sh.x);
-      p.y = relu_affine(p.y, mul.y, sh.y);
-      p.z = relu_affine(p.z, mul.z, sh.z);
-      p.w = relu_affine(p.w, mul.w, sh.w);
+      float4 p = ld4r(P + r * CW + hc);
+      p.x = relu_affine_p<BF>(p.x, mul.x, sh.x);
+      p.y = relu_affine_p<BF>(p.y, mul.y, sh.y);
+      p.z = relu_affine_p<BF>(p.z, mul.z, sh.z);
+      p.w = relu_affine_p<BF>(p.w, mul.w, sh.w);
       *reinterpret_cast<float4*>(h2 + r * LDH + hc) = p;
     }
     __syncthreads();
@@ -743,7 +806,7 @@ bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
         const int e = gi * C3W + ac;
         const int k = key[e];
         if (k != DEAD) {
-          const float dv = DP[e];
+          const float dv = to_f(DP[e]);
           const float* hr = h2 + k * LDH + 32 * ah;
 #pragma unroll
           for (int q = 0; q < 8; ++q)
@@ -787,8 +850,8 @@ bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
         // The word's entries, listed in order: (dpooled * gi3, channel).
         const int e = 32 * (gb + jw) + lane, c = e & (C3W - 1);
         if ((m >> lane) & 1u)
-          list[__popc(m & ((1u << lane) - 1))] =
-              make_float2(__fmul_rn(DP[e], gis[c]), __int_as_float(c));
+          list[__popc(m & ((1u << lane) - 1))] = make_float2(
+              rb_if<BF>(__fmul_rn(to_f(DP[e]), gis[c])), __int_as_float(c));
         __syncwarp();
         const int n = __popc(m);
         int q = 0;
@@ -810,8 +873,10 @@ bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
         }
         __syncwarp();
       }
-      float* dst = split ? part + (sl * 8 + k - tk) * CW : out + r * CW;
-      *reinterpret_cast<float2*>(dst + 2 * lane) = acc;
+      if (split)
+        st2r(part + (sl * 8 + k - tk) * CW + 2 * lane, acc);
+      else
+        st2r(out + r * CW + 2 * lane, acc);
     }
     __syncthreads();
     if (threadIdx.x == io && i + S < count) fetch(i + S, s);
@@ -832,11 +897,12 @@ bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
           acc.y += pv.y;
         }
       }
-      *reinterpret_cast<float2*>(out + r * CW + 2 * lane) = acc;
+      st2r(out + r * CW + 2 * lane, acc);
     }
     fence_async_smem();
     __syncthreads();
-    if (threadIdx.x == io) bulk_store(q3 + t * U * CW, out, U * CW * 4);
+    if (threadIdx.x == io)
+      bulk_store(q3 + t * U * CW, out, U * CW * sizeof(T));
     if (++s == S) {
       s = 0;
       phase ^= 1u;
@@ -869,21 +935,31 @@ bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
 // (per tile) are split into hi/lo ahead of the products, h2 at fragment
 // load; h1's ReLU mask is kept as bytes. One block per SM (218 KB of
 // shared memory).
+//
+// bf16 (BF): x, p2, q3 and mq stored as bf16 (the stages half filled);
+// h1, h2 by the bf16 chains; M3, W1, b1 and W2 rounded, gi2 too; dy2 =
+// [h2 > 0] (q3 - bf16(h2 M3) - rc3) kept split as bf16(dy2) | the rest
+// (the column sums u2 take dy2 unrounded, A2 the bf16 part); q2 from
+// bf16(bf16(dy2) gi2) against bf16(W2^T); mq = bf16(q2) where h1 > 0;
+// every product in one TF32 pass.
+template <bool BF>
 __global__ void __launch_bounds__(NTM, 1)
-bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
-                  int64_t ntiles, const float* __restrict__ W1,
+bwd_sweep2_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
+                  int64_t N, int64_t ntiles, const float* __restrict__ W1,
                   const float* __restrict__ vec,
-                  const float* __restrict__ p2, const float* __restrict__ q3,
+                  const typename Row<BF>::T* __restrict__ p2,
+                  const typename Row<BF>::T* __restrict__ q3,
                   const float* __restrict__ M3, const float* __restrict__ W2,
-                  float* __restrict__ mq, double* __restrict__ partA,
-                  double* __restrict__ partG, double* __restrict__ partu,
-                  double* __restrict__ partc) {
+                  typename Row<BF>::T* __restrict__ mq,
+                  double* __restrict__ partA, double* __restrict__ partG,
+                  double* __restrict__ partu, double* __restrict__ partc) {
+  using T = typename Row<BF>::T;
   constexpr int STAGE = TR * CW + C0MAX * TR;      // p2 | x
   constexpr int WB = 32 * b_stride(CW);            // a 64x64 paired B
   extern __shared__ __align__(128) float smt[];
   float* stage = smt;                       // 2 x STAGE, as TMA lands them
-  float* Q = stage + 2 * STAGE;             // q3 (TR, CW), as TMA lands it
-  float* H2 = Q + TR * CW;                  // (TR, LDT): h2; then mq
+  T* Q = reinterpret_cast<T*>(stage + 2 * STAGE);  // q3 (TR, CW), by TMA
+  float* H2 = stage + 2 * STAGE + TR * CW;  // (TR, LDT): h2; then mq
   float* dyh = H2 + TILE_F;                 // dy2, split: hi
   float* dyl = dyh + TILE_F;                //             lo
   float* h1h = dyl + TILE_F;                // h1, split: hi
@@ -909,22 +985,23 @@ bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
   const int64_t count =
       ntiles > blockIdx.x ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   auto row0 = [&](int64_t i) { return (blockIdx.x + i * gridDim.x) * TR; };
+  constexpr uint32_t ES = sizeof(T);
   auto fetch = [&](int64_t i) {             // thread 0: p2 and x of tile i
     uint64_t* bar = &bars[i & 1];
-    float* S = stage + (i & 1) * STAGE;
+    T* S = reinterpret_cast<T*>(stage + (i & 1) * STAGE);
     const int64_t r0 = row0(i);
-    mbar_expect(bar, TR * CW * 4 + (xbulk ? C0 * TR * 4 : 0));
-    bulk_load(S, p2 + r0 * CW, TR * CW * 4, bar);
+    mbar_expect(bar, TR * CW * ES + (xbulk ? C0 * TR * ES : 0));
+    bulk_load(S, p2 + r0 * CW, TR * CW * ES, bar);
     if (xbulk) {
       const int64_t b = r0 / N, n = r0 - b * N;
       for (int c = 0; c < C0; ++c)
-        bulk_load(S + TR * CW + c * TR, x + (b * C0 + c) * N + n, TR * 4,
+        bulk_load(S + TR * CW + c * TR, x + (b * C0 + c) * N + n, TR * ES,
                   bar);
     }
   };
   auto fetch_q3 = [&](int64_t i) {        // thread 0: q3 of tile i
-    mbar_expect(&bars[2], TR * CW * 4);
-    bulk_load(Q, q3 + row0(i) * CW, TR * CW * 4, &bars[2]);
+    mbar_expect(&bars[2], TR * CW * ES);
+    bulk_load(Q, q3 + row0(i) * CW, TR * CW * ES, &bars[2]);
   };
 
   if (threadIdx.x == 0) {
@@ -932,25 +1009,28 @@ bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
     for (int64_t i = 0; i < 2 && i < count; ++i) fetch(i);
     if (count > 0) fetch_q3(0);
   }
-  load_b_split(Mh, Ml, M3, CW, CW, 1);
-  load_b_split(W2h, W2l, W2, CW, 1, CW, vec + 6 * CW);  // gi2[k] W2[n][k]
-  copy_block(W1s, W1, C0 * CW);
-  copy_block(v, vec, 7 * CW);
+  load_b_split<BF>(Mh, Ml, M3, CW, CW, 1);
+  // f32: gi2[k] W2[n][k]; BF: bf16(W2[n][k]) (gi2 goes with dy2)
+  load_b_split<BF>(W2h, W2l, W2, CW, 1, CW, vec + 6 * CW);
+  copy_block_p<BF>(W1s, W1, C0 * CW);
+  copy_block_p<BF>(v, vec, CW);                         // b1
+  copy_block(v + CW, vec + CW, 5 * CW);
+  copy_block_p<BF>(v + 6 * CW, vec + 6 * CW, CW);       // gi2
   __syncthreads();
 
   double A2[2][4] = {}, G1[2][4] = {};  // rows m0 + g (+8), cols n0 + 8 nj
   double cs[2] = {0.0, 0.0};  // nw 0: u2, nw 1: ch1; channels m0 + g, + 8
   for (int64_t i = 0; i < count; ++i) {
     const int64_t r0 = row0(i);
-    const float* S = stage + (i & 1) * STAGE;
-    float* X = stage + (i & 1) * STAGE + TR * CW;
+    const T* S = reinterpret_cast<const T*>(stage + (i & 1) * STAGE);
+    T* X = reinterpret_cast<T*>(stage + (i & 1) * STAGE) + TR * CW;
     mbar_wait(&bars[i & 1], static_cast<uint32_t>((i >> 1) & 1));
     if (!xbulk) {
       load_x_rows(x, C0, N, r0, X, threadIdx.x, NTM);
       __syncthreads();
     }
-    relu_rows(S, mul2, shift2, H2);
-    h1_rows(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);
+    relu_rows<BF>(S, mul2, shift2, H2);
+    h1_rows<BF>(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);
     __syncthreads();
     if (threadIdx.x == 0 && i + 2 < count) fetch(i + 2);
 
@@ -961,11 +1041,11 @@ bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
       zero4(c[1]);
 #pragma unroll 2
       for (int kb = 0; kb < 8; ++kb) {
-        const FragA a = split_a(raw_a_rows(H2, m0, kb, lane));
+        const FragA a = split_a_p<BF>(raw_a_rows(H2, m0, kb, lane));
 #pragma unroll
         for (int nj = 0; nj < 2; ++nj)
-          mma3(c[nj], a,
-               frag_b_paired(Ms, b_stride(CW), n0 + 8 * nj, kb, lane));
+          mma_p<BF>(c[nj], a,
+                    frag_b_paired(Ms, b_stride(CW), n0 + 8 * nj, kb, lane));
       }
       mbar_wait(&bars[2], static_cast<uint32_t>(i & 1));
 #pragma unroll
@@ -974,16 +1054,27 @@ bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
         for (int h = 0; h < 2; ++h) {
           const int r = m0 + g + 8 * h, cc = n0 + 8 * nj + 2 * t;
           const float2 hv = ld2(H2 + r * LDT + cc);
-          const float2 qv = ld2(Q + r * CW + cc);
+          const float2 qv = ld2r(Q + r * CW + cc);
           const float dx =
-              hv.x > 0.f
-                  ? __fsub_rn(__fsub_rn(qv.x, c[nj][2 * h]), rc3[cc])
-                  : 0.f;
+              hv.x > 0.f ? __fsub_rn(__fsub_rn(qv.x, rb_if<BF>(c[nj][2 * h])),
+                                     rc3[cc])
+                         : 0.f;
           const float dy =
               hv.y > 0.f
-                  ? __fsub_rn(__fsub_rn(qv.y, c[nj][2 * h + 1]), rc3[cc + 1])
+                  ? __fsub_rn(__fsub_rn(qv.y, rb_if<BF>(c[nj][2 * h + 1])),
+                              rc3[cc + 1])
                   : 0.f;
-          const Split sx = split(dx), sy = split(dy);
+          // BF: hi = bf16(dy2) (A2's and q2's operand), lo = the rest, so
+          // that hi + lo (the column sums) is dy2 itself.
+          Split sx, sy;
+          if constexpr (BF) {
+            const float hx = rb(dx), hy = rb(dy);
+            sx = Split{__float_as_uint(hx), __float_as_uint(dx - hx)};
+            sy = Split{__float_as_uint(hy), __float_as_uint(dy - hy)};
+          } else {
+            sx = split(dx);
+            sy = split(dy);
+          }
           *reinterpret_cast<float2*>(dyh + r * LDT + cc) =
               make_float2(__uint_as_float(sx.hi), __uint_as_float(sy.hi));
           *reinterpret_cast<float2*>(dyl + r * LDT + cc) =
@@ -999,12 +1090,22 @@ bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
       zero4(c[1]);
 #pragma unroll 2
       for (int kb = 0; kb < 8; ++kb) {
-        const FragA a = frag_a_rows(DY, m0, kb, lane);
+        FragA a = frag_a_rows(DY, m0, kb, lane);
+        if constexpr (BF) {   // bf16(bf16(dy2) gi2) at k = 8 kb + 2t (+1)
+          const float2 gk = ld2(v + 6 * CW + 8 * kb + 2 * t);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            a.v[q] = Split{__float_as_uint(rb(__fmul_rn(
+                               __uint_as_float(a.v[q].hi),
+                               q < 2 ? gk.x : gk.y))),
+                           0u};
+        }
 #pragma unroll
         for (int nj = 0; nj < 2; ++nj)
-          mma3(c[nj], a,
-               frag_b_paired(W2s, b_stride(CW), n0 + 8 * nj, kb, lane));
+          mma_p<BF>(c[nj], a,
+                    frag_b_paired(W2s, b_stride(CW), n0 + 8 * nj, kb, lane));
       }
+      T* M = reinterpret_cast<T*>(H2);
 #pragma unroll
       for (int nj = 0; nj < 2; ++nj)
 #pragma unroll
@@ -1015,12 +1116,12 @@ bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
           float2 o;
           o.x = (mk & 0xff) ? c[nj][2 * h] : 0.f;
           o.y = (mk >> 8) ? c[nj][2 * h + 1] : 0.f;
-          *reinterpret_cast<float2*>(H2 + r * CW + cc) = o;
+          st2r(M + r * CW + cc, o);
         }
     }
     fence_async_smem();
     __syncthreads();
-    if (threadIdx.x == 0) bulk_store(mq + r0 * CW, H2, TR * CW * 4);
+    if (threadIdx.x == 0) bulk_store(mq + r0 * CW, H2, TR * CW * ES);
 
     {   // A2 = dy2^T h1, G1 = h1^T h1, and the column sums (hi + lo)
       float ca[2][4], cg[2][4];
@@ -1044,8 +1145,8 @@ bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
 #pragma unroll
         for (int nj = 0; nj < 2; ++nj) {
           const FragB b = frag_b_rows(H1, n0 + 8 * nj, kb, lane);
-          mma3(ca[nj], ad, b);
-          mma3(cg[nj], ah, b);
+          mma_p<BF>(ca[nj], ad, b);
+          mma_p<BF>(cg[nj], ah, b);
         }
       }
 #pragma unroll
@@ -1109,11 +1210,19 @@ constexpr int S3_GT = NTM / 2;      // threads of a warp group
 constexpr int XLD = 68;             // [x | 1] tile stride: conflict-free B
 constexpr int S3_GROUP = 2 * TILE_F + 2 * 8 * XLD + TR * CW / 4;  // floats
 
+//
+// bf16 (BF): x and mq stored as bf16 (the stages half filled); h1 by the
+// bf16 chain; W1, b1 and M2 rounded; dy1 = bf16([h1 > 0] (mq - (bf16(h1
+// M2) + rc2))); both products in one TF32 pass.
+template <bool BF>
 __global__ void __launch_bounds__(NTM, 1)
-bwd_sweep3_kernel(const float* __restrict__ x, int C0, int64_t N,
-                  int64_t ntiles, const float* __restrict__ W1,
-                  const float* __restrict__ vec, const float* __restrict__ mq,
+bwd_sweep3_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
+                  int64_t N, int64_t ntiles, const float* __restrict__ W1,
+                  const float* __restrict__ vec,
+                  const typename Row<BF>::T* __restrict__ mq,
                   const float* __restrict__ M2, double* __restrict__ part) {
+  using T = typename Row<BF>::T;
+  constexpr uint32_t ES = sizeof(T);
   constexpr int STAGE = TR * CW + C0MAX * TR;      // mq | x
   constexpr int WB = 32 * b_stride(CW);
   extern __shared__ __align__(128) float smt[];
@@ -1143,14 +1252,14 @@ bwd_sweep3_kernel(const float* __restrict__ x, int C0, int64_t N,
   auto row0 = [&](int64_t i) { return (blockIdx.x + i * gridDim.x) * TR; };
   auto fetch = [&](int64_t i) {             // one thread: mq and x of tile i
     const int s = static_cast<int>(i % S3_STAGES);
-    float* S = stage + s * STAGE;
+    T* S = reinterpret_cast<T*>(stage + s * STAGE);
     const int64_t r0 = row0(i);
-    mbar_expect(&bars[s], TR * CW * 4 + (xbulk ? C0 * TR * 4 : 0));
-    bulk_load(S, mq + r0 * CW, TR * CW * 4, &bars[s]);
+    mbar_expect(&bars[s], TR * CW * ES + (xbulk ? C0 * TR * ES : 0));
+    bulk_load(S, mq + r0 * CW, TR * CW * ES, &bars[s]);
     if (xbulk) {
       const int64_t b = r0 / N, n = r0 - b * N;
       for (int c = 0; c < C0; ++c)
-        bulk_load(S + TR * CW + c * TR, x + (b * C0 + c) * N + n, TR * 4,
+        bulk_load(S + TR * CW + c * TR, x + (b * C0 + c) * N + n, TR * ES,
                   &bars[s]);
     }
   };
@@ -1162,32 +1271,35 @@ bwd_sweep3_kernel(const float* __restrict__ x, int C0, int64_t N,
     for (int s = 0; s < S3_STAGES; ++s) mbar_init(&bars[s]);
     for (int64_t i = 0; i < S3_STAGES && i < count; ++i) fetch(i);
   }
-  load_b_split(Mh, Ml, M2, CW, CW, 1);
-  copy_block(W1s, W1, C0 * CW);
-  copy_block(v, vec, 4 * CW);
+  load_b_split<BF>(Mh, Ml, M2, CW, CW, 1);
+  copy_block_p<BF>(W1s, W1, C0 * CW);
+  copy_block_p<BF>(v, vec, CW);                         // b1
+  copy_block(v + CW, vec + CW, 3 * CW);
   __syncthreads();
 
   // [A1 | u1]: channels 32 nh + 16 mt + g (+8), columns 2t (+1) of [x | 1]
   double acc[2][4] = {};
   for (int64_t i = grp; i < count; i += 2) {
     const int s = static_cast<int>(i % S3_STAGES);
-    const float* Q = stage + s * STAGE;
-    float* X = stage + s * STAGE + TR * CW;
+    const T* Q = reinterpret_cast<const T*>(stage + s * STAGE);
+    T* X = reinterpret_cast<T*>(stage + s * STAGE) + TR * CW;
     mbar_wait(&bars[s], static_cast<uint32_t>((i / S3_STAGES) & 1));
     float2 qv[4][2];                    // this warp's mq, read early so
 #pragma unroll                        // that the stage is free sooner
     for (int nj = 0; nj < 4; ++nj)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf)
-        qv[nj][hf] = ld2(Q + (m0 + g + 8 * hf) * CW + 32 * nh + 8 * nj + 2 * t);
+        qv[nj][hf] =
+            ld2r(Q + (m0 + g + 8 * hf) * CW + 32 * nh + 8 * nj + 2 * t);
     if (!xbulk) {
       load_x_rows(x, C0, N, row0(i), X, gt, S3_GT);
       gsync();
     }
-    h1_rows(X, C0, W1s, v, hh, hl, m1, gt, S3_GT);
+    h1_rows<BF>(X, C0, W1s, v, hh, hl, m1, gt, S3_GT);
     for (int e = gt; e < 8 * TR; e += S3_GT) {   // [x | 1 | 0], split
       const int c = e / TR, r = e % TR;
-      const Split sp = split(c < C0 ? X[c * TR + r] : c == C0 ? 1.f : 0.f);
+      const Split sp = split_p<BF>(c < C0 ? to_f(X[c * TR + r])
+                                   : c == C0 ? 1.f : 0.f);
       Xh[c * XLD + r] = __uint_as_float(sp.hi);
       Xl[c * XLD + r] = __uint_as_float(sp.lo);
     }
@@ -1203,8 +1315,8 @@ bwd_sweep3_kernel(const float* __restrict__ x, int C0, int64_t N,
       const FragA a = frag_a_rows(H, m0, kb, lane);
 #pragma unroll
       for (int nj = 0; nj < 4; ++nj)
-        mma3(c[nj], a,
-             frag_b_paired(Ms, b_stride(CW), 32 * nh + 8 * nj, kb, lane));
+        mma_p<BF>(c[nj], a,
+                  frag_b_paired(Ms, b_stride(CW), 32 * nh + 8 * nj, kb, lane));
     }
     // dy1 = [h1 > 0] (mq - (h1 M2 + rc2)), in the accumulators' places
 #pragma unroll
@@ -1216,9 +1328,12 @@ bwd_sweep3_kernel(const float* __restrict__ x, int C0, int64_t N,
             *reinterpret_cast<const uint16_t*>(m1 + r * CW + cc);
         const float2 q = qv[nj][hf];
         float* cv = c[nj] + 2 * hf;
-        cv[0] = (mk & 0xff) ? __fsub_rn(q.x, __fadd_rn(cv[0], rc2[cc])) : 0.f;
-        cv[1] = (mk >> 8) ? __fsub_rn(q.y, __fadd_rn(cv[1], rc2[cc + 1]))
-                          : 0.f;
+        cv[0] = (mk & 0xff)
+                    ? __fsub_rn(q.x, __fadd_rn(rb_if<BF>(cv[0]), rc2[cc]))
+                    : 0.f;
+        cv[1] = (mk >> 8)
+                    ? __fsub_rn(q.y, __fadd_rn(rb_if<BF>(cv[1]), rc2[cc + 1]))
+                    : 0.f;
       }
     // [A1 | u1] += dy1^T [x | 1] over the warp's 16 rows, for its 32
     // channels (two 16-channel tiles mt): the A fragment (channel g (+8),
@@ -1245,9 +1360,13 @@ bwd_sweep3_kernel(const float* __restrict__ x, int C0, int64_t N,
           const FragB b{{Split{__float_as_uint(Xh[k]), __float_as_uint(Xl[k])},
                          Split{__float_as_uint(Xh[k + 4]),
                                __float_as_uint(Xl[k + 4])}}};
-          mma3(d, FragA{{split(av[0]), split(av[1]), split(av[2]),
-                         split(av[3])}},
-               b);
+          // dy1 enters the product rounded to bf16 at BF (dy1d).
+          mma_p<BF>(d,
+                    FragA{{split_p<BF>(rb_if<BF>(av[0])),
+                           split_p<BF>(rb_if<BF>(av[1])),
+                           split_p<BF>(rb_if<BF>(av[2])),
+                           split_p<BF>(rb_if<BF>(av[3]))}},
+                    b);
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[mt][q] += d[q];
@@ -1276,34 +1395,36 @@ bwd_sweep3_kernel(const float* __restrict__ x, int C0, int64_t N,
   }
 }
 
-}  // namespace
-
 // Every launcher: grid = nblk persistent blocks over R / 64 row tiles;
-// returns cudaGetLastError() (0 on success).
-extern "C" int facl_sa_fwd_layer12(const float* x, int B, int C0, int N,
-                                   const float* W1, const float* vec1,
-                                   const float* W2, const float* b2,
-                                   float* p2, double* part, int nblk,
-                                   void* stream) {
+// returns cudaGetLastError() (0 on success). Each sweep has an f32 entry
+// point (facl_sa_*) and a bf16 one (facl_sa_*_bf16: x, p2, q3, mq and
+// B2b's max/min stored as bf16), instantiations of one template.
+template <bool BF>
+int launch_fwd_layer12(const void* x, int B, int C0, int N, const float* W1,
+                       const float* vec1, const float* W2, const float* b2,
+                       void* p2, double* part, int nblk, void* stream) {
+  using T = typename Row<BF>::T;
   const int64_t R = (int64_t)B * N;
   if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * (3 * 32 * b_stride(CW) + C0MAX * CW + 4 * CW +
                        L12_WARPS * 2 * C0MAX * TR) +
       L12_WARPS * 2 * sizeof(uint64_t);
-  cudaError_t e = prepare(fwd_layer12_kernel, smem);
+  cudaError_t e = prepare(fwd_layer12_kernel<BF>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fwd_layer12_kernel<<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, C0, N, R / TR, W1, vec1, W2, b2, p2, part);
+  fwd_layer12_kernel<BF>
+      <<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(x), C0, N, R / TR, W1, vec1, W2, b2,
+          static_cast<T*>(p2), part);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int facl_sa_fwd_gram_pool(const float* p2, int64_t R, int pool,
-                                     const float* vec2, const float* W3,
-                                     const float* b3, double* partG,
-                                     double* partc, float* mx, float* mn,
-                                     int* imx, int* imn, int nblk,
-                                     void* stream) {
+template <bool BF>
+int launch_fwd_gram_pool(const void* p2, int64_t R, int pool,
+                         const float* vec2, const float* W3, const float* b3,
+                         double* partG, double* partc, void* mx, void* mn,
+                         int* imx, int* imn, int nblk, void* stream) {
+  using T = typename Row<BF>::T;
   if (bad_pool(R, pool)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * (GP_STAGES * TR * CW + 2 * TILE_F +
@@ -1312,68 +1433,75 @@ extern "C" int facl_sa_fwd_gram_pool(const float* p2, int64_t R, int pool,
   const int upt = pool > TR ? pool / TR : 1;
   int lp = 0;
   while ((1 << lp) < pool && lp < 6) ++lp;      // log2(min(pool, TR))
-  decltype(&fwd_gram_pool_kernel<0>) kern;
+  decltype(&fwd_gram_pool_kernel<0, BF>) kern;
   switch (lp) {
-    case 0: kern = fwd_gram_pool_kernel<0>; break;
-    case 1: kern = fwd_gram_pool_kernel<1>; break;
-    case 2: kern = fwd_gram_pool_kernel<2>; break;
-    case 3: kern = fwd_gram_pool_kernel<3>; break;
-    case 4: kern = fwd_gram_pool_kernel<4>; break;
-    case 5: kern = fwd_gram_pool_kernel<5>; break;
-    default: kern = fwd_gram_pool_kernel<6>; break;
+    case 0: kern = fwd_gram_pool_kernel<0, BF>; break;
+    case 1: kern = fwd_gram_pool_kernel<1, BF>; break;
+    case 2: kern = fwd_gram_pool_kernel<2, BF>; break;
+    case 3: kern = fwd_gram_pool_kernel<3, BF>; break;
+    case 4: kern = fwd_gram_pool_kernel<4, BF>; break;
+    case 5: kern = fwd_gram_pool_kernel<5, BF>; break;
+    default: kern = fwd_gram_pool_kernel<6, BF>; break;
   }
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kern<<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
-      p2, R / TR, upt, vec2, W3, b3, partG, partc, mx, mn, imx, imn);
+      static_cast<const T*>(p2), R / TR, upt, vec2, W3, b3, partG, partc,
+      static_cast<T*>(mx), static_cast<T*>(mn), imx, imn);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int facl_sa_bwd_sweep1(const float* p2, int64_t R, int pool,
-                                  const float* vec2, const float* dpooled,
-                                  const int* idx, const float* gi3,
-                                  const float* W3, float* q3, double* partA,
-                                  double* partu, int nblk, void* stream) {
+template <bool BF>
+int launch_bwd_sweep1(const void* p2, int64_t R, int pool, const float* vec2,
+                      const void* dpooled, const int* idx, const float* gi3,
+                      const float* W3, void* q3, double* partA, double* partu,
+                      int nblk, void* stream) {
+  using T = typename Row<BF>::T;
   if (bad_pool(R, pool)) return static_cast<int>(cudaErrorInvalidValue);
   const int U = sweep1_rows(pool);
   const int gpt = pool <= U ? U / pool : 1;
   int S = 4;                          // stages: as many as fit, up to 4
-  while (S > 0 && s1_layout(U, gpt, S).total > MAX_SMEM) --S;
+  while (S > 0 && s1_layout(U, gpt, S, sizeof(T)).total > MAX_SMEM) --S;
   if (S == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = s1_layout(U, gpt, S).total;
-  cudaError_t e = prepare(bwd_sweep1_kernel, smem);
+  const size_t smem = s1_layout(U, gpt, S, sizeof(T)).total;
+  cudaError_t e = prepare(bwd_sweep1_kernel<BF>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_sweep1_kernel<<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
-      p2, R / U, U, pool, S, vec2, dpooled, idx, gi3, W3, q3, partA, partu);
+  bwd_sweep1_kernel<BF>
+      <<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(p2), R / U, U, pool, S, vec2,
+          static_cast<const T*>(dpooled), idx, gi3, W3, static_cast<T*>(q3),
+          partA, partu);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int facl_sa_bwd_sweep2(const float* x, int B, int C0, int N,
-                                  const float* W1, const float* vec,
-                                  const float* p2, const float* q3,
-                                  const float* M3, const float* W2,
-                                  float* mq, double* partA, double* partG,
-                                  double* partu, double* partc, int nblk,
-                                  void* stream) {
+template <bool BF>
+int launch_bwd_sweep2(const void* x, int B, int C0, int N, const float* W1,
+                      const float* vec, const void* p2, const void* q3,
+                      const float* M3, const float* W2, void* mq,
+                      double* partA, double* partG, double* partu,
+                      double* partc, int nblk, void* stream) {
+  using T = typename Row<BF>::T;
   const int64_t R = (int64_t)B * N;
   if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * (2 * (TR * CW + C0MAX * TR) + TR * CW + 5 * TILE_F +
                        4 * 32 * b_stride(CW) + C0MAX * CW + 7 * CW) +
       TR * CW + 3 * sizeof(uint64_t);
-  cudaError_t e = prepare(bwd_sweep2_kernel, smem);
+  cudaError_t e = prepare(bwd_sweep2_kernel<BF>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_sweep2_kernel<<<nblk, NTM, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      x, C0, N, R / TR, W1, vec, p2, q3, M3, W2, mq, partA, partG, partu,
-      partc);
+  bwd_sweep2_kernel<BF>
+      <<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(x), C0, N, R / TR, W1, vec,
+          static_cast<const T*>(p2), static_cast<const T*>(q3), M3, W2,
+          static_cast<T*>(mq), partA, partG, partu, partc);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int facl_sa_bwd_sweep3(const float* x, int B, int C0, int N,
-                                  const float* W1, const float* vec,
-                                  const float* mq, const float* M2,
-                                  double* part, int nblk, void* stream) {
+template <bool BF>
+int launch_bwd_sweep3(const void* x, int B, int C0, int N, const float* W1,
+                      const float* vec, const void* mq, const float* M2,
+                      double* part, int nblk, void* stream) {
+  using T = typename Row<BF>::T;
   const int64_t R = (int64_t)B * N;
   if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
@@ -1381,9 +1509,54 @@ extern "C" int facl_sa_bwd_sweep3(const float* x, int B, int C0, int N,
                        2 * 32 * b_stride(CW) + C0MAX * CW + 4 * CW +
                        2 * S3_GROUP) +
       S3_STAGES * sizeof(uint64_t);
-  cudaError_t e = prepare(bwd_sweep3_kernel, smem);
+  cudaError_t e = prepare(bwd_sweep3_kernel<BF>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_sweep3_kernel<<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, C0, N, R / TR, W1, vec, mq, M2, part);
+  bwd_sweep3_kernel<BF>
+      <<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(x), C0, N, R / TR, W1, vec,
+          static_cast<const T*>(mq), M2, part);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+#define FACL_SA_ENTRY(name, sfx, bf, params, args)            \
+  extern "C" int facl_sa_##name##sfx params {                 \
+    return launch_##name<bf> args;                            \
+  }
+#define FACL_SA_ENTRIES(name, params, args) \
+  FACL_SA_ENTRY(name, , false, params, args) \
+  FACL_SA_ENTRY(name, _bf16, true, params, args)
+
+FACL_SA_ENTRIES(fwd_layer12,
+                (const void* x, int B, int C0, int N, const float* W1,
+                 const float* vec1, const float* W2, const float* b2,
+                 void* p2, double* part, int nblk, void* stream),
+                (x, B, C0, N, W1, vec1, W2, b2, p2, part, nblk, stream))
+FACL_SA_ENTRIES(fwd_gram_pool,
+                (const void* p2, int64_t R, int pool, const float* vec2,
+                 const float* W3, const float* b3, double* partG,
+                 double* partc, void* mx, void* mn, int* imx, int* imn,
+                 int nblk, void* stream),
+                (p2, R, pool, vec2, W3, b3, partG, partc, mx, mn, imx, imn,
+                 nblk, stream))
+FACL_SA_ENTRIES(bwd_sweep1,
+                (const void* p2, int64_t R, int pool, const float* vec2,
+                 const void* dpooled, const int* idx, const float* gi3,
+                 const float* W3, void* q3, double* partA, double* partu,
+                 int nblk, void* stream),
+                (p2, R, pool, vec2, dpooled, idx, gi3, W3, q3, partA, partu,
+                 nblk, stream))
+FACL_SA_ENTRIES(bwd_sweep2,
+                (const void* x, int B, int C0, int N, const float* W1,
+                 const float* vec, const void* p2, const void* q3,
+                 const float* M3, const float* W2, void* mq, double* partA,
+                 double* partG, double* partu, double* partc, int nblk,
+                 void* stream),
+                (x, B, C0, N, W1, vec, p2, q3, M3, W2, mq, partA, partG,
+                 partu, partc, nblk, stream))
+FACL_SA_ENTRIES(bwd_sweep3,
+                (const void* x, int B, int C0, int N, const float* W1,
+                 const float* vec, const void* mq, const float* M2,
+                 double* part, int nblk, void* stream),
+                (x, B, C0, N, W1, vec, mq, M2, part, nblk, stream))

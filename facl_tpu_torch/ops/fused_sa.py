@@ -7,6 +7,13 @@ both against each other and against the JAX package.
 Statistics are float32 and biased (flax convention); the returned
 (mean, var) per layer feed the caller's running-statistics update.
 
+At ``compute_dtype=torch.bfloat16`` the references follow the JAX casts
+(facl_tpu/ops/fused_sa.py:48-95, facl_tpu/models/sa_stage.py:227-268): the
+input is cast, each Dense multiplies and adds its bias in bf16 (from the
+f32 parameters), the moments come from p's f32 upcast, and the affine runs
+in f32 and is cast back to bf16 before the ReLU. Any other dtype runs the
+ops in the input's own dtype, with no cast.
+
 :func:`sa_train_fused` is ``sa_impl="pallas"`` (facl_tpu/ops/fused_sa.py:
 95-160): the forward and backward sweeps of kernel B9 (ops/sa_kernel.py)
 behind one ``torch.autograd.Function``, differentiable in x and every
@@ -26,6 +33,24 @@ class SALayerParams(NamedTuple):
     shift: torch.Tensor    # (Cout,) BN beta
 
 
+BF16 = torch.bfloat16
+
+
+def reject_bf16(dtype: torch.dtype, impl: str) -> None:
+    """The SA paths that have no bf16 form yet raise at bf16."""
+    if dtype == BF16:
+        raise NotImplementedError(
+            f"sa_impl={impl!r} has no bf16 compute yet (ROADMAP Queue 1 item "
+            "19); pair3 and reference run compute_dtype='bfloat16'")
+
+
+def _dense(h, lp: SALayerParams, dtype):
+    """h W + b; at bf16 both in bf16 from the f32 parameters."""
+    if dtype != BF16:
+        return h @ lp.kernel + lp.bias
+    return h.to(dtype) @ lp.kernel.to(dtype) + lp.bias.to(dtype)
+
+
 def _bn_train(p: torch.Tensor, eps: float):
     mean = p.mean(0)
     var = ((p * p).mean(0) - mean * mean).clamp_min(0.0)
@@ -33,18 +58,21 @@ def _bn_train(p: torch.Tensor, eps: float):
 
 
 def sa_train_reference(x: torch.Tensor, layers: Sequence[SALayerParams],
-                       pool_size: int, eps: float = 1e-5
+                       pool_size: int, eps: float = 1e-5,
+                       compute_dtype: torch.dtype = torch.float32
                        ) -> Tuple[torch.Tensor,
                                   List[Tuple[torch.Tensor, torch.Tensor]]]:
     """x: (R, C0) rows, R a multiple of pool_size. Returns (pooled
     (R // pool_size, C_last), [(mean, var)] per layer). Differentiable by
     autograd — the gradient baseline of the pair3 backward."""
-    h = x
+    bf = compute_dtype == BF16
+    h = x.to(BF16) if bf else x
     stats = []
     for lp in layers:
-        p = h @ lp.kernel + lp.bias
-        xhat, mean, var = _bn_train(p, eps)
-        h = torch.relu(xhat * lp.scale + lp.shift)
+        p = _dense(h, lp, compute_dtype)
+        xhat, mean, var = _bn_train(p.float() if bf else p, eps)
+        h = xhat * lp.scale + lp.shift
+        h = torch.relu(h.to(BF16) if bf else h)
         stats.append((mean, var))
     R, C = h.shape
     return h.reshape(R // pool_size, pool_size, C).amax(1), stats
@@ -52,19 +80,24 @@ def sa_train_reference(x: torch.Tensor, layers: Sequence[SALayerParams],
 
 def sa_eval_reference(x: torch.Tensor, layers: Sequence[SALayerParams],
                       running: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-                      pool_size: int, eps: float = 1e-5) -> torch.Tensor:
+                      pool_size: int, eps: float = 1e-5,
+                      compute_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
     """Eval-mode forward using running statistics."""
-    h = x
+    bf = compute_dtype == BF16
+    h = x.to(BF16) if bf else x
     for lp, (mean, var) in zip(layers, running):
-        p = h @ lp.kernel + lp.bias
-        h = torch.relu((p - mean) * torch.rsqrt(var + eps) * lp.scale
-                       + lp.shift)
+        p = _dense(h, lp, compute_dtype)
+        h = ((p.float() if bf else p) - mean) * torch.rsqrt(var + eps) \
+            * lp.scale + lp.shift
+        h = torch.relu(h.to(BF16) if bf else h)
     R, C = h.shape
     return h.reshape(R // pool_size, pool_size, C).amax(1)
 
 
 def sa_reference_4d(x: torch.Tensor, layers: Sequence[SALayerParams],
-                    eps: float = 1e-5, running=None, moments=None):
+                    eps: float = 1e-5, running=None, moments=None,
+                    dtype: torch.dtype = torch.float32):
     """The op sequence of facl_tpu/models/sa_stage.py::_reference_4d on
     (..., K, C0) neighbourhoods: per layer p = h W + b, its batch moments
     (reductions over every axis but the last, the variance clamped at 0;
@@ -74,23 +107,29 @@ def sa_reference_4d(x: torch.Tensor, layers: Sequence[SALayerParams],
     pL], the layer inputs [x, h1, .., h_{L-1}]). Plain torch,
     differentiable by autograd; also the forward of the hybrid and
     analytic paths (facl_tpu/ops/pallas/sa_bwd.py:351-373,
-    facl_tpu/ops/analytic_sa.py:47-70)."""
-    h = x
-    stats, ps, hs = [], [], [x]
+    facl_tpu/ops/analytic_sa.py:47-70). At ``dtype=torch.bfloat16`` the
+    stage's bf16 form (module docstring): the reference impl and the eval
+    path at that compute dtype."""
+    bf = dtype == BF16
+    h = x.to(BF16) if bf else x
+    stats, ps, hs = [], [], [h]
     for i, lp in enumerate(layers):
-        p = h @ lp.kernel + lp.bias
+        p = _dense(h, lp, dtype)
         if running is not None:
             mean, var = running[i]
         elif moments is not None:
             mean, var = moments(h, lp)
         else:
             flat = p.reshape(-1, p.shape[-1])
+            if bf:
+                flat = flat.float()
             mean = flat.mean(0)
             var = ((flat * flat).mean(0) - mean * mean).clamp_min(0.0)
         stats.append((mean, var))
         mul = torch.rsqrt(var + eps) * lp.scale
         shift = lp.shift - mean * mul
-        h = torch.relu(p * mul + shift)
+        h = p * mul + shift       # rebound: no second (R, C) tensor held
+        h = torch.relu(h.to(BF16) if bf else h)
         ps.append(p)
         hs.append(h)
     return h.amax(-2), stats, ps, hs[:-1]
@@ -134,6 +173,7 @@ def sa_train_fused(x: torch.Tensor, layers: Sequence[SALayerParams],
                               List[Tuple[torch.Tensor, torch.Tensor]]]:
     """Kernel B9's stage: x (R, C0) rows, R a multiple of pool_size.
     Returns (pooled (R // pool_size, C_last), [(mean, var)] per layer)."""
+    reject_bf16(x.dtype, "pallas")
     out = _SAFused.apply(x.contiguous(), pool_size, eps, need_dx,
                          *(t for lp in layers for t in lp))
     st = out[1:]

@@ -39,7 +39,8 @@ import torch
 
 from facl_tpu_torch.ops._launch import I, L, P, TRUNK, check_c0, \
     check_pool, grid, launch, need, on_cpu, ptr, reduce, stream_of
-from facl_tpu_torch.ops.fused_sa import SALayerParams, sa_reference_4d
+from facl_tpu_torch.ops.fused_sa import SALayerParams, reject_bf16, \
+    sa_reference_4d
 
 
 def _fold_affine(lp: SALayerParams, mean, var, eps):
@@ -49,10 +50,14 @@ def _fold_affine(lp: SALayerParams, mean, var, eps):
     return mul, shift
 
 
-def _h_from_p(p, mul, shift):
+def _h_from_p(p, mul, shift, dtype=torch.float32):
     """h = relu(p*mul + shift) from a stored pre-activation — the op chain
-    the kernels use (ops/csrc/sa_tile.cuh::relu_affine)."""
-    return torch.relu(p * mul + shift)
+    the kernels use (ops/csrc/sa_tile.cuh::relu_affine). At bf16 the affine
+    runs in f32 on p's upcast and is rounded to bf16 before the ReLU
+    (facl_tpu/ops/pallas/sa_bwd.py:63-67); the result is bf16."""
+    if dtype != torch.bfloat16:
+        return torch.relu(p * mul + shift)
+    return torch.relu((p.float() * mul + shift).to(dtype))
 
 
 def _layer_terms(A, u, lp: SALayerParams, mean, var, G, ch, n: int,
@@ -319,4 +324,5 @@ def sa_train_hybrid(x: torch.Tensor, layers: Sequence[SALayerParams],
     backward (B8). x (..., K, C0), max-pooled over K. Returns (pooled
     (..., C3), [(mean, var)] x 3). Differentiable in every layer
     parameter; the input cotangent is ZERO."""
+    reject_bf16(x.dtype, "hybrid")
     return two_sweep_train(_forward_ps, x, layers, eps, "hybrid")

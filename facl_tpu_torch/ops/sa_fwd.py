@@ -25,7 +25,7 @@ import torch
 
 from facl_tpu_torch.ops._launch import I, L, P, TILE, TRUNK, check_c0, \
     check_pool, grid, launch, need, on_cpu, ptr, reduce, stream_of
-from facl_tpu_torch.ops.fused_sa import SALayerParams
+from facl_tpu_torch.ops.fused_sa import SALayerParams, reject_bf16
 from facl_tpu_torch.ops.sa_bwd import _fold_affine, _h_from_p, \
     two_sweep_train
 
@@ -183,4 +183,5 @@ def sa_train_pfwd(x: torch.Tensor, layers: Sequence[SALayerParams],
     backward (B8) on its p1/p2. x (..., K, C0), max-pooled over K. Returns
     (pooled (..., C3), [(mean, var)] x 3). Differentiable in every layer
     parameter; the input cotangent is ZERO."""
+    reject_bf16(x.dtype, "hybrid2")
     return two_sweep_train(sa_forward_4sweep, x, layers, eps, "hybrid2")

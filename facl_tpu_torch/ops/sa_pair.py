@@ -32,6 +32,14 @@ read channel-major, (B, C0, S*K). Both backwards route each pooled
 cotangent to the first index of the raw-p3 max (or min) the forward
 found.
 
+pair3 also runs at compute_dtype bfloat16 (``dtype=torch.bfloat16``): the
+five sweeps then have bf16 instantiations (``sa_fwd_layer12_bf16`` ..
+``sa_bwd_sweep3_bf16``, entry points ``facl_sa_*_bf16``) that store x, p2,
+q3 and mq (and B2b's max/min) in bf16 and run every product in one TF32
+pass; their twins define the cast points (below). Everything outside the
+sweeps stays f32, as XLA keeps it outside Pallas. pair has no bf16 form
+yet and raises.
+
 Input cotangent contract: ZERO (facl_tpu/ops/pallas/sa_pair.py:67-68) —
 the grouped neighbourhoods are data in the training step.
 """
@@ -44,7 +52,7 @@ import torch
 from facl_tpu_torch.ops._launch import I, L, P, TRUNK, check_pool, \
     check_x, grid, launch, need, need_aligned, on_cpu, ptr, reduce, \
     stream_of
-from facl_tpu_torch.ops.fused_sa import SALayerParams
+from facl_tpu_torch.ops.fused_sa import SALayerParams, reject_bf16
 from facl_tpu_torch.ops.sa_bwd import _fold_affine, _h_from_p, \
     _launch_sweep2, _layer1_terms, _layer_terms, _sweep2_plain
 from facl_tpu_torch.ops.sa_fwd import _finalize, _moments_from_gram
@@ -123,15 +131,107 @@ def sa_bwd_sweep3_plain(x3, w1, b1, mul1, shift1, mq, M2, rc2):
     return dy1.T @ _rows(x3), dy1.sum(0)
 
 
-# -- kernel wrappers ----------------------------------------------------
+# -- bf16 twins ----------------------------------------------------------
+# The same sweeps at compute_dtype bfloat16, as the TPU kernels trace them
+# (facl_tpu/ops/pallas/sa_pair.py:121-494 at dtype=bfloat16): x, p2, q3
+# and mq are stored in bf16; every product takes bf16 operands (the f32
+# parameters rounded) and sums in f32 (preferred_element_type=f32); the
+# results are rounded to bf16 at the kernels' cast points. Each twin is
+# f32 arithmetic on bf16-rounded values, with one explicit rounding
+# (``_rb``) per cast point: the JAX op chain up to summation order. A
+# product of two bf16 values is exact in f32, so only the order of the
+# sums differs from JAX and from the kernels. Where the JAX kernel adds
+# two bf16 values and no cast or store follows (p1, p3, and p2 as its
+# moment sums read it), XLA keeps the sum in f32 (its excess precision in
+# a fused bf16 chain): checked against the kernels' interpret-mode
+# outputs, tests/test_torch_bf16_sa.py.
 
-def sa_fwd_layer12(x3, w1, b1, mul1, shift1, w2, b2):
-    """B2 sweep A. x3 (B, C0, N) -> (p2 (B*N, 64), sum p2, sum p2^2).
-    The kernel stages x by 16-byte TMA copies: a CUDA x3 that is not
-    16-byte aligned raises."""
-    if on_cpu(x3):
-        return sa_fwd_layer12_plain(x3, w1, b1, mul1, shift1, w2, b2)
-    B, C0, N = check_x(x3)
+BF16 = torch.bfloat16
+
+
+def _rb(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16, carried in f32: one cast point."""
+    return t.to(BF16).float()
+
+
+def _h1_bf16(x3, w1, b1, mul1, shift1):
+    """h1 (f32 holding bf16 values): p1 = bf16(x W1) + bf16(b1) summed in
+    f32, h1 = relu(bf16(p1 mul1 + shift1)) (sa_pair.py:164-165,
+    :316-330)."""
+    p1 = _rb(_rows(x3).float() @ _rb(w1)) + _rb(b1)
+    return _h_from_p(p1, mul1, shift1, BF16).float()
+
+
+def _h2_bf16(p2, mul2, shift2):
+    return _h_from_p(p2, mul2, shift2, BF16).float()
+
+
+def sa_fwd_layer12_bf16_plain(x3, w1, b1, mul1, shift1, w2, b2):
+    """-> (p2 (R, C2) bf16, sum p2, sum p2^2) with p2 = bf16(h1 W2) +
+    bf16(b2): stored rounded to bf16, summed in f32 before that rounding
+    (sa_pair.py:166-174)."""
+    p2 = _rb(_h1_bf16(x3, w1, b1, mul1, shift1) @ _rb(w2)) + _rb(b2)
+    return p2.to(BF16), p2.sum(0), (p2 * p2).sum(0)
+
+
+def sa_fwd_gram_pool_bf16_plain(p2, mul2, shift2, w3, b3, pool: int):
+    """-> (Gram(h2), colsum(h2) in f32; max, min (P, C3) of p3 =
+    bf16(h2 W3) + bf16(b3) (in f32), stored as bf16; the first index of
+    each, on the f32 p3) (sa_pair.py:220-247)."""
+    h2 = _h2_bf16(p2, mul2, shift2)
+    p3 = (_rb(h2 @ _rb(w3)) + _rb(b3)).reshape(-1, pool, w3.shape[1])
+    mx, mn = p3.amax(1), p3.amin(1)
+    return (h2.T @ h2, h2.sum(0), mx.to(BF16), mn.to(BF16),
+            _first_index(p3, mx, pool), _first_index(p3, mn, pool))
+
+
+def sa_bwd_sweep1_bf16_plain(p2, mul2, shift2, dpooled, idx, gi3, w3,
+                             pool: int):
+    """-> (A3, u3 in f32; q3 (R, C2) bf16 = bf16(bf16(dy3 bf16(gi3))
+    bf16(W3)^T)); dpooled is the bf16 cotangent (sa_pair.py:283-292)."""
+    h2 = _h2_bf16(p2, mul2, shift2)
+    dy3 = _dy3(dpooled.float(), idx, pool)
+    q3 = _rb(_rb(dy3 * _rb(gi3)) @ _rb(w3).T)
+    return dy3.T @ h2, dy3.sum(0), q3.to(BF16)
+
+
+def sa_bwd_sweep2_bf16_plain(x3, w1, b1, mul1, shift1, p2, mul2, shift2,
+                             q3, M3, rc3, gi2, w2):
+    """-> (A2 = bf16(dy2)^T h1, G1, u2 = sum dy2 (before its rounding),
+    ch1, all f32; mq (R, C1) bf16) with dy2 = [h2 > 0] (q3 - bf16(h2
+    bf16(M3)) - rc3) and q2 = bf16(bf16(bf16(dy2) bf16(gi2)) bf16(W2)^T)
+    (sa_pair.py:436-456)."""
+    h1 = _h1_bf16(x3, w1, b1, mul1, shift1)
+    h2 = _h2_bf16(p2, mul2, shift2)
+    dy2 = torch.where(h2 > 0, q3.float() - _rb(h2 @ _rb(M3)) - rc3, 0.0)
+    dy2d = _rb(dy2)
+    q2 = _rb(_rb(dy2d * _rb(gi2)) @ _rb(w2).T)
+    mq = torch.where(h1 > 0, q2, 0.0)
+    return dy2d.T @ h1, h1.T @ h1, dy2.sum(0), h1.sum(0), mq.to(BF16)
+
+
+def sa_bwd_sweep3_bf16_plain(x3, w1, b1, mul1, shift1, mq, M2, rc2):
+    """-> (A1 = dy1^T x, u1 = sum dy1) in f32, dy1 = bf16([h1 > 0] (mq -
+    (bf16(h1 bf16(M2)) + rc2))) (sa_pair.py:476-494)."""
+    h1 = _h1_bf16(x3, w1, b1, mul1, shift1)
+    dy1 = _rb(torch.where(h1 > 0, mq.float() - (_rb(h1 @ _rb(M2)) + rc2),
+                          0.0))
+    return dy1.T @ _rows(x3).float(), dy1.sum(0)
+
+
+# -- kernel wrappers ----------------------------------------------------
+# Each sweep has an f32 and a bf16 instantiation of one CUDA template
+# (csrc/sa_pair.cu; entry points facl_sa_*, facl_sa_*_bf16), each with its
+# own wrapper, twin and launch counter. ``dt`` is the storage dtype of x,
+# p2, q3 and mq, and of the max/min of B2b; a tensor stored otherwise
+# raises.
+
+def _entry(name: str, dt) -> str:
+    return f"facl_sa_{name}" + ("_bf16" if dt == BF16 else "")
+
+
+def _layer12(x3, w1, b1, mul1, shift1, w2, b2, dt):
+    B, C0, N = check_x(x3, dt)
     C1, C2 = TRUNK[0], TRUNK[1]
     need(w1, (C0, C1), "w1")
     need(w2, (C1, C2), "w2")
@@ -141,25 +241,21 @@ def sa_fwd_layer12(x3, w1, b1, mul1, shift1, w2, b2):
     need(vec1, (3 * C1,), "b1|mul1|shift1")
     R = B * N
     nblk = grid(x3, R, per_sm=1)
-    p2 = torch.empty((R, C2), dtype=torch.float32, device=x3.device)
+    p2 = torch.empty((R, C2), dtype=dt, device=x3.device)
     part = torch.empty((nblk, 2, C2), dtype=torch.float64,
                        device=x3.device)
-    launch("sa_pair", "facl_sa_fwd_layer12",
+    launch("sa_pair", _entry("fwd_layer12", dt),
            [P, I, I, I, P, P, P, P, P, P, I, P],
            ptr(x3), B, C0, N, ptr(w1), ptr(vec1), ptr(w2), ptr(b2), ptr(p2),
-           ptr(part), nblk, stream_of(x3), what="sa_fwd_layer12")
-    sa_fwd_layer12.launches += 1
+           ptr(part), nblk, stream_of(x3), what=_entry("fwd_layer12", dt))
     s = reduce(part)
     return p2, s[0], s[1]
 
 
-def sa_fwd_gram_pool(p2, mul2, shift2, w3, b3, pool: int):
-    """B2 sweep B. -> (Gram(h2), colsum(h2), max, min, argmax, argmin)."""
-    if on_cpu(p2):
-        return sa_fwd_gram_pool_plain(p2, mul2, shift2, w3, b3, pool)
+def _gram_pool(p2, mul2, shift2, w3, b3, pool, dt):
     R = p2.shape[0]
     C2, C3 = TRUNK[1], TRUNK[2]
-    need(p2, (R, C2), "p2")
+    need(p2, (R, C2), "p2", dt)
     need(w3, (C2, C3), "w3")
     need(b3, (C3,), "b3")
     check_pool(R, pool)
@@ -170,29 +266,24 @@ def sa_fwd_gram_pool(p2, mul2, shift2, w3, b3, pool: int):
     dev, Pn = p2.device, R // pool
     partG = torch.empty((nblk, C2, C2), dtype=torch.float64, device=dev)
     partc = torch.empty((nblk, C2), dtype=torch.float64, device=dev)
-    mx = torch.empty((Pn, C3), dtype=torch.float32, device=dev)
+    mx = torch.empty((Pn, C3), dtype=dt, device=dev)
     mn = torch.empty_like(mx)
     imx = torch.empty((Pn, C3), dtype=torch.int32, device=dev)
     imn = torch.empty_like(imx)
-    launch("sa_pair", "facl_sa_fwd_gram_pool",
+    launch("sa_pair", _entry("fwd_gram_pool", dt),
            [P, L, I, P, P, P, P, P, P, P, P, P, I, P],
            ptr(p2), R, pool, ptr(vec2), ptr(w3), ptr(b3), ptr(partG),
            ptr(partc), ptr(mx), ptr(mn), ptr(imx), ptr(imn), nblk,
-           stream_of(p2), what="sa_fwd_gram_pool")
-    sa_fwd_gram_pool.launches += 1
+           stream_of(p2), what=_entry("fwd_gram_pool", dt))
     return reduce(partG), reduce(partc), mx, mn, imx, imn
 
 
-def sa_bwd_sweep1(p2, mul2, shift2, dpooled, idx, gi3, w3, pool: int):
-    """B3 sweep 1. -> (A3 (C3, C2), u3 (C3,), q3 (R, C2))."""
-    if on_cpu(p2):
-        return sa_bwd_sweep1_plain(p2, mul2, shift2, dpooled, idx, gi3, w3,
-                                   pool)
+def _sweep1(p2, mul2, shift2, dpooled, idx, gi3, w3, pool, dt):
     R = p2.shape[0]
     C2, C3 = TRUNK[1], TRUNK[2]
     check_pool(R, pool)
-    need(p2, (R, C2), "p2")
-    need(dpooled, (R // pool, C3), "dpooled")
+    need(p2, (R, C2), "p2", dt)
+    need(dpooled, (R // pool, C3), "dpooled", dt)
     need(idx, (R // pool, C3), "idx", torch.int32)
     need(gi3, (C3,), "gi3")
     need(w3, (C2, C3), "w3")
@@ -203,30 +294,25 @@ def sa_bwd_sweep1(p2, mul2, shift2, dpooled, idx, gi3, w3, pool: int):
     need(vec2, (2 * C2,), "mul2|shift2")
     nblk = grid(p2, R, per_sm=1)
     dev = p2.device
-    q3 = torch.empty((R, C2), dtype=torch.float32, device=dev)
+    q3 = torch.empty((R, C2), dtype=dt, device=dev)
     partA = torch.empty((nblk, C3, C2), dtype=torch.float64, device=dev)
     partu = torch.empty((nblk, C3), dtype=torch.float64, device=dev)
-    launch("sa_pair", "facl_sa_bwd_sweep1",
+    launch("sa_pair", _entry("bwd_sweep1", dt),
            [P, L, I, P, P, P, P, P, P, P, P, I, P],
            ptr(p2), R, pool, ptr(vec2), ptr(dpooled), ptr(idx), ptr(gi3),
            ptr(w3), ptr(q3), ptr(partA), ptr(partu), nblk, stream_of(p2),
-           what="sa_bwd_sweep1")
-    sa_bwd_sweep1.launches += 1
+           what=_entry("bwd_sweep1", dt))
     return reduce(partA), reduce(partu), q3
 
 
-def sa_bwd_sweep2(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3,
-                  gi2, w2):
-    """B3 sweep 2. -> (A2 (C2, C1), G1 (C1, C1), u2, ch1, mq (R, C1))."""
-    if on_cpu(x3):
-        return sa_bwd_sweep2_plain(x3, w1, b1, mul1, shift1, p2, mul2,
-                                   shift2, q3, M3, rc3, gi2, w2)
-    B, C0, N = check_x(x3)
+def _sweep2(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3, gi2,
+            w2, dt):
+    B, C0, N = check_x(x3, dt)
     C1, C2 = TRUNK[0], TRUNK[1]
     R = B * N
     need(w1, (C0, C1), "w1")
-    need(p2, (R, C2), "p2")
-    need(q3, (R, C2), "q3")
+    need(p2, (R, C2), "p2", dt)
+    need(q3, (R, C2), "q3", dt)
     need(M3, (C2, C2), "M3")
     need(w2, (C1, C2), "w2")
     need_aligned(p2, "p2")
@@ -235,30 +321,26 @@ def sa_bwd_sweep2(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3,
     need(vec, (7 * C1,), "vectors")
     nblk = grid(x3, R, per_sm=1)
     dev = x3.device
-    mq = torch.empty((R, C1), dtype=torch.float32, device=dev)
+    mq = torch.empty((R, C1), dtype=dt, device=dev)
     partA = torch.empty((nblk, C2, C1), dtype=torch.float64, device=dev)
     partG = torch.empty((nblk, C1, C1), dtype=torch.float64, device=dev)
     partu = torch.empty((nblk, C2), dtype=torch.float64, device=dev)
     partc = torch.empty((nblk, C1), dtype=torch.float64, device=dev)
-    launch("sa_pair", "facl_sa_bwd_sweep2",
+    launch("sa_pair", _entry("bwd_sweep2", dt),
            [P, I, I, I, P, P, P, P, P, P, P, P, P, P, P, I, P],
            ptr(x3), B, C0, N, ptr(w1), ptr(vec), ptr(p2), ptr(q3), ptr(M3),
            ptr(w2), ptr(mq), ptr(partA), ptr(partG), ptr(partu), ptr(partc),
-           nblk, stream_of(x3), what="sa_bwd_sweep2")
-    sa_bwd_sweep2.launches += 1
+           nblk, stream_of(x3), what=_entry("bwd_sweep2", dt))
     return (reduce(partA), reduce(partG), reduce(partu), reduce(partc),
             mq)
 
 
-def sa_bwd_sweep3(x3, w1, b1, mul1, shift1, mq, M2, rc2):
-    """B3 sweep 3. -> (A1 (C1, C0), u1 (C1,))."""
-    if on_cpu(x3):
-        return sa_bwd_sweep3_plain(x3, w1, b1, mul1, shift1, mq, M2, rc2)
-    B, C0, N = check_x(x3)
+def _sweep3(x3, w1, b1, mul1, shift1, mq, M2, rc2, dt):
+    B, C0, N = check_x(x3, dt)
     C1 = TRUNK[0]
     R = B * N
     need(w1, (C0, C1), "w1")
-    need(mq, (R, C1), "mq")
+    need(mq, (R, C1), "mq", dt)
     need(M2, (C1, C1), "M2")
     need_aligned(mq, "mq")
     vec = torch.cat([b1, mul1, shift1, rc2]).contiguous()
@@ -266,13 +348,117 @@ def sa_bwd_sweep3(x3, w1, b1, mul1, shift1, mq, M2, rc2):
     nblk = grid(x3, R, per_sm=1)
     part = torch.empty((nblk, C1, C0 + 1), dtype=torch.float64,
                        device=x3.device)
-    launch("sa_pair", "facl_sa_bwd_sweep3",
+    launch("sa_pair", _entry("bwd_sweep3", dt),
            [P, I, I, I, P, P, P, P, P, I, P],
            ptr(x3), B, C0, N, ptr(w1), ptr(vec), ptr(mq), ptr(M2), ptr(part),
-           nblk, stream_of(x3), what="sa_bwd_sweep3")
-    sa_bwd_sweep3.launches += 1
+           nblk, stream_of(x3), what=_entry("bwd_sweep3", dt))
     out = reduce(part)
     return out[:, :C0], out[:, C0]
+
+
+def sa_fwd_layer12(x3, w1, b1, mul1, shift1, w2, b2):
+    """B2 sweep A. x3 (B, C0, N) -> (p2 (B*N, 64), sum p2, sum p2^2).
+    The kernel stages x by 16-byte TMA copies: a CUDA x3 that is not
+    16-byte aligned raises."""
+    if on_cpu(x3):
+        return sa_fwd_layer12_plain(x3, w1, b1, mul1, shift1, w2, b2)
+    out = _layer12(x3, w1, b1, mul1, shift1, w2, b2, torch.float32)
+    sa_fwd_layer12.launches += 1
+    return out
+
+
+def sa_fwd_gram_pool(p2, mul2, shift2, w3, b3, pool: int):
+    """B2 sweep B. -> (Gram(h2), colsum(h2), max, min, argmax, argmin)."""
+    if on_cpu(p2):
+        return sa_fwd_gram_pool_plain(p2, mul2, shift2, w3, b3, pool)
+    out = _gram_pool(p2, mul2, shift2, w3, b3, pool, torch.float32)
+    sa_fwd_gram_pool.launches += 1
+    return out
+
+
+def sa_bwd_sweep1(p2, mul2, shift2, dpooled, idx, gi3, w3, pool: int):
+    """B3 sweep 1. -> (A3 (C3, C2), u3 (C3,), q3 (R, C2))."""
+    if on_cpu(p2):
+        return sa_bwd_sweep1_plain(p2, mul2, shift2, dpooled, idx, gi3, w3,
+                                   pool)
+    out = _sweep1(p2, mul2, shift2, dpooled, idx, gi3, w3, pool,
+                  torch.float32)
+    sa_bwd_sweep1.launches += 1
+    return out
+
+
+def sa_bwd_sweep2(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3,
+                  gi2, w2):
+    """B3 sweep 2. -> (A2 (C2, C1), G1 (C1, C1), u2, ch1, mq (R, C1))."""
+    if on_cpu(x3):
+        return sa_bwd_sweep2_plain(x3, w1, b1, mul1, shift1, p2, mul2,
+                                   shift2, q3, M3, rc3, gi2, w2)
+    out = _sweep2(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3,
+                  gi2, w2, torch.float32)
+    sa_bwd_sweep2.launches += 1
+    return out
+
+
+def sa_bwd_sweep3(x3, w1, b1, mul1, shift1, mq, M2, rc2):
+    """B3 sweep 3. -> (A1 (C1, C0), u1 (C1,))."""
+    if on_cpu(x3):
+        return sa_bwd_sweep3_plain(x3, w1, b1, mul1, shift1, mq, M2, rc2)
+    out = _sweep3(x3, w1, b1, mul1, shift1, mq, M2, rc2, torch.float32)
+    sa_bwd_sweep3.launches += 1
+    return out
+
+
+def sa_fwd_layer12_bf16(x3, w1, b1, mul1, shift1, w2, b2):
+    """B2 sweep A at bf16: x3 (B, C0, N) bf16 -> (p2 (B*N, 64) bf16, sum
+    p2, sum p2^2 in f32)."""
+    if on_cpu(x3):
+        return sa_fwd_layer12_bf16_plain(x3, w1, b1, mul1, shift1, w2, b2)
+    out = _layer12(x3, w1, b1, mul1, shift1, w2, b2, BF16)
+    sa_fwd_layer12_bf16.launches += 1
+    return out
+
+
+def sa_fwd_gram_pool_bf16(p2, mul2, shift2, w3, b3, pool: int):
+    """B2 sweep B at bf16: p2 bf16 -> (Gram(h2), colsum(h2) in f32, max,
+    min bf16, argmax, argmin)."""
+    if on_cpu(p2):
+        return sa_fwd_gram_pool_bf16_plain(p2, mul2, shift2, w3, b3, pool)
+    out = _gram_pool(p2, mul2, shift2, w3, b3, pool, BF16)
+    sa_fwd_gram_pool_bf16.launches += 1
+    return out
+
+
+def sa_bwd_sweep1_bf16(p2, mul2, shift2, dpooled, idx, gi3, w3, pool: int):
+    """B3 sweep 1 at bf16: p2, dpooled bf16 -> (A3, u3 in f32, q3 bf16)."""
+    if on_cpu(p2):
+        return sa_bwd_sweep1_bf16_plain(p2, mul2, shift2, dpooled, idx, gi3,
+                                        w3, pool)
+    out = _sweep1(p2, mul2, shift2, dpooled, idx, gi3, w3, pool, BF16)
+    sa_bwd_sweep1_bf16.launches += 1
+    return out
+
+
+def sa_bwd_sweep2_bf16(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3,
+                       rc3, gi2, w2):
+    """B3 sweep 2 at bf16: x, p2, q3 bf16 -> (A2, G1, u2, ch1 in f32, mq
+    bf16)."""
+    if on_cpu(x3):
+        return sa_bwd_sweep2_bf16_plain(x3, w1, b1, mul1, shift1, p2, mul2,
+                                        shift2, q3, M3, rc3, gi2, w2)
+    out = _sweep2(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3,
+                  gi2, w2, BF16)
+    sa_bwd_sweep2_bf16.launches += 1
+    return out
+
+
+def sa_bwd_sweep3_bf16(x3, w1, b1, mul1, shift1, mq, M2, rc2):
+    """B3 sweep 3 at bf16: x, mq bf16 -> (A1, u1) in f32."""
+    if on_cpu(x3):
+        return sa_bwd_sweep3_bf16_plain(x3, w1, b1, mul1, shift1, mq, M2,
+                                        rc2)
+    out = _sweep3(x3, w1, b1, mul1, shift1, mq, M2, rc2, BF16)
+    sa_bwd_sweep3_bf16.launches += 1
+    return out
 
 
 def sa_bwd_sweep2_full(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3,
@@ -290,42 +476,64 @@ def sa_bwd_sweep2_full(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3,
 
 
 KERNELS = (sa_fwd_layer12, sa_fwd_gram_pool, sa_bwd_sweep1, sa_bwd_sweep2,
-           sa_bwd_sweep3, sa_bwd_sweep2_full)
+           sa_bwd_sweep3, sa_bwd_sweep2_full, sa_fwd_layer12_bf16,
+           sa_fwd_gram_pool_bf16, sa_bwd_sweep1_bf16, sa_bwd_sweep2_bf16,
+           sa_bwd_sweep3_bf16)
 for _k in KERNELS:
     _k.launches = 0
+
+
+def _sweeps(dtype):
+    """pair3's five sweeps at ``dtype``: the bf16 ones, or the f32 ones for
+    any other dtype (the module's names, read at call time)."""
+    if dtype == BF16:
+        return (sa_fwd_layer12_bf16, sa_fwd_gram_pool_bf16,
+                sa_bwd_sweep1_bf16, sa_bwd_sweep2_bf16, sa_bwd_sweep3_bf16)
+    return (sa_fwd_layer12, sa_fwd_gram_pool, sa_bwd_sweep1, sa_bwd_sweep2,
+            sa_bwd_sweep3)
 
 
 # -- the stage ----------------------------------------------------------
 
 def sa_forward_pair(x3: torch.Tensor, layers: Sequence[SALayerParams],
-                    pool: int, eps: float):
+                    pool: int, eps: float, dtype=torch.float32):
     """Forward of the stage. x3: (B, C0, N) channel-major rows, ``pool``
-    consecutive rows per output row. Returns (pooled (R // pool, C3),
-    stats [(mean, var)] x 3, residuals for :func:`sa_backward_pair`)."""
+    consecutive rows per output row, stored in ``dtype`` (bf16 runs the
+    bf16 sweeps; any other dtype the f32 form). Returns (pooled (R //
+    pool, C3) in x3's dtype, stats [(mean, var)] x 3 in f32, residuals for
+    :func:`sa_backward_pair`)."""
+    bf = dtype == BF16
+    fwd12, gram_pool = _sweeps(dtype)[:2]
     lp1, lp2, lp3 = layers
     n = x3.shape[0] * x3.shape[2]
-    Gx = torch.einsum("bcn,bdn->cd", x3, x3)
-    cx = x3.sum((0, 2))
+    # The layer-1 moments from Gram(x) in f32 (of the bf16 x at bf16), as
+    # XLA computes them outside the kernels (sa_pair.py:601-632).
+    xg = x3.float() if bf else x3
+    Gx = torch.einsum("bcn,bdn->cd", xg, xg)
+    cx = xg.sum((0, 2))
     mean1, var1 = _moments_from_gram(Gx, cx, lp1.kernel, lp1.bias, n)
     mul1, shift1 = _fold_affine(lp1, mean1, var1, eps)
 
-    p2, s2, ss2 = sa_fwd_layer12(x3, lp1.kernel, lp1.bias, mul1, shift1,
-                                 lp2.kernel, lp2.bias)
+    p2, s2, ss2 = fwd12(x3, lp1.kernel, lp1.bias, mul1, shift1, lp2.kernel,
+                        lp2.bias)
     mean2, var2 = _finalize(s2, ss2, n)
     mul2, shift2 = _fold_affine(lp2, mean2, var2, eps)
 
-    G2, ch2, mx, mn, imx, imn = sa_fwd_gram_pool(p2, mul2, shift2,
-                                                 lp3.kernel, lp3.bias, pool)
+    G2, ch2, mx, mn, imx, imn = gram_pool(p2, mul2, shift2, lp3.kernel,
+                                          lp3.bias, pool)
     mean3, var3 = _moments_from_gram(G2, ch2, lp3.kernel, lp3.bias, n)
     mul3, shift3 = _fold_affine(lp3, mean3, var3, eps)
 
     # Pool finalize by monotone commutation (facl_tpu/ops/pallas/
     # sa_pair.py:694-705): max of relu(p3*mul3 + shift3) comes from the
     # max row where mul3 >= 0 and from the min row where mul3 < 0. A dead
-    # ReLU gets the sentinel pool.
+    # ReLU gets the sentinel pool. At bf16 the affine runs in f32 on the
+    # bf16 extrema and is rounded before the ReLU.
+    if bf:
+        mx, mn = mx.float(), mn.float()
     sel = mul3 >= 0
     zstar = torch.where(sel, mx, mn) * mul3 + shift3
-    pooled = torch.relu(zstar)
+    pooled = torch.relu(zstar.to(BF16) if bf else zstar)
     idx = torch.where(zstar > 0, torch.where(sel, imx, imn),
                       torch.full_like(imx, pool))
     stats = [(mean1, var1), (mean2, var2), (mean3, var3)]
@@ -335,11 +543,15 @@ def sa_forward_pair(x3: torch.Tensor, layers: Sequence[SALayerParams],
 
 
 def sa_backward_pair(x3, layers, stats, res, dpooled, pool: int,
-                     eps: float, slim: bool = True):
+                     eps: float, slim: bool = True, dtype=torch.float32):
     """The backward of the stage (facl_tpu/ops/pallas/sa_pair.py:711-947):
     B3's sweep 1, then the slim sweeps 2 and 3 (``slim``, pair3) or B6 and
-    layer 1 in closed form from its third-order moments (pair). Returns
-    ((dW, db, dgamma, dbeta) per layer)."""
+    layer 1 in closed form from its third-order moments (pair). At bf16
+    (pair3 only) the bf16 sweeps, dpooled the bf16 cotangent. Returns
+    ((dW, db, dgamma, dbeta) per layer) in f32."""
+    if not slim:
+        reject_bf16(dtype, "pair")
+    _, _, sweep1, sweep2, sweep3 = _sweeps(dtype)
     lp1, lp2, lp3 = layers
     (mean1, var1), (mean2, var2), (mean3, var3) = stats
     n = x3.shape[0] * x3.shape[2]
@@ -348,17 +560,17 @@ def sa_backward_pair(x3, layers, stats, res, dpooled, pool: int,
     mul1, shift1 = res["mul1"], res["shift1"]
     mul2, shift2 = res["mul2"], res["shift2"]
 
-    A3, u3, q3 = sa_bwd_sweep1(res["p2"], mul2, shift2, dpooled.contiguous(),
-                               res["idx"], gi3, lp3.kernel, pool)
+    A3, u3, q3 = sweep1(res["p2"], mul2, shift2, dpooled.contiguous(),
+                        res["idx"], gi3, lp3.kernel, pool)
     t3 = _layer_terms(A3, u3, lp3, mean3, var3, res["G2"], res["ch2"], n,
                       eps)
     args2 = (x3, lp1.kernel, lp1.bias, mul1, shift1, res["p2"], mul2, shift2,
              q3, t3["M"].contiguous(), t3["rc"], gi2, lp2.kernel)
     if slim:
-        A2, G1, u2, ch1, mq = sa_bwd_sweep2(*args2)
+        A2, G1, u2, ch1, mq = sweep2(*args2)
         t2 = _layer_terms(A2, u2, lp2, mean2, var2, G1, ch1, n, eps)
-        A1, u1 = sa_bwd_sweep3(x3, lp1.kernel, lp1.bias, mul1, shift1, mq,
-                               t2["M"].contiguous(), t2["rc"])
+        A1, u1 = sweep3(x3, lp1.kernel, lp1.bias, mul1, shift1, mq,
+                        t2["M"].contiguous(), t2["rc"])
         t1 = _layer_terms(A1, u1, lp1, mean1, var1, res["Gx"], res["cx"], n,
                           eps)
     else:
@@ -370,17 +582,18 @@ def sa_backward_pair(x3, layers, stats, res, dpooled, pool: int,
 
 
 class _Pair(torch.autograd.Function):
-    """pooled, *stats = f(x_cf, eps, slim, *12 layer tensors). Stats carry
-    no gradient (they feed the running-statistics update); the input
+    """pooled, *stats = f(x_cf, eps, slim, dtype, *12 layer tensors). Stats
+    carry no gradient (they feed the running-statistics update); the input
     cotangent is zero by contract."""
 
     @staticmethod
-    def forward(ctx, x_cf, eps, slim, *flat):
+    def forward(ctx, x_cf, eps, slim, dtype, *flat):
         layers = [SALayerParams(*flat[4 * i:4 * i + 4]) for i in range(3)]
         Bv, C0, S, K = x_cf.shape
         x3 = x_cf.reshape(Bv, C0, S * K)
-        pooled, stats, res = sa_forward_pair(x3, layers, K, eps)
+        pooled, stats, res = sa_forward_pair(x3, layers, K, eps, dtype)
         ctx.eps, ctx.pool, ctx.slim, ctx.x_shape = eps, K, slim, x_cf.shape
+        ctx.dtype = dtype
         keys = sorted(res)
         ctx.res_keys = keys
         ctx.save_for_backward(x3, *flat, *(m for s in stats for m in s),
@@ -401,30 +614,37 @@ class _Pair(torch.autograd.Function):
         C3 = dpooled.shape[-1]
         grads = sa_backward_pair(x3, layers, stats, res,
                                  dpooled.reshape(-1, C3), ctx.pool, ctx.eps,
-                                 ctx.slim)
+                                 ctx.slim, ctx.dtype)
         flat_grads = [g for layer in grads for g in layer]
         return (torch.zeros(ctx.x_shape, dtype=x3.dtype, device=x3.device),
-                None, None, *flat_grads)
+                None, None, None, *flat_grads)
 
 
 def sa_train_pair(x_cf: torch.Tensor, layers: Sequence[SALayerParams],
-                  eps: float = 1e-5, slim: bool = False
-                  ) -> Tuple[torch.Tensor, list]:
+                  eps: float = 1e-5, slim: bool = False,
+                  dtype=torch.float32) -> Tuple[torch.Tensor, list]:
     """Train-mode SA stage on channel-major neighbourhoods x_cf (B, C0, S,
     K), max-pooled over K: ``sa_impl="pair"`` (B6 backward), or "pair3"
-    with ``slim``. Returns (pooled (B, S, C3), [(mean, var)] x 3).
-    Differentiable in every layer parameter; the input cotangent is ZERO."""
+    with ``slim``. ``dtype=torch.bfloat16`` (pair3 only; pair raises)
+    runs the bf16 sweeps on x_cf cast to bf16; the pooled output is then
+    bf16. Returns (pooled
+    (B, S, C3), [(mean, var)] x 3). Differentiable in every layer
+    parameter; the input cotangent is ZERO."""
     if len(layers) != 3:
         raise ValueError("the pair stage is specialised to 3 layers")
+    if dtype == BF16:
+        if not slim:
+            reject_bf16(dtype, "pair")
+        x_cf = x_cf.to(BF16)
     flat = [t for lp in layers for t in lp]
-    out = _Pair.apply(x_cf.contiguous(), eps, slim, *flat)
+    out = _Pair.apply(x_cf.contiguous(), eps, slim, dtype, *flat)
     pooled, st = out[0], out[1:]
     return pooled, [(st[0], st[1]), (st[2], st[3]), (st[4], st[5])]
 
 
 def sa_train_pair3(x_cf: torch.Tensor, layers: Sequence[SALayerParams],
-                   eps: float = 1e-5
+                   eps: float = 1e-5, dtype=torch.float32
                    ) -> Tuple[torch.Tensor, list]:
     """``sa_impl="pair3"``: :func:`sa_train_pair` with the slim 3-sweep
     backward (B3)."""
-    return sa_train_pair(x_cf, layers, eps, slim=True)
+    return sa_train_pair(x_cf, layers, eps, slim=True, dtype=dtype)

@@ -14,10 +14,16 @@ LR schedule. The BatchNorm running statistics update during the forward,
 which reads only batch statistics, so the order against Adam does not
 change any value.
 
+``compute_dtype`` "bfloat16" (every shipped training config) runs with
+``sa_impl`` pair3 (the bf16 sweeps of B2/B3), reference or auto (which
+resolves to one of them): the SA stage, stage-2 MLP and head compute in
+bf16; parameters, Adam state, losses and BatchNorm statistics stay f32
+(models/pointnet.py).
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-SwAV and CLD (Queue 1 item 14), the two-program ``split_step`` (a JAX
-scratch-arena workaround, Queue 1 item 16) and any ``compute_dtype``
-other than float32 (bf16, Queue 1 item 8).
+SwAV and CLD (Queue 1 item 15), the two-program ``split_step`` (a JAX
+scratch-arena workaround, Queue 1 item 17), and bf16 with any other
+``sa_impl`` (Queue 1 item 19).
 """
 from __future__ import annotations
 
@@ -30,8 +36,10 @@ from facl_tpu_torch import resolve_device
 from facl_tpu_torch.config import Config, GroupingConfig
 from facl_tpu_torch.losses.infonce import circle_infonce, \
     global_local_infonce
-from facl_tpu_torch.models.pointnet import resolve_grouping, \
-    resolve_model, resolve_model_config
+from facl_tpu_torch.models.pointnet import compute_dtype, \
+    resolve_grouping, resolve_model, resolve_model_config
+from facl_tpu_torch.models.sa_stage import BF16_IMPLS
+from facl_tpu_torch.ops.fused_sa import reject_bf16
 from facl_tpu_torch.ops.grouping import group_points, \
     resolve_gather_impl, resolve_select_impl
 from facl_tpu_torch.train.optim import make_optimizer
@@ -41,14 +49,14 @@ from facl_tpu_torch.train.state import TrainState
 def _reject_unported(cfg: Config) -> None:
     if cfg.loss.use_swav or cfg.loss.use_cld:
         raise NotImplementedError("SwAV / CLD losses are not ported yet "
-                                  "(ROADMAP Queue 1 item 14)")
+                                  "(ROADMAP Queue 1 item 15)")
     if cfg.train.split_step:
         raise NotImplementedError("split_step is not ported yet (ROADMAP "
-                                  "Queue 1 item 16)")
-    if cfg.model.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.model.compute_dtype!r} is not ported yet "
-            "(bf16 compute, ROADMAP Queue 1 item 8)")
+                                  "Queue 1 item 17)")
+    dtype = compute_dtype(cfg.model)
+    impl = resolve_model_config(cfg.model).sa_impl
+    if impl not in BF16_IMPLS:
+        reject_bf16(dtype, impl)
     if cfg.grouping.method != "exact":
         raise NotImplementedError("approximate kNN is not ported "
                                   "(grouping.method must be 'exact')")

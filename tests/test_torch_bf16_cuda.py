@@ -1,0 +1,180 @@
+"""The bf16 instantiations of the pair3 sweeps (B2a, B2b, B3a, B3b, B3c at
+compute_dtype bfloat16) against their bf16 twins, on the card.
+
+Marked ``cuda``: each test skips (with its reason) where no card is
+present; ``chip_smoke.py`` holds the same kernels at the main path's full
+shapes. On a machine with a card:
+``python -m pytest tests/test_torch_bf16_cuda.py -m cuda -q``.
+
+Bars: a bf16 output (p2, max, min, q3, mq) within one bf16 ulp of the
+twin's on all but 1e-3 of its entries (where a bf16 rounding or ReLU
+decision upstream goes the other way between the two summation orders);
+pool indices equal except at near-ties (the twin's value at the kernel's
+index within one bf16 ulp of its best); f32 accumulators within 1e-3 of
+their max-abs; two calls bit-identical. The stage, card vs CPU: pooled at
+rtol = atol = 5e-2 and gradients at relative L2 < 0.15, cosine > 0.99
+(the JAX package's bf16 bars, tests/test_covar_bn.py:38-39,
+tests/test_sa_pair.py:109-135).
+"""
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+BF16 = torch.bfloat16
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _ulp(v):
+    _, e = torch.frexp(v.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+def _rows(k, t):
+    a, b = k.float(), t.float()
+    beyond = (a - b).abs() > _ulp(torch.maximum(a.abs(), b.abs()))
+    assert int(beyond.sum()) <= 1e-3 * a.numel()
+
+
+def _acc(k, t):
+    assert float((k - t).abs().max()) <= 1e-3 * float(t.abs().max())
+
+
+def _layers(rng, dev):
+    out, cin = [], 4
+    for w in (64, 64, 256):
+        out.append([torch.tensor(a, dtype=torch.float32, device=dev) for a in
+                    (rng.normal(size=(cin, w), scale=0.3),
+                     rng.normal(size=(w,), scale=0.1),
+                     1.0 + 0.3 * rng.normal(size=(w,)),
+                     rng.normal(size=(w,), scale=0.1))])
+        cin = w
+    return out
+
+
+@pytest.mark.parametrize("K,B,N", [(64, 2, 1024), (128, 2, 1024),
+                                   (16, 2, 1024), (4, 2, 1024),
+                                   (2, 2, 1024), (1, 2, 1024),
+                                   (192, 2, 768), (64, 4, 96)])
+def test_bf16_sweeps_match_twins(dev, rng, K, B, N):
+    """K: one group in a tile (64), groups spanning tiles (128, 192),
+    several groups per tile (16, 4, 2, 1); N = 96 puts tiles across two
+    clouds of channel-major x (the unstaged x paths)."""
+    from facl_tpu_torch.ops import sa_pair as SP
+    (w1, b1, _, _), (w2, b2, _, _), (w3, b3, _, _) = _layers(rng, dev)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    vec = lambda n, s=1.0: t(s * rng.normal(size=(n,)))
+    x3 = t(rng.normal(size=(B, 4, N))).to(BF16)
+    R, P = B * N, B * N // K
+    mul1, shift1, mul2, shift2 = vec(64, 2), vec(64), vec(64, 2), vec(64)
+
+    def both(fn, *args):
+        k, tw = fn(*args), getattr(SP, fn.__name__ + "_plain")(*args)
+        assert all(torch.equal(a, b) for a, b in zip(k, fn(*args)))
+        return k, tw
+
+    k, tw = both(SP.sa_fwd_layer12_bf16, x3, w1, b1, mul1, shift1, w2, b2)
+    assert k[0].dtype == BF16
+    _rows(k[0], tw[0])
+    _acc(k[1], tw[1])
+    _acc(k[2], tw[2])
+    p2 = tw[0]
+
+    k, tw = both(SP.sa_fwd_gram_pool_bf16, p2, mul2, shift2, w3, b3, K)
+    _acc(k[0], tw[0])
+    _acc(k[1], tw[1])
+    _rows(k[2], tw[2])
+    _rows(k[3], tw[3])
+    p3 = (SP._rb(SP._h2_bf16(p2, mul2, shift2) @ SP._rb(w3))
+          + SP._rb(b3)).reshape(-1, K, 256)
+    for ki, ti, best in ((k[4], tw[4], tw[2]), (k[5], tw[5], tw[3])):
+        assert int(ki.min()) >= 0 and int(ki.max()) < K
+        g, c = (ki != ti).nonzero(as_tuple=True)
+        v, bv = p3[g, ki[g, c].long(), c], best[g, c].float()
+        assert bool(((v - bv).abs() <= _ulp(bv.abs())).all())
+
+    u = rng.random(size=(P, 256))
+    idx = np.where(u < 0.6, 0, np.where(u < 0.7, K,
+                                        rng.integers(0, K, size=(P, 256))))
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    dp = vec(P * 256).view(P, 256).to(BF16)
+    k, tw = both(SP.sa_bwd_sweep1_bf16, p2, mul2, shift2, dp, idx, vec(256),
+                 w3, K)
+    _acc(k[0], tw[0])
+    _acc(k[1], tw[1])
+    _rows(k[2], tw[2])
+
+    q3 = vec(R * 64, 0.1).view(R, 64).to(BF16)
+    M3, rc3, gi2 = t(0.01 * rng.normal(size=(64, 64))), vec(64, 0.1), vec(64)
+    k, tw = both(SP.sa_bwd_sweep2_bf16, x3, w1, b1, mul1, shift1, p2, mul2,
+                 shift2, q3, M3, rc3, gi2, w2)
+    for a, b in zip(k[:4], tw[:4]):
+        _acc(a, b)
+    _rows(k[4], tw[4])
+
+    mq = vec(R * 64, 0.1).view(R, 64).to(BF16)
+    k, tw = both(SP.sa_bwd_sweep3_bf16, x3, w1, b1, mul1, shift1, mq,
+                 t(0.01 * rng.normal(size=(64, 64))), vec(64, 0.1))
+    _acc(k[0], tw[0])
+    _acc(k[1], tw[1])
+
+
+def test_bf16_sweeps_take_bf16_rows_only(dev):
+    """The storage dtype is checked: f32 rows into a bf16 sweep, or bf16
+    rows into an f32 one, raise ValueError before a launch."""
+    from facl_tpu_torch.ops import sa_pair as SP
+    v = torch.ones(64, device=dev)
+    w1, w2 = torch.zeros(4, 64, device=dev), torch.zeros(64, 64, device=dev)
+    x3 = torch.zeros(1, 4, 256, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        SP.sa_fwd_layer12_bf16(x3, w1, v, v, v, w2, v)
+    with pytest.raises(ValueError, match="float32"):
+        SP.sa_fwd_layer12(x3.to(BF16), w1, v, v, v, w2, v)
+    with pytest.raises(ValueError, match="bfloat16"):
+        SP.sa_bwd_sweep3_bf16(x3.to(BF16), w1, v, v, v,
+                              torch.zeros(256, 64, device=dev), w2, v)
+
+
+@pytest.mark.parametrize("K", [64, 128])
+def test_bf16_pair3_stage_card_vs_cpu(dev, rng, K):
+    from facl_tpu_torch.ops.fused_sa import SALayerParams
+    from facl_tpu_torch.ops.sa_pair import sa_train_pair3
+    x = rng.normal(size=(4, 4, 16, K)).astype(np.float32)
+    layers = [[a.cpu().numpy() for a in layer]
+              for layer in _layers(rng, "cpu")]
+    wvec = torch.from_numpy(rng.normal(size=(256,)).astype(np.float32))
+    out = {}
+    for d in ("cpu", dev):
+        lp = [SALayerParams(*(torch.tensor(a, dtype=torch.float32,
+                                           device=d, requires_grad=True)
+                              for a in layer)) for layer in layers]
+        pooled, _ = sa_train_pair3(torch.from_numpy(x).to(d), lp,
+                                   dtype=BF16)
+        assert pooled.dtype == BF16
+        (torch.sin(pooled.float()) * wvec.to(d)).sum().backward()
+        out[str(d)] = (pooled.detach().float().cpu(),
+                       [t.grad.cpu() for layer in lp for t in layer])
+    (pc, gc), (pg, gg) = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(pg, pc, rtol=5e-2, atol=5e-2)
+    for i, (a, b) in enumerate(zip(gg, gc)):
+        if i % 4 == 1:     # Dense bias before BN: exact gradient is zero
+            continue
+        a, b = a.double().flatten(), b.double().flatten()
+        assert float((a - b).norm() / b.norm()) < 0.15
+        assert float(a @ b / (a.norm() * b.norm())) > 0.99
+
+
+@pytest.mark.parametrize("impl", ["pair", "hybrid2", "hybrid", "pallas",
+                                  "covar", "analytic"])
+def test_bf16_impls_without_it_raise_on_the_card(dev, impl):
+    from facl_tpu_torch.models.sa_stage import SetAbstractionStage
+    st = SetAbstractionStage(4, (64, 64, 256), impl=impl,
+                             channels_first=True, dtype=BF16).to(dev).train()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
+        st(torch.zeros(2, 4, 4, 64, device=dev))
