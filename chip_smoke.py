@@ -79,7 +79,22 @@ Phases (any failure exits nonzero, before the final line):
   5. input   d(loss)/d(points) through each grouping route and the
              pallas SA stage with input_grad (B9's dx, B5b) at B=8: card
              kernels vs card twins vs CPU (phase_input_grad), with exact
-             launches per route.
+             launches per route;
+  6. pipeline the user's flow through the port's CLIs, in this process,
+             on a random 192-video tree written under build/ (deleted at
+             the end): the native .npy loader in use, its host ms per
+             64-video batch beside NumPy's, the host-to-device copy and
+             the crop factory's device ms per stream; motion pretrain on
+             configs/motion_ntu60_xview.json (one epoch, then --resume to
+             two: index.json at epoch 1), appearance pretrain on
+             configs/appearance_ntu60_xsub.json (one epoch), one step
+             with --sa-impl auto (bf16 pair3: B1 and the five bf16
+             sweeps once each); extract for both streams (one finite
+             (5632,) file per video, B1 once per batch; motion twice,
+             bit-equal); the extraction step's device ms at B=64 in f32
+             and bf16, and CPU vs card on 8 videos (f32 at 1e-4 of scale
+             outside counted pool-argmax flips, bf16 at 5e-2); the probe
+             (50 epochs), timed (phase_pipeline).
 Output: a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -87,6 +102,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -1778,30 +1794,31 @@ PALLAS_PATHS = (
 
 
 def phase_main(dev, profile: bool, card: str):
-    """Each impl's Trainer at full width; returns {path: launches}."""
+    """Each impl's Trainer at full width; returns ({path: launches},
+    {path: median ms/step})."""
     kernels = all_kernels()
     cfg = _cfg(64)
     G, B = cfg.model.num_crops, cfg.train.batch_size
     N, C = cfg.data.num_points, cfg.model.in_features
     g = torch.Generator().manual_seed(SEED + 3)
     batches = torch.randn(2, G, B, N, C, generator=g).to(dev)
-    out = {}
+    out, medians = {}, {}
     for impl in IMPLS:
-        out[impl] = _run_path(dev, impl, 40 if impl == "pair3" else 20,
-                              batches, g, kernels, card, profile,
-                              PATHS[impl])
+        out[impl], medians[impl] = _run_path(
+            dev, impl, 40 if impl == "pair3" else 20, batches, g, kernels,
+            card, profile, PATHS[impl])
         torch.cuda.empty_cache()
     for label, impl, steps, want in BF16_PATHS:
-        out[label] = _run_path(dev, impl, steps, batches, g, kernels, card,
-                               profile and impl == "pair3", want, label,
-                               dtype="bfloat16")
+        out[label], medians[label] = _run_path(
+            dev, impl, steps, batches, g, kernels, card,
+            profile and impl == "pair3", want, label, dtype="bfloat16")
         torch.cuda.empty_cache()
     for label, si, gi, steps, want in PALLAS_PATHS:
-        out[label] = _run_path(dev, "pallas", steps, batches, g, kernels,
-                               card, profile and label == "pallas", want,
-                               label, si, gi)
+        out[label], medians[label] = _run_path(
+            dev, "pallas", steps, batches, g, kernels, card,
+            profile and label == "pallas", want, label, si, gi)
         torch.cuda.empty_cache()
-    return out
+    return out, medians
 
 
 def all_kernels():
@@ -1879,7 +1896,391 @@ def _run_path(dev, impl, steps, batches, g, kernels, card, profile, want,
               f"(CUDA events; the profiler's host overhead lengthens it): "
               f"idle share {max(0.0, 1 - busy / span):.3f}\n" + table,
               flush=True)
-    return launches
+    return launches, ms
+
+
+#: The pipeline phase's tree: NTU-60 names, both protocols with at least
+#: 64 training videos (xview 128, xsub 96), about 230 MiB of .npy files.
+PIPE_VIDEOS = 192
+PIPE_B = 64
+CONFIGS = {"motion": ("configs/motion_ntu60_xview.json", "xview"),
+           "appearance": ("configs/appearance_ntu60_xsub.json", "xsub")}
+
+
+def pipeline_names(n: int) -> list:
+    """``n`` distinct NTU-60 names: setups 1-17, actions 1-60, cameras
+    1-3, performers alternately in and out of the xsub training table."""
+    from facl_tpu_torch.data.ntu import TRAIN_IDS_60
+    others = [p for p in range(1, 41) if p not in TRAIN_IDS_60]
+    names = []
+    for i in range(n):
+        ids = TRAIN_IDS_60 if (i // 3) % 2 == 0 else others
+        names.append(f"S{i % 17 + 1:03d}C{i % 3 + 1:03d}"
+                     f"P{ids[(i // 6) % len(ids)]:03d}R{i // 96 + 1:03d}"
+                     f"A{i % 60 + 1:03d}")
+    check(len(set(names)) == n, "pipeline tree: duplicate names")
+    return sorted(names)
+
+
+def write_tree(root: str, n: int, seed: int) -> list:
+    """A random tree in the generator's layout (facl_tpu_torch/data/
+    dataset.py): for every video and resolution 60/30/10 the raw (2048, 8)
+    and appearance (10, 2048, 4) clouds, and the (2048, 8) key points at
+    resolution 60, float32. xyz fill a body-sized slab (extent 0.5 x 1 x
+    0.3, the y extent normalised to 1 as the generator does), so ball
+    queries at r^2 = 0.06 hold more than K points; channels 4-7 are zero
+    on about half the rows (the ti views sample where they are not)."""
+    import numpy as np
+    names = pipeline_names(n)
+    rng = np.random.default_rng(seed)
+    half = np.array([0.25, 0.5, 0.15], np.float32)
+
+    def cloud(shape, c):
+        a = rng.standard_normal((*shape, c), dtype=np.float32)
+        a[..., :3] = rng.uniform(-half, half, (*shape, 3))
+        if c == 8:
+            a[..., 4:] *= rng.uniform(size=(*shape, 4)) < 0.5
+        return a
+    for res in (60, 30, 10):
+        for sub in ("raw", "app") + (("others",) if res == 60 else ()):
+            os.makedirs(os.path.join(root, f"Resolution{res}", sub))
+    for name in names:
+        for res in (60, 30, 10):
+            d = os.path.join(root, f"Resolution{res}")
+            np.save(os.path.join(d, "raw", name + ".npy"), cloud((2048,), 8))
+            np.save(os.path.join(d, "app", name + "_app.npy"),
+                    cloud((10, 2048), 4))
+        np.save(os.path.join(root, "Resolution60", "others",
+                             name + "_key.npy"), cloud((2048,), 8))
+    return names
+
+
+def _host_ms(fn, n: int = 3) -> float:
+    """Median host ms of ``n`` calls of ``fn`` (after one warm-up)."""
+    fn()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def _feature_files(d: str, names, dim: int):
+    import numpy as np
+    files = sorted(f for f in os.listdir(d) if f.endswith(".npy"))
+    check(files == sorted(n + ".npy" for n in names),
+          f"extract {d}: {len(files)} files for {len(names)} videos")
+    out = {}
+    for f in files:
+        a = np.load(os.path.join(d, f))
+        check(a.shape == (dim,) and a.dtype == np.float32 and
+              bool(np.isfinite(a).all()), f"extract {d}/{f}: {a.shape} "
+                                          f"{a.dtype} or not finite")
+        out[f] = a
+    return out
+
+
+def _eval_cpu_vs_card(dev, ckpt, cfg_path, crops):
+    """make_eval_step on the CPU and on the card, same restored weights
+    and running statistics, same crops: f32 at relative 1e-4 (of the
+    output's largest magnitude) on the rows whose stage-2 pool argmax
+    agrees between the devices (rows where it flipped are counted), bf16
+    at 5e-2 on every row."""
+    import dataclasses
+    from facl_tpu_torch.config import Config
+    from facl_tpu_torch.train import Trainer, make_eval_step, restore_latest
+    with open(cfg_path) as f:
+        base = Config.from_json(f.read())
+    for dtype, bar in (("float32", 1e-4), ("bfloat16", 5e-2)):
+        cfg = base.replace(model=dataclasses.replace(base.model,
+                                                     compute_dtype=dtype))
+        outs = []
+        for d in ("cpu", dev):
+            tr = Trainer(cfg, 1, device=d)
+            st = tr.init_state(SEED)
+            restore_latest(ckpt, st)
+            seen = []
+            h = st.model.stage2_mlp.register_forward_hook(
+                lambda m, i, o: seen.append(o.float()))
+            x, xg = make_eval_step(st.model, tr.cfg, tr.g_cfg)(
+                crops.to(d))
+            h.remove()
+            local = seen[0]
+            G = cfg.model.num_crops
+            outs.append((x.cpu(), xg.cpu(), local.argmax(1).cpu(),
+                         local.reshape(-1, G * local.shape[1],
+                                       local.shape[2]).argmax(1).cpu()))
+        (xc, gc, ac, bc), (xk, gk, ak, bk) = outs
+        flip_l = (ac != ak).any(1)                   # crops
+        flip_g = (bc != bk).any(1)                   # videos
+        errs = []
+        for a, b, flip in ((xk, xc, flip_l), (gk, gc, flip_g)):
+            keep = ~flip if dtype == "float32" else torch.ones_like(flip)
+            scale = float(b.abs().max())
+            err = float((a - b)[keep].abs().max()) / scale
+            check(err <= bar, f"eval cpu-vs-card {dtype}: {err:.3e} > {bar}")
+            errs.append(err)
+        print(f"eval step cpu-vs-card {dtype} ({crops.shape[1]} videos, "
+              f"restored after training): x {errs[0]:.3e}, x_global "
+              f"{errs[1]:.3e} of scale (bar {bar:g}); stage-2 pool argmax "
+              f"flipped on {int(flip_l.sum())} of {flip_l.numel()} crops, "
+              f"{int(flip_g.sum())} of {flip_g.numel()} videos"
+              f"{' (held all the same at bf16)' if dtype != 'float32' else ''}",
+              flush=True)
+
+
+def phase_pipeline(dev, card: str, medians: dict):
+    """The user's pipeline on the card, through the port's CLIs in this
+    process, on a random tree written here (``write_tree``): motion
+    pretrain on the shipped motion config (one epoch, then --resume to
+    two), appearance pretrain on the shipped appearance config (one
+    epoch), one pretrain step with --sa-impl auto (bf16 pair3), extract
+    both streams (motion twice: bit-equal), the probe. Checks and times
+    the loader, the crop factory, the CLI epochs, extraction and the
+    probe; returns {path: launches} of the pipeline's kernel paths."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from facl_tpu_torch.cli import extract, pretrain, probe
+    from facl_tpu_torch.config import Config
+    from facl_tpu_torch.data import CropLoader, NTUPointDataset, native
+    from facl_tpu_torch.data.crops import ClipSources, make_crops_batch
+    from facl_tpu_torch.train import Trainer, make_eval_step, \
+        make_grouping_fn, restore_latest
+    from facl_tpu_torch.utils import setup_logging
+    here = os.path.dirname(os.path.abspath(__file__))
+    kernels = all_kernels()
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="pipeline-", dir=os.path.join(here,
+                                                                "build"))
+    out = {}
+
+    def counted(fn):
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return res, dt, {k.__name__: k.launches for k in kernels
+                         if k.launches}
+    try:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "tree")
+        names = write_tree(root, PIPE_VIDEOS, SEED + 9)
+        mib = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
+                  os.walk(root) for f in fs) / 2**20
+        print(f"pipeline tree: {len(names)} videos, {mib:.1f} MiB, written "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        check(native.native_available(),
+              "the native .npy loader did not build (g++)")
+
+        # The loader (host) and the crop factory (device) at B = 64.
+        pin = dev.type == "cuda"
+        for stream in CONFIGS:
+            dcfg = _data_cfg(here, stream)
+            ds = NTUPointDataset(root, dcfg, train=True)
+            idxs = list(range(PIPE_B))
+            nat = _host_ms(lambda: ds.load_batch_native(idxs, pin=pin))
+            nump = _host_ms(lambda: ds.load_batch_numpy(idxs, pin=pin))
+            # The native load alone by thread count (the loader's is 4).
+            per = [ds.paths(ds.names[ds.indices[i]]) for i in idxs]
+            bufs = [torch.empty((PIPE_B, *sh), pin_memory=pin)
+                    for sh in ds.file_shapes()]
+            by_threads = {t: _host_ms(lambda: [native.load_into(
+                [p[k] for p in per], b, num_threads=t)
+                for k, b in enumerate(bufs)])
+                for t in (1, 2, 4, 8)}
+            srcs, _, _ = ds.load_batch(idxs, pin=pin)
+            nbytes = sum(f.numel() * 4 for f in srcs)
+            h2d, h2d_us = device_ms(lambda: [f.to(dev, non_blocking=True)
+                                             for f in srcs])
+            dsrc = ClipSources(*(f.to(dev) for f in srcs))
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            crops_ms, crops_us = device_ms(
+                lambda: make_crops_batch(g, dsrc, dcfg))
+            crops = make_crops_batch(g, dsrc, dcfg)
+            check(crops.shape == (10, PIPE_B, 512, 4) and
+                  bool(torch.isfinite(crops).all()), "crop factory output")
+            print(f"loader {stream} on {card}: {PIPE_B}-video batch of "
+                  f"{nbytes / 2**20:.1f} MiB ({len(idxs) * 5} files), host "
+                  f"{nat:.2f} ms native, {nump:.2f} ms NumPy (median of 3, "
+                  f"page cache warm{', into pinned memory' if pin else ''}; "
+                  f"native load_into alone by threads: "
+                  f"{ {t: round(v, 2) for t, v in by_threads.items()} } ms); "
+                  f"host-to-device "
+                  f"copy {h2d:.3f} ms on the device ({h2d_us:.0f} us host); "
+                  f"crop factory {crops_ms:.3f} ms on the device, "
+                  f"{crops_us:.0f} us host per batch", flush=True)
+
+        cks = {s: os.path.join(tmp, f"ck_{s}") for s in CONFIGS}
+        feats = {s: os.path.join(tmp, f"feat_{s}") for s in CONFIGS}
+
+        def common(stream):
+            cfg_path, protocol = CONFIGS[stream]
+            return ["--root", root, "--stream", stream, "--protocol",
+                    protocol, "--config", os.path.join(here, cfg_path),
+                    "--batch-size", str(PIPE_B), "--device", str(dev)]
+        # Pretrain: the shipped configs as they are (bf16, reference).
+        hist, dt, _ = counted(lambda: pretrain.main(
+            common("motion") + ["--epochs", "1", "--out", cks["motion"]]))
+        hist2, dt2, _ = counted(lambda: pretrain.main(
+            common("motion") + ["--epochs", "2", "--resume", "--out",
+                                cks["motion"]]))
+        with open(os.path.join(cks["motion"], "index.json")) as f:
+            idx = json.load(f)
+        check(idx["latest_epoch"] == 1 and len(hist) == len(hist2) == 1,
+              f"motion pretrain/resume: index {idx}, epochs run "
+              f"{len(hist)}, {len(hist2)}")
+        ref = medians["reference bf16"]
+        n_train = {s: len(NTUPointDataset(root, _data_cfg(here, s)))
+                   for s in CONFIGS}
+        for label, h, t in (("epoch 0", hist[0], dt),
+                            ("epoch 1 (resumed)", hist2[0], dt2)):
+            check(math.isfinite(h["loss"]), f"motion pretrain loss {h}")
+            print(f"pretrain CLI motion (shipped config: bf16 reference) "
+                  f"{label} on {card}: {h['clips_per_sec']:.1f} clips/s over "
+                  f"the epoch ({n_train['motion']} videos, "
+                  f"{n_train['motion'] // PIPE_B} steps; loss "
+                  f"{h['loss']:.4f}); "
+                  f"the same config's step-only median in the main phase: "
+                  f"{ref:.2f} ms/step, {PIPE_B / ref * 1e3:.1f} clips/s; CLI "
+                  f"call {t:.2f} s", flush=True)
+        hist, dt, _ = counted(lambda: pretrain.main(
+            common("appearance") + ["--epochs", "1", "--out",
+                                    cks["appearance"]]))
+        check(math.isfinite(hist[0]["loss"]), f"appearance loss {hist}")
+        print(f"pretrain CLI appearance (shipped config: bf16 reference) "
+              f"epoch 0 on {card}: {hist[0]['clips_per_sec']:.1f} clips/s "
+              f"({n_train['appearance']} videos, "
+              f"{n_train['appearance'] // PIPE_B} steps; loss "
+              f"{hist[0]['loss']:.4f}); CLI call "
+              f"{dt:.2f} s", flush=True)
+        hist, dt, launches = counted(lambda: pretrain.main(
+            common("appearance") + ["--epochs", "1", "--sa-impl", "auto",
+                                    "--out", os.path.join(tmp, "ck_auto")]))
+        want = dict(BF16_PATHS[0][3])
+        check(launches == want, f"pretrain --sa-impl auto: launches "
+                                f"{launches}, expected {want}")
+        check(math.isfinite(hist[0]["loss"]), f"auto loss {hist}")
+        out["pretrain auto (bf16 pair3) step"] = launches
+        print(f"pretrain CLI appearance --sa-impl auto (bf16 pair3), one "
+              f"step on {card}: loss {hist[0]['loss']:.4f}, launches "
+              f"{launches}; the same path's step-only median "
+              f"{medians['pair3 bf16']:.2f} ms/step; CLI call {dt:.2f} s",
+              flush=True)
+
+        # Extraction: both splits, unshuffled, every video; B1 once a
+        # batch (the eval SA stage is the bf16 reference: no sweep).
+        files = {}
+        for stream in CONFIGS:
+            n, dt, launches = counted(lambda: extract.main(
+                common(stream) + ["--checkpoint", cks[stream], "--out",
+                                  feats[stream]]))
+            ds = [NTUPointDataset(root, _data_cfg(here, stream), train=t)
+                  for t in (True, False)]
+            nb = sum(-(-len(d) // PIPE_B) for d in ds)
+            check(launches == {"select_gather": nb},
+                  f"extract {stream}: launches {launches}, expected "
+                  f"select_gather x {nb} batches")
+            out[f"extract {stream}"] = launches
+            files[stream] = _feature_files(feats[stream], names, 11 * 512)
+            print(f"extract CLI {stream} on {card}: {n} files of (5632,) in "
+                  f"{nb} batches, B1 launched {launches.get('select_gather', 0)} "
+                  f"times; CLI call {dt:.2f} s ({dt / nb * 1e3:.1f} ms a "
+                  f"batch, restore and loader start included)", flush=True)
+        again = os.path.join(tmp, "feat_motion_again")
+        extract.main(common("motion") + ["--checkpoint", cks["motion"],
+                                         "--out", again])
+        second = _feature_files(again, names, 11 * 512)
+        check(all(np.array_equal(files["motion"][f], second[f])
+                  for f in second), "extract motion: a second run with the "
+                                    "same seed gave other features")
+        print("extract CLI motion again (same seed): every feature "
+              "bit-equal", flush=True)
+
+        # Extraction step alone, f32 and bf16, at B = 64; CPU vs card.
+        ds = NTUPointDataset(root, _data_cfg(here, "motion"), train=True)
+        crops, _, _ = next(iter(CropLoader(ds, PIPE_B, seed=SEED,
+                                           shuffle=False,
+                                           device=dev).epoch(0)))
+        with open(os.path.join(here, CONFIGS["motion"][0])) as f:
+            base = Config.from_json(f.read())
+        for dtype in ("float32", "bfloat16"):
+            cfg = base.replace(model=dataclasses.replace(
+                base.model, compute_dtype=dtype))
+            tr = Trainer(cfg, 1, device=dev)
+            st = tr.init_state(SEED)
+            restore_latest(cks["motion"], st)
+            step = make_eval_step(st.model, tr.cfg, tr.g_cfg)
+            ms, us = device_ms(lambda: step(crops), n=10)
+            print(f"extraction step {dtype} (motion, restored) on {card}: "
+                  f"{ms:.2f} ms on the device, {us / 1e3:.2f} ms host per "
+                  f"{PIPE_B}-video batch", flush=True)
+            del tr, st, step
+            torch.cuda.empty_cache()
+        _eval_cpu_vs_card(dev, cks["motion"],
+                          os.path.join(here, CONFIGS["motion"][0]),
+                          crops[:, :8].contiguous())
+
+        # Approximate kNN (grouping.method "approx") on these crops: the
+        # plain selection, then B5a (gather_impl auto), equal to the same
+        # selection with torch.gather; against the CPU, neighbourhoods
+        # whose sets differ are counted (distances rounded otherwise at
+        # the K-th neighbour or the radius).
+        g_cfg = dataclasses.replace(base.grouping, method="approx")
+        pts = crops.transpose(0, 1)
+        (neigh, cent), _, launches = counted(
+            lambda: make_grouping_fn(g_cfg, "bskc")(pts))
+        check(launches == {"gather_rows": 1},
+              f"approx kNN: launches {launches}, expected gather_rows x 1")
+        out["approx kNN grouping"] = launches
+        plain, _ = make_grouping_fn(dataclasses.replace(
+            g_cfg, gather_impl="xla"), "bskc")(pts)
+        check(torch.equal(neigh, plain), "approx kNN: B5a differs from "
+                                         "torch.gather on the same idx")
+        on_cpu, _ = make_grouping_fn(g_cfg, "bskc")(pts.cpu())
+        differ = (neigh.cpu().sort(-2).values !=
+                  on_cpu.sort(-2).values).flatten(-2).any(-1)
+        print(f"approx kNN on {card}: {tuple(neigh.shape)}, B5a once, "
+              f"equal to torch.gather; {int(differ.sum())} of "
+              f"{differ.numel()} neighbourhoods differ from the CPU's as "
+              f"sets", flush=True)
+
+        # The probe on both streams' features (xview, 50 epochs).
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            best = probe.main(["--root", root, "--motion-features",
+                               feats["motion"], "--appearance-features",
+                               feats["appearance"], "--device", str(dev)])
+        dt = time.perf_counter() - t0
+        setup_logging()                  # off the captured stream again
+        check(f"top1={best['top1']:.2f}" in buf.getvalue().splitlines()
+              and 0.0 <= best["top1"] <= 100.0, f"probe output {best}")
+        n_test = len(NTUPointDataset(root, _data_cfg(here, "motion"),
+                                     train=False))
+        print(f"probe CLI on {card}: {dt:.2f} s for 50 epochs "
+              f"({n_train['motion']} train / {n_test} test videos, 11264-d; "
+              f"random features: top-1 {best['top1']:.2f}% is chance); "
+              f"printed top1={best['top1']:.2f}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _data_cfg(here: str, stream: str):
+    """The DataConfig the CLIs build for ``stream`` from its shipped
+    config and protocol (cli/pretrain.py build_config)."""
+    import dataclasses
+    from facl_tpu_torch.config import Config
+    cfg_path, protocol = CONFIGS[stream]
+    with open(os.path.join(here, cfg_path)) as f:
+        data = Config.from_json(f.read()).data
+    return dataclasses.replace(data, stream=stream, protocol=protocol)
 
 
 def main() -> None:
@@ -1922,8 +2323,10 @@ def main() -> None:
     del model, points
     torch.cuda.empty_cache()
     phase_cpu_vs_card(dev)
-    paths = phase_main(dev, args.profile, name_power)
+    paths, medians = phase_main(dev, args.profile, name_power)
     paths.update(phase_input_grad(dev))
+    torch.cuda.empty_cache()
+    paths.update(phase_pipeline(dev, name_power, medians))
 
     # Each kernel's launches: from the first path (in the order run) that
     # runs it — B1-B3 on pair3, B6 on pair, B7 and B8 on hybrid2, B9 on

@@ -1,0 +1,68 @@
+"""Feature extraction entry point (counterpart of facl_tpu/cli/extract.py;
+the reference's extract_{apperance,motion}_feature.py as one script +
+``--stream``).
+
+Usage:
+  python -m facl_tpu_torch.cli.extract --root <tree> --stream motion \
+      --checkpoint checkpoints/motion --out features/motion
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+
+from facl_tpu_torch import resolve_device
+from facl_tpu_torch.cli.pretrain import add_common_args, build_config, \
+    reject_unported
+from facl_tpu_torch.data import CropLoader, NTUPointDataset
+from facl_tpu_torch.train import Trainer, latest_checkpoint, \
+    make_eval_step, restore_latest
+from facl_tpu_torch.train.extract import extract_features
+from facl_tpu_torch.utils.logging import setup_logging
+
+
+def main(argv=None) -> int:
+    """Returns the number of feature files written."""
+    p = argparse.ArgumentParser(description=__doc__)
+    add_common_args(p)
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--seed", type=int, default=1)
+    args = p.parse_args(argv)
+
+    setup_logging()
+    log = logging.getLogger("extract")
+    cfg = build_config(args)
+    reject_unported(args, cfg)
+    device = resolve_device(args.device)
+    if latest_checkpoint(args.checkpoint) is None:
+        raise SystemExit(f"no checkpoint found in {args.checkpoint!r} "
+                         "(expected index.json written by pretrain)")
+
+    # Both splits in turn, unshuffled, every video (extract_apperance_
+    # feature.py:112-136,163,192), through one Trainer, one restore and
+    # one eval step. trainer.cfg, not cfg: the Trainer resolved sa_impl /
+    # channels_first, and the eval step's layout must match the model's.
+    trainer = Trainer(cfg, steps_per_epoch=1, device=device)
+    state = trainer.init_state(args.seed)
+    restore_latest(args.checkpoint, state)
+    eval_step = make_eval_step(state.model, trainer.cfg, trainer.g_cfg)
+    written = 0
+    for split, train in (("train", True), ("test", False)):
+        ds = NTUPointDataset(args.root, cfg.data, train=train)
+        if len(ds) == 0:
+            log.warning("empty %s split", split)
+            continue
+        loader = CropLoader(ds, min(args.batch_size, len(ds)),
+                            seed=args.seed, shuffle=False, drop_last=False,
+                            device=device)
+        feats = extract_features(state.model, trainer.cfg, loader.epoch(0),
+                                 out_dir=args.out, eval_step=eval_step)
+        written += len(feats)
+        log.info("%s split: wrote %d feature files to %s", split,
+                 len(feats), args.out)
+    return written
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,140 @@
+"""Contrastive pretraining entry point (counterpart of
+facl_tpu/cli/pretrain.py; the reference's cn3d_train_{motion,apperance}_GL.py
+as one script + ``--stream``).
+
+Usage:
+  python -m facl_tpu_torch.cli.pretrain --root <generated-tree> \
+      --stream motion --epochs 100 --batch-size 64 --out checkpoints/motion
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from facl_tpu_torch import resolve_device
+from facl_tpu_torch.config import Config
+from facl_tpu_torch.data import CropLoader, NTUPointDataset
+from facl_tpu_torch.models.pointnet import SA_IMPLS
+from facl_tpu_torch.train import Trainer, restore_latest, save_checkpoint
+from facl_tpu_torch.utils.logging import setup_logging
+
+
+def add_common_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--root", required=True, help="generated point-cloud tree")
+    p.add_argument("--stream", choices=("motion", "appearance"),
+                   default="motion")
+    p.add_argument("--dataset", choices=("ntu60", "ntu120"), default="ntu60")
+    p.add_argument("--protocol", choices=("xsub", "xview", "xset"),
+                   default="xview")
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--dtype", choices=("bfloat16", "float32"),
+                   default="bfloat16",
+                   help="encoder compute dtype (parameters, Adam state and "
+                        "BatchNorm statistics stay float32)")
+    p.add_argument("--config", help="JSON config file overriding defaults")
+    p.add_argument("--sa-impl", choices=SA_IMPLS, default=None,
+                   help="SA-stage implementation (default: keep the config "
+                        "value; 'auto' takes pair3, the B2/B3 kernels, where "
+                        "they take the SA widths)")
+    p.add_argument("--mesh", action="store_true",
+                   help="multi-device training: not ported yet (ROADMAP "
+                        "Queue 1 item 17)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; raises without one)")
+
+
+def build_config(args) -> Config:
+    cfg = Config()
+    if getattr(args, "config", None):
+        with open(args.config) as f:
+            cfg = Config.from_json(f.read())
+    cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, root=args.root,
+                                 stream=args.stream, dataset=args.dataset,
+                                 protocol=args.protocol),
+        train=dataclasses.replace(cfg.train, batch_size=args.batch_size),
+    )
+    if getattr(args, "dtype", None):
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, compute_dtype=args.dtype))
+    if getattr(args, "sa_impl", None):
+        # Forcing the impl re-opens channels_first to auto so the grouping
+        # layout follows the chosen path.
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, sa_impl=args.sa_impl, channels_first=None))
+    return cfg
+
+
+def reject_unported(args, cfg: Config) -> None:
+    if getattr(args, "mesh", False):
+        raise NotImplementedError("--mesh (multi-device) is not ported yet "
+                                  "(ROADMAP Queue 1 item 17)")
+    if cfg.model.name == "slow_fast":
+        raise NotImplementedError("slow_fast is not ported yet (ROADMAP "
+                                  "Queue 1 item 16)")
+
+
+def main(argv=None) -> List[Dict[str, float]]:
+    """Returns each epoch's mean metrics (with ``clips_per_sec``)."""
+    p = argparse.ArgumentParser(description=__doc__)
+    add_common_args(p)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--out", default=None,
+                   help="checkpoint dir (default: cfg.train.checkpoint_dir)")
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--resume", action="store_true")
+    args = p.parse_args(argv)
+
+    setup_logging()
+    log = logging.getLogger("pretrain")
+    cfg = build_config(args)
+    reject_unported(args, cfg)
+    device = resolve_device(args.device)
+    if args.out is None:
+        args.out = cfg.train.checkpoint_dir
+
+    ds = NTUPointDataset(args.root, cfg.data, train=True)
+    if len(ds) < args.batch_size:
+        raise SystemExit(
+            f"pretrain: the train split has {len(ds)} video(s) — fewer "
+            f"than --batch-size {args.batch_size} (batches are "
+            "drop_last). Reduce --batch-size or generate more videos.")
+    steps_per_epoch = max(1, len(ds) // args.batch_size)
+    log.info("train videos=%d steps/epoch=%d device=%s", len(ds),
+             steps_per_epoch, device)
+
+    loader = CropLoader(ds, args.batch_size, seed=args.seed, device=device)
+    trainer = Trainer(cfg, steps_per_epoch, device=device)
+    state = trainer.init_state(args.seed)
+    start_epoch = 0
+    if args.resume and restore_latest(args.out, state) is not None:
+        start_epoch = state.step // steps_per_epoch
+        log.info("resumed at epoch %d (step %d)", start_epoch, state.step)
+
+    history = []
+    for epoch in range(start_epoch, args.epochs):
+        batches = (b for b, _, _ in loader.epoch(epoch))
+        # The circle loss's crop permutations: a stream of its own.
+        gen = torch.Generator().manual_seed(int(np.random.SeedSequence(
+            [args.seed, epoch], spawn_key=(1,)).generate_state(
+                1, np.uint64)[0]))
+        state, metrics = trainer.run_epoch(
+            state, batches, epoch, generator=gen,
+            log_fn=lambda m: log.info("%s", json.dumps(m)))
+        history.append(metrics)
+        log.info("epoch %d done: %s", epoch,
+                 {k: round(v, 4) for k, v in metrics.items()})
+        if epoch % cfg.train.checkpoint_every_epochs == 0:
+            log.info("checkpoint %s", save_checkpoint(args.out, state, epoch))
+    save_checkpoint(args.out, state, args.epochs - 1)
+    return history
+
+
+if __name__ == "__main__":
+    main()

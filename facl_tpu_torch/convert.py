@@ -4,7 +4,8 @@ flax names map one to one onto the port's modules (models/layers.py keeps
 flax's names): ``params`` leaves become parameters, ``batch_stats`` leaves
 buffers, with path segments joined by dots. A Dense ``kernel`` (in, out)
 becomes an ``nn.Linear`` ``weight`` (out, in); the SA stage keeps its raw
-``kernel_i`` (Cin, Cout) as in the JAX module.
+``kernel_i`` (Cin, Cout) as in the JAX module. ``probe_from_jax`` does the
+same for the linear probe's variables.
 """
 from __future__ import annotations
 
@@ -40,3 +41,11 @@ def from_jax(params: Mapping, batch_stats: Mapping
         out[".".join(path)] = torch.from_numpy(
             np.array(leaf, dtype=np.float32))
     return out
+
+
+def probe_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The variables of facl_tpu's ``LinearProbe`` (``{"params": ...}``,
+    as ``LinearProbeTrainer.params`` holds them, or the inner tree) -> a
+    state_dict for ``facl_tpu_torch.models.LinearProbe``: the Dense
+    kernel transposed."""
+    return from_jax(params.get("params", params), {})

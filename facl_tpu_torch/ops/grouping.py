@@ -16,8 +16,12 @@ JAX package routes them (facl_tpu/ops/grouping.py:132-177):
   xla     xla      the plain composite, then ``torch.gather``
 
 "auto" means "pallas" on every device (the port's rule: its kernels run
-on the card and their plain twins on the CPU). Every route is
-differentiable in the points: B1's and B5a's backward is the scatter-add
+on the card and their plain twins on the CPU). ``method="approx"``
+(JAX: ``lax.approx_min_k``) takes the plain selection with any
+``select_impl``, as the JAX package does, then the gather
+``gather_impl`` names; its K smallest come from ``torch.topk``, exact
+(on JAX's CPU backend ``approx_min_k`` returns the exact set too).
+Every route is differentiable in the points: B1's and B5a's backward is the scatter-add
 B5b. Neighbour order within the K differs between routes (B1 and B4:
 in-radius points by ascending index, centroid padding at the tail; the
 composite: ascending distance); everything downstream reduces over K.
@@ -34,6 +38,7 @@ from facl_tpu_torch.ops.select import select_gather_knn_ball, \
     select_knn_ball
 
 IMPLS = ("auto", "xla", "pallas")
+METHODS = ("exact", "approx")
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -80,9 +85,9 @@ def group_points(points: torch.Tensor, num_centroids: int = 64,
     —, centers (B, S, 3)). Differentiable in ``points``."""
     if layout not in ("bskc", "bcsk"):
         raise ValueError(f"unknown layout {layout!r}")
-    if method != "exact":
-        raise NotImplementedError("approximate kNN is not ported "
-                                  "(grouping.method must be 'exact')")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of "
+                         f"{METHODS}")
     for name, v in (("select_impl", select_impl),
                     ("gather_impl", gather_impl)):
         if v not in IMPLS:
@@ -96,7 +101,9 @@ def group_points(points: torch.Tensor, num_centroids: int = 64,
                          "cloud (centroids are the first S points)")
     points = points.float().contiguous()
     centers = points[:, :S, :3]
-    kernel_select = select_impl != "xla"
+    # "approx" takes the plain selection, whatever select_impl says
+    # (facl_tpu/ops/grouping.py:132-163).
+    kernel_select = select_impl != "xla" and method == "exact"
     kernel_gather = gather_impl != "xla"
     if kernel_select and kernel_gather:
         grouped = select_gather_knn_ball(points, S, K, radius_sq)

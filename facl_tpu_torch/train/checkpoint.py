@@ -1,0 +1,93 @@
+"""Checkpoint / resume (counterpart of facl_tpu/train/checkpoint.py:24-81).
+
+The full TrainState round-trips: the module's parameters and BatchNorm
+running statistics, Adam's moments, the LR scheduler and the update
+count. One ``ckpt_epoch_{epoch:05d}.pt`` file per checkpoint plus
+``index.json`` (``latest_epoch``, ``latest``), each written to a temp file
+and renamed, so a crash mid-write never corrupts the latest; the oldest
+files beyond ``keep`` are pruned.
+
+Files are ``torch.save`` of tensors and plain containers only, and are
+read with ``weights_only=True``. The LR schedule is a closure
+(``LambdaLR``), which a state dict does not keep: the target's scheduler,
+built from the config, keeps its closure and takes the saved counters,
+so the learning rate after a resume equals an uninterrupted run's.
+"""
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+from typing import Optional
+
+import torch
+
+from facl_tpu_torch.train.state import TrainState
+
+PREFIX, SUFFIX = "ckpt_epoch_", ".pt"
+
+
+def _atomic_write(directory: str, path: str, write) -> None:
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            write(f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _payload(state: TrainState) -> dict:
+    return {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "scheduler": state.scheduler.state_dict(),
+            "step": int(state.step)}
+
+
+def save_checkpoint(directory: str, state: TrainState, epoch: int,
+                    keep: int = 20) -> str:
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"{PREFIX}{epoch:05d}{SUFFIX}")
+    _atomic_write(directory, path,
+                  lambda f: torch.save(_payload(state), f))
+    index = {"latest_epoch": epoch, "latest": os.path.basename(path)}
+    _atomic_write(directory, os.path.join(directory, "index.json"),
+                  lambda f: f.write(json.dumps(index).encode()))
+    _prune(directory, keep)
+    return path
+
+
+def _prune(directory: str, keep: int) -> None:
+    ckpts = sorted(p for p in os.listdir(directory)
+                   if p.startswith(PREFIX) and p.endswith(SUFFIX))
+    for p in ckpts[:-keep] if keep > 0 else []:
+        os.unlink(os.path.join(directory, p))
+
+
+def latest_checkpoint(directory: str) -> Optional[str]:
+    idx = os.path.join(directory, "index.json")
+    if not os.path.exists(idx):
+        return None
+    with open(idx) as f:
+        name = json.load(f)["latest"]
+    path = os.path.join(directory, name)
+    return path if os.path.exists(path) else None
+
+
+def restore_checkpoint(path: str, target: TrainState) -> TrainState:
+    """Restore into a freshly built ``target`` (same config; shapes must
+    match), onto the device of its parameters. Returns ``target``."""
+    device = next(target.model.parameters()).device
+    saved = torch.load(path, map_location=device, weights_only=True)
+    target.model.load_state_dict(saved["model"])
+    target.optimizer.load_state_dict(saved["optimizer"])
+    target.scheduler.load_state_dict(saved["scheduler"])
+    target.step = int(saved["step"])
+    return target
+
+
+def restore_latest(directory: str, target: TrainState
+                   ) -> Optional[TrainState]:
+    path = latest_checkpoint(directory)
+    return restore_checkpoint(path, target) if path else None

@@ -1,5 +1,5 @@
-"""Contrastive pretraining: the train step and the epoch loop
-(counterpart of facl_tpu/train/trainer.py:35-229,267-347).
+"""Contrastive pretraining: the train step, the eval step and the epoch
+loop (counterpart of facl_tpu/train/trainer.py:35-347).
 
 One step: points (G, B, N, C) crop-major -> batch-major (B, G, ...) ->
 grouping (routed by ``GroupingConfig.select_impl`` / ``gather_impl``,
@@ -57,9 +57,6 @@ def _reject_unported(cfg: Config) -> None:
     impl = resolve_model_config(cfg.model).sa_impl
     if impl not in BF16_IMPLS:
         reject_bf16(dtype, impl)
-    if cfg.grouping.method != "exact":
-        raise NotImplementedError("approximate kNN is not ported "
-                                  "(grouping.method must be 'exact')")
 
 
 def make_grouping_fn(g_cfg: GroupingConfig, layout: str = "bcsk"
@@ -128,6 +125,36 @@ def make_train_step(cfg: Config, grouping: Optional[GroupingConfig] = None,
         return state, metrics
 
     return step
+
+
+def make_eval_step(model: torch.nn.Module, cfg: Config,
+                   grouping: Optional[GroupingConfig] = None) -> Callable:
+    """Extraction step (facl_tpu/train/trainer.py:232-264): points
+    (G, B, N, C) -> (x (B*G, D) batch-major, x_global (B, D)), f32, on
+    the device of ``model``'s parameters, with its BatchNorm running
+    statistics (eval mode, under ``torch.inference_mode``).
+
+    Grouping runs on the route ``make_grouping_fn`` resolves, in the
+    layout of the MODEL's resolved config (``PointNetPlus.cfg``): the JAX
+    package records that deriving it from a pre-resolution config fed the
+    encoder transposed neighbourhoods (trainer.py:241-249)."""
+    g_cfg = grouping or cfg.grouping
+    layout = "bcsk" if model.cfg.channels_first else "bskc"
+    grouping_fn = make_grouping_fn(g_cfg, layout)
+    device = next(model.parameters()).device
+
+    def eval_step(points: torch.Tensor):
+        G, B = points.shape[:2]
+        model.eval()
+        with torch.inference_mode():
+            points = points.to(device, torch.float32)
+            neigh5, cent4 = grouping_fn(points.transpose(0, 1))
+            x, _, _, x_global = model(
+                neigh5.reshape(B * G, *neigh5.shape[2:]),
+                cent4.reshape(B * G, *cent4.shape[2:]))
+        return x, x_global
+
+    return eval_step
 
 
 class Trainer:

@@ -148,11 +148,17 @@ def test_group_points_points_grad_equals_jax(rng, select_impl, gather_impl):
 
 
 def test_group_points_rejects_unknown_impl_and_approx():
+    """Unknown impls and methods raise; ``method="approx"`` is ported
+    (the plain selection, tests/test_torch_extract.py holds it against
+    JAX) and runs on every select_impl."""
     pts = torch.zeros(1, 16, 4)
     with pytest.raises(ValueError, match="select_impl"):
         group_points(pts, 4, 4, select_impl="cuda")
-    with pytest.raises(NotImplementedError, match="approximate"):
-        group_points(pts, 4, 4, method="approx")
+    with pytest.raises(ValueError, match="method"):
+        group_points(pts, 4, 4, method="approximate")
+    for si in ("auto", "pallas", "xla"):
+        n, c = group_points(pts, 4, 4, method="approx", select_impl=si)
+        assert n.shape == (1, 4, 4, 4) and c.shape == (1, 4, 3)
 
 
 # -- B1's selection as the CUDA kernel makes it (csrc/select.cu) ----------
