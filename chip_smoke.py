@@ -95,6 +95,44 @@ Phases (any failure exits nonzero, before the final line):
              and bf16, and CPU vs card on 8 videos (f32 at 1e-4 of scale
              outside counted pool-argmax flips, bf16 at 5e-2); the probe
              (50 epochs), timed (phase_pipeline).
+  7. dp      data parallelism (B6s) on the one card: ranks started by
+             facl_tpu_torch.parallel.spawn, two gloo ranks sharing the card
+             (NCCL takes one card a rank). (a) the pair3 SA stage (f32 and
+             bf16) and pair at bench.py's batch (B=64, 32 a rank) against
+             the one-process stage on the same card tensors: gradients
+             equal on both ranks; f32: statistics at rtol 1e-5 / 1e-4,
+             gradients at relative L2 1e-2, and at max-abs 2e-4 of their
+             scale with the cotangent zeroed at the (pool, channel) groups
+             whose routing flipped (_dp_stage_grads); bf16: statistics
+             within 1e-3 of their max-abs, statistics and gradients no
+             farther from the f32 stage than twice the one process's; per
+             rank one launch of each sweep and 3 + 3 B6s all-reduces (3 +
+             2 for pair), timed and counted in bytes; which collectives
+             gloo takes on CUDA tensors. (b) the Trainer step, pair3 f32
+             and bf16 and reference bf16 at B=64, against one process from
+             the same weights, points and permutation: f32 loss at rtol
+             2e-4, gradients before Adam at phase 3's bars (flips counted
+             over the ranks' decisions in the one process's row order),
+             running statistics at rtol 1e-3 / atol 1e-5; bf16 loss at
+             rtol 2e-3, reference's loss and running statistics at the
+             f32 bars of the one process rounding as two ranks
+             (_as_two_halves), loss, statistics and gradients no farther
+             from the f32 step than twice the one process's, and the
+             witnesses printed (_dp_bf16_step); parameters bit-equal
+             across the ranks after 3 steps; each collective and kernel
+             counted per step. (c) the pair3 step over NCCL at world size
+             1. (d) the shipped configs/multichip_ntu120.json at its width:
+             sa_impl auto (bf16 pair3) at its B=512, its own reference at
+             B=128 (cut: two reference ranks at 256 would need ~2 x 60
+             GiB); 2 warm-up and 5 timed steps a rank, ms/step,
+             collectives' host ms and bytes by kind, peak allocation a
+             rank; then each run's kernels against their twins on rank
+             0's inputs at the run's size (_dp_kernels: B1 bit-equal, the
+             bf16 sweeps at phase 2's bars). (e) inside phase 6, on its
+             tree: torchrun --nproc_per_node 2 pretrain --mesh (shipped
+             motion config, one epoch) and extract --mesh, each video's
+             f32 features against the one-process extract at 1e-5 of
+             their scale (_dp_clis).
 Output: a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -820,19 +858,26 @@ def bf16_flips(k, t, name, bar=1e-3):
     return n, float(d.max())
 
 
-def bf16_index_flips(k_idx, t_idx, t_vals, t_best, name):
-    """Pool indices equal but where the twin's value at the kernel's index
-    is within one bf16 ulp of its best (a near-tie that the two summation
-    orders break apart). Returns the number of differing indices."""
+def bf16_index_flips(k_idx, t_idx, t_vals, name):
+    """Pool indices equal but where the twin's f32 value at the kernel's
+    index is within one bf16 ulp of its f32 value at its own index (a
+    near-tie that the two summation orders break apart: one bf16
+    rounding of a row's product the other way). Both sides unrounded: the
+    bf16 best the sweep stores sits up to half an ulp off the f32 one.
+    Returns (differing indices, their widest gap in ulps of the f32 best,
+    the same gap from the stored bf16 best)."""
     bad = k_idx != t_idx
-    if bool(bad.any()):
-        g, c = bad.nonzero(as_tuple=True)
-        v = t_vals[g, k_idx[g, c].long(), c]
-        best = t_best[g, c].float()
-        near = (v - best).abs() <= bf16_ulp(best.abs())
-        check(bool(near.all()), f"{name}: {int((~near).sum())} pool indices "
-                                "differ beyond a bf16 near-tie")
-    return int(bad.sum())
+    if not bool(bad.any()):
+        return 0, 0.0, 0.0
+    g, c = bad.nonzero(as_tuple=True)
+    v = t_vals[g, k_idx[g, c].long(), c]
+    best = t_vals[g, t_idx[g, c].long(), c]
+    ulp = bf16_ulp(best.abs())
+    gap = (v - best).abs() / ulp
+    check(bool((gap <= 1).all()), f"{name}: {int((gap > 1).sum())} pool "
+                                  "indices differ beyond a bf16 near-tie")
+    stored = (v - best.to(BF16).float()).abs() / ulp
+    return int(bad.sum()), float(gap.max()), float(stored.max())
 
 
 def acc_rel(k, t, name, bar=1e-3):
@@ -902,12 +947,16 @@ def bf16_rows(x3, layers, dpooled, K):
     del h2
     nx, ex = bf16_flips(k[2], mx, "gram_pool bf16 max")
     nn, en = bf16_flips(k[3], mn, "gram_pool bf16 min")
-    ni = bf16_index_flips(k[4], imx, p3, mx, "gram_pool bf16 argmax") + \
-        bf16_index_flips(k[5], imn, p3, mn, "gram_pool bf16 argmin")
+    ix = (bf16_index_flips(k[4], imx, p3, "gram_pool bf16 argmax"),
+          bf16_index_flips(k[5], imn, p3, "gram_pool bf16 argmin"))
+    ni = sum(r[0] for r in ix)
     del p3
     e = max(ex, en, acc_rel(k[0], G2, "gram_pool bf16 G2"),
             acc_rel(k[1], ch2, "gram_pool bf16 ch2"))
-    notes.append(f"B2b max/min {nx}/{nn}, indices {ni}")
+    notes.append(f"B2b max/min {nx}/{nn}, indices {ni}" + (
+        f" (widest {max(r[1] for r in ix):.3f} ulp from the twin's f32 "
+        f"best, {max(r[2] for r in ix):.3f} from its stored bf16 best)"
+        if ni else ""))
     add("sa_fwd_gram_pool [bf16]", SP.sa_fwd_gram_pool_bf16, agp, e,
         R * C2 * 2 + P * C3 * (2 + 2 + 4 + 4),
         R * (4 * C2 + 4 * C3 + 2 * C3), R * (C2 * (C2 + 1) + 2 * C2 * C3),
@@ -1443,7 +1492,8 @@ def _decisions(model, impl, B, dec: dict):
     dec["argmax_local"] = local.argmax(1).cpu()
     dec["argmax_global"] = local.reshape(B, -1, local.shape[-1]) \
         .argmax(1).cpu()
-    dec["sa_route"] = routes[0]
+    if routes:                        # none for the plain reference stage
+        dec["sa_route"] = routes[0]
 
 
 def _step_decisions(d, B, pts, perm, impl, twins=False, dtype="float32"):
@@ -2201,6 +2251,8 @@ def phase_pipeline(dev, card: str, medians: dict):
                                     "same seed gave other features")
         print("extract CLI motion again (same seed): every feature "
               "bit-equal", flush=True)
+        _dp_clis(dev, card, root, common("motion"),
+                 os.path.join(tmp, "ck_dp"), tmp)
 
         # Extraction step alone, f32 and bf16, at B = 64; CPU vs card.
         ds = NTUPointDataset(root, _data_cfg(here, "motion"), train=True)
@@ -2272,6 +2324,896 @@ def phase_pipeline(dev, card: str, medians: dict):
     return out
 
 
+# -- phase 7: data parallelism (B6s and the dp step) --------------------
+
+#: (a)-(c): bench.py's batch, global; two gloo ranks time-share the card.
+DP_B = 64
+#: (d): the shipped multichip config, 2 warm-up and 5 timed steps.
+DP_CONFIG = "configs/multichip_ntu120.json"
+DP_WARM, DP_TIMED = 2, 5
+#: (d)'s runs: (label, sa_impl forced or None for the config's, global B).
+#: The config's own reference at B=128, not its 512: two reference ranks
+#: at 256 a rank would need ~2 x 60 GiB (PERF.md section 4).
+DP_TIMED_CASES = (("auto", "auto", 512), ("reference", None, 128))
+#: (a), (b): the stage's and the step's cases (label, impl, dtype).
+DP_STAGE_CASES = (("pair3", "pair3", "float32"),
+                  ("pair3 bf16", "pair3", "bfloat16"),
+                  ("pair", "pair", "float32"))
+DP_STEP_CASES = (("pair3", "pair3", "float32"),
+                 ("pair3 bf16", "pair3", "bfloat16"),
+                 ("reference bf16", "reference", "bfloat16"))
+#: Parameters whose exact gradient is zero (a BatchNorm follows).
+DP_ABSORBED = ("sa_stage.bias_", "stage2_mlp.dense_0.bias",
+               "stage2_mlp.dense_1.bias", "stage2_mlp.dense_2.bias",
+               "head.Dense_0.bias")
+DP_LAUNCHES = {"pair3": PATHS["pair3"], "pair": PATHS["pair"],
+               "pair3 bf16": BF16_PATHS[0][3],
+               "reference bf16": BF16_PATHS[1][3]}
+
+
+def _dp_counts():
+    from facl_tpu_torch.parallel import COLLECTIVES
+    return {c.__name__: c.calls for c in COLLECTIVES if c.calls}
+
+
+def _dp_zero(kernels):
+    from facl_tpu_torch.parallel import COLLECTIVES
+    for c in tuple(COLLECTIVES) + tuple(kernels):
+        if hasattr(c, "calls"):
+            c.calls = 0
+        else:
+            c.launches = 0
+
+
+def _sync(dev, empty=False):
+    """Wait for the card (and free its cache); nothing on the CPU, where
+    the rank bodies are rehearsed."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        if empty:
+            torch.cuda.empty_cache()
+
+
+def _dp_launches(kernels):
+    return {k.__name__: k.launches for k in kernels if k.launches}
+
+
+def _dp_inputs(dev, B, block):
+    """The stage's input: randn points (10, B, 512, 4) from the seed,
+    this block's clouds grouped by B1 (channel-major, batch-major rows),
+    and a randn cotangent of the pooled rows."""
+    from facl_tpu_torch.train.trainer import make_grouping_fn
+    cfg = _cfg(B)
+    g = torch.Generator().manual_seed(SEED + 11)
+    pts = torch.randn(cfg.model.num_crops, B, cfg.data.num_points, 4,
+                      generator=g)
+    cot = torch.randn(B * cfg.model.num_crops, cfg.grouping.num_centroids,
+                      cfg.model.sa_widths[-1], generator=g)
+    with torch.no_grad():
+        neigh, _ = make_grouping_fn(cfg.grouping, "bcsk")(
+            pts[:, block].to(dev).transpose(0, 1))
+    G = cfg.model.num_crops
+    return (neigh.reshape(-1, *neigh.shape[2:]),
+            cot[block.start * G:block.stop * G].to(dev))
+
+
+def _dp_stage(dev, B, block, impl, dtype, mesh, drop=None):
+    """One forward + backward of the SA stage alone on ``block``'s clouds:
+    loss sum(pooled * cotangent), the cotangent zeroed at the (pool,
+    channel) groups ``drop`` (P, C3) marks; returns statistics,
+    gradients, the pool routing, the sweeps' launches and the B6s
+    all-reduces."""
+    from facl_tpu_torch.ops.fused_sa import SALayerParams
+    from facl_tpu_torch.ops.sa_pair import sa_train_pair
+    from facl_tpu_torch.parallel import psum
+    from facl_tpu_torch.train import Trainer
+    x_cf, cot = _dp_inputs(dev, B, block)
+    if drop is not None:
+        cot = cot.masked_fill(drop.to(dev).reshape(cot.shape), 0.0)
+    stage = Trainer(_cfg(B), 100, device=dev).init_state(SEED).model.sa_stage
+    ps = [SALayerParams(*(t.detach().clone().requires_grad_() for t in lp))
+          for lp in stage.layers()]
+    kernels = all_kernels()
+    _dp_zero(kernels)
+    routes = []
+    with sa_routing(routes, impl):
+        pooled, stats = sa_train_pair(
+            x_cf, ps, 1e-5, slim=impl == "pair3", mesh=mesh,
+            dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    fwd = psum.calls
+    (pooled.float() * cot).sum().backward()
+    _sync(dev)
+    return dict(stats=[(m.cpu(), v.cpu()) for m, v in stats],
+                grads=[[t.grad.cpu() for t in lp] for lp in ps],
+                route=routes[0], launches=_dp_launches(kernels),
+                psum=(fwd, psum.calls - fwd))
+
+
+def _dp_stage_rank(devtype, B, routes):
+    """(a) on one rank: each stage case on this rank's block; for the
+    cases in ``routes`` (the one process's pool routing, (P, C3) over the
+    global batch) the same again with the cotangent zeroed at the groups
+    whose routing this rank flipped (``masked``: its gradients); then
+    each case with the B6s all-reduces timed (``_timed_collectives``)."""
+    from facl_tpu_torch.parallel import batch_slice, make_mesh, rank_device
+    mesh = make_mesh()
+    dev = rank_device(devtype)
+    block = batch_slice(mesh, B)
+    out = {}
+    for label, impl, dtype in DP_STAGE_CASES:
+        r = out[label] = _dp_stage(dev, B, block, impl, dtype, mesh)
+        if label in routes:
+            P = r["route"].shape[0]
+            one = routes[label][mesh.rank * P:(mesh.rank + 1) * P]
+            r["masked"] = _dp_stage(dev, B, block, impl, dtype, mesh,
+                                    drop=r["route"] != one)["grads"]
+    for label, impl, dtype in DP_STAGE_CASES:
+        acc = {}
+        with _timed_collectives(acc, dev):
+            _dp_stage(dev, B, batch_slice(mesh, B), impl, dtype, mesh)
+        out[label]["b6s"] = acc.get("psum (B6s)")
+    out["gloo"] = _gloo_cuda_ops(dev, mesh)
+    out["latency"] = _b6s_latency(dev, mesh)
+    return out
+
+
+#: Element counts of pair3's six B6s buffers (float64): Gram(x) and
+#: colsum(x); the sums of p2 and p2^2; Gram(h2) and colsum(h2); A3 and
+#: u3; A2, G1, u2 and ch1; A1 and u1.
+B6S_SIZES = (4 * 4 + 4, 2 * 64, 64 * 64 + 64, 256 * 64 + 256,
+             2 * 64 * 64 + 2 * 64, 64 * 4 + 64)
+
+
+def _b6s_latency(dev, mesh, reps: int = 20):
+    """Mean ms of one all_reduce of each B6s buffer size between ranks
+    that do nothing else (after a barrier), on ``dev``."""
+    import torch.distributed as dist
+    out = {}
+    for n in B6S_SIZES:
+        t = torch.ones(n, dtype=torch.float64, device=dev)
+        dist.all_reduce(t)
+        _sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dist.all_reduce(t)
+        _sync(dev)
+        out[n] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def _gloo_cuda_ops(dev, mesh):
+    """Which collectives this backend takes on ``dev`` tensors."""
+    import torch.distributed as dist
+    ops = {"all_reduce": lambda t: dist.all_reduce(t),
+           "broadcast": lambda t: dist.broadcast(t, 0),
+           "all_gather": lambda t: dist.all_gather(
+               [torch.empty_like(t) for _ in range(mesh.dp)], t),
+           "all_gather_into_tensor": lambda t: dist.all_gather_into_tensor(
+               torch.empty(mesh.dp * t.numel(), device=dev), t)}
+    out = {}
+    for name, op in ops.items():
+        try:
+            op(torch.ones(4, device=dev))
+            out[name] = "ok"
+        except (RuntimeError, ValueError) as e:
+            out[name] = str(e).splitlines()[0][:80]
+    return out
+
+
+def _pack(dec):
+    """Decisions as packed bits (they cross the process boundary)."""
+    import numpy as np
+    return {n: (tuple(t.shape), t.dtype == torch.bool,
+                np.packbits(t.numpy().ravel()) if t.dtype == torch.bool
+                else t.numpy()) for n, t in dec.items()}
+
+
+def _unpack(packed):
+    import numpy as np
+    out = {}
+    for n, (shape, is_bool, a) in packed.items():
+        if is_bool:
+            size = math.prod(shape)
+            a = np.unpackbits(a)[:size].astype(bool)
+        out[n] = torch.from_numpy(np.asarray(a).reshape(shape))
+    return out
+
+
+def _dp_step_rank(devtype, B, steps):
+    """(b) on one rank: for each step case, the Trainer from the seed's
+    weights (rank 0's, broadcast) on this rank's block of randn points:
+    the first step's loss, gradients before Adam, BatchNorm buffers,
+    decisions, kernel launches and collectives; the parameters after
+    ``steps`` steps."""
+    from facl_tpu_torch.parallel import batch_slice, make_mesh, \
+        rank_device, shard_train_state
+    from facl_tpu_torch.train import Trainer
+    mesh = make_mesh()
+    dev = rank_device(devtype)
+    pts, perm = _dp_points(B)
+    local = pts[:, batch_slice(mesh, B)].to(dev)
+    kernels = all_kernels()
+    out = {}
+    for label, impl, dtype in DP_STEP_CASES:
+        tr = Trainer(_cfg(B, impl, dtype=dtype), 100, device=dev, mesh=mesh)
+        st = shard_train_state(mesh, tr.init_state(SEED))
+        _dp_zero(kernels)
+        dec = {}
+        with _decisions(st.model, impl, B // mesh.dp, dec):
+            st, m = tr.step_fn(st, local, perm=perm)
+        _sync(dev)
+        res = dict(loss=float(m["loss"]), counts=_dp_counts(),
+                   launches=_dp_launches(kernels), dec=_pack(dec),
+                   grads={n: p.grad.cpu() for n, p in
+                          st.model.named_parameters() if p.grad is not None},
+                   buffers={n: b.cpu().clone() for n, b in
+                            st.model.named_buffers()})
+        for _ in range(steps - 1):
+            st, _ = tr.step_fn(st, local, perm=perm)
+        res["params_end"] = {n: p.detach().cpu() for n, p in
+                             st.model.named_parameters()}
+        out[label] = res
+        del tr, st
+        _sync(dev, empty=True)
+    return out
+
+
+def _dp_points(B):
+    """(b), (c): randn points (G, B, N, 4) and a crop permutation."""
+    cfg = _cfg(B)
+    G = cfg.model.num_crops
+    g = torch.Generator().manual_seed(SEED + 12)
+    return (torch.randn(G, B, cfg.data.num_points, 4, generator=g),
+            torch.randperm(G, generator=g))
+
+
+def _dp_one_step(dev, B, impl, dtype, witness=None):
+    """The one-process step of (b) on the same points and weights. With
+    ``witness``, the same step in another rounding (no decisions
+    recorded): "swap", the batch's two halves swapped (every sum over
+    the clips in another order; exact arithmetic gives the same loss,
+    gradients and statistics); "halves", the rounding two ranks give it
+    (``_as_two_halves``)."""
+    from facl_tpu_torch.train import Trainer
+    pts, perm = _dp_points(B)
+    if witness == "swap":
+        pts = torch.cat([pts[:, B // 2:], pts[:, :B // 2]], 1)
+    tr = Trainer(_cfg(B, impl, dtype=dtype), 100, device=dev)
+    st = tr.init_state(SEED)
+    dec = {}
+    with contextlib.ExitStack() as stack:
+        if witness is None:
+            stack.enter_context(_decisions(st.model, impl, B, dec))
+        elif witness == "halves":
+            stack.enter_context(_as_two_halves())
+        st, m = tr.step_fn(st, pts.to(dev), perm=perm)
+    return dict(loss=float(m["loss"]), dec=dec,
+                grads={n: p.grad.cpu() for n, p in
+                       st.model.named_parameters() if p.grad is not None},
+                buffers={n: b.cpu().clone() for n, b in
+                         st.model.named_buffers()})
+
+
+@contextlib.contextmanager
+def _as_two_halves():
+    """One process rounding as two ranks do: each stage-2 and head Dense
+    GEMM and each reference SA layer's GEMM run as two calls, one on each
+    half of its rows (the rows a rank holds), and each BatchNorm moment
+    sum is taken over each half, then added (``global_moments`` over two
+    ranks). The pair/pair3 sweeps and their float64 B6s sums are left as
+    one process runs them."""
+    from facl_tpu_torch.models import layers
+    from facl_tpu_torch.ops import fused_sa
+    dense, sa_dense, moments0 = (layers.apply_dense, fused_sa._dense,
+                                 layers.global_moments)
+
+    def halves(x):
+        return x[:x.shape[0] // 2], x[x.shape[0] // 2:]
+
+    def moments(flat, mesh):
+        C, n = flat.shape[-1], flat.shape[0]
+        s = sum(torch.cat([h.sum(0), (h * h).sum(0)]) for h in halves(flat))
+        mean = s[:C] / n
+        return mean, (s[C:] / n - mean * mean).clamp_min(0.0)
+    layers.apply_dense = lambda lin, x, dtype=torch.float32: torch.cat(
+        [dense(lin, h, dtype) for h in halves(x)])
+    fused_sa._dense = lambda h, lp, dtype: torch.cat(
+        [sa_dense(x, lp, dtype) for x in halves(h)])
+    layers.global_moments = fused_sa.global_moments = moments
+    try:
+        yield
+    finally:
+        layers.apply_dense, fused_sa._dense = dense, sa_dense
+        layers.global_moments = fused_sa.global_moments = moments0
+
+
+def _merge_decisions(ranks, B, G):
+    """The ranks' decisions in the one process's row order: every record
+    is batch-major, so the ranks' blocks concatenate, but for the head's
+    two calls (local rows, then the videos)."""
+    decs = [_unpack(r) for r in ranks]
+    Bl = B // len(decs)
+    out = {}
+    for n in decs[0]:
+        if n == "head.0":
+            out[n] = torch.cat([d[n][:Bl * G] for d in decs] +
+                               [d[n][Bl * G:] for d in decs])
+        else:
+            out[n] = torch.cat([d[n] for d in decs])
+    return out
+
+
+def _dp_stage_grads(dev, B, label, impl, one, r0, r1, route):
+    """(a) in f32: the ranks' gradients against the one process's, at
+    relative L2 1e-2 as they are, and at max-abs 2e-4 of each tensor's
+    scale with the cotangent zeroed at every (pool, channel) group whose
+    pool routing flipped, in both runs (each rank at its own flips, the
+    one process at all of them), so that no flipped pool decision reaches
+    any gradient. The biases are BN-absorbed (exact gradient zero): left
+    out. Returns the reading."""
+    def live(grads):
+        return [t for lp in grads for k, t in enumerate(lp) if k != 1]
+    l2 = max(_rel_l2(a, w) for a, w in zip(live(r0["grads"]),
+                                           live(one["grads"])))
+    check(l2 <= 1e-2, f"dp (a) {label}: relative L2 {l2:.3e}")
+    check(all(torch.equal(a, b) for a, b in zip(live(r0["masked"]),
+                                                live(r1["masked"]))),
+          f"dp (a) {label}: masked gradients differ between the ranks")
+    drop = route != one["route"]
+    held = live(_dp_stage(dev, B, slice(0, B), impl, "float32", None,
+                          drop=drop)["grads"])
+    worst = max(float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for a, w in zip(live(r0["masked"]), held))
+    check(worst <= 2e-4, f"dp (a) {label}: max-abs/scale {worst:.3e} > 2e-4 "
+                         "with the flipped groups' cotangent zeroed")
+    return (f"statistics within rtol 1e-5/1e-4; gradients relative L2 "
+            f"{l2:.3e} (bar 1e-2); with the cotangent zeroed at the "
+            f"{int(drop.sum())} flipped (pool, channel) groups, max-abs/"
+            f"scale {worst:.3e} (bar 2e-4) over all "
+            f"{sum(t.numel() for t in held)} live gradient entries")
+
+
+def _dp_grad_bars(label, g1, gk, flips, bar):
+    """Relative L2 at most 1e-2 on every gradient, max-abs at most
+    ``bar`` of its scale where no flipped decision reaches (``_touched``;
+    the SA stage's internal masks are not observed: its gradients by L2
+    alone), the BN-absorbed biases at ``bar`` of the largest gradient.
+    Returns (worst L2, worst max-abs, entries held)."""
+    n2 = sum(1 for n in flips if n.startswith("stage2_mlp."))
+    top = max(float(t.abs().max()) for t in g1.values())
+    # BN-absorbed by name, and the gradients cancelled to round-off by a
+    # BatchNorm downstream (the last stage-2 shift: a constant shift of
+    # every row survives the pools and dies in the head's BatchNorm).
+    absorbed = {n for n, t in g1.items() if n.startswith(DP_ABSORBED) or
+                float(t.abs().max()) <= 1e-6 * top}
+    touched = _touched(g1, {n: f.any(0) for n, f in flips.items()}, n2)
+    l2, free, n_free, _ = _compare(g1, gk, touched, absorbed)
+    for n in absorbed:
+        err = float((gk[n] - g1[n]).abs().max()) / top
+        check(err <= bar, f"dp {label}: BN-absorbed {n} differs by {err:.3e} "
+                          f"of the largest gradient > {bar:g}")
+    check(l2 <= 1e-2, f"dp {label}: gradient relative L2 {l2:.3e} > 1e-2")
+    check(free <= bar, f"dp {label}: gradient max-abs/scale {free:.3e} > "
+                       f"{bar:g} where no decision flipped")
+    return (f"relative L2 {l2:.3e}, max-abs/scale {free:.3e} (bar {bar:g}) "
+            f"on the {n_free} entries no flip reaches")
+
+
+def _in_bars(got, ref, rtol, atol):
+    """max |got - ref| / (atol + rtol |ref|): at most 1 within the bars
+    of ``torch.allclose``."""
+    return float(((got - ref).abs() / (atol + rtol * ref.abs())).max())
+
+
+def _f32_dist(ref, got):
+    """Relative L2 of the tensors ``got`` from ``ref``, all together."""
+    num = sum(float((g.double() - r.double()).norm()) ** 2
+              for r, g in zip(ref, got))
+    return (num / sum(float(r.double().norm()) ** 2 for r in ref)) ** 0.5
+
+
+def _dp_vs_f32(label, what, ref, one, dp):
+    """bf16: two bf16 runs that round in other orders put thousands of
+    decisions on other sides (phase 3's bf16 step says why): no f32 bar
+    holds between them. As phase 3 does, each is held against a run of
+    higher precision, the one-process f32 run on the same card: the two
+    ranks' distance from it at most twice the one process's. Returns the
+    reading."""
+    e_one, e_dp = _f32_dist(ref, one), _f32_dist(ref, dp)
+    check(e_dp <= 2 * e_one, f"dp {label}: {what} {e_dp:.3e} from the f32 "
+                             f"run, one process {e_one:.3e}")
+    return f"{what} from the f32 run: two ranks {e_dp:.3e}, one {e_one:.3e}"
+
+
+def _dp_bf16_stage(label, f32, one, dp):
+    """(a) at bf16: each statistic within 1e-3 of its max-abs of the
+    one-process bf16 stage's (``acc_rel``'s bar for the bf16 sweeps' f32
+    accumulators, whence they come: f32's rtol 1e-5 is below the flips
+    of bf16 roundings that two summation orders leave); statistics and
+    the live gradients against the f32 stage (``_dp_vs_f32``)."""
+    def stats(r):
+        return [t for mv in r["stats"] for t in mv]
+
+    def grads(r):
+        return [t for lp in r["grads"] for k, t in enumerate(lp) if k != 1]
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(stats(dp), stats(one)))
+    check(worst <= 1e-3, f"dp (a) {label}: statistics {worst:.3e} of their "
+                         "max-abs from one process's bf16 stage > 1e-3")
+    f32_bars = [round(max(_in_bars(m, m1, 1e-5, 1e-6),
+                          _in_bars(v, v1, 1e-4, 1e-6)), 3)
+                for (m, v), (m1, v1) in zip(dp["stats"], one["stats"])]
+    return f"statistics {worst:.3e} of their max-abs from one process's " \
+        f"(bar 1e-3; f32's rtol 1e-5 / 1e-4 would read {f32_bars} of " \
+        "their bar by layer); " + "; ".join(
+            _dp_vs_f32(f"(a) {label}", what, f(f32), f(one), f(dp))
+            for what, f in (("statistics", stats), ("gradients", grads)))
+
+
+def _dp_bf16_step(label, f32, one, dp, witnesses, exact):
+    """(b) at bf16: the loss, the running statistics and the live
+    gradients (not BN-absorbed) against the f32 step (``_dp_vs_f32``);
+    the loss at rtol 2e-3 (about half a bf16 ulp, 2^-9) of the
+    one-process bf16 step's. With ``exact`` (the reference stage, all of
+    whose sums ``_as_two_halves`` splits as the ranks do), the loss and
+    running statistics at the f32 bars (rtol 2e-4; rtol 1e-3 / atol
+    1e-5) of the one process rounding as two ranks ("halves"). Beside
+    them, how far the two ranks and each of the ``witnesses``
+    (``_dp_one_step``) sit from the one-process bf16 step (loss;
+    gradients and running statistics by relative L2, together), the
+    running statistics' worst max-abs of their scale, and each
+    gradient's two-rank relative L2 at its worst."""
+    g32 = f32["grads"]
+    top = max(float(t.abs().max()) for t in g32.values())
+    live = [n for n, t in g32.items() if not n.startswith(DP_ABSORBED) and
+            float(t.abs().max()) > 1e-6 * top]
+    bufs = sorted(f32["buffers"])
+    out = [_dp_vs_f32(f"(b) {label}", what, [r[k] for k in keys],
+                      [o[k] for k in keys], [d[k] for k in keys])
+           for what, keys, r, o, d in (
+               ("loss", ["loss"], *({"loss": torch.tensor(x["loss"])}
+                                    for x in (f32, one, dp))),
+               ("running statistics", bufs, f32["buffers"], one["buffers"],
+                dp["buffers"]),
+               ("gradients", live, g32, one["grads"], dp["grads"]))]
+    rel = abs(dp["loss"] - one["loss"]) / abs(one["loss"])
+    check(rel <= 2e-3, f"dp (b) {label}: loss {dp['loss']} vs one process "
+                       f"{one['loss']} beyond rtol 2e-3")
+    if exact:
+        halves = witnesses["halves"]
+        check(math.isclose(dp["loss"], halves["loss"], rel_tol=2e-4),
+              f"dp (b) {label}: loss {dp['loss']} vs one process as two "
+              f"halves {halves['loss']}")
+        bad = {n: round(_in_bars(dp["buffers"][n], halves["buffers"][n],
+                                 1e-3, 1e-5), 3) for n in bufs}
+        bad = {n: v for n, v in bad.items() if v > 1.0}
+        check(not bad, f"dp (b) {label}: running statistics beyond rtol 1e-3"
+                       f" / atol 1e-5 of the one process as two halves, in "
+                       f"units of the bar: {bad}")
+    rs = {n: float((dp["buffers"][n] - one["buffers"][n]).abs().max()) /
+          max(float(one["buffers"][n].abs().max()), 1e-30) for n in bufs}
+    rs_worst = max(rs, key=rs.get)
+    rb = {n: _in_bars(dp["buffers"][n], one["buffers"][n], 1e-3, 1e-5)
+          for n in bufs}
+    rb_worst = max(rb, key=rb.get)
+
+    def gap(r, ref=one):
+        loss = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+        g = _f32_dist([ref["grads"][n] for n in live],
+                      [r["grads"][n] for n in live])
+        b = _f32_dist([ref["buffers"][n] for n in bufs],
+                      [r["buffers"][n] for n in bufs])
+        return (f"loss {loss:.3e}, gradients {g:.3e}, running statistics "
+                f"{b:.3e}")
+    l2 = {n: _rel_l2(dp["grads"][n], one["grads"][n]) for n in live}
+    worst = max(l2, key=l2.get)
+    return "; ".join(out) + (
+        "; loss within rtol 2e-3 of one process's" + (
+            "; loss and running statistics within the f32 bars of one "
+            "process as two halves" if exact else "") +
+        f"; running statistics from one process's worst max-abs/scale "
+        f"{rs[rs_worst]:.3e} ({rs_worst}), {rb[rb_worst]:.3f} of f32's rtol "
+        f"1e-3 / atol 1e-5 ({rb_worst}); from the one-process bf16 step: "
+        f"two ranks {gap(dp)}; " + "; ".join(
+            f"one process {w} {gap(r)}" for w, r in witnesses.items()) +
+        f"; two ranks from one process halves: {gap(dp, witnesses['halves'])}"
+        f"; gradients two ranks vs one process worst relative L2 "
+        f"{l2[worst]:.3e} ({worst})")
+
+
+def _dp_nccl_rank(devtype, B):
+    """(c): the dp pair3 step over NCCL at world size 1: its loss, its
+    collectives and launches."""
+    from facl_tpu_torch.parallel import make_mesh, rank_device, \
+        shard_train_state
+    from facl_tpu_torch.train import Trainer
+    import torch.distributed as dist
+    mesh = make_mesh()
+    dev = rank_device(devtype)
+    pts, perm = _dp_points(B)
+    tr = Trainer(_cfg(B), 100, device=dev, mesh=mesh)
+    st = shard_train_state(mesh, tr.init_state(SEED))
+    kernels = all_kernels()
+    _dp_zero(kernels)
+    st, m = tr.step_fn(st, pts.to(dev), perm=perm)
+    _sync(dev)
+    return dict(backend=dist.get_backend(), dp=mesh.dp, loss=float(m["loss"]),
+                counts=_dp_counts(), launches=_dp_launches(kernels))
+
+
+@contextlib.contextmanager
+def _timed_collectives(acc: dict, dev):
+    """Time every all_reduce and broadcast of the collectives module on
+    the host, the device synchronised before and after, into ``acc``
+    ({kind: [ms, bytes, calls]}) by the collective that issued it."""
+    import torch.distributed as dist
+    from facl_tpu_torch.parallel import collectives as C
+    names = {"psum": "psum (B6s)", "_slots": "gathers",
+             "forward": "BN moments", "backward": "BN moments",
+             "psum_grads": "gradient sum", "cross_replica_mean": "other"}
+    reduce0, bcast0 = C._all_reduce, dist.broadcast
+
+    def timed(fn, label):
+        def wrapped(*a, **k):
+            _sync(dev)
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            _sync(dev)
+            key = label or names.get(sys._getframe(1).f_code.co_name,
+                                     "other")
+            rec = acc.setdefault(key, [0.0, 0, 0])
+            rec[0] += (time.perf_counter() - t0) * 1e3
+            rec[1] += a[0].numel() * a[0].element_size()
+            rec[2] += 1
+            return r
+        return wrapped
+    C._all_reduce = timed(reduce0, None)
+    dist.broadcast = timed(bcast0, "broadcast")
+    try:
+        yield
+    finally:
+        C._all_reduce, dist.broadcast = reduce0, bcast0
+
+
+def _dp_time_rank(devtype, cfg_path, impl, B, warm, timed):
+    """(d) on one rank: the config at global batch B (``impl`` forced, or
+    as shipped), ``warm`` steps, then ``timed`` steps timed by CUDA events
+    between steps, then ``timed`` more with each collective timed on the
+    host (``_timed_collectives``: it synchronises, so these steps are not
+    the timed ones). Returns ms per step, collective ms per step by kind,
+    the peak allocation, the losses and one step's collectives."""
+    import dataclasses
+    from facl_tpu_torch.config import Config
+    from facl_tpu_torch.parallel import make_mesh, rank_device, \
+        shard_train_state
+    from facl_tpu_torch.train import Trainer
+    mesh = make_mesh()
+    dev = rank_device(devtype)
+    with open(cfg_path) as f:
+        cfg = Config.from_json(f.read())
+    model = cfg.model if impl is None else dataclasses.replace(
+        cfg.model, sa_impl=impl, channels_first=None)
+    cfg = cfg.replace(model=model, train=dataclasses.replace(
+        cfg.train, batch_size=B))
+    tr = Trainer(cfg, 100, device=dev, mesh=mesh)
+    st = shard_train_state(mesh, tr.init_state(SEED))
+    g = torch.Generator(device=dev).manual_seed(SEED + 20 + mesh.rank)
+    pts = torch.randn(cfg.model.num_crops, B // mesh.dp, cfg.data.num_points,
+                      4, generator=g, device=dev)
+    perm_gen = torch.Generator().manual_seed(SEED)
+    for _ in range(warm):
+        st, _ = tr.step_fn(st, pts, generator=perm_gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = all_kernels()
+    _dp_zero(kernels)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    losses = []
+    ev[0].record()
+    for i in range(timed):
+        st, m = tr.step_fn(st, pts, generator=perm_gen)
+        ev[i + 1].record()
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    counts, launches = _dp_counts(), _dp_launches(kernels)
+    acc = {}
+    with _timed_collectives(acc, dev):
+        for _ in range(timed):
+            st, m = tr.step_fn(st, pts, generator=perm_gen)
+    torch.cuda.synchronize()
+    inputs = None
+    if mesh.rank == 0:
+        inputs = dict(pts=pts.cpu(), grouping=tr.cfg.grouping,
+                      sa=[tuple(t.detach().cpu() for t in lp)
+                          for lp in st.model.sa_stage.layers()])
+    return dict(ms=[ev[i].elapsed_time(ev[i + 1]) for i in range(timed)],
+                coll={k: [v[0] / timed, v[1] // timed, v[2] // timed]
+                      for k, v in acc.items()},
+                peak=torch.cuda.max_memory_allocated(dev) / 2**30,
+                losses=[float(v) for v in losses],
+                counts={k: v // timed for k, v in counts.items()},
+                launches={k: v // timed for k, v in launches.items()},
+                impl=tr.cfg.model.sa_impl, dtype=tr.cfg.model.compute_dtype,
+                model=tr.cfg.model, inputs=inputs)
+
+
+def _dp_kernels(dev, card, label, r0):
+    """(d): the run's kernels against their twins at the size the run
+    gives them, on rank 0's own points (its B/2 clouds), with its SA
+    weights after the timed steps and a randn cotangent: B1 bit-equal to
+    its twin (phase 2's B1 bar), and where the run launched the bf16
+    sweeps, the five at phase 2's bf16 bars on B1's grouping
+    (``bf16_rows``)."""
+    from facl_tpu_torch.ops import select as SEL
+    from facl_tpu_torch.ops.fused_sa import SALayerParams
+    from facl_tpu_torch.train.trainer import make_grouping_fn
+    inp = r0["inputs"]
+    g_cfg, pts = inp["grouping"], inp["pts"].to(dev)
+    G, Bl, N, C = pts.shape
+    S, K, r2 = g_cfg.num_centroids, g_cfg.knn_k, g_cfg.radius_sq
+    flat = pts.transpose(0, 1).reshape(Bl * G, N, C).contiguous()
+    kg, ki = SEL.select_gather(flat, S, K, r2, return_idx=True)
+    tg, ti = SEL.select_gather_plain(flat, S, K, r2)
+    check(torch.equal(ki, ti) and torch.equal(kg, tg),
+          f"dp (d) {label}: B1 differs from its twin at {tuple(flat.shape)}")
+    del kg, ki, tg, ti, flat
+    sweeps = "sa_fwd_layer12_bf16" in r0["launches"]
+    if sweeps:
+        with torch.no_grad():
+            neigh, _ = make_grouping_fn(g_cfg, "bcsk")(pts.transpose(0, 1))
+        x3 = neigh.reshape(Bl * G, C, S * K)
+        del neigh, pts
+        layers = [SALayerParams(*(t.to(dev) for t in lp)) for lp in inp["sa"]]
+        g = torch.Generator().manual_seed(SEED + 21)
+        dpooled = torch.randn(Bl * G * S, layers[-1].kernel.shape[1],
+                              generator=g).to(dev)
+        _sync(dev, empty=True)
+        bf16_rows(x3, layers, dpooled, K)
+        del x3, dpooled
+    _sync(dev, empty=True)
+    print(f"dp (d) {label}: rank 0's inputs ({Bl * G} clouds) on {card}: B1 "
+          f"bit-equal to its twin" + (
+              f"; the five bf16 sweeps at R={Bl * G * S * K} within phase 2's "
+              "bf16 bars (line above)" if sweeps else ""), flush=True)
+
+
+def _dp_want_counts(model_cfg, impl):
+    """Collectives of one dp step: the B6s sums of pair/pair3, the
+    BatchNorm moment sums (stage-2's layers and the head's, called twice,
+    and the reference SA's), forward and backward; two gathers, the
+    permutation's broadcast and one gradient sum."""
+    bn = len(model_cfg.stage2_widths) + 2 + \
+        (len(model_cfg.sa_widths) if impl == "reference" else 0)
+    want = {"global_moments": 2 * bn, "gather_negatives": 2, "broadcast": 1,
+            "psum_grads": 1}
+    psum = {"pair3": 6, "pair": 5}.get(impl, 0)
+    if psum:
+        want["psum"] = psum
+    return want
+
+
+def phase_dp(dev, card: str):
+    """Phase 7: data parallelism on the card (module docstring); returns
+    {path: launches} of each rank's paths."""
+    from facl_tpu_torch.parallel import spawn
+    here = os.path.dirname(os.path.abspath(__file__))
+    B = DP_B
+    out = {}
+    _sync(dev, empty=True)
+
+    # (a) The sharded stage: two gloo ranks on this card against one
+    # process on the same card tensors. The one process runs first: its
+    # f32 pool routing goes to the ranks, which rerun with the cotangent
+    # zeroed where theirs differs.
+    ones = {label: _dp_stage(dev, B, slice(0, B), impl, dtype, None)
+            for label, impl, dtype in DP_STAGE_CASES}
+    _sync(dev, empty=True)
+    t0 = time.perf_counter()
+    ranks = spawn(_dp_stage_rank, 2, "gloo",
+                  args=(dev.type, B, {label: ones[label]["route"] for
+                                      label, _, dtype in DP_STAGE_CASES
+                                      if dtype == "float32"}),
+                  timeout_s=600)
+    print(f"dp (a): two gloo ranks on {card} in {time.perf_counter() - t0:.1f}"
+          f" s; gloo on CUDA tensors: {ranks[0]['gloo']}", flush=True)
+    for label, impl, dtype in DP_STAGE_CASES:
+        one = ones[label]
+        r0, r1 = ranks[0][label], ranks[1][label]
+        want = {k: v for k, v in DP_LAUNCHES[label].items()
+                if k != "select_gather"}
+        for r in (r0, r1):
+            check(r["launches"] == want, f"dp (a) {label}: launches "
+                                         f"{r['launches']}, expected {want}")
+            check(r["psum"] == (3, 3 if impl == "pair3" else 2),
+                  f"dp (a) {label}: B6s all-reduces {r['psum']}")
+        for i, (l0, l1) in enumerate(zip(r0["grads"], r1["grads"])):
+            check(all(torch.equal(a, b) for a, b in zip(l0, l1)),
+                  f"dp (a) {label}: layer {i}'s gradients differ between "
+                  "the ranks")
+        route = torch.cat([r0["route"], r1["route"]])
+        flips = int((route != one["route"]).sum())
+        if dtype == "bfloat16":
+            got = _dp_bf16_stage(label, ones["pair3"], one, r0)
+        else:
+            stats = [max(_in_bars(ms, m1, 1e-5, 1e-6),
+                         _in_bars(vs, v1, 1e-4, 1e-6))
+                     for (ms, vs), (m1, v1) in zip(r0["stats"], one["stats"])]
+            check(max(stats) <= 1.0, f"dp (a) {label}: statistics beyond "
+                                     f"rtol 1e-5 / 1e-4 of one process's, by "
+                                     f"layer, in units of the bar: {stats}")
+            got = _dp_stage_grads(dev, B, label, impl, one, r0, r1, route)
+        out[f"dp (a) {label} stage, per rank"] = r0["launches"]
+        print(f"dp (a) {label} stage, B={B} ({B // 2} a rank), two ranks vs "
+              f"one process on {card}: {got}; gradients equal on both "
+              f"ranks; pool routing flipped at {flips} of {route.numel()} "
+              f"indices; B6s all-reduces a rank {r0['psum'][0]} + "
+              f"{r0['psum'][1]}, {r0['b6s'][1]} bytes, {r0['b6s'][0]:.3f} ms "
+              f"on the host in the stage (synchronised; waits for the other "
+              f"rank included; rank 1: {r1['b6s'][0]:.3f}); launches a rank "
+              f"{r0['launches']}", flush=True)
+    lat = ranks[0]["latency"]
+    print(f"dp (a) gloo all_reduce of CUDA float64 buffers between two idle "
+          f"ranks on {card}, ms a call (mean of 20) by element count: "
+          f"{ {n: round(v, 4) for n, v in lat.items()} }; the six B6s "
+          f"all-reduces of a pair3 step: {sum(lat.values()):.3f} ms",
+          flush=True)
+
+    # (b) The train step: two gloo ranks against one process.
+    t0 = time.perf_counter()
+    ranks = spawn(_dp_step_rank, 2, "gloo", args=(dev.type, B, 3),
+                  timeout_s=600)
+    print(f"dp (b): two gloo ranks, {len(DP_STEP_CASES)} configs x 3 steps, "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    losses = {}
+    for label, impl, dtype in DP_STEP_CASES:
+        one = _dp_one_step(dev, B, impl, dtype)
+        _sync(dev, empty=True)
+        r0, r1 = ranks[0][label], ranks[1][label]
+        losses[label] = one["loss"]
+        check(r0["loss"] == r1["loss"], f"dp (b) {label}: the ranks' losses "
+                                         f"{r0['loss']} {r1['loss']}")
+        if dtype == "float32":
+            check(math.isclose(r0["loss"], one["loss"], rel_tol=2e-4),
+                  f"dp (b) {label}: loss {r0['loss']} vs one process "
+                  f"{one['loss']}")
+            for n, w in one["buffers"].items():
+                check(torch.allclose(r0["buffers"][n], w, rtol=1e-3,
+                                     atol=1e-5),
+                      f"dp (b) {label}: running statistic {n}")
+        for n, p in r0["params_end"].items():
+            check(torch.equal(p, r1["params_end"][n]),
+                  f"dp (b) {label}: {n} differs between the ranks after 3 "
+                  "steps")
+        for n, gr in r0["grads"].items():
+            check(torch.equal(gr, r1["grads"][n]),
+                  f"dp (b) {label}: gradient {n} differs between the ranks")
+        dk = _merge_decisions([r0["dec"], r1["dec"]], B,
+                              _cfg(B).model.num_crops)
+        flips = {n: (one["dec"][n] != dk[n]).reshape(
+            -1, one["dec"][n].shape[-1]) for n in one["dec"]}
+        if dtype == "bfloat16":
+            f32 = _dp_one_step(dev, B, impl, "float32")
+            wit = {w: _dp_one_step(dev, B, impl, dtype, w)
+                   for w in ("swap", "halves")}
+            _sync(dev, empty=True)
+            got = _dp_bf16_step(label, f32, one, r0, wit,
+                                exact=impl == "reference")
+        else:
+            got = ("loss within rtol 2e-4, running statistics within rtol "
+                   "1e-3 / atol 1e-5; gradients " +
+                   _dp_grad_bars(f"(b) {label}", one["grads"], r0["grads"],
+                                 flips, 2e-4))
+        want = _dp_want_counts(_cfg(B).model, impl)
+        for r in (r0, r1):
+            check(r["counts"] == want, f"dp (b) {label}: collectives "
+                                       f"{r['counts']}, expected {want}")
+            check(r["launches"] == DP_LAUNCHES[label],
+                  f"dp (b) {label}: launches {r['launches']}")
+        out[f"dp (b) {label} step, per rank"] = r0["launches"]
+        print(f"dp (b) {label} step, B={B}, two ranks vs one process on "
+              f"{card}: loss {r0['loss']:.6f} vs {one['loss']:.6f}; {got}; "
+              f"gradients before Adam equal on both ranks; flipped decisions "
+              f"{ {n: int(f.sum()) for n, f in flips.items()} }; parameters "
+              f"bit-equal across the ranks after 3 steps; collectives a step "
+              f"{r0['counts']}; launches a step {r0['launches']}",
+              flush=True)
+
+    # (c) NCCL at world size 1: its code path on the card.
+    (r,) = spawn(_dp_nccl_rank, 1, "nccl", args=(dev.type, B),
+                 timeout_s=300)
+    want = _dp_want_counts(_cfg(B).model, "pair3")
+    check(r["backend"] == "nccl" and r["dp"] == 1, f"dp (c): {r}")
+    check(r["counts"] == want, f"dp (c): collectives {r['counts']}")
+    check(r["launches"] == DP_LAUNCHES["pair3"], f"dp (c): {r['launches']}")
+    check(math.isclose(r["loss"], losses["pair3"], rel_tol=2e-4),
+          f"dp (c): loss {r['loss']} vs one process {losses['pair3']}")
+    out["dp (c) nccl pair3 step"] = r["launches"]
+    print(f"dp (c) pair3 step over NCCL at world size 1 on {card}: loss "
+          f"{r['loss']:.6f} (one process {losses['pair3']:.6f}); collectives "
+          f"{r['counts']}; launches {r['launches']}", flush=True)
+
+    # (d) The shipped multichip config: its own width, B=512 with auto
+    # (bf16 pair3) and B=128 with its own reference (cut, PERF.md).
+    cfg_path = os.path.join(here, DP_CONFIG)
+    for label, impl, Bg in DP_TIMED_CASES:
+        ranks = spawn(_dp_time_rank, 2, "gloo",
+                      args=(dev.type, cfg_path, impl, Bg, DP_WARM, DP_TIMED),
+                      timeout_s=900)
+        for k, rr in enumerate(ranks):
+            check(all(math.isfinite(v) for v in rr["losses"]),
+                  f"dp (d) {label} rank {k}: losses {rr['losses']}")
+            check(rr["counts"] == _dp_want_counts(rr["model"], rr["impl"]),
+                  f"dp (d) {label}: collectives {rr['counts']}")
+        check(ranks[0]["losses"] == ranks[1]["losses"],
+              f"dp (d) {label}: the ranks' losses differ")
+        out[f"dp (d) multichip {label}, per rank"] = ranks[0]["launches"]
+        _dp_kernels(dev, card, label, ranks[0])
+        for k, rr in enumerate(ranks):
+            ms, coll = sorted(rr["ms"]), rr["coll"].items()
+            print(f"dp (d) {DP_CONFIG} sa_impl {label} -> {rr['impl']} "
+                  f"{rr['dtype']}, B={Bg} ({Bg // 2} a rank), rank {k} of 2 "
+                  f"time-sharing {card}: median {statistics.median(ms):.2f} "
+                  f"ms/step (min {ms[0]:.2f}, max {ms[-1]:.2f}; {DP_TIMED} "
+                  f"steps after {DP_WARM}); collectives a step on the "
+                  f"host (synchronised, in {DP_TIMED} separate steps), kind: "
+                  f"[ms, bytes, calls] "
+                  f"{ {n: [round(v[0], 3), v[1], v[2]] for n, v in coll} }"
+                  f"; peak {rr['peak']:.2f} GiB; collectives a step "
+                  f"{rr['counts']}; "
+                  f"launches a step {rr['launches']}; losses "
+                  f"{rr['losses'][0]:.4f} .. {rr['losses'][-1]:.4f}",
+                  flush=True)
+    return out
+
+
+def _dp_clis(dev, card, root, common, ck, tmp):
+    """Phase 7 (e): pretrain --mesh (one epoch from the shipped motion
+    config) and extract --mesh under torchrun, two gloo ranks on this
+    card; each video's features against the one-process extract (in this
+    process) from the same checkpoint, at 1e-5 of their scale. Both
+    extractions run in f32 (``--dtype float32``): at bf16 the two batch
+    compositions round products differently (the GEMMs' row counts
+    differ), which the 1e-5 bar would not hold."""
+    import numpy as np
+    from facl_tpu_torch.cli import extract
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m"]
+    mesh = ["--mesh", "--dist-backend", "gloo"]
+    feat_dp, feat_one = (os.path.join(tmp, f) for f in ("feat_dp", "feat_1"))
+    calls = (("pretrain", ["facl_tpu_torch.cli.pretrain"] + common + mesh +
+              ["--epochs", "1", "--out", ck]),
+             ("extract", ["facl_tpu_torch.cli.extract"] + common + mesh +
+              ["--dtype", "float32", "--checkpoint", ck, "--out", feat_dp]))
+    for name, argv in calls:
+        t0 = time.perf_counter()
+        proc = subprocess.run(run + argv, cwd=here, env=env,
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"dp (e) torchrun {name}: exit "
+                                    f"{proc.returncode}\n{proc.stdout[-3000:]}"
+                                    f"\n{proc.stderr[-3000:]}")
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if "epoch 0 done" in ln or "mesh:" in ln]
+        print(f"dp (e) torchrun --nproc_per_node 2 {name} --mesh "
+              f"--dist-backend gloo on {card}: {time.perf_counter() - t0:.1f}"
+              f" s; {' | '.join(lines)}", flush=True)
+    extract.main(common + ["--dtype", "float32", "--checkpoint", ck, "--out",
+                           feat_one])
+    names = sorted(f for f in os.listdir(feat_one) if f.endswith(".npy"))
+    check(sorted(os.listdir(feat_dp)) == names,
+          "dp (e): the mesh extract wrote other files")
+    worst = 0.0
+    for f in names:
+        a, b = np.load(os.path.join(feat_dp, f)), np.load(
+            os.path.join(feat_one, f))
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    check(worst <= 1e-5, f"dp (e): features differ by {worst:.3e} of scale")
+    print(f"dp (e) extract --mesh vs one process on {card}: {len(names)} "
+          f"videos, worst max-abs/scale {worst:.3e} (bar 1e-5)", flush=True)
+
+
 def _data_cfg(here: str, stream: str):
     """The DataConfig the CLIs build for ``stream`` from its shipped
     config and protocol (cli/pretrain.py build_config)."""
@@ -2327,6 +3269,7 @@ def main() -> None:
     paths.update(phase_input_grad(dev))
     torch.cuda.empty_cache()
     paths.update(phase_pipeline(dev, name_power, medians))
+    paths.update(phase_dp(dev, name_power))
 
     # Each kernel's launches: from the first path (in the order run) that
     # runs it — B1-B3 on pair3, B6 on pair, B7 and B8 on hybrid2, B9 on

@@ -5,20 +5,21 @@ the reference's extract_{apperance,motion}_feature.py as one script +
 Usage:
   python -m facl_tpu_torch.cli.extract --root <tree> --stream motion \
       --checkpoint checkpoints/motion --out features/motion
+
+With ``--mesh`` under torchrun each rank extracts its block of every batch
+and rank 0 writes the features (the same files as one process writes).
 """
 from __future__ import annotations
 
 import argparse
 import logging
 
-from facl_tpu_torch import resolve_device
 from facl_tpu_torch.cli.pretrain import add_common_args, build_config, \
-    reject_unported
+    mesh_of, reject_unported
 from facl_tpu_torch.data import CropLoader, NTUPointDataset
 from facl_tpu_torch.train import Trainer, latest_checkpoint, \
     make_eval_step, restore_latest
 from facl_tpu_torch.train.extract import extract_features
-from facl_tpu_torch.utils.logging import setup_logging
 
 
 def main(argv=None) -> int:
@@ -30,14 +31,17 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=1)
     args = p.parse_args(argv)
 
-    setup_logging()
-    log = logging.getLogger("extract")
     cfg = build_config(args)
-    reject_unported(args, cfg)
-    device = resolve_device(args.device)
+    reject_unported(cfg)
     if latest_checkpoint(args.checkpoint) is None:
         raise SystemExit(f"no checkpoint found in {args.checkpoint!r} "
                          "(expected index.json written by pretrain)")
+    with mesh_of(args, cfg) as (mesh, device):
+        return _extract(args, cfg, mesh, device)
+
+
+def _extract(args, cfg, mesh, device) -> int:
+    log = logging.getLogger("extract")
 
     # Both splits in turn, unshuffled, every video (extract_apperance_
     # feature.py:112-136,163,192), through one Trainer, one restore and
@@ -55,9 +59,10 @@ def main(argv=None) -> int:
             continue
         loader = CropLoader(ds, min(args.batch_size, len(ds)),
                             seed=args.seed, shuffle=False, drop_last=False,
-                            device=device)
+                            device=device, mesh=mesh)
         feats = extract_features(state.model, trainer.cfg, loader.epoch(0),
-                                 out_dir=args.out, eval_step=eval_step)
+                                 out_dir=args.out, eval_step=eval_step,
+                                 mesh=mesh)
         written += len(feats)
         log.info("%s split: wrote %d feature files to %s", split,
                  len(feats), args.out)

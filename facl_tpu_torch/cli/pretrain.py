@@ -5,10 +5,15 @@ as one script + ``--stream``).
 Usage:
   python -m facl_tpu_torch.cli.pretrain --root <generated-tree> \
       --stream motion --epochs 100 --batch-size 64 --out checkpoints/motion
+
+Data parallel, one process a card (``--batch-size`` is the global batch):
+  torchrun --nproc_per_node 8 -m facl_tpu_torch.cli.pretrain --mesh \
+      --config configs/multichip_ntu120.json --root <tree> --out <dir>
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -21,6 +26,8 @@ from facl_tpu_torch import resolve_device
 from facl_tpu_torch.config import Config
 from facl_tpu_torch.data import CropLoader, NTUPointDataset
 from facl_tpu_torch.models.pointnet import SA_IMPLS
+from facl_tpu_torch.parallel import finalize, initialize, make_mesh, \
+    rank_device, shard_train_state
 from facl_tpu_torch.train import Trainer, restore_latest, save_checkpoint
 from facl_tpu_torch.utils.logging import setup_logging
 
@@ -43,10 +50,19 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                         "value; 'auto' takes pair3, the B2/B3 kernels, where "
                         "they take the SA widths)")
     p.add_argument("--mesh", action="store_true",
-                   help="multi-device training: not ported yet (ROADMAP "
-                        "Queue 1 item 17)")
+                   help="data parallel over the ranks torchrun starts "
+                        "(cfg.mesh: dp, -1 for every rank; mp must be 1): "
+                        "each rank takes its block of every global batch, "
+                        "BatchNorm statistics, negatives and gradients are "
+                        "global. The batch size must divide by dp.")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                   default="nccl",
+                   help="torch.distributed backend under --mesh: nccl (one "
+                        "card a rank) or gloo (also several ranks a card, "
+                        "or the CPU)")
     p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; raises without one)")
+                   help="torch device (default cuda, the rank's card under "
+                        "--mesh; raises without one)")
 
 
 def build_config(args) -> Config:
@@ -71,10 +87,7 @@ def build_config(args) -> Config:
     return cfg
 
 
-def reject_unported(args, cfg: Config) -> None:
-    if getattr(args, "mesh", False):
-        raise NotImplementedError("--mesh (multi-device) is not ported yet "
-                                  "(ROADMAP Queue 1 item 17)")
+def reject_unported(cfg: Config) -> None:
     if cfg.model.name == "slow_fast":
         raise NotImplementedError("slow_fast is not ported yet (ROADMAP "
                                   "Queue 1 item 16)")
@@ -91,13 +104,44 @@ def main(argv=None) -> List[Dict[str, float]]:
     p.add_argument("--resume", action="store_true")
     args = p.parse_args(argv)
 
-    setup_logging()
-    log = logging.getLogger("pretrain")
     cfg = build_config(args)
-    reject_unported(args, cfg)
+    reject_unported(cfg)
+    with mesh_of(args, cfg) as (mesh, device):
+        return _pretrain(args, cfg, mesh, device)
+
+
+@contextlib.contextmanager
+def mesh_of(args, cfg: Config):
+    """(mesh, device) of a CLI run: with ``--mesh`` this process joins the
+    ranks' process group (``--dist-backend``; torchrun's environment) and
+    runs on its rank's card, else (None, ``--device``). Logging is set
+    up, at WARNING on the ranks but rank 0. Leaves the group it joined."""
     device = resolve_device(args.device)
+    mesh, joined = None, False
+    try:
+        if args.mesh:
+            joined = initialize(args.dist_backend)
+            mesh = make_mesh(cfg.mesh)
+            device = rank_device(device)
+        setup_logging(logging.INFO if mesh is None or mesh.rank == 0
+                      else logging.WARNING)
+        if mesh is not None:
+            logging.getLogger("mesh").info(
+                "mesh: dp=%d mp=1 backend=%s device=%s", mesh.dp,
+                args.dist_backend, device)
+        yield mesh, device
+    finally:
+        if joined:
+            finalize()
+
+
+def _pretrain(args, cfg: Config, mesh, device) -> List[Dict[str, float]]:
+    log = logging.getLogger("pretrain")
     if args.out is None:
         args.out = cfg.train.checkpoint_dir
+    if mesh is not None and args.batch_size % mesh.dp:
+        raise SystemExit(f"--mesh: batch size {args.batch_size} must divide "
+                         f"by dp={mesh.dp}")
 
     ds = NTUPointDataset(args.root, cfg.data, train=True)
     if len(ds) < args.batch_size:
@@ -109,13 +153,15 @@ def main(argv=None) -> List[Dict[str, float]]:
     log.info("train videos=%d steps/epoch=%d device=%s", len(ds),
              steps_per_epoch, device)
 
-    loader = CropLoader(ds, args.batch_size, seed=args.seed, device=device)
-    trainer = Trainer(cfg, steps_per_epoch, device=device)
+    loader = CropLoader(ds, args.batch_size, seed=args.seed, device=device,
+                        mesh=mesh)
+    trainer = Trainer(cfg, steps_per_epoch, device=device, mesh=mesh)
     state = trainer.init_state(args.seed)
     start_epoch = 0
     if args.resume and restore_latest(args.out, state) is not None:
         start_epoch = state.step // steps_per_epoch
         log.info("resumed at epoch %d (step %d)", start_epoch, state.step)
+    state = shard_train_state(mesh, state)
 
     history = []
     for epoch in range(start_epoch, args.epochs):
@@ -131,8 +177,9 @@ def main(argv=None) -> List[Dict[str, float]]:
         log.info("epoch %d done: %s", epoch,
                  {k: round(v, 4) for k, v in metrics.items()})
         if epoch % cfg.train.checkpoint_every_epochs == 0:
-            log.info("checkpoint %s", save_checkpoint(args.out, state, epoch))
-    save_checkpoint(args.out, state, args.epochs - 1)
+            log.info("checkpoint %s", save_checkpoint(args.out, state, epoch,
+                                                      mesh=mesh))
+    save_checkpoint(args.out, state, args.epochs - 1, mesh=mesh)
     return history
 
 

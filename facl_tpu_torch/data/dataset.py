@@ -31,6 +31,8 @@ from facl_tpu_torch.data import native
 from facl_tpu_torch.data.crops import ClipSources, make_crops_batch
 from facl_tpu_torch.data.ntu import VideoInfo, parse_name, split_videos, \
     validation_split
+from facl_tpu_torch.ops.transforms import BatchRows
+from facl_tpu_torch.parallel.mesh import Mesh, batch_slice, distributed
 
 #: The five source files of a video, in ClipSources order.
 KINDS = ("points", "key_points", "temporal_source", "res30", "res10")
@@ -156,12 +158,25 @@ class CropLoader:
     the crop factory there with a generator seeded from (seed, epoch,
     batch index). ``shuffle``/``drop_last`` as the torch DataLoader of
     cn3d_train_apperance_GL.py:171; ``shuffle=False`` yields the videos
-    in the dataset's order, as the JAX loader does."""
+    in the dataset's order, as the JAX loader does.
+
+    With a data-parallel ``mesh`` every rank walks the same global
+    batches (the same shuffle) and reads and crops only its block
+    (``batch_slice``). A batch shorter than the mesh needs (a tail with
+    ``drop_last=False``, or a batch size that does not divide over dp) is
+    padded to ``ceil(batch_size / dp) * dp`` videos by repeating its first
+    (facl_tpu/data/dataset.py:243-257); labels and names stay the true
+    global batch's, so pad rows are computed and dropped. Each video's
+    crops are those one process draws for it (``transforms.BatchRows``:
+    the draws of the true batch, sliced to the rank's rows; a pad row takes
+    its first video's), so the ranks' crops differ, and the run is the one
+    process's run."""
 
     def __init__(self, dataset: NTUPointDataset, batch_size: int,
                  seed: int = 1, shuffle: bool = True, drop_last: bool = True,
                  prefetch: int = 2,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 mesh: Optional[Mesh] = None):
         self.ds = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -169,6 +184,15 @@ class CropLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.device = resolve_device(device)
+        self.mesh = mesh if distributed(mesh) else None
+
+    def _block(self, n: int) -> List[int]:
+        """Positions in a true batch of ``n`` videos of this rank's rows,
+        after padding with the first video to the mesh's batch."""
+        dp = self.mesh.dp
+        target = -(-self.batch_size // dp) * dp
+        padded = list(range(n)) + [0] * (target - n)
+        return padded[batch_slice(self.mesh, target)]
 
     def batch_indices(self, epoch: int) -> List[List[int]]:
         order = np.arange(len(self.ds))
@@ -200,6 +224,8 @@ class CropLoader:
             # issued by the main thread, on its current stream.
             try:
                 for idxs in batches:
+                    if self.mesh is not None:
+                        idxs = [idxs[j] for j in self._block(len(idxs))]
                     if not put(("batch", self.ds.load_batch(idxs, pin))):
                         return
                 put(("end", None))
@@ -220,6 +246,11 @@ class CropLoader:
                                      for f in srcs))
                 g = torch.Generator(device=self.device)
                 g.manual_seed(batch_seed(self.seed, epoch_idx, i))
+                if self.mesh is not None:
+                    true = batches[i]
+                    names, labels = self.ds._batch_meta(true)
+                    g = BatchRows(g, len(true), torch.tensor(
+                        self._block(len(true)), device=self.device))
                 yield make_crops_batch(g, srcs, self.ds.cfg), labels, names
         finally:
             stop.set()

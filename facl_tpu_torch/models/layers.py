@@ -24,6 +24,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from facl_tpu_torch.parallel.collectives import global_moments
+
 
 def lecun_normal_(t: torch.Tensor, fan_in: int,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -61,12 +63,16 @@ def apply_dense(lin: nn.Linear, x: torch.Tensor,
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the trailing channel axis, flax semantics."""
+    """BatchNorm over the trailing channel axis, flax semantics. With a
+    data-parallel ``mesh`` (parallel/mesh.py) the training statistics are
+    over every rank's rows, as JAX's on a dp mesh (SyncBN semantics)."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
-                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32,
+                 mesh=None):
         super().__init__()
         self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.mesh = mesh
         self.scale = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
@@ -77,9 +83,7 @@ class BatchNorm(nn.Module):
         if bf:
             x = x.float()
         if self.training:
-            flat = x.reshape(-1, x.shape[-1])
-            mean = flat.mean(0)
-            var = ((flat * flat).mean(0) - mean * mean).clamp_min(0.0)
+            mean, var = global_moments(x.reshape(-1, x.shape[-1]), self.mesh)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -98,14 +102,14 @@ class PointMLP(nn.Module):
     def __init__(self, in_features: int, widths: Sequence[int],
                  bn_momentum: float = 0.9,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         self.n, self.dtype = len(widths), dtype
         cin = in_features
         for i, w in enumerate(widths):
             setattr(self, f"dense_{i}", dense(cin, w, generator=generator))
             setattr(self, f"BatchNorm_{i}",
-                    BatchNorm(w, bn_momentum, dtype=dtype))
+                    BatchNorm(w, bn_momentum, dtype=dtype, mesh=mesh))
             cin = w
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -122,11 +126,12 @@ class EmbedHead(nn.Module):
     def __init__(self, in_features: int, hidden: int = 1024, out: int = 512,
                  bn_momentum: float = 0.9,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         self.dtype = dtype
         self.Dense_0 = dense(in_features, hidden, generator=generator)
-        self.BatchNorm_0 = BatchNorm(hidden, bn_momentum, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(hidden, bn_momentum, dtype=dtype,
+                                     mesh=mesh)
         self.Dense_1 = dense(hidden, out, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

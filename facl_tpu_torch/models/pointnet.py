@@ -12,6 +12,10 @@ pointnet.py:97-117: the grouped neighbourhoods (grouping stays f32) and
 the centers are cast to bf16, the SA stage, stage-2 MLP and head compute
 in bf16, the head outputs are cast to f32, and the prototype mapping runs
 in bf16 on the f32 ``x_nor`` and is cast to f32.
+
+``mesh`` (data parallelism, facl_tpu/models/pointnet.py:55-67): the
+encoder sees this rank's block of the batch; the SA stage, the stage-2
+MLP and the head take their BatchNorm statistics over every rank's rows.
 """
 from __future__ import annotations
 
@@ -38,20 +42,20 @@ class PointNetPlus(nn.Module):
     """Single-level set-abstraction encoder with local + global heads."""
 
     def __init__(self, cfg: ModelConfig,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         self.cfg = cfg = resolve_model_config(cfg)
         self.dtype = dtype = compute_dtype(cfg)
         self.sa_stage = SetAbstractionStage(
             cfg.in_features, cfg.sa_widths, cfg.bn_momentum,
             channels_first=cfg.channels_first, impl=cfg.sa_impl,
-            generator=generator, dtype=dtype)
+            generator=generator, dtype=dtype, mesh=mesh)
         self.stage2_mlp = PointMLP(3 + cfg.sa_widths[-1], cfg.stage2_widths,
                                    cfg.bn_momentum, generator=generator,
-                                   dtype=dtype)
+                                   dtype=dtype, mesh=mesh)
         self.head = EmbedHead(cfg.stage2_widths[-1], cfg.fc_hidden,
                               cfg.embed_dim, cfg.bn_momentum,
-                              generator=generator, dtype=dtype)
+                              generator=generator, dtype=dtype, mesh=mesh)
         # Prototype scores; no bias (cn3d_model_conbag.py:91).
         self.mapping = dense(cfg.embed_dim, cfg.num_prototypes, bias=False,
                              generator=generator)
@@ -85,6 +89,15 @@ class PointNetPlus(nn.Module):
         x_nor = l2_normalize(x, dim=1)
         code = apply_dense(self.mapping, x_nor, self.dtype)
         return x, code.float() if bf else code, x_nor, x_global
+
+    def local_grad_params(self):
+        """The parameters whose train-mode gradients are this rank's share
+        of the global loss, to be summed over the ranks: all of them, but
+        the SA stage's where its backward already returns them global
+        (``SetAbstractionStage.global_grads``: pair/pair3 under a mesh)."""
+        stage = set(map(id, self.sa_stage.parameters())) \
+            if self.sa_stage.global_grads else set()
+        return [p for p in self.parameters() if id(p) not in stage]
 
 
 #: ModelConfig.compute_dtype values the port runs.
@@ -144,10 +157,10 @@ def resolve_grouping(cfg: Config) -> GroupingConfig:
                      "pointnet_plus_fine or slow_fast")
 
 
-def resolve_model(cfg: Config, generator: Optional[torch.Generator] = None
-                  ) -> Tuple[PointNetPlus, GroupingConfig]:
+def resolve_model(cfg: Config, generator: Optional[torch.Generator] = None,
+                  mesh=None) -> Tuple[PointNetPlus, GroupingConfig]:
     """Encoder + effective grouping from ``cfg.model.name``. Parameters
     are made on the CPU from ``generator``; move the module to its device
     afterwards."""
     g = resolve_grouping(cfg)
-    return PointNetPlus(cfg.model, generator), g
+    return PointNetPlus(cfg.model, generator, mesh), g

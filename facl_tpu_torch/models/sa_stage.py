@@ -31,6 +31,15 @@ pair/pair3, and eval, transposes it to channels-last first
 reference (plain bf16), eval the bf16 reference, and the pooled output is
 bf16 (sa_stage.py:225); parameters and statistics stay f32. Every other
 impl raises NotImplementedError at bf16 in train mode, on every device.
+
+``mesh`` (data parallelism, parallel/mesh.py): the input is this rank's
+block of the batch and the train-mode statistics are over every rank's
+rows, as JAX's stage computes on a dp mesh (sa_stage.py:85-92,188-192).
+pair/pair3 sum their sweep accumulators over the ranks (B6s), so their
+parameter gradients come back global (``global_grads``); reference takes
+its moments by a differentiable sum over the ranks. The other impls raise
+NotImplementedError under a mesh with a process group (ROADMAP Queue 1
+item 21). Eval mode needs no collective (running statistics).
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ from facl_tpu_torch.ops.fused_sa import BF16, SALayerParams, \
 from facl_tpu_torch.ops.sa_bwd import sa_train_hybrid
 from facl_tpu_torch.ops.sa_fwd import _moments_from_gram, sa_train_pfwd
 from facl_tpu_torch.ops.sa_pair import sa_train_pair
+from facl_tpu_torch.parallel.mesh import distributed
 
 #: Train-mode implementations of the stage.
 IMPLS = ("reference", "covar", "analytic", "hybrid", "hybrid2", "pair",
@@ -56,6 +66,8 @@ IMPLS = ("reference", "covar", "analytic", "hybrid", "hybrid2", "pair",
 SWEEPS = ("hybrid", "hybrid2", "pair", "pair3")
 #: The train-mode impls with a bf16 form.
 BF16_IMPLS = ("pair3", "reference")
+#: The train-mode impls that run under data parallelism.
+DP_IMPLS = ("pair", "pair3", "reference")
 
 
 def covar_moments(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor):
@@ -76,12 +88,17 @@ class SetAbstractionStage(nn.Module):
                  channels_first: bool = True, impl: str = "pair3",
                  input_grad: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"unknown SA impl {impl!r}; expected one of "
                              f"{IMPLS}")
-        self.dtype = dtype
+        if distributed(mesh) and impl not in DP_IMPLS:
+            raise NotImplementedError(
+                f"sa impl {impl!r} under data parallelism (dp={mesh.dp}) is "
+                f"not ported (ROADMAP Queue 1 item 21); use one of "
+                f"{DP_IMPLS}")
+        self.dtype, self.mesh = dtype, mesh
         self.widths = tuple(widths)
         self.bn_momentum, self.epsilon = bn_momentum, epsilon
         self.channels_first = channels_first
@@ -99,6 +116,12 @@ class SetAbstractionStage(nn.Module):
             self.register_buffer(f"mean_{i}", torch.zeros(w))
             self.register_buffer(f"var_{i}", torch.ones(w))
             cin = w
+
+    @property
+    def global_grads(self) -> bool:
+        """True where the train-mode backward already sums its parameter
+        gradients over the ranks (pair/pair3 under a mesh, B6s)."""
+        return distributed(self.mesh) and self.impl in ("pair", "pair3")
 
     def layers(self):
         return tuple(SALayerParams(*(getattr(self, f"{n}_{i}") for n in
@@ -138,7 +161,7 @@ class SetAbstractionStage(nn.Module):
             x_cf = x if self.channels_first else x.permute(0, 3, 1, 2)
             pooled, stats = sa_train_pair(x_cf, layers, eps,
                                           slim=impl == "pair3",
-                                          dtype=self.dtype)
+                                          dtype=self.dtype, mesh=self.mesh)
         elif impl == "hybrid":
             pooled, stats = sa_train_hybrid(x, layers, eps)
         elif impl == "hybrid2":
@@ -155,7 +178,8 @@ class SetAbstractionStage(nn.Module):
                 if impl == "covar" else None
             pooled, stats, _, _ = sa_reference_4d(x, layers, eps,
                                                   moments=moments,
-                                                  dtype=self.dtype)
+                                                  dtype=self.dtype,
+                                                  mesh=self.mesh)
         m = self.bn_momentum
         with torch.no_grad():
             for (mean_b, var_b), (mean, var) in zip(self.running(), stats):

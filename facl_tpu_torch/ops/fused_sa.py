@@ -25,6 +25,8 @@ from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
+from facl_tpu_torch.parallel.collectives import global_moments
+
 
 class SALayerParams(NamedTuple):
     kernel: torch.Tensor   # (Cin, Cout)
@@ -97,7 +99,7 @@ def sa_eval_reference(x: torch.Tensor, layers: Sequence[SALayerParams],
 
 def sa_reference_4d(x: torch.Tensor, layers: Sequence[SALayerParams],
                     eps: float = 1e-5, running=None, moments=None,
-                    dtype: torch.dtype = torch.float32):
+                    dtype: torch.dtype = torch.float32, mesh=None):
     """The op sequence of facl_tpu/models/sa_stage.py::_reference_4d on
     (..., K, C0) neighbourhoods: per layer p = h W + b, its batch moments
     (reductions over every axis but the last, the variance clamped at 0;
@@ -109,7 +111,10 @@ def sa_reference_4d(x: torch.Tensor, layers: Sequence[SALayerParams],
     analytic paths (facl_tpu/ops/pallas/sa_bwd.py:351-373,
     facl_tpu/ops/analytic_sa.py:47-70). At ``dtype=torch.bfloat16`` the
     stage's bf16 form (module docstring): the reference impl and the eval
-    path at that compute dtype."""
+    path at that compute dtype. With ``mesh`` (data parallelism) the
+    batch moments are over every rank's rows
+    (parallel/collectives.py::global_moments), differentiable through the
+    sum over the ranks."""
     bf = dtype == BF16
     h = x.to(BF16) if bf else x
     stats, ps, hs = [], [], [h]
@@ -121,10 +126,7 @@ def sa_reference_4d(x: torch.Tensor, layers: Sequence[SALayerParams],
             mean, var = moments(h, lp)
         else:
             flat = p.reshape(-1, p.shape[-1])
-            if bf:
-                flat = flat.float()
-            mean = flat.mean(0)
-            var = ((flat * flat).mean(0) - mean * mean).clamp_min(0.0)
+            mean, var = global_moments(flat.float() if bf else flat, mesh)
         stats.append((mean, var))
         mul = torch.rsqrt(var + eps) * lp.scale
         shift = lp.shift - mean * mul

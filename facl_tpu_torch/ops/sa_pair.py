@@ -42,6 +42,20 @@ yet and raises.
 
 Input cotangent contract: ZERO (facl_tpu/ops/pallas/sa_pair.py:67-68) —
 the grouped neighbourhoods are data in the training step.
+
+Under data parallelism (``mesh``, parallel/mesh.py) each rank runs the same
+sweeps on its own block of the batch, and between the sweeps the
+accumulators are summed over the ranks (B6s, the counterpart of
+facl_tpu/ops/pallas/sa_pair.py::make_sharded_pair :1064-1156, whose
+``jax.lax.psum``s over ``axis_name`` sit at :590-594 and :744-753): one
+float64 all_reduce per barrier (parallel/collectives.py::psum_packed),
+three in the forward (Gram(x) and colsum(x); the sums of p2 and p2^2;
+Gram(h2) and colsum(h2)) and three in pair3's backward (A3, u3; A2, G1, u2,
+ch1; A1, u1), two in pair's (A3, u3; B6's accumulators). The statistics
+are then global, and so are the returned parameter gradients, the same on
+every rank (JAX's ``out_specs=P()``): they must not be summed over the
+ranks again. Row outputs (p2, the pool indices, the pooled rows) stay per
+rank.
 """
 from __future__ import annotations
 
@@ -56,6 +70,8 @@ from facl_tpu_torch.ops.fused_sa import SALayerParams, reject_bf16
 from facl_tpu_torch.ops.sa_bwd import _fold_affine, _h_from_p, \
     _launch_sweep2, _layer1_terms, _layer_terms, _sweep2_plain
 from facl_tpu_torch.ops.sa_fwd import _finalize, _moments_from_gram
+from facl_tpu_torch.parallel.collectives import psum_packed
+from facl_tpu_torch.parallel.mesh import distributed
 
 
 # -- plain twins --------------------------------------------------------
@@ -495,32 +511,42 @@ def _sweeps(dtype):
 
 # -- the stage ----------------------------------------------------------
 
+def _rows_n(x3: torch.Tensor, mesh) -> int:
+    """The BatchNorm row count: this rank's rows times the ranks
+    (facl_tpu/ops/pallas/sa_pair.py:591, ``R * psum(1)``)."""
+    n = x3.shape[0] * x3.shape[2]
+    return n * mesh.dp if distributed(mesh) else n
+
+
 def sa_forward_pair(x3: torch.Tensor, layers: Sequence[SALayerParams],
-                    pool: int, eps: float, dtype=torch.float32):
+                    pool: int, eps: float, dtype=torch.float32, mesh=None):
     """Forward of the stage. x3: (B, C0, N) channel-major rows, ``pool``
     consecutive rows per output row, stored in ``dtype`` (bf16 runs the
-    bf16 sweeps; any other dtype the f32 form). Returns (pooled (R //
-    pool, C3) in x3's dtype, stats [(mean, var)] x 3 in f32, residuals for
-    :func:`sa_backward_pair`)."""
+    bf16 sweeps; any other dtype the f32 form). With ``mesh`` the BatchNorm
+    statistics are over every rank's rows (module docstring). Returns
+    (pooled (R // pool, C3) in x3's dtype, stats [(mean, var)] x 3 in f32,
+    residuals for :func:`sa_backward_pair`)."""
     bf = dtype == BF16
     fwd12, gram_pool = _sweeps(dtype)[:2]
     lp1, lp2, lp3 = layers
-    n = x3.shape[0] * x3.shape[2]
+    n = _rows_n(x3, mesh)
     # The layer-1 moments from Gram(x) in f32 (of the bf16 x at bf16), as
     # XLA computes them outside the kernels (sa_pair.py:601-632).
     xg = x3.float() if bf else x3
-    Gx = torch.einsum("bcn,bdn->cd", xg, xg)
-    cx = xg.sum((0, 2))
+    Gx, cx = psum_packed([torch.einsum("bcn,bdn->cd", xg, xg),
+                          xg.sum((0, 2))], mesh)
     mean1, var1 = _moments_from_gram(Gx, cx, lp1.kernel, lp1.bias, n)
     mul1, shift1 = _fold_affine(lp1, mean1, var1, eps)
 
     p2, s2, ss2 = fwd12(x3, lp1.kernel, lp1.bias, mul1, shift1, lp2.kernel,
                         lp2.bias)
+    s2, ss2 = psum_packed([s2, ss2], mesh)
     mean2, var2 = _finalize(s2, ss2, n)
     mul2, shift2 = _fold_affine(lp2, mean2, var2, eps)
 
     G2, ch2, mx, mn, imx, imn = gram_pool(p2, mul2, shift2, lp3.kernel,
                                           lp3.bias, pool)
+    G2, ch2 = psum_packed([G2, ch2], mesh)
     mean3, var3 = _moments_from_gram(G2, ch2, lp3.kernel, lp3.bias, n)
     mul3, shift3 = _fold_affine(lp3, mean3, var3, eps)
 
@@ -543,18 +569,21 @@ def sa_forward_pair(x3: torch.Tensor, layers: Sequence[SALayerParams],
 
 
 def sa_backward_pair(x3, layers, stats, res, dpooled, pool: int,
-                     eps: float, slim: bool = True, dtype=torch.float32):
+                     eps: float, slim: bool = True, dtype=torch.float32,
+                     mesh=None):
     """The backward of the stage (facl_tpu/ops/pallas/sa_pair.py:711-947):
     B3's sweep 1, then the slim sweeps 2 and 3 (``slim``, pair3) or B6 and
     layer 1 in closed form from its third-order moments (pair). At bf16
-    (pair3 only) the bf16 sweeps, dpooled the bf16 cotangent. Returns
+    (pair3 only) the bf16 sweeps, dpooled the bf16 cotangent. With
+    ``mesh`` each sweep's accumulators are summed over the ranks before
+    the layer algebra reads them, so the gradients are global. Returns
     ((dW, db, dgamma, dbeta) per layer) in f32."""
     if not slim:
         reject_bf16(dtype, "pair")
     _, _, sweep1, sweep2, sweep3 = _sweeps(dtype)
     lp1, lp2, lp3 = layers
     (mean1, var1), (mean2, var2), (mean3, var3) = stats
-    n = x3.shape[0] * x3.shape[2]
+    n = _rows_n(x3, mesh)
     gi2 = lp2.scale * torch.rsqrt(var2 + eps)
     gi3 = lp3.scale * torch.rsqrt(var3 + eps)
     mul1, shift1 = res["mul1"], res["shift1"]
@@ -562,19 +591,23 @@ def sa_backward_pair(x3, layers, stats, res, dpooled, pool: int,
 
     A3, u3, q3 = sweep1(res["p2"], mul2, shift2, dpooled.contiguous(),
                         res["idx"], gi3, lp3.kernel, pool)
+    A3, u3 = psum_packed([A3, u3], mesh)
     t3 = _layer_terms(A3, u3, lp3, mean3, var3, res["G2"], res["ch2"], n,
                       eps)
     args2 = (x3, lp1.kernel, lp1.bias, mul1, shift1, res["p2"], mul2, shift2,
              q3, t3["M"].contiguous(), t3["rc"], gi2, lp2.kernel)
     if slim:
         A2, G1, u2, ch1, mq = sweep2(*args2)
+        A2, G1, u2, ch1 = psum_packed([A2, G1, u2, ch1], mesh)
         t2 = _layer_terms(A2, u2, lp2, mean2, var2, G1, ch1, n, eps)
         A1, u1 = sweep3(x3, lp1.kernel, lp1.bias, mul1, shift1, mq,
                         t2["M"].contiguous(), t2["rc"])
+        A1, u1 = psum_packed([A1, u1], mesh)
         t1 = _layer_terms(A1, u1, lp1, mean1, var1, res["Gx"], res["cx"], n,
                           eps)
     else:
         m = sa_bwd_sweep2_full(*args2)
+        m = dict(zip(m, psum_packed(list(m.values()), mesh)))
         t2 = _layer_terms(m["A2"], m["u2"], lp2, mean2, var2, m["G1"],
                           m["ch1"], n, eps)
         t1 = _layer1_terms(m, t2, lp1, mean1, var1, n, eps)
@@ -582,18 +615,18 @@ def sa_backward_pair(x3, layers, stats, res, dpooled, pool: int,
 
 
 class _Pair(torch.autograd.Function):
-    """pooled, *stats = f(x_cf, eps, slim, dtype, *12 layer tensors). Stats
-    carry no gradient (they feed the running-statistics update); the input
-    cotangent is zero by contract."""
+    """pooled, *stats = f(x_cf, eps, slim, dtype, mesh, *12 layer tensors).
+    Stats carry no gradient (they feed the running-statistics update); the
+    input cotangent is zero by contract."""
 
     @staticmethod
-    def forward(ctx, x_cf, eps, slim, dtype, *flat):
+    def forward(ctx, x_cf, eps, slim, dtype, mesh, *flat):
         layers = [SALayerParams(*flat[4 * i:4 * i + 4]) for i in range(3)]
         Bv, C0, S, K = x_cf.shape
         x3 = x_cf.reshape(Bv, C0, S * K)
-        pooled, stats, res = sa_forward_pair(x3, layers, K, eps, dtype)
+        pooled, stats, res = sa_forward_pair(x3, layers, K, eps, dtype, mesh)
         ctx.eps, ctx.pool, ctx.slim, ctx.x_shape = eps, K, slim, x_cf.shape
-        ctx.dtype = dtype
+        ctx.dtype, ctx.mesh = dtype, mesh
         keys = sorted(res)
         ctx.res_keys = keys
         ctx.save_for_backward(x3, *flat, *(m for s in stats for m in s),
@@ -614,37 +647,45 @@ class _Pair(torch.autograd.Function):
         C3 = dpooled.shape[-1]
         grads = sa_backward_pair(x3, layers, stats, res,
                                  dpooled.reshape(-1, C3), ctx.pool, ctx.eps,
-                                 ctx.slim, ctx.dtype)
+                                 ctx.slim, ctx.dtype, ctx.mesh)
         flat_grads = [g for layer in grads for g in layer]
         return (torch.zeros(ctx.x_shape, dtype=x3.dtype, device=x3.device),
-                None, None, None, *flat_grads)
+                None, None, None, None, *flat_grads)
 
 
 def sa_train_pair(x_cf: torch.Tensor, layers: Sequence[SALayerParams],
                   eps: float = 1e-5, slim: bool = False,
-                  dtype=torch.float32) -> Tuple[torch.Tensor, list]:
+                  dtype=torch.float32, mesh=None
+                  ) -> Tuple[torch.Tensor, list]:
     """Train-mode SA stage on channel-major neighbourhoods x_cf (B, C0, S,
     K), max-pooled over K: ``sa_impl="pair"`` (B6 backward), or "pair3"
     with ``slim``. ``dtype=torch.bfloat16`` (pair3 only; pair raises)
     runs the bf16 sweeps on x_cf cast to bf16; the pooled output is then
-    bf16. Returns (pooled
+    bf16. With ``mesh`` x_cf is this rank's block and the statistics and
+    parameter gradients are global (B6s, module docstring); the rank's
+    batch row count must be even, as make_sharded_pair asks
+    (facl_tpu/ops/pallas/sa_pair.py:1121-1138). Returns (pooled
     (B, S, C3), [(mean, var)] x 3). Differentiable in every layer
     parameter; the input cotangent is ZERO."""
     if len(layers) != 3:
         raise ValueError("the pair stage is specialised to 3 layers")
+    if distributed(mesh) and x_cf.shape[0] % 2:
+        raise ValueError(f"pair stage under dp={mesh.dp}: this rank's "
+                         f"batch row count {x_cf.shape[0]} must be even")
     if dtype == BF16:
         if not slim:
             reject_bf16(dtype, "pair")
         x_cf = x_cf.to(BF16)
     flat = [t for lp in layers for t in lp]
-    out = _Pair.apply(x_cf.contiguous(), eps, slim, dtype, *flat)
+    out = _Pair.apply(x_cf.contiguous(), eps, slim, dtype, mesh, *flat)
     pooled, st = out[0], out[1:]
     return pooled, [(st[0], st[1]), (st[2], st[3]), (st[4], st[5])]
 
 
 def sa_train_pair3(x_cf: torch.Tensor, layers: Sequence[SALayerParams],
-                   eps: float = 1e-5, dtype=torch.float32
+                   eps: float = 1e-5, dtype=torch.float32, mesh=None
                    ) -> Tuple[torch.Tensor, list]:
     """``sa_impl="pair3"``: :func:`sa_train_pair` with the slim 3-sweep
     backward (B3)."""
-    return sa_train_pair(x_cf, layers, eps, slim=True, dtype=dtype)
+    return sa_train_pair(x_cf, layers, eps, slim=True, dtype=dtype,
+                         mesh=mesh)

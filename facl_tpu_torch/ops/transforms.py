@@ -8,12 +8,38 @@ device, independently per cloud: the JAX package vmaps its crop factory
 over videos (facl_tpu/data/crops.py:152), so each video gets its own
 draw there too. torch and JAX draw different numbers; the distributions
 and the arithmetic are the same.
+
+Where ``g`` is a :class:`BatchRows`, each draw is that of a larger batch
+sliced to this one's rows: a data-parallel rank that holds some videos of
+a global batch then draws, for each, what one process holding the whole
+batch draws (data/dataset.py::CropLoader with a mesh).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+class BatchRows:
+    """A generator for some rows of a larger batch: every draw is made at
+    the shape of the full ``batch`` from ``generator`` (so the generator
+    advances as for the full batch), then ``rows`` (a LongTensor of
+    positions in it, on the draw's device) are kept."""
+
+    def __init__(self, generator: torch.Generator, batch: int,
+                 rows: torch.Tensor):
+        self.generator, self.batch, self.rows = generator, batch, rows
+
+
+def _draw(g, sample, shape, device, **kw) -> torch.Tensor:
+    """``sample(shape, generator=, device=)`` of a batch-leading shape,
+    through ``BatchRows`` where ``g`` is one."""
+    if isinstance(g, BatchRows):
+        full = sample((g.batch, *shape[1:]), generator=g.generator,
+                      device=device, **kw)
+        return full[g.rows]
+    return sample(tuple(shape), generator=g, device=device, **kw)
 
 
 def _rot_y(angle: torch.Tensor) -> torch.Tensor:
@@ -35,14 +61,14 @@ def _rotate(points: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
 
 def _uniform(g: torch.Generator, shape, low: float, high: float,
              device) -> torch.Tensor:
-    return low + (high - low) * torch.rand(shape, generator=g, device=device)
+    return low + (high - low) * _draw(g, torch.rand, shape, device)
 
 
 def jitter(g: torch.Generator, points: torch.Tensor, sigma: float = 0.01,
            clip: float = 0.05) -> torch.Tensor:
     """Per-point gaussian xyz jitter, clipped to +-clip."""
-    noise = (sigma * torch.randn(points[..., :3].shape, generator=g,
-                                 device=points.device)).clamp(-clip, clip)
+    noise = (sigma * _draw(g, torch.randn, points[..., :3].shape,
+                           points.device)).clamp(-clip, clip)
     return _with_xyz(points, points[..., :3] + noise)
 
 
@@ -61,7 +87,7 @@ def reverse_transform(g: torch.Generator, points: torch.Tensor,
 def rotate_y_random(g: torch.Generator, points: torch.Tensor,
                     rotate_range: float = 0.8) -> torch.Tensor:
     """Per-cloud y rotation by (U - 0.5) * pi * rotate_range."""
-    u = torch.rand(points.shape[0], generator=g, device=points.device)
+    u = _draw(g, torch.rand, points.shape[:1], points.device)
     return _rotate(points, _rot_y((u - 0.5) * math.pi * rotate_range))
 
 
@@ -75,7 +101,7 @@ def rotate_y_fixed(points: torch.Tensor, angle_set: float) -> torch.Tensor:
 def rotate_y_uniform(g: torch.Generator, points: torch.Tensor
                      ) -> torch.Tensor:
     """Per-cloud y rotation by U[0, 2 pi)."""
-    u = torch.rand(points.shape[0], generator=g, device=points.device)
+    u = _draw(g, torch.rand, points.shape[:1], points.device)
     return _rotate(points, _rot_y(u * 2.0 * math.pi))
 
 
@@ -84,7 +110,7 @@ def rotate_perturbation(g: torch.Generator, points: torch.Tensor,
                         angle_clip: float = 0.18) -> torch.Tensor:
     """Small random rotations about x, y and z, R = Rz @ Ry @ Rx."""
     B, dev = points.shape[0], points.device
-    ang = (angle_sigma * torch.randn(B, 3, generator=g, device=dev)).clamp(
+    ang = (angle_sigma * _draw(g, torch.randn, (B, 3), dev)).clamp(
         -angle_clip, angle_clip)
     c, s = torch.cos(ang), torch.sin(ang)
     z, o = torch.zeros(B, device=dev), torch.ones(B, device=dev)
@@ -145,8 +171,8 @@ def resample(g: torch.Generator, points: torch.Tensor, num_out: int
              ) -> torch.Tensor:
     """``num_out`` rows of each cloud, uniformly with replacement."""
     B, N = points.shape[:2]
-    idx = torch.randint(0, N, (B, num_out), generator=g,
-                        device=points.device)
+    idx = _draw(g, lambda shape, **kw: torch.randint(0, N, shape, **kw),
+                (B, num_out), points.device)
     return _take(points, idx)
 
 
@@ -165,8 +191,8 @@ def masked_resample(g: torch.Generator, points: torch.Tensor,
                        torch.ones_like(keep))
     cum = keep.to(torch.int64).cumsum(-1)                      # (B, N)
     count = cum[:, -1:]
-    u = torch.rand(B, num_out, generator=g, device=points.device,
-                   dtype=torch.float64)
+    u = _draw(g, torch.rand, (B, num_out), points.device,
+              dtype=torch.float64)
     r = torch.minimum((u * count).to(torch.int64), count - 1)
     idx = torch.searchsorted(cum, r, right=True)
     return _take(points, idx)

@@ -12,6 +12,10 @@ read with ``weights_only=True``. The LR schedule is a closure
 (``LambdaLR``), which a state dict does not keep: the target's scheduler,
 built from the config, keeps its closure and takes the saved counters,
 so the learning rate after a resume equals an uninterrupted run's.
+
+Under data parallelism (``mesh``) the ranks hold the same state: rank 0
+writes, and every rank waits at a barrier until the files are in place;
+every rank restores the same files.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from typing import Optional
 
 import torch
 
+from facl_tpu_torch.parallel.collectives import barrier
+from facl_tpu_torch.parallel.mesh import Mesh
 from facl_tpu_torch.train.state import TrainState
 
 PREFIX, SUFFIX = "ckpt_epoch_", ".pt"
@@ -46,15 +52,19 @@ def _payload(state: TrainState) -> dict:
 
 
 def save_checkpoint(directory: str, state: TrainState, epoch: int,
-                    keep: int = 20) -> str:
-    os.makedirs(directory, exist_ok=True)
+                    keep: int = 20, mesh: Optional[Mesh] = None) -> str:
+    """Write ``state`` as epoch ``epoch``'s checkpoint (rank 0 only under
+    a ``mesh``; the others wait for it). Returns its path."""
     path = os.path.join(directory, f"{PREFIX}{epoch:05d}{SUFFIX}")
-    _atomic_write(directory, path,
-                  lambda f: torch.save(_payload(state), f))
-    index = {"latest_epoch": epoch, "latest": os.path.basename(path)}
-    _atomic_write(directory, os.path.join(directory, "index.json"),
-                  lambda f: f.write(json.dumps(index).encode()))
-    _prune(directory, keep)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(directory, exist_ok=True)
+        _atomic_write(directory, path,
+                      lambda f: torch.save(_payload(state), f))
+        index = {"latest_epoch": epoch, "latest": os.path.basename(path)}
+        _atomic_write(directory, os.path.join(directory, "index.json"),
+                      lambda f: f.write(json.dumps(index).encode()))
+        _prune(directory, keep)
+    barrier(mesh)
     return path
 
 

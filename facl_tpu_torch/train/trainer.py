@@ -20,10 +20,22 @@ resolves to one of them): the SA stage, stage-2 MLP and head compute in
 bf16; parameters, Adam state, losses and BatchNorm statistics stay f32
 (models/pointnet.py).
 
+Data parallelism (``mesh``, facl_tpu/train/trainer.py:90-229 on a dp
+mesh): every rank groups and encodes its own block of the batch (grouping
+is row-independent), with BatchNorm statistics over every rank's rows;
+``gather_negatives`` builds the global embeddings in rank order, every
+rank computes the global loss (the same value on each), and the
+gradients are summed over the ranks, but for those the pair/pair3 stage
+already returns global (B6s). The circle loss's permutation is rank 0's.
+
+``TrainConfig.split_step`` runs JAX's step as two programs to halve one
+program's scratch arena, with identical math (trainer.py:96-108). Eager
+torch has no program to split: the step is the same one, and a mesh with
+more than one rank raises ValueError, as JAX does (:110-113).
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-SwAV and CLD (Queue 1 item 15), the two-program ``split_step`` (a JAX
-scratch-arena workaround, Queue 1 item 17), and bf16 with any other
-``sa_impl`` (Queue 1 item 19).
+SwAV and CLD (Queue 1 item 15), and bf16 with any other ``sa_impl``
+(Queue 1 item 19).
 """
 from __future__ import annotations
 
@@ -43,16 +55,19 @@ from facl_tpu_torch.ops.fused_sa import reject_bf16
 from facl_tpu_torch.ops.grouping import group_points, \
     resolve_gather_impl, resolve_select_impl
 from facl_tpu_torch.train.optim import make_optimizer
+from facl_tpu_torch.parallel.collectives import broadcast, \
+    gather_negatives, psum_grads
+from facl_tpu_torch.parallel.mesh import Mesh, distributed
 from facl_tpu_torch.train.state import TrainState
 
 
-def _reject_unported(cfg: Config) -> None:
+def _reject_unported(cfg: Config, mesh: Optional[Mesh] = None) -> None:
     if cfg.loss.use_swav or cfg.loss.use_cld:
         raise NotImplementedError("SwAV / CLD losses are not ported yet "
                                   "(ROADMAP Queue 1 item 15)")
-    if cfg.train.split_step:
-        raise NotImplementedError("split_step is not ported yet (ROADMAP "
-                                  "Queue 1 item 17)")
+    if cfg.train.split_step and mesh is not None and mesh.dp > 1:
+        raise ValueError("split_step targets single-device large-batch "
+                         "runs; use the fused step under a mesh")
     dtype = compute_dtype(cfg.model)
     impl = resolve_model_config(cfg.model).sa_impl
     if impl not in BF16_IMPLS:
@@ -77,14 +92,18 @@ def make_grouping_fn(g_cfg: GroupingConfig, layout: str = "bcsk"
 
 
 def make_train_step(cfg: Config, grouping: Optional[GroupingConfig] = None,
-                    device: Union[str, torch.device] = "cuda") -> Callable:
+                    device: Union[str, torch.device] = "cuda",
+                    mesh: Optional[Mesh] = None) -> Callable:
     """step(state, points, perm=None, generator=None) -> (state, metrics).
 
-    points: (G, B, N, C) crop-major batch (moved to ``device``). perm:
-    the circle loss's crop permutation (G,); drawn with ``generator``
-    when not given. Metrics are detached 0-d tensors on the device."""
+    points: (G, B, N, C) crop-major batch (moved to ``device``); with a
+    ``mesh``, this rank's block of the global batch (``batch_slice``) and
+    ``state.model`` built on the same mesh. perm: the circle loss's crop
+    permutation (G,); drawn with ``generator`` when not given (rank 0's
+    under a mesh). Metrics are detached 0-d tensors on the device, the
+    global loss under a mesh."""
     device = resolve_device(device)
-    _reject_unported(cfg)
+    _reject_unported(cfg, mesh)
     g_cfg = grouping or cfg.grouping
     l_cfg = cfg.loss
     layout = "bcsk" if resolve_model_config(cfg.model).channels_first \
@@ -103,6 +122,10 @@ def make_train_step(cfg: Config, grouping: Optional[GroupingConfig] = None,
         model = state.model
         model.train()
         x, code, x_nor, x_global = model(neigh, cent)
+        # The global batch in rank order, this rank's block differentiable.
+        x = gather_negatives(x, mesh)
+        x_global = gather_negatives(x_global, mesh)
+        B = x_global.shape[0]
         xg = x.reshape(B, G, -1).transpose(0, 1)               # (G, B, D)
         loss = torch.zeros((), device=device)
         metrics: Dict[str, torch.Tensor] = {}
@@ -113,12 +136,15 @@ def make_train_step(cfg: Config, grouping: Optional[GroupingConfig] = None,
         if l_cfg.use_circle:
             if perm is None:
                 perm = torch.randperm(G, generator=generator)
+            if distributed(mesh):
+                perm = broadcast(perm.to(device, copy=True), mesh)
             lcir = circle_infonce(xg, perm)
             metrics["loss_circle"] = lcir.detach()
             loss = loss + lcir
         metrics["loss"] = loss.detach()
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        psum_grads(model.local_grad_params(), mesh)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
@@ -158,16 +184,21 @@ def make_eval_step(model: torch.nn.Module, cfg: Config,
 
 
 class Trainer:
-    """Build the model, optimizer and step for ``cfg``; run epochs."""
+    """Build the model, optimizer and step for ``cfg``; run epochs. With
+    a ``mesh`` the model and step are data parallel (module docstring);
+    each batch is then this rank's block."""
 
     def __init__(self, cfg: Config, steps_per_epoch: int,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
-        _reject_unported(cfg)
+        _reject_unported(cfg, mesh)
         self.cfg = cfg.replace(model=resolve_model_config(cfg.model))
         self.steps_per_epoch = steps_per_epoch
+        self.mesh = mesh
         self.g_cfg = resolve_grouping(self.cfg)
-        self.step_fn = make_train_step(self.cfg, self.g_cfg, self.device)
+        self.step_fn = make_train_step(self.cfg, self.g_cfg, self.device,
+                                       mesh)
 
     def init_state(self, seed: Union[int, torch.Generator] = 0
                    ) -> TrainState:
@@ -176,7 +207,7 @@ class Trainer:
         schedule at update 0."""
         gen = seed if isinstance(seed, torch.Generator) else \
             torch.Generator().manual_seed(int(seed))
-        model, _ = resolve_model(self.cfg, gen)
+        model, _ = resolve_model(self.cfg, gen, self.mesh)
         model = model.to(self.device)
         opt, sched = make_optimizer(model.parameters(), self.cfg.train.optim,
                                     self.steps_per_epoch)
@@ -191,9 +222,10 @@ class Trainer:
         device_metrics = []
         clips = 0
         t0 = time.perf_counter()
+        dp = self.mesh.dp if self.mesh is not None else 1
         for i, points in enumerate(batches):
             state, metrics = self.step_fn(state, points, generator=generator)
-            clips += points.shape[1]
+            clips += points.shape[1] * dp
             device_metrics.append(metrics)
             if log_fn is not None and i % self.cfg.train.log_every_steps == 0:
                 m = {k: float(v) for k, v in metrics.items()}

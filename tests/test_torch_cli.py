@@ -81,15 +81,21 @@ def test_pretrain_resume_extract_probe(cli_root, tiny_cfg_file, tmp_path,
     assert 0.0 <= best["top1"] <= 100.0
 
 
-def test_cli_errors(cli_root, tiny_cfg_file, tmp_path):
+def test_cli_errors(cli_root, tiny_cfg_file, tmp_path, monkeypatch):
     from facl_tpu_torch.cli import extract, pretrain
     root, _ = cli_root
     common = ["--root", root, "--config", tiny_cfg_file, "--device", "cpu"]
     with pytest.raises(SystemExit, match="no checkpoint"):
         extract.main(common + ["--checkpoint", str(tmp_path / "none"),
                                "--out", str(tmp_path / "f")])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        pretrain.main(common + ["--mesh", "--out", str(tmp_path / "c")])
+    # --mesh with nccl (the default backend) on more ranks than cards:
+    # raised before any rendezvous, never a silent switch to gloo.
+    with monkeypatch.context() as m:
+        for k, v in (("WORLD_SIZE", "2"), ("LOCAL_WORLD_SIZE", "2"),
+                     ("RANK", "0"), ("LOCAL_RANK", "0")):
+            m.setenv(k, v)
+        with pytest.raises(RuntimeError, match="nccl needs one CUDA device"):
+            pretrain.main(common + ["--mesh", "--out", str(tmp_path / "c")])
     with pytest.raises(SystemExit, match="fewer than --batch-size"):
         pretrain.main(common + ["--batch-size", "64",
                                 "--out", str(tmp_path / "c")])
