@@ -5,11 +5,12 @@ every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py             # needs one CUDA device
     python3 chip_smoke.py --profile   # + a torch.profiler breakdown of
                                       #   one main-path step
-    python3 chip_smoke.py --parent DIR  # + B1, B2a, B2b, B3a, B3b and
-                                        #   B3c of the tree in DIR (a git
-                                        #   archive of another commit)
-                                        #   timed against this tree's, in
-                                        #   turns, their outputs bit-equal
+    python3 chip_smoke.py --parent DIR  # + B1, B2a, B2b, B3a, B3b, B3c
+                                        #   and the f32 B6, B7 and B8 of
+                                        #   the tree in DIR (a git archive
+                                        #   of another commit) timed
+                                        #   against this tree's, in turns,
+                                        #   their outputs bit-equal
 
 Phases (any failure exits nonzero, before the final line):
   1. build   every kernel from facl_tpu_torch/ops/csrc (one nvcc per
@@ -47,7 +48,9 @@ Phases (any failure exits nonzero, before the final line):
              1e-3 of the entries; the counts printed), pool indices
              outside bf16 near-ties, f32 accumulators within 1e-3 of their
              max-abs, run to run bit-identical; timed, with bounds at bf16
-             bytes or one TF32 pass per product. Then
+             bytes or the bf16 tensor-core rate per product; B6, B7 and
+             B8 at bf16 alike, their accumulators within ACC2_BAR of
+             their max-abs and cnt1 exact (two_sweep_bf16_rows). Then
              the whole SA stage (forward + backward) of each sa_impl with
              kernels (pair3, pair, hybrid2, hybrid, pallas, and pair3 at
              bf16) at K=64 and K=128 on the same inputs as kernels, twins
@@ -97,8 +100,8 @@ Phases (any failure exits nonzero, before the final line):
              (50 epochs), timed (phase_pipeline).
   7. dp      data parallelism (B6s) on the one card: ranks started by
              facl_tpu_torch.parallel.spawn, two gloo ranks sharing the card
-             (NCCL takes one card a rank). (a) the pair3 SA stage (f32 and
-             bf16) and pair at bench.py's batch (B=64, 32 a rank) against
+             (NCCL takes one card a rank). (a) the pair3 and pair SA stages
+             (f32 and bf16) at bench.py's batch (B=64, 32 a rank) against
              the one-process stage on the same card tensors: gradients
              equal on both ranks; f32: statistics at rtol 1e-5 / 1e-4,
              gradients at relative L2 1e-2, and at max-abs 2e-4 of their
@@ -109,14 +112,16 @@ Phases (any failure exits nonzero, before the final line):
              rank one launch of each sweep and 3 + 3 B6s all-reduces (3 +
              2 for pair), timed and counted in bytes; which collectives
              gloo takes on CUDA tensors. (b) the Trainer step, pair3 f32
-             and bf16 and reference bf16 at B=64, against one process from
-             the same weights, points and permutation: f32 loss at rtol
-             2e-4, gradients before Adam at phase 3's bars (flips counted
-             over the ranks' decisions in the one process's row order),
-             running statistics at rtol 1e-3 / atol 1e-5; bf16 loss at
-             rtol 2e-3, reference's loss and running statistics at the
-             f32 bars of the one process rounding as two ranks
-             (_as_two_halves), loss, statistics and gradients no farther
+             and bf16, pair bf16 and reference bf16 at B=64, against one
+             process from the same weights, points and permutation: f32
+             loss at rtol 2e-4, gradients before Adam at phase 3's bars
+             (flips counted over the ranks' decisions in the one process's
+             row order), running statistics at rtol 1e-3 / atol 1e-5; bf16
+             loss at rtol 2e-3, loss and running statistics at the f32
+             bars of the one process rounding as two ranks
+             (tests/torch_two_halves.py: the GEMMs and BatchNorm sums
+             split and summed as the ranks do, the pair stage run as two
+             ranks in two threads), loss, statistics and gradients no farther
              from the f32 step than twice the one process's, and the
              witnesses printed (_dp_bf16_step); parameters bit-equal
              across the ranks after 3 steps; each collective and kernel
@@ -140,6 +145,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import io
 import json
 import math
@@ -152,9 +158,10 @@ import time
 import torch
 
 # H100 SXM (NVIDIA data sheet, dense, at the 700 W limit): f32 on CUDA
-# cores, TF32 on tensor cores and HBM3 bandwidth.
+# cores, TF32 and bf16 on tensor cores and HBM3 bandwidth.
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 SEED = 0
 
@@ -231,10 +238,12 @@ def device_ms(fn, n: int = 20):
 def bound(nbytes: float, ops: float, tc_ops: float = 0.0, passes: int = 3):
     """(ms, "bytes" or "operations"): the larger of bytes over the memory
     rate and the operations over their peak rates — ``ops`` f32 on CUDA
-    cores, ``tc_ops`` (f32-equivalent product flops) on tensor cores in
-    ``passes`` TF32 passes each (3xTF32, or B2a's 6xTF32)."""
+    cores, ``tc_ops`` (product flops) on tensor cores in ``passes`` TF32
+    passes each (3xTF32, or B2a's 6xTF32), or with ``passes=0`` once at
+    the bf16 rate (bf16 operands, f32 accumulation)."""
     tb = nbytes / PEAK_BYTES * 1e3
-    to = (ops / PEAK_F32 + passes * tc_ops / PEAK_TF32) * 1e3
+    tc = passes * tc_ops / PEAK_TF32 if passes else tc_ops / PEAK_BF16
+    to = (ops / PEAK_F32 + tc) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -356,7 +365,7 @@ def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3", dtype=None):
     """The whole SA stage of ``impl`` — forward, then the backward for a
     given pooled cotangent — three times on the same card inputs:
     kernels (f32), twins (f32) and twins in float64 (``dtype=
-    torch.bfloat16``, pair3: the bf16 kernels and the bf16 twins, on x and
+    torch.bfloat16``: the bf16 kernels and the bf16 twins, on x and
     dpooled rounded to bf16, which the float64 chain takes too). Every
     output (pooled, stats, gradients; not the BN-absorbed biases) must be as
     close to float64 as the twins are: relative L2 error at most
@@ -390,7 +399,10 @@ def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3", dtype=None):
             res = dict(packed=packed)
         else:
             f = SF.sa_forward_4sweep if impl == "hybrid2" else SB._forward_ps
-            pooled, stats, p1, p2 = f(rows.to(dt), L, pool, 1e-5)
+            if dt == torch.float32:
+                pooled, stats, p1, p2 = f(rows.to(low), L, pool, 1e-5, low)
+            else:
+                pooled, stats, p1, p2 = f(rows.to(dt), L, pool, 1e-5)
             res = dict(p1=p1, p2=p2)
         outs = {"pooled": pooled}
         for i, (m, v) in enumerate(stats, 1):
@@ -408,8 +420,10 @@ def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3", dtype=None):
             outs["dx"], grads = SK.sa_train_backward_unified(
                 rows.to(dt), L, res["packed"], route.to(dt), pool)
         else:
-            grads = SB.sa_backward_2sweep(rows.to(dt), res["p1"], res["p2"],
-                                          L, stats, route.to(dt), pool, 1e-5)
+            k = dt == torch.float32
+            grads = SB.sa_backward_2sweep(
+                rows.to(low if k else dt), res["p1"], res["p2"], L, stats,
+                route.to(low if k else dt), pool, 1e-5, low if k else dt)
         for i, (dw, db, dg, dbe) in enumerate(grads, 1):
             outs.update({f"dW{i}": dw, f"dgamma{i}": dg, f"dbeta{i}": dbe})
         return {k: v.double() for k, v in outs.items()}
@@ -465,6 +479,13 @@ def sweep2_ops(C0, C1=64, C2=64):
     return (3 * C2 + 2 * C2 * C2 + 3 * C2 + C2 + 2 * C2 * C1 + C1
             + 2 * C2 * C1 + C1 * (C1 + 1) + (C0 + 1) * (2 * C1 * C1 + C1)
             + 4 * C1 + 4 * C1 * C0 + C0 * (C0 + 1) + C0)
+
+
+def sweep2_tc(C0, C1=64, C2=64):
+    """The products of sweep2_ops, per row: h2 M3, q2, A2, G1 (symmetric)
+    and TM1 with the C0 U1 blocks."""
+    return (2 * C2 * C2 + 2 * C2 * C1 + 2 * C2 * C1 + C1 * (C1 + 1)
+            + (C0 + 1) * 2 * C1 * C1)
 
 
 def two_sweep_rows(x3, layers, dpooled, K):
@@ -919,7 +940,7 @@ def bf16_rows(x3, layers, dpooled, K):
 
     def add(name, fn, args, err, nbytes, ops, tc_ops, replaces):
         rows.append(dict(name=name, args=args, err=err, nbytes=nbytes,
-                         ops=ops, tc_ops=tc_ops, passes=1, fn=fn,
+                         ops=ops, tc_ops=tc_ops, passes=0, fn=fn,
                          plain=getattr(SP, fn.__name__ + "_plain"),
                          replaces=replaces))
 
@@ -1014,6 +1035,142 @@ def bf16_rows(x3, layers, dpooled, K):
     print(f"bf16 sweeps vs their bf16 twins (R={R}, K={K}): entries beyond "
           f"one bf16 ulp: {'; '.join(notes)}; all five run to run "
           "bit-identical", flush=True)
+    return rows
+
+
+#: two_sweep_bf16_rows' bar for an f32 or float64 accumulator of a bf16
+#: sweep against its twin, as a share of the twin's max-abs.
+ACC2_BAR = 3e-5
+
+
+def two_sweep_bf16_rows(x3, layers, dpooled, K):
+    """B7 (both call shapes of B7a, B7b, B7c), B8 (B8a, B8b) and B6 at bf16
+    against their bf16 twins on the same card tensors, each fed the twin
+    chain's inputs: hybrid2's bf16 forward of the main path's grouped x
+    rounded to bf16, and a bf16 cotangent. B8a routes inside the kernel:
+    its dpooled is zero on the near_ties pairs of the twin's f32 z
+    (tolerance 1e-5 of the largest |z|). B6 runs on B8b's inputs, x
+    channel-major. Bars: bf16 outputs within one bf16 ulp outside counted
+    flips (bf16_flips, as bf16_rows); f32 and float64 accumulators within
+    ACC2_BAR of their max-abs (kernel and twin sum the same exact bf16
+    products in f32; only the order of the sums differs), the widest
+    reading printed;
+    cnt1 of B8b and of B6 exact (B6's h1, recomputed from x, gives the
+    same layer-1 masks as the bf16 forward's chain, _h1_bf16); run to run
+    bit-identical. Bounds: bf16 rows' bytes, the 64-deep products at the
+    bf16 tensor-core rate, the rest (and the C0-deep x W1) on f32 CUDA
+    cores. Returns the kernel-table rows."""
+    SP, SF, SB = sweep_modules()
+    from facl_tpu_torch.ops.sa_bwd import _fold_affine, _layer_terms
+    lp1, lp2, lp3 = layers
+    Bc, C0, N = x3.shape
+    R, P, eps = Bc * N, Bc * N // K, 1e-5
+    C1, C2, C3 = 64, 64, 256
+    xb = x3.to(BF16).contiguous()
+    xr = xb.transpose(1, 2).reshape(R, C0).contiguous()
+    rows, notes, rel = [], [], []
+
+    def acc(k, t, name):
+        err = acc_rel(k, t, name, ACC2_BAR)
+        rel.append((err / max(float(t.abs().max()), 1e-30), name))
+        return err
+
+    def twin(fn):
+        return getattr(sys.modules[fn.__module__], fn.__name__ + "_plain")
+
+    def run(fn, args, name):
+        k, t = fn(*args), twin(fn)(*args)
+        check(all(torch.equal(a, b) for a, b in
+                  zip(_outputs(k), _outputs(fn(*args)))),
+              f"{name}: two runs differ")
+        return k, t
+
+    def add(name, fn, args, err, nbytes, ops, tc_ops, replaces):
+        rows.append(dict(name=name, args=args, err=err, nbytes=nbytes,
+                         ops=ops, tc_ops=tc_ops, passes=0, fn=fn,
+                         plain=twin(fn), source=SRC2, replaces=replaces))
+
+    def layer_row(label, args, cin, cout, h_ops, tc):
+        k, t = run(SF.sa_fwd_layer_bf16, args, f"B7a bf16 {label}")
+        n, e = bf16_flips(k[0], t[0], f"B7a bf16 {label} p")
+        e = max(e, acc(k[1], t[1], f"B7a bf16 {label} s"),
+                acc(k[2], t[2], f"B7a bf16 {label} ss"))
+        notes.append(f"B7a {label} {n}")
+        add(f"sa_fwd_layer ({label}) [bf16]", SF.sa_fwd_layer_bf16, args, e,
+            R * (cin + cout) * 2, R * (h_ops + 5 * cout), tc,
+            "facl_tpu/ops/pallas/sa_fwd.py:189")
+        return t
+    p1, s1, ss1 = layer_row("x->p1", (xr, lp1.kernel, lp1.bias), C0, C1,
+                            2 * C0 * C1, 0)
+    m1, v1 = SF._finalize(s1, ss1, R)
+    mul1, shift1 = _fold_affine(lp1, m1, v1, eps)
+    p2, s2, ss2 = layer_row("p1->p2", (p1, lp2.kernel, lp2.bias, mul1,
+                                       shift1), C1, C2, 4 * C1,
+                            R * 2 * C1 * C2)
+    m2, v2 = SF._finalize(s2, ss2, R)
+    mul2, shift2 = _fold_affine(lp2, m2, v2, eps)
+
+    ag = (p2, mul2, shift2)
+    k, (G2, ch2) = run(SF.sa_fwd_gram_bf16, ag, "B7b bf16")
+    e = max(acc(k[0], G2, "B7b bf16 G2"),
+            acc(k[1], ch2, "B7b bf16 ch2"))
+    add("sa_fwd_gram [bf16]", SF.sa_fwd_gram_bf16, ag, e, R * C2 * 2,
+        R * 5 * C2, R * C2 * (C2 + 1), "facl_tpu/ops/pallas/sa_fwd.py:219")
+    m3, v3 = SF._moments_from_gram(G2, ch2, lp3.kernel, lp3.bias, R)
+    mul3, shift3 = _fold_affine(lp3, m3, v3, eps)
+    ap = (p2, mul2, shift2, lp3.kernel, lp3.bias, mul3, shift3, K)
+    k, t = run(SF.sa_fwd_pool_bf16, ap, "B7c bf16")
+    n, e = bf16_flips(k, t, "B7c bf16 pooled")
+    notes.append(f"B7c pooled {n}")
+    add("sa_fwd_pool [bf16]", SF.sa_fwd_pool_bf16, ap, e,
+        R * C2 * 2 + P * C3 * 2, R * (4 * C2 + 6 * C3), R * 2 * C2 * C3,
+        "facl_tpu/ops/pallas/sa_fwd.py:242")
+
+    z = SB._z_bf16(SB._h_bf16(p2, mul2, shift2), lp3.kernel, lp3.bias, mul3,
+                   shift3)
+    near = near_ties(z, K, 1e-5 * float(z.abs().max()))
+    dp = torch.where(near, 0.0, dpooled.float()).to(BF16)
+    nnz = int((SB._dy_top(z, dp.float(), K) != 0).sum())
+    del z
+    gi2 = lp2.scale * torch.rsqrt(v2 + eps)
+    gi3 = lp3.scale * torch.rsqrt(v3 + eps)
+    as1 = (p2, mul2, shift2, lp3.kernel, lp3.bias, mul3, shift3, gi3, dp, K)
+    k, (A3, u3, G2b, ch2b, q3) = run(SB.sa_bwd2_sweep1_bf16, as1, "B8a bf16")
+    n, e = bf16_flips(k[4], q3, "B8a bf16 q3")
+    e = max([e] + [acc(a, b, f"B8a bf16 {nm}") for a, b, nm in
+                   zip(k[:4], (A3, u3, G2b, ch2b), ("A3", "u3", "G2", "ch2"))])
+    notes.append(f"B8a q3 {n} (dpooled zeroed on {int(near.sum())} near-tie "
+                 f"pairs; {nnz} nonzero dy3)")
+    add("sa_bwd2_sweep1 [bf16]", SB.sa_bwd2_sweep1_bf16, as1, e,
+        2 * R * C2 * 2 + P * C3 * 2,
+        R * (5 * C2 + 5 * C3) + nnz * (4 * C2 + 3),
+        R * (2 * C2 * C3 + C2 * (C2 + 1)), "facl_tpu/ops/pallas/sa_bwd.py:275")
+
+    t3 = _layer_terms(A3, u3, lp3, m3, v3, G2b, ch2b, R, eps)
+    as2 = (xr, p1, mul1, shift1, p2, mul2, shift2, q3, t3["M"].contiguous(),
+           t3["rc"], gi2, lp2.kernel)
+    tc2 = sweep2_tc(C0)
+    k, t = run(SB.sa_bwd2_sweep2_bf16, as2, "B8b bf16")
+    check(torch.equal(k["cnt1"], t["cnt1"]), "B8b bf16: cnt1 not exact")
+    e = max(acc(k[n], t[n], f"B8b bf16 {n}") for n in t)
+    add("sa_bwd2_sweep2 [bf16]", SB.sa_bwd2_sweep2_bf16, as2, e,
+        R * (C0 + 3 * C1) * 2, R * (4 * C1 + 3 * C2 + sweep2_ops(C0) - tc2),
+        R * tc2, "facl_tpu/ops/pallas/sa_bwd.py:298")
+    a6 = (xb, lp1.kernel, lp1.bias, mul1, shift1, p2, mul2, shift2, q3,
+          t3["M"].contiguous(), t3["rc"], gi2, lp2.kernel)
+    k, t = run(SP.sa_bwd_sweep2_full_bf16, a6, "B6 bf16")
+    check(torch.equal(k["cnt1"], t["cnt1"]), "B6 bf16: cnt1 not exact")
+    e = max(acc(k[n], t[n], f"B6 bf16 {n}") for n in t)
+    add("sa_bwd_sweep2_full [bf16]", SP.sa_bwd_sweep2_full_bf16, a6, e,
+        R * (C0 + 2 * C2) * 2,
+        R * (2 * C0 * C1 + 5 * C1 + 3 * C2 + sweep2_ops(C0) - tc2), R * tc2,
+        "facl_tpu/ops/pallas/sa_pair.py:863")
+    worst = max(rel)
+    print(f"bf16 B6/B7/B8 vs their bf16 twins (R={R}, K={K}): entries beyond "
+          f"one bf16 ulp: {'; '.join(notes)}; accumulators at most "
+          f"{worst[0]:.3e} of their max-abs ({worst[1]}; bar {ACC2_BAR:g}); "
+          "cnt1 of B8b and B6 exact; all run to run bit-identical",
+          flush=True)
     return rows
 
 
@@ -1221,12 +1378,14 @@ def phase_kernels(dev, model, points):
         del km
         rows += bf16_rows(x3, (lp1, lp2, lp3), dpooled, K)
         rows += two_sweep_rows(x3, (lp1, lp2, lp3), dpooled, K)
+        rows += two_sweep_bf16_rows(x3, (lp1, lp2, lp3), dpooled, K)
         rows += b9_rows(x3.transpose(1, 2).reshape(R, C0).contiguous(),
                         [lp1, lp2, lp3], K, dpooled)
         torch.cuda.synchronize()
         for impl in IMPLS + ("pallas",):
             sa_chain_vs_f64(x3, [lp1, lp2, lp3], dpooled, K, impl)
-        sa_chain_vs_f64(x3, [lp1, lp2, lp3], dpooled, K, "pair3", BF16)
+        for impl in IMPLS:
+            sa_chain_vs_f64(x3, [lp1, lp2, lp3], dpooled, K, impl, BF16)
 
         # The fine variant's grouping (S=32, K=128): B1, and pool groups
         # that span two of the sweeps' 64-row tiles.
@@ -1239,8 +1398,9 @@ def phase_kernels(dev, model, points):
         for impl in IMPLS + ("pallas",):
             sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf,
                             Kf, impl)
-        sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf, Kf,
-                        "pair3", BF16)
+        for impl in IMPLS:
+            sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf,
+                            Kf, impl, BF16)
 
         for r in rows + cube_rows + slab_rows:
             measure(r)
@@ -1282,14 +1442,21 @@ PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
              "sa_fwd_gram_pool": ("sa_pair", "facl_sa_fwd_gram_pool", 1),
              "sa_bwd_sweep1": ("sa_pair", "facl_sa_bwd_sweep1", 1),
              "sa_bwd_sweep2": ("sa_pair", "facl_sa_bwd_sweep2", 1),
-             "sa_bwd_sweep3": ("sa_pair", "facl_sa_bwd_sweep3", 1)}
-PARENT_LIBS = ("select", "sa_pair")
+             "sa_bwd_sweep3": ("sa_pair", "facl_sa_bwd_sweep3", 1),
+             "sa_fwd_layer": ("sa_2sweep", "facl_sa_fwd_layer", None),
+             "sa_fwd_gram": ("sa_2sweep", "facl_sa_fwd_gram", None),
+             "sa_fwd_pool": ("sa_2sweep", "facl_sa_fwd_pool", None),
+             "sa_bwd2_sweep1": ("sa_2sweep", "facl_sa_bwd2_sweep1", None),
+             "sa_bwd2_sweep2": ("sa_2sweep", "facl_sa_bwd2_sweep2", None),
+             "sa_bwd_sweep2_full": ("sa_2sweep", "facl_sa_bwd2_sweep2",
+                                    None)}
+PARENT_LIBS = ("select", "sa_pair", "sa_2sweep")
 
 
 def start_parent_build(root: str):
-    """Start nvcc on ``root``'s select.cu and sa_pair.cu (a checkout of the
-    parent commit) with this tree's flags; returns {library: (process,
-    output)}."""
+    """Start nvcc on ``root``'s select.cu, sa_pair.cu and sa_2sweep.cu (a
+    checkout of the parent commit) with this tree's flags; returns
+    {library: (process, output)}."""
     from facl_tpu_torch.ops import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
@@ -1324,7 +1491,8 @@ def parent_ab(fn, args):
     this tree's, in turns: parent, this tree, this tree, parent; and the
     outputs of one call of each, which must be bit-equal (fails
     otherwise). The launchers' C signatures are the same in both trees
-    (pointers are void* to ctypes)."""
+    (pointers are void* to ctypes). (B6 and B8b return dicts, B7c one
+    tensor: their values are compared.)"""
     import ctypes
     from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_pair as SP
@@ -1344,7 +1512,7 @@ def parent_ab(fn, args):
             with swapped([(SP, "grid", parent_grid)] if parent_per_sm
                          else []):
                 if out is not None:
-                    out.extend(fn(*args))
+                    out.append(fn(*args))
                 return device_ms(lambda: fn(*args))[0]
         finally:
             _build._FUNCTIONS[key] = ours
@@ -1353,18 +1521,27 @@ def parent_ab(fn, args):
         return device_ms(lambda: fn(*args))[0]
     theirs = []
     ab = [run_parent(theirs), run_ours(), run_ours(), run_parent()]
-    mine = fn(*args)
+    mine = _outputs(fn(*args))
+    theirs = [t for o in theirs for t in _outputs(o)]
     check(len(mine) == len(theirs) and
           all(torch.equal(a, b) for a, b in zip(mine, theirs)),
           f"--parent: {fn.__name__}'s outputs differ from the parent's")
     return ab
 
 
+def _outputs(out):
+    """A wrapper's tensors: a dict's values, one tensor, or a tuple."""
+    if isinstance(out, dict):
+        return list(out.values())
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
 def print_row(r, label=""):
     lib = "" if r["library_ms"] is None else \
         f", library {r['library_ms']:.4f} ms"
+    rate = f"{r['passes']}xTF32" if r["passes"] else "bf16"
     tc = "" if "bound_f32_ms" not in r else \
-        f" with products on tensor cores in {r['passes']}xTF32 (f32 " \
+        f" with products on tensor cores in {rate} (f32 " \
         f"CUDA-core bound {r['bound_f32_ms']:.4f} ms)"
     print(f"kernel {r['name']}{label}: {r['ms']:.4f} ms on the device, "
           f"{r['host_us']:.1f} us on the host per call (twin "
@@ -1447,11 +1624,15 @@ def sa_routing(store: list, impl: str):
         if pair:
             store.append(out[2]["idx"].cpu())
         else:
-            _, (_, lp2, lp3), pool, eps = args
+            _, (_, lp2, lp3), pool, eps = args[:4]
             mul2, shift2 = SB._fold_affine(lp2, *out[1][1], eps)
             mul3, shift3 = SB._fold_affine(lp3, *out[1][2], eps)
-            z = (SB._h_from_p(out[3], mul2, shift2) @ lp3.kernel + lp3.bias) \
-                * mul3 + shift3
+            if out[3].dtype == BF16:
+                z = SB._z_bf16(SB._h_bf16(out[3], mul2, shift2), lp3.kernel,
+                               lp3.bias, mul3, shift3)
+            else:
+                z = (SB._h_from_p(out[3], mul2, shift2) @ lp3.kernel +
+                     lp3.bias) * mul3 + shift3
             ones = torch.ones(z.shape[0] // pool, z.shape[1], device=z.device)
             store.append((SB._dy_top(z, ones, pool) != 0).cpu())
         return out
@@ -1597,14 +1778,16 @@ def phase_cpu_vs_card(dev):
     perm = torch.randperm(G, generator=g)
     for impl in IMPLS[:3] + ("pallas",):
         _cpu_vs_card(dev, impl, pts, perm)
-    _cpu_vs_card_bf16(dev, pts, perm)
+    for impl in IMPLS[:3]:
+        _cpu_vs_card_bf16(dev, impl, pts, perm)
 
 
-def _cpu_vs_card_bf16(dev, pts, perm):
-    """The same B=8 step at compute_dtype bfloat16 with pair3: the CPU
-    (bf16 twins, torch's CPU bf16 GEMMs) against the card (the bf16
-    kernels, cuBLAS bf16 GEMMs with f32 accumulation), from the same
-    weights, points and permutation, and both against the float64 step.
+def _cpu_vs_card_bf16(dev, impl, pts, perm):
+    """The same B=8 step at compute_dtype bfloat16 with ``impl`` (pair3,
+    pair or hybrid2): the CPU (bf16 twins, torch's CPU bf16 GEMMs) against
+    the card (the bf16 kernels, cuBLAS bf16 GEMMs with f32 accumulation),
+    from the same weights, points and permutation, and both against the
+    float64 step.
     At bf16 a flipped rounding moves a value by 2^-8 of itself, and two
     bf16 steps that sum in different orders put thousands of ReLU and
     pool decisions on different sides, so the f32 bars do not apply.
@@ -1613,7 +1796,7 @@ def _cpu_vs_card_bf16(dev, pts, perm):
     the CPU's. Printed beside them: each gradient's card-vs-CPU relative
     L2 and cosine at their worst, and the flipped decisions."""
     from facl_tpu_torch.train import Trainer
-    B, impl = pts.shape[1], "pair3"
+    B = pts.shape[1]
     lc, gc, dc = _step_decisions("cpu", B, pts, perm, impl, dtype="bfloat16")
     lk, gk, dk = _step_decisions(dev, B, pts, perm, impl, dtype="bfloat16")
     l64, g64, _ = _f64_grads(Trainer(_cfg(B, impl), 100, device="cpu"),
@@ -1826,14 +2009,27 @@ PATHS = {
     "hybrid": {"select_gather": 1, "sa_bwd2_sweep1": 1, "sa_bwd2_sweep2": 1},
 }
 #: The bf16 paths (compute_dtype bfloat16): (label, sa_impl, timed steps,
-#: launches per step). pair3 runs the bf16 sweeps; reference only B1.
+#: launches per step). pair3, pair, hybrid2 and hybrid run the bf16
+#: sweeps; reference only B1.
 BF16_PATHS = (
     ("pair3 bf16", "pair3", 40,
      {"select_gather": 1, "sa_fwd_layer12_bf16": 1,
       "sa_fwd_gram_pool_bf16": 1, "sa_bwd_sweep1_bf16": 1,
       "sa_bwd_sweep2_bf16": 1, "sa_bwd_sweep3_bf16": 1}),
     ("reference bf16", "reference", 20, {"select_gather": 1}),
+    ("pair bf16", "pair", 20,
+     {"select_gather": 1, "sa_fwd_layer12_bf16": 1,
+      "sa_fwd_gram_pool_bf16": 1, "sa_bwd_sweep1_bf16": 1,
+      "sa_bwd_sweep2_full_bf16": 1}),
+    ("hybrid2 bf16", "hybrid2", 20,
+     {"select_gather": 1, "sa_fwd_layer_bf16": 2, "sa_fwd_gram_bf16": 1,
+      "sa_fwd_pool_bf16": 1, "sa_bwd2_sweep1_bf16": 1,
+      "sa_bwd2_sweep2_bf16": 1}),
+    ("hybrid bf16", "hybrid", 20,
+     {"select_gather": 1, "sa_bwd2_sweep1_bf16": 1,
+      "sa_bwd2_sweep2_bf16": 1}),
 )
+BF16_LAUNCHES = {label: want for label, _, _, want in BF16_PATHS}
 #: The pallas paths: (label, select_impl, gather_impl, timed steps,
 #: launches per step).
 PALLAS_PATHS = (
@@ -2338,17 +2534,19 @@ DP_TIMED_CASES = (("auto", "auto", 512), ("reference", None, 128))
 #: (a), (b): the stage's and the step's cases (label, impl, dtype).
 DP_STAGE_CASES = (("pair3", "pair3", "float32"),
                   ("pair3 bf16", "pair3", "bfloat16"),
-                  ("pair", "pair", "float32"))
+                  ("pair", "pair", "float32"),
+                  ("pair bf16", "pair", "bfloat16"))
 DP_STEP_CASES = (("pair3", "pair3", "float32"),
                  ("pair3 bf16", "pair3", "bfloat16"),
+                 ("pair bf16", "pair", "bfloat16"),
                  ("reference bf16", "reference", "bfloat16"))
 #: Parameters whose exact gradient is zero (a BatchNorm follows).
 DP_ABSORBED = ("sa_stage.bias_", "stage2_mlp.dense_0.bias",
                "stage2_mlp.dense_1.bias", "stage2_mlp.dense_2.bias",
                "head.Dense_0.bias")
 DP_LAUNCHES = {"pair3": PATHS["pair3"], "pair": PATHS["pair"],
-               "pair3 bf16": BF16_PATHS[0][3],
-               "reference bf16": BF16_PATHS[1][3]}
+               **{label: BF16_LAUNCHES[label] for label in
+                  ("pair3 bf16", "pair bf16", "reference bf16")}}
 
 
 def _dp_counts():
@@ -2574,7 +2772,7 @@ def _dp_one_step(dev, B, impl, dtype, witness=None):
     recorded): "swap", the batch's two halves swapped (every sum over
     the clips in another order; exact arithmetic gives the same loss,
     gradients and statistics); "halves", the rounding two ranks give it
-    (``_as_two_halves``)."""
+    (tests/torch_two_halves.py::as_two_halves)."""
     from facl_tpu_torch.train import Trainer
     pts, perm = _dp_points(B)
     if witness == "swap":
@@ -2595,37 +2793,16 @@ def _dp_one_step(dev, B, impl, dtype, witness=None):
                          st.model.named_buffers()})
 
 
-@contextlib.contextmanager
 def _as_two_halves():
-    """One process rounding as two ranks do: each stage-2 and head Dense
-    GEMM and each reference SA layer's GEMM run as two calls, one on each
-    half of its rows (the rows a rank holds), and each BatchNorm moment
-    sum is taken over each half, then added (``global_moments`` over two
-    ranks). The pair/pair3 sweeps and their float64 B6s sums are left as
-    one process runs them."""
-    from facl_tpu_torch.models import layers
-    from facl_tpu_torch.ops import fused_sa
-    dense, sa_dense, moments0 = (layers.apply_dense, fused_sa._dense,
-                                 layers.global_moments)
-
-    def halves(x):
-        return x[:x.shape[0] // 2], x[x.shape[0] // 2:]
-
-    def moments(flat, mesh):
-        C, n = flat.shape[-1], flat.shape[0]
-        s = sum(torch.cat([h.sum(0), (h * h).sum(0)]) for h in halves(flat))
-        mean = s[:C] / n
-        return mean, (s[C:] / n - mean * mean).clamp_min(0.0)
-    layers.apply_dense = lambda lin, x, dtype=torch.float32: torch.cat(
-        [dense(lin, h, dtype) for h in halves(x)])
-    fused_sa._dense = lambda h, lp, dtype: torch.cat(
-        [sa_dense(x, lp, dtype) for x in halves(h)])
-    layers.global_moments = fused_sa.global_moments = moments
-    try:
-        yield
-    finally:
-        layers.apply_dense, fused_sa._dense = dense, sa_dense
-        layers.global_moments = fused_sa.global_moments = moments0
+    """tests/torch_two_halves.py::as_two_halves, loaded from this
+    checkout's file: the checkout's tests/ has no __init__.py, so a
+    package named ``tests`` installed on the machine would shadow it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "tests", "torch_two_halves.py")
+    spec = importlib.util.spec_from_file_location("torch_two_halves", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.as_two_halves()
 
 
 def _merge_decisions(ranks, B, G):
@@ -2751,14 +2928,15 @@ def _dp_bf16_stage(label, f32, one, dp):
             for what, f in (("statistics", stats), ("gradients", grads)))
 
 
-def _dp_bf16_step(label, f32, one, dp, witnesses, exact):
+def _dp_bf16_step(label, f32, one, dp, witnesses):
     """(b) at bf16: the loss, the running statistics and the live
     gradients (not BN-absorbed) against the f32 step (``_dp_vs_f32``);
     the loss at rtol 2e-3 (about half a bf16 ulp, 2^-9) of the
-    one-process bf16 step's. With ``exact`` (the reference stage, all of
-    whose sums ``_as_two_halves`` splits as the ranks do), the loss and
-    running statistics at the f32 bars (rtol 2e-4; rtol 1e-3 / atol
-    1e-5) of the one process rounding as two ranks ("halves"). Beside
+    one-process bf16 step's; and the loss and running statistics at the
+    f32 bars (rtol 2e-4; rtol 1e-3 / atol 1e-5) of the one process
+    rounding as two ranks ("halves", tests/torch_two_halves.py: every
+    sum the ranks split, the pair stage's B6s all-reduces included), their
+    differences printed (zero where the witness is bit for bit). Beside
     them, how far the two ranks and each of the ``witnesses``
     (``_dp_one_step``) sit from the one-process bf16 step (loss;
     gradients and running statistics by relative L2, together), the
@@ -2780,17 +2958,21 @@ def _dp_bf16_step(label, f32, one, dp, witnesses, exact):
     rel = abs(dp["loss"] - one["loss"]) / abs(one["loss"])
     check(rel <= 2e-3, f"dp (b) {label}: loss {dp['loss']} vs one process "
                        f"{one['loss']} beyond rtol 2e-3")
-    if exact:
-        halves = witnesses["halves"]
-        check(math.isclose(dp["loss"], halves["loss"], rel_tol=2e-4),
-              f"dp (b) {label}: loss {dp['loss']} vs one process as two "
-              f"halves {halves['loss']}")
-        bad = {n: round(_in_bars(dp["buffers"][n], halves["buffers"][n],
-                                 1e-3, 1e-5), 3) for n in bufs}
-        bad = {n: v for n, v in bad.items() if v > 1.0}
-        check(not bad, f"dp (b) {label}: running statistics beyond rtol 1e-3"
-                       f" / atol 1e-5 of the one process as two halves, in "
-                       f"units of the bar: {bad}")
+    halves = witnesses["halves"]
+    check(math.isclose(dp["loss"], halves["loss"], rel_tol=2e-4),
+          f"dp (b) {label}: loss {dp['loss']} vs one process as two "
+          f"halves {halves['loss']}")
+    in_bar = {n: _in_bars(dp["buffers"][n], halves["buffers"][n], 1e-3, 1e-5)
+              for n in bufs}
+    bad = {n: round(v, 3) for n, v in in_bar.items() if v > 1.0}
+    check(not bad, f"dp (b) {label}: running statistics beyond rtol 1e-3"
+                   f" / atol 1e-5 of the one process as two halves, in "
+                   f"units of the bar: {bad}")
+    same = sum(torch.equal(dp["buffers"][n], halves["buffers"][n])
+               for n in bufs)
+    exact = (f"loss {abs(dp['loss'] - halves['loss']):.3e} apart, running "
+             f"statistics worst {max(in_bar.values()):.3e} of the bar, "
+             f"{same} of {len(bufs)} bit-equal")
     rs = {n: float((dp["buffers"][n] - one["buffers"][n]).abs().max()) /
           max(float(one["buffers"][n].abs().max()), 1e-30) for n in bufs}
     rs_worst = max(rs, key=rs.get)
@@ -2809,9 +2991,9 @@ def _dp_bf16_step(label, f32, one, dp, witnesses, exact):
     l2 = {n: _rel_l2(dp["grads"][n], one["grads"][n]) for n in live}
     worst = max(l2, key=l2.get)
     return "; ".join(out) + (
-        "; loss within rtol 2e-3 of one process's" + (
-            "; loss and running statistics within the f32 bars of one "
-            "process as two halves" if exact else "") +
+        "; loss within rtol 2e-3 of one process's; loss and running "
+        f"statistics within the f32 bars of one process as two halves "
+        f"({exact})" +
         f"; running statistics from one process's worst max-abs/scale "
         f"{rs[rs_worst]:.3e} ({rs_worst}), {rb[rb_worst]:.3f} of f32's rtol "
         f"1e-3 / atol 1e-5 ({rb_worst}); from the one-process bf16 step: "
@@ -3034,7 +3216,7 @@ def phase_dp(dev, card: str):
         route = torch.cat([r0["route"], r1["route"]])
         flips = int((route != one["route"]).sum())
         if dtype == "bfloat16":
-            got = _dp_bf16_stage(label, ones["pair3"], one, r0)
+            got = _dp_bf16_stage(label, ones[impl], one, r0)
         else:
             stats = [max(_in_bars(ms, m1, 1e-5, 1e-6),
                          _in_bars(vs, v1, 1e-4, 1e-6))
@@ -3097,8 +3279,7 @@ def phase_dp(dev, card: str):
             wit = {w: _dp_one_step(dev, B, impl, dtype, w)
                    for w in ("swap", "halves")}
             _sync(dev, empty=True)
-            got = _dp_bf16_step(label, f32, one, r0, wit,
-                                exact=impl == "reference")
+            got = _dp_bf16_step(label, f32, one, r0, wit)
         else:
             got = ("loss within rtol 2e-4, running statistics within rtol "
                    "1e-3 / atol 1e-5; gradients " +
@@ -3229,10 +3410,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout of the parent commit: its select.cu "
-                         "and sa_pair.cu are built and its B1, B2a, B2b, "
-                         "B3a, B3b and B3c timed against this tree's in "
-                         "turns")
+                    help="a checkout of the parent commit: its select.cu, "
+                         "sa_pair.cu and sa_2sweep.cu are built and its "
+                         "B1, B2a-B3c and the f32 B6, B7 and B8 timed "
+                         "against this tree's in turns, their outputs "
+                         "bit-equal")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures the "
@@ -3272,7 +3454,8 @@ def main() -> None:
     paths.update(phase_dp(dev, name_power))
 
     # Each kernel's launches: from the first path (in the order run) that
-    # runs it — B1-B3 on pair3, B6 on pair, B7 and B8 on hybrid2, B9 on
+    # runs it — B1-B3 on pair3, B6 on pair, B7 and B8 on hybrid2 (their
+    # bf16 forms on the bf16 paths), B9 on
     # pallas, B4 and B5a on its split routes, B5b on the input gradient.
     launches = {}
     for counts in paths.values():

@@ -27,10 +27,13 @@ pair/pair3, and eval, transposes it to channels-last first
 (sa_stage.py:98-105).
 
 ``dtype`` is the compute dtype (facl_tpu/models/sa_stage.py:227-268): at
-``torch.bfloat16`` train mode runs pair3 (the bf16 sweeps of B2/B3) or
-reference (plain bf16), eval the bf16 reference, and the pooled output is
-bf16 (sa_stage.py:225); parameters and statistics stay f32. Every other
-impl raises NotImplementedError at bf16 in train mode, on every device.
+``torch.bfloat16`` train mode runs the impls of ``BF16_IMPLS`` — pair3 and
+pair (the bf16 sweeps of B2/B3 and B6), hybrid2 (B7 and B8 at bf16),
+hybrid (the bf16 reference forward and B8 at bf16) or reference (plain
+bf16) —, eval the bf16 reference, and the pooled output is bf16
+(sa_stage.py:225); parameters and statistics stay f32. pallas, covar and
+analytic raise NotImplementedError at bf16 in train mode, on every
+device.
 
 ``mesh`` (data parallelism, parallel/mesh.py): the input is this rank's
 block of the batch and the train-mode statistics are over every rank's
@@ -51,7 +54,7 @@ from torch import nn
 from facl_tpu_torch.models.layers import lecun_normal_
 from facl_tpu_torch.ops._launch import TRUNK
 from facl_tpu_torch.ops.analytic_sa import sa_train_analytic
-from facl_tpu_torch.ops.fused_sa import BF16, SALayerParams, \
+from facl_tpu_torch.ops.fused_sa import BF16, BF16_IMPLS, SALayerParams, \
     reject_bf16, sa_reference_4d, sa_train_fused
 from facl_tpu_torch.ops.sa_bwd import sa_train_hybrid
 from facl_tpu_torch.ops.sa_fwd import _moments_from_gram, sa_train_pfwd
@@ -64,8 +67,6 @@ IMPLS = ("reference", "covar", "analytic", "hybrid", "hybrid2", "pair",
 #: The impls that run the sweep kernels B2-B8: their input cotangent is
 #: zero by contract, and on the card they take only SA widths TRUNK.
 SWEEPS = ("hybrid", "hybrid2", "pair", "pair3")
-#: The train-mode impls with a bf16 form.
-BF16_IMPLS = ("pair3", "reference")
 #: The train-mode impls that run under data parallelism.
 DP_IMPLS = ("pair", "pair3", "reference")
 
@@ -163,9 +164,9 @@ class SetAbstractionStage(nn.Module):
                                           slim=impl == "pair3",
                                           dtype=self.dtype, mesh=self.mesh)
         elif impl == "hybrid":
-            pooled, stats = sa_train_hybrid(x, layers, eps)
+            pooled, stats = sa_train_hybrid(x, layers, eps, self.dtype)
         elif impl == "hybrid2":
-            pooled, stats = sa_train_pfwd(x, layers, eps)
+            pooled, stats = sa_train_pfwd(x, layers, eps, self.dtype)
         elif impl == "pallas":
             B, S, K, C = x.shape
             pooled, stats = sa_train_fused(x.reshape(B * S * K, C), layers, K,

@@ -82,6 +82,12 @@ def need_aligned(t: torch.Tensor, name: str):
                          "copies and takes a 16-byte aligned tensor")
 
 
+def entry(name: str, dt) -> str:
+    """The C entry point of sweep ``name`` for rows stored as ``dt``:
+    facl_sa_<name>, or facl_sa_<name>_bf16."""
+    return f"facl_sa_{name}" + ("_bf16" if dt == torch.bfloat16 else "")
+
+
 def launch(lib: str, name: str, argtypes, *args, what: str):
     handle, fn = _build.function(lib, name, argtypes)
     _build.check(handle, fn(*args), what)

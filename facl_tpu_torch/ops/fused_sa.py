@@ -36,6 +36,8 @@ class SALayerParams(NamedTuple):
 
 
 BF16 = torch.bfloat16
+#: The train-mode SA impls with a bf16 form.
+BF16_IMPLS = ("pair3", "pair", "hybrid2", "hybrid", "reference")
 
 
 def reject_bf16(dtype: torch.dtype, impl: str) -> None:
@@ -43,7 +45,7 @@ def reject_bf16(dtype: torch.dtype, impl: str) -> None:
     if dtype == BF16:
         raise NotImplementedError(
             f"sa_impl={impl!r} has no bf16 compute yet (ROADMAP Queue 1 item "
-            "19); pair3 and reference run compute_dtype='bfloat16'")
+            f"19); {', '.join(BF16_IMPLS)} run compute_dtype='bfloat16'")
 
 
 def _dense(h, lp: SALayerParams, dtype):

@@ -32,13 +32,14 @@ read channel-major, (B, C0, S*K). Both backwards route each pooled
 cotangent to the first index of the raw-p3 max (or min) the forward
 found.
 
-pair3 also runs at compute_dtype bfloat16 (``dtype=torch.bfloat16``): the
-five sweeps then have bf16 instantiations (``sa_fwd_layer12_bf16`` ..
-``sa_bwd_sweep3_bf16``, entry points ``facl_sa_*_bf16``) that store x, p2,
-q3 and mq (and B2b's max/min) in bf16 and run every product in one TF32
-pass; their twins define the cast points (below). Everything outside the
-sweeps stays f32, as XLA keeps it outside Pallas. pair has no bf16 form
-yet and raises.
+pair3 and pair also run at compute_dtype bfloat16 (``dtype=
+torch.bfloat16``): the six sweeps then have bf16 instantiations
+(``sa_fwd_layer12_bf16`` .. ``sa_bwd_sweep3_bf16`` and
+``sa_bwd_sweep2_full_bf16``, entry points ``facl_sa_*_bf16``) that store x,
+p2, q3 and mq (and B2b's max/min) in bf16; the five of csrc/sa_pair.cu run
+every product in one TF32 pass, B6 (csrc/sa_2sweep.cu) on CUDA cores. Their
+twins define the cast points (below). Everything outside the sweeps stays
+f32, as XLA keeps it outside Pallas.
 
 Input cotangent contract: ZERO (facl_tpu/ops/pallas/sa_pair.py:67-68) —
 the grouped neighbourhoods are data in the training step.
@@ -64,11 +65,12 @@ from typing import Sequence, Tuple
 import torch
 
 from facl_tpu_torch.ops._launch import I, L, P, TRUNK, check_pool, \
-    check_x, grid, launch, need, need_aligned, on_cpu, ptr, reduce, \
+    check_x, entry, grid, launch, need, need_aligned, on_cpu, ptr, reduce, \
     stream_of
-from facl_tpu_torch.ops.fused_sa import SALayerParams, reject_bf16
-from facl_tpu_torch.ops.sa_bwd import _fold_affine, _h_from_p, \
-    _launch_sweep2, _layer1_terms, _layer_terms, _sweep2_plain
+from facl_tpu_torch.ops.fused_sa import SALayerParams
+from facl_tpu_torch.ops.sa_bwd import BF16, _fold_affine, _h_bf16, \
+    _h_from_p, _launch_sweep2, _layer1_terms, _layer_terms, _rb, \
+    _sweep2_bf16, _sweep2_plain
 from facl_tpu_torch.ops.sa_fwd import _finalize, _moments_from_gram
 from facl_tpu_torch.parallel.collectives import psum_packed
 from facl_tpu_torch.parallel.mesh import distributed
@@ -162,24 +164,15 @@ def sa_bwd_sweep3_plain(x3, w1, b1, mul1, shift1, mq, M2, rc2):
 # a fused bf16 chain): checked against the kernels' interpret-mode
 # outputs, tests/test_torch_bf16_sa.py.
 
-BF16 = torch.bfloat16
-
-
-def _rb(t: torch.Tensor) -> torch.Tensor:
-    """Round to bf16, carried in f32: one cast point."""
-    return t.to(BF16).float()
-
-
 def _h1_bf16(x3, w1, b1, mul1, shift1):
     """h1 (f32 holding bf16 values): p1 = bf16(x W1) + bf16(b1) summed in
     f32, h1 = relu(bf16(p1 mul1 + shift1)) (sa_pair.py:164-165,
     :316-330)."""
     p1 = _rb(_rows(x3).float() @ _rb(w1)) + _rb(b1)
-    return _h_from_p(p1, mul1, shift1, BF16).float()
+    return _h_bf16(p1, mul1, shift1)
 
 
-def _h2_bf16(p2, mul2, shift2):
-    return _h_from_p(p2, mul2, shift2, BF16).float()
+_h2_bf16 = _h_bf16
 
 
 def sa_fwd_layer12_bf16_plain(x3, w1, b1, mul1, shift1, w2, b2):
@@ -235,16 +228,21 @@ def sa_bwd_sweep3_bf16_plain(x3, w1, b1, mul1, shift1, mq, M2, rc2):
     return dy1.T @ _rows(x3).float(), dy1.sum(0)
 
 
+def sa_bwd_sweep2_full_bf16_plain(x3, w1, b1, mul1, shift1, p2, mul2,
+                                  shift2, q3, M3, rc3, gi2, w2):
+    """B6 at bf16 (sa_pair.py:333-400): the accumulators of
+    ops/sa_bwd.py::_sweep2_bf16 by name, h1 recomputed from the bf16 x by
+    the chain of the bf16 forward (``_h1_bf16``)."""
+    return _sweep2_bf16(_rows(x3).float(), _h1_bf16(x3, w1, b1, mul1, shift1),
+                        p2, mul2, shift2, q3, M3, rc3, gi2, w2)
+
+
 # -- kernel wrappers ----------------------------------------------------
 # Each sweep has an f32 and a bf16 instantiation of one CUDA template
 # (csrc/sa_pair.cu; entry points facl_sa_*, facl_sa_*_bf16), each with its
 # own wrapper, twin and launch counter. ``dt`` is the storage dtype of x,
 # p2, q3 and mq, and of the max/min of B2b; a tensor stored otherwise
 # raises.
-
-def _entry(name: str, dt) -> str:
-    return f"facl_sa_{name}" + ("_bf16" if dt == BF16 else "")
-
 
 def _layer12(x3, w1, b1, mul1, shift1, w2, b2, dt):
     B, C0, N = check_x(x3, dt)
@@ -260,10 +258,10 @@ def _layer12(x3, w1, b1, mul1, shift1, w2, b2, dt):
     p2 = torch.empty((R, C2), dtype=dt, device=x3.device)
     part = torch.empty((nblk, 2, C2), dtype=torch.float64,
                        device=x3.device)
-    launch("sa_pair", _entry("fwd_layer12", dt),
+    launch("sa_pair", entry("fwd_layer12", dt),
            [P, I, I, I, P, P, P, P, P, P, I, P],
            ptr(x3), B, C0, N, ptr(w1), ptr(vec1), ptr(w2), ptr(b2), ptr(p2),
-           ptr(part), nblk, stream_of(x3), what=_entry("fwd_layer12", dt))
+           ptr(part), nblk, stream_of(x3), what=entry("fwd_layer12", dt))
     s = reduce(part)
     return p2, s[0], s[1]
 
@@ -286,11 +284,11 @@ def _gram_pool(p2, mul2, shift2, w3, b3, pool, dt):
     mn = torch.empty_like(mx)
     imx = torch.empty((Pn, C3), dtype=torch.int32, device=dev)
     imn = torch.empty_like(imx)
-    launch("sa_pair", _entry("fwd_gram_pool", dt),
+    launch("sa_pair", entry("fwd_gram_pool", dt),
            [P, L, I, P, P, P, P, P, P, P, P, P, I, P],
            ptr(p2), R, pool, ptr(vec2), ptr(w3), ptr(b3), ptr(partG),
            ptr(partc), ptr(mx), ptr(mn), ptr(imx), ptr(imn), nblk,
-           stream_of(p2), what=_entry("fwd_gram_pool", dt))
+           stream_of(p2), what=entry("fwd_gram_pool", dt))
     return reduce(partG), reduce(partc), mx, mn, imx, imn
 
 
@@ -313,11 +311,11 @@ def _sweep1(p2, mul2, shift2, dpooled, idx, gi3, w3, pool, dt):
     q3 = torch.empty((R, C2), dtype=dt, device=dev)
     partA = torch.empty((nblk, C3, C2), dtype=torch.float64, device=dev)
     partu = torch.empty((nblk, C3), dtype=torch.float64, device=dev)
-    launch("sa_pair", _entry("bwd_sweep1", dt),
+    launch("sa_pair", entry("bwd_sweep1", dt),
            [P, L, I, P, P, P, P, P, P, P, P, I, P],
            ptr(p2), R, pool, ptr(vec2), ptr(dpooled), ptr(idx), ptr(gi3),
            ptr(w3), ptr(q3), ptr(partA), ptr(partu), nblk, stream_of(p2),
-           what=_entry("bwd_sweep1", dt))
+           what=entry("bwd_sweep1", dt))
     return reduce(partA), reduce(partu), q3
 
 
@@ -342,11 +340,11 @@ def _sweep2(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3, gi2,
     partG = torch.empty((nblk, C1, C1), dtype=torch.float64, device=dev)
     partu = torch.empty((nblk, C2), dtype=torch.float64, device=dev)
     partc = torch.empty((nblk, C1), dtype=torch.float64, device=dev)
-    launch("sa_pair", _entry("bwd_sweep2", dt),
+    launch("sa_pair", entry("bwd_sweep2", dt),
            [P, I, I, I, P, P, P, P, P, P, P, P, P, P, P, I, P],
            ptr(x3), B, C0, N, ptr(w1), ptr(vec), ptr(p2), ptr(q3), ptr(M3),
            ptr(w2), ptr(mq), ptr(partA), ptr(partG), ptr(partu), ptr(partc),
-           nblk, stream_of(x3), what=_entry("bwd_sweep2", dt))
+           nblk, stream_of(x3), what=entry("bwd_sweep2", dt))
     return (reduce(partA), reduce(partG), reduce(partu), reduce(partc),
             mq)
 
@@ -364,10 +362,10 @@ def _sweep3(x3, w1, b1, mul1, shift1, mq, M2, rc2, dt):
     nblk = grid(x3, R, per_sm=1)
     part = torch.empty((nblk, C1, C0 + 1), dtype=torch.float64,
                        device=x3.device)
-    launch("sa_pair", _entry("bwd_sweep3", dt),
+    launch("sa_pair", entry("bwd_sweep3", dt),
            [P, I, I, I, P, P, P, P, P, I, P],
            ptr(x3), B, C0, N, ptr(w1), ptr(vec), ptr(mq), ptr(M2), ptr(part),
-           nblk, stream_of(x3), what=_entry("bwd_sweep3", dt))
+           nblk, stream_of(x3), what=entry("bwd_sweep3", dt))
     out = reduce(part)
     return out[:, :C0], out[:, C0]
 
@@ -477,36 +475,57 @@ def sa_bwd_sweep3_bf16(x3, w1, b1, mul1, shift1, mq, M2, rc2):
     return out
 
 
+def _sweep2_full(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3,
+                 gi2, w2, dt):
+    B, C0, N = check_x(x3, dt)
+    return _launch_sweep2(x3, B, C0, N, None, w1, b1, mul1, shift1, p2, mul2,
+                          shift2, q3, M3, rc3, gi2, w2, dt)
+
+
 def sa_bwd_sweep2_full(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3,
                        rc3, gi2, w2):
     """B6: sweep 2 of the non-slim backward. -> the accumulators of
-    ops/sa_bwd.py::_sweep2_plain by name."""
+    ops/sa_bwd.py::_sweep2_sums by name."""
     if on_cpu(x3):
         return sa_bwd_sweep2_full_plain(x3, w1, b1, mul1, shift1, p2, mul2,
                                         shift2, q3, M3, rc3, gi2, w2)
-    B, C0, N = check_x(x3)
-    out = _launch_sweep2(x3, B, C0, N, None, w1, b1, mul1, shift1, p2, mul2,
-                         shift2, q3, M3, rc3, gi2, w2)
+    out = _sweep2_full(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3,
+                       rc3, gi2, w2, torch.float32)
     sa_bwd_sweep2_full.launches += 1
+    return out
+
+
+def sa_bwd_sweep2_full_bf16(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3,
+                            M3, rc3, gi2, w2):
+    """B6 at bf16: x, p2, q3 bf16 -> the accumulators in f32."""
+    if on_cpu(x3):
+        return sa_bwd_sweep2_full_bf16_plain(x3, w1, b1, mul1, shift1, p2,
+                                             mul2, shift2, q3, M3, rc3, gi2,
+                                             w2)
+    out = _sweep2_full(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3,
+                       rc3, gi2, w2, BF16)
+    sa_bwd_sweep2_full_bf16.launches += 1
     return out
 
 
 KERNELS = (sa_fwd_layer12, sa_fwd_gram_pool, sa_bwd_sweep1, sa_bwd_sweep2,
            sa_bwd_sweep3, sa_bwd_sweep2_full, sa_fwd_layer12_bf16,
            sa_fwd_gram_pool_bf16, sa_bwd_sweep1_bf16, sa_bwd_sweep2_bf16,
-           sa_bwd_sweep3_bf16)
+           sa_bwd_sweep3_bf16, sa_bwd_sweep2_full_bf16)
 for _k in KERNELS:
     _k.launches = 0
 
 
 def _sweeps(dtype):
-    """pair3's five sweeps at ``dtype``: the bf16 ones, or the f32 ones for
-    any other dtype (the module's names, read at call time)."""
+    """pair3's five sweeps and pair's B6 at ``dtype``: the bf16 ones, or
+    the f32 ones for any other dtype (the module's names, read at call
+    time)."""
     if dtype == BF16:
         return (sa_fwd_layer12_bf16, sa_fwd_gram_pool_bf16,
-                sa_bwd_sweep1_bf16, sa_bwd_sweep2_bf16, sa_bwd_sweep3_bf16)
+                sa_bwd_sweep1_bf16, sa_bwd_sweep2_bf16, sa_bwd_sweep3_bf16,
+                sa_bwd_sweep2_full_bf16)
     return (sa_fwd_layer12, sa_fwd_gram_pool, sa_bwd_sweep1, sa_bwd_sweep2,
-            sa_bwd_sweep3)
+            sa_bwd_sweep3, sa_bwd_sweep2_full)
 
 
 # -- the stage ----------------------------------------------------------
@@ -574,13 +593,11 @@ def sa_backward_pair(x3, layers, stats, res, dpooled, pool: int,
     """The backward of the stage (facl_tpu/ops/pallas/sa_pair.py:711-947):
     B3's sweep 1, then the slim sweeps 2 and 3 (``slim``, pair3) or B6 and
     layer 1 in closed form from its third-order moments (pair). At bf16
-    (pair3 only) the bf16 sweeps, dpooled the bf16 cotangent. With
+    the bf16 sweeps, dpooled the bf16 cotangent. With
     ``mesh`` each sweep's accumulators are summed over the ranks before
     the layer algebra reads them, so the gradients are global. Returns
     ((dW, db, dgamma, dbeta) per layer) in f32."""
-    if not slim:
-        reject_bf16(dtype, "pair")
-    _, _, sweep1, sweep2, sweep3 = _sweeps(dtype)
+    _, _, sweep1, sweep2, sweep3, sweep2_full = _sweeps(dtype)
     lp1, lp2, lp3 = layers
     (mean1, var1), (mean2, var2), (mean3, var3) = stats
     n = _rows_n(x3, mesh)
@@ -606,7 +623,7 @@ def sa_backward_pair(x3, layers, stats, res, dpooled, pool: int,
         t1 = _layer_terms(A1, u1, lp1, mean1, var1, res["Gx"], res["cx"], n,
                           eps)
     else:
-        m = sa_bwd_sweep2_full(*args2)
+        m = sweep2_full(*args2)
         m = dict(zip(m, psum_packed(list(m.values()), mesh)))
         t2 = _layer_terms(m["A2"], m["u2"], lp2, mean2, var2, m["G1"],
                           m["ch1"], n, eps)
@@ -659,10 +676,10 @@ def sa_train_pair(x_cf: torch.Tensor, layers: Sequence[SALayerParams],
                   ) -> Tuple[torch.Tensor, list]:
     """Train-mode SA stage on channel-major neighbourhoods x_cf (B, C0, S,
     K), max-pooled over K: ``sa_impl="pair"`` (B6 backward), or "pair3"
-    with ``slim``. ``dtype=torch.bfloat16`` (pair3 only; pair raises)
-    runs the bf16 sweeps on x_cf cast to bf16; the pooled output is then
-    bf16. With ``mesh`` x_cf is this rank's block and the statistics and
-    parameter gradients are global (B6s, module docstring); the rank's
+    with ``slim``. ``dtype=torch.bfloat16`` runs the bf16 sweeps on x_cf
+    cast to bf16; the pooled output is then bf16. With ``mesh`` x_cf is
+    this rank's block and the statistics and parameter gradients are
+    global (B6s, module docstring); the rank's
     batch row count must be even, as make_sharded_pair asks
     (facl_tpu/ops/pallas/sa_pair.py:1121-1138). Returns (pooled
     (B, S, C3), [(mean, var)] x 3). Differentiable in every layer
@@ -673,8 +690,6 @@ def sa_train_pair(x_cf: torch.Tensor, layers: Sequence[SALayerParams],
         raise ValueError(f"pair stage under dp={mesh.dp}: this rank's "
                          f"batch row count {x_cf.shape[0]} must be even")
     if dtype == BF16:
-        if not slim:
-            reject_bf16(dtype, "pair")
         x_cf = x_cf.to(BF16)
     flat = [t for lp in layers for t in lp]
     out = _Pair.apply(x_cf.contiguous(), eps, slim, dtype, mesh, *flat)

@@ -15,8 +15,9 @@ which reads only batch statistics, so the order against Adam does not
 change any value.
 
 ``compute_dtype`` "bfloat16" (every shipped training config) runs with
-``sa_impl`` pair3 (the bf16 sweeps of B2/B3), reference or auto (which
-resolves to one of them): the SA stage, stage-2 MLP and head compute in
+``sa_impl`` pair3 or pair (the bf16 sweeps of B2/B3 and B6), hybrid2 (B7
+and B8 at bf16), hybrid (B8 at bf16), reference or auto (which resolves to
+pair3 or reference): the SA stage, stage-2 MLP and head compute in
 bf16; parameters, Adam state, losses and BatchNorm statistics stay f32
 (models/pointnet.py).
 
@@ -34,8 +35,8 @@ torch has no program to split: the step is the same one, and a mesh with
 more than one rank raises ValueError, as JAX does (:110-113).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-SwAV and CLD (Queue 1 item 15), and bf16 with any other ``sa_impl``
-(Queue 1 item 19).
+SwAV and CLD (Queue 1 item 15), and bf16 with ``sa_impl`` pallas, covar
+or analytic (Queue 1 item 19).
 """
 from __future__ import annotations
 

@@ -1,16 +1,18 @@
 """The port's bf16 SA paths (``compute_dtype="bfloat16"``) against the JAX
 package at bf16: the five bf16 sweep twins of pair3 (kernels B2a, B2b,
 B3a, B3b, B3c on the card) against the outputs of the JAX sweeps they
-port, run in interpret mode on the same inputs; the pair3 and reference
-stages, train and eval, against the JAX stage at bf16; the row
-references of ops/fused_sa.py at bf16; and the impls that have no bf16
-form yet.
+port, run in interpret mode on the same inputs, and so the six bf16
+twins of B6 (pair's sweep 2), B7 (hybrid2's forward sweeps) and B8
+(hybrid's and hybrid2's backward sweeps); the pair3, pair, hybrid2, hybrid
+and reference stages, train and eval, against the JAX stage at bf16; the
+row references of ops/fused_sa.py at bf16; and the impls that have no
+bf16 form yet (pallas, covar, analytic).
 
 Tolerances:
   * sweep twins vs the JAX sweeps, fed the JAX side's own inputs: the
-    bf16 row outputs (p2, max, min, q3, mq) differ on at most 1% of their
-    entries and there by at most one bf16 ulp (2^-7 of the value); pool
-    indices equal; f32 accumulators within 1e-5 of their max-abs (only
+    bf16 row outputs (p1, p2, max, min, pooled, q3, mq) differ on at most
+    1% of their entries and there by at most one bf16 ulp (2^-7 of the
+    value); pool indices equal; f32 accumulators within 1e-5 of their max-abs (only
     the order of f32 sums of exact bf16 products differs);
   * stages: outputs and BatchNorm statistics at rtol = atol = 5e-2
     (tests/test_covar_bn.py:38-39, the JAX package's bf16 bar); gradients
@@ -32,7 +34,8 @@ from facl_tpu.models.sa_stage import SetAbstractionStage as JaxStage
 from facl_tpu.ops.pallas.sa_bwd import _fold_affine as jax_fold_affine
 from facl_tpu.ops.pallas.sa_bwd import _layer_terms as jax_layer_terms
 from facl_tpu_torch.convert import from_jax
-from facl_tpu_torch.models.sa_stage import IMPLS, SetAbstractionStage
+from facl_tpu_torch.models.sa_stage import BF16_IMPLS, IMPLS, \
+    SetAbstractionStage
 from facl_tpu_torch.ops import sa_pair as SP
 from tests.test_analytic_sa import make_layers
 
@@ -194,6 +197,158 @@ def test_bf16_sweep_twins_match_jax_sweeps(rng, monkeypatch,
     _acc(u1, r[:C1, 2 * C0] + r[C1:, 2 * C0], "u1")
 
 
+def _rec_two_sweep(monkeypatch, store):
+    """Record the pallas_calls of the JAX package's B7 and B8 modules."""
+    import facl_tpu.ops.pallas.sa_bwd as jsb
+    import facl_tpu.ops.pallas.sa_fwd as jsf
+    monkeypatch.setattr(jsf, "pl", _Recorder(store))
+    monkeypatch.setattr(jsb, "pl", _Recorder(store))
+    return jsf, jsb
+
+
+@pytest.mark.parametrize("negative_scale", [False, True])
+def test_bf16_two_sweep_twins_match_jax_sweeps(rng, monkeypatch,
+                                               negative_scale):
+    """The bf16 twins of B7 (x -> p1, p1 -> p2, Gram, pool) and B8 (sweeps
+    1 and 2) against hybrid2's JAX sweeps at bf16 in interpret mode, each
+    fed the JAX side's own inputs."""
+    from facl_tpu_torch.ops import sa_bwd as SB
+    from facl_tpu_torch.ops import sa_fwd as SF
+    x, layers = _setup(rng, negative_scale)
+    rows = x.transpose(0, 2, 3, 1).reshape(-1, C0)
+    store = []
+    jsf, jsb = _rec_two_sweep(monkeypatch, store)
+    xf = jnp.asarray(rows).astype(BF)
+    _, stats, jp1, jp2 = jsf.sa_forward_pallas(xf, layers, K, EPS, BF, True)
+    P = B * S
+    dp = jnp.asarray(rng.normal(size=(P, C3)).astype(np.float32)).astype(BF)
+    jsb.sa_backward_pallas(xf, jp1, jp2, layers, stats, dp, EPS, BF, True)
+    assert len(store) == 6            # layer x2, gram, pool, sweeps 1-2
+    n = B * S * K
+    lp1, lp2, lp3 = layers
+    (m1, v1), (m2, v2), (m3, v3) = stats
+    mul1, shift1 = (_t(a) for a in jax_fold_affine(lp1, m1, v1, EPS))
+    mul2, shift2 = (_t(a) for a in jax_fold_affine(lp2, m2, v2, EPS))
+    mul3, shift3 = (_t(a) for a in jax_fold_affine(lp3, m3, v3, EPS))
+    gi2 = _t(lp2.scale * jax.lax.rsqrt(v2 + EPS))
+    gi3 = _t(lp3.scale * jax.lax.rsqrt(v3 + EPS))
+    (w1, b1, _, _), (w2, b2, _, _), (w3, b3, _, _) = (
+        tuple(_t(t) for t in lp) for lp in layers)
+    bf16 = torch.bfloat16
+    xb = torch.from_numpy(rows).to(bf16)
+
+    # B7a twice: x -> p1, then the JAX p1 -> p2.
+    p1b, p2b = (_t(store[i][0]).to(bf16) for i in (0, 1))
+    for i, args in enumerate(((xb, w1, b1), (p1b, w2, b2, mul1, shift1))):
+        p, s, ss = SF.sa_fwd_layer_bf16(*args)
+        assert p.dtype == bf16
+        _bf16_rows(p, _t(store[i][0]), f"p{i + 1}")
+        _acc(s, _t(store[i][1])[0], f"sum p{i + 1}")
+        _acc(ss, _t(store[i][2])[0], f"sum p{i + 1}^2")
+    # B7b and B7c on the JAX p2.
+    G2, ch2 = SF.sa_fwd_gram_bf16(p2b, mul2, shift2)
+    _acc(G2, _t(store[2][0]), "G2")
+    _acc(ch2, _t(store[2][1])[0], "ch2")
+    pooled = SF.sa_fwd_pool_bf16(p2b, mul2, shift2, w3, b3, mul3, shift3, K)
+    assert pooled.dtype == bf16
+    _bf16_rows(pooled, _t(store[3]), "pooled")
+
+    # B8a: the packed [dy3 | h2]^T [h2 | ones] and q3.
+    A3, u3, G2b, ch2b, q3 = SB.sa_bwd2_sweep1_bf16(
+        p2b, mul2, shift2, w3, b3, mul3, shift3, gi3, _t(dp).to(bf16), K)
+    out1, jq3 = _t(store[4][0]), _t(store[4][1])
+    for a, b_, name in ((A3, out1[:C3, :C2], "A3"), (u3, out1[:C3, C2], "u3"),
+                        (G2b, out1[C3:, :C2], "G2"),
+                        (ch2b, out1[C3:, C2], "ch2")):
+        _acc(a, b_, name)
+    _bf16_rows(q3, jq3, "q3")
+
+    # B8b on the JAX q3 and layer-3 terms: the packed [dy2 | m1 | m1*q2 |
+    # m1*x_i .. | x | h1]^T [h1 | x | ones].
+    t3 = jax_layer_terms(jnp.asarray(out1[:C3, :C2].numpy()),
+                         jnp.asarray(out1[:C3, C2].numpy()), lp3, m3, v3,
+                         jnp.asarray(out1[C3:, :C2].numpy()),
+                         jnp.asarray(out1[C3:, C2].numpy()), n, EPS)
+    m = SB.sa_bwd2_sweep2_bf16(xb, p1b, mul1, shift1, p2b, mul2, shift2,
+                               jq3.to(bf16), _t(t3["M"]), _t(t3["rc"]), gi2,
+                               w2)
+    o = _t(store[5][0])
+    h, xc, one = slice(0, C1), slice(C1, C1 + C0), C1 + C0
+    want = dict(A2=o[:C2, h], u2=o[:C2, one], TM1=o[C2:C2 + C1, h],
+                T1x=o[C2:C2 + C1, xc], cnt1=o[C2:C2 + C1, one],
+                P1=o[C2 + C1:C2 + 2 * C1, xc],
+                acc1=o[C2 + C1:C2 + 2 * C1, one])
+    r = C2 + 2 * C1
+    want["U1"] = torch.stack([o[r + i * C1:r + (i + 1) * C1, h]
+                              for i in range(C0)], -1)
+    r += C0 * C1
+    want.update(Gx=o[r:r + C0, xc], cx=o[r:r + C0, one],
+                G1=o[r + C0:r + C0 + C1, h], ch1=o[r + C0:r + C0 + C1, one])
+    assert set(m) == set(want)
+    for name, w in want.items():
+        _acc(m[name], w, name)
+
+
+@pytest.mark.parametrize("negative_scale", [False, True])
+def test_bf16_b6_twin_matches_jax_sweep(rng, monkeypatch, negative_scale):
+    """The bf16 twin of B6 (pair's non-slim sweep 2, h1 from x) against the
+    JAX pair sweep at bf16 in interpret mode (facl_tpu/ops/pallas/
+    sa_pair.py:333-400), fed the JAX side's p2, q3 and layer-3 terms: its
+    paired main [dy2 | m1 | m1*x_i .. | h1]^T h1 and aux [dy2 | m1 | m1*q2
+    | x | h1]^T [x | ones] products, folded."""
+    x, layers = _setup(rng, negative_scale)
+    store = []
+    monkeypatch.setattr(jsp, "pl", _Recorder(store))
+    xf = jnp.asarray(x).astype(BF).reshape(B, C0, S * K)
+    pooled, stats, p2p, gram2, idxp, gramx = jsp.sa_forward_pair(
+        xf, layers, K, EPS, BF, True, True)
+    dp = jnp.asarray(rng.normal(size=(B * S, C3)).astype(np.float32)
+                     ).astype(BF)
+    jsp.sa_backward_pair(xf, p2p, gram2, idxp, gramx, layers, stats, dp, EPS,
+                         BF, True, False)
+    assert len(store) == 4            # layer12, gram_pool, sweep 1, B6
+    n = B * S * K
+    lp1, lp2, lp3 = layers
+    (m1, v1), (m2, v2), (m3, v3) = stats
+    mul1, shift1 = jax_fold_affine(lp1, m1, v1, EPS)
+    mul2, shift2 = jax_fold_affine(lp2, m2, v2, EPS)
+    gi2 = lp2.scale * jax.lax.rsqrt(v2 + EPS)
+    (w1, b1, _, _), (w2, _, _, _), _ = (tuple(_t(t) for t in lp)
+                                        for lp in layers)
+    bf16 = torch.bfloat16
+    x3 = torch.from_numpy(x).reshape(B, C0, S * K).to(bf16)
+    r = store[2]
+    jA3, ju3, jq3 = _fold2(r[0], C3, C2), _lanes(r[1], C3), _unpair(r[2], C2)
+    t3 = jax_layer_terms(jnp.asarray(jA3.numpy()), jnp.asarray(ju3.numpy()),
+                         lp3, m3, v3, gram2[0], gram2[1], n, EPS)
+    m = SP.sa_bwd_sweep2_full_bf16(
+        x3, w1, b1, _t(mul1), _t(shift1), _unpair(store[0][0], C2).to(bf16),
+        _t(mul2), _t(shift2), jq3.to(bf16), _t(t3["M"]), _t(t3["rc"]),
+        _t(gi2), w2)
+    om, oa = _t(store[3][0]), _t(store[3][1])
+
+    def fm(i, a, b_):       # the i-th (2a, 2C1) block of main, folded
+        return om[i:i + 2 * a, :2 * b_][:a, :b_] + \
+            om[i:i + 2 * a, :2 * b_][a:, b_:]
+
+    def fa(i, a):           # aux rows i .. i + 2a: x block folded, ones
+        blk = oa[i:i + 2 * a]
+        return (blk[:a, :C0] + blk[a:, C0:2 * C0],
+                blk[:a, 2 * C0] + blk[a:, 2 * C0])
+    want = dict(A2=fm(0, C2, C1), TM1=fm(2 * C2, C1, C1),
+                U1=torch.stack([fm(2 * C2 + 2 * C1 * (1 + i), C1, C1)
+                                for i in range(C0)], -1),
+                G1=fm(2 * C2 + 2 * C1 * (1 + C0), C1, C1))
+    want["u2"] = fa(0, C2)[1]
+    want["T1x"], want["cnt1"] = fa(2 * C2, C1)
+    want["P1"], want["acc1"] = fa(2 * C2 + 2 * C1, C1)
+    want["Gx"], want["cx"] = fa(2 * C2 + 4 * C1, C0)
+    want["ch1"] = fa(2 * C2 + 4 * C1 + 2 * C0, C1)[1]
+    assert set(m) == set(want)
+    for name, w in want.items():
+        _acc(m[name], w, name)
+
+
 def _jax_stage(impl, x, dtype):
     stage = JaxStage(WIDTHS, impl=impl, dtype=dtype)
     variables = stage.init(jax.random.PRNGKey(0), jnp.asarray(x), train=True)
@@ -236,7 +391,8 @@ def _grad_bars(port, ref, name):
     assert rel < 0.15 and cos > 0.99, (name, rel, cos)
 
 
-@pytest.mark.parametrize("impl", ["pair3", "reference"])
+@pytest.mark.parametrize("impl", ["pair3", "pair", "hybrid2", "hybrid",
+                                  "reference"])
 def test_bf16_stage_matches_jax(rng, impl):
     x = rng.normal(size=(2, 4, 8, 4)).astype(np.float32)      # (B, S, K, C)
     variables, jloss, jbs, jg, jout, jeval = _jax_stage(impl, x, BF)
@@ -266,14 +422,17 @@ def test_bf16_stage_matches_jax(rng, impl):
     _close(eo, _t(jeval), "eval")
 
 
-def test_bf16_pair3_grads_no_farther_from_f64_than_twice_jax(rng):
+@pytest.mark.parametrize("impl", ["pair3", "pair", "hybrid2", "hybrid"])
+def test_bf16_pair3_grads_no_farther_from_f64_than_twice_jax(rng, impl):
+    """The bf16 stage of each impl with bf16 kernels (pair3 first, whence
+    the name) against float64, beside the JAX package's same impl."""
     x = rng.normal(size=(2, 4, 8, 4)).astype(np.float32)
-    variables, _, _, jg, _, _ = _jax_stage("pair3", x, BF)
+    variables, _, _, jg, _, _ = _jax_stage(impl, x, BF)
     grads = {}
-    for label, impl, dtype, cast in (("port", "pair3", torch.bfloat16, None),
-                                     ("f64", "reference", torch.float32,
-                                      torch.float64)):
-        st = _port_stage(variables, impl, dtype).train()
+    for label, run, dtype, cast in (("port", impl, torch.bfloat16, None),
+                                    ("f64", "reference", torch.float32,
+                                     torch.float64)):
+        st = _port_stage(variables, run, dtype).train()
         xt = torch.from_numpy(x)
         if cast is not None:
             st, xt = st.to(cast), xt.to(cast)
@@ -291,8 +450,7 @@ def test_bf16_pair3_grads_no_farther_from_f64_than_twice_jax(rng):
     assert 0 < e_port <= 2 * e_jax, (e_port, e_jax)
 
 
-@pytest.mark.parametrize("impl", [i for i in IMPLS
-                                  if i not in ("pair3", "reference")])
+@pytest.mark.parametrize("impl", [i for i in IMPLS if i not in BF16_IMPLS])
 @pytest.mark.parametrize("cpu_input", [True, False])
 def test_impls_without_bf16_raise(rng, impl, cpu_input):
     """Train mode at bf16 raises NotImplementedError naming the ROADMAP

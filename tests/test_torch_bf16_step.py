@@ -1,10 +1,12 @@
 """The port's training step at ``compute_dtype="bfloat16"`` against the JAX
 package's: one step of each Trainer from the same weights (carried by
 ``convert.from_jax``), points and circle permutation, for
-``sa_impl="reference"`` and ``"pair3"`` (the JAX pair3 kernels in
-interpret mode, the port's bf16 sweep twins); the shipped training
-configs, loaded as they are, stepping the port's Trainer at full width;
-the impls without a bf16 form raising; and the bf16 GEMM flag.
+``sa_impl="reference"``, ``"pair3"``, ``"pair"``, ``"hybrid2"`` and
+``"hybrid"`` (the JAX kernels in interpret mode, the port's bf16 sweep
+twins); the shipped training configs, loaded as they are, stepping the
+port's Trainer at full width, with the config's sa_impl and with each
+impl that has bf16 kernels; the impls without a bf16 form (pallas,
+covar, analytic) raising; and the bf16 GEMM flag.
 
 Tolerances (the JAX package's bf16 bars, tests/test_covar_bn.py:38-39):
 the loss at rtol 5e-2; the BatchNorm running statistics after the step
@@ -59,7 +61,8 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-@pytest.mark.parametrize("sa_impl", ["reference", "pair3"])
+@pytest.mark.parametrize("sa_impl", ["reference", "pair3", "pair", "hybrid2",
+                                     "hybrid"])
 def test_bf16_step_matches_jax_trainer(rng, sa_impl):
     points = rng.normal(size=(G, B, N, 4)).astype(np.float32)
     key = jax.random.PRNGKey(11)
@@ -112,13 +115,15 @@ def test_bf16_step_matches_jax_trainer(rng, sa_impl):
                                    atol=5e-2, err_msg=name)
 
 
-@pytest.mark.parametrize("sa_impl", [None, "auto"])
+@pytest.mark.parametrize("sa_impl", [None, "auto", "pair", "hybrid2",
+                                     "hybrid"])
 @pytest.mark.parametrize("name", ["motion_ntu60_xview.json",
                                   "appearance_ntu60_xsub.json"])
 def test_shipped_bf16_config_steps_at_full_width(rng, name, sa_impl):
     """The shipped config as it is (bf16, sa_impl "reference"), and with
-    sa_impl forced to "auto" (bf16 pair3 at these widths): the port's
-    Trainer builds and takes one full-width step on the CPU at batch 2."""
+    sa_impl forced to "auto" (bf16 pair3 at these widths), "pair",
+    "hybrid2" or "hybrid": the port's Trainer builds and takes one
+    full-width step on the CPU at batch 2."""
     cfg = Config.from_json((ROOT / "configs" / name).read_text())
     assert cfg.model.compute_dtype == "bfloat16"
     assert cfg.model.sa_impl == "reference"
@@ -127,7 +132,8 @@ def test_shipped_bf16_config_steps_at_full_width(rng, name, sa_impl):
                                                     sa_impl=sa_impl))
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=2))
     tr = Trainer(cfg, steps_per_epoch=10, device="cpu")
-    assert tr.cfg.model.sa_impl == ("pair3" if sa_impl else "reference")
+    assert tr.cfg.model.sa_impl == {None: "reference", "auto": "pair3"}.get(
+        sa_impl, sa_impl)
     state = tr.init_state(0)
     pts = torch.from_numpy(rng.normal(
         size=(cfg.model.num_crops, 2, cfg.data.num_points,
@@ -140,8 +146,7 @@ def test_shipped_bf16_config_steps_at_full_width(rng, name, sa_impl):
                          bool(torch.isfinite(g).all()) for g in grads)
 
 
-@pytest.mark.parametrize("sa_impl", ["pair", "hybrid2", "hybrid", "pallas",
-                                     "covar", "analytic"])
+@pytest.mark.parametrize("sa_impl", ["pallas", "covar", "analytic"])
 def test_trainer_rejects_bf16_for_impls_without_it(sa_impl):
     cfg = _cfg(Config, GroupingConfig, sa_impl)
     with pytest.raises(NotImplementedError, match="Queue 1 item 19"):

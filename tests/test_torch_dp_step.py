@@ -17,9 +17,14 @@ against the port's one-process step at normalised max-abs 2e-4 in f32 and
 a missing sum over the ranks fails either, where Adam's scale-invariant
 first step would hide it), the two ranks' loss and gradients equal, their
 parameters bit-equal after three steps, and the collectives of one step
-counted. Also: the impls without a data-parallel form raise under dp = 2,
-and ``split_step`` raises under dp = 2 and runs the same step on one
-process."""
+counted. At bf16 also: the two ranks' loss and running statistics
+bit-equal to one process rounding as two ranks do
+(tests/torch_two_halves.py, which also runs the pair stage as two ranks
+in two threads, its all-reduces summing the threads' buffers). Also: the impls
+without a data-parallel form raise under dp = 2, and ``split_step``
+raises under dp = 2 and runs the same step on one process."""
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +44,7 @@ from facl_tpu_torch.convert import from_jax
 from facl_tpu_torch.parallel import spawn
 from facl_tpu_torch.train import Trainer
 from tests.torch_dp_ranks import dp_rejects_body, dp_step_body
+from tests.torch_two_halves import as_two_halves
 
 G, B, N, C = 4, 8, 32, 4
 LR = 1e-3
@@ -49,6 +55,7 @@ CASES = (("pair3", "pair3", "float32", (8, 8, 16)),
          ("pair", "pair", "float32", (8, 8, 16)),
          ("reference", "reference", "float32", (8, 16)),
          ("pair3 bf16", "pair3", "bfloat16", (8, 8, 16)),
+         ("pair bf16", "pair", "bfloat16", (8, 8, 16)),
          ("reference bf16", "reference", "bfloat16", (8, 16)))
 ABSORBED = ("sa_stage.bias_", "stage2_mlp.dense_0.bias",
             "stage2_mlp.dense_1.bias", "head.Dense_0.bias")
@@ -72,11 +79,14 @@ JAX = (JaxConfig, JaxGroupingConfig, JaxModelConfig, JaxTrainConfig,
 PORT = (Config, GroupingConfig, ModelConfig, TrainConfig, OptimConfig)
 
 
-def _one_process(cfg, sd, points, perm, **train):
+def _one_process(cfg, sd, points, perm, halves=False):
+    """The one-process step; with ``halves``, rounding as two ranks do
+    (tests/torch_two_halves.py)."""
     tr = Trainer(cfg, steps_per_epoch=10, device="cpu")
     st = tr.init_state(0)
     st.model.load_state_dict(sd)
-    st, m = tr.step_fn(st, points, perm=perm)
+    with as_two_halves() if halves else contextlib.nullcontext():
+        st, m = tr.step_fn(st, points, perm=perm)
     return dict(loss=float(m["loss"]),
                 grads={n: p.grad.clone() for n, p in
                        st.model.named_parameters() if p.grad is not None},
@@ -107,6 +117,9 @@ def runs():
                      buffers=from_jax({}, jax.tree_util.tree_map(
                          np.asarray, js.batch_stats))),
             one=_one_process(cfg, sd, torch.from_numpy(points), perm))
+        if dtype == "bfloat16":
+            out[label]["halves"] = _one_process(
+                cfg, sd, torch.from_numpy(points), perm, halves=True)
         cases.append((label, cfg, sd))
     ranks = spawn(dp_step_body, 2, "gloo",
                   args=(cases, torch.from_numpy(points), perm, STEPS),
@@ -172,6 +185,25 @@ def test_dp_gradients_match_one_process(runs, label):
             max(float(want.abs().max()), 1e-30)
         err = float((got - want).abs().max()) / scale
         assert err <= bar, (n, err)
+
+
+@pytest.mark.parametrize("label", [c[0] for c in CASES
+                                   if c[2] == "bfloat16"])
+def test_dp_bf16_matches_one_process_as_two_halves(runs, label):
+    """The two ranks' bf16 step against one process rounding as the two
+    ranks do (tests/torch_two_halves.py: each Dense GEMM and BatchNorm
+    sum split by halves, and the pair stage run as two ranks in two
+    threads, its all-reduces summing their buffers): the loss and the
+    running statistics equal. One process on the whole batch rounds
+    otherwise, and at bf16 a rounding moves a value by 2^-8 of itself; the
+    witness shows that the two ranks compute what one process computes up
+    to those roundings."""
+    run = runs[label]
+    want = run["halves"]
+    for r in run["ranks"]:
+        assert r["loss"] == want["loss"]
+        for n, w in want["buffers"].items():
+            assert torch.equal(r["buffers"][n], w), n
 
 
 @pytest.mark.parametrize("label", [c[0] for c in CASES])

@@ -7,8 +7,8 @@ case and bars of tests/test_sa_pair.py:297-349 (B=16, S=4, K=8, C=4,
 widths (8, 8, 16); slim and non-slim): statistics at rtol 1e-5 / atol 1e-6
 (means) and rtol 1e-4 / atol 1e-6 (variances), parameter gradients at
 rtol 5e-4 / atol 5e-5. The gradients come back global: the same on both
-ranks, and not dp times the unsharded ones. pair3 at bf16 is held against
-the port's own one-process bf16 stage at the same bars."""
+ranks, and not dp times the unsharded ones. pair3 and pair at bf16 are
+held against the port's own one-process bf16 stage at the same bars."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +26,7 @@ B, S, K, C = 16, 4, 8, 4            # 8 batch rows a rank (even)
 WIDTHS = (8, 8, 16)
 EPS = 1e-5
 F32, BF16 = torch.float32, torch.bfloat16
-CASES = ((False, F32), (True, F32), (True, BF16))
+CASES = ((False, F32), (True, F32), (False, BF16), (True, BF16))
 NAMES = ("kernel", "bias", "scale", "shift")
 
 
@@ -64,7 +64,8 @@ def runs():
     np_layers = [tuple(np.asarray(t) for t in lp) for lp in layers]
     jax_out = {slim: _jax(jnp.asarray(x_cf), layers, jnp.asarray(wvec), slim)
                for slim in (False, True)}
-    one = _one_process(x_cf, np_layers, wvec, True, BF16)
+    one = {slim: _one_process(x_cf, np_layers, wvec, slim, BF16)
+           for slim in (False, True)}
     ranks = spawn(sharded_pair_body, 2, "gloo",
                   args=(torch.from_numpy(x_cf), np_layers,
                         torch.from_numpy(wvec), CASES), timeout_s=180)
@@ -120,9 +121,10 @@ def test_b6s_all_reduces_per_step(runs, slim):
         assert sum(out["counts"].values()) == out["counts"]["psum"]
 
 
-def test_sharded_pair3_bf16_matches_one_process(runs):
+@pytest.mark.parametrize("slim", [False, True], ids=["pair", "pair3"])
+def test_sharded_pair3_bf16_matches_one_process(runs, slim):
     _, one, ranks = runs
-    case = (True, BF16)
+    case, one = (slim, BF16), one[slim]
     pooled = torch.cat([r[case]["pooled"] for r in ranks])
     assert pooled.dtype == BF16
     np.testing.assert_allclose(pooled.float().numpy(),

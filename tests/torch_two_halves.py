@@ -1,0 +1,137 @@
+"""One process that rounds as two data-parallel ranks do: the witness
+that tests/test_torch_dp_step.py and chip_smoke.py's phase 7 hold the
+two ranks' train step against. This module imports torch and the port
+only (no JAX).
+
+Under ``as_two_halves()``:
+
+- each stage-2 and head Dense GEMM and each reference SA layer's GEMM
+  runs as two calls, one on each half of its rows (the rows a rank
+  holds);
+- each BatchNorm moment sum is taken over each half, then added
+  (``global_moments`` over two ranks);
+- the pair/pair3 stage (``ops/sa_pair.py::_Pair``, f32 and bf16) runs as
+  B6s runs it on two ranks: each half of the clouds in a thread of its
+  own with a mesh of two, and each ``psum_packed`` of the stage sums the
+  two threads' float64 buffers at a barrier, in place of the all_reduce
+  (``collectives._all_reduce``). The stage's own code, its packing and
+  the finalize of the float64 sums run unchanged.
+"""
+import contextlib
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from facl_tpu_torch.models import layers
+from facl_tpu_torch.ops import fused_sa
+from facl_tpu_torch.ops import sa_pair as SP
+from facl_tpu_torch.parallel import collectives
+from facl_tpu_torch.parallel.mesh import Mesh
+
+
+def halves(x):
+    """The two ranks' blocks of rows ``x`` (dim 0)."""
+    return x[:x.shape[0] // 2], x[x.shape[0] // 2:]
+
+
+class _Exchange:
+    """The all_reduce of two threads: each puts its buffer in its rank's
+    slot, and both read the sum once both are in."""
+
+    def __init__(self):
+        self.slots = [None, None]
+        self.barrier = threading.Barrier(2, timeout=600)
+
+    def all_reduce(self, t, mesh):
+        self.slots[mesh.rank] = t
+        self.barrier.wait()
+        out = self.slots[0] + self.slots[1]
+        self.barrier.wait()     # both have read before a slot is reused
+        return out
+
+
+def _two_ranks(fn):
+    """[fn(mesh) for the two ranks], each in a thread of its own (grad
+    mode off, as in an autograd Function's forward and backward), meeting
+    at each all_reduce of the stage."""
+    ex = _Exchange()
+
+    def rank(r):
+        try:
+            with torch.no_grad():
+                return fn(Mesh(dp=2, rank=r, group=ex))
+        except BaseException:
+            ex.barrier.abort()   # the other rank stops waiting and raises
+            raise
+
+    saved = collectives._all_reduce
+    collectives._all_reduce = lambda t, mesh: mesh.group.all_reduce(t, mesh)
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            futures = [pool.submit(rank, r) for r in range(2)]
+            return [f.result() for f in futures]
+    finally:
+        collectives._all_reduce = saved
+
+
+class _PairAsTwoRanks(torch.autograd.Function):
+    """``sa_pair._Pair`` with each half of the clouds on a rank of its
+    own: pooled rows joined in rank order; the statistics and the
+    parameter gradients, global on both ranks, taken from rank 0 once
+    they are found bit-equal on rank 1."""
+
+    @staticmethod
+    def forward(ctx, x_cf, eps, slim, dtype, mesh, *flat):
+        lps = [SP.SALayerParams(*flat[4 * i:4 * i + 4]) for i in range(3)]
+        Bv, C0, S, K = x_cf.shape
+        x3 = halves(x_cf.reshape(Bv, C0, S * K))
+        outs = _two_ranks(lambda m: SP.sa_forward_pair(
+            x3[m.rank], lps, K, eps, dtype, m))
+        stats = [[t for s in o[1] for t in s] for o in outs]
+        if not all(torch.equal(a, b) for a, b in zip(*stats)):
+            raise AssertionError("the two ranks' statistics differ")
+        ctx.args = (x3, lps, outs, K, eps, slim, dtype, x_cf.shape)
+        ctx.mark_non_differentiable(*stats[0])
+        return (torch.cat([o[0] for o in outs]).reshape(Bv, S, -1),
+                *stats[0])
+
+    @staticmethod
+    def backward(ctx, dpooled, *_):
+        x3, lps, outs, K, eps, slim, dtype, shape = ctx.args
+        dp = halves(dpooled.reshape(-1, dpooled.shape[-1]))
+        grads = _two_ranks(lambda m: SP.sa_backward_pair(
+            x3[m.rank], lps, outs[m.rank][1], outs[m.rank][2], dp[m.rank],
+            K, eps, slim, dtype, m))
+        flat = [[g for lp in gr for g in lp] for gr in grads]
+        if not all(torch.equal(a, b) for a, b in zip(*flat)):
+            raise AssertionError("the two ranks' gradients differ")
+        return (torch.zeros(shape, dtype=x3[0].dtype, device=x3[0].device),
+                None, None, None, None, *flat[0])
+
+
+def _moments(flat, mesh):
+    """``global_moments`` over two ranks' halves of ``flat``."""
+    C, n = flat.shape[-1], flat.shape[0]
+    s = sum(torch.cat([h.sum(0), (h * h).sum(0)]) for h in halves(flat))
+    mean = s[:C] / n
+    return mean, (s[C:] / n - mean * mean).clamp_min(0.0)
+
+
+@contextlib.contextmanager
+def as_two_halves():
+    """The port's train step, for the block, rounding as two ranks do
+    (module docstring)."""
+    dense, sa_dense, moments0, pair = (layers.apply_dense, fused_sa._dense,
+                                       layers.global_moments, SP._Pair)
+    layers.apply_dense = lambda lin, x, dtype=torch.float32: torch.cat(
+        [dense(lin, h, dtype) for h in halves(x)])
+    fused_sa._dense = lambda h, lp, dtype: torch.cat(
+        [sa_dense(x, lp, dtype) for x in halves(h)])
+    layers.global_moments = fused_sa.global_moments = _moments
+    SP._Pair = _PairAsTwoRanks
+    try:
+        yield
+    finally:
+        layers.apply_dense, fused_sa._dense, SP._Pair = dense, sa_dense, pair
+        layers.global_moments = fused_sa.global_moments = moments0
