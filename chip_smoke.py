@@ -6,11 +6,11 @@ every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py --profile   # + a torch.profiler breakdown of
                                       #   one main-path step
     python3 chip_smoke.py --parent DIR  # + B1, B2a, B2b, B3a, B3b, B3c
-                                        #   and the f32 B6, B7 and B8 of
-                                        #   the tree in DIR (a git archive
-                                        #   of another commit) timed
-                                        #   against this tree's, in turns,
-                                        #   their outputs bit-equal
+                                        #   and the f32 B6, B7, B8 and B9
+                                        #   of the tree in DIR (a git
+                                        #   archive of another commit)
+                                        #   timed against this tree's, in
+                                        #   turns, their outputs bit-equal
 
 Phases (any failure exits nonzero, before the final line):
   1. build   every kernel from facl_tpu_torch/ops/csrc (one nvcc per
@@ -50,9 +50,13 @@ Phases (any failure exits nonzero, before the final line):
              max-abs, run to run bit-identical; timed, with bounds at bf16
              bytes or the bf16 tensor-core rate per product; B6, B7 and
              B8 at bf16 alike, their accumulators within ACC2_BAR of
-             their max-abs and cnt1 exact (two_sweep_bf16_rows). Then
+             their max-abs and cnt1 exact (two_sweep_bf16_rows); B9's
+             eight launches at bf16 alike (b9_bf16_rows: the bf16
+             cotangent zeroed on bf16 near-tie pairs, pooled bit-equal
+             outside them, accumulators within B9_BF16_BAR, dx at rtol
+             1e-5 but at counted rows). Then
              the whole SA stage (forward + backward) of each sa_impl with
-             kernels (pair3, pair, hybrid2, hybrid, pallas, and pair3 at
+             kernels (pair3, pair, hybrid2, hybrid, pallas, and each at
              bf16) at K=64 and K=128 on the same inputs as kernels, twins
              and float64 twins: the kernels must be as close to float64
              as the twins (the bf16 kernels as the bf16 twins);
@@ -65,16 +69,19 @@ Phases (any failure exits nonzero, before the final line):
              reaches and at relative L2 1e-2 everywhere (phase_cpu_vs_card
              says why); and pair3 at bf16, CPU (bf16 twins) vs card (bf16
              kernels): loss at rtol 1e-2, the card's gradients no farther
-             from float64 than twice the CPU's (_cpu_vs_card_bf16);
+             from float64 than twice the CPU's (_cpu_vs_card_bf16); the
+             same for pallas at bf16 (B9's bf16 sweeps);
   4. main    the Trainer at full width, f32, B=64 (bench.py's workload),
              sa_impl pair3 (the default; the headline): 2 warm-up steps
              (run_epoch), then 40 steps timed by CUDA events between steps
              (median and spread); then pair, hybrid2, hybrid and pallas, 2
              warm-up and 20 timed steps each, and pallas on the split
              grouping routes (select_impl=pallas / gather_impl=xla: B4;
-             xla / pallas: B5a), 2 + 5 steps each; then compute_dtype
-             bfloat16 (the shipped training configs' dtype): pair3 (the
-             bf16 sweeps) 40 steps and reference 20. Losses finite and every
+             xla / pallas: B5a), 2 + 5 steps each; covar and analytic (no
+             SA kernel) 20 each; then compute_dtype bfloat16 (the shipped
+             training configs' dtype): pair3 (the bf16 sweeps) 40 steps,
+             reference, pair, hybrid2, hybrid, pallas (B9 at bf16), covar
+             and analytic 20 each. Losses finite and every
              kernel of each path launched exactly its count per step
              (counters zeroed just before each path, read just after).
              --profile adds one profiled step to each impl's path: kernel
@@ -82,7 +89,8 @@ Phases (any failure exits nonzero, before the final line):
   5. input   d(loss)/d(points) through each grouping route and the
              pallas SA stage with input_grad (B9's dx, B5b) at B=8: card
              kernels vs card twins vs CPU (phase_input_grad), with exact
-             launches per route;
+             launches per route; and the bf16 pallas stage on the default
+             route (B9's bf16 sweeps with dx, B1, B5b) at the bf16 bars;
   6. pipeline the user's flow through the port's CLIs, in this process,
              on a random 192-video tree written under build/ (deleted at
              the end): the native .npy loader in use, its host ms per
@@ -235,15 +243,18 @@ def device_ms(fn, n: int = 20):
     return s.elapsed_time(e) / n, host * 1e6
 
 
-def bound(nbytes: float, ops: float, tc_ops: float = 0.0, passes: int = 3):
+def bound(nbytes: float, ops: float, tc_ops: float = 0.0, passes: int = 3,
+          bf16_ops: float = 0.0):
     """(ms, "bytes" or "operations"): the larger of bytes over the memory
     rate and the operations over their peak rates — ``ops`` f32 on CUDA
     cores, ``tc_ops`` (product flops) on tensor cores in ``passes`` TF32
     passes each (3xTF32, or B2a's 6xTF32), or with ``passes=0`` once at
-    the bf16 rate (bf16 operands, f32 accumulation)."""
+    the bf16 rate (bf16 operands, f32 accumulation); ``bf16_ops``
+    (product flops of bf16 operands) at the bf16 rate beside them (B9 at
+    bf16: its f32-operand products in 3xTF32)."""
     tb = nbytes / PEAK_BYTES * 1e3
     tc = passes * tc_ops / PEAK_TF32 if passes else tc_ops / PEAK_BF16
-    to = (ops / PEAK_F32 + tc) * 1e3
+    to = (ops / PEAK_F32 + tc + bf16_ops / PEAK_BF16) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -338,17 +349,19 @@ def near_ties(z, pool: int, tol: float):
         ((zmax[:, 0] > 0) & ((gap > 0) & (gap <= tol)).any(1))
 
 
-def b9_z(x, layers, packed):
+def b9_z(x, layers, packed, bf=False):
     """z (R, C_L) of B9's top layer, its BatchNorm output before the ReLU,
     recomputed by the twins' op chain in x's dtype from the forward's
-    packed statistics (for near_ties and the routing records)."""
+    packed statistics (for near_ties and the routing records); with
+    ``bf`` the bf16 chain's, rounded to bf16 as B9 at bf16 routes on it."""
     from facl_tpu_torch.ops import sa_kernel as SK
+    r = SK._rb if bf else SK._same
     layers = [SK.SALayerParams(*(t.to(x.dtype) for t in lp)) for lp in layers]
-    v = SK.vectors(layers, packed.to(x.dtype), None, x.shape[0])
-    h = SK._forward_plain(x, layers, v, len(layers) - 1)[1][-1]
+    v = SK.vectors(layers, packed.to(x.dtype), None, x.shape[0], bf)
+    h = SK._forward_plain(x, layers, v, len(layers) - 1, bf)[1][-1]
     w = layers[-1].kernel.shape[1]
-    return (h @ layers[-1].kernel + v[-1, 0, :w]) * v[-1, 3, :w] \
-        + v[-1, 4, :w]
+    return r((r(h @ r(layers[-1].kernel)) + v[-1, 0, :w]) * v[-1, 3, :w]
+             + v[-1, 4, :w])
 
 
 def _z64(p2, stats, lp2, lp3, eps=1e-5):
@@ -395,7 +408,8 @@ def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3", dtype=None):
                 xd, L, pool, 1e-5, low if dt == torch.float32 else dt)
         elif impl == "pallas":
             pooled, stats, packed = SK.sa_train_forward_unified(
-                rows.to(dt), L, pool, 1e-5)
+                rows.to(dt), L, pool, 1e-5,
+                low if dt == torch.float32 else dt)
             res = dict(packed=packed)
         else:
             f = SF.sa_forward_4sweep if impl == "hybrid2" else SB._forward_ps
@@ -418,7 +432,8 @@ def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3", dtype=None):
                 slim=impl == "pair3", dtype=low if k else dt)
         elif impl == "pallas":
             outs["dx"], grads = SK.sa_train_backward_unified(
-                rows.to(dt), L, res["packed"], route.to(dt), pool)
+                rows.to(dt), L, res["packed"], route.to(dt), pool, True,
+                low if dt == torch.float32 else dt)
         else:
             k = dt == torch.float32
             grads = SB.sa_backward_2sweep(
@@ -672,35 +687,46 @@ def b5_rows(flat, idx, g, label):
                  source=SRC_GA, replaces="facl_tpu/ops/pallas/gather.py:126")]
 
 
-def b9_ops(widths, C0, sweep, target=-1):
+def b9_ops(widths, C0, sweep, target=-1, split=False):
     """f32 operations per row of one B9 launch, from the TPU kernel's own
     recomputes: a layer costs 2 cin w for its product and 4 w for bias,
     affine and ReLU; stats sweeps 4 w more for the sums; the pool 1 per
     top element, its cotangent split 3; the backward per layer 8 w for
     mask, xhat and dp (6 w for the target's sums), 2 cin w for da = dp
     W^T below the top, and in the final sweep 2 cin w + w for dW and db
-    and the dx product."""
+    and the dx product. With ``split``, the same operations as (products
+    of bf16 operands at compute_dtype bfloat16: the forward products and
+    da; products with an f32 operand: dW and dx; the rest)."""
     cins = [C0] + list(widths[:-1])
     L = len(widths)
+    bf = f32 = rest = 0
 
-    def fwd(n):
-        return sum(2 * cins[l] * widths[l] + 4 * widths[l] for l in range(n))
+    def layer(l):
+        return 2 * cins[l] * widths[l], 4 * widths[l]
+    n = target if sweep == "stats" else L
+    for l in range(n):
+        prod, other = layer(l)
+        bf, rest = bf + prod, rest + other
     if sweep == "stats":
-        return fwd(target) + 2 * cins[target] * widths[target] \
-            + 4 * widths[target]
-    if sweep == "pool":
-        return fwd(L) + widths[-1]
-    ops = fwd(L) + 3 * widths[-1]
-    stop = target if sweep == "bnsum" else -1
-    for l in range(L - 1, stop, -1):
-        ops += 8 * widths[l]
-        if l or sweep == "final":
-            ops += 2 * cins[l] * widths[l]            # da (dx at l = 0)
-        if sweep == "final":
-            ops += 2 * cins[l] * widths[l] + widths[l]
-    if sweep == "bnsum":
-        ops += 6 * widths[target]
-    return ops
+        prod, other = layer(target)
+        bf, rest = bf + prod, rest + other        # its bias and sums
+    elif sweep == "pool":
+        rest += widths[-1]
+    else:
+        rest += 3 * widths[-1]
+        stop = target if sweep == "bnsum" else -1
+        for l in range(L - 1, stop, -1):
+            rest += 8 * widths[l]
+            if l:
+                bf += 2 * cins[l] * widths[l]          # da
+            elif sweep == "final":
+                f32 += 2 * cins[l] * widths[l]         # dx
+            if sweep == "final":
+                f32 += 2 * cins[l] * widths[l]         # dW
+                rest += widths[l]                      # db
+        if sweep == "bnsum":
+            rest += 6 * widths[target]
+    return (bf, f32, rest) if split else bf + f32 + rest
 
 
 def b9_rows(xr, layers, K, dpooled):
@@ -777,6 +803,147 @@ def b9_rows(xr, layers, K, dpooled):
     print(f"B9: dpooled zeroed on {int(near.sum())} of {near.numel()} "
           "near-tie (group, channel) pairs; every sweep within its bars",
           flush=True)
+    return rows
+
+
+def b9_bf16_near_ties(xr, layers, packed, K):
+    """(P, C_L) bool: the (group, channel) pairs whose bf16 pool routing
+    sits one rounding from a switch, on the twin's bf16 top activations
+    (b9_z): a distinct value within one bf16 ulp below the group's max, a
+    positive max within one ulp of zero, or a dead group with a y within
+    one ulp of zero. A product whose f32 sum lies at a bf16 rounding
+    midpoint rounds the other way in a kernel that sums in another order,
+    and moves its row by an ulp."""
+    z = b9_z(xr, layers, packed, True)
+    zg = z.reshape(-1, K, z.shape[1])
+    h = torch.relu(zg)
+    m = h.amax(1, keepdim=True)
+    u = bf16_ulp(m)
+    return (((m - h) > 0) & ((m - h) <= u)).any(1) | \
+        ((m[:, 0] > 0) & (m[:, 0] <= u[:, 0])) | \
+        ((m[:, 0] == 0) & (zg > -u).any(1))
+
+
+#: b9_bf16_rows' bar for an f32 accumulator of B9 at bf16 against its
+#: twin, as a share of the twin's max-abs. Each sweep recomputes every
+#: layer from x, so a product that the kernel rounds to the other bf16
+#: neighbour (its f32 sum at a rounding midpoint) moves its row's values
+#: downstream, with or without the near-tie pairs' cotangent zeroed: on
+#: an NVIDIA H100 80GB HBM3 at 700 W this script reads 7.35e-5 (layer 0's
+#: BN sum of dy xhat), above ACC2_BAR's 3e-5 for sweeps fed stored rows.
+B9_BF16_BAR = 3e-4
+
+
+def b9_bf16_rows(xr, layers, K, dpooled):
+    """B9's eight launches at bf16 (sa_fused_*_bf16) against their bf16
+    twins on the same card tensors, each fed its twin's inputs: the main
+    path's grouped rows (f32, rounded at load), the model's SA weights, a
+    bf16 cotangent zeroed on the bf16 near-tie pairs (b9_bf16_near_ties).
+    Bars: stats sums, BN sums and dW within B9_BF16_BAR of their max-abs
+    and db (exactly zero) within it of dW's; pooled bit-equal outside the
+    near-tie pairs and within one bf16 ulp at counted flips (bf16_flips)
+    inside; dx at rtol 1e-5 / atol 1e-5 x scale on all but at most 1e-3
+    of its rows (counted: rows that a rounding the other way upstream
+    moved) and within 1e-2 x scale on those; run to run bit-identical.
+    Bounds: bytes as the f32 sweeps' (x, dout, pooled and dx stay f32);
+    the forward products and da = dp W^T at the bf16 tensor-core rate, dW
+    and dx (an f32 operand) in 3xTF32, the rest on f32 CUDA cores; the
+    f32 CUDA-core bound beside it."""
+    from facl_tpu_torch.ops import sa_kernel as SK
+    from facl_tpu_torch.ops.sa_fwd import _finalize
+    R, C0 = xr.shape
+    widths = [lp.kernel.shape[1] for lp in layers]
+    L, P, eps = len(layers), R // K, 1e-5
+    rows, rel = [], []
+
+    def acc(k, t, name):
+        err = acc_rel(k, t, f"B9 bf16 {name}", B9_BF16_BAR)
+        rel.append((err / max(float(t.abs().max()), 1e-30), name))
+        return err
+
+    def flat(o):
+        if isinstance(o, (list, tuple)):
+            return [u for t in o for u in flat(t)]
+        return [o]
+
+    def same(fn, args, out, name):
+        check(all(torch.equal(a, b) for a, b in
+                  zip(flat(out), flat(fn(*args)))),
+              f"B9 bf16 {name}: two runs differ")
+
+    def add(name, fn, args, err, nbytes, sweep, target=-1):
+        bf, f32, rest = b9_ops(widths, C0, sweep, target, split=True)
+        rows.append(dict(name=name, args=args, err=err, nbytes=nbytes,
+                         ops=R * rest, tc_ops=R * f32, bf16_ops=R * bf,
+                         passes=3, fn=fn,
+                         plain=getattr(SK, fn.__name__ + "_plain"),
+                         source=SRC9,
+                         replaces="facl_tpu/ops/pallas/sa_kernel.py:282"
+                         if sweep in ("stats", "pool") else
+                         "facl_tpu/ops/pallas/sa_kernel.py:480"))
+
+    packed = torch.zeros(L, 2, max(widths), device=xr.device)
+    for l, w in enumerate(widths):
+        a = (xr, layers, packed.clone(), K, l)
+        k, t = SK.sa_fused_stats_bf16(*a), SK.sa_fused_stats_bf16_plain(*a)
+        same(SK.sa_fused_stats_bf16, a, k, f"stats {l}")
+        e = max(acc(k[0], t[0], f"stats {l} sum p"),
+                acc(k[1], t[1], f"stats {l} sum p^2"))
+        add(f"sa_fused_stats (layer {l}) [bf16]", SK.sa_fused_stats_bf16, a,
+            e, R * C0 * 4, "stats", l)
+        mean, var = _finalize(t[0], t[1], R)
+        packed[l, 0, :w], packed[l, 1, :w] = mean, torch.rsqrt(var + eps)
+    near = b9_bf16_near_ties(xr, layers, packed, K)
+    a = (xr, layers, packed, K)
+    k, t = SK.sa_fused_pool_bf16(*a), SK.sa_fused_pool_bf16_plain(*a)
+    same(SK.sa_fused_pool_bf16, a, k, "pool")
+    check(torch.equal(k[~near], t[~near]),
+          "B9 bf16 pooled differs outside the near-tie pairs")
+    npool, e = bf16_flips(k, t, "B9 bf16 pooled")
+    add("sa_fused_pool [bf16]", SK.sa_fused_pool_bf16, a, e,
+        R * C0 * 4 + P * widths[-1] * 4, "pool")
+
+    dp = torch.where(near, 0.0, dpooled.to(BF16).float())
+    bsums = torch.zeros_like(packed)
+    for l in reversed(range(L)):
+        a = (xr, layers, packed, bsums.clone(), dp, K, l)
+        k, t = SK.sa_fused_bnsum_bf16(*a), SK.sa_fused_bnsum_bf16_plain(*a)
+        same(SK.sa_fused_bnsum_bf16, a, k, f"bnsum {l}")
+        e = max(acc(k[0], t[0], f"bnsum {l} sum dy"),
+                acc(k[1], t[1], f"bnsum {l} sum dy xhat"))
+        add(f"sa_fused_bnsum (layer {l}) [bf16]", SK.sa_fused_bnsum_bf16, a,
+            e, R * C0 * 4 + P * widths[-1] * 4, "bnsum", l)
+        bsums[l, 0, :widths[l]], bsums[l, 1, :widths[l]] = t
+    a = (xr, layers, packed, bsums, dp, K, True)
+    (kd, kw, kb), (td, tw, tb) = SK.sa_fused_final_bf16(*a), \
+        SK.sa_fused_final_bf16_plain(*a)
+    same(SK.sa_fused_final_bf16, a, (kd, kw, kb), "final")
+    scale = float(td.abs().max())
+    diff = (kd - td).abs()
+    beyond = (diff > 1e-5 * td.abs() + 1e-5 * scale).any(1)
+    nb, wide = int(beyond.sum()), float(diff.max()) / scale
+    check(nb <= 1e-3 * R and wide <= 1e-2,
+          f"B9 bf16 dx: {nb} of {R} rows beyond rtol 1e-5 / atol 1e-5 x "
+          f"scale (bar 1e-3 of the rows), widest {wide:.3e} x scale")
+    e = max([float(diff.max())] + [acc(kk, tt, f"dW{l}") for l, (kk, tt) in
+                                   enumerate(zip(kw, tw))])
+    gscale = max(float(t_.abs().max()) for t_ in tw)
+    for l, (kk, tt) in enumerate(zip(kb, tb)):
+        check(max(float(kk.abs().max()), float(tt.abs().max())) <
+              B9_BF16_BAR * gscale,
+              f"B9 bf16 db{l} (exactly zero) not near zero")
+    add("sa_fused_final [bf16]", SK.sa_fused_final_bf16, a, e,
+        2 * R * C0 * 4 + P * widths[-1] * 4, "final")
+    worst = max(rel)
+    print(f"B9 bf16 vs its bf16 twins (R={R}, K={K}): dpooled zeroed on "
+          f"{int(near.sum())} of {near.numel()} bf16 near-tie pairs, pooled "
+          f"bit-equal outside them ({npool} entries beyond one bf16 ulp "
+          f"inside); dx: {nb} rows beyond rtol 1e-5 / atol 1e-5 x scale, "
+          f"widest {wide:.3e} x scale; db at most "
+          f"{max(float(t_.abs().max()) for t_ in kb) / gscale:.3e} of dW's "
+          f"max-abs; accumulators at most {worst[0]:.3e} of their max-abs "
+          f"({worst[1]}; bar {B9_BF16_BAR:g}); all eight run to run "
+          "bit-identical", flush=True)
     return rows
 
 
@@ -1379,12 +1546,14 @@ def phase_kernels(dev, model, points):
         rows += bf16_rows(x3, (lp1, lp2, lp3), dpooled, K)
         rows += two_sweep_rows(x3, (lp1, lp2, lp3), dpooled, K)
         rows += two_sweep_bf16_rows(x3, (lp1, lp2, lp3), dpooled, K)
-        rows += b9_rows(x3.transpose(1, 2).reshape(R, C0).contiguous(),
-                        [lp1, lp2, lp3], K, dpooled)
+        xr = x3.transpose(1, 2).reshape(R, C0).contiguous()
+        rows += b9_rows(xr, [lp1, lp2, lp3], K, dpooled)
+        rows += b9_bf16_rows(xr, [lp1, lp2, lp3], K, dpooled)
+        del xr
         torch.cuda.synchronize()
         for impl in IMPLS + ("pallas",):
             sa_chain_vs_f64(x3, [lp1, lp2, lp3], dpooled, K, impl)
-        for impl in IMPLS:
+        for impl in IMPLS + ("pallas",):
             sa_chain_vs_f64(x3, [lp1, lp2, lp3], dpooled, K, impl, BF16)
 
         # The fine variant's grouping (S=32, K=128): B1, and pool groups
@@ -1398,7 +1567,7 @@ def phase_kernels(dev, model, points):
         for impl in IMPLS + ("pallas",):
             sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf,
                             Kf, impl)
-        for impl in IMPLS:
+        for impl in IMPLS + ("pallas",):
             sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf,
                             Kf, impl, BF16)
 
@@ -1422,10 +1591,14 @@ def measure(r):
     lib = r.pop("library", None)
     r["library_ms"] = device_ms(lib)[0] if lib else None
     nbytes, ops, tc = r.pop("nbytes"), r.pop("ops"), r.pop("tc_ops", 0)
+    bf = r.pop("bf16_ops", 0)
     r["passes"] = r.pop("passes", 3)
-    r["bound_ms"], r["bound_by"] = bound(nbytes, ops, tc, r["passes"])
-    if tc:
-        r["bound_f32_ms"] = bound(nbytes, ops + tc)[0]
+    r["bound_ms"], r["bound_by"] = bound(nbytes, ops, tc, r["passes"], bf)
+    if tc or bf:
+        r["bound_f32_ms"] = bound(nbytes, ops + tc + bf)[0]
+    r["rate"] = f"{r['passes']}xTF32" if r["passes"] and tc else "bf16"
+    if tc and bf:
+        r["rate"] = f"bf16 (bf16 operands) and {r['rate']} (an f32 operand)"
     if PARENT and fn.__name__ in PARENT_AB:
         r["parent_ab"] = parent_ab(fn, args)
     r["max_abs_err"] = r.pop("err")
@@ -1449,13 +1622,17 @@ PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
              "sa_bwd2_sweep1": ("sa_2sweep", "facl_sa_bwd2_sweep1", None),
              "sa_bwd2_sweep2": ("sa_2sweep", "facl_sa_bwd2_sweep2", None),
              "sa_bwd_sweep2_full": ("sa_2sweep", "facl_sa_bwd2_sweep2",
-                                    None)}
-PARENT_LIBS = ("select", "sa_pair", "sa_2sweep")
+                                    None),
+             **{n: ("sa_fused", "facl_sa_fused", None) for n in
+                ("sa_fused_stats", "sa_fused_pool", "sa_fused_bnsum",
+                 "sa_fused_final")}}
+PARENT_LIBS = ("select", "sa_pair", "sa_2sweep", "sa_fused")
 
 
 def start_parent_build(root: str):
-    """Start nvcc on ``root``'s select.cu, sa_pair.cu and sa_2sweep.cu (a
-    checkout of the parent commit) with this tree's flags; returns
+    """Start nvcc on ``root``'s select.cu, sa_pair.cu, sa_2sweep.cu and
+    sa_fused.cu (a checkout of the parent commit) with this tree's flags;
+    returns
     {library: (process, output)}."""
     from facl_tpu_torch.ops import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -1530,18 +1707,20 @@ def parent_ab(fn, args):
 
 
 def _outputs(out):
-    """A wrapper's tensors: a dict's values, one tensor, or a tuple."""
+    """A wrapper's tensors: a dict's values, one tensor, or a tuple (its
+    lists flattened, a None left out: B9's final sweep)."""
     if isinstance(out, dict):
         return list(out.values())
-    return [out] if isinstance(out, torch.Tensor) else list(out)
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out if o is not None for t in _outputs(o)]
 
 
 def print_row(r, label=""):
     lib = "" if r["library_ms"] is None else \
         f", library {r['library_ms']:.4f} ms"
-    rate = f"{r['passes']}xTF32" if r["passes"] else "bf16"
     tc = "" if "bound_f32_ms" not in r else \
-        f" with products on tensor cores in {rate} (f32 " \
+        f" with products on tensor cores in {r['rate']} (f32 " \
         f"CUDA-core bound {r['bound_f32_ms']:.4f} ms)"
     print(f"kernel {r['name']}{label}: {r['ms']:.4f} ms on the device, "
           f"{r['host_us']:.1f} us on the host per call (twin "
@@ -1778,13 +1957,13 @@ def phase_cpu_vs_card(dev):
     perm = torch.randperm(G, generator=g)
     for impl in IMPLS[:3] + ("pallas",):
         _cpu_vs_card(dev, impl, pts, perm)
-    for impl in IMPLS[:3]:
+    for impl in IMPLS[:3] + ("pallas",):
         _cpu_vs_card_bf16(dev, impl, pts, perm)
 
 
 def _cpu_vs_card_bf16(dev, impl, pts, perm):
     """The same B=8 step at compute_dtype bfloat16 with ``impl`` (pair3,
-    pair or hybrid2): the CPU (bf16 twins, torch's CPU bf16 GEMMs) against
+    pair, hybrid2 or pallas): the CPU (bf16 twins, torch's CPU bf16 GEMMs) against
     the card (the bf16 kernels, cuBLAS bf16 GEMMs with f32 accumulation),
     from the same weights, points and permutation, and both against the
     float64 step.
@@ -1884,9 +2063,11 @@ def _cpu_vs_card(dev, impl, pts, perm):
                          f"{dnorm:.3e} > 1e-3 where no decision flipped")
 
 
-#: B9: L = 3 stats sweeps + the pool sweep, 3 BN-sum sweeps + the final.
+#: B9: L = 3 stats sweeps + the pool sweep, 3 BN-sum sweeps + the final;
+#: at compute_dtype bfloat16 the same of its bf16 sweeps.
 B9_STEP = {"sa_fused_stats": 3, "sa_fused_pool": 1, "sa_fused_bnsum": 3,
            "sa_fused_final": 1}
+B9_BF16_STEP = {f"{k}_bf16": n for k, n in B9_STEP.items()}
 ROUTES = (("pallas", "pallas"), ("pallas", "xla"), ("xla", "pallas"),
           ("xla", "xla"))
 #: Launches of one input-gradient step per grouping route: B9's forward
@@ -1898,25 +2079,31 @@ ROUTE_LAUNCHES = {
     ("xla", "pallas"): dict(B9_STEP, gather_rows=1, scatter_add_rows=1),
     ("xla", "xla"): dict(B9_STEP),
 }
+#: The bf16 pallas stage's input gradient on the default route: B9's bf16
+#: sweeps (final with dx), B1 and B5b.
+ROUTE_LAUNCHES_BF16 = dict(B9_BF16_STEP, select_gather=1, scatter_add_rows=1)
 
 
 @contextlib.contextmanager
 def b9_decisions(store: list):
     """Record every B9 forward's discrete decisions into ``store``: the
     ReLU masks of the layers below the top and the top layer's pool
-    routing (relu(z) at the group's max, z > 0), recomputed by the twins'
-    ops from the forward's statistics on the same device."""
+    routing (relu(z) at the group's max, z > 0; at bf16 on z rounded to
+    bf16), recomputed by the twins' ops from the forward's statistics on
+    the same device."""
     from facl_tpu_torch.ops import sa_bwd as SB
     from facl_tpu_torch.ops import sa_kernel as SK
     fwd = SK.sa_train_forward_unified
 
-    def capture(x, layers, pool, eps=1e-5):
-        out = fwd(x, layers, pool, eps)
-        v = SK.vectors(layers, out[2], None, x.shape[0])
-        ps, _ = SK._forward_plain(x, layers, v, len(layers) - 1)
-        masks = [(p * v[l, 3, :p.shape[1]] + v[l, 4, :p.shape[1]] > 0).cpu()
-                 for l, p in enumerate(ps)]
-        z = b9_z(x, layers, out[2])
+    def capture(x, layers, pool, eps=1e-5, dtype=torch.float32):
+        out = fwd(x, layers, pool, eps, dtype)
+        bf = dtype == BF16
+        r = SK._rb if bf else SK._same
+        v = SK.vectors(layers, out[2], None, x.shape[0], bf)
+        ps, _ = SK._forward_plain(x, layers, v, len(layers) - 1, bf)
+        masks = [(r(p * v[l, 3, :p.shape[1]] + v[l, 4, :p.shape[1]]) > 0)
+                 .cpu() for l, p in enumerate(ps)]
+        z = b9_z(x, layers, out[2], bf)
         ones = torch.ones(z.shape[0] // pool, z.shape[1], device=z.device,
                           dtype=z.dtype)
         store.append(masks + [(SB._dy_top(z, ones, pool) != 0).cpu()])
@@ -1936,9 +2123,13 @@ def phase_input_grad(dev):
     sum(sin(pooled) w). The gradient is held at relative L2 1e-2 and,
     where no ReLU or pool decision of the SA stage flipped between the
     devices, at max-abs 2e-4 of its scale (a flip moves the BatchNorm
-    sums, so it reaches every entry: phase_cpu_vs_card). Launches per
-    route are counted with the counters zeroed just before the card run.
-    Returns {route label: launches}."""
+    sums, so it reaches every entry: phase_cpu_vs_card). Then the same at
+    compute_dtype bfloat16 on the default route (B9's bf16 sweeps, their
+    f32 dx, B1 and B5b), card vs CPU at the bf16 stage bars (relative L2
+    < 0.15, cosine > 0.99: two bf16 evaluations that sum in other orders
+    flip many more decisions). Launches per route are counted with the
+    counters zeroed just before the card run. Returns {route label:
+    launches}."""
     import copy
     from facl_tpu_torch.models.sa_stage import SetAbstractionStage
     from facl_tpu_torch.ops.grouping import group_points
@@ -1952,9 +2143,14 @@ def phase_input_grad(dev):
                                  generator=g)
     kernels = all_kernels()
     out = {}
-    for route in ROUTES:
+    cases = [(route, torch.float32) for route in ROUTES] + \
+        [(("pallas", "pallas"), BF16)]
+    for route, dtype in cases:
+        bf = dtype == BF16
+
         def run(d, twins=False):
             stage = copy.deepcopy(stage0).to(d).train()
+            stage.dtype = dtype
             p = pts.to(d, copy=True).requires_grad_(True)
             dec = []
             with contextlib.ExitStack() as stack:
@@ -1964,7 +2160,7 @@ def phase_input_grad(dev):
                     stack.enter_context(grouping_twins_on_card())
                 neigh, _ = group_points(p, S, K, 0.06, select_impl=route[0],
                                         gather_impl=route[1])
-                (torch.sin(stage(neigh)) * w.to(d)).sum().backward()
+                (torch.sin(stage(neigh).float()) * w.to(d)).sum().backward()
             return p.grad.cpu(), dec[0]
         gc, dc = run("cpu")
         torch.cuda.synchronize()
@@ -1973,15 +2169,30 @@ def phase_input_grad(dev):
         gk, dk = run(dev)
         torch.cuda.synchronize()
         launches = {k.__name__: k.launches for k in kernels}
-        want = ROUTE_LAUNCHES[route]
+        want = ROUTE_LAUNCHES_BF16 if bf else ROUTE_LAUNCHES[route]
+        label = f"{route[0]}/{route[1]}" + (" bf16" if bf else "")
         for name, n in launches.items():
-            check(n == want.get(name, 0), f"input grad {route}: kernel {name}"
+            check(n == want.get(name, 0), f"input grad {label}: kernel {name}"
                   f" launched {n} times, expected {want.get(name, 0)}")
         gt, dt = run(dev, twins=True)
         flips = [int((a != b).sum()) for a, b in zip(dc, dk)]
         tflips = [int((a != b).sum()) for a, b in zip(dc, dt)]
         scale = max(float(gc.abs().max()), 1e-30)
         l2, free = _rel_l2(gk, gc), float((gk - gc).abs().max()) / scale
+        if bf:
+            cos = float(gk.double().flatten() @ gc.double().flatten()) / \
+                max(float(gk.double().norm() * gc.double().norm()), 1e-300)
+            print(f"input grad select={route[0]} gather={route[1]} bf16: "
+                  f"|grad| max {scale:.3e}; card vs cpu relative L2 "
+                  f"{l2:.3e}, cosine {cos:.6f}, flipped decisions (ReLU "
+                  f"layers 1-2, pool routing) {flips}; card twins vs cpu "
+                  f"{_rel_l2(gt, gc):.3e}, flips {tflips}; launches "
+                  f"{ {n: c for n, c in launches.items() if c} }",
+                  flush=True)
+            check(l2 < 0.15 and cos > 0.99, f"input grad {label}: relative "
+                                             f"L2 {l2:.3e}, cosine {cos:.6f}")
+            out[f"input grad {label}"] = launches
+            continue
         print(f"input grad select={route[0]} gather={route[1]}: |grad| max "
               f"{scale:.3e}, nonzero rows {int((gc.abs().sum(2) > 0).sum())}"
               f" of {Bc * N}; card vs cpu relative L2 {l2:.3e}, max-abs/scale"
@@ -1994,7 +2205,7 @@ def phase_input_grad(dev):
         if not any(flips):
             check(free <= 2e-4, f"input grad {route}: max-abs/scale "
                                 f"{free:.3e} > 2e-4 with no flipped decision")
-        out[f"input grad {route[0]}/{route[1]}"] = launches
+        out[f"input grad {label}"] = launches
     return out
 
 
@@ -2009,8 +2220,8 @@ PATHS = {
     "hybrid": {"select_gather": 1, "sa_bwd2_sweep1": 1, "sa_bwd2_sweep2": 1},
 }
 #: The bf16 paths (compute_dtype bfloat16): (label, sa_impl, timed steps,
-#: launches per step). pair3, pair, hybrid2 and hybrid run the bf16
-#: sweeps; reference only B1.
+#: launches per step). pair3, pair, hybrid2, hybrid and pallas run the
+#: bf16 sweeps; reference, covar and analytic only B1.
 BF16_PATHS = (
     ("pair3 bf16", "pair3", 40,
      {"select_gather": 1, "sa_fwd_layer12_bf16": 1,
@@ -2028,7 +2239,13 @@ BF16_PATHS = (
     ("hybrid bf16", "hybrid", 20,
      {"select_gather": 1, "sa_bwd2_sweep1_bf16": 1,
       "sa_bwd2_sweep2_bf16": 1}),
+    ("pallas bf16", "pallas", 20, dict(B9_BF16_STEP, select_gather=1)),
+    ("covar bf16", "covar", 20, {"select_gather": 1}),
+    ("analytic bf16", "analytic", 20, {"select_gather": 1}),
 )
+#: The plain SA impls at f32 (no SA kernel; B1 groups): (sa_impl, timed
+#: steps).
+PLAIN_PATHS = (("covar", 20), ("analytic", 20))
 BF16_LAUNCHES = {label: want for label, _, _, want in BF16_PATHS}
 #: The pallas paths: (label, select_impl, gather_impl, timed steps,
 #: launches per step).
@@ -2054,10 +2271,16 @@ def phase_main(dev, profile: bool, card: str):
             dev, impl, 40 if impl == "pair3" else 20, batches, g, kernels,
             card, profile, PATHS[impl])
         torch.cuda.empty_cache()
+    for impl, steps in PLAIN_PATHS:
+        out[impl], medians[impl] = _run_path(
+            dev, impl, steps, batches, g, kernels, card, False,
+            {"select_gather": 1})
+        torch.cuda.empty_cache()
     for label, impl, steps, want in BF16_PATHS:
         out[label], medians[label] = _run_path(
             dev, impl, steps, batches, g, kernels, card,
-            profile and impl == "pair3", want, label, dtype="bfloat16")
+            profile and impl in ("pair3", "pallas"), want, label,
+            dtype="bfloat16")
         torch.cuda.empty_cache()
     for label, si, gi, steps, want in PALLAS_PATHS:
         out[label], medians[label] = _run_path(
@@ -3411,10 +3634,10 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of the parent commit: its select.cu, "
-                         "sa_pair.cu and sa_2sweep.cu are built and its "
-                         "B1, B2a-B3c and the f32 B6, B7 and B8 timed "
-                         "against this tree's in turns, their outputs "
-                         "bit-equal")
+                         "sa_pair.cu, sa_2sweep.cu and sa_fused.cu are "
+                         "built and its B1, B2a-B3c and the f32 B6, B7, B8 "
+                         "and B9 timed against this tree's in turns, their "
+                         "outputs bit-equal")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures the "

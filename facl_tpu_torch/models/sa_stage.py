@@ -27,13 +27,12 @@ pair/pair3, and eval, transposes it to channels-last first
 (sa_stage.py:98-105).
 
 ``dtype`` is the compute dtype (facl_tpu/models/sa_stage.py:227-268): at
-``torch.bfloat16`` train mode runs the impls of ``BF16_IMPLS`` — pair3 and
-pair (the bf16 sweeps of B2/B3 and B6), hybrid2 (B7 and B8 at bf16),
-hybrid (the bf16 reference forward and B8 at bf16) or reference (plain
-bf16) —, eval the bf16 reference, and the pooled output is bf16
-(sa_stage.py:225); parameters and statistics stay f32. pallas, covar and
-analytic raise NotImplementedError at bf16 in train mode, on every
-device.
+``torch.bfloat16`` every impl trains in bf16 — pair3 and pair (the bf16
+sweeps of B2/B3 and B6), hybrid2 (B7 and B8 at bf16), hybrid (the bf16
+reference forward and B8 at bf16), pallas (B9 at bf16), reference, covar
+and analytic (plain bf16) —, eval runs the bf16 reference, and the
+pooled output is bf16 (sa_stage.py:225); parameters and statistics stay
+f32.
 
 ``mesh`` (data parallelism, parallel/mesh.py): the input is this rank's
 block of the batch and the train-mode statistics are over every rank's
@@ -54,8 +53,8 @@ from torch import nn
 from facl_tpu_torch.models.layers import lecun_normal_
 from facl_tpu_torch.ops._launch import TRUNK
 from facl_tpu_torch.ops.analytic_sa import sa_train_analytic
-from facl_tpu_torch.ops.fused_sa import BF16, BF16_IMPLS, SALayerParams, \
-    reject_bf16, sa_reference_4d, sa_train_fused
+from facl_tpu_torch.ops.fused_sa import BF16, SALayerParams, \
+    sa_reference_4d, sa_train_fused
 from facl_tpu_torch.ops.sa_bwd import sa_train_hybrid
 from facl_tpu_torch.ops.sa_fwd import _moments_from_gram, sa_train_pfwd
 from facl_tpu_torch.ops.sa_pair import sa_train_pair
@@ -74,8 +73,11 @@ DP_IMPLS = ("pair", "pair3", "reference")
 def covar_moments(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor):
     """Batch (mean, var) of p = h @ kernel + bias from Gram(h) and
     colsum(h), without reducing p (facl_tpu/models/sa_stage.py:33-68);
-    the variance clamped at 0."""
+    the variance clamped at 0. A bf16 ``h`` gives an f32 Gram of its
+    values (f32 sums of exact products) and f32 column sums, finalised
+    with the f32 ``kernel`` and ``bias``."""
     flat = h.reshape(-1, h.shape[-1])
+    flat = flat.float() if flat.dtype == BF16 else flat
     return _moments_from_gram(flat.T @ flat, flat.sum(0), kernel, bias,
                               flat.shape[0])
 
@@ -138,9 +140,6 @@ class SetAbstractionStage(nn.Module):
             raise ValueError(f"expected 4-D neighbourhoods, got {x.shape}")
         impl, layers, eps = self.impl, self.layers(), self.epsilon
         pair = impl in ("pair", "pair3")
-        bf = self.dtype == BF16
-        if bf and self.training and impl not in BF16_IMPLS:
-            reject_bf16(BF16, impl)
         if self.training and self.input_grad and impl in SWEEPS:
             raise ValueError(
                 f"sa impl {impl!r} defines a zero input cotangent; use "
@@ -170,10 +169,12 @@ class SetAbstractionStage(nn.Module):
         elif impl == "pallas":
             B, S, K, C = x.shape
             pooled, stats = sa_train_fused(x.reshape(B * S * K, C), layers, K,
-                                           eps, need_dx=self.input_grad)
+                                           eps, self.input_grad, self.dtype)
             pooled = pooled.view(B, S, -1)
+            if self.dtype == BF16:      # f32 rows holding bf16 values
+                pooled = pooled.to(BF16)
         elif impl == "analytic":
-            pooled, stats = sa_train_analytic(x, layers, eps)
+            pooled, stats = sa_train_analytic(x, layers, eps, self.dtype)
         else:
             moments = (lambda h, lp: covar_moments(h, lp.kernel, lp.bias)) \
                 if impl == "covar" else None

@@ -11,9 +11,20 @@ is recomputed from the stored h2, and each pooled cotangent is split
 evenly among its group's exact ties on the f32 relu(z), where z > 0
 (ops/sa_bwd.py::_dy_top, the same rule as the two-sweep kernels).
 
-Plain PyTorch, no kernel: the JAX function has none. It is the port's
-only SA path that returns the input gradient (nonzero). The returned
-stats carry no gradient (they feed the running-statistics update).
+At ``dtype=torch.bfloat16`` the forward is the bf16 reference and the
+backward rounds where JAX's backward (facl_tpu/ops/analytic_sa.py:110-219)
+rounds as XLA compiles it under jit, as the Trainer runs it (its
+outputs show which casts round): the top layer recomputed as z = (bf16(
+h_prev bf16(W)) + bf16(b)) mul + shift in f32 (the bf16 sum kept in f32),
+its pool ties taken on the f32 relu(z) and dy rounded to bf16; A = dy^T
+h_prev, Gram(h_prev) and colsum(h_prev) as f32 sums of the bf16 values;
+the small term products in f32; dh_prev = bf16(bf16(dy bf16(gi)) bf16(W)^T)
+- bf16(h_prev bf16(M)) - rc in f32 (again the difference of two bf16
+values kept in f32), masked and rounded to bf16 as the next dy, and
+returned unrounded (f32) as the input gradient.
+
+Plain PyTorch, no kernel: the JAX function has none. The returned stats
+carry no gradient (they feed the running-statistics update).
 """
 from __future__ import annotations
 
@@ -21,21 +32,38 @@ from typing import Sequence, Tuple
 
 import torch
 
-from facl_tpu_torch.ops.fused_sa import SALayerParams, reject_bf16, \
+from facl_tpu_torch.ops.fused_sa import BF16, SALayerParams, \
     sa_reference_4d
-from facl_tpu_torch.ops.sa_bwd import _dy_top, _fold_affine, _layer_terms
+from facl_tpu_torch.ops.sa_bwd import _dy_top, _fold_affine, \
+    _layer_terms, _rb, _same
+
+
+def _layer_bwd(dy, h_prev, lp: SALayerParams, mean, var, eps: float,
+               dtype: torch.dtype = torch.float32):
+    """One Dense + BatchNorm(train) + ReLU backward from dy (rows, C),
+    already ReLU-masked, and the layer input h_prev (rows, Cin), both
+    holding ``dtype`` values (f32 tensors): -> (dW, db, dgamma, dbeta,
+    dh_prev) (facl_tpu/ops/analytic_sa.py:110-172, casts as the module
+    docstring says)."""
+    r = _rb if dtype == BF16 else _same
+    t = _layer_terms(dy.T @ h_prev, dy.sum(0), lp, mean, var,
+                     h_prev.T @ h_prev, h_prev.sum(0), h_prev.shape[0], eps)
+    dh = r(r(dy * r(t["gi"])) @ r(lp.kernel).T) \
+        - r(h_prev @ r(t["M"])) - t["rc"]
+    return t["dW"], t["db"], t["dgamma"], t["dbeta"], dh
 
 
 class _Analytic(torch.autograd.Function):
-    """pooled, *stats = f(x, eps, n_layers, *4L layer tensors)."""
+    """pooled, *stats = f(x, eps, n_layers, dtype, *4L layer tensors)."""
 
     @staticmethod
-    def forward(ctx, x, eps, n_layers, *flat):
+    def forward(ctx, x, eps, n_layers, dtype, *flat):
         layers = [SALayerParams(*flat[4 * i:4 * i + 4])
                   for i in range(n_layers)]
-        pooled, stats, _, hs = sa_reference_4d(x, layers, eps)
+        pooled, stats, _, hs = sa_reference_4d(x, layers, eps, dtype=dtype)
         flat_stats = [m for s in stats for m in s]
-        ctx.eps, ctx.n_layers = eps, n_layers
+        ctx.eps, ctx.n_layers, ctx.dtype = eps, n_layers, dtype
+        ctx.x_dtype = x.dtype
         ctx.save_for_backward(*hs, *flat, *flat_stats)
         ctx.mark_non_differentiable(*flat_stats)
         return (pooled, *flat_stats)
@@ -43,38 +71,37 @@ class _Analytic(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dpooled, *_):
         L, eps = ctx.n_layers, ctx.eps
+        r = _rb if ctx.dtype == BF16 else _same
         saved = ctx.saved_tensors
         x = saved[0]
-        K, C0 = x.shape[-2:]
+        K = x.shape[-2]
         hs = [h.reshape(-1, h.shape[-1]) for h in saved[:L]]
+        hs = [h.float() if h.dtype == BF16 else h for h in hs]
         flat, st = saved[L:5 * L], saved[5 * L:]
         layers = [SALayerParams(*flat[4 * i:4 * i + 4]) for i in range(L)]
         stats = [(st[2 * i], st[2 * i + 1]) for i in range(L)]
-        n = hs[0].shape[0]
 
         lp, (mean, var) = layers[-1], stats[-1]
         mul, shift = _fold_affine(lp, mean, var, eps)
-        z = (hs[-1] @ lp.kernel + lp.bias) * mul + shift
-        dy = _dy_top(z, dpooled.reshape(-1, z.shape[1]), K)
+        z = (r(hs[-1] @ r(lp.kernel)) + r(lp.bias)) * mul + shift
+        dy = r(_dy_top(z, dpooled.reshape(-1, z.shape[1]).to(z.dtype), K))
         grads = [None] * L
         for li in range(L - 1, -1, -1):
-            lp, (mean, var), h_prev = layers[li], stats[li], hs[li]
-            t = _layer_terms(dy.T @ h_prev, dy.sum(0), lp, mean, var,
-                             h_prev.T @ h_prev, h_prev.sum(0), n, eps)
-            grads[li] = (t["dW"], t["db"], t["dgamma"], t["dbeta"])
-            dh = (dy * t["gi"]) @ lp.kernel.T - h_prev @ t["M"] - t["rc"]
-            dy = torch.where(h_prev > 0, dh, 0.0) if li > 0 else dh
-        return (dy.reshape(x.shape), None, None,
+            *grads[li], dh = _layer_bwd(dy, hs[li], layers[li], *stats[li],
+                                        eps, ctx.dtype)
+            dy = r(torch.where(hs[li] > 0, dh, 0.0)) if li > 0 else dh
+        return (dy.reshape(x.shape).to(ctx.x_dtype), None, None, None,
                 *(g for layer in grads for g in layer))
 
 
 def sa_train_analytic(x: torch.Tensor, layers: Sequence[SALayerParams],
-                      eps: float = 1e-5) -> Tuple[torch.Tensor, list]:
+                      eps: float = 1e-5, dtype: torch.dtype = torch.float32
+                      ) -> Tuple[torch.Tensor, list]:
     """x (..., K, C0), max-pooled over K. Returns (pooled (..., C_L),
-    [(mean, var)] per layer): the reference path's values, with the
-    hand-derived backward (module docstring)."""
-    reject_bf16(x.dtype, "analytic")
+    [(mean, var)] per layer): the reference path's values at ``dtype``
+    (pooled in bf16 at bf16), with the hand-derived backward (module
+    docstring)."""
     L = len(layers)
-    out = _Analytic.apply(x, eps, L, *(t for lp in layers for t in lp))
+    out = _Analytic.apply(x, eps, L, dtype, *(t for lp in layers for t in lp))
     st = out[1:]
     return out[0], [(st[2 * i], st[2 * i + 1]) for i in range(L)]

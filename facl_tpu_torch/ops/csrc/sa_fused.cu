@@ -44,7 +44,20 @@
 // sums are per-block float64 partials, and dW is a float64 accumulator
 // private to each block in device memory; the host sums the blocks in a
 // fixed order, so every result is deterministic and no atomics are used.
+//
+// compute_dtype bfloat16 (template BF, entry facl_sa_fused_bf16): the same
+// kernel with one rounding at each cast point that the JAX kernel at bf16
+// rounds (its interpret-mode outputs show which; sa_kernel.py:45-80,
+// :513-560): x rounded to bf16 at load; each product h W (bf16 operands:
+// the host passes the rounded weights) summed in f32 and rounded, the
+// rounded bias added in f32 and kept unrounded; y rounded before the ReLU,
+// its mask and the pool (ties on the bf16 activations); dp rounded before
+// da = dp W^T for the layers above 0, while dW, db and dx = dp0 W0^T
+// take the f32 dp (the host passes the f32 W0^T). P stays f32 in shared
+// memory, so the layout is the same. The f32 instantiation's code is
+// unchanged: every bf16 cast sits behind `if constexpr (BF)`.
 #include <cstdint>
+#include <cuda_bf16.h>
 #include "common.cuh"
 
 namespace {
@@ -133,6 +146,25 @@ __device__ __forceinline__ float affine(float p, float a, float b) {
   return __fadd_rn(__fmul_rn(p, a), b);
 }
 
+// v at a cast point of the compute dtype: rounded to bf16 (kept in f32)
+// under BF, else unchanged.
+template <bool BF>
+__device__ __forceinline__ float cast(float v) {
+  if constexpr (BF) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+// Round n floats of shared memory to bf16 in place (BF only), between two
+// barriers: the operand dp of da = dp W^T.
+template <bool BF>
+__device__ __forceinline__ void round_smem(float* a, int n) {
+  if constexpr (BF) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < n; e += NT) a[e] = cast<true>(a[e]);
+    __syncthreads();
+  }
+}
+
 // acc[i][j] = sum_{k < kdim} A[r][k] B[k][c], r = ty + 16 i, c = tx + 16 j
 // (c < ncols); A in shared memory, B in device memory (row stride ldb).
 template <int TR>
@@ -165,8 +197,8 @@ __device__ __forceinline__ void prod(const float* A, int lda, int kdim,
 
 // out[r][c] = (A W_l)[r][c0 + c] + b_l[c0 + c] for c < nc; `out` points at
 // the chunk's first column. The one function every sweep computes a
-// pre-activation with.
-template <int TR>
+// pre-activation with (under BF the product is rounded before the add).
+template <int TR, bool BF>
 __device__ __forceinline__ void chunk_p(const Net& n,
                                         const float* __restrict__ prm,
                                         const float* __restrict__ vec, int l,
@@ -182,7 +214,7 @@ __device__ __forceinline__ void chunk_p(const Net& n,
     const float b = vget(vec, l, VB, c0 + c);
 #pragma unroll
     for (int i = 0; i < TR / 16; ++i)
-      out[(ty + 16 * i) * ldo + c] = __fadd_rn(acc[i][j], b);
+      out[(ty + 16 * i) * ldo + c] = __fadd_rn(cast<BF>(acc[i][j]), b);
   }
 }
 
@@ -209,26 +241,27 @@ __device__ void prod_store(const float* A, int lda, int kdim,
 }
 
 // AS = relu(P_l * ay + by): layer l's activation, the next layer's input.
-template <int TR>
+template <int TR, bool BF>
 __device__ void to_act(const float* __restrict__ vec, int l, const float* Pl,
                        int w, float* AS) {
   for (int e = threadIdx.x; e < TR * w; e += NT) {
     const int c = e % w;
-    AS[e] = fmaxf(affine(Pl[e], vget(vec, l, VAY, c), vget(vec, l, VBY, c)),
+    AS[e] = fmaxf(cast<BF>(affine(Pl[e], vget(vec, l, VAY, c),
+                                  vget(vec, l, VBY, c))),
                   0.f);
   }
 }
 
 // Load the tile's input rows (zeros past nrows) and run layers < upto:
 // P_l = pre-activations, AS = the activation of layer upto - 1.
-template <int TR>
+template <int TR, bool BF>
 __device__ void prefix(const Net& n, const float* __restrict__ x,
                        const float* __restrict__ prm,
                        const float* __restrict__ vec, int64_t r0, int nrows,
                        int upto, float* xs, float* P, float* AS) {
   for (int e = threadIdx.x; e < TR * C0MAX; e += NT) {
     const int r = e / C0MAX, c = e % C0MAX;
-    xs[e] = (r < nrows && c < n.C0) ? x[(r0 + r) * n.C0 + c] : 0.f;
+    xs[e] = (r < nrows && c < n.C0) ? cast<BF>(x[(r0 + r) * n.C0 + c]) : 0.f;
   }
   __syncthreads();
   for (int l = 0; l < upto; ++l) {
@@ -237,10 +270,10 @@ __device__ void prefix(const Net& n, const float* __restrict__ x,
     const float* A = l ? AS : xs;
     const int lda = l ? n.w[l - 1] : C0MAX;
     for (int c0 = 0; c0 < w; c0 += CH)
-      chunk_p<TR>(n, prm, vec, l, A, lda, c0, w - c0 < CH ? w - c0 : CH,
-                  Pl + c0, w);
+      chunk_p<TR, BF>(n, prm, vec, l, A, lda, c0, w - c0 < CH ? w - c0 : CH,
+                      Pl + c0, w);
     __syncthreads();
-    to_act<TR>(vec, l, Pl, w, AS);
+    to_act<TR, BF>(vec, l, Pl, w, AS);
     __syncthreads();
   }
 }
@@ -324,7 +357,8 @@ __device__ void atb_global(const float* A, int lda, int m, const float* B,
 // share on the tied rows with y > 0, else 0 (a dead group's ties all have
 // y <= 0, so cnt >= 1 never meets a zero). With D2: ZC = dy, D2 = dy *
 // xhat (the BN sums of the top layer); without: ZC = dp, zero past nrows.
-template <int TR>
+// Under BF, y is rounded first: ties, mask and max on the bf16 values.
+template <int TR, bool BF>
 __device__ void route_top(const Net& n, const float* __restrict__ vec,
                           const float* __restrict__ dout, int64_t g0, int ng,
                           int nrows, int c0, int nc, float* ZC, float* D2) {
@@ -339,7 +373,7 @@ __device__ void route_top(const Net& n, const float* __restrict__ vec,
     float m = 0.f;
     int cnt = 0;
     for (int r = 0; r < pool; ++r) {
-      const float h = fmaxf(affine(z[r * CH], ay, by), 0.f);
+      const float h = fmaxf(cast<BF>(affine(z[r * CH], ay, by)), 0.f);
       if (h > m) {
         m = h;
         cnt = 1;
@@ -353,7 +387,7 @@ __device__ void route_top(const Net& n, const float* __restrict__ vec,
     const float sdyx = vget(vec, l, VSDYX, cc);
     for (int r = 0; r < pool; ++r) {
       const float p = z[r * CH];
-      const float y = affine(p, ay, by);
+      const float y = cast<BF>(affine(p, ay, by));
       const float dy = (y > 0.f && fmaxf(y, 0.f) == m) ? share : 0.f;
       const float xh = affine(p, inv, bx);
       if (D2 != nullptr) {
@@ -369,15 +403,17 @@ __device__ void route_top(const Net& n, const float* __restrict__ vec,
     for (int e = nrows * CH + threadIdx.x; e < TR * CH; e += NT) ZC[e] = 0.f;
 }
 
-// Layer l < L - 1: cur holds da_l (TR x w). dy = da where y > 0; with oth:
-// cur = dy, oth = dy * xhat; without: cur = dp (zero past nrows).
-template <int TR>
+// Layer l < L - 1: cur holds da_l (TR x w). dy = da where y > 0 (y
+// rounded under BF); with oth: cur = dy, oth = dy * xhat; without: cur =
+// dp (zero past nrows).
+template <int TR, bool BF>
 __device__ void mid_dy(const float* __restrict__ vec, int l, const float* Pl,
                        int w, int nrows, float* cur, float* oth) {
   for (int e = threadIdx.x; e < TR * w; e += NT) {
     const int r = e / w, c = e % w;
     const float p = Pl[e];
-    const float y = affine(p, vget(vec, l, VAY, c), vget(vec, l, VBY, c));
+    const float y =
+        cast<BF>(affine(p, vget(vec, l, VAY, c), vget(vec, l, VBY, c)));
     const float dy = y > 0.f ? cur[e] : 0.f;
     const float xh = affine(p, vget(vec, l, VINV, c), vget(vec, l, VBX, c));
     if (oth != nullptr) {
@@ -394,7 +430,7 @@ __device__ void mid_dy(const float* __restrict__ vec, int l, const float* Pl,
   }
 }
 
-template <int TR>
+template <int TR, bool BF>
 __global__ void __launch_bounds__(NT)
 sa_fused_kernel(const Net n, int mode, int target,
                 const float* __restrict__ x, const float* __restrict__ prm,
@@ -428,14 +464,14 @@ sa_fused_kernel(const Net n, int mode, int target,
     const int nrows = ng * n.pool;
     const int64_t r0 = g0 * n.pool;
     const int lt = mode == 0 ? target : top;        // the chunked layer
-    prefix<TR>(n, x, prm, vec, r0, nrows, lt, xs, P, AS);
+    prefix<TR, BF>(n, x, prm, vec, r0, nrows, lt, xs, P, AS);
     const float* A = lt ? AS : xs;
     const int lda = lt ? n.w[lt - 1] : C0MAX;
     const int wl = n.w[lt], cin = n.cin[lt];
     const bool sums_top = mode == 2 && target == top;
     for (int c0 = 0; c0 < wl; c0 += CH) {
       const int nc = wl - c0 < CH ? wl - c0 : CH;
-      chunk_p<TR>(n, prm, vec, lt, A, lda, c0, nc, ZC, CH);
+      chunk_p<TR, BF>(n, prm, vec, lt, A, lda, c0, nc, ZC, CH);
       __syncthreads();
       if (mode == 0) {
         colsums<TR>(ZC, CH, nullptr, 0, true, nc, nrows, vacc + c0,
@@ -450,15 +486,16 @@ sa_fused_kernel(const Net n, int mode, int target,
           if (c >= nc) continue;
           float m = 0.f;
           for (int r = 0; r < n.pool; ++r)
-            m = fmaxf(m, fmaxf(affine(ZC[(g * n.pool + r) * CH + c],
-                                      __ldg(ay + c), __ldg(by + c)), 0.f));
+            m = fmaxf(m, fmaxf(cast<BF>(affine(ZC[(g * n.pool + r) * CH + c],
+                                               __ldg(ay + c), __ldg(by + c))),
+                               0.f));
           out[(g0 + g) * wl + c0 + c] = m;
         }
         __syncthreads();
         continue;
       }
-      route_top<TR>(n, vec, dout, g0, ng, nrows, c0, nc, ZC,
-                    sums_top ? DA : nullptr);
+      route_top<TR, BF>(n, vec, dout, g0, ng, nrows, c0, nc, ZC,
+                        sums_top ? DA : nullptr);
       __syncthreads();
       if (sums_top) {
         colsums<TR>(ZC, CH, DA, CH, false, nc, nrows, vacc + c0,
@@ -471,6 +508,7 @@ sa_fused_kernel(const Net n, int mode, int target,
         colsums<TR>(ZC, CH, nullptr, 0, false, nc, nrows,
                     vacc + n.dboff[top] + c0, nullptr, red);
       }
+      if (top >= 1) round_smem<BF>(ZC, TR * CH);     // da's operand dp
       if (top >= 1 || out != nullptr)               // da of the layer below
         prod_store<TR>(ZC, CH, nc, prm + n.wtoff[top] + c0 * cin, cin, cin,
                        DA, cin, c0 > 0);
@@ -484,19 +522,20 @@ sa_fused_kernel(const Net n, int mode, int target,
       const int w = n.w[l];
       const float* Pl = P + TR * n.pcum[l];
       if (mode == 2 && l == target) {
-        mid_dy<TR>(vec, l, Pl, w, nrows, cur, oth);
+        mid_dy<TR, BF>(vec, l, Pl, w, nrows, cur, oth);
         __syncthreads();
         colsums<TR>(cur, w, oth, w, false, w, nrows, vacc, vacc + WMAX,
                     red);
         break;
       }
-      mid_dy<TR>(vec, l, Pl, w, nrows, cur, nullptr);
+      mid_dy<TR, BF>(vec, l, Pl, w, nrows, cur, nullptr);
       __syncthreads();
       if (mode == 3) {
         const float* Ain = xs;
         int ldin = C0MAX;
         if (l >= 1) {
-          to_act<TR>(vec, l - 1, P + TR * n.pcum[l - 1], n.w[l - 1], AS);
+          to_act<TR, BF>(vec, l - 1, P + TR * n.pcum[l - 1], n.w[l - 1],
+                         AS);
           __syncthreads();
           Ain = AS;
           ldin = n.w[l - 1];
@@ -506,6 +545,7 @@ sa_fused_kernel(const Net n, int mode, int target,
         colsums<TR>(cur, w, nullptr, 0, false, w, nrows,
                     vacc + n.dboff[l], nullptr, red);
       }
+      if (l >= 1) round_smem<BF>(cur, TR * w);      // da's operand dp
       if (l >= 1 || out != nullptr) {
         prod_store<TR>(cur, w, w, prm + n.wtoff[l], n.cin[l], n.cin[l], oth,
                        n.cin[l], false);
@@ -532,7 +572,7 @@ sa_fused_kernel(const Net n, int mode, int target,
   }
 }
 
-template <int TR>
+template <int TR, bool BF>
 int launch(const Net& n, int mode, int target, const float* x,
            const float* prm, const float* vec, const float* dout, float* out,
            double* part, int nblk, cudaStream_t st) {
@@ -540,11 +580,11 @@ int launch(const Net& n, int mode, int target, const float* x,
   const size_t smem = layout(n, TR, mode >= 2, off);
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
-      sa_fused_kernel<TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sa_fused_kernel<TR, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  sa_fused_kernel<TR><<<nblk, NT, smem, st>>>(n, mode, target, x, prm, vec,
-                                              dout, out, part);
+  sa_fused_kernel<TR, BF><<<nblk, NT, smem, st>>>(n, mode, target, x, prm,
+                                                  vec, dout, out, part);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -561,6 +601,24 @@ extern "C" long long facl_sa_fused_smem(long long R, int C0, int L,
   return static_cast<long long>(layout(n, tile_rows(pool), true, off));
 }
 
+template <bool BF>
+int sweep(int mode, int target, const float* x, long long R, int C0, int L,
+          const int* widths, int pool, const float* prm, const float* vec,
+          const float* dout, float* out, double* part, int nblk,
+          void* stream) {
+  Net n;
+  if (!make_net(R, C0, L, widths, pool, &n) || mode < 0 || mode > 3 ||
+      ((mode == 0 || mode == 2) && (target < 0 || target >= L)) ||
+      (mode == 1 && out == nullptr) || nblk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return tile_rows(pool) == CH
+             ? launch<CH, BF>(n, mode, target, x, prm, vec, dout, out, part,
+                              nblk, st)
+             : launch<2 * CH, BF>(n, mode, target, x, prm, vec, dout, out,
+                                  part, nblk, st);
+}
+
 // One sweep (mode 0-3, see the top of this file) over x (R, C0) row-major.
 // prm: W_0, W_0^T, W_1, W_1^T, ...; vec (L, 8, 256). part: (nblk, 2,
 // w_target) float64 for modes 0 and 2; (nblk, sum cin*w + sum w) float64,
@@ -571,15 +629,19 @@ extern "C" int facl_sa_fused(int mode, int target, const float* x,
                              int pool, const float* prm, const float* vec,
                              const float* dout, float* out, double* part,
                              int nblk, void* stream) {
-  Net n;
-  if (!make_net(R, C0, L, widths, pool, &n) || mode < 0 || mode > 3 ||
-      ((mode == 0 || mode == 2) && (target < 0 || target >= L)) ||
-      (mode == 1 && out == nullptr) || nblk < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return tile_rows(pool) == CH
-             ? launch<CH>(n, mode, target, x, prm, vec, dout, out, part,
-                          nblk, st)
-             : launch<2 * CH>(n, mode, target, x, prm, vec, dout, out, part,
-                              nblk, st);
+  return sweep<false>(mode, target, x, R, C0, L, widths, pool, prm, vec,
+                      dout, out, part, nblk, stream);
+}
+
+// The same sweep at compute_dtype bfloat16 (see the top of this file), on
+// the same f32 arguments: prm holds the bf16-rounded W_l and W_l^T but the
+// f32 W_0^T (dx's operand), vec the rounded bias; pooled holds bf16 values.
+extern "C" int facl_sa_fused_bf16(int mode, int target, const float* x,
+                                  long long R, int C0, int L,
+                                  const int* widths, int pool,
+                                  const float* prm, const float* vec,
+                                  const float* dout, float* out, double* part,
+                                  int nblk, void* stream) {
+  return sweep<true>(mode, target, x, R, C0, L, widths, pool, prm, vec, dout,
+                     out, part, nblk, stream);
 }

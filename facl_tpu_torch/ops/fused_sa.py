@@ -17,7 +17,8 @@ ops in the input's own dtype, with no cast.
 :func:`sa_train_fused` is ``sa_impl="pallas"`` (facl_tpu/ops/fused_sa.py:
 95-160): the forward and backward sweeps of kernel B9 (ops/sa_kernel.py)
 behind one ``torch.autograd.Function``, differentiable in x and every
-layer parameter.
+layer parameter, at f32 or (``compute_dtype=torch.bfloat16``) with B9's
+bf16 sweeps.
 """
 from __future__ import annotations
 
@@ -36,16 +37,6 @@ class SALayerParams(NamedTuple):
 
 
 BF16 = torch.bfloat16
-#: The train-mode SA impls with a bf16 form.
-BF16_IMPLS = ("pair3", "pair", "hybrid2", "hybrid", "reference")
-
-
-def reject_bf16(dtype: torch.dtype, impl: str) -> None:
-    """The SA paths that have no bf16 form yet raise at bf16."""
-    if dtype == BF16:
-        raise NotImplementedError(
-            f"sa_impl={impl!r} has no bf16 compute yet (ROADMAP Queue 1 item "
-            f"19); {', '.join(BF16_IMPLS)} run compute_dtype='bfloat16'")
 
 
 def _dense(h, lp: SALayerParams, dtype):
@@ -140,20 +131,21 @@ def sa_reference_4d(x: torch.Tensor, layers: Sequence[SALayerParams],
 
 
 class _SAFused(torch.autograd.Function):
-    """pooled, *stats = f(x, pool, eps, need_dx, *layer tensors) for rows
-    x (R, C0); forward and backward are B9's sweeps. The statistics carry
-    no gradient (they feed the running-statistics update); without
-    ``need_dx`` the input cotangent is zeros (fused_sa.py:133-134)."""
+    """pooled, *stats = f(x, pool, eps, need_dx, dtype, *layer tensors)
+    for rows x (R, C0); forward and backward are B9's sweeps at ``dtype``.
+    The statistics carry no gradient (they feed the running-statistics
+    update); without ``need_dx`` the input cotangent is zeros
+    (fused_sa.py:133-134)."""
 
     @staticmethod
-    def forward(ctx, x, pool, eps, need_dx, *flat):
+    def forward(ctx, x, pool, eps, need_dx, dtype, *flat):
         from facl_tpu_torch.ops.sa_kernel import sa_train_forward_unified
         L = len(flat) // 4
         layers = [SALayerParams(*flat[4 * i:4 * i + 4]) for i in range(L)]
         pooled, stats, packed = sa_train_forward_unified(x, layers, pool,
-                                                         eps)
+                                                         eps, dtype)
         flat_stats = [m for st in stats for m in st]
-        ctx.pool, ctx.need_dx = pool, need_dx
+        ctx.pool, ctx.need_dx, ctx.dtype = pool, need_dx, dtype
         ctx.save_for_backward(x, packed, *flat)
         ctx.mark_non_differentiable(*flat_stats)
         return (pooled, *flat_stats)
@@ -165,33 +157,43 @@ class _SAFused(torch.autograd.Function):
         L = len(flat) // 4
         layers = [SALayerParams(*flat[4 * i:4 * i + 4]) for i in range(L)]
         dx, grads = sa_train_backward_unified(
-            x, layers, packed, dpooled.contiguous(), ctx.pool, ctx.need_dx)
+            x, layers, packed, dpooled.contiguous(), ctx.pool, ctx.need_dx,
+            ctx.dtype)
         if dx is None:
             dx = torch.zeros_like(x)
-        return (dx, None, None, None, *(g for layer in grads for g in layer))
+        return (dx, None, None, None, None,
+                *(g for layer in grads for g in layer))
 
 
 def sa_train_fused(x: torch.Tensor, layers: Sequence[SALayerParams],
-                   pool_size: int, eps: float = 1e-5, need_dx: bool = True
+                   pool_size: int, eps: float = 1e-5, need_dx: bool = True,
+                   compute_dtype: torch.dtype = torch.float32
                    ) -> Tuple[torch.Tensor,
                               List[Tuple[torch.Tensor, torch.Tensor]]]:
     """Kernel B9's stage: x (R, C0) rows, R a multiple of pool_size.
-    Returns (pooled (R // pool_size, C_last), [(mean, var)] per layer)."""
-    reject_bf16(x.dtype, "pallas")
+    Returns (pooled (R // pool_size, C_last), [(mean, var)] per layer).
+    At ``compute_dtype=torch.bfloat16`` the sweeps read x as float32 (a
+    bf16 x is upcast, exactly) and compute in bf16, and the pooled rows
+    are float32 holding bf16 values, as JAX's (the caller casts them; the
+    cotangent that comes back is then the bf16 one, upcast)."""
+    x = x.float() if x.dtype == BF16 else x
     out = _SAFused.apply(x.contiguous(), pool_size, eps, need_dx,
-                         *(t for lp in layers for t in lp))
+                         compute_dtype, *(t for lp in layers for t in lp))
     st = out[1:]
     return out[0], [(st[2 * i], st[2 * i + 1]) for i in range(len(layers))]
 
 
 def sa_train(x: torch.Tensor, layers: Sequence[SALayerParams],
-             pool_size: int, eps: float = 1e-5, impl: str = "auto"):
+             pool_size: int, eps: float = 1e-5, impl: str = "auto",
+             compute_dtype: torch.dtype = torch.float32):
     """Dispatching train-mode SA (facl_tpu/ops/fused_sa.py:163-176): impl
     "pallas" or "auto" (the port's rule: B9 on every device, its twins on
-    the CPU) -> :func:`sa_train_fused`; "reference" -> the plain math."""
+    the CPU) -> :func:`sa_train_fused`; "reference" -> the plain math;
+    both at ``compute_dtype``."""
     if impl in ("auto", "pallas"):
-        return sa_train_fused(x, layers, pool_size, eps)
+        return sa_train_fused(x, layers, pool_size, eps,
+                              compute_dtype=compute_dtype)
     if impl == "reference":
-        return sa_train_reference(x, layers, pool_size, eps)
+        return sa_train_reference(x, layers, pool_size, eps, compute_dtype)
     raise ValueError(f"unknown SA impl {impl!r}; expected auto, reference "
                      "or pallas")

@@ -171,6 +171,11 @@ def _rb(t: torch.Tensor) -> torch.Tensor:
     return t.to(BF16).float()
 
 
+def _same(t: torch.Tensor) -> torch.Tensor:
+    """No rounding: the f32 form of a cast point (``_rb``'s stand-in)."""
+    return t
+
+
 def _h_bf16(p, mul, shift):
     """relu(bf16(p mul + shift)) from a stored bf16 pre-activation, as f32
     (sa_bwd.py:63-67)."""

@@ -15,10 +15,11 @@ which reads only batch statistics, so the order against Adam does not
 change any value.
 
 ``compute_dtype`` "bfloat16" (every shipped training config) runs with
-``sa_impl`` pair3 or pair (the bf16 sweeps of B2/B3 and B6), hybrid2 (B7
-and B8 at bf16), hybrid (B8 at bf16), reference or auto (which resolves to
-pair3 or reference): the SA stage, stage-2 MLP and head compute in
-bf16; parameters, Adam state, losses and BatchNorm statistics stay f32
+every ``sa_impl``: pair3 or pair (the bf16 sweeps of B2/B3 and B6),
+hybrid2 (B7 and B8 at bf16), hybrid (B8 at bf16), pallas (B9 at bf16),
+reference, covar, analytic, or auto (which resolves to pair3 or
+reference): the SA stage, stage-2 MLP and head compute in bf16;
+parameters, Adam state, losses and BatchNorm statistics stay f32
 (models/pointnet.py).
 
 Data parallelism (``mesh``, facl_tpu/train/trainer.py:90-229 on a dp
@@ -34,9 +35,8 @@ program's scratch arena, with identical math (trainer.py:96-108). Eager
 torch has no program to split: the step is the same one, and a mesh with
 more than one rank raises ValueError, as JAX does (:110-113).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-SwAV and CLD (Queue 1 item 15), and bf16 with ``sa_impl`` pallas, covar
-or analytic (Queue 1 item 19).
+Not ported yet (raises NotImplementedError naming its ROADMAP item):
+SwAV and CLD (Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -49,10 +49,8 @@ from facl_tpu_torch import resolve_device
 from facl_tpu_torch.config import Config, GroupingConfig
 from facl_tpu_torch.losses.infonce import circle_infonce, \
     global_local_infonce
-from facl_tpu_torch.models.pointnet import compute_dtype, \
-    resolve_grouping, resolve_model, resolve_model_config
-from facl_tpu_torch.models.sa_stage import BF16_IMPLS
-from facl_tpu_torch.ops.fused_sa import reject_bf16
+from facl_tpu_torch.models.pointnet import resolve_grouping, \
+    resolve_model, resolve_model_config
 from facl_tpu_torch.ops.grouping import group_points, \
     resolve_gather_impl, resolve_select_impl
 from facl_tpu_torch.train.optim import make_optimizer
@@ -69,10 +67,6 @@ def _reject_unported(cfg: Config, mesh: Optional[Mesh] = None) -> None:
     if cfg.train.split_step and mesh is not None and mesh.dp > 1:
         raise ValueError("split_step targets single-device large-batch "
                          "runs; use the fused step under a mesh")
-    dtype = compute_dtype(cfg.model)
-    impl = resolve_model_config(cfg.model).sa_impl
-    if impl not in BF16_IMPLS:
-        reject_bf16(dtype, impl)
 
 
 def make_grouping_fn(g_cfg: GroupingConfig, layout: str = "bcsk"

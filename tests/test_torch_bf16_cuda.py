@@ -1,6 +1,8 @@
 """The bf16 instantiations of the pair3 sweeps (B2a, B2b, B3a, B3b, B3c at
-compute_dtype bfloat16) and of B6, B7 and B8 (pair's sweep 2, hybrid2's
-forward, the two-sweep backward) against their bf16 twins, on the card.
+compute_dtype bfloat16), of B6, B7 and B8 (pair's sweep 2, hybrid2's
+forward, the two-sweep backward) and of B9 (the pallas stage's eight
+sweeps) against their bf16 twins, on the card; and the bf16 pair3 and
+pallas stages, card vs CPU.
 
 Marked ``cuda``: each test skips (with its reason) where no card is
 present; ``chip_smoke.py`` holds the same kernels at the main path's full
@@ -310,10 +312,121 @@ def test_bf16_pair3_stage_card_vs_cpu(dev, rng, K):
         assert float(a @ b / (a.norm() * b.norm())) > 0.99
 
 
-@pytest.mark.parametrize("impl", ["pallas", "covar", "analytic"])
-def test_bf16_impls_without_it_raise_on_the_card(dev, impl):
-    from facl_tpu_torch.models.sa_stage import SetAbstractionStage
-    st = SetAbstractionStage(4, (64, 64, 256), impl=impl,
-                             channels_first=True, dtype=BF16).to(dev).train()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
-        st(torch.zeros(2, 4, 4, 64, device=dev))
+def _b9_layers(rng, widths, dev):
+    out, cin = [], 4
+    for w in widths:
+        out.append([torch.tensor(a, dtype=torch.float32, device=dev) for a in
+                    (rng.normal(size=(cin, w), scale=0.5),
+                     rng.normal(size=(w,), scale=0.1),
+                     1.0 + 0.1 * rng.normal(size=(w,)),
+                     rng.normal(size=(w,), scale=0.1))])
+        cin = w
+    return out
+
+
+@pytest.mark.parametrize("K,widths", [(64, (64, 64, 256)),
+                                      (128, (64, 64, 256)),
+                                      (8, (8, 16, 32)), (48, (32,))])
+def test_b9_bf16_sweeps_match_twins(dev, rng, K, widths):
+    """B9's eight sweeps at bf16 against their bf16 twins on the same card
+    tensors, each fed the twin's inputs: stats, BN sums and dW within 1e-3
+    of their max-abs; pooled within one bf16 ulp but at 1e-3 of its
+    entries; dx at rtol 1e-5 / atol 1e-5 x scale but at 1e-3 of its rows
+    (rows whose bf16 rounding went the other way upstream); db near zero;
+    two calls bit-identical. The bf16 cotangent is zero on the bf16 near-
+    tie pairs of the twin's top layer: a distinct bf16 value within one
+    ulp below a group's max, or a max within one ulp of zero."""
+    from facl_tpu_torch.ops import sa_kernel as SK
+    from facl_tpu_torch.ops.fused_sa import SALayerParams
+    R = 64 * K
+    x = torch.from_numpy(rng.normal(size=(R, 4)).astype(np.float32)).to(dev)
+    lp = [SALayerParams(*layer) for layer in _b9_layers(rng, widths, dev)]
+    packed = torch.zeros(len(widths), 2, max(widths), device=dev)
+    for l, w in enumerate(widths):
+        a = (x, lp, packed.clone(), K, l)
+        k = SK.sa_fused_stats_bf16(*a)
+        for u, t in zip(k, SK.sa_fused_stats_bf16_plain(*a)):
+            _acc(u, t)
+        assert all(torch.equal(u, t) for u, t in
+                   zip(k, SK.sa_fused_stats_bf16(*a)))
+        s, ss = SK.sa_fused_stats_bf16_plain(*a)
+        mean = s / R
+        var = (ss / R - mean * mean).clamp_min(0.0)
+        packed[l, 0, :w], packed[l, 1, :w] = mean, torch.rsqrt(var + 1e-5)
+    a = (x, lp, packed, K)
+    pooled = SK.sa_fused_pool_bf16(*a)
+    assert torch.equal(pooled, pooled.to(BF16).float())
+    assert torch.equal(pooled, SK.sa_fused_pool_bf16(*a))
+    _rows(pooled, SK.sa_fused_pool_bf16_plain(*a))
+
+    v = SK.vectors(lp, packed, None, R, True)
+    hs = SK._forward_plain(x, lp, v, len(lp) - 1, True)[1]
+    wt = widths[-1]
+    z = SK._rb((SK._rb(hs[-1] @ SK._rb(lp[-1].kernel)) + v[-1, 0, :wt])
+               * v[-1, 3, :wt] + v[-1, 4, :wt]).reshape(-1, K, wt)
+    h = torch.relu(z)
+    m = h.amax(1, keepdim=True)
+    u = _ulp(m)
+    near = (((m - h) > 0) & ((m - h) <= u)).any(1) | \
+        ((m[:, 0] == 0) & (z > -u).any(1)) | \
+        ((m[:, 0] > 0) & (m[:, 0] <= u[:, 0]))
+    dout = torch.from_numpy(rng.normal(size=(R // K, wt)).astype(np.float32)
+                            ).to(dev).to(BF16).float()
+    dout = torch.where(near, 0.0, dout)
+    bsums = torch.zeros_like(packed)
+    for l in reversed(range(len(widths))):
+        a = (x, lp, packed, bsums.clone(), dout, K, l)
+        k = SK.sa_fused_bnsum_bf16(*a)
+        t = SK.sa_fused_bnsum_bf16_plain(*a)
+        for u_, t_ in zip(k, t):
+            _acc(u_, t_)
+        assert all(torch.equal(u_, t_) for u_, t_ in
+                   zip(k, SK.sa_fused_bnsum_bf16(*a)))
+        bsums[l, 0, :widths[l]], bsums[l, 1, :widths[l]] = t
+    a = (x, lp, packed, bsums, dout, K)
+    kd, kw, kb = SK.sa_fused_final_bf16(*a)
+    td, tw, tb = SK.sa_fused_final_bf16_plain(*a)
+    beyond = ((kd - td).abs() > 1e-5 * td.abs()
+              + 1e-5 * float(td.abs().max())).any(1)
+    assert int(beyond.sum()) <= 1e-3 * R
+    for u_, t_ in zip(kw, tw):
+        _acc(u_, t_)
+    gscale = max(float(t_.abs().max()) for t_ in tw)
+    for u_, t_ in zip(kb, tb):
+        assert max(float(u_.abs().max()), float(t_.abs().max())) < \
+            1e-4 * gscale
+    k2 = SK.sa_fused_final_bf16(*a)
+    assert torch.equal(k2[0], kd) and all(
+        torch.equal(u_, t_) for u_, t_ in zip(k2[1] + k2[2], kw + kb))
+    assert SK.sa_fused_final_bf16(*a, False)[0] is None
+
+
+@pytest.mark.parametrize("K", [64, 128])
+def test_bf16_pallas_stage_card_vs_cpu(dev, rng, K):
+    """sa_train_fused at bf16 (B9's bf16 sweeps on the card, their twins on
+    the CPU) on the same rows and weights: pooled at rtol = atol = 5e-2,
+    the gradients of x and of every parameter at relative L2 < 0.15 and
+    cosine > 0.99."""
+    from facl_tpu_torch.ops.fused_sa import SALayerParams, sa_train_fused
+    x = rng.normal(size=(4 * 16 * K, 4)).astype(np.float32)
+    layers = [[a.cpu().numpy() for a in layer]
+              for layer in _layers(rng, "cpu")]
+    wvec = torch.from_numpy(rng.normal(size=(256,)).astype(np.float32))
+    out = {}
+    for d in ("cpu", dev):
+        lp = [SALayerParams(*(torch.tensor(a, dtype=torch.float32,
+                                           device=d, requires_grad=True)
+                              for a in layer)) for layer in layers]
+        xt = torch.from_numpy(x).to(d).requires_grad_(True)
+        pooled, _ = sa_train_fused(xt, lp, K, compute_dtype=BF16)
+        (torch.sin(pooled.to(BF16).float()) * wvec.to(d)).sum().backward()
+        out[str(d)] = (pooled.detach().cpu(), [xt.grad.cpu()] +
+                       [t.grad.cpu() for layer in lp for t in layer])
+    (pc, gc), (pg, gg) = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(pg, pc, rtol=5e-2, atol=5e-2)
+    for i, (a, b) in enumerate(zip(gg, gc)):
+        if i % 4 == 2:     # Dense bias before BN: exact gradient is zero
+            continue
+        a, b = a.double().flatten(), b.double().flatten()
+        assert float((a - b).norm() / b.norm()) < 0.15
+        assert float(a @ b / (a.norm() * b.norm())) > 0.99

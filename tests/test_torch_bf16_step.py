@@ -4,9 +4,10 @@ package's: one step of each Trainer from the same weights (carried by
 ``sa_impl="reference"``, ``"pair3"``, ``"pair"``, ``"hybrid2"`` and
 ``"hybrid"`` (the JAX kernels in interpret mode, the port's bf16 sweep
 twins); the shipped training configs, loaded as they are, stepping the
-port's Trainer at full width, with the config's sa_impl and with each
-impl that has bf16 kernels; the impls without a bf16 form (pallas,
-covar, analytic) raising; and the bf16 GEMM flag.
+port's Trainer at full width, with the config's sa_impl and with the
+impls of the bf16 sweep kernels B2-B8; and the bf16 GEMM flag. The
+pallas, covar and analytic steps at bf16 are in
+tests/test_torch_bf16_fused.py (through the helpers here).
 
 Tolerances (the JAX package's bf16 bars, tests/test_covar_bn.py:38-39):
 the loss at rtol 5e-2; the BatchNorm running statistics after the step
@@ -61,14 +62,15 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-@pytest.mark.parametrize("sa_impl", ["reference", "pair3", "pair", "hybrid2",
-                                     "hybrid"])
-def test_bf16_step_matches_jax_trainer(rng, sa_impl):
+def step_vs_jax(rng, sa_impl, jax_impl=None):
+    """One bf16 step of the port's Trainer with ``sa_impl`` against one of
+    JAX's with ``jax_impl`` (default: the same impl), at the bars of the
+    module docstring."""
     points = rng.normal(size=(G, B, N, 4)).astype(np.float32)
     key = jax.random.PRNGKey(11)
     perm = np.asarray(jax.random.permutation(jax.random.split(key)[1], G))
 
-    jt = JaxTrainer(_cfg(JaxConfig, JaxGroupingConfig, sa_impl),
+    jt = JaxTrainer(_cfg(JaxConfig, JaxGroupingConfig, jax_impl or sa_impl),
                     steps_per_epoch=1)
     jstate = jt.init_state(jax.random.PRNGKey(0), jnp.asarray(points))
     params0 = jax.tree_util.tree_map(np.asarray, jstate.params)
@@ -115,15 +117,16 @@ def test_bf16_step_matches_jax_trainer(rng, sa_impl):
                                    atol=5e-2, err_msg=name)
 
 
-@pytest.mark.parametrize("sa_impl", [None, "auto", "pair", "hybrid2",
+@pytest.mark.parametrize("sa_impl", ["reference", "pair3", "pair", "hybrid2",
                                      "hybrid"])
-@pytest.mark.parametrize("name", ["motion_ntu60_xview.json",
-                                  "appearance_ntu60_xsub.json"])
-def test_shipped_bf16_config_steps_at_full_width(rng, name, sa_impl):
-    """The shipped config as it is (bf16, sa_impl "reference"), and with
-    sa_impl forced to "auto" (bf16 pair3 at these widths), "pair",
-    "hybrid2" or "hybrid": the port's Trainer builds and takes one
-    full-width step on the CPU at batch 2."""
+def test_bf16_step_matches_jax_trainer(rng, sa_impl):
+    step_vs_jax(rng, sa_impl)
+
+
+def shipped_step(rng, name, sa_impl):
+    """The shipped config ``name`` with ``sa_impl`` (None: as shipped): the
+    port's Trainer builds and takes one full-width step on the CPU at
+    batch 2, finite, with f32 gradients."""
     cfg = Config.from_json((ROOT / "configs" / name).read_text())
     assert cfg.model.compute_dtype == "bfloat16"
     assert cfg.model.sa_impl == "reference"
@@ -146,11 +149,16 @@ def test_shipped_bf16_config_steps_at_full_width(rng, name, sa_impl):
                          bool(torch.isfinite(g).all()) for g in grads)
 
 
-@pytest.mark.parametrize("sa_impl", ["pallas", "covar", "analytic"])
-def test_trainer_rejects_bf16_for_impls_without_it(sa_impl):
-    cfg = _cfg(Config, GroupingConfig, sa_impl)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
-        Trainer(cfg, steps_per_epoch=1, device="cpu")
+@pytest.mark.parametrize("sa_impl", [None, "auto", "pair", "hybrid2",
+                                     "hybrid"])
+@pytest.mark.parametrize("name", ["motion_ntu60_xview.json",
+                                  "appearance_ntu60_xsub.json"])
+def test_shipped_bf16_config_steps_at_full_width(rng, name, sa_impl):
+    """The shipped config as it is (bf16, sa_impl "reference"), and with
+    sa_impl forced to "auto" (bf16 pair3 at these widths), "pair",
+    "hybrid2" or "hybrid" (pallas, covar and analytic:
+    tests/test_torch_bf16_fused.py)."""
+    shipped_step(rng, name, sa_impl)
 
 
 def test_bf16_reduced_precision_reduction_is_off_after_import():
