@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the redesigned kernels B1 (select_gather), B2a
 (sa_fwd_layer12), B2b (sa_fwd_gram_pool), B3a (sa_bwd_sweep1), B3b
-(sa_bwd_sweep2) and B3c (sa_bwd_sweep3) spend their time on the card.
+(sa_bwd_sweep2) and B3c (sa_bwd_sweep3), and the bf16 forms of B2b and B3b
+(sa_fwd_gram_pool_bf16, sa_bwd_sweep2_bf16), spend their time on the card.
 
     python3 chip_ablate.py                  # one CUDA device, nvcc
     python3 chip_ablate.py sweep1 sweep3    # those kernels' variants only
@@ -9,6 +10,8 @@
                                             # sweep1, sweep2, sweep3)
     python3 chip_ablate.py precision        # B2a's arithmetic variants:
                                             # precision against float64
+    python3 chip_ablate.py rounding         # the card's bf16 rounding rate,
+                                            # one or two values at a time
 
 Each kernel is rebuilt from facl_tpu_torch/ops/csrc/sa_pair.cu with one
 part cut out (the pool, the Gram, a product, the CUDA-core row passes;
@@ -90,6 +93,35 @@ SEL_NOSELECT = ("      select_kth(w, K, __float_as_uint(radius_sq), hist, "
                 "      t = 0u;\n      take = K;\n      ties = -1;")
 SEL_NOGATHER = ("      if (!kGather) continue;", "      if (true) continue;")
 SEL_NOIDX = ("      if (idx_out) idx_out[row * K + q] = i;\n", "")
+# The bf16 forms of B2b and B3b (fwd_gram_pool_bf16_kernel,
+# bwd_sweep2_bf16_kernel): each product, pass or store cut.
+GPB_NOGRAM = ("    {   // Gram(h2) = h2^T h2", "    if (0) {   // Gram(h2)")
+GPB_NOP3 = ("    {   // p3^T = bf16(W3)^T h2^T", "    if (0) {   // p3^T")
+GPB_NOPOOL = ("      pool_tile_t<LP>(c, n0, b3s, tile, upt, run, mx, mn, imx, "
+              "imn);",
+              "      { float z = 0.f; for (int j = 0; j < 8; ++j) for (int q "
+              "= 0; q < 4; ++q) z += c[j][q]; if (z == 1.2345f) "
+              "mx[threadIdx.x] = __float2bfloat16_rn(z); }")
+GPB_NORELU = ("    {   // h2 = relu(bf16(p2 mul2 + shift2))",
+              "    if (0) {   // h2")
+S2B_NOM3 = ("        ldsm4t(b, b_rows_at(Ms, 16 * np, 16 * kk, lane));\n"
+            "        mma_bf16(c[2 * np], ha2[kk], b[0], b[1]);\n"
+            "        mma_bf16(c[2 * np + 1], ha2[kk], b[2], b[3]);",
+            "        c[2 * np][0] += __uint_as_float(ha2[kk][np]);")
+S2B_NOQ2 = ("        ldsm4(b, b_cols_at(W2s, 16 * np, 16 * kk, lane));\n"
+            "        mma_bf16(c[2 * np], qa[kk], b[0], b[1]);\n"
+            "        mma_bf16(c[2 * np + 1], qa[kk], b[2], b[3]);",
+            "        c[2 * np][0] += __uint_as_float(qa[kk][np]);")
+S2B_NOAG = ("    for (int h = 0; h < S2B_ROWS; h += TR)\n      s2b_products(",
+            "    for (int h = 0; h < 0; h += TR)\n      s2b_products(")
+S2B_NOAG2 = ("  for (int h = 0; h < S2B_ROWS; h += TR)      // the last",
+             "  for (int h = 0; h < 0; h += TR)      // the last")
+S2B_NOH1 = ("      h1_pair<true>(xa, xb, C0, W1s, v, col, ha, hb);",
+            "      ha = make_float2(xa[0], xa[0] + col);\n"
+            "      hb = make_float2(xb[0], xb[0] + col);")
+S2B_NOMQ = ("      *reinterpret_cast<uint4*>(mq + (r0 + r) * CW + cl) =\n"
+            "          *reinterpret_cast<const uint4*>(S + r * LDB + cl);",
+            "")
 #: variant -> (kernel, [(text, replacement)]) on that kernel's source.
 VARIANTS = {
     "layer12": ("l12", []),
@@ -133,6 +165,21 @@ VARIANTS = {
         ("    relu_rows<BF>(S, mul2, shift2, H2);\n"
          "    h1_rows<BF>(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);\n",
          "")]),
+    "gram_pool_bf16": ("gpb", []),
+    "gram_pool_bf16 without the Gram": ("gpb", [GPB_NOGRAM]),
+    "gram_pool_bf16 without h2 W3 and the pool": ("gpb", [GPB_NOP3]),
+    "gram_pool_bf16 without the pool": ("gpb", [GPB_NOPOOL]),
+    "gram_pool_bf16 without the ReLU pass": ("gpb", [GPB_NORELU]),
+    "gram_pool_bf16 loads only": ("gpb", [GPB_NOGRAM, GPB_NOP3,
+                                          GPB_NORELU]),
+    "sweep2_bf16": ("s2b", []),
+    "sweep2_bf16 without h2 M3": ("s2b", [S2B_NOM3]),
+    "sweep2_bf16 without q2": ("s2b", [S2B_NOQ2]),
+    "sweep2_bf16 without A2 and G1": ("s2b", [S2B_NOAG, S2B_NOAG2]),
+    "sweep2_bf16 without h1": ("s2b", [S2B_NOH1]),
+    "sweep2_bf16 without the mq store": ("s2b", [S2B_NOMQ]),
+    "sweep2_bf16 loads only": ("s2b", [S2B_NOM3, S2B_NOQ2, S2B_NOH1,
+                                       S2B_NOMQ, S2B_NOAG, S2B_NOAG2]),
     "sweep1": ("s1", []),
     "sweep1 without A3": ("s1", [S1_NOA3]),
     "sweep1 without the q3 rows": ("s1", S1_NOQ3),
@@ -149,6 +196,8 @@ VARIANTS = {
 #: kernel -> (source file, launcher's library and name).
 KERNEL_SRC = {"l12": ("sa_pair", "facl_sa_fwd_layer12"),
               "gp": ("sa_pair", "facl_sa_fwd_gram_pool"),
+              "gpb": ("sa_pair", "facl_sa_fwd_gram_pool_bf16"),
+              "s2b": ("sa_pair", "facl_sa_bwd_sweep2_bf16"),
               "s1": ("sa_pair", "facl_sa_bwd_sweep1"),
               "s2": ("sa_pair", "facl_sa_bwd_sweep2"),
               "s3": ("sa_pair", "facl_sa_bwd_sweep3"),
@@ -168,7 +217,12 @@ def variant_source(src: str, kernel: str, pairs) -> str:
                   "s2": (src.index("bwd_sweep2_kernel(const typename"),
                          src.index("// B3 sweep 3:")),
                   "s3": (src.index("bwd_sweep3_kernel(const typename"),
-                         src.index("}  // namespace"))}[kernel]
+                         src.index("// The bf16 forms of B2b and B3b")),
+                  "gpb": (src.index("fwd_gram_pool_bf16_kernel(const "
+                                    "__nv_bfloat16"),
+                          src.index("// B3 sweep 2 (slim) at bf16")),
+                  "s2b": (src.index("// B3 sweep 2 (slim) at bf16"),
+                          src.index("// Every launcher:"))}[kernel]
     part = src[lo:hi]
     for old, new in pairs:
         if old not in part:
@@ -313,6 +367,86 @@ def precision(cs, libs) -> dict:
     return out
 
 
+#: --rounding: the card's rate of a bf16 rounding carried back to f32,
+#: one value at a time (cvt.rn.bf16.f32, the TF32-pass sweeps' rb) and two
+#: at a time (cvt.rn.bf16x2.f32, the bf16 B2b and B3b), against an FMA
+#: chain: eight independent chains a thread, 132 x 8 blocks of 256.
+ROUNDING_CU = r"""
+#include <cuda_bf16.h>
+#include <cstdint>
+#include <cstdio>
+#define ITER 4096
+__global__ void one(float* out, float s) {
+  float v[8];
+  for (int i = 0; i < 8; ++i) v[i] = threadIdx.x * 0.001f + i;
+  for (int it = 0; it < ITER; ++it)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] = __bfloat162float(__float2bfloat16_rn(v[i] * s));
+  float a = 0; for (int i = 0; i < 8; ++i) a += v[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = a;
+}
+__global__ void two(float* out, float s) {
+  float v[8];
+  for (int i = 0; i < 8; ++i) v[i] = threadIdx.x * 0.001f + i;
+  for (int it = 0; it < ITER; ++it)
+#pragma unroll
+    for (int i = 0; i < 8; i += 2) {
+      __nv_bfloat162 p = __floats2bfloat162_rn(v[i] * s, v[i + 1] * s);
+      uint32_t u = *reinterpret_cast<uint32_t*>(&p);
+      v[i] = __uint_as_float(u << 16);
+      v[i + 1] = __uint_as_float(u & 0xffff0000u);
+    }
+  float a = 0; for (int i = 0; i < 8; ++i) a += v[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = a;
+}
+__global__ void fma_only(float* out, float s) {
+  float v[8];
+  for (int i = 0; i < 8; ++i) v[i] = threadIdx.x * 0.001f + i;
+  for (int it = 0; it < ITER; ++it)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = v[i] * s + 0.5f;
+  float a = 0; for (int i = 0; i < 8; ++i) a += v[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = a;
+}
+int main() {
+  float* out;
+  cudaMalloc(&out, 132 * 8 * 256 * 4);
+  int clk;
+  cudaDeviceGetAttribute(&clk, cudaDevAttrClockRate, 0);
+  cudaEvent_t a, b;
+  cudaEventCreate(&a);
+  cudaEventCreate(&b);
+  const char* names[3] = {"one at a time", "two at a time", "fma only"};
+  void (*ks[3])(float*, float) = {one, two, fma_only};
+  for (int k = 0; k < 3; ++k) {
+    ks[k]<<<132 * 8, 256>>>(out, 1.0001f);
+    cudaEventRecord(a);
+    ks[k]<<<132 * 8, 256>>>(out, 1.0001f);
+    cudaEventRecord(b);
+    cudaEventSynchronize(b);
+    float ms;
+    cudaEventElapsedTime(&ms, a, b);
+    double vals = 132.0 * 8 * 256 * 8 * ITER;
+    printf("rounding %s: %.4f ms, %.1f values a clock an SM at %.0f MHz\n",
+           names[k], ms, vals / (ms * 1e-3) / 132 / (clk * 1e3), clk / 1e3);
+  }
+  return 0;
+}
+"""
+
+
+def rounding(out_dir) -> None:
+    """Build and run ROUNDING_CU (--rounding)."""
+    from facl_tpu_torch.ops import _build
+    src, exe = out_dir / "rounding.cu", out_dir / "rounding"
+    src.write_text(ROUNDING_CU)
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-o", str(exe), str(src)], check=True)
+    print(subprocess.run([str(exe)], check=True, capture_output=True,
+                         text=True).stdout, end="", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_ablate: needs a CUDA device")
@@ -329,6 +463,10 @@ def main() -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     only = tuple(sys.argv[1:])           # kernel names: every variant of
+    if only == ("rounding",):
+        rounding(out_dir)
+        print(json.dumps({"gpu": cs.gpu_name_power()}))
+        return
     if only == ("precision",):
         sources = {name: variant_source(src["sa_pair"], "l12", pairs)
                    for name, pairs in PRECISION.items()}
@@ -367,6 +505,7 @@ def main() -> None:
     def r(*shape, sc=1.0):
         return sc * torch.randn(*shape, device=dev, generator=g)
     Bc, C0, N, K = 640, 4, 4096, 64
+    bf = torch.bfloat16
     R = Bc * N
     x3 = r(Bc, C0, N)
     w1, b1 = r(C0, 64, sc=0.5), r(64, sc=0.1)
@@ -399,7 +538,14 @@ def main() -> None:
                     "facl_sa_bwd_sweep2"),
              "s3": (SP.sa_bwd_sweep3, (x3, w1, b1, mul1, shift1, q3,
                                        r(64, 64, sc=0.1), rc3),
-                    "facl_sa_bwd_sweep3")}
+                    "facl_sa_bwd_sweep3"),
+             "gpb": (SP.sa_fwd_gram_pool_bf16,
+                     (p2.to(bf), mul2, shift2, w3, b3, K),
+                     "facl_sa_fwd_gram_pool_bf16"),
+             "s2b": (SP.sa_bwd_sweep2_bf16, (x3.to(bf), w1, b1, mul1, shift1,
+                                             p2.to(bf), mul2, shift2,
+                                             q3.to(bf), M3, rc3, gi2, w2),
+                     "facl_sa_bwd_sweep2_bf16")}
     for fn, args, _ in calls.values():
         fn(*args)                         # resolves this tree's launchers
 

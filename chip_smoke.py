@@ -10,7 +10,12 @@ every hand-written kernel against its plain PyTorch twin.
                                         #   of the tree in DIR (a git
                                         #   archive of another commit)
                                         #   timed against this tree's, in
-                                        #   turns, their outputs bit-equal
+                                        #   turns, their outputs bit-equal;
+                                        #   the bf16 B2a-B3c alike, within
+                                        #   phase 2's bf16 bars of the
+                                        #   parent's; and the pair3
+                                        #   bf16 step with the parent's
+                                        #   bf16 B2b and B3b, in turns
 
 Phases (any failure exits nonzero, before the final line):
   1. build   every kernel from facl_tpu_torch/ops/csrc (one nvcc per
@@ -48,7 +53,8 @@ Phases (any failure exits nonzero, before the final line):
              1e-3 of the entries; the counts printed), pool indices
              outside bf16 near-ties, f32 accumulators within 1e-3 of their
              max-abs, run to run bit-identical; timed, with bounds at bf16
-             bytes or the bf16 tensor-core rate per product; B6, B7 and
+             bytes or the bf16 tensor-core rate per product (the five
+             again at the fine variant's K = 128); B6, B7 and
              B8 at bf16 alike, their accumulators within ACC2_BAR of
              their max-abs and cnt1 exact (two_sweep_bf16_rows); B9's
              eight launches at bf16 alike (b9_bf16_rows: the bf16
@@ -86,6 +92,9 @@ Phases (any failure exits nonzero, before the final line):
              (counters zeroed just before each path, read just after).
              --profile adds one profiled step to each impl's path: kernel
              time over that step's own span gives the device's idle share;
+             with --parent the pair3 bf16 step runs again, 20 steps in
+             turns with the parent's bf16 B2b and B3b and with this
+             tree's (parent_step_ab; --profile: one profiled step each);
   5. input   d(loss)/d(points) through each grouping route and the
              pallas SA stage with input_grad (B9's dx, B5b) at B=8: card
              kernels vs card twins vs CPU (phase_input_grad), with exact
@@ -1068,6 +1077,42 @@ def bf16_index_flips(k_idx, t_idx, t_vals, name):
     return int(bad.sum()), float(gap.max()), float(stored.max())
 
 
+def gram_pool_bf16_p3(p2, mul2, shift2, w3, b3, pool):
+    """B2b-bf16's p3 = bf16(h2 bf16(W3)) + bf16(b3) in f32, as its twin
+    forms it, grouped (P, pool, C3): the values bf16_index_flips reads."""
+    SP = sweep_modules()[0]
+    h2 = SP._h2_bf16(p2, mul2, shift2)
+    p3 = SP._rb(h2 @ SP._rb(w3)) + SP._rb(b3)
+    return p3.reshape(-1, pool, w3.shape[1])
+
+
+def bf16_vs_parent(name, mine, theirs, p3=None):
+    """A bf16 sweep's outputs (``_outputs`` order) against the parent
+    tree's at phase 2's bf16 bars: bf16 rows within one bf16 ulp but at
+    counted flips (bf16_flips), pool indices equal but at bf16 near-ties
+    of the twin's f32 p3 (bf16_index_flips; ``p3`` from
+    gram_pool_bf16_p3), f32 accumulators within 1e-3 of the parent's
+    max-abs (acc_rel). Fails otherwise. Returns a note of the counts."""
+    check(len(mine) == len(theirs), f"--parent: {name} returns "
+                                    f"{len(mine)} tensors, the parent "
+                                    f"{len(theirs)}")
+    notes = []
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        what = f"--parent: {name} output {i}"
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"{what}: {a.dtype} {tuple(a.shape)} against the parent's "
+              f"{b.dtype} {tuple(b.shape)}")
+        if a.dtype == BF16:
+            notes.append(f"{i}: {bf16_flips(a, b, what)[0]} beyond one ulp")
+        elif a.dtype == torch.int32:
+            check(p3 is not None, f"{what}: pool indices need p3")
+            notes.append(f"{i}: {bf16_index_flips(a, b, p3, what)[0]} "
+                         "indices at near-ties")
+        else:
+            acc_rel(a, b, what)
+    return "; ".join(notes)
+
+
 def acc_rel(k, t, name, bar=1e-3):
     """An f32 accumulator of a bf16 sweep: within ``bar`` of its max-abs."""
     err = float((k - t).abs().max())
@@ -1129,10 +1174,7 @@ def bf16_rows(x3, layers, dpooled, K):
     G2, ch2, mx, mn, imx, imn = SP.sa_fwd_gram_pool_bf16_plain(*agp)
     k = SP.sa_fwd_gram_pool_bf16(*agp)
     same(SP.sa_fwd_gram_pool_bf16, agp, k, "gram_pool bf16")
-    h2 = SP._h2_bf16(p2, mul2, shift2)
-    p3 = (SP._rb(h2 @ SP._rb(lp3.kernel)) + SP._rb(lp3.bias)).reshape(P, K,
-                                                                      C3)
-    del h2
+    p3 = gram_pool_bf16_p3(*agp)
     nx, ex = bf16_flips(k[2], mx, "gram_pool bf16 max")
     nn, en = bf16_flips(k[3], mn, "gram_pool bf16 min")
     ix = (bf16_index_flips(k[4], imx, p3, "gram_pool bf16 argmax"),
@@ -1564,6 +1606,7 @@ def phase_kernels(dev, model, points):
         dpf = torch.randn(Bc * Sf, C3, generator=g).to(dev)
         check_b2b_b3(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], Kf, dpf,
                      "fine")
+        bf16_rows(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf, Kf)
         for impl in IMPLS + ("pallas",):
             sa_chain_vs_f64(gf.reshape(Bc, C, Sf * Kf), [lp1, lp2, lp3], dpf,
                             Kf, impl)
@@ -1616,6 +1659,9 @@ PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
              "sa_bwd_sweep1": ("sa_pair", "facl_sa_bwd_sweep1", 1),
              "sa_bwd_sweep2": ("sa_pair", "facl_sa_bwd_sweep2", 1),
              "sa_bwd_sweep3": ("sa_pair", "facl_sa_bwd_sweep3", 1),
+             **{f"sa_{n}_bf16": ("sa_pair", f"facl_sa_{n}_bf16", 1) for n in
+                ("fwd_layer12", "fwd_gram_pool", "bwd_sweep1", "bwd_sweep2",
+                 "bwd_sweep3")},
              "sa_fwd_layer": ("sa_2sweep", "facl_sa_fwd_layer", None),
              "sa_fwd_gram": ("sa_2sweep", "facl_sa_fwd_gram", None),
              "sa_fwd_pool": ("sa_2sweep", "facl_sa_fwd_pool", None),
@@ -1667,9 +1713,11 @@ def parent_ab(fn, args):
     launcher (at the parent's grid for it, where it takes one) and with
     this tree's, in turns: parent, this tree, this tree, parent; and the
     outputs of one call of each, which must be bit-equal (fails
-    otherwise). The launchers' C signatures are the same in both trees
-    (pointers are void* to ctypes). (B6 and B8b return dicts, B7c one
-    tensor: their values are compared.)"""
+    otherwise), or for a bf16 sweep (a wrapper named *_bf16) within
+    phase 2's bf16 bars of the parent's (bf16_vs_parent: the redesigned
+    kernels sum in another order). The launchers' C signatures are the
+    same in both trees (pointers are void* to ctypes). (B6 and B8b return
+    dicts, B7c one tensor: their values are compared.)"""
     import ctypes
     from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_pair as SP
@@ -1700,6 +1748,12 @@ def parent_ab(fn, args):
     ab = [run_parent(theirs), run_ours(), run_ours(), run_parent()]
     mine = _outputs(fn(*args))
     theirs = [t for o in theirs for t in _outputs(o)]
+    if fn.__name__.endswith("_bf16"):
+        p3 = gram_pool_bf16_p3(*args) if "gram_pool" in fn.__name__ \
+            else None
+        print(f"  --parent {fn.__name__} against the parent's: "
+              f"{bf16_vs_parent(fn.__name__, mine, theirs, p3)}", flush=True)
+        return ab
     check(len(mine) == len(theirs) and
           all(torch.equal(a, b) for a, b in zip(mine, theirs)),
           f"--parent: {fn.__name__}'s outputs differ from the parent's")
@@ -1732,8 +1786,10 @@ def print_row(r, label=""):
         print(f"  A/B {r['name']} in turns (parent, this tree, this tree, "
               f"parent): {' / '.join(f'{v:.4f}' for v in ab)} ms on the "
               f"device; parent mean {(ab[0] + ab[3]) / 2:.4f}, this tree "
-              f"{(ab[1] + ab[2]) / 2:.4f}; outputs bit-equal to the "
-              "parent's", flush=True)
+              f"{(ab[1] + ab[2]) / 2:.4f}; outputs "
+              + ("within phase 2's bf16 bars of" if
+                 r["fn"].__name__.endswith("_bf16") else "bit-equal to")
+              + " the parent's", flush=True)
 
 
 def _cfg(batch, impl="pair3", select_impl="auto", gather_impl="auto",
@@ -2287,7 +2343,57 @@ def phase_main(dev, profile: bool, card: str):
             dev, "pallas", steps, batches, g, kernels, card,
             profile and label == "pallas", want, label, si, gi)
         torch.cuda.empty_cache()
+    if PARENT:
+        parent_step_ab(dev, batches, g, kernels, card, profile)
     return out, medians
+
+
+#: --parent: the kernels whose parent launchers the pair3 bf16 step runs
+#: in parent_step_ab (the ones this tree redesigned).
+PARENT_STEP = ("sa_fwd_gram_pool_bf16", "sa_bwd_sweep2_bf16")
+
+
+def parent_step_ab(dev, batches, g, kernels, card, profile: bool):
+    """--parent: the pair3 bf16 Trainer step with this tree's PARENT_STEP
+    kernels and with the parent tree's (their launchers swapped; every
+    other kernel this tree's), in turns: parent, this tree, this tree,
+    parent, 20 timed steps each after 2 warm-up steps (_run_path: its
+    launch counts checked); with --profile one profiled step of the first
+    two. Prints the medians; returns them."""
+    import ctypes
+    from facl_tpu_torch.ops import _build
+    label, impl, _, want = BF16_PATHS[0]
+    swaps = []
+    for name in PARENT_STEP:
+        lib_name, launcher, per_sm = PARENT_AB[name]
+        check(per_sm == 1, f"--parent: {name} runs at 1 block per SM in "
+                           "both trees here")
+        key = (lib_name, launcher)
+        ours = _build._FUNCTIONS[key]
+        pfn = getattr(PARENT[lib_name], launcher)
+        pfn.argtypes, pfn.restype = ours[1].argtypes, ctypes.c_int
+        swaps.append((key, ours, (PARENT[lib_name], pfn)))
+
+    def run(parent, prof):
+        for key, ours, theirs in swaps:
+            _build._FUNCTIONS[key] = theirs if parent else ours
+        try:
+            tag = "the parent's" if parent else "this tree's"
+            return _run_path(dev, impl, 20, batches, g, kernels, card, prof,
+                             want, f"{label} with {tag} B2b and B3b",
+                             dtype="bfloat16")[1]
+        finally:
+            for key, ours, _ in swaps:
+                _build._FUNCTIONS[key] = ours
+            torch.cuda.empty_cache()
+    ms = [run(True, profile), run(False, profile), run(False, False),
+          run(True, False)]
+    print(f"A/B {label} step in turns (parent's B2b and B3b, this tree's, "
+          f"this tree's, parent's) on {card}: "
+          f"{' / '.join(f'{v:.2f}' for v in ms)} ms/step (medians of 20); "
+          f"parent mean {(ms[0] + ms[3]) / 2:.2f}, this tree "
+          f"{(ms[1] + ms[2]) / 2:.2f}", flush=True)
+    return ms
 
 
 def all_kernels():
@@ -3635,9 +3741,12 @@ def main() -> None:
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of the parent commit: its select.cu, "
                          "sa_pair.cu, sa_2sweep.cu and sa_fused.cu are "
-                         "built and its B1, B2a-B3c and the f32 B6, B7, B8 "
-                         "and B9 timed against this tree's in turns, their "
-                         "outputs bit-equal")
+                         "built and its B1, B2a-B3c (f32 and bf16), the f32 "
+                         "B6, B7, B8 and B9 timed against this tree's in "
+                         "turns, their outputs bit-equal (the bf16 ones "
+                         "within phase 2's bf16 bars); and "
+                         "the pair3 bf16 step with the parent's bf16 B2b "
+                         "and B3b")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures the "

@@ -1,6 +1,6 @@
 // Tensor-core tile machinery of the redesigned SA sweeps (sa_pair.cu:
-// fwd_layer12, fwd_gram_pool, bwd_sweep2, bwd_sweep3; bwd_sweep1 uses the
-// TMA staging).
+// fwd_layer12, fwd_gram_pool, bwd_sweep2, bwd_sweep3 and the bf16 forms of
+// fwd_gram_pool and bwd_sweep2; bwd_sweep1 uses the TMA staging).
 // Products run as mma.sync m16n8k8 TF32 in the 3xTF32 split, which keeps
 // f32-level accuracy: each f32 operand a becomes hi = tf32(a) and lo =
 // tf32(a - hi), and a product sums lo.hi' + hi.lo' + hi.hi' in f32 (the
@@ -26,8 +26,10 @@
 // chains of sa_tile.cuh (relu_affine, and h1_rows below with h1_tile's
 // exact chain), bit for bit as in the forward.
 //
-// bf16 (the template flag BF): the sweeps' row tensors (x, p2, q3, mq)
-// are stored as __nv_bfloat16 and every product runs in ONE TF32 pass. A
+// bf16 (the template flag BF of B2a, B3a, B3c): the sweeps' row tensors
+// (x, p2, q3, mq) are stored as __nv_bfloat16 and every product runs in
+// ONE TF32 pass (B2b's and B3b's bf16 forms use the bf16 tensor-core
+// helpers at the end of this file instead). A
 // bf16 value is exact in TF32 (the same 8-bit exponent, more mantissa
 // bits), so a product of two bf16 values is exact and the tensor cores
 // sum it in f32, as the TPU kernels' bf16 dots with f32 accumulation do;
@@ -181,6 +183,30 @@ struct Row<true> {
 // Round to bf16 (nearest even), carried in f32: one cast point.
 __device__ __forceinline__ float rb(float a) {
   return __bfloat162float(__float2bfloat16_rn(a));
+}
+
+// Two values rounded to bf16 (nearest even) in one register, and back.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+
+// The halves of a packed pair to keep: bit 0 the low, bit 1 the high.
+__device__ __forceinline__ uint32_t keep_halves(uint32_t bits) {
+  return ((bits & 1u) ? 0x0000ffffu : 0u) | ((bits & 2u) ? 0xffff0000u : 0u);
+}
+
+// relu of a packed pair u of bf16 values (unpacked: f), and its mask bits:
+// a half is kept where its value is > 0, else +0.
+__device__ __forceinline__ uint32_t relu_packed(uint32_t u, float2& f,
+                                                uint32_t& bits) {
+  f = unpack_bf16(u);
+  bits = (f.x > 0.f ? 1u : 0u) | (f.y > 0.f ? 2u : 0u);
+  return u & keep_halves(bits);
 }
 
 template <bool BF>
@@ -572,10 +598,26 @@ __device__ __forceinline__ void h1_pair(const float (&xa)[C0MAX - 1],
   }
   const float2 b1 = ld2(vec1 + col), mul = ld2(vec1 + CW + col);
   const float2 sh = ld2(vec1 + 2 * CW + col);
-  ha.x = h1_of<BF>(a.x, b1.x, mul.x, sh.x);
-  ha.y = h1_of<BF>(a.y, b1.y, mul.y, sh.y);
-  hb.x = h1_of<BF>(b.x, b1.x, mul.x, sh.x);
-  hb.y = h1_of<BF>(b.y, b1.y, mul.y, sh.y);
+  if constexpr (BF) {
+    // h1_of's chain with each rounding done for two values at once
+    // (cvt.rn.bf16x2 rounds as cvt.rn.bf16 does, at about three times its
+    // rate on this card).
+    const float2 ra = unpack_bf16(pack_bf16(a.x, a.y));
+    const float2 rv = unpack_bf16(pack_bf16(b.x, b.y));
+    const float2 pa = unpack_bf16(pack_bf16(
+        __fadd_rn(__fmul_rn(__fadd_rn(ra.x, b1.x), mul.x), sh.x),
+        __fadd_rn(__fmul_rn(__fadd_rn(ra.y, b1.y), mul.y), sh.y)));
+    const float2 pb = unpack_bf16(pack_bf16(
+        __fadd_rn(__fmul_rn(__fadd_rn(rv.x, b1.x), mul.x), sh.x),
+        __fadd_rn(__fmul_rn(__fadd_rn(rv.y, b1.y), mul.y), sh.y)));
+    ha = make_float2(fmaxf(pa.x, 0.0f), fmaxf(pa.y, 0.0f));
+    hb = make_float2(fmaxf(pb.x, 0.0f), fmaxf(pb.y, 0.0f));
+  } else {
+    ha.x = h1_of<BF>(a.x, b1.x, mul.x, sh.x);
+    ha.y = h1_of<BF>(a.y, b1.y, mul.y, sh.y);
+    hb.x = h1_of<BF>(b.x, b1.x, mul.x, sh.x);
+    hb.y = h1_of<BF>(b.y, b1.y, mul.y, sh.y);
+  }
 }
 
 // Sum over the lanes of one t group (lanes 4g .. 4g + 3): a column sum
@@ -584,6 +626,88 @@ __device__ __forceinline__ double sum_over_t(double v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   v += __shfl_xor_sync(0xffffffffu, v, 2);
   return v;
+}
+
+// -- bf16 tensor cores (the bf16 forms of B2b and B3b) -----------------
+// Operands are bf16 in shared memory, tiles (rows, LDB) row-major with a
+// stride of 72 values (144 bytes): the eight 16-byte rows that one
+// ldmatrix phase reads fall in eight different bank groups. Products run
+// as mma.sync m16n8k16 bf16 with f32 accumulation (products of two bf16
+// values are exact; the tensor cores sum each k16 step into the f32
+// accumulators). Fragments (g = lane / 4, t = lane % 4), each register
+// two bf16 values, the lower column (or k) in the low half:
+//   A (16 x 16): a0 (row g, k 2t..), a1 (row g + 8, k 2t..),
+//                a2 (row g, k 2t + 8..), a3 (row g + 8, k 2t + 8..);
+//   B (16 x 8):  b0 (k 2t.., col g), b1 (k 2t + 8.., col g);
+//   C (16 x 8):  c0, c1 (row g, cols 2t, 2t + 1), c2, c3 (row g + 8).
+// C of two neighbouring n-tiles is the A fragment of one k16 step.
+constexpr int LDB = 72;
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8. Plain: register q holds row g, columns 2t, 2t + 1 of
+// matrix q; transposed: rows 2t, 2t + 1 of column g.
+__device__ __forceinline__ void ldsm4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// The A fragment of rows m0.., k step k0.. of a (rows, LDB) tile X[m][k].
+__device__ __forceinline__ const __nv_bfloat16* a_rows_at(
+    const __nv_bfloat16* X, int m0, int k0, int lane) {
+  return X + (m0 + (lane & 15)) * LDB + k0 + ((lane >> 4) << 3);
+}
+// The A fragment of A[m][k] = X[k][m] (transposed load): the tile's rows
+// are the reduction.
+__device__ __forceinline__ const __nv_bfloat16* a_cols_at(
+    const __nv_bfloat16* X, int m0, int k0, int lane) {
+  return X + (k0 + (lane & 7) + ((lane >> 4) << 3)) * LDB + m0 +
+         (((lane >> 3) & 1) << 3);
+}
+// B fragments of two n-tiles n0.., n0 + 8.. (registers b0, b1, b0', b1')
+// from X[k][n] (transposed load) ...
+__device__ __forceinline__ const __nv_bfloat16* b_rows_at(
+    const __nv_bfloat16* X, int n0, int k0, int lane) {
+  return X + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LDB + n0 +
+         ((lane >> 4) << 3);
+}
+// ... or from X[n][k] (plain load).
+__device__ __forceinline__ const __nv_bfloat16* b_cols_at(
+    const __nv_bfloat16* X, int n0, int k0, int lane) {
+  return X + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LDB + k0 +
+         (((lane >> 3) & 1) << 3);
+}
+
+// 16-byte asynchronous copies global -> shared (cp.async), each thread's
+// copies in groups it commits and waits for.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 }  // namespace

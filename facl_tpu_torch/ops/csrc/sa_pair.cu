@@ -54,12 +54,16 @@
 // closed-form layer algebra between sweeps stay in PyTorch at full f32
 // (ops/sa_pair.py), as XLA did them outside Pallas.
 //
-// Each sweep is a template on BF: f32 rows (facl_sa_*) or bf16 rows
+// Each sweep has an f32 entry point (facl_sa_*) and a bf16 one
 // (facl_sa_*_bf16, compute_dtype bfloat16): x, p2, q3, mq and B2b's
-// max/min stored as bf16, every product in one TF32 pass (exact for bf16
-// operands), results rounded to bf16 at the TPU kernels' cast points
-// (sa_mma.cuh, and the bf16 twins in ops/sa_pair.py). The bf16 forms
-// keep the f32 forms' tiling, staging and fixed-order float64 partials.
+// max/min stored as bf16, results rounded to bf16 at the TPU kernels'
+// cast points (the bf16 twins in ops/sa_pair.py). B2a, B3a and B3c are
+// templates on BF: their bf16 forms keep the f32 forms' tiling, staging
+// and fixed-order float64 partials, every product in one TF32 pass (exact
+// for bf16 operands; sa_mma.cuh). B2b and B3b have bf16 kernels of their
+// own (fwd_gram_pool_bf16_kernel, bwd_sweep2_bf16_kernel, below the f32
+// sweeps): bf16 operands in shared memory, products as mma.sync
+// m16n8k16 bf16.
 //
 // The backward recomputes p1 -> h1 from x with the forward's exact op
 // chain (h1_tile in sa_tile.cuh, shared by every x-reading kernel, B6 in
@@ -1395,6 +1399,658 @@ bwd_sweep3_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
   }
 }
 
+// =====================================================================
+// The bf16 forms of B2b and B3b: kernels of their own, built for Hopper's
+// bf16 tensor cores (sa_mma.cuh, "bf16 tensor cores"). Every operand a
+// product reads is bf16 in shared memory (padded (rows, LDB) tiles,
+// fragments by ldmatrix) or in registers, and every product runs as
+// mma.sync m16n8k16 bf16 with f32 accumulation; no TF32 pass and no
+// hi/lo split. The f32 forms above (fwd_gram_pool_kernel<LP, false>,
+// bwd_sweep2_kernel<false>) are not these kernels' instantiations.
+// One block per SM. Sums over rows: each 64-row tile in f32 (the tensor
+// cores' k16 steps), carried in float64; per-block partials in float64,
+// summed in a fixed order: runs are bit-identical.
+
+// ---------------------------------------------------------------------
+// B2 sweep B at bf16 (facl_sa_fwd_gram_pool_bf16). Replaces
+// facl_tpu/ops/pallas/sa_pair.py::_make_gram_pool_sweep (:179,
+// pallas_call :660) at compute_dtype bfloat16: h2 = relu(bf16(p2 mul2 +
+// shift2)); per block Gram(h2) and colsum(h2); p3 = bf16(h2 bf16(W3)) +
+// bf16(b3), summed in f32; per (pool group, channel) the max and min of
+// p3, stored as bf16, with the first in-group row of each (the twin:
+// ops/sa_pair.py::sa_fwd_gram_pool_bf16_plain).
+//
+// Bound on the card at the main path (R = 2,621,440 rows): 0.168 ms by
+// operations (97 GFLOP of products at the bf16 rate, 0.098 ms, and the
+// CUDA-core h2 pass and pool, 0.070 ms); bytes (p2 in, the pooled rows
+// out) take 0.14 ms. The form this replaces was the f32 design carrying
+// bf16 values as floats: TF32 m16n8k8 products (half the bf16 rate,
+// twice the fragment bytes), hi/lo tiles with a zero lo half, 220 KB of
+// shared memory and three block barriers a tile. Here p2 arrives by TMA (one
+// bulk copy a tile, four in flight); all 512 threads turn a tile into h2
+// (bf16) in one of two padded tiles, so one barrier a tile suffices: a
+// warp that has finished tile i's products goes on to tile
+// i + 1's pass while others still read tile i's h2. Each of the 16
+// warps then takes p3^T = W3^T h2^T for the channels 16 w.. over all 64
+// rows (W3^T's bf16 fragments held in registers for the whole sweep,
+// h2's read by ldmatrix), so that a channel's 64 rows sit in the four
+// lanes of one t group, 16 a lane: each (group, channel) max and min is
+// reduced from the accumulators inside one warp, mostly within lanes,
+// with two shuffle steps (pool_tile_t: the exact first-row rule of the
+// f32 form; a pool group of 128 rows spans two tiles walked in order, the
+// running max and min in `run`); and a (16, 16) block of Gram(h2), the
+// column sums taken from the same fragments. Every rounding to bf16
+// converts two values at once (cvt.rn.bf16x2: a third of the cost of
+// one at a time on this card). 57 KB of shared memory; 512 threads.
+constexpr int GPB_NT = 512;        // 16 warps, 16 channels each
+constexpr int GPB_STAGES = 4;       // p2 tiles in flight
+
+// Per (pool group, channel) max and min of one tile's p3 = bf16(acc) +
+// b3 (b3 rounded, the sum in f32) with the first in-group row of each,
+// from the accumulators of p3^T (channels as the product's rows): lane
+// (g, t) holds channel ch0 + 8 hh + g at the tile's rows 8 j + 2t + e in
+// c[j][2 hh + e]. A group of 2^LP rows spans, in a lane, 2^(LP - 3) of
+// its j (LP > 3) and both e (LP > 0), and the t bits
+// below LP - 1 across lanes (two at most): its max and min are reduced
+// over the lane's values, then over those lanes; then the first row
+// holding each (the smallest, as pool_tile). pool > TR (upt > 1, LP ==
+// 6): a group spans upt tiles walked in order, the running max and min in
+// run. Max and min stored as bf16.
+template <int LP>
+__device__ __forceinline__ void pool_tile_t(const float c[8][4], int ch0,
+                                            const float* b3s, int64_t tile,
+                                            int upt, float* run,
+                                            __nv_bfloat16* mx,
+                                            __nv_bfloat16* mn, int* imx,
+                                            int* imn) {
+  constexpr int JS = LP > 3 ? 1 << (LP - 3) : 1;       // j of a group
+  constexpr int ES = LP > 0 ? 2 : 1;                   // e of a group
+  constexpr int TB = LP > 2 ? 2 : (LP > 1 ? 1 : 0);    // t bits of a group
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  int* irun = reinterpret_cast<int*>(run + 2 * C3W);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int ch = ch0 + 8 * hh + g;
+    const float bias = b3s[ch];
+    float v[8][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 u =
+          unpack_bf16(pack_bf16(c[j][2 * hh], c[j][2 * hh + 1]));
+      v[j][0] = __fadd_rn(u.x, bias);
+      v[j][1] = __fadd_rn(u.y, bias);
+    }
+#pragma unroll
+    for (int j0 = 0; j0 < 8; j0 += JS)
+#pragma unroll
+      for (int e0 = 0; e0 < 2; e0 += ES) {
+        float m = v[j0][e0], n = m;
+#pragma unroll
+        for (int jj = 0; jj < JS; ++jj)
+#pragma unroll
+          for (int ee = 0; ee < ES; ++ee) {
+            m = fmaxf(m, v[j0 + jj][e0 + ee]);
+            n = fminf(n, v[j0 + jj][e0 + ee]);
+          }
+#pragma unroll
+        for (int b = 0; b < TB; ++b) {
+          m = fmaxf(m, __shfl_xor_sync(FULL, m, 1 << b));
+          n = fminf(n, __shfl_xor_sync(FULL, n, 1 << b));
+        }
+        int jm = TR, jn = TR;
+#pragma unroll
+        for (int jj = JS - 1; jj >= 0; --jj)
+#pragma unroll
+          for (int ee = ES - 1; ee >= 0; --ee) {
+            const int r = 8 * (j0 + jj) + 2 * t + e0 + ee;
+            if (v[j0 + jj][e0 + ee] == m) jm = r;
+            if (v[j0 + jj][e0 + ee] == n) jn = r;
+          }
+#pragma unroll
+        for (int b = 0; b < TB; ++b) {
+          jm = min(jm, __shfl_xor_sync(FULL, jm, 1 << b));
+          jn = min(jn, __shfl_xor_sync(FULL, jn, 1 << b));
+        }
+        if ((t & ((1 << TB) - 1)) != 0) continue;
+        const int base = ((8 * j0 + 2 * t + e0) >> LP) << LP;
+        const int grp = base >> LP;                // group within the tile
+        if (upt == 1) {
+          const int64_t o = (tile * (TR >> LP) + grp) * C3W + ch;
+          mx[o] = __float2bfloat16_rn(m);
+          mn[o] = __float2bfloat16_rn(n);
+          imx[o] = jm - base;
+          imn[o] = jn - base;
+        } else {                                  // LP == 6: one group
+          const int jt = static_cast<int>(tile % upt);
+          if (jt == 0 || m > run[ch]) {
+            run[ch] = m;
+            irun[ch] = jm + jt * TR;
+          }
+          if (jt == 0 || n < run[C3W + ch]) {
+            run[C3W + ch] = n;
+            irun[C3W + ch] = jn + jt * TR;
+          }
+          if (jt == upt - 1) {
+            const int64_t o = (tile / upt) * C3W + ch;
+            mx[o] = __float2bfloat16_rn(run[ch]);
+            mn[o] = __float2bfloat16_rn(run[C3W + ch]);
+            imx[o] = irun[ch];
+            imn[o] = irun[C3W + ch];
+          }
+        }
+      }
+  }
+}
+
+template <int LP>
+__global__ void __launch_bounds__(GPB_NT, 1)
+fwd_gram_pool_bf16_kernel(const __nv_bfloat16* __restrict__ p2,
+                          int64_t ntiles, int upt,
+                          const float* __restrict__ vec2,
+                          const float* __restrict__ W3,
+                          const float* __restrict__ b3,
+                          double* __restrict__ partG,
+                          double* __restrict__ partc,
+                          __nv_bfloat16* __restrict__ mx,
+                          __nv_bfloat16* __restrict__ mn,
+                          int* __restrict__ imx, int* __restrict__ imn) {
+  using bf = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char smb[];
+  bf* stage = reinterpret_cast<bf*>(smb);       // GPB_STAGES x (TR, CW): p2
+  bf* H2 = stage + GPB_STAGES * TR * CW;        // 2 x (TR, LDB): h2
+  float* v2 = reinterpret_cast<float*>(H2 + 2 * TR * LDB);  // mul2 | shift2
+  float* b3s = v2 + 2 * CW;                     // bf16(b3)
+  float* run = b3s + C3W;                       // 4 x C3W (pool > TR)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(run + 4 * C3W);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mw = warp & 3, nw = warp >> 2;  // Gram rows 16 mw.., cols 16 nw..
+  const int n0 = 16 * warp;                     // p3's channels
+  // This block's tiles in order: whole units of upt tiles (a pool group
+  // spanning tiles stays with one block), units strided over the grid.
+  const int64_t units = ntiles / upt;
+  const int64_t count =
+      units > blockIdx.x ? ((units - 1 - blockIdx.x) / gridDim.x + 1) * upt
+                         : 0;
+  auto tile_at = [&](int64_t i) {
+    return (blockIdx.x + (i / upt) * gridDim.x) * upt + i % upt;
+  };
+  auto fetch = [&](int64_t i) {               // thread 0: one bulk copy
+    uint64_t* bar = &bars[i % GPB_STAGES];
+    mbar_expect(bar, TR * CW * sizeof(bf));
+    bulk_load(stage + (i % GPB_STAGES) * TR * CW, p2 + tile_at(i) * TR * CW,
+              TR * CW * sizeof(bf), bar);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GPB_STAGES; ++s) mbar_init(&bars[s]);
+    for (int64_t i = 0; i < GPB_STAGES && i < count; ++i) fetch(i);
+  }
+  // bf16(W3)^T's A fragments (channels n0.., k steps kk).
+  uint32_t wa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float* w = W3 + (16 * kk + 2 * t) * C3W + n0 + g;
+    wa[kk][0] = pack_bf16(w[0], w[C3W]);
+    wa[kk][1] = pack_bf16(w[8], w[C3W + 8]);
+    wa[kk][2] = pack_bf16(w[8 * C3W], w[9 * C3W]);
+    wa[kk][3] = pack_bf16(w[8 * C3W + 8], w[9 * C3W + 8]);
+  }
+  for (int i = threadIdx.x; i < 2 * CW; i += GPB_NT) v2[i] = vec2[i];
+  for (int i = threadIdx.x; i < C3W; i += GPB_NT) b3s[i] = rb(b3[i]);
+  __syncthreads();
+
+  double G[2][4] = {};        // rows 16 mw + g (+8), cols 16 nw + 8 nj + 2t
+  double ch[2] = {0.0, 0.0};  // nw == 0: channels 16 mw + g, + 8
+  for (int64_t i = 0; i < count; ++i) {
+    const int64_t tile = tile_at(i);
+    bf* H = H2 + (i & 1) * TR * LDB;
+    mbar_wait(&bars[i % GPB_STAGES],
+              static_cast<uint32_t>((i / GPB_STAGES) & 1));
+    {   // h2 = relu(bf16(p2 mul2 + shift2)), eight values a step
+      const bf* S = stage + (i % GPB_STAGES) * TR * CW;
+      for (int e = threadIdx.x; e < TR * CW / 8; e += GPB_NT) {
+        const int r = e >> 3, c = (e & 7) << 3;
+        const uint4 u = *reinterpret_cast<const uint4*>(S + r * CW + c);
+        const uint32_t in[4] = {u.x, u.y, u.z, u.w};
+        uint32_t o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 p = unpack_bf16(in[j]);
+          const int cc = c + 2 * j;
+          float2 f;
+          uint32_t bits;
+          o[j] = relu_packed(
+              pack_bf16(__fadd_rn(__fmul_rn(p.x, v2[cc]), v2[CW + cc]),
+                        __fadd_rn(__fmul_rn(p.y, v2[cc + 1]),
+                                  v2[CW + cc + 1])),
+              f, bits);
+        }
+        *reinterpret_cast<uint4*>(H + r * LDB + c) =
+            make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && i + GPB_STAGES < count) fetch(i + GPB_STAGES);
+
+    {   // Gram(h2) = h2^T h2 for the warp's block; nw == 0: column sums
+      float c[2][4];
+      zero4(c[0]);
+      zero4(c[1]);
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4], b[4];
+        ldsm4t(a, a_cols_at(H, 16 * mw, 16 * kk, lane));
+        ldsm4t(b, b_rows_at(H, 16 * nw, 16 * kk, lane));
+        if (nw == 0) {
+          const float2 u0 = unpack_bf16(a[0]), u1 = unpack_bf16(a[1]);
+          const float2 u2 = unpack_bf16(a[2]), u3 = unpack_bf16(a[3]);
+          s0 += (u0.x + u0.y) + (u2.x + u2.y);
+          s1 += (u1.x + u1.y) + (u3.x + u3.y);
+        }
+        mma_bf16(c[0], a, b[0], b[1]);
+        mma_bf16(c[1], a, b[2], b[3]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) G[nj][q] += c[nj][q];
+      ch[0] += s0;
+      ch[1] += s1;
+    }
+
+    {   // p3^T = bf16(W3)^T h2^T for the channels n0.. (+ b3 in the pool)
+      float c[8][4];            // [rows 8 j..][.]
+#pragma unroll
+      for (int j = 0; j < 8; ++j) zero4(c[j]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t b[4];
+          ldsm4(b, b_cols_at(H, 16 * np, 16 * kk, lane));
+          mma_bf16(c[2 * np], wa[kk], b[0], b[1]);
+          mma_bf16(c[2 * np + 1], wa[kk], b[2], b[3]);
+        }
+      pool_tile_t<LP>(c, n0, b3s, tile, upt, run, mx, mn, imx, imn);
+    }
+  }
+
+  double* pg = partG + (int64_t)blockIdx.x * CW * CW;
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      pg[(16 * mw + g + 8 * (q >> 1)) * CW + 16 * nw + 8 * nj + 2 * t +
+         (q & 1)] = G[nj][q];
+  if (nw == 0) {
+    const double a = sum_over_t(ch[0]), b = sum_over_t(ch[1]);
+    if (t == 0) {
+      partc[(int64_t)blockIdx.x * CW + 16 * mw + g] = a;
+      partc[(int64_t)blockIdx.x * CW + 16 * mw + g + 8] = b;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// B3 sweep 2 (slim) at bf16 (facl_sa_bwd_sweep2_bf16). Replaces
+// facl_tpu/ops/pallas/sa_pair.py::_make_sweep2_slim_kernel (:404,
+// pallas_call :800) at compute_dtype bfloat16: h1 recomputed from x by
+// the bf16 chain (h1_pair<true>, B2a's and B3c's: the ReLU masks agree
+// bit for bit); h2 = relu(bf16(p2 mul2 + shift2)); dy2 = [h2 > 0] (q3 -
+// bf16(h2 bf16(M3)) - rc3); q2 = bf16(bf16(bf16(dy2) bf16(gi2))
+// bf16(W2)^T); mq = [h1 > 0] q2, stored bf16; per block A2 = bf16(dy2)^T
+// h1, G1 = h1^T h1, u2 = sum dy2 (before its rounding), ch1 = sum h1 (the
+// twin: ops/sa_pair.py::sa_bwd_sweep2_bf16_plain).
+//
+// Bound on the card at the main path: 0.307 ms by bytes (x, p2, q3 in,
+// mq out: 392 B a row). The form this replaces (the f32 design, TF32
+// products, hi/lo tiles, five block barriers a tile) moved 0.53 TB/s.
+// Here the rows go where they are used: a step is 128 rows, warp w owns
+// rows 16 w.. of it, and everything that is per row stays in that warp's
+// registers in the mma fragment layouts. p2, q3 and x arrive by cp.async
+// (16-byte copies into padded tiles, three steps in flight); the warp
+// makes h1 in the accumulator layout (h1_pair) and writes it to a bf16
+// tile, keeps its ReLU mask as 32 bits; makes h2's A fragments from p2's
+// (ldmatrix, the chain) and h2's mask alike; h2 M3 (B by ldmatrix from
+// bf16(M3)); dy2 in the accumulator layout, written as bf16 to a tile and
+// turned in registers into q2's A fragments (C of two n-tiles is A of a
+// k16 step); q2; mq stored through the warp's own p2 rows in 16-byte
+// copies. u2 and ch1 are summed from registers (a halving shuffle tree).
+// A2 and G1 contract over the rows, so they run on the tiles: warp w takes
+// a (16, 32) block of each, over step i - 1's h1 and dy2 tiles while the
+// row passes write step i's (two of each, so one barrier a step
+// suffices, and one warp's products run beside another's row passes).
+// Every rounding to bf16 converts two values at once (cvt.rn.bf16x2).
+// 256 threads; 208 KB of shared memory.
+constexpr int S2B_NT = 256;
+constexpr int S2B_ROWS = 128;                   // rows a step, 16 a warp
+constexpr int S2B_STAGES = 3;
+constexpr int S2B_TILE = S2B_ROWS * LDB;        // a padded (128, 64) tile
+constexpr int S2B_STAGE = 2 * S2B_TILE + C0MAX * S2B_ROWS;  // p2 | q3 | x
+
+__device__ __forceinline__ void st32(__nv_bfloat16* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A2 += bf16(dy2)^T h1 and G1 += h1^T h1 over the 64 rows h.. of a step
+// (tiles Hb = h1, Db = bf16(dy2)), summed in f32 and carried in float64,
+// for the warp's (16, 32) block: rows (channels) 16 mt + g (+8), columns
+// 32 nh + 8 nj + 2t (+1).
+__device__ __forceinline__ void s2b_products(const __nv_bfloat16* Hb,
+                                             const __nv_bfloat16* Db, int h,
+                                             int mt, int nh, int lane,
+                                             double (&dA)[4][4],
+                                             double (&dG)[4][4]) {
+  float ca[4][4], cg[4][4];
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj) {
+    zero4(ca[nj]);
+    zero4(cg[nj]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int k0 = h + 16 * kk;
+    uint32_t ad[4], ah[4], b[2][4];
+    ldsm4t(ad, a_cols_at(Db, 16 * mt, k0, lane));
+    ldsm4t(ah, a_cols_at(Hb, 16 * mt, k0, lane));
+    ldsm4t(b[0], b_rows_at(Hb, 32 * nh, k0, lane));
+    ldsm4t(b[1], b_rows_at(Hb, 32 * nh + 16, k0, lane));
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const uint32_t b0 = b[nj >> 1][2 * (nj & 1)];
+      const uint32_t b1 = b[nj >> 1][2 * (nj & 1) + 1];
+      mma_bf16(ca[nj], ad, b0, b1);
+      mma_bf16(cg[nj], ah, b0, b1);
+    }
+  }
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      dA[nj][q] += ca[nj][q];
+      dG[nj][q] += cg[nj][q];
+    }
+}
+
+__global__ void __launch_bounds__(S2B_NT, 1)
+bwd_sweep2_bf16_kernel(const __nv_bfloat16* __restrict__ x, int C0,
+                       int64_t N, int64_t R, const float* __restrict__ W1,
+                       const float* __restrict__ vec,
+                       const __nv_bfloat16* __restrict__ p2,
+                       const __nv_bfloat16* __restrict__ q3,
+                       const float* __restrict__ M3,
+                       const float* __restrict__ W2,
+                       __nv_bfloat16* __restrict__ mq,
+                       double* __restrict__ partA, double* __restrict__ partG,
+                       double* __restrict__ partu,
+                       double* __restrict__ partc) {
+  using bf = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char smb[];
+  bf* stage = reinterpret_cast<bf*>(smb);     // S2B_STAGES x [p2 | q3 | x]
+  bf* H1 = stage + S2B_STAGES * S2B_STAGE;    // 2 x (128, LDB): h1
+  bf* DY = H1 + 2 * S2B_TILE;                 // 2 x (128, LDB): bf16(dy2)
+  bf* Ms = DY + 2 * S2B_TILE;                 // bf16(M3) [k][n], (64, LDB)
+  bf* W2s = Ms + CW * LDB;                    // bf16(W2) [n][k], (64, LDB)
+  float* W1s = reinterpret_cast<float*>(W2s + CW * LDB);   // C0MAX x CW
+  // b1 | mul1 | shift1 | mul2 | shift2 | rc3 | gi2 (b1, gi2 rounded)
+  float* v = W1s + C0MAX * CW;
+  const float* mul2 = v + 3 * CW;
+  const float* shift2 = v + 4 * CW;
+  const float* rc3 = v + 5 * CW;
+  const float* gi2 = v + 6 * CW;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t nsteps = (R + S2B_ROWS - 1) / S2B_ROWS;
+  const int64_t count =
+      nsteps > blockIdx.x ? (nsteps - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  auto row0 = [&](int64_t i) {
+    return (blockIdx.x + i * gridDim.x) * S2B_ROWS;
+  };
+  // x in 16-byte copies of 8 rows (one cloud: N % 8 == 0), else by loads.
+  const bool xvec = N % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  auto fetch = [&](int64_t i) {   // every thread: its copies of step i
+    if (i < count) {
+      bf* S = stage + (i % S2B_STAGES) * S2B_STAGE;
+      const int64_t r0 = row0(i);
+      const int nr = R - r0 < S2B_ROWS ? static_cast<int>(R - r0) : S2B_ROWS;
+      for (int e = threadIdx.x; e < nr * 8; e += S2B_NT) {
+        const int r = e >> 3, c = (e & 7) << 3;
+        cp_async16(S + r * LDB + c, p2 + (r0 + r) * CW + c);
+        cp_async16(S + S2B_TILE + r * LDB + c, q3 + (r0 + r) * CW + c);
+      }
+      bf* X = S + 2 * S2B_TILE;               // (C0MAX, 128) channel-major
+      if (xvec) {
+        const int nc = nr >> 3;
+        for (int e = threadIdx.x; e < C0 * nc; e += S2B_NT) {
+          const int c = e / nc, j = e - c * nc;
+          const int64_t r = r0 + 8 * j, b = r / N, n = r - b * N;
+          cp_async16(X + c * S2B_ROWS + 8 * j, x + (b * C0 + c) * N + n);
+        }
+      } else {
+        for (int e = threadIdx.x; e < C0 * nr; e += S2B_NT) {
+          const int c = e / nr, j = e - c * nr;
+          const int64_t r = r0 + j, b = r / N, n = r - b * N;
+          X[c * S2B_ROWS + j] = x[(b * C0 + c) * N + n];
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int i = 0; i < S2B_STAGES - 1; ++i) fetch(i);
+  for (int e = threadIdx.x; e < CW * CW; e += S2B_NT) {
+    const int r = e >> 6, c = e & 63;
+    Ms[r * LDB + c] = __float2bfloat16_rn(M3[e]);
+    W2s[r * LDB + c] = __float2bfloat16_rn(W2[e]);
+  }
+  for (int e = threadIdx.x; e < C0 * CW; e += S2B_NT) W1s[e] = rb(W1[e]);
+  for (int e = threadIdx.x; e < 7 * CW; e += S2B_NT)
+    v[e] = e < CW || e >= 6 * CW ? rb(vec[e]) : vec[e];
+  for (int e = threadIdx.x; e < 4 * S2B_TILE / 8; e += S2B_NT)
+    reinterpret_cast<uint4*>(H1)[e] = make_uint4(0u, 0u, 0u, 0u);
+
+  const int rw = 16 * warp;                   // the warp's rows in a step
+  const int mt = warp & 3, nh = warp >> 2;    // its block of A2 and G1
+  double dA[4][4] = {}, dG[4][4] = {};
+  double du[2] = {0.0, 0.0}, dc[2] = {0.0, 0.0};  // columns 8 g + 2t (+1)
+  for (int64_t i = 0; i < count; ++i) {
+    cp_async_wait<S2B_STAGES - 2>();
+    __syncthreads();
+    fetch(i + S2B_STAGES - 1);
+    const int64_t r0 = row0(i);
+    bf* S = stage + (i % S2B_STAGES) * S2B_STAGE;
+    bf* Hb = H1 + (i & 1) * S2B_TILE;
+    bf* Db = DY + (i & 1) * S2B_TILE;
+    // The warp's rows (all 16 or none, R % 64 == 0). Rows past R (the
+    // last step's second tile) write zeros to the h1 and dy2 tiles (their
+    // masks cleared), so the products may read all 128 rows.
+    const bool live = r0 + rw < R;
+    // h1 by the bf16 chain, rows rw + g (+8), columns 8 j + 2t (+1):
+    // written as bf16; its mask, bit 4 j + 2 h + e; its column sums.
+    const bf* X = S + 2 * S2B_TILE;
+    float xa[C0MAX - 1], xb[C0MAX - 1];
+#pragma unroll
+    for (int k = 0; k < C0MAX - 1; ++k)
+      if (k < C0) {
+        xa[k] = to_f(X[k * S2B_ROWS + rw + g]);
+        xb[k] = to_f(X[k * S2B_ROWS + rw + g + 8]);
+      }
+    uint32_t m1 = 0;
+    float sc[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      float2 ha, hb;
+      h1_pair<true>(xa, xb, C0, W1s, v, col, ha, hb);
+      if (!live) ha = hb = make_float2(0.f, 0.f);
+      st32(Hb + (rw + g) * LDB + col, pack_bf16(ha.x, ha.y));
+      st32(Hb + (rw + g + 8) * LDB + col, pack_bf16(hb.x, hb.y));
+      m1 |= ((ha.x > 0.f ? 1u : 0u) | (ha.y > 0.f ? 2u : 0u) |
+             (hb.x > 0.f ? 4u : 0u) | (hb.y > 0.f ? 8u : 0u)) << (4 * j);
+      sc[2 * j] = ha.x + hb.x;
+      sc[2 * j + 1] = ha.y + hb.y;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) halve(sc[q], sc[8 + q], lane, 16);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) halve(sc[q], sc[4 + q], lane, 8);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) halve(sc[q], sc[2 + q], lane, 4);
+    dc[0] += sc[0];
+    dc[1] += sc[1];
+
+    // h2's A fragments from p2's, k steps kk, and its ReLU mask in the
+    // accumulators' places (bit 4 j + 2 h + e, as m1).
+    uint32_t ha2[4][4], m2 = 0;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      ldsm4(ha2[kk], a_rows_at(S, rw, 16 * kk, lane));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int cc = 16 * kk + 8 * (q >> 1) + 2 * t;
+        const float2 p = unpack_bf16(ha2[kk][q]);
+        float2 f;
+        uint32_t bits;
+        ha2[kk][q] = relu_packed(
+            pack_bf16(__fadd_rn(__fmul_rn(p.x, mul2[cc]), shift2[cc]),
+                      __fadd_rn(__fmul_rn(p.y, mul2[cc + 1]),
+                                shift2[cc + 1])),
+            f, bits);
+        m2 |= bits << (8 * kk + 2 * q);
+      }
+    }
+    if (!live) m2 = 0;
+    // h2 bf16(M3): n-tiles j, all 64 columns.
+    float c[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) zero4(c[j]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm4t(b, b_rows_at(Ms, 16 * np, 16 * kk, lane));
+        mma_bf16(c[2 * np], ha2[kk], b[0], b[1]);
+        mma_bf16(c[2 * np + 1], ha2[kk], b[2], b[3]);
+      }
+    // dy2 = [h2 > 0] (q3 - bf16(h2 M3) - rc3) in the accumulators'
+    // places: bf16(dy2) to the tile, q2's A fragments bf16(bf16(dy2)
+    // gi2) (n-tiles 2 kk and 2 kk + 1 are k step kk), u2's sums.
+    const bf* Q = S + S2B_TILE;
+    uint32_t qa[4][4];
+    float su[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cc = 8 * j + 2 * t;
+      const float2 rc = ld2(rc3 + cc), gk = ld2(gi2 + cc);
+      su[2 * j] = su[2 * j + 1] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rw + g + 8 * h;
+        const float2 qv = unpack_bf16(ld32(Q + r * LDB + cc));
+        const uint32_t mb = m2 >> (4 * j + 2 * h);
+        const float2 hm =
+            unpack_bf16(pack_bf16(c[j][2 * h], c[j][2 * h + 1]));
+        const float dx =
+            (mb & 1u) ? __fsub_rn(__fsub_rn(qv.x, hm.x), rc.x) : 0.f;
+        const float dy =
+            (mb & 2u) ? __fsub_rn(__fsub_rn(qv.y, hm.y), rc.y) : 0.f;
+        su[2 * j] += dx;
+        su[2 * j + 1] += dy;
+        const uint32_t d = pack_bf16(dx, dy);
+        st32(Db + r * LDB + cc, d);
+        const float2 dd = unpack_bf16(d);
+        qa[j >> 1][2 * (j & 1) + h] =
+            pack_bf16(__fmul_rn(dd.x, gk.x), __fmul_rn(dd.y, gk.y));
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) halve(su[q], su[8 + q], lane, 16);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) halve(su[q], su[4 + q], lane, 8);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) halve(su[q], su[2 + q], lane, 4);
+    du[0] += su[0];
+    du[1] += su[1];
+
+    // q2 = qa bf16(W2)^T; mq = [h1 > 0] bf16(q2), staged in the warp's
+    // own (read) p2 rows, then stored in 16-byte rows.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) zero4(c[j]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm4(b, b_cols_at(W2s, 16 * np, 16 * kk, lane));
+        mma_bf16(c[2 * np], qa[kk], b[0], b[1]);
+        mma_bf16(c[2 * np + 1], qa[kk], b[2], b[3]);
+      }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        st32(S + (rw + g + 8 * h) * LDB + 8 * j + 2 * t,
+             pack_bf16(c[j][2 * h], c[j][2 * h + 1]) &
+                 keep_halves(m1 >> (4 * j + 2 * h)));
+      }
+    __syncwarp();
+#pragma unroll
+    for (int e = lane; e < 16 * 8; e += 32) {
+      if (!live) break;
+      const int r = rw + (e >> 3), cl = (e & 7) << 3;
+      *reinterpret_cast<uint4*>(mq + (r0 + r) * CW + cl) =
+          *reinterpret_cast<const uint4*>(S + r * LDB + cl);
+    }
+    // A2 and G1 of the step before (its tiles are complete: barrier;
+    // zeros at i == 0): one warp's products run beside another's row
+    // passes.
+    for (int h = 0; h < S2B_ROWS; h += TR)
+      s2b_products(H1 + ((i - 1) & 1) * S2B_TILE,
+                   DY + ((i - 1) & 1) * S2B_TILE, h, mt, nh, lane, dA, dG);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int h = 0; h < S2B_ROWS; h += TR)      // the last step's
+    s2b_products(H1 + ((count - 1) & 1) * S2B_TILE,
+                 DY + ((count - 1) & 1) * S2B_TILE, h, mt, nh, lane, dA,
+                 dG);
+
+  double* pa = partA + (int64_t)blockIdx.x * CW * CW;
+  double* pg = partG + (int64_t)blockIdx.x * CW * CW;
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int o = (16 * mt + g + 8 * (q >> 1)) * CW + 32 * nh + 8 * nj +
+                    2 * t + (q & 1);
+      pa[o] = dA[nj][q];
+      pg[o] = dG[nj][q];
+    }
+  // u2 and ch1: the eight warps' sums in order (staged in the idle stages).
+  double* red = reinterpret_cast<double*>(smb);    // (warps, 2, CW)
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    red[(warp * 2) * CW + 8 * g + 2 * t + e] = du[e];
+    red[(warp * 2 + 1) * CW + 8 * g + 2 * t + e] = dc[e];
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * CW) {
+    const int q = threadIdx.x / CW, cl = threadIdx.x % CW;
+    double a = 0.0;
+    for (int w = 0; w < S2B_NT / 32; ++w) a += red[(w * 2 + q) * CW + cl];
+    (q == 0 ? partu : partc)[(int64_t)blockIdx.x * CW + cl] = a;
+  }
+}
+
 // Every launcher: grid = nblk persistent blocks over R / 64 row tiles;
 // returns cudaGetLastError() (0 on success). Each sweep has an f32 entry
 // point (facl_sa_*) and a bf16 one (facl_sa_*_bf16: x, p2, q3, mq and
@@ -1515,6 +2171,62 @@ int launch_bwd_sweep3(const void* x, int B, int C0, int N, const float* W1,
       <<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(x), C0, N, R / TR, W1, vec,
           static_cast<const T*>(mq), M2, part);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 entry points launch the bf16 designs (kernels of their own).
+template <>
+int launch_fwd_gram_pool<true>(const void* p2, int64_t R, int pool,
+                               const float* vec2, const float* W3,
+                               const float* b3, double* partG, double* partc,
+                               void* mx, void* mn, int* imx, int* imn,
+                               int nblk, void* stream) {
+  using T = __nv_bfloat16;
+  if (bad_pool(R, pool)) return static_cast<int>(cudaErrorInvalidValue);
+  const int upt = pool > TR ? pool / TR : 1;
+  int lp = 0;
+  while ((1 << lp) < pool && lp < 6) ++lp;      // log2(min(pool, TR))
+  const size_t smem = sizeof(T) * (GPB_STAGES * TR * CW + 2 * TR * LDB) +
+                      sizeof(float) * (2 * CW + 5 * C3W) +
+                      GPB_STAGES * sizeof(uint64_t);
+  decltype(&fwd_gram_pool_bf16_kernel<0>) kern;
+  switch (lp) {
+    case 0: kern = fwd_gram_pool_bf16_kernel<0>; break;
+    case 1: kern = fwd_gram_pool_bf16_kernel<1>; break;
+    case 2: kern = fwd_gram_pool_bf16_kernel<2>; break;
+    case 3: kern = fwd_gram_pool_bf16_kernel<3>; break;
+    case 4: kern = fwd_gram_pool_bf16_kernel<4>; break;
+    case 5: kern = fwd_gram_pool_bf16_kernel<5>; break;
+    default: kern = fwd_gram_pool_bf16_kernel<6>; break;
+  }
+  cudaError_t e = prepare(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<nblk, GPB_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(p2), R / TR, upt, vec2, W3, b3, partG, partc,
+      static_cast<T*>(mx), static_cast<T*>(mn), imx, imn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <>
+int launch_bwd_sweep2<true>(const void* x, int B, int C0, int N,
+                            const float* W1, const float* vec, const void* p2,
+                            const void* q3, const float* M3, const float* W2,
+                            void* mq, double* partA, double* partG,
+                            double* partu, double* partc, int nblk,
+                            void* stream) {
+  using T = __nv_bfloat16;
+  const int64_t R = (int64_t)B * N;
+  if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      sizeof(T) * (S2B_STAGES * S2B_STAGE + 4 * S2B_TILE + 2 * CW * LDB) +
+      sizeof(float) * (C0MAX * CW + 7 * CW);
+  cudaError_t e = prepare(bwd_sweep2_bf16_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bwd_sweep2_bf16_kernel<<<nblk, S2B_NT, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), C0, N, R, W1, vec,
+      static_cast<const T*>(p2), static_cast<const T*>(q3), M3, W2,
+      static_cast<T*>(mq), partA, partG, partu, partc);
   return static_cast<int>(cudaGetLastError());
 }
 

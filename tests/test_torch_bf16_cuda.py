@@ -1,5 +1,6 @@
 """The bf16 instantiations of the pair3 sweeps (B2a, B2b, B3a, B3b, B3c at
-compute_dtype bfloat16), of B6, B7 and B8 (pair's sweep 2, hybrid2's
+compute_dtype bfloat16; B2b's and B3b's bf16 forms also at uneven row
+counts and unaligned rows), of B6, B7 and B8 (pair's sweep 2, hybrid2's
 forward, the two-sweep backward) and of B9 (the pallas stage's eight
 sweeps) against their bf16 twins, on the card; and the bf16 pair3 and
 pallas stages, card vs CPU.
@@ -265,6 +266,86 @@ def test_bf16_two_sweep_stages_card_vs_cpu(dev, rng, impl, K):
         a, b = a.double().flatten(), b.double().flatten()
         assert float((a - b).norm() / b.norm()) < 0.15
         assert float(a @ b / (a.norm() * b.norm())) > 0.99
+
+
+def _b2b_b3b_inputs(rng, dev, B, N, K):
+    from facl_tpu_torch.ops import sa_pair as SP
+    (w1, b1, _, _), (w2, b2, _, _), (w3, b3, _, _) = _layers(rng, dev)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    vec = lambda n, s=1.0: t(s * rng.normal(size=(n,)))
+    R = B * N
+    x3 = t(rng.normal(size=(B, 4, N))).to(BF16)
+    mul1, shift1, mul2, shift2 = vec(64, 2), vec(64), vec(64, 2), vec(64)
+    p2 = SP.sa_fwd_layer12_bf16_plain(x3, w1, b1, mul1, shift1, w2, b2)[0]
+    agp = (p2, mul2, shift2, w3, b3, K)
+    q3 = vec(R * 64, 0.1).view(R, 64).to(BF16)
+    as2 = (x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3,
+           t(0.01 * rng.normal(size=(64, 64))), vec(64, 0.1), vec(64), w2)
+    return agp, as2
+
+
+def _b2b_b3b_match(agp, as2):
+    """B2b-bf16 and B3b-bf16 against their twins at the module's bars,
+    two calls of each bit-identical."""
+    from facl_tpu_torch.ops import sa_pair as SP
+    k = SP.sa_fwd_gram_pool_bf16(*agp)
+    assert all(torch.equal(a, b)
+               for a, b in zip(k, SP.sa_fwd_gram_pool_bf16(*agp)))
+    tw = SP.sa_fwd_gram_pool_bf16_plain(*agp)
+    _acc(k[0], tw[0])
+    _acc(k[1], tw[1])
+    _rows(k[2], tw[2])
+    _rows(k[3], tw[3])
+    K, P = agp[5], agp[0].shape[0] // agp[5]
+    p3 = (SP._rb(SP._h2_bf16(*agp[:3]) @ SP._rb(agp[3]))
+          + SP._rb(agp[4])).reshape(P, K, 256)
+    for ki, ti, best in ((k[4], tw[4], tw[2]), (k[5], tw[5], tw[3])):
+        assert int(ki.min()) >= 0 and int(ki.max()) < K
+        g, c = (ki != ti).nonzero(as_tuple=True)
+        v, bv = p3[g, ki[g, c].long(), c], best[g, c].float()
+        assert bool(((v - bv).abs() <= _ulp(bv.abs())).all())
+    k = SP.sa_bwd_sweep2_bf16(*as2)
+    assert all(torch.equal(a, b)
+               for a, b in zip(k, SP.sa_bwd_sweep2_bf16(*as2)))
+    tw = SP.sa_bwd_sweep2_bf16_plain(*as2)
+    for a, b in zip(k[:4], tw[:4]):
+        _acc(a, b)
+    assert k[4].dtype == BF16
+    _rows(k[4], tw[4])
+
+
+@pytest.mark.parametrize("K,B,N", [(128, 2, 8320), (64, 1, 64 * 397),
+                                   (64, 3, 4160), (64, 16, 12)])
+def test_bf16_b2b_b3b_redesigned(dev, rng, K, B, N):
+    """The bf16 forms of B2b and B3b, kernels of their own (bf16 operands,
+    mma.sync m16n8k16): K = 128 (pool groups spanning two 64-row tiles);
+    row counts that the persistent blocks share unevenly (397 tiles: some
+    blocks take one tile more, B3b's last 128-row step holds one tile;
+    195 tiles: 34 of B3b's blocks take none); N = 12 (x rows not in 16-byte
+    chunks: B3b reads them one by one)."""
+    _b2b_b3b_match(*_b2b_b3b_inputs(rng, dev, B, N, K))
+
+
+def test_bf16_b2b_b3b_misaligned(dev, rng):
+    """Row tensors staged by 16-byte copies (p2, q3) raise when they are
+    not 16-byte aligned; an unaligned x is read row by row and matches."""
+    from facl_tpu_torch.ops import sa_pair as SP
+    agp, as2 = _b2b_b3b_inputs(rng, dev, 2, 1024, 64)
+
+    def shifted(a):          # the same values, 2 bytes off alignment
+        flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+        out = flat[1:].view(a.shape)
+        out.copy_(a)
+        return out
+    with pytest.raises(ValueError, match="16-byte"):
+        SP.sa_fwd_gram_pool_bf16(shifted(agp[0]), *agp[1:])
+    with pytest.raises(ValueError, match="16-byte"):
+        SP.sa_bwd_sweep2_bf16(*as2[:5], shifted(as2[5]), *as2[6:])
+    with pytest.raises(ValueError, match="16-byte"):
+        SP.sa_bwd_sweep2_bf16(*as2[:8], shifted(as2[8]), *as2[9:])
+    x3 = shifted(as2[0])
+    assert x3.data_ptr() % 16
+    _b2b_b3b_match(agp, (x3,) + as2[1:])
 
 
 def test_bf16_sweeps_take_bf16_rows_only(dev):

@@ -1,0 +1,357 @@
+"""The order of sums of the bf16 forms of B2b (sa_fwd_gram_pool_bf16) and
+B3b (sa_bwd_sweep2_bf16), modelled in torch on the CPU, held against their
+bf16 twins and against the JAX kernels they port; and chip_smoke.py's
+comparison of a bf16 sweep's outputs with another tree's (``--parent``).
+
+On the card the two kernels take bf16 operands, run every product as
+mma.sync m16n8k16 (exact bf16 products summed into f32 accumulators one
+k16 step at a time), sum each 64-row tile's contraction over rows (Gram,
+A2, G1) in f32 and carry the tiles in float64, and sum the column sums
+(colsum(h2), u2, ch1) in f32 over 16 rows before carrying them in
+float64. ``gram_pool_model`` and ``sweep2_model`` below compute the same
+functions in that order (a k16 step summed in float64 and rounded to f32,
+then added to the f32 accumulator; the rest as the twins cast it), so
+the bars the card is held to can be checked against that order here:
+
+  * at bench.py's magnitudes (the model's SA weights at full width,
+    randn clouds grouped at S = K = 64 and at the fine variant's S = 32,
+    K = 128) and on rows with bf16 near-ties (padded rows repeated and
+    nudged by one bf16 ulp), the model sits within chip_smoke.py phase 2's
+    bf16 bars of the bf16 twins: bf16 rows within one bf16 ulp but at most
+    1e-3 of the entries, pool indices equal but at bf16 near-ties, f32
+    accumulators within 1e-3 of their max-abs (chip_smoke's own helpers);
+  * on tests/test_torch_bf16_sa.py's tiny shapes it sits within that
+    file's tolerances of the JAX kernels run in interpret mode.
+"""
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import facl_tpu.ops.pallas.sa_pair as jsp
+from facl_tpu.ops.pallas.sa_bwd import _fold_affine as jax_fold_affine
+from facl_tpu.ops.pallas.sa_bwd import _layer_terms as jax_layer_terms
+from facl_tpu_torch.ops import sa_pair as SP
+from facl_tpu_torch.ops.sa_bwd import _fold_affine, _layer_terms
+from facl_tpu_torch.ops.sa_fwd import _finalize
+from tests.test_torch_bf16_sa import BF, C0, EPS, K as K_TINY, S as S_TINY, \
+    WIDTHS, _acc, _bf16_rows, _fold2, _lanes, _Recorder, _setup, _t, \
+    _unpair
+
+BF16 = torch.bfloat16
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _chip_smoke()
+
+
+# -- the model ------------------------------------------------------------
+
+def _k16(a, b):
+    """a (m, k) @ b (k, n) of bf16 values: each k16 step's products summed
+    (float64, rounded to f32), the steps added to an f32 accumulator in k
+    order."""
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], 16):
+        acc = acc + (a[:, k0:k0 + 16].double()
+                     @ b[k0:k0 + 16].double()).float()
+    return acc
+
+
+def _acc_rows(a, b, tile=64):
+    """a^T b over rows: each 64-row tile by _k16 (f32), the tiles summed in
+    float64."""
+    out = torch.zeros(a.shape[1], b.shape[1], dtype=torch.float64)
+    for r0 in range(0, a.shape[0], tile):
+        out += _k16(a[r0:r0 + tile].T, b[r0:r0 + tile]).double()
+    return out.float()
+
+
+def _colsum16(v):
+    """Column sums: f32 over each 16 rows, carried in float64."""
+    return v.reshape(-1, 16, v.shape[1]).sum(1).double().sum(0).float()
+
+
+def gram_pool_model(p2, mul2, shift2, w3, b3, pool: int):
+    """B2b-bf16 in the kernel's order of sums (its twin's outputs)."""
+    h2 = SP._h2_bf16(p2, mul2, shift2)
+    p3 = (SP._rb(_k16(h2, SP._rb(w3))) + SP._rb(b3)).reshape(
+        -1, pool, w3.shape[1])
+    mx, mn = p3.amax(1), p3.amin(1)
+    return (_acc_rows(h2, h2), _colsum16(h2), mx.to(BF16), mn.to(BF16),
+            SP._first_index(p3, mx, pool), SP._first_index(p3, mn, pool))
+
+
+def sweep2_model(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3,
+                 gi2, w2):
+    """B3b-bf16 in the kernel's order of sums (its twin's outputs)."""
+    h1 = SP._h1_bf16(x3, w1, b1, mul1, shift1)
+    h2 = SP._h2_bf16(p2, mul2, shift2)
+    dy2 = torch.where(h2 > 0, q3.float() - SP._rb(_k16(h2, SP._rb(M3)))
+                      - rc3, 0.0)
+    dy2d = SP._rb(dy2)
+    q2 = SP._rb(_k16(SP._rb(dy2d * SP._rb(gi2)), SP._rb(w2).T))
+    mq = torch.where(h1 > 0, q2, 0.0)
+    return (_acc_rows(dy2d, h1), _acc_rows(h1, h1), _colsum16(dy2),
+            _colsum16(h1), mq.to(BF16))
+
+
+# -- inputs ---------------------------------------------------------------
+
+def _bench_inputs(S, K, clouds=4):
+    """bench.py's magnitudes: the model's SA weights at full width, randn
+    clouds grouped (B1's twin) and centred, the bf16 chain up to B2b's and
+    B3b's inputs by the twins (chip_smoke.bf16_rows' chain)."""
+    from facl_tpu_torch.ops import select as SEL
+    from facl_tpu_torch.train import Trainer
+    model = Trainer(cs._cfg(2), 100, device="cpu").init_state(cs.SEED).model
+    layers = [SP.SALayerParams(*(t.detach() for t in lp))
+              for lp in model.sa_stage.layers()]
+    g = torch.Generator().manual_seed(cs.SEED)
+    flat = torch.randn(clouds, 512, 4, generator=g)
+    with torch.no_grad():
+        grouped, _ = SEL.select_gather(flat, S, K, 0.06)
+    grouped[:, :3] -= flat[:, :S, :3].transpose(1, 2)[..., None]
+    x3 = grouped.reshape(clouds, 4, S * K)
+    dp = torch.randn(clouds * S, 256, generator=g)
+    return _chain(x3.to(BF16), layers, dp.to(BF16), K)
+
+
+def _chain(xb, layers, dpb, K):
+    lp1, lp2, lp3 = layers
+    R = xb.shape[0] * xb.shape[2]
+    xf = xb.float()
+    m1, v1 = SP._moments_from_gram(torch.einsum("bcn,bdn->cd", xf, xf),
+                                   xf.sum((0, 2)), lp1.kernel, lp1.bias, R)
+    mul1, shift1 = _fold_affine(lp1, m1, v1, EPS)
+    p2, s2, ss2 = SP.sa_fwd_layer12_bf16_plain(
+        xb, lp1.kernel, lp1.bias, mul1, shift1, lp2.kernel, lp2.bias)
+    m2, v2 = _finalize(s2, ss2, R)
+    mul2, shift2 = _fold_affine(lp2, m2, v2, EPS)
+    agp = (p2, mul2, shift2, lp3.kernel, lp3.bias, K)
+    G2, ch2, mx, mn, imx, imn = SP.sa_fwd_gram_pool_bf16_plain(*agp)
+    m3, v3 = SP._moments_from_gram(G2, ch2, lp3.kernel, lp3.bias, R)
+    mul3, shift3 = _fold_affine(lp3, m3, v3, EPS)
+    sel = mul3 >= 0
+    zstar = torch.where(sel, mx.float(), mn.float()) * mul3 + shift3
+    idx = torch.where(zstar > 0, torch.where(sel, imx, imn),
+                      torch.full_like(imx, K))
+    gi2 = lp2.scale * torch.rsqrt(v2 + EPS)
+    gi3 = lp3.scale * torch.rsqrt(v3 + EPS)
+    A3, u3, q3 = SP.sa_bwd_sweep1_bf16_plain(p2, mul2, shift2, dpb, idx, gi3,
+                                             lp3.kernel, K)
+    t3 = _layer_terms(A3, u3, lp3, m3, v3, G2, ch2, R, EPS)
+    as2 = (xb, lp1.kernel, lp1.bias, mul1, shift1, p2, mul2, shift2, q3,
+           t3["M"].contiguous(), t3["rc"], gi2, lp2.kernel)
+    return agp, as2
+
+
+def _near_tie_inputs(rng, K=64, groups=64):
+    """B2b's inputs with bf16 near-ties in every pool group: most rows a
+    repeat of the group's last (a padded row, exact ties), a quarter of
+    those nudged by one bf16 ulp of p2 (near-ties of p3)."""
+    C2, C3 = 64, 256
+    base = rng.normal(size=(groups, K, C2)).astype(np.float32)
+    pad = rng.random(size=(groups, K)) < 0.7
+    p2 = np.where(pad[..., None], base[:, -1:, :], base)
+    p2 = torch.from_numpy(p2.reshape(-1, C2)).to(BF16)
+    nudge = torch.from_numpy(
+        (pad & (rng.random(size=(groups, K)) < 0.25)).reshape(-1))
+    bits = p2.view(torch.int16)
+    bits[nudge] += torch.tensor(1, dtype=torch.int16)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    return (p2, t(1.0 + 0.3 * rng.normal(size=C2)),
+            t(0.2 * rng.normal(size=C2)), t(0.125 * rng.normal(size=(C2, C3))),
+            t(0.1 * rng.normal(size=C3)), K)
+
+
+# -- the model against the twins at phase 2's bf16 bars --------------------
+
+def _gram_pool_within_bars(agp):
+    model, twin = gram_pool_model(*agp), SP.sa_fwd_gram_pool_bf16_plain(*agp)
+    p3 = cs.gram_pool_bf16_p3(*agp)
+    cs.acc_rel(model[0], twin[0], "G2")
+    cs.acc_rel(model[1], twin[1], "ch2")
+    flips = cs.bf16_flips(model[2], twin[2], "max")[0] + \
+        cs.bf16_flips(model[3], twin[3], "min")[0]
+    ties = cs.bf16_index_flips(model[4], twin[4], p3, "argmax")[0] + \
+        cs.bf16_index_flips(model[5], twin[5], p3, "argmin")[0]
+    return flips, ties
+
+
+def _sweep2_within_bars(as2):
+    model, twin = sweep2_model(*as2), SP.sa_bwd_sweep2_bf16_plain(*as2)
+    for a, b, name in zip(model[:4], twin[:4], ("A2", "G1", "u2", "ch1")):
+        cs.acc_rel(a, b, name)
+    return cs.bf16_flips(model[4], twin[4], "mq")[0]
+
+
+@pytest.mark.parametrize("S,K", [(64, 64), (32, 128)])
+def test_model_within_phase2_bars_at_bench_magnitudes(S, K):
+    agp, as2 = _bench_inputs(S, K)
+    _gram_pool_within_bars(agp)
+    _sweep2_within_bars(as2)
+
+
+def test_model_within_phase2_bars_on_bf16_near_ties(rng):
+    agp = _near_tie_inputs(rng)
+    p3 = cs.gram_pool_bf16_p3(*agp)
+    best = p3.amax(1, keepdim=True)
+    gap = (best - p3) / cs.bf16_ulp(best.abs())
+    # the inputs do hold near-ties: distinct values within one bf16 ulp
+    # of a group's max
+    assert int(((gap > 0) & (gap <= 1)).sum()) > 100
+    _gram_pool_within_bars(agp)
+    # B3b on the same rows: p2 with repeats and one-ulp nudges
+    lp = [SP.SALayerParams(*(torch.from_numpy(a) for a in (
+        rng.normal(size=(4, 64), scale=0.3).astype(np.float32),
+        rng.normal(size=64, scale=0.1).astype(np.float32),
+        (1.0 + 0.3 * rng.normal(size=64)).astype(np.float32),
+        rng.normal(size=64, scale=0.1).astype(np.float32))))]
+    R = agp[0].shape[0]
+    x3 = torch.from_numpy(rng.normal(size=(2, 4, R // 2)).astype(
+        np.float32)).to(BF16)
+    f = lambda *s, sc=1.0: torch.from_numpy(
+        (sc * rng.normal(size=s)).astype(np.float32))
+    as2 = (x3, lp[0].kernel, lp[0].bias, f(64, sc=2.0), f(64), agp[0],
+           agp[1], agp[2], f(R, 64, sc=0.1).to(BF16), f(64, 64, sc=0.01),
+           f(64, sc=0.1), f(64), f(64, 64, sc=0.125))
+    _sweep2_within_bars(as2)
+
+
+# -- the model against the JAX kernels (interpret mode) --------------------
+
+@pytest.mark.parametrize("negative_scale", [False, True])
+def test_model_matches_jax_sweeps(rng, monkeypatch, negative_scale):
+    """tests/test_torch_bf16_sa.py's shapes and tolerances: B2b's and
+    B3b's model fed the JAX side's own inputs."""
+    x, layers = _setup(rng, negative_scale)
+    store = []
+    monkeypatch.setattr(jsp, "pl", _Recorder(store))
+    Bt = x.shape[0]
+    xf = jnp.asarray(x).astype(BF).reshape(Bt, C0, S_TINY * K_TINY)
+    pooled, stats, p2p, gram2, idxp, gramx = jsp.sa_forward_pair(
+        xf, layers, K_TINY, EPS, BF, True, True)
+    C1, C2, C3 = WIDTHS
+    dp = jnp.asarray(rng.normal(size=(Bt * S_TINY, C3)).astype(
+        np.float32)).astype(BF)
+    jsp.sa_backward_pair(xf, p2p, gram2, idxp, gramx, layers, stats, dp, EPS,
+                         BF, True, True)
+    n = Bt * S_TINY * K_TINY
+    lp1, lp2, lp3 = layers
+    (m1, v1), (m2, v2), (m3, v3) = stats
+    mul1, shift1 = jax_fold_affine(lp1, m1, v1, EPS)
+    mul2, shift2 = jax_fold_affine(lp2, m2, v2, EPS)
+    gi2 = lp2.scale * jax.lax.rsqrt(v2 + EPS)
+    (w1, b1, _, _), (w2, _, _, _), (w3, b3, _, _) = (
+        tuple(_t(a) for a in lp) for lp in layers)
+    x3 = torch.from_numpy(x).reshape(Bt, C0, S_TINY * K_TINY).to(BF16)
+    jp2 = _unpair(store[0][0], C2).to(BF16)
+
+    out = gram_pool_model(jp2, _t(mul2), _t(shift2), w3, b3, K_TINY)
+    r = store[1]
+    _acc(out[0], _fold2(r[0], C2, C2), "G2")
+    _acc(out[1], _lanes(r[1], C2), "ch2")
+    for i, name in enumerate(("max", "min")):
+        _bf16_rows(out[2 + i], _unpair(r[2 + i], C3), name)
+    for i, name in enumerate(("argmax", "argmin")):
+        assert torch.equal(out[4 + i],
+                           _unpair(r[4 + i], C3).to(torch.int32)), name
+
+    r = store[2]
+    jA3, ju3 = _fold2(r[0], C3, C2), _lanes(r[1], C3)
+    t3 = jax_layer_terms(jnp.asarray(jA3.numpy()), jnp.asarray(ju3.numpy()),
+                         lp3, m3, v3, gram2[0], gram2[1], n, EPS)
+    A2, G1, u2, ch1, mq = sweep2_model(
+        x3, w1, b1, _t(mul1), _t(shift1), jp2, _t(mul2), _t(shift2),
+        _unpair(r[2], C2).to(BF16), _t(t3["M"]), _t(t3["rc"]), _t(gi2), w2)
+    r = store[3]
+    sums = _t(r[1])[0]
+    for a, b_, name in (
+            (A2, _fold2(r[0][:2 * C2], C2, C1), "A2"),
+            (G1, _fold2(r[0][2 * C2:], C1, C1), "G1"),
+            (u2, sums[:C2] + sums[C2:2 * C2], "u2"),
+            (ch1, sums[2 * C2:2 * C2 + C1] + sums[2 * C2 + C1:], "ch1")):
+        _acc(a, b_, name)
+    _bf16_rows(mq, _unpair(r[2], C1), "mq")
+
+
+# -- chip_smoke.py --parent: a bf16 sweep against the parent's ------------
+
+def _pool_case(rng, P=40, K=64, C=256):
+    """A parent's B2b-bf16 outputs (G2, ch2, max, min, argmax, argmin) and
+    the twin's f32 p3 they were taken from."""
+    p3 = torch.from_numpy(rng.normal(size=(P, K, C)).astype(np.float32))
+    mx, mn = p3.amax(1), p3.amin(1)
+    out = [torch.from_numpy(rng.normal(size=(64, 64)).astype(np.float32)),
+           torch.from_numpy(rng.normal(size=64).astype(np.float32)),
+           mx.to(BF16), mn.to(BF16), SP._first_index(p3, mx, K),
+           SP._first_index(p3, mn, K)]
+    return p3, out
+
+
+def _one_ulp(t, where, n=1):
+    """t (bf16) moved by n bf16 ulps at ``where``."""
+    bits = t.clone().view(torch.int16)
+    bits[where] += torch.tensor(n, dtype=torch.int16)
+    return bits.view(BF16)
+
+
+@pytest.mark.parametrize("case", ["equal", "one-ulp", "flips-within-bar",
+                                  "near-tie-index", "accumulator-within"])
+def test_parent_bf16_comparison_passes_within_bars(rng, case):
+    p3, theirs = _pool_case(rng)
+    mine = [t.clone() for t in theirs]
+    P, C = mine[2].shape
+    if case == "one-ulp":           # every entry one ulp off: not a flip
+        mine[2] = _one_ulp(mine[2], torch.ones(P, C, dtype=torch.bool))
+    elif case == "flips-within-bar":   # 2-ulp flips in 1e-3 of the entries
+        sel = torch.zeros(P * C, dtype=torch.bool)
+        sel[:int(1e-3 * P * C)] = True
+        mine[3] = _one_ulp(mine[3], sel.view(P, C), 2)
+    elif case == "near-tie-index":  # the max moved to a row within one ulp
+        g, c = 3, 7
+        i = int(theirs[4][g, c])
+        j = (i + 5) % p3.shape[1]
+        p3[g, j, c] = p3[g, i, c] - cs.bf16_ulp(p3[g, i, c].abs()) / 2
+        mine[4][g, c] = j
+    elif case == "accumulator-within":
+        mine[0] = mine[0] + 0.5e-3 * float(mine[0].abs().max())
+    note = cs.bf16_vs_parent("sa_fwd_gram_pool_bf16", mine, theirs, p3)
+    assert isinstance(note, str)
+
+
+@pytest.mark.parametrize("case", ["flips-beyond-bar", "far-index",
+                                  "accumulator-beyond", "dtype"])
+def test_parent_bf16_comparison_fails_beyond_bars(rng, case):
+    p3, theirs = _pool_case(rng)
+    mine = [t.clone() for t in theirs]
+    P, C = mine[2].shape
+    if case == "flips-beyond-bar":   # 2-ulp flips in 2e-3 of the entries
+        sel = torch.zeros(P * C, dtype=torch.bool)
+        sel[:int(2e-3 * P * C) + 1] = True
+        mine[2] = _one_ulp(mine[2], sel.view(P, C), 2)
+    elif case == "far-index":       # the max moved to a row far below it
+        g, c = 3, 7
+        i = int(theirs[4][g, c])
+        j = int(p3[g, :, c].argmin())
+        assert i != j
+        mine[4][g, c] = j
+    elif case == "accumulator-beyond":
+        mine[1] = mine[1] + 2e-3 * float(mine[1].abs().max())
+    elif case == "dtype":           # an f32 max where the parent's is bf16
+        mine[2] = mine[2].float()
+    with pytest.raises(SystemExit):
+        cs.bf16_vs_parent("sa_fwd_gram_pool_bf16", mine, theirs, p3)
