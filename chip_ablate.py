@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the redesigned kernels B1 (select_gather), B2a
 (sa_fwd_layer12), B2b (sa_fwd_gram_pool), B3a (sa_bwd_sweep1), B3b
-(sa_bwd_sweep2) and B3c (sa_bwd_sweep3), and the bf16 forms of B2b and B3b
-(sa_fwd_gram_pool_bf16, sa_bwd_sweep2_bf16), spend their time on the card.
+(sa_bwd_sweep2) and B3c (sa_bwd_sweep3), and the bf16 forms of B2b, B3a,
+B3b and B3c (sa_fwd_gram_pool_bf16, sa_bwd_sweep1_bf16,
+sa_bwd_sweep2_bf16, sa_bwd_sweep3_bf16), spend their time on the card.
 
     python3 chip_ablate.py                  # one CUDA device, nvcc
     python3 chip_ablate.py sweep1 sweep3    # those kernels' variants only
                                             # (select, layer12, gram_pool,
-                                            # sweep1, sweep2, sweep3)
+                                            # sweep1, sweep2, sweep3,
+                                            # gram_pool_bf16, sweep1_bf16,
+                                            # sweep2_bf16, sweep3_bf16)
     python3 chip_ablate.py precision        # B2a's arithmetic variants:
                                             # precision against float64
     python3 chip_ablate.py rounding         # the card's bf16 rounding rate,
@@ -15,7 +18,10 @@
 
 Each kernel is rebuilt from facl_tpu_torch/ops/csrc/sa_pair.cu with one
 part cut out (the pool, the Gram, a product, the CUDA-core row passes;
-B3a's A3, its q3 rows, its row bins), and every variant is timed by
+B3a's A3, its q3 rows, its row bins; the bf16 B3a's q3 product, A3, h2
+pass, and its stage count; the bf16 B3c's h1, h1 M2 and dy1^T [x | 1]),
+or, for the bf16 B3a's A3, one part redesigned (on tensor cores), and
+every variant is timed by
 chip_smoke.device_ms on the main path's shapes (640 clouds x 4,096 rows,
 random data; B3a's argmax rows skewed as chip_smoke.py reads them on
 the main path: 47% of a group's channels on its first row, 37% dead, the
@@ -24,10 +30,13 @@ in sa_pair.cu (its product, its h1 pass, its p2 store), and B1
 (select_gather, with idx) in select.cu (the selection, the gather, the
 idx store), timed on chip_smoke.py's body-like slab clouds and on randn
 clouds (640 x 512 points, S = K = 64). A
-variant's outputs are wrong by design; only its time is read. The full
+cut variant's outputs are wrong by design; only its time is read. The full
 kernel's time less a variant's is what the part costs where it overlaps
-nothing else. Exits nonzero without a card or if a variant does not
-build; prints one JSON line {"ablation": {variant: [ms, ms]}, "gpu": ...}.
+nothing else. A redesigned variant's outputs are held against the
+kernel's, and its ptxas use (registers, spills) printed beside the
+kernel's (CHECKED). Exits nonzero without a card or if a variant does not
+build; prints one JSON line {"ablation": {variant: [ms, ms]}, "checked":
+{variant: [error by output]}, "ptxas": {variant: use}, "gpu": ...}.
 """
 from __future__ import annotations
 
@@ -122,6 +131,152 @@ S2B_NOH1 = ("      h1_pair<true>(xa, xb, C0, W1s, v, col, ha, hb);",
 S2B_NOMQ = ("      *reinterpret_cast<uint4*>(mq + (r0 + r) * CW + cl) =\n"
             "          *reinterpret_cast<const uint4*>(S + r * LDB + cl);",
             "")
+# The bf16 forms of B3a and B3c (bwd_sweep1_bf16_kernel,
+# bwd_sweep3_bf16_kernel): a product or a pass cut.
+S1B_NOQ3 = ("      for (int kk = 0; kk < 16; ++kk)      // + two core",
+            "      for (int kk = 0; kk < 0; ++kk)      // + two core")
+S1B_NOA3 = ("    for (int gi = 0; gi < gpt; ++gi) {\n      const uint32_t w = ae",
+            "    for (int gi = 0; gi < 0; ++gi) {\n      const uint32_t w = ae")
+S1B_NOH2 = ("    for (int q = q0 + tid; q < q1; q += nth) {",
+            "    for (int q = q0 + tid; q < 0; q += nth) {")
+S1B_NOENT = ("    for (int p = ac; p < E / 2; p += S1B_RT) {",
+             "    for (int p = ac; p < 0; p += S1B_RT) {")
+S3B_NOPROD = ("        ldsm4t(b, b_rows_at(Ms, 16 * np, 16 * kk, lane));\n"
+              "        mma_bf16(c[2 * np], a, b[0], b[1]);\n"
+              "        mma_bf16(c[2 * np + 1], a, b[2], b[3]);",
+              "        c[2 * np][0] += __uint_as_float(a[np]);")
+S3B_NOH1 = ("        h1_pre_bf16(xa, xb, C0, W1s, v, 8 * jc + 2 * t, pa, pb);",
+            "        pa = __float_as_uint(xa[0]) + jc;\n"
+            "        pb = __float_as_uint(xb[0]) + jc;")
+S3B_NOA1 = ("    for (int mt = 0; mt < 4; ++mt) {\n      const uint32_t a[4] = {",
+            "    {\n      uint32_t z = 0u;\n      for (int q = 0; q < 16; ++q) "
+            "z ^= dy[q >> 1][q & 1];\n      acc[0][0] += z;\n    }\n"
+            "    for (int mt = 0; mt < 0; ++mt) {\n      const uint32_t a[4] = {")
+# The bf16 B3a with A3 on tensor cores in place of its CUDA-core pass:
+# the row warps also keep dy3^T as a bf16 tile (C3W channels, LDB), zero
+# but at the tile's entries (each entry cleared by the thread that wrote
+# it, the tile after), and warp w adds A3's channels 32 w.. as mma.sync
+# m16n8k16 bf16 (dy3^T by ldmatrix, h2 by ldmatrix.trans) over the tile's
+# 64 rows; one tile in that buffer, so the row warps meet once more.
+S1B_A3MMA = [
+    ("  int stage, w3, dt, pos, a3e, h2, q3, vec, bars, total;",
+     "  int stage, w3, dt, pos, a3e, h2, q3, vec, bars, dy, total;"),
+    ("  l.total = l.bars + (2 * S + 4) * 8;",
+     "  l.dy = (l.bars + (2 * S + 4) * 8 + 15) & ~15;\n"
+     "  l.total = l.dy + C3W * LDB * 2;"),
+    ("  bf* Qs = reinterpret_cast<bf*>(smb + ly.q3);",
+     "  bf* Qs = reinterpret_cast<bf*>(smb + ly.q3);\n"
+     "  bf* DYs = reinterpret_cast<bf*>(smb + ly.dy);"),
+    ("  for (int e = threadIdx.x; e < 2 * E; e += S1B_NT) dpos[e] = S1B_NONE;",
+     "  for (int e = threadIdx.x; e < 2 * E; e += S1B_NT) dpos[e] = S1B_NONE;\n"
+     "  for (int e = threadIdx.x; e < C3W * LDB / 8; e += S1B_NT)\n"
+     "    reinterpret_cast<uint4*>(DYs)[e] = make_uint4(0u, 0u, 0u, 0u);"),
+    ("      const uint32_t old = *reinterpret_cast<const uint32_t*>(pb + e);",
+     "      const uint32_t old = *reinterpret_cast<const uint32_t*>(pb + e);\n"
+     "      const uint32_t prev =\n"
+     "          *reinterpret_cast<const uint32_t*>(dpos + (b ^ 1) * E + e);"),
+    ("        if (was != S1B_NONE) Db[was] = __float2bfloat16_rn(0.f);",
+     "        if (was != S1B_NONE) Db[was] = __float2bfloat16_rn(0.f);\n"
+     "        const uint32_t wp = (prev >> (16 * q)) & 0xffffu;\n"
+     "        if (wp != S1B_NONE)\n"
+     "          reinterpret_cast<uint16_t*>(DYs)[(c + q) * LDB +\n"
+     "                                           ((wp >> 11) << 3 |\n"
+     "                                            ((wp >> 3) & 7))] = 0;"),
+    ("              static_cast<uint16_t>(val >> (16 * q));",
+     "              static_cast<uint16_t>(val >> (16 * q));\n"
+     "        if (key != DEAD)\n"
+     "          reinterpret_cast<uint16_t*>(DYs)[(c + q) * LDB + key] =\n"
+     "              static_cast<uint16_t>(dw >> (16 * q));"),
+    ("""  for (int64_t i = 0; i < count; ++i) {
+    if (i + 1 < count) {
+      entries(i + 1);
+      release(i + 1);
+    }
+    // A3 += dy3^T h2 and u3 over tile i's live entries.
+    const int b = static_cast<int>(i & 1);
+    const uint32_t* ae = a3es + b * E;
+    const bf* Hb = H2 + b * U * LDB;
+    float su = 0.f;
+    for (int gi = 0; gi < gpt; ++gi) {
+      const uint32_t w = ae[gi * C3W + ac];
+      const int k = static_cast<int>(w >> 16);
+      if (k != DEAD) {
+        const float dv = __uint_as_float(w << 16);
+        const uint4* hrow = reinterpret_cast<const uint4*>(Hb + k * LDB);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const uint4 u = hrow[q];
+          const uint32_t hw[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int z = 0; z < 4; ++z) {
+            const float2 h = unpack_bf16(hw[z]);
+            a3[8 * q + 2 * z] = fmaf(dv, h.x, a3[8 * q + 2 * z]);
+            a3[8 * q + 2 * z + 1] = fmaf(dv, h.y, a3[8 * q + 2 * z + 1]);
+          }
+        }
+        su += dv;
+      }
+    }
+    u3 += su;
+    named_sync(1, S1B_CT);
+  }
+
+  double* pa = partA + ((int64_t)blockIdx.x * C3W + ac) * CW;
+#pragma unroll
+  for (int q = 0; q < 32; ++q)
+    *reinterpret_cast<double2*>(pa + 2 * q) =
+        make_double2(a3[2 * q], a3[2 * q + 1]);
+""", """  const int rw = ac >> 5;
+  for (int64_t i = 0; i < count; ++i) {
+    const int b = static_cast<int>(i & 1);
+    const uint32_t* ae = a3es + b * E;
+    const bf* Hb = H2 + b * U * LDB;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[2][4];
+      ldsm4(a[0], a_rows_at(DYs, 32 * rw, 16 * kk, lane));
+      ldsm4(a[1], a_rows_at(DYs, 32 * rw + 16, 16 * kk, lane));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t hb[4];
+        ldsm4t(hb, b_rows_at(Hb, 16 * np, 16 * kk, lane));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(a3 + 4 * (8 * mt + 2 * np), a[mt], hb[0], hb[1]);
+          mma_bf16(a3 + 4 * (8 * mt + 2 * np + 1), a[mt], hb[2], hb[3]);
+        }
+      }
+    }
+    float su = 0.f;
+    for (int gi = 0; gi < gpt; ++gi) {
+      const uint32_t w = ae[gi * C3W + ac];
+      if (static_cast<int>(w >> 16) != DEAD) su += __uint_as_float(w << 16);
+    }
+    u3 += su;
+    named_sync(2, S1B_RT);
+    if (i + 1 < count) {
+      entries(i + 1);
+      release(i + 1);
+    }
+    named_sync(1, S1B_CT);
+  }
+
+#pragma unroll
+  for (int q = 0; q < 32; ++q) {
+    const int ch = 32 * rw + 16 * (q >> 4) + 8 * (q & 1) + g;
+    *reinterpret_cast<double2*>(partA + ((int64_t)blockIdx.x * C3W + ch) *
+                                            CW + 8 * ((q >> 1) & 7) + 2 * t) =
+        make_double2(a3[4 * (q >> 1) + 2 * (q & 1)],
+                     a3[4 * (q >> 1) + 2 * (q & 1) + 1]);
+  }
+""")]
+#: Variants whose outputs are held against the kernel's (a redesign of a
+#: part, not a cut): max |variant - kernel| / max |kernel| per output;
+#: each built with ptxas's report, as is its base (the unchanged kernel),
+#: whose use of registers and spills is printed. variant -> (base, the
+#: kernel's function name).
+CHECKED = {"sweep1_bf16 with A3 on tensor cores": ("sweep1_bf16",
+                                                   "bwd_sweep1_bf16_kernel")}
 #: variant -> (kernel, [(text, replacement)]) on that kernel's source.
 VARIANTS = {
     "layer12": ("l12", []),
@@ -190,6 +345,21 @@ VARIANTS = {
     "sweep3 without dy1^T [x | 1]": ("s3", [S3_NOA1]),
     "sweep3 without h1": ("s3", [S3_NOH1]),
     "sweep3 loads only": ("s3", [S3_NOPROD, S3_NOA1, S3_NOH1]),
+    "sweep1_bf16": ("s1b", []),
+    "sweep1_bf16 without the q3 product": ("s1b", [S1B_NOQ3]),
+    "sweep1_bf16 without A3": ("s1b", [S1B_NOA3]),
+    "sweep1_bf16 without h2": ("s1b", [S1B_NOH2]),
+    "sweep1_bf16 with 2 stages": ("s1b", [
+        ("constexpr int S1B_STAGES = 4;", "constexpr int S1B_STAGES = 2;")]),
+    "sweep1_bf16 loads and stores only": ("s1b", [S1B_NOQ3, S1B_NOA3,
+                                                  S1B_NOH2, S1B_NOENT]),
+    "sweep1_bf16 with A3 on tensor cores": ("s1b", S1B_A3MMA),
+    "sweep3_bf16": ("s3b", []),
+    "sweep3_bf16 without h1 M2": ("s3b", [S3B_NOPROD]),
+    "sweep3_bf16 without h1": ("s3b", [S3B_NOH1]),
+    "sweep3_bf16 without dy1^T [x | 1]": ("s3b", [S3B_NOA1]),
+    "sweep3_bf16 loads and dy1 only": ("s3b", [S3B_NOPROD, S3B_NOH1,
+                                               S3B_NOA1]),
 }
 
 
@@ -201,6 +371,8 @@ KERNEL_SRC = {"l12": ("sa_pair", "facl_sa_fwd_layer12"),
               "s1": ("sa_pair", "facl_sa_bwd_sweep1"),
               "s2": ("sa_pair", "facl_sa_bwd_sweep2"),
               "s3": ("sa_pair", "facl_sa_bwd_sweep3"),
+              "s1b": ("sa_pair", "facl_sa_bwd_sweep1_bf16"),
+              "s3b": ("sa_pair", "facl_sa_bwd_sweep3_bf16"),
               "sel": ("select", "facl_select_gather")}
 
 
@@ -217,11 +389,15 @@ def variant_source(src: str, kernel: str, pairs) -> str:
                   "s2": (src.index("bwd_sweep2_kernel(const typename"),
                          src.index("// B3 sweep 3:")),
                   "s3": (src.index("bwd_sweep3_kernel(const typename"),
-                         src.index("// The bf16 forms of B2b and B3b")),
+                         src.index("// The bf16 forms of B2b, B3a, B3b and B3c")),
                   "gpb": (src.index("fwd_gram_pool_bf16_kernel(const "
                                     "__nv_bfloat16"),
                           src.index("// B3 sweep 2 (slim) at bf16")),
                   "s2b": (src.index("// B3 sweep 2 (slim) at bf16"),
+                          src.index("// B3 sweep 1 at bf16")),
+                  "s1b": (src.index("// B3 sweep 1 at bf16"),
+                          src.index("// B3 sweep 3 at bf16")),
+                  "s3b": (src.index("// B3 sweep 3 at bf16"),
                           src.index("// Every launcher:"))}[kernel]
     part = src[lo:hi]
     for old, new in pairs:
@@ -479,21 +655,32 @@ def main() -> None:
         if not only or {"s1": "sweep1", "s3": "sweep3"}[kernel] in only:
             sources[f"{kernel} clocks"] = clocked_source(src["sa_pair"],
                                                          kernel)
+    reported = {n: fn for v, (base, fn) in CHECKED.items() for n in (v, base)
+                if v in sources}
     procs = {}
     for i, (name, text) in enumerate(sources.items()):
         cu = out_dir / f"v{i}.cu"
         cu.write_text(text)
         procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *flags, "-I", os.path.abspath(CSRC), "-o",
+            [_build._nvcc(), *(_build.NVCC_FLAGS if name in reported else
+                               flags), "-I", os.path.abspath(CSRC), "-o",
              str(out_dir / f"v{i}.so"), str(cu)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), out_dir / f"v{i}.so")
     _build.build_all()
-    libs = {}
+    libs, ptxas = {}, {}
     for name, (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"chip_ablate: {name} did not build:\n{log}")
         libs[name] = ctypes.CDLL(str(so))
+        if name in reported:          # the 3 lines after the kernel's entry
+            lines = log.splitlines()
+            at = next(i for i, line in enumerate(lines)
+                      if "Compiling entry function" in line and
+                      reported[name] in line)
+            ptxas[name] = "; ".join(
+                line.split(":", 1)[-1].strip() for line in lines[at + 1:at + 4]
+                if "spill" in line or "registers" in line)
     if only == ("precision",):
         print(json.dumps({"precision": precision(cs, libs),
                           "gpu": cs.gpu_name_power()}))
@@ -545,11 +732,20 @@ def main() -> None:
              "s2b": (SP.sa_bwd_sweep2_bf16, (x3.to(bf), w1, b1, mul1, shift1,
                                              p2.to(bf), mul2, shift2,
                                              q3.to(bf), M3, rc3, gi2, w2),
-                     "facl_sa_bwd_sweep2_bf16")}
+                     "facl_sa_bwd_sweep2_bf16"),
+             "s1b": (SP.sa_bwd_sweep1_bf16, (p2.to(bf), mul2, shift2,
+                                             r(P, 256).to(bf), idx, r(256),
+                                             w3, K),
+                     "facl_sa_bwd_sweep1_bf16"),
+             "s3b": (SP.sa_bwd_sweep3_bf16, (x3.to(bf), w1, b1, mul1, shift1,
+                                             q3.to(bf), r(64, 64, sc=0.1),
+                                             rc3),
+                     "facl_sa_bwd_sweep3_bf16")}
     for fn, args, _ in calls.values():
         fn(*args)                         # resolves this tree's launchers
 
-    def timed(name, call=None):
+    def with_variant(name, call, run):
+        """run(fn, args) with variant name's launcher in the kernel's."""
         kernel = VARIANTS[name][0]
         fn, args, launcher = calls[call or kernel]
         key = (KERNEL_SRC[kernel][0], launcher)
@@ -558,9 +754,22 @@ def main() -> None:
         vfn.argtypes, vfn.restype = ours[1].argtypes, ctypes.c_int
         _build._FUNCTIONS[key] = (libs[name], vfn)
         try:
-            return cs.device_ms(lambda: fn(*args))[0]
+            return run(fn, args)
         finally:
             _build._FUNCTIONS[key] = ours
+
+    def timed(name, call=None):
+        return with_variant(name, call,
+                            lambda fn, args: cs.device_ms(
+                                lambda: fn(*args))[0])
+
+    def checked(name):
+        """max |variant - kernel| / max |kernel| of each output."""
+        fn, args, _ = calls[VARIANTS[name][0]]
+        want = fn(*args)
+        got = with_variant(name, None, lambda fn, args: fn(*args))
+        return [float((a.float() - b.float()).abs().max() /
+                      b.float().abs().max()) for a, b in zip(got, want)]
 
     def clocks(kernel):
         """Mean cycles per tile of each phase (thread 0 of each block)."""
@@ -591,15 +800,22 @@ def main() -> None:
             times[name].append(timed(base or name,
                                      "sel randn" if base else None))
     cyc = {k: clocks(k) for k in ("s1", "s3") if f"{k} clocks" in libs}
+    errs = {name: checked(name) for name in CHECKED if name in libs}
     gpu = cs.gpu_name_power()
     for name, ms in times.items():
         print(f"{name}: {ms[0]:.4f} / {ms[1]:.4f} ms on the device ({gpu})",
               flush=True)
+    for name, e in errs.items():
+        print(f"{name}: max |variant - kernel| / max |kernel| by output: "
+              + ", ".join(f"{v:.3e}" for v in e), flush=True)
+    for name, use in ptxas.items():
+        print(f"ptxas {name}: {use}", flush=True)
     for k, ph in cyc.items():
         print(f"{k} phase clocks (cycles per tile, thread 0, mean over "
               f"blocks): " + ", ".join(f"{p} {c:.0f}" for p, c in ph.items()),
               flush=True)
-    print(json.dumps({"ablation": times, "clocks": cyc, "gpu": gpu}))
+    print(json.dumps({"ablation": times, "clocks": cyc, "checked": errs,
+                      "ptxas": ptxas, "gpu": gpu}))
 
 
 if __name__ == "__main__":

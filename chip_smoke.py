@@ -15,7 +15,9 @@ every hand-written kernel against its plain PyTorch twin.
                                         #   phase 2's bf16 bars of the
                                         #   parent's; and the pair3
                                         #   bf16 step with the parent's
-                                        #   bf16 B2b and B3b, in turns
+                                        #   bf16 B3a and B3c, in turns
+                                        #   (with --profile, three
+                                        #   profiled steps of each turn)
 
 Phases (any failure exits nonzero, before the final line):
   1. build   every kernel from facl_tpu_torch/ops/csrc (one nvcc per
@@ -93,7 +95,7 @@ Phases (any failure exits nonzero, before the final line):
              --profile adds one profiled step to each impl's path: kernel
              time over that step's own span gives the device's idle share;
              with --parent the pair3 bf16 step runs again, 20 steps in
-             turns with the parent's bf16 B2b and B3b and with this
+             turns with the parent's bf16 B3a and B3c and with this
              tree's (parent_step_ab; --profile: one profiled step each);
   5. input   d(loss)/d(points) through each grouping route and the
              pallas SA stage with input_grad (B9's dx, B5b) at B=8: card
@@ -1212,6 +1214,10 @@ def bf16_rows(x3, layers, dpooled, K):
     add("sa_bwd_sweep1 [bf16]", SP.sa_bwd_sweep1_bf16, as1, e,
         2 * R * C2 * 2 + P * C3 * (2 + 4), nnz * (4 * C2 + 3) + R * 4 * C2,
         0, "facl_tpu/ops/pallas/sa_pair.py:772")
+    # The kernel takes q3 as the TPU kernel's dense product (R x C3 x C2 on
+    # tensor cores): work its design chooses, not the function's, so the
+    # bound stays the sparse count; the dense product's ideal time beside.
+    rows[-1]["dense_ms"] = R * C3 * C2 * 2 / PEAK_BF16 * 1e3
 
     t3 = _layer_terms(A3, u3, lp3, m3, v3, G2, ch2, R, eps)
     as2 = (xb, lp1.kernel, lp1.bias, mul1, shift1, p2, mul2, shift2, q3,
@@ -1776,10 +1782,13 @@ def print_row(r, label=""):
     tc = "" if "bound_f32_ms" not in r else \
         f" with products on tensor cores in {r['rate']} (f32 " \
         f"CUDA-core bound {r['bound_f32_ms']:.4f} ms)"
+    dense = "" if "dense_ms" not in r else \
+        f"; its dense q3 product alone {r['dense_ms']:.4f} ms at the bf16 " \
+        "tensor-core rate"
     print(f"kernel {r['name']}{label}: {r['ms']:.4f} ms on the device, "
           f"{r['host_us']:.1f} us on the host per call (twin "
           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-          f"{r['bound_by']}{tc}{lib}), max |kernel - twin| = "
+          f"{r['bound_by']}{tc}{lib}{dense}), max |kernel - twin| = "
           f"{r['max_abs_err']:.3e}", flush=True)
     if "parent_ab" in r:
         ab = r["parent_ab"]
@@ -2350,7 +2359,9 @@ def phase_main(dev, profile: bool, card: str):
 
 #: --parent: the kernels whose parent launchers the pair3 bf16 step runs
 #: in parent_step_ab (the ones this tree redesigned).
-PARENT_STEP = ("sa_fwd_gram_pool_bf16", "sa_bwd_sweep2_bf16")
+PARENT_STEP = ("sa_bwd_sweep1_bf16", "sa_bwd_sweep3_bf16")
+#: --parent --profile: profiled steps of each of parent_step_ab's runs.
+PARENT_PROF_STEPS = 3
 
 
 def parent_step_ab(dev, batches, g, kernels, card, profile: bool):
@@ -2358,11 +2369,14 @@ def parent_step_ab(dev, batches, g, kernels, card, profile: bool):
     kernels and with the parent tree's (their launchers swapped; every
     other kernel this tree's), in turns: parent, this tree, this tree,
     parent, 20 timed steps each after 2 warm-up steps (_run_path: its
-    launch counts checked); with --profile one profiled step of the first
-    two. Prints the medians; returns them."""
+    launch counts checked); with --profile PARENT_PROF_STEPS profiled
+    steps of each run, their kernel time split into the kernels only one
+    side launches (the swapped pair) and every other kernel. Prints the
+    medians; returns them."""
     import ctypes
     from facl_tpu_torch.ops import _build
     label, impl, _, want = BF16_PATHS[0]
+    names = " and ".join(PARENT_STEP)
     swaps = []
     for name in PARENT_STEP:
         lib_name, launcher, per_sm = PARENT_AB[name]
@@ -2373,26 +2387,48 @@ def parent_step_ab(dev, batches, g, kernels, card, profile: bool):
         pfn = getattr(PARENT[lib_name], launcher)
         pfn.argtypes, pfn.restype = ours[1].argtypes, ctypes.c_int
         swaps.append((key, ours, (PARENT[lib_name], pfn)))
+    profs = {True: [], False: []}     # parent? -> [{kernel: ms} a step]
 
-    def run(parent, prof):
+    def run(parent):
         for key, ours, theirs in swaps:
             _build._FUNCTIONS[key] = theirs if parent else ours
         try:
             tag = "the parent's" if parent else "this tree's"
-            return _run_path(dev, impl, 20, batches, g, kernels, card, prof,
-                             want, f"{label} with {tag} B2b and B3b",
-                             dtype="bfloat16")[1]
+            return _run_path(dev, impl, 20, batches, g, kernels, card,
+                             profile, want, f"{label} with {tag} {names}",
+                             dtype="bfloat16", prof_steps=PARENT_PROF_STEPS,
+                             prof_out=profs[parent])[1]
         finally:
             for key, ours, _ in swaps:
                 _build._FUNCTIONS[key] = ours
             torch.cuda.empty_cache()
-    ms = [run(True, profile), run(False, profile), run(False, False),
-          run(True, False)]
-    print(f"A/B {label} step in turns (parent's B2b and B3b, this tree's, "
+    ms = [run(True), run(False), run(False), run(True)]
+    print(f"A/B {label} step in turns (parent's {names}, this tree's, "
           f"this tree's, parent's) on {card}: "
           f"{' / '.join(f'{v:.2f}' for v in ms)} ms/step (medians of 20); "
           f"parent mean {(ms[0] + ms[3]) / 2:.2f}, this tree "
           f"{(ms[1] + ms[2]) / 2:.2f}", flush=True)
+    if profile:
+        seen = {p: set().union(*steps) for p, steps in profs.items()}
+        parts = {}
+        for parent, steps in profs.items():
+            own = seen[parent] - seen[not parent]
+            parts[parent] = [(sum(k.values()),
+                              sum(v for n, v in k.items() if n in own))
+                             for k in steps]
+
+        def spread(vals):
+            vals = sorted(vals)
+            return (f"median {statistics.median(vals):.3f} (range "
+                    f"{vals[0]:.3f}-{vals[-1]:.3f})")
+        for parent, tag in ((True, "the parent's"), (False, "this tree's")):
+            pv = parts[parent]
+            print(f"A/B {label} profiled kernel time with {tag} {names} "
+                  f"on {card}, ms a step over {len(pv)} profiled steps: all "
+                  f"kernels {spread([a for a, _ in pv])}; the kernels only "
+                  f"this side launches {spread([o for _, o in pv])}; every "
+                  f"other kernel {spread([a - o for a, o in pv])}",
+                  flush=True)
     return ms
 
 
@@ -2406,7 +2442,7 @@ def all_kernels():
 
 def _run_path(dev, impl, steps, batches, g, kernels, card, profile, want,
               label=None, select_impl="auto", gather_impl="auto",
-              dtype="float32"):
+              dtype="float32", prof_steps=1, prof_out=None):
     from facl_tpu_torch.train import Trainer
     G, B, N = batches.shape[1:4]
     label = label or impl
@@ -2452,7 +2488,7 @@ def _run_path(dev, impl, steps, batches, g, kernels, card, profile, want,
           f"clips/s at the median, peak {peak:.2f} GiB; losses first "
           f"{losses[0]:.4f} last {losses[-1]:.4f}; launches "
           f"{ {n: c for n, c in launches.items() if c} }", flush=True)
-    if profile:
+    for n in range(prof_steps if profile else 0):
         from torch.profiler import ProfilerActivity, profile as prof
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         with prof(activities=[ProfilerActivity.CPU,
@@ -2462,15 +2498,22 @@ def _run_path(dev, impl, steps, batches, g, kernels, card, profile, want,
             e.record()
             torch.cuda.synchronize()
         span = s.elapsed_time(e)
-        ka = p.key_averages()
-        table = ka.table(sort_by="self_cuda_time_total", row_limit=25)
-        busy = sum(x.self_device_time_total for x in p.events()
-                   if x.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        print(f"profile of one {label} step: device busy {busy:.2f} ms (sum "
-              f"of kernel times) over the step's own span of {span:.2f} ms "
-              f"(CUDA events; the profiler's host overhead lengthens it): "
-              f"idle share {max(0.0, 1 - busy / span):.3f}\n" + table,
-              flush=True)
+        kern = {}                     # kernel name -> device ms this step
+        for x in p.events():
+            if x.device_type == torch.autograd.DeviceType.CUDA:
+                kern[x.name] = kern.get(x.name, 0.0) + \
+                    x.self_device_time_total / 1e3
+        if prof_out is not None:
+            prof_out.append(kern)
+        busy = sum(kern.values())
+        table = "" if n else "\n" + p.key_averages().table(
+            sort_by="self_cuda_time_total", row_limit=25)
+        which = "" if prof_steps == 1 else f" ({n + 1} of {prof_steps})"
+        print(f"profile of one {label} step{which}: device busy {busy:.2f} "
+              f"ms (sum of kernel times) over the step's own span of "
+              f"{span:.2f} ms (CUDA events; the profiler's host overhead "
+              f"lengthens it): idle share {max(0.0, 1 - busy / span):.3f}"
+              + table, flush=True)
     return launches, ms
 
 

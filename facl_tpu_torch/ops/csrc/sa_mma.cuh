@@ -1,6 +1,7 @@
 // Tensor-core tile machinery of the redesigned SA sweeps (sa_pair.cu:
 // fwd_layer12, fwd_gram_pool, bwd_sweep2, bwd_sweep3 and the bf16 forms of
-// fwd_gram_pool and bwd_sweep2; bwd_sweep1 uses the TMA staging).
+// fwd_gram_pool, bwd_sweep1, bwd_sweep2 and bwd_sweep3; the f32
+// bwd_sweep1 uses the TMA staging).
 // Products run as mma.sync m16n8k8 TF32 in the 3xTF32 split, which keeps
 // f32-level accuracy: each f32 operand a becomes hi = tf32(a) and lo =
 // tf32(a - hi), and a product sums lo.hi' + hi.lo' + hi.hi' in f32 (the
@@ -26,9 +27,9 @@
 // chains of sa_tile.cuh (relu_affine, and h1_rows below with h1_tile's
 // exact chain), bit for bit as in the forward.
 //
-// bf16 (the template flag BF of B2a, B3a, B3c): the sweeps' row tensors
-// (x, p2, q3, mq) are stored as __nv_bfloat16 and every product runs in
-// ONE TF32 pass (B2b's and B3b's bf16 forms use the bf16 tensor-core
+// bf16 (the template flag BF of B2a): the sweeps' row tensors (x, p2,
+// q3, mq) are stored as __nv_bfloat16 and every product runs in ONE TF32
+// pass (the bf16 forms of B2b, B3a, B3b and B3c use the bf16 tensor-core
 // helpers at the end of this file instead). A
 // bf16 value is exact in TF32 (the same 8-bit exponent, more mantissa
 // bits), so a product of two bf16 values is exact and the tensor cores
@@ -576,16 +577,17 @@ __device__ __forceinline__ void h1_rows(const R* xs, int C0,
   }
 }
 
-// h1 of two rows (x values xa, xb) at columns col, col + 1, in registers:
-// ha for row a, hb for row b. vec1 = [b1 | mul1 | shift1]. The op chain is
-// h1_tile's (and h1_rows'), so the masks are the ones every sweep that
-// recomputes h1 gets. BF: the bf16 chain (h1_of).
-template <bool BF = false>
-__device__ __forceinline__ void h1_pair(const float (&xa)[C0MAX - 1],
-                                        const float (&xb)[C0MAX - 1],
-                                        int C0, const float* W1s,
-                                        const float* vec1, int col,
-                                        float2& ha, float2& hb) {
+// The bf16 chain of h1 (h1_of<true>) for two rows (x values xa, xb) at
+// columns col, col + 1 up to the ReLU: bf16((bf16(x W1) + b1) mul1 +
+// shift1) as packed pairs pa (row a) and pb (row b), each rounding done
+// for two values at once (cvt.rn.bf16x2 rounds as cvt.rn.bf16 does, at
+// about three times its rate on this card). W1 and b1 rounded by the
+// caller; vec1 = [b1 | mul1 | shift1].
+__device__ __forceinline__ void h1_pre_bf16(const float (&xa)[C0MAX - 1],
+                                            const float (&xb)[C0MAX - 1],
+                                            int C0, const float* W1s,
+                                            const float* vec1, int col,
+                                            uint32_t& pa, uint32_t& pb) {
   float2 a = make_float2(0.f, 0.f), b = make_float2(0.f, 0.f);
 #pragma unroll
   for (int k = 0; k < C0MAX - 1; ++k) {
@@ -598,26 +600,48 @@ __device__ __forceinline__ void h1_pair(const float (&xa)[C0MAX - 1],
   }
   const float2 b1 = ld2(vec1 + col), mul = ld2(vec1 + CW + col);
   const float2 sh = ld2(vec1 + 2 * CW + col);
+  const float2 ra = unpack_bf16(pack_bf16(a.x, a.y));
+  const float2 rv = unpack_bf16(pack_bf16(b.x, b.y));
+  pa = pack_bf16(__fadd_rn(__fmul_rn(__fadd_rn(ra.x, b1.x), mul.x), sh.x),
+                 __fadd_rn(__fmul_rn(__fadd_rn(ra.y, b1.y), mul.y), sh.y));
+  pb = pack_bf16(__fadd_rn(__fmul_rn(__fadd_rn(rv.x, b1.x), mul.x), sh.x),
+                 __fadd_rn(__fmul_rn(__fadd_rn(rv.y, b1.y), mul.y), sh.y));
+}
+
+// h1 of two rows (x values xa, xb) at columns col, col + 1, in registers:
+// ha for row a, hb for row b. vec1 = [b1 | mul1 | shift1]. The op chain is
+// h1_tile's (and h1_rows'), so the masks are the ones every sweep that
+// recomputes h1 gets. BF: the bf16 chain (h1_of), by h1_pre_bf16.
+template <bool BF = false>
+__device__ __forceinline__ void h1_pair(const float (&xa)[C0MAX - 1],
+                                        const float (&xb)[C0MAX - 1],
+                                        int C0, const float* W1s,
+                                        const float* vec1, int col,
+                                        float2& ha, float2& hb) {
   if constexpr (BF) {
-    // h1_of's chain with each rounding done for two values at once
-    // (cvt.rn.bf16x2 rounds as cvt.rn.bf16 does, at about three times its
-    // rate on this card).
-    const float2 ra = unpack_bf16(pack_bf16(a.x, a.y));
-    const float2 rv = unpack_bf16(pack_bf16(b.x, b.y));
-    const float2 pa = unpack_bf16(pack_bf16(
-        __fadd_rn(__fmul_rn(__fadd_rn(ra.x, b1.x), mul.x), sh.x),
-        __fadd_rn(__fmul_rn(__fadd_rn(ra.y, b1.y), mul.y), sh.y)));
-    const float2 pb = unpack_bf16(pack_bf16(
-        __fadd_rn(__fmul_rn(__fadd_rn(rv.x, b1.x), mul.x), sh.x),
-        __fadd_rn(__fmul_rn(__fadd_rn(rv.y, b1.y), mul.y), sh.y)));
+    uint32_t ua, ub;
+    h1_pre_bf16(xa, xb, C0, W1s, vec1, col, ua, ub);
+    const float2 pa = unpack_bf16(ua), pb = unpack_bf16(ub);
     ha = make_float2(fmaxf(pa.x, 0.0f), fmaxf(pa.y, 0.0f));
     hb = make_float2(fmaxf(pb.x, 0.0f), fmaxf(pb.y, 0.0f));
-  } else {
-    ha.x = h1_of<BF>(a.x, b1.x, mul.x, sh.x);
-    ha.y = h1_of<BF>(a.y, b1.y, mul.y, sh.y);
-    hb.x = h1_of<BF>(b.x, b1.x, mul.x, sh.x);
-    hb.y = h1_of<BF>(b.y, b1.y, mul.y, sh.y);
+    return;
   }
+  float2 a = make_float2(0.f, 0.f), b = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < C0MAX - 1; ++k) {
+    if (k >= C0) break;
+    const float2 w = ld2(W1s + k * CW + col);
+    a.x = __fadd_rn(a.x, __fmul_rn(xa[k], w.x));
+    a.y = __fadd_rn(a.y, __fmul_rn(xa[k], w.y));
+    b.x = __fadd_rn(b.x, __fmul_rn(xb[k], w.x));
+    b.y = __fadd_rn(b.y, __fmul_rn(xb[k], w.y));
+  }
+  const float2 b1 = ld2(vec1 + col), mul = ld2(vec1 + CW + col);
+  const float2 sh = ld2(vec1 + 2 * CW + col);
+  ha.x = h1_of<BF>(a.x, b1.x, mul.x, sh.x);
+  ha.y = h1_of<BF>(a.y, b1.y, mul.y, sh.y);
+  hb.x = h1_of<BF>(b.x, b1.x, mul.x, sh.x);
+  hb.y = h1_of<BF>(b.y, b1.y, mul.y, sh.y);
 }
 
 // Sum over the lanes of one t group (lanes 4g .. 4g + 3): a column sum
@@ -628,7 +652,7 @@ __device__ __forceinline__ double sum_over_t(double v) {
   return v;
 }
 
-// -- bf16 tensor cores (the bf16 forms of B2b and B3b) -----------------
+// -- bf16 tensor cores (the bf16 forms of B2b, B3a, B3b and B3c) -------
 // Operands are bf16 in shared memory, tiles (rows, LDB) row-major with a
 // stride of 72 values (144 bytes): the eight 16-byte rows that one
 // ldmatrix phase reads fall in eight different bank groups. Products run

@@ -57,13 +57,15 @@
 // Each sweep has an f32 entry point (facl_sa_*) and a bf16 one
 // (facl_sa_*_bf16, compute_dtype bfloat16): x, p2, q3, mq and B2b's
 // max/min stored as bf16, results rounded to bf16 at the TPU kernels'
-// cast points (the bf16 twins in ops/sa_pair.py). B2a, B3a and B3c are
-// templates on BF: their bf16 forms keep the f32 forms' tiling, staging
-// and fixed-order float64 partials, every product in one TF32 pass (exact
-// for bf16 operands; sa_mma.cuh). B2b and B3b have bf16 kernels of their
-// own (fwd_gram_pool_bf16_kernel, bwd_sweep2_bf16_kernel, below the f32
-// sweeps): bf16 operands in shared memory, products as mma.sync
-// m16n8k16 bf16.
+// cast points (the bf16 twins in ops/sa_pair.py). B2a's bf16 form is
+// fwd_layer12_kernel<true>: the f32 form's tiling, staging and
+// fixed-order float64 partials, every product in one TF32 pass (exact
+// for bf16 operands; sa_mma.cuh). B2b, B3a, B3b and B3c have bf16
+// kernels of their own (fwd_gram_pool_bf16_kernel, bwd_sweep1_bf16_kernel,
+// bwd_sweep2_bf16_kernel, bwd_sweep3_bf16_kernel, below the f32 sweeps):
+// bf16 operands, products on bf16 tensor cores (mma.sync m16n8k16, B3a's
+// as wgmma). The f32 sweeps of those four are still templates on BF whose
+// bf16 branches nothing instantiates any more; only <false> is launched.
 //
 // The backward recomputes p1 -> h1 from x with the forward's exact op
 // chain (h1_tile in sa_tile.cuh, shared by every x-reading kernel, B6 in
@@ -1400,16 +1402,17 @@ bwd_sweep3_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
 }
 
 // =====================================================================
-// The bf16 forms of B2b and B3b: kernels of their own, built for Hopper's
-// bf16 tensor cores (sa_mma.cuh, "bf16 tensor cores"). Every operand a
-// product reads is bf16 in shared memory (padded (rows, LDB) tiles,
-// fragments by ldmatrix) or in registers, and every product runs as
-// mma.sync m16n8k16 bf16 with f32 accumulation; no TF32 pass and no
+// The bf16 forms of B2b, B3a, B3b and B3c: kernels of their own, built
+// for Hopper's bf16 tensor cores (sa_mma.cuh, "bf16 tensor cores"). Every
+// operand a product reads is bf16 in shared memory (padded (rows, LDB)
+// tiles, fragments by ldmatrix; B3a's wgmma operands in core-matrix
+// tiles) or in registers, and every product runs as mma.sync m16n8k16
+// bf16 (B3a: wgmma m64n64k16) with f32 accumulation; no TF32 pass and no
 // hi/lo split. The f32 forms above (fwd_gram_pool_kernel<LP, false>,
-// bwd_sweep2_kernel<false>) are not these kernels' instantiations.
-// One block per SM. Sums over rows: each 64-row tile in f32 (the tensor
-// cores' k16 steps), carried in float64; per-block partials in float64,
-// summed in a fixed order: runs are bit-identical.
+// bwd_sweep1_kernel<false>, bwd_sweep2_kernel<false>,
+// bwd_sweep3_kernel<false>) are not these kernels' instantiations. One
+// block per SM. Per-block partials in float64, summed in a fixed order:
+// runs are bit-identical.
 
 // ---------------------------------------------------------------------
 // B2 sweep B at bf16 (facl_sa_fwd_gram_pool_bf16). Replaces
@@ -2051,6 +2054,648 @@ bwd_sweep2_bf16_kernel(const __nv_bfloat16* __restrict__ x, int C0,
   }
 }
 
+// ---------------------------------------------------------------------
+// B3 sweep 1 at bf16 (facl_sa_bwd_sweep1_bf16). Replaces
+// facl_tpu/ops/pallas/sa_pair.py::_make_sweep1_pair_kernel (:252,
+// pallas_call :772) at compute_dtype bfloat16: h2 = relu(bf16(p2 mul2 +
+// shift2)); dy3 = dpooled at each live entry's argmax row; per block A3 =
+// dy3^T h2 and u3 = sum dy3; q3 = bf16(D bf16(W3)^T), D = bf16(dy3
+// bf16(gi3)), stored bf16 (the twin: ops/sa_pair.py::
+// sa_bwd_sweep1_bf16_plain).
+//
+// Bound on the card at the main path: 0.219 ms by bytes (p2 in, q3 out,
+// dpooled and idx in). The form this replaces (the f32 design at bf16)
+// built q3 sparsely from row bitmaps, a task scan and split rows with
+// four block barriers a tile, and was no faster than at f32. Here q3 is
+// the TPU kernel's dense product, on tensor cores: a tile's D (64 rows x
+// 256 channels) holds one value per (group, channel), at its argmax row,
+// so the argmax layout's skew (most channels on a group's first row)
+// costs a dense product nothing. D is a bf16 tile in shared memory that
+// stays zero but at the tile's entries: each entry is written by the one
+// thread that owns its (group, channel), which clears the entry it wrote
+// there two tiles before (O(entries) a tile, no zeroing pass). The
+// product is wgmma m64n64k16 (D and bf16(W3) both by descriptor, f32
+// accumulators): D's fragments built in registers instead (a compare of
+// each value's row) held 64 registers live across the asynchronous
+// product and spilled, and mma.sync ran the product at a fraction of the
+// bf16 rate. The block's warps take four roles, on neighbouring tiles at
+// once:
+//  - warp 15 (the producer) keeps up to four tiles of p2, dpooled and idx
+//    in flight by TMA (each stage refilled once its readers are done:
+//    mbarriers full and empty), and stores each tile's q3 from its
+//    staging tile in 16-byte rows (mbarriers ready and free), so no
+//    other warp waits on a global memory operation;
+//  - warps 0-3 (one warpgroup) issue tile i's sixteen k16 steps (the
+//    whole 64 x 64 q3 tile), form half of tile i + 1's h2 (bf16, padded)
+//    from its p2 while the tensor cores run them, then round q3 in pairs
+//    into a padded staging tile;
+//  - warps 4-6 form the other half of tile i + 1's h2;
+//  - warps 7-14 write tile i + 1's entries (into D, and as (row, dpooled)
+//    words for A3), then add tile i's A3 and u3 on CUDA cores (a thread a
+//    channel, one 64-wide FMA row per live entry, 64 f32 sums carried as
+//    the f32 form carries them).
+// Warps 0-14 meet at one barrier a tile (D, h2, the A3 words and the
+// staging tile double-buffered). Every rounding to bf16 converts two
+// values at once. 512 threads (a 17th warp would cap every thread at 96
+// registers: five warps on one of the SM's four register files; the row
+// warps' 64 A3 sums then spilled).
+constexpr int S1B_MT = 128;         // the q3 warpgroup (warps 0-3)
+constexpr int S1B_HT = 96;          // the h2 warps (4-6)
+constexpr int S1B_RT = C3W;         // the row warps (7-14), one a channel
+constexpr int S1B_CT = S1B_MT + S1B_HT + S1B_RT;  // the compute warps
+constexpr int S1B_NT = S1B_CT + 32; // and the producer warp (15)
+constexpr int S1B_STAGES = 4;       // row tiles in flight, at most
+constexpr uint16_t S1B_NONE = 0xffffu;   // no entry written
+
+// Byte offsets of the bf16 sweep 1's shared memory for U rows, gpt pool
+// groups and S stages a tile: S x [p2 (U, CW) | dpooled (E) | idx (E)],
+// bf16(W3) and two D tiles (wgmma operands, core_k256), and two of each
+// of: the D positions each entry wrote (E) u16, A3's words (E) u32, h2
+// and q3 (U, LDB) bf16; mul2 | shift2 | bf16(gi3); the mbarriers (full
+// and empty a stage, ready and free a staging tile).
+struct S1BLayout {
+  int stage, w3, dt, pos, a3e, h2, q3, vec, bars, total;
+};
+
+__host__ __device__ inline S1BLayout s1b_layout(int U, int gpt, int S) {
+  const int E = gpt * C3W;
+  S1BLayout l;
+  l.stage = U * CW * 2 + E * 2 + E * 4;
+  l.w3 = (S * l.stage + 1023) & ~1023;
+  l.dt = l.w3 + CW * C3W * 2;
+  l.pos = l.dt + 2 * TR * C3W * 2;
+  l.a3e = l.pos + 2 * E * 2;
+  l.h2 = l.a3e + 2 * E * 4;
+  l.q3 = l.h2 + 2 * U * LDB * 2;
+  l.vec = l.q3 + 2 * U * LDB * 2;
+  l.bars = l.vec + (2 * CW + C3W) * 4;
+  l.total = l.bars + (2 * S + 4) * 8;
+  return l;
+}
+
+// Element (r, k) of a (64, 256) bf16 wgmma operand, K-major, without
+// swizzle: 8 x 8 core matrices of 128 contiguous bytes (8 rows, 8 k
+// each), the next 8 k at +128 bytes (LBO), the next 8 rows at +4096 (SBO).
+__device__ __forceinline__ int core_k256(int r, int k) {
+  return ((r >> 3) * (C3W / 8) + (k >> 3)) * 64 + (r & 7) * 8 + (k & 7);
+}
+constexpr uint32_t K256_LBO = 128, K256_SBO = C3W / 8 * 128;
+
+// A wgmma matrix descriptor (no swizzle) of the operand at smem.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* smem) {
+  return static_cast<uint64_t>((smem_addr(smem) >> 4) & 0x3fffu) |
+         static_cast<uint64_t>((K256_LBO >> 4) & 0x3fffu) << 16 |
+         static_cast<uint64_t>((K256_SBO >> 4) & 0x3fffu) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Pins a register's value at this point of the program: wgmma writes its
+// accumulators asynchronously, between the issue and the wait.
+__device__ __forceinline__ void pin(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// d += A B for the warpgroup, A (64 x 16) and B (16 x 64) bf16 by
+// descriptor, d (64 x 64, f32) in mma.sync's C layout: warp w of the
+// group holds rows 16 w + g (+8), n-tile j in d[4 j ..].
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                uint64_t adesc,
+                                                uint64_t bdesc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(adesc), "l"(bdesc), "r"(1));
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// An mbarrier of n arrivals a phase, and one arrival.
+__device__ __forceinline__ void mbar_init_n(uint64_t* bar, int n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__global__ void __launch_bounds__(S1B_NT, 1)
+bwd_sweep1_bf16_kernel(const __nv_bfloat16* __restrict__ p2,
+                       int64_t ntiles, int U, int pool, int S,
+                       const float* __restrict__ vec2,
+                       const __nv_bfloat16* __restrict__ dpooled,
+                       const int* __restrict__ idx,
+                       const float* __restrict__ gi3,
+                       const float* __restrict__ W3,
+                       __nv_bfloat16* __restrict__ q3,
+                       double* __restrict__ partA,
+                       double* __restrict__ partu) {
+  using bf = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char smb[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // Groups per tile (pool <= U) or tiles per group (pool > U = TR).
+  const int gpt = pool <= U ? U / pool : 1;
+  const int upt = pool > U ? pool / U : 1;
+  const int E = gpt * C3W;
+  const S1BLayout ly = s1b_layout(U, gpt, S);
+  bf* W3s = reinterpret_cast<bf*>(smb + ly.w3);
+  bf* Ds = reinterpret_cast<bf*>(smb + ly.dt);             // 2 x (64, 256)
+  uint16_t* dpos = reinterpret_cast<uint16_t*>(smb + ly.pos);
+  uint32_t* a3es = reinterpret_cast<uint32_t*>(smb + ly.a3e);
+  bf* H2 = reinterpret_cast<bf*>(smb + ly.h2);
+  bf* Qs = reinterpret_cast<bf*>(smb + ly.q3);
+  float* v = reinterpret_cast<float*>(smb + ly.vec);   // mul2|shift2|gi3
+  uint64_t* full = reinterpret_cast<uint64_t*>(smb + ly.bars);
+  uint64_t* empty = full + S;         // 15 arrivals: the compute warps
+  uint64_t* ready = empty + S;        // 4 arrivals: the q3 warps
+  uint64_t* freed = ready + 2;        // 1 arrival: the producer
+
+  const int64_t count =
+      ntiles > blockIdx.x ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  auto tile_at = [&](int64_t i) { return blockIdx.x + i * gridDim.x; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init_n(&full[s], 1);
+      mbar_init_n(&empty[s], S1B_CT / 32);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init_n(&ready[b], S1B_MT / 32);
+      mbar_init_n(&freed[b], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int e = threadIdx.x; e < 2 * CW; e += S1B_NT) v[e] = vec2[e];
+  for (int e = threadIdx.x; e < C3W; e += S1B_NT) v[2 * CW + e] = rb(gi3[e]);
+  for (int e = threadIdx.x; e < CW * C3W; e += S1B_NT)
+    W3s[core_k256(e / C3W, e % C3W)] = __float2bfloat16_rn(W3[e]);
+  for (int e = threadIdx.x; e < 2 * TR * C3W / 8; e += S1B_NT)
+    reinterpret_cast<uint4*>(Ds)[e] = make_uint4(0u, 0u, 0u, 0u);
+  for (int e = threadIdx.x; e < 2 * E; e += S1B_NT) dpos[e] = S1B_NONE;
+  fence_async_smem();                 // wgmma reads them by the async proxy
+  __syncthreads();
+
+  if (warp == S1B_CT / 32) {
+    // The producer: tile k + S into tile k's stage once its readers are
+    // done; tile k - 1's q3 out of its staging tile once it is written.
+    auto fetch = [&](int64_t i, int s) {
+      bf* st = reinterpret_cast<bf*>(smb + s * ly.stage);
+      const int64_t tl = tile_at(i), g0 = upt > 1 ? tl / upt : tl * gpt;
+      mbar_expect(&full[s], ly.stage);
+      bulk_load(st, p2 + tl * U * CW, U * CW * 2, &full[s]);
+      bulk_load(st + U * CW, dpooled + g0 * C3W, E * 2, &full[s]);
+      bulk_load(st + U * CW + E, idx + g0 * C3W, E * 4, &full[s]);
+    };
+    auto store_q3 = [&](int64_t k) {
+      mbar_wait(&ready[k & 1], static_cast<uint32_t>((k >> 1) & 1));
+      const bf* Q = Qs + (k & 1) * U * LDB;
+      bf* dst = q3 + tile_at(k) * U * CW;
+      for (int e = lane; e < U * 8; e += 32) {
+        const int r = e >> 3, c = (e & 7) << 3;
+        *reinterpret_cast<uint4*>(dst + r * CW + c) =
+            *reinterpret_cast<const uint4*>(Q + r * LDB + c);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&freed[k & 1]);
+    };
+    if (lane == 0)
+      for (int i = 0; i < S && i < count; ++i) fetch(i, i);
+    for (int64_t k = 0; k < count; ++k) {
+      if (lane == 0 && k + S < count) {
+        const int s = static_cast<int>(k % S);
+        mbar_wait(&empty[s], static_cast<uint32_t>((k / S) & 1));
+        fetch(k + S, s);
+      }
+      __syncwarp();
+      if (k > 0) store_q3(k - 1);
+    }
+    if (count > 0) store_q3(count - 1);
+    return;
+  }
+
+  // Tile k's h2 = relu(bf16(p2 mul2 + shift2)) into buffer k & 1, eight
+  // values a step: steps q0.. q1 by thread tid of nth.
+  auto h2_pass = [&](int64_t k, int q0, int q1, int tid, int nth) {
+    const int s = static_cast<int>(k % S);
+    const bf* P = reinterpret_cast<const bf*>(smb + s * ly.stage);
+    bf* Hb = H2 + (k & 1) * U * LDB;
+    mbar_wait(&full[s], static_cast<uint32_t>((k / S) & 1));
+    for (int q = q0 + tid; q < q1; q += nth) {
+      const int r = q >> 3, cb = (q & 7) << 3;
+      const uint4 u = *reinterpret_cast<const uint4*>(P + r * CW + cb);
+      const uint32_t in[4] = {u.x, u.y, u.z, u.w};
+      uint32_t o[4];
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        const float2 pv = unpack_bf16(in[z]);
+        const int cc = cb + 2 * z;
+        float2 f;
+        uint32_t bits;
+        o[z] = relu_packed(
+            pack_bf16(__fadd_rn(__fmul_rn(pv.x, v[cc]), v[CW + cc]),
+                      __fadd_rn(__fmul_rn(pv.y, v[cc + 1]),
+                                v[CW + cc + 1])),
+            f, bits);
+      }
+      *reinterpret_cast<uint4*>(Hb + r * LDB + cb) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  };
+  // A compute warp is done reading tile k's stage.
+  auto release = [&](int64_t k) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[k % S]);
+  };
+  const int h2q = U * 4;              // h2 steps of the q3 warpgroup
+  if (threadIdx.x >= S1B_MT && threadIdx.x < S1B_MT + S1B_HT) {
+    // The h2 warps: tile i + 1's h2 while tile i's product runs.
+    const int ht = threadIdx.x - S1B_MT;
+    if (count > 0) {
+      h2_pass(0, h2q, U * 8, ht, S1B_HT);
+      release(0);
+    }
+    named_sync(1, S1B_CT);
+    for (int64_t i = 0; i < count; ++i) {
+      if (i + 1 < count) {
+        h2_pass(i + 1, h2q, U * 8, ht, S1B_HT);
+        release(i + 1);
+      }
+      named_sync(1, S1B_CT);
+    }
+    return;
+  }
+
+  if (threadIdx.x < S1B_MT) {
+    // The q3 warpgroup: q3 = D bf16(W3)^T, its warp wr the rows
+    // 16 wr + g (+8), all 64 columns.
+    const int wr = warp;
+    const uint64_t bdesc = wgmma_desc(W3s);
+    if (count > 0) {
+      h2_pass(0, 0, h2q, threadIdx.x, S1B_MT);
+      release(0);
+    }
+    named_sync(1, S1B_CT);            // tile 0's D, A3 words and h2 are in
+    for (int64_t i = 0; i < count; ++i) {
+      const int b = static_cast<int>(i & 1);
+      float d[32];
+#pragma unroll
+      for (int q = 0; q < 32; ++q) {
+        d[q] = 0.f;
+        pin(d[q]);
+      }
+      const uint64_t adesc = wgmma_desc(Ds + b * TR * C3W);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk)      // + two core matrices of k a step
+        wgmma_m64n64k16(d, adesc + 16 * kk, bdesc + 16 * kk);
+      wgmma_commit();
+      if (i + 1 < count) {
+        h2_pass(i + 1, 0, h2q, threadIdx.x, S1B_MT);
+        release(i + 1);
+      }
+      wgmma_wait_all();
+#pragma unroll
+      for (int q = 0; q < 32; ++q) pin(d[q]);
+      // q3 rounded in pairs into the staging tile (once the producer has
+      // stored tile i - 2 from it).
+      if (i >= 2)
+        mbar_wait(&freed[b], static_cast<uint32_t>(((i - 2) >> 1) & 1));
+      bf* Qb = Qs + b * U * LDB;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * wr + 8 * h + g;
+        if (r < U)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<uint32_t*>(Qb + r * LDB + 8 * j + 2 * t) =
+                pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&ready[b]);
+      named_sync(1, S1B_CT);
+    }
+    return;
+  }
+
+  // The row warps: thread ac owns channel ac of A3 (all 64 columns) and u3.
+  const int ac = threadIdx.x - S1B_MT - S1B_HT;
+  // Tile k's entries, two channels a thread (the same ones every tile):
+  // each one's tile row (key) or DEAD; D's value bf16(dpooled bf16(gi3))
+  // written at (key, channel) of D's buffer k & 1, after clearing what
+  // this thread wrote there for tile k - 2; A3's word (key << 16 |
+  // dpooled's bf16 bits).
+  auto entries = [&](int64_t k) {
+    const int s = static_cast<int>(k % S), b = static_cast<int>(k & 1);
+    const int j = upt > 1 ? static_cast<int>(tile_at(k) % upt) : 0;
+    const bf* DP = reinterpret_cast<const bf*>(smb + s * ly.stage) + U * CW;
+    const int* IX = reinterpret_cast<const int*>(DP + E);
+    bf* Db = Ds + b * TR * C3W;
+    uint16_t* pb = dpos + b * E;
+    uint32_t* ae = a3es + b * E;
+    mbar_wait(&full[s], static_cast<uint32_t>((k / S) & 1));
+    for (int p = ac; p < E / 2; p += S1B_RT) {
+      const int e = 2 * p, gi = e / C3W, c = e % C3W;
+      const int2 rr = *reinterpret_cast<const int2*>(IX + e);
+      const uint32_t dw = *reinterpret_cast<const uint32_t*>(DP + e);
+      const float2 dv = unpack_bf16(dw);
+      const uint32_t val = pack_bf16(__fmul_rn(dv.x, v[2 * CW + c]),
+                                     __fmul_rn(dv.y, v[2 * CW + c + 1]));
+      const uint32_t old = *reinterpret_cast<const uint32_t*>(pb + e);
+      uint32_t pos = 0u, w[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int r = q ? rr.y : rr.x;
+        const int lr = upt > 1 ? r - j * U : gi * pool + r;
+        const int key = r < pool && lr >= 0 && lr < U ? lr : DEAD;
+        const uint32_t was = (old >> (16 * q)) & 0xffffu;
+        if (was != S1B_NONE) Db[was] = __float2bfloat16_rn(0.f);
+        const uint32_t at =
+            key != DEAD ? static_cast<uint32_t>(core_k256(key, c + q))
+                        : S1B_NONE;
+        if (key != DEAD)
+          reinterpret_cast<uint16_t*>(Db)[at] =
+              static_cast<uint16_t>(val >> (16 * q));
+        pos |= at << (16 * q);
+        w[q] = (static_cast<uint32_t>(key) << 16) |
+               ((dw >> (16 * q)) & 0xffffu);
+      }
+      *reinterpret_cast<uint32_t*>(pb + e) = pos;
+      *reinterpret_cast<uint2*>(ae + e) = make_uint2(w[0], w[1]);
+    }
+    fence_async_smem();               // D is read by wgmma (async proxy)
+  };
+  float a3[64] = {};
+  double u3 = 0.0;
+  if (count > 0) {
+    entries(0);
+    release(0);
+  }
+  named_sync(1, S1B_CT);
+  for (int64_t i = 0; i < count; ++i) {
+    if (i + 1 < count) {
+      entries(i + 1);
+      release(i + 1);
+    }
+    // A3 += dy3^T h2 and u3 over tile i's live entries.
+    const int b = static_cast<int>(i & 1);
+    const uint32_t* ae = a3es + b * E;
+    const bf* Hb = H2 + b * U * LDB;
+    float su = 0.f;
+    for (int gi = 0; gi < gpt; ++gi) {
+      const uint32_t w = ae[gi * C3W + ac];
+      const int k = static_cast<int>(w >> 16);
+      if (k != DEAD) {
+        const float dv = __uint_as_float(w << 16);
+        const uint4* hrow = reinterpret_cast<const uint4*>(Hb + k * LDB);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const uint4 u = hrow[q];
+          const uint32_t hw[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int z = 0; z < 4; ++z) {
+            const float2 h = unpack_bf16(hw[z]);
+            a3[8 * q + 2 * z] = fmaf(dv, h.x, a3[8 * q + 2 * z]);
+            a3[8 * q + 2 * z + 1] = fmaf(dv, h.y, a3[8 * q + 2 * z + 1]);
+          }
+        }
+        su += dv;
+      }
+    }
+    u3 += su;
+    named_sync(1, S1B_CT);
+  }
+
+  double* pa = partA + ((int64_t)blockIdx.x * C3W + ac) * CW;
+#pragma unroll
+  for (int q = 0; q < 32; ++q)
+    *reinterpret_cast<double2*>(pa + 2 * q) =
+        make_double2(a3[2 * q], a3[2 * q + 1]);
+  partu[(int64_t)blockIdx.x * C3W + ac] = u3;
+}
+
+// ---------------------------------------------------------------------
+// B3 sweep 3 at bf16 (facl_sa_bwd_sweep3_bf16). Replaces
+// facl_tpu/ops/pallas/sa_pair.py::_make_sweep3_pair_kernel (:461,
+// pallas_call :835) at compute_dtype bfloat16: h1 recomputed from x by the
+// bf16 chain (h1_pre_bf16, h1_pair<true>'s: the forward's masks bit for
+// bit); dy1 =
+// bf16([h1 > 0] (mq - (bf16(h1 bf16(M2)) + rc2))); per block [A1 | u1] =
+// dy1^T [x | 1] (the twin: ops/sa_pair.py::sa_bwd_sweep3_bf16_plain).
+//
+// Bound on the card at the main path: 0.106 ms by bytes (x and mq in: 136
+// B a row). The form this replaces (the f32 design at bf16) ran TF32
+// m16n8k8 products on f32 hi/lo tiles whose lo half was zero, with h1
+// through a shared tile and dy1^T's fragments gathered by shuffles. Here
+// every warp works alone on 16-row steps, so the loop has no block
+// barrier: its mq rows (padded, stride LDB) and x rows arrive by cp.async
+// into its own three stages, two steps in flight. The warp makes h1 for
+// its rows g, g + 8 in registers (h1_pre_bf16), each k16 step's A
+// fragment as it goes (C of two n-tiles is A of a k16 step), and runs h1
+// bf16(M2) as mma.sync m16n8k16 bf16, bf16(M2)'s B fragments by ldmatrix
+// from a padded tile; dy1 is formed in the accumulators' places (mq's
+// fragments by ldmatrix) and rounded in pairs; [A1 | u1] = dy1^T [x | 1 |
+// 0] is one more m16n8k16 product per 16 channels, its A fragments dy1
+// transposed in registers by movmatrix.trans, its B [x | 1 | 0] read as
+// bf16 pairs of the staged channel-major x, accumulated in f32 over the
+// warp's steps; the 16 warps' sums are added in order, in float64, at
+// the end. h1's CUDA-core chain is most of the work and its latency wants
+// warps: 512 threads (bf16(M2)'s fragments held in registers instead
+// allowed 256, and h1 ran at about half this rate).
+constexpr int S3B_NT = 512;
+constexpr int S3B_WARPS = S3B_NT / 32;
+constexpr int S3B_STAGES = 3;
+constexpr int S3B_STAGE = 16 * LDB + C0MAX * 16;   // bf16: mq | x
+
+__device__ __forceinline__ uint32_t transpose8x8(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;"
+               : "=r"(d)
+               : "r"(a));
+  return d;
+}
+
+__global__ void __launch_bounds__(S3B_NT, 1)
+bwd_sweep3_bf16_kernel(const __nv_bfloat16* __restrict__ x, int C0,
+                       int64_t N, int64_t R, const float* __restrict__ W1,
+                       const float* __restrict__ vec,
+                       const __nv_bfloat16* __restrict__ mq,
+                       const float* __restrict__ M2,
+                       double* __restrict__ part) {
+  using bf = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char smb[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  bf* stage = reinterpret_cast<bf*>(smb) + warp * S3B_STAGES * S3B_STAGE;
+  bf* Ms = reinterpret_cast<bf*>(smb) + S3B_WARPS * S3B_STAGES * S3B_STAGE;
+  float* W1s = reinterpret_cast<float*>(Ms + CW * LDB);   // bf16(M2) [k][n]
+  float* v = W1s + C0MAX * CW;              // bf16(b1) | mul1 | shift1 | rc2
+  const float* rc2 = v + 3 * CW;
+  // The warp's 16-row steps, strided over all warps of the grid.
+  const int64_t gw = static_cast<int64_t>(blockIdx.x) * S3B_WARPS + warp;
+  const int64_t nw = static_cast<int64_t>(gridDim.x) * S3B_WARPS;
+  const int64_t count = R / 16 > gw ? (R / 16 - 1 - gw) / nw + 1 : 0;
+  // x in 16-byte copies of 8 rows (one cloud: N % 8 == 0), else by loads.
+  const bool xvec = N % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  auto fetch = [&](int64_t i) {     // the warp's copies of its step i
+    if (i < count) {
+      bf* Sg = stage + (i % S3B_STAGES) * S3B_STAGE;
+      const int64_t r0 = (gw + i * nw) * 16;
+      for (int e = lane; e < 16 * 8; e += 32) {
+        const int r = e >> 3, c = (e & 7) << 3;
+        cp_async16(Sg + r * LDB + c, mq + (r0 + r) * CW + c);
+      }
+      bf* X = Sg + 16 * LDB;                // (C0MAX, 16) channel-major
+      if (xvec) {
+        if (lane < 2 * C0) {
+          const int c = lane >> 1, h = lane & 1;
+          const int64_t r = r0 + 8 * h, b = r / N, n = r - b * N;
+          cp_async16(X + c * 16 + 8 * h, x + (b * C0 + c) * N + n);
+        }
+      } else {
+        for (int e = lane; e < C0 * 16; e += 32) {
+          const int c = e >> 4, j = e & 15;
+          const int64_t r = r0 + j, b = r / N, n = r - b * N;
+          X[c * 16 + j] = x[(b * C0 + c) * N + n];
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int i = 0; i < S3B_STAGES - 1; ++i) fetch(i);
+  for (int e = threadIdx.x; e < C0 * CW; e += S3B_NT) W1s[e] = rb(W1[e]);
+  for (int e = threadIdx.x; e < 4 * CW; e += S3B_NT)
+    v[e] = e < CW ? rb(vec[e]) : vec[e];
+  for (int e = threadIdx.x; e < CW * CW; e += S3B_NT)
+    Ms[(e >> 6) * LDB + (e & 63)] = __float2bfloat16_rn(M2[e]);
+  __syncthreads();
+
+  // [A1 | u1]: channels 16 mt + g (+8), columns 2t (+1) of [x | 1 | 0].
+  float acc[4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) zero4(acc[mt]);
+  for (int64_t i = 0; i < count; ++i) {
+    cp_async_wait<S3B_STAGES - 2>();
+    __syncwarp();
+    fetch(i + S3B_STAGES - 1);
+    const bf* Sg = stage + (i % S3B_STAGES) * S3B_STAGE;
+    const bf* X = Sg + 16 * LDB;
+    float xa[C0MAX - 1], xb[C0MAX - 1];
+#pragma unroll
+    for (int k = 0; k < C0MAX - 1; ++k)
+      if (k < C0) {
+        xa[k] = to_f(X[k * 16 + g]);
+        xb[k] = to_f(X[k * 16 + g + 8]);
+      }
+    // h1 bf16(M2): h1 (rows g, g + 8, columns 8 j + 2t (+1)) made by the
+    // bf16 chain (h1_pre_bf16, then the ReLU on the packed pair) as each
+    // k16 step's A fragment; its mask, bit 4 j + 2 h + e.
+    float c[8][4];
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj) zero4(c[nj]);
+    uint32_t m1 = 0;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int jc = 2 * kk + jj;
+        uint32_t pa, pb, ma, mbit;
+        float2 f;
+        h1_pre_bf16(xa, xb, C0, W1s, v, 8 * jc + 2 * t, pa, pb);
+        a[2 * jj] = relu_packed(pa, f, ma);
+        a[2 * jj + 1] = relu_packed(pb, f, mbit);
+        m1 |= (ma | (mbit << 2)) << (4 * jc);
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm4t(b, b_rows_at(Ms, 16 * np, 16 * kk, lane));
+        mma_bf16(c[2 * np], a, b[0], b[1]);
+        mma_bf16(c[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    // dy1 = bf16([h1 > 0] (mq - (bf16(h1 M2) + rc2))) in the accumulators'
+    // places (rows g + 8 h, columns 8 nj + 2t (+1)), mq's by ldmatrix.
+    uint32_t qf[4][4], dy[8][2];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) ldsm4(qf[kk], a_rows_at(Sg, 0, 16 * kk, lane));
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj) {
+      const float2 rc = ld2(rc2 + 8 * nj + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 qv = unpack_bf16(qf[nj >> 1][2 * (nj & 1) + h]);
+        const float2 hm =
+            unpack_bf16(pack_bf16(c[nj][2 * h], c[nj][2 * h + 1]));
+        const uint32_t mk = m1 >> (4 * nj + 2 * h);
+        dy[nj][h] = pack_bf16(
+            (mk & 1u) ? __fsub_rn(qv.x, __fadd_rn(hm.x, rc.x)) : 0.f,
+            (mk & 2u) ? __fsub_rn(qv.y, __fadd_rn(hm.y, rc.y)) : 0.f);
+      }
+    }
+    // [A1 | u1] += dy1^T [x | 1 | 0] over the 16 rows: A (channel, row)
+    // is dy1 transposed (movmatrix), B (row, column g) x's pairs of rows.
+    uint32_t b0 = 0u, b1 = 0u;
+    if (g < C0) {
+      b0 = *reinterpret_cast<const uint32_t*>(X + g * 16 + 2 * t);
+      b1 = *reinterpret_cast<const uint32_t*>(X + g * 16 + 8 + 2 * t);
+    } else if (g == C0) {
+      b0 = b1 = 0x3f803f80u;              // bf16 1.0, twice
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const uint32_t a[4] = {
+          transpose8x8(dy[2 * mt][0]), transpose8x8(dy[2 * mt + 1][0]),
+          transpose8x8(dy[2 * mt][1]), transpose8x8(dy[2 * mt + 1][1])};
+      mma_bf16(acc[mt], a, b0, b1);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // The eight warps' partials summed in order (staged in the stages).
+  double* red = reinterpret_cast<double*>(smb);    // (warps, CW, 8)
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      red[(warp * CW + 16 * mt + g + 8 * (q >> 1)) * 8 + 2 * t + (q & 1)] =
+          acc[mt][q];
+  __syncthreads();
+  const int ne = CW * (C0 + 1);
+  for (int e = threadIdx.x; e < ne; e += S3B_NT) {
+    const int jc = e / (C0 + 1), col = e % (C0 + 1);
+    double sum = 0.0;
+    for (int w = 0; w < S3B_WARPS; ++w) sum += red[(w * CW + jc) * 8 + col];
+    part[(int64_t)blockIdx.x * ne + e] = sum;
+  }
+}
+
 // Every launcher: grid = nblk persistent blocks over R / 64 row tiles;
 // returns cudaGetLastError() (0 on success). Each sweep has an f32 entry
 // point (facl_sa_*) and a bf16 one (facl_sa_*_bf16: x, p2, q3, mq and
@@ -2227,6 +2872,50 @@ int launch_bwd_sweep2<true>(const void* x, int B, int C0, int N,
       static_cast<const T*>(x), C0, N, R, W1, vec,
       static_cast<const T*>(p2), static_cast<const T*>(q3), M3, W2,
       static_cast<T*>(mq), partA, partG, partu, partc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <>
+int launch_bwd_sweep1<true>(const void* p2, int64_t R, int pool,
+                            const float* vec2, const void* dpooled,
+                            const int* idx, const float* gi3,
+                            const float* W3, void* q3, double* partA,
+                            double* partu, int nblk, void* stream) {
+  using T = __nv_bfloat16;
+  if (bad_pool(R, pool)) return static_cast<int>(cudaErrorInvalidValue);
+  const int U = sweep1_rows(pool);
+  const int gpt = pool <= U ? U / pool : 1;
+  int S = S1B_STAGES;                 // stages: as many as fit
+  while (S > 0 && s1b_layout(U, gpt, S).total > MAX_SMEM) --S;
+  if (S == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = s1b_layout(U, gpt, S).total;
+  cudaError_t e = prepare(bwd_sweep1_bf16_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bwd_sweep1_bf16_kernel<<<nblk, S1B_NT, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(p2), R / U, U, pool, S, vec2,
+      static_cast<const T*>(dpooled), idx, gi3, W3, static_cast<T*>(q3),
+      partA, partu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <>
+int launch_bwd_sweep3<true>(const void* x, int B, int C0, int N,
+                            const float* W1, const float* vec, const void* mq,
+                            const float* M2, double* part, int nblk,
+                            void* stream) {
+  using T = __nv_bfloat16;
+  const int64_t R = (int64_t)B * N;
+  if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(T) * (S3B_WARPS * S3B_STAGES * S3B_STAGE +
+                                   CW * LDB) +
+                      sizeof(float) * (C0MAX * CW + 4 * CW);
+  cudaError_t e = prepare(bwd_sweep3_bf16_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bwd_sweep3_bf16_kernel<<<nblk, S3B_NT, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), C0, N, R, W1, vec,
+      static_cast<const T*>(mq), M2, part);
   return static_cast<int>(cudaGetLastError());
 }
 

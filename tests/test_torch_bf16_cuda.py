@@ -1,6 +1,6 @@
 """The bf16 instantiations of the pair3 sweeps (B2a, B2b, B3a, B3b, B3c at
-compute_dtype bfloat16; B2b's and B3b's bf16 forms also at uneven row
-counts and unaligned rows), of B6, B7 and B8 (pair's sweep 2, hybrid2's
+compute_dtype bfloat16; the bf16 forms of B2b, B3a, B3b and B3c also at
+uneven row counts and unaligned rows), of B6, B7 and B8 (pair's sweep 2, hybrid2's
 forward, the two-sweep backward) and of B9 (the pallas stage's eight
 sweeps) against their bf16 twins, on the card; and the bf16 pair3 and
 pallas stages, card vs CPU.
@@ -324,6 +324,48 @@ def test_bf16_b2b_b3b_redesigned(dev, rng, K, B, N):
     195 tiles: 34 of B3b's blocks take none); N = 12 (x rows not in 16-byte
     chunks: B3b reads them one by one)."""
     _b2b_b3b_match(*_b2b_b3b_inputs(rng, dev, B, N, K))
+
+
+@pytest.mark.parametrize("K,B,N", [(128, 2, 8320), (64, 1, 64 * 397),
+                                   (64, 3, 4160), (64, 16, 12),
+                                   (8, 8, 24), (192, 2, 768)])
+def test_bf16_b3a_b3c_redesigned(dev, rng, K, B, N):
+    """The bf16 forms of B3a and B3c, kernels of their own (B3a: D
+    scattered into a shared tile, wgmma; B3c: a warp a 16-row step,
+    mma.sync m16n8k16): K = 128 and 192 (pool groups spanning two and
+    three 64-row tiles); row counts the persistent blocks and warps share
+    unevenly (397 tiles; 195); N = 12 and 24 (x rows not in whole 16-row
+    steps of one cloud: B3c reads 8-row chunks, or rows one by one); K = 8
+    (eight groups a tile). B3a's argmax layout skewed as the main path's
+    (47% of a group's channels on its first row, 37% dead)."""
+    from facl_tpu_torch.ops import sa_pair as SP
+    (w1, b1, _, _), _, (w3, _, _, _) = _layers(rng, dev)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    vec = lambda n, s=1.0: t(s * rng.normal(size=(n,)))
+    R, P = B * N, B * N // K
+    u = rng.random(size=(P, 256))
+    idx = np.where(u < 0.47, 0, np.where(u < 0.84, K,
+                                         rng.integers(0, K, size=(P, 256))))
+    as1 = (vec(R * 64).view(R, 64).to(BF16), vec(64, 0.3), vec(64),
+           vec(P * 256).view(P, 256).to(BF16),
+           torch.from_numpy(idx.astype(np.int32)).to(dev), vec(256), w3, K)
+    k = SP.sa_bwd_sweep1_bf16(*as1)
+    assert all(torch.equal(a, b)
+               for a, b in zip(k, SP.sa_bwd_sweep1_bf16(*as1)))
+    tw = SP.sa_bwd_sweep1_bf16_plain(*as1)
+    _acc(k[0], tw[0])
+    _acc(k[1], tw[1])
+    assert k[2].dtype == BF16
+    _rows(k[2], tw[2])
+    as3 = (t(rng.normal(size=(B, 4, N))).to(BF16), w1, b1, vec(64, 2),
+           vec(64), vec(R * 64, 0.1).view(R, 64).to(BF16),
+           t(0.01 * rng.normal(size=(64, 64))), vec(64, 0.1))
+    k = SP.sa_bwd_sweep3_bf16(*as3)
+    assert all(torch.equal(a, b)
+               for a, b in zip(k, SP.sa_bwd_sweep3_bf16(*as3)))
+    tw = SP.sa_bwd_sweep3_bf16_plain(*as3)
+    _acc(k[0], tw[0])
+    _acc(k[1], tw[1])
 
 
 def test_bf16_b2b_b3b_misaligned(dev, rng):

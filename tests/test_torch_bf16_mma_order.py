@@ -1,5 +1,6 @@
-"""The order of sums of the bf16 forms of B2b (sa_fwd_gram_pool_bf16) and
-B3b (sa_bwd_sweep2_bf16), modelled in torch on the CPU, held against their
+"""The order of sums of the bf16 forms of B2b (sa_fwd_gram_pool_bf16), B3a
+(sa_bwd_sweep1_bf16), B3b (sa_bwd_sweep2_bf16) and B3c
+(sa_bwd_sweep3_bf16), modelled in torch on the CPU, held against their
 bf16 twins and against the JAX kernels they port; and chip_smoke.py's
 comparison of a bf16 sweep's outputs with another tree's (``--parent``).
 
@@ -8,15 +9,22 @@ mma.sync m16n8k16 (exact bf16 products summed into f32 accumulators one
 k16 step at a time), sum each 64-row tile's contraction over rows (Gram,
 A2, G1) in f32 and carry the tiles in float64, and sum the column sums
 (colsum(h2), u2, ch1) in f32 over 16 rows before carrying them in
-float64. ``gram_pool_model`` and ``sweep2_model`` below compute the same
-functions in that order (a k16 step summed in float64 and rounded to f32,
-then added to the f32 accumulator; the rest as the twins cast it), so
-the bars the card is held to can be checked against that order here:
+float64. B3a takes q3 as the TPU kernel's dense product D bf16(W3)^T
+(D = bf16(dy3 bf16(gi3)), one value per (group, channel) at its argmax
+row) in k16 steps into f32, and carries A3 in f32 entry by entry; B3c
+sums [A1 | u1] = dy1^T [x | 1] one 16-row k16 step at a time into f32.
+``gram_pool_model``, ``sweep1_model``, ``sweep2_model`` and
+``sweep3_model`` below compute the same functions in those orders (a k16
+step summed in float64 and rounded to f32, then added to the f32
+accumulator; the rest as the twins cast it), so the bars the card is
+held to can be checked against that order here:
 
   * at bench.py's magnitudes (the model's SA weights at full width,
     randn clouds grouped at S = K = 64 and at the fine variant's S = 32,
-    K = 128) and on rows with bf16 near-ties (padded rows repeated and
-    nudged by one bf16 ulp), the model sits within chip_smoke.py phase 2's
+    K = 128), on rows with bf16 near-ties (padded rows repeated and
+    nudged by one bf16 ulp) and, for B3a, on an argmax layout skewed as
+    the main path's (most of a group's channels on its first row, a
+    third dead), the model sits within chip_smoke.py phase 2's
     bf16 bars of the bf16 twins: bf16 rows within one bf16 ulp but at most
     1e-3 of the entries, pool indices equal but at bf16 near-ties, f32
     accumulators within 1e-3 of their max-abs (chip_smoke's own helpers);
@@ -108,6 +116,41 @@ def sweep2_model(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3,
             _colsum16(h1), mq.to(BF16))
 
 
+def sweep1_model(p2, mul2, shift2, dpooled, idx, gi3, w3, pool: int):
+    """B3a-bf16 in the kernel's order of sums (its twin's outputs): q3 the
+    dense product in k16 steps; A3 carried in f32, one (exact) product of
+    each live entry added group by group in row order (one block walking
+    every tile: the longest f32 chain the kernel can carry); u3 summed in
+    f32 per 64-row tile (8 pool rows for pool < 8), carried in float64."""
+    h2 = SP._h2_bf16(p2, mul2, shift2)
+    dy3 = SP._dy3(dpooled.float(), idx, pool)
+    q3 = SP._rb(_k16(SP._rb(dy3 * SP._rb(gi3)), SP._rb(w3).T))
+    A3 = torch.zeros(dy3.shape[1], h2.shape[1])
+    for r0 in range(0, h2.shape[0], pool):
+        A3 = A3 + dy3[r0:r0 + pool].T @ h2[r0:r0 + pool]
+    tile = 64 if pool >= 8 else 8 * pool
+    u3 = dy3.reshape(-1, tile, dy3.shape[1]).sum(1).double().sum(0)
+    return A3, u3.float(), q3.to(BF16)
+
+
+def sweep3_model(x3, w1, b1, mul1, shift1, mq, M2, rc2):
+    """B3c-bf16 in the kernel's order of sums (its twin's outputs): h1
+    bf16(M2) in k16 steps; [A1 | u1] one 16-row k16 step at a time into
+    f32 (one warp walking every row: the longest f32 chain), then
+    float64."""
+    h1 = SP._h1_bf16(x3, w1, b1, mul1, shift1)
+    dy1 = SP._rb(torch.where(h1 > 0, mq.float() - (SP._rb(_k16(
+        h1, SP._rb(M2))) + rc2), 0.0))
+    xr = SP._rows(x3).float()
+    xr = torch.cat([xr, torch.ones(xr.shape[0], 1)], 1)
+    acc = torch.zeros(dy1.shape[1], xr.shape[1])
+    for r0 in range(0, dy1.shape[0], 16):
+        acc = acc + (dy1[r0:r0 + 16].double().T
+                     @ xr[r0:r0 + 16].double()).float()
+    C0 = x3.shape[1]
+    return acc[:, :C0], acc[:, C0]
+
+
 # -- inputs ---------------------------------------------------------------
 
 def _bench_inputs(S, K, clouds=4):
@@ -150,12 +193,16 @@ def _chain(xb, layers, dpb, K):
                       torch.full_like(imx, K))
     gi2 = lp2.scale * torch.rsqrt(v2 + EPS)
     gi3 = lp3.scale * torch.rsqrt(v3 + EPS)
-    A3, u3, q3 = SP.sa_bwd_sweep1_bf16_plain(p2, mul2, shift2, dpb, idx, gi3,
-                                             lp3.kernel, K)
+    as1 = (p2, mul2, shift2, dpb, idx, gi3, lp3.kernel, K)
+    A3, u3, q3 = SP.sa_bwd_sweep1_bf16_plain(*as1)
     t3 = _layer_terms(A3, u3, lp3, m3, v3, G2, ch2, R, EPS)
     as2 = (xb, lp1.kernel, lp1.bias, mul1, shift1, p2, mul2, shift2, q3,
            t3["M"].contiguous(), t3["rc"], gi2, lp2.kernel)
-    return agp, as2
+    A2, G1, u2, ch1, mq = SP.sa_bwd_sweep2_bf16_plain(*as2)
+    t2 = _layer_terms(A2, u2, lp2, m2, v2, G1, ch1, R, EPS)
+    as3 = (xb, lp1.kernel, lp1.bias, mul1, shift1, mq, t2["M"].contiguous(),
+           t2["rc"])
+    return agp, as1, as2, as3
 
 
 def _near_tie_inputs(rng, K=64, groups=64):
@@ -198,11 +245,53 @@ def _sweep2_within_bars(as2):
     return cs.bf16_flips(model[4], twin[4], "mq")[0]
 
 
+def _sweep1_within_bars(as1):
+    model, twin = sweep1_model(*as1), SP.sa_bwd_sweep1_bf16_plain(*as1)
+    cs.acc_rel(model[0], twin[0], "A3")
+    cs.acc_rel(model[1], twin[1], "u3")
+    return cs.bf16_flips(model[2], twin[2], "q3")[0]
+
+
+def _sweep3_within_bars(as3):
+    model, twin = sweep3_model(*as3), SP.sa_bwd_sweep3_bf16_plain(*as3)
+    cs.acc_rel(model[0], twin[0], "A1")
+    cs.acc_rel(model[1], twin[1], "u1")
+
+
 @pytest.mark.parametrize("S,K", [(64, 64), (32, 128)])
 def test_model_within_phase2_bars_at_bench_magnitudes(S, K):
-    agp, as2 = _bench_inputs(S, K)
+    agp, _, as2, _ = _bench_inputs(S, K)
     _gram_pool_within_bars(agp)
     _sweep2_within_bars(as2)
+
+
+@pytest.mark.parametrize("S,K", [(64, 64), (32, 128)])
+def test_sweep13_model_within_phase2_bars_at_bench_magnitudes(S, K):
+    _, as1, _, as3 = _bench_inputs(S, K)
+    _sweep1_within_bars(as1)
+    _sweep3_within_bars(as3)
+
+
+@pytest.mark.parametrize("K", [64, 128])
+def test_sweep1_model_within_phase2_bars_on_skewed_argmax(rng, K):
+    """The main path's argmax layout (chip_ablate.py's): 47% of a group's
+    channels on its first row, 37% dead, the rest spread; at K = 128 a
+    group spans two of the kernel's 64-row tiles. D's first row then
+    holds ~120 values a group: its q3 row sums them all."""
+    P, C2, C3 = 64, 64, 256
+    R = P * K
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    u = rng.random(size=(P, C3))
+    idx = np.where(u < 0.47, 0, np.where(u < 0.84, K,
+                                         rng.integers(0, K, size=(P, C3))))
+    assert (idx == 0).mean() > 0.4 and (idx == K).mean() > 0.3
+    as1 = (t(rng.normal(size=(R, C2))).to(BF16),
+           t(0.3 * rng.normal(size=C2)), t(rng.normal(size=C2)),
+           t(rng.normal(size=(P, C3))).to(BF16),
+           torch.from_numpy(idx.astype(np.int32)),
+           t(1.0 + 0.3 * rng.normal(size=C3)),
+           t(0.125 * rng.normal(size=(C2, C3))), K)
+    _sweep1_within_bars(as1)
 
 
 def test_model_within_phase2_bars_on_bf16_near_ties(rng):
@@ -286,6 +375,58 @@ def test_model_matches_jax_sweeps(rng, monkeypatch, negative_scale):
             (ch1, sums[2 * C2:2 * C2 + C1] + sums[2 * C2 + C1:], "ch1")):
         _acc(a, b_, name)
     _bf16_rows(mq, _unpair(r[2], C1), "mq")
+
+
+@pytest.mark.parametrize("negative_scale", [False, True])
+def test_sweep13_model_matches_jax_sweeps(rng, monkeypatch, negative_scale):
+    """tests/test_torch_bf16_sa.py's shapes and tolerances: B3a's and
+    B3c's model fed the JAX side's own inputs."""
+    x, layers = _setup(rng, negative_scale)
+    store = []
+    monkeypatch.setattr(jsp, "pl", _Recorder(store))
+    Bt = x.shape[0]
+    xf = jnp.asarray(x).astype(BF).reshape(Bt, C0, S_TINY * K_TINY)
+    pooled, stats, p2p, gram2, idxp, gramx = jsp.sa_forward_pair(
+        xf, layers, K_TINY, EPS, BF, True, True)
+    C1, C2, C3 = WIDTHS
+    dp = jnp.asarray(rng.normal(size=(Bt * S_TINY, C3)).astype(
+        np.float32)).astype(BF)
+    jsp.sa_backward_pair(xf, p2p, gram2, idxp, gramx, layers, stats, dp, EPS,
+                         BF, True, True)
+    n = Bt * S_TINY * K_TINY
+    lp1, lp2, lp3 = layers
+    (m1, v1), (m2, v2), (m3, v3) = stats
+    mul1, shift1 = jax_fold_affine(lp1, m1, v1, EPS)
+    mul2, shift2 = jax_fold_affine(lp2, m2, v2, EPS)
+    gi3 = lp3.scale * jax.lax.rsqrt(v3 + EPS)
+    (w1, b1, _, _), _, (w3, _, _, _) = (tuple(_t(a) for a in lp)
+                                        for lp in layers)
+    x3 = torch.from_numpy(x).reshape(Bt, C0, S_TINY * K_TINY).to(BF16)
+    jp2 = _unpair(store[0][0], C2).to(BF16)
+
+    A3, u3, q3 = sweep1_model(jp2, _t(mul2), _t(shift2), _t(dp).to(BF16),
+                              _unpair(idxp, C3).to(torch.int32), _t(gi3),
+                              w3, K_TINY)
+    r = store[2]
+    jA3, ju3 = _fold2(r[0], C3, C2), _lanes(r[1], C3)
+    _acc(A3, jA3, "A3")
+    _acc(u3, ju3, "u3")
+    _bf16_rows(q3, _unpair(r[2], C2), "q3")
+
+    r = store[3]
+    sums = _t(r[1])[0]
+    jA2, jG1 = _fold2(r[0][:2 * C2], C2, C1), _fold2(r[0][2 * C2:], C1, C1)
+    t2 = jax_layer_terms(jnp.asarray(jA2.numpy()),
+                         jnp.asarray((sums[:C2] + sums[C2:2 * C2]).numpy()),
+                         lp2, m2, v2, jnp.asarray(jG1.numpy()),
+                         jnp.asarray((sums[2 * C2:2 * C2 + C1]
+                                      + sums[2 * C2 + C1:]).numpy()), n, EPS)
+    A1, u1 = sweep3_model(x3, w1, b1, _t(mul1), _t(shift1),
+                          _unpair(r[2], C1).to(BF16), _t(t2["M"]),
+                          _t(t2["rc"]))
+    r = _t(store[4])
+    _acc(A1, r[:C1, :C0] + r[C1:, C0:2 * C0], "A1")
+    _acc(u1, r[:C1, 2 * C0] + r[C1:, 2 * C0], "u1")
 
 
 # -- chip_smoke.py --parent: a bf16 sweep against the parent's ------------
