@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
 """Where the redesigned kernels B1 (select_gather), B2a
 (sa_fwd_layer12), B2b (sa_fwd_gram_pool), B3a (sa_bwd_sweep1), B3b
-(sa_bwd_sweep2) and B3c (sa_bwd_sweep3), and the bf16 forms of B2b, B3a,
-B3b and B3c (sa_fwd_gram_pool_bf16, sa_bwd_sweep1_bf16,
-sa_bwd_sweep2_bf16, sa_bwd_sweep3_bf16), spend their time on the card.
+(sa_bwd_sweep2) and B3c (sa_bwd_sweep3), and the bf16 forms of B2a, B2b,
+B3a, B3b and B3c (sa_fwd_layer12_bf16, sa_fwd_gram_pool_bf16,
+sa_bwd_sweep1_bf16, sa_bwd_sweep2_bf16, sa_bwd_sweep3_bf16), spend their
+time on the card.
 
     python3 chip_ablate.py                  # one CUDA device, nvcc
     python3 chip_ablate.py sweep1 sweep3    # those kernels' variants only
                                             # (select, layer12, gram_pool,
                                             # sweep1, sweep2, sweep3,
-                                            # gram_pool_bf16, sweep1_bf16,
-                                            # sweep2_bf16, sweep3_bf16)
+                                            # layer12_bf16, gram_pool_bf16,
+                                            # sweep1_bf16, sweep2_bf16,
+                                            # sweep3_bf16)
+    python3 chip_ablate.py --parent DIR layer12_bf16 layer12_bf16_parent
+                                            # + the same parts of the former
+                                            # bf16 B2a in DIR's sa_pair.cu
+                                            # (a git archive of a commit
+                                            # that has it), in turns
     python3 chip_ablate.py precision        # B2a's arithmetic variants:
                                             # precision against float64
     python3 chip_ablate.py rounding         # the card's bf16 rounding rate,
@@ -25,8 +32,9 @@ every variant is timed by
 chip_smoke.device_ms on the main path's shapes (640 clouds x 4,096 rows,
 random data; B3a's argmax rows skewed as chip_smoke.py reads them on
 the main path: 47% of a group's channels on its first row, 37% dead, the
-rest spread), twice, in turns. B2a (sa_fwd_layer12) is cut the same way
-in sa_pair.cu (its product, its h1 pass, its p2 store), and B1
+rest spread), twice, in turns. B2a (sa_fwd_layer12) and its bf16 form
+are cut the same way in sa_pair.cu (the product, the h1 pass, the p2
+store; the bf16 form also run with 12 or 8 warps a block), and B1
 (select_gather, with idx) in select.cu (the selection, the gather, the
 idx store), timed on chip_smoke.py's body-like slab clouds and on randn
 clouds (640 x 512 points, S = K = 64). A
@@ -49,11 +57,10 @@ import sys
 import torch
 
 CSRC = os.path.join("facl_tpu_torch", "ops", "csrc")
-NOPOOL = ("      pool_tile<LP, BF>(c, n0, b3s, tile, upt, run, mx, mn, imx, "
-          "imn);",
+NOPOOL = ("      pool_tile<LP>(c, n0, b3s, tile, upt, run, mx, mn, imx, imn);",
           "      { float z = 0.f; for (int mi = 0; mi < 4; ++mi) for (int nj "
           "= 0; nj < 2; ++nj) for (int q = 0; q < 4; ++q) z += c[mi][nj][q]; "
-          "if (z == 1.2345f) mx[threadIdx.x] = static_cast<T>(z); }")
+          "if (z == 1.2345f) mx[threadIdx.x] = z; }")
 S1_NOA3 = ("      for (int gi = 0; gi < gpt; ++gi) {\n        const int e = gi",
            "      for (int gi = 0; gi < 0; ++gi) {\n        const int e = gi")
 S1_NOQ3 = [("    for (int k = warp; k < ntask; k += NWARP) {",
@@ -69,11 +76,11 @@ S3_NOA1 = ("      for (int mt = 0; mt < 2; ++mt) {\n        float d[4];",
            "      if (c[0][0] == 1.5f && c[3][3] == 0.5f)\n        acc[0][0] += "
            "c[1][1] + c[2][2];\n      for (int mt = 0; mt < 0; ++mt) {\n"
            "        float d[4];")
-S3_NOH1 = ("    h1_rows<BF>(X, C0, W1s, v, hh, hl, m1, gt, S3_GT);\n", "")
-L12_MMA = ("            mma6(d, a, frag_b3_paired(Wp, b_stride(CW), 8 * nj, "
+S3_NOH1 = ("    h1_rows(X, C0, W1s, v, hh, hl, m1, gt, S3_GT);\n", "")
+L12_MMA = ("          mma6(d, a, frag_b3_paired(Wp, b_stride(CW), 8 * nj, "
            "kb, lane));")
-L12_NOPROD = (L12_MMA, "            d[0] = __uint_as_float(a.v[0][nj & 3]);")
-L12_NOH1 = ("        h1_pair<BF>(xa, xb, C0, W1s, v, col, ha, hb);",
+L12_NOPROD = (L12_MMA, "          d[0] = __uint_as_float(a.v[0][nj & 3]);")
+L12_NOH1 = ("        h1_pair(xa, xb, C0, W1s, v, col, ha, hb);",
             "        ha = make_float2(xa[0], xa[0] + col);\n"
             "        hb = make_float2(xb[0], xb[0] + col);")
 # B2a's product in 3xTF32 (its two leading pieces), as the sweeps B2b-B3c
@@ -83,20 +90,49 @@ L12_3X = ("mma3({acc}, FragA{{{{Split{{a.v[0][0], a.v[1][0]}}, "
           "Split{{a.v[0][1], a.v[1][1]}}, Split{{a.v[0][2], a.v[1][2]}}, "
           "Split{{a.v[0][3], a.v[1][3]}}}}}}, frag_b_paired(SplitBuf{{Wp[0], "
           "Wp[1]}}, b_stride(CW), 8 * nj, kb, lane));")
-L12_STEP = ("            float d[4];\n            zero4(d);\n" + L12_MMA + "\n"
-            "#pragma unroll\n            for (int r = 0; r < 4; ++r) "
+L12_STEP = ("          float d[4];\n          zero4(d);\n" + L12_MMA + "\n"
+            "#pragma unroll\n          for (int r = 0; r < 4; ++r) "
             "c[nj][r] = __fadd_rn(c[nj][r], d[r]);")
 #: --precision: B2a's arithmetic variants (p2 against float64, the layer-2
 #: ReLU decisions it moves, the pair3 SA chain against float64).
 PRECISION = {
     "layer12 (6xTF32)": [],
     "layer12 in 3xTF32, rounded per k step": [
-        (L12_MMA, "            " + L12_3X.format(acc="d"))],
+        (L12_MMA, "          " + L12_3X.format(acc="d"))],
     "layer12 in 3xTF32, accumulated in the tensor cores": [
-        (L12_STEP, "            " + L12_3X.format(acc="c[nj]"))],
+        (L12_STEP, "          " + L12_3X.format(acc="c[nj]"))],
 }
 L12_NOSTORE = ("        st2r(out + 8 * nj, u);\n"
                "        st2r(out + 8 * CW + 8 * nj, w);\n", "")
+# The bf16 B2a (fwd_layer12_bf16_kernel): its product cut (h1 and W2's
+# fragments still made), or its h1 chain, or its p2 store.
+L12B_NOPROD = ("#pragma unroll\n        for (int s = 0; s < 2; ++s) {\n"
+               "          mma_bf16(c[s][2 * np], a[s], b[0], b[1]);\n"
+               "          mma_bf16(c[s][2 * np + 1], a[s], b[2], b[3]);\n"
+               "        }",
+               "#pragma unroll\n        for (int s = 0; s < 2; ++s)\n"
+               "          c[s][2 * np][0] += "
+               "__uint_as_float(a[s][np] ^ b[np]);")
+L12B_NOH1 = ("        h1_bf16_rows<4, XC>(xr, C0, prm + (8 * kk + 4 * jj + t) "
+             "* L12B_PP,\n                            h);",
+             "        for (int r = 0; r < 4; ++r)\n"
+             "          h[r] = __float_as_uint(xr[r][0]) + jj + kk;")
+L12B_NOSTORE = ("      *reinterpret_cast<uint4*>(out + r * CW + cl) =\n"
+                "          *reinterpret_cast<const uint4*>(stg + r * LDB + "
+                "cl);\n", "")
+# The former form of B2a-bf16, fwd_layer12_kernel<true> of the f32 design (one
+# TF32 pass a k8 step), in a parent tree's sa_pair.cu (--parent DIR): its
+# product cut (h1 and W2 still read), or its h1 chain, or its p2 store.
+L12P_NOPROD = ("            mma_tf32(d, a0, a1, a2, a3, "
+               "__float_as_uint(w.x),\n"
+               "                     __float_as_uint(w.y));",
+               "            d[0] = __uint_as_float(a0 ^ a1 ^ a2 ^ a3) + w.x + "
+               "w.y;")
+L12P_NOH1 = ("        h1_pair<BF>(xa, xb, C0, W1s, v, col, ha, hb);",
+             "        ha = make_float2(xa[0], xa[0] + col);\n"
+             "        hb = make_float2(xb[0], xb[0] + col);")
+L12P_NOSTORE = ("        st2r(out + 8 * nj, u);\n"
+                "        st2r(out + 8 * CW + 8 * nj, w);\n", "")
 SEL_NOSELECT = ("      select_kth(w, K, __float_as_uint(radius_sq), hist, "
                 "lane, t, take,\n                 ties);",
                 "      t = 0u;\n      take = K;\n      ties = -1;")
@@ -276,7 +312,10 @@ S1B_A3MMA = [
 #: whose use of registers and spills is printed. variant -> (base, the
 #: kernel's function name).
 CHECKED = {"sweep1_bf16 with A3 on tensor cores": ("sweep1_bf16",
-                                                   "bwd_sweep1_bf16_kernel")}
+                                                   "bwd_sweep1_bf16_kernel"),
+           **{f"layer12_bf16 with {n} warps": (
+               "layer12_bf16", "fwd_layer12_bf16_kernelILi4E")
+              for n in (12, 8)}}
 #: variant -> (kernel, [(text, replacement)]) on that kernel's source.
 VARIANTS = {
     "layer12": ("l12", []),
@@ -287,6 +326,21 @@ VARIANTS = {
     "layer12 with its k loop rolled": ("l12", [
         ("#pragma unroll 2\n      for (int kb = 0; kb < 8; ++kb) {",
          "#pragma unroll 1\n      for (int kb = 0; kb < 8; ++kb) {")]),
+    "layer12_bf16": ("l12b", []),
+    "layer12_bf16 without the product": ("l12b", [L12B_NOPROD]),
+    "layer12_bf16 without h1": ("l12b", [L12B_NOH1]),
+    "layer12_bf16 without the p2 store": ("l12b", [L12B_NOSTORE]),
+    "layer12_bf16 loads and stores only": ("l12b", [L12B_NOPROD, L12B_NOH1]),
+    "layer12_bf16 with 12 warps": ("l12b", [
+        ("constexpr int L12B_NT = 512;", "constexpr int L12B_NT = 384;")]),
+    "layer12_bf16 with 8 warps": ("l12b", [
+        ("constexpr int L12B_NT = 512;", "constexpr int L12B_NT = 256;")]),
+    "layer12_bf16_parent": ("l12p", []),
+    "layer12_bf16_parent without the product": ("l12p", [L12P_NOPROD]),
+    "layer12_bf16_parent without h1": ("l12p", [L12P_NOH1]),
+    "layer12_bf16_parent without the p2 store": ("l12p", [L12P_NOSTORE]),
+    "layer12_bf16_parent loads and stores only": ("l12p", [L12P_NOPROD,
+                                                           L12P_NOH1]),
     "select": ("sel", []),
     "select without the selection": ("sel", [SEL_NOSELECT]),
     "select without the gather": ("sel", [SEL_NOGATHER]),
@@ -306,19 +360,19 @@ VARIANTS = {
     "sweep2": ("s2", []),
     "sweep2 without h2 M3": ("s2", [
         ("      for (int kb = 0; kb < 8; ++kb) {\n        const FragA a = "
-         "split_a_p<BF>(raw_a_rows(H2",
+         "split_a(raw_a_rows(H2",
          "      for (int kb = 0; kb < 0; ++kb) {\n        const FragA a = "
-         "split_a_p<BF>(raw_a_rows(H2")]),
+         "split_a(raw_a_rows(H2")]),
     "sweep2 without q2 and mq": ("s2", [
         ("    {   // q2 = dy2 (gi2 W2^T)", "    if (0) {   // q2")]),
     "sweep2 without A2 and G1": ("s2", [
         ("    {   // A2 = dy2^T h1", "    if (0) {   // A2")]),
     "sweep2 without h1": ("s2", [
-        ("    h1_rows<BF>(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);\n",
+        ("    h1_rows(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);\n",
          "")]),
     "sweep2 without the row passes": ("s2", [
-        ("    relu_rows<BF>(S, mul2, shift2, H2);\n"
-         "    h1_rows<BF>(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);\n",
+        ("    relu_rows(S, mul2, shift2, H2);\n"
+         "    h1_rows(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);\n",
          "")]),
     "gram_pool_bf16": ("gpb", []),
     "gram_pool_bf16 without the Gram": ("gpb", [GPB_NOGRAM]),
@@ -365,6 +419,8 @@ VARIANTS = {
 
 #: kernel -> (source file, launcher's library and name).
 KERNEL_SRC = {"l12": ("sa_pair", "facl_sa_fwd_layer12"),
+              "l12b": ("sa_pair", "facl_sa_fwd_layer12_bf16"),
+              "l12p": ("sa_pair", "facl_sa_fwd_layer12_bf16"),
               "gp": ("sa_pair", "facl_sa_fwd_gram_pool"),
               "gpb": ("sa_pair", "facl_sa_fwd_gram_pool_bf16"),
               "s2b": ("sa_pair", "facl_sa_bwd_sweep2_bf16"),
@@ -376,29 +432,33 @@ KERNEL_SRC = {"l12": ("sa_pair", "facl_sa_fwd_layer12"),
               "sel": ("select", "facl_select_gather")}
 
 
+#: Kernels whose variants are cut from the --parent tree's source.
+PARENT_KERNELS = ("l12p",)
+
+
 def variant_source(src: str, kernel: str, pairs) -> str:
     if kernel == "sel":
         lo, hi = 0, len(src)
     else:
-        lo, hi = {"l12": (src.index("fwd_layer12_kernel(const typename"),
-                          src.index("// B2 sweep B:")),
-                  "gp": (src.index("fwd_gram_pool_kernel(const typename"),
-                         src.index("// B3 sweep 1:")),
-                  "s1": (src.index("bwd_sweep1_kernel(const typename"),
-                         src.index("// B3 sweep 2 (slim)")),
-                  "s2": (src.index("bwd_sweep2_kernel(const typename"),
-                         src.index("// B3 sweep 3:")),
-                  "s3": (src.index("bwd_sweep3_kernel(const typename"),
-                         src.index("// The bf16 forms of B2b, B3a, B3b and B3c")),
-                  "gpb": (src.index("fwd_gram_pool_bf16_kernel(const "
-                                    "__nv_bfloat16"),
-                          src.index("// B3 sweep 2 (slim) at bf16")),
-                  "s2b": (src.index("// B3 sweep 2 (slim) at bf16"),
-                          src.index("// B3 sweep 1 at bf16")),
-                  "s1b": (src.index("// B3 sweep 1 at bf16"),
-                          src.index("// B3 sweep 3 at bf16")),
-                  "s3b": (src.index("// B3 sweep 3 at bf16"),
-                          src.index("// Every launcher:"))}[kernel]
+        marks = {"l12": ("fwd_layer12_kernel(const float*", "// B2 sweep B:"),
+                 "l12b": ("// B2 sweep A at bf16", "// B2 sweep B at bf16"),
+                 "l12p": ("fwd_layer12_kernel(const typename",
+                          "// B2 sweep B:"),
+                 "gp": ("fwd_gram_pool_kernel(const float*",
+                        "// B3 sweep 1:"),
+                 "s1": ("bwd_sweep1_kernel(const float*",
+                        "// B3 sweep 2 (slim)"),
+                 "s2": ("bwd_sweep2_kernel(const float*",
+                        "// B3 sweep 3:"),
+                 "s3": ("bwd_sweep3_kernel(const float*",
+                        "// The bf16 forms of B2a, B2b, B3a, B3b and B3c"),
+                 "gpb": ("fwd_gram_pool_bf16_kernel(const __nv_bfloat16",
+                         "// B3 sweep 2 (slim) at bf16"),
+                 "s2b": ("// B3 sweep 2 (slim) at bf16",
+                         "// B3 sweep 1 at bf16"),
+                 "s1b": ("// B3 sweep 1 at bf16", "// B3 sweep 3 at bf16"),
+                 "s3b": ("// B3 sweep 3 at bf16", "// Every launcher:")}
+        lo, hi = (src.index(m) for m in marks[kernel])
     part = src[lo:hi]
     for old, new in pairs:
         if old not in part:
@@ -441,8 +501,8 @@ CLOCKED = {
 
 def clocked_source(src: str, kernel: str) -> str:
     loop, last, out, marks = CLOCKED[kernel]
-    lo = src.index(loop, src.index({"s1": "bwd_sweep1_kernel(const typename",
-                                    "s3": "bwd_sweep3_kernel(const typename"}
+    lo = src.index(loop, src.index({"s1": "bwd_sweep1_kernel(const float*",
+                                    "s3": "bwd_sweep3_kernel(const float*"}
                                    [kernel]))
     hi = src.index(last, lo)
     lines, k = [], 0
@@ -638,7 +698,14 @@ def main() -> None:
     out_dir = _build.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    only = tuple(sys.argv[1:])           # kernel names: every variant of
+    args = sys.argv[1:]
+    parent = None                      # --parent DIR: a parent tree's sources
+    if "--parent" in args:
+        at = args.index("--parent")
+        parent = args[at + 1]
+        del args[at:at + 2]
+        src["parent"] = open(os.path.join(parent, CSRC, "sa_pair.cu")).read()
+    only = tuple(args)                   # kernel names: every variant of
     if only == ("rounding",):
         rounding(out_dir)
         print(json.dumps({"gpu": cs.gpu_name_power()}))
@@ -647,10 +714,12 @@ def main() -> None:
         sources = {name: variant_source(src["sa_pair"], "l12", pairs)
                    for name, pairs in PRECISION.items()}
     else:
-        sources = {name: variant_source(src[KERNEL_SRC[kernel][0]], kernel,
-                                        pairs)     # those only
+        sources = {name: variant_source(
+            src["parent" if kernel in PARENT_KERNELS else
+                KERNEL_SRC[kernel][0]], kernel, pairs)     # those only
                    for name, (kernel, pairs) in VARIANTS.items()
-                   if not only or name.split()[0] in only}
+                   if (not only or name.split()[0] in only) and
+                   (parent or kernel not in PARENT_KERNELS)}
     for kernel in ("s1", "s3"):
         if not only or {"s1": "sweep1", "s3": "sweep3"}[kernel] in only:
             sources[f"{kernel} clocks"] = clocked_source(src["sa_pair"],
@@ -661,9 +730,11 @@ def main() -> None:
     for i, (name, text) in enumerate(sources.items()):
         cu = out_dir / f"v{i}.cu"
         cu.write_text(text)
+        inc = os.path.join(parent, CSRC) if name in VARIANTS and \
+            VARIANTS[name][0] in PARENT_KERNELS else CSRC  # its headers
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *(_build.NVCC_FLAGS if name in reported else
-                               flags), "-I", os.path.abspath(CSRC), "-o",
+                               flags), "-I", os.path.abspath(inc), "-o",
              str(out_dir / f"v{i}.so"), str(cu)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), out_dir / f"v{i}.so")
     _build.build_all()
@@ -712,6 +783,9 @@ def main() -> None:
     rnd = torch.randn(Bc, 512, 4, generator=gs).to(dev)
     calls = {"l12": (SP.sa_fwd_layer12, (x3, w1, b1, mul1, shift1, w2, b2),
                      "facl_sa_fwd_layer12"),
+             "l12b": (SP.sa_fwd_layer12_bf16, (x3.to(bf), w1, b1, mul1,
+                                               shift1, w2, b2),
+                      "facl_sa_fwd_layer12_bf16"),
              "sel": (SEL.select_gather, (slab, 64, K, 0.06, True),
                      "facl_select_gather"),
              "sel randn": (SEL.select_gather, (rnd, 64, K, 0.06, True),
@@ -741,6 +815,7 @@ def main() -> None:
                                              q3.to(bf), r(64, 64, sc=0.1),
                                              rc3),
                      "facl_sa_bwd_sweep3_bf16")}
+    calls["l12p"] = calls["l12b"]         # the parent's form, same call
     for fn, args, _ in calls.values():
         fn(*args)                         # resolves this tree's launchers
 

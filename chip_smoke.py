@@ -15,9 +15,9 @@ every hand-written kernel against its plain PyTorch twin.
                                         #   phase 2's bf16 bars of the
                                         #   parent's; and the pair3
                                         #   bf16 step with the parent's
-                                        #   bf16 B3a and B3c, in turns
-                                        #   (with --profile, three
-                                        #   profiled steps of each turn)
+                                        #   bf16 B2a, in turns (with
+                                        #   --profile, three profiled
+                                        #   steps of each turn)
 
 Phases (any failure exits nonzero, before the final line):
   1. build   every kernel from facl_tpu_torch/ops/csrc (one nvcc per
@@ -93,10 +93,11 @@ Phases (any failure exits nonzero, before the final line):
              kernel of each path launched exactly its count per step
              (counters zeroed just before each path, read just after).
              --profile adds one profiled step to each impl's path: kernel
-             time over that step's own span gives the device's idle share;
-             with --parent the pair3 bf16 step runs again, 20 steps in
-             turns with the parent's bf16 B3a and B3c and with this
-             tree's (parent_step_ab; --profile: one profiled step each);
+             time (kernel_ms: user annotations left out) over that step's
+             own span gives the device's idle share; with --parent the
+             pair3 bf16 step runs again, 20 steps in turns with the
+             parent's bf16 B2a and with this tree's (parent_step_ab;
+             --profile: three profiled steps each);
   5. input   d(loss)/d(points) through each grouping route and the
              pallas SA stage with input_grad (B9's dx, B5b) at B=8: card
              kernels vs card twins vs CPU (phase_input_grad), with exact
@@ -2359,7 +2360,7 @@ def phase_main(dev, profile: bool, card: str):
 
 #: --parent: the kernels whose parent launchers the pair3 bf16 step runs
 #: in parent_step_ab (the ones this tree redesigned).
-PARENT_STEP = ("sa_bwd_sweep1_bf16", "sa_bwd_sweep3_bf16")
+PARENT_STEP = ("sa_fwd_layer12_bf16",)
 #: --parent --profile: profiled steps of each of parent_step_ab's runs.
 PARENT_PROF_STEPS = 3
 
@@ -2440,6 +2441,23 @@ def all_kernels():
                                             for k in m.KERNELS)
 
 
+def kernel_ms(events) -> dict:
+    """Device ms by kernel name of a profiler's events: every event that
+    ran on the card but user annotations. An annotation's device range
+    (``record_function``'s, e.g. ``Optimizer.step#Adam.step``) spans the
+    kernels launched inside it and the idle gaps between them, so it would
+    count their time twice and the gaps as busy. The one definition of
+    kernel time: the profiled steps' busy sums and parent_step_ab's
+    split."""
+    kern = {}
+    for x in events:
+        if x.device_type == torch.autograd.DeviceType.CUDA and \
+                not x.is_user_annotation:
+            kern[x.name] = kern.get(x.name, 0.0) + \
+                x.self_device_time_total / 1e3
+    return kern
+
+
 def _run_path(dev, impl, steps, batches, g, kernels, card, profile, want,
               label=None, select_impl="auto", gather_impl="auto",
               dtype="float32", prof_steps=1, prof_out=None):
@@ -2498,11 +2516,7 @@ def _run_path(dev, impl, steps, batches, g, kernels, card, profile, want,
             e.record()
             torch.cuda.synchronize()
         span = s.elapsed_time(e)
-        kern = {}                     # kernel name -> device ms this step
-        for x in p.events():
-            if x.device_type == torch.autograd.DeviceType.CUDA:
-                kern[x.name] = kern.get(x.name, 0.0) + \
-                    x.self_device_time_total / 1e3
+        kern = kernel_ms(p.events())
         if prof_out is not None:
             prof_out.append(kern)
         busy = sum(kern.values())

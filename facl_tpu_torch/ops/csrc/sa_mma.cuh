@@ -1,7 +1,6 @@
 // Tensor-core tile machinery of the redesigned SA sweeps (sa_pair.cu:
 // fwd_layer12, fwd_gram_pool, bwd_sweep2, bwd_sweep3 and the bf16 forms of
-// fwd_gram_pool, bwd_sweep1, bwd_sweep2 and bwd_sweep3; the f32
-// bwd_sweep1 uses the TMA staging).
+// all five sweeps; the f32 bwd_sweep1 uses the TMA staging).
 // Products run as mma.sync m16n8k8 TF32 in the 3xTF32 split, which keeps
 // f32-level accuracy: each f32 operand a becomes hi = tf32(a) and lo =
 // tf32(a - hi), and a product sums lo.hi' + hi.lo' + hi.hi' in f32 (the
@@ -27,18 +26,14 @@
 // chains of sa_tile.cuh (relu_affine, and h1_rows below with h1_tile's
 // exact chain), bit for bit as in the forward.
 //
-// bf16 (the template flag BF of B2a): the sweeps' row tensors (x, p2,
-// q3, mq) are stored as __nv_bfloat16 and every product runs in ONE TF32
-// pass (the bf16 forms of B2b, B3a, B3b and B3c use the bf16 tensor-core
-// helpers at the end of this file instead). A
-// bf16 value is exact in TF32 (the same 8-bit exponent, more mantissa
-// bits), so a product of two bf16 values is exact and the tensor cores
-// sum it in f32, as the TPU kernels' bf16 dots with f32 accumulation do;
-// 3xTF32 exists for f32 operands only. Operands are rounded to bf16 (rb)
-// where the TPU kernels cast them, and results where they are cast or
-// stored (ops/sa_pair.py's bf16 twins list the cast points); the ReLU
-// masks are decided on bf16-rounded values. A "split" bf16 operand is
-// hi = the value, lo = 0.
+// bf16: the bf16 sweeps (their own kernels, sa_pair.cu) store the row
+// tensors (x, p2, q3, mq) as __nv_bfloat16 and run their products on the
+// bf16 tensor cores (the helpers at the end of this file). Operands are
+// rounded to bf16 (rb, pack_bf16) where the TPU kernels cast them, and
+// results where they are cast or stored (ops/sa_pair.py's bf16 twins
+// list the cast points); the ReLU masks are decided on bf16-rounded
+// values. Row, rb_if, relu_affine_p and h1_of carry the row type of
+// sa_2sweep.cu's templates.
 #pragma once
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -221,45 +216,9 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 a) {
   return __bfloat162float(a);
 }
 
-// Two and four consecutive values of a row, as f32 (8- and 16-byte
-// aligned for float, 4 and 8 for bf16), and two stored (bf16: rounded).
-__device__ __forceinline__ float2 ld2r(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 ld2r(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float4 ld4r(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 ld4r(const __nv_bfloat16* p) {
-  const float2 a = ld2r(p), b = ld2r(p + 2);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
+// Two consecutive values of an f32 row stored (8-byte aligned).
 __device__ __forceinline__ void st2r(float* p, float2 v) {
   *reinterpret_cast<float2*>(p) = v;
-}
-__device__ __forceinline__ void st2r(__nv_bfloat16* p, float2 v) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
-}
-
-// The split of an operand: 3xTF32's hi/lo, or (BF) the value and 0.
-template <bool BF>
-__device__ __forceinline__ Split split_p(float a) {
-  if constexpr (BF) return Split{__float_as_uint(a), 0u};
-  return split(a);
-}
-
-// c += a b: three TF32 passes, or (BF) one.
-template <bool BF>
-__device__ __forceinline__ void mma_p(float c[4], const FragA& a,
-                                      const FragB& b) {
-  if constexpr (BF) {
-    mma_tf32(c, a.v[0].hi, a.v[1].hi, a.v[2].hi, a.v[3].hi, b.v[0].hi,
-             b.v[1].hi);
-  } else {
-    mma3(c, a, b);
-  }
 }
 
 // relu(p * mul + shift), rounded to bf16 before the ReLU at BF (the TPU
@@ -293,12 +252,6 @@ __device__ __forceinline__ RawA raw_a_rows(const float* X, int m0, int kb,
 
 __device__ __forceinline__ FragA split_a(const RawA& r) {
   return FragA{{split(r.v[0]), split(r.v[1]), split(r.v[2]), split(r.v[3])}};
-}
-
-template <bool BF>
-__device__ __forceinline__ FragA split_a_p(const RawA& r) {
-  return FragA{{split_p<BF>(r.v[0]), split_p<BF>(r.v[1]),
-                split_p<BF>(r.v[2]), split_p<BF>(r.v[3])}};
 }
 
 // An operand split once, ahead of its products: hi and lo arrays of the
@@ -441,18 +394,9 @@ __device__ __forceinline__ void copy_block(float* dst, const float* src,
   for (int i = threadIdx.x; i < n; i += NTM) dst[i] = src[i];
 }
 
-// copy_block, each value rounded to bf16 at BF (a parameter the TPU
-// kernel casts to the compute dtype).
-template <bool BF>
-__device__ __forceinline__ void copy_block_p(float* dst, const float* src,
-                                             int n) {
-  for (int i = threadIdx.x; i < n; i += NTM) dst[i] = rb_if<BF>(src[i]);
-}
-
 // Block: (hi, lo) paired layouts <- the split of B[k][n] = src[k * sk +
 // n * sn] (times scale[k], rounded, where scale is given), k < 64,
-// n < ncols. BF: hi = bf16(B[k][n]), lo = 0 (no scale).
-template <bool BF = false>
+// n < ncols.
 __device__ __forceinline__ void load_b_split(float* hi, float* lo,
                                              const float* src, int ncols,
                                              int sk, int sn,
@@ -462,36 +406,28 @@ __device__ __forceinline__ void load_b_split(float* hi, float* lo,
     const int k = e / ncols, n = e % ncols;
     const int i = (4 * (k >> 3) + ((k & 7) >> 1)) * ld + 2 * n + (k & 1);
     const float b = src[k * sk + n * sn];
-    if constexpr (BF) {
-      hi[i] = rb(b);
-      lo[i] = 0.f;
-    } else {
-      const Split s = split(scale ? __fmul_rn(b, scale[k]) : b);
-      hi[i] = __uint_as_float(s.hi);
-      lo[i] = __uint_as_float(s.lo);
-    }
+    const Split s = split(scale ? __fmul_rn(b, scale[k]) : b);
+    hi[i] = __uint_as_float(s.hi);
+    lo[i] = __uint_as_float(s.lo);
   }
 }
 
 // -- CUDA-core row passes (bit-exact op chains) -----------------------
 // Sources are staged tiles as TMA lands them: (TR, CW) unpadded.
 
-template <bool BF = false>
 __device__ __forceinline__ float4 relu4(float4 v, const float* mul,
                                         const float* shift, int c) {
-  v.x = relu_affine_p<BF>(v.x, mul[c], shift[c]);
-  v.y = relu_affine_p<BF>(v.y, mul[c + 1], shift[c + 1]);
-  v.z = relu_affine_p<BF>(v.z, mul[c + 2], shift[c + 2]);
-  v.w = relu_affine_p<BF>(v.w, mul[c + 3], shift[c + 3]);
+  v.x = relu_affine(v.x, mul[c], shift[c]);
+  v.y = relu_affine(v.y, mul[c + 1], shift[c + 1]);
+  v.z = relu_affine(v.z, mul[c + 2], shift[c + 2]);
+  v.w = relu_affine(v.w, mul[c + 3], shift[c + 3]);
   return v;
 }
 
 // Four values of a row tile -> their split, at hi/lo + offset.
-template <bool BF = false>
 __device__ __forceinline__ void store_split4(float* hi, float* lo, int off,
                                              const float4& v) {
-  const Split a = split_p<BF>(v.x), b = split_p<BF>(v.y),
-              c = split_p<BF>(v.z), d = split_p<BF>(v.w);
+  const Split a = split(v.x), b = split(v.y), c = split(v.z), d = split(v.w);
   *reinterpret_cast<float4*>(hi + off) =
       make_float4(__uint_as_float(a.hi), __uint_as_float(b.hi),
                   __uint_as_float(c.hi), __uint_as_float(d.hi));
@@ -501,27 +437,24 @@ __device__ __forceinline__ void store_split4(float* hi, float* lo, int off,
 }
 
 // (TR, LDT) tile <- relu(p * mul + shift) of a staged tile of p.
-template <bool BF = false, typename R = float>
-__device__ __forceinline__ void relu_rows(const R* S, const float* mul,
+__device__ __forceinline__ void relu_rows(const float* S, const float* mul,
                                           const float* shift, float* T) {
   for (int e = threadIdx.x; e < TR * CW / 4; e += NTM) {
     const int r = e >> 4, c = (e & 15) * 4;
-    const float4 v = ld4r(S + r * CW + c);
-    *reinterpret_cast<float4*>(T + r * LDT + c) =
-        relu4<BF>(v, mul, shift, c);
+    const float4 v = *reinterpret_cast<const float4*>(S + r * CW + c);
+    *reinterpret_cast<float4*>(T + r * LDT + c) = relu4(v, mul, shift, c);
   }
 }
 
 // Split (TR, LDT) tiles hi/lo <- relu(p * mul + shift) of a staged tile.
-template <bool BF = false, typename R = float>
-__device__ __forceinline__ void relu_split_rows(const R* S,
+__device__ __forceinline__ void relu_split_rows(const float* S,
                                                 const float* mul,
                                                 const float* shift,
                                                 float* hi, float* lo) {
   for (int e = threadIdx.x; e < TR * CW / 4; e += NTM) {
     const int r = e >> 4, c = (e & 15) * 4;
-    const float4 v = ld4r(S + r * CW + c);
-    store_split4<BF>(hi, lo, r * LDT + c, relu4<BF>(v, mul, shift, c));
+    const float4 v = *reinterpret_cast<const float4*>(S + r * CW + c);
+    store_split4(hi, lo, r * LDT + c, relu4(v, mul, shift, c));
   }
 }
 
@@ -540,9 +473,8 @@ __device__ __forceinline__ float h1_of(float a, float b1, float mul,
 // and its ReLU mask (h1 > 0) as bytes, mask[r * CW + c]. vec1 = [b1 |
 // mul1 | shift1]. The op chain is h1_tile's (sa_tile.cuh), so the masks
 // are the forward's. Thread tid of nth (a multiple of 16) takes rows
-// tid / 16, + nth / 16, ... BF: x stored bf16, the bf16 chain (h1_of).
-template <bool BF = false, typename R = float>
-__device__ __forceinline__ void h1_rows(const R* xs, int C0,
+// tid / 16, + nth / 16, ...
+__device__ __forceinline__ void h1_rows(const float* xs, int C0,
                                         const float* W1s, const float* vec1,
                                         float* hi, float* lo, uint8_t* mask,
                                         int tid, int nth) {
@@ -559,18 +491,18 @@ __device__ __forceinline__ void h1_rows(const R* xs, int C0,
 #pragma unroll
     for (int k = 0; k < C0MAX - 1; ++k) {
       if (k >= C0) break;
-      const float xv = to_f(xs[k * TR + r]);
+      const float xv = xs[k * TR + r];
       a.x = __fadd_rn(a.x, __fmul_rn(xv, w[k].x));
       a.y = __fadd_rn(a.y, __fmul_rn(xv, w[k].y));
       a.z = __fadd_rn(a.z, __fmul_rn(xv, w[k].z));
       a.w = __fadd_rn(a.w, __fmul_rn(xv, w[k].w));
     }
     float4 h;
-    h.x = h1_of<BF>(a.x, b1.x, mul.x, sh.x);
-    h.y = h1_of<BF>(a.y, b1.y, mul.y, sh.y);
-    h.z = h1_of<BF>(a.z, b1.z, mul.z, sh.z);
-    h.w = h1_of<BF>(a.w, b1.w, mul.w, sh.w);
-    store_split4<BF>(hi, lo, r * LDT + c, h);
+    h.x = h1_of<false>(a.x, b1.x, mul.x, sh.x);
+    h.y = h1_of<false>(a.y, b1.y, mul.y, sh.y);
+    h.z = h1_of<false>(a.z, b1.z, mul.z, sh.z);
+    h.w = h1_of<false>(a.w, b1.w, mul.w, sh.w);
+    store_split4(hi, lo, r * LDT + c, h);
     *reinterpret_cast<uint32_t*>(mask + r * CW + c) =
         (h.x > 0.f ? 1u : 0u) | (h.y > 0.f ? 1u << 8 : 0u) |
         (h.z > 0.f ? 1u << 16 : 0u) | (h.w > 0.f ? 1u << 24 : 0u);
@@ -690,6 +622,17 @@ __device__ __forceinline__ void ldsm4t(uint32_t r[4], const void* p) {
       "[%4];"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+
+// Four 8 x 8 bf16 matrices stored: lane l gives the address of row l % 8
+// of matrix l / 8, register q holds row g, columns 2t, 2t + 1 of matrix q
+// (the C fragment's layout).
+__device__ __forceinline__ void stsm4(void* p, const uint32_t r[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(
+          smem_addr(p)),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
 }
 
 // The A fragment of rows m0.., k step k0.. of a (rows, LDB) tile X[m][k].

@@ -57,15 +57,13 @@
 // Each sweep has an f32 entry point (facl_sa_*) and a bf16 one
 // (facl_sa_*_bf16, compute_dtype bfloat16): x, p2, q3, mq and B2b's
 // max/min stored as bf16, results rounded to bf16 at the TPU kernels'
-// cast points (the bf16 twins in ops/sa_pair.py). B2a's bf16 form is
-// fwd_layer12_kernel<true>: the f32 form's tiling, staging and
-// fixed-order float64 partials, every product in one TF32 pass (exact
-// for bf16 operands; sa_mma.cuh). B2b, B3a, B3b and B3c have bf16
-// kernels of their own (fwd_gram_pool_bf16_kernel, bwd_sweep1_bf16_kernel,
-// bwd_sweep2_bf16_kernel, bwd_sweep3_bf16_kernel, below the f32 sweeps):
-// bf16 operands, products on bf16 tensor cores (mma.sync m16n8k16, B3a's
-// as wgmma). The f32 sweeps of those four are still templates on BF whose
-// bf16 branches nothing instantiates any more; only <false> is launched.
+// cast points (the bf16 twins in ops/sa_pair.py). The f32 kernels come
+// first (fwd_layer12_kernel, fwd_gram_pool_kernel<LP>, bwd_sweep1_kernel,
+// bwd_sweep2_kernel, bwd_sweep3_kernel); the five bf16 sweeps are kernels
+// of their own below them (fwd_layer12_bf16_kernel<XC>,
+// fwd_gram_pool_bf16_kernel<LP>, bwd_sweep2_bf16_kernel,
+// bwd_sweep1_bf16_kernel, bwd_sweep3_bf16_kernel): bf16 operands, products
+// on bf16 tensor cores (mma.sync m16n8k16, B3a's dense one as wgmma).
 //
 // The backward recomputes p1 -> h1 from x with the forward's exact op
 // chain (h1_tile in sa_tile.cuh, shared by every x-reading kernel, B6 in
@@ -82,10 +80,9 @@ namespace {
 // x rows r0.. of a tile, channel-major: xs[c * TR + i] = x[b, c, n] for
 // row r0 + i = b*N + n, by threads tid of nth (where a tile crosses a
 // cloud boundary, or x is not staged by TMA).
-template <typename R>
-__device__ __forceinline__ void load_x_rows(const R* __restrict__ x,
+__device__ __forceinline__ void load_x_rows(const float* __restrict__ x,
                                             int C0, int64_t N, int64_t r0,
-                                            R* xs, int tid, int nth) {
+                                            float* xs, int tid, int nth) {
   for (int e = tid; e < TR * C0; e += nth) {
     const int i = e % TR, c = e / TR;
     const int64_t r = r0 + i;
@@ -144,22 +141,12 @@ __device__ __forceinline__ void halve(float& lo, float& hi, int lane, int m) {
   lo = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, send, m);
 }
 
-//
-// bf16 (BF): x and p2 stored as bf16, W1, b1, W2 and b2 rounded to bf16;
-// h1 by the bf16 chain (h1_of), h1 W2 in one TF32 pass (exact bf16
-// products) per k step, p2 = bf16(acc) + b2 summed in f32 and stored
-// rounded to bf16, its sums taken before that rounding (the TPU kernel's
-// chain, ops/sa_pair.py sa_fwd_layer12_bf16_plain). Same layout, the x
-// stages half filled.
-template <bool BF>
 __global__ void __launch_bounds__(NTM, 1)
-fwd_layer12_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
-                   int64_t N, int64_t ntiles, const float* __restrict__ W1,
+fwd_layer12_kernel(const float* __restrict__ x, int C0, int64_t N,
+                   int64_t ntiles, const float* __restrict__ W1,
                    const float* __restrict__ vec1, const float* __restrict__ W2,
-                   const float* __restrict__ b2,
-                   typename Row<BF>::T* __restrict__ p2,
+                   const float* __restrict__ b2, float* __restrict__ p2,
                    double* __restrict__ part) {
-  using T = typename Row<BF>::T;
   constexpr int STAGE = C0MAX * TR;
   constexpr int WB = 32 * b_stride(CW);
   extern __shared__ __align__(128) float smt[];
@@ -168,8 +155,7 @@ fwd_layer12_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
   float* const Wp[3] = {smt, smt + WB, smt + 2 * WB};  // W2 in 3 pieces
   float* W1s = smt + 3 * WB;                    // C0MAX * CW
   float* v = W1s + C0MAX * CW;                  // b1 | mul1 | shift1 | b2
-  // this warp's two x tiles (STAGE values each, in STAGE floats of room)
-  T* stage = reinterpret_cast<T*>(v + 4 * CW + warp * 2 * STAGE);
+  float* stage = v + 4 * CW + warp * 2 * STAGE;   // this warp's two x tiles
   uint64_t* bars = reinterpret_cast<uint64_t*>(
                        v + 4 * CW + L12_WARPS * 2 * STAGE) + 2 * warp;
   const bool xbulk = N % TR == 0;     // x is 16-byte aligned (the wrapper)
@@ -179,10 +165,10 @@ fwd_layer12_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
   auto fetch = [&](int64_t i) {             // lane 0: x of the warp's tile i
     const int64_t r0 = (gw + i * nw) * TR, b = r0 / N, n = r0 - b * N;
     uint64_t* bar = &bars[i & 1];
-    mbar_expect(bar, C0 * TR * sizeof(T));
+    mbar_expect(bar, C0 * TR * sizeof(float));
     for (int c = 0; c < C0; ++c)
       bulk_load(stage + (i & 1) * STAGE + c * TR, x + (b * C0 + c) * N + n,
-                TR * sizeof(T), bar);
+                TR * sizeof(float), bar);
   };
 
   if (lane == 0 && xbulk) {
@@ -190,26 +176,17 @@ fwd_layer12_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
     mbar_init(&bars[1]);
     for (int64_t i = 0; i < 2 && i < count; ++i) fetch(i);
   }
-  if constexpr (BF) {                   // W2 in one piece: bf16(W2)
-    for (int e = threadIdx.x; e < CW * CW; e += NTM) {
-      const int k = e / CW, n = e % CW;
-      Wp[0][(4 * (k >> 3) + ((k & 7) >> 1)) * b_stride(CW) + 2 * n +
-            (k & 1)] = rb(W2[e]);
-    }
-  } else {
-    load_b_split3(Wp, W2, CW, CW, 1);
-  }
-  copy_block_p<BF>(W1s, W1, C0 * CW);
-  copy_block_p<BF>(v, vec1, CW);
-  copy_block(v + CW, vec1 + CW, 2 * CW);
-  copy_block_p<BF>(v + 3 * CW, b2, CW);
+  load_b_split3(Wp, W2, CW, CW, 1);
+  copy_block(W1s, W1, C0 * CW);
+  copy_block(v, vec1, 3 * CW);
+  copy_block(v + 3 * CW, b2, CW);
   __syncthreads();
 
   // Sums of p2 and p2^2 of columns 8 g + 2 t (+1): [s, ss, s', ss'].
   double run[4] = {0.0, 0.0, 0.0, 0.0};
   for (int64_t i = 0; i < count; ++i) {
     const int64_t r0 = (gw + i * nw) * TR;
-    const T* X = stage + (i & 1) * STAGE;
+    const float* X = stage + (i & 1) * STAGE;
     if (xbulk) {
       mbar_wait(&bars[i & 1], static_cast<uint32_t>((i >> 1) & 1));
     } else {
@@ -224,8 +201,8 @@ fwd_layer12_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
 #pragma unroll
       for (int k = 0; k < C0MAX - 1; ++k)
         if (k < C0) {
-          xa[k] = to_f(X[k * TR + ra]);
-          xb[k] = to_f(X[k * TR + ra + 8]);
+          xa[k] = X[k * TR + ra];
+          xb[k] = X[k * TR + ra + 8];
         }
       if (sl == TR / 16 - 1) {              // the stage is read: refill
         __syncwarp();
@@ -241,53 +218,36 @@ fwd_layer12_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
       for (int kb = 0; kb < 8; ++kb) {
         const int col = 8 * kb + 2 * t;
         float2 ha, hb;
-        h1_pair<BF>(xa, xb, C0, W1s, v, col, ha, hb);
-        if constexpr (BF) {
-          // h1 and W2 are bf16 values: one exact pass per k step.
-          const uint32_t a0 = __float_as_uint(ha.x), a1 = __float_as_uint(hb.x);
-          const uint32_t a2 = __float_as_uint(ha.y), a3 = __float_as_uint(hb.y);
+        h1_pair(xa, xb, C0, W1s, v, col, ha, hb);
+        const Split3 s[4] = {split3(ha.x), split3(hb.x), split3(ha.y),
+                             split3(hb.y)};
+        FragA3 a;
 #pragma unroll
-          for (int nj = 0; nj < 8; ++nj) {
-            const float2 w = ld2(Wp[0] + (4 * kb + t) * b_stride(CW) +
-                                 2 * (8 * nj + g));
-            float d[4];
-            zero4(d);
-            mma_tf32(d, a0, a1, a2, a3, __float_as_uint(w.x),
-                     __float_as_uint(w.y));
+        for (int q = 0; q < 3; ++q)
 #pragma unroll
-            for (int r = 0; r < 4; ++r) c[nj][r] = __fadd_rn(c[nj][r], d[r]);
-          }
-        } else {
-          const Split3 s[4] = {split3(ha.x), split3(hb.x), split3(ha.y),
-                               split3(hb.y)};
-          FragA3 a;
+          for (int r = 0; r < 4; ++r) a.v[q][r] = s[r].v[q];
+        // Each step's six products summed apart, then added in f32 with
+        // rounding (the tensor cores' own accumulation truncates).
 #pragma unroll
-          for (int q = 0; q < 3; ++q)
+        for (int nj = 0; nj < 8; ++nj) {
+          float d[4];
+          zero4(d);
+          mma6(d, a, frag_b3_paired(Wp, b_stride(CW), 8 * nj, kb, lane));
 #pragma unroll
-            for (int r = 0; r < 4; ++r) a.v[q][r] = s[r].v[q];
-          // Each step's six products summed apart, then added in f32 with
-          // rounding (the tensor cores' own accumulation truncates).
-#pragma unroll
-          for (int nj = 0; nj < 8; ++nj) {
-            float d[4];
-            zero4(d);
-            mma6(d, a, frag_b3_paired(Wp, b_stride(CW), 8 * nj, kb, lane));
-#pragma unroll
-            for (int r = 0; r < 4; ++r) c[nj][r] = __fadd_rn(c[nj][r], d[r]);
-          }
+          for (int r = 0; r < 4; ++r) c[nj][r] = __fadd_rn(c[nj][r], d[r]);
         }
       }
       // p2 = acc + b2 -> global (rows ra, ra + 8); per column j of the
       // lane, its two rows summed: vs[2 j] (p2), vs[2 j + 1] (p2^2).
-      T* out = p2 + (r0 + ra) * CW + 2 * t;
+      float* out = p2 + (r0 + ra) * CW + 2 * t;
       float vs[32];
 #pragma unroll
       for (int nj = 0; nj < 8; ++nj) {
         const float2 bb = ld2(v + 3 * CW + 8 * nj + 2 * t);
-        const float2 u = make_float2(__fadd_rn(rb_if<BF>(c[nj][0]), bb.x),
-                                     __fadd_rn(rb_if<BF>(c[nj][1]), bb.y));
-        const float2 w = make_float2(__fadd_rn(rb_if<BF>(c[nj][2]), bb.x),
-                                     __fadd_rn(rb_if<BF>(c[nj][3]), bb.y));
+        const float2 u = make_float2(__fadd_rn(c[nj][0], bb.x),
+                                     __fadd_rn(c[nj][1], bb.y));
+        const float2 w = make_float2(__fadd_rn(c[nj][2], bb.x),
+                                     __fadd_rn(c[nj][3], bb.y));
         st2r(out + 8 * nj, u);
         st2r(out + 8 * CW + 8 * nj, w);
         vs[4 * nj] = u.x + w.x;
@@ -353,16 +313,12 @@ constexpr uint32_t FULL = 0xffffffffu;
 // TR)). Lane (g, t) holds rows 8 i + g (i < 8) of columns n0 + 8 nj + 2t
 // (+1); a group's rows span SI of a lane's i and the low SH bits of g.
 // pool > TR (upt > 1): a group spans upt consecutive tiles, walked in
-// order by one block; the running max/min sit in run. BF: p3 = bf16(acc)
-// + b3 (b3 rounded, the sum in f32), its max and min stored as bf16.
-template <int LP, bool BF>
+// order by one block; the running max/min sit in run.
+template <int LP>
 __device__ __forceinline__ void pool_tile(const float c[4][2][4], int n0,
                                           const float* b3s, int64_t tile,
-                                          int upt, float* run,
-                                          typename Row<BF>::T* mx,
-                                          typename Row<BF>::T* mn, int* imx,
-                                          int* imn) {
-  using T = typename Row<BF>::T;
+                                          int upt, float* run, float* mx,
+                                          float* mn, int* imx, int* imn) {
   constexpr int SI = LP > 3 ? 1 << (LP - 3) : 1;
   constexpr int SH = LP < 3 ? LP : 3;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -376,8 +332,7 @@ __device__ __forceinline__ void pool_tile(const float c[4][2][4], int n0,
       float v[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        v[i] = __fadd_rn(rb_if<BF>(c[i >> 1][nj][((i & 1) << 1) | cj]),
-                         bias);
+        v[i] = __fadd_rn(c[i >> 1][nj][((i & 1) << 1) | cj], bias);
       // Per group: its max and min over the lane's rows and then the
       // group's lanes; then the first row holding each (min over rows).
       float vx[8], vn[8];
@@ -418,8 +373,8 @@ __device__ __forceinline__ void pool_tile(const float c[4][2][4], int n0,
         const int base = grp << LP;
         if (upt == 1) {
           const int64_t o = (tile * (TR >> LP) + grp) * C3W + col;
-          mx[o] = static_cast<T>(vx[i]);
-          mn[o] = static_cast<T>(vn[i]);
+          mx[o] = vx[i];
+          mn[o] = vn[i];
           imx[o] = ix[i] - base;
           imn[o] = in[i] - base;
         } else {                                // LP == 6: one group
@@ -434,8 +389,8 @@ __device__ __forceinline__ void pool_tile(const float c[4][2][4], int n0,
           }
           if (j == upt - 1) {
             const int64_t o = (tile / upt) * C3W + col;
-            mx[o] = static_cast<T>(run[col]);
-            mn[o] = static_cast<T>(run[C3W + col]);
+            mx[o] = run[col];
+            mn[o] = run[C3W + col];
             imx[o] = irun[col];
             imn[o] = irun[C3W + col];
           }
@@ -446,21 +401,16 @@ __device__ __forceinline__ void pool_tile(const float c[4][2][4], int n0,
 
 constexpr int GP_STAGES = 3;    // p2 tiles in flight per block
 
-// bf16 (BF): p2 stored as bf16 (the stages half filled), h2 by the bf16
-// chain, W3 and b3 rounded, every product in one TF32 pass; max/min out
-// as bf16 (pool_tile).
-template <int LP, bool BF>
+template <int LP>
 __global__ void __launch_bounds__(NTM, 1)
-fwd_gram_pool_kernel(const typename Row<BF>::T* __restrict__ p2,
-                     int64_t ntiles, int upt, const float* __restrict__ vec2,
+fwd_gram_pool_kernel(const float* __restrict__ p2, int64_t ntiles, int upt,
+                     const float* __restrict__ vec2,
                      const float* __restrict__ W3, const float* __restrict__ b3,
                      double* __restrict__ partG, double* __restrict__ partc,
-                     typename Row<BF>::T* __restrict__ mx,
-                     typename Row<BF>::T* __restrict__ mn,
+                     float* __restrict__ mx, float* __restrict__ mn,
                      int* __restrict__ imx, int* __restrict__ imn) {
-  using T = typename Row<BF>::T;
   extern __shared__ __align__(128) float smt[];
-  T* stage = reinterpret_cast<T*>(smt);       // GP_STAGES x (TR, CW): p2
+  float* stage = smt;                         // GP_STAGES x (TR, CW): p2
   float* Hh = smt + GP_STAGES * TR * CW;      // h2, split: hi
   float* Hl = Hh + TILE_F;                    //            lo
   float* W3h = Hl + TILE_F;                   // W3, split, paired layout
@@ -484,18 +434,18 @@ fwd_gram_pool_kernel(const typename Row<BF>::T* __restrict__ p2,
   };
   auto fetch = [&](int64_t i) {               // thread 0: one bulk copy
     uint64_t* bar = &bars[i % GP_STAGES];
-    mbar_expect(bar, TR * CW * sizeof(T));
+    mbar_expect(bar, TR * CW * sizeof(float));
     bulk_load(stage + (i % GP_STAGES) * TR * CW, p2 + tile_at(i) * TR * CW,
-              TR * CW * sizeof(T), bar);
+              TR * CW * sizeof(float), bar);
   };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < GP_STAGES; ++s) mbar_init(&bars[s]);
     for (int64_t i = 0; i < GP_STAGES && i < count; ++i) fetch(i);
   }
-  load_b_split<BF>(W3h, W3l, W3, C3W, C3W, 1);
+  load_b_split(W3h, W3l, W3, C3W, C3W, 1);
   copy_block(v2, vec2, 2 * CW);
-  copy_block_p<BF>(b3s, b3, C3W);
+  copy_block(b3s, b3, C3W);
   __syncthreads();
 
   // Gram(h2) is symmetric: warps with nw < mw (blocks below the diagonal)
@@ -506,8 +456,7 @@ fwd_gram_pool_kernel(const typename Row<BF>::T* __restrict__ p2,
     const int64_t tile = tile_at(i);
     mbar_wait(&bars[i % GP_STAGES],
               static_cast<uint32_t>((i / GP_STAGES) & 1));
-    relu_split_rows<BF>(stage + (i % GP_STAGES) * TR * CW, v2, v2 + CW, Hh,
-                        Hl);
+    relu_split_rows(stage + (i % GP_STAGES) * TR * CW, v2, v2 + CW, Hh, Hl);
     __syncthreads();
     if (threadIdx.x == 0 && i + GP_STAGES < count) fetch(i + GP_STAGES);
 
@@ -525,7 +474,7 @@ fwd_gram_pool_kernel(const typename Row<BF>::T* __restrict__ p2,
         }
 #pragma unroll
         for (int nj = 0; nj < 2; ++nj)
-          mma_p<BF>(c[nj], a, frag_b_rows(H, 16 * nw + 8 * nj, kb, lane));
+          mma3(c[nj], a, frag_b_rows(H, 16 * nw + 8 * nj, kb, lane));
       }
 #pragma unroll
       for (int nj = 0; nj < 2; ++nj)
@@ -550,11 +499,11 @@ fwd_gram_pool_kernel(const typename Row<BF>::T* __restrict__ p2,
 #pragma unroll
         for (int mi = 0; mi < 4; ++mi) {
           const FragA a = frag_a_rows(H, 16 * mi, kb, lane);
-          mma_p<BF>(c[mi][0], a, b0);
-          mma_p<BF>(c[mi][1], a, b1);
+          mma3(c[mi][0], a, b0);
+          mma3(c[mi][1], a, b1);
         }
       }
-      pool_tile<LP, BF>(c, n0, b3s, tile, upt, run, mx, mn, imx, imn);
+      pool_tile<LP>(c, n0, b3s, tile, upt, run, mx, mn, imx, imn);
     }
     __syncthreads();
   }
@@ -624,19 +573,18 @@ __host__ __device__ constexpr int sweep1_rows(int pool) {
 // S stages a tile: S x [p2 (U, CW) | dpooled (gpt, C3W) | idx (gpt, C3W)],
 // W3^T, two q3 tiles, the split rows' partials, mul2 | shift2 | gi3, h2
 // (U, LDH), the row bitmaps (TR, 8) and tasks, a 32-entry list per warp,
-// and each entry's key. esz: bytes of a stored p2, dpooled or q3 value.
+// and each entry's key.
 struct S1Layout {
   int stage, w3t, out, part, vec, h2, bits, info, lists, key, bars, total;
 };
 
-__host__ __device__ inline S1Layout s1_layout(int U, int gpt, int S,
-                                              int esz = 4) {
+__host__ __device__ inline S1Layout s1_layout(int U, int gpt, int S) {
   const int E = gpt * C3W;
   S1Layout l;
-  l.stage = (U * CW + E) * esz + E * 4;
+  l.stage = (U * CW + E) * 4 + E * 4;
   l.w3t = S * l.stage;
   l.out = l.w3t + C3W * CW * 4;
-  l.part = l.out + 2 * TR * CW * esz;
+  l.part = l.out + 2 * TR * CW * 4;
   l.vec = l.part + SPLITS * CW * 4;
   l.h2 = l.vec + (2 * CW + C3W) * 4;
   l.bits = l.h2 + U * LDH * 4;
@@ -679,20 +627,13 @@ __device__ __forceinline__ int popc4(const uint4& a) {
   return __popc(a.x) + __popc(a.y) + __popc(a.z) + __popc(a.w);
 }
 
-// bf16 (BF): p2, dpooled and q3 stored as bf16 (the stages and q3 tiles
-// at half the bytes); h2 by the bf16 chain; W3 and gi3 rounded; each q3
-// term bf16(dpooled gi3) W3 (exact products summed in f32), q3 rounded
-// at its store. A3 and u3 as in f32 (the products of bf16 values exact).
-template <bool BF>
 __global__ void __launch_bounds__(NTM, 1)
-bwd_sweep1_kernel(const typename Row<BF>::T* __restrict__ p2, int64_t ntiles,
-                  int U, int pool, int S, const float* __restrict__ vec2,
-                  const typename Row<BF>::T* __restrict__ dpooled,
+bwd_sweep1_kernel(const float* __restrict__ p2, int64_t ntiles, int U,
+                  int pool, int S, const float* __restrict__ vec2,
+                  const float* __restrict__ dpooled,
                   const int* __restrict__ idx, const float* __restrict__ gi3,
-                  const float* __restrict__ W3,
-                  typename Row<BF>::T* __restrict__ q3,
+                  const float* __restrict__ W3, float* __restrict__ q3,
                   double* __restrict__ partA, double* __restrict__ partu) {
-  using T = typename Row<BF>::T;
   extern __shared__ __align__(128) unsigned char smb[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // Groups per tile (pool <= U) or tiles per group (pool > U = TR).
@@ -700,9 +641,9 @@ bwd_sweep1_kernel(const typename Row<BF>::T* __restrict__ p2, int64_t ntiles,
   const int upt = pool > U ? pool / U : 1;
   const int gr = pool <= U ? pool : U;        // rows of a group in a tile
   const int E = gpt * C3W;                    // entries of a tile
-  const S1Layout ly = s1_layout(U, gpt, S, sizeof(T));
+  const S1Layout ly = s1_layout(U, gpt, S);
   float* W3t = reinterpret_cast<float*>(smb + ly.w3t);   // W3t[c][j]
-  T* outs = reinterpret_cast<T*>(smb + ly.out);
+  float* outs = reinterpret_cast<float*>(smb + ly.out);
   float* part = reinterpret_cast<float*>(smb + ly.part);
   float* v = reinterpret_cast<float*>(smb + ly.vec);
   float* h2 = reinterpret_cast<float*>(smb + ly.h2);
@@ -718,11 +659,11 @@ bwd_sweep1_kernel(const typename Row<BF>::T* __restrict__ p2, int64_t ntiles,
       ntiles > blockIdx.x ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   auto tile_at = [&](int64_t i) { return blockIdx.x + i * gridDim.x; };
   auto fetch = [&](int64_t i, int s) {      // thread io: tile i to slot s
-    T* st = reinterpret_cast<T*>(smb + s * ly.stage);
+    float* st = reinterpret_cast<float*>(smb + s * ly.stage);
     const int64_t t = tile_at(i), g0 = upt > 1 ? t / upt : t * gpt;
     mbar_expect(&bars[s], ly.stage);
-    bulk_load(st, p2 + t * U * CW, U * CW * sizeof(T), &bars[s]);
-    bulk_load(st + U * CW, dpooled + g0 * C3W, E * sizeof(T), &bars[s]);
+    bulk_load(st, p2 + t * U * CW, U * CW * 4, &bars[s]);
+    bulk_load(st + U * CW, dpooled + g0 * C3W, E * 4, &bars[s]);
     bulk_load(st + U * CW + E, idx + g0 * C3W, E * 4, &bars[s]);
   };
 
@@ -731,9 +672,9 @@ bwd_sweep1_kernel(const typename Row<BF>::T* __restrict__ p2, int64_t ntiles,
     for (int i = 0; i < S && i < count; ++i) fetch(i, i);
   }
   for (int e = threadIdx.x; e < C3W * CW; e += NTM)
-    W3t[(e % C3W) * CW + e / C3W] = rb_if<BF>(W3[e]);
+    W3t[(e % C3W) * CW + e / C3W] = W3[e];
   copy_block(v, vec2, 2 * CW);
-  copy_block_p<BF>(v + 2 * CW, gi3, C3W);
+  copy_block(v + 2 * CW, gi3, C3W);
   __syncthreads();
 
   // A3: thread (ac, ah) owns channel ac, columns 32 ah.. (and, for ah = 0,
@@ -751,10 +692,10 @@ bwd_sweep1_kernel(const typename Row<BF>::T* __restrict__ p2, int64_t ntiles,
   for (int64_t i = 0; i < count; ++i) {
     const int64_t t = tile_at(i);
     const int j = upt > 1 ? static_cast<int>(t % upt) : 0;
-    const T* P = reinterpret_cast<const T*>(smb + s * ly.stage);  // p2
-    const T* DP = P + U * CW;                 // dpooled (gpt, C3W)
+    const float* P = reinterpret_cast<const float*>(smb + s * ly.stage);
+    const float* DP = P + U * CW;             // dpooled (gpt, C3W)
     const int* IX = reinterpret_cast<const int*>(DP + E);
-    T* out = outs + (i & 1) * TR * CW;
+    float* out = outs + (i & 1) * TR * CW;
     mbar_wait(&bars[s], phase);
 
     // 1. Each entry's tile row (key) or DEAD, and the row bitmaps, a warp
@@ -775,11 +716,11 @@ bwd_sweep1_kernel(const typename Row<BF>::T* __restrict__ p2, int64_t ntiles,
     }
     for (int q = threadIdx.x; q < U * CW / 4; q += NTM) {
       const int r = q / (CW / 4);
-      float4 p = ld4r(P + r * CW + hc);
-      p.x = relu_affine_p<BF>(p.x, mul.x, sh.x);
-      p.y = relu_affine_p<BF>(p.y, mul.y, sh.y);
-      p.z = relu_affine_p<BF>(p.z, mul.z, sh.z);
-      p.w = relu_affine_p<BF>(p.w, mul.w, sh.w);
+      float4 p = *reinterpret_cast<const float4*>(P + r * CW + hc);
+      p.x = relu_affine(p.x, mul.x, sh.x);
+      p.y = relu_affine(p.y, mul.y, sh.y);
+      p.z = relu_affine(p.z, mul.z, sh.z);
+      p.w = relu_affine(p.w, mul.w, sh.w);
       *reinterpret_cast<float4*>(h2 + r * LDH + hc) = p;
     }
     __syncthreads();
@@ -812,7 +753,7 @@ bwd_sweep1_kernel(const typename Row<BF>::T* __restrict__ p2, int64_t ntiles,
         const int e = gi * C3W + ac;
         const int k = key[e];
         if (k != DEAD) {
-          const float dv = to_f(DP[e]);
+          const float dv = DP[e];
           const float* hr = h2 + k * LDH + 32 * ah;
 #pragma unroll
           for (int q = 0; q < 8; ++q)
@@ -856,8 +797,8 @@ bwd_sweep1_kernel(const typename Row<BF>::T* __restrict__ p2, int64_t ntiles,
         // The word's entries, listed in order: (dpooled * gi3, channel).
         const int e = 32 * (gb + jw) + lane, c = e & (C3W - 1);
         if ((m >> lane) & 1u)
-          list[__popc(m & ((1u << lane) - 1))] = make_float2(
-              rb_if<BF>(__fmul_rn(to_f(DP[e]), gis[c])), __int_as_float(c));
+          list[__popc(m & ((1u << lane) - 1))] =
+              make_float2(__fmul_rn(DP[e], gis[c]), __int_as_float(c));
         __syncwarp();
         const int n = __popc(m);
         int q = 0;
@@ -908,7 +849,7 @@ bwd_sweep1_kernel(const typename Row<BF>::T* __restrict__ p2, int64_t ntiles,
     fence_async_smem();
     __syncthreads();
     if (threadIdx.x == io)
-      bulk_store(q3 + t * U * CW, out, U * CW * sizeof(T));
+      bulk_store(q3 + t * U * CW, out, U * CW * 4);
     if (++s == S) {
       s = 0;
       phase ^= 1u;
@@ -941,30 +882,19 @@ bwd_sweep1_kernel(const typename Row<BF>::T* __restrict__ p2, int64_t ntiles,
 // (per tile) are split into hi/lo ahead of the products, h2 at fragment
 // load; h1's ReLU mask is kept as bytes. One block per SM (218 KB of
 // shared memory).
-//
-// bf16 (BF): x, p2, q3 and mq stored as bf16 (the stages half filled);
-// h1, h2 by the bf16 chains; M3, W1, b1 and W2 rounded, gi2 too; dy2 =
-// [h2 > 0] (q3 - bf16(h2 M3) - rc3) kept split as bf16(dy2) | the rest
-// (the column sums u2 take dy2 unrounded, A2 the bf16 part); q2 from
-// bf16(bf16(dy2) gi2) against bf16(W2^T); mq = bf16(q2) where h1 > 0;
-// every product in one TF32 pass.
-template <bool BF>
 __global__ void __launch_bounds__(NTM, 1)
-bwd_sweep2_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
-                  int64_t N, int64_t ntiles, const float* __restrict__ W1,
-                  const float* __restrict__ vec,
-                  const typename Row<BF>::T* __restrict__ p2,
-                  const typename Row<BF>::T* __restrict__ q3,
-                  const float* __restrict__ M3, const float* __restrict__ W2,
-                  typename Row<BF>::T* __restrict__ mq,
+bwd_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
+                  int64_t ntiles, const float* __restrict__ W1,
+                  const float* __restrict__ vec, const float* __restrict__ p2,
+                  const float* __restrict__ q3, const float* __restrict__ M3,
+                  const float* __restrict__ W2, float* __restrict__ mq,
                   double* __restrict__ partA, double* __restrict__ partG,
                   double* __restrict__ partu, double* __restrict__ partc) {
-  using T = typename Row<BF>::T;
   constexpr int STAGE = TR * CW + C0MAX * TR;      // p2 | x
   constexpr int WB = 32 * b_stride(CW);            // a 64x64 paired B
   extern __shared__ __align__(128) float smt[];
   float* stage = smt;                       // 2 x STAGE, as TMA lands them
-  T* Q = reinterpret_cast<T*>(stage + 2 * STAGE);  // q3 (TR, CW), by TMA
+  float* Q = stage + 2 * STAGE;             // q3 (TR, CW), by TMA
   float* H2 = stage + 2 * STAGE + TR * CW;  // (TR, LDT): h2; then mq
   float* dyh = H2 + TILE_F;                 // dy2, split: hi
   float* dyl = dyh + TILE_F;                //             lo
@@ -991,10 +921,10 @@ bwd_sweep2_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
   const int64_t count =
       ntiles > blockIdx.x ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   auto row0 = [&](int64_t i) { return (blockIdx.x + i * gridDim.x) * TR; };
-  constexpr uint32_t ES = sizeof(T);
+  constexpr uint32_t ES = sizeof(float);
   auto fetch = [&](int64_t i) {             // thread 0: p2 and x of tile i
     uint64_t* bar = &bars[i & 1];
-    T* S = reinterpret_cast<T*>(stage + (i & 1) * STAGE);
+    float* S = stage + (i & 1) * STAGE;
     const int64_t r0 = row0(i);
     mbar_expect(bar, TR * CW * ES + (xbulk ? C0 * TR * ES : 0));
     bulk_load(S, p2 + r0 * CW, TR * CW * ES, bar);
@@ -1015,28 +945,25 @@ bwd_sweep2_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
     for (int64_t i = 0; i < 2 && i < count; ++i) fetch(i);
     if (count > 0) fetch_q3(0);
   }
-  load_b_split<BF>(Mh, Ml, M3, CW, CW, 1);
-  // f32: gi2[k] W2[n][k]; BF: bf16(W2[n][k]) (gi2 goes with dy2)
-  load_b_split<BF>(W2h, W2l, W2, CW, 1, CW, vec + 6 * CW);
-  copy_block_p<BF>(W1s, W1, C0 * CW);
-  copy_block_p<BF>(v, vec, CW);                         // b1
-  copy_block(v + CW, vec + CW, 5 * CW);
-  copy_block_p<BF>(v + 6 * CW, vec + 6 * CW, CW);       // gi2
+  load_b_split(Mh, Ml, M3, CW, CW, 1);
+  load_b_split(W2h, W2l, W2, CW, 1, CW, vec + 6 * CW);  // gi2[k] W2[n][k]
+  copy_block(W1s, W1, C0 * CW);
+  copy_block(v, vec, 7 * CW);
   __syncthreads();
 
   double A2[2][4] = {}, G1[2][4] = {};  // rows m0 + g (+8), cols n0 + 8 nj
   double cs[2] = {0.0, 0.0};  // nw 0: u2, nw 1: ch1; channels m0 + g, + 8
   for (int64_t i = 0; i < count; ++i) {
     const int64_t r0 = row0(i);
-    const T* S = reinterpret_cast<const T*>(stage + (i & 1) * STAGE);
-    T* X = reinterpret_cast<T*>(stage + (i & 1) * STAGE) + TR * CW;
+    const float* S = stage + (i & 1) * STAGE;
+    float* X = stage + (i & 1) * STAGE + TR * CW;
     mbar_wait(&bars[i & 1], static_cast<uint32_t>((i >> 1) & 1));
     if (!xbulk) {
       load_x_rows(x, C0, N, r0, X, threadIdx.x, NTM);
       __syncthreads();
     }
-    relu_rows<BF>(S, mul2, shift2, H2);
-    h1_rows<BF>(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);
+    relu_rows(S, mul2, shift2, H2);
+    h1_rows(X, C0, W1s, v, h1h, h1l, m1, threadIdx.x, NTM);
     __syncthreads();
     if (threadIdx.x == 0 && i + 2 < count) fetch(i + 2);
 
@@ -1047,11 +974,11 @@ bwd_sweep2_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
       zero4(c[1]);
 #pragma unroll 2
       for (int kb = 0; kb < 8; ++kb) {
-        const FragA a = split_a_p<BF>(raw_a_rows(H2, m0, kb, lane));
+        const FragA a = split_a(raw_a_rows(H2, m0, kb, lane));
 #pragma unroll
         for (int nj = 0; nj < 2; ++nj)
-          mma_p<BF>(c[nj], a,
-                    frag_b_paired(Ms, b_stride(CW), n0 + 8 * nj, kb, lane));
+          mma3(c[nj], a,
+               frag_b_paired(Ms, b_stride(CW), n0 + 8 * nj, kb, lane));
       }
       mbar_wait(&bars[2], static_cast<uint32_t>(i & 1));
 #pragma unroll
@@ -1060,27 +987,15 @@ bwd_sweep2_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
         for (int h = 0; h < 2; ++h) {
           const int r = m0 + g + 8 * h, cc = n0 + 8 * nj + 2 * t;
           const float2 hv = ld2(H2 + r * LDT + cc);
-          const float2 qv = ld2r(Q + r * CW + cc);
+          const float2 qv = ld2(Q + r * CW + cc);
           const float dx =
-              hv.x > 0.f ? __fsub_rn(__fsub_rn(qv.x, rb_if<BF>(c[nj][2 * h])),
-                                     rc3[cc])
+              hv.x > 0.f ? __fsub_rn(__fsub_rn(qv.x, c[nj][2 * h]), rc3[cc])
                          : 0.f;
           const float dy =
               hv.y > 0.f
-                  ? __fsub_rn(__fsub_rn(qv.y, rb_if<BF>(c[nj][2 * h + 1])),
-                              rc3[cc + 1])
+                  ? __fsub_rn(__fsub_rn(qv.y, c[nj][2 * h + 1]), rc3[cc + 1])
                   : 0.f;
-          // BF: hi = bf16(dy2) (A2's and q2's operand), lo = the rest, so
-          // that hi + lo (the column sums) is dy2 itself.
-          Split sx, sy;
-          if constexpr (BF) {
-            const float hx = rb(dx), hy = rb(dy);
-            sx = Split{__float_as_uint(hx), __float_as_uint(dx - hx)};
-            sy = Split{__float_as_uint(hy), __float_as_uint(dy - hy)};
-          } else {
-            sx = split(dx);
-            sy = split(dy);
-          }
+          const Split sx = split(dx), sy = split(dy);
           *reinterpret_cast<float2*>(dyh + r * LDT + cc) =
               make_float2(__uint_as_float(sx.hi), __uint_as_float(sy.hi));
           *reinterpret_cast<float2*>(dyl + r * LDT + cc) =
@@ -1096,22 +1011,13 @@ bwd_sweep2_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
       zero4(c[1]);
 #pragma unroll 2
       for (int kb = 0; kb < 8; ++kb) {
-        FragA a = frag_a_rows(DY, m0, kb, lane);
-        if constexpr (BF) {   // bf16(bf16(dy2) gi2) at k = 8 kb + 2t (+1)
-          const float2 gk = ld2(v + 6 * CW + 8 * kb + 2 * t);
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            a.v[q] = Split{__float_as_uint(rb(__fmul_rn(
-                               __uint_as_float(a.v[q].hi),
-                               q < 2 ? gk.x : gk.y))),
-                           0u};
-        }
+        const FragA a = frag_a_rows(DY, m0, kb, lane);
 #pragma unroll
         for (int nj = 0; nj < 2; ++nj)
-          mma_p<BF>(c[nj], a,
-                    frag_b_paired(W2s, b_stride(CW), n0 + 8 * nj, kb, lane));
+          mma3(c[nj], a,
+               frag_b_paired(W2s, b_stride(CW), n0 + 8 * nj, kb, lane));
       }
-      T* M = reinterpret_cast<T*>(H2);
+      float* M = H2;
 #pragma unroll
       for (int nj = 0; nj < 2; ++nj)
 #pragma unroll
@@ -1151,8 +1057,8 @@ bwd_sweep2_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
 #pragma unroll
         for (int nj = 0; nj < 2; ++nj) {
           const FragB b = frag_b_rows(H1, n0 + 8 * nj, kb, lane);
-          mma_p<BF>(ca[nj], ad, b);
-          mma_p<BF>(cg[nj], ah, b);
+          mma3(ca[nj], ad, b);
+          mma3(cg[nj], ah, b);
         }
       }
 #pragma unroll
@@ -1216,19 +1122,12 @@ constexpr int S3_GT = NTM / 2;      // threads of a warp group
 constexpr int XLD = 68;             // [x | 1] tile stride: conflict-free B
 constexpr int S3_GROUP = 2 * TILE_F + 2 * 8 * XLD + TR * CW / 4;  // floats
 
-//
-// bf16 (BF): x and mq stored as bf16 (the stages half filled); h1 by the
-// bf16 chain; W1, b1 and M2 rounded; dy1 = bf16([h1 > 0] (mq - (bf16(h1
-// M2) + rc2))); both products in one TF32 pass.
-template <bool BF>
 __global__ void __launch_bounds__(NTM, 1)
-bwd_sweep3_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
-                  int64_t N, int64_t ntiles, const float* __restrict__ W1,
-                  const float* __restrict__ vec,
-                  const typename Row<BF>::T* __restrict__ mq,
+bwd_sweep3_kernel(const float* __restrict__ x, int C0, int64_t N,
+                  int64_t ntiles, const float* __restrict__ W1,
+                  const float* __restrict__ vec, const float* __restrict__ mq,
                   const float* __restrict__ M2, double* __restrict__ part) {
-  using T = typename Row<BF>::T;
-  constexpr uint32_t ES = sizeof(T);
+  constexpr uint32_t ES = sizeof(float);
   constexpr int STAGE = TR * CW + C0MAX * TR;      // mq | x
   constexpr int WB = 32 * b_stride(CW);
   extern __shared__ __align__(128) float smt[];
@@ -1258,7 +1157,7 @@ bwd_sweep3_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
   auto row0 = [&](int64_t i) { return (blockIdx.x + i * gridDim.x) * TR; };
   auto fetch = [&](int64_t i) {             // one thread: mq and x of tile i
     const int s = static_cast<int>(i % S3_STAGES);
-    T* S = reinterpret_cast<T*>(stage + s * STAGE);
+    float* S = stage + s * STAGE;
     const int64_t r0 = row0(i);
     mbar_expect(&bars[s], TR * CW * ES + (xbulk ? C0 * TR * ES : 0));
     bulk_load(S, mq + r0 * CW, TR * CW * ES, &bars[s]);
@@ -1277,18 +1176,17 @@ bwd_sweep3_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
     for (int s = 0; s < S3_STAGES; ++s) mbar_init(&bars[s]);
     for (int64_t i = 0; i < S3_STAGES && i < count; ++i) fetch(i);
   }
-  load_b_split<BF>(Mh, Ml, M2, CW, CW, 1);
-  copy_block_p<BF>(W1s, W1, C0 * CW);
-  copy_block_p<BF>(v, vec, CW);                         // b1
-  copy_block(v + CW, vec + CW, 3 * CW);
+  load_b_split(Mh, Ml, M2, CW, CW, 1);
+  copy_block(W1s, W1, C0 * CW);
+  copy_block(v, vec, 4 * CW);
   __syncthreads();
 
   // [A1 | u1]: channels 32 nh + 16 mt + g (+8), columns 2t (+1) of [x | 1]
   double acc[2][4] = {};
   for (int64_t i = grp; i < count; i += 2) {
     const int s = static_cast<int>(i % S3_STAGES);
-    const T* Q = reinterpret_cast<const T*>(stage + s * STAGE);
-    T* X = reinterpret_cast<T*>(stage + s * STAGE) + TR * CW;
+    const float* Q = stage + s * STAGE;
+    float* X = stage + s * STAGE + TR * CW;
     mbar_wait(&bars[s], static_cast<uint32_t>((i / S3_STAGES) & 1));
     float2 qv[4][2];                    // this warp's mq, read early so
 #pragma unroll                        // that the stage is free sooner
@@ -1296,16 +1194,15 @@ bwd_sweep3_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf)
         qv[nj][hf] =
-            ld2r(Q + (m0 + g + 8 * hf) * CW + 32 * nh + 8 * nj + 2 * t);
+            ld2(Q + (m0 + g + 8 * hf) * CW + 32 * nh + 8 * nj + 2 * t);
     if (!xbulk) {
       load_x_rows(x, C0, N, row0(i), X, gt, S3_GT);
       gsync();
     }
-    h1_rows<BF>(X, C0, W1s, v, hh, hl, m1, gt, S3_GT);
+    h1_rows(X, C0, W1s, v, hh, hl, m1, gt, S3_GT);
     for (int e = gt; e < 8 * TR; e += S3_GT) {   // [x | 1 | 0], split
       const int c = e / TR, r = e % TR;
-      const Split sp = split_p<BF>(c < C0 ? to_f(X[c * TR + r])
-                                   : c == C0 ? 1.f : 0.f);
+      const Split sp = split(c < C0 ? X[c * TR + r] : c == C0 ? 1.f : 0.f);
       Xh[c * XLD + r] = __uint_as_float(sp.hi);
       Xl[c * XLD + r] = __uint_as_float(sp.lo);
     }
@@ -1321,8 +1218,8 @@ bwd_sweep3_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
       const FragA a = frag_a_rows(H, m0, kb, lane);
 #pragma unroll
       for (int nj = 0; nj < 4; ++nj)
-        mma_p<BF>(c[nj], a,
-                  frag_b_paired(Ms, b_stride(CW), 32 * nh + 8 * nj, kb, lane));
+        mma3(c[nj], a,
+             frag_b_paired(Ms, b_stride(CW), 32 * nh + 8 * nj, kb, lane));
     }
     // dy1 = [h1 > 0] (mq - (h1 M2 + rc2)), in the accumulators' places
 #pragma unroll
@@ -1334,12 +1231,9 @@ bwd_sweep3_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
             *reinterpret_cast<const uint16_t*>(m1 + r * CW + cc);
         const float2 q = qv[nj][hf];
         float* cv = c[nj] + 2 * hf;
-        cv[0] = (mk & 0xff)
-                    ? __fsub_rn(q.x, __fadd_rn(rb_if<BF>(cv[0]), rc2[cc]))
-                    : 0.f;
-        cv[1] = (mk >> 8)
-                    ? __fsub_rn(q.y, __fadd_rn(rb_if<BF>(cv[1]), rc2[cc + 1]))
-                    : 0.f;
+        cv[0] = (mk & 0xff) ? __fsub_rn(q.x, __fadd_rn(cv[0], rc2[cc])) : 0.f;
+        cv[1] =
+            (mk >> 8) ? __fsub_rn(q.y, __fadd_rn(cv[1], rc2[cc + 1])) : 0.f;
       }
     // [A1 | u1] += dy1^T [x | 1] over the warp's 16 rows, for its 32
     // channels (two 16-channel tiles mt): the A fragment (channel g (+8),
@@ -1366,13 +1260,9 @@ bwd_sweep3_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
           const FragB b{{Split{__float_as_uint(Xh[k]), __float_as_uint(Xl[k])},
                          Split{__float_as_uint(Xh[k + 4]),
                                __float_as_uint(Xl[k + 4])}}};
-          // dy1 enters the product rounded to bf16 at BF (dy1d).
-          mma_p<BF>(d,
-                    FragA{{split_p<BF>(rb_if<BF>(av[0])),
-                           split_p<BF>(rb_if<BF>(av[1])),
-                           split_p<BF>(rb_if<BF>(av[2])),
-                           split_p<BF>(rb_if<BF>(av[3]))}},
-                    b);
+          mma3(d, FragA{{split(av[0]), split(av[1]), split(av[2]),
+                         split(av[3])}},
+               b);
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[mt][q] += d[q];
@@ -1402,17 +1292,302 @@ bwd_sweep3_kernel(const typename Row<BF>::T* __restrict__ x, int C0,
 }
 
 // =====================================================================
-// The bf16 forms of B2b, B3a, B3b and B3c: kernels of their own, built
-// for Hopper's bf16 tensor cores (sa_mma.cuh, "bf16 tensor cores"). Every
-// operand a product reads is bf16 in shared memory (padded (rows, LDB)
-// tiles, fragments by ldmatrix; B3a's wgmma operands in core-matrix
-// tiles) or in registers, and every product runs as mma.sync m16n8k16
-// bf16 (B3a: wgmma m64n64k16) with f32 accumulation; no TF32 pass and no
-// hi/lo split. The f32 forms above (fwd_gram_pool_kernel<LP, false>,
-// bwd_sweep1_kernel<false>, bwd_sweep2_kernel<false>,
-// bwd_sweep3_kernel<false>) are not these kernels' instantiations. One
-// block per SM. Per-block partials in float64, summed in a fixed order:
-// runs are bit-identical.
+// The bf16 forms of B2a, B2b, B3a, B3b and B3c: kernels of their own,
+// built for Hopper's bf16 tensor cores (sa_mma.cuh, "bf16 tensor cores").
+// Every operand a product reads is bf16 in shared memory (padded (rows,
+// LDB) tiles, fragments by ldmatrix; B3a's wgmma operands in core-matrix
+// tiles) or in registers (B2a's and B3c's h1, made there as A
+// fragments), and every product runs as mma.sync m16n8k16 bf16 (B3a:
+// wgmma m64n64k16) with f32 accumulation; no TF32 pass and no hi/lo
+// split. One block per SM. Per-block partials in float64, summed in a
+// fixed order: runs are bit-identical.
+
+// ---------------------------------------------------------------------
+// B2 sweep A at bf16 (facl_sa_fwd_layer12_bf16). Replaces
+// facl_tpu/ops/pallas/sa_pair.py::_make_pair_layer12_kernel (:121,
+// pallas_call :634) at compute_dtype bfloat16: p1 = bf16(x bf16(W1)) +
+// bf16(b1) summed in f32, h1 = relu(bf16(p1 mul1 + shift1)), p2 =
+// bf16(h1 bf16(W2)) + bf16(b2) summed in f32 and stored as bf16; per
+// block the sums of p2 and p2^2, taken before that rounding (the twin:
+// ops/sa_pair.py::sa_fwd_layer12_bf16_plain). part: (blocks, 2, 64)
+// float64 = [sum p2 | sum p2^2].
+//
+// Bound on the card at the main path (R = 2,621,440 rows): 0.106 ms by
+// bytes (x in, p2 out: 136 B a row). The products are 21.5 GFLOP (0.022
+// ms at the bf16 rate), but h1's chain, about a dozen CUDA-core
+// instructions a value for 168 M values, is work of the same order as the
+// byte stream: the design gives the CUDA cores' instruction slots to it
+// and lets the memory traffic run beside it. The form this replaces (the f32 design
+// at bf16) ran each 8-wide k step as a TF32 product into zeroed registers
+// added with rounding (as many FADDs as h1 has instructions), reread W2
+// as f32 fragments, stored p2 in 4-byte pieces and spilled. Here each of
+// the 16 warps walks its own 32-row steps, two 16-row slices at once,
+// with no block barrier in the loop:
+//  - x (channel-major) arrives by cp.async in 16-byte pieces of 8 rows
+//    into the warp's own four stages, three steps in flight (read row by
+//    row where a cloud's length is not a multiple of 8);
+//  - h1 is made in registers as the A fragments of mma.sync m16n8k16 (C
+//    of two n-tiles is A of a k16 step) by h1_pre_bf16's chain, four rows
+//    at a time, so that a column pair's parameters (a record of bf16(W1)'s
+//    rows, bf16(b1), mul1 and shift1, read by 16-byte loads) serve four
+//    rows; its ReLU is a 16-bit integer max on the packed pair (relu_packed's
+//    values but at a NaN: a half <= 0, or -0, becomes +0);
+//  - h1 bf16(W2) accumulates in place in f32 over four k16 steps,
+//    bf16(W2)'s B fragments by ldmatrix from a padded tile, each serving
+//    both slices;
+//  - p2 = bf16(acc) + bf16(b2) (rounded two values at a time) is staged
+//    by stmatrix in the warp's padded tile and leaves in 16-byte stores,
+//    four whole rows a warp instruction;
+//  - the sums of p2 and p2^2 are taken over the lane's four rows, then
+//    over the eight g lanes by shuffles that halve what each lane keeps
+//    (f32 within a step), carried in float64 across steps; the 16 warps'
+//    partials are added in order at the end, so runs are bit-identical.
+// XC (4 or 7) bounds C0, so that the main path's C0 = 4 keeps 16 x values
+// in registers. 512 threads, one block per SM, 116 KB of shared memory.
+constexpr int L12B_NT = 512;
+constexpr int L12B_WARPS = L12B_NT / 32;
+constexpr int L12B_ROWS = 32;                   // rows of a warp's step
+constexpr int L12B_STAGES = 4;                  // x stages of a warp
+constexpr int L12B_XS = C0MAX * L12B_ROWS;      // bf16 values of an x stage
+// A column pair's parameters (floats): bf16(W1)'s row k at 2 k (zero at
+// k >= C0), bf16(b1) at 16, mul1 at 18, shift1 at 20.
+constexpr int L12B_PP = 24;
+
+// h1_pre_bf16's chain, then the ReLU, for NR rows (x values xr[r]) at the
+// column pair of parameter record P: h[r] the packed pair of row r. The
+// first product starts the sum where h1_pre_bf16 adds it to +0: the two
+// differ only in the sign of a zero sum, which the ReLU makes +0 either
+// way.
+template <int NR, int XC>
+__device__ __forceinline__ void h1_bf16_rows(const float (&xr)[NR][XC],
+                                             int C0, const float* P,
+                                             uint32_t (&h)[NR]) {
+  float2 a[NR];
+  const float4 w0 = *reinterpret_cast<const float4*>(P);
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    a[r] = make_float2(__fmul_rn(xr[r][0], w0.x), __fmul_rn(xr[r][0], w0.y));
+    if (C0 > 1) {
+      a[r].x = __fadd_rn(a[r].x, __fmul_rn(xr[r][1], w0.z));
+      a[r].y = __fadd_rn(a[r].y, __fmul_rn(xr[r][1], w0.w));
+    }
+  }
+#pragma unroll
+  for (int k = 2; k < XC; k += 2) {
+    if (k >= C0) break;
+    const float4 w = *reinterpret_cast<const float4*>(P + 2 * k);
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      a[r].x = __fadd_rn(a[r].x, __fmul_rn(xr[r][k], w.x));
+      a[r].y = __fadd_rn(a[r].y, __fmul_rn(xr[r][k], w.y));
+      if (k + 1 < XC && k + 1 < C0) {
+        a[r].x = __fadd_rn(a[r].x, __fmul_rn(xr[r][k + 1], w.z));
+        a[r].y = __fadd_rn(a[r].y, __fmul_rn(xr[r][k + 1], w.w));
+      }
+    }
+  }
+  const float4 bm = *reinterpret_cast<const float4*>(P + 2 * C0MAX);
+  const float2 sh = *reinterpret_cast<const float2*>(P + 2 * C0MAX + 4);
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const float2 ra = unpack_bf16(pack_bf16(a[r].x, a[r].y));
+    h[r] = __vmaxs2(
+        pack_bf16(__fadd_rn(__fmul_rn(__fadd_rn(ra.x, bm.x), bm.z), sh.x),
+                  __fadd_rn(__fmul_rn(__fadd_rn(ra.y, bm.y), bm.w), sh.y)),
+        0u);
+  }
+}
+
+template <int XC>
+__global__ void __launch_bounds__(L12B_NT, 1)
+fwd_layer12_bf16_kernel(const __nv_bfloat16* __restrict__ x, int C0,
+                        int64_t N, int64_t R, const float* __restrict__ W1,
+                        const float* __restrict__ vec1,
+                        const float* __restrict__ W2,
+                        const float* __restrict__ b2,
+                        __nv_bfloat16* __restrict__ p2,
+                        double* __restrict__ part) {
+  using bf = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char smb[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  bf* Ws = reinterpret_cast<bf*>(smb);                  // bf16(W2) [k][n]
+  bf* stg = Ws + CW * LDB + warp * L12B_ROWS * LDB;     // the warp's p2 rows
+  bf* xst = Ws + CW * LDB + L12B_WARPS * L12B_ROWS * LDB +
+            warp * L12B_STAGES * L12B_XS;               // and x stages
+  float* prm = reinterpret_cast<float*>(
+      Ws + CW * LDB + L12B_WARPS * (L12B_ROWS * LDB + L12B_STAGES * L12B_XS));
+  float* b2s = prm + CW / 2 * L12B_PP;                  // bf16(b2)
+  // The warp's 32-row steps, strided over all warps of the grid.
+  const int64_t nsteps = R / L12B_ROWS;
+  const int64_t gw = static_cast<int64_t>(blockIdx.x) * L12B_WARPS + warp;
+  const int64_t nw = static_cast<int64_t>(gridDim.x) * L12B_WARPS;
+  const int64_t count = nsteps > gw ? (nsteps - 1 - gw) / nw + 1 : 0;
+  // x in 16-byte copies of 8 rows (one cloud: N % 8 == 0), else by loads.
+  const bool xvec = N % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  auto fetch = [&](int64_t i) {     // the warp's copies of its step i
+    if (i < count) {
+      bf* X = xst + (i % L12B_STAGES) * L12B_XS;    // (C0MAX, 32) channel-major
+      const int64_t r0 = (gw + i * nw) * L12B_ROWS;
+      if (xvec) {
+        for (int e = lane; e < C0 * (L12B_ROWS / 8); e += 32) {
+          const int c = e / (L12B_ROWS / 8), h = e % (L12B_ROWS / 8);
+          const int64_t r = r0 + 8 * h, b = r / N, n = r - b * N;
+          cp_async16(X + c * L12B_ROWS + 8 * h, x + (b * C0 + c) * N + n);
+        }
+      } else {
+        for (int e = lane; e < C0 * L12B_ROWS; e += 32) {
+          const int c = e / L12B_ROWS, j = e % L12B_ROWS;
+          const int64_t r = r0 + j, b = r / N, n = r - b * N;
+          X[c * L12B_ROWS + j] = x[(b * C0 + c) * N + n];
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int i = 0; i < L12B_STAGES - 1; ++i) fetch(i);
+  for (int e = threadIdx.x; e < CW * CW; e += L12B_NT)
+    Ws[(e >> 6) * LDB + (e & 63)] = __float2bfloat16_rn(W2[e]);
+  for (int e = threadIdx.x; e < CW / 2 * L12B_PP; e += L12B_NT) {
+    const int q = e % L12B_PP, col = 2 * (e / L12B_PP) + (q & 1);
+    const int k = q >> 1;     // a row of W1; C0MAX: b1, +1 mul1, +2 shift1
+    float val = 0.f;
+    if (k < C0)
+      val = rb(W1[k * CW + col]);
+    else if (k == C0MAX)
+      val = rb(vec1[col]);
+    else if (k > C0MAX && k <= C0MAX + 2)
+      val = vec1[(k - C0MAX) * CW + col];
+    prm[e] = val;
+  }
+  for (int e = threadIdx.x; e < CW; e += L12B_NT) b2s[e] = rb(b2[e]);
+  __syncthreads();
+
+  // Sums of p2 and p2^2 of columns 8 g + 2 t (+1): [s, ss, s', ss'].
+  double run[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int64_t i = 0; i < count; ++i) {
+    cp_async_wait<L12B_STAGES - 2>();
+    __syncwarp();
+    fetch(i + L12B_STAGES - 1);
+    const bf* X = xst + (i % L12B_STAGES) * L12B_XS;
+    const int64_t r0 = (gw + i * nw) * L12B_ROWS;
+    // The lane's rows 8 r + g: g, g + 8 of slice 0 (r = 0, 1), of slice 1
+    // (r = 2, 3).
+    float xr[4][XC];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int k = 0; k < XC; ++k)
+        xr[r][k] = k < C0 ? to_f(X[k * L12B_ROWS + 8 * r + g]) : 0.f;
+    // h1 bf16(W2) for both slices: the A fragment of slice s at k16 step
+    // kk is h1 at its rows g, g + 8 and columns 16 kk + 8 jj + 2t (+1).
+    float c[2][8][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj) zero4(c[s][nj]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t h[4];
+        h1_bf16_rows<4, XC>(xr, C0, prm + (8 * kk + 4 * jj + t) * L12B_PP,
+                            h);
+        a[0][2 * jj] = h[0];
+        a[0][2 * jj + 1] = h[1];
+        a[1][2 * jj] = h[2];
+        a[1][2 * jj + 1] = h[3];
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm4t(b, b_rows_at(Ws, 16 * np, 16 * kk, lane));
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          mma_bf16(c[s][2 * np], a[s], b[0], b[1]);
+          mma_bf16(c[s][2 * np + 1], a[s], b[2], b[3]);
+        }
+      }
+    }
+    // p2 = bf16(acc) + bf16(b2), staged by n-tile pairs (stmatrix: slice
+    // s's rows, columns 16 q..); the lane's sums over its four rows, per
+    // column 8 nj + 2t (+1): vs[4 nj ..] = [s, ss, s', ss'].
+    float vs[32];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t st[2][4];
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn) {
+        const int nj = 2 * q + jn;
+        const float2 bb = ld2(b2s + 8 * nj + 2 * t);
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 f = unpack_bf16(
+                pack_bf16(c[s][nj][2 * h], c[s][nj][2 * h + 1]));
+            const float2 u = make_float2(__fadd_rn(f.x, bb.x),
+                                         __fadd_rn(f.y, bb.y));
+            st[s][2 * jn + h] = pack_bf16(u.x, u.y);
+            float* v = vs + 4 * nj;
+            if (s == 0 && h == 0) {
+              v[0] = u.x;
+              v[1] = __fmul_rn(u.x, u.x);
+              v[2] = u.y;
+              v[3] = __fmul_rn(u.y, u.y);
+            } else {
+              v[0] = __fadd_rn(v[0], u.x);
+              v[1] = fmaf(u.x, u.x, v[1]);
+              v[2] = __fadd_rn(v[2], u.y);
+              v[3] = fmaf(u.y, u.y, v[3]);
+            }
+          }
+      }
+#pragma unroll
+      for (int s = 0; s < 2; ++s)            // a_rows_at's addresses
+        stsm4(stg + (16 * s + (lane & 15)) * LDB + 16 * q + ((lane >> 4) << 3),
+              st[s]);
+    }
+    // Over the eight g lanes (as the f32 form): lane (g, t) ends with
+    // n-tile g's vs[0..3].
+#pragma unroll
+    for (int q = 0; q < 16; ++q) halve(vs[q], vs[16 + q], lane, 16);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) halve(vs[q], vs[8 + q], lane, 8);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) halve(vs[q], vs[4 + q], lane, 4);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) run[q] += vs[q];
+    // The staged rows leave in 16-byte stores: four whole rows a warp
+    // instruction.
+    __syncwarp();
+    bf* out = p2 + r0 * CW;
+#pragma unroll
+    for (int q = 0; q < L12B_ROWS / 4; ++q) {
+      const int r = 4 * q + (lane >> 3), cl = (lane & 7) * 8;
+      *reinterpret_cast<uint4*>(out + r * CW + cl) =
+          *reinterpret_cast<const uint4*>(stg + r * LDB + cl);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // The 16 warps' partials summed in order (staged over W2 and the rows).
+  double* red = reinterpret_cast<double*>(smb);           // (warps, 2, CW)
+  const int col = 8 * g + 2 * t;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    red[(warp * 2 + (q & 1)) * CW + col + (q >> 1)] = run[q];
+  __syncthreads();
+  if (threadIdx.x < 2 * CW) {
+    const int q = threadIdx.x / CW, cl = threadIdx.x % CW;
+    double a = 0.0;
+    for (int w = 0; w < L12B_WARPS; ++w) a += red[(w * 2 + q) * CW + cl];
+    part[(int64_t)blockIdx.x * 2 * CW + threadIdx.x] = a;
+  }
+}
 
 // ---------------------------------------------------------------------
 // B2 sweep B at bf16 (facl_sa_fwd_gram_pool_bf16). Replaces
@@ -2699,33 +2874,59 @@ bwd_sweep3_bf16_kernel(const __nv_bfloat16* __restrict__ x, int C0,
 // Every launcher: grid = nblk persistent blocks over R / 64 row tiles;
 // returns cudaGetLastError() (0 on success). Each sweep has an f32 entry
 // point (facl_sa_*) and a bf16 one (facl_sa_*_bf16: x, p2, q3, mq and
-// B2b's max/min stored as bf16), instantiations of one template.
+// B2b's max/min stored as bf16), the two explicit specialisations of its
+// launcher: <false> launches the f32 kernel, <true> the bf16 one.
 template <bool BF>
 int launch_fwd_layer12(const void* x, int B, int C0, int N, const float* W1,
                        const float* vec1, const float* W2, const float* b2,
-                       void* p2, double* part, int nblk, void* stream) {
-  using T = typename Row<BF>::T;
+                       void* p2, double* part, int nblk, void* stream);
+template <bool BF>
+int launch_fwd_gram_pool(const void* p2, int64_t R, int pool,
+                         const float* vec2, const float* W3, const float* b3,
+                         double* partG, double* partc, void* mx, void* mn,
+                         int* imx, int* imn, int nblk, void* stream);
+template <bool BF>
+int launch_bwd_sweep1(const void* p2, int64_t R, int pool, const float* vec2,
+                      const void* dpooled, const int* idx, const float* gi3,
+                      const float* W3, void* q3, double* partA, double* partu,
+                      int nblk, void* stream);
+template <bool BF>
+int launch_bwd_sweep2(const void* x, int B, int C0, int N, const float* W1,
+                      const float* vec, const void* p2, const void* q3,
+                      const float* M3, const float* W2, void* mq,
+                      double* partA, double* partG, double* partu,
+                      double* partc, int nblk, void* stream);
+template <bool BF>
+int launch_bwd_sweep3(const void* x, int B, int C0, int N, const float* W1,
+                      const float* vec, const void* mq, const float* M2,
+                      double* part, int nblk, void* stream);
+
+// The f32 entry points.
+template <>
+int launch_fwd_layer12<false>(const void* x, int B, int C0, int N,
+                              const float* W1, const float* vec1,
+                              const float* W2, const float* b2, void* p2,
+                              double* part, int nblk, void* stream) {
   const int64_t R = (int64_t)B * N;
   if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * (3 * 32 * b_stride(CW) + C0MAX * CW + 4 * CW +
                        L12_WARPS * 2 * C0MAX * TR) +
       L12_WARPS * 2 * sizeof(uint64_t);
-  cudaError_t e = prepare(fwd_layer12_kernel<BF>, smem);
+  cudaError_t e = prepare(fwd_layer12_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fwd_layer12_kernel<BF>
-      <<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(x), C0, N, R / TR, W1, vec1, W2, b2,
-          static_cast<T*>(p2), part);
+  fwd_layer12_kernel<<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), C0, N, R / TR, W1, vec1, W2, b2,
+      static_cast<float*>(p2), part);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF>
-int launch_fwd_gram_pool(const void* p2, int64_t R, int pool,
-                         const float* vec2, const float* W3, const float* b3,
-                         double* partG, double* partc, void* mx, void* mn,
-                         int* imx, int* imn, int nblk, void* stream) {
-  using T = typename Row<BF>::T;
+template <>
+int launch_fwd_gram_pool<false>(const void* p2, int64_t R, int pool,
+                                const float* vec2, const float* W3,
+                                const float* b3, double* partG, double* partc,
+                                void* mx, void* mn, int* imx, int* imn,
+                                int nblk, void* stream) {
   if (bad_pool(R, pool)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * (GP_STAGES * TR * CW + 2 * TILE_F +
@@ -2734,75 +2935,73 @@ int launch_fwd_gram_pool(const void* p2, int64_t R, int pool,
   const int upt = pool > TR ? pool / TR : 1;
   int lp = 0;
   while ((1 << lp) < pool && lp < 6) ++lp;      // log2(min(pool, TR))
-  decltype(&fwd_gram_pool_kernel<0, BF>) kern;
+  decltype(&fwd_gram_pool_kernel<0>) kern;
   switch (lp) {
-    case 0: kern = fwd_gram_pool_kernel<0, BF>; break;
-    case 1: kern = fwd_gram_pool_kernel<1, BF>; break;
-    case 2: kern = fwd_gram_pool_kernel<2, BF>; break;
-    case 3: kern = fwd_gram_pool_kernel<3, BF>; break;
-    case 4: kern = fwd_gram_pool_kernel<4, BF>; break;
-    case 5: kern = fwd_gram_pool_kernel<5, BF>; break;
-    default: kern = fwd_gram_pool_kernel<6, BF>; break;
+    case 0: kern = fwd_gram_pool_kernel<0>; break;
+    case 1: kern = fwd_gram_pool_kernel<1>; break;
+    case 2: kern = fwd_gram_pool_kernel<2>; break;
+    case 3: kern = fwd_gram_pool_kernel<3>; break;
+    case 4: kern = fwd_gram_pool_kernel<4>; break;
+    case 5: kern = fwd_gram_pool_kernel<5>; break;
+    default: kern = fwd_gram_pool_kernel<6>; break;
   }
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kern<<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(p2), R / TR, upt, vec2, W3, b3, partG, partc,
-      static_cast<T*>(mx), static_cast<T*>(mn), imx, imn);
+      static_cast<const float*>(p2), R / TR, upt, vec2, W3, b3, partG, partc,
+      static_cast<float*>(mx), static_cast<float*>(mn), imx, imn);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF>
-int launch_bwd_sweep1(const void* p2, int64_t R, int pool, const float* vec2,
-                      const void* dpooled, const int* idx, const float* gi3,
-                      const float* W3, void* q3, double* partA, double* partu,
-                      int nblk, void* stream) {
-  using T = typename Row<BF>::T;
+template <>
+int launch_bwd_sweep1<false>(const void* p2, int64_t R, int pool,
+                             const float* vec2, const void* dpooled,
+                             const int* idx, const float* gi3,
+                             const float* W3, void* q3, double* partA,
+                             double* partu, int nblk, void* stream) {
   if (bad_pool(R, pool)) return static_cast<int>(cudaErrorInvalidValue);
   const int U = sweep1_rows(pool);
   const int gpt = pool <= U ? U / pool : 1;
   int S = 4;                          // stages: as many as fit, up to 4
-  while (S > 0 && s1_layout(U, gpt, S, sizeof(T)).total > MAX_SMEM) --S;
+  while (S > 0 && s1_layout(U, gpt, S).total > MAX_SMEM) --S;
   if (S == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = s1_layout(U, gpt, S, sizeof(T)).total;
-  cudaError_t e = prepare(bwd_sweep1_kernel<BF>, smem);
+  const size_t smem = s1_layout(U, gpt, S).total;
+  cudaError_t e = prepare(bwd_sweep1_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_sweep1_kernel<BF>
-      <<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(p2), R / U, U, pool, S, vec2,
-          static_cast<const T*>(dpooled), idx, gi3, W3, static_cast<T*>(q3),
-          partA, partu);
+  bwd_sweep1_kernel<<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(p2), R / U, U, pool, S, vec2,
+      static_cast<const float*>(dpooled), idx, gi3, W3,
+      static_cast<float*>(q3), partA, partu);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF>
-int launch_bwd_sweep2(const void* x, int B, int C0, int N, const float* W1,
-                      const float* vec, const void* p2, const void* q3,
-                      const float* M3, const float* W2, void* mq,
-                      double* partA, double* partG, double* partu,
-                      double* partc, int nblk, void* stream) {
-  using T = typename Row<BF>::T;
+template <>
+int launch_bwd_sweep2<false>(const void* x, int B, int C0, int N,
+                             const float* W1, const float* vec, const void* p2,
+                             const void* q3, const float* M3, const float* W2,
+                             void* mq, double* partA, double* partG,
+                             double* partu, double* partc, int nblk,
+                             void* stream) {
   const int64_t R = (int64_t)B * N;
   if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * (2 * (TR * CW + C0MAX * TR) + TR * CW + 5 * TILE_F +
                        4 * 32 * b_stride(CW) + C0MAX * CW + 7 * CW) +
       TR * CW + 3 * sizeof(uint64_t);
-  cudaError_t e = prepare(bwd_sweep2_kernel<BF>, smem);
+  cudaError_t e = prepare(bwd_sweep2_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_sweep2_kernel<BF>
-      <<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(x), C0, N, R / TR, W1, vec,
-          static_cast<const T*>(p2), static_cast<const T*>(q3), M3, W2,
-          static_cast<T*>(mq), partA, partG, partu, partc);
+  bwd_sweep2_kernel<<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), C0, N, R / TR, W1, vec,
+      static_cast<const float*>(p2), static_cast<const float*>(q3), M3, W2,
+      static_cast<float*>(mq), partA, partG, partu, partc);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF>
-int launch_bwd_sweep3(const void* x, int B, int C0, int N, const float* W1,
-                      const float* vec, const void* mq, const float* M2,
-                      double* part, int nblk, void* stream) {
-  using T = typename Row<BF>::T;
+template <>
+int launch_bwd_sweep3<false>(const void* x, int B, int C0, int N,
+                             const float* W1, const float* vec, const void* mq,
+                             const float* M2, double* part, int nblk,
+                             void* stream) {
   const int64_t R = (int64_t)B * N;
   if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
@@ -2810,16 +3009,38 @@ int launch_bwd_sweep3(const void* x, int B, int C0, int N, const float* W1,
                        2 * 32 * b_stride(CW) + C0MAX * CW + 4 * CW +
                        2 * S3_GROUP) +
       S3_STAGES * sizeof(uint64_t);
-  cudaError_t e = prepare(bwd_sweep3_kernel<BF>, smem);
+  cudaError_t e = prepare(bwd_sweep3_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_sweep3_kernel<BF>
-      <<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(x), C0, N, R / TR, W1, vec,
-          static_cast<const T*>(mq), M2, part);
+  bwd_sweep3_kernel<<<nblk, NTM, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), C0, N, R / TR, W1, vec,
+      static_cast<const float*>(mq), M2, part);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The bf16 entry points launch the bf16 designs (kernels of their own).
+template <>
+int launch_fwd_layer12<true>(const void* x, int B, int C0, int N,
+                             const float* W1, const float* vec1,
+                             const float* W2, const float* b2, void* p2,
+                             double* part, int nblk, void* stream) {
+  using T = __nv_bfloat16;
+  const int64_t R = (int64_t)B * N;
+  if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      sizeof(T) * (CW * LDB + L12B_WARPS * (L12B_ROWS * LDB +
+                                            L12B_STAGES * L12B_XS)) +
+      sizeof(float) * (CW / 2 * L12B_PP + CW);
+  decltype(&fwd_layer12_bf16_kernel<4>) kern =
+      C0 <= 4 ? fwd_layer12_bf16_kernel<4>
+              : fwd_layer12_bf16_kernel<C0MAX - 1>;
+  cudaError_t e = prepare(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<nblk, L12B_NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), C0, N, R, W1, vec1, W2, b2,
+      static_cast<T*>(p2), part);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <>
 int launch_fwd_gram_pool<true>(const void* p2, int64_t R, int pool,
                                const float* vec2, const float* W3,

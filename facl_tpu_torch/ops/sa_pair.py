@@ -33,15 +33,14 @@ cotangent to the first index of the raw-p3 max (or min) the forward
 found.
 
 pair3 and pair also run at compute_dtype bfloat16 (``dtype=
-torch.bfloat16``): the six sweeps then have bf16 instantiations
+torch.bfloat16``): the six sweeps then have bf16 forms
 (``sa_fwd_layer12_bf16`` .. ``sa_bwd_sweep3_bf16`` and
 ``sa_bwd_sweep2_full_bf16``, entry points ``facl_sa_*_bf16``) that store x,
-p2, q3 and mq (and B2b's max/min) in bf16: B2b, B3a, B3b and B3c as
+p2, q3 and mq (and B2b's max/min) in bf16: B2a, B2b, B3a, B3b and B3c as
 kernels of their own on bf16 tensor cores (mma.sync m16n8k16 bf16; B3a's
-dense q3 product as wgmma), B2a as the bf16 instantiation of its f32
-template (every product in one TF32 pass), B6 (csrc/sa_2sweep.cu) on CUDA
-cores. Their twins define the cast points (below). Everything outside the
-sweeps stays f32, as XLA keeps it outside Pallas.
+dense q3 product as wgmma), B6 (csrc/sa_2sweep.cu) on CUDA cores. Their
+twins define the cast points (below). Everything outside the sweeps stays
+f32, as XLA keeps it outside Pallas.
 
 Input cotangent contract: ZERO (facl_tpu/ops/pallas/sa_pair.py:67-68) —
 the grouped neighbourhoods are data in the training step.
@@ -241,9 +240,8 @@ def sa_bwd_sweep2_full_bf16_plain(x3, w1, b1, mul1, shift1, p2, mul2,
 
 # -- kernel wrappers ----------------------------------------------------
 # Each sweep has an f32 and a bf16 entry point (csrc/sa_pair.cu:
-# facl_sa_*, facl_sa_*_bf16; one template's two instantiations for B2a,
-# two kernels for B2b, B3a, B3b and B3c), each with its own wrapper, twin
-# and launch counter. ``dt`` is the storage dtype of x,
+# facl_sa_*, facl_sa_*_bf16; two kernels each), each with its own
+# wrapper, twin and launch counter. ``dt`` is the storage dtype of x,
 # p2, q3 and mq, and of the max/min of B2b; a tensor stored otherwise
 # raises.
 

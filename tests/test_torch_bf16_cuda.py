@@ -1,6 +1,6 @@
-"""The bf16 instantiations of the pair3 sweeps (B2a, B2b, B3a, B3b, B3c at
-compute_dtype bfloat16; the bf16 forms of B2b, B3a, B3b and B3c also at
-uneven row counts and unaligned rows), of B6, B7 and B8 (pair's sweep 2, hybrid2's
+"""The bf16 forms of the pair3 sweeps (B2a, B2b, B3a, B3b, B3c at
+compute_dtype bfloat16; each also at uneven row counts, B2b and B3b at
+unaligned rows), of B6, B7 and B8 (pair's sweep 2, hybrid2's
 forward, the two-sweep backward) and of B9 (the pallas stage's eight
 sweeps) against their bf16 twins, on the card; and the bf16 pair3 and
 pallas stages, card vs CPU.
@@ -366,6 +366,35 @@ def test_bf16_b3a_b3c_redesigned(dev, rng, K, B, N):
     tw = SP.sa_bwd_sweep3_bf16_plain(*as3)
     _acc(k[0], tw[0])
     _acc(k[1], tw[1])
+
+
+@pytest.mark.parametrize("C0,B,N", [(4, 2, 32 * 128), (4, 16, 12),
+                                    (3, 16, 12), (4, 8, 40), (3, 8, 40),
+                                    (4, 4, 96), (4, 1, 192), (7, 1, 192)])
+def test_bf16_b2a_redesigned(dev, rng, C0, B, N):
+    """The bf16 form of B2a, a kernel of its own (h1 made as the A
+    fragments of mma.sync m16n8k16, p2 staged by stmatrix): N = 32 x 128
+    (the fine variant's S = 32, K = 128); N = 12 (x rows not in 8-row
+    pieces of one cloud: the warp reads them one by one); N = 40 and 96
+    (32-row steps across clouds: 8-row pieces of two clouds); C0 = 3, 4
+    and 7 (both instantiations); B = 1, N = 192: six steps for far fewer
+    than the grid's warps (most take none)."""
+    from facl_tpu_torch.ops import sa_pair as SP
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    x3 = t(rng.normal(size=(B, C0, N))).to(BF16)
+    a12 = (x3, t(rng.normal(size=(C0, 64), scale=0.3)),
+           t(rng.normal(size=(64,), scale=0.1)),
+           t(2.0 * rng.normal(size=(64,))), t(rng.normal(size=(64,))),
+           t(rng.normal(size=(64, 64), scale=0.3)),
+           t(rng.normal(size=(64,), scale=0.1)))
+    k = SP.sa_fwd_layer12_bf16(*a12)
+    assert all(torch.equal(a, b)
+               for a, b in zip(k, SP.sa_fwd_layer12_bf16(*a12)))
+    tw = SP.sa_fwd_layer12_bf16_plain(*a12)
+    assert k[0].dtype == BF16
+    _rows(k[0], tw[0])
+    _acc(k[1], tw[1])
+    _acc(k[2], tw[2])
 
 
 def test_bf16_b2b_b3b_misaligned(dev, rng):

@@ -1,10 +1,11 @@
-"""The order of sums of the bf16 forms of B2b (sa_fwd_gram_pool_bf16), B3a
-(sa_bwd_sweep1_bf16), B3b (sa_bwd_sweep2_bf16) and B3c
-(sa_bwd_sweep3_bf16), modelled in torch on the CPU, held against their
-bf16 twins and against the JAX kernels they port; and chip_smoke.py's
-comparison of a bf16 sweep's outputs with another tree's (``--parent``).
+"""The order of sums of the bf16 forms of B2a (sa_fwd_layer12_bf16), B2b
+(sa_fwd_gram_pool_bf16), B3a (sa_bwd_sweep1_bf16), B3b
+(sa_bwd_sweep2_bf16) and B3c (sa_bwd_sweep3_bf16), modelled in torch on
+the CPU, held against their bf16 twins and against the JAX kernels they
+port; chip_smoke.py's comparison of a bf16 sweep's outputs with another
+tree's (``--parent``); and its profiled kernel time (``kernel_ms``).
 
-On the card the two kernels take bf16 operands, run every product as
+On the card the kernels take bf16 operands, run every product as
 mma.sync m16n8k16 (exact bf16 products summed into f32 accumulators one
 k16 step at a time), sum each 64-row tile's contraction over rows (Gram,
 A2, G1) in f32 and carry the tiles in float64, and sum the column sums
@@ -13,6 +14,9 @@ float64. B3a takes q3 as the TPU kernel's dense product D bf16(W3)^T
 (D = bf16(dy3 bf16(gi3)), one value per (group, channel) at its argmax
 row) in k16 steps into f32, and carries A3 in f32 entry by entry; B3c
 sums [A1 | u1] = dy1^T [x | 1] one 16-row k16 step at a time into f32.
+B2a makes h1 by its CUDA-core chain (x W1 channel by channel in f32),
+takes h1 bf16(W2) in k16 steps into f32 and sums p2 and p2^2 in f32 over
+each warp's 32-row step, carried in float64. ``layer12_model``,
 ``gram_pool_model``, ``sweep1_model``, ``sweep2_model`` and
 ``sweep3_model`` below compute the same functions in those orders (a k16
 step summed in float64 and rounded to f32, then added to the f32
@@ -22,7 +26,8 @@ held to can be checked against that order here:
   * at bench.py's magnitudes (the model's SA weights at full width,
     randn clouds grouped at S = K = 64 and at the fine variant's S = 32,
     K = 128), on rows with bf16 near-ties (padded rows repeated and
-    nudged by one bf16 ulp) and, for B3a, on an argmax layout skewed as
+    nudged by one bf16 ulp: of p2 for B2b and B3b, of x for B2a) and,
+    for B3a, on an argmax layout skewed as
     the main path's (most of a group's channels on its first row, a
     third dead), the model sits within chip_smoke.py phase 2's
     bf16 bars of the bf16 twins: bf16 rows within one bf16 ulp but at most
@@ -66,6 +71,30 @@ cs = _chip_smoke()
 
 
 # -- the model ------------------------------------------------------------
+
+def _h1_chain(x3, w1, b1, mul1, shift1):
+    """h1 as B2a-bf16 makes it: x bf16(W1) summed channel by channel in f32
+    from the first product (each product and sum rounded), p1 = bf16(that)
+    + bf16(b1) in f32, h1 = relu(bf16(p1 mul1 + shift1))."""
+    xr, w = SP._rows(x3).float(), SP._rb(w1)
+    a = xr[:, :1] * w[0]
+    for k in range(1, xr.shape[1]):
+        a = a + xr[:, k:k + 1] * w[k]
+    return SP._h_bf16(SP._rb(a) + SP._rb(b1), mul1, shift1)
+
+
+def layer12_model(x3, w1, b1, mul1, shift1, w2, b2, step=32):
+    """B2a-bf16 in the kernel's order of sums (its twin's outputs): h1 by
+    its chain; h1 bf16(W2) in k16 steps into f32; p2 = bf16(acc) +
+    bf16(b2) in f32, stored rounded; the sums of p2 and p2^2 in f32 over
+    each 32-row step, the steps carried in float64."""
+    h1 = _h1_chain(x3, w1, b1, mul1, shift1)
+    p2 = SP._rb(_k16(h1, SP._rb(w2))) + SP._rb(b2)
+
+    def sums(v):
+        return v.reshape(-1, step, v.shape[1]).sum(1).double().sum(0).float()
+    return p2.to(BF16), sums(p2), sums(p2 * p2)
+
 
 def _k16(a, b):
     """a (m, k) @ b (k, n) of bf16 values: each k16 step's products summed
@@ -153,10 +182,9 @@ def sweep3_model(x3, w1, b1, mul1, shift1, mq, M2, rc2):
 
 # -- inputs ---------------------------------------------------------------
 
-def _bench_inputs(S, K, clouds=4):
+def _bench_setup(S, K, clouds=4):
     """bench.py's magnitudes: the model's SA weights at full width, randn
-    clouds grouped (B1's twin) and centred, the bf16 chain up to B2b's and
-    B3b's inputs by the twins (chip_smoke.bf16_rows' chain)."""
+    clouds grouped (B1's twin) and centred; x and dpooled in bf16."""
     from facl_tpu_torch.ops import select as SEL
     from facl_tpu_torch.train import Trainer
     model = Trainer(cs._cfg(2), 100, device="cpu").init_state(cs.SEED).model
@@ -169,18 +197,33 @@ def _bench_inputs(S, K, clouds=4):
     grouped[:, :3] -= flat[:, :S, :3].transpose(1, 2)[..., None]
     x3 = grouped.reshape(clouds, 4, S * K)
     dp = torch.randn(clouds * S, 256, generator=g)
-    return _chain(x3.to(BF16), layers, dp.to(BF16), K)
+    return x3.to(BF16), layers, dp.to(BF16)
 
 
-def _chain(xb, layers, dpb, K):
-    lp1, lp2, lp3 = layers
+def _bench_inputs(S, K, clouds=4):
+    """The bf16 chain from _bench_setup's inputs up to B2b's, B3a's, B3b's
+    and B3c's inputs by the twins (chip_smoke.bf16_rows' chain)."""
+    return _chain(*_bench_setup(S, K, clouds), K)
+
+
+def _a12(xb, layers):
+    """B2a's inputs: x, layers 1 and 2, layer 1's BatchNorm folded from
+    Gram(x) (chip_smoke.bf16_rows' chain)."""
+    lp1, lp2, _ = layers
     R = xb.shape[0] * xb.shape[2]
     xf = xb.float()
     m1, v1 = SP._moments_from_gram(torch.einsum("bcn,bdn->cd", xf, xf),
                                    xf.sum((0, 2)), lp1.kernel, lp1.bias, R)
     mul1, shift1 = _fold_affine(lp1, m1, v1, EPS)
-    p2, s2, ss2 = SP.sa_fwd_layer12_bf16_plain(
-        xb, lp1.kernel, lp1.bias, mul1, shift1, lp2.kernel, lp2.bias)
+    return xb, lp1.kernel, lp1.bias, mul1, shift1, lp2.kernel, lp2.bias
+
+
+def _chain(xb, layers, dpb, K):
+    lp1, lp2, lp3 = layers
+    R = xb.shape[0] * xb.shape[2]
+    a12 = _a12(xb, layers)
+    mul1, shift1 = a12[3], a12[4]
+    p2, s2, ss2 = SP.sa_fwd_layer12_bf16_plain(*a12)
     m2, v2 = _finalize(s2, ss2, R)
     mul2, shift2 = _fold_affine(lp2, m2, v2, EPS)
     agp = (p2, mul2, shift2, lp3.kernel, lp3.bias, K)
@@ -226,6 +269,13 @@ def _near_tie_inputs(rng, K=64, groups=64):
 
 # -- the model against the twins at phase 2's bf16 bars --------------------
 
+def _layer12_within_bars(a12):
+    model, twin = layer12_model(*a12), SP.sa_fwd_layer12_bf16_plain(*a12)
+    cs.acc_rel(model[1], twin[1], "sum p2")
+    cs.acc_rel(model[2], twin[2], "sum p2^2")
+    return cs.bf16_flips(model[0], twin[0], "p2")[0]
+
+
 def _gram_pool_within_bars(agp):
     model, twin = gram_pool_model(*agp), SP.sa_fwd_gram_pool_bf16_plain(*agp)
     p3 = cs.gram_pool_bf16_p3(*agp)
@@ -256,6 +306,89 @@ def _sweep3_within_bars(as3):
     model, twin = sweep3_model(*as3), SP.sa_bwd_sweep3_bf16_plain(*as3)
     cs.acc_rel(model[0], twin[0], "A1")
     cs.acc_rel(model[1], twin[1], "u1")
+
+
+@pytest.mark.parametrize("S,K", [(64, 64), (32, 128)])
+def test_layer12_model_within_phase2_bars_at_bench_magnitudes(S, K):
+    xb, layers, _ = _bench_setup(S, K)
+    _layer12_within_bars(_a12(xb, layers))
+
+
+def test_layer12_model_within_phase2_bars_on_bf16_near_ties(rng):
+    """B2a's inputs with bf16 near-ties: in each cloud most rows a repeat
+    of its last (padded rows, exact ties), a quarter of those nudged by
+    one bf16 ulp in channel 0, so that their p2 rows sit within an ulp of
+    the padded row's."""
+    Bc, C0_, N = 4, 4, 1024
+    x = rng.normal(size=(Bc, C0_, N)).astype(np.float32)
+    pad = rng.random(size=(Bc, N)) < 0.7
+    pad[:, -1] = False                  # the padded row itself stays
+    x = np.where(pad[:, None, :], x[:, :, -1:], x)
+    xb = torch.from_numpy(x).to(BF16)
+    nudge = torch.from_numpy(pad & (rng.random(size=(Bc, N)) < 0.25))
+    ch0 = xb.view(torch.int16)[:, 0, :]
+    ch0[nudge] += torch.tensor(1, dtype=torch.int16)
+    f = lambda *s, sc=1.0: torch.from_numpy(
+        (sc * rng.normal(size=s)).astype(np.float32))
+    a12 = (xb, f(C0_, 64, sc=0.5), f(64, sc=0.1),
+           1.0 + f(64, sc=0.3), f(64, sc=0.1), f(64, 64, sc=0.125),
+           f(64, sc=0.1))
+    # the inputs do hold near-ties: a nudged row's p2 (f32, before its
+    # rounding) within one bf16 ulp of its padded row's, and not equal
+    h1 = SP._h1_bf16(*a12[:5])
+    p2 = (SP._rb(h1 @ SP._rb(a12[5])) + SP._rb(a12[6])).view(Bc, N, 64)
+    last = p2[:, -1:, :].expand_as(p2)[nudge]
+    d = (p2[nudge] - last).abs()
+    assert int(((d > 0) & (d <= cs.bf16_ulp(last.abs()))).sum()) > 100
+    _layer12_within_bars(a12)
+
+
+def test_layer12_h1_matches_the_recompute_chain_bit_for_bit():
+    """B2a-bf16 makes h1 with two shortcuts that B3b-bf16 and B3c-bf16
+    (h1_pre_bf16, relu_packed) do not take, and both give their values
+    bit for bit. (1) Its sum x W1 starts from the first product where
+    theirs adds it to +0: the two differ only in the sign of a zero sum,
+    and the ReLU makes every zero +0. (2) Its ReLU is a 16-bit signed
+    integer max with 0 on the bf16 bits, theirs keeps a half whose value
+    is > 0: the same on every bf16 value but NaN."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    vals = bits.view(BF16).float()
+    keep = ~torch.isnan(vals)
+    relu_int = torch.clamp(bits, min=0)
+    relu_packed = torch.where(vals > 0, bits, torch.zeros_like(bits))
+    assert torch.equal(relu_int[keep], relu_packed[keep])
+
+    rng = np.random.default_rng(3)
+    C0_, N = 4, 4096
+    x = rng.normal(size=(1, C0_, N)).astype(np.float32)
+    x[:, :, ::4] = 0.0                  # rows of zeros: every term zero,
+    x[:, 0, ::8] = -0.0                 # the first product's sign varies
+    w1 = torch.from_numpy(rng.normal(size=(C0_, 64)).astype(np.float32))
+    b1 = torch.from_numpy(rng.normal(size=64).astype(np.float32))
+    b1[::3] = -0.0                      # zeros of both signs carried on
+    mul1 = torch.from_numpy(rng.normal(size=64).astype(np.float32))
+    shift1 = torch.from_numpy(rng.normal(size=64).astype(np.float32))
+    shift1[::2] = 0.0
+    shift1[::6] = -0.0
+    xb = torch.from_numpy(x).to(BF16)
+
+    def pre_relu(from_zero):
+        xr, w = SP._rows(xb).float(), SP._rb(w1)
+        a = xr[:, :1] * w[0]
+        if from_zero:
+            a = torch.zeros_like(a) + a
+        for k in range(1, C0_):
+            a = a + xr[:, k:k + 1] * w[k]
+        p1 = SP._rb(a) + SP._rb(b1)
+        return (p1 * mul1 + shift1).to(BF16).view(torch.int16)
+
+    kernel, recompute = pre_relu(False), pre_relu(True)
+    assert not torch.equal(kernel, recompute)   # signed zeros do differ
+    assert torch.equal((kernel != recompute).nonzero(),
+                       ((kernel & 0x7fff) == 0).logical_and(
+                           kernel != recompute).nonzero())
+    assert torch.equal(torch.clamp(kernel, min=0),
+                       torch.clamp(recompute, min=0))
 
 
 @pytest.mark.parametrize("S,K", [(64, 64), (32, 128)])
@@ -321,6 +454,30 @@ def test_model_within_phase2_bars_on_bf16_near_ties(rng):
 
 
 # -- the model against the JAX kernels (interpret mode) --------------------
+
+@pytest.mark.parametrize("negative_scale", [False, True])
+def test_layer12_model_matches_jax_sweep(rng, monkeypatch, negative_scale):
+    """tests/test_torch_bf16_sa.py's shapes and tolerances: B2a's model fed
+    the JAX side's own inputs, against the JAX kernel's p2 and sums."""
+    x, layers = _setup(rng, negative_scale)
+    store = []
+    monkeypatch.setattr(jsp, "pl", _Recorder(store))
+    Bt = x.shape[0]
+    xf = jnp.asarray(x).astype(BF).reshape(Bt, C0, S_TINY * K_TINY)
+    _, stats, *_ = jsp.sa_forward_pair(xf, layers, K_TINY, EPS, BF, True,
+                                       True)
+    m1, v1 = stats[0]
+    mul1, shift1 = jax_fold_affine(layers[0], m1, v1, EPS)
+    (w1, b1, _, _), (w2, b2, _, _) = (tuple(_t(a) for a in lp)
+                                      for lp in layers[:2])
+    x3 = torch.from_numpy(x).reshape(Bt, C0, S_TINY * K_TINY).to(BF16)
+    p2, s2, ss2 = layer12_model(x3, w1, b1, _t(mul1), _t(shift1), w2, b2)
+    r = store[0]
+    C2 = WIDTHS[1]
+    _bf16_rows(p2, _unpair(r[0], C2), "p2")
+    _acc(s2, _lanes(r[1], C2), "sum p2")
+    _acc(ss2, _lanes(r[2], C2), "sum p2^2")
+
 
 @pytest.mark.parametrize("negative_scale", [False, True])
 def test_model_matches_jax_sweeps(rng, monkeypatch, negative_scale):
@@ -496,3 +653,27 @@ def test_parent_bf16_comparison_fails_beyond_bars(rng, case):
         mine[2] = mine[2].float()
     with pytest.raises(SystemExit):
         cs.bf16_vs_parent("sa_fwd_gram_pool_bf16", mine, theirs, p3)
+
+
+# -- chip_smoke.py's profiled kernel time ----------------------------------
+
+def test_kernel_ms_leaves_out_user_annotations():
+    """kernel_ms sums the device events by name but user annotations: the
+    device range of ``Optimizer.step#Adam.step`` spans Adam's kernels and
+    the gaps between them; host-side events are not counted."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import FunctionEvent
+
+    def ev(i, name, start, end, device=DeviceType.CUDA, annotation=False):
+        return FunctionEvent(id=i, name=name, thread=0, start_us=start,
+                             end_us=end, device_type=device,
+                             use_device="cuda", is_user_annotation=annotation)
+    events = [ev(0, "Optimizer.step#Adam.step", 0, 1000, annotation=True),
+              ev(1, "adam_kernel", 100, 300), ev(2, "adam_kernel", 600, 700),
+              ev(3, "gemm", 1000, 1500),
+              ev(4, "Optimizer.step#Adam.step", 0, 1200, DeviceType.CPU,
+                 annotation=True),
+              ev(5, "aten::mm", 0, 50, DeviceType.CPU)]
+    kern = cs.kernel_ms(events)
+    assert kern == pytest.approx({"adam_kernel": 0.3, "gemm": 0.5})
+    assert sum(kern.values()) == pytest.approx(0.8)
