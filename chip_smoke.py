@@ -118,6 +118,30 @@ Phases (any failure exits nonzero, before the final line):
              and bf16, and CPU vs card on 8 videos (f32 at 1e-4 of scale
              outside counted pool-argmax flips, bf16 at 5e-2); the probe
              (50 epochs), timed (phase_pipeline).
+  6b. swav   SwAV and CLD (phase_swav): the shipped SwAV config
+             (configs/dual_ntu120_large_batch.json: bf16, reference,
+             B=256) as it is, 2 warm-up and 5 timed steps at epoch 10 with
+             a full queue (queue_on), then with use_swav off: ms/step,
+             peak, B1's launches and SwAV's own cost; pair3 bf16 at B=64
+             with SwAV and CLD on (the bf16 B2/B3 sweeps, 20 steps) beside
+             phase 4's pair3 bf16 median; a small-width SwAV+CLD step
+             (B=8, cld_clusters 4) CPU vs card: loss terms and the new
+             queue at rtol 2e-4 / atol 1e-5, gradients at phase 3's bars
+             (flips and k-means label flips counted; a flipped label
+             touches every gradient, held then by relative L2 alone);
+             the queue gate (untouched before the start epoch, shifted by B
+             from it, scoring only once its last slot is set).
+  6c. datagen the port's generator at NTU size (phase_datagen):
+             DatagenConfig()'s defaults (424x512 frames, caps 60/30/10, a
+             128x96x96 grid, S=2048) on synthetic depth clips (the port's
+             numpy synthetic_depth_clip, 72 frames; no PNG is read),
+             clip_batch 1 and 4: raw, key, app, n_raw and n_key bit-equal
+             card vs CPU (same draws) and batch vs single; ms a clip and
+             peak; group_points_level2 (B1 once, bit-equal to the CPU);
+             generate --synthetic 32 on the card, then pretrain with the
+             shipped SwAV config on that tree (batch 16, 11 epochs: the
+             queue opens at epoch 10), its checkpoints' queues, a restore
+             bit-equal, and --resume.
   7. dp      data parallelism (B6s) on the one card: ranks started by
              facl_tpu_torch.parallel.spawn, two gloo ranks sharing the card
              (NCCL takes one card a rank). (a) the pair3 and pair SA stages
@@ -157,7 +181,10 @@ Phases (any failure exits nonzero, before the final line):
              tree: torchrun --nproc_per_node 2 pretrain --mesh (shipped
              motion config, one epoch) and extract --mesh, each video's
              f32 features against the one-process extract at 1e-5 of
-             their scale (_dp_clis).
+             their scale (_dp_clis). (f) the pair3 f32 step with SwAV and
+             CLD at B=64, two gloo ranks vs one process (_dp_swav): loss
+             terms at rtol 2e-4, the queue bit-equal across the ranks,
+             gradients before Adam at phase 3's bars, collectives counted.
 Output: a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -2906,6 +2933,470 @@ def phase_pipeline(dev, card: str, medians: dict):
     return out
 
 
+# -- phase 6b: SwAV and CLD ----------------------------------------------
+
+#: The shipped configuration that turns SwAV on.
+SWAV_CONFIG = "configs/dual_ntu120_large_batch.json"
+SWAV_WARM, SWAV_TIMED = 2, 5
+#: The main path with SwAV and CLD: pair3 bf16 at bench.py's batch.
+SWAV_MAIN_B, SWAV_MAIN_STEPS = 64, 20
+#: The small-width step of the CPU-vs-card and queue-gate checks.
+SWAV_SMALL_B = 8
+
+
+@contextlib.contextmanager
+def kmeans_labels(store: list):
+    """Record every k-means's final labels (on the CPU) into ``store``."""
+    from facl_tpu_torch.losses import cld as CLD
+    km = CLD.kmeans
+
+    def capture(x, *args, **kwargs):
+        labels, c = km(x, *args, **kwargs)
+        store.append(labels.cpu())
+        return labels, c
+    CLD.kmeans = capture
+    try:
+        yield
+    finally:
+        CLD.kmeans = km
+
+
+def filled_queue(cfg, seed: int) -> torch.Tensor:
+    """A full SwAV queue (G-1, Q, D) of unit rows from ``seed``, on the
+    CPU: its last slot is set, so the queue scores (queue_on)."""
+    Q = cfg.train.batch_size * cfg.loss.swav_queue_factor
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(cfg.model.num_crops - 1, Q, cfg.model.embed_dim,
+                    generator=g)
+    return q / q.norm(dim=-1, keepdim=True)
+
+
+def _swav_cfg(cfg, **loss):
+    import dataclasses
+    return cfg.replace(loss=dataclasses.replace(cfg.loss, **loss))
+
+
+def _swav_small_cfg(B, **loss):
+    """A small-width model (the SA stage plain: reference) with SwAV and
+    CLD on; B1 groups it on the card."""
+    import dataclasses
+    cfg = _cfg(B, "reference")
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, sa_widths=(16, 16, 32), stage2_widths=(32, 64),
+        fc_hidden=64, embed_dim=32, num_prototypes=16))
+    return _swav_cfg(cfg, **dict(dict(use_swav=True, use_cld=True,
+                                      cld_clusters=4, cld_kmeans_iters=5,
+                                      swav_queue_start_epoch=0), **loss))
+
+
+def _timed_steps(tr, st, batches, warm, steps, epoch, kernels, g):
+    """``warm`` steps, then ``steps`` timed by CUDA events between steps
+    with the launch counts zeroed just before them. Returns (state, ms
+    per step sorted, launches, last metrics, peak GiB)."""
+    for i in range(warm):
+        st, _ = tr.step_fn(st, batches[i % 2], generator=g, epoch=epoch)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
+    ev[0].record()
+    for i in range(steps):
+        st, m = tr.step_fn(st, batches[i % 2], generator=g, epoch=epoch)
+        ev[i + 1].record()
+        losses.append(m)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels if k.launches}
+    for m in losses:
+        for name, v in m.items():
+            check(math.isfinite(float(v)), f"{name} not finite: {m}")
+    per = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(steps))
+    return (st, per, launches, {n: float(v) for n, v in losses[-1].items()},
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _swav_step(d, cfg, sd, queue, pts, perm, epoch):
+    """One step on device ``d`` from ``sd`` and ``queue``: metrics, the
+    new queue, the gradients, the decisions (``_decisions``) and the
+    k-means labels."""
+    from facl_tpu_torch.train import Trainer
+    tr = Trainer(cfg, 100, device=d)
+    st = tr.init_state(SEED)
+    st.model.load_state_dict(sd)
+    st.swav_queue = None if queue is None else queue.to(d)
+    dec, labels = {}, []
+    with _decisions(st.model, cfg.model.sa_impl, pts.shape[1], dec), \
+            kmeans_labels(labels):
+        st, m = tr.step_fn(st, pts.to(d), perm=perm, epoch=epoch)
+    return dict(metrics={n: float(v) for n, v in m.items()},
+                queue=None if st.swav_queue is None else st.swav_queue.cpu(),
+                grads={n: p.grad.detach().cpu() for n, p in
+                       st.model.named_parameters() if p.grad is not None},
+                dec=dec, labels=labels)
+
+
+def _swav_grad_bars(label, g1, gk, flips, km_flips, bar):
+    """Phase 3's bars (``_dp_grad_bars``) where no k-means label flipped;
+    a flipped label moves its cluster's centroid and so the cotangent of
+    every embedding, so then the gradients are held by relative L2 alone
+    (every entry counts as touched, as a flipped pool's are)."""
+    if km_flips == 0:
+        return _dp_grad_bars(label, g1, gk, flips, bar)
+    l2 = max(_rel_l2(gk[n], a) for n, a in g1.items()
+             if not n.startswith(DP_ABSORBED))
+    check(l2 <= 1e-2, f"{label}: gradient relative L2 {l2:.3e} > 1e-2")
+    return (f"relative L2 {l2:.3e} (bar 1e-2); {km_flips} k-means labels "
+            "flipped, so no entry is held at the max-abs bar")
+
+
+def _profile_once(fn, label: str):
+    """One call of ``fn`` under torch.profiler: the device's busy sum
+    (``kernel_ms``) over the call's span and the top of the table."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+    span = s.elapsed_time(e)
+    busy = sum(kernel_ms(p.events()).values())
+    print(f"profile of one {label}: device busy {busy:.2f} ms over the "
+          f"span of {span:.2f} ms: idle share "
+          f"{max(0.0, 1 - busy / span):.3f}\n" + p.key_averages().table(
+              sort_by="self_cuda_time_total", row_limit=20), flush=True)
+
+
+def phase_swav(dev, card: str, medians: dict, profile: bool = False):
+    """SwAV and CLD on the card: the shipped SwAV config at its width and
+    batch (with SwAV off beside it), the main path (pair3 bf16) with SwAV
+    and CLD, a small-width step CPU vs card, and the queue gate. Returns
+    {path: launches}."""
+    from facl_tpu_torch.config import Config
+    from facl_tpu_torch.train import Trainer
+    here = os.path.dirname(os.path.abspath(__file__))
+    kernels = all_kernels()
+    out = {}
+    g = torch.Generator().manual_seed(SEED + 21)
+
+    # 1. The shipped config as it is (bf16, reference, B=256, SwAV on),
+    # at epoch 10 with a full queue, then with SwAV off.
+    with open(os.path.join(here, SWAV_CONFIG)) as f:
+        cfg = Config.from_json(f.read())
+    check(cfg.loss.use_swav and cfg.train.batch_size == 256,
+          f"{SWAV_CONFIG}: SwAV off or batch {cfg.train.batch_size}")
+    G, B = cfg.model.num_crops, cfg.train.batch_size
+    N, C = cfg.data.num_points, cfg.model.in_features
+    batches = torch.randn(2, G, B, N, C, generator=g).to(dev)
+    ms = {}
+    for swav in (True, False):
+        c = cfg if swav else _swav_cfg(cfg, use_swav=False)
+        tr = Trainer(c, 100, device=dev)
+        st = tr.init_state(SEED)
+        if swav:
+            st.swav_queue = filled_queue(c, SEED + 22).to(dev)
+        st, per, launches, m, peak = _timed_steps(
+            tr, st, batches, SWAV_WARM, SWAV_TIMED, 10, kernels, g)
+        label = f"shipped SwAV config, SwAV {'on' if swav else 'off'}"
+        check(launches == {"select_gather": SWAV_TIMED},
+              f"{label}: launches {launches}")
+        check(swav == ("loss_swav" in m), f"{label}: metrics {sorted(m)}")
+        if swav:
+            check(bool((st.swav_queue[:, -1].abs() > 0).any()),
+                  f"{label}: the queue's last slot emptied")
+        ms[swav] = statistics.median(per)
+        out[label] = {k: v // SWAV_TIMED for k, v in launches.items()}
+        print(f"{label} ({SWAV_CONFIG}: bf16, sa_impl "
+              f"{tr.cfg.model.sa_impl}, B={B} G={G} N={N}, epoch 10, "
+              f"queue {tuple(st.swav_queue.shape) if swav else None}) on "
+              f"{card}: median {ms[swav]:.2f} ms/step (min {per[0]:.2f}, "
+              f"max {per[-1]:.2f}; {SWAV_TIMED} steps after {SWAV_WARM}), "
+              f"peak {peak:.2f} GiB; launches {launches}; last metrics "
+              f"{ {k: round(v, 4) for k, v in m.items()} }", flush=True)
+        del tr, st
+        torch.cuda.empty_cache()
+    print(f"SwAV's own cost on the shipped config on {card}: "
+          f"{ms[True] - ms[False]:.2f} ms/step ({ms[True]:.2f} on vs "
+          f"{ms[False]:.2f} off)", flush=True)
+    del batches
+
+    # 2. The main path with SwAV and CLD: pair3 bf16 at B=64 (the B2/B3
+    # bf16 sweeps), cld_clusters 60 <= 3B.
+    B = SWAV_MAIN_B
+    c = _swav_cfg(_cfg(B, "pair3", dtype="bfloat16"), use_swav=True,
+                  use_cld=True)
+    batches = torch.randn(2, G, B, N, C, generator=g).to(dev)
+    tr = Trainer(c, 100, device=dev)
+    st = tr.init_state(SEED)
+    st.swav_queue = filled_queue(c, SEED + 23).to(dev)
+    st, per, launches, m, peak = _timed_steps(
+        tr, st, batches, SWAV_WARM, SWAV_MAIN_STEPS, 10, kernels, g)
+    want = {k: v * SWAV_MAIN_STEPS for k, v in BF16_LAUNCHES[
+        "pair3 bf16"].items()}
+    check(launches == want, f"pair3 bf16 SwAV+CLD: launches {launches}, "
+                            f"expected {want}")
+    med = statistics.median(per)
+    base = medians.get("pair3 bf16", float("nan"))
+    out["pair3 bf16 SwAV+CLD"] = BF16_LAUNCHES["pair3 bf16"]
+    if profile:
+        _profile_once(lambda: tr.step_fn(st, batches[0], generator=g,
+                                         epoch=10),
+                      f"pair3 bf16 SwAV+CLD step on {card}")
+    print(f"main path pair3 bf16 with SwAV and CLD (cld_clusters "
+          f"{c.loss.cld_clusters}, queue {tuple(st.swav_queue.shape)}, "
+          f"epoch 10) on {card}: B={B}, median {med:.2f} ms/step (min "
+          f"{per[0]:.2f}, max {per[-1]:.2f}; {SWAV_MAIN_STEPS} steps), "
+          f"phase 4's pair3 bf16 median {base:.2f} ms/step: SwAV+CLD add "
+          f"{med - base:.2f} ms/step; peak {peak:.2f} GiB; launches a step "
+          f"{BF16_LAUNCHES['pair3 bf16']}; last metrics "
+          f"{ {k: round(v, 4) for k, v in m.items()} }", flush=True)
+    del tr, st, batches
+    torch.cuda.empty_cache()
+
+    # 3. CPU against the card: a small-width SwAV+CLD step.
+    B = SWAV_SMALL_B
+    c = _swav_small_cfg(B)
+    gs = torch.Generator().manual_seed(SEED + 24)
+    pts = torch.randn(G, B, N, C, generator=gs)
+    perm = torch.randperm(G, generator=gs)
+    queue = filled_queue(c, SEED + 25)
+    sd = Trainer(c, 100, device="cpu").init_state(SEED).model.state_dict()
+    cpu = _swav_step("cpu", c, sd, queue, pts, perm, 0)
+    card_ = _swav_step(dev, c, sd, queue, pts, perm, 0)
+    for k in ("loss", "loss_swav", "loss_cld"):
+        check(math.isclose(card_["metrics"][k], cpu["metrics"][k],
+                           rel_tol=2e-4), f"SwAV cpu-vs-card {k}: "
+              f"{card_['metrics'][k]} vs {cpu['metrics'][k]}")
+    check(torch.allclose(card_["queue"], cpu["queue"], rtol=2e-4,
+                         atol=1e-5), "SwAV cpu-vs-card: queues differ")
+    km = sum(int((a != b).sum()) for a, b in zip(cpu["labels"],
+                                                 card_["labels"]))
+    km_all = sum(a.numel() for a in cpu["labels"])
+    flips = {n: (cpu["dec"][n] != card_["dec"][n]).reshape(
+        -1, cpu["dec"][n].shape[-1]) for n in cpu["dec"]}
+    got = _swav_grad_bars("SwAV cpu-vs-card", cpu["grads"], card_["grads"],
+                          flips, km, 2e-4)
+    print(f"SwAV+CLD cpu-vs-card, small width (SA {c.model.sa_widths}, "
+          f"embed {c.model.embed_dim}, B={B}, cld_clusters "
+          f"{c.loss.cld_clusters}) on {card}: loss "
+          f"{card_['metrics']['loss']:.6f} vs {cpu['metrics']['loss']:.6f}, "
+          f"swav {card_['metrics']['loss_swav']:.6f} vs "
+          f"{cpu['metrics']['loss_swav']:.6f}, cld "
+          f"{card_['metrics']['loss_cld']:.6f} vs "
+          f"{cpu['metrics']['loss_cld']:.6f} (rtol 2e-4); queue within rtol "
+          f"2e-4 / atol 1e-5; k-means labels flipped {km} of {km_all}; flipped "
+          f"decisions { {n: int(f.sum()) for n, f in flips.items()} }; "
+          f"gradients {got}", flush=True)
+
+    # 4. The queue gate, on the card.
+    c = _swav_small_cfg(B, use_cld=False, swav_queue_start_epoch=5)
+    full = filled_queue(c, SEED + 26)
+    zero = torch.zeros_like(full)
+    runs = {name: _swav_step(dev, c, sd, q, pts, perm, ep) for name, q, ep
+            in (("before", zero, 4), ("at, empty", zero, 5),
+                ("none", None, 5), ("at, full", full, 5),
+                ("after, full", full, 7), ("before, full", full, 4))}
+    check(not runs["before"]["queue"].any(), "queue gate: filled before "
+                                             "the start epoch")
+    check(torch.equal(runs["before, full"]["queue"], full),
+          "queue gate: a full queue moved before the start epoch")
+    for name in ("at, empty", "at, full", "after, full"):
+        q = runs[name]["queue"]
+        old = zero if "empty" in name else full
+        check(torch.equal(q[:, B:], old[:, :-B]) and bool(
+            q[:, :B].abs().sum() > 0), f"queue gate {name}: not shifted "
+                                       f"by B={B}")
+    sw = {n: r["metrics"]["loss_swav"] for n, r in runs.items()}
+    check(math.isclose(sw["at, empty"], sw["none"], rel_tol=1e-5),
+          f"queue gate: an empty last slot scored ({sw})")
+    check(abs(sw["at, full"] - sw["none"]) > 1e-4 * abs(sw["none"]),
+          f"queue gate: a full queue did not score ({sw})")
+    print(f"SwAV queue gate on {card} (start epoch 5, B={B}, queue "
+          f"{tuple(full.shape)}): untouched at epoch 4, shifted by B at 5 "
+          f"and 7; an empty last slot scores nothing (loss_swav "
+          f"{sw['at, empty']:.6f} vs {sw['none']:.6f} without a queue), a "
+          f"full one scores ({sw['at, full']:.6f})", flush=True)
+    return out
+
+
+# -- phase 6c: datagen ---------------------------------------------------
+
+#: Synthetic NTU-sized clips a resolution, their frames, and the batch.
+GEN_CLIPS, GEN_FRAMES, GEN_BATCH = 4, 72, 4
+GEN_VIDEOS = 32
+
+
+def _gen_clips(cfg, n: int, seed: int):
+    """``n`` synthetic depth clips at the config's frame shape (the port's
+    numpy ``synthetic_depth_clip``: the articulated, class-conditioned
+    figure of its "instance" style, whose drift stays inside the grid
+    over the clip; the "reference_window" style drifts 150 mm a frame,
+    10.8 m over 72 frames, and its clips fall out of the 128 x 96 x 96
+    grid), and their names."""
+    import numpy as np
+    from facl_tpu_torch.data.synthetic import synthetic_depth_clip
+    names = [f"S001C00{1 + i % 3}P00{1 + i}R001A00{1 + i}" for i in range(n)]
+    clips = [synthetic_depth_clip(np.random.default_rng(seed + i),
+                                  n_frames=GEN_FRAMES,
+                                  shape=cfg.image_shape, action=1 + i,
+                                  num_actions=n, style="instance")
+             for i in range(n)]
+    return names, clips
+
+
+def _gen_equal(a, b, what):
+    import numpy as np
+    for k in ("raw", "key", "app", "n_raw", "n_key"):
+        check(np.array_equal(a[k], b[k]), f"datagen {what}: {k} differs")
+
+
+def phase_datagen(dev, card: str, profile: bool = False):
+    """The port's datagen at NTU size on the card, bit-equal to the CPU
+    with the same draws; then generate --synthetic on the card and the
+    shipped SwAV config pretrained on that tree, with a checkpoint and a
+    --resume. Returns {path: launches}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from facl_tpu_torch.config import DatagenConfig
+    from facl_tpu_torch.datagen import ClipGenerator
+    here = os.path.dirname(os.path.abspath(__file__))
+    kernels = all_kernels()
+    cfg = DatagenConfig()
+    names, clips = _gen_clips(cfg, GEN_CLIPS, SEED + 31)
+    for res in cfg.resolutions:
+        gen = ClipGenerator(cfg, max_frames=res, seed=SEED, device=dev)
+        singles, t_single = [], []
+        for clip, name in zip(clips, names):
+            t0 = time.perf_counter()
+            singles.append(gen.from_frames(clip, tag=name))
+            t_single.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.reset_peak_memory_stats()
+        t_batch = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            batch = gen.from_frames_batch(clips, tags=names)
+            t_batch.append((time.perf_counter() - t0) * 1e3 / len(clips))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if profile and res == cfg.resolutions[0]:
+            _profile_once(lambda: gen.from_frames_batch(clips, tags=names),
+                          f"Resolution{res} clip batch of {len(clips)} on "
+                          f"{card}")
+        for name, a, b in zip(names, singles, batch):
+            _gen_equal(a, b, f"Resolution{res} {name} batch vs single")
+        t0 = time.perf_counter()
+        cpu = ClipGenerator(cfg, max_frames=res, seed=SEED,
+                            device="cpu").from_frames_batch(clips, tags=names)
+        t_cpu = (time.perf_counter() - t0) * 1e3 / len(clips)
+        for name, a, b in zip(names, batch, cpu):
+            _gen_equal(a, b, f"Resolution{res} {name} card vs cpu")
+        n_raw = [int(o["n_raw"]) for o in batch]
+        n_key = [int(o["n_key"]) for o in batch]
+        med_single = statistics.median(t_single)
+        check(min(n_raw) > 0, f"datagen Resolution{res}: candidates raw "
+                              f"{n_raw}")
+        print(f"datagen Resolution{res} on {card}: {len(clips)} synthetic "
+              f"clips of {GEN_FRAMES} frames {cfg.image_shape[0]}x"
+              f"{cfg.image_shape[1]} (cap {res}), grid {cfg.grid_shape}, "
+              f"S={cfg.sample_num}: clip_batch 1 {med_single:.1f} ms a "
+              f"clip (first {t_single[0]:.1f}), clip_batch "
+              f"{len(clips)} {t_batch[1]:.1f} ms a clip (first "
+              f"{t_batch[0]:.1f}), peak {peak:.2f} GiB; CPU {t_cpu:.0f} ms a "
+              f"clip; raw, key, app, n_raw, n_key bit-equal card vs CPU and "
+              f"batch vs single; candidates raw {n_raw} key {n_key}",
+              flush=True)
+
+    # The second-level grouping routes through B1 on the card.
+    from facl_tpu_torch.ops.grouping import group_points_level2
+    gl = torch.Generator().manual_seed(SEED + 32)
+    feats = torch.randn(64, 128, 3 + 64, generator=gl)
+    feats[..., :3] *= 0.3
+    for k in kernels:
+        k.launches = 0
+    neigh, cent = group_points_level2(feats.to(dev))
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels if k.launches}
+    check(launches == {"select_gather": 1}, f"level-2 grouping: {launches}")
+    want, _ = group_points_level2(feats)
+    check(torch.equal(neigh.cpu(), want), "level-2 grouping: card vs CPU")
+    print(f"group_points_level2 on {card}: features {tuple(feats.shape)} -> "
+          f"{tuple(neigh.shape)}, launches {launches}, bit-equal to the CPU",
+          flush=True)
+    out = {"group_points_level2": launches}
+
+    # The CLIs: generate --synthetic on the card, then the shipped SwAV
+    # config pretrained on that tree (cut: batch 16 on a 32-video tree),
+    # 11 epochs so that the queue opens at epoch 10, and a --resume.
+    from facl_tpu_torch.cli import pretrain
+    from facl_tpu_torch.train import Trainer, restore_latest
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="datagen-", dir=os.path.join(here, "build"))
+    try:
+        tree, ck = os.path.join(tmp, "tree"), os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "facl_tpu_torch.cli.generate", "--synthetic",
+                            str(GEN_VIDEOS), "--out", tree, "--device",
+                            str(dev)],
+                           cwd=here, capture_output=True, text=True,
+                           timeout=600)
+        dt = time.perf_counter() - t0
+        check(r.returncode == 0, f"generate --synthetic: {r.stderr[-2000:]}")
+        files = sorted(os.listdir(os.path.join(tree, "Resolution60", "raw")))
+        check(len(files) == GEN_VIDEOS, f"generate wrote {len(files)} videos")
+        raw = np.load(os.path.join(tree, "Resolution60", "raw", files[0]))
+        check(raw.shape == (2048, 8) and bool(np.isfinite(raw).all()),
+              f"generated raw {raw.shape}")
+        print(f"generate --synthetic {GEN_VIDEOS} on {card}: {dt:.1f} s "
+              "(process start included), the tree's layout and shapes as "
+              "the pretrain CLI reads them", flush=True)
+        common = ["--root", tree, "--config",
+                  os.path.join(here, SWAV_CONFIG), "--batch-size", "16",
+                  "--out", ck, "--device", str(dev)]
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        hist = pretrain.main(common + ["--epochs", "11"])
+        dt = time.perf_counter() - t0
+        check(len(hist) == 11 and all(math.isfinite(h["loss"]) and
+                                      math.isfinite(h["loss_swav"])
+                                      for h in hist), f"pretrain {hist}")
+        out["pretrain SwAV config on the generated tree"] = {
+            k.__name__: k.launches for k in kernels if k.launches}
+        saved = {}
+        for ep in (5, 10):
+            p = os.path.join(ck, f"ckpt_epoch_{ep:05d}.pt")
+            saved[ep] = torch.load(p, map_location="cpu",
+                                   weights_only=True)["swav_queue"]
+        check(not saved[5].any(), "pretrain: queue filled before epoch 10")
+        check(bool(saved[10][:, :16].abs().sum() > 0) and not
+              saved[10][:, 16:].any(), "pretrain: epoch 10 did not push "
+                                       "one batch into the queue")
+        from facl_tpu_torch.config import Config
+        cfg_r = pretrain.build_config(argparse.Namespace(
+            root=tree, stream="motion", dataset="ntu60", protocol="xview",
+            batch_size=16, config=os.path.join(here, SWAV_CONFIG),
+            dtype="bfloat16", sa_impl=None))
+        st = restore_latest(ck, Trainer(cfg_r, 1, device=dev).init_state(1))
+        check(torch.equal(st.swav_queue.cpu(), saved[10]),
+              "resume: the queue differs from the saved one")
+        hist2 = pretrain.main(common + ["--epochs", "12", "--resume"])
+        check(len(hist2) == 1 and math.isfinite(hist2[0]["loss"]),
+              f"pretrain --resume {hist2}")
+        print(f"pretrain {SWAV_CONFIG} on the generated tree on {card}: "
+              f"batch 16 (cut from 256: the tree holds {GEN_VIDEOS} videos), "
+              f"11 epochs in {dt:.1f} s, losses {hist[0]['loss']:.4f} .. "
+              f"{hist[-1]['loss']:.4f}, loss_swav {hist[-1]['loss_swav']:.4f}"
+              f"; the queue empty at epoch 5, one batch in at epoch 10; "
+              f"restored bit-equal; --resume to 12: loss "
+              f"{hist2[0]['loss']:.4f}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 # -- phase 7: data parallelism (B6s and the dp step) --------------------
 
 #: (a)-(c): bench.py's batch, global; two gloo ranks time-share the card.
@@ -3731,7 +4222,103 @@ def phase_dp(dev, card: str):
                   f"launches a step {rr['launches']}; losses "
                   f"{rr['losses'][0]:.4f} .. {rr['losses'][-1]:.4f}",
                   flush=True)
+    out.update(_dp_swav(dev, card, B))
     return out
+
+
+def _dp_swav(dev, card: str, B: int):
+    """(f) The pair3 step with SwAV and CLD (f32): two gloo ranks against
+    one process from the same weights, queue, points and permutation.
+    Returns {path: launches}."""
+    from facl_tpu_torch.parallel import spawn
+    from facl_tpu_torch.train import Trainer
+    t0 = time.perf_counter()
+    ranks = spawn(_dp_swav_rank, 2, "gloo", args=(dev.type, B),
+                  timeout_s=600)
+    dt = time.perf_counter() - t0
+    c = _dp_swav_cfg(B)
+    pts, perm = _dp_points(B)
+    sd = Trainer(c, 100, device="cpu").init_state(SEED).model.state_dict()
+    one = _swav_step(dev, c, sd, filled_queue(c, SEED + 27), pts, perm, 10)
+    _sync(dev, empty=True)
+    r0, r1 = ranks
+    check(r0["metrics"] == r1["metrics"], "dp (f): the ranks' losses differ")
+    for k in ("loss", "loss_swav", "loss_cld"):
+        check(math.isclose(r0["metrics"][k], one["metrics"][k],
+                           rel_tol=2e-4), f"dp (f) {k}: {r0['metrics'][k]} "
+              f"vs one process {one['metrics'][k]}")
+    check(torch.equal(r0["queue"], r1["queue"]),
+          "dp (f): the queue differs between the ranks")
+    check(torch.allclose(r0["queue"], one["queue"], rtol=2e-4, atol=1e-5),
+          "dp (f): the queue differs from one process's")
+    for n, gr in r0["grads"].items():
+        check(torch.equal(gr, r1["grads"][n]),
+              f"dp (f): gradient {n} differs between the ranks")
+    G = c.model.num_crops
+    dk = _merge_decisions([r0["dec"], r1["dec"]], B, G)
+    flips = {n: (one["dec"][n] != dk[n]).reshape(
+        -1, one["dec"][n].shape[-1]) for n in one["dec"]}
+    km = sum(int((a != b).sum()) for a, b in zip(one["labels"],
+                                                 r0["labels"]))
+    got = _swav_grad_bars("(f) pair3 SwAV+CLD", one["grads"], r0["grads"],
+                          flips, km, 2e-4)
+    want = _dp_want_counts(c.model, "pair3")
+    want["gather_negatives"] += 2                  # code and x_nor
+    for r in (r0, r1):
+        check(r["counts"] == want, f"dp (f): collectives {r['counts']}, "
+                                   f"expected {want}")
+        check(r["launches"] == DP_LAUNCHES["pair3"],
+              f"dp (f): launches {r['launches']}")
+    print(f"dp (f) pair3 step with SwAV and CLD, B={B}, two gloo ranks vs "
+          f"one process on {card} ({dt:.1f} s): loss "
+          f"{r0['metrics']['loss']:.6f} vs {one['metrics']['loss']:.6f}, "
+          f"swav {r0['metrics']['loss_swav']:.6f} vs "
+          f"{one['metrics']['loss_swav']:.6f}, cld "
+          f"{r0['metrics']['loss_cld']:.6f} vs "
+          f"{one['metrics']['loss_cld']:.6f} (rtol 2e-4); queue bit-equal "
+          f"across the ranks, within rtol 2e-4 / atol 1e-5 of one process's; "
+          f"k-means "
+          f"labels flipped {km} of {sum(a.numel() for a in one['labels'])}"
+          f"; flipped decisions "
+          f"{ {n: int(f.sum()) for n, f in flips.items()} }; gradients "
+          f"before Adam {got}; collectives a step {r0['counts']}",
+          flush=True)
+    return {"dp (f) pair3 SwAV+CLD step, per rank": r0["launches"]}
+
+
+def _dp_swav_cfg(B):
+    return _swav_cfg(_cfg(B, "pair3"), use_swav=True, use_cld=True)
+
+
+def _dp_swav_rank(devtype, B):
+    """(f) on one rank: the pair3 SwAV+CLD step (f32, epoch 10, a full
+    queue) on this rank's block: metrics, gradients before Adam, the new
+    queue, decisions, k-means labels, collectives and launches."""
+    from facl_tpu_torch.parallel import batch_slice, make_mesh, \
+        rank_device, shard_train_state
+    from facl_tpu_torch.train import Trainer
+    mesh = make_mesh()
+    dev = rank_device(devtype)
+    pts, perm = _dp_points(B)
+    c = _dp_swav_cfg(B)
+    tr = Trainer(c, 100, device=dev, mesh=mesh)
+    st = tr.init_state(SEED)
+    st.swav_queue = filled_queue(c, SEED + 27).to(dev)
+    st = shard_train_state(mesh, st)
+    kernels = all_kernels()
+    _dp_zero(kernels)
+    dec, labels = {}, []
+    with _decisions(st.model, "pair3", B // mesh.dp, dec), \
+            kmeans_labels(labels):
+        st, m = tr.step_fn(st, pts[:, batch_slice(mesh, B)].to(dev),
+                           perm=perm, epoch=10)
+    _sync(dev)
+    return dict(metrics={n: float(v) for n, v in m.items()},
+                counts=_dp_counts(), launches=_dp_launches(kernels),
+                dec=_pack(dec), labels=labels,
+                grads={n: p.grad.cpu() for n, p in
+                       st.model.named_parameters() if p.grad is not None},
+                queue=st.swav_queue.cpu())
 
 
 def _dp_clis(dev, card, root, common, ck, tmp):
@@ -3840,6 +4427,11 @@ def main() -> None:
     paths.update(phase_input_grad(dev))
     torch.cuda.empty_cache()
     paths.update(phase_pipeline(dev, name_power, medians))
+    torch.cuda.empty_cache()
+    paths.update(phase_swav(dev, name_power, medians, args.profile))
+    torch.cuda.empty_cache()
+    paths.update(phase_datagen(dev, name_power, args.profile))
+    torch.cuda.empty_cache()
     paths.update(phase_dp(dev, name_power))
 
     # Each kernel's launches: from the first path (in the order run) that

@@ -5,12 +5,13 @@ flax's names): ``params`` leaves become parameters, ``batch_stats`` leaves
 buffers, with path segments joined by dots. A Dense ``kernel`` (in, out)
 becomes an ``nn.Linear`` ``weight`` (out, in); the SA stage keeps its raw
 ``kernel_i`` (Cin, Cout) as in the JAX module. ``probe_from_jax`` does the
-same for the linear probe's variables.
+same for the linear probe's variables, and ``swav_queue_from_jax`` carries
+the SwAV queue.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -49,3 +50,12 @@ def probe_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     state_dict for ``facl_tpu_torch.models.LinearProbe``: the Dense
     kernel transposed."""
     return from_jax(params.get("params", params), {})
+
+
+def swav_queue_from_jax(queue, device="cpu") -> Optional[torch.Tensor]:
+    """facl_tpu's ``TrainState.swav_queue`` ((G-1, Q, D), numpy or
+    anything ``np.asarray`` takes; None when SwAV is off) -> the port's
+    ``TrainState.swav_queue``: the same f32 values on ``device``."""
+    if queue is None:
+        return None
+    return torch.from_numpy(np.array(queue, dtype=np.float32)).to(device)

@@ -147,3 +147,16 @@ def group_points_cfg(points: torch.Tensor, cfg: GroupingConfig,
     return group_points(points, cfg.num_centroids, cfg.knn_k,
                         cfg.radius_sq, layout, cfg.method,
                         resolve_select_impl(cfg), resolve_gather_impl(cfg))
+
+
+def group_points_level2(features: torch.Tensor, num_centroids: int = 64,
+                        knn_k: int = 32, radius_sq: float = 0.11
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Second-level grouping over abstracted features
+    (facl_tpu/ops/grouping.py:223-241; utils_my.py:332-381): features
+    (B, S1, 3 + F), xyz then learned features a first-level group; the
+    first ``num_centroids`` rows are the centroids; the whole feature
+    vector is gathered and only xyz re-centred. Routed as
+    :func:`group_points` routes "auto": kernel B1 on the card."""
+    return group_points(features, num_centroids, knn_k, radius_sq,
+                        "bskc", "exact")

@@ -73,11 +73,11 @@ def batch_slice(mesh: Optional[Mesh], batch: int) -> slice:
 
 
 def shard_train_state(mesh: Optional[Mesh], state):
-    """Every rank takes rank 0's parameters, BatchNorm buffers and Adam
-    state (the port's placement of a replicated state: after this call
-    the ranks hold the same state bit for bit). One broadcast of all of
-    it, packed in float64 (exact for the f32 tensors), on the rank's
-    device. The LR scheduler and the update count are host values that a
+    """Every rank takes rank 0's parameters, BatchNorm buffers, Adam
+    state and SwAV queue (the port's placement of a replicated state:
+    after this call the ranks hold the same state bit for bit). One
+    broadcast of all of it, packed in float64 (exact for the f32
+    tensors), on the rank's device. The LR scheduler and the update count are host values that a
     fresh init or a restore of the same files already gives every rank
     alike. Returns ``state``."""
     from facl_tpu_torch.parallel.collectives import broadcast
@@ -87,6 +87,8 @@ def shard_train_state(mesh: Optional[Mesh], state):
     for per_param in state.optimizer.state.values():
         tensors += [t for t in per_param.values()
                     if isinstance(t, torch.Tensor)]
+    if state.swav_queue is not None:
+        tensors.append(state.swav_queue)
     dev = next(state.model.parameters()).device
     flat = torch.cat([t.detach().reshape(-1).to(dev, torch.float64)
                       for t in tensors])

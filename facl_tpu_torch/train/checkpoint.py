@@ -1,11 +1,13 @@
 """Checkpoint / resume (counterpart of facl_tpu/train/checkpoint.py:24-81).
 
 The full TrainState round-trips: the module's parameters and BatchNorm
-running statistics, Adam's moments, the LR scheduler and the update
-count. One ``ckpt_epoch_{epoch:05d}.pt`` file per checkpoint plus
-``index.json`` (``latest_epoch``, ``latest``), each written to a temp file
-and renamed, so a crash mid-write never corrupts the latest; the oldest
-files beyond ``keep`` are pruned.
+running statistics, Adam's moments, the LR scheduler, the update count
+and the SwAV queue where SwAV is on (a file without one, SwAV off or
+written before the queue was saved, leaves the target's queue). One
+``ckpt_epoch_{epoch:05d}.pt`` file per checkpoint plus ``index.json``
+(``latest_epoch``, ``latest``), each written to a temp file and renamed,
+so a crash mid-write never corrupts the latest; the oldest files beyond
+``keep`` are pruned.
 
 Files are ``torch.save`` of tensors and plain containers only, and are
 read with ``weights_only=True``. The LR schedule is a closure
@@ -45,10 +47,13 @@ def _atomic_write(directory: str, path: str, write) -> None:
 
 
 def _payload(state: TrainState) -> dict:
-    return {"model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "scheduler": state.scheduler.state_dict(),
-            "step": int(state.step)}
+    out = {"model": state.model.state_dict(),
+           "optimizer": state.optimizer.state_dict(),
+           "scheduler": state.scheduler.state_dict(),
+           "step": int(state.step)}
+    if state.swav_queue is not None:
+        out["swav_queue"] = state.swav_queue
+    return out
 
 
 def save_checkpoint(directory: str, state: TrainState, epoch: int,
@@ -94,6 +99,8 @@ def restore_checkpoint(path: str, target: TrainState) -> TrainState:
     target.optimizer.load_state_dict(saved["optimizer"])
     target.scheduler.load_state_dict(saved["scheduler"])
     target.step = int(saved["step"])
+    if "swav_queue" in saved:
+        target.swav_queue = saved["swav_queue"].to(device)
     return target
 
 

@@ -35,8 +35,15 @@ program's scratch arena, with identical math (trainer.py:96-108). Eager
 torch has no program to split: the step is the same one, and a mesh with
 more than one rank raises ValueError, as JAX does (:110-113).
 
-Not ported yet (raises NotImplementedError naming its ROADMAP item):
-SwAV and CLD (Queue 1 item 15).
+SwAV (``use_swav``) and CLD (``use_cld``) follow trainer.py:152-180: the
+SwAV loss, weighted by ``swav_weight``, over the crop-major code and
+normalised embeddings, with its queue on ``TrainState.swav_queue``; CLD
+added unweighted. The queue scores only from ``swav_queue_start_epoch``
+on and once its last slot holds an embedding, and it is replaced by the
+shifted queue only from that epoch. Under a mesh ``code`` and ``x_nor``
+are gathered like ``x``, and every rank runs Sinkhorn, k-means and the
+queue shift on the same global arrays (GSPMD's placement), so the queue
+stays equal on every rank.
 """
 from __future__ import annotations
 
@@ -47,8 +54,8 @@ import torch
 
 from facl_tpu_torch import resolve_device
 from facl_tpu_torch.config import Config, GroupingConfig
-from facl_tpu_torch.losses.infonce import circle_infonce, \
-    global_local_infonce
+from facl_tpu_torch.losses import circle_infonce, cld_loss, \
+    global_local_infonce, swav_loss, swav_queue_init
 from facl_tpu_torch.models.pointnet import resolve_grouping, \
     resolve_model, resolve_model_config
 from facl_tpu_torch.ops.grouping import group_points, \
@@ -61,9 +68,6 @@ from facl_tpu_torch.train.state import TrainState
 
 
 def _reject_unported(cfg: Config, mesh: Optional[Mesh] = None) -> None:
-    if cfg.loss.use_swav or cfg.loss.use_cld:
-        raise NotImplementedError("SwAV / CLD losses are not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
     if cfg.train.split_step and mesh is not None and mesh.dp > 1:
         raise ValueError("split_step targets single-device large-batch "
                          "runs; use the fused step under a mesh")
@@ -89,14 +93,15 @@ def make_grouping_fn(g_cfg: GroupingConfig, layout: str = "bcsk"
 def make_train_step(cfg: Config, grouping: Optional[GroupingConfig] = None,
                     device: Union[str, torch.device] = "cuda",
                     mesh: Optional[Mesh] = None) -> Callable:
-    """step(state, points, perm=None, generator=None) -> (state, metrics).
+    """step(state, points, perm=None, generator=None, epoch=0) ->
+    (state, metrics).
 
     points: (G, B, N, C) crop-major batch (moved to ``device``); with a
     ``mesh``, this rank's block of the global batch (``batch_slice``) and
     ``state.model`` built on the same mesh. perm: the circle loss's crop
     permutation (G,); drawn with ``generator`` when not given (rank 0's
-    under a mesh). Metrics are detached 0-d tensors on the device, the
-    global loss under a mesh."""
+    under a mesh). epoch: drives the SwAV queue gate. Metrics are
+    detached 0-d tensors on the device, the global loss under a mesh."""
     device = resolve_device(device)
     _reject_unported(cfg, mesh)
     g_cfg = grouping or cfg.grouping
@@ -107,7 +112,7 @@ def make_train_step(cfg: Config, grouping: Optional[GroupingConfig] = None,
 
     def step(state: TrainState, points: torch.Tensor,
              perm: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, epoch: int = 0):
         G, B, N, C = points.shape
         points = points.to(device, torch.float32)
         with torch.no_grad():
@@ -136,6 +141,30 @@ def make_train_step(cfg: Config, grouping: Optional[GroupingConfig] = None,
             lcir = circle_infonce(xg, perm)
             metrics["loss_circle"] = lcir.detach()
             loss = loss + lcir
+        if l_cfg.use_swav or l_cfg.use_cld:
+            xn_g = gather_negatives(x_nor, mesh).reshape(B, G, -1) \
+                .transpose(0, 1)                                # (G, B, D)
+        if l_cfg.use_swav:
+            code_g = gather_negatives(code, mesh).reshape(B, G, -1) \
+                .transpose(0, 1)                                # (G, B, P)
+            queue = state.swav_queue
+            started = epoch >= l_cfg.swav_queue_start_epoch
+            queue_on = started and queue is not None
+            if queue_on:        # a 0-d tensor: no sync with the host
+                queue_on = (queue[:, -1, :].abs() > 0).any()
+            lswa, new_queue = swav_loss(
+                code_g, xn_g, model.mapping.weight.T, queue, queue_on,
+                l_cfg.swav_temp_code, l_cfg.swav_temp_pred,
+                l_cfg.swav_sinkhorn_iters)
+            if started and new_queue is not None:
+                state.swav_queue = new_queue
+            metrics["loss_swav"] = lswa.detach()
+            loss = loss + l_cfg.swav_weight * lswa
+        if l_cfg.use_cld:
+            lcld = cld_loss(xn_g, l_cfg.cld_temp, l_cfg.cld_clusters,
+                            l_cfg.cld_kmeans_iters)
+            metrics["loss_cld"] = lcld.detach()
+            loss = loss + lcld
         metrics["loss"] = loss.detach()
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -199,14 +228,22 @@ class Trainer:
                    ) -> TrainState:
         """Fresh parameters from ``seed`` (made on the CPU, so the same
         seed gives the same weights on every device), Adam and the LR
-        schedule at update 0."""
+        schedule at update 0, and the zero SwAV queue when SwAV is on
+        (length ``batch_size * swav_queue_factor`` of the global batch)."""
         gen = seed if isinstance(seed, torch.Generator) else \
             torch.Generator().manual_seed(int(seed))
         model, _ = resolve_model(self.cfg, gen, self.mesh)
         model = model.to(self.device)
         opt, sched = make_optimizer(model.parameters(), self.cfg.train.optim,
                                     self.steps_per_epoch)
-        return TrainState(model, opt, sched, 0)
+        queue = None
+        if self.cfg.loss.use_swav:
+            # The global batch's queue: every rank holds all of it.
+            queue = swav_queue_init(
+                self.cfg.model.num_crops, self.cfg.train.batch_size *
+                self.cfg.loss.swav_queue_factor, self.cfg.model.embed_dim,
+                self.device)
+        return TrainState(model, opt, sched, 0, queue)
 
     def run_epoch(self, state: TrainState, batches: Iterable[torch.Tensor],
                   epoch: int, generator: Optional[torch.Generator] = None,
@@ -219,7 +256,8 @@ class Trainer:
         t0 = time.perf_counter()
         dp = self.mesh.dp if self.mesh is not None else 1
         for i, points in enumerate(batches):
-            state, metrics = self.step_fn(state, points, generator=generator)
+            state, metrics = self.step_fn(state, points, generator=generator,
+                                          epoch=epoch)
             clips += points.shape[1] * dp
             device_metrics.append(metrics)
             if log_fn is not None and i % self.cfg.train.log_every_steps == 0:
