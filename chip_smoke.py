@@ -141,7 +141,28 @@ Phases (any failure exits nonzero, before the final line):
              generate --synthetic 32 on the card, then pretrain with the
              shipped SwAV config on that tree (batch 16, 11 epochs: the
              queue opens at epoch 10), its checkpoints' queues, a restore
-             bit-equal, and --resume.
+             bit-equal, and --resume; then (6d (e)) on the same tree,
+             cli.moco and pretrain with a slow_fast config (a temp
+             file), one epoch each at batch 16, their launches counted
+             and each checkpoint restored bit-equal.
+  6d. moco/slow_fast (phase_moco_slowfast): (a) MoCo at full width, 64
+             videos a view, queue 9600: auto (bf16 pair3), pair3 f32
+             and the shipped motion config (bf16 reference), 3 warm-up
+             and 20 timed steps each (ms/step, clips/s, peak), B1 once
+             over 128 clouds and each pair3 sweep once a step at its
+             dtype, nothing from the key encoder; each launch at these
+             shapes against its twin at phase 2's bars; (b) MoCo pair3
+             f32, CPU vs card at B=8: loss at rtol 2e-4, the queue at
+             rtol 2e-4 / atol 1e-5, the pointer equal, gradients before
+             Adam at phase 3's bars or at twice the CPU's own f32
+             distance from a float64 step where that is larger (MoCo's
+             loss saturates: its gradients carry the logits' absolute
+             rounding); (c) slow/fast, 10 x 64 = 640 clouds, S=64, K=128
+             and 64, f32 and bf16: ms/step and peak, B1 twice a step,
+             each grouping bit-equal to its twin; (d) slow/fast f32 CPU
+             vs card on 80 clouds: loss at rtol 2e-4, gradients at the
+             same bars, flipped ReLU and pool decisions counted
+             (_sf_touched).
   7. dp      data parallelism (B6s) on the one card: ranks started by
              facl_tpu_torch.parallel.spawn, two gloo ranks sharing the card
              (NCCL takes one card a rank). (a) the pair3 and pair SA stages
@@ -185,6 +206,15 @@ Phases (any failure exits nonzero, before the final line):
              CLD at B=64, two gloo ranks vs one process (_dp_swav): loss
              terms at rtol 2e-4, the queue bit-equal across the ranks,
              gradients before Adam at phase 3's bars, collectives counted.
+             (g) MoCo pair3 at f32 and bf16 (B=64, 32 a rank) and
+             slow/fast f32 (10 x 8 clouds), two gloo ranks vs one
+             process (_dp_moco_slowfast): f32 loss at rtol 2e-4,
+             gradients before Adam at phase 3's bars with flips
+             counted; bf16 MoCo's loss and queue at the f32 bars of one
+             process as two halves, loss and gradients no farther from
+             the f32 step than twice one process's; the queue and
+             pointer bit-equal across the ranks and, f32, within rtol
+             5e-4 / atol 5e-6 of one process's; collectives counted.
 Output: a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -2990,30 +3020,12 @@ def _swav_small_cfg(B, **loss):
 
 
 def _timed_steps(tr, st, batches, warm, steps, epoch, kernels, g):
-    """``warm`` steps, then ``steps`` timed by CUDA events between steps
-    with the launch counts zeroed just before them. Returns (state, ms
+    """``_timed`` on the Trainer's step at ``epoch``. Returns (state, ms
     per step sorted, launches, last metrics, peak GiB)."""
-    for i in range(warm):
-        st, _ = tr.step_fn(st, batches[i % 2], generator=g, epoch=epoch)
-    torch.cuda.synchronize()
-    for k in kernels:
-        k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
-    losses = []
-    ev[0].record()
-    for i in range(steps):
-        st, m = tr.step_fn(st, batches[i % 2], generator=g, epoch=epoch)
-        ev[i + 1].record()
-        losses.append(m)
-    torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in kernels if k.launches}
-    for m in losses:
-        for name, v in m.items():
-            check(math.isfinite(float(v)), f"{name} not finite: {m}")
-    per = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(steps))
-    return (st, per, launches, {n: float(v) for n, v in losses[-1].items()},
-            torch.cuda.max_memory_allocated() / 2**30)
+    st, per, launches, metrics, peak = _timed(
+        lambda s, b: tr.step_fn(s, b, generator=g, epoch=epoch), st,
+        batches, warm, steps, kernels)
+    return st, per, launches, metrics[-1], peak
 
 
 def _swav_step(d, cfg, sd, queue, pts, perm, epoch):
@@ -3251,11 +3263,13 @@ def _gen_equal(a, b, what):
         check(np.array_equal(a[k], b[k]), f"datagen {what}: {k} differs")
 
 
-def phase_datagen(dev, card: str, profile: bool = False):
+def phase_datagen(dev, card: str, profile: bool = False, then=None):
     """The port's datagen at NTU size on the card, bit-equal to the CPU
     with the same draws; then generate --synthetic on the card and the
     shipped SwAV config pretrained on that tree, with a checkpoint and a
-    --resume. Returns {path: launches}."""
+    --resume; then ``then(tree, tmp)``, if given, on the same tree (its
+    {path: launches} joins the result) before the tree is deleted.
+    Returns {path: launches}."""
     import shutil
     import tempfile
 
@@ -3392,8 +3406,538 @@ def phase_datagen(dev, card: str, profile: bool = False):
               f"; the queue empty at epoch 5, one batch in at epoch 10; "
               f"restored bit-equal; --resume to 12: loss "
               f"{hist2[0]['loss']:.4f}", flush=True)
+        if then is not None:
+            out.update(then(tree, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# -- phase 6d: MoCo and the slow/fast encoder ----------------------------
+
+#: (a) MoCo at full width: videos a view, the reference queue length,
+#: warm-up and timed steps.
+MOCO_B, MOCO_QUEUE, MOCO_WARM, MOCO_TIMED = 64, 9600, 3, 20
+#: (c) slow/fast at full width: G crops of B videos, each crop one cloud
+#: (the pretrain CLI's flattening), warm-up and timed steps.
+SF_G, SF_B, SF_WARM, SF_TIMED = 10, 64, 3, 10
+#: (b), (d): videos of the CPU-vs-card steps.
+SMALL_B = 8
+#: The slow/fast trainer's two groupings (slowfast_trainer.py defaults).
+SF_SLOW_K, SF_FAST_K = 128, 64
+#: Slow/fast parameters whose exact gradient is zero (a BatchNorm follows).
+SF_ABSORBED = tuple(f"{b}.dense_{i}.bias" for b in ("slow1", "fast1",
+                                                    "slow3", "fast3")
+                    for i in range(3)) + ("head_slow.Dense_0.bias",
+                                          "head_fast.Dense_0.bias")
+
+
+def _moco_want(model_cfg):
+    """B1 and, for pair3, each sweep at its dtype once a MoCo step (the
+    key encoder's eval forward launches none)."""
+    if model_cfg.sa_impl == "reference":
+        return {"select_gather": 1}
+    return BF16_LAUNCHES["pair3 bf16"] if \
+        model_cfg.compute_dtype == "bfloat16" else PATHS["pair3"]
+
+
+def _timed(step, st, batches, warm, steps, kernels):
+    """``warm`` steps, then ``steps`` timed by CUDA events between steps,
+    the launch counts zeroed just before them; every metric finite.
+    Returns (state, ms per step sorted, launches, each timed step's
+    metrics as floats, peak GiB of the timed steps)."""
+    for i in range(warm):
+        st, _ = step(st, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    metrics = []
+    ev[0].record()
+    for i in range(steps):
+        st, m = step(st, batches[i % len(batches)])
+        ev[i + 1].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels if k.launches}
+    metrics = [{n: float(v) for n, v in m.items()} for m in metrics]
+    for m in metrics:
+        check(all(math.isfinite(v) for v in m.values()),
+              f"not finite: {m}")
+    per = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(steps))
+    return (st, per, launches, metrics,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _b1_twin(flat, S, K, r2, label):
+    """B1 on ``flat`` bit-equal to its twin (phase 2's bar); returns its
+    channel-major grouping."""
+    from facl_tpu_torch.ops import select as SEL
+    kg, ki = SEL.select_gather(flat, S, K, r2, return_idx=True)
+    tg, ti = SEL.select_gather_plain(flat, S, K, r2)
+    check(torch.equal(ki, ti) and torch.equal(kg, tg),
+          f"{label}: B1 differs from its twin at {tuple(flat.shape)}, K={K}")
+    return kg
+
+
+def _b2a_check(x3, layers, label):
+    """B2a (sa_fwd_layer12) against its twin at phase 2's bars, run to run
+    bit-identical; returns max |kernel - twin|."""
+    SP = sweep_modules()[0]
+    from facl_tpu_torch.ops.sa_bwd import _fold_affine
+    lp1, lp2, _ = layers
+    R = x3.shape[0] * x3.shape[2]
+    m1, v1 = SP._moments_from_gram(torch.einsum("bcn,bdn->cd", x3, x3),
+                                   x3.sum((0, 2)), lp1.kernel, lp1.bias, R)
+    mul1, shift1 = _fold_affine(lp1, m1, v1, 1e-5)
+    a12 = (x3, lp1.kernel, lp1.bias, mul1, shift1, lp2.kernel, lp2.bias)
+    p2, s2, ss2 = SP.sa_fwd_layer12_plain(*a12)
+    k = SP.sa_fwd_layer12(*a12)
+    check(all(torch.equal(a, b) for a, b in zip(k, SP.sa_fwd_layer12(*a12))),
+          f"layer12 [{label}]: two runs differ")
+    return max(row_err(k[0], p2, f"layer12 [{label}] p2"),
+               acc_err(k[1], s2, f"layer12 [{label}] s"),
+               acc_err(k[2], ss2, f"layer12 [{label}] ss"))
+
+
+def _moco_kernels(dev, label, views, tr, st):
+    """(a): the run's kernels against their twins at the shapes it gives
+    them: B1 over the step's 2B clouds bit-equal; for pair3 the sweeps at
+    the run's dtype on the query view's grouping (B clouds) with the
+    model's SA weights and a randn cotangent, at phase 2's bars (f32:
+    B2a here, B2b-B3c by check_b2b_b3; bf16: bf16_rows). Returns the
+    reading."""
+    from facl_tpu_torch.ops.fused_sa import SALayerParams
+    g_cfg, m_cfg = tr.cfg.grouping, tr.cfg.model
+    S, K, r2 = g_cfg.num_centroids, g_cfg.knn_k, g_cfg.radius_sq
+    V, B, N, C = views.shape
+    flat = views.reshape(V * B, N, C).contiguous()
+    grouped = _b1_twin(flat, S, K, r2, f"moco {label}")
+    if m_cfg.sa_impl != "pair3":
+        return f"B1 over {V * B} clouds bit-equal to its twin"
+    x = grouped[:B].clone()
+    x[:, :3] -= flat[:B, :S, :3].transpose(1, 2)[..., None]
+    x3 = x.reshape(B, C, S * K)
+    del grouped, x
+    layers = [SALayerParams(*(t.detach() for t in lp))
+              for lp in st.model.sa_stage.layers()]
+    g = torch.Generator().manual_seed(SEED + 41)
+    dpooled = torch.randn(B * S, layers[-1].kernel.shape[1],
+                          generator=g).to(dev)
+    with torch.no_grad():
+        if m_cfg.compute_dtype == "bfloat16":
+            bf16_rows(x3, layers, dpooled, K)
+            what = "the five bf16 sweeps at phase 2's bf16 bars (line above)"
+        else:
+            e = _b2a_check(x3, layers, f"moco {label}")
+            check_b2b_b3(x3, layers, K, dpooled, f"moco {label}")
+            what = (f"B2a max |kernel - twin| {e:.3e}, B2b-B3c at phase 2's "
+                    "bars (line above)")
+    return (f"B1 over {V * B} clouds bit-equal to its twin; at R="
+            f"{B * S * K} {what}")
+
+
+def _moco_step(d, cfg, views, B, halves=False):
+    """One MoCo step on device ``d`` from the seed's weights and queue
+    (made on the CPU, so alike on every device): loss, gradients before
+    Adam, decisions (``_decisions``; none with ``halves``, which rounds
+    as two ranks do: tests/torch_two_halves.py), queue and pointer."""
+    from facl_tpu_torch.train import MoCoTrainer
+    tr = MoCoTrainer(cfg, 100, queue_len=MOCO_QUEUE, device=d)
+    st = tr.init_state(SEED, B)
+    dec = {}
+    with (_as_two_halves() if halves else
+          _decisions(st.model, tr.cfg.model.sa_impl, B, dec)):
+        st, m = tr.step_fn(st, views.to(d))
+    return dict(loss=float(m["loss"]), dec=dec,
+                grads={n: p.grad.detach().cpu() for n, p in
+                       st.model.named_parameters() if p.grad is not None},
+                queue=st.moco.queue.cpu(), ptr=st.moco.queue_ptr)
+
+
+def _sf_cfg(B, dtype="float32"):
+    import dataclasses
+    cfg = _cfg(B, dtype=dtype)
+    return cfg.replace(model=dataclasses.replace(cfg.model,
+                                                 name="slow_fast"))
+
+
+@contextlib.contextmanager
+def _sf_decisions(model, dec: dict):
+    """Record the slow/fast forward's discrete decisions into ``dec``:
+    every BatchNorm's ReLU mask (by the BatchNorm's name) and each shared
+    MLP's pool argmax (``<mlp>.argmax``: over the neighbours for slow1 and
+    fast1, over the groups for slow3 and fast3)."""
+    from facl_tpu_torch.models.layers import BatchNorm
+    hooks = []
+
+    def keep(name, fn):
+        def hook(mod, inp, out):
+            dec[name] = fn(out).cpu()
+        return hook
+    for n, m in model.named_modules():
+        if isinstance(m, BatchNorm):
+            hooks.append(m.register_forward_hook(keep(
+                n, lambda o: (o > 0).reshape(-1, o.shape[-1]))))
+    for n, axis in (("slow1", 2), ("fast1", 2), ("slow3", 1), ("fast3", 1)):
+        hooks.append(getattr(model, n).register_forward_hook(keep(
+            f"{n}.argmax", lambda o, a=axis: o.argmax(a))))
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _sf_touched(model_cfg, flips):
+    """Which slow/fast parameter tensors (by module prefix) a flipped
+    decision can move: a flip moves its own layer and every layer below
+    it. Above a shared MLP's layer i sit its layers past i, its pool and
+    its branch's head; the laterals feed the other branch's second MLP;
+    the first MLPs feed both second MLPs (their own, and the other's
+    through the lateral)."""
+    def fl(name):
+        return bool(flips.get(name, 0))
+    out, chain = {}, {}
+    for b in ("slow", "fast"):
+        head = fl(f"head_{b}.BatchNorm_0")
+        out[f"head_{b}.Dense_1."] = False
+        out[f"head_{b}.Dense_0."] = out[f"head_{b}.BatchNorm_0."] = head
+        above = head or fl(f"{b}3.argmax")
+        for i in reversed(range(len(getattr(model_cfg, f"{b}_widths3")))):
+            above = above or fl(f"{b}3.BatchNorm_{i}")
+            out[f"{b}3.dense_{i}."] = out[f"{b}3.BatchNorm_{i}."] = above
+        chain[b] = above
+    for b, o in (("slow", "fast"), ("fast", "slow")):
+        out[f"{o}_to_{b}."] = chain[b]
+        above = chain[b] or chain[o] or fl(f"{b}1.argmax")
+        for i in reversed(range(len(getattr(model_cfg, f"{b}_widths1")))):
+            above = above or fl(f"{b}1.BatchNorm_{i}")
+            out[f"{b}1.dense_{i}."] = out[f"{b}1.BatchNorm_{i}."] = above
+    return out
+
+
+def _sf_absorbed(g1):
+    """The BN-absorbed biases and the gradients at round-off (at most
+    1e-6 of the largest)."""
+    top = max(float(t.abs().max()) for t in g1.values())
+    return {n for n, t in g1.items() if n.startswith(SF_ABSORBED) or
+            float(t.abs().max()) <= 1e-6 * top}
+
+
+def _sf_grad_bars(label, model_cfg, g1, gk, flips, g64=None):
+    """Phase 3's bars for slow/fast gradients ``gk`` against ``g1``:
+    relative L2 at most 1e-2 on every gradient, max-abs at most 2e-4 of
+    its scale on every tensor that no flipped decision reaches
+    (``_sf_touched``), the BN-absorbed biases and round-off gradients at
+    that bar of the largest. With the float64 step's gradients ``g64``,
+    each bar is raised to twice ``g1``'s own distance from them where
+    that is larger (``_f32_floor``, over the same tensors). Returns the
+    reading."""
+    top = max(float(t.abs().max()) for t in g1.values())
+    absorbed = _sf_absorbed(g1)
+    touched = _sf_touched(model_cfg, flips)
+    l2 = max(_rel_l2(gk[n], a) for n, a in g1.items() if n not in absorbed)
+    free = [n for n in g1 if n not in absorbed and
+            not touched[n.rsplit(".", 1)[0] + "."]]
+    bar, l2_bar = 2e-4, 1e-2
+    if g64 is not None:
+        bar = max(bar, 2 * _f32_floor(g64, g1, set(g1) - set(free))[0])
+        l2_bar = max(l2_bar, 2 * _f32_floor(g64, g1, absorbed)[1])
+    worst = max([float((gk[n] - g1[n]).abs().max()) /
+                 max(float(g1[n].abs().max()), float(gk[n].abs().max()))
+                 for n in free] + [0.0])
+    for n in absorbed:
+        err = float((gk[n] - g1[n]).abs().max()) / top
+        check(err <= bar, f"{label}: BN-absorbed {n} differs by {err:.3e} "
+                          f"of the largest gradient > {bar:g}")
+    check(l2 <= l2_bar, f"{label}: gradient relative L2 {l2:.3e} > "
+                        f"{l2_bar:.3e}")
+    check(worst <= bar, f"{label}: gradient max-abs/scale {worst:.3e} > "
+                        f"{bar:.3e} where no decision flipped")
+    return (f"relative L2 {l2:.3e} (bar {l2_bar:.3e}), max-abs/scale "
+            f"{worst:.3e} (bar {bar:.3e}) on the {len(free)} of "
+            f"{len(g1) - len(absorbed)} tensors no flip reaches")
+
+
+def _sf_step(d, cfg, clouds):
+    """One slow/fast step on device ``d`` from the seed's weights: loss,
+    gradients before Adam and decisions (``_sf_decisions``)."""
+    from facl_tpu_torch.train import SlowFastTrainer
+    tr = SlowFastTrainer(cfg, 100, device=d)
+    st = tr.init_state(SEED)
+    dec = {}
+    with _sf_decisions(st.model, dec):
+        st, m = tr.step_fn(st, clouds.to(d))
+    return dict(loss=float(m["loss"]), dec=dec,
+                grads={n: p.grad.detach().cpu() for n, p in
+                       st.model.named_parameters()})
+
+
+def _moco_f64(cfg, views, B):
+    """The same MoCo step's loss and query gradients in float64 on the
+    CPU, from the same weights and queue: the yardstick of how far float32
+    itself moves this step."""
+    from facl_tpu_torch.losses.infonce import cross_entropy
+    from facl_tpu_torch.models.moco import moco_logits
+    from facl_tpu_torch.train import MoCoTrainer
+    from facl_tpu_torch.train.trainer import make_grouping_fn
+    tr = MoCoTrainer(cfg, 100, queue_len=MOCO_QUEUE, device="cpu")
+    st = tr.init_state(SEED, B)
+    model, key = st.model.double().train(), st.moco.key_encoder.double()
+    neigh, cent = make_grouping_fn(
+        tr.cfg.grouping, "bcsk" if tr.cfg.model.channels_first else "bskc")(
+        views)
+    with torch.no_grad():
+        k = key(neigh[1].double(), cent[1].double())[0]
+    q = model(neigh[0].double(), cent[0].double())[0]
+    loss = cross_entropy(*moco_logits(q, k, st.moco.queue.double()))
+    loss.backward()
+    return loss.item(), {n: p.grad.float() for n, p in
+                         model.named_parameters() if p.grad is not None}
+
+
+def _sf_f64(cfg, clouds):
+    """The same slow/fast step's loss and gradients in float64 on the
+    CPU, from the same weights."""
+    from facl_tpu_torch.losses.infonce import cross_entropy, pair_infonce
+    from facl_tpu_torch.ops.grouping import group_points
+    from facl_tpu_torch.train import SlowFastTrainer
+    model = SlowFastTrainer(cfg, 100, device="cpu").init_state(SEED).model
+    model = model.double().train()
+    model.dtype = torch.float64                # no cast of the inputs
+    g = cfg.grouping
+    slow, fast = (group_points(clouds, g.num_centroids, k, g.radius_sq)[0]
+                  .double() for k in (SF_SLOW_K, SF_FAST_K))
+    xf, xs = model(slow, fast)
+    loss = cross_entropy(*pair_infonce(xf, xs, torch.cat([xf, xs])))
+    loss.backward()
+    return loss.item(), {n: p.grad.float() for n, p in
+                         model.named_parameters()}
+
+
+def _f32_floor(g64, g32, leave_out):
+    """How far float32 itself sits from float64 on a step, over the
+    gradients but ``leave_out``: (worst max-abs/scale, worst relative
+    L2; 0 over none). Phase 6d holds the card at phase 3's bars or at
+    twice this, whichever is larger: a step whose loss saturates (MoCo's,
+    at temperature 1: its gradients carry the logits' absolute rounding
+    as a relative error) or turns on a few decisions (slow/fast's) has
+    an f32 floor above phase 3's bars on any device."""
+    live = [n for n in g64 if n not in leave_out]
+    if not live:
+        return 0.0, 0.0
+    return (max(float((g32[n] - g64[n]).abs().max()) /
+                max(float(g64[n].abs().max()), 1e-30) for n in live),
+            max(_rel_l2(g32[n], g64[n]) for n in live))
+
+
+def _flips(a, b):
+    return {n: int((a[n] != b[n]).sum()) for n in a}
+
+
+def phase_moco_slowfast(dev, card: str, profile: bool = False):
+    """MoCo and the slow/fast encoder at full width (module docstring,
+    6d (a)-(d)). Returns {path: launches}."""
+    from facl_tpu_torch.config import Config
+    from facl_tpu_torch.train import MoCoTrainer, SlowFastTrainer
+    here = os.path.dirname(os.path.abspath(__file__))
+    kernels = all_kernels()
+    out = {}
+    g = torch.Generator().manual_seed(SEED + 40)
+    N, C = 512, 4
+
+    # (a) MoCo, B=64 a view, queue 9600: auto (bf16 pair3), pair3 f32 and
+    # the shipped motion config as it is (bf16 reference).
+    with open(os.path.join(here, CONFIGS["motion"][0])) as f:
+        shipped = Config.from_json(f.read())
+    views = torch.randn(2, 2, MOCO_B, N, C, generator=g).to(dev)
+    for label, cfg in (("auto", _cfg(MOCO_B, "auto", dtype="bfloat16")),
+                       ("pair3 f32", _cfg(MOCO_B, "pair3")),
+                       ("shipped motion config", shipped)):
+        tr = MoCoTrainer(cfg, 100, queue_len=MOCO_QUEUE, device=dev)
+        st = tr.init_state(SEED, MOCO_B)
+        m_cfg = tr.cfg.model
+        st, per, launches, ms, peak = _timed(
+            tr.step_fn, st, views, MOCO_WARM, MOCO_TIMED, kernels)
+        want = _moco_want(m_cfg)
+        check(launches == {k: v * MOCO_TIMED for k, v in want.items()},
+              f"moco {label}: launches {launches}, expected {want} a step")
+        check(st.moco.queue_ptr == ((MOCO_WARM + MOCO_TIMED) * MOCO_B) %
+              MOCO_QUEUE, f"moco {label}: pointer {st.moco.queue_ptr}")
+        med = statistics.median(per)
+        name = f"moco {m_cfg.sa_impl} {m_cfg.compute_dtype} ({label})"
+        out[name] = want
+        if profile:
+            _profile_once(lambda: tr.step_fn(st, views[0]),
+                          f"{name} step on {card}")
+        kread = _moco_kernels(dev, label, views[0], tr, st)
+        print(f"{name} on {card}: B={MOCO_B} videos a view, N={N}, queue "
+              f"{MOCO_QUEUE}: median {med:.2f} ms/step (min {per[0]:.2f}, "
+              f"max {per[-1]:.2f}; {MOCO_TIMED} steps after {MOCO_WARM}), "
+              f"{MOCO_B * 1e3 / med:.1f} clips/s, peak {peak:.2f} GiB; "
+              f"launches a step {want}; losses {ms[0]['loss']:.4f} .. "
+              f"{ms[-1]['loss']:.4f}; kernels at these shapes: {kread}",
+              flush=True)
+        del tr, st
+        torch.cuda.empty_cache()
+    del views
+
+    # (b) MoCo, CPU against the card: pair3 f32 at B=8.
+    cfg = _cfg(SMALL_B, "pair3")
+    v = torch.randn(2, SMALL_B, N, C, generator=g)
+    cpu, crd = (_moco_step(d, cfg, v, SMALL_B) for d in ("cpu", dev))
+    check(math.isclose(crd["loss"], cpu["loss"], rel_tol=2e-4),
+          f"moco cpu-vs-card loss {crd['loss']} vs {cpu['loss']}")
+    check(torch.allclose(crd["queue"], cpu["queue"], rtol=2e-4, atol=1e-5),
+          "moco cpu-vs-card: the queues differ")
+    check(crd["ptr"] == cpu["ptr"] == SMALL_B, "moco cpu-vs-card: pointer")
+    flips = {n: (cpu["dec"][n] != crd["dec"][n]).reshape(
+        -1, cpu["dec"][n].shape[-1]) for n in cpu["dec"]}
+    l64, g64 = _moco_f64(cfg, v, SMALL_B)
+    top = max(float(t.abs().max()) for t in g64.values())
+    floor, floor_l2 = _f32_floor(g64, cpu["grads"], {
+        n for n, t in g64.items() if n.startswith(DP_ABSORBED) or
+        float(t.abs().max()) <= 1e-6 * top})
+    got = _dp_grad_bars("moco cpu-vs-card", cpu["grads"], crd["grads"],
+                        flips, max(2e-4, 2 * floor))
+    print(f"moco pair3 f32 cpu-vs-card, B={SMALL_B}, full width, on {card}: "
+          f"loss {crd['loss']:.6f} vs {cpu['loss']:.6f} (rtol 2e-4; f64 "
+          f"{l64:.6f}); queue within rtol 2e-4 / atol 1e-5, pointer "
+          f"{crd['ptr']}; flipped decisions "
+          f"{ {n: int(f.sum()) for n, f in flips.items()} }; the CPU's f32 "
+          f"from f64: max-abs/scale {floor:.3e}, relative L2 "
+          f"{floor_l2:.3e} (the max-abs bar: phase 3's 2e-4 or twice that "
+          f"floor); gradients before Adam {got}", flush=True)
+    del cpu, crd
+
+    # (c) Slow/fast, G=10 x B=64 clouds, S=64, K=128 and 64.
+    clouds = torch.randn(2, SF_G * SF_B, N, C, generator=g).to(dev)
+    for dtype in ("float32", "bfloat16"):
+        cfg = _sf_cfg(SF_B, dtype)
+        tr = SlowFastTrainer(cfg, 100, device=dev)
+        st = tr.init_state(SEED)
+        st, per, launches, ms, peak = _timed(
+            tr.step_fn, st, clouds, SF_WARM, SF_TIMED, kernels)
+        check(launches == {"select_gather": 2 * SF_TIMED},
+              f"slow_fast {dtype}: launches {launches}")
+        med = statistics.median(per)
+        out[f"slow_fast {dtype}"] = {"select_gather": 2}
+        if profile:
+            _profile_once(lambda: tr.step_fn(st, clouds[0]),
+                          f"slow_fast {dtype} step on {card}")
+        print(f"slow_fast {dtype} on {card}: {SF_G} x {SF_B} = "
+              f"{SF_G * SF_B} clouds of N={N}, S={cfg.grouping.num_centroids},"
+              f" K={SF_SLOW_K} and {SF_FAST_K}: median {med:.2f} ms/step "
+              f"(min {per[0]:.2f}, max {per[-1]:.2f}; {SF_TIMED} steps after "
+              f"{SF_WARM}), {SF_B * 1e3 / med:.1f} videos/s, peak "
+              f"{peak:.2f} GiB; launches a step {{'select_gather': 2}}; "
+              f"losses {ms[0]['loss']:.4f} .. {ms[-1]['loss']:.4f}",
+              flush=True)
+        del tr, st
+        torch.cuda.empty_cache()
+    gc_ = cfg.grouping
+    for K in (SF_SLOW_K, SF_FAST_K):
+        _b1_twin(clouds[0], gc_.num_centroids, K, gc_.radius_sq,
+                 "slow_fast")
+    print(f"slow_fast on {card}: B1 at K={SF_SLOW_K} and K={SF_FAST_K} over "
+          f"the step's {SF_G * SF_B} clouds bit-equal to its twin",
+          flush=True)
+    del clouds
+    torch.cuda.empty_cache()
+
+    # (d) Slow/fast, CPU against the card: f32, G=10 x B=8 clouds.
+    cfg = _sf_cfg(SMALL_B)
+    c = torch.randn(SF_G * SMALL_B, N, C, generator=g)
+    cpu, crd = (_sf_step(d, cfg, c) for d in ("cpu", dev))
+    check(math.isclose(crd["loss"], cpu["loss"], rel_tol=2e-4),
+          f"slow_fast cpu-vs-card loss {crd['loss']} vs {cpu['loss']}")
+    flips = _flips(cpu["dec"], crd["dec"])
+    l64, g64 = _sf_f64(cfg, c)
+    got = _sf_grad_bars("slow_fast cpu-vs-card", cfg.model, cpu["grads"],
+                        crd["grads"], flips, g64)
+    print(f"slow_fast f32 cpu-vs-card, {SF_G * SMALL_B} clouds, full width, "
+          f"on {card}: loss {crd['loss']:.6f} vs {cpu['loss']:.6f} (rtol "
+          f"2e-4; f64 {l64:.6f}); flipped decisions {flips}; gradients "
+          f"before Adam {got} (the bars: phase 3's, or twice the CPU's f32 "
+          "distance from f64 on the same tensors where larger)", flush=True)
+    return out
+
+
+def moco_slowfast_clis(dev, card: str, tree: str, tmp: str):
+    """(e): cli.moco and pretrain with a slow_fast config (a temp file;
+    configs/ stays as it is) on phase 6c's generated tree, one epoch each
+    at batch 16, with their launches; each checkpoint restored bit-equal
+    to its file. Returns {path: launches}."""
+    import argparse as ap
+    from facl_tpu_torch.cli import moco, pretrain
+    from facl_tpu_torch.train import MoCoTrainer, SlowFastTrainer, \
+        latest_checkpoint, restore_checkpoint
+    kernels = all_kernels()
+    out = {}
+
+    def restored(ck, target):
+        path = latest_checkpoint(ck)
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        st = restore_checkpoint(path, target)
+        for n, t in st.model.state_dict().items():
+            check(torch.equal(t.cpu(), saved["model"][n]),
+                  f"{ck}: {n} not restored bit-equal")
+        return st, saved
+
+    common = ["--root", tree, "--batch-size", "16", "--epochs", "1",
+              "--device", str(dev)]
+    cfg = pretrain.build_config(ap.Namespace(
+        root=tree, stream="motion", dataset="ntu60", protocol="xview",
+        batch_size=16, config=None, dtype="bfloat16", sa_impl=None))
+    for k in kernels:
+        k.launches = 0
+    ck = os.path.join(tmp, "moco")
+    t0 = time.perf_counter()
+    hist = moco.main(common + ["--out", ck])
+    dt = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels if k.launches}
+    steps = launches.get("select_gather", 0)
+    want = {k: v * steps for k, v in BF16_LAUNCHES["pair3 bf16"].items()}
+    check(steps >= 1 and launches == want, f"cli.moco: launches {launches}")
+    check(len(hist) == 1 and math.isfinite(hist[0]["loss"]),
+          f"cli.moco: {hist}")
+    st, saved = restored(ck, MoCoTrainer(cfg, 1, device=dev).init_state(1, 16))
+    check(all(torch.equal(t.cpu(), saved["moco"]["key_encoder"][n]) for n, t
+              in st.moco.key_encoder.state_dict().items()) and
+          torch.equal(st.moco.queue.cpu(), saved["moco"]["queue"]) and
+          st.moco.queue_ptr == saved["moco"]["queue_ptr"] == 16 * steps,
+          "cli.moco: the MoCo state not restored bit-equal")
+    out["cli.moco on the generated tree"] = launches
+    print(f"cli.moco on the generated tree on {card}: batch 16, 1 epoch "
+          f"({steps} steps) in {dt:.1f} s, loss {hist[0]['loss']:.4f}; "
+          f"launches {launches}; checkpoint restored bit-equal (query, key, "
+          f"queue, pointer {st.moco.queue_ptr})", flush=True)
+    del st
+
+    import dataclasses
+    sf = cfg.replace(model=dataclasses.replace(cfg.model, name="slow_fast"))
+    sf_file = os.path.join(tmp, "slow_fast.json")
+    with open(sf_file, "w") as f:
+        f.write(sf.to_json())
+    for k in kernels:
+        k.launches = 0
+    ck = os.path.join(tmp, "slow_fast")
+    t0 = time.perf_counter()
+    hist = pretrain.main(common + ["--config", sf_file, "--out", ck])
+    dt = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels if k.launches}
+    check(set(launches) == {"select_gather"} and launches[
+        "select_gather"] == 2 * steps, f"pretrain slow_fast: {launches}")
+    check(len(hist) == 1 and math.isfinite(hist[0]["loss"]),
+          f"pretrain slow_fast: {hist}")
+    restored(ck, SlowFastTrainer(sf, 1, device=dev).init_state(1))
+    out["pretrain slow_fast on the generated tree"] = launches
+    print(f"pretrain slow_fast (bf16) on the generated tree on {card}: batch "
+          f"16 x 10 crops, 1 epoch in {dt:.1f} s, loss {hist[0]['loss']:.4f};"
+          f" launches {launches}; checkpoint restored bit-equal",
+          flush=True)
     return out
 
 
@@ -4004,7 +4548,6 @@ def _dp_kernels(dev, card, label, r0):
     its twin (phase 2's B1 bar), and where the run launched the bf16
     sweeps, the five at phase 2's bf16 bars on B1's grouping
     (``bf16_rows``)."""
-    from facl_tpu_torch.ops import select as SEL
     from facl_tpu_torch.ops.fused_sa import SALayerParams
     from facl_tpu_torch.train.trainer import make_grouping_fn
     inp = r0["inputs"]
@@ -4012,11 +4555,8 @@ def _dp_kernels(dev, card, label, r0):
     G, Bl, N, C = pts.shape
     S, K, r2 = g_cfg.num_centroids, g_cfg.knn_k, g_cfg.radius_sq
     flat = pts.transpose(0, 1).reshape(Bl * G, N, C).contiguous()
-    kg, ki = SEL.select_gather(flat, S, K, r2, return_idx=True)
-    tg, ti = SEL.select_gather_plain(flat, S, K, r2)
-    check(torch.equal(ki, ti) and torch.equal(kg, tg),
-          f"dp (d) {label}: B1 differs from its twin at {tuple(flat.shape)}")
-    del kg, ki, tg, ti, flat
+    _b1_twin(flat, S, K, r2, f"dp (d) {label}")
+    del flat
     sweeps = "sa_fwd_layer12_bf16" in r0["launches"]
     if sweeps:
         with torch.no_grad():
@@ -4223,6 +4763,7 @@ def phase_dp(dev, card: str):
                   f"{rr['losses'][0]:.4f} .. {rr['losses'][-1]:.4f}",
                   flush=True)
     out.update(_dp_swav(dev, card, B))
+    out.update(_dp_moco_slowfast(dev, card))
     return out
 
 
@@ -4319,6 +4860,210 @@ def _dp_swav_rank(devtype, B):
                 grads={n: p.grad.cpu() for n, p in
                        st.model.named_parameters() if p.grad is not None},
                 queue=st.swav_queue.cpu())
+
+
+#: (g): MoCo's global batch (32 a rank) and the slow/fast crop batch
+#: (G x B videos, 40 clouds a rank: the decisions of both ranks cross the
+#: process boundary).
+DPG_MOCO_B, DPG_SF_B = 64, 8
+
+
+def _dpg_inputs():
+    """(g)'s MoCo views (2, B, N, 4) and slow/fast crop batch (G, B, N,
+    4), randn from the seed."""
+    g = torch.Generator().manual_seed(SEED + 51)
+    return (torch.randn(2, DPG_MOCO_B, 512, 4, generator=g),
+            torch.randn(SF_G, DPG_SF_B, 512, 4, generator=g))
+
+
+def _dpg_rank(devtype):
+    """(g) on one rank: the MoCo pair3 step at f32 and at bf16 on this
+    rank's block of the views, and the slow/fast f32 step on its block of
+    the crop batch (flattened as the pretrain CLI does), each from the
+    seed's weights and queue: loss, gradients before Adam, decisions,
+    queue and pointer, collectives and launches."""
+    from facl_tpu_torch.parallel import batch_slice, make_mesh, \
+        rank_device, shard_train_state
+    from facl_tpu_torch.train import MoCoTrainer, SlowFastTrainer, \
+        shard_moco_state
+    mesh = make_mesh()
+    dev = rank_device(devtype)
+    views, crops = _dpg_inputs()
+    kernels = all_kernels()
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        tr = MoCoTrainer(_cfg(DPG_MOCO_B, "pair3", dtype=dtype), 100,
+                         queue_len=MOCO_QUEUE, device=dev, mesh=mesh)
+        st = shard_moco_state(mesh, tr.init_state(SEED, DPG_MOCO_B))
+        _dp_zero(kernels)
+        dec = {}
+        with _decisions(st.model, "pair3", DPG_MOCO_B // mesh.dp, dec):
+            st, m = tr.step_fn(st, views[:, batch_slice(mesh, DPG_MOCO_B)]
+                               .to(dev))
+        _sync(dev)
+        out[f"moco {dtype}"] = dict(
+            loss=float(m["loss"]), counts=_dp_counts(),
+            launches=_dp_launches(kernels), dec=_pack(dec),
+            grads={n: p.grad.cpu() for n, p in st.model.named_parameters()
+                   if p.grad is not None},
+            queue=st.moco.queue.cpu(), ptr=st.moco.queue_ptr)
+        del tr, st
+        _sync(dev, empty=True)
+    tr = SlowFastTrainer(_sf_cfg(DPG_SF_B), 100, device=dev, mesh=mesh)
+    st = shard_train_state(mesh, tr.init_state(SEED))
+    local = crops[:, batch_slice(mesh, DPG_SF_B)]
+    _dp_zero(kernels)
+    dec = {}
+    with _sf_decisions(st.model, dec):
+        st, m = tr.step_fn(st, local.reshape(-1, *local.shape[2:]).to(dev))
+    _sync(dev)
+    out["slow_fast"] = dict(
+        loss=float(m["loss"]), counts=_dp_counts(),
+        launches=_dp_launches(kernels), dec=_pack(dec),
+        grads={n: p.grad.cpu() for n, p in st.model.named_parameters()})
+    return out
+
+
+def _dp_moco_slowfast(dev, card: str):
+    """(g) MoCo (pair3 f32 and bf16) and slow/fast (f32): two gloo ranks
+    against one process from the same weights, queue and inputs. Returns
+    {path: launches}."""
+    from facl_tpu_torch.parallel import spawn
+    t0 = time.perf_counter()
+    ranks = spawn(_dpg_rank, 2, "gloo", args=(dev.type,), timeout_s=600)
+    dt = time.perf_counter() - t0
+    views, crops = _dpg_inputs()
+    B = DPG_MOCO_B
+    out = {}
+    ones = {dtype: _moco_step(dev, _cfg(B, "pair3", dtype=dtype), views, B)
+            for dtype in ("float32", "bfloat16")}
+    halves = _moco_step(dev, _cfg(B, "pair3", dtype="bfloat16"), views, B,
+                        halves=True)
+    _sync(dev, empty=True)
+    m_cfg = _cfg(B).model
+    for dtype, label in (("float32", "pair3 f32"), ("bfloat16",
+                                                    "pair3 bf16")):
+        r0, r1 = (r[f"moco {dtype}"] for r in ranks)
+        one = ones[dtype]
+        check(r0["loss"] == r1["loss"], f"dp (g) moco {label}: the ranks' "
+                                        f"losses {r0['loss']} {r1['loss']}")
+        check(torch.equal(r0["queue"], r1["queue"]) and
+              r0["ptr"] == r1["ptr"] == one["ptr"] == B,
+              f"dp (g) moco {label}: queue or pointer differ between the "
+              "ranks")
+        for n, gr in r0["grads"].items():
+            check(torch.equal(gr, r1["grads"][n]),
+                  f"dp (g) moco {label}: gradient {n} differs between the "
+                  "ranks")
+        if dtype == "float32":
+            check(math.isclose(r0["loss"], one["loss"], rel_tol=2e-4),
+                  f"dp (g) moco {label}: loss {r0['loss']} vs one process "
+                  f"{one['loss']}")
+            check(torch.allclose(r0["queue"], one["queue"], rtol=5e-4,
+                                 atol=5e-6),
+                  f"dp (g) moco {label}: the queue differs from one "
+                  "process's")
+            dk = _merge_decisions([r0["dec"], r1["dec"]], B, 1)
+            flips = {n: (one["dec"][n] != dk[n]).reshape(
+                -1, one["dec"][n].shape[-1]) for n in one["dec"]}
+            got = (f"loss within rtol 2e-4, queue within rtol 5e-4 / atol "
+                   f"5e-6 of one process's; flipped decisions "
+                   f"{ {n: int(f.sum()) for n, f in flips.items()} }; "
+                   "gradients " + _dp_grad_bars(
+                       f"(g) moco {label}", one["grads"], r0["grads"],
+                       flips, 2e-4))
+            want_l = PATHS["pair3"]
+        else:
+            # MoCo's loss sums exp(l_neg - l_pos) over logits of tens
+            # (unnormalised embeddings, temperature 1), so its relative
+            # rounding is the logits' absolute one, about 2^-8 of them at
+            # bf16: phase 7 (b)'s rtol 2e-3 against one process would
+            # hold the rounding of bf16 itself. The loss is held against
+            # the f32 run (``_dp_vs_f32``) and at the f32 bar against one
+            # process rounding as two ranks.
+            rel = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
+            check(math.isclose(r0["loss"], halves["loss"], rel_tol=2e-4),
+                  f"dp (g) moco {label}: loss {r0['loss']} vs one process "
+                  f"as two halves {halves['loss']}")
+            check(torch.allclose(r0["queue"], halves["queue"], rtol=5e-4,
+                                 atol=5e-6),
+                  f"dp (g) moco {label}: the queue differs from one process "
+                  "as two halves")
+            f32 = ones["float32"]
+            top = max(float(t.abs().max()) for t in f32["grads"].values())
+            live = [n for n, t in f32["grads"].items() if not
+                    n.startswith(DP_ABSORBED) and
+                    float(t.abs().max()) > 1e-6 * top]
+            got = "; ".join([
+                f"loss {rel:.3e} from one process's, within rtol 2e-4 of one "
+                f"process as two halves "
+                f"({abs(r0['loss'] - halves['loss']):.3e} apart); "
+                "queue within rtol 5e-4 / atol 5e-6 of the halves' (from one "
+                f"process's: {_rel_l2(r0['queue'], one['queue']):.3e} "
+                "relative L2)"] + [
+                _dp_vs_f32(f"(g) moco {label}", what, [r[k] for k in keys],
+                           [o[k] for k in keys], [d[k] for k in keys])
+                for what, keys, r, o, d in (
+                    ("loss", ["loss"], *({"loss": torch.tensor(x["loss"])}
+                                         for x in (f32, one, r0))),
+                    ("gradients", live, f32["grads"], one["grads"],
+                     r0["grads"]))])
+            want_l = BF16_LAUNCHES["pair3 bf16"]
+        want = _dp_want_counts(m_cfg, "pair3")
+        want.update(global_moments=want["global_moments"] - 1,
+                    gather_negatives=1, all_gather=1)
+        want.pop("broadcast")
+        for r in (r0, r1):
+            check(r["counts"] == want, f"dp (g) moco {label}: collectives "
+                                       f"{r['counts']}, expected {want}")
+            check(r["launches"] == want_l,
+                  f"dp (g) moco {label}: launches {r['launches']}")
+        out[f"dp (g) moco {label} step, per rank"] = r0["launches"]
+        print(f"dp (g) moco {label} step, B={B} ({B // 2} a rank), two gloo "
+              f"ranks vs one process on {card}: loss {r0['loss']:.6f} vs "
+              f"{one['loss']:.6f}; {got}; queue and pointer ({r0['ptr']}) "
+              f"and gradients bit-equal across the ranks; collectives a step "
+              f"{r0['counts']}; launches a step {r0['launches']}",
+              flush=True)
+    del ones, halves
+
+    # Slow/fast: one process on the ranks' rows in rank order (a
+    # permutation of the crop-major order; the loss does not change), so
+    # the decisions line up row for row.
+    cfg = _sf_cfg(DPG_SF_B)
+    h = DPG_SF_B // 2
+    order = torch.cat([crops[:, :h].reshape(-1, 512, 4),
+                       crops[:, h:].reshape(-1, 512, 4)])
+    one = _sf_step(dev, cfg, order)
+    _sync(dev, empty=True)
+    r0, r1 = (r["slow_fast"] for r in ranks)
+    check(r0["loss"] == r1["loss"], "dp (g) slow_fast: the ranks' losses "
+                                    "differ")
+    check(math.isclose(r0["loss"], one["loss"], rel_tol=2e-4),
+          f"dp (g) slow_fast: loss {r0['loss']} vs one process "
+          f"{one['loss']}")
+    for n, gr in r0["grads"].items():
+        check(torch.equal(gr, r1["grads"][n]),
+              f"dp (g) slow_fast: gradient {n} differs between the ranks")
+    d0, d1 = _unpack(r0["dec"]), _unpack(r1["dec"])
+    flips = _flips(one["dec"], {n: torch.cat([d0[n], d1[n]]) for n in d0})
+    got = _sf_grad_bars("dp (g) slow_fast", cfg.model, one["grads"],
+                        r0["grads"], flips)
+    want = {"global_moments": 28, "gather_negatives": 2, "psum_grads": 1}
+    for r in (r0, r1):
+        check(r["counts"] == want, f"dp (g) slow_fast: collectives "
+                                   f"{r['counts']}, expected {want}")
+        check(r["launches"] == {"select_gather": 2},
+              f"dp (g) slow_fast: launches {r['launches']}")
+    out["dp (g) slow_fast step, per rank"] = r0["launches"]
+    print(f"dp (g) slow_fast f32 step, {SF_G} x {DPG_SF_B} clouds "
+          f"({SF_G * h} a rank), two gloo ranks vs one process on {card} "
+          f"({dt:.1f} s for the ranks): loss {r0['loss']:.6f} vs "
+          f"{one['loss']:.6f} (rtol 2e-4); flipped decisions {flips}; "
+          f"gradients before Adam {got}, bit-equal across the ranks; "
+          f"collectives a step {r0['counts']}; launches a step "
+          f"{r0['launches']}", flush=True)
+    return out
 
 
 def _dp_clis(dev, card, root, common, ck, tmp):
@@ -4430,7 +5175,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     paths.update(phase_swav(dev, name_power, medians, args.profile))
     torch.cuda.empty_cache()
-    paths.update(phase_datagen(dev, name_power, args.profile))
+    paths.update(phase_datagen(
+        dev, name_power, args.profile, then=lambda tree, tmp:
+        moco_slowfast_clis(dev, name_power, tree, tmp)))
+    torch.cuda.empty_cache()
+    paths.update(phase_moco_slowfast(dev, name_power, args.profile))
     torch.cuda.empty_cache()
     paths.update(phase_dp(dev, name_power))
 

@@ -1,3 +1,3 @@
-"""Command-line entry points of the port (pretrain / extract / probe),
-counterparts of facl_tpu/cli/. Each takes ``--device`` (default ``cuda``;
-the tests pass ``--device cpu``)."""
+"""Command-line entry points of the port (pretrain / moco / extract /
+probe / generate), counterparts of facl_tpu/cli/. Each takes ``--device``
+(default ``cuda``; the tests pass ``--device cpu``)."""

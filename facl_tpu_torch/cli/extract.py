@@ -15,7 +15,7 @@ import argparse
 import logging
 
 from facl_tpu_torch.cli.pretrain import add_common_args, build_config, \
-    mesh_of, reject_unported
+    mesh_of
 from facl_tpu_torch.data import CropLoader, NTUPointDataset
 from facl_tpu_torch.train import Trainer, latest_checkpoint, \
     make_eval_step, restore_latest
@@ -32,7 +32,6 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     cfg = build_config(args)
-    reject_unported(cfg)
     if latest_checkpoint(args.checkpoint) is None:
         raise SystemExit(f"no checkpoint found in {args.checkpoint!r} "
                          "(expected index.json written by pretrain)")

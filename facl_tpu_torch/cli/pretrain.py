@@ -17,6 +17,7 @@ import contextlib
 import dataclasses
 import json
 import logging
+import time
 from typing import Dict, List
 
 import numpy as np
@@ -28,7 +29,8 @@ from facl_tpu_torch.data import CropLoader, NTUPointDataset
 from facl_tpu_torch.models.pointnet import SA_IMPLS
 from facl_tpu_torch.parallel import finalize, initialize, make_mesh, \
     rank_device, shard_train_state
-from facl_tpu_torch.train import Trainer, restore_latest, save_checkpoint
+from facl_tpu_torch.train import SlowFastTrainer, Trainer, restore_latest, \
+    save_checkpoint
 from facl_tpu_torch.utils.logging import setup_logging
 
 
@@ -87,12 +89,6 @@ def build_config(args) -> Config:
     return cfg
 
 
-def reject_unported(cfg: Config) -> None:
-    if cfg.model.name == "slow_fast":
-        raise NotImplementedError("slow_fast is not ported yet (ROADMAP "
-                                  "Queue 1 item 16)")
-
-
 def main(argv=None) -> List[Dict[str, float]]:
     """Returns each epoch's mean metrics (with ``clips_per_sec``)."""
     p = argparse.ArgumentParser(description=__doc__)
@@ -105,7 +101,6 @@ def main(argv=None) -> List[Dict[str, float]]:
     args = p.parse_args(argv)
 
     cfg = build_config(args)
-    reject_unported(cfg)
     with mesh_of(args, cfg) as (mesh, device):
         return _pretrain(args, cfg, mesh, device)
 
@@ -155,6 +150,9 @@ def _pretrain(args, cfg: Config, mesh, device) -> List[Dict[str, float]]:
 
     loader = CropLoader(ds, args.batch_size, seed=args.seed, device=device,
                         mesh=mesh)
+    if cfg.model.name == "slow_fast":
+        return _run_slowfast(args, cfg, loader, steps_per_epoch, mesh,
+                             device)
     trainer = Trainer(cfg, steps_per_epoch, device=device, mesh=mesh)
     state = trainer.init_state(args.seed)
     start_epoch = 0
@@ -176,6 +174,38 @@ def _pretrain(args, cfg: Config, mesh, device) -> List[Dict[str, float]]:
         history.append(metrics)
         log.info("epoch %d done: %s", epoch,
                  {k: round(v, 4) for k, v in metrics.items()})
+        if epoch % cfg.train.checkpoint_every_epochs == 0:
+            log.info("checkpoint %s", save_checkpoint(args.out, state, epoch,
+                                                      mesh=mesh))
+    save_checkpoint(args.out, state, args.epochs - 1, mesh=mesh)
+    return history
+
+
+def _run_slowfast(args, cfg: Config, loader, steps_per_epoch: int, mesh,
+                  device) -> List[Dict[str, float]]:
+    """Train the two-pathway encoder (``"name": "slow_fast"`` in
+    --config; facl_tpu/cli/pretrain.py:153-184): each (G, B, N, C) crop
+    batch (this rank's block under --mesh) is flattened to G*B single
+    clouds, each one sample for both pathways. As in JAX, the run starts
+    at epoch 0 (--resume is not read here)."""
+    log = logging.getLogger("pretrain")
+    if args.resume:
+        log.warning("slow_fast: --resume is not supported; starting at "
+                    "epoch 0")
+    trainer = SlowFastTrainer(cfg, steps_per_epoch, device=device, mesh=mesh)
+    state = shard_train_state(mesh, trainer.init_state(args.seed))
+    history = []
+    for epoch in range(args.epochs):
+        losses, clips, t0 = [], 0, time.perf_counter()
+        for batch, _, _ in loader.epoch(epoch):
+            G, B, N, C = batch.shape
+            state, m = trainer.step_fn(state, batch.reshape(G * B, N, C))
+            losses.append(m["loss"])
+            clips += B * (mesh.dp if mesh is not None else 1)
+        mean = float(torch.stack(losses).mean())
+        dt = time.perf_counter() - t0
+        history.append({"loss": mean, "clips_per_sec": clips / dt})
+        log.info("slow_fast epoch %d done: loss=%.4f", epoch, mean)
         if epoch % cfg.train.checkpoint_every_epochs == 0:
             log.info("checkpoint %s", save_checkpoint(args.out, state, epoch,
                                                       mesh=mesh))

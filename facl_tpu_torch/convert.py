@@ -5,13 +5,14 @@ flax's names): ``params`` leaves become parameters, ``batch_stats`` leaves
 buffers, with path segments joined by dots. A Dense ``kernel`` (in, out)
 becomes an ``nn.Linear`` ``weight`` (out, in); the SA stage keeps its raw
 ``kernel_i`` (Cin, Cout) as in the JAX module. ``probe_from_jax`` does the
-same for the linear probe's variables, and ``swav_queue_from_jax`` carries
-the SwAV queue.
+same for the linear probe's variables, ``swav_queue_from_jax`` carries
+the SwAV queue and ``moco_state_from_jax`` the MoCo state. The slow/fast
+encoder's variables need nothing more: its submodules keep JAX's names.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,3 +60,16 @@ def swav_queue_from_jax(queue, device="cpu") -> Optional[torch.Tensor]:
     if queue is None:
         return None
     return torch.from_numpy(np.array(queue, dtype=np.float32)).to(device)
+
+
+def moco_state_from_jax(moco_state: Any, batch_stats: Mapping
+                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
+                                   int]:
+    """facl_tpu's ``MoCoState`` (``key_params``, ``queue``, ``queue_ptr``)
+    and the query encoder's ``batch_stats``, which the key encoder reads
+    -> (the key encoder's state_dict, the queue as the same f32 values on
+    the CPU, the pointer as an int): the parts of the port's
+    ``models.moco.MoCoState``."""
+    return (from_jax(moco_state.key_params, batch_stats),
+            torch.from_numpy(np.array(moco_state.queue, dtype=np.float32)),
+            int(np.asarray(moco_state.queue_ptr)))

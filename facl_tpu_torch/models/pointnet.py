@@ -142,7 +142,8 @@ def resolve_model_config(model_cfg: ModelConfig) -> ModelConfig:
 def resolve_grouping(cfg: Config) -> GroupingConfig:
     """The grouping ``cfg.model.name`` runs with. The 'fine' variant
     differs only in grouping (S=32, K=128, cn3d_model_conbag.py:141-234).
-    """
+    ``slow_fast`` raises ValueError, as facl_tpu/models/pointnet.py:209-215
+    does: it groups twice, in its own trainer."""
     name = cfg.model.name
     if name == "pointnet_plus":
         return cfg.grouping
@@ -151,8 +152,10 @@ def resolve_grouping(cfg: Config) -> GroupingConfig:
             cfg.grouping, num_centroids=cfg.model.fine_num_centroids,
             knn_k=cfg.model.fine_knn_k)
     if name == "slow_fast":
-        raise NotImplementedError("slow_fast is not ported yet (ROADMAP "
-                                  "Queue 1 item 16)")
+        raise ValueError(
+            "model name 'slow_fast' has a two-pathway forward; use "
+            "facl_tpu_torch.train.slowfast_trainer.SlowFastTrainer (the "
+            "pretrain CLI dispatches automatically)")
     raise ValueError(f"unknown model name {name!r}; expected pointnet_plus, "
                      "pointnet_plus_fine or slow_fast")
 

@@ -72,14 +72,14 @@ def batch_slice(mesh: Optional[Mesh], batch: int) -> slice:
     return slice(mesh.rank * n, (mesh.rank + 1) * n)
 
 
-def shard_train_state(mesh: Optional[Mesh], state):
+def shard_train_state(mesh: Optional[Mesh], state, extra=()):
     """Every rank takes rank 0's parameters, BatchNorm buffers, Adam
-    state and SwAV queue (the port's placement of a replicated state:
-    after this call the ranks hold the same state bit for bit). One
-    broadcast of all of it, packed in float64 (exact for the f32
-    tensors), on the rank's device. The LR scheduler and the update count are host values that a
-    fresh init or a restore of the same files already gives every rank
-    alike. Returns ``state``."""
+    state, SwAV queue and the tensors ``extra`` (the port's placement of a
+    replicated state: after this call the ranks hold the same state bit
+    for bit). One broadcast of all of it, packed in float64 (exact for the
+    f32 tensors), on the rank's device. The LR scheduler and the update
+    count are host values that a fresh init or a restore of the same files
+    already gives every rank alike. Returns ``state``."""
     from facl_tpu_torch.parallel.collectives import broadcast
     if not distributed(mesh):
         return state
@@ -89,6 +89,7 @@ def shard_train_state(mesh: Optional[Mesh], state):
                     if isinstance(t, torch.Tensor)]
     if state.swav_queue is not None:
         tensors.append(state.swav_queue)
+    tensors += list(extra)
     dev = next(state.model.parameters()).device
     flat = torch.cat([t.detach().reshape(-1).to(dev, torch.float64)
                       for t in tensors])

@@ -3,7 +3,10 @@
 The full TrainState round-trips: the module's parameters and BatchNorm
 running statistics, Adam's moments, the LR scheduler, the update count
 and the SwAV queue where SwAV is on (a file without one, SwAV off or
-written before the queue was saved, leaves the target's queue). One
+written before the queue was saved, leaves the target's queue). The
+slow/fast state is a TrainState of another module; the MoCo state
+(``MoCoTrainState``) adds the key encoder, the negative queue and its
+pointer, and restores only into a MoCo state. One
 ``ckpt_epoch_{epoch:05d}.pt`` file per checkpoint plus ``index.json``
 (``latest_epoch``, ``latest``), each written to a temp file and renamed,
 so a crash mid-write never corrupts the latest; the oldest files beyond
@@ -53,6 +56,10 @@ def _payload(state: TrainState) -> dict:
            "step": int(state.step)}
     if state.swav_queue is not None:
         out["swav_queue"] = state.swav_queue
+    moco = getattr(state, "moco", None)
+    if moco is not None:
+        out["moco"] = {"key_encoder": moco.key_encoder.state_dict(),
+                       "queue": moco.queue, "queue_ptr": int(moco.queue_ptr)}
     return out
 
 
@@ -95,12 +102,21 @@ def restore_checkpoint(path: str, target: TrainState) -> TrainState:
     match), onto the device of its parameters. Returns ``target``."""
     device = next(target.model.parameters()).device
     saved = torch.load(path, map_location=device, weights_only=True)
+    moco = getattr(target, "moco", None)
+    if ("moco" in saved) != (moco is not None):
+        kind = "a MoCo" if "moco" in saved else "a non-MoCo"
+        raise ValueError(f"{path}: {kind} checkpoint, restored into a "
+                         f"{type(target).__name__}")
     target.model.load_state_dict(saved["model"])
     target.optimizer.load_state_dict(saved["optimizer"])
     target.scheduler.load_state_dict(saved["scheduler"])
     target.step = int(saved["step"])
     if "swav_queue" in saved:
         target.swav_queue = saved["swav_queue"].to(device)
+    if moco is not None:
+        moco.key_encoder.load_state_dict(saved["moco"]["key_encoder"])
+        moco.queue = saved["moco"]["queue"].to(device)
+        moco.queue_ptr = int(saved["moco"]["queue_ptr"])
     return target
 
 
