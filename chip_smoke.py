@@ -163,7 +163,7 @@ Phases (any failure exits nonzero, before the final line):
              vs card on 80 clouds: loss at rtol 2e-4, gradients at the
              same bars, flipped ReLU and pool decisions counted
              (_sf_touched).
-  7. dp      data parallelism (B6s) on the one card: ranks started by
+  7. dp      data and tensor parallelism on the one card: ranks started by
              facl_tpu_torch.parallel.spawn, two gloo ranks sharing the card
              (NCCL takes one card a rank). (a) the pair3 and pair SA stages
              (f32 and bf16) at bench.py's batch (B=64, 32 a rank) against
@@ -215,6 +215,27 @@ Phases (any failure exits nonzero, before the final line):
              the f32 step than twice one process's; the queue and
              pointer bit-equal across the ranks and, f32, within rtol
              5e-4 / atol 5e-6 of one process's; collectives counted.
+             (h) tensor parallelism (mesh.mp > 1: the Denses of 512
+             columns or more split by output columns over the mp ranks)
+             at bench.py's workload: two gloo ranks at dp = 1 x mp = 2,
+             pair3 f32 and bf16, against one process (_dp_tensor_parallel):
+             f32 at (b)'s bars with flips counted; bf16 at (b)'s bf16 bars
+             against one process computing each split Dense as two
+             column-block GEMMs (tests/torch_two_halves.py::
+             as_column_blocks), its gradients' bit-equality counted; loss,
+             whole gradients, parameters and BatchNorm buffers bit-equal
+             across the ranks after 2 steps; collectives counted; the
+             bytes of parameters plus Adam state a rank (half of the split
+             kernels and their moments saved, exactly); then 2 warm-up and
+             5 timed steps a rank (ms/step, peak), and 5 more with the
+             collectives' host ms and bytes by kind; then one f32 step on
+             four ranks (dp = 2 x mp = 2) at (b)'s bars. (i) covar and
+             analytic under dp, f32 and bf16, two gloo ranks at B=64
+             against one process (_dp_covar_analytic): f32 at (b)'s bars,
+             bf16 at (b)'s bf16 bars against one process as two halves
+             (Gram/colsum and analytic's backward sums split as the ranks
+             split them); collectives counted; 1 warm-up and 3 timed steps
+             a rank.
 Output: a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 """
@@ -3971,13 +3992,14 @@ DP_LAUNCHES = {"pair3": PATHS["pair3"], "pair": PATHS["pair"],
 
 
 def _dp_counts():
-    from facl_tpu_torch.parallel import COLLECTIVES
-    return {c.__name__: c.calls for c in COLLECTIVES if c.calls}
+    from facl_tpu_torch.parallel import COLLECTIVES, MP_COLLECTIVES
+    return {c.__name__: c.calls for c in COLLECTIVES + MP_COLLECTIVES
+            if c.calls}
 
 
 def _dp_zero(kernels):
-    from facl_tpu_torch.parallel import COLLECTIVES
-    for c in tuple(COLLECTIVES) + tuple(kernels):
+    from facl_tpu_torch.parallel import COLLECTIVES, MP_COLLECTIVES
+    for c in COLLECTIVES + MP_COLLECTIVES + tuple(kernels):
         if hasattr(c, "calls"):
             c.calls = 0
         else:
@@ -4193,7 +4215,10 @@ def _dp_one_step(dev, B, impl, dtype, witness=None):
     recorded): "swap", the batch's two halves swapped (every sum over
     the clips in another order; exact arithmetic gives the same loss,
     gradients and statistics); "halves", the rounding two ranks give it
-    (tests/torch_two_halves.py::as_two_halves)."""
+    (tests/torch_two_halves.py::as_two_halves); "columns", the rounding
+    two mp ranks give it (as_column_blocks: each split Dense as two
+    column-block GEMMs). Also the bytes of its parameters and Adam
+    state after the step."""
     from facl_tpu_torch.train import Trainer
     pts, perm = _dp_points(B)
     if witness == "swap":
@@ -4206,24 +4231,46 @@ def _dp_one_step(dev, B, impl, dtype, witness=None):
             stack.enter_context(_decisions(st.model, impl, B, dec))
         elif witness == "halves":
             stack.enter_context(_as_two_halves())
+        elif witness == "columns":
+            stack.enter_context(_witnesses().as_column_blocks(2))
         st, m = tr.step_fn(st, pts.to(dev), perm=perm)
-    return dict(loss=float(m["loss"]), dec=dec,
+    return dict(loss=float(m["loss"]), dec=dec, bytes=_state_bytes(st),
                 grads={n: p.grad.cpu() for n, p in
                        st.model.named_parameters() if p.grad is not None},
                 buffers={n: b.cpu().clone() for n, b in
                          st.model.named_buffers()})
 
 
+_WITNESSES = []
+
+
+def _witnesses():
+    """tests/torch_two_halves.py, loaded from this checkout's file (once):
+    the checkout's tests/ has no __init__.py, so a package named
+    ``tests`` installed on the machine would shadow it."""
+    if not _WITNESSES:
+        here = os.path.dirname(os.path.abspath(__file__))
+        path = os.path.join(here, "tests", "torch_two_halves.py")
+        spec = importlib.util.spec_from_file_location("torch_two_halves",
+                                                      path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _WITNESSES.append(mod)
+    return _WITNESSES[0]
+
+
 def _as_two_halves():
-    """tests/torch_two_halves.py::as_two_halves, loaded from this
-    checkout's file: the checkout's tests/ has no __init__.py, so a
-    package named ``tests`` installed on the machine would shadow it."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    path = os.path.join(here, "tests", "torch_two_halves.py")
-    spec = importlib.util.spec_from_file_location("torch_two_halves", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.as_two_halves()
+    """tests/torch_two_halves.py::as_two_halves (``_witnesses``)."""
+    return _witnesses().as_two_halves()
+
+
+def _state_bytes(st):
+    """Bytes of a state's parameters plus Adam's state tensors, as this
+    process holds them."""
+    n = sum(p.numel() * p.element_size() for p in st.model.parameters())
+    return n + sum(t.numel() * t.element_size() for per in
+                   st.optimizer.state.values() for t in per.values()
+                   if isinstance(t, torch.Tensor))
 
 
 def _merge_decisions(ranks, B, G):
@@ -4349,15 +4396,24 @@ def _dp_bf16_stage(label, f32, one, dp):
             for what, f in (("statistics", stats), ("gradients", grads)))
 
 
-def _dp_bf16_step(label, f32, one, dp, witnesses):
+#: The witnesses of ``_dp_bf16_step``: one process rounding as the ranks
+#: of a dp mesh ("halves") or of an mp mesh ("columns") do.
+WITNESS_TEXT = {"halves": "one process as two halves",
+                "columns": "one process as two column blocks"}
+
+
+def _dp_bf16_step(label, f32, one, dp, witnesses, wname="halves",
+                  phase="(b)"):
     """(b) at bf16: the loss, the running statistics and the live
     gradients (not BN-absorbed) against the f32 step (``_dp_vs_f32``);
     the loss at rtol 2e-3 (about half a bf16 ulp, 2^-9) of the
     one-process bf16 step's; and the loss and running statistics at the
     f32 bars (rtol 2e-4; rtol 1e-3 / atol 1e-5) of the one process
-    rounding as two ranks ("halves", tests/torch_two_halves.py: every
-    sum the ranks split, the pair stage's B6s all-reduces included), their
-    differences printed (zero where the witness is bit for bit). Beside
+    rounding as the ranks do (``witnesses[wname]``: "halves",
+    tests/torch_two_halves.py: every sum the ranks split, the pair stage's
+    B6s all-reduces included; "columns", each split Dense as column-block
+    GEMMs), their differences printed (zero where the witness is bit for
+    bit). Beside
     them, how far the two ranks and each of the ``witnesses``
     (``_dp_one_step``) sit from the one-process bf16 step (loss;
     gradients and running statistics by relative L2, together), the
@@ -4368,7 +4424,7 @@ def _dp_bf16_step(label, f32, one, dp, witnesses):
     live = [n for n, t in g32.items() if not n.startswith(DP_ABSORBED) and
             float(t.abs().max()) > 1e-6 * top]
     bufs = sorted(f32["buffers"])
-    out = [_dp_vs_f32(f"(b) {label}", what, [r[k] for k in keys],
+    out = [_dp_vs_f32(f"{phase} {label}", what, [r[k] for k in keys],
                       [o[k] for k in keys], [d[k] for k in keys])
            for what, keys, r, o, d in (
                ("loss", ["loss"], *({"loss": torch.tensor(x["loss"])}
@@ -4377,18 +4433,16 @@ def _dp_bf16_step(label, f32, one, dp, witnesses):
                 dp["buffers"]),
                ("gradients", live, g32, one["grads"], dp["grads"]))]
     rel = abs(dp["loss"] - one["loss"]) / abs(one["loss"])
-    check(rel <= 2e-3, f"dp (b) {label}: loss {dp['loss']} vs one process "
+    check(rel <= 2e-3, f"dp {phase} {label}: loss {dp['loss']} vs one process "
                        f"{one['loss']} beyond rtol 2e-3")
-    halves = witnesses["halves"]
+    halves, wtext = witnesses[wname], WITNESS_TEXT[wname]
     check(math.isclose(dp["loss"], halves["loss"], rel_tol=2e-4),
-          f"dp (b) {label}: loss {dp['loss']} vs one process as two "
-          f"halves {halves['loss']}")
+          f"dp {phase} {label}: loss {dp['loss']} vs {wtext} {halves['loss']}")
     in_bar = {n: _in_bars(dp["buffers"][n], halves["buffers"][n], 1e-3, 1e-5)
               for n in bufs}
     bad = {n: round(v, 3) for n, v in in_bar.items() if v > 1.0}
-    check(not bad, f"dp (b) {label}: running statistics beyond rtol 1e-3"
-                   f" / atol 1e-5 of the one process as two halves, in "
-                   f"units of the bar: {bad}")
+    check(not bad, f"dp {phase} {label}: running statistics beyond rtol 1e-3"
+                   f" / atol 1e-5 of {wtext}, in units of the bar: {bad}")
     same = sum(torch.equal(dp["buffers"][n], halves["buffers"][n])
                for n in bufs)
     exact = (f"loss {abs(dp['loss'] - halves['loss']):.3e} apart, running "
@@ -4413,14 +4467,13 @@ def _dp_bf16_step(label, f32, one, dp, witnesses):
     worst = max(l2, key=l2.get)
     return "; ".join(out) + (
         "; loss within rtol 2e-3 of one process's; loss and running "
-        f"statistics within the f32 bars of one process as two halves "
-        f"({exact})" +
+        f"statistics within the f32 bars of {wtext} ({exact})" +
         f"; running statistics from one process's worst max-abs/scale "
         f"{rs[rs_worst]:.3e} ({rs_worst}), {rb[rb_worst]:.3f} of f32's rtol "
         f"1e-3 / atol 1e-5 ({rb_worst}); from the one-process bf16 step: "
         f"two ranks {gap(dp)}; " + "; ".join(
             f"one process {w} {gap(r)}" for w, r in witnesses.items()) +
-        f"; two ranks from one process halves: {gap(dp, witnesses['halves'])}"
+        f"; two ranks from {wtext}: {gap(dp, halves)}"
         f"; gradients two ranks vs one process worst relative L2 "
         f"{l2[worst]:.3e} ({worst})")
 
@@ -4456,6 +4509,7 @@ def _timed_collectives(acc: dict, dev):
              "forward": "BN moments", "backward": "BN moments",
              "psum_grads": "gradient sum", "cross_replica_mean": "other"}
     reduce0, bcast0 = C._all_reduce, dist.broadcast
+    mp_reduce0, mp_gather0 = C._mp_all_reduce, C._mp_all_gather
 
     def timed(fn, label):
         def wrapped(*a, **k):
@@ -4473,10 +4527,14 @@ def _timed_collectives(acc: dict, dev):
         return wrapped
     C._all_reduce = timed(reduce0, None)
     dist.broadcast = timed(bcast0, "broadcast")
+    # Tensor parallelism: the bytes are each rank's own tensor.
+    C._mp_all_reduce = timed(mp_reduce0, "mp input sums")
+    C._mp_all_gather = timed(mp_gather0, "mp gathers")
     try:
         yield
     finally:
         C._all_reduce, dist.broadcast = reduce0, bcast0
+        C._mp_all_reduce, C._mp_all_gather = mp_reduce0, mp_gather0
 
 
 def _dp_time_rank(devtype, cfg_path, impl, B, warm, timed):
@@ -4578,15 +4636,18 @@ def _dp_kernels(dev, card, label, r0):
 
 
 def _dp_want_counts(model_cfg, impl):
-    """Collectives of one dp step: the B6s sums of pair/pair3, the
-    BatchNorm moment sums (stage-2's layers and the head's, called twice,
-    and the reference SA's), forward and backward; two gathers, the
-    permutation's broadcast and one gradient sum."""
-    bn = len(model_cfg.stage2_widths) + 2 + \
-        (len(model_cfg.sa_widths) if impl == "reference" else 0)
-    want = {"global_moments": 2 * bn, "gather_negatives": 2, "broadcast": 1,
-            "psum_grads": 1}
-    psum = {"pair3": 6, "pair": 5}.get(impl, 0)
+    """Collectives of one dp step: the B6s sums of pair/pair3 and
+    analytic's backward sums (one a SA layer), the BatchNorm moment sums
+    (stage-2's layers and the head's, called twice, and the reference and
+    covar SA's, but for covar's first Gram, of the input; analytic's
+    forward only), forward and backward; two gathers, the permutation's
+    broadcast and one gradient sum."""
+    L = len(model_cfg.sa_widths)
+    sa = {"reference": 2 * L, "covar": 2 * L - 1, "analytic": L}.get(impl,
+                                                                      0)
+    want = {"global_moments": 2 * (len(model_cfg.stage2_widths) + 2) + sa,
+            "gather_negatives": 2, "broadcast": 1, "psum_grads": 1}
+    psum = {"pair3": 6, "pair": 5, "analytic": L}.get(impl, 0)
     if psum:
         want["psum"] = psum
     return want
@@ -4764,6 +4825,13 @@ def phase_dp(dev, card: str):
                   flush=True)
     out.update(_dp_swav(dev, card, B))
     out.update(_dp_moco_slowfast(dev, card))
+    # (h) and (i): one spawn of two ranks runs both (h)'s dp=1 x mp=2
+    # mesh and (i)'s dp=2 mesh.
+    t0 = time.perf_counter()
+    ranks = spawn(_hi_rank, 2, "gloo", args=(dev.type, B), timeout_s=900)
+    dt = time.perf_counter() - t0
+    out.update(_dp_tensor_parallel(dev, card, [r["h"] for r in ranks], dt))
+    out.update(_dp_covar_analytic(dev, card, [r["i"] for r in ranks], dt))
     return out
 
 
@@ -5066,6 +5134,357 @@ def _dp_moco_slowfast(dev, card: str):
     return out
 
 
+# -- phase 7 (h): tensor parallelism; (i): covar and analytic under dp ---
+
+#: (h): ms/step over TP_TIMED steps after TP_WARM, a rank.
+TP_WARM, TP_TIMED = 2, 5
+#: (i): the cases (impl, dtype); ms/step over DPI_TIMED after DPI_WARM.
+DPI_CASES = (("covar", "float32"), ("covar", "bfloat16"),
+             ("analytic", "float32"), ("analytic", "bfloat16"))
+DPI_WARM, DPI_TIMED = 1, 3
+
+
+def _tp_splits(model_cfg):
+    """Split Dense calls of one forward at mp > 1 (the mp rule: 512 output
+    columns or more): stage-2's layers, the head's two layers twice (the
+    crops, then the videos), the prototype mapping."""
+    from facl_tpu_torch.parallel.mesh import MP_MIN_COLUMNS
+    wide = sum(w >= MP_MIN_COLUMNS for w in model_cfg.stage2_widths)
+    wide += 2 * sum(w >= MP_MIN_COLUMNS for w in (model_cfg.fc_hidden,
+                                                   model_cfg.embed_dim))
+    return wide + (model_cfg.num_prototypes >= MP_MIN_COLUMNS)
+
+
+def _tp_timed(tr, st, local, perm, dev):
+    """TP_WARM steps, then TP_TIMED timed by CUDA events between steps, then
+    TP_TIMED more with each collective timed on the host
+    (``_timed_collectives``). Returns ms per step, collectives' [host ms,
+    bytes, calls] a step by kind and the peak allocation (GiB)."""
+    for _ in range(TP_WARM):
+        st, _ = tr.step_fn(st, local, perm=perm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(TP_TIMED + 1)]
+    ev[0].record()
+    for i in range(TP_TIMED):
+        st, _ = tr.step_fn(st, local, perm=perm)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    acc = {}
+    with _timed_collectives(acc, dev):
+        for _ in range(TP_TIMED):
+            st, _ = tr.step_fn(st, local, perm=perm)
+    torch.cuda.synchronize()
+    return dict(ms=[ev[i].elapsed_time(ev[i + 1]) for i in range(TP_TIMED)],
+                coll={k: [v[0] / TP_TIMED, v[1] // TP_TIMED,
+                          v[2] // TP_TIMED] for k, v in acc.items()},
+                peak=peak)
+
+
+def _tp_rank(devtype, B, shape, dtypes, timed):
+    """(h) on one rank of the dp x mp mesh ``shape``: for each of
+    ``dtypes`` the pair3 Trainer at bench.py's workload from the seed's
+    weights (global rank 0's, placed by shard_train_state) on this rank's
+    dp block: the first step's loss, gradients before Adam (a split
+    weight's blocks gathered whole), BatchNorm buffers, decisions,
+    launches, collectives and the bytes of parameters plus Adam state; the
+    whole state (parameters and buffers) after a second step; with
+    ``timed``, ``_tp_timed``."""
+    from facl_tpu_torch.config import MeshConfig
+    from facl_tpu_torch.models.layers import column_blocks, full_state_dict
+    from facl_tpu_torch.parallel import batch_slice, make_mesh, mp_full, \
+        rank_device, shard_train_state
+    from facl_tpu_torch.train import Trainer
+    mesh = make_mesh(MeshConfig(*shape))
+    dev = rank_device(devtype)
+    pts, perm = _dp_points(B)
+    local = pts[:, batch_slice(mesh, B)].to(dev)
+    kernels = all_kernels()
+    out = {"at": (mesh.rank, mesh.mp_rank)}
+    for dtype in dtypes:
+        tr = Trainer(_cfg(B, "pair3", dtype=dtype), 100, device=dev,
+                     mesh=mesh)
+        st = shard_train_state(mesh, tr.init_state(SEED))
+        _dp_zero(kernels)
+        dec = {}
+        with _decisions(st.model, "pair3", B // mesh.dp, dec):
+            st, m = tr.step_fn(st, local, perm=perm)
+        _sync(dev)
+        res = dict(loss=float(m["loss"]), counts=_dp_counts(),
+                   launches=_dp_launches(kernels), dec=_pack(dec),
+                   bytes=_state_bytes(st),
+                   buffers={n: b.cpu().clone() for n, b in
+                            st.model.named_buffers()})
+        blocks = column_blocks(st.model)
+        res["grads"] = {n: (mp_full(p.grad, mesh) if id(p) in blocks
+                            else p.grad).cpu()
+                        for n, p in st.model.named_parameters()
+                        if p.grad is not None}
+        st, _ = tr.step_fn(st, local, perm=perm)
+        res["state_end"] = {n: t.cpu() for n, t in
+                            full_state_dict(st.model).items()}
+        if timed:
+            res.update(_tp_timed(tr, st, local, perm, dev))
+        out[dtype] = res
+        del tr, st
+        _sync(dev, empty=True)
+    return out
+
+
+def _tp_checks(label, ranks, dtype, want_counts, want_launches):
+    """The ranks of (h) agree: loss, whole gradients and the whole state
+    after two steps bit-equal; collectives and launches as counted."""
+    r0 = ranks[0][dtype]
+    for k, rk in enumerate(ranks):
+        r = rk[dtype]
+        check(r["loss"] == r0["loss"], f"dp (h) {label}: rank {k}'s loss "
+                                       f"{r['loss']} vs {r0['loss']}")
+        for n, g in r0["grads"].items():
+            check(torch.equal(g, r["grads"][n]),
+                  f"dp (h) {label}: gradient {n} differs on rank {k}")
+        for n, t in r0["state_end"].items():
+            check(torch.equal(t, r["state_end"][n]),
+                  f"dp (h) {label}: {n} differs on rank {k} after 2 steps")
+        check(r["counts"] == want_counts, f"dp (h) {label}: rank {k}'s "
+              f"collectives {r['counts']}, expected {want_counts}")
+        check(r["launches"] == want_launches, f"dp (h) {label}: rank {k}'s "
+              f"launches {r['launches']}")
+
+
+def _hi_rank(devtype, B):
+    """(h)'s two ranks at dp = 1 x mp = 2 (``_tp_rank``), then (i) on the
+    same two ranks at dp = 2 (``_dpi_rank``)."""
+    return {"h": _tp_rank(devtype, B, (1, 2), ("float32", "bfloat16"),
+                          True),
+            "i": _dpi_rank(devtype, B)}
+
+
+def _dp_tensor_parallel(dev, card: str, ranks, dt):
+    """(h) Tensor parallelism (mesh.mp > 1) at bench.py's workload: two
+    gloo ranks at dp = 1 x mp = 2 time-sharing the card (``ranks``, their
+    ``_tp_rank`` results; ``dt`` s for the spawn), pair3 f32 and bf16,
+    against one process from the same weights, points and permutation;
+    then one f32 step on four ranks (dp = 2 x mp = 2). Returns {path:
+    launches}."""
+    from facl_tpu_torch.parallel import spawn
+    B = DP_B
+    model_cfg = _cfg(B).model
+    splits = {"mp_enter": _tp_splits(model_cfg),
+              "mp_gather_cols": _tp_splits(model_cfg)}
+    ones = {dtype: _dp_one_step(dev, B, "pair3", dtype)
+            for dtype in ("float32", "bfloat16")}
+    cols = _dp_one_step(dev, B, "pair3", "bfloat16", "columns")
+    _sync(dev, empty=True)
+    out = {}
+    for dtype, label in (("float32", "pair3"), ("bfloat16", "pair3 bf16")):
+        want_l = DP_LAUNCHES[label]
+        _tp_checks(label, ranks, dtype, dict(splits, broadcast=1), want_l)
+        r0, one = ranks[0][dtype], ones[dtype]
+        if dtype == "float32":
+            check(math.isclose(r0["loss"], one["loss"], rel_tol=2e-4),
+                  f"dp (h) {label}: loss {r0['loss']} vs one process "
+                  f"{one['loss']}")
+            for n, w in one["buffers"].items():
+                check(torch.allclose(r0["buffers"][n], w, rtol=1e-3,
+                                     atol=1e-5),
+                      f"dp (h) {label}: running statistic {n}")
+            dk = _unpack(r0["dec"])
+            flips = {n: (one["dec"][n] != dk[n]).reshape(
+                -1, one["dec"][n].shape[-1]) for n in one["dec"]}
+            got = ("loss within rtol 2e-4, running statistics within rtol "
+                   f"1e-3 / atol 1e-5; flipped decisions "
+                   f"{ {n: int(f.sum()) for n, f in flips.items()} }; "
+                   "gradients " + _dp_grad_bars(
+                       f"(h) {label}", one["grads"], r0["grads"], flips,
+                       2e-4))
+        else:
+            got = _dp_bf16_step(label, ones["float32"], one, r0,
+                                {"columns": cols}, "columns", "(h)")
+            same = [n for n, g in cols["grads"].items()
+                    if torch.equal(g, r0["grads"][n])]
+            got += (f"; gradients bit-equal to one process as two column "
+                    f"blocks: {len(same)} of {len(cols['grads'])} tensors")
+        saved = one["bytes"] - r0["bytes"]
+        out[f"dp (h) mp2 {label} step, per rank"] = r0["launches"]
+        ms = sorted(r0["ms"])
+        coll = {n: [round(v[0], 3), v[1], v[2]]
+                for n, v in r0["coll"].items()}
+        print(f"dp (h) tensor parallel {label} step, B={B}, dp=1 x mp=2 "
+              f"(two gloo ranks time-sharing {card}, {dt:.1f} s for the "
+              f"ranks, (i) included) vs one process: loss {r0['loss']:.6f} vs "
+              f"{one['loss']:.6f}; {got}; loss, whole gradients, parameters "
+              f"and BatchNorm buffers bit-equal across the ranks after 2 "
+              f"steps; parameters + Adam state a rank {r0['bytes']} bytes, "
+              f"one process {one['bytes']} ({saved} saved); rank 0 median "
+              f"{statistics.median(ms):.2f} ms/step (min {ms[0]:.2f}, max "
+              f"{ms[-1]:.2f}; {TP_TIMED} steps after {TP_WARM}; rank 1 "
+              f"median {statistics.median(ranks[1][dtype]['ms']):.2f}); "
+              f"peak {r0['peak']:.2f} GiB a rank; collectives a step on the "
+              f"host (synchronised, in {TP_TIMED} separate steps), kind: "
+              f"[ms, bytes, calls] {coll}; collectives a step "
+              f"{r0['counts']}; launches a step "
+              f"{r0['launches']}", flush=True)
+        check(saved == 3 * 4 * _tp_split_numel(model_cfg) // 2,
+              f"dp (h) {label}: a rank saves {saved} bytes, expected half "
+              "of the split kernels and their two Adam moments")
+
+    # One f32 step on four ranks: dp = 2 x mp = 2.
+    t0 = time.perf_counter()
+    ranks = spawn(_tp_rank, 4, "gloo", args=(dev.type, B, (2, 2),
+                                             ("float32",), False),
+                  timeout_s=600)
+    dt = time.perf_counter() - t0
+    one = ones["float32"]
+    want = dict(_dp_want_counts(model_cfg, "pair3"), **splits)
+    _tp_checks("dp2 x mp2 pair3", ranks, "float32", want,
+               DP_LAUNCHES["pair3"])
+    r0 = ranks[0]["float32"]
+    check(math.isclose(r0["loss"], one["loss"], rel_tol=2e-4),
+          f"dp (h) dp2 x mp2: loss {r0['loss']} vs one process "
+          f"{one['loss']}")
+    for n, w in one["buffers"].items():
+        check(torch.allclose(r0["buffers"][n], w, rtol=1e-3, atol=1e-5),
+              f"dp (h) dp2 x mp2: running statistic {n}")
+    blocks = [rk["float32"] for rk in ranks if rk["at"][1] == 0]
+    dk = _merge_decisions([b["dec"] for b in blocks], B,
+                          model_cfg.num_crops)
+    flips = {n: (one["dec"][n] != dk[n]).reshape(
+        -1, one["dec"][n].shape[-1]) for n in one["dec"]}
+    got = _dp_grad_bars("(h) dp2 x mp2 pair3", one["grads"], r0["grads"],
+                        flips, 2e-4)
+    out["dp (h) dp2 x mp2 pair3 step, per rank"] = r0["launches"]
+    print(f"dp (h) tensor parallel pair3 f32 step, B={B}, dp=2 x mp=2 (four "
+          f"gloo ranks time-sharing {card}, {dt:.1f} s) vs one process: loss "
+          f"{r0['loss']:.6f} vs {one['loss']:.6f} (rtol 2e-4); running "
+          f"statistics within rtol 1e-3 / atol 1e-5; flipped decisions "
+          f"{ {n: int(f.sum()) for n, f in flips.items()} }; gradients "
+          f"before Adam {got}; bit-equal across the four ranks after 2 "
+          f"steps; collectives a step {r0['counts']}", flush=True)
+    return out
+
+
+def _tp_split_numel(model_cfg):
+    """Entries of the kernels the mp rule splits at ``model_cfg``'s
+    widths."""
+    from facl_tpu_torch.parallel.mesh import MP_MIN_COLUMNS
+    dims = [3 + model_cfg.sa_widths[-1], *model_cfg.stage2_widths,
+            model_cfg.fc_hidden, model_cfg.embed_dim,
+            model_cfg.num_prototypes]
+    return sum(a * b for a, b in zip(dims, dims[1:]) if b >= MP_MIN_COLUMNS)
+
+
+def _dpi_rank(devtype, B):
+    """(i) on one rank: for each of DPI_CASES the Trainer from the seed's
+    weights (rank 0's) on this rank's block of (b)'s points: the first
+    step's loss, gradients before Adam, BatchNorm buffers, decisions,
+    launches and collectives; then DPI_WARM steps and DPI_TIMED timed by
+    CUDA events between steps."""
+    from facl_tpu_torch.parallel import batch_slice, make_mesh, \
+        rank_device, shard_train_state
+    from facl_tpu_torch.train import Trainer
+    mesh = make_mesh()
+    dev = rank_device(devtype)
+    pts, perm = _dp_points(B)
+    local = pts[:, batch_slice(mesh, B)].to(dev)
+    kernels = all_kernels()
+    out = {}
+    for impl, dtype in DPI_CASES:
+        tr = Trainer(_cfg(B, impl, dtype=dtype), 100, device=dev, mesh=mesh)
+        st = shard_train_state(mesh, tr.init_state(SEED))
+        _dp_zero(kernels)
+        dec = {}
+        with _decisions(st.model, impl, B // mesh.dp, dec):
+            st, m = tr.step_fn(st, local, perm=perm)
+        _sync(dev)
+        res = dict(loss=float(m["loss"]), counts=_dp_counts(),
+                   launches=_dp_launches(kernels), dec=_pack(dec),
+                   grads={n: p.grad.cpu() for n, p in
+                          st.model.named_parameters() if p.grad is not None},
+                   buffers={n: b.cpu().clone() for n, b in
+                            st.model.named_buffers()})
+        for _ in range(DPI_WARM):
+            st, _ = tr.step_fn(st, local, perm=perm)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(DPI_TIMED + 1)]
+        ev[0].record()
+        for i in range(DPI_TIMED):
+            st, _ = tr.step_fn(st, local, perm=perm)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        res["ms"] = [ev[i].elapsed_time(ev[i + 1]) for i in range(DPI_TIMED)]
+        out[impl, dtype] = res
+        del tr, st
+        _sync(dev, empty=True)
+    return out
+
+
+def _dp_covar_analytic(dev, card: str, ranks, dt):
+    """(i) covar and analytic under data parallelism at bench.py's
+    workload (B=64, 32 a rank): two gloo ranks (``ranks``, their
+    ``_dpi_rank`` results; ``dt`` s for the spawn, (h) included) against
+    one process from the same weights, points and permutation; f32 at
+    (b)'s f32 bars with flips counted, bf16 at (b)'s bf16 bars against
+    one process as two halves (covar's Gram and column sums, analytic's
+    backward sums split as the ranks split them). Returns {path:
+    launches}."""
+    B = DP_B
+    out, f32 = {}, {}
+    model_cfg = _cfg(B).model
+    for impl, dtype in DPI_CASES:
+        label = impl if dtype == "float32" else f"{impl} bf16"
+        r0, r1 = ranks[0][impl, dtype], ranks[1][impl, dtype]
+        one = _dp_one_step(dev, B, impl, dtype)
+        check(r0["loss"] == r1["loss"], f"dp (i) {label}: the ranks' losses "
+                                        f"{r0['loss']} {r1['loss']}")
+        for n, g in r0["grads"].items():
+            check(torch.equal(g, r1["grads"][n]),
+                  f"dp (i) {label}: gradient {n} differs between the ranks")
+        want = _dp_want_counts(model_cfg, impl)
+        for r in (r0, r1):
+            check(r["counts"] == want, f"dp (i) {label}: collectives "
+                                       f"{r['counts']}, expected {want}")
+            check(r["launches"] == {"select_gather": 1},
+                  f"dp (i) {label}: launches {r['launches']}")
+        if dtype == "float32":
+            f32[impl] = one
+            check(math.isclose(r0["loss"], one["loss"], rel_tol=2e-4),
+                  f"dp (i) {label}: loss {r0['loss']} vs one process "
+                  f"{one['loss']}")
+            for n, w in one["buffers"].items():
+                check(torch.allclose(r0["buffers"][n], w, rtol=1e-3,
+                                     atol=1e-5),
+                      f"dp (i) {label}: running statistic {n}")
+            dk = _merge_decisions([r0["dec"], r1["dec"]], B,
+                                  model_cfg.num_crops)
+            flips = {n: (one["dec"][n] != dk[n]).reshape(
+                -1, one["dec"][n].shape[-1]) for n in one["dec"]}
+            got = ("loss within rtol 2e-4, running statistics within rtol "
+                   f"1e-3 / atol 1e-5; flipped decisions "
+                   f"{ {n: int(f.sum()) for n, f in flips.items()} }; "
+                   "gradients " + _dp_grad_bars(
+                       f"(i) {label}", one["grads"], r0["grads"], flips,
+                       2e-4))
+        else:
+            halves = _dp_one_step(dev, B, impl, dtype, "halves")
+            got = _dp_bf16_step(label, f32[impl], one, r0,
+                                {"halves": halves}, "halves", "(i)")
+        _sync(dev, empty=True)
+        out[f"dp (i) {label} step, per rank"] = r0["launches"]
+        ms = sorted(r0["ms"])
+        print(f"dp (i) {label} step, B={B} ({B // 2} a rank), two gloo ranks "
+              f"vs one process on {card} ({dt:.1f} s for the ranks, with "
+              f"(h)): loss {r0['loss']:.6f} vs {one['loss']:.6f}; {got}; "
+              f"gradients before Adam equal on both ranks; rank 0 median "
+              f"{statistics.median(ms):.2f} ms/step (min {ms[0]:.2f}, max "
+              f"{ms[-1]:.2f}; {DPI_TIMED} steps after {DPI_WARM}; rank 1 "
+              f"median {statistics.median(r1['ms']):.2f}); collectives a "
+              f"step {r0['counts']}; launches a step {r0['launches']}",
+              flush=True)
+    return out
+
+
 def _dp_clis(dev, card, root, common, ck, tmp):
     """Phase 7 (e): pretrain --mesh (one epoch from the shipped motion
     config) and extract --mesh under torchrun, two gloo ranks on this
@@ -5161,27 +5580,37 @@ def main() -> None:
         load_parent(parent)
 
     from facl_tpu_torch.train import Trainer
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        """The seconds since the last lap (each phase's wall time)."""
+        torch.cuda.empty_cache()
+        clock.append(time.perf_counter())
+        print(f"phase {name}: {clock[-1] - clock[-2]:.1f} s", flush=True)
     model = Trainer(_cfg(64), 100, device=dev).init_state(SEED).model
     g = torch.Generator().manual_seed(SEED)
     points = torch.randn(10, 64, 512, 4, generator=g).to(dev)
     rows = phase_kernels(dev, model, points)
     del model, points
-    torch.cuda.empty_cache()
+    lap("2 kernels")
     phase_cpu_vs_card(dev)
+    lap("3 cpu-vs-card")
     paths, medians = phase_main(dev, args.profile, name_power)
+    lap("4 main")
     paths.update(phase_input_grad(dev))
-    torch.cuda.empty_cache()
+    lap("5 input")
     paths.update(phase_pipeline(dev, name_power, medians))
-    torch.cuda.empty_cache()
+    lap("6 pipeline")
     paths.update(phase_swav(dev, name_power, medians, args.profile))
-    torch.cuda.empty_cache()
+    lap("6b swav")
     paths.update(phase_datagen(
         dev, name_power, args.profile, then=lambda tree, tmp:
         moco_slowfast_clis(dev, name_power, tree, tmp)))
-    torch.cuda.empty_cache()
+    lap("6c datagen")
     paths.update(phase_moco_slowfast(dev, name_power, args.profile))
-    torch.cuda.empty_cache()
+    lap("6d moco/slow_fast")
     paths.update(phase_dp(dev, name_power))
+    lap("7 dp")
 
     # Each kernel's launches: from the first path (in the order run) that
     # runs it — B1-B3 on pair3, B6 on pair, B7 and B8 on hybrid2 (their

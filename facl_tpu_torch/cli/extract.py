@@ -7,16 +7,22 @@ Usage:
       --checkpoint checkpoints/motion --out features/motion
 
 With ``--mesh`` under torchrun each rank extracts its block of every batch
-and rank 0 writes the features (the same files as one process writes).
+and rank 0 writes the features (the same files as one process writes);
+with ``mp > 1`` in the config's mesh the wide Denses are split over the mp
+ranks, as JAX's extraction places them (``param_sharding``).
 """
 from __future__ import annotations
 
 import argparse
 import logging
 
+import torch
+
 from facl_tpu_torch.cli.pretrain import add_common_args, build_config, \
     mesh_of
 from facl_tpu_torch.data import CropLoader, NTUPointDataset
+from facl_tpu_torch.models.pointnet import resolve_model
+from facl_tpu_torch.parallel.mesh import tensor_parallel
 from facl_tpu_torch.train import Trainer, latest_checkpoint, \
     make_eval_step, restore_latest
 from facl_tpu_torch.train.extract import extract_features
@@ -48,6 +54,14 @@ def _extract(args, cfg, mesh, device) -> int:
     # channels_first, and the eval step's layout must match the model's.
     trainer = Trainer(cfg, steps_per_epoch=1, device=device)
     state = trainer.init_state(args.seed)
+    if tensor_parallel(mesh):
+        # The encoder with its split Denses; its eval forward runs the mp
+        # gathers and no batch collective. The restore loads the whole
+        # file and each rank keeps its blocks (the optimizer, unused here,
+        # keeps the whole model's).
+        state.model = resolve_model(
+            trainer.cfg, torch.Generator().manual_seed(args.seed),
+            mesh)[0].to(device)
     restore_latest(args.checkpoint, state)
     eval_step = make_eval_step(state.model, trainer.cfg, trainer.g_cfg)
     written = 0

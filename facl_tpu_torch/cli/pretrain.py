@@ -9,6 +9,9 @@ Usage:
 Data parallel, one process a card (``--batch-size`` is the global batch):
   torchrun --nproc_per_node 8 -m facl_tpu_torch.cli.pretrain --mesh \
       --config configs/multichip_ntu120.json --root <tree> --out <dir>
+
+Tensor parallel too: a --config whose "mesh" sets "mp" (dp x mp ranks;
+dp -1 takes the rest), e.g. {"mesh": {"dp": 4, "mp": 2}} on 8 ranks.
 """
 from __future__ import annotations
 
@@ -52,11 +55,14 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                         "value; 'auto' takes pair3, the B2/B3 kernels, where "
                         "they take the SA widths)")
     p.add_argument("--mesh", action="store_true",
-                   help="data parallel over the ranks torchrun starts "
-                        "(cfg.mesh: dp, -1 for every rank; mp must be 1): "
-                        "each rank takes its block of every global batch, "
-                        "BatchNorm statistics, negatives and gradients are "
-                        "global. The batch size must divide by dp.")
+                   help="data (and tensor) parallel over the ranks "
+                        "torchrun starts (cfg.mesh: dp x mp ranks, dp -1 "
+                        "for every rank mp leaves): each dp block of ranks "
+                        "takes its block of every global batch, BatchNorm "
+                        "statistics, negatives and gradients are global; "
+                        "with mp > 1 the Denses of 512 columns or more are "
+                        "split over the mp ranks. The batch size must "
+                        "divide by dp.")
     p.add_argument("--dist-backend", choices=("nccl", "gloo"),
                    default="nccl",
                    help="torch.distributed backend under --mesh: nccl (one "
@@ -118,11 +124,11 @@ def mesh_of(args, cfg: Config):
             joined = initialize(args.dist_backend)
             mesh = make_mesh(cfg.mesh)
             device = rank_device(device)
-        setup_logging(logging.INFO if mesh is None or mesh.rank == 0
+        setup_logging(logging.INFO if mesh is None or mesh.lead
                       else logging.WARNING)
         if mesh is not None:
             logging.getLogger("mesh").info(
-                "mesh: dp=%d mp=1 backend=%s device=%s", mesh.dp,
+                "mesh: dp=%d mp=%d backend=%s device=%s", mesh.dp, mesh.mp,
                 args.dist_backend, device)
         yield mesh, device
     finally:

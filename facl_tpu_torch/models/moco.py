@@ -7,6 +7,12 @@ structure whose parameters ``momentum_update`` moves in place, and the
 queue is a (K, D) f32 tensor on the encoders' device that ``enqueue``
 writes in place. The pointer is a host int.
 
+Under tensor parallelism the query holds column blocks of its wide
+Denses (models/layers.py::ColumnDense) while the key encoder is whole: the
+key takes the query's full tensors, gathered over the mp ranks
+(``full_state_dict``, ``full_parameters``), and its f32 EMA is then the
+same on every rank.
+
 The queue's first draw is the port's own (``torch.randn`` from an explicit
 generator, rows L2-normalised): JAX draws it with threefry, which torch
 cannot reproduce, so the tests carry JAX's queue across with
@@ -19,6 +25,8 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from facl_tpu_torch.models.layers import full_parameters, full_state_dict
 
 
 @dataclass
@@ -34,11 +42,12 @@ def init_moco_state(query: nn.Module, key: nn.Module, dim: int = 512,
                     queue_len: int = 9600,
                     generator: Optional[torch.Generator] = None
                     ) -> MoCoState:
-    """``key`` (built like ``query``) takes the query's parameters and
-    buffers; the queue is ``queue_len`` unit rows of a normal draw from
+    """``key`` (built like ``query``, whole) takes the query's parameters
+    and buffers (every rank calls this under tensor parallelism); the
+    queue is ``queue_len`` unit rows of a normal draw from
     ``generator`` (made on the CPU, then moved to the query's device), as
     facl_tpu/models/moco.py:32-41 draws its own."""
-    key.load_state_dict(query.state_dict())
+    key.load_state_dict(full_state_dict(query))
     key.eval().requires_grad_(False)
     q = torch.randn(queue_len, dim, generator=generator)
     q = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
@@ -92,7 +101,8 @@ def moco_step(encode: Callable[..., torch.Tensor], query: nn.Module,
     enqueue the keys. ``encode(module, *inputs) -> (B, D)``. Returns
     (logits, labels, state)."""
     q = encode(query, *query_inputs)
-    momentum_update(query.parameters(), state.key_encoder.parameters(), m)
+    momentum_update(full_parameters(query), state.key_encoder.parameters(),
+                    m)
     with torch.no_grad():
         k = encode(state.key_encoder, *key_inputs)
     logits, labels = moco_logits(q, k, state.queue.clone(), temperature)

@@ -16,6 +16,11 @@ in bf16 on the f32 ``x_nor`` and is cast to f32.
 ``mesh`` (data parallelism, facl_tpu/models/pointnet.py:55-67): the
 encoder sees this rank's block of the batch; the SA stage, the stage-2
 MLP and the head take their BatchNorm statistics over every rank's rows.
+With ``mp > 1`` the Denses that JAX's rule splits (stage-2's 256->512 and
+512->1024, the head's 1024->1024 and 1024->512 at bench.py's widths;
+``mapping`` where it has 512 prototypes or more) hold their column block
+(layers.py::ColumnDense); the SA stage is replicated over the mp ranks,
+as JAX's ``shard_map`` over ``dp`` runs it.
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ class PointNetPlus(nn.Module):
                               generator=generator, dtype=dtype, mesh=mesh)
         # Prototype scores; no bias (cn3d_model_conbag.py:91).
         self.mapping = dense(cfg.embed_dim, cfg.num_prototypes, bias=False,
-                             generator=generator)
+                             generator=generator, mesh=mesh)
 
     def forward(self, neighborhoods: torch.Tensor, centers: torch.Tensor
                 ) -> Tuple[torch.Tensor, ...]:
@@ -94,7 +99,11 @@ class PointNetPlus(nn.Module):
         """The parameters whose train-mode gradients are this rank's share
         of the global loss, to be summed over the ranks: all of them, but
         the SA stage's where its backward already returns them global
-        (``SetAbstractionStage.global_grads``: pair/pair3 under a mesh)."""
+        (``SetAbstractionStage.global_grads``: pair/pair3 and analytic
+        under a mesh). Under ``mp > 1`` these are still summed over the
+        dp group only: the mp ranks of one block compute the same rows
+        (a split weight's block gradient, or a replicated parameter's
+        gradient, alike on each)."""
         stage = set(map(id, self.sa_stage.parameters())) \
             if self.sa_stage.global_grads else set()
         return [p for p in self.parameters() if id(p) not in stage]

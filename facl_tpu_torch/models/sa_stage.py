@@ -37,11 +37,16 @@ f32.
 ``mesh`` (data parallelism, parallel/mesh.py): the input is this rank's
 block of the batch and the train-mode statistics are over every rank's
 rows, as JAX's stage computes on a dp mesh (sa_stage.py:85-92,188-192).
-pair/pair3 sum their sweep accumulators over the ranks (B6s), so their
-parameter gradients come back global (``global_grads``); reference takes
-its moments by a differentiable sum over the ranks. The other impls raise
-NotImplementedError under a mesh with a process group (ROADMAP Queue 1
-item 21). Eval mode needs no collective (running statistics).
+pair/pair3 sum their sweep accumulators over the ranks (B6s), and
+analytic its backward sums (ops/analytic_sa.py), so their parameter
+gradients come back global (``global_grads``); reference takes its
+moments by a differentiable sum over the ranks, covar its Gram and column
+sums (``covar_moments``), as GSPMD partitions JAX's plain XLA stage. The
+stage is replicated over the mesh's mp ranks. hybrid, hybrid2 and pallas
+raise NotImplementedError in train mode under a process group: JAX does
+not partition them either (their Pallas kernels are single-device
+programs under GSPMD, facl_tpu/models/sa_stage.py:10-13). Eval mode needs
+no collective (running statistics) and runs with every impl.
 """
 from __future__ import annotations
 
@@ -58,7 +63,8 @@ from facl_tpu_torch.ops.fused_sa import BF16, SALayerParams, \
 from facl_tpu_torch.ops.sa_bwd import sa_train_hybrid
 from facl_tpu_torch.ops.sa_fwd import _moments_from_gram, sa_train_pfwd
 from facl_tpu_torch.ops.sa_pair import sa_train_pair
-from facl_tpu_torch.parallel.mesh import distributed
+from facl_tpu_torch.parallel.collectives import global_gram
+from facl_tpu_torch.parallel.mesh import distributed, joined
 
 #: Train-mode implementations of the stage.
 IMPLS = ("reference", "covar", "analytic", "hybrid", "hybrid2", "pair",
@@ -66,20 +72,39 @@ IMPLS = ("reference", "covar", "analytic", "hybrid", "hybrid2", "pair",
 #: The impls that run the sweep kernels B2-B8: their input cotangent is
 #: zero by contract, and on the card they take only SA widths TRUNK.
 SWEEPS = ("hybrid", "hybrid2", "pair", "pair3")
-#: The train-mode impls that run under data parallelism.
-DP_IMPLS = ("pair", "pair3", "reference")
+#: The train-mode impls that run under a process group: those JAX runs
+#: on a mesh (pair/pair3 by shard_map, the plain XLA ones by GSPMD).
+DP_IMPLS = ("pair", "pair3", "reference", "covar", "analytic")
+#: The train-mode impls whose parameter gradients come back global under
+#: data parallelism (their backward sums its accumulators over the ranks).
+GLOBAL_GRAD_IMPLS = ("pair", "pair3", "analytic")
 
 
-def covar_moments(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor):
+def check_impl_on_mesh(impl: str, mesh) -> None:
+    """Raise NotImplementedError for a train-mode ``impl`` that has no
+    sharded form, where ``mesh`` joins this process to others."""
+    if joined(mesh) and impl not in DP_IMPLS:
+        raise NotImplementedError(
+            f"sa impl {impl!r} on a mesh of dp={mesh.dp} x mp={mesh.mp} "
+            "ranks: JAX does not partition it either (its Pallas kernels "
+            "are single-device programs under GSPMD, facl_tpu/models/"
+            f"sa_stage.py:10-13); use one of {DP_IMPLS}")
+
+
+def covar_moments(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                  mesh=None):
     """Batch (mean, var) of p = h @ kernel + bias from Gram(h) and
     colsum(h), without reducing p (facl_tpu/models/sa_stage.py:33-68);
     the variance clamped at 0. A bf16 ``h`` gives an f32 Gram of its
     values (f32 sums of exact products) and f32 column sums, finalised
-    with the f32 ``kernel`` and ``bias``."""
+    with the f32 ``kernel`` and ``bias``. With ``mesh`` the Gram and
+    column sums are over every rank's rows, differentiable through the
+    sum (``global_gram``), and the row count is global."""
     flat = h.reshape(-1, h.shape[-1])
     flat = flat.float() if flat.dtype == BF16 else flat
-    return _moments_from_gram(flat.T @ flat, flat.sum(0), kernel, bias,
-                              flat.shape[0])
+    gram, ch = global_gram(flat, mesh)
+    n = flat.shape[0] * (mesh.dp if distributed(mesh) else 1)
+    return _moments_from_gram(gram, ch, kernel, bias, n)
 
 
 class SetAbstractionStage(nn.Module):
@@ -96,11 +121,6 @@ class SetAbstractionStage(nn.Module):
         if impl not in IMPLS:
             raise ValueError(f"unknown SA impl {impl!r}; expected one of "
                              f"{IMPLS}")
-        if distributed(mesh) and impl not in DP_IMPLS:
-            raise NotImplementedError(
-                f"sa impl {impl!r} under data parallelism (dp={mesh.dp}) is "
-                f"not ported (ROADMAP Queue 1 item 21); use one of "
-                f"{DP_IMPLS}")
         self.dtype, self.mesh = dtype, mesh
         self.widths = tuple(widths)
         self.bn_momentum, self.epsilon = bn_momentum, epsilon
@@ -123,8 +143,8 @@ class SetAbstractionStage(nn.Module):
     @property
     def global_grads(self) -> bool:
         """True where the train-mode backward already sums its parameter
-        gradients over the ranks (pair/pair3 under a mesh, B6s)."""
-        return distributed(self.mesh) and self.impl in ("pair", "pair3")
+        gradients over the ranks (pair/pair3 under a mesh, B6s; analytic)."""
+        return distributed(self.mesh) and self.impl in GLOBAL_GRAD_IMPLS
 
     def layers(self):
         return tuple(SALayerParams(*(getattr(self, f"{n}_{i}") for n in
@@ -140,6 +160,8 @@ class SetAbstractionStage(nn.Module):
             raise ValueError(f"expected 4-D neighbourhoods, got {x.shape}")
         impl, layers, eps = self.impl, self.layers(), self.epsilon
         pair = impl in ("pair", "pair3")
+        if self.training:
+            check_impl_on_mesh(impl, self.mesh)
         if self.training and self.input_grad and impl in SWEEPS:
             raise ValueError(
                 f"sa impl {impl!r} defines a zero input cotangent; use "
@@ -174,9 +196,12 @@ class SetAbstractionStage(nn.Module):
             if self.dtype == BF16:      # f32 rows holding bf16 values
                 pooled = pooled.to(BF16)
         elif impl == "analytic":
-            pooled, stats = sa_train_analytic(x, layers, eps, self.dtype)
+            pooled, stats = sa_train_analytic(x, layers, eps, self.dtype,
+                                              self.mesh)
         else:
-            moments = (lambda h, lp: covar_moments(h, lp.kernel, lp.bias)) \
+            mesh = self.mesh
+            moments = (lambda h, lp: covar_moments(h, lp.kernel, lp.bias,
+                                                   mesh)) \
                 if impl == "covar" else None
             pooled, stats, _, _ = sa_reference_4d(x, layers, eps,
                                                   moments=moments,

@@ -15,7 +15,9 @@ Submodule names are JAX's (``slow1``, ``fast1``, ``slow_to_fast``,
 ``compute_dtype`` "bfloat16" casts the neighbourhoods to bf16 and runs
 every layer in bf16 (layers.py); the embeddings come back f32. With a
 data-parallel ``mesh`` the BatchNorm statistics are over every rank's
-rows.
+rows; with ``mp > 1`` the Denses of 512 output columns or more (slow3's
+256->512, fast3's 256->512 and 512->1024, both heads at ``fc_hidden``
+1024) hold their column block (layers.py::ColumnDense).
 """
 from __future__ import annotations
 
@@ -52,8 +54,10 @@ class PointNetSlowFast(nn.Module):
                              generator=generator, dtype=dtype, mesh=mesh)
         self.slow1 = mlp(cfg.in_features, s1)
         self.fast1 = mlp(cfg.in_features, f1)
-        self.slow_to_fast = dense(s1[-1], f1[-1], generator=generator)
-        self.fast_to_slow = dense(f1[-1], s1[-1], generator=generator)
+        self.slow_to_fast = dense(s1[-1], f1[-1], generator=generator,
+                                  mesh=mesh)
+        self.fast_to_slow = dense(f1[-1], s1[-1], generator=generator,
+                                  mesh=mesh)
         self.slow3 = mlp(s1[-1], s3)
         self.fast3 = mlp(f1[-1], f3)
         self.head_slow = head(s3[-1])

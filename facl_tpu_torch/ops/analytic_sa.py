@@ -23,6 +23,14 @@ the small term products in f32; dh_prev = bf16(bf16(dy bf16(gi)) bf16(W)^T)
 values kept in f32), masked and rounded to bf16 as the next dy, and
 returned unrounded (f32) as the input gradient.
 
+Under data parallelism (``mesh``) the forward's batch moments are over
+every rank's rows (``sa_reference_4d`` with the mesh), and each layer's
+backward sums A, u, Gram(h_prev) and colsum(h_prev) over the ranks in one
+float64 ``psum_packed`` (as B6s sums its accumulators) before the
+closed-form terms, with the global row count: the parameter gradients come
+back global, and dh_prev is this rank's rows. JAX's GSPMD partitions its
+plain XLA stage to the same global sums.
+
 Plain PyTorch, no kernel: the JAX function has none. The returned stats
 carry no gradient (they feed the running-statistics update).
 """
@@ -36,33 +44,47 @@ from facl_tpu_torch.ops.fused_sa import BF16, SALayerParams, \
     sa_reference_4d
 from facl_tpu_torch.ops.sa_bwd import _dy_top, _fold_affine, \
     _layer_terms, _rb, _same
+from facl_tpu_torch.parallel.collectives import psum_packed
+from facl_tpu_torch.parallel.mesh import distributed
+
+
+def _layer_sums(dy, h_prev, mesh):
+    """A = dy^T h_prev, u = sum dy, Gram(h_prev), colsum(h_prev): this
+    rank's rows' sums, summed over the ranks (one float64 all-reduce)."""
+    return psum_packed([dy.T @ h_prev, dy.sum(0), h_prev.T @ h_prev,
+                        h_prev.sum(0)], mesh)
 
 
 def _layer_bwd(dy, h_prev, lp: SALayerParams, mean, var, eps: float,
-               dtype: torch.dtype = torch.float32):
+               dtype: torch.dtype = torch.float32, mesh=None):
     """One Dense + BatchNorm(train) + ReLU backward from dy (rows, C),
     already ReLU-masked, and the layer input h_prev (rows, Cin), both
     holding ``dtype`` values (f32 tensors): -> (dW, db, dgamma, dbeta,
     dh_prev) (facl_tpu/ops/analytic_sa.py:110-172, casts as the module
-    docstring says)."""
+    docstring says); the parameter gradients over every rank's rows with
+    ``mesh``."""
     r = _rb if dtype == BF16 else _same
-    t = _layer_terms(dy.T @ h_prev, dy.sum(0), lp, mean, var,
-                     h_prev.T @ h_prev, h_prev.sum(0), h_prev.shape[0], eps)
+    n = h_prev.shape[0] * (mesh.dp if distributed(mesh) else 1)
+    A, u, gram, ch = _layer_sums(dy, h_prev, mesh)
+    t = _layer_terms(A, u, lp, mean, var, gram, ch, n, eps)
     dh = r(r(dy * r(t["gi"])) @ r(lp.kernel).T) \
         - r(h_prev @ r(t["M"])) - t["rc"]
     return t["dW"], t["db"], t["dgamma"], t["dbeta"], dh
 
 
 class _Analytic(torch.autograd.Function):
-    """pooled, *stats = f(x, eps, n_layers, dtype, *4L layer tensors)."""
+    """pooled, *stats = f(x, eps, n_layers, dtype, mesh, *4L layer
+    tensors)."""
 
     @staticmethod
-    def forward(ctx, x, eps, n_layers, dtype, *flat):
+    def forward(ctx, x, eps, n_layers, dtype, mesh, *flat):
         layers = [SALayerParams(*flat[4 * i:4 * i + 4])
                   for i in range(n_layers)]
-        pooled, stats, _, hs = sa_reference_4d(x, layers, eps, dtype=dtype)
+        pooled, stats, _, hs = sa_reference_4d(x, layers, eps, dtype=dtype,
+                                               mesh=mesh)
         flat_stats = [m for s in stats for m in s]
-        ctx.eps, ctx.n_layers, ctx.dtype = eps, n_layers, dtype
+        ctx.eps, ctx.n_layers, ctx.dtype, ctx.mesh = eps, n_layers, dtype, \
+            mesh
         ctx.x_dtype = x.dtype
         ctx.save_for_backward(*hs, *flat, *flat_stats)
         ctx.mark_non_differentiable(*flat_stats)
@@ -88,20 +110,22 @@ class _Analytic(torch.autograd.Function):
         grads = [None] * L
         for li in range(L - 1, -1, -1):
             *grads[li], dh = _layer_bwd(dy, hs[li], layers[li], *stats[li],
-                                        eps, ctx.dtype)
+                                        eps, ctx.dtype, ctx.mesh)
             dy = r(torch.where(hs[li] > 0, dh, 0.0)) if li > 0 else dh
-        return (dy.reshape(x.shape).to(ctx.x_dtype), None, None, None,
+        return (dy.reshape(x.shape).to(ctx.x_dtype), None, None, None, None,
                 *(g for layer in grads for g in layer))
 
 
 def sa_train_analytic(x: torch.Tensor, layers: Sequence[SALayerParams],
-                      eps: float = 1e-5, dtype: torch.dtype = torch.float32
-                      ) -> Tuple[torch.Tensor, list]:
+                      eps: float = 1e-5, dtype: torch.dtype = torch.float32,
+                      mesh=None) -> Tuple[torch.Tensor, list]:
     """x (..., K, C0), max-pooled over K. Returns (pooled (..., C_L),
     [(mean, var)] per layer): the reference path's values at ``dtype``
     (pooled in bf16 at bf16), with the hand-derived backward (module
-    docstring)."""
+    docstring); with ``mesh`` (this rank's block of x) the statistics and
+    the parameter gradients are global."""
     L = len(layers)
-    out = _Analytic.apply(x, eps, L, dtype, *(t for lp in layers for t in lp))
+    out = _Analytic.apply(x, eps, L, dtype, mesh,
+                          *(t for lp in layers for t in lp))
     st = out[1:]
     return out[0], [(st[2 * i], st[2 * i + 1]) for i in range(L)]

@@ -57,7 +57,9 @@ ch1; A1, u1), two in pair's (A3, u3; B6's accumulators). The statistics
 are then global, and so are the returned parameter gradients, the same on
 every rank (JAX's ``out_specs=P()``): they must not be summed over the
 ranks again. Row outputs (p2, the pool indices, the pooled rows) stay per
-rank.
+rank. "The ranks" are the mesh's dp group: under tensor parallelism
+(``mp > 1``) the mp ranks of a dp block run the same sweeps on the same
+rows, as JAX's ``shard_map`` over ``dp`` alone does.
 """
 from __future__ import annotations
 

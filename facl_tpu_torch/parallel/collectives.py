@@ -1,27 +1,40 @@
-"""The collectives of the data-parallel step (counterpart of
+"""The collectives of the sharded step (counterpart of
 facl_tpu/parallel/collectives.py).
 
 Under GSPMD, XLA inserts these itself; in eager torch each is one call on
-the mesh's process group:
+one of the mesh's process groups (parallel/mesh.py). Over the dp group
+(``COLLECTIVES``; "the ranks" below are the dp group's):
 
   psum              sum over the ranks: the pair stage's sweep
-                    accumulators (B6s, ops/sa_pair.py)
+                    accumulators (B6s, ops/sa_pair.py) and analytic's
+                    backward sums (ops/analytic_sa.py)
   global_moments    (mean, var) of a batch over every rank's rows, by a
                     differentiable sum of (sum x, sum x^2): BatchNorm with
-                    global statistics (SyncBN on flax's biased variance)
+                    global statistics (SyncBN on flax's biased variance);
+                    ``global_gram`` (covar's Gram and column sums) counts
+                    here too
   gather_negatives  the global embedding batch in rank order, this
                     rank's block differentiable
   all_gather        the same without a gradient (extraction)
   psum_grads        the gradient sum over the ranks, in one buffer
-  broadcast         rank 0's tensor on every rank
-  barrier           every rank waits for the others (checkpoints)
+  broadcast         global rank 0's tensor on every rank (over the world)
+  barrier           every rank waits for the others (over the world;
+                    checkpoints)
   cross_replica_mean  the mean over the ranks
 
-Each is the identity where no process group runs (``mesh`` None, or one
-process that joined none: ``parallel.mesh.distributed`` false), so the
-one-process step runs no collective. Each counts in ``<function>.calls``
-the collectives it ran (forward and backward), as the kernel wrappers
-count launches.
+Over the mp group (``MP_COLLECTIVES``, tensor parallelism):
+
+  mp_enter          the input of a column-split GEMM: identity forward,
+                    the cotangent summed over the mp ranks backward
+  mp_gather_cols    the column blocks of a GEMM's output joined in mp
+                    order; backward, this rank's block of the cotangent
+  mp_full           a split tensor's full value (dim 0 blocks joined),
+                    no gradient: checkpoints, placement, the MoCo EMA
+
+Each is the identity where its group does not run (``mesh`` None, one
+process that joined none, a dp of 1, an mp of 1), so the one-process step
+runs no collective. Each counts in ``<function>.calls`` the collectives
+it ran (forward and backward), as the kernel wrappers count launches.
 
 The gathers are one all_reduce of zeroed per-rank slots, each rank
 writing its own: exact (a value plus zeros) and the same code on every
@@ -35,7 +48,8 @@ from typing import Iterable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from facl_tpu_torch.parallel.mesh import Mesh, distributed
+from facl_tpu_torch.parallel.mesh import Mesh, distributed, joined, \
+    tensor_parallel
 
 
 def _all_reduce(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -96,6 +110,19 @@ def global_moments(flat: torch.Tensor, mesh: Optional[Mesh]):
     return mean, (s[C:] / n - mean * mean).clamp_min(0.0)
 
 
+def global_gram(flat: torch.Tensor, mesh: Optional[Mesh]):
+    """(Gram(flat), colsum(flat)) of rows ``flat`` (R, C) over every
+    rank's rows, differentiable through the sum (covar's BatchNorm
+    moments, models/sa_stage.py::covar_moments). Counted as
+    ``global_moments``."""
+    gram, ch = flat.T @ flat, flat.sum(0)
+    if not distributed(mesh):
+        return gram, ch
+    C = flat.shape[-1]
+    s = _SumOverRanks.apply(torch.cat([gram.reshape(-1), ch]), mesh)
+    return s[:C * C].view(C, C), s[C * C:]
+
+
 def all_gather(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """Every rank's ``x`` (same shape on each) concatenated along dim 0 in
     rank order; no gradient."""
@@ -142,20 +169,21 @@ def psum_grads(params: Iterable[torch.nn.Parameter],
 
 
 def broadcast(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """Rank 0's ``t`` on every rank, in place; returns ``t``."""
-    if not distributed(mesh):
+    """Global rank 0's ``t`` on every rank of the mesh (dp and mp), in
+    place; returns ``t``."""
+    if not joined(mesh):
         return t
     broadcast.calls += 1
-    dist.broadcast(t, src=0, group=mesh.group)
+    dist.broadcast(t, src=0)
     return t
 
 
 def barrier(mesh: Optional[Mesh]) -> None:
-    """Wait until every rank reaches this call."""
-    if not distributed(mesh):
+    """Wait until every rank of the mesh reaches this call."""
+    if not joined(mesh):
         return
     barrier.calls += 1
-    dist.barrier(group=mesh.group)
+    dist.barrier()
 
 
 def cross_replica_mean(x: torch.Tensor, mesh: Optional[Mesh]
@@ -167,7 +195,83 @@ def cross_replica_mean(x: torch.Tensor, mesh: Optional[Mesh]
     return _all_reduce(x.detach().clone(), mesh) / mesh.dp
 
 
+# -- tensor parallelism: over the mp group ------------------------------
+
+def _mp_all_reduce(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.mp_group)
+    return t
+
+
+def _mp_all_gather(t: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
+    """The mp ranks' ``t`` (same shape on each), in mp order."""
+    out = [torch.empty_like(t) for _ in range(mesh.mp)]
+    dist.all_gather(out, t, group=mesh.mp_group)
+    return out
+
+
+class _MpEnter(torch.autograd.Function):
+    """y = x; dx = the sum over the mp ranks of dy. ``x`` is the input of
+    a GEMM on this rank's block of a kernel's columns, so each rank's dy
+    is its block's share of the full input gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        mp_enter.calls += 1
+        return _mp_all_reduce(dy.contiguous().clone(), ctx.mesh), None
+
+
+def mp_enter(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """``x``, whose cotangent is summed over the mp ranks (the input of a
+    column-parallel GEMM: the layers below then get the full input
+    gradient on every rank)."""
+    if not tensor_parallel(mesh):
+        return x
+    return _MpEnter.apply(x, mesh)
+
+
+class _MpGatherCols(torch.autograd.Function):
+    """y = the mp ranks' column blocks x joined along the last axis, in
+    mp order; dx = this rank's block of dy, with no sum: everything after
+    the gather is replicated over the mp ranks, so each holds the full
+    dy."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.cols = mesh, x.shape[-1]
+        mp_gather_cols.calls += 1
+        return torch.cat(_mp_all_gather(x.contiguous(), mesh), dim=-1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        c, m = ctx.cols, ctx.mesh.mp_rank
+        return dy[..., m * c:(m + 1) * c].contiguous(), None
+
+
+def mp_gather_cols(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The full output of a column-parallel GEMM from this rank's column
+    block ``x``: the blocks of the mp ranks joined along the last axis."""
+    if not tensor_parallel(mesh):
+        return x
+    return _MpGatherCols.apply(x, mesh)
+
+
+def mp_full(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The full tensor of which ``t`` is this rank's dim-0 block (a split
+    kernel's rows in ``nn.Linear`` layout, or its Adam moments): the mp
+    ranks' blocks joined along dim 0; no gradient."""
+    if not tensor_parallel(mesh):
+        return t
+    mp_full.calls += 1
+    return torch.cat(_mp_all_gather(t.detach().contiguous(), mesh))
+
+
 COLLECTIVES = (psum, global_moments, gather_negatives, all_gather,
                psum_grads, broadcast, barrier, cross_replica_mean)
-for _c in COLLECTIVES:
+MP_COLLECTIVES = (mp_enter, mp_gather_cols, mp_full)
+for _c in COLLECTIVES + MP_COLLECTIVES:
     _c.calls = 0

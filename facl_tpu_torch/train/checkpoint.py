@@ -20,7 +20,12 @@ so the learning rate after a resume equals an uninterrupted run's.
 
 Under data parallelism (``mesh``) the ranks hold the same state: rank 0
 writes, and every rank waits at a barrier until the files are in place;
-every rank restores the same files.
+every rank restores the same files. Under tensor parallelism (``mp > 1``)
+every rank gathers the full tensors of the split kernels and of their
+Adam moments over its mp group before rank 0 writes, so the file is the
+one one process writes and restores on any mesh: a restore loads the
+full tensors and each rank keeps its blocks (models/layers.py::
+ColumnDense, ``shard_optimizer_state``).
 """
 from __future__ import annotations
 
@@ -31,8 +36,10 @@ from typing import Optional
 
 import torch
 
+from facl_tpu_torch.models.layers import full_optimizer_state_dict, \
+    full_state_dict, shard_optimizer_state
 from facl_tpu_torch.parallel.collectives import barrier
-from facl_tpu_torch.parallel.mesh import Mesh
+from facl_tpu_torch.parallel.mesh import Mesh, tensor_parallel
 from facl_tpu_torch.train.state import TrainState
 
 PREFIX, SUFFIX = "ckpt_epoch_", ".pt"
@@ -50,8 +57,11 @@ def _atomic_write(directory: str, path: str, write) -> None:
 
 
 def _payload(state: TrainState) -> dict:
-    out = {"model": state.model.state_dict(),
-           "optimizer": state.optimizer.state_dict(),
+    """The state as the file holds it, split kernels whole (a gather over
+    the mp ranks: every rank of the mp block calls this)."""
+    out = {"model": full_state_dict(state.model),
+           "optimizer": full_optimizer_state_dict(state.optimizer,
+                                                  state.model),
            "scheduler": state.scheduler.state_dict(),
            "step": int(state.step)}
     if state.swav_queue is not None:
@@ -68,10 +78,13 @@ def save_checkpoint(directory: str, state: TrainState, epoch: int,
     """Write ``state`` as epoch ``epoch``'s checkpoint (rank 0 only under
     a ``mesh``; the others wait for it). Returns its path."""
     path = os.path.join(directory, f"{PREFIX}{epoch:05d}{SUFFIX}")
-    if mesh is None or mesh.rank == 0:
+    lead = mesh is None or mesh.lead
+    # Rank 0's mp block gathers its split tensors together.
+    gather = tensor_parallel(mesh) and mesh.rank == 0
+    payload = _payload(state) if lead or gather else None
+    if lead:
         os.makedirs(directory, exist_ok=True)
-        _atomic_write(directory, path,
-                      lambda f: torch.save(_payload(state), f))
+        _atomic_write(directory, path, lambda f: torch.save(payload, f))
         index = {"latest_epoch": epoch, "latest": os.path.basename(path)}
         _atomic_write(directory, os.path.join(directory, "index.json"),
                       lambda f: f.write(json.dumps(index).encode()))
@@ -99,7 +112,9 @@ def latest_checkpoint(directory: str) -> Optional[str]:
 
 def restore_checkpoint(path: str, target: TrainState) -> TrainState:
     """Restore into a freshly built ``target`` (same config; shapes must
-    match), onto the device of its parameters. Returns ``target``."""
+    match, split kernels whole in the file), onto the device of its
+    parameters; a target on a mesh with ``mp > 1`` keeps its blocks.
+    Returns ``target``."""
     device = next(target.model.parameters()).device
     saved = torch.load(path, map_location=device, weights_only=True)
     moco = getattr(target, "moco", None)
@@ -109,6 +124,7 @@ def restore_checkpoint(path: str, target: TrainState) -> TrainState:
                          f"{type(target).__name__}")
     target.model.load_state_dict(saved["model"])
     target.optimizer.load_state_dict(saved["optimizer"])
+    shard_optimizer_state(target.optimizer, target.model)
     target.scheduler.load_state_dict(saved["scheduler"])
     target.step = int(saved["step"])
     if "swav_queue" in saved:

@@ -9,7 +9,10 @@ embedding (11 x 512 = 5632-d) and written as one .npy named by the video
 Under data parallelism (``mesh``, facl_tpu/cli/extract.py:45-80) each rank
 runs the eval step on its block of each batch; the outputs are gathered
 in rank order, the pad rows of a ragged batch dropped, and rank 0 writes
-the files.
+the files. Under tensor parallelism (``mp > 1``) the model's wide Denses
+hold their column blocks (the eval step gathers their outputs over the
+mp ranks) and the ranks of an mp block compute the same features; the
+gather runs over the dp group.
 """
 from __future__ import annotations
 
@@ -54,7 +57,7 @@ def extract_features(model: torch.nn.Module, cfg: Config,
         eval_step = make_eval_step(model, cfg, grouping=grouping)
     G = cfg.model.num_crops
     feats: Dict[str, np.ndarray] = {}
-    write = out_dir and (mesh is None or mesh.rank == 0)
+    write = out_dir and (mesh is None or mesh.lead)
     if write:
         os.makedirs(out_dir, exist_ok=True)
     for crops, _, names in batches:

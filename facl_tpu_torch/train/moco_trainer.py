@@ -24,7 +24,10 @@ because the loader's blocks are contiguous. Every rank then computes the
 global logits, the global loss (the mean over the global batch) and the
 same enqueue of the global keys, so the queue and its pointer stay equal
 on every rank; the gradients are summed over the ranks but for the pair
-stage's, which come back global.
+stage's, which come back global. Under ``mp > 1`` the query's wide
+Denses hold their column blocks; the EMA reads the query's full kernels
+(gathered over the mp ranks, ``full_parameters``), so the key encoder,
+whole on every rank, is the same on each.
 """
 from __future__ import annotations
 
@@ -37,9 +40,11 @@ import torch
 from facl_tpu_torch import resolve_device
 from facl_tpu_torch.config import Config
 from facl_tpu_torch.losses.infonce import cross_entropy
+from facl_tpu_torch.models.layers import full_parameters
 from facl_tpu_torch.models.moco import MoCoState, enqueue, init_moco_state, \
     moco_logits, momentum_update
 from facl_tpu_torch.models.pointnet import PointNetPlus, resolve_model_config
+from facl_tpu_torch.models.sa_stage import check_impl_on_mesh
 from facl_tpu_torch.parallel.collectives import all_gather, \
     gather_negatives, psum_grads
 from facl_tpu_torch.parallel.mesh import Mesh, shard_train_state
@@ -75,7 +80,8 @@ def make_moco_step(cfg: Config, momentum: float = 0.9,
             neigh2, cent2 = grouping_fn(views)
             for kb, qb in zip(key.buffers(), model.buffers()):
                 kb.copy_(qb)
-            momentum_update(model.parameters(), key.parameters(), momentum)
+            momentum_update(full_parameters(model), key.parameters(),
+                            momentum)
             k = key(neigh2[1], cent2[1])[0]
         model.train()
         q = model(neigh2[0], cent2[0])[0]
@@ -119,6 +125,7 @@ class MoCoTrainer:
         self.device = resolve_device(device)
         model_cfg = resolve_model_config(
             dataclasses.replace(cfg.model, num_crops=1))
+        check_impl_on_mesh(model_cfg.sa_impl, mesh)
         self.cfg = cfg.replace(model=model_cfg)
         self.steps_per_epoch = steps_per_epoch
         self.queue_len = queue_len

@@ -27,8 +27,13 @@ mesh): every rank groups and encodes its own block of the batch (grouping
 is row-independent), with BatchNorm statistics over every rank's rows;
 ``gather_negatives`` builds the global embeddings in rank order, every
 rank computes the global loss (the same value on each), and the
-gradients are summed over the ranks, but for those the pair/pair3 stage
-already returns global (B6s). The circle loss's permutation is rank 0's.
+gradients are summed over the ranks, but for those the pair/pair3 and
+analytic stages already return global (B6s). The circle loss's
+permutation is rank 0's. Under ``mp > 1`` (tensor parallelism) the ranks
+of an mp block run the same step on the same rows, each with its column
+block of the wide Denses (models/layers.py::ColumnDense); every batch
+collective and the gradient sum run over the dp group, so each gradient
+is summed once per dp block, and the loss is the same on every rank.
 
 ``TrainConfig.split_step`` runs JAX's step as two programs to halve one
 program's scratch arena, with identical math (trainer.py:96-108). Eager
@@ -56,6 +61,7 @@ from facl_tpu_torch import resolve_device
 from facl_tpu_torch.config import Config, GroupingConfig
 from facl_tpu_torch.losses import circle_infonce, cld_loss, \
     global_local_infonce, swav_loss, swav_queue_init
+from facl_tpu_torch.models.layers import kernel_of
 from facl_tpu_torch.models.pointnet import resolve_grouping, \
     resolve_model, resolve_model_config
 from facl_tpu_torch.ops.grouping import group_points, \
@@ -63,14 +69,20 @@ from facl_tpu_torch.ops.grouping import group_points, \
 from facl_tpu_torch.train.optim import make_optimizer
 from facl_tpu_torch.parallel.collectives import broadcast, \
     gather_negatives, psum_grads
-from facl_tpu_torch.parallel.mesh import Mesh, distributed
+from facl_tpu_torch.models.sa_stage import check_impl_on_mesh
+from facl_tpu_torch.parallel.mesh import Mesh, joined
 from facl_tpu_torch.train.state import TrainState
 
 
 def _reject_unported(cfg: Config, mesh: Optional[Mesh] = None) -> None:
-    if cfg.train.split_step and mesh is not None and mesh.dp > 1:
+    """Raise before any data moves for what no mesh runs: ``split_step``
+    on more than one rank (as JAX, trainer.py:110-113), an SA impl
+    without a sharded form (``check_impl_on_mesh``)."""
+    if cfg.train.split_step and mesh is not None and \
+            mesh.dp * mesh.mp > 1:
         raise ValueError("split_step targets single-device large-batch "
                          "runs; use the fused step under a mesh")
+    check_impl_on_mesh(resolve_model_config(cfg.model).sa_impl, mesh)
 
 
 def make_grouping_fn(g_cfg: GroupingConfig, layout: str = "bcsk"
@@ -136,7 +148,7 @@ def make_train_step(cfg: Config, grouping: Optional[GroupingConfig] = None,
         if l_cfg.use_circle:
             if perm is None:
                 perm = torch.randperm(G, generator=generator)
-            if distributed(mesh):
+            if joined(mesh):
                 perm = broadcast(perm.to(device, copy=True), mesh)
             lcir = circle_infonce(xg, perm)
             metrics["loss_circle"] = lcir.detach()
@@ -153,7 +165,7 @@ def make_train_step(cfg: Config, grouping: Optional[GroupingConfig] = None,
             if queue_on:        # a 0-d tensor: no sync with the host
                 queue_on = (queue[:, -1, :].abs() > 0).any()
             lswa, new_queue = swav_loss(
-                code_g, xn_g, model.mapping.weight.T, queue, queue_on,
+                code_g, xn_g, kernel_of(model.mapping), queue, queue_on,
                 l_cfg.swav_temp_code, l_cfg.swav_temp_pred,
                 l_cfg.swav_sinkhorn_iters)
             if started and new_queue is not None:

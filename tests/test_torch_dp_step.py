@@ -2,8 +2,8 @@
 kernels' twins), against the JAX package's UNSHARDED step from the same
 weights (``convert.from_jax``), on the same points (each rank takes its
 block of the batch) and circle permutation, on tests/test_sharding.py's
-``tiny_config`` models: ``pair3``, ``pair`` and ``reference`` in f32,
-``pair3`` and ``reference`` in bf16.
+``tiny_config`` models: ``pair3``, ``pair``, ``reference``, ``covar`` and
+``analytic`` in f32 and in bf16.
 
 Bars. f32 against JAX, those of tests/test_sharding.py:34-71,183-266:
 the loss at rtol 2e-4, the parameters after the first Adam step at rtol
@@ -21,8 +21,9 @@ counted. At bf16 also: the two ranks' loss and running statistics
 bit-equal to one process rounding as two ranks do
 (tests/torch_two_halves.py, which also runs the pair stage as two ranks
 in two threads, its all-reduces summing the threads' buffers). Also: the impls
-without a data-parallel form raise under dp = 2, and ``split_step``
-raises under dp = 2 and runs the same step on one process."""
+without a data-parallel form (hybrid, hybrid2, pallas: JAX does not
+partition them either) raise under dp = 2, and ``split_step`` raises
+under dp = 2 and runs the same step on one process."""
 
 import contextlib
 
@@ -56,7 +57,11 @@ CASES = (("pair3", "pair3", "float32", (8, 8, 16)),
          ("reference", "reference", "float32", (8, 16)),
          ("pair3 bf16", "pair3", "bfloat16", (8, 8, 16)),
          ("pair bf16", "pair", "bfloat16", (8, 8, 16)),
-         ("reference bf16", "reference", "bfloat16", (8, 16)))
+         ("reference bf16", "reference", "bfloat16", (8, 16)),
+         ("covar", "covar", "float32", (8, 16)),
+         ("analytic", "analytic", "float32", (8, 16)),
+         ("covar bf16", "covar", "bfloat16", (8, 16)),
+         ("analytic bf16", "analytic", "bfloat16", (8, 16)))
 ABSORBED = ("sa_stage.bias_", "stage2_mlp.dense_0.bias",
             "stage2_mlp.dense_1.bias", "head.Dense_0.bias")
 
@@ -216,14 +221,20 @@ def test_dp_ranks_stay_bit_equal(runs, label):
 @pytest.mark.parametrize("label", [c[0] for c in CASES])
 def test_dp_step_collectives(runs, label):
     """One step's collectives on each rank: the B6s sums of the pair stage
-    (pair3 3 + 3, pair 3 + 2), the BatchNorm moment sums forward and
-    backward (stage-2's two layers, the head's one layer called twice, and
-    the reference SA's layers), the two gathers of the embeddings, one
-    broadcast of the circle permutation and one gradient sum."""
+    (pair3 3 + 3, pair 3 + 2) and analytic's backward sums (one a layer),
+    the BatchNorm moment sums forward and backward (stage-2's two layers,
+    the head's one layer called twice, and the reference and covar SA's
+    layers, but for covar's first Gram, of the input, which takes no
+    cotangent; analytic's forward only, inside its Function), the two
+    gathers of the embeddings, one broadcast of the circle permutation
+    and one gradient sum."""
     impl, widths = next((c[1], c[3]) for c in CASES if c[0] == label)
-    bn = 2 + 2 + (len(widths) if impl == "reference" else 0)
-    want = {"psum": {"pair3": 6, "pair": 5}.get(impl, 0),
-            "global_moments": 2 * bn, "gather_negatives": 2,
+    sa = {"reference": 2 * len(widths), "covar": 2 * len(widths) - 1,
+          "analytic": len(widths)}.get(impl, 0)
+    bn = 2 * (2 + 2) + sa
+    want = {"psum": {"pair3": 6, "pair": 5,
+                     "analytic": len(widths)}.get(impl, 0),
+            "global_moments": bn, "gather_negatives": 2,
             "all_gather": 0, "psum_grads": 1, "broadcast": 1, "barrier": 0,
             "cross_replica_mean": 0}
     for r in runs[label]["ranks"]:
@@ -232,7 +243,7 @@ def test_dp_step_collectives(runs, label):
 
 def test_dp_rejects_impls_without_a_dp_form_and_split_step():
     cfgs = [(impl, _cfg(PORT, impl, "float32", (8, 8, 16)))
-            for impl in ("hybrid", "hybrid2", "pallas", "covar", "analytic")]
+            for impl in ("hybrid", "hybrid2", "pallas")]
     cfgs.append(("split_step", _cfg(PORT, "pair3", "float32", (8, 8, 16),
                                     split_step=True)))
     out = spawn(dp_rejects_body, 2, "gloo", args=(cfgs,), timeout_s=120)
@@ -241,8 +252,9 @@ def test_dp_rejects_impls_without_a_dp_form_and_split_step():
             if label == "split_step":
                 assert exc == "ValueError" and "split_step" in msg
             else:
-                assert exc == "NotImplementedError" and "item 21" in msg, \
-                    (label, exc, msg)
+                assert exc == "NotImplementedError" and \
+                    "JAX does not partition it either" in msg and \
+                    "'covar', 'analytic'" in msg, (label, exc, msg)
 
 
 def test_split_step_runs_the_same_step_on_one_process():

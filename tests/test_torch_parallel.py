@@ -31,7 +31,7 @@ def test_make_mesh_follows_the_jax_rules():
     assert make_mesh(MeshConfig(dp=1)).dp == 1
     with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
         make_mesh(MeshConfig(dp=2))
-    with pytest.raises(NotImplementedError, match="item 20"):
+    with pytest.raises(ValueError, match="mesh 1x2 needs 2 ranks, have 1"):
         make_mesh(MeshConfig(dp=1, mp=2))
 
 

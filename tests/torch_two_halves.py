@@ -1,21 +1,33 @@
-"""One process that rounds as two data-parallel ranks do: the witness
-that tests/test_torch_dp_step.py and chip_smoke.py's phase 7 hold the
-two ranks' train step against. This module imports torch and the port
-only (no JAX).
+"""One process that rounds as data-parallel or tensor-parallel ranks do:
+the witnesses that tests/test_torch_dp_step.py, test_torch_mp_step.py and
+chip_smoke.py's phase 7 hold the ranks' train step against. This module
+imports torch and the port only (no JAX).
 
-Under ``as_two_halves()``:
+Under ``as_two_halves()`` (two dp ranks):
 
 - each stage-2 and head Dense GEMM and each reference SA layer's GEMM
   runs as two calls, one on each half of its rows (the rows a rank
   holds);
 - each BatchNorm moment sum is taken over each half, then added
-  (``global_moments`` over two ranks);
+  (``global_moments`` over two ranks), and so is covar's Gram and column
+  sum (``global_gram``);
+- analytic's backward sums (A, u, Gram and colsum of each layer) are
+  taken over each half and added in float64, as its ``psum_packed``
+  adds the ranks' buffers;
 - the pair/pair3 stage (``ops/sa_pair.py::_Pair``, f32 and bf16) runs as
   B6s runs it on two ranks: each half of the clouds in a thread of its
   own with a mesh of two, and each ``psum_packed`` of the stage sums the
   two threads' float64 buffers at a barrier, in place of the all_reduce
   (``collectives._all_reduce``). The stage's own code, its packing and
   the finalize of the float64 sums run unchanged.
+
+Under ``as_column_blocks(mp)`` (``mp`` tensor-parallel ranks): each Dense
+that the mp rule splits (``parallel.mesh.mp_sharded``) runs as ``mp``
+GEMMs, one on each block of its output columns, joined along the last
+axis before its bias is added, as ``ColumnDense`` runs on the ranks; the
+input's cotangent is then the sum of the blocks' parts, as ``mp_enter``
+sums it. Entered outside ``as_two_halves()``, each half runs its column
+blocks: the ranks of a dp x mp mesh.
 """
 import contextlib
 import threading
@@ -23,11 +35,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from facl_tpu_torch.models import layers
-from facl_tpu_torch.ops import fused_sa
+from facl_tpu_torch.models import layers, sa_stage
+from facl_tpu_torch.ops import analytic_sa, fused_sa
 from facl_tpu_torch.ops import sa_pair as SP
 from facl_tpu_torch.parallel import collectives
-from facl_tpu_torch.parallel.mesh import Mesh
+from facl_tpu_torch.parallel.mesh import Mesh, mp_sharded
 
 
 def halves(x):
@@ -118,20 +130,68 @@ def _moments(flat, mesh):
     return mean, (s[C:] / n - mean * mean).clamp_min(0.0)
 
 
+def _gram(flat, mesh):
+    """``global_gram`` over two ranks' halves of ``flat``."""
+    C = flat.shape[-1]
+    s = sum(torch.cat([(h.T @ h).reshape(-1), h.sum(0)])
+            for h in halves(flat))
+    return s[:C * C].view(C, C), s[C * C:]
+
+
+_LAYER_SUMS = analytic_sa._layer_sums
+
+
+def _layer_sums(dy, h_prev, mesh):
+    """analytic's ``_layer_sums`` over two ranks' halves: each half's
+    sums, added in float64 and rounded back, as ``psum_packed`` does."""
+    parts = [_LAYER_SUMS(d, h, None) for d, h in zip(halves(dy),
+                                                      halves(h_prev))]
+    return [(a.double() + b.double()).to(a.dtype) for a, b in zip(*parts)]
+
+
 @contextlib.contextmanager
 def as_two_halves():
     """The port's train step, for the block, rounding as two ranks do
     (module docstring)."""
-    dense, sa_dense, moments0, pair = (layers.apply_dense, fused_sa._dense,
-                                       layers.global_moments, SP._Pair)
+    dense, sa_dense, moments0, pair, gram0, sums0 = (
+        layers.apply_dense, fused_sa._dense, layers.global_moments,
+        SP._Pair, sa_stage.global_gram, analytic_sa._layer_sums)
     layers.apply_dense = lambda lin, x, dtype=torch.float32: torch.cat(
         [dense(lin, h, dtype) for h in halves(x)])
     fused_sa._dense = lambda h, lp, dtype: torch.cat(
         [sa_dense(x, lp, dtype) for x in halves(h)])
     layers.global_moments = fused_sa.global_moments = _moments
+    sa_stage.global_gram, analytic_sa._layer_sums = _gram, _layer_sums
     SP._Pair = _PairAsTwoRanks
     try:
         yield
     finally:
         layers.apply_dense, fused_sa._dense, SP._Pair = dense, sa_dense, pair
         layers.global_moments = fused_sa.global_moments = moments0
+        sa_stage.global_gram, analytic_sa._layer_sums = gram0, sums0
+
+
+@contextlib.contextmanager
+def as_column_blocks(mp: int = 2):
+    """The port's step, for the block, computing each split Dense as
+    ``mp`` column-block GEMMs (module docstring)."""
+    dense = layers.apply_dense
+    rule = Mesh(dp=1, mp=mp)
+
+    def split(lin, x, dtype=torch.float32):
+        if not mp_sharded(rule, (lin.in_features, lin.out_features)):
+            return dense(lin, x, dtype)
+        bf = dtype == torch.bfloat16
+        xb = x.to(dtype) if bf else x
+        w = lin.weight.to(dtype) if bf else lin.weight
+        c = lin.out_features // mp
+        y = torch.cat([torch.nn.functional.linear(xb, w[k * c:(k + 1) * c])
+                       for k in range(mp)], dim=-1)
+        if lin.bias is None:
+            return y
+        return y + (lin.bias.to(dtype) if bf else lin.bias)
+    layers.apply_dense = split
+    try:
+        yield
+    finally:
+        layers.apply_dense = dense
