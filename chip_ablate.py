@@ -22,6 +22,12 @@ time on the card.
                                             # precision against float64
     python3 chip_ablate.py rounding         # the card's bf16 rounding rate,
                                             # one or two values at a time
+    python3 chip_ablate.py b9_bf16          # B9-bf16's eight launches with
+                                            # and without its k-order redo
+                                            # (B9_VARIANTS), in turns
+    python3 chip_ablate.py tc_sums          # B9-bf16's forward sums on the
+                                            # tensor cores against the
+                                            # k-order chain (TC_SUMS_CU)
 
 Each kernel is rebuilt from facl_tpu_torch/ops/csrc/sa_pair.cu with one
 part cut out (the pool, the Gram, a product, the CUDA-core row passes;
@@ -672,6 +678,259 @@ int main() {
 """
 
 
+#: B9-bf16's variants (sa_fused.cu, whole file): the kernel; without the
+#: k-order redo of the forward sums near a bf16 rounding boundary (no
+#: sum flagged); with every redone sum 8 steps long (the redo's listing
+#: and one short chain a sum).
+B9_VARIANTS = {
+    "b9_bf16": [],
+    "b9_bf16 without the k-order redo": [(
+        "  return win > 0.f && fabsf(static_cast<float>(d)) * ulp <= win;",
+        "  return false;")],
+    "b9_bf16 with 8-step redo sums": [(
+        "  for (int k0 = 0; k0 < kdim; k0 += 8) {\n    const uint4 av",
+        "  for (int k0 = 0; k0 < 8; k0 += 8) {\n    const uint4 av")],
+}
+
+
+def b9_bf16(cs, out_dir) -> None:
+    """B9-bf16's eight launches of a main-path step (640 clouds x 4,096
+    rows, widths 4-64-64-256, pool 64; randn rows, weights scaled by
+    sqrt(2 / fan-in)) with each B9_VARIANTS build, twice, in turns. A cut
+    variant's outputs are wrong by design; only its time is read."""
+    from facl_tpu_torch.ops import _build
+    from facl_tpu_torch.ops import sa_kernel as SK
+    from facl_tpu_torch.ops.fused_sa import SALayerParams
+    from facl_tpu_torch.ops.sa_fwd import _finalize
+    src = open(os.path.join(CSRC, "sa_fused.cu")).read()
+    procs = {}
+    for i, (name, pairs) in enumerate(B9_VARIANTS.items()):
+        text = src
+        for old, new in pairs:
+            if old not in text:
+                raise SystemExit(f"chip_ablate: {old!r} not in sa_fused.cu")
+            text = text.replace(old, new)
+        cu = out_dir / f"b9_{i}.cu"
+        cu.write_text(text)
+        procs[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", os.path.abspath(CSRC),
+             "-o", str(out_dir / f"b9_{i}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            out_dir / f"b9_{i}.so")
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"chip_ablate: {name} did not build:\n{log}")
+        libs[name] = ctypes.CDLL(str(so))
+    dev = "cuda"
+    g = torch.Generator().manual_seed(cs.SEED)
+    R, C0, K, widths = 640 * 4096, 4, 64, (64, 64, 256)
+    x = torch.randn(R, C0, generator=g).to(dev)
+    layers, cin = [], C0
+    for w in widths:
+        layers.append(SALayerParams(*(t.to(dev) for t in (
+            torch.randn(cin, w, generator=g) * (2.0 / cin) ** 0.5,
+            0.1 * torch.randn(w, generator=g),
+            1 + 0.1 * torch.randn(w, generator=g),
+            0.1 * torch.randn(w, generator=g)))))
+        cin = w
+    dp = torch.randn(R // K, widths[-1], generator=g).to(dev).to(
+        torch.bfloat16).float()
+    packed = torch.zeros(3, 2, 256, device=dev)
+    runs = []
+    for l, w in enumerate(widths):
+        a = (x, layers, packed.clone(), K, l)
+        runs.append((f"stats {l}", SK.sa_fused_stats_bf16, a))
+        mean, var = _finalize(*SK.sa_fused_stats_bf16_plain(*a), R)
+        packed[l, 0, :w], packed[l, 1, :w] = mean, torch.rsqrt(var + 1e-5)
+    runs.append(("pool", SK.sa_fused_pool_bf16, (x, layers, packed, K)))
+    bsums = torch.zeros_like(packed)
+    for l in reversed(range(3)):
+        a = (x, layers, packed, bsums.clone(), dp, K, l)
+        runs.append((f"bnsum {l}", SK.sa_fused_bnsum_bf16, a))
+        bsums[l, 0, :widths[l]], bsums[l, 1, :widths[l]] = \
+            SK.sa_fused_bnsum_bf16_plain(*a)
+    runs.append(("final", SK.sa_fused_final_bf16,
+                 (x, layers, packed, bsums, dp, K, True)))
+    prm = SK._prm(layers, True)
+    runs[0][1](*runs[0][2], prm=prm)        # resolves this tree's launcher
+    key = ("sa_fused", "facl_sa_fused_bf16")
+    ours = _build._FUNCTIONS[key]
+    times = {name: [[], []] for name in libs}
+    for turn in range(2):
+        for name, lib in libs.items():
+            f = getattr(lib, key[1])
+            f.argtypes, f.restype = ours[1].argtypes, ctypes.c_int
+            _build._FUNCTIONS[key] = (lib, f)
+            try:
+                for _, fn, args in runs:
+                    times[name][turn].append(
+                        cs.device_ms(lambda: fn(*args, prm=prm))[0])
+            finally:
+                _build._FUNCTIONS[key] = ours
+    gpu = cs.gpu_name_power()
+    for name, (a, b) in times.items():
+        print(f"{name}: " + ", ".join(
+            f"{n} {u:.4f}/{v:.4f}" for (n, _, _), u, v in zip(runs, a, b))
+            + f"; eight {sum(a):.3f} / {sum(b):.3f} ms on the device ({gpu})",
+            flush=True)
+    print(json.dumps({"b9_bf16": times, "launches": [n for n, _, _ in runs],
+                      "gpu": gpu}))
+
+
+#: tc_sums: sa_fused.cu's own fwd_mma (with its k-order redo) and the
+#: sums its tensor cores make before the redo, with S = sum_k A |W|, on
+#: 128-row tiles of A (M x kdim, bf16) times W (kdim x 64, bf16).
+TC_SUMS_CU = r"""
+#include "sa_fused.cu"
+namespace {
+constexpr int PR = 128;
+__global__ void __launch_bounds__(NTB, 1)
+probe(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
+      int kdim, const float* zero, float* __restrict__ p,
+      float* __restrict__ tc, float* __restrict__ sab) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int lda = ldh(kdim), ldw = ldh(CH), ldo = ldf(CH);
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(sm);
+  __nv_bfloat16* Ws = As + PR * lda;
+  float* out = reinterpret_cast<float*>(Ws + kdim * ldw);
+  int* wrk = reinterpret_cast<int*>(out + PR * ldo);
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * PR;
+  for (int e = threadIdx.x; e < PR * kdim; e += NTB)
+    As[(e / kdim) * lda + e % kdim] = A[r0 * kdim + e];
+  for (int e = threadIdx.x; e < kdim * CH; e += NTB)
+    Ws[(e / CH) * ldw + e % CH] = W[e];
+  __syncthreads();
+  fwd_mma<PR>(As, lda, kdim, Ws, ldw, 0, CH, zero, out, ldo, wrk, true);
+  __syncthreads();
+  for (int e = threadIdx.x; e < PR * CH; e += NTB)
+    p[r0 * CH + e] = out[(e / CH) * ldo + e % CH];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  for (int u = warp; u < (PR / 16) * (CH / 16); u += NWB) {
+    const int m0 = 16 * (u % (PR / 16)), n0 = 16 * (u / (PR / 16));
+    float acc[2][4] = {}, sa[2][4] = {};
+    const __nv_bfloat16* pa = As + (m0 + (lane & 15)) * lda + ((lane >> 4) << 3);
+    const __nv_bfloat16* pb = Ws + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ldw +
+                              n0 + ((lane >> 4) << 3);
+    for (int k0 = 0; k0 < kdim; k0 += 16) {
+      uint32_t a[4], b[4];
+      ldsm4(a, pa + k0);
+      ldsm4t(b, pb + k0 * ldw);
+      mma_bf16(acc[0], a, b[0], b[1]);
+      mma_bf16(acc[1], a, b[2], b[3]);
+      for (int q = 0; q < 4; ++q) b[q] &= 0x7fff7fffu;
+      mma_bf16(sa[0], a, b[0], b[1]);
+      mma_bf16(sa[1], a, b[2], b[3]);
+    }
+    for (int h = 0; h < 2; ++h)
+      for (int q = 0; q < 4; ++q) {
+        const int64_t i = (r0 + m0 + g + 8 * (q >> 1)) * CH + n0 + 8 * h +
+                          2 * t + (q & 1);
+        tc[i] = acc[h][q];
+        sab[i] = sa[h][q];
+      }
+  }
+}
+}  // namespace
+extern "C" int facl_tc_sums(const void* A, const void* W, long long M,
+                            int kdim, const float* zero, float* p, float* tc,
+                            float* sab) {
+  const size_t smem = 2 * (PR * ldh(kdim) + kdim * ldh(CH)) +
+                      4 * PR * ldf(CH) + 4 * FIXW * NWB;
+  cudaFuncSetAttribute(probe, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  probe<<<static_cast<unsigned>(M / PR), NTB, smem>>>(
+      static_cast<const __nv_bfloat16*>(A),
+      static_cast<const __nv_bfloat16*>(W), kdim, zero, p, tc, sab);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def tc_sums(cs, out_dir) -> None:
+    """Build TC_SUMS_CU and hold B9-bf16's forward sums against the k-order
+    chain (fmaf from 0, k ascending; here in torch: each bf16 product is
+    exact in f32, so an f32 add is the fmaf) on 262,144 x 64 sums a case:
+    kdim 64, 128, 256 (the main path's layer 2 is 64; 256 is the range's
+    widest) and three kinds of input: "bench" (A = relu of a normal, W
+    normal at sqrt(2 / kdim), as bench.py's step), "heavy" (A and W
+    heavy-tailed: a t(2) activation, W with a log-normal scale of sigma
+    1.5) and "spread" (each k's column of A, and each entry of W, scaled
+    by a power of two up to 2^10 and 2^6 apart). Per case: the largest
+    |tensor-core sum - chain| in units of 2^-24 S (fwd_mma's window is 16
+    + kdim / 2 of them), their mean, the sums beyond half the window, the
+    share of sums the window sends to the redo,
+    the sums whose bf16 rounding the tensor cores alone get wrong, and the
+    sums fwd_mma still gets wrong (p != bf16(chain))."""
+    from facl_tpu_torch.ops import _build
+    cu, so = out_dir / "tc_sums.cu", out_dir / "tc_sums.so"
+    cu.write_text(TC_SUMS_CU)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    os.path.abspath(CSRC), "-o", str(so), str(cu)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    fn = lib.facl_tc_sums
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev, M, N = "cuda", 128 * 2048, 64
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    bf = torch.bfloat16
+
+    def inputs(kind, kdim):
+        a = torch.randn(M, kdim, device=dev, generator=g)
+        w = torch.randn(kdim, N, device=dev, generator=g) * (2 / kdim) ** 0.5
+        if kind == "heavy":
+            chi = (torch.randn(M, kdim, device=dev, generator=g) ** 2 +
+                   torch.randn(M, kdim, device=dev, generator=g) ** 2) / 2
+            a = a / chi.sqrt().clamp_min(1e-3)
+            w = w * torch.exp(1.5 * torch.randn(kdim, N, device=dev,
+                                                generator=g))
+        elif kind == "spread":
+            a = a * torch.exp2(torch.randint(-5, 6, (1, kdim), device=dev,
+                                             generator=g).float())
+            w = w * torch.exp2(torch.randint(-3, 4, (kdim, N), device=dev,
+                                             generator=g).float())
+        return torch.relu(a).to(bf).contiguous(), w.to(bf).contiguous()
+
+    zero = torch.zeros(N, device=dev)
+    rows = {}
+    for kdim in (64, 128, 256):
+        for kind in ("bench", "heavy", "spread"):
+            a, w = inputs(kind, kdim)
+            p, tc, sab = (torch.empty(M, N, device=dev) for _ in range(3))
+            code = fn(a.data_ptr(), w.data_ptr(), M, kdim, zero.data_ptr(),
+                      p.data_ptr(), tc.data_ptr(), sab.data_ptr())
+            if code:
+                raise SystemExit(f"chip_ablate: tc_sums launch failed ({code})")
+            af, wf = a.float(), w.float()
+            chain = torch.zeros(M, N, device=dev)
+            for k in range(kdim):
+                chain = chain + af[:, k:k + 1] * wf[k]
+            ref = chain.to(bf).float()
+            live = sab > 0
+            units = ((tc - chain).abs() / (sab * 2.0 ** -24))[live]
+            bits = tc.view(torch.int32)
+            ulp = torch.exp2(((bits >> 23) & 0xff).float() - 150)
+            d = ((bits & 0xffff) - 0x8000).abs().float() * ulp
+            flagged = live & (d <= (16 + kdim / 2) * 2.0 ** -24 * sab)
+            rows[f"kdim {kdim} {kind}"] = dict(
+                sums=M * N, max_units=float(units.max()),
+                mean_units=float(units.mean()),
+                beyond_half_window=int((units > 8 + kdim / 4).sum()),
+                window_units=16 + kdim / 2,
+                flagged_share=float(flagged.float().mean()),
+                tc_rounding_wrong=int((tc.to(bf).float() != ref).sum()),
+                fwd_mma_wrong=int((p != ref).sum()))
+            print(f"kdim {kdim} {kind}: " + ", ".join(
+                f"{k} {v}" for k, v in rows[f"kdim {kdim} {kind}"].items()),
+                flush=True)
+    print(json.dumps({"tc_sums": rows, "gpu": cs.gpu_name_power()}))
+
+
 def rounding(out_dir) -> None:
     """Build and run ROUNDING_CU (--rounding)."""
     from facl_tpu_torch.ops import _build
@@ -709,6 +968,12 @@ def main() -> None:
     if only == ("rounding",):
         rounding(out_dir)
         print(json.dumps({"gpu": cs.gpu_name_power()}))
+        return
+    if only == ("b9_bf16",):
+        b9_bf16(cs, out_dir)
+        return
+    if only == ("tc_sums",):
+        tc_sums(cs, out_dir)
         return
     if only == ("precision",):
         sources = {name: variant_source(src["sa_pair"], "l12", pairs)

@@ -11,13 +11,16 @@ every hand-written kernel against its plain PyTorch twin.
                                         #   archive of another commit)
                                         #   timed against this tree's, in
                                         #   turns, their outputs bit-equal;
-                                        #   the bf16 B2a-B3c alike, within
-                                        #   phase 2's bf16 bars of the
-                                        #   parent's; and the pair3
-                                        #   bf16 step with the parent's
-                                        #   bf16 B2a, in turns (with
-                                        #   --profile, three profiled
-                                        #   steps of each turn)
+                                        #   the bf16 B2a-B3c and B9 alike,
+                                        #   within phase 2's bf16 bars of
+                                        #   the parent's (B9's at its own
+                                        #   bars, b9_bf16_vs_parent), each
+                                        #   at its wrapper's grid; and the
+                                        #   pair3 and pallas bf16 steps
+                                        #   with the parent's bf16 B2a and
+                                        #   B9, in turns (with --profile,
+                                        #   three profiled steps of each
+                                        #   turn)
 
 Phases (any failure exits nonzero, before the final line):
   1. build   every kernel from facl_tpu_torch/ops/csrc (one nvcc per
@@ -62,7 +65,9 @@ Phases (any failure exits nonzero, before the final line):
              eight launches at bf16 alike (b9_bf16_rows: the bf16
              cotangent zeroed on bf16 near-tie pairs, pooled bit-equal
              outside them, accumulators within B9_BF16_BAR, dx at rtol
-             1e-5 but at counted rows). Then
+             1e-5 but at counted rows; the host's us per B9 launch also
+             with the flat weights built once, as a stage call builds
+             them). Then
              the whole SA stage (forward + backward) of each sa_impl with
              kernels (pair3, pair, hybrid2, hybrid, pallas, and each at
              bf16) at K=64 and K=128 on the same inputs as kernels, twins
@@ -95,9 +100,9 @@ Phases (any failure exits nonzero, before the final line):
              --profile adds one profiled step to each impl's path: kernel
              time (kernel_ms: user annotations left out) over that step's
              own span gives the device's idle share; with --parent the
-             pair3 bf16 step runs again, 20 steps in turns with the
-             parent's bf16 B2a and with this tree's (parent_step_ab;
-             --profile: three profiled steps each);
+             pair3 and pallas bf16 steps run again, 20 steps each in
+             turns with the parent's bf16 B2a / B9 and with this tree's
+             (parent_step_ab; --profile: three profiled steps each);
   5. input   d(loss)/d(points) through each grouping route and the
              pallas SA stage with input_grad (B9's dx, B5b) at B=8: card
              kernels vs card twins vs CPU (phase_input_grad), with exact
@@ -243,6 +248,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import importlib.util
 import io
 import json
@@ -405,8 +411,18 @@ def swapped(pairs):
 
 def twins_on_card():
     """Route the SA stage's sweeps to their plain twins for card tensors
-    (for the yardstick chains below; the port itself never does this)."""
-    return swapped([(m, k.__name__, getattr(m, k.__name__ + "_plain"))
+    (for the yardstick chains below; the port itself never does this). B9's
+    stage passes its sweeps the flat weights (``prm``), which a twin does
+    not take."""
+    from facl_tpu_torch.ops import sa_kernel as SK
+
+    def twin(m, k):
+        plain = getattr(m, k.__name__ + "_plain")
+        if m is not SK:
+            return plain
+        return functools.wraps(plain)(
+            lambda *a, prm=None, **kw: plain(*a, **kw))
+    return swapped([(m, k.__name__, twin(m, k))
                     for m in sa_modules() for k in m.KERNELS])
 
 
@@ -1715,6 +1731,9 @@ def measure(r):
     its bound from the row's bytes and operations."""
     args, fn, plain = r.pop("args"), r["fn"], r.pop("plain")
     r["ms"], r["host_us"] = device_ms(lambda: fn(*args))
+    if r.get("source") == SRC9:        # B9: prm built once a stage call
+        prm = sa_modules()[-1]._prm(args[1], fn.__name__.endswith("_bf16"))
+        r["host_prm_us"] = device_ms(lambda: fn(*args, prm=prm))[1]
     r["plain_ms"] = device_ms(lambda: plain(*args))[0]
     lib = r.pop("library", None)
     r["library_ms"] = device_ms(lib)[0] if lib else None
@@ -1733,6 +1752,9 @@ def measure(r):
     r.setdefault("source", "facl_tpu_torch/ops/csrc/sa_pair.cu")
 
 
+#: B9's four wrappers (sa_kernel.py), the f32 names.
+B9_NAMES = ("sa_fused_stats", "sa_fused_pool", "sa_fused_bnsum",
+            "sa_fused_final")
 #: --parent: the parent tree's kernel libraries, and the kernels whose
 #: launchers are timed against this tree's (wrapper -> (library, launcher
 #: name, the blocks per SM the parent's wrapper launches it with; None
@@ -1755,8 +1777,9 @@ PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
              "sa_bwd_sweep2_full": ("sa_2sweep", "facl_sa_bwd2_sweep2",
                                     None),
              **{n: ("sa_fused", "facl_sa_fused", None) for n in
-                ("sa_fused_stats", "sa_fused_pool", "sa_fused_bnsum",
-                 "sa_fused_final")}}
+                B9_NAMES},
+             **{f"{n}_bf16": ("sa_fused", "facl_sa_fused_bf16", 2) for n in
+                B9_NAMES}}
 PARENT_LIBS = ("select", "sa_pair", "sa_2sweep", "sa_fused")
 
 
@@ -1799,13 +1822,14 @@ def parent_ab(fn, args):
     this tree's, in turns: parent, this tree, this tree, parent; and the
     outputs of one call of each, which must be bit-equal (fails
     otherwise), or for a bf16 sweep (a wrapper named *_bf16) within
-    phase 2's bf16 bars of the parent's (bf16_vs_parent: the redesigned
-    kernels sum in another order). The launchers' C signatures are the
+    phase 2's bf16 bars of the parent's (bf16_vs_parent, B9's
+    b9_bf16_vs_parent: the redesigned kernels sum in another order). The
+    parent's launcher runs at its own wrapper's grid (parent_grid_swaps).
+    The launchers' C signatures are the
     same in both trees (pointers are void* to ctypes). (B6 and B8b return
     dicts, B7c one tensor: their values are compared.)"""
     import ctypes
     from facl_tpu_torch.ops import _build
-    from facl_tpu_torch.ops import sa_pair as SP
     lib_name, launcher, parent_per_sm = PARENT_AB[fn.__name__]
     key = (lib_name, launcher)
     ours = _build._FUNCTIONS[key]          # resolved by the timed calls
@@ -1813,14 +1837,10 @@ def parent_ab(fn, args):
     pfn = getattr(lib, launcher)
     pfn.argtypes, pfn.restype = ours[1].argtypes, ctypes.c_int
 
-    def parent_grid(t, R, per_sm=2):
-        return min(R // 64, parent_per_sm * _build.sm_count(t.device))
-
     def run_parent(out=None):
         _build._FUNCTIONS[key] = (lib, pfn)
         try:
-            with swapped([(SP, "grid", parent_grid)] if parent_per_sm
-                         else []):
+            with swapped(parent_grid_swaps(lib_name, parent_per_sm)):
                 if out is not None:
                     out.append(fn(*args))
                 return device_ms(lambda: fn(*args))[0]
@@ -1833,6 +1853,10 @@ def parent_ab(fn, args):
     ab = [run_parent(theirs), run_ours(), run_ours(), run_parent()]
     mine = _outputs(fn(*args))
     theirs = [t for o in theirs for t in _outputs(o)]
+    if lib_name == "sa_fused" and fn.__name__.endswith("_bf16"):
+        print(f"  --parent {fn.__name__} against the parent's: "
+              f"{b9_bf16_vs_parent(fn.__name__, mine, theirs)}", flush=True)
+        return ab
     if fn.__name__.endswith("_bf16"):
         p3 = gram_pool_bf16_p3(*args) if "gram_pool" in fn.__name__ \
             else None
@@ -1843,6 +1867,70 @@ def parent_ab(fn, args):
           all(torch.equal(a, b) for a, b in zip(mine, theirs)),
           f"--parent: {fn.__name__}'s outputs differ from the parent's")
     return ab
+
+
+def parent_grid_swaps(lib_name: str, blocks):
+    """The (module, name, value) swaps that launch a parent launcher at the
+    grid its own wrapper gave it: sa_pair's ``grid`` at ``blocks`` blocks
+    an SM; B9's ``_nblk`` at ``blocks`` blocks an SM (the parent's bf16 B9
+    ran two 256-thread blocks an SM, this tree's one of 512); none for a
+    launcher that takes no grid (blocks None)."""
+    from facl_tpu_torch.ops import _build
+    from facl_tpu_torch.ops import sa_kernel as SK
+    from facl_tpu_torch.ops import sa_pair as SP
+    if not blocks:
+        return []
+    if lib_name == "sa_fused":
+        def nblk(x, widths, pool, bf):
+            R = x.shape[0]
+            tiles = -(-(R // pool) // ((64 if pool <= 64 else 128) // pool))
+            return max(1, min(tiles, blocks * _build.sm_count(x.device)))
+        return [(SK, "_nblk", nblk)]
+
+    def grid(t, R, per_sm=2):
+        return min(R // 64, blocks * _build.sm_count(t.device))
+    return [(SP, "grid", grid)]
+
+
+def b9_bf16_vs_parent(name, mine, theirs):
+    """A bf16 B9 sweep's outputs (``_outputs`` order) against the parent
+    tree's at phase 2's B9 bf16 bars (b9_bf16_rows): the pooled bf16
+    values within one bf16 ulp but at counted flips (bf16_flips), f32
+    accumulators (sums, dW) within B9_BF16_BAR of the parent's max-abs,
+    db (exactly zero: a BatchNorm follows each Dense) within it of the
+    parent's dW max-abs on both sides, dx (R, C0) at rtol 1e-5 / atol
+    1e-5 x scale on all but 1e-3 of its rows (counted). Fails otherwise;
+    returns a note of the counts."""
+    check(len(mine) == len(theirs), f"--parent: {name} returns "
+                                    f"{len(mine)} tensors, the parent "
+                                    f"{len(theirs)}")
+    final = "final" in name
+    L = (len(theirs) - 1) // 2                  # dx, [dW_l], [db_l]
+    gscale = max(float(t.abs().max()) for t in theirs[1:1 + L]) \
+        if final else 0.0
+    notes = []
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        what = f"--parent: {name} output {i}"
+        check(a.shape == b.shape, f"{what}: {tuple(a.shape)} against the "
+                                  f"parent's {tuple(b.shape)}")
+        if "pool" in name:
+            notes.append(f"pooled: {bf16_flips(a, b, what)[0]} beyond one "
+                         "ulp")
+        elif final and i > L:
+            check(max(float(a.abs().max()), float(b.abs().max())) <
+                  B9_BF16_BAR * gscale, f"{what}: db (exactly zero) not "
+                                        "near zero")
+        elif final and i == 0:
+            scale = float(b.abs().max())
+            beyond = ((a - b).abs() > 1e-5 * b.abs() + 1e-5 * scale).any(1)
+            nb = int(beyond.sum())
+            check(nb <= 1e-3 * a.shape[0], f"{what}: {nb} of {a.shape[0]} dx "
+                                           "rows beyond rtol 1e-5 / atol "
+                                           "1e-5 x scale")
+            notes.append(f"dx: {nb} rows beyond")
+        else:
+            acc_rel(a, b, what, B9_BF16_BAR)
+    return "; ".join(notes) or "sums within B9_BF16_BAR"
 
 
 def _outputs(out):
@@ -1864,8 +1952,11 @@ def print_row(r, label=""):
     dense = "" if "dense_ms" not in r else \
         f"; its dense q3 product alone {r['dense_ms']:.4f} ms at the bf16 " \
         "tensor-core rate"
+    prm = "" if "host_prm_us" not in r else \
+        f" ({r['host_prm_us']:.1f} us with its flat weights built once a " \
+        "stage call, as sa_train_*_unified call it)"
     print(f"kernel {r['name']}{label}: {r['ms']:.4f} ms on the device, "
-          f"{r['host_us']:.1f} us on the host per call (twin "
+          f"{r['host_us']:.1f} us on the host per call{prm} (twin "
           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
           f"{r['bound_by']}{tc}{lib}{dense}), max |kernel - twin| = "
           f"{r['max_abs_err']:.3e}", flush=True)
@@ -2436,49 +2527,67 @@ def phase_main(dev, profile: bool, card: str):
     return out, medians
 
 
-#: --parent: the kernels whose parent launchers the pair3 bf16 step runs
-#: in parent_step_ab (the ones this tree redesigned).
-PARENT_STEP = ("sa_fwd_layer12_bf16",)
+#: --parent: the Trainer steps parent_step_ab runs with the parent's
+#: launchers of the named kernels (the bf16 B2a of pair3 and B9 of
+#: pallas), each against this tree's: (BF16_PATHS label, kernels).
+PARENT_STEPS = (("pair3 bf16", ("sa_fwd_layer12_bf16",)),
+                ("pallas bf16", tuple(f"{n}_bf16" for n in B9_NAMES)))
 #: --parent --profile: profiled steps of each of parent_step_ab's runs.
 PARENT_PROF_STEPS = 3
 
 
 def parent_step_ab(dev, batches, g, kernels, card, profile: bool):
-    """--parent: the pair3 bf16 Trainer step with this tree's PARENT_STEP
-    kernels and with the parent tree's (their launchers swapped; every
-    other kernel this tree's), in turns: parent, this tree, this tree,
-    parent, 20 timed steps each after 2 warm-up steps (_run_path: its
-    launch counts checked); with --profile PARENT_PROF_STEPS profiled
-    steps of each run, their kernel time split into the kernels only one
-    side launches (the swapped pair) and every other kernel. Prints the
-    medians; returns them."""
+    """--parent: each PARENT_STEPS Trainer step (bf16) with this tree's
+    kernels and with the parent tree's launchers of its named kernels
+    (every other kernel this tree's; each launched at the parent's grid,
+    parent_grid_swaps), in turns: parent, this tree, this tree, parent, 20
+    timed steps each after 2 warm-up steps (_run_path: its launch counts
+    checked); with --profile PARENT_PROF_STEPS profiled steps of each run,
+    their kernel time split into the kernels only one side launches (the
+    swapped ones) and every other kernel. Prints the medians; returns
+    {label: [ms, ms, ms, ms]}."""
     import ctypes
     from facl_tpu_torch.ops import _build
-    label, impl, _, want = BF16_PATHS[0]
-    names = " and ".join(PARENT_STEP)
-    swaps = []
-    for name in PARENT_STEP:
-        lib_name, launcher, per_sm = PARENT_AB[name]
-        check(per_sm == 1, f"--parent: {name} runs at 1 block per SM in "
-                           "both trees here")
-        key = (lib_name, launcher)
-        ours = _build._FUNCTIONS[key]
-        pfn = getattr(PARENT[lib_name], launcher)
-        pfn.argtypes, pfn.restype = ours[1].argtypes, ctypes.c_int
-        swaps.append((key, ours, (PARENT[lib_name], pfn)))
+    paths = {label: (impl, want) for label, impl, _, want in BF16_PATHS}
+    out = {}
+    for label, names in PARENT_STEPS:
+        impl, want = paths[label]
+        swaps, grids = {}, []
+        for name in names:
+            lib_name, launcher, per_sm = PARENT_AB[name]
+            key = (lib_name, launcher)
+            if key in swaps:
+                continue
+            ours = _build._FUNCTIONS[key]
+            pfn = getattr(PARENT[lib_name], launcher)
+            pfn.argtypes, pfn.restype = ours[1].argtypes, ctypes.c_int
+            swaps[key] = (ours, (PARENT[lib_name], pfn))
+            grids += parent_grid_swaps(lib_name, per_sm)
+        out[label] = _parent_step_turns(dev, batches, g, kernels, card,
+                                        profile, label, impl, want, names,
+                                        swaps, grids)
+    return out
+
+
+def _parent_step_turns(dev, batches, g, kernels, card, profile, label, impl,
+                       want, names, swaps, grids):
+    from facl_tpu_torch.ops import _build
+    names = " and ".join(names)
     profs = {True: [], False: []}     # parent? -> [{kernel: ms} a step]
 
     def run(parent):
-        for key, ours, theirs in swaps:
+        for key, (ours, theirs) in swaps.items():
             _build._FUNCTIONS[key] = theirs if parent else ours
         try:
             tag = "the parent's" if parent else "this tree's"
-            return _run_path(dev, impl, 20, batches, g, kernels, card,
-                             profile, want, f"{label} with {tag} {names}",
-                             dtype="bfloat16", prof_steps=PARENT_PROF_STEPS,
-                             prof_out=profs[parent])[1]
+            with swapped(grids if parent else []):
+                return _run_path(dev, impl, 20, batches, g, kernels, card,
+                                 profile, want, f"{label} with {tag} {names}",
+                                 dtype="bfloat16",
+                                 prof_steps=PARENT_PROF_STEPS,
+                                 prof_out=profs[parent])[1]
         finally:
-            for key, ours, _ in swaps:
+            for key, (ours, _) in swaps.items():
                 _build._FUNCTIONS[key] = ours
             torch.cuda.empty_cache()
     ms = [run(True), run(False), run(False), run(True)]

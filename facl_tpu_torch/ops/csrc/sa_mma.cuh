@@ -28,7 +28,8 @@
 //
 // bf16: the bf16 sweeps (their own kernels, sa_pair.cu) store the row
 // tensors (x, p2, q3, mq) as __nv_bfloat16 and run their products on the
-// bf16 tensor cores (the helpers at the end of this file). Operands are
+// bf16 tensor cores (bf16_mma.cuh's primitives and the helpers at the end
+// of this file). Operands are
 // rounded to bf16 (rb, pack_bf16) where the TPU kernels cast them, and
 // results where they are cast or stored (ops/sa_pair.py's bf16 twins
 // list the cast points); the ReLU masks are decided on bf16-rounded
@@ -38,6 +39,7 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include "bf16_mma.cuh"
 #include "sa_tile.cuh"
 
 namespace {
@@ -51,10 +53,6 @@ __host__ __device__ constexpr int b_stride(int ncols) {
 }
 
 // -- TMA staging ------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
@@ -175,21 +173,6 @@ template <>
 struct Row<true> {
   using T = __nv_bfloat16;
 };
-
-// Round to bf16 (nearest even), carried in f32: one cast point.
-__device__ __forceinline__ float rb(float a) {
-  return __bfloat162float(__float2bfloat16_rn(a));
-}
-
-// Two values rounded to bf16 (nearest even) in one register, and back.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-  return make_float2(__uint_as_float(u << 16),
-                     __uint_as_float(u & 0xffff0000u));
-}
 
 // The halves of a packed pair to keep: bit 0 the low, bit 1 the high.
 __device__ __forceinline__ uint32_t keep_halves(uint32_t bits) {
@@ -598,31 +581,6 @@ __device__ __forceinline__ double sum_over_t(double v) {
 //   C (16 x 8):  c0, c1 (row g, cols 2t, 2t + 1), c2, c3 (row g + 8).
 // C of two neighbouring n-tiles is the A fragment of one k16 step.
 constexpr int LDB = 72;
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8. Plain: register q holds row g, columns 2t, 2t + 1 of
-// matrix q; transposed: rows 2t, 2t + 1 of column g.
-__device__ __forceinline__ void ldsm4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
 
 // Four 8 x 8 bf16 matrices stored: lane l gives the address of row l % 8
 // of matrix l / 8, register q holds row g, columns 2t, 2t + 1 of matrix q

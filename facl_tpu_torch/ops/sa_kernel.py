@@ -23,18 +23,23 @@ tensor launches the kernel or raises, and each wrapper counts its
 launches. The kernel sums its per-block float64 partials in a fixed order
 here, so every result is deterministic.
 
-At ``compute_dtype=bfloat16`` (``*_bf16``: one instantiation of the same
-CUDA template, entry point ``facl_sa_fused_bf16``, and its own twins and
-counters) the sweeps follow the cast points that the JAX kernel at bf16
-rounds, as its interpret-mode outputs show (not every cast its source
-writes): x and the weights are rounded to bf16 at load; each product
-h W sums exact bf16 products in f32 and is rounded to bf16, and the bf16
+At ``compute_dtype=bfloat16`` (``*_bf16``: entry point
+``facl_sa_fused_bf16``, a kernel of its own on the bf16 tensor cores for
+every net whose tile fits its shared memory, the CUDA-core kernel's bf16
+instantiation for the rest (:func:`bf16_on_tensor_cores`), and their own
+twins and counters) the sweeps follow the cast points that the JAX kernel
+at bf16 rounds, as its interpret-mode outputs show (not every cast its
+source writes): x and the weights are rounded to bf16 at load; each
+product h W sums exact bf16 products in f32 and is rounded to bf16 (as
+the k-order sum rounds it, csrc/sa_fused.cu says how far), and the bf16
 bias adds to it in f32, unrounded (XLA keeps that sum in f32); the
 affines run in f32 and y is rounded to bf16 before the ReLU, so the
 activations, the ReLU masks and the pooled values (f32 out) are bf16
 values, and the pool ties are taken on them. Backward: dy, dp and the BN
 sums in f32; da = bf16(dp) bf16(W)^T with f32 sums; dW = h^T dp, db and
-dx = dp0 W0^T with the f32 dp and the f32 W0.
+dx = dp0 W0^T with the f32 dp and the f32 W0. The stage's forward and
+backward build the kernels' flat weights (:func:`_prm`) once each and pass
+them to every launch (``prm``); a sweep called alone builds them itself.
 """
 from __future__ import annotations
 
@@ -196,7 +201,7 @@ def _widths_arg(widths: List[int]):
     return (ctypes.c_int * LMAX)(*(widths + [0] * (LMAX - len(widths))))
 
 
-def _check(x, layers, pool: int) -> List[int]:
+def _check(x, layers, pool: int, bf: bool) -> List[int]:
     """The kernel's range; raises ValueError outside it."""
     R, C0 = x.shape
     need(x, (R, C0), "x")
@@ -214,7 +219,7 @@ def _check(x, layers, pool: int) -> List[int]:
         need(lp.kernel, (cin, w), "kernel")
         cin = w
     lib = _build.REGISTRY.get("sa_fused")
-    fn = lib.facl_sa_fused_smem
+    fn = lib.facl_sa_fused_bf16_smem if bf else lib.facl_sa_fused_smem
     fn.argtypes = [_LL, _I, _I, _P, _I]
     fn.restype = _LL
     smem = fn(R, C0, L, ctypes.cast(_widths_arg(widths), _P), pool)
@@ -228,7 +233,8 @@ def _check(x, layers, pool: int) -> List[int]:
 
 def _prm(layers, bf: bool) -> torch.Tensor:
     """W_0, W_0^T, W_1, W_1^T, ..., flat; with ``bf`` all rounded to bf16
-    but W_0^T, the operand of dx = dp0 W0^T (f32 in the JAX kernel)."""
+    but W_0^T, the operand of dx = dp0 W0^T (f32 in the JAX kernel). Built
+    once per forward or backward of the stage (its sweeps pass it on)."""
     r = _rb if bf else _same
     return torch.cat([t.reshape(-1) for l, lp in enumerate(layers)
                       for t in (r(lp.kernel), (r(lp.kernel.T) if l else
@@ -236,76 +242,96 @@ def _prm(layers, bf: bool) -> torch.Tensor:
         .contiguous()
 
 
-def _nblk(x, R: int, pool: int) -> int:
+def bf16_on_tensor_cores(R: int, C0: int, widths: List[int],
+                         pool: int) -> bool:
+    """Whether B9's bf16 sweeps of this net run on the tensor cores (the
+    kernel's layout fits shared memory; the main path's net does) or on
+    CUDA cores (the other nets of the range): csrc/sa_fused.cu."""
+    lib = _build.REGISTRY.get("sa_fused")
+    fn = lib.facl_sa_fused_bf16_tc
+    fn.argtypes = [_LL, _I, _I, _P, _I]
+    fn.restype = _I
+    return fn(R, C0, len(widths), ctypes.cast(_widths_arg(widths), _P),
+              pool) == 1
+
+
+def _nblk(x, widths: List[int], pool: int, bf: bool) -> int:
+    """Persistent blocks: one an SM for the bf16 tensor-core kernel (512
+    threads and most of the shared memory), else two, no more than the
+    tiles."""
+    R, C0 = x.shape
     tiles = -(-(R // pool) // ((64 if pool <= 64 else 128) // pool))
-    return max(1, min(tiles, 2 * _build.sm_count(x.device)))
+    per_sm = 1 if bf and bf16_on_tensor_cores(R, C0, widths, pool) else 2
+    return max(1, min(tiles, per_sm * _build.sm_count(x.device)))
 
 
 def _launch(mode, target, x, layers, widths, v, pool, dout, out, part,
-            nblk, what, bf):
+            nblk, what, bf, prm):
     R, C0 = x.shape
     wa = _widths_arg(widths)
     handle, fn = _build.function(
         "sa_fused", "facl_sa_fused_bf16" if bf else "facl_sa_fused", _ARGS)
     code = fn(mode, target, _build.ptr(x), R, C0, len(widths),
-              ctypes.cast(wa, _P), pool, _build.ptr(_prm(layers, bf)),
+              ctypes.cast(wa, _P), pool,
+              _build.ptr(_prm(layers, bf) if prm is None else prm),
               _build.ptr(v), None if dout is None else _build.ptr(dout),
               None if out is None else _build.ptr(out), _build.ptr(part),
               nblk, _build.stream_of(x))
     _build.check(handle, code, what)
 
 
-def _stats(x, layers, packed, pool, target, bf, what):
-    widths = _check(x, layers, pool)
+def _stats(x, layers, packed, pool, target, bf, what, prm):
+    widths = _check(x, layers, pool, bf)
     v = vectors(layers, packed, None, x.shape[0], bf)
-    nblk = _nblk(x, x.shape[0], pool)
+    nblk = _nblk(x, widths, pool, bf)
     part = torch.empty((nblk, 2, widths[target]), dtype=torch.float64,
                        device=x.device)
     _launch(0, target, x, layers, widths, v, pool, None, None, part, nblk,
-            what, bf)
+            what, bf, prm)
     s = reduce(part)
     return s[0], s[1]
 
 
-def _pool(x, layers, packed, pool, bf, what):
-    widths = _check(x, layers, pool)
+def _pool(x, layers, packed, pool, bf, what, prm):
+    widths = _check(x, layers, pool, bf)
     R = x.shape[0]
     v = vectors(layers, packed, None, R, bf)
-    nblk = _nblk(x, R, pool)
+    nblk = _nblk(x, widths, pool, bf)
     pooled = torch.empty((R // pool, widths[-1]), dtype=torch.float32,
                          device=x.device)
     part = torch.empty(1, dtype=torch.float64, device=x.device)
     _launch(1, 0, x, layers, widths, v, pool, None, pooled, part, nblk, what,
-            bf)
+            bf, prm)
     return pooled
 
 
-def _bnsum(x, layers, packed, bsums, dout, pool, target, bf, what):
-    widths = _check(x, layers, pool)
+def _bnsum(x, layers, packed, bsums, dout, pool, target, bf, what, prm):
+    widths = _check(x, layers, pool, bf)
     need(dout, (x.shape[0] // pool, widths[-1]), "dout")
     v = vectors(layers, packed, bsums, x.shape[0], bf)
-    nblk = _nblk(x, x.shape[0], pool)
+    nblk = _nblk(x, widths, pool, bf)
     part = torch.empty((nblk, 2, widths[target]), dtype=torch.float64,
                        device=x.device)
     _launch(2, target, x, layers, widths, v, pool, dout, None, part, nblk,
-            what, bf)
+            what, bf, prm)
     s = reduce(part)
     return s[0], s[1]
 
 
-def _final(x, layers, packed, bsums, dout, pool, need_dx, bf, what):
-    widths = _check(x, layers, pool)
+def _final(x, layers, packed, bsums, dout, pool, need_dx, bf, what, prm):
+    widths = _check(x, layers, pool, bf)
     R, C0 = x.shape
     need(dout, (R // pool, widths[-1]), "dout")
     v = vectors(layers, packed, bsums, R, bf)
-    nblk = _nblk(x, R, pool)
+    nblk = _nblk(x, widths, pool, bf)
     cins = [C0] + widths[:-1]
     ndw = sum(c * w for c, w in zip(cins, widths))
     part = torch.zeros((nblk, ndw + sum(widths)), dtype=torch.float64,
                        device=x.device)
     dx = torch.empty((R, C0), dtype=torch.float32, device=x.device) \
         if need_dx else None
-    _launch(3, 0, x, layers, widths, v, pool, dout, dx, part, nblk, what, bf)
+    _launch(3, 0, x, layers, widths, v, pool, dout, dx, part, nblk, what, bf,
+            prm)
     s = reduce(part)
     dws, dbs, o, ob = [], [], 0, ndw
     for c, w in zip(cins, widths):
@@ -315,90 +341,95 @@ def _final(x, layers, packed, bsums, dout, pool, need_dx, bf, what):
     return dx, dws, dbs
 
 
-def sa_fused_stats(x, layers, packed, pool: int, target: int):
+# ``prm``: the flat weights (_prm) if the caller has built them, else None.
+
+def sa_fused_stats(x, layers, packed, pool: int, target: int, prm=None):
     """Stats sweep of layer ``target`` -> (sum p, sum p^2), float32 (w,)."""
     if on_cpu(x, "B9"):
         return sa_fused_stats_plain(x, layers, packed, pool, target)
-    out = _stats(x, layers, packed, pool, target, False, "sa_fused_stats")
+    out = _stats(x, layers, packed, pool, target, False, "sa_fused_stats",
+                 prm)
     sa_fused_stats.launches += 1
     return out
 
 
-def sa_fused_pool(x, layers, packed, pool: int):
+def sa_fused_pool(x, layers, packed, pool: int, prm=None):
     """Pool sweep -> pooled (R // pool, w_top)."""
     if on_cpu(x, "B9"):
         return sa_fused_pool_plain(x, layers, packed, pool)
-    pooled = _pool(x, layers, packed, pool, False, "sa_fused_pool")
+    pooled = _pool(x, layers, packed, pool, False, "sa_fused_pool", prm)
     sa_fused_pool.launches += 1
     return pooled
 
 
-def sa_fused_bnsum(x, layers, packed, bsums, dout, pool: int, target: int):
+def sa_fused_bnsum(x, layers, packed, bsums, dout, pool: int, target: int,
+                   prm=None):
     """BN-sum sweep of layer ``target`` -> (sum dy, sum dy xhat)."""
     if on_cpu(x, "B9"):
         return sa_fused_bnsum_plain(x, layers, packed, bsums, dout, pool,
                                     target)
     out = _bnsum(x, layers, packed, bsums, dout, pool, target, False,
-                 "sa_fused_bnsum")
+                 "sa_fused_bnsum", prm)
     sa_fused_bnsum.launches += 1
     return out
 
 
 def sa_fused_final(x, layers, packed, bsums, dout, pool: int,
-                   need_dx: bool = True):
+                   need_dx: bool = True, prm=None):
     """Final sweep -> (dx (R, C0) or None, [dW_l], [db_l])."""
     if on_cpu(x, "B9"):
         return sa_fused_final_plain(x, layers, packed, bsums, dout, pool,
                                     need_dx)
     out = _final(x, layers, packed, bsums, dout, pool, need_dx, False,
-                 "sa_fused_final")
+                 "sa_fused_final", prm)
     sa_fused_final.launches += 1
     return out
 
 
-def sa_fused_stats_bf16(x, layers, packed, pool: int, target: int):
+def sa_fused_stats_bf16(x, layers, packed, pool: int, target: int,
+                        prm=None):
     """The stats sweep at bf16: x (R, C0) float32, computed in bf16 ->
     (sum p, sum p^2), float32."""
     if on_cpu(x, "B9"):
         return sa_fused_stats_bf16_plain(x, layers, packed, pool, target)
     out = _stats(x, layers, packed, pool, target, True,
-                 "sa_fused_stats_bf16")
+                 "sa_fused_stats_bf16", prm)
     sa_fused_stats_bf16.launches += 1
     return out
 
 
-def sa_fused_pool_bf16(x, layers, packed, pool: int):
+def sa_fused_pool_bf16(x, layers, packed, pool: int, prm=None):
     """The pool sweep at bf16 -> pooled (R // pool, w_top) float32 holding
     bf16 values (sa_kernel.py:271-274)."""
     if on_cpu(x, "B9"):
         return sa_fused_pool_bf16_plain(x, layers, packed, pool)
-    pooled = _pool(x, layers, packed, pool, True, "sa_fused_pool_bf16")
+    pooled = _pool(x, layers, packed, pool, True, "sa_fused_pool_bf16", prm)
     sa_fused_pool_bf16.launches += 1
     return pooled
 
 
 def sa_fused_bnsum_bf16(x, layers, packed, bsums, dout, pool: int,
-                        target: int):
+                        target: int, prm=None):
     """The BN-sum sweep at bf16: ties of the bf16 top activations ->
     (sum dy, sum dy xhat), float32."""
     if on_cpu(x, "B9"):
         return sa_fused_bnsum_bf16_plain(x, layers, packed, bsums, dout,
                                          pool, target)
     out = _bnsum(x, layers, packed, bsums, dout, pool, target, True,
-                 "sa_fused_bnsum_bf16")
+                 "sa_fused_bnsum_bf16", prm)
     sa_fused_bnsum_bf16.launches += 1
     return out
 
 
 def sa_fused_final_bf16(x, layers, packed, bsums, dout, pool: int,
-                        need_dx: bool = True):
+                        need_dx: bool = True, prm=None):
     """The final sweep at bf16 -> (dx (R, C0) or None, [dW_l], [db_l]),
     float32."""
     if on_cpu(x, "B9"):
         return sa_fused_final_bf16_plain(x, layers, packed, bsums, dout,
                                          pool, need_dx)
     out = _final(x, layers, packed, bsums, dout, pool, need_dx, True,
-                 "sa_fused_final_bf16")
+                 "sa_fused_final_bf16", prm)
     sa_fused_final_bf16.launches += 1
     return out
 
@@ -430,18 +461,19 @@ def sa_train_forward_unified(x: torch.Tensor,
     width) (sa_kernel.py:247-297), computed in ``dtype`` (bf16 runs the
     bf16 sweeps; any other dtype the f32 ones)."""
     stats_sweep, pool_sweep, _, _ = _sweeps(dtype)
+    prm = None if x.device.type == "cpu" else _prm(layers, dtype == BF16)
     R = x.shape[0]
     widths = _widths(layers)
     packed = torch.zeros(len(layers), 2, max(widths), dtype=x.dtype,
                          device=x.device)
     stats = []
     for l, w in enumerate(widths):
-        s, ss = stats_sweep(x, layers, packed, pool, l)
+        s, ss = stats_sweep(x, layers, packed, pool, l, prm=prm)
         mean, var = _finalize(s, ss, R)
         packed[l, 0, :w] = mean
         packed[l, 1, :w] = torch.rsqrt(var + eps)
         stats.append((mean, var))
-    return pool_sweep(x, layers, packed, pool), stats, packed
+    return pool_sweep(x, layers, packed, pool, prm=prm), stats, packed
 
 
 def sa_train_backward_unified(x: torch.Tensor,
@@ -453,12 +485,15 @@ def sa_train_backward_unified(x: torch.Tensor,
     (sa_kernel.py:424-505): dgamma = sum dy xhat and dbeta = sum dy are
     the BN sums of the top-down sweeps; ``dtype`` as the forward's."""
     _, _, bnsum_sweep, final_sweep = _sweeps(dtype)
+    prm = None if x.device.type == "cpu" else _prm(layers, dtype == BF16)
     widths = _widths(layers)
     bsums = torch.zeros_like(packed)
     for l in reversed(range(len(layers))):
-        s_dy, s_dyx = bnsum_sweep(x, layers, packed, bsums, dout, pool, l)
+        s_dy, s_dyx = bnsum_sweep(x, layers, packed, bsums, dout, pool, l,
+                                  prm=prm)
         bsums[l, 0, :widths[l]] = s_dy
         bsums[l, 1, :widths[l]] = s_dyx
-    dx, dws, dbs = final_sweep(x, layers, packed, bsums, dout, pool, need_dx)
+    dx, dws, dbs = final_sweep(x, layers, packed, bsums, dout, pool, need_dx,
+                               prm=prm)
     return dx, [(dw, db, bsums[l, 1, :w], bsums[l, 0, :w])
                 for l, (dw, db, w) in enumerate(zip(dws, dbs, widths))]

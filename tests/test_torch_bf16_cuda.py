@@ -488,6 +488,12 @@ def test_b9_bf16_sweeps_match_twins(dev, rng, K, widths):
     two calls bit-identical. The bf16 cotangent is zero on the bf16 near-
     tie pairs of the twin's top layer: a distinct bf16 value within one
     ulp below a group's max, or a max within one ulp of zero."""
+    _b9_bf16_vs_twins(dev, rng, K, widths)
+
+
+def _b9_bf16_vs_twins(dev, rng, K, widths, dx_rows=1e-3):
+    """test_b9_bf16_sweeps_match_twins's checks, dx held at ``dx_rows`` of
+    its rows."""
     from facl_tpu_torch.ops import sa_kernel as SK
     from facl_tpu_torch.ops.fused_sa import SALayerParams
     R = 64 * K
@@ -540,7 +546,7 @@ def test_b9_bf16_sweeps_match_twins(dev, rng, K, widths):
     td, tw, tb = SK.sa_fused_final_bf16_plain(*a)
     beyond = ((kd - td).abs() > 1e-5 * td.abs()
               + 1e-5 * float(td.abs().max())).any(1)
-    assert int(beyond.sum()) <= 1e-3 * R
+    assert int(beyond.sum()) <= dx_rows * R
     for u_, t_ in zip(kw, tw):
         _acc(u_, t_)
     gscale = max(float(t_.abs().max()) for t_ in tw)
@@ -551,6 +557,45 @@ def test_b9_bf16_sweeps_match_twins(dev, rng, K, widths):
     assert torch.equal(k2[0], kd) and all(
         torch.equal(u_, t_) for u_, t_ in zip(k2[1] + k2[2], kw + kb))
     assert SK.sa_fused_final_bf16(*a, False)[0] is None
+
+
+def test_b9_bf16_final_sweep_in_rounds_matches_twins(dev, rng):
+    """A net whose dW has more 16 x 16 units than the bf16 kernel's warps
+    hold in registers (widths (128, 256): 136 units, 96 a round) runs its
+    final sweep in two rounds over the tiles: held as the other nets."""
+    units = sum(-(-cin // 16) * -(-w // 16)
+                for cin, w in ((4, 128), (128, 256)))
+    assert units > 96
+    test_b9_bf16_sweeps_match_twins(dev, rng, 64, (128, 256))
+
+
+@pytest.mark.parametrize("widths,tensor_cores,smem", [
+    ((64, 112, 256), True, 220928), ((64, 128, 256), False, 172032),
+    ((128, 128, 256), False, 188416)])
+def test_b9_bf16_wider_nets_match_twins(dev, rng, widths, tensor_cores,
+                                        smem):
+    """Nets wider than the main path's at pool 64, held as the others: the
+    tensor-core kernel at 64-row tiles where its layout fits, else the
+    CUDA-core kernel's bf16 instantiation (the tensor-core layout would
+    need 245,760 and 281,600 B there), so every net that the CUDA-core
+    kernel holds still runs. ``smem``: the bytes of the kernel that runs.
+    dx at 5e-3 of its rows: a 112- or 128-wide layer rounds more dp
+    values to bf16 a row, each of which may go the other way between two
+    orders of f32 sums (on the card, H100: 5, 5 and 8 rows of 4,096, the
+    two CUDA-core nets summing in k order as the kernel before the tensor
+    cores did)."""
+    import ctypes
+    from facl_tpu_torch.ops import _build
+    from facl_tpu_torch.ops import sa_kernel as SK
+    R = 64 * 64
+    assert SK.bf16_on_tensor_cores(R, 4, list(widths), 64) == tensor_cores
+    fn = _build.REGISTRY.get("sa_fused").facl_sa_fused_bf16_smem
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    assert fn(R, 4, len(widths), ctypes.cast(SK._widths_arg(list(widths)),
+                                             ctypes.c_void_p), 64) == smem
+    _b9_bf16_vs_twins(dev, rng, 64, widths, dx_rows=5e-3)
 
 
 @pytest.mark.parametrize("K", [64, 128])

@@ -36,6 +36,7 @@ held to can be checked against that order here:
   * on tests/test_torch_bf16_sa.py's tiny shapes it sits within that
     file's tolerances of the JAX kernels run in interpret mode.
 """
+import contextlib
 import importlib.util
 from pathlib import Path
 
@@ -45,9 +46,11 @@ import numpy as np
 import pytest
 import torch
 
+import facl_tpu.ops.pallas.sa_kernel as jsk
 import facl_tpu.ops.pallas.sa_pair as jsp
 from facl_tpu.ops.pallas.sa_bwd import _fold_affine as jax_fold_affine
 from facl_tpu.ops.pallas.sa_bwd import _layer_terms as jax_layer_terms
+from facl_tpu_torch.ops import sa_kernel as SK
 from facl_tpu_torch.ops import sa_pair as SP
 from facl_tpu_torch.ops.sa_bwd import _fold_affine, _layer_terms
 from facl_tpu_torch.ops.sa_fwd import _finalize
@@ -677,3 +680,310 @@ def test_kernel_ms_leaves_out_user_annotations():
     kern = cs.kernel_ms(events)
     assert kern == pytest.approx({"adam_kernel": 0.3, "gemm": 0.5})
     assert sum(kern.values()) == pytest.approx(0.8)
+
+
+# -- B9 at bf16 (sa_fused.cu's sa_fused_bf16_kernel) -----------------------
+# The kernel's order of sums: p = bf16(h W) by the k-order chain (fwd_mma's
+# sums near a bf16 rounding boundary are redone in k order; the rest fell
+# on the chain's bf16 value in every sum measured, chip_ablate.py tc_sums:
+# the model takes the chain for all), but a stats sweep's own layer (only
+# summed) in k16 steps (_k16); da = bf16(dp)
+# W^T in k16 steps into f32 (_k16); dW = h^T dp with dp as three bf16
+# pieces, each 16-row step's three products (lo, mid, hi) added to the
+# tile's f32 sum, the 128-row tiles added in f32 and carried to float64
+# every 32 tiles; column sums over each 128-row tile by eight row slices
+# (rows q, q + 8, ..) in f32, the slices and tiles in float64; dx = dp0
+# W0^T fused-multiply-added in c order. One block walks every tile (the
+# card's blocks split them; their float64 partials add in block order).
+
+TR9, DW_FLUSH9 = 128, 32
+
+
+def _kseq(h, w):
+    """h (m, k) @ w (k, n) of bf16 values as the k-order chain sums them:
+    from 0, k ascending, each exact product added and rounded in f32."""
+    acc = torch.zeros(h.shape[0], w.shape[1])
+    for k in range(h.shape[1]):
+        acc = acc + h[:, k:k + 1] * w[k]
+    return acc
+
+
+def _tiles9(a, step):
+    """a (R, C) zero-padded to whole 128-row tiles: (tiles, 128 / step,
+    step, C). Rows past R add exact zeros, as the kernel's empty rows."""
+    a = torch.cat([a, a.new_zeros((-a.shape[0]) % TR9, a.shape[1])])
+    return a.reshape(-1, TR9 // step, step, a.shape[1])
+
+
+def _colsum9(a):
+    """Column sums as colsums_bf: each 128-row tile's eight row slices in
+    f32 (rows in order), the slices and the tiles in float64."""
+    t = _tiles9(a, 8)
+    s = torch.zeros(t.shape[0], 8, t.shape[3])
+    for i in range(t.shape[1]):
+        s = s + t[:, i]
+    return s.double().sum((0, 1)).float()
+
+
+def _split3(d):
+    """dp's three bf16 pieces: hi + mid + lo == dp exactly."""
+    hi = SK._rb(d)
+    mid = SK._rb(d - hi)
+    lo = SK._rb(d - hi - mid)
+    assert torch.equal(hi + mid + lo, d)
+    return lo, mid, hi
+
+
+def _dw9(h, d):
+    """dW = h^T d as dw_mma sums it (a 16-row step's product of exact bf16
+    values summed in float64 and added to the tile's f32 sum)."""
+    hs = _tiles9(h, 16).double().transpose(2, 3)
+    pieces = [_tiles9(p, 16).double() for p in _split3(d)]
+    st = torch.zeros(hs.shape[0], h.shape[1], d.shape[1])
+    for i in range(hs.shape[1]):
+        for piece in pieces:
+            st = (st.double() + hs[:, i] @ piece[:, i]).float()
+    out = torch.zeros(st.shape[1:], dtype=torch.float64)
+    run = torch.zeros(st.shape[1:])
+    for i in range(st.shape[0]):
+        run = run + st[i]
+        if (i + 1) % DW_FLUSH9 == 0:
+            out += run.double()
+            run = torch.zeros_like(run)
+    return (out + run.double()).float()
+
+
+def _dx9(dp, w0t):
+    """dx = dp0 W0^T as dx_part: fmaf over c in order, from 0."""
+    acc = torch.zeros(dp.shape[0], w0t.shape[1])
+    for c in range(dp.shape[1]):
+        acc = (acc.double() + dp[:, c:c + 1].double() *
+               w0t[c].double()).float()
+    return acc
+
+
+def _forward9(x, layers, v, upto):
+    """Layers < upto as the kernel computes them (p by the k-order chain)."""
+    rb = SK._rb
+    ps, hs = [], [rb(x)]
+    for l in range(upto):
+        w = layers[l].kernel.shape[1]
+        p = rb(_kseq(hs[-1], rb(layers[l].kernel))) + v[l, 0, :w]
+        ps.append(p)
+        hs.append(torch.relu(rb(p * v[l, 3, :w] + v[l, 4, :w])))
+    return ps, hs
+
+
+def _backward9(x, layers, v, dout, pool, target, need_dx):
+    rb, L = SK._rb, len(layers)
+    ps, hs = _forward9(x, layers, v, L)
+    da = SK._pool_grad(hs.pop(), dout, pool)
+    dws, dbs = [None] * L, [None] * L
+    for l in range(L - 1, -1, -1):
+        w = layers[l].kernel.shape[1]
+        p = ps.pop()
+        dy = torch.where(rb(p * v[l, 3, :w] + v[l, 4, :w]) > 0, da, 0.0)
+        xh = p * v[l, 1, :w] + v[l, 2, :w]
+        if l == target:
+            return _colsum9(dy), _colsum9(dy * xh)
+        dp = v[l, 5, :w] * ((dy - v[l, 6, :w]) - xh * v[l, 7, :w])
+        dws[l], dbs[l] = _dw9(hs[l], dp), _colsum9(dp)
+        if l:
+            da = _k16(rb(dp), rb(layers[l].kernel).T)
+        elif need_dx:
+            da = _dx9(dp, layers[l].kernel.T.contiguous())
+    return (da if need_dx else None), dws, dbs
+
+
+def fused_model(sweep):
+    """B9-bf16's sweep ``sweep`` (stats, pool, bnsum, final) in the
+    kernel's order of sums, with its wrapper's signature and name."""
+    def stats(x, layers, packed, pool, target, prm=None):
+        v = SK.vectors(layers, packed, None, x.shape[0], True)
+        hs = _forward9(x, layers, v, target)[1]
+        w = layers[target].kernel.shape[1]
+        rw = SK._rb(layers[target].kernel)
+        p = SK._rb(_k16(hs[-1], rw) if target else _kseq(hs[-1], rw)) + \
+            v[target, 0, :w]
+        return _colsum9(p), _colsum9(p * p)
+
+    def pool_(x, layers, packed, pool, prm=None):
+        v = SK.vectors(layers, packed, None, x.shape[0], True)
+        h = _forward9(x, layers, v, len(layers))[1][-1]
+        return h.reshape(-1, pool, h.shape[1]).amax(1)
+
+    def bnsum(x, layers, packed, bsums, dout, pool, target, prm=None):
+        v = SK.vectors(layers, packed, bsums, x.shape[0], True)
+        return _backward9(x, layers, v, dout, pool, target, False)
+
+    def final(x, layers, packed, bsums, dout, pool, need_dx=True, prm=None):
+        v = SK.vectors(layers, packed, bsums, x.shape[0], True)
+        return _backward9(x, layers, v, dout, pool, -1, need_dx)
+    fn = {"stats": stats, "pool": pool_, "bnsum": bnsum, "final": final}[sweep]
+    fn.__name__ = f"sa_fused_{sweep}_bf16"
+    return fn
+
+
+@contextlib.contextmanager
+def _with_fused_model():
+    """The four bf16 B9 wrappers replaced by the model (their twins kept):
+    chip_smoke.b9_bf16_rows then holds the model at phase 2's bars. On one
+    intra-op thread: the model's many whole-tensor passes slow down tenfold
+    and more when the test workers oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with cs.swapped([(SK, f"sa_fused_{n}_bf16", fused_model(n))
+                         for n in ("stats", "pool", "bnsum", "final")]):
+            yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _b9_bench_rows(S, K, clouds):
+    xb, layers, dp = _bench_setup(S, K, clouds)
+    xr = xb.float().transpose(1, 2).reshape(-1, 4).contiguous()
+    return xr, list(layers), dp.float()
+
+
+@pytest.mark.parametrize("S,K", [(64, 64), (32, 128)])
+def test_fused_model_within_b9_bf16_bars_at_bench_magnitudes(S, K):
+    """The model of B9-bf16's eight launches against the bf16 twins at
+    chip_smoke.py's B9 bf16 bars (b9_bf16_rows: pooled bit-equal outside
+    the bf16 near-tie pairs, accumulators within B9_BF16_BAR, dx rows
+    counted, run to run equal), on bench.py's magnitudes."""
+    xr, layers, dp = _b9_bench_rows(S, K, 4)
+    with _with_fused_model():
+        rows = cs.b9_bf16_rows(xr, layers, K, dp)
+    assert len(rows) == 8
+
+
+def test_fused_model_within_b9_bf16_bars_on_bf16_near_ties():
+    """The same on rows with bf16 near-ties: in each group most rows a
+    repeat of its last (exact ties), a quarter of those nudged by one bf16
+    ulp in channel 0, so that their top-layer values sit within an ulp of
+    the group's max."""
+    K = 64
+    xr, layers, dp = _b9_bench_rows(32, K, 2)
+    g = torch.Generator().manual_seed(5)
+    rows = xr.reshape(-1, K, 4)
+    pad = torch.rand(rows.shape[:2], generator=g) < 0.7
+    rows = torch.where(pad[..., None], rows[:, -1:, :], rows)
+    nudge = pad & (torch.rand(pad.shape, generator=g) < 0.25)
+    x0 = rows[..., 0].to(BF16)
+    bits = x0.view(torch.int16)
+    bits[nudge] += torch.tensor(1, dtype=torch.int16)
+    rows = torch.cat([x0.float()[..., None], rows[..., 1:]], -1)
+    xr = rows.reshape(-1, 4).contiguous()
+    assert int(nudge.sum()) > 100
+    with _with_fused_model():
+        cs.b9_bf16_rows(xr, layers, K, dp)
+
+
+@pytest.mark.parametrize("widths,ties", [((8, 16, 32), False),
+                                         ((8, 16, 32), True),
+                                         ((16, 32), False)])
+def test_fused_model_matches_jax_sweeps(rng, monkeypatch, widths, ties):
+    """tests/test_torch_bf16_fused.py's shapes and tolerances: the model of
+    each bf16 sweep against the JAX kernel's (multi-call form, interpret
+    mode) fed the JAX side's statistics, BN sums and cotangent."""
+    from tests.test_torch_bf16_fused import _acc as _acc5, _layers as \
+        _layers5, _rows as _rows5
+    R, K, L = 256, 8, len(widths)
+    x = _rows5(rng, R, K, ties)
+    jl, tl = _layers5(rng, widths)
+    store = []
+    monkeypatch.setattr(jsk, "pl", _Recorder(store))
+    _, _, packed = jsk.sa_train_forward_pallas(jnp.asarray(x), jl, K, EPS,
+                                               BF, True)
+    dout = jnp.asarray(rng.normal(size=(R // K, widths[-1])).astype(
+        np.float32)).astype(BF).astype(jnp.float32)
+    jsk.sa_train_backward_pallas(jnp.asarray(x), jl, packed, dout, K, EPS,
+                                 BF, True, True)
+    assert len(store) == 2 * L + 2
+    xt, packed, dout = torch.from_numpy(x), _t(packed), _t(dout)
+    layers = [SK.SALayerParams(*(t.detach() for t in lp)) for lp in tl]
+    for l in range(L):
+        s, ss = fused_model("stats")(xt, layers, packed, K, l)
+        _acc5(s, store[l][0], f"sum p{l}")
+        _acc5(ss, store[l][1], f"sum p{l}^2")
+    _bf16_rows(fused_model("pool")(xt, layers, packed, K), _t(store[L]),
+               "pooled")
+    bsums = torch.zeros_like(packed)
+    for j, l in enumerate(reversed(range(L))):
+        s_dy, s_dyx = fused_model("bnsum")(xt, layers, packed, bsums, dout,
+                                           K, l)
+        r = _t(store[L + 1 + j])
+        _acc5(s_dy, r[0], f"sum dy{l}")
+        _acc5(s_dyx, r[1], f"sum dy xhat{l}")
+        bsums[l, 0, :widths[l]], bsums[l, 1, :widths[l]] = r[0], r[1]
+    dx, dws, dbs = fused_model("final")(xt, layers, packed, bsums, dout, K)
+    r = [_t(a) for a in store[-1]]
+    _acc5(dx, r[0], "dx")
+    for l in range(L):
+        _acc5(dws[l], r[1 + l], f"dW{l}")
+        _acc5(dbs[l], r[1 + L + l][0], f"db{l}",
+              scale=float(r[1 + l].abs().max()))
+
+
+def test_dw_split_is_exact_and_f32_level():
+    """dW's three bf16 pieces of dp sum to dp exactly, and the split
+    product is as close to float64 as an f32 product (h exact in bf16)."""
+    g = torch.Generator().manual_seed(3)
+    h = SK._rb(torch.relu(torch.randn(1024, 64, generator=g)))
+    d = torch.randn(1024, 256, generator=g) * 1e-3
+    ref = h.double().T @ d.double()
+    err = float((_dw9(h, d).double() - ref).abs().max())
+    f32 = float(((h.T @ d).double() - ref).abs().max())
+    assert err <= 4 * f32 + 1e-12, (err, f32)
+
+
+def _b9_parent_case(rng, R=4096, C0=4, P=64, C=256):
+    """A parent's bf16 B9 final-sweep and pool outputs."""
+    t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    pooled = t(P, C).to(BF16).float()
+    final = [t(R, C0), t(C0, 64), t(64, 64), t(64, C), 1e-6 * t(64),
+             1e-6 * t(64), 1e-6 * t(C)]   # db: round-off of a zero
+    return pooled, final
+
+
+@pytest.mark.parametrize("case", ["equal", "pooled-one-ulp", "dx-rows-within",
+                                  "accumulator-within"])
+def test_b9_bf16_parent_comparison_passes_within_bars(rng, case):
+    pooled, theirs = _b9_parent_case(rng)
+    mine, mpool = [t.clone() for t in theirs], pooled.clone()
+    if case == "pooled-one-ulp":
+        mpool = _one_ulp(pooled.to(BF16), torch.ones_like(
+            pooled, dtype=torch.bool)).float()
+    elif case == "dx-rows-within":
+        mine[0][:4] *= 1.01              # 4 of 4096 rows: within 1e-3
+    elif case == "accumulator-within":
+        mine[3] = mine[3] + 1e-4 * float(mine[3].abs().max())
+        mine[4] = 100 * mine[4]          # db: another round-off, still ~0
+    assert isinstance(cs.b9_bf16_vs_parent("sa_fused_final_bf16", mine,
+                                           theirs), str)
+    assert isinstance(cs.b9_bf16_vs_parent("sa_fused_pool_bf16", [mpool],
+                                           [pooled]), str)
+
+
+@pytest.mark.parametrize("case", ["dx-rows-beyond", "accumulator-beyond",
+                                  "pooled-flips-beyond", "db-not-near-zero"])
+def test_b9_bf16_parent_comparison_fails_beyond_bars(rng, case):
+    pooled, theirs = _b9_parent_case(rng)
+    mine = [t.clone() for t in theirs]
+    with pytest.raises(SystemExit):
+        if case == "dx-rows-beyond":
+            mine[0][:5] *= 1.01          # 5 of 4096 rows: beyond 1e-3
+            cs.b9_bf16_vs_parent("sa_fused_final_bf16", mine, theirs)
+        elif case == "accumulator-beyond":
+            mine[2] = mine[2] + 1e-3 * float(mine[2].abs().max())
+            cs.b9_bf16_vs_parent("sa_fused_final_bf16", mine, theirs)
+        elif case == "db-not-near-zero":
+            mine[5] = mine[5] + 1e-3 * float(mine[3].abs().max())
+            cs.b9_bf16_vs_parent("sa_fused_final_bf16", mine, theirs)
+        else:
+            P, C = pooled.shape
+            sel = torch.zeros(P * C, dtype=torch.bool)
+            sel[:int(2e-3 * P * C) + 1] = True
+            mpool = _one_ulp(pooled.to(BF16), sel.view(P, C), 2).float()
+            cs.b9_bf16_vs_parent("sa_fused_pool_bf16", [mpool], [pooled])
