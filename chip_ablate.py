@@ -28,6 +28,16 @@ time on the card.
     python3 chip_ablate.py tc_sums          # B9-bf16's forward sums on the
                                             # tensor cores against the
                                             # k-order chain (TC_SUMS_CU)
+    python3 chip_ablate.py tc_sums_tf       # B9-f32's forward sums on the
+                                            # TF32 tensor cores against the
+                                            # k-order chain and the mask
+                                            # redo's window (TC_SUMS_TF_CU)
+    python3 chip_ablate.py b9_f32           # B9's eight f32 launches on the
+                                            # TF32 tensor cores with one
+                                            # part cut at a time
+                                            # (B9_F32_CUTS), in turns; dx
+                                            # against its twin with and
+                                            # without the mask redo
 
 Each kernel is rebuilt from facl_tpu_torch/ops/csrc/sa_pair.cu with one
 part cut out (the pool, the Gram, a product, the CUDA-core row passes;
@@ -57,6 +67,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -779,6 +790,194 @@ def b9_bf16(cs, out_dir) -> None:
                       "gpu": gpu}))
 
 
+#: B9 at f32 (sa_fused_tf32_kernel): the parts cut, each a set of calls
+#: made void inside the kernel's section of sa_fused.cu (from its heading
+#: to launch_tf), plus text replaced: the kernel as it is; without the
+#: routing and pool passes; without the column sums; without the x
+#: prefetch (cp.async of the next tile's rows); without the k-order redo
+#: of the masks' sums (no sum near 0 flagged); the products only (every
+#: CUDA-core pass cut: routing, pool, column sums, masks, activations,
+#: layer 0's product, dx; and the redo, which on such rows flags at
+#: random); with the splits by cvt.rna.tf32.f32 (split_rna, defined
+#: after the includes) instead of tf32_mma.cuh's integer operations
+#: (split); without routing's loads of the pooled cotangent (a constant
+#: instead).
+NO_REDO = (("  return fabsf(y) <= win;", "  return false;"),)
+CVT_SPLIT = (("split(", "split_rna("), ('#include "tf32_mma.cuh"\n', r"""#include "tf32_mma.cuh"
+namespace {
+__device__ __forceinline__ Split split_rna(float a) {
+  Split s;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(s.hi) : "f"(a));
+  const float r = __fsub_rn(a, __uint_as_float(s.hi));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(s.lo) : "f"(r));
+  return s;
+}
+}  // namespace
+"""))
+B9_F32_CUTS = {
+    "b9_f32": ((), ()),
+    "b9_f32 without routing": (("route_bf", "pool_bf"), ()),
+    "b9_f32 without column sums": (("colsums_bf",), ()),
+    "b9_f32 without the x prefetch": (("x_fetch", "cp_wait_all"), ()),
+    "b9_f32 without the mask redo": ((), NO_REDO),
+    "b9_f32 products only": (("route_bf", "pool_bf", "colsums_bf", "mid_bf",
+                              "act_tf", "p0_chunk", "dx_part"), NO_REDO),
+    "b9_f32 with cvt splits": ((), CVT_SPLIT),
+    "b9_f32 without the dout loads": ((), ((
+        "const float d = ok ? __ldg(dout + (g0 + g) * wl + cc) : 0.f;",
+        "const float d = ok ? 1.f : 0.f;"),)),
+}
+B9_F32_SECTION = ("// -- B9 at f32 on the TF32 tensor cores", "int launch_tf(")
+
+
+def void_calls(text: str, names) -> str:
+    """``text`` with every call of a function in ``names`` (the name,
+    optional template arguments, balanced parentheses) made ((void)0); a
+    definition (the name after ``void``) stays."""
+    pat = re.compile(r"\b(" + "|".join(map(re.escape, names)) +
+                     r")(<[^<>()]*>)?\(")
+    out, i = [], 0
+    for m in pat.finditer(text):
+        if m.start() < i or text[:m.start()].rstrip().endswith("void"):
+            continue
+        depth, k = 0, m.end() - 1
+        while True:
+            depth += {"(": 1, ")": -1}.get(text[k], 0)
+            k += 1
+            if depth == 0:
+                break
+        out.append(text[i:m.start()] + "((void)0)")
+        i = k
+    return "".join(out) + text[i:]
+
+
+def b9_f32_source(src: str, names, pairs) -> str:
+    """sa_fused.cu with the calls in ``names`` made void in the f32
+    tensor-core kernel's section, and ``pairs`` replaced."""
+    a = src.index(B9_F32_SECTION[0])
+    b = src.index(B9_F32_SECTION[1], a)
+    body = void_calls(src[a:b], names) if names else src[a:b]
+    text = src[:a] + body + src[b:]
+    for old, new in pairs:
+        if old not in text:
+            raise SystemExit(f"chip_ablate: {old!r} not in sa_fused.cu")
+        text = text.replace(old, new)
+    return text
+
+
+def b9_f32(cs, out_dir) -> None:
+    """B9's eight f32 launches of a main-path step (640 clouds x 4,096
+    rows, widths 4-64-64-256, pool 64; randn rows, weights scaled by
+    sqrt(2 / fan-in)) on the TF32 tensor-core kernel with each
+    B9_F32_CUTS build, twice, in turns. A cut variant's outputs are wrong
+    by design; only its time is read, but the kernel's dx and the dx of
+    the build without the mask redo are held against the twin (dout zero
+    on chip_smoke's near-tie pairs): rows beyond rtol 1e-5 / atol 1e-5 x
+    scale, counted. ptxas use of each build printed."""
+    from facl_tpu_torch.ops import _build
+    from facl_tpu_torch.ops import sa_kernel as SK
+    from facl_tpu_torch.ops.fused_sa import SALayerParams
+    from facl_tpu_torch.ops.sa_fwd import _finalize
+    src = open(os.path.join(CSRC, "sa_fused.cu")).read()
+    procs = {}
+    for i, (name, (names, pairs)) in enumerate(B9_F32_CUTS.items()):
+        cu = out_dir / f"b9f_{i}.cu"
+        cu.write_text(b9_f32_source(src, names, pairs))
+        procs[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", os.path.abspath(CSRC),
+             "-o", str(out_dir / f"b9f_{i}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            out_dir / f"b9f_{i}.so")
+    libs, ptxas = {}, {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"chip_ablate: {name} did not build:\n{log}")
+        libs[name] = ctypes.CDLL(str(so))
+        use, keep = [], False
+        for ln in log.splitlines():       # ptxas: "Compiling entry ..." then
+            if "Compiling entry" in ln:   # its use on the next lines
+                keep = "sa_fused_tf32_kernel" in ln
+            if keep and ("registers" in ln or "spill" in ln):
+                use.append(ln.strip())
+        ptxas[name] = use
+    dev = "cuda"
+    g = torch.Generator().manual_seed(cs.SEED)
+    R, C0, K, widths = 640 * 4096, 4, 64, (64, 64, 256)
+    x = torch.randn(R, C0, generator=g).to(dev)
+    layers, cin = [], C0
+    for w in widths:
+        layers.append(SALayerParams(*(t.to(dev) for t in (
+            torch.randn(cin, w, generator=g) * (2.0 / cin) ** 0.5,
+            0.1 * torch.randn(w, generator=g),
+            1 + 0.1 * torch.randn(w, generator=g),
+            0.1 * torch.randn(w, generator=g)))))
+        cin = w
+    if not SK.f32_on_tensor_cores(R, C0, list(widths), K):
+        raise SystemExit("chip_ablate: the main path's net is not on the "
+                         "TF32 tensor cores")
+    dp = torch.randn(R // K, widths[-1], generator=g).to(dev)
+    packed = torch.zeros(3, 2, 256, device=dev)
+    runs = []
+    for l, w in enumerate(widths):
+        a = (x, layers, packed.clone(), K, l)
+        runs.append((f"stats {l}", SK.sa_fused_stats, a))
+        mean, var = _finalize(*SK.sa_fused_stats_plain(*a), R)
+        packed[l, 0, :w], packed[l, 1, :w] = mean, torch.rsqrt(var + 1e-5)
+    runs.append(("pool", SK.sa_fused_pool, (x, layers, packed, K)))
+    z = cs.b9_z(x.double(), layers, packed)
+    near = cs.near_ties(z, K, 1e-5 * float(z.abs().max()))
+    del z
+    dp = torch.where(near, 0.0, dp)
+    bsums = torch.zeros_like(packed)
+    for l in reversed(range(3)):
+        a = (x, layers, packed, bsums.clone(), dp, K, l)
+        runs.append((f"bnsum {l}", SK.sa_fused_bnsum, a))
+        bsums[l, 0, :widths[l]], bsums[l, 1, :widths[l]] = \
+            SK.sa_fused_bnsum_plain(*a)
+    fa = (x, layers, packed, bsums, dp, K, True)
+    runs.append(("final", SK.sa_fused_final, fa))
+    td = SK.sa_fused_final_plain(*fa)[0]
+    prm = SK._prm(layers, False)
+    runs[0][1](*runs[0][2], prm=prm)        # resolves this tree's launcher
+    key = ("sa_fused", "facl_sa_fused")
+    ours = _build._FUNCTIONS[key]
+    times = {name: [[], []] for name in libs}
+    checked = {}
+    for turn in range(2):
+        for name, lib in libs.items():
+            f = getattr(lib, key[1])
+            f.argtypes, f.restype = ours[1].argtypes, ctypes.c_int
+            _build._FUNCTIONS[key] = (lib, f)
+            try:
+                for _, fn, args in runs:
+                    times[name][turn].append(
+                        cs.device_ms(lambda: fn(*args, prm=prm))[0])
+                if turn == 0 and name in ("b9_f32",
+                                          "b9_f32 without the mask redo"):
+                    kd = SK.sa_fused_final(*fa, prm=prm)[0]
+                    scale = float(td.abs().max())
+                    diff = (kd - td).abs()
+                    beyond = (diff > 1e-5 * td.abs() + 1e-5 * scale).any(1)
+                    checked[name] = [int(beyond.sum()),
+                                     float(diff.max()) / scale]
+            finally:
+                _build._FUNCTIONS[key] = ours
+    gpu = cs.gpu_name_power()
+    for name, (a, b) in times.items():
+        print(f"{name}: " + ", ".join(
+            f"{n} {u:.4f}/{v:.4f}" for (n, _, _), u, v in zip(runs, a, b))
+            + f"; eight {sum(a):.3f} / {sum(b):.3f} ms on the device ({gpu});"
+            f" ptxas {ptxas[name]}", flush=True)
+    for name, (nb, wide) in checked.items():
+        print(f"{name}: dx {nb} of {R} rows beyond rtol 1e-5 / atol 1e-5 x "
+              f"scale of the twin's (widest {wide:.3e} x scale; dout zero on "
+              f"{int(near.sum())} near-tie pairs)", flush=True)
+    print(json.dumps({"b9_f32": times, "launches": [n for n, _, _ in runs],
+                      "dx_rows_beyond": checked, "ptxas": ptxas,
+                      "gpu": gpu}))
+
+
 #: tc_sums: sa_fused.cu's own fwd_mma (with its k-order redo) and the
 #: sums its tensor cores make before the redo, with S = sum_k A |W|, on
 #: 128-row tiles of A (M x kdim, bf16) times W (kdim x 64, bf16).
@@ -931,6 +1130,133 @@ def tc_sums(cs, out_dir) -> None:
     print(json.dumps({"tc_sums": rows, "gpu": cs.gpu_name_power()}))
 
 
+#: tc_sums_tf: sa_fused.cu's own fwd_tf on 64-row tiles of A (M x kdim,
+#: f32, A >= 0 as a ReLU's output) times W (kdim x 64, f32): the
+#: tensor-core sums without the mask redo (tc), with it (p; ay = 1, by =
+#: 0, so the mask is p > 0), and the k-order chain (kdot_tf) of every sum.
+TC_SUMS_TF_CU = r"""
+#include "sa_fused.cu"
+namespace {
+constexpr int PT = CH;
+__global__ void __launch_bounds__(NTB, 1)
+probe_tf(const float* __restrict__ A, const float* __restrict__ W, int kdim,
+         const float* zero, const float* one, float* __restrict__ tc,
+         float* __restrict__ p, float* __restrict__ chain) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int lda = ldf(kdim), ldw = ldt(CH);
+  float* As = reinterpret_cast<float*>(sm);
+  float* Ws = As + PT * lda;
+  float* out = Ws + kdim * ldw;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * PT;
+  for (int e = threadIdx.x; e < PT * kdim; e += NTB)
+    As[(e / kdim) * lda + e % kdim] = A[r0 * kdim + e];
+  for (int e = threadIdx.x; e < kdim * CH; e += NTB)
+    Ws[(e / CH) * ldw + e % CH] = W[e];
+  __syncthreads();
+  for (int pass = 0; pass < 2; ++pass) {
+    fwd_tf<PT>(As, lda, kdim, kdim, Ws, ldw, 0, CH, zero, one, zero, out,
+               ldw, pass == 1);
+    __syncthreads();
+    float* dst = pass ? p : tc;
+    for (int e = threadIdx.x; e < PT * CH; e += NTB)
+      dst[r0 * CH + e] = out[(e / CH) * ldw + e % CH];
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < PT * CH; e += NTB)
+    chain[r0 * CH + e] = kdot_tf(As + (e / CH) * lda, Ws + e % CH, ldw, kdim);
+}
+}  // namespace
+extern "C" int facl_tc_sums_tf(const float* A, const float* W, long long M,
+                               int kdim, const float* zero, const float* one,
+                               float* tc, float* p, float* chain) {
+  const size_t smem = 4 * (PT * ldf(kdim) + (kdim + PT) * ldt(CH));
+  cudaFuncSetAttribute(probe_tf, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  probe_tf<<<static_cast<unsigned>(M / PT), NTB, smem>>>(A, W, kdim, zero,
+                                                         one, tc, p, chain);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def tc_sums_tf(cs, out_dir) -> None:
+    """Build TC_SUMS_TF_CU and hold B9-f32's forward sums (fwd_tf) against
+    the k-order chain (kdot_tf) on 262,144 x 64 sums a case, at kdim 64,
+    128 and 256 and tc_sums' three kinds of input (bench, heavy, spread),
+    in f32. Per case: the largest and mean |tensor-core sum - chain| in
+    units of 2^-24 S (S = sum_k A |W| in float64; near_zero's window is 4
+    kdim + 64 of them), the sums beyond half the window, the share the
+    window sends to the redo, the chain's own largest distance from the
+    float64 sum in the same units, the masks (p > 0) the tensor cores
+    alone get wrong against the chain, and those fwd_tf still gets
+    wrong."""
+    from facl_tpu_torch.ops import _build
+    cu, so = out_dir / "tc_sums_tf.cu", out_dir / "tc_sums_tf.so"
+    cu.write_text(TC_SUMS_TF_CU)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    os.path.abspath(CSRC), "-o", str(so), str(cu)],
+                   check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(so)).facl_tc_sums_tf
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int] \
+        + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    dev, M, N = "cuda", 64 * 4096, 64
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def inputs(kind, kdim):
+        a = torch.randn(M, kdim, device=dev, generator=g)
+        w = torch.randn(kdim, N, device=dev, generator=g) * (2 / kdim) ** 0.5
+        if kind == "heavy":
+            chi = (torch.randn(M, kdim, device=dev, generator=g) ** 2 +
+                   torch.randn(M, kdim, device=dev, generator=g) ** 2) / 2
+            a = a / chi.sqrt().clamp_min(1e-3)
+            w = w * torch.exp(1.5 * torch.randn(kdim, N, device=dev,
+                                                generator=g))
+        elif kind == "spread":
+            a = a * torch.exp2(torch.randint(-5, 6, (1, kdim), device=dev,
+                                             generator=g).float())
+            w = w * torch.exp2(torch.randint(-3, 4, (kdim, N), device=dev,
+                                             generator=g).float())
+        return torch.relu(a).contiguous(), w.contiguous()
+
+    zero, one = torch.zeros(N, device=dev), torch.ones(N, device=dev)
+    rows = {}
+    for kdim in (64, 128, 256):
+        for kind in ("bench", "heavy", "spread"):
+            a, w = inputs(kind, kdim)
+            tc, p, chain = (torch.empty(M, N, device=dev) for _ in range(3))
+            code = fn(a.data_ptr(), w.data_ptr(), M, kdim, zero.data_ptr(),
+                      one.data_ptr(), tc.data_ptr(), p.data_ptr(),
+                      chain.data_ptr())
+            if code:
+                raise SystemExit(
+                    f"chip_ablate: tc_sums_tf launch failed ({code})")
+            ad, wd = a.double(), w.double()
+            S = ad @ wd.abs()
+            exact = ad @ wd
+            live = S > 0
+            unit = S * 2.0 ** -24
+            units = ((tc.double() - chain.double()).abs() / unit)[live]
+            chain_units = ((chain.double() - exact).abs() / unit)[live]
+            win = 4 * kdim + 64
+            flagged = live & (tc.double().abs() <= win * unit +
+                              2.0 ** -22 * tc.double().abs())
+            rows[f"kdim {kdim} {kind}"] = dict(
+                sums=M * N, max_units=float(units.max()),
+                mean_units=float(units.mean()),
+                beyond_half_window=int((units > win / 2).sum()),
+                window_units=win,
+                flagged_share=float(flagged.double().mean()),
+                chain_max_units=float(chain_units.max()),
+                tc_mask_wrong=int(((tc > 0) != (chain > 0)).sum()),
+                fwd_tf_mask_wrong=int(((p > 0) != (chain > 0)).sum()))
+            print(f"kdim {kdim} {kind}: " + ", ".join(
+                f"{k} {v}" for k, v in rows[f"kdim {kdim} {kind}"].items()),
+                flush=True)
+            del ad, wd, S, exact
+    print(json.dumps({"tc_sums_tf": rows, "gpu": cs.gpu_name_power()}))
+
+
 def rounding(out_dir) -> None:
     """Build and run ROUNDING_CU (--rounding)."""
     from facl_tpu_torch.ops import _build
@@ -972,8 +1298,14 @@ def main() -> None:
     if only == ("b9_bf16",):
         b9_bf16(cs, out_dir)
         return
+    if only == ("b9_f32",):
+        b9_f32(cs, out_dir)
+        return
     if only == ("tc_sums",):
         tc_sums(cs, out_dir)
+        return
+    if only == ("tc_sums_tf",):
+        tc_sums_tf(cs, out_dir)
         return
     if only == ("precision",):
         sources = {name: variant_source(src["sa_pair"], "l12", pairs)

@@ -6,21 +6,24 @@ every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py --profile   # + a torch.profiler breakdown of
                                       #   one main-path step
     python3 chip_smoke.py --parent DIR  # + B1, B2a, B2b, B3a, B3b, B3c
-                                        #   and the f32 B6, B7, B8 and B9
-                                        #   of the tree in DIR (a git
+                                        #   and the f32 B6, B7 and B8 of
+                                        #   the tree in DIR (a git
                                         #   archive of another commit)
                                         #   timed against this tree's, in
                                         #   turns, their outputs bit-equal;
-                                        #   the bf16 B2a-B3c and B9 alike,
-                                        #   within phase 2's bf16 bars of
-                                        #   the parent's (B9's at its own
-                                        #   bars, b9_bf16_vs_parent), each
-                                        #   at its wrapper's grid; and the
-                                        #   pair3 and pallas bf16 steps
-                                        #   with the parent's bf16 B2a and
-                                        #   B9, in turns (with --profile,
-                                        #   three profiled steps of each
-                                        #   turn)
+                                        #   the f32 B9 alike, within phase
+                                        #   2's f32 B9 bars of the
+                                        #   parent's (b9_vs_parent); the
+                                        #   bf16 B2a-B3c and B9 within
+                                        #   phase 2's bf16 bars (B9's at
+                                        #   its own bars,
+                                        #   b9_bf16_vs_parent), each at its
+                                        #   wrapper's grid; and the pair3
+                                        #   bf16 and the pallas bf16 and
+                                        #   f32 steps with the parent's
+                                        #   bf16 B2a and B9, in turns (with
+                                        #   --profile, three profiled steps
+                                        #   of each turn)
 
 Phases (any failure exits nonzero, before the final line):
   1. build   every kernel from facl_tpu_torch/ops/csrc (one nvcc per
@@ -31,8 +34,10 @@ Phases (any failure exits nonzero, before the final line):
              also to B1's); B5b within 1e-5 of the scale of index_add_,
              two runs equal;
              B2/B3/B6/B7/B8 accumulators to 1e-4 of their max-abs (cnt1
-             exactly); B9's eight launches (stats to 1e-5, BN sums and dW
-             to 1e-4 of their max-abs, db near zero); row outputs, pooled
+             exactly); B9's eight launches (the f32 ones on the TF32
+             tensor cores: stats to 1e-5, BN sums and dW to 1e-4 of
+             their max-abs, db near zero; run to run bit-identical); row
+             outputs, pooled
              values and B9's dx at rtol 1e-5 / atol 1e-5 x scale; pool
              indices equal except where the twin's own values tie.
              B5a and B5b again on 0.8-cube clouds (spread rows); B1
@@ -100,9 +105,10 @@ Phases (any failure exits nonzero, before the final line):
              --profile adds one profiled step to each impl's path: kernel
              time (kernel_ms: user annotations left out) over that step's
              own span gives the device's idle share; with --parent the
-             pair3 and pallas bf16 steps run again, 20 steps each in
-             turns with the parent's bf16 B2a / B9 and with this tree's
-             (parent_step_ab; --profile: three profiled steps each);
+             pair3 bf16 and pallas bf16 and f32 steps run again, 20
+             steps each in turns with the parent's bf16 B2a / B9 and with
+             this tree's (parent_step_ab; --profile: three profiled steps
+             each);
   5. input   d(loss)/d(points) through each grouping route and the
              pallas SA stage with input_grad (B9's dx, B5b) at B=8: card
              kernels vs card twins vs CPU (phase_input_grad), with exact
@@ -802,7 +808,10 @@ def b9_ops(widths, C0, sweep, target=-1, split=False):
     W^T below the top, and in the final sweep 2 cin w + w for dW and db
     and the dx product. With ``split``, the same operations as (products
     of bf16 operands at compute_dtype bfloat16: the forward products and
-    da; products with an f32 operand: dW and dx; the rest)."""
+    da; products with an f32 operand: dW and dx; the rest); with ``split=
+    "tf32"`` as (the f32 kernel's tensor-core product flops: the forward
+    products of layers >= 1, da and dW; the rest, layer 0's product and dx
+    among them, on CUDA cores)."""
     cins = [C0] + list(widths[:-1])
     L = len(widths)
     bf = f32 = rest = 0
@@ -832,6 +841,10 @@ def b9_ops(widths, C0, sweep, target=-1, split=False):
                 rest += widths[l]                      # db
         if sweep == "bnsum":
             rest += 6 * widths[target]
+    if split == "tf32":
+        l0 = 2 * C0 * widths[0]
+        dx = l0 if sweep == "final" else 0
+        return bf - l0 + f32 - dx, rest + l0 + dx
     return (bf, f32, rest) if split else bf + f32 + rest
 
 
@@ -841,19 +854,33 @@ def b9_rows(xr, layers, K, dpooled):
     on the same card tensors, each fed its twin's inputs: sums and dW to
     1e-4 of their max-abs (stats to 1e-5), pooled and dx at rtol 1e-5 /
     atol 1e-5 x scale, db (exactly zero: a BatchNorm follows each Dense)
-    near zero. dpooled is zero on the near_ties pairs of a float64
-    recompute (tolerance 1e-5 of the largest |z|), where a kernel and a
-    twin that sum in another order may route differently."""
+    near zero; each run to run bit-identical. dpooled is zero on the
+    near_ties pairs of a float64 recompute (tolerance 1e-5 of the largest
+    |z|), where a kernel and a twin that sum in another order may route
+    differently. The main path's net runs the TF32 tensor-core kernel
+    (f32_on_tensor_cores): bounds with its products in 3xTF32 (b9_ops
+    split "tf32"), the f32 CUDA-core bound beside them."""
     from facl_tpu_torch.ops import sa_kernel as SK
     from facl_tpu_torch.ops.sa_fwd import _finalize
     R, C0 = xr.shape
     widths = [lp.kernel.shape[1] for lp in layers]
     L, P, eps = len(layers), R // K, 1e-5
     rows = []
+    tc = SK.f32_on_tensor_cores(R, C0, widths, K)
+    check(tc, f"B9 f32 at widths {widths}, pool {K}: not on the tensor "
+              "cores")
+
+    def same(fn, args, out, name):
+        check(all(torch.equal(a, b) for a, b in
+                  zip(_outputs(out), _outputs(fn(*args)))),
+              f"B9 {name}: two runs differ")
 
     def add(name, args, err, nbytes, ops, fn):
+        sweep = fn.__name__.split("_")[2]
+        target = int(name.split("layer ")[1][0]) if "layer " in name else -1
+        tc_ops, cuda = b9_ops(widths, C0, sweep, target, split="tf32")
         rows.append(dict(name=name, args=args, err=err, nbytes=nbytes,
-                         ops=R * ops, fn=fn,
+                         ops=R * cuda, tc_ops=R * tc_ops, passes=3, fn=fn,
                          plain=getattr(SK, fn.__name__ + "_plain"),
                          source=SRC9,
                          replaces="facl_tpu/ops/pallas/sa_kernel.py:282"
@@ -864,6 +891,7 @@ def b9_rows(xr, layers, K, dpooled):
     for l, w in enumerate(widths):
         a = (xr, layers, packed.clone(), K, l)
         k, t = SK.sa_fused_stats(*a), SK.sa_fused_stats_plain(*a)
+        same(SK.sa_fused_stats, a, k, f"stats {l}")
         err = 0.0
         for kk, tt, n in zip(k, t, ("sum p", "sum p^2")):
             e = float((kk - tt).abs().max())
@@ -875,8 +903,10 @@ def b9_rows(xr, layers, K, dpooled):
         mean, var = _finalize(t[0], t[1], R)
         packed[l, 0, :w], packed[l, 1, :w] = mean, torch.rsqrt(var + eps)
     a = (xr, layers, packed, K)
-    add("sa_fused_pool", a, row_err(SK.sa_fused_pool(*a),
-                                    SK.sa_fused_pool_plain(*a), "B9 pooled"),
+    k = SK.sa_fused_pool(*a)
+    same(SK.sa_fused_pool, a, k, "pool")
+    add("sa_fused_pool", a, row_err(k, SK.sa_fused_pool_plain(*a),
+                                    "B9 pooled"),
         R * C0 * 4 + P * widths[-1] * 4, b9_ops(widths, C0, "pool"),
         SK.sa_fused_pool)
 
@@ -888,6 +918,7 @@ def b9_rows(xr, layers, K, dpooled):
     for l in reversed(range(L)):
         a = (xr, layers, packed, bsums.clone(), dp, K, l)
         k, t = SK.sa_fused_bnsum(*a), SK.sa_fused_bnsum_plain(*a)
+        same(SK.sa_fused_bnsum, a, k, f"bnsum {l}")
         add(f"sa_fused_bnsum (layer {l})", a,
             max(acc_err(k[0], t[0], f"B9 bnsum {l} sum dy"),
                 acc_err(k[1], t[1], f"B9 bnsum {l} sum dy xhat")),
@@ -897,6 +928,7 @@ def b9_rows(xr, layers, K, dpooled):
     a = (xr, layers, packed, bsums, dp, K, True)
     (kd, kw, kb), (td, tw, tb) = SK.sa_fused_final(*a), \
         SK.sa_fused_final_plain(*a)
+    same(SK.sa_fused_final, a, (kd, kw, kb), "final")
     err = max([row_err(kd, td, "B9 dx")] +
               [acc_err(kk, tt, f"B9 dW{l}") for l, (kk, tt) in
                enumerate(zip(kw, tw))])
@@ -906,9 +938,9 @@ def b9_rows(xr, layers, K, dpooled):
               1e-4 * gscale, f"B9 db{l} (exactly zero) not near zero")
     add("sa_fused_final", a, err, 2 * R * C0 * 4 + P * widths[-1] * 4,
         b9_ops(widths, C0, "final"), SK.sa_fused_final)
-    print(f"B9: dpooled zeroed on {int(near.sum())} of {near.numel()} "
-          "near-tie (group, channel) pairs; every sweep within its bars",
-          flush=True)
+    print(f"B9 (TF32 tensor cores): dpooled zeroed on {int(near.sum())} of "
+          f"{near.numel()} near-tie (group, channel) pairs; every sweep "
+          "within its bars, run to run bit-identical", flush=True)
     return rows
 
 
@@ -1776,7 +1808,7 @@ PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
              "sa_bwd2_sweep2": ("sa_2sweep", "facl_sa_bwd2_sweep2", None),
              "sa_bwd_sweep2_full": ("sa_2sweep", "facl_sa_bwd2_sweep2",
                                     None),
-             **{n: ("sa_fused", "facl_sa_fused", None) for n in
+             **{n: ("sa_fused", "facl_sa_fused", 2) for n in
                 B9_NAMES},
              **{f"{n}_bf16": ("sa_fused", "facl_sa_fused_bf16", 2) for n in
                 B9_NAMES}}
@@ -1823,7 +1855,9 @@ def parent_ab(fn, args):
     outputs of one call of each, which must be bit-equal (fails
     otherwise), or for a bf16 sweep (a wrapper named *_bf16) within
     phase 2's bf16 bars of the parent's (bf16_vs_parent, B9's
-    b9_bf16_vs_parent: the redesigned kernels sum in another order). The
+    b9_bf16_vs_parent: the redesigned kernels sum in another order), or
+    for B9 at f32 within phase 2's f32 B9 bars (b9_vs_parent: the TF32
+    kernel sums in another order). The
     parent's launcher runs at its own wrapper's grid (parent_grid_swaps).
     The launchers' C signatures are the
     same in both trees (pointers are void* to ctypes). (B6 and B8b return
@@ -1853,9 +1887,11 @@ def parent_ab(fn, args):
     ab = [run_parent(theirs), run_ours(), run_ours(), run_parent()]
     mine = _outputs(fn(*args))
     theirs = [t for o in theirs for t in _outputs(o)]
-    if lib_name == "sa_fused" and fn.__name__.endswith("_bf16"):
+    if lib_name == "sa_fused":
+        vs = b9_bf16_vs_parent if fn.__name__.endswith("_bf16") else \
+            b9_vs_parent
         print(f"  --parent {fn.__name__} against the parent's: "
-              f"{b9_bf16_vs_parent(fn.__name__, mine, theirs)}", flush=True)
+              f"{vs(fn.__name__, mine, theirs)}", flush=True)
         return ab
     if fn.__name__.endswith("_bf16"):
         p3 = gram_pool_bf16_p3(*args) if "gram_pool" in fn.__name__ \
@@ -1872,9 +1908,10 @@ def parent_ab(fn, args):
 def parent_grid_swaps(lib_name: str, blocks):
     """The (module, name, value) swaps that launch a parent launcher at the
     grid its own wrapper gave it: sa_pair's ``grid`` at ``blocks`` blocks
-    an SM; B9's ``_nblk`` at ``blocks`` blocks an SM (the parent's bf16 B9
-    ran two 256-thread blocks an SM, this tree's one of 512); none for a
-    launcher that takes no grid (blocks None)."""
+    an SM; B9's ``_nblk`` at ``blocks`` blocks an SM (the parent's B9 at
+    either dtype ran two 256-thread blocks an SM where this tree's
+    tensor-core kernels run one of 512); none for a launcher that takes
+    no grid (blocks None)."""
     from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_kernel as SK
     from facl_tpu_torch.ops import sa_pair as SP
@@ -1933,6 +1970,42 @@ def b9_bf16_vs_parent(name, mine, theirs):
     return "; ".join(notes) or "sums within B9_BF16_BAR"
 
 
+def b9_vs_parent(name, mine, theirs):
+    """An f32 B9 sweep's outputs (``_outputs`` order) against the parent
+    tree's at phase 2's f32 B9 bars (b9_rows): a stats sweep's sums within
+    1e-5 of the parent's max-abs; BN sums and dW within 1e-4; pooled and
+    dx at rtol 1e-5 / atol 1e-5 x scale; db (exactly zero: a BatchNorm
+    follows each Dense) within 1e-4 of the parent's dW max-abs on both
+    sides. Fails otherwise; returns a note of the largest errors."""
+    check(len(mine) == len(theirs), f"--parent: {name} returns "
+                                    f"{len(mine)} tensors, the parent "
+                                    f"{len(theirs)}")
+    final = "final" in name
+    L = (len(theirs) - 1) // 2                  # dx, [dW_l], [db_l]
+    gscale = max(float(t.abs().max()) for t in theirs[1:1 + L]) \
+        if final else 0.0
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        what = f"--parent: {name} output {i}"
+        check(a.shape == b.shape, f"{what}: {tuple(a.shape)} against the "
+                                  f"parent's {tuple(b.shape)}")
+        scale = max(float(b.abs().max()), 1e-30)
+        if "pool" in name or (final and i == 0):
+            row_err(a, b, what)
+        elif final and i > L:
+            check(max(float(a.abs().max()), float(b.abs().max())) <
+                  1e-4 * gscale, f"{what}: db (exactly zero) not near zero")
+            continue
+        else:
+            bar = 1e-5 if "stats" in name else 1e-4
+            err = float((a - b).abs().max())
+            check(err <= bar * scale, f"{what}: {err:.3e} beyond {bar:g} x "
+                                      f"{scale:.3e}")
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    return f"within phase 2's f32 bars, largest |this - parent| " \
+        f"{worst:.3e} of the parent's max-abs"
+
+
 def _outputs(out):
     """A wrapper's tensors: a dict's values, one tensor, or a tuple (its
     lists flattened, a None left out: B9's final sweep)."""
@@ -1967,7 +2040,9 @@ def print_row(r, label=""):
               f"device; parent mean {(ab[0] + ab[3]) / 2:.4f}, this tree "
               f"{(ab[1] + ab[2]) / 2:.4f}; outputs "
               + ("within phase 2's bf16 bars of" if
-                 r["fn"].__name__.endswith("_bf16") else "bit-equal to")
+                 r["fn"].__name__.endswith("_bf16") else
+                 "within phase 2's f32 B9 bars of" if
+                 r["source"] == SRC9 else "bit-equal to")
               + " the parent's", flush=True)
 
 
@@ -2528,16 +2603,18 @@ def phase_main(dev, profile: bool, card: str):
 
 
 #: --parent: the Trainer steps parent_step_ab runs with the parent's
-#: launchers of the named kernels (the bf16 B2a of pair3 and B9 of
-#: pallas), each against this tree's: (BF16_PATHS label, kernels).
+#: launchers of the named kernels (the bf16 B2a of pair3, B9 of pallas at
+#: bf16 and at f32), each against this tree's: (BF16_PATHS label or
+#: "pallas f32", kernels).
 PARENT_STEPS = (("pair3 bf16", ("sa_fwd_layer12_bf16",)),
-                ("pallas bf16", tuple(f"{n}_bf16" for n in B9_NAMES)))
+                ("pallas bf16", tuple(f"{n}_bf16" for n in B9_NAMES)),
+                ("pallas f32", B9_NAMES))
 #: --parent --profile: profiled steps of each of parent_step_ab's runs.
 PARENT_PROF_STEPS = 3
 
 
 def parent_step_ab(dev, batches, g, kernels, card, profile: bool):
-    """--parent: each PARENT_STEPS Trainer step (bf16) with this tree's
+    """--parent: each PARENT_STEPS Trainer step with this tree's
     kernels and with the parent tree's launchers of its named kernels
     (every other kernel this tree's; each launched at the parent's grid,
     parent_grid_swaps), in turns: parent, this tree, this tree, parent, 20
@@ -2548,10 +2625,12 @@ def parent_step_ab(dev, batches, g, kernels, card, profile: bool):
     {label: [ms, ms, ms, ms]}."""
     import ctypes
     from facl_tpu_torch.ops import _build
-    paths = {label: (impl, want) for label, impl, _, want in BF16_PATHS}
+    paths = {label: (impl, want, "bfloat16")
+             for label, impl, _, want in BF16_PATHS}
+    paths["pallas f32"] = ("pallas", PALLAS_PATHS[0][4], "float32")
     out = {}
     for label, names in PARENT_STEPS:
-        impl, want = paths[label]
+        impl, want, dtype = paths[label]
         swaps, grids = {}, []
         for name in names:
             lib_name, launcher, per_sm = PARENT_AB[name]
@@ -2565,12 +2644,12 @@ def parent_step_ab(dev, batches, g, kernels, card, profile: bool):
             grids += parent_grid_swaps(lib_name, per_sm)
         out[label] = _parent_step_turns(dev, batches, g, kernels, card,
                                         profile, label, impl, want, names,
-                                        swaps, grids)
+                                        swaps, grids, dtype)
     return out
 
 
 def _parent_step_turns(dev, batches, g, kernels, card, profile, label, impl,
-                       want, names, swaps, grids):
+                       want, names, swaps, grids, dtype):
     from facl_tpu_torch.ops import _build
     names = " and ".join(names)
     profs = {True: [], False: []}     # parent? -> [{kernel: ms} a step]
@@ -2583,7 +2662,7 @@ def _parent_step_turns(dev, batches, g, kernels, card, profile, label, impl,
             with swapped(grids if parent else []):
                 return _run_path(dev, impl, 20, batches, g, kernels, card,
                                  profile, want, f"{label} with {tag} {names}",
-                                 dtype="bfloat16",
+                                 dtype=dtype,
                                  prof_steps=PARENT_PROF_STEPS,
                                  prof_out=profs[parent])[1]
         finally:

@@ -24,7 +24,8 @@
 // phases (sa_kernel.py:206-214).
 //
 // Every sweep runs the same tile code (prefix, chunk_p, route_top; at bf16
-// prefix_bf, layer_p, route_bf), so the recomputed activations, ReLU masks
+// prefix_bf, layer_p, route_bf; on the TF32 tensor cores prefix_tf,
+// layer_tf, route_bf), so the recomputed activations, ReLU masks
 // and pool routing are bit-identical in all four backward launches and
 // equal to what the pool sweep pooled.
 // Arithmetic follows the JAX kernel's op chain: p = hW + b; y = p * ay +
@@ -32,11 +33,16 @@
 // (_layer_forward :54-80); dp = gi * ((dy - sdy/R) - xhat * sdyx/R)
 // (_backprop_to :532-560).
 //
-// compute_dtype float32 (sa_fused_kernel, entry facl_sa_fused). What
-// bounds it on the card: f32 operations. At the main path's widths (C0 =
-// 4 -> 64 -> 64 -> 256) the recomputes cost 46,080 MAC per row over the
-// forward's four launches and 161,280 over the backward's (with dx).
-// Design, kept simple: persistent blocks of 256 threads walk tiles of 64
+// compute_dtype float32 (entry facl_sa_fused). At the main path's widths
+// (C0 = 4 -> 64 -> 64 -> 256) the recomputes cost 46,080 MAC per row over
+// the forward's four launches and 161,280 over the backward's (with dx).
+// Two kernels serve it. sa_fused_tf32_kernel, on the TF32 tensor cores in
+// the 3xTF32 split (its design at "B9 at f32 on the TF32 tensor cores"
+// below), runs every net whose 64-row layout fits 227 KB (pool <= 64), the
+// main path's among them; facl_sa_fused_tc says which kernel serves a net.
+// The other nets of the range run sa_fused_kernel<TR, false>, the
+// CUDA-core kernel. What bounds that one on the card: f32 operations.
+// Its design, kept simple: persistent blocks of 256 threads walk tiles of 64
 // rows (128 when pool > 64) that hold whole groups. Layer outputs are made
 // in chunks of 64 columns by register-tiled products on CUDA cores (strict
 // f32, the weights read through the L1 cache); the pre-activations of the
@@ -66,6 +72,7 @@
 #include <cuda_bf16.h>
 #include "bf16_mma.cuh"
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -1031,13 +1038,14 @@ __device__ __forceinline__ void dw_layer(const NetB& b, float (&dw)[DWJ][8],
   }
 }
 
-// Layer 0's p = bf16(x W0) + b0 for columns c0 .. c0 + nc on CUDA cores
-// (C0 <= 8 exact products summed in k order); xs the rounded x. Thread t
-// takes column t % CH (its W0 column and bias in registers) and rows t /
-// CH, + RS, ...
+// Layer 0's p = x W0 + b0 for columns c0 .. c0 + nc on CUDA cores (C0 <=
+// 8 products summed in k order; under BF xs holds the rounded x, the
+// products are exact and their sum is rounded to bf16 before the bias).
+// Thread t takes column t % CH (its W0 column and bias in registers) and
+// rows t / CH, + RS, ...
 constexpr int RS = NTB / CH;      // row slices of a CUDA-core pass
 
-template <int TR>
+template <int TR, bool BF>
 __device__ void p0_chunk(const Net& n, const float* xs, const float* W0,
                          const float* __restrict__ bias, int c0, int nc,
                          float* __restrict__ out, int ldo) {
@@ -1054,7 +1062,7 @@ __device__ void p0_chunk(const Net& n, const float* xs, const float* W0,
 #pragma unroll
     for (int k = 0; k < C0MAX; ++k)
       if (k < C0) acc = fmaf(xs[r * C0MAX + k], w[k], acc);
-    out[r * ldo + c] = __fadd_rn(rb(acc), bc);
+    out[r * ldo + c] = __fadd_rn(cast<BF>(acc), bc);
   }
 }
 
@@ -1068,7 +1076,7 @@ __device__ void layer_p(const NetB& b, const float* xs, const float* W0,
                         int ldo, int* wrk, bool exact = true) {
   const Net& n = b.n;
   if (l == 0)
-    p0_chunk<TR>(n, xs, W0, bias, c0, nc, out, ldo);
+    p0_chunk<TR, true>(n, xs, W0, bias, c0, nc, out, ldo);
   else
     fwd_mma<TR>(AS, ldh(b.wa), k16(n.cin[l]), Wb + b.wboff[l], ldh(n.w[l]),
                 c0, nc, bias, out, ldo, wrk, exact);
@@ -1179,9 +1187,12 @@ __device__ void colsums_bf(const float* A, int lda, const float* B, int ldb,
   }
 }
 
-// Max and exact-tie count of relu(bf16(p ay + by)) over the rows r = s, s
-// + SLICES, .. < pool of one (group, column) (z at its first row, stride
-// ld), combined over the SLICES lanes of the pair (lane bits 0-2).
+// Max and exact-tie count of relu(y), y = p ay + by (rounded to bf16
+// under BF), over the rows r = s, s + SLICES, .. < pool of one (group,
+// column) (z at its first row, stride ld), combined over the SLICES lanes
+// of the pair (lane bits 0-2): exact at either dtype (a max and integer
+// counts).
+template <bool BF>
 __device__ __forceinline__ void group_max(const float* z, int ld, int pool,
                                           int s, bool ok, float ay, float by,
                                           float& m, int& cnt) {
@@ -1189,7 +1200,7 @@ __device__ __forceinline__ void group_max(const float* z, int ld, int pool,
   cnt = 0;
   if (ok)
     for (int r = s; r < pool; r += SLICES) {
-      const float h = fmaxf(rb(affine(z[r * ld], ay, by)), 0.f);
+      const float h = fmaxf(cast<BF>(affine(z[r * ld], ay, by)), 0.f);
       if (h > m) {
         m = h;
         cnt = 1;
@@ -1211,8 +1222,8 @@ __device__ __forceinline__ void group_max(const float* z, int ld, int pool,
 }
 
 // Pool sweep, one chunk: pooled[g0 + g][c0 + c] = max over the group of
-// relu(bf16(y)) (ZC holds p).
-template <int TR>
+// relu(y) (y rounded to bf16 under BF; ZC holds p).
+template <int TR, bool BF>
 __device__ void pool_bf(const Net& n, const float* vt, int64_t g0, int ng,
                         int c0, int nc, const float* Z, int ldz,
                         float* __restrict__ out) {
@@ -1223,7 +1234,7 @@ __device__ void pool_bf(const Net& n, const float* vt, int64_t g0, int ng,
     const int g = gc / nc, c = gc % nc;
     float m;
     int cnt;
-    group_max(Z + g * pool * ldz + c, ldz, pool, s, ok,
+    group_max<BF>(Z + g * pool * ldz + c, ldz, pool, s, ok,
               vt[VAY * WMAX + c0 + c], vt[VBY * WMAX + c0 + c], m, cnt);
     if (ok && s == 0) out[(g0 + g) * wl + c0 + c] = m;
   }
@@ -1232,8 +1243,9 @@ __device__ void pool_bf(const Net& n, const float* vt, int64_t g0, int ng,
 // Top layer, one chunk (as route_top): Z holds p (TR x nc). dy = dout /
 // ties on the tied rows with y > 0, else 0. With D2: Z = dy, D2 = dy *
 // xhat (the top's BN sums); without: Z = dp, zero past nrows and over the
-// k16 padding of the chunk (da's and dW's operand).
-template <int TR>
+// k16 padding of the chunk (da's and dW's operand). y rounded to bf16
+// under BF.
+template <int TR, bool BF>
 __device__ void route_bf(const Net& n, const float* vt,
                          const float* __restrict__ dout, int64_t g0, int ng,
                          int nrows, int c0, int nc, float* Z, int ldz,
@@ -1251,12 +1263,12 @@ __device__ void route_bf(const Net& n, const float* vt,
     const float d = ok ? __ldg(dout + (g0 + g) * wl + cc) : 0.f;
     float m;
     int cnt;
-    group_max(z, ldz, pool, s, ok, ay, by, m, cnt);
+    group_max<BF>(z, ldz, pool, s, ok, ay, by, m, cnt);
     if (!ok) continue;
     const float share = __fdiv_rn(d, (float)cnt);
     for (int r = s; r < pool; r += SLICES) {
       const float p = z[r * ldz];
-      const float y = rb(affine(p, ay, by));
+      const float y = cast<BF>(affine(p, ay, by));
       const float dy = (y > 0.f && fmaxf(y, 0.f) == m) ? share : 0.f;
       const float xh = affine(p, inv, bx);
       if (D2 != nullptr) {
@@ -1277,13 +1289,14 @@ __device__ void route_bf(const Net& n, const float* vt,
   }
 }
 
-// Layer l < L - 1 (as mid_dy): cur holds da_l (TR x w, stride ldf(w)). dy
-// = da where bf16(y) > 0; with oth: cur = dy, oth = dy * xhat; without:
-// cur = dp, zero past nrows and over the k16 padding.
-template <int TR>
+// Layer l < L - 1 (as mid_dy): cur holds da_l (TR x w; cur, oth and Pl
+// at stride ld). dy = da where y > 0 (y rounded to bf16 under BF); with
+// oth: cur = dy, oth = dy * xhat; without: cur = dp, zero past nrows and
+// over the k16 padding.
+template <int TR, bool BF>
 __device__ void mid_bf(const float* __restrict__ vec, int l, const float* Pl,
-                       int w, int nrows, float* cur, float* oth) {
-  const int ld = ldf(w), q = threadIdx.x / CH;
+                       int w, int ld, int nrows, float* cur, float* oth) {
+  const int q = threadIdx.x / CH;
   for (int c = threadIdx.x % CH; c < k16(w); c += CH) {
     if (c >= w) {
       for (int r = q; r < TR; r += RS) cur[r * ld + c] = 0.f;
@@ -1297,7 +1310,7 @@ __device__ void mid_bf(const float* __restrict__ vec, int l, const float* Pl,
     for (int r = q; r < TR; r += RS) {
       const int i = r * ld + c;
       const float p = Pl[i];
-      const float y = rb(affine(p, ay, by));
+      const float y = cast<BF>(affine(p, ay, by));
       const float dy = y > 0.f ? cur[i] : 0.f;
       const float xh = affine(p, inv, bx);
       if (oth != nullptr) {
@@ -1417,12 +1430,12 @@ sa_fused_bf16_kernel(const __grid_constant__ NetB b, int mode, int target,
           continue;
         }
         if (mode == 1) {
-          pool_bf<TR>(n, vt, g0, ng, c0, nc, ZC, ldz, out);
+          pool_bf<TR, true>(n, vt, g0, ng, c0, nc, ZC, ldz, out);
           __syncthreads();
           continue;
         }
-        route_bf<TR>(n, vt, dout, g0, ng, nrows, c0, nc, ZC, ldz,
-                     sums_top ? DA : nullptr);
+        route_bf<TR, true>(n, vt, dout, g0, ng, nrows, c0, nc, ZC, ldz,
+                           sums_top ? DA : nullptr);
         __syncthreads();
         if (sums_top) {
           colsums_bf<TR>(ZC, ldz, DA, ldz, false, nc, nrows, vacc + c0,
@@ -1450,13 +1463,13 @@ sa_fused_bf16_kernel(const __grid_constant__ NetB b, int mode, int target,
           const int w = n.w[l], ldc = ldf(w);
           const float* Pl = P + TR * b.poff[l];
           if (mode == 2 && l == target) {
-            mid_bf<TR>(vec, l, Pl, w, nrows, cur, oth);
+            mid_bf<TR, true>(vec, l, Pl, w, ldc, nrows, cur, oth);
             __syncthreads();
             colsums_bf<TR>(cur, ldc, oth, ldc, false, w, nrows, vacc,
                            vacc + WMAX, red);
             break;
           }
-          mid_bf<TR>(vec, l, Pl, w, nrows, cur, nullptr);
+          mid_bf<TR, true>(vec, l, Pl, w, ldc, nrows, cur, nullptr);
           __syncthreads();
           if constexpr (FINAL) {
             if (l >= 1)
@@ -1532,17 +1545,596 @@ bool tc_fits(const NetB& b) {
   return layout_bf(b, tile_rows_bf(b), true, off) <= kSmemMax;
 }
 
+// -- B9 at f32 on the TF32 tensor cores ---------------------------------
+// The f32 sweeps (entry facl_sa_fused) of every net whose layout fits
+// 227 KB at 64-row tiles (pool <= 64; the main path's net among them) run
+// sa_fused_tf32_kernel: the bf16 kernel's frame (one block of NTB threads
+// an SM; the weights and the top layer's vectors staged once a block; the
+// next tile's x copied in while a tile is computed; pool and routing by
+// SLICES threads a (group, column); dW in per-warp f32 registers, carried
+// into the block's float64 partial every DW_FLUSH tiles) with f32
+// activations, and its products on the tensor cores as mma.sync m16n8k8
+// TF32 in the 3xTF32 split (tf32_mma.cuh; each f32 operand split into its
+// two TF32 pieces as its fragment is loaded, by integer operations
+// (split: cvt.rna's rounding, at the integer pipe's rate); pre-split
+// copies of the f32 weights would not fit beside a tile; each k8 step
+// summed on its own and added round-to-nearest, step3):
+//   forward  p_l = h_{l-1} W_l + b_l for l >= 1 (layer 0, C0 <= 8 terms,
+//            on CUDA cores in k order, as the CUDA-core kernel);
+//   da       da_{l-1} = dp_l W_l^T for l >= 1 (dx = dp_0 W0^T on CUDA
+//            cores, dx_part);
+//   dW       dW_l += h_{l-1}^T dp_l, each tile's part summed on its own.
+// A split product is within ~2^-21 of sum |a b| of the exact one, as an f32
+// product is, so every output meets the f32 bars that the CUDA-core kernel
+// (k-order sums, as the twin's products) meets. A ReLU mask below the top
+// is a decision, though: where y = p ay + by lies within the two sums'
+// distance of 0 the mask may differ from the twin's and move a whole row
+// of dx. So beside each p of a layer below the top the tensor cores also
+// form S = sum_k h |W| (one TF32 pass; h >= 0), and a p whose y lies
+// within (4 K + 64) 2^-24 S |ay| (and the affine's roundings) of 0 is
+// summed again on CUDA cores as the k-order chain sums it (fmaf from 0):
+// its mask is the chain's wherever the tensor cores' sum lies within the
+// window of the chain's, a margin measured on the card, not proven
+// (near_zero; on the main path's magnitudes 7 sums in 10^5 are redone,
+// tests/test_torch_b9_tf32.py). The top layer's p is not
+// redone: its routing differs from the chain's only at near-ties, which
+// the bars leave out. Every sweep runs the same tile code (prefix_tf,
+// layer_tf, route_bf), so p, masks and routing agree bit for bit across
+// the launches. Shared memory strides: activations h at ldf (4 mod 8
+// floats: conflict-free A fragments), W_l, p and dp at ldt (8 mod 16:
+// conflict-free B fragments, and the float2 pairs of da's operands, whose
+// k8 slots t and t + 4 take columns 2t and 2t + 1); dW reads dp's rows in
+// pairs too, with two-way conflicts. What bounds it on the card: at the
+// main path's widths the products are ~7.6 ms a step at the 3xTF32 rate;
+// the kernel is held by instruction issue at one block an SM, in the
+// CUDA-core passes between block barriers (routing most) and in the
+// products' splits and loads (PERF.md has the parts).
+
+__host__ __device__ constexpr int ldt(int c) { return k16(c) + 8; }
+
+struct NetT {
+  NetB b;
+  int wfo[LMAX];                    // W_l (l >= 1), f32 values into Wt
+  int pfo[LMAX];                    // P_l (l < L - 1): TR * pfo floats in
+  int wtot, ptot;                   // floats of Wt; P's floats a row
+};
+
+void make_nett(const Net& n, NetT* t) {
+  make_netb(n, &t->b);
+  int wo = 0, po = 0;
+  for (int l = 0; l < n.L; ++l) {
+    t->wfo[l] = wo;
+    if (l) wo += k16(n.cin[l]) * ldt(n.w[l]);
+    t->pfo[l] = po;
+    if (l < n.L - 1) po += ldt(n.w[l]);
+  }
+  t->wtot = wo;
+  t->ptot = po;
+}
+
+// Shared memory of the f32 tensor-core kernel, as layout_bf: vacc | red |
+// vt | xst | xs | W0 | W0T | Wt | P | AS | ZC | DA. Returns the bytes.
+__host__ __device__ inline size_t layout_tf(const NetT& t, int TR, bool bwd,
+                                            size_t off[11]) {
+  const NetB& b = t.b;
+  const Net& n = b.n;
+  const int nv = n.nb > 2 * WMAX ? n.nb : 2 * WMAX;
+  const size_t bytes[11] = {
+      sizeof(float) * 2 * SLICES * CH,                  // red
+      sizeof(float) * NVEC * WMAX,                      // vt
+      sizeof(float) * 2 * TR * C0MAX,                   // xst
+      sizeof(float) * TR * C0MAX,                       // xs
+      sizeof(float) * n.C0 * n.w[0],                    // W0
+      sizeof(float) * n.C0 * n.w[0],                    // W0T
+      sizeof(float) * t.wtot,                           // Wt
+      sizeof(float) * TR * t.ptot,                      // P
+      sizeof(float) * TR * ldf(b.wa),                   // AS
+      sizeof(float) * TR * ldt(b.wz),                   // ZC
+      bwd ? sizeof(float) * TR * ldt(b.wz) : 0};        // DA
+  size_t o = sizeof(double) * nv;                      // vacc
+  for (int i = 0; i < 11; ++i) {
+    off[i] = o;
+    o = al16(o + bytes[i]);
+  }
+  return o;
+}
+
+// Whether the f32 tensor-core kernel serves the net: 64-row tiles (pool
+// <= 64) whose layout fits 227 KB. The other nets of the range run the
+// CUDA-core kernel (sa_fused_kernel<TR, false>).
+bool tc_fits_tf(const NetT& t) {
+  size_t off[11];
+  return t.b.n.pool <= CH && layout_tf(t, CH, true, off) <= kSmemMax;
+}
+
+__device__ __forceinline__ float2 ld2f(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// c += a b for one k8 step in 3xTF32: the step summed on its own (mma3
+// from 0), then added to c in f32, round to nearest. The tensor cores'
+// own adds truncate; chained over a whole product (3 K / 8 adds), their
+// bias took B9's dx to 2.8x the twin's distance from float64 on an H100
+// (phase 2's SA chain bar is 2x); step by step, the adds across steps
+// round as the k-order chain's do.
+__device__ __forceinline__ void step3(float c[4], const FragA& a,
+                                      const FragB& b) {
+  float st[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(st, a, b);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) c[q] = __fadd_rn(c[q], st[q]);
+}
+
+// sum_k a[k] w[k ldw] for k < kdim, fmaf from 0 with k ascending: the
+// k-order chain of the CUDA-core kernel (prod) and of the twin's product.
+__device__ __forceinline__ float kdot_tf(const float* a, const float* w,
+                                         int ldw, int kdim) {
+  float s = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < kdim; ++k) s = fmaf(a[k], w[k * ldw], s);
+  return s;
+}
+
+// Whether y = fl(fl(p ay) + by) may lie on the other side of 0 for the
+// k-order chain's p: S = sum_k |h W| (the TF32 pass; its pieces are within
+// 2^-10 of it), K the terms. The window takes (4 K + 64) 2^-24 S, and the
+// two roundings of the affine. It is a margin, not a proven bound: the
+// chain is off the exact sum by at most K 2^-24 S and the split product
+// by ~12 2^-24 S, but the tensor cores' accumulation error has no
+// published bound; chip_ablate.py tc_sums_tf measures |tensor cores -
+// chain| against the window on the card (PERF.md).
+__device__ __forceinline__ bool near_zero(float p, float ay, float by,
+                                          float S, int K) {
+  const float pa = __fmul_rn(p, ay);
+  const float y = __fadd_rn(pa, by);
+  const float win = (4.f * K + 64.f) * 0x1p-24f * 1.01f * S * fabsf(ay) +
+                    0x1p-22f * (fabsf(pa) + fabsf(by));
+  return fabsf(y) <= win;
+}
+
+// out[r][c] = sum_k A[r][k] W[k][c0 + c] + bias[c] for c < nc: A the f32
+// tile of the layer's input (stride lda), W the staged f32 W_l (stride
+// ldw), k < kdim (k16-padded with zeros in both), kreal the layer's input
+// width; bias, ay and by at the chunk's first column. Warps take 16 x 16
+// output units, 3xTF32. With `exact` (a layer below the top) a p near its
+// ReLU's switch (near_zero) is summed again in k order.
+template <int TR>
+__device__ void fwd_tf(const float* A, int lda, int kdim, int kreal,
+                       const float* W, int ldw, int c0, int nc,
+                       const float* bias, const float* __restrict__ ay,
+                       const float* __restrict__ by, float* __restrict__ out,
+                       int ldo, bool exact) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  constexpr int MT = TR / 16;
+  const int units = MT * (k16(nc) / 16);
+  for (int u = warp; u < units; u += NWB) {
+    const int m0 = 16 * (u % MT), n0 = 16 * (u / MT);
+    float acc[2][4] = {}, sab[2][4] = {};
+    const float* pa = A + (m0 + g) * lda + t;
+    const float* pb = W + t * ldw + c0 + n0 + g;
+#pragma unroll 2
+    for (int k0 = 0; k0 < kdim; k0 += 8) {
+      const float* qa = pa + k0;
+      const FragA a{{split(qa[0]), split(qa[8 * lda]), split(qa[4]),
+                     split(qa[8 * lda + 4])}};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* qb = pb + k0 * ldw + 8 * h;
+        const FragB bb{{split(qb[0]), split(qb[4 * ldw])}};
+        step3(acc[h], a, bb);
+        if (exact)                                  // S = sum h |W|
+          mma_tf32(sab[h], a.v[0].hi, a.v[1].hi, a.v[2].hi, a.v[3].hi,
+                   bb.v[0].hi & 0x7fffffffu, bb.v[1].hi & 0x7fffffffu);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = m0 + g + 8 * (q >> 1), c = n0 + 8 * h + 2 * t + (q & 1);
+        if (c >= nc) continue;
+        float p = __fadd_rn(acc[h][q], bias[c]);
+        if (exact && near_zero(p, __ldg(ay + c), __ldg(by + c), sab[h][q],
+                               kreal))
+          p = __fadd_rn(kdot_tf(A + r * lda, W + c0 + c, ldw, kreal),
+                        bias[c]);
+        out[r * ldo + c] = p;
+      }
+  }
+}
+
+// out[r][j] (+)= sum_n D[r][n] W[j][n] for j < ncols, n < kdim: D an f32
+// dp tile (stride ldd, zero over the k16 padding), W a staged f32 W_l at
+// the chunk's first column (stride ldw), whose rows j are the output
+// columns (da = dp W^T). The k8 slots t and t + 4 take the columns 2t and
+// 2t + 1 (one float2 of each operand). With `add` the sums start from out
+// (the previous chunks' part).
+template <int TR>
+__device__ void da_tf(const float* D, int ldd, int kdim, const float* W,
+                      int ldw, int ncols, float* out, int ldo, bool add) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  constexpr int MT = TR / 16;
+  const int units = MT * (k16(ncols) / 16);
+  for (int u = warp; u < units; u += NWB) {
+    const int m0 = 16 * (u % MT), n0 = 16 * (u / MT);
+    float acc[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = m0 + g + 8 * (q >> 1), c = n0 + 8 * h + 2 * t + (q & 1);
+        acc[h][q] = add && c < ncols ? out[r * ldo + c] : 0.f;
+      }
+    const float* pd = D + (m0 + g) * ldd + 2 * t;
+    const float* pw = W + (n0 + g) * ldw + 2 * t;
+#pragma unroll 2
+    for (int k0 = 0; k0 < kdim; k0 += 8) {
+      const float2 d0 = ld2f(pd + k0), d1 = ld2f(pd + 8 * ldd + k0);
+      const FragA a{{split(d0.x), split(d1.x), split(d0.y),
+                     split(d1.y)}};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 w = ld2f(pw + 8 * h * ldw + k0);
+        const FragB bb{{split(w.x), split(w.y)}};
+        step3(acc[h], a, bb);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = m0 + g + 8 * (q >> 1), c = n0 + 8 * h + 2 * t + (q & 1);
+        if (c < ncols) out[r * ldo + c] = acc[h][q];
+      }
+  }
+}
+
+// This warp's dW units in [lo, hi) (as dw_mma): dw[j] += H^T D over the
+// tile's TR rows, H the f32 tile of the layer's input (stride lda; rows m
+// of dW), D the f32 dp of the chunk (stride ldd; columns n), zero on the
+// rows past the tile's groups. The k8 slots t and t + 4 take the rows 2t
+// and 2t + 1; the tile's part is summed on its own, then added to dw.
+template <int TR>
+__device__ __forceinline__ void dw_tf(float (&dw)[DWJ][8], int lo, int hi,
+                                      int nb, const float* H, int lda,
+                                      const float* D, int ldd) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < DWJ; ++j) {
+    const int id = warp + NWB * j;
+    if (id < lo || id >= hi) continue;
+    const int m0 = 16 * ((id - lo) / nb), n0 = 16 * ((id - lo) % nb);
+    const float* pa = H + 2 * t * lda + m0 + g;
+    const float* pd = D + 2 * t * ldd + n0 + g;
+    float st[8] = {};
+#pragma unroll 1
+    for (int k0 = 0; k0 < TR; k0 += 8) {
+      const float* qa = pa + k0 * lda;
+      const FragA a{{split(qa[0]), split(qa[8]), split(qa[lda]),
+                     split(qa[lda + 8])}};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* qd = pd + k0 * ldd + 8 * h;
+        const FragB bb{{split(qd[0]), split(qd[ldd])}};
+        step3(st + 4 * h, a, bb);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) dw[j][q] = __fadd_rn(dw[j][q], st[q]);
+  }
+}
+
+// The dW units of layer l's chunks cbeg .. cend - 1 in this round (as
+// dw_layer).
+template <int TR>
+__device__ __forceinline__ void dw_layer_tf(const NetB& b,
+                                            float (&dw)[DWJ][8], int base,
+                                            int l, int cbeg, int cend,
+                                            const float* H, int lda,
+                                            const float* D, int ldd) {
+  for (int c = cbeg; c < cend; ++c) {
+    const int nc = b.n.w[l] - c * CH < CH ? b.n.w[l] - c * CH : CH;
+    dw_tf<TR>(dw, b.ub[l][c] - base, b.ub[l][c + 1] - base, k16(nc) / 16, H,
+              lda, D + (c - cbeg) * CH, ldd);
+  }
+}
+
+// p of layer l, columns c0 .. c0 + nc, from the tile's input (xs for
+// layer 0, else AS), bias at the chunk's first column: the one function
+// every sweep computes p with; `exact` for the layers below the top.
+template <int TR>
+__device__ void layer_tf(const NetT& nt, const float* xs, const float* W0,
+                         const float* Wt, const float* AS,
+                         const float* __restrict__ vec, const float* bias,
+                         int l, int c0, int nc, float* out, int ldo,
+                         bool exact) {
+  const Net& n = nt.b.n;
+  if (l == 0) {
+    p0_chunk<TR, false>(n, xs, W0, bias, c0, nc, out, ldo);
+    return;
+  }
+  const float* v = vec + l * NVEC * WMAX + c0;
+  fwd_tf<TR>(AS, ldf(nt.b.wa), k16(n.cin[l]), n.cin[l], Wt + nt.wfo[l],
+             ldt(n.w[l]), c0, nc, bias, v + VAY * WMAX, v + VBY * WMAX, out,
+             ldo, exact);
+}
+
+// AS = relu(P_l * ay + by), zero over the k16 padding: layer l's
+// activation, the next layer's input (P_l at stride ldp).
+template <int TR>
+__device__ void act_tf(const float* __restrict__ vec, int l, const float* Pl,
+                       int ldp, int w, float* AS, int lda) {
+  const int q = threadIdx.x / CH;
+  for (int c = threadIdx.x % CH; c < k16(w); c += CH) {
+    const bool live = c < w;
+    const float ay = live ? vget(vec, l, VAY, c) : 0.f;
+    const float by = live ? vget(vec, l, VBY, c) : 0.f;
+#pragma unroll 2
+    for (int r = q; r < TR; r += RS)
+      AS[r * lda + c] =
+          live ? fmaxf(affine(Pl[r * ldp + c], ay, by), 0.f) : 0.f;
+  }
+}
+
+// AS = x, k16-padded: layer 0's input for its dW.
+template <int TR>
+__device__ void x_tf(const Net& n, const float* xs, float* AS, int lda) {
+  const int C0 = n.C0;
+  for (int e = threadIdx.x; e < TR * 16; e += NTB) {
+    const int r = e / 16, c = e % 16;
+    AS[r * lda + c] = c < C0 ? xs[r * C0MAX + c] : 0.f;
+  }
+}
+
+// The tile's input rows from xst (zeros past nrows), then layers < upto:
+// P_l = pre-activations, AS = the activation of layer upto - 1.
+template <int TR>
+__device__ void prefix_tf(const NetT& nt, const float* xst,
+                          const float* __restrict__ vec, int nrows, int upto,
+                          float* xs, const float* W0, const float* Wt,
+                          float* P, float* AS) {
+  const Net& n = nt.b.n;
+  const int C0 = n.C0;
+  for (int e = threadIdx.x; e < TR * C0MAX; e += NTB) {
+    const int r = e / C0MAX, c = e % C0MAX;
+    xs[e] = (r < nrows && c < C0) ? xst[r * C0 + c] : 0.f;
+  }
+  __syncthreads();
+  for (int l = 0; l < upto; ++l) {
+    const int w = n.w[l];
+    float* Pl = P + TR * nt.pfo[l];
+    for (int c0 = 0; c0 < w; c0 += CH)
+      layer_tf<TR>(nt, xs, W0, Wt, AS, vec, vec + (l * NVEC + VB) * WMAX + c0,
+                   l, c0, w - c0 < CH ? w - c0 : CH, Pl + c0, ldt(w), true);
+    __syncthreads();
+    act_tf<TR>(vec, l, Pl, ldt(w), w, AS, ldf(nt.b.wa));
+    __syncthreads();
+  }
+}
+
+template <int TR, bool FINAL>
+__global__ void __launch_bounds__(NTB, 1)
+sa_fused_tf32_kernel(const __grid_constant__ NetT nt, int mode, int target,
+                     const float* __restrict__ x,
+                     const float* __restrict__ prm,
+                     const float* __restrict__ vec,
+                     const float* __restrict__ dout, float* __restrict__ out,
+                     double* __restrict__ part) {
+  const NetB& b = nt.b;
+  const Net& n = b.n;
+  extern __shared__ __align__(16) unsigned char smraw[];
+  size_t off[11];
+  layout_tf(nt, TR, mode >= 2, off);
+  double* vacc = reinterpret_cast<double*>(smraw);
+  float* red = reinterpret_cast<float*>(smraw + off[0]);
+  float* vt = reinterpret_cast<float*>(smraw + off[1]);
+  float* xst = reinterpret_cast<float*>(smraw + off[2]);
+  float* xs = reinterpret_cast<float*>(smraw + off[3]);
+  float* W0 = reinterpret_cast<float*>(smraw + off[4]);
+  float* W0T = reinterpret_cast<float*>(smraw + off[5]);
+  float* Wt = reinterpret_cast<float*>(smraw + off[6]);
+  float* P = reinterpret_cast<float*>(smraw + off[7]);
+  float* AS = reinterpret_cast<float*>(smraw + off[8]);
+  float* ZC = reinterpret_cast<float*>(smraw + off[9]);
+  float* DA = reinterpret_cast<float*>(smraw + off[10]);
+
+  // The weights, once per block: W0 and W0^T as given, W_l (l >= 1) in
+  // k16-padded tiles (zero rows and columns) at stride ldt(w).
+  for (int e = threadIdx.x; e < n.C0 * n.w[0]; e += NTB) {
+    W0[e] = prm[n.woff[0] + e];
+    W0T[e] = prm[n.wtoff[0] + e];
+  }
+  for (int l = 1; l < n.L; ++l) {
+    const int w = n.w[l], ld = ldt(w), cin = n.cin[l];
+    for (int e = threadIdx.x; e < k16(cin) * ld; e += NTB) {
+      const int k = e / ld, c = e % ld;
+      Wt[nt.wfo[l] + e] = k < cin && c < w ? prm[n.woff[l] + k * w + c] : 0.f;
+    }
+  }
+  const int nv = n.nb > 2 * WMAX ? n.nb : 2 * WMAX;
+  for (int e = threadIdx.x; e < nv; e += NTB) vacc[e] = 0.0;
+  for (int e = threadIdx.x; e < NVEC * WMAX; e += NTB)
+    vt[e] = vec[(n.L - 1) * NVEC * WMAX + e];
+  double* blk = part + static_cast<int64_t>(blockIdx.x) * (n.ndw + n.nb);
+  __syncthreads();
+
+  const int top = n.L - 1, lda = ldf(b.wa), ldz = ldt(b.wz);
+  const int gpt = TR / n.pool;
+  const int64_t G = n.R / n.pool;
+  const int64_t ntiles = (G + gpt - 1) / gpt;
+  const int lt = mode == 0 ? target : top;          // the chunked layer
+  const bool sums_top = mode == 2 && target == top;
+  float dw[FINAL ? DWJ : 1][8] = {};
+  for (int rd = 0; rd < (FINAL ? b.rounds : 1); ++rd) {
+    const int base = rd * NWB * DWJ;
+    int done = 0;
+    x_fetch<TR>(n, x, blockIdx.x, ntiles, xst);
+    for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x, ++done) {
+      const int64_t g0 = t * gpt;
+      const int ng = static_cast<int>(G - g0 < gpt ? G - g0 : gpt);
+      const int nrows = ng * n.pool;
+      const int64_t r0 = g0 * n.pool;
+      float* xcur = xst + (done & 1) * TR * C0MAX;
+      cp_wait_all();
+      __syncthreads();
+      x_fetch<TR>(n, x, t + gridDim.x, ntiles,
+                  xst + ((done + 1) & 1) * TR * C0MAX);
+      prefix_tf<TR>(nt, xcur, vec, nrows, lt, xs, W0, Wt, P, AS);
+      if (mode == 3 && lt == 0) {
+        x_tf<TR>(n, xs, AS, lda);
+        __syncthreads();
+      }
+      const int wl = n.w[lt], cin = n.cin[lt];
+      for (int c0 = 0; c0 < wl; c0 += CH) {
+        const int nc = wl - c0 < CH ? wl - c0 : CH;
+        layer_tf<TR>(nt, xs, W0, Wt, AS, vec,
+                     (lt == top ? vt : vec + lt * NVEC * WMAX) + VB * WMAX +
+                         c0,
+                     lt, c0, nc, ZC, ldz, false);
+        __syncthreads();
+        if (mode == 0) {
+          colsums_bf<TR>(ZC, ldz, nullptr, 0, true, nc, nrows, vacc + c0,
+                         vacc + WMAX + c0, red);
+          continue;
+        }
+        if (mode == 1) {
+          pool_bf<TR, false>(n, vt, g0, ng, c0, nc, ZC, ldz, out);
+          __syncthreads();
+          continue;
+        }
+        route_bf<TR, false>(n, vt, dout, g0, ng, nrows, c0, nc, ZC, ldz,
+                            sums_top ? DA : nullptr);
+        __syncthreads();
+        if (sums_top) {
+          colsums_bf<TR>(ZC, ldz, DA, ldz, false, nc, nrows, vacc + c0,
+                         vacc + WMAX + c0, red);
+          continue;
+        }
+        if constexpr (FINAL) {
+          dw_layer_tf<TR>(b, dw, base, top, c0 / CH, c0 / CH + 1, AS, lda,
+                          ZC, ldz);
+          if (rd == 0)
+            colsums_bf<TR>(ZC, ldz, nullptr, 0, false, nc, nrows,
+                           vacc + n.dboff[top] + c0, nullptr, red);
+        }
+        if (top >= 1)                               // da of the layer below
+          da_tf<TR>(ZC, ldz, k16(nc), Wt + nt.wfo[top] + c0, ldt(wl), cin,
+                    DA, ldt(cin), c0 > 0);
+        else if (out != nullptr && mode == 3 && rd == 0)
+          dx_part<TR>(n, ZC, ldz, nc, W0T, c0, DA, c0 > 0);
+        __syncthreads();
+      }
+      if (mode >= 2 && !sums_top) {
+        float* cur = DA;
+        float* oth = ZC;
+        for (int l = top - 1; l >= 0; --l) {
+          const int w = n.w[l], ldc = ldt(w);
+          const float* Pl = P + TR * nt.pfo[l];
+          if (mode == 2 && l == target) {
+            mid_bf<TR, false>(vec, l, Pl, w, ldc, nrows, cur, oth);
+            __syncthreads();
+            colsums_bf<TR>(cur, ldc, oth, ldc, false, w, nrows, vacc,
+                           vacc + WMAX, red);
+            break;
+          }
+          mid_bf<TR, false>(vec, l, Pl, w, ldc, nrows, cur, nullptr);
+          __syncthreads();
+          if constexpr (FINAL) {
+            if (l >= 1)
+              act_tf<TR>(vec, l - 1, P + TR * nt.pfo[l - 1],
+                         ldt(n.w[l - 1]), n.w[l - 1], AS, lda);
+            else
+              x_tf<TR>(n, xs, AS, lda);
+            __syncthreads();
+            dw_layer_tf<TR>(b, dw, base, l, 0, nchunks(w), AS, lda, cur,
+                            ldc);
+            if (rd == 0)
+              colsums_bf<TR>(cur, ldc, nullptr, 0, false, w, nrows,
+                             vacc + n.dboff[l], nullptr, red);
+          }
+          if (l >= 1) {
+            da_tf<TR>(cur, ldc, k16(w), Wt + nt.wfo[l], ldt(w), n.cin[l],
+                      oth, ldt(n.cin[l]), false);
+          } else if (out != nullptr && mode == 3 && rd == 0) {
+            dx_part<TR>(n, cur, ldc, w, W0T, 0, oth, false);
+          } else {
+            break;
+          }
+          __syncthreads();
+          float* s = cur;
+          cur = oth;
+          oth = s;
+        }
+        if (mode == 3 && out != nullptr && rd == 0)   // cur = dx (TR x C0)
+          for (int e = threadIdx.x; e < nrows * n.C0; e += NTB)
+            out[r0 * n.C0 + e] = cur[e];
+      }
+      if constexpr (FINAL)
+        if ((done + 1) % DW_FLUSH == 0) dw_flush(b, dw, base, blk);
+      __syncthreads();
+    }
+    if constexpr (FINAL) dw_flush(b, dw, base, blk);
+  }
+
+  if (mode == 3) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < n.nb; e += NTB) blk[n.ndw + e] = vacc[e];
+  } else if (mode != 1) {
+    __syncthreads();
+    const int w = n.w[target];
+    for (int e = threadIdx.x; e < 2 * w; e += NTB)
+      part[static_cast<int64_t>(blockIdx.x) * 2 * w + e] =
+          vacc[(e / w) * WMAX + e % w];
+  }
+}
+
+template <int TR>
+int launch_tf(const NetT& nt, int mode, int target, const float* x,
+              const float* prm, const float* vec, const float* dout,
+              float* out, double* part, int nblk, cudaStream_t st) {
+  size_t off[11];
+  const size_t smem = layout_tf(nt, TR, mode >= 2, off);
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kern = mode == 3 ? sa_fused_tf32_kernel<TR, true>
+                              : sa_fused_tf32_kernel<TR, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<nblk, NTB, smem, st>>>(nt, mode, target, x, prm, vec, dout, out,
+                                part);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Shared memory of the backward's launches (the largest) in bytes, or -1
-// outside the kernel's range (1 <= L <= 4, C0 <= 8, widths <= 256,
-// pool <= 128 dividing R).
+// Shared memory of the backward's launches (the largest) in bytes, at the
+// kernel that serves the net, or -1 outside the kernels' range (1 <= L <=
+// 4, C0 <= 8, widths <= 256, pool <= 128 dividing R).
 extern "C" long long facl_sa_fused_smem(long long R, int C0, int L,
                                         const int* widths, int pool) {
   Net n;
   if (!make_net(R, C0, L, widths, pool, &n)) return -1;
-  size_t off[7];
-  return static_cast<long long>(layout(n, tile_rows(pool), true, off));
+  NetT t;
+  make_nett(n, &t);
+  size_t off[11];
+  return static_cast<long long>(
+      tc_fits_tf(t) ? layout_tf(t, CH, true, off)
+                    : layout(n, tile_rows(pool), true, off));
+}
+
+// 1 if the f32 sweeps of the net run on the tensor cores, 0 if on CUDA
+// cores, -1 outside the range.
+extern "C" int facl_sa_fused_tc(long long R, int C0, int L,
+                                const int* widths, int pool) {
+  Net n;
+  if (!make_net(R, C0, L, widths, pool, &n)) return -1;
+  NetT t;
+  make_nett(n, &t);
+  return tc_fits_tf(t) ? 1 : 0;
 }
 
 // The same for the bf16 sweeps, at the kernel that serves the net.
@@ -1589,6 +2181,12 @@ int sweep(int mode, int target, const float* x, long long R, int C0, int L,
                                  part, nblk, st)
                  : launch_bf<2 * CH>(b, mode, target, x, prm, vec, dout, out,
                                      part, nblk, st);
+  } else {
+    NetT t;
+    make_nett(n, &t);
+    if (tc_fits_tf(t))
+      return launch_tf<CH>(t, mode, target, x, prm, vec, dout, out, part,
+                           nblk, st);
   }
   return tile_rows(pool) == CH
              ? launch<CH, BF>(n, mode, target, x, prm, vec, dout, out, part,

@@ -41,6 +41,7 @@
 #include <cuda_runtime.h>
 #include "bf16_mma.cuh"
 #include "sa_tile.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -117,47 +118,8 @@ __device__ __forceinline__ void bulk_store_drain_prior() {
   asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
 }
 
-// -- 3xTF32 mma -------------------------------------------------------
-
-struct Split {
-  uint32_t hi, lo;
-};
-
-__device__ __forceinline__ Split split(float a) {
-  Split s;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(s.hi) : "f"(a));
-  const float r = __fsub_rn(a, __uint_as_float(s.hi));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(s.lo) : "f"(r));
-  return s;
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// A (16 x 8) and B (8 x 8) fragments, split.
-struct FragA {
-  Split v[4];
-};
-struct FragB {
-  Split v[2];
-};
-
-// c += a b in 3xTF32: the two small products first, then hi.hi'.
-__device__ __forceinline__ void mma3(float c[4], const FragA& a,
-                                     const FragB& b) {
-  mma_tf32(c, a.v[0].lo, a.v[1].lo, a.v[2].lo, a.v[3].lo, b.v[0].hi,
-           b.v[1].hi);
-  mma_tf32(c, a.v[0].hi, a.v[1].hi, a.v[2].hi, a.v[3].hi, b.v[0].lo,
-           b.v[1].lo);
-  mma_tf32(c, a.v[0].hi, a.v[1].hi, a.v[2].hi, a.v[3].hi, b.v[0].hi,
-           b.v[1].hi);
-}
+// -- 3xTF32 mma: Split, split, mma_tf32, FragA, FragB, mma3 in
+// tf32_mma.cuh ---------------------------------------------------------
 
 __device__ __forceinline__ void zero4(float c[4]) {
   c[0] = c[1] = c[2] = c[3] = 0.f;

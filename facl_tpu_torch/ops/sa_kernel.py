@@ -17,7 +17,11 @@ a launch boundary here, so
             ``need_dx``, the input gradient).
 
 The max-pool cotangent is split evenly among each group's exact ties
-(sa_kernel.py:513-529). Each sweep has a plain PyTorch twin (``*_plain``,
+(sa_kernel.py:513-529). At float32 a kernel on the TF32 tensor cores (its
+products in the 3xTF32 split) serves every net whose 64-row tile fits its
+shared memory (pool <= 64; the main path's net does), the CUDA-core kernel
+the rest (:func:`f32_on_tensor_cores`). Each sweep has a plain PyTorch
+twin (``*_plain``,
 the same op chain on whole tensors); a CPU tensor takes the twin, a CUDA
 tensor launches the kernel or raises, and each wrapper counts its
 launches. The kernel sums its per-block float64 partials in a fixed order
@@ -242,26 +246,40 @@ def _prm(layers, bf: bool) -> torch.Tensor:
         .contiguous()
 
 
-def bf16_on_tensor_cores(R: int, C0: int, widths: List[int],
-                         pool: int) -> bool:
-    """Whether B9's bf16 sweeps of this net run on the tensor cores (the
-    kernel's layout fits shared memory; the main path's net does) or on
-    CUDA cores (the other nets of the range): csrc/sa_fused.cu."""
+def _on_tensor_cores(entry: str, R: int, C0: int, widths: List[int],
+                     pool: int) -> bool:
     lib = _build.REGISTRY.get("sa_fused")
-    fn = lib.facl_sa_fused_bf16_tc
+    fn = getattr(lib, entry)
     fn.argtypes = [_LL, _I, _I, _P, _I]
     fn.restype = _I
     return fn(R, C0, len(widths), ctypes.cast(_widths_arg(widths), _P),
               pool) == 1
 
 
+def bf16_on_tensor_cores(R: int, C0: int, widths: List[int],
+                         pool: int) -> bool:
+    """Whether B9's bf16 sweeps of this net run on the tensor cores (the
+    kernel's layout fits shared memory; the main path's net does) or on
+    CUDA cores (the other nets of the range): csrc/sa_fused.cu."""
+    return _on_tensor_cores("facl_sa_fused_bf16_tc", R, C0, widths, pool)
+
+
+def f32_on_tensor_cores(R: int, C0: int, widths: List[int],
+                        pool: int) -> bool:
+    """Whether B9's f32 sweeps of this net run on the TF32 tensor cores
+    (pool <= 64 and the kernel's 64-row layout fits shared memory; the
+    main path's net does) or on CUDA cores (the other nets of the range):
+    csrc/sa_fused.cu."""
+    return _on_tensor_cores("facl_sa_fused_tc", R, C0, widths, pool)
+
+
 def _nblk(x, widths: List[int], pool: int, bf: bool) -> int:
-    """Persistent blocks: one an SM for the bf16 tensor-core kernel (512
-    threads and most of the shared memory), else two, no more than the
-    tiles."""
+    """Persistent blocks: one an SM for a tensor-core kernel (512 threads
+    and most of the shared memory), else two, no more than the tiles."""
     R, C0 = x.shape
     tiles = -(-(R // pool) // ((64 if pool <= 64 else 128) // pool))
-    per_sm = 1 if bf and bf16_on_tensor_cores(R, C0, widths, pool) else 2
+    tc = bf16_on_tensor_cores if bf else f32_on_tensor_cores
+    per_sm = 1 if tc(R, C0, widths, pool) else 2
     return max(1, min(tiles, per_sm * _build.sm_count(x.device)))
 
 

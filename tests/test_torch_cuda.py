@@ -390,18 +390,9 @@ def test_group_points_points_grad_card_vs_cpu(dev, rng, route):
     assert torch.count_nonzero(grads[1][:, 32:]) > 0
 
 
-@pytest.mark.parametrize("K,widths", [(64, (64, 64, 256)), (128, (64, 64, 256)),
-                                      (8, (8, 16, 32)), (48, (32,))])
-def test_b9_sweeps_match_twins(dev, rng, K, widths):
-    """Each B9 sweep against its twin on the same card tensors: stats, BN
-    sums and dW to 1e-4 of their max-abs; pooled and dx at rtol 1e-5 /
-    atol 1e-5 x scale; db, whose exact value is zero (a BatchNorm follows
-    each Dense), near zero on both. dpooled is zero where the float64
-    recompute of the top layer has a near-tie (chip_smoke.py's
-    near_ties)."""
-    from facl_tpu_torch.ops import sa_kernel as SK
+def _b9_net(dev, rng, R, widths, C0=4):
+    """Rows x (R, C0) and B9 layers of ``widths`` on the card."""
     from facl_tpu_torch.ops.fused_sa import SALayerParams
-    R, C0 = 16 * K, 4
     x = torch.from_numpy(rng.normal(size=(R, C0)).astype(np.float32)).to(dev)
     lp, cin = [], C0
     for w in widths:
@@ -411,6 +402,38 @@ def test_b9_sweeps_match_twins(dev, rng, K, widths):
             rng.normal(size=(w,), scale=0.1), 1 + 0.1 * rng.normal(size=(w,)),
             rng.normal(size=(w,), scale=0.1)))))
         cin = w
+    return x, lp
+
+
+#: f32_on_tensor_cores of the nets below: the main path's at pool 64 runs
+#: the TF32 tensor-core kernel, every pool > 64 net the CUDA-core kernel;
+#: the other nets run whichever their layout decides.
+B9_F32_TC = {(64, (64, 64, 256)): True, (128, (64, 64, 256)): False}
+
+
+@pytest.mark.parametrize("K,widths", [(64, (64, 64, 256)), (128, (64, 64, 256)),
+                                      (8, (8, 16, 32)), (48, (32,))])
+def test_b9_sweeps_match_twins(dev, rng, K, widths):
+    """Each B9 sweep against its twin on the same card tensors: stats, BN
+    sums and dW to 1e-4 of their max-abs; pooled and dx at rtol 1e-5 /
+    atol 1e-5 x scale; db, whose exact value is zero (a BatchNorm follows
+    each Dense), near zero on both. dpooled is zero where the float64
+    recompute of the top layer has a near-tie (chip_smoke.py's
+    near_ties). The kernel that runs is the one f32_on_tensor_cores names
+    (B9_F32_TC), and each sweep launches it."""
+    _b9_vs_twins(dev, rng, K, widths, B9_F32_TC.get((K, widths)))
+
+
+def _b9_vs_twins(dev, rng, K, widths, tensor_cores=None):
+    """test_b9_sweeps_match_twins's checks; ``tensor_cores`` the route
+    f32_on_tensor_cores must give (None: either)."""
+    from facl_tpu_torch.ops import sa_kernel as SK
+    from facl_tpu_torch.ops.fused_sa import SALayerParams
+    R, C0 = 16 * K, 4
+    x, lp = _b9_net(dev, rng, R, widths, C0)
+    tc = SK.f32_on_tensor_cores(R, C0, list(widths), K)
+    assert tensor_cores is None or tc == tensor_cores
+    before = [k.launches for k in SK.KERNELS[:4]]
 
     def acc(k, t):
         err, scale = float((k - t).abs().max()), float(t.abs().max())
@@ -458,6 +481,132 @@ def test_b9_sweeps_match_twins(dev, rng, K, widths):
         assert max(float(a.abs().max()), float(b.abs().max())) < \
             1e-4 * gscale
     assert SK.sa_fused_final(x, lp, packed, bsums, dout, K, False)[0] is None
+    L = len(widths)
+    assert [k.launches - n for k, n in zip(SK.KERNELS[:4], before)] == \
+        [2 * L, 1, L, 2]
+
+
+@pytest.mark.parametrize("widths,smem", [((80, 64, 256), 223232),
+                                         ((64, 112, 256), 155648)])
+def test_b9_wider_nets_match_twins(dev, rng, widths, smem):
+    """Nets wider than the main path's at pool 64, held as the others: (80,
+    64, 256) on the TF32 tensor cores at 64-row tiles (its layout fits);
+    (64, 112, 256) on the CUDA-core kernel (the tensor-core layout would
+    need 313,856 B). ``smem``: the bytes of the kernel that runs."""
+    import ctypes
+    from facl_tpu_torch.ops import _build
+    from facl_tpu_torch.ops import sa_kernel as SK
+    fn = _build.REGISTRY.get("sa_fused").facl_sa_fused_smem
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    assert fn(16 * 64, 4, len(widths), ctypes.cast(
+        SK._widths_arg(list(widths)), ctypes.c_void_p), 64) == smem
+    _b9_vs_twins(dev, rng, 64, widths, widths == (80, 64, 256))
+
+
+def _b9_all(SK, x, lp, K, dout):
+    """Every B9 sweep once in a stage's order, each fed the kernels' own
+    statistics and BN sums -> their outputs, flat."""
+    from facl_tpu_torch.ops.sa_fwd import _finalize
+    widths = [t.kernel.shape[1] for t in lp]
+    R, L = x.shape[0], len(lp)
+    packed = torch.zeros(L, 2, max(widths), device=x.device)
+    outs = []
+    for l, w in enumerate(widths):
+        s = SK.sa_fused_stats(x, lp, packed.clone(), K, l)
+        outs += list(s)
+        mean, var = _finalize(s[0], s[1], R)
+        packed[l, 0, :w], packed[l, 1, :w] = mean, torch.rsqrt(var + 1e-5)
+    outs.append(SK.sa_fused_pool(x, lp, packed, K))
+    bsums = torch.zeros_like(packed)
+    for l in reversed(range(L)):
+        s = SK.sa_fused_bnsum(x, lp, packed, bsums.clone(), dout, K, l)
+        outs += list(s)
+        bsums[l, 0, :widths[l]], bsums[l, 1, :widths[l]] = s
+    dx, dws, dbs = SK.sa_fused_final(x, lp, packed, bsums, dout, K)
+    return outs + [dx] + dws + dbs
+
+
+@pytest.mark.parametrize("K,widths", [(64, (64, 64, 256)),
+                                      (128, (64, 64, 256)), (8, (8, 16, 32))])
+def test_b9_two_runs_bit_identical(dev, rng, K, widths):
+    """Two runs of B9's eight sweeps on the same inputs give bit-identical
+    outputs (no atomics; sums in a fixed order), on either kernel."""
+    from facl_tpu_torch.ops import sa_kernel as SK
+    R = 16 * K
+    x, lp = _b9_net(dev, rng, R, widths)
+    dout = torch.from_numpy(rng.normal(size=(R // K, widths[-1]))
+                            .astype(np.float32)).to(dev)
+    a, b = _b9_all(SK, x, lp, K, dout), _b9_all(SK, x, lp, K, dout)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_b9_sweeps_agree_on_masks_and_routing(dev, rng):
+    """The sweeps' discrete decisions agree across launches on the main
+    path's net (TF32 tensor cores): (1) with dout = 1 the top layer's BN
+    sum of dy counts, per channel, the groups whose pooled max is positive
+    in the pool sweep (each such group routes its 1 to its max row, an
+    exact count in f32), and the final sweep's db of the top (BN sums
+    zero: db = gi x that count) counts the same; (2) with dout = 0 and the
+    top's sum dy set, dp2 is one constant row, so da1 is too, and layer
+    1's BN-sum sweep (sum dy1 = d1 x the rows its ReLU mask keeps) and
+    the final sweep (db1 = gi1 d1 x the same rows) count the same masked
+    rows (their ratio within 1e-4 of 1; one row of ~500 would move it
+    2e-3); (3) at pool 1 with every top y > 0 the pool sweep returns p2
+    itself, and the top layer's stats sweep sums the same p2 (within f32
+    summation)."""
+    from facl_tpu_torch.ops import sa_kernel as SK
+    from facl_tpu_torch.ops.fused_sa import SALayerParams
+    from facl_tpu_torch.ops.sa_fwd import _finalize
+    K, widths = 64, (64, 64, 256)
+    R = 16 * K
+    x, lp = _b9_net(dev, rng, R, widths)
+    assert SK.f32_on_tensor_cores(R, 4, list(widths), K)
+    packed = torch.zeros(3, 2, 256, device=dev)
+    for l, w in enumerate(widths):
+        mean, var = _finalize(*SK.sa_fused_stats(x, lp, packed.clone(), K, l),
+                              R)
+        packed[l, 0, :w], packed[l, 1, :w] = mean, torch.rsqrt(var + 1e-5)
+    pooled = SK.sa_fused_pool(x, lp, packed, K)
+    live = (pooled > 0).sum(0).double()
+    assert float(live.sum()) > 0
+    ones = torch.ones_like(pooled)
+    zero = torch.zeros(3, 2, 256, device=dev)
+    s_dy, _ = SK.sa_fused_bnsum(x, lp, packed, zero, ones, K, 2)
+    assert torch.equal(s_dy.double(), live)
+    gi = (lp[2].scale * packed[2, 1]).double()
+    db2 = SK.sa_fused_final(x, lp, packed, zero, ones, K, False)[2][2]
+    assert torch.equal(torch.round(db2.double() / gi), live)
+
+    bs = torch.zeros(3, 2, 256, device=dev)
+    bs[2, 0] = torch.from_numpy(rng.normal(size=256).astype(np.float32)
+                                ).to(dev) * R
+    nil = torch.zeros_like(pooled)
+    s_dy1, _ = SK.sa_fused_bnsum(x, lp, packed, bs, nil, K, 1)
+    _, _, dbs = SK.sa_fused_final(x, lp, packed, bs, nil, K, False)
+    gi1 = (lp[1].scale * packed[1, 1, :64]).double()
+    kept = s_dy1 != 0                   # channels whose mask keeps a row
+    assert int(kept.sum()) > 32
+    ratio = dbs[1].double()[kept] / (gi1[kept] * s_dy1.double()[kept])
+    assert float((ratio - 1).abs().max()) < 1e-4     # one row is ~2e-3
+
+    x1 = x[:256]
+    lp1 = lp[:2] + [SALayerParams(lp[2].kernel, lp[2].bias + 100.0,
+                                  torch.ones_like(lp[2].scale),
+                                  torch.zeros_like(lp[2].shift))]
+    pk = packed.clone()
+    for l, w in enumerate(widths[:2]):
+        mean, var = _finalize(*SK.sa_fused_stats(x1, lp1, pk.clone(), 1, l),
+                              256)
+        pk[l, 0, :w], pk[l, 1, :w] = mean, torch.rsqrt(var + 1e-5)
+    pk[2, 0], pk[2, 1] = 0.0, 1.0
+    p2 = SK.sa_fused_pool(x1, lp1, pk, 1)
+    assert float(p2.min()) > 0
+    s, ss = SK.sa_fused_stats(x1, lp1, pk, 1, 2)
+    for k, t in ((s, p2.double().sum(0)), (ss, (p2.double() ** 2).sum(0))):
+        assert float((k.double() - t).abs().max()) <= \
+            1e-6 * float(t.abs().max())
 
 
 @pytest.mark.parametrize("case", ["count_K-1", "count_K", "count_K+1",
