@@ -38,6 +38,9 @@ time on the card.
                                             # (B9_F32_CUTS), in turns; dx
                                             # against its twin with and
                                             # without the mask redo
+    python3 chip_ablate.py b8a              # B8a (sa_bwd2_sweep1) at bf16
+                                            # and f32 with one part cut at
+                                            # a time (B8A_CUTS), in turns
 
 Each kernel is rebuilt from facl_tpu_torch/ops/csrc/sa_pair.cu with one
 part cut out (the pool, the Gram, a product, the CUDA-core row passes;
@@ -978,6 +981,156 @@ def b9_f32(cs, out_dir) -> None:
                       "gpu": gpu}))
 
 
+#: b8a: sa_2sweep.cu's B8a (bwd2_sweep1_kernel) with one part cut at a
+#: time: name -> (calls made void, text replacements). "products only"
+#: keeps the TMA loads, the four products and the q3 store; "without the
+#: TMA prefetch" keeps one stage and issues each tile's copy only when the
+#: tile before it is done.
+B8A_SECTION = ("// B8a (hybrid2 and hybrid's sweep 1) on the tensor cores",
+               "// B6 / B8b:")
+B8A_NO_PREFETCH = (
+    ("static constexpr int STAGES = BF ? 4 : 2;",
+     "static constexpr int STAGES = 1;"),
+    ("    for (int64_t i = 0; i < L::STAGES && i < count; ++i) fetch(i);",
+     "    if (count > 0) fetch(0);"),
+    ("    if (threadIdx.x == 0 && i + L::STAGES < count) fetch(i + L::STAGES);",
+     ""),
+    ("    mbar_wait(&bars[i % L::STAGES],",
+     "    if (threadIdx.x == 0 && i > 0) fetch(i);\n"
+     "    mbar_wait(&bars[i % L::STAGES],"))
+B8A_CUTS = {
+    "b8a": ((), ()),
+    "b8a without routing": (("s8_route",), ()),
+    "b8a without Gram": (("s8_gram",), ()),
+    "b8a without A3": (("s8_a3",), ()),
+    "b8a without q3": (("s8_q3",), ()),
+    "b8a without the TMA prefetch": ((), B8A_NO_PREFETCH),
+    "b8a products only": (("s8_h2", "s8_affine", "s8_route", "s8_dstore"),
+                          ()),
+}
+
+
+def b8a_source(src: str, names, pairs) -> str:
+    """sa_2sweep.cu with the calls in ``names`` made void in B8a's section,
+    and ``pairs`` replaced there."""
+    a = src.index(B8A_SECTION[0])
+    b = src.index(B8A_SECTION[1], a)
+    body = void_calls(src[a:b], names) if names else src[a:b]
+    for old, new in pairs:
+        if old not in body:
+            raise SystemExit(f"chip_ablate: {old!r} not in B8a")
+        body = body.replace(old, new)
+    return src[:a] + body + src[b:]
+
+
+def b8a(cs, out_dir) -> None:
+    """B8a at bf16 and f32 on a main-path shape (640 clouds x 4,096 rows,
+    pool 64; randn p2 with each group's last half a copy of its first row,
+    as ball query pads a group: ~40% of dy3 nonzero, as on the main path)
+    with each B8A_CUTS build, twice, in turns. A cut variant's outputs are
+    wrong by design; only its time is read. The full build's outputs are
+    held against the twins with dpooled zero on phase 2's near-tie pairs
+    (A3 error over max-abs, q3 entries beyond one bf16 ulp or rtol 1e-5 /
+    atol 1e-5 x scale), and ptxas use of each build's pool-64 kernels
+    printed."""
+    from facl_tpu_torch.ops import _build
+    from facl_tpu_torch.ops import sa_bwd as SB
+    src = open(os.path.join(CSRC, "sa_2sweep.cu")).read()
+    procs = {}
+    for i, (name, (names, pairs)) in enumerate(B8A_CUTS.items()):
+        cu = out_dir / f"b8a_{i}.cu"
+        cu.write_text(b8a_source(src, names, pairs))
+        procs[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", os.path.abspath(CSRC),
+             "-o", str(out_dir / f"b8a_{i}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            out_dir / f"b8a_{i}.so")
+    libs, ptxas = {}, {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"chip_ablate: {name} did not build:\n{log}")
+        libs[name] = ctypes.CDLL(str(so))
+        use, keep = [], None
+        for ln in log.splitlines():       # ptxas: "Compiling entry ..." then
+            if "Compiling entry" in ln:   # its use on the next lines
+                keep = ("bf16" if "bwd2_sweep1_kernelILb1ELi6E" in ln else
+                        "f32" if "bwd2_sweep1_kernelILb0ELi6E" in ln else None)
+            elif keep and ("registers" in ln or "spill" in ln):
+                use.append(f"{keep}: {ln.split(':', 1)[-1].strip()}")
+        ptxas[name] = use
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def r(*shape, sc=1.0):
+        return sc * torch.randn(*shape, device=dev, generator=g)
+    R, K = 640 * 4096, 64
+    P = R // K
+    p2 = r(R, 64)
+    p2v = p2.view(P, K, 64)
+    p2v[:, K // 2:] = p2v[:, :1]
+    w3, b3 = r(64, 256, sc=0.125), r(256, sc=0.1)
+    tail = (r(64, sc=0.3), r(64), w3, b3, r(256, sc=0.2), r(256), r(256))
+    dp = r(P, 256)
+    bf = torch.bfloat16
+    runs, nnz = {}, {}
+    for dt, fn in (("bf16", SB.sa_bwd2_sweep1_bf16),
+                   ("f32", SB.sa_bwd2_sweep1)):
+        x = p2.to(bf) if dt == "bf16" else p2
+        if dt == "bf16":                # phase 2's near-ties: the twin's z
+            z = SB._z_bf16(SB._h_bf16(x, *tail[:2]), *tail[2:6])
+        else:                           # (bf16), a float64 recompute (f32)
+            z = (SB._h_from_p(x, *tail[:2]).double() @ w3.double()
+                 + b3.double()) * tail[4].double() + tail[5].double()
+        d = torch.where(cs.near_ties(z, K, 1e-5 * float(z.abs().max())), 0.0,
+                        dp)
+        nnz[dt] = int((SB._dy_top(z, d.to(z.dtype), K) != 0).sum())
+        del z
+        runs[dt] = (fn, "facl_" + fn.__name__,
+                    (x, *tail, d.to(x.dtype), K))
+    for fn, _, args in runs.values():
+        fn(*args)                         # resolves this tree's launchers
+    checked = {}
+    for dt, (fn, launcher, args) in runs.items():
+        k, t = fn(*args), getattr(SB, fn.__name__ + "_plain")(*args)
+        a3 = float((k[0] - t[0]).abs().max() / t[0].abs().max())
+        if dt == "bf16":
+            a, b = k[4].float(), t[4].float()
+            n = int(((a - b).abs() > cs.bf16_ulp(
+                torch.maximum(a.abs(), b.abs()))).sum())
+        else:
+            sc = float(t[4].abs().max())
+            n = int(((k[4] - t[4]).abs() > 1e-5 * t[4].abs() + 1e-5 * sc)
+                    .sum())
+        checked[dt] = [a3, n, nnz[dt]]
+        del k, t
+    times = {name: {dt: [] for dt in runs} for name in libs}
+    for _ in range(2):
+        for name, lib in libs.items():
+            for dt, (fn, launcher, args) in runs.items():
+                key = ("sa_2sweep", launcher)
+                ours = _build._FUNCTIONS[key]
+                f = getattr(lib, launcher)
+                f.argtypes, f.restype = ours[1].argtypes, ctypes.c_int
+                _build._FUNCTIONS[key] = (lib, f)
+                try:
+                    times[name][dt].append(
+                        cs.device_ms(lambda: fn(*args))[0])
+                finally:
+                    _build._FUNCTIONS[key] = ours
+    gpu = cs.gpu_name_power()
+    for name, by in times.items():
+        print(f"{name}: " + ", ".join(
+            f"{dt} {a:.4f} / {b:.4f}" for dt, (a, b) in by.items())
+            + f" ms on the device ({gpu}); ptxas {ptxas[name]}", flush=True)
+    for dt, (a3, n, nnz) in checked.items():
+        print(f"b8a {dt} against its twin: A3 {a3:.3e} of its max-abs; q3 "
+              f"{n} entries beyond the bar; {nnz} nonzero dy3 of {R * 256}",
+              flush=True)
+    print(json.dumps({"b8a": times, "checked": checked, "ptxas": ptxas,
+                      "gpu": gpu}))
+
+
 #: tc_sums: sa_fused.cu's own fwd_mma (with its k-order redo) and the
 #: sums its tensor cores make before the redo, with S = sum_k A |W|, on
 #: 128-row tiles of A (M x kdim, bf16) times W (kdim x 64, bf16).
@@ -1300,6 +1453,9 @@ def main() -> None:
         return
     if only == ("b9_f32",):
         b9_f32(cs, out_dir)
+        return
+    if only == ("b8a",):
+        b8a(cs, out_dir)
         return
     if only == ("tc_sums",):
         tc_sums(cs, out_dir)

@@ -6,22 +6,24 @@ every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py --profile   # + a torch.profiler breakdown of
                                       #   one main-path step
     python3 chip_smoke.py --parent DIR  # + B1, B2a, B2b, B3a, B3b, B3c
-                                        #   and the f32 B6, B7 and B8 of
+                                        #   and the f32 B6, B7 and B8b of
                                         #   the tree in DIR (a git
                                         #   archive of another commit)
                                         #   timed against this tree's, in
                                         #   turns, their outputs bit-equal;
-                                        #   the f32 B9 alike, within phase
-                                        #   2's f32 B9 bars of the
-                                        #   parent's (b9_vs_parent); the
-                                        #   bf16 B2a-B3c and B9 within
-                                        #   phase 2's bf16 bars (B9's at
-                                        #   its own bars,
-                                        #   b9_bf16_vs_parent), each at its
-                                        #   wrapper's grid; and the pair3
-                                        #   bf16 and the pallas bf16 and
-                                        #   f32 steps with the parent's
-                                        #   bf16 B2a and B9, in turns (with
+                                        #   the f32 B8a and B9 alike,
+                                        #   within phase 2's f32 bars of
+                                        #   the parent's
+                                        #   (two_sweep_vs_parent,
+                                        #   b9_vs_parent); the bf16 B2a-B3c,
+                                        #   B8a and B9 within phase 2's
+                                        #   bf16 bars (B9's at its own
+                                        #   bars, b9_bf16_vs_parent), each
+                                        #   at its wrapper's grid; and the
+                                        #   pair3 bf16, pallas bf16 and
+                                        #   f32, and hybrid2 bf16 and f32
+                                        #   steps with the parent's bf16
+                                        #   B2a, B9 and B8a, in turns (with
                                         #   --profile, three profiled steps
                                         #   of each turn)
 
@@ -51,10 +53,10 @@ Phases (any failure exits nonzero, before the final line):
              queued behind a spin of the card, so the device time excludes
              the host's; the host's time per call beside it; beside B5a
              and B5b one library call (torch.gather, index_add_). B2a
-             (tensor cores, 6xTF32), B2b, B3b and B3c (3xTF32) print two
-             bounds:
+             (tensor cores, 6xTF32), B2b, B3b, B3c and B8a (3xTF32) print
+             two bounds:
              the tensor-core one (bound_ms) and the f32 CUDA-core one
-             (bound_f32_ms). B2a, B2b and B3a-B3c are run to run
+             (bound_f32_ms). B2a, B2b, B3a-B3c and B8a are run to run
              bit-identical; B2b and B3a-B3c are checked again on the fine
              variant's K = 128. Then
              the five bf16 sweeps (B2a-B3c at compute_dtype bfloat16)
@@ -105,10 +107,10 @@ Phases (any failure exits nonzero, before the final line):
              --profile adds one profiled step to each impl's path: kernel
              time (kernel_ms: user annotations left out) over that step's
              own span gives the device's idle share; with --parent the
-             pair3 bf16 and pallas bf16 and f32 steps run again, 20
-             steps each in turns with the parent's bf16 B2a / B9 and with
-             this tree's (parent_step_ab; --profile: three profiled steps
-             each);
+             pair3 bf16, pallas bf16 and f32, and hybrid2 bf16 and f32
+             steps run again, 20 steps each in turns with the parent's
+             bf16 B2a / B9 / B8a and with this tree's (parent_step_ab;
+             --profile: three profiled steps each);
   5. input   d(loss)/d(points) through each grouping route and the
              pallas SA stage with input_grad (B9's dx, B5b) at B=8: card
              kernels vs card twins vs CPU (phase_input_grad), with exact
@@ -615,6 +617,18 @@ def sweep2_tc(C0, C1=64, C2=64):
             + (C0 + 1) * 2 * C1 * C1)
 
 
+def b8a_ops(C2=64, C3=256, bf=False):
+    """B8a's work per row: (CUDA-core operations, tensor-core product
+    flops). Products, all dense: h2 W3 (2 C2 C3), Gram(h2) (symmetric,
+    C2 (C2 + 1)), A3 = dy3^T h2 (2 C3 C2) and q3 = D W3^T (2 C3 C2). On
+    CUDA cores: h2 (3 C2: affine, ReLU), colsum(h2) (C2), z's affine (3
+    C3), the route (3 C3: the group's max, the ties, dy3), u3 (C3), D =
+    gi3 dy3 (C3); at bf16 also the roundings of p3, the share and D
+    (C3)."""
+    tc = 2 * C2 * C3 + C2 * (C2 + 1) + 2 * C3 * C2 + 2 * C3 * C2
+    return 4 * C2 + (10 if bf else 9) * C3, tc
+
+
 def two_sweep_rows(x3, layers, dpooled, K):
     """B7 (both call shapes of B7a, B7b, B7c) and B8 (B8a, B8b) against
     their twins on the hybrid2 forward of the main path's tensors. B8a
@@ -631,11 +645,11 @@ def two_sweep_rows(x3, layers, dpooled, K):
     xr = x3.transpose(1, 2).reshape(R, C0).contiguous()    # channels-last
     rows = []
 
-    def add(name, args, err, nbytes, ops, fn, replaces):
+    def add(name, args, err, nbytes, ops, fn, replaces, tc_ops=0):
         rows.append(dict(name=name, args=args, err=err, nbytes=nbytes,
-                         ops=ops, fn=fn, plain=getattr(SF if fn in
-                                                       SF.KERNELS else SB,
-                                                       fn.__name__ + "_plain"),
+                         ops=ops, tc_ops=tc_ops, fn=fn,
+                         plain=getattr(SF if fn in SF.KERNELS else SB,
+                                       fn.__name__ + "_plain"),
                          source=SRC2, replaces=replaces))
 
     a1 = (xr, lp1.kernel, lp1.bias)
@@ -686,18 +700,20 @@ def two_sweep_rows(x3, layers, dpooled, K):
                           K) != 0).sum())
     del h2
     k = SB.sa_bwd2_sweep1(*as1)
+    check(all(torch.equal(a, b) for a, b in zip(k, SB.sa_bwd2_sweep1(*as1))),
+          "B8a: two runs differ")
+    ops, tc = b8a_ops(C2, C3)
+    # Products dense on the tensor cores (3xTF32), the rest on CUDA cores.
     add("sa_bwd2_sweep1", as1,
         max(acc_err(k[0], A3, "B8a A3"), acc_err(k[1], u3, "B8a u3"),
             acc_err(k[2], G2b, "B8a G2"), acc_err(k[3], ch2b, "B8a ch2"),
             row_err(k[4], q3, "B8a q3")),
-        2 * R * C2 * 4 + P * C3 * 4,
-        R * (3 * C2 + 2 * C2 * C3 + 4 * C3 + C2 * (C2 + 1) + C2)
-        + nnz * (4 * C2 + 2), SB.sa_bwd2_sweep1,
-        "facl_tpu/ops/pallas/sa_bwd.py:275")
+        2 * R * C2 * 4 + P * C3 * 4, R * ops, SB.sa_bwd2_sweep1,
+        "facl_tpu/ops/pallas/sa_bwd.py:275", R * tc)
     print(f"B8a: dpooled zeroed on {int(near.sum())} of {near.numel()} "
           f"near-tie (group, channel) pairs; {nnz} nonzero dy3 entries "
-          f"({nnz / max(int((dp != 0).sum()), 1):.2f} rows per routed pair)",
-          flush=True)
+          f"({nnz / max(int((dp != 0).sum()), 1):.2f} rows per routed pair); "
+          "run to run bit-identical", flush=True)
     t3 = _layer_terms(A3, u3, lp3, m3, v3, G2b, ch2b, R, eps)
     as2 = (xr, p1, mul1, shift1, p2, mul2, shift2, q3, t3["M"].contiguous(),
            t3["rc"], gi2, lp2.kernel)
@@ -1483,10 +1499,10 @@ def two_sweep_bf16_rows(x3, layers, dpooled, K):
                    zip(k[:4], (A3, u3, G2b, ch2b), ("A3", "u3", "G2", "ch2"))])
     notes.append(f"B8a q3 {n} (dpooled zeroed on {int(near.sum())} near-tie "
                  f"pairs; {nnz} nonzero dy3)")
+    ops, tc = b8a_ops(C2, C3, bf=True)
     add("sa_bwd2_sweep1 [bf16]", SB.sa_bwd2_sweep1_bf16, as1, e,
-        2 * R * C2 * 2 + P * C3 * 2,
-        R * (5 * C2 + 5 * C3) + nnz * (4 * C2 + 3),
-        R * (2 * C2 * C3 + C2 * (C2 + 1)), "facl_tpu/ops/pallas/sa_bwd.py:275")
+        2 * R * C2 * 2 + P * C3 * 2, R * ops, R * tc,
+        "facl_tpu/ops/pallas/sa_bwd.py:275")
 
     t3 = _layer_terms(A3, u3, lp3, m3, v3, G2b, ch2b, R, eps)
     as2 = (xr, p1, mul1, shift1, p2, mul2, shift2, q3, t3["M"].contiguous(),
@@ -1804,7 +1820,9 @@ PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
              "sa_fwd_layer": ("sa_2sweep", "facl_sa_fwd_layer", None),
              "sa_fwd_gram": ("sa_2sweep", "facl_sa_fwd_gram", None),
              "sa_fwd_pool": ("sa_2sweep", "facl_sa_fwd_pool", None),
-             "sa_bwd2_sweep1": ("sa_2sweep", "facl_sa_bwd2_sweep1", None),
+             "sa_bwd2_sweep1": ("sa_2sweep", "facl_sa_bwd2_sweep1", 2),
+             "sa_bwd2_sweep1_bf16": ("sa_2sweep", "facl_sa_bwd2_sweep1_bf16",
+                                     2),
              "sa_bwd2_sweep2": ("sa_2sweep", "facl_sa_bwd2_sweep2", None),
              "sa_bwd_sweep2_full": ("sa_2sweep", "facl_sa_bwd2_sweep2",
                                     None),
@@ -1857,7 +1875,8 @@ def parent_ab(fn, args):
     phase 2's bf16 bars of the parent's (bf16_vs_parent, B9's
     b9_bf16_vs_parent: the redesigned kernels sum in another order), or
     for B9 at f32 within phase 2's f32 B9 bars (b9_vs_parent: the TF32
-    kernel sums in another order). The
+    kernel sums in another order), or for B8a at f32 within phase 2's f32
+    bars (two_sweep_vs_parent: the TF32 kernel sums in another order). The
     parent's launcher runs at its own wrapper's grid (parent_grid_swaps).
     The launchers' C signatures are the
     same in both trees (pointers are void* to ctypes). (B6 and B8b return
@@ -1899,6 +1918,10 @@ def parent_ab(fn, args):
         print(f"  --parent {fn.__name__} against the parent's: "
               f"{bf16_vs_parent(fn.__name__, mine, theirs, p3)}", flush=True)
         return ab
+    if fn.__name__ == "sa_bwd2_sweep1":
+        print(f"  --parent {fn.__name__} against the parent's: "
+              f"{two_sweep_vs_parent(fn.__name__, mine, theirs)}", flush=True)
+        return ab
     check(len(mine) == len(theirs) and
           all(torch.equal(a, b) for a, b in zip(mine, theirs)),
           f"--parent: {fn.__name__}'s outputs differ from the parent's")
@@ -1907,12 +1930,15 @@ def parent_ab(fn, args):
 
 def parent_grid_swaps(lib_name: str, blocks):
     """The (module, name, value) swaps that launch a parent launcher at the
-    grid its own wrapper gave it: sa_pair's ``grid`` at ``blocks`` blocks
-    an SM; B9's ``_nblk`` at ``blocks`` blocks an SM (the parent's B9 at
+    grid its own wrapper gave it: sa_pair's and sa_bwd's ``grid`` at
+    ``blocks`` blocks an SM (the parent's B8a at either dtype ran two
+    256-thread blocks an SM where this tree's tensor-core kernels run one
+    of 512); B9's ``_nblk`` at ``blocks`` blocks an SM (the parent's B9 at
     either dtype ran two 256-thread blocks an SM where this tree's
     tensor-core kernels run one of 512); none for a launcher that takes
     no grid (blocks None)."""
     from facl_tpu_torch.ops import _build
+    from facl_tpu_torch.ops import sa_bwd as SB
     from facl_tpu_torch.ops import sa_kernel as SK
     from facl_tpu_torch.ops import sa_pair as SP
     if not blocks:
@@ -1926,7 +1952,7 @@ def parent_grid_swaps(lib_name: str, blocks):
 
     def grid(t, R, per_sm=2):
         return min(R // 64, blocks * _build.sm_count(t.device))
-    return [(SP, "grid", grid)]
+    return [({"sa_pair": SP, "sa_2sweep": SB}[lib_name], "grid", grid)]
 
 
 def b9_bf16_vs_parent(name, mine, theirs):
@@ -2006,6 +2032,32 @@ def b9_vs_parent(name, mine, theirs):
         f"{worst:.3e} of the parent's max-abs"
 
 
+def two_sweep_vs_parent(name, mine, theirs):
+    """The f32 B8a's outputs (``_outputs`` order: A3, u3, G2, ch2, q3)
+    against the parent tree's at phase 2's f32 bars (two_sweep_rows): its
+    tensor-core sums run in another order than the parent's CUDA-core
+    kernel. Accumulators within 1e-4 of the parent's max-abs (acc_err), the
+    row output q3 at rtol 1e-5 / atol 1e-5 x scale (row_err). Fails
+    otherwise; returns a note of the largest errors."""
+    check(len(mine) == len(theirs), f"--parent: {name} returns "
+                                    f"{len(mine)} tensors, the parent "
+                                    f"{len(theirs)}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        what = f"--parent: {name} output {i}"
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"{what}: {a.dtype} {tuple(a.shape)} against the parent's "
+              f"{b.dtype} {tuple(b.shape)}")
+        scale = max(float(b.abs().max()), 1e-30)
+        if i == 4:
+            row_err(a, b, what)
+        else:
+            acc_err(a, b, what)
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    return f"within phase 2's f32 bars, largest |this - parent| " \
+        f"{worst:.3e} of the parent's max-abs"
+
+
 def _outputs(out):
     """A wrapper's tensors: a dict's values, one tensor, or a tuple (its
     lists flattened, a None left out: B9's final sweep)."""
@@ -2042,7 +2094,9 @@ def print_row(r, label=""):
               + ("within phase 2's bf16 bars of" if
                  r["fn"].__name__.endswith("_bf16") else
                  "within phase 2's f32 B9 bars of" if
-                 r["source"] == SRC9 else "bit-equal to")
+                 r["source"] == SRC9 else
+                 "within phase 2's f32 bars of" if
+                 r["fn"].__name__ == "sa_bwd2_sweep1" else "bit-equal to")
               + " the parent's", flush=True)
 
 
@@ -2604,11 +2658,13 @@ def phase_main(dev, profile: bool, card: str):
 
 #: --parent: the Trainer steps parent_step_ab runs with the parent's
 #: launchers of the named kernels (the bf16 B2a of pair3, B9 of pallas at
-#: bf16 and at f32), each against this tree's: (BF16_PATHS label or
-#: "pallas f32", kernels).
+#: bf16 and at f32, B8a of hybrid2 at bf16 and at f32), each against this
+#: tree's: (BF16_PATHS label, "pallas f32" or "hybrid2 f32", kernels).
 PARENT_STEPS = (("pair3 bf16", ("sa_fwd_layer12_bf16",)),
                 ("pallas bf16", tuple(f"{n}_bf16" for n in B9_NAMES)),
-                ("pallas f32", B9_NAMES))
+                ("pallas f32", B9_NAMES),
+                ("hybrid2 bf16", ("sa_bwd2_sweep1_bf16",)),
+                ("hybrid2 f32", ("sa_bwd2_sweep1",)))
 #: --parent --profile: profiled steps of each of parent_step_ab's runs.
 PARENT_PROF_STEPS = 3
 
@@ -2628,6 +2684,7 @@ def parent_step_ab(dev, batches, g, kernels, card, profile: bool):
     paths = {label: (impl, want, "bfloat16")
              for label, impl, _, want in BF16_PATHS}
     paths["pallas f32"] = ("pallas", PALLAS_PATHS[0][4], "float32")
+    paths["hybrid2 f32"] = ("hybrid2", PATHS["hybrid2"], "float32")
     out = {}
     for label, names in PARENT_STEPS:
         impl, want, dtype = paths[label]

@@ -21,12 +21,16 @@
 // Bounds on the card (R = 2,621,440 rows at the main path): fwd_layer and
 // fwd_gram by bytes (they stream 64-wide f32 rows), fwd_pool by f32
 // operations (the recomputed 64x256 product, ~86 GFLOP), bwd2_sweep1 by
-// operations (the same product plus Gram(h2); dy3 is nonzero only at the
-// pool winners, and A3 and q3 skip its zeros), bwd2_sweep2 by operations
-// (two 64x64 products and C0 + 3 Grams of 64x64 per row, ~190 GFLOP).
-// Design, kept simple: sa_pair.cu's persistent blocks over 64-row tiles,
-// register-tiled products on CUDA cores (strict f32), no copy/compute
-// overlap.
+// operations (four dense products, h2 W3, Gram(h2), A3 = dy3^T h2 and q3
+// = D W3^T, 269 GFLOP on the tensor cores: 1.73 ms in 3xTF32, 0.38 ms at
+// bf16 with its CUDA-core passes; dy3 is dense on the main path, ~25 tied
+// rows a routed (group, channel)), bwd2_sweep2 by operations (two 64x64
+// products and C0 + 3 Grams of 64x64 per row, ~190 GFLOP).
+// Design: sa_pair.cu's persistent blocks over 64-row tiles. B7 and B8b
+// (and B6) keep their port-time form, register-tiled products on CUDA
+// cores (strict f32) with no copy/compute overlap; B8a runs its products
+// on the tensor cores with its tiles staged by TMA (its own section
+// below).
 //
 // bf16 (the template flag BF, entry points facl_sa_*_bf16): the row
 // tensors (x, p1, p2, q3, dpooled, pooled) are __nv_bfloat16, the
@@ -35,11 +39,12 @@
 // results are rounded (rb) at the TPU kernels' cast points, listed by the
 // bf16 twins of ops/sa_fwd.py and ops/sa_bwd.py. Every product then has
 // two bf16 operands and is exact in f32, so the same f32 FMA chains sum
-// them (only the order of the sums differs from the twins), and the
-// per-block float64 partials stay. The ReLU masks are decided on the
-// bf16-rounded h (relu_affine_p); B6's h1 is sa_pair.cu's bf16 h1 bit for
-// bit (h1_of, the same k-order chain). Every f32 path is the code it was
-// before the template: the bf16 casts sit in `if constexpr (BF)` branches.
+// them (B8a: the bf16 tensor cores; only the order of the sums differs
+// from the twins), and the per-block float64 partials stay. The ReLU
+// masks are decided on the bf16-rounded h (relu_affine_p); B6's h1 is
+// sa_pair.cu's bf16 h1 bit for bit (h1_of, the same k-order chain). In B6,
+// B7 and B8b every f32 path is the code it was before the template: the
+// bf16 casts sit in `if constexpr (BF)` branches.
 #include <cstdint>
 #include "common.cuh"
 #include "sa_mma.cuh"
@@ -187,10 +192,13 @@ __device__ __forceinline__ void mm64_p(const float* A, const float* Bm,
 
 // z = (h2 W3 + b3) * mul3 + shift3, the layer-3 BatchNorm output before
 // its ReLU, for one tile into zs (TR, LDZ); vec3 = [b3 | mul3 | shift3].
-// The pool sweep (B7c) and the backward's sweep 1 (B8a) both call this
-// one function, so the max a hybrid2 backward finds is the max its
-// forward pooled. At BF p3 = bf16(h2 W3) + b3 (b3 staged rounded), summed
-// in f32, and z stays f32 (sa_bwd.py:76-78).
+// The pool sweep (B7c) sums h2 W3 in k order on CUDA cores; the
+// backward's sweep 1 (B8a) recomputes z on the tensor cores in its own
+// order and routes on that recompute, as the JAX backward does
+// (sa_bwd.py:70-91) and as hybrid does after its plain forward: at
+// near-ties of z a hybrid2 backward may route to another row than the
+// one B7c pooled. At BF p3 = bf16(h2 W3) + b3 (b3 staged rounded),
+// summed in f32, and z stays f32 (sa_bwd.py:76-78).
 template <bool BF>
 __device__ __forceinline__ void z_tile(const float* h2s, const float* W3s,
                                        const float* vec3, float* zs) {
@@ -412,170 +420,603 @@ fwd_pool_kernel(const RowT<BF>* __restrict__ p2, int64_t ntiles, int pool,
 }
 
 // ---------------------------------------------------------------------
-// B8a: recompute z per tile (z_tile, as B7c); split each group's pooled
-// cotangent evenly among the rows whose relu(z) reaches the group's max,
-// when that max is > 0 (_dy_top, sa_bwd.py:70-91); accumulate A3 = dy3^T
-// h2 (256, 64), u3 = sum dy3, Gram(h2) and colsum(h2); write the row
-// output q3 = (gi3 * dy3) W3^T (R, 64). dy3 overwrites z in shared memory
-// and never reaches device memory; A3 and q3 skip its zeros, so their
-// cost follows the winners (one row per (group, channel), more on exact
-// ties). A group spanning tiles (pool > TR) is walked twice: once for its
-// max and tie count, once to route.
+// B8a (hybrid2 and hybrid's sweep 1) on the tensor cores. Per 64-row
+// tile: h2 = relu(p2 mul2 + shift2) (rounded to bf16 before the ReLU at
+// BF); z = (h2 W3 + b3) mul3 + shift3 (at BF p3 = bf16(h2 W3) + b3 in
+// f32); each group's dpooled split evenly among the rows whose relu(z)
+// reaches the group's max, where that max is > 0 (_dy_top, sa_bwd.py:
+// 70-91; at BF the share rounded to bf16); A3 = dy3^T h2 (256, 64), u3 =
+// sum dy3, Gram(h2) and colsum(h2) as per-block float64 partials; the row
+// output q3 = (gi3 dy3) W3^T (R, 64) (at BF bf16(bf16(dy3 bf16(gi3))
+// bf16(W3)^T)). Every product is dense: dy3 has no branch on its zeros.
+//
+// One block of 512 threads an SM (16 warps). p2 tiles arrive by TMA, one
+// bulk copy a tile, STAGES in flight; all threads turn a tile into h2 in
+// shared memory. Warp w then forms z^T = W3^T h2^T for the channels
+// 16 w.. over all 64 rows (m = channel, n = row), so lane (g, t) holds
+// channel 16 w + 8 hh + g at rows 8 j + 2 t + e in c[j][2 hh + e]: a
+// (group, channel)'s rows meet inside one warp, in the lanes of one t
+// group. The route is taken from the accumulators: the group's max of
+// relu(z) over the lane's values and two shuffle steps over t, then the
+// count of rows equal to it the same way; dy3 overwrites z in registers.
+// The C fragment of z^T pairs rows 2 t, 2 t + 1 of each 8-row step, so
+// dy3^T is the A fragment of A3 = dy3^T h2 as it stands (the B operand
+// h2 read with the same pairing), and u3 is summed from it. D = gi3 dy3
+// goes to a (256, 64) shared tile D^T; after one block barrier warp
+// (mw, nw) takes q3's rows 16 mw.., columns 16 nw.. (k = the 256
+// channels) and the same (16, 16) block of Gram(h2) (at f32 the blocks
+// on and above the diagonal), the diagonal warps the column sums from the
+// same fragments. Two barriers a tile.
+//   bf16: mma.sync m16n8k16 on bf16 tiles (stride LDB; W3 staged once a
+//         block as a bf16 (64, 264) tile [j][c], read by ldmatrix as
+//         z^T's A and q3's B); A3 adds each k16 step to its f32 running
+//         sums round-to-nearest.
+//   f32:  mma.sync m16n8k8 TF32 in 3xTF32 (tf32_mma.cuh's split and
+//         mma3). The tensor cores' own adds truncate: z^T and the Gram
+//         chain their 64-deep sums a tile (as B2b), q3 sums each 32
+//         channels on its own and adds them round-to-nearest, and A3,
+//         whose f32 running sums span every row of the block, adds each
+//         k8 step round-to-nearest (step3); h2 split into hi and lo tiles
+//         once, as it is made (sa_mma.cuh's layout: A3's row-pair reads
+//         meet 2-way bank conflicts, which an XOR swizzle removed for ~1%
+//         of the time); W3 (64, 260) and D^T in f32, split as loaded (a
+//         pre-split W3 or D^T would not fit beside them).
+// Exact ties stay exact: identical rows of h2 give identical columns of
+// z^T's B operand, and the tensor cores sum each output the same way
+// wherever it sits. A group spanning tiles (pool > TR, upt = pool / TR)
+// is walked twice by one block: z alone for its max and tie count, then
+// every product with the route.
 // vec = [mul2 | shift2 | b3 | mul3 | shift3 | gi3]; partA (blocks, 256,
 // 64), partu (blocks, 256), partG (blocks, 64, 64), partc (blocks, 64).
-// At BF the routing is decided on the f32 z, the split share is rounded to
-// bf16 (dy3), and q3 = bf16(sum bf16(dy3 gi3) W3) (sa_bwd.py:110-135).
+constexpr int S8_LDWB = C3W + 8;      // bf16 W3 tile stride (values)
+constexpr int S8_LDWF = C3W + 4;      // f32 W3 tile stride
+constexpr uint32_t S8_FULL = 0xffffffffu;
+constexpr int S8_NT = 512;
+
+// Shared memory of B8a's block (bytes): STAGES p2 tiles | h2 (bf16 tile;
+// f32 hi and lo tiles) | W3 tile | D^T tile | vec | mbarriers.
 template <bool BF>
-__global__ void __launch_bounds__(NT)
-bwd2_sweep1_kernel(const RowT<BF>* __restrict__ p2, int64_t ntiles, int pool,
+struct S8 {
+  static constexpr int STAGES = BF ? 4 : 2;
+  static constexpr size_t STAGE = TR * CW * (BF ? 2 : 4);
+  static constexpr size_t H = STAGES * STAGE;
+  static constexpr size_t W = H + (BF ? TR * LDB * 2 : 2 * TR * LDT * 4);
+  static constexpr size_t D = W + (BF ? CW * S8_LDWB * 2 : CW * S8_LDWF * 4);
+  static constexpr size_t V = D + (BF ? C3W * LDB * 2 : C3W * LDT * 4);
+  static constexpr size_t BARS = V + (2 * CW + 4 * C3W) * 4;
+  static constexpr size_t TOTAL = BARS + STAGES * 8;
+};
+
+// c += a b (m16n8k16 bf16) as a step of its own, added round-to-nearest.
+__device__ __forceinline__ void step_bf16(float c[4], const uint32_t a[4],
+                                          uint32_t b0, uint32_t b1) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(s, a, b0, b1);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) c[q] = __fadd_rn(c[q], s[q]);
+}
+
+// h2 of a staged p2 tile -> the block's h2 tile; v = [mul2 | shift2].
+template <bool BF>
+__device__ __forceinline__ void s8_h2(const RowT<BF>* S, const float* v,
+                                      unsigned char* hb) {
+  if constexpr (BF) {
+    relu_rows_bf16(S, v, reinterpret_cast<__nv_bfloat16*>(hb), threadIdx.x,
+                   S8_NT);
+  } else {
+    float* hi = reinterpret_cast<float*>(hb);
+    relu_split_rows(S, v, v + CW, hi, hi + TILE_F);
+  }
+}
+
+// z^T = W3^T h2^T for the warp's channels n0.. (z before the affine):
+// c[j][2 hh + e] = channel n0 + 8 hh + g, row 8 j + 2 t + e.
+template <bool BF>
+__device__ __forceinline__ void s8_zt(const unsigned char* hb,
+                                      const unsigned char* wb, int n0,
+                                      int lane, float c[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) zero4(c[j]);
+  if constexpr (BF) {
+    const __nv_bfloat16* H = reinterpret_cast<const __nv_bfloat16*>(hb);
+    const __nv_bfloat16* Ws = reinterpret_cast<const __nv_bfloat16*>(wb);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      ldsm4t(a, a_cols_at<S8_LDWB>(Ws, n0, 16 * kk, lane));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm4(b, b_cols_at(H, 16 * np, 16 * kk, lane));
+        mma_bf16(c[2 * np], a, b[0], b[1]);
+        mma_bf16(c[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  } else {
+    const float* hi = reinterpret_cast<const float*>(hb);
+    const SplitBuf H{hi, hi + TILE_F};
+    const float* Ws = reinterpret_cast<const float*>(wb);
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+    for (int kb = 0; kb < 8; ++kb) {
+      const float* w = Ws + (8 * kb + 2 * t) * S8_LDWF + n0 + g;
+      const FragA a{{split(w[0]), split(w[8]), split(w[S8_LDWF]),
+                     split(w[S8_LDWF + 8])}};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        FragB b;
+        at2(H, (8 * j + g) * LDT + 8 * kb + 2 * t, b.v[0], b.v[1]);
+        mma3(c[j], a, b);
+      }
+    }
+  }
+}
+
+// Gram(h2) for warp (mw, nw)'s (16, 16) block, each tile's part added to
+// the f32 running sums G round-to-nearest, and at nw == mw the column
+// sums 16 mw + g (+ 8) into ch; at f32 only the blocks with nw >= mw (the
+// caller mirrors them). h2 >= 0: every term is >= 0, so the f32 running
+// sums lose no more than ~tiles 2^-24 of their value.
+template <bool BF>
+__device__ __forceinline__ void s8_gram(const unsigned char* hb, int mw,
+                                        int nw, int lane, float G[2][4],
+                                        float ch[2]) {
+  float c[2][4];
+  zero4(c[0]);
+  zero4(c[1]);
+  float s0 = 0.f, s1 = 0.f;
+  if constexpr (BF) {
+    const __nv_bfloat16* H = reinterpret_cast<const __nv_bfloat16*>(hb);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4], b[4];
+      ldsm4t(a, a_cols_at(H, 16 * mw, 16 * kk, lane));
+      ldsm4t(b, b_rows_at(H, 16 * nw, 16 * kk, lane));
+      if (nw == mw) {
+        const float2 u0 = unpack_bf16(a[0]), u1 = unpack_bf16(a[1]);
+        const float2 u2 = unpack_bf16(a[2]), u3 = unpack_bf16(a[3]);
+        s0 += (u0.x + u0.y) + (u2.x + u2.y);
+        s1 += (u1.x + u1.y) + (u3.x + u3.y);
+      }
+      mma_bf16(c[0], a, b[0], b[1]);
+      mma_bf16(c[1], a, b[2], b[3]);
+    }
+  } else {
+    if (nw < mw) return;                // sa_pair.cu's B2b f32 Gram
+    const float* hi = reinterpret_cast<const float*>(hb);
+    const SplitBuf H{hi, hi + TILE_F};
+#pragma unroll 2
+    for (int kb = 0; kb < 8; ++kb) {
+      const FragA a = frag_a_cols(H, 16 * mw, kb, lane);
+      if (nw == mw) {
+        s0 += col_pair(a, 0);
+        s1 += col_pair(a, 1);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+        mma3(c[nj], a, frag_b_rows(H, 16 * nw + 8 * nj, kb, lane));
+    }
+  }
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) G[nj][q] = __fadd_rn(G[nj][q], c[nj][q]);
+  ch[0] = __fadd_rn(ch[0], s0);
+  ch[1] = __fadd_rn(ch[1], s1);
+}
+
+// z = (p3 + b3) mul3 + shift3 from z^T's accumulators (p3 = bf16(acc)
+// at BF); cg = channel n0 + g of the tile.
+template <bool BF>
+__device__ __forceinline__ void s8_affine(float c[8][4], int cg,
+                                          const float* b3s,
+                                          const float* mul3,
+                                          const float* shift3) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int cn = cg + 8 * hh;
+    const float b = b3s[cn], m3 = mul3[cn], s3 = shift3[cn];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float2 p = make_float2(c[j][2 * hh], c[j][2 * hh + 1]);
+      if constexpr (BF) p = unpack_bf16(pack_bf16(p.x, p.y));
+      c[j][2 * hh] = __fadd_rn(__fmul_rn(__fadd_rn(p.x, b), m3), s3);
+      c[j][2 * hh + 1] = __fadd_rn(__fmul_rn(__fadd_rn(p.y, b), m3), s3);
+    }
+  }
+}
+
+// A group spanning tiles, its first walk: the tile's max of relu(z) and
+// the rows equal to it (the lane's values, then the t group), merged into
+// the group's running max gm and tie count gn.
+__device__ __forceinline__ void s8_span_max(const float c[8][4], float gm[2],
+                                            int gn[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float m = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      m = fmaxf(m, fmaxf(c[j][2 * hh], c[j][2 * hh + 1]));
+    m = fmaxf(m, __shfl_xor_sync(S8_FULL, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(S8_FULL, m, 2));
+    int n = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      n += (c[j][2 * hh] == m ? 1 : 0) + (c[j][2 * hh + 1] == m ? 1 : 0);
+    n += __shfl_xor_sync(S8_FULL, n, 1);
+    n += __shfl_xor_sync(S8_FULL, n, 2);
+    if (m > gm[hh]) {
+      gm[hh] = m;
+      gn[hh] = n;
+    } else if (m == gm[hh]) {
+      gn[hh] += n;
+    }
+  }
+}
+
+// The route of one channel tile (n0..) from z (c, the affine applied):
+// per (group, channel) the max of relu(z) and the count of rows equal to
+// it (m, n; given for a group spanning tiles, upt > 1), share = dpooled
+// / n where m > 0 (rounded to bf16 at BF); c becomes dy3. A group of 2^LP
+// rows spans JS of a lane's j and ES of its e, and the low TB bits of t.
+// us[hh] += the lane's sum of dy3 for channel n0 + 8 hh + g.
+template <bool BF, int LP>
+__device__ __forceinline__ void s8_route(float c[8][4], int n0, int lane,
+                                         int64_t tile, int upt,
+                                         const float gm[2], const int gn[2],
+                                         const RowT<BF>* __restrict__ dp,
+                                         float us[2]) {
+  constexpr int JS = LP > 3 ? 1 << (LP - 3) : 1;
+  constexpr int ES = LP > 0 ? 2 : 1;
+  constexpr int TB = LP > 2 ? 2 : (LP > 1 ? 1 : 0);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int ch = n0 + 8 * hh + g;
+    float s = 0.f;
+#pragma unroll
+    for (int j0 = 0; j0 < 8; j0 += JS)
+#pragma unroll
+      for (int e0 = 0; e0 < 2; e0 += ES) {
+        float m;
+        int n;
+        if (upt > 1) {
+          m = gm[hh];
+          n = gn[hh];
+        } else {
+          m = 0.f;
+#pragma unroll
+          for (int jj = 0; jj < JS; ++jj)
+#pragma unroll
+            for (int ee = 0; ee < ES; ++ee)
+              m = fmaxf(m, c[j0 + jj][2 * hh + e0 + ee]);
+#pragma unroll
+          for (int b = 0; b < TB; ++b)
+            m = fmaxf(m, __shfl_xor_sync(S8_FULL, m, 1 << b));
+          n = 0;
+#pragma unroll
+          for (int jj = 0; jj < JS; ++jj)
+#pragma unroll
+            for (int ee = 0; ee < ES; ++ee)
+              n += c[j0 + jj][2 * hh + e0 + ee] == m ? 1 : 0;
+#pragma unroll
+          for (int b = 0; b < TB; ++b)
+            n += __shfl_xor_sync(S8_FULL, n, 1 << b);
+        }
+        float share = 0.f;
+        if (m > 0.f) {
+          const int base = ((8 * j0 + 2 * t + e0) >> LP) << LP;
+          const int64_t grp =
+              upt > 1 ? tile / upt : tile * (TR >> LP) + (base >> LP);
+          share = rb_if<BF>(
+              __fdiv_rn(to_f(dp[grp * C3W + ch]), static_cast<float>(n)));
+        }
+#pragma unroll
+        for (int jj = 0; jj < JS; ++jj)
+#pragma unroll
+          for (int ee = 0; ee < ES; ++ee) {
+            float& z = c[j0 + jj][2 * hh + e0 + ee];
+            z = (m > 0.f && z == m) ? share : 0.f;
+            s += z;
+          }
+      }
+    us[hh] += s;
+  }
+}
+
+// dy3 (bf16 values) packed in pairs as dy3^T's A fragments: k16 step kk
+// (rows 16 kk..) from z^T's C fragments 2 kk and 2 kk + 1 as they stand.
+__device__ __forceinline__ void s8_pack(const float c[8][4],
+                                        uint32_t dy[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    dy[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    dy[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    dy[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    dy[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// D = gi3 dy3 of the channel tile n0.. into the D^T tile [channel][row]:
+// bf16(dy3 bf16(gi3)) by stmatrix (bf16), or the f32 products (f32).
+__device__ __forceinline__ void s8_dstore(const uint32_t dy[4][4],
+                                          const float* gi3, int n0, int lane,
+                                          unsigned char* db) {
+  const int g = lane >> 2;
+  const float ga = gi3[n0 + g], gb = gi3[n0 + 8 + g];
+  __nv_bfloat16* DT = reinterpret_cast<__nv_bfloat16*>(db);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t r[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 d = unpack_bf16(dy[kk][q]);
+      const float s = (q & 1) ? gb : ga;
+      r[q] = pack_bf16(__fmul_rn(d.x, s), __fmul_rn(d.y, s));
+    }
+    stsm4(DT + (n0 + (((lane >> 3) & 1) << 3) + (lane & 7)) * LDB +
+              16 * kk + ((lane >> 4) << 3),
+          r);
+  }
+}
+
+__device__ __forceinline__ void s8_dstore(const float c[8][4],
+                                          const float* gi3, int n0, int lane,
+                                          unsigned char* db) {
+  const int g = lane >> 2, t = lane & 3;
+  const float ga = gi3[n0 + g], gb = gi3[n0 + 8 + g];
+  float* DT = reinterpret_cast<float*>(db);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    st2r(DT + (n0 + g) * LDT + 8 * j + 2 * t,
+         make_float2(__fmul_rn(c[j][0], ga), __fmul_rn(c[j][1], ga)));
+    st2r(DT + (n0 + 8 + g) * LDT + 8 * j + 2 * t,
+         make_float2(__fmul_rn(c[j][2], gb), __fmul_rn(c[j][3], gb)));
+  }
+}
+
+// A3 += dy3^T h2 for the warp's channels: dy3^T's A fragments are z^T's
+// C fragments as they stand (rows 2 t, 2 t + 1 of each k step), h2 the B
+// operand read with the same pairing; each k step added round-to-nearest.
+__device__ __forceinline__ void s8_a3(const uint32_t dy[4][4],
+                                      const unsigned char* hb, int lane,
+                                      float a3[8][4]) {
+  const __nv_bfloat16* H = reinterpret_cast<const __nv_bfloat16*>(hb);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      ldsm4t(b, b_rows_at(H, 16 * np, 16 * kk, lane));
+      step_bf16(a3[2 * np], dy[kk], b[0], b[1]);
+      step_bf16(a3[2 * np + 1], dy[kk], b[2], b[3]);
+    }
+}
+
+__device__ __forceinline__ void s8_a3(const float c[8][4],
+                                      const unsigned char* hb, int lane,
+                                      float a3[8][4]) {
+  const float* hi = reinterpret_cast<const float*>(hb);
+  const SplitBuf H{hi, hi + TILE_F};
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kb = 0; kb < 8; ++kb) {
+    const FragA a{{split(c[kb][0]), split(c[kb][2]), split(c[kb][1]),
+                   split(c[kb][3])}};
+    const int o = (8 * kb + 2 * t) * LDT + g;   // rows 2 t, 2 t + 1
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      step3(a3[nt], a, FragB{{at(H, o + 8 * nt), at(H, o + LDT + 8 * nt)}});
+  }
+}
+
+// q3 of the tile's rows 16 mw.., columns 16 nw.. = D W3^T (k = the 256
+// channels, D from the D^T tile, W3 from its tile), stored to out (the
+// tile's first row).
+template <bool BF>
+__device__ __forceinline__ void s8_q3(const unsigned char* db,
+                                      const unsigned char* wb, int mw,
+                                      int nw, int lane, RowT<BF>* out) {
+  const int g = lane >> 2, t = lane & 3;
+  float qa[2][4];                       // rows 16 mw + g (+8), columns
+  zero4(qa[0]);                         // 16 nw + 8 nj + 2t (+1)
+  zero4(qa[1]);
+  if constexpr (BF) {
+    const __nv_bfloat16* DT = reinterpret_cast<const __nv_bfloat16*>(db);
+    const __nv_bfloat16* Ws = reinterpret_cast<const __nv_bfloat16*>(wb);
+#pragma unroll 4
+    for (int kk = 0; kk < C3W / 16; ++kk) {
+      uint32_t a[4], b[4];
+      ldsm4t(a, a_cols_at(DT, 16 * mw, 16 * kk, lane));
+      ldsm4(b, b_cols_at<S8_LDWB>(Ws, 16 * nw, 16 * kk, lane));
+      mma_bf16(qa[0], a, b[0], b[1]);
+      mma_bf16(qa[1], a, b[2], b[3]);
+    }
+  } else {
+    const float* DT = reinterpret_cast<const float*>(db);
+    const float* Ws = reinterpret_cast<const float*>(wb);
+    for (int k0 = 0; k0 < C3W / 8; k0 += 4) {   // 32 channels a step
+      float st[2][4];
+      zero4(st[0]);
+      zero4(st[1]);
+#pragma unroll
+      for (int kb = k0; kb < k0 + 4; ++kb) {
+        const float* d = DT + (8 * kb + t) * LDT + 16 * mw + g;
+        const FragA a{{split(d[0]), split(d[8]), split(d[4 * LDT]),
+                       split(d[4 * LDT + 8])}};
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj) {
+          const float* x = Ws + (16 * nw + 8 * nj + g) * S8_LDWF + 8 * kb + t;
+          mma3(st[nj], a, FragB{{split(x[0]), split(x[4])}});
+        }
+      }
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) qa[nj][q] = __fadd_rn(qa[nj][q], st[nj][q]);
+    }
+  }
+  RowT<BF>* o = out + (16 * mw + g) * CW + 16 * nw + 2 * t;
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj) {
+    if constexpr (BF) {
+      *reinterpret_cast<uint32_t*>(o + 8 * nj) =
+          pack_bf16(qa[nj][0], qa[nj][1]);
+      *reinterpret_cast<uint32_t*>(o + 8 * CW + 8 * nj) =
+          pack_bf16(qa[nj][2], qa[nj][3]);
+    } else {
+      st2r(o + 8 * nj, make_float2(qa[nj][0], qa[nj][1]));
+      st2r(o + 8 * CW + 8 * nj, make_float2(qa[nj][2], qa[nj][3]));
+    }
+  }
+}
+
+template <bool BF, int LP>
+__global__ void __launch_bounds__(S8_NT, 1)
+bwd2_sweep1_kernel(const RowT<BF>* __restrict__ p2, int64_t ntiles, int upt,
                    const float* __restrict__ vec,
                    const float* __restrict__ W3,
                    const RowT<BF>* __restrict__ dpooled,
                    RowT<BF>* __restrict__ q3,
                    double* __restrict__ partA, double* __restrict__ partu,
                    double* __restrict__ partG, double* __restrict__ partc) {
-  extern __shared__ float sm[];
-  float* W3s = sm;                      // CW*C3W
-  float* zs = W3s + CW * C3W;           // TR*LDZ: z, then dy3
-  float* h2s = zs + TR * LDZ;           // TR*LD
-  float* q3s = h2s + TR * LD;           // TR*LD
-  float* v = q3s + TR * LD;             // 2*CW + 4*C3W
-  const float* vec3 = v + 2 * CW;
-  const float* gi3 = v + 2 * CW + 3 * C3W;
+  using L = S8<BF>;
+  using T = RowT<BF>;
+  extern __shared__ __align__(128) unsigned char smb[];
+  T* stage = reinterpret_cast<T*>(smb);
+  unsigned char* hb = smb + L::H;
+  unsigned char* wb = smb + L::W;
+  unsigned char* db = smb + L::D;
+  float* v = reinterpret_cast<float*>(smb + L::V);
+  const float* b3s = v + 2 * CW;        // b3 (rounded at BF)
+  const float* mul3 = v + 2 * CW + C3W;
+  const float* shift3 = v + 2 * CW + 2 * C3W;
+  const float* gi3 = v + 2 * CW + 3 * C3W;   // (rounded at BF)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smb + L::BARS);
 
-  copy_vec_p<BF>(W3s, W3, CW * C3W);
-  copy_vec(v, vec, 2 * CW);
-  copy_vec_p<BF>(v + 2 * CW, vec + 2 * CW, C3W);
-  copy_vec(v + 2 * CW + C3W, vec + 2 * CW + C3W, 2 * C3W);
-  copy_vec_p<BF>(v + 2 * CW + 3 * C3W, vec + 2 * CW + 3 * C3W, C3W);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = 16 * warp;             // z^T, dy3, A3, u3: channels n0..
+  const int mw = warp & 3, nw = warp >> 2;  // q3, Gram: rows 16 mw.., 16 nw..
+  // This block's steps: whole units of upt tiles (a group spanning tiles
+  // stays with one block, walked twice), units strided over the grid.
+  const int steps = upt > 1 ? 2 * upt : 1;
+  const int64_t units = ntiles / upt;
+  const int64_t count =
+      units > blockIdx.x ? ((units - 1 - blockIdx.x) / gridDim.x + 1) * steps
+                         : 0;
+  auto tile_at = [&](int64_t i) {
+    return (blockIdx.x + (i / steps) * gridDim.x) * upt + (i % steps) % upt;
+  };
+  auto fetch = [&](int64_t i) {               // thread 0: one bulk copy
+    uint64_t* bar = &bars[i % L::STAGES];
+    mbar_expect(bar, static_cast<uint32_t>(L::STAGE));
+    bulk_load(stage + (i % L::STAGES) * TR * CW, p2 + tile_at(i) * TR * CW,
+              static_cast<uint32_t>(L::STAGE), bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) mbar_init(&bars[s]);
+    for (int64_t i = 0; i < L::STAGES && i < count; ++i) fetch(i);
+  }
+  if constexpr (BF) {                   // W3 as a bf16 tile [j][c]
+    __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(wb);
+    for (int e = threadIdx.x; e < CW * C3W / 2; e += S8_NT) {
+      const int j = e / (C3W / 2), c = (e % (C3W / 2)) * 2;
+      *reinterpret_cast<uint32_t*>(Ws + j * S8_LDWB + c) =
+          pack_bf16(W3[j * C3W + c], W3[j * C3W + c + 1]);
+    }
+  } else {
+    float* Ws = reinterpret_cast<float*>(wb);
+    for (int e = threadIdx.x; e < CW * C3W; e += S8_NT)
+      Ws[(e / C3W) * S8_LDWF + e % C3W] = W3[e];
+  }
+  for (int i = threadIdx.x; i < 2 * CW + 4 * C3W; i += S8_NT) {
+    const bool r = BF && ((i >= 2 * CW && i < 2 * CW + C3W) ||
+                          i >= 2 * CW + 3 * C3W);
+    v[i] = r ? rb(vec[i]) : vec[i];
+  }
   __syncthreads();
 
-  const int gpt = pool <= TR ? TR / pool : 1;
-  const int upt = pool <= TR ? 1 : pool / TR;
-  const int c = threadIdx.x;            // channel / A3 row (NT == C3W)
-  // float32 running sums for A3, as sa_pair.cu's sweep 1: 64 float64
-  // registers more would not fit beside the z tile's 64 accumulators.
-  float a3[CW];
+  float a3[8][4];            // A3: channels n0 + g (+8), columns 8 j + 2t (+1)
 #pragma unroll
-  for (int k = 0; k < CW; ++k) a3[k] = 0.f;
-  double u3 = 0.0, ch = 0.0;
-  double g[4][4] = {};
+  for (int j = 0; j < 8; ++j) zero4(a3[j]);
+  float G[2][4];             // Gram: rows 16 mw + g (+8), cols 16 nw + 8 nj + 2t
+  zero4(G[0]);
+  zero4(G[1]);
+  float ch[2] = {0.f, 0.f};
+  double u3[2] = {0.0, 0.0};
+  float gm[2] = {0.f, 0.f};  // a group spanning tiles: its max and ties
+  int gn[2] = {0, 0};
+  for (int64_t i = 0; i < count; ++i) {
+    const int w = static_cast<int>(i % steps);
+    const int64_t tile = tile_at(i);
+    mbar_wait(&bars[i % L::STAGES],
+              static_cast<uint32_t>((i / L::STAGES) & 1));
+    s8_h2<BF>(stage + (i % L::STAGES) * TR * CW, v, hb);
+    __syncthreads();
+    if (threadIdx.x == 0 && i + L::STAGES < count) fetch(i + L::STAGES);
 
-  for (int64_t u = blockIdx.x; u < ntiles / upt; u += gridDim.x) {
-    float gm = 0.f, gshare = 0.f;       // a group spanning tiles
-    if (upt > 1) {
-      int n = 0;
-      for (int j = 0; j < upt; ++j) {
-        load_h_tile_p<BF>(p2, (u * upt + j) * TR, v, v + CW, h2s);
-        __syncthreads();
-        z_tile<BF>(h2s, W3s, vec3, zs);
-        __syncthreads();
-        for (int r = 0; r < TR; ++r) {
-          const float h = fmaxf(zs[r * LDZ + c], 0.f);
-          if (h > gm) {
-            gm = h;
-            n = 1;
-          } else if (h == gm) {
-            ++n;
-          }
-        }
-        __syncthreads();
+    float c[8][4];
+    s8_zt<BF>(hb, wb, n0, lane, c);
+    s8_affine<BF>(c, n0 + g, b3s, mul3, shift3);
+    if (upt > 1 && w < upt) {           // pass 1: the group's max, ties
+      if (w == 0) {
+        gm[0] = gm[1] = 0.f;
+        gn[0] = gn[1] = 0;
       }
-      gshare = gm > 0.f
-                   ? rb_if<BF>(__fdiv_rn(to_f(dpooled[u * C3W + c]), (float)n))
-                   : 0.f;
+      s8_span_max(c, gm, gn);
+      __syncthreads();                  // h2 is rewritten next step
+      continue;
     }
-    for (int j = 0; j < upt; ++j) {
-      const int64_t t = u * upt + j;
-      const int64_t r0 = t * TR;
-      load_h_tile_p<BF>(p2, r0, v, v + CW, h2s);
-      __syncthreads();
-      z_tile<BF>(h2s, W3s, vec3, zs);
-      {
-        float tg[4][4];
-        zero_patch(tg);
-        acc_atb(h2s, h2s, tg);
-        add_patch(g, tg);
-      }
-      if (threadIdx.x < CW) {
-        float tc = 0.f;
-        for (int r = 0; r < TR; ++r) tc += h2s[r * LD + threadIdx.x];
-        ch += tc;
-      }
-      __syncthreads();
+    s8_gram<BF>(hb, mw, nw, lane, G, ch);
+    float us[2] = {0.f, 0.f};
+    s8_route<BF, LP>(c, n0, lane, tile, upt, gm, gn, dpooled, us);
+    u3[0] += us[0];
+    u3[1] += us[1];
+    if constexpr (BF) {                 // dy3 packed: half the registers
+      uint32_t dy[4][4];
+      s8_pack(c, dy);
+      s8_dstore(dy, gi3, n0, lane, db);
+      s8_a3(dy, hb, lane, a3);
+    } else {
+      s8_dstore(c, gi3, n0, lane, db);
+      s8_a3(c, hb, lane, a3);
+    }
+    __syncthreads();                    // D^T complete
+    s8_q3<BF>(db, wb, mw, nw, lane, q3 + tile * TR * CW);
+  }
 
-      // Route: thread c rewrites column c of the tile with dy3.
-      float ut = 0.f;
-      for (int gi = 0; gi < gpt; ++gi) {
-        const int base = pool <= TR ? gi * pool : 0;
-        const int rows = pool <= TR ? pool : TR;
-        float m = gm, share = gshare;
-        if (upt == 1) {
-          int n = 0;
-          m = 0.f;
-          for (int r = 0; r < rows; ++r) {
-            const float h = fmaxf(zs[(base + r) * LDZ + c], 0.f);
-            if (h > m) {
-              m = h;
-              n = 1;
-            } else if (h == m) {
-              ++n;
-            }
-          }
-          share = m > 0.f
-                      ? rb_if<BF>(__fdiv_rn(
-                            to_f(dpooled[(t * gpt + gi) * C3W + c]),
-                            (float)n))
-                      : 0.f;
-        }
-        for (int r = 0; r < rows; ++r) {
-          float* zp = zs + (base + r) * LDZ + c;
-          const float d = (m > 0.f && *zp == m) ? share : 0.f;
-          *zp = d;
-          ut += d;
-        }
+  double* pa = partA + (int64_t)blockIdx.x * C3W * CW;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      pa[(n0 + g + 8 * (q >> 1)) * CW + 8 * j + 2 * t + (q & 1)] = a3[j][q];
+  const double ua = sum_over_t(u3[0]), ub = sum_over_t(u3[1]);
+  if (t == 0) {
+    partu[(int64_t)blockIdx.x * C3W + n0 + g] = ua;
+    partu[(int64_t)blockIdx.x * C3W + n0 + 8 + g] = ub;
+  }
+  double* pg = partG + (int64_t)blockIdx.x * CW * CW;
+  if (BF || nw >= mw) {
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = 16 * mw + g + 8 * (q >> 1);
+        const int cc = 16 * nw + 8 * nj + 2 * t + (q & 1);
+        pg[r * CW + cc] = G[nj][q];
+        if (!BF && nw > mw) pg[cc * CW + r] = G[nj][q];
       }
-      u3 += ut;
-      for (int r = 0; r < TR; ++r) {
-        const float d = zs[r * LDZ + c];
-        if (d != 0.f) {
-          const float* hrow = h2s + r * LD;
-#pragma unroll
-          for (int k = 0; k < CW; ++k) a3[k] = fmaf(d, hrow[k], a3[k]);
-        }
-      }
-      __syncthreads();
-
-      // q3: thread (quarter, r) owns row r, columns [16 quarter, +16).
-      {
-        const int r = threadIdx.x & (TR - 1), j0 = (threadIdx.x >> 6) * 16;
-        float acc[16];
-#pragma unroll
-        for (int jj = 0; jj < 16; ++jj) acc[jj] = 0.f;
-        const float* drow = zs + r * LDZ;
-        for (int k = 0; k < C3W; ++k) {
-          const float d = drow[k];
-          if (d != 0.f) {
-            const float vg = rb_if<BF>(__fmul_rn(d, gi3[k]));
-#pragma unroll
-            for (int jj = 0; jj < 16; ++jj)
-              acc[jj] = fmaf(vg, W3s[(j0 + jj) * C3W + k], acc[jj]);
-          }
-        }
-#pragma unroll
-        for (int jj = 0; jj < 16; ++jj) q3s[r * LD + j0 + jj] = acc[jj];
-      }
-      __syncthreads();
-      store_tile_p<BF>(q3s, r0, q3);
-      __syncthreads();
+  }
+  if (nw == mw) {
+    const double a = sum_over_t(static_cast<double>(ch[0]));
+    const double b = sum_over_t(static_cast<double>(ch[1]));
+    if (t == 0) {
+      partc[(int64_t)blockIdx.x * CW + 16 * mw + g] = a;
+      partc[(int64_t)blockIdx.x * CW + 16 * mw + g + 8] = b;
     }
   }
-#pragma unroll
-  for (int k = 0; k < CW; ++k)
-    partA[((int64_t)blockIdx.x * C3W + c) * CW + k] = a3[k];
-  partu[(int64_t)blockIdx.x * C3W + c] = u3;
-  write_patch(g, partG + (int64_t)blockIdx.x * CW * CW);
-  if (threadIdx.x < CW) partc[(int64_t)blockIdx.x * CW + threadIdx.x] = ch;
 }
 
 // ---------------------------------------------------------------------
@@ -851,6 +1292,21 @@ int launch_fwd_pool(const RowT<BF>* p2, int64_t R, int pool, const float* vec,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool BF, int LP>
+int launch_bwd2_sweep1_lp(const RowT<BF>* p2, int64_t R, int upt,
+                          const float* vec, const float* W3,
+                          const RowT<BF>* dpooled, RowT<BF>* q3,
+                          double* partA, double* partu, double* partG,
+                          double* partc, int nblk, cudaStream_t st) {
+  const size_t smem = S8<BF>::TOTAL;
+  cudaError_t e = prepare(bwd2_sweep1_kernel<BF, LP>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bwd2_sweep1_kernel<BF, LP><<<nblk, S8_NT, smem, st>>>(
+      p2, R / TR, upt, vec, W3, dpooled, q3, partA, partu, partG, partc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B8a: LP = log2(min(pool, TR)); a pool > TR spans upt = pool / TR tiles.
 template <bool BF>
 int launch_bwd2_sweep1(const RowT<BF>* p2, int64_t R, int pool,
                        const float* vec, const float* W3,
@@ -858,15 +1314,21 @@ int launch_bwd2_sweep1(const RowT<BF>* p2, int64_t R, int pool,
                        double* partu, double* partG, double* partc, int nblk,
                        void* stream) {
   if (bad_pool(R, pool)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (CW * C3W + TR * LDZ + 2 * TR * LD +
-                                       2 * CW + 4 * C3W);
-  cudaError_t e = prepare(bwd2_sweep1_kernel<BF>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  bwd2_sweep1_kernel<BF>
-      <<<nblk, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-          p2, R / TR, pool, vec, W3, dpooled, q3, partA, partu, partG,
-          partc);
-  return static_cast<int>(cudaGetLastError());
+  const int upt = pool <= TR ? 1 : pool / TR;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define S8_LAUNCH(LP)                                                     \
+  return launch_bwd2_sweep1_lp<BF, LP>(p2, R, upt, vec, W3, dpooled, q3, \
+                                       partA, partu, partG, partc, nblk, st)
+  switch (pool <= TR ? pool : TR) {
+    case 1: S8_LAUNCH(0);
+    case 2: S8_LAUNCH(1);
+    case 4: S8_LAUNCH(2);
+    case 8: S8_LAUNCH(3);
+    case 16: S8_LAUNCH(4);
+    case 32: S8_LAUNCH(5);
+    default: S8_LAUNCH(6);
+  }
+#undef S8_LAUNCH
 }
 
 template <bool BF>

@@ -1651,20 +1651,6 @@ __device__ __forceinline__ float2 ld2f(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// c += a b for one k8 step in 3xTF32: the step summed on its own (mma3
-// from 0), then added to c in f32, round to nearest. The tensor cores'
-// own adds truncate; chained over a whole product (3 K / 8 adds), their
-// bias took B9's dx to 2.8x the twin's distance from float64 on an H100
-// (phase 2's SA chain bar is 2x); step by step, the adds across steps
-// round as the k-order chain's do.
-__device__ __forceinline__ void step3(float c[4], const FragA& a,
-                                      const FragB& b) {
-  float st[4] = {0.f, 0.f, 0.f, 0.f};
-  mma3(st, a, b);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) c[q] = __fadd_rn(c[q], st[q]);
-}
-
 // sum_k a[k] w[k ldw] for k < kdim, fmaf from 0 with k ascending: the
 // k-order chain of the CUDA-core kernel (prod) and of the twin's product.
 __device__ __forceinline__ float kdot_tf(const float* a, const float* w,

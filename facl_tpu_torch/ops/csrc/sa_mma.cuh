@@ -1,6 +1,7 @@
 // Tensor-core tile machinery of the redesigned SA sweeps (sa_pair.cu:
 // fwd_layer12, fwd_gram_pool, bwd_sweep2, bwd_sweep3 and the bf16 forms of
-// all five sweeps; the f32 bwd_sweep1 uses the TMA staging).
+// all five sweeps; the f32 bwd_sweep1 uses the TMA staging; sa_2sweep.cu:
+// B8a, bwd2_sweep1, at both dtypes).
 // Products run as mma.sync m16n8k8 TF32 in the 3xTF32 split, which keeps
 // f32-level accuracy: each f32 operand a becomes hi = tf32(a) and lo =
 // tf32(a - hi), and a product sums lo.hi' + hi.lo' + hi.hi' in f32 (the
@@ -561,10 +562,11 @@ __device__ __forceinline__ const __nv_bfloat16* a_rows_at(
   return X + (m0 + (lane & 15)) * LDB + k0 + ((lane >> 4) << 3);
 }
 // The A fragment of A[m][k] = X[k][m] (transposed load): the tile's rows
-// are the reduction.
+// are the reduction. (LDX: a tile of another stride.)
+template <int LDX = LDB>
 __device__ __forceinline__ const __nv_bfloat16* a_cols_at(
     const __nv_bfloat16* X, int m0, int k0, int lane) {
-  return X + (k0 + (lane & 7) + ((lane >> 4) << 3)) * LDB + m0 +
+  return X + (k0 + (lane & 7) + ((lane >> 4) << 3)) * LDX + m0 +
          (((lane >> 3) & 1) << 3);
 }
 // B fragments of two n-tiles n0.., n0 + 8.. (registers b0, b1, b0', b1')
@@ -575,10 +577,39 @@ __device__ __forceinline__ const __nv_bfloat16* b_rows_at(
          ((lane >> 4) << 3);
 }
 // ... or from X[n][k] (plain load).
+template <int LDX = LDB>
 __device__ __forceinline__ const __nv_bfloat16* b_cols_at(
     const __nv_bfloat16* X, int n0, int k0, int lane) {
-  return X + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LDB + k0 +
+  return X + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LDX + k0 +
          (((lane >> 3) & 1) << 3);
+}
+
+// h2 = relu(bf16(p2 mul2 + shift2)) of a staged (TR, CW) bf16 tile S into
+// the (TR, LDB) tile H, eight values a step (v2 = [mul2 | shift2]; every
+// rounding two values at once); thread tid of nth.
+__device__ __forceinline__ void relu_rows_bf16(const __nv_bfloat16* S,
+                                               const float* v2,
+                                               __nv_bfloat16* H, int tid,
+                                               int nth) {
+  for (int e = tid; e < TR * CW / 8; e += nth) {
+    const int r = e >> 3, c = (e & 7) << 3;
+    const uint4 u = *reinterpret_cast<const uint4*>(S + r * CW + c);
+    const uint32_t in[4] = {u.x, u.y, u.z, u.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 p = unpack_bf16(in[j]);
+      const int cc = c + 2 * j;
+      float2 f;
+      uint32_t bits;
+      o[j] = relu_packed(
+          pack_bf16(__fadd_rn(__fmul_rn(p.x, v2[cc]), v2[CW + cc]),
+                    __fadd_rn(__fmul_rn(p.y, v2[cc + 1]), v2[CW + cc + 1])),
+          f, bits);
+    }
+    *reinterpret_cast<uint4*>(H + r * LDB + c) =
+        make_uint4(o[0], o[1], o[2], o[3]);
+  }
 }
 
 // 16-byte asynchronous copies global -> shared (cp.async), each thread's

@@ -1787,27 +1787,8 @@ fwd_gram_pool_bf16_kernel(const __nv_bfloat16* __restrict__ p2,
     mbar_wait(&bars[i % GPB_STAGES],
               static_cast<uint32_t>((i / GPB_STAGES) & 1));
     {   // h2 = relu(bf16(p2 mul2 + shift2)), eight values a step
-      const bf* S = stage + (i % GPB_STAGES) * TR * CW;
-      for (int e = threadIdx.x; e < TR * CW / 8; e += GPB_NT) {
-        const int r = e >> 3, c = (e & 7) << 3;
-        const uint4 u = *reinterpret_cast<const uint4*>(S + r * CW + c);
-        const uint32_t in[4] = {u.x, u.y, u.z, u.w};
-        uint32_t o[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 p = unpack_bf16(in[j]);
-          const int cc = c + 2 * j;
-          float2 f;
-          uint32_t bits;
-          o[j] = relu_packed(
-              pack_bf16(__fadd_rn(__fmul_rn(p.x, v2[cc]), v2[CW + cc]),
-                        __fadd_rn(__fmul_rn(p.y, v2[cc + 1]),
-                                  v2[CW + cc + 1])),
-              f, bits);
-        }
-        *reinterpret_cast<uint4*>(H + r * LDB + c) =
-            make_uint4(o[0], o[1], o[2], o[3]);
-      }
+      relu_rows_bf16(stage + (i % GPB_STAGES) * TR * CW, v2, H, threadIdx.x,
+                     GPB_NT);
     }
     __syncthreads();
     if (threadIdx.x == 0 && i + GPB_STAGES < count) fetch(i + GPB_STAGES);

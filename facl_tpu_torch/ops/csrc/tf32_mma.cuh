@@ -1,5 +1,5 @@
 // The 3xTF32 tensor-core primitives of the f32 sweeps (sa_mma.cuh's B2b,
-// B3b and B3c; sa_fused.cu's B9): mma.sync m16n8k8 TF32 with f32
+// B3b and B3c; sa_2sweep.cu's B8a; sa_fused.cu's B9): mma.sync m16n8k8 TF32 with f32
 // accumulation, each f32 operand a split into hi = tf32(a) and lo =
 // tf32(a - hi), each rounded to nearest (split), a product summed as
 // lo.hi' + hi.lo' + hi.hi' in f32 (the dropped lo.lo' term is ~2^-22
@@ -57,6 +57,20 @@ __device__ __forceinline__ void mma3(float c[4], const FragA& a,
            b.v[1].lo);
   mma_tf32(c, a.v[0].hi, a.v[1].hi, a.v[2].hi, a.v[3].hi, b.v[0].hi,
            b.v[1].hi);
+}
+
+// c += a b for one k8 step in 3xTF32: the step summed on its own (mma3
+// from 0), then added to c in f32, round to nearest. The tensor cores'
+// own adds truncate; chained over a whole product (3 K / 8 adds), their
+// bias took B9's dx to 2.8x the twin's distance from float64 on an H100
+// (phase 2's SA chain bar is 2x); step by step, the adds across steps
+// round as the k-order chain's do (B9, sa_fused.cu; B8a, sa_2sweep.cu).
+__device__ __forceinline__ void step3(float c[4], const FragA& a,
+                                      const FragB& b) {
+  float st[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(st, a, b);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) c[q] = __fadd_rn(c[q], st[q]);
 }
 
 }  // namespace

@@ -22,10 +22,13 @@ as the JAX side forces Precision.HIGHEST.
 
 Pool ties follow this kernel's rule (sa_bwd.py:70-91), not pair3's: the
 max is taken on the sweep's own recomputed f32 relu(z), and dpooled is
-split evenly among exact ties where z > 0. In ``hybrid`` the forward's p3
-comes from a cuBLAS product and B8a recomputes it in its own order, so at
+split evenly among exact ties where z > 0. B8a recomputes p3 on the
+tensor cores in its own order (the forward's comes from a cuBLAS product
+in ``hybrid``, from B7c's k-order CUDA-core sums in ``hybrid2``), so at
 near-ties the backward may route to another row than the one the forward
-pooled — as in JAX (sa_bwd.py:30-35).
+pooled — as in JAX (sa_bwd.py:30-35). Its wrapper launches one 512-thread
+block an SM and takes a 16-byte aligned p2 (its tiles arrive by TMA bulk
+copies).
 
 At compute_dtype bfloat16 (``dtype=torch.bfloat16``) both sweeps have bf16
 instantiations (``sa_bwd2_sweep1_bf16``, ``sa_bwd2_sweep2_bf16``, entry
@@ -46,7 +49,8 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from facl_tpu_torch.ops._launch import I, L, P, TRUNK, check_c0, \
-    check_pool, entry, grid, launch, need, on_cpu, ptr, reduce, stream_of
+    check_pool, entry, grid, launch, need, need_aligned, on_cpu, ptr, \
+    reduce, stream_of
 from facl_tpu_torch.ops.fused_sa import BF16, SALayerParams, \
     sa_reference_4d
 
@@ -232,9 +236,10 @@ def _sweep1(p2, mul2, shift2, w3, b3, mul3, shift3, gi3, dpooled, pool, dt):
     need(p2, (R, C2), "p2", dt)
     need(w3, (C2, C3), "w3")
     need(dpooled, (R // pool, C3), "dpooled", dt)
+    need_aligned(p2, "p2")
     vec = torch.cat([mul2, shift2, b3, mul3, shift3, gi3]).contiguous()
     need(vec, (2 * C2 + 4 * C3,), "mul2|shift2|b3|mul3|shift3|gi3")
-    nblk = grid(p2, R)
+    nblk = grid(p2, R, per_sm=1)      # one 512-thread block an SM
     dev = p2.device
     q3 = torch.empty((R, C2), dtype=dt, device=dev)
     partA = torch.empty((nblk, C3, C2), dtype=torch.float64, device=dev)

@@ -229,6 +229,44 @@ def test_bf16_two_sweep_kernels_match_twins(dev, rng, K, B, N):
         _acc(k[n], tw[n])
 
 
+@pytest.mark.parametrize("K", [16, 64, 128])
+def test_bf16_b8a_duplicated_rows_match_twins(dev, rng, K):
+    """B8a at bf16 on groups padded with copies of their first row, as
+    ball query pads them (the last half of each group; at K = 128 in the
+    group's second tile): exact ties of z split evenly by the kernel as by
+    the twin. Accumulators within 1e-3 of their max-abs, q3 within one
+    bf16 ulp but at most 1e-3 of its entries, dpooled zero on near-tie
+    pairs; two calls bit-identical."""
+    from facl_tpu_torch.ops import sa_bwd as SB
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    vec = lambda n, s=1.0: t(s * rng.normal(size=(n,)))
+    R = 64 * K
+    d = K - K // 2
+    base = rng.normal(size=(R // K, K, 64)).astype(np.float32)
+    base[:, 0] *= 3.0
+    base[:, d:] = base[:, :1]
+    p2 = t(base.reshape(R, 64)).to(BF16)
+    (_, _, _, _), (_, _, _, _), (w3, b3, _, _) = _layers(rng, dev)
+    mul2, shift2, mul3, shift3 = vec(64, 2), vec(64), vec(256, 0.2), \
+        vec(256)
+    gi3 = vec(256)
+    z = SB._z_bf16(SB._h_bf16(p2, mul2, shift2), w3, b3, mul3, shift3)
+    near = _near_ties(z, K, 1e-5 * float(z.abs().max()))
+    dp = torch.where(near, 0.0, vec(R // K * 256).view(R // K, 256)).to(BF16)
+    dy3 = SB._dy_top(z, dp.float(), K)
+    routed = int((dp.float().abs() > 0).logical_and(
+        (dy3.view(-1, K, 256) != 0).any(1)).sum())
+    assert int((dy3 != 0).sum()) >= 3 * routed     # ties a routed pair
+    args = (p2, mul2, shift2, w3, b3, mul3, shift3, gi3, dp, K)
+    k, tw = SB.sa_bwd2_sweep1_bf16(*args), SB.sa_bwd2_sweep1_bf16_plain(*args)
+    assert all(torch.equal(a, b) for a, b in
+               zip(k, SB.sa_bwd2_sweep1_bf16(*args)))
+    for a, b in zip(k[:4], tw[:4]):
+        _acc(a, b)
+    assert k[4].dtype == BF16
+    _rows(k[4], tw[4])
+
+
 @pytest.mark.parametrize("K", [64, 128])
 @pytest.mark.parametrize("impl", ["pair", "hybrid2", "hybrid"])
 def test_bf16_two_sweep_stages_card_vs_cpu(dev, rng, impl, K):

@@ -1,7 +1,8 @@
 """The order of sums of the bf16 forms of B2a (sa_fwd_layer12_bf16), B2b
 (sa_fwd_gram_pool_bf16), B3a (sa_bwd_sweep1_bf16), B3b
-(sa_bwd_sweep2_bf16) and B3c (sa_bwd_sweep3_bf16), modelled in torch on
-the CPU, held against their bf16 twins and against the JAX kernels they
+(sa_bwd_sweep2_bf16), B3c (sa_bwd_sweep3_bf16) and B8a
+(sa_bwd2_sweep1_bf16, ``b8a_model`` below), modelled in torch on the
+CPU, held against their bf16 twins and against the JAX kernels they
 port; chip_smoke.py's comparison of a bf16 sweep's outputs with another
 tree's (``--parent``); and its profiled kernel time (``kernel_ms``).
 
@@ -57,6 +58,7 @@ from facl_tpu_torch.ops.sa_fwd import _finalize
 from tests.test_torch_bf16_sa import BF, C0, EPS, K as K_TINY, S as S_TINY, \
     WIDTHS, _acc, _bf16_rows, _fold2, _lanes, _Recorder, _setup, _t, \
     _unpair
+from tests.test_torch_cuda import padded_groups
 
 BF16 = torch.bfloat16
 ROOT = Path(__file__).resolve().parents[1]
@@ -588,6 +590,178 @@ def test_sweep13_model_matches_jax_sweeps(rng, monkeypatch, negative_scale):
     _acc(A1, r[:C1, :C0] + r[C1:, C0:2 * C0], "A1")
     _acc(u1, r[:C1, 2 * C0] + r[C1:, 2 * C0], "u1")
 
+
+
+# -- B8a at bf16 (sa_2sweep.cu bwd2_sweep1_kernel<true>) ------------------
+# The kernel's order of sums: z^T = bf16(W3)^T h2^T in k16 steps into f32
+# (_k16), p3 = bf16(that) + bf16(b3), the route on the f32 z; A3 = dy3^T
+# h2 one 16-row k16 step at a time, each step summed on its own and added
+# to the f32 running sums round-to-nearest, one block walking every row
+# (the longest chain); u3 per 64-row tile as each lane sums its 16 rows
+# (8 j + 2 t + e, j then e) in f32, carried in float64; Gram(h2) per tile
+# in k16 steps into f32, the tiles added to f32 running sums; colsum(h2)
+# per tile as each lane sums its 16 rows in pairs, the tiles added in f32,
+# the lanes in float64; q3 = bf16(bf16(dy3 bf16(gi3)) bf16(W3)^T) in k16
+# steps into f32.
+
+def b8a_model(p2, mul2, shift2, w3, b3, mul3, shift3, gi3, dpooled,
+              pool: int):
+    """B8a-bf16 in the kernel's order of sums, with its twin's signature
+    (ops/sa_bwd.py::sa_bwd2_sweep1_bf16_plain)."""
+    from facl_tpu_torch.ops import sa_bwd as SB
+    h2 = SB._h_bf16(p2, mul2, shift2)
+    z = (SP._rb(_k16(h2, SP._rb(w3))) + SP._rb(b3)) * mul3 + shift3
+    dy3 = SP._rb(SB._dy_top(z, dpooled.float(), pool))
+    q3 = SP._rb(_k16(SP._rb(dy3 * SP._rb(gi3)), SP._rb(w3).T))
+    R, C2, C3 = h2.shape[0], h2.shape[1], dy3.shape[1]
+    A3 = torch.zeros(C3, C2)
+    for r0 in range(0, R, 16):
+        A3 = A3 + (dy3[r0:r0 + 16].double().T
+                   @ h2[r0:r0 + 16].double()).float()
+    lanes = dy3.view(-1, 8, 4, 2, C3)              # tile, j, t, e, channel
+    su = torch.zeros(lanes.shape[0], 4, C3)
+    for j in range(8):
+        for e in range(2):
+            su = su + lanes[:, j, :, e]
+    u3 = su.double().sum((0, 1)).float()
+    G2 = torch.zeros(C2, C2)
+    ch = torch.zeros(4, C2)
+    hl = h2.view(-1, 4, 2, 4, 2, C2)               # tile, kk, half, t, e, c
+    for i in range(R // 64):
+        ht = h2[64 * i:64 * i + 64]
+        G2 = G2 + _k16(ht.T.contiguous(), ht)
+        s = torch.zeros(4, C2)
+        for kk in range(4):
+            s = s + ((hl[i, kk, 0, :, 0] + hl[i, kk, 0, :, 1])
+                     + (hl[i, kk, 1, :, 0] + hl[i, kk, 1, :, 1]))
+        ch = ch + s
+    return A3, u3, G2, ch.double().sum(0).float(), q3.to(BF16)
+
+
+def _b8a_args(p2, mul2, shift2, w3, b3, mul3, shift3, gi3, dp, K):
+    """B8a's arguments with dpooled zero on the near-tie pairs of the
+    twin's f32 z (chip_smoke.two_sweep_bf16_rows' rule); the near-tie
+    count."""
+    from facl_tpu_torch.ops import sa_bwd as SB
+    z = SB._z_bf16(SB._h_bf16(p2, mul2, shift2), w3, b3, mul3, shift3)
+    near = cs.near_ties(z, K, 1e-5 * float(z.abs().max()))
+    dp = torch.where(near, 0.0, dp.float()).to(BF16)
+    return (p2, mul2, shift2, w3, b3, mul3, shift3, gi3, dp, K), \
+        int(near.sum())
+
+
+def _b8a_within_bars(as1):
+    """The model against the bf16 twin at phase 2's bars: A3, u3, G2, ch2
+    within ACC2_BAR of their max-abs, q3 within one bf16 ulp but at most
+    1e-3 of its entries. Returns the q3 entries beyond one ulp."""
+    from facl_tpu_torch.ops import sa_bwd as SB
+    model, twin = b8a_model(*as1), SB.sa_bwd2_sweep1_bf16_plain(*as1)
+    for a, b, name in zip(model[:4], twin[:4], ("A3", "u3", "G2", "ch2")):
+        cs.acc_rel(a, b, name, cs.ACC2_BAR)
+    return cs.bf16_flips(model[4], twin[4], "q3")[0]
+
+
+def _b8a_bench_args(S, K, clouds=4):
+    """B8a's arguments on hybrid2's bf16 forward of _bench_setup's inputs
+    (chip_smoke.two_sweep_bf16_rows' chain)."""
+    from facl_tpu_torch.ops import sa_fwd as SF
+    xb, layers, dpb = _bench_setup(S, K, clouds)
+    lp1, lp2, lp3 = layers
+    R = xb.shape[0] * xb.shape[2]
+    xr = xb.transpose(1, 2).reshape(R, xb.shape[1]).contiguous()
+    p1, s1, ss1 = SF.sa_fwd_layer_bf16_plain(xr, lp1.kernel, lp1.bias)
+    mul1, shift1 = _fold_affine(lp1, *_finalize(s1, ss1, R), EPS)
+    p2, s2, ss2 = SF.sa_fwd_layer_bf16_plain(p1, lp2.kernel, lp2.bias, mul1,
+                                             shift1)
+    m2, v2 = _finalize(s2, ss2, R)
+    mul2, shift2 = _fold_affine(lp2, m2, v2, EPS)
+    G2, ch2 = SF.sa_fwd_gram_bf16_plain(p2, mul2, shift2)
+    m3, v3 = SF._moments_from_gram(G2, ch2, lp3.kernel, lp3.bias, R)
+    mul3, shift3 = _fold_affine(lp3, m3, v3, EPS)
+    gi3 = lp3.scale * torch.rsqrt(v3 + EPS)
+    return _b8a_args(p2, mul2, shift2, lp3.kernel, lp3.bias, mul3, shift3,
+                     gi3, dpb, K)[0]
+
+
+@pytest.mark.parametrize("S,K", [(64, 64), (32, 128)])
+def test_b8a_model_within_phase2_bars_at_bench_magnitudes(S, K):
+    _b8a_within_bars(_b8a_bench_args(S, K))
+
+
+@pytest.mark.parametrize("K", [64, 128])
+def test_b8a_model_within_phase2_bars_on_padded_groups(rng, K):
+    """Groups padded with copies of their first row: the tied rows' z are
+    bit-identical in the model (their h2 rows are), so each routed pair
+    splits its cotangent over ~K/2 rows, as the main path's ~25."""
+    from facl_tpu_torch.ops import sa_bwd as SB
+    groups = 48
+    f = lambda *s, sc=1.0: torch.from_numpy(
+        (sc * rng.normal(size=s)).astype(np.float32))
+    p2 = torch.from_numpy(padded_groups(rng, groups * K, K)).to(BF16)
+    as1, _ = _b8a_args(p2, f(64, sc=0.3), f(64),
+                       f(64, 256, sc=0.125), f(256, sc=0.1), f(256, sc=0.2),
+                       f(256), 1.0 + f(256, sc=0.3), f(groups, 256), K)
+    h2 = SB._h_bf16(*as1[:3])
+    dy3 = SB._dy_top(SB._z_bf16(h2, *as1[3:7]), as1[8].float(), K)
+    routed = int((dy3.view(groups, K, 256) != 0).any(1).sum())
+    assert int((dy3 != 0).sum()) >= 5 * routed     # ties a routed pair
+    _b8a_within_bars(as1)
+
+
+def test_b8a_model_within_phase2_bars_on_bf16_near_ties(rng):
+    """_near_tie_inputs' p2 (padded rows repeated, a quarter nudged by one
+    bf16 ulp): distinct p3 within one bf16 ulp of a group's max, where
+    the model's k16 order and the twin's may round apart."""
+    p2, mul2, shift2, w3, b3, K = _near_tie_inputs(rng)
+    f = lambda *s, sc=1.0: torch.from_numpy(
+        (sc * rng.normal(size=s)).astype(np.float32))
+    P = p2.shape[0] // K
+    p3 = cs.gram_pool_bf16_p3(p2, mul2, shift2, w3, b3, K)
+    best = p3.amax(1, keepdim=True)
+    gap = (best - p3) / cs.bf16_ulp(best.abs())
+    assert int(((gap > 0) & (gap <= 1)).sum()) > 100
+    as1, _ = _b8a_args(p2, mul2, shift2, w3, b3, 1.0 + f(256, sc=0.3),
+                       f(256, sc=0.1), 1.0 + f(256, sc=0.3), f(P, 256), K)
+    _b8a_within_bars(as1)
+
+
+@pytest.mark.parametrize("negative_scale", [False, True])
+def test_b8a_model_matches_jax_sweep(rng, monkeypatch, negative_scale):
+    """tests/test_torch_bf16_sa.py's shapes and tolerances: B8a's model fed
+    the JAX side's own inputs (hybrid2's forward at bf16, its p2 and
+    statistics), against the JAX sweep 1 of sa_backward_pallas in
+    interpret mode: its packed [dy3 | h2]^T [h2 | ones] and q3."""
+    import facl_tpu.ops.pallas.sa_bwd as jsb
+    import facl_tpu.ops.pallas.sa_fwd as jsf
+    from tests.test_torch_bf16_sa import B as B_TINY
+    store = []
+    monkeypatch.setattr(jsf, "pl", _Recorder(store))
+    monkeypatch.setattr(jsb, "pl", _Recorder(store))
+    x, layers = _setup(rng, negative_scale)
+    rows = x.transpose(0, 2, 3, 1).reshape(-1, C0)
+    xf = jnp.asarray(rows).astype(BF)
+    _, stats, jp1, jp2 = jsf.sa_forward_pallas(xf, layers, K_TINY, EPS, BF,
+                                               True)
+    C1, C2, C3 = WIDTHS
+    dp = jnp.asarray(rng.normal(size=(B_TINY * S_TINY, C3)).astype(
+        np.float32)).astype(BF)
+    jsb.sa_backward_pallas(xf, jp1, jp2, layers, stats, dp, EPS, BF, True)
+    assert len(store) == 6            # layer x2, gram, pool, sweeps 1-2
+    _, lp2, lp3 = layers
+    (_, _), (m2, v2), (m3, v3) = stats
+    mul2, shift2 = (_t(a) for a in jax_fold_affine(lp2, m2, v2, EPS))
+    mul3, shift3 = (_t(a) for a in jax_fold_affine(lp3, m3, v3, EPS))
+    gi3 = _t(lp3.scale * jax.lax.rsqrt(v3 + EPS))
+    w3, b3 = _t(lp3.kernel), _t(lp3.bias)
+    A3, u3, G2, ch2, q3 = b8a_model(
+        _t(store[1][0]).to(BF16), mul2, shift2, w3, b3, mul3, shift3, gi3,
+        _t(dp).to(BF16), K_TINY)
+    out1, jq3 = _t(store[4][0]), _t(store[4][1])
+    for a, b_, name in ((A3, out1[:C3, :C2], "A3"), (u3, out1[:C3, C2], "u3"),
+                        (G2, out1[C3:, :C2], "G2"),
+                        (ch2, out1[C3:, C2], "ch2")):
+        _acc(a, b_, name)
+    _bf16_rows(q3, jq3, "q3")
 
 # -- chip_smoke.py --parent: a bf16 sweep against the parent's ------------
 

@@ -88,11 +88,13 @@ def test_two_sweep_stages_match_twins(dev, rng, impl, K):
                     lambda x, lp: fn(x.permute(0, 2, 3, 1), lp))
 
 
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 128, 16, 4, 2, 1, 192])
 def test_b6_b7_b8_kernels_match_twins(dev, rng, K):
     """Each new wrapper against its plain twin on the same card tensors:
     accumulators within 1e-4 of their max-abs, row outputs and pooled
-    values at rtol 1e-5 / atol 1e-5 x scale, cnt1 exactly."""
+    values at rtol 1e-5 / atol 1e-5 x scale, cnt1 exactly; two calls
+    bit-identical. K: one group in a tile (64), groups spanning tiles
+    (128, 192), several groups per tile (16, 4, 2, 1)."""
     from facl_tpu_torch.ops import sa_bwd as SB
     from facl_tpu_torch.ops import sa_fwd as SF
     from facl_tpu_torch.ops import sa_pair as SP
@@ -105,7 +107,13 @@ def test_b6_b7_b8_kernels_match_twins(dev, rng, K):
                                        atol=1e-5 * float(t.abs().max()))
 
     def both(fn, plain, *args, acc):
-        k, t = fn(*args), plain(*args)
+        k, t, again = fn(*args), plain(*args), fn(*args)
+        if isinstance(k, dict):
+            assert all(torch.equal(k[n], again[n]) for n in k)
+        elif isinstance(k, torch.Tensor):
+            assert torch.equal(k, again)
+        else:
+            assert all(torch.equal(a, b) for a, b in zip(k, again))
         if isinstance(k, dict):
             assert torch.equal(k["cnt1"], t["cnt1"])
             for n in t:
@@ -141,6 +149,61 @@ def test_b6_b7_b8_kernels_match_twins(dev, rng, K):
     x3 = x.view(4, 16 * K, 4).transpose(1, 2).contiguous()
     both(SP.sa_bwd_sweep2_full, SP.sa_bwd_sweep2_full_plain, x3, w1, b1,
          mul1, shift1, p2, mul2, shift2, q3, M3, rc3, gi2, w2, acc=None)
+
+
+def padded_groups(rng, R: int, K: int, C: int = 64):
+    """(R, C) rows laid out as ball query pads a group: in each group of K
+    rows the last half repeat the group's first row (which is drawn at
+    three times the scale, so that it is often the max), the rest
+    distinct."""
+    d = K - K // 2
+    base = rng.normal(size=(R // K, K, C)).astype(np.float32)
+    base[:, 0] *= 3.0
+    base[:, d:] = base[:, :1]
+    return base.reshape(R, C)
+
+
+def near_tie_pairs(z, K: int):
+    """chip_smoke.py::near_ties at its tolerance (1e-5 of max |z|)."""
+    zg = z.reshape(-1, K, z.shape[1])
+    tol = 1e-5 * float(z.abs().max())
+    zmax = zg.amax(1, keepdim=True)
+    gap = zmax - zg
+    return (zmax[:, 0].abs() <= tol) | \
+        ((zmax[:, 0] > 0) & ((gap > 0) & (gap <= tol)).any(1))
+
+
+@pytest.mark.parametrize("K", [16, 64, 128])
+def test_b8a_duplicated_rows_match_twins(dev, rng, K):
+    """B8a on groups padded with copies of their first row (exact ties of
+    z, split evenly by the kernel as by the twin; at K = 128 the copies
+    lie in the group's second tile): accumulators within 1e-4 of their
+    max-abs, q3 at rtol 1e-5 / atol 1e-5 x scale, dpooled zero on near-tie
+    pairs; two calls bit-identical."""
+    from facl_tpu_torch.ops import sa_bwd as SB
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    vec = lambda n, s=1.0: t(s * rng.normal(size=(n,)))
+    R = 64 * K
+    p2 = t(padded_groups(rng, R, K))
+    w3, b3 = t(rng.normal(size=(64, 256), scale=0.3)), vec(256, 0.1)
+    mul2, shift2, mul3, shift3 = vec(64, 0.3), vec(64), vec(256, 0.2), \
+        vec(256)
+    gi3 = vec(256)
+    z = (SB._h_from_p(p2, mul2, shift2) @ w3 + b3) * mul3 + shift3
+    dp = torch.where(near_tie_pairs(z, K), 0.0,
+                     vec(R // K * 256).view(R // K, 256))
+    dy3 = SB._dy_top(z, dp, K)
+    routed = int((dp.abs() > 0).logical_and(
+        (dy3.view(-1, K, 256) != 0).any(1)).sum())
+    assert int((dy3 != 0).sum()) >= 3 * routed     # ties a routed pair
+    args = (p2, mul2, shift2, w3, b3, mul3, shift3, gi3, dp, K)
+    k, tw, again = SB.sa_bwd2_sweep1(*args), SB.sa_bwd2_sweep1_plain(*args), \
+        SB.sa_bwd2_sweep1(*args)
+    assert all(torch.equal(a, b) for a, b in zip(k, again))
+    for a, b in zip(k[:4], tw[:4]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    torch.testing.assert_close(k[4], tw[4], rtol=1e-5,
+                               atol=1e-5 * float(tw[4].abs().max()))
 
 
 @pytest.mark.parametrize("K,B,N", [(64, 2, 1024), (128, 2, 1024),

@@ -237,3 +237,84 @@ def test_b2a_six_passes_beat_an_f32_product(rows):
     s, ss = _layer12_sums(p2)
     for k, r in ((s, ref.sum(0)), (ss, (ref * ref).sum(0))):
         assert float((k - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+# -- B8a (sa_2sweep.cu bwd2_sweep1 at f32) --------------------------------
+# Its three products run in 3xTF32, each sum in steps of its own added to
+# the f32 sum round-to-nearest: z's h2 W3 in one step (k = 64, chained in
+# the tensor cores), q3 = (gi3 dy3) W3^T in steps of 32 channels (k =
+# 256), A3 = dy3^T h2 in k8 steps (k = the rows; one block walks its
+# tiles in turn, so A3's chain runs over every row it takes).
+B8A_STEP = {"h2 W3": 64, "(gi3 dy3) W3^T": 32, "dy3^T h2": 8}
+
+
+def mm_3x_steps(a, b, step=8):
+    """a @ b as B8a's kernel sums it: per step of ``step`` k the three
+    TF32 piece products (exact) summed and rounded to f32, the steps added
+    in f32 with rounding, in k order (the tensor cores' truncating adds
+    inside a step are not modelled)."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    c = torch.zeros(a.shape[0], b.shape[1])
+    for k in range(0, a.shape[1], step):
+        s = slice(k, k + step)
+        d = (al[:, s].double() @ bh[s].double()
+             + ah[:, s].double() @ bl[s].double()
+             + ah[:, s].double() @ bh[s].double())
+        c = c + d.float()
+    return c
+
+
+def _b8a_operands(name, rows):
+    """B8a's products at the main path's magnitudes: h2 after its ReLU, W3
+    at flax's Dense init, dy3 the pool's even split of a randn cotangent
+    over each 64-row group's ties, the groups padded as ball query pads
+    them (the last half repeats the first row, drawn at three times the
+    scale: exact ties), gi3 ~ 1."""
+    from facl_tpu_torch.ops.sa_bwd import _dy_top
+    rng = np.random.default_rng(5)
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape))
+                                .astype(np.float32))
+    h2 = torch.relu(f(rows, 64))
+    w3 = f(64, 256, scale=0.125)
+    z = f(rows, 256)
+    zg = z.view(-1, TILE, 256)
+    zg[:, 0] *= 3.0                     # often the group's max
+    zg[:, TILE // 2:] = zg[:, :1]
+    dy3 = _dy_top(z, f(rows // TILE, 256), TILE)
+    gi3 = 1.0 + f(256, scale=0.3)
+    return {"h2 W3": (h2, w3, "row"),
+            "(gi3 dy3) W3^T": (dy3 * gi3, w3.T.contiguous(), "row"),
+            "dy3^T h2": (dy3.T.contiguous(), h2, "acc")}[name]
+
+
+B8A_NAMES = ["h2 W3", "(gi3 dy3) W3^T", "dy3^T h2"]
+
+
+@pytest.mark.parametrize("rows", [TILE, R])
+@pytest.mark.parametrize("name", B8A_NAMES)
+def test_b8a_step_products_meet_the_bars(name, rows):
+    """B8a's products in its steps, within the bars of
+    tests/test_torch_cuda.py's B8a case against float64: rows (z's
+    product, q3) at rtol 1e-5 / atol 1e-5 x scale, A3 within 1e-4 of its
+    max-abs (over a tile, and over 64 tiles in one chain)."""
+    a, b, kind = _b8a_operands(name, rows)
+    assert _bar(mm_3x_steps(a, b, B8A_STEP[name]), a, b, kind) <= 1.0
+    if kind == "acc":        # the routed split: ~half the rows tie
+        assert int((a != 0).sum()) > 4 * (rows // TILE) * 256
+
+
+@pytest.mark.parametrize("name", B8A_NAMES)
+def test_b8a_exact_ties_stay_exact(name):
+    """Identical rows of h2 (or dy3) give bit-identical rows of the step
+    product wherever they sit: the split and each k8 step depend on the
+    row's own values only."""
+    a, b, kind = _b8a_operands(name, TILE)
+    if kind == "acc":
+        a, b = b.T.contiguous(), a.T.contiguous()   # rows of the output
+    a = a.clone()
+    a[TILE // 2:] = a[:1]
+    out = mm_3x_steps(a, b, B8A_STEP[name])
+    assert torch.equal(out[TILE // 2:], out[:1].expand(TILE // 2, -1))
