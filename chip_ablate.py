@@ -38,6 +38,11 @@ time on the card.
                                             # (B9_F32_CUTS), in turns; dx
                                             # against its twin with and
                                             # without the mask redo
+    python3 chip_ablate.py b8b              # the bf16 B6 and B8b
+                                            # (sa_bwd2_sweep2_bf16's
+                                            # kernel) with one part cut
+                                            # at a time (B8B_CUTS), in
+                                            # turns
     python3 chip_ablate.py b8a              # B8a (sa_bwd2_sweep1) at bf16
                                             # and f32 with one part cut at
                                             # a time (B8A_CUTS), in turns
@@ -67,6 +72,7 @@ build; prints one JSON line {"ablation": {variant: [ms, ms]}, "checked":
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -558,7 +564,6 @@ def precision(cs, libs) -> dict:
     that the variant's p2 flips, each variant's device time, and the pair3
     SA chain against float64 (chip_smoke.sa_chain_vs_f64; a miss is
     printed here, not fatal)."""
-    from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_pair as SP
     from facl_tpu_torch.ops import select as SEL
     from facl_tpu_torch.ops.sa_bwd import _fold_affine
@@ -596,12 +601,8 @@ def precision(cs, libs) -> dict:
             z64 = p64 * mul2 + shift2
             dp = torch.randn(640 * S, 256, generator=g).to(dev)
             SP.sa_fwd_layer12(*a12)
-            ours = _build._FUNCTIONS[key]
             for name in PRECISION:
-                f = getattr(libs[name], key[1])
-                f.argtypes, f.restype = ours[1].argtypes, ctypes.c_int
-                _build._FUNCTIONS[key] = (libs[name], f)
-                try:
+                with using_lib(key, libs[name]):
                     ms = cs.device_ms(lambda: SP.sa_fwd_layer12(*a12))[0]
                     e = SP.sa_fwd_layer12(*a12)[0].double() - p64
                     flips = ((e + p64) * mul2 + shift2 > 0) != (z64 > 0)
@@ -616,8 +617,6 @@ def precision(cs, libs) -> dict:
                           f"{int(flips.sum())} (the nearest flipped |z| "
                           f"{near:.3e})", flush=True)
                     wk, wt = cs.sa_chain_vs_f64(x3, layers, dp, K, "pair3")
-                finally:
-                    _build._FUNCTIONS[key] = ours
                 out[f"{name} K={K}"] = dict(ms=ms, flips=int(flips.sum()),
                                             chain=wk, twins=wt)
     return out
@@ -712,31 +711,11 @@ def b9_bf16(cs, out_dir) -> None:
     rows, widths 4-64-64-256, pool 64; randn rows, weights scaled by
     sqrt(2 / fan-in)) with each B9_VARIANTS build, twice, in turns. A cut
     variant's outputs are wrong by design; only its time is read."""
-    from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_kernel as SK
     from facl_tpu_torch.ops.fused_sa import SALayerParams
     from facl_tpu_torch.ops.sa_fwd import _finalize
-    src = open(os.path.join(CSRC, "sa_fused.cu")).read()
-    procs = {}
-    for i, (name, pairs) in enumerate(B9_VARIANTS.items()):
-        text = src
-        for old, new in pairs:
-            if old not in text:
-                raise SystemExit(f"chip_ablate: {old!r} not in sa_fused.cu")
-            text = text.replace(old, new)
-        cu = out_dir / f"b9_{i}.cu"
-        cu.write_text(text)
-        procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", os.path.abspath(CSRC),
-             "-o", str(out_dir / f"b9_{i}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            out_dir / f"b9_{i}.so")
-    libs = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"chip_ablate: {name} did not build:\n{log}")
-        libs[name] = ctypes.CDLL(str(so))
+    libs, _ = build_cuts(out_dir, "sa_fused", None, {
+        name: ((), pairs) for name, pairs in B9_VARIANTS.items()}, "b9", {})
     dev = "cuda"
     g = torch.Generator().manual_seed(cs.SEED)
     R, C0, K, widths = 640 * 4096, 4, 64, (64, 64, 256)
@@ -770,19 +749,13 @@ def b9_bf16(cs, out_dir) -> None:
     prm = SK._prm(layers, True)
     runs[0][1](*runs[0][2], prm=prm)        # resolves this tree's launcher
     key = ("sa_fused", "facl_sa_fused_bf16")
-    ours = _build._FUNCTIONS[key]
     times = {name: [[], []] for name in libs}
     for turn in range(2):
         for name, lib in libs.items():
-            f = getattr(lib, key[1])
-            f.argtypes, f.restype = ours[1].argtypes, ctypes.c_int
-            _build._FUNCTIONS[key] = (lib, f)
-            try:
+            with using_lib(key, lib):
                 for _, fn, args in runs:
                     times[name][turn].append(
                         cs.device_ms(lambda: fn(*args, prm=prm))[0])
-            finally:
-                _build._FUNCTIONS[key] = ours
     gpu = cs.gpu_name_power()
     for name, (a, b) in times.items():
         print(f"{name}: " + ", ".join(
@@ -854,18 +827,64 @@ def void_calls(text: str, names) -> str:
     return "".join(out) + text[i:]
 
 
-def b9_f32_source(src: str, names, pairs) -> str:
-    """sa_fused.cu with the calls in ``names`` made void in the f32
-    tensor-core kernel's section, and ``pairs`` replaced."""
-    a = src.index(B9_F32_SECTION[0])
-    b = src.index(B9_F32_SECTION[1], a)
-    body = void_calls(src[a:b], names) if names else src[a:b]
-    text = src[:a] + body + src[b:]
+def section_source(src: str, section, names, pairs) -> str:
+    """``src`` with every call of a function in ``names`` made void
+    between ``section``'s two markers, and ``pairs`` replaced."""
+    if names:
+        a = src.index(section[0])
+        b = src.index(section[1], a)
+        src = src[:a] + void_calls(src[a:b], names) + src[b:]
     for old, new in pairs:
-        if old not in text:
-            raise SystemExit(f"chip_ablate: {old!r} not in sa_fused.cu")
-        text = text.replace(old, new)
-    return text
+        if old not in src:
+            raise SystemExit(f"chip_ablate: {old!r} not in the source")
+        src = src.replace(old, new)
+    return src
+
+
+def build_cuts(out_dir, source, section, cuts, tag, kernels):
+    """Each of ``cuts`` (name -> (calls made void in ``section``, text
+    replacements), section_source of csrc/``source``.cu) built by an nvcc
+    of its own, all started together: (name -> its library, name -> the ptxas use of each
+    kernel whose mangled name holds a key of ``kernels``, labelled by its
+    value)."""
+    from facl_tpu_torch.ops import _build
+    src = open(os.path.join(CSRC, source + ".cu")).read()
+    procs = {}
+    for i, (name, (names, pairs)) in enumerate(cuts.items()):
+        cu, so = out_dir / f"{tag}_{i}.cu", out_dir / f"{tag}_{i}.so"
+        cu.write_text(section_source(src, section, names, pairs))
+        procs[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", os.path.abspath(CSRC),
+             "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs, ptxas = {}, {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"chip_ablate: {name} did not build:\n{log}")
+        libs[name] = ctypes.CDLL(str(so))
+        use, keep = [], None
+        for ln in log.splitlines():       # ptxas: "Compiling entry ..." then
+            if "Compiling entry" in ln:   # its use on the next lines
+                keep = next((v for k, v in kernels.items() if k in ln), None)
+            elif keep and ("registers" in ln or "spill" in ln):
+                use.append(f"{keep}: {ln.split(':', 1)[-1].strip()}")
+        ptxas[name] = use
+    return libs, ptxas
+
+
+@contextlib.contextmanager
+def using_lib(key, lib):
+    """_build's launcher ``key`` (module, symbol) taken from ``lib``."""
+    from facl_tpu_torch.ops import _build
+    ours = _build._FUNCTIONS[key]
+    f = getattr(lib, key[1])
+    f.argtypes, f.restype = ours[1].argtypes, ctypes.c_int
+    _build._FUNCTIONS[key] = (lib, f)
+    try:
+        yield
+    finally:
+        _build._FUNCTIONS[key] = ours
 
 
 def b9_f32(cs, out_dir) -> None:
@@ -877,33 +896,12 @@ def b9_f32(cs, out_dir) -> None:
     the build without the mask redo are held against the twin (dout zero
     on chip_smoke's near-tie pairs): rows beyond rtol 1e-5 / atol 1e-5 x
     scale, counted. ptxas use of each build printed."""
-    from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_kernel as SK
     from facl_tpu_torch.ops.fused_sa import SALayerParams
     from facl_tpu_torch.ops.sa_fwd import _finalize
-    src = open(os.path.join(CSRC, "sa_fused.cu")).read()
-    procs = {}
-    for i, (name, (names, pairs)) in enumerate(B9_F32_CUTS.items()):
-        cu = out_dir / f"b9f_{i}.cu"
-        cu.write_text(b9_f32_source(src, names, pairs))
-        procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", os.path.abspath(CSRC),
-             "-o", str(out_dir / f"b9f_{i}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            out_dir / f"b9f_{i}.so")
-    libs, ptxas = {}, {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"chip_ablate: {name} did not build:\n{log}")
-        libs[name] = ctypes.CDLL(str(so))
-        use, keep = [], False
-        for ln in log.splitlines():       # ptxas: "Compiling entry ..." then
-            if "Compiling entry" in ln:   # its use on the next lines
-                keep = "sa_fused_tf32_kernel" in ln
-            if keep and ("registers" in ln or "spill" in ln):
-                use.append(ln.strip())
-        ptxas[name] = use
+    libs, ptxas = build_cuts(out_dir, "sa_fused", B9_F32_SECTION,
+                             B9_F32_CUTS, "b9f",
+                             {"sa_fused_tf32_kernel": "tf32"})
     dev = "cuda"
     g = torch.Generator().manual_seed(cs.SEED)
     R, C0, K, widths = 640 * 4096, 4, 64, (64, 64, 256)
@@ -944,15 +942,11 @@ def b9_f32(cs, out_dir) -> None:
     prm = SK._prm(layers, False)
     runs[0][1](*runs[0][2], prm=prm)        # resolves this tree's launcher
     key = ("sa_fused", "facl_sa_fused")
-    ours = _build._FUNCTIONS[key]
     times = {name: [[], []] for name in libs}
     checked = {}
     for turn in range(2):
         for name, lib in libs.items():
-            f = getattr(lib, key[1])
-            f.argtypes, f.restype = ours[1].argtypes, ctypes.c_int
-            _build._FUNCTIONS[key] = (lib, f)
-            try:
+            with using_lib(key, lib):
                 for _, fn, args in runs:
                     times[name][turn].append(
                         cs.device_ms(lambda: fn(*args, prm=prm))[0])
@@ -964,8 +958,6 @@ def b9_f32(cs, out_dir) -> None:
                     beyond = (diff > 1e-5 * td.abs() + 1e-5 * scale).any(1)
                     checked[name] = [int(beyond.sum()),
                                      float(diff.max()) / scale]
-            finally:
-                _build._FUNCTIONS[key] = ours
     gpu = cs.gpu_name_power()
     for name, (a, b) in times.items():
         print(f"{name}: " + ", ".join(
@@ -1010,19 +1002,6 @@ B8A_CUTS = {
 }
 
 
-def b8a_source(src: str, names, pairs) -> str:
-    """sa_2sweep.cu with the calls in ``names`` made void in B8a's section,
-    and ``pairs`` replaced there."""
-    a = src.index(B8A_SECTION[0])
-    b = src.index(B8A_SECTION[1], a)
-    body = void_calls(src[a:b], names) if names else src[a:b]
-    for old, new in pairs:
-        if old not in body:
-            raise SystemExit(f"chip_ablate: {old!r} not in B8a")
-        body = body.replace(old, new)
-    return src[:a] + body + src[b:]
-
-
 def b8a(cs, out_dir) -> None:
     """B8a at bf16 and f32 on a main-path shape (640 clouds x 4,096 rows,
     pool 64; randn p2 with each group's last half a copy of its first row,
@@ -1033,32 +1012,10 @@ def b8a(cs, out_dir) -> None:
     (A3 error over max-abs, q3 entries beyond one bf16 ulp or rtol 1e-5 /
     atol 1e-5 x scale), and ptxas use of each build's pool-64 kernels
     printed."""
-    from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_bwd as SB
-    src = open(os.path.join(CSRC, "sa_2sweep.cu")).read()
-    procs = {}
-    for i, (name, (names, pairs)) in enumerate(B8A_CUTS.items()):
-        cu = out_dir / f"b8a_{i}.cu"
-        cu.write_text(b8a_source(src, names, pairs))
-        procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", os.path.abspath(CSRC),
-             "-o", str(out_dir / f"b8a_{i}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            out_dir / f"b8a_{i}.so")
-    libs, ptxas = {}, {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"chip_ablate: {name} did not build:\n{log}")
-        libs[name] = ctypes.CDLL(str(so))
-        use, keep = [], None
-        for ln in log.splitlines():       # ptxas: "Compiling entry ..." then
-            if "Compiling entry" in ln:   # its use on the next lines
-                keep = ("bf16" if "bwd2_sweep1_kernelILb1ELi6E" in ln else
-                        "f32" if "bwd2_sweep1_kernelILb0ELi6E" in ln else None)
-            elif keep and ("registers" in ln or "spill" in ln):
-                use.append(f"{keep}: {ln.split(':', 1)[-1].strip()}")
-        ptxas[name] = use
+    libs, ptxas = build_cuts(out_dir, "sa_2sweep", B8A_SECTION, B8A_CUTS,
+                             "b8a", {"bwd2_sweep1_kernelILb1ELi6E": "bf16",
+                                     "bwd2_sweep1_kernelILb0ELi6E": "f32"})
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
 
@@ -1108,16 +1065,9 @@ def b8a(cs, out_dir) -> None:
     for _ in range(2):
         for name, lib in libs.items():
             for dt, (fn, launcher, args) in runs.items():
-                key = ("sa_2sweep", launcher)
-                ours = _build._FUNCTIONS[key]
-                f = getattr(lib, launcher)
-                f.argtypes, f.restype = ours[1].argtypes, ctypes.c_int
-                _build._FUNCTIONS[key] = (lib, f)
-                try:
+                with using_lib(("sa_2sweep", launcher), lib):
                     times[name][dt].append(
                         cs.device_ms(lambda: fn(*args))[0])
-                finally:
-                    _build._FUNCTIONS[key] = ours
     gpu = cs.gpu_name_power()
     for name, by in times.items():
         print(f"{name}: " + ", ".join(
@@ -1128,6 +1078,138 @@ def b8a(cs, out_dir) -> None:
               f"{n} entries beyond the bar; {nnz} nonzero dy3 of {R * 256}",
               flush=True)
     print(json.dumps({"b8a": times, "checked": checked, "ptxas": ptxas,
+                      "gpu": gpu}))
+
+
+#: b8b: sa_2sweep.cu's bf16 B6 / B8b (bwd2_sweep2_bf16_kernel) with one
+#: part cut at a time: name -> (calls made void, text replacements).
+#: "without the prefetch" copies each step only when the one before it is
+#: done (none ahead); "loads only" keeps the copies, the x transpose and
+#: the float64 flushes.
+B8B_SECTION = ("// B6 / B8b at bf16 (facl_sa_bwd2_sweep2_bf16)",
+               "// -- launchers")
+B8B_NO_PREFETCH = (
+    ("  fetch(0);\n", ""),
+    ("    cp_async_wait<0>();\n    __syncthreads();\n"
+     "    if (i < count) fetch(i + 1);\n",
+     "    __syncthreads();\n    fetch(i);\n    cp_async_wait<0>();\n"
+     "    __syncthreads();\n"))
+#: The step loop with two block barriers a step: a step's row chain, a
+#: barrier, its contraction (two steps of copies in flight).
+B8B_TWO_BARRIERS = (
+    ("  fetch(0);\n", "  fetch(0);\n  fetch(1);\n"),
+    ("    cp_async_wait<0>();\n    __syncthreads();\n"
+     "    if (i < count) fetch(i + 1);\n"
+     "    if (rows_first && i < count) rows(i);\n"
+     "    if (i > 0) contract(i - 1);\n"
+     "    if (!rows_first && i < count) rows(i);\n",
+     "    cp_async_wait<1>();\n    __syncthreads();\n"
+     "    if (i < count) fetch(i + 2);\n"
+     "    if (i < count) rows(i);\n    __syncthreads();\n"
+     "    if (i < count) contract(i);\n"))
+#: The flushes in the step loop replaced by a sum of every accumulator
+#: (so that the compiler keeps the products that feed them).
+B8B_SINK = ("      s2f_flush<C0>(A, first, m, n, lane, partM, partV, partX, "
+            "partU);",
+            "      { float z = 0.f; const float* f = &A.a2[0][0];\n"
+            "#pragma unroll\n"
+            "        for (int q = 0; q < (int)(sizeof(A) / 4); ++q) "
+            "z += f[q];\n"
+            "        if (z == 1.2345f) partM[0] = z; }")
+B8B_CUTS = {
+    "b8b": ((), ()),
+    "b8b without the row chain": (("s2f_rows",), ()),
+    "b8b without the U1 products": (("s2f_u1",), ()),
+    "b8b without the n8 tile": (("s2f_n8",), ()),
+    "b8b without the contraction": (("s2f_contract",), ()),
+    "b8b without the float64 flushes": ((), (B8B_SINK,)),
+    "b8b without the prefetch": ((), B8B_NO_PREFETCH),
+    "b8b with two barriers a step": ((), B8B_TWO_BARRIERS),
+    "b8b with every warp's row chain first": ((), (
+        ("const bool rows_first = warp < 8;",
+         "const bool rows_first = true;"),)),
+    "b8b loads only": (("s2f_rows", "s2f_contract"), ()),
+    "b8b flushing every 16 steps": ((), (("S2F_FLUSH = 32;",
+                                          "S2F_FLUSH = 16;"),)),
+    "b8b flushing every 64 steps": ((), (("S2F_FLUSH = 32;",
+                                          "S2F_FLUSH = 64;"),)),
+    "b8b flushing all blocks at once": ((), (
+        ("(j + 1 + blockIdx.x) % S2F_FLUSH", "(j + 1) % S2F_FLUSH"),)),
+}
+#: b8b: the builds whose outputs are held against the twins.
+B8B_CHECKED = ("b8b", "b8b flushing every 16 steps",
+               "b8b flushing every 64 steps")
+
+
+def b8b(cs, out_dir) -> None:
+    """The bf16 B8b (sa_bwd2_sweep2_bf16, x row-major) and B6
+    (sa_bwd_sweep2_full_bf16, x channel-major) on the main path's shape
+    (640 clouds x 4,096 rows, C0 = 4; p1 and p2 from the bf16 forward's
+    twins on randn rows, q3 randn) with each B8B_CUTS build, twice, in
+    turns. A cut variant's outputs are wrong by design; only its time is
+    read. The B8B_CHECKED builds' outputs are held against the twins
+    (cnt1 exact; the widest accumulator error over its max-abs printed
+    beside phase 2's ACC2_BAR), and ptxas use of each build's C0 = 4
+    kernels printed."""
+    from facl_tpu_torch.ops import sa_bwd as SB
+    from facl_tpu_torch.ops import sa_fwd as SF
+    from facl_tpu_torch.ops import sa_pair as SP
+    libs, ptxas = build_cuts(out_dir, "sa_2sweep", B8B_SECTION, B8B_CUTS,
+                             "b8b",
+                             {"bwd2_sweep2_bf16_kernelILi4ELb0E": "B8b",
+                              "bwd2_sweep2_bf16_kernelILi4ELb1E": "B6"})
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def r(*shape, sc=1.0):
+        return sc * torch.randn(*shape, device=dev, generator=g)
+    R, C0, bf = 640 * 4096, 4, torch.bfloat16
+    xr = r(R, C0).to(bf)
+    w1, b1, w2 = r(C0, 64, sc=0.3), r(64, sc=0.1), r(64, 64, sc=0.3)
+    mul1, shift1, mul2, shift2 = r(64, sc=2.0), r(64), r(64, sc=2.0), r(64)
+    p1 = SF.sa_fwd_layer_bf16_plain(xr, w1, b1)[0]
+    p2 = SF.sa_fwd_layer_bf16_plain(p1, w2, r(64, sc=0.1), mul1, shift1)[0]
+    tail = (p2, mul2, shift2, r(R, 64).to(bf), r(64, 64, sc=0.01),
+            r(64, sc=0.1), r(64), w2)
+    x3 = xr.view(640, 4096, C0).transpose(1, 2).contiguous()
+    runs = {"B8b": (SB.sa_bwd2_sweep2_bf16, SB.sa_bwd2_sweep2_bf16_plain,
+                    (xr, p1, mul1, shift1, *tail)),
+            "B6": (SP.sa_bwd_sweep2_full_bf16,
+                   SP.sa_bwd_sweep2_full_bf16_plain,
+                   (x3, w1, b1, mul1, shift1, *tail))}
+    key = ("sa_2sweep", "facl_sa_bwd2_sweep2_bf16")
+    for fn, _, args in runs.values():
+        fn(*args)                         # resolves this tree's launcher
+    checked = {}
+    for form, (fn, plain, args) in runs.items():
+        t = plain(*args)
+        for name in B8B_CHECKED:
+            with using_lib(key, libs[name]):
+                k = fn(*args)
+            cs.check(torch.equal(k["cnt1"], t["cnt1"]),
+                     f"{name} {form}: cnt1 not exact")
+            checked[f"{name} {form}"] = max(
+                (float((k[n] - t[n]).abs().max()) /
+                 max(float(t[n].abs().max()), 1e-30), n) for n in t)
+            del k
+        del t
+    times = {name: {form: [] for form in runs} for name in libs}
+    for _ in range(2):
+        for name in libs:
+            for form, (fn, _, args) in runs.items():
+                with using_lib(key, libs[name]):
+                    times[name][form].append(
+                        cs.device_ms(lambda: fn(*args))[0])
+    gpu = cs.gpu_name_power()
+    for name, by in times.items():
+        print(f"{name}: " + ", ".join(
+            f"{form} {a:.4f} / {b:.4f}" for form, (a, b) in by.items())
+            + f" ms on the device ({gpu}); ptxas {ptxas[name]}", flush=True)
+    for what, (w, n) in checked.items():
+        print(f"{what} against its twin: cnt1 exact; accumulators at most "
+              f"{w:.3e} of their max-abs ({n}; bar {cs.ACC2_BAR:g})",
+              flush=True)
+    print(json.dumps({"b8b": times, "checked": checked, "ptxas": ptxas,
                       "gpu": gpu}))
 
 
@@ -1457,6 +1539,9 @@ def main() -> None:
     if only == ("b8a",):
         b8a(cs, out_dir)
         return
+    if only == ("b8b",):
+        b8b(cs, out_dir)
+        return
     if only == ("tc_sums",):
         tc_sums(cs, out_dir)
         return
@@ -1576,15 +1661,8 @@ def main() -> None:
         """run(fn, args) with variant name's launcher in the kernel's."""
         kernel = VARIANTS[name][0]
         fn, args, launcher = calls[call or kernel]
-        key = (KERNEL_SRC[kernel][0], launcher)
-        ours = _build._FUNCTIONS[key]
-        vfn = getattr(libs[name], launcher)
-        vfn.argtypes, vfn.restype = ours[1].argtypes, ctypes.c_int
-        _build._FUNCTIONS[key] = (libs[name], vfn)
-        try:
+        with using_lib((KERNEL_SRC[kernel][0], launcher), libs[name]):
             return run(fn, args)
-        finally:
-            _build._FUNCTIONS[key] = ours
 
     def timed(name, call=None):
         return with_variant(name, call,
@@ -1602,16 +1680,9 @@ def main() -> None:
     def clocks(kernel):
         """Mean cycles per tile of each phase (thread 0 of each block)."""
         fn, args, launcher = calls[kernel]
-        vfn = getattr(libs[f"{kernel} clocks"], launcher)
-        key = ("sa_pair", launcher)
-        ours = _build._FUNCTIONS[key]
-        vfn.argtypes, vfn.restype = ours[1].argtypes, ctypes.c_int
-        _build._FUNCTIONS[key] = (libs[f"{kernel} clocks"], vfn)
-        try:
+        with using_lib(("sa_pair", launcher), libs[f"{kernel} clocks"]):
             fn(*args)
             out = fn(*args)
-        finally:
-            _build._FUNCTIONS[key] = ours
         torch.cuda.synchronize()
         phases = [m[2] for m in CLOCKED[kernel][-1]]
         flat = out[1] if kernel == "s1" else \

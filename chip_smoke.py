@@ -617,6 +617,13 @@ def sweep2_tc(C0, C1=64, C2=64):
             + (C0 + 1) * 2 * C1 * C1)
 
 
+def sweep2_n8(C0, C1=64):
+    """The operations of sweep2_ops that the bf16 kernel computes as
+    products of its n8 tile [x | 1] on the tensor cores: T1x, P1 (4 C1
+    C0); the four colsums (4 C1); Gx (symmetric, C0 (C0 + 1)); cx."""
+    return 4 * C1 * C0 + 4 * C1 + C0 * (C0 + 1) + C0
+
+
 def b8a_ops(C2=64, C3=256, bf=False):
     """B8a's work per row: (CUDA-core operations, tensor-core product
     flops). Products, all dense: h2 W3 (2 C2 C3), Gram(h2) (symmetric,
@@ -1415,9 +1422,10 @@ def two_sweep_bf16_rows(x3, layers, dpooled, K):
     reading printed;
     cnt1 of B8b and of B6 exact (B6's h1, recomputed from x, gives the
     same layer-1 masks as the bf16 forward's chain, _h1_bf16); run to run
-    bit-identical. Bounds: bf16 rows' bytes, the 64-deep products at the
-    bf16 tensor-core rate, the rest (and the C0-deep x W1) on f32 CUDA
-    cores. Returns the kernel-table rows."""
+    bit-identical. Bounds: bf16 rows' bytes, the 64-deep products (and,
+    for B6 and B8b, the products of their n8 tile [x | 1], sweep2_n8) at
+    the bf16 tensor-core rate, the rest (and the C0-deep x W1) on f32
+    CUDA cores. Returns the kernel-table rows."""
     SP, SF, SB = sweep_modules()
     from facl_tpu_torch.ops.sa_bwd import _fold_affine, _layer_terms
     lp1, lp2, lp3 = layers
@@ -1507,7 +1515,7 @@ def two_sweep_bf16_rows(x3, layers, dpooled, K):
     t3 = _layer_terms(A3, u3, lp3, m3, v3, G2b, ch2b, R, eps)
     as2 = (xr, p1, mul1, shift1, p2, mul2, shift2, q3, t3["M"].contiguous(),
            t3["rc"], gi2, lp2.kernel)
-    tc2 = sweep2_tc(C0)
+    tc2 = sweep2_tc(C0) + sweep2_n8(C0, C1)
     k, t = run(SB.sa_bwd2_sweep2_bf16, as2, "B8b bf16")
     check(torch.equal(k["cnt1"], t["cnt1"]), "B8b bf16: cnt1 not exact")
     e = max(acc(k[n], t[n], f"B8b bf16 {n}") for n in t)
@@ -1826,6 +1834,10 @@ PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
              "sa_bwd2_sweep2": ("sa_2sweep", "facl_sa_bwd2_sweep2", None),
              "sa_bwd_sweep2_full": ("sa_2sweep", "facl_sa_bwd2_sweep2",
                                     None),
+             "sa_bwd2_sweep2_bf16": ("sa_2sweep", "facl_sa_bwd2_sweep2_bf16",
+                                     2),
+             "sa_bwd_sweep2_full_bf16": ("sa_2sweep",
+                                         "facl_sa_bwd2_sweep2_bf16", 2),
              **{n: ("sa_fused", "facl_sa_fused", 2) for n in
                 B9_NAMES},
              **{f"{n}_bf16": ("sa_fused", "facl_sa_fused_bf16", 2) for n in
@@ -1931,9 +1943,9 @@ def parent_ab(fn, args):
 def parent_grid_swaps(lib_name: str, blocks):
     """The (module, name, value) swaps that launch a parent launcher at the
     grid its own wrapper gave it: sa_pair's and sa_bwd's ``grid`` at
-    ``blocks`` blocks an SM (the parent's B8a at either dtype ran two
-    256-thread blocks an SM where this tree's tensor-core kernels run one
-    of 512); B9's ``_nblk`` at ``blocks`` blocks an SM (the parent's B9 at
+    ``blocks`` blocks an SM (the parent's B8a at either dtype, and its
+    bf16 B6 and B8b, ran two 256-thread blocks an SM where this tree's
+    tensor-core kernels run one of 512); B9's ``_nblk`` at ``blocks`` blocks an SM (the parent's B9 at
     either dtype ran two 256-thread blocks an SM where this tree's
     tensor-core kernels run one of 512); none for a launcher that takes
     no grid (blocks None)."""
@@ -2658,13 +2670,16 @@ def phase_main(dev, profile: bool, card: str):
 
 #: --parent: the Trainer steps parent_step_ab runs with the parent's
 #: launchers of the named kernels (the bf16 B2a of pair3, B9 of pallas at
-#: bf16 and at f32, B8a of hybrid2 at bf16 and at f32), each against this
-#: tree's: (BF16_PATHS label, "pallas f32" or "hybrid2 f32", kernels).
+#: bf16 and at f32, B8a and B8b of hybrid2 at bf16, B8a of hybrid2 at
+#: f32, B6 of pair at bf16), each against this tree's: (BF16_PATHS label,
+#: "pallas f32" or "hybrid2 f32", kernels).
 PARENT_STEPS = (("pair3 bf16", ("sa_fwd_layer12_bf16",)),
                 ("pallas bf16", tuple(f"{n}_bf16" for n in B9_NAMES)),
                 ("pallas f32", B9_NAMES),
-                ("hybrid2 bf16", ("sa_bwd2_sweep1_bf16",)),
-                ("hybrid2 f32", ("sa_bwd2_sweep1",)))
+                ("hybrid2 bf16", ("sa_bwd2_sweep1_bf16",
+                                  "sa_bwd2_sweep2_bf16")),
+                ("hybrid2 f32", ("sa_bwd2_sweep1",)),
+                ("pair bf16", ("sa_bwd_sweep2_full_bf16",)))
 #: --parent --profile: profiled steps of each of parent_step_ab's runs.
 PARENT_PROF_STEPS = 3
 

@@ -25,26 +25,27 @@
 // = D W3^T, 269 GFLOP on the tensor cores: 1.73 ms in 3xTF32, 0.38 ms at
 // bf16 with its CUDA-core passes; dy3 is dense on the main path, ~25 tied
 // rows a routed (group, channel)), bwd2_sweep2 by operations (two 64x64
-// products and C0 + 3 Grams of 64x64 per row, ~190 GFLOP).
-// Design: sa_pair.cu's persistent blocks over 64-row tiles. B7 and B8b
-// (and B6) keep their port-time form, register-tiled products on CUDA
-// cores (strict f32) with no copy/compute overlap; B8a runs its products
-// on the tensor cores with its tiles staged by TMA (its own section
-// below).
+// products and C0 + 3 Grams of 64x64 per row, ~190 GFLOP: 2.8 ms on f32
+// CUDA cores, 0.31 ms on the bf16 tensor cores).
+// Design: sa_pair.cu's persistent blocks over 64-row tiles. B7 and the
+// f32 B6 and B8b keep their port-time form, register-tiled products on
+// CUDA cores (strict f32) with no copy/compute overlap; B8a at both
+// dtypes and B6 / B8b at bf16 run their products on the tensor cores in
+// kernels of their own (their sections below).
 //
-// bf16 (the template flag BF, entry points facl_sa_*_bf16): the row
-// tensors (x, p1, p2, q3, dpooled, pooled) are __nv_bfloat16, the
+// bf16 (the template flag BF of B7 and B8a, entry points facl_sa_*_bf16):
+// the row tensors (x, p1, p2, q3, dpooled, pooled) are __nv_bfloat16, the
 // parameters the TPU kernels cast to the compute dtype (W1, b1, W2, W3,
 // b3, M3, gi2, gi3) are rounded to bf16 where they are staged, and the
 // results are rounded (rb) at the TPU kernels' cast points, listed by the
 // bf16 twins of ops/sa_fwd.py and ops/sa_bwd.py. Every product then has
 // two bf16 operands and is exact in f32, so the same f32 FMA chains sum
-// them (B8a: the bf16 tensor cores; only the order of the sums differs
-// from the twins), and the per-block float64 partials stay. The ReLU
-// masks are decided on the bf16-rounded h (relu_affine_p); B6's h1 is
-// sa_pair.cu's bf16 h1 bit for bit (h1_of, the same k-order chain). In B6,
-// B7 and B8b every f32 path is the code it was before the template: the
-// bf16 casts sit in `if constexpr (BF)` branches.
+// them (B8a, B6 and B8b: the bf16 tensor cores; only the order of the
+// sums differs from the twins), and the per-block float64 partials stay.
+// The ReLU masks are decided on the bf16-rounded h (relu_affine_p,
+// relu_packed); B6's h1 is sa_pair.cu's bf16 h1 bit for bit (h1_pre_bf16,
+// the same k-order chain). In B7 every f32 path is the code it was before
+// the template: the bf16 casts sit in `if constexpr (BF)` branches.
 #include <cstdint>
 #include "common.cuh"
 #include "sa_mma.cuh"
@@ -91,19 +92,6 @@ __device__ __forceinline__ void load_h_tile_p(const RowT<BF>* __restrict__ p,
 }
 
 template <bool BF>
-__device__ __forceinline__ void load_tile_p(const RowT<BF>* __restrict__ src,
-                                            int64_t r0, float* dst) {
-  if constexpr (BF) {
-    for (int e = threadIdx.x; e < TR * CW; e += NT) {
-      const int r = e / CW, c = e % CW;
-      dst[r * LD + c] = to_f(src[(r0 + r) * CW + c]);
-    }
-  } else {
-    load_tile(src, r0, dst);
-  }
-}
-
-template <bool BF>
 __device__ __forceinline__ void store_tile_p(const float* src, int64_t r0,
                                              RowT<BF>* __restrict__ dst) {
   if constexpr (BF) {
@@ -113,80 +101,6 @@ __device__ __forceinline__ void store_tile_p(const float* src, int64_t r0,
     }
   } else {
     store_tile(src, r0, dst);
-  }
-}
-
-template <bool BF>
-__device__ __forceinline__ void load_x_tile_p(const RowT<BF>* __restrict__ x,
-                                              int C0, int64_t N, int64_t r0,
-                                              float* xs) {
-  if constexpr (BF) {
-    for (int e = threadIdx.x; e < TR * C0; e += NT) {
-      const int i = e % TR, c = e / TR;
-      const int64_t r = r0 + i;
-      const int64_t b = r / N, n = r - b * N;
-      xs[i * C0MAX + c] = to_f(x[(b * C0 + c) * N + n]);
-    }
-  } else {
-    load_x_tile(x, C0, N, r0, xs);
-  }
-}
-
-// h1_tile's chain; at BF the bf16 chain of sa_pair.cu's sweeps (h1_of:
-// relu(bf16((bf16(x W1) + b1) mul1 + shift1)), W1 and b1 staged rounded).
-template <bool BF>
-__device__ __forceinline__ void h1_tile_p(const float* xs, int C0,
-                                          const float* W1s, const float* vec1,
-                                          float* h1s) {
-  if constexpr (BF) {
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float acc = 0.0f;
-        for (int k = 0; k < C0; ++k)
-          acc = __fadd_rn(acc, __fmul_rn(xs[r * C0MAX + k], W1s[k * CW + c]));
-        h1s[r * LD + c] =
-            h1_of<true>(acc, vec1[c], vec1[CW + c], vec1[2 * CW + c]);
-      }
-    }
-  } else {
-    h1_tile(xs, C0, W1s, vec1, h1s);
-  }
-}
-
-// mm64 with the scaled operand rounded to bf16 at BF (a bf16 product the
-// TPU kernel feeds its dot).
-template <bool BF>
-__device__ __forceinline__ void mm64_p(const float* A, const float* Bm,
-                                       const float* scale,
-                                       float acc[4][4]) {
-  if constexpr (BF) {
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < CW; ++k) {
-      float a[4], bb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = A[(ty + 16 * i) * LD + k];
-        if (scale) a[i] = rb(__fmul_rn(a[i], scale[k]));
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = Bm[k * CW + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
-  } else {
-    mm64(A, Bm, scale, acc);
   }
 }
 
@@ -1037,33 +951,30 @@ bwd2_sweep1_kernel(const RowT<BF>* __restrict__ p2, int64_t ntiles, int upt,
 //                 and U1_i = (m1 x_i)^T h1 (v = 1 + i)
 //                                                partU (blocks, C0+1, 64, 64)
 // The U slices recompute only h1 (they read x, and p1 for B8b).
-// vec = [b1 | mul1 | shift1 | mul2 | shift2 | rc3 | gi2] (7*CW).
-// At BF (sa_bwd.py:150-186, sa_pair.py:362-400): dy2 = bf16([h2 > 0] (q3 -
-// bf16(h2 M3) - rc3)) and q2 = bf16(sum bf16(dy2 gi2) W2^T); every
-// accumulator then sums products of bf16 rows (u2 and acc1 of the rounded
-// dy2 and mq).
-template <bool BF, bool FROM_X>
-__device__ __forceinline__ void load_h1(const RowT<BF>* __restrict__ x,
-                                        int C0, int64_t N,
-                                        const RowT<BF>* __restrict__ p1,
+// vec = [b1 | mul1 | shift1 | mul2 | shift2 | rc3 | gi2] (7*CW). The f32
+// form only; bf16 runs its own kernel (below).
+template <bool FROM_X>
+__device__ __forceinline__ void load_h1(const float* __restrict__ x, int C0,
+                                        int64_t N,
+                                        const float* __restrict__ p1,
                                         int64_t r0, const float* W1s,
                                         const float* v, float* xs,
                                         float* h1s) {
-  load_x_tile_p<BF>(x, C0, N, r0, xs);
-  if (!FROM_X) load_h_tile_p<BF>(p1, r0, v + CW, v + 2 * CW, h1s);
+  load_x_tile(x, C0, N, r0, xs);
+  if (!FROM_X) load_h_tile(p1, r0, v + CW, v + 2 * CW, h1s);
   __syncthreads();
   if (FROM_X) {
-    h1_tile_p<BF>(xs, C0, W1s, v, h1s);
+    h1_tile(xs, C0, W1s, v, h1s);
     __syncthreads();
   }
 }
 
-template <bool BF, bool FROM_X>
-__device__ void sweep2_dy_slice(const RowT<BF>* __restrict__ x, int C0,
+template <bool FROM_X>
+__device__ void sweep2_dy_slice(const float* __restrict__ x, int C0,
                                 int64_t N, int64_t ntiles,
-                                const RowT<BF>* __restrict__ p1,
-                                const RowT<BF>* __restrict__ p2,
-                                const RowT<BF>* __restrict__ q3, float* sm,
+                                const float* __restrict__ p1,
+                                const float* __restrict__ p2,
+                                const float* __restrict__ q3, float* sm,
                                 double* __restrict__ partM,
                                 double* __restrict__ partV,
                                 double* __restrict__ partX) {
@@ -1088,9 +999,9 @@ __device__ void sweep2_dy_slice(const RowT<BF>* __restrict__ x, int C0,
 
   for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const int64_t r0 = t * TR;
-    load_h_tile_p<BF>(p2, r0, mul2, shift2, h2s);
-    load_tile_p<BF>(q3, r0, dys);
-    load_h1<BF, FROM_X>(x, C0, N, p1, r0, W1s, v, xs, h1s);
+    load_h_tile(p2, r0, mul2, shift2, h2s);
+    load_tile(q3, r0, dys);
+    load_h1<FROM_X>(x, C0, N, p1, r0, W1s, v, xs, h1s);
     float acc[4][4];
     mm64(h2s, M3s, nullptr, acc);
 #pragma unroll
@@ -1098,18 +1009,18 @@ __device__ void sweep2_dy_slice(const RowT<BF>* __restrict__ x, int C0,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        const float dh = __fsub_rn(
-            __fsub_rn(dys[r * LD + c], rb_if<BF>(acc[i][j])), rc3[c]);
-        dys[r * LD + c] = h2s[r * LD + c] > 0.f ? rb_if<BF>(dh) : 0.f;
+        const float dh =
+            __fsub_rn(__fsub_rn(dys[r * LD + c], acc[i][j]), rc3[c]);
+        dys[r * LD + c] = h2s[r * LD + c] > 0.f ? dh : 0.f;
       }
     __syncthreads();
-    mm64_p<BF>(dys, W2t, gi2, acc);    // q2
+    mm64(dys, W2t, gi2, acc);    // q2
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        h2s[r * LD + c] = h1s[r * LD + c] > 0.f ? rb_if<BF>(acc[i][j]) : 0.f;
+        h2s[r * LD + c] = h1s[r * LD + c] > 0.f ? acc[i][j] : 0.f;
       }
     {
       float ta[4][4];
@@ -1169,10 +1080,10 @@ __device__ void sweep2_dy_slice(const RowT<BF>* __restrict__ x, int C0,
   }
 }
 
-template <bool BF, bool FROM_X>
-__device__ void sweep2_u_slice(const RowT<BF>* __restrict__ x, int C0,
+template <bool FROM_X>
+__device__ void sweep2_u_slice(const float* __restrict__ x, int C0,
                                int64_t N, int64_t ntiles,
-                               const RowT<BF>* __restrict__ p1, float* sm,
+                               const float* __restrict__ p1, float* sm,
                                double* __restrict__ partU) {
   float* h1s = sm + 2 * CW * CW;
   float* xs = h1s + 3 * TR * LD;
@@ -1184,7 +1095,7 @@ __device__ void sweep2_u_slice(const RowT<BF>* __restrict__ x, int C0,
   const int nv = C0 + 1 - v0 < 2 ? C0 + 1 - v0 : 2;
   double run[2][4][4] = {};
   for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    load_h1<BF, FROM_X>(x, C0, N, p1, t * TR, W1s, v, xs, h1s);
+    load_h1<FROM_X>(x, C0, N, p1, t * TR, W1s, v, xs, h1s);
 #pragma unroll
     for (int b = 0; b < 2; ++b) {       // unrolled: run[b] stays in registers
       if (b >= nv) break;
@@ -1216,14 +1127,14 @@ __device__ void sweep2_u_slice(const RowT<BF>* __restrict__ x, int C0,
                                       CW * CW);
 }
 
-template <bool BF, bool FROM_X>
+template <bool FROM_X>
 __global__ void __launch_bounds__(NT)
-bwd2_sweep2_kernel(const RowT<BF>* __restrict__ x, int C0, int64_t N,
-                   int64_t ntiles, const RowT<BF>* __restrict__ p1,
+bwd2_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
+                   int64_t ntiles, const float* __restrict__ p1,
                    const float* __restrict__ W1,
                    const float* __restrict__ vec,
-                   const RowT<BF>* __restrict__ p2,
-                   const RowT<BF>* __restrict__ q3,
+                   const float* __restrict__ p2,
+                   const float* __restrict__ q3,
                    const float* __restrict__ M3, const float* __restrict__ W2,
                    double* __restrict__ partM, double* __restrict__ partV,
                    double* __restrict__ partX, double* __restrict__ partU) {
@@ -1233,22 +1144,540 @@ bwd2_sweep2_kernel(const RowT<BF>* __restrict__ x, int C0, int64_t N,
   float* W1s = W2t + CW * CW + 3 * TR * LD + TR * C0MAX;   // C0MAX*CW
   float* v = W1s + C0MAX * CW;          // 7*CW
   if (blockIdx.y == 0) {
-    copy_vec_p<BF>(M3s, M3, CW * CW);
+    copy_vec(M3s, M3, CW * CW);
     for (int e = threadIdx.x; e < CW * CW; e += NT) {
       const int c = e / CW, j = e % CW;
-      W2t[e] = rb_if<BF>(W2[j * CW + c]);
+      W2t[e] = W2[j * CW + c];
     }
   }
-  if (FROM_X) copy_vec_p<BF>(W1s, W1, C0 * CW);
-  copy_vec_p<BF>(v, vec, CW);
-  copy_vec(v + CW, vec + CW, 5 * CW);
-  copy_vec_p<BF>(v + 6 * CW, vec + 6 * CW, CW);
+  if (FROM_X) copy_vec(W1s, W1, C0 * CW);
+  copy_vec(v, vec, 7 * CW);
   __syncthreads();
   if (blockIdx.y == 0)
-    sweep2_dy_slice<BF, FROM_X>(x, C0, N, ntiles, p1, p2, q3, sm, partM,
-                                partV, partX);
+    sweep2_dy_slice<FROM_X>(x, C0, N, ntiles, p1, p2, q3, sm, partM, partV,
+                            partX);
   else
-    sweep2_u_slice<BF, FROM_X>(x, C0, N, ntiles, p1, sm, partU);
+    sweep2_u_slice<FROM_X>(x, C0, N, ntiles, p1, sm, partU);
+}
+
+// ---------------------------------------------------------------------
+// B6 / B8b at bf16 (facl_sa_bwd2_sweep2_bf16) on the bf16 tensor cores.
+// Replaces sa_bwd.py::_make_sweep2_kernel (:140, pallas_call :298; B8b, h1
+// from the stored p1) and sa_pair.py::_make_sweep2_pair_kernel (:333,
+// pallas_call :863; B6, h1 from x) at compute_dtype bfloat16 (the twins:
+// ops/sa_bwd.py::_sweep2_bf16 and _sweep2_sums). h2 = relu(bf16(p2 mul2 +
+// shift2)); dy2 = bf16([h2 > 0] (q3 - bf16(h2 bf16(M3)) - rc3)); q2 =
+// bf16(bf16(dy2 bf16(gi2)) bf16(W2)^T); h1 = relu(bf16(p1 mul1 + shift1))
+// (B8b) or the bf16 chain of B2a and B3b (h1_pre_bf16; B6), so the
+// layer-1 masks m1 = [h1 > 0] are the forward's; mq = m1 q2. Per block,
+// the TPU kernels' packed left^T right (sa_bwd.py:172-185):
+//   [dy2 | h1 | m1 | m1 x_i (i < C0)]^T h1   A2, G1, TM1, U1_i
+//                                            partM (blocks, 2, 64, 64),
+//                                            partU (blocks, C0 + 1, 64, 64)
+//   [dy2 | m1 | h1 | mq | x]^T [x | 1]       u2, T1x, cnt1, ch1, P1, acc1,
+//                                            Gx, cx: partV (blocks, 4, 64),
+//                                            partX (blocks, NX)
+// every product of two bf16 values (m1 x_i too: m1 is 0 or 1) exact in
+// f32, so only the order of the sums differs from the twin's.
+//
+// Bound on the card at the main path: 0.31 ms by operations (69,696 flops
+// a row at C0 = 4 on the bf16 tensor cores). One 512-thread block an SM
+// walks 128-row steps in three stages of padded bf16 tiles: while step
+// i + 1's p2, q3 and p1 (or x) arrive by cp.async, every warp runs its
+// part of step i's row chain and of step i - 1's contraction, one block
+// barrier a step (warps 0-7 take the row chain first, warps 8-15 the
+// contraction, so one half's products run beside the other's row
+// passes):
+//  - the row chain (s2f_rows): warp w takes rows 16 (w / 2).. and the
+//    column half w % 2, in the mma fragment layouts. It writes h1 over the
+//    p1 it read (B6: from x); makes h2's A fragments from p2's (ldmatrix,
+//    the chain); runs h2 bf16(M3) on mma.sync m16n8k16; writes dy2 over
+//    the q3 it read and bf16(dy2 gi2) to a tile the warp pair shares (one
+//    named barrier for the two warps); runs q2 = that bf16(W2)^T; writes
+//    mq over p2. The masks stay bits in registers.
+//  - the contraction over the step's rows (s2f_contract): warp (m, n)
+//    owns the 16 x 16 block (channels 16 m.., columns 16 n..) of A2, G1,
+//    TM1 and every U1_i. Each k16 step of rows loads h1's B fragments once
+//    (ldmatrix .trans) for all 3 + C0 products; A is dy2^T or h1^T by
+//    ldmatrix .trans, m1^T is h1^T's fragment made a mask (mask_of),
+//    TM1's A that mask's bf16 ones, U1_i's the mask anded with x_i's bf16
+//    bits. The n8 tile [x | 1] is built from x's staged tile; warps (m, 0),
+//    (m, 1) and (0, 2) take its five left operands.
+// The accumulators ride the mma's f32 registers, 8 (3 + C0) + 8 a thread,
+// for at most S2F_FLUSH steps, then are added to the block's float64
+// partials in global memory (each partial owned by one thread: no
+// atomics, a fixed order, run to run bit-identical). The tensor cores'
+// f32 sums of a long chain drift (a 64-step chain put Gx 1.9e-5 of its
+// max-abs off the twin, a 32-step one 6.6e-6: chip_ablate.py b8b on an
+// H100), so the chain is cut at 32 steps (4,096 rows). C0 is a template
+// argument, so the accumulators' count is known to the compiler.
+// 219,264 bytes of shared memory (S2F_SMEM).
+constexpr int S2F_NT = 512;
+constexpr int S2F_ROWS = 128;                  // rows a step
+constexpr int S2F_STAGES = 3;
+constexpr int S2F_FLUSH = 32;                  // steps between float64 adds
+constexpr int S2F_TILE = S2F_ROWS * LDB;       // a padded (128, 64) tile
+constexpr int S2F_XS = S2F_ROWS + 8;           // x's channel stride
+// A stage (bf16 values): p2 (then mq) | q3 (then dy2) | p1 (then h1) | x
+// channel-major (C0MAX, S2F_XS) | x as stored, row-major (128, C0), when
+// N == 1.
+constexpr int S2F_P2 = 0, S2F_Q3 = S2F_TILE, S2F_H1 = 2 * S2F_TILE;
+constexpr int S2F_X = 3 * S2F_TILE, S2F_XR = S2F_X + C0MAX * S2F_XS;
+constexpr int S2F_STAGE = S2F_XR + S2F_ROWS * C0MAX;
+constexpr size_t S2F_SMEM =
+    sizeof(__nv_bfloat16) *
+        (S2F_STAGES * S2F_STAGE + S2F_TILE + 2 * CW * LDB) +
+    sizeof(float) * (C0MAX * CW + 7 * CW);
+constexpr uint32_t BF16_ONES = 0x3f803f80u;   // two bf16 1.0
+
+// 0xffff for each nonzero half of a packed pair of bf16 values >= 0 (a
+// ReLU output whose zeros are +0), else 0: bit 15 of h + 0x7fff is set
+// iff h > 0, and prmt replicates it over the half.
+__device__ __forceinline__ uint32_t mask_of(uint32_t h) {
+  uint32_t m;
+  asm("prmt.b32 %0, %1, 0, 0xbb99;" : "=r"(m) : "r"(h + 0x7fff7fffu));
+  return m;
+}
+
+template <int C0>
+struct S2FAcc {
+  float a2[2][4], g1[2][4], tm[2][4], u[C0][2][4], e[2][4];
+};
+
+template <int C0>
+__device__ __forceinline__ void s2f_zero(S2FAcc<C0>& A) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    zero4(A.a2[n]);
+    zero4(A.g1[n]);
+    zero4(A.tm[n]);
+    zero4(A.e[n]);
+#pragma unroll
+    for (int i = 0; i < C0; ++i) zero4(A.u[i][n]);
+  }
+}
+
+// x_c of staged row r (the channel-major tile, or the row-major copy).
+template <int C0>
+__device__ __forceinline__ float s2f_x(const __nv_bfloat16* S, bool rowx,
+                                       int c, int r) {
+  return to_f(rowx ? S[S2F_XR + r * C0 + c] : S[S2F_X + c * S2F_XS + r]);
+}
+
+// h1 of the warp's rows rw + g (+8) and columns 32 hc + 8 jj + 2t (+1),
+// written as bf16 to the stage's h1 tile (over p1 for B8b); returns its
+// mask m1, bit 4 jj + 2 h + e. vec1 = [b1 | mul1 | shift1], b1 rounded.
+template <int C0, bool FROM_X>
+__device__ __forceinline__ uint32_t s2f_h1(__nv_bfloat16* S, bool rowx,
+                                           const float* W1s,
+                                           const float* vec1, int rw,
+                                           int hc, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  __nv_bfloat16* H1 = S + S2F_H1;
+  uint32_t m1 = 0;
+  if constexpr (FROM_X) {
+    float xa[C0MAX - 1], xb[C0MAX - 1];
+#pragma unroll
+    for (int k = 0; k < C0; ++k) {
+      xa[k] = s2f_x<C0>(S, rowx, k, rw + g);
+      xb[k] = s2f_x<C0>(S, rowx, k, rw + g + 8);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = 32 * hc + 8 * jj + 2 * t;
+      uint32_t ua, ub, ba, bb;
+      float2 f;
+      h1_pre_bf16(xa, xb, C0, W1s, vec1, col, ua, ub);
+      st32(H1 + (rw + g) * LDB + col, relu_packed(ua, f, ba));
+      st32(H1 + (rw + g + 8) * LDB + col, relu_packed(ub, f, bb));
+      m1 |= (ba | bb << 2) << (4 * jj);
+    }
+  } else {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = 32 * hc + 8 * jj + 2 * t;
+      const float2 mul = ld2(vec1 + CW + col), sh = ld2(vec1 + 2 * CW + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        __nv_bfloat16* at = H1 + (rw + g + 8 * h) * LDB + col;
+        const float2 p = unpack_bf16(ld32(at));
+        float2 f;
+        uint32_t bits;
+        st32(at, relu_packed(
+                     pack_bf16(__fadd_rn(__fmul_rn(p.x, mul.x), sh.x),
+                               __fadd_rn(__fmul_rn(p.y, mul.y), sh.y)),
+                     f, bits));
+        m1 |= bits << (4 * jj + 2 * h);
+      }
+    }
+  }
+  return m1;
+}
+
+// The row chain of one warp on the step staged at S (module comment).
+// v2 = [mul2 | shift2 | rc3 | gi2] (gi2 rounded); DG the pair's bf16(dy2
+// gi2) tile.
+template <int C0, bool FROM_X>
+__device__ __forceinline__ void s2f_rows(__nv_bfloat16* S, bool rowx,
+                                         const float* W1s, const float* vec1,
+                                         const float* v2,
+                                         const __nv_bfloat16* Ms,
+                                         const __nv_bfloat16* W2s,
+                                         __nv_bfloat16* DG, int warp,
+                                         int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = 16 * (warp >> 1), hc = warp & 1;
+  __nv_bfloat16* Q3 = S + S2F_Q3;
+  __nv_bfloat16* P2 = S + S2F_P2;
+  const uint32_t m1 = s2f_h1<C0, FROM_X>(S, rowx, W1s, vec1, rw, hc, lane);
+  // h2's A fragments from p2's (all 64 columns), and h2's mask at this
+  // half's columns (bit 4 jj + 2 h + e, as m1).
+  uint32_t ha2[4][4];
+  const uint32_t m2 =
+      h2_frags_bf16(ha2, P2, rw, v2, v2 + CW, lane) >> (16 * hc);
+  // h2 bf16(M3) at this half's n-tiles 4 hc + jj.
+  float c[4][4];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) zero4(c[jj]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t b[4];
+      ldsm4t(b, b_rows_at(Ms, 32 * hc + 16 * p, 16 * kk, lane));
+      mma_bf16(c[2 * p], ha2[kk], b[0], b[1]);
+      mma_bf16(c[2 * p + 1], ha2[kk], b[2], b[3]);
+    }
+  // dy2 = bf16([h2 > 0] (q3 - bf16(h2 M3) - rc3)) over q3, and
+  // bf16(dy2 gi2) to DG.
+  const float* rc3 = v2 + 2 * CW;
+  const float* gi2 = v2 + 3 * CW;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int cc = 32 * hc + 8 * jj + 2 * t;
+    const float2 rc = ld2(rc3 + cc), gk = ld2(gi2 + cc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rw + g + 8 * h;
+      const float2 qv = unpack_bf16(ld32(Q3 + r * LDB + cc));
+      const uint32_t mb = m2 >> (4 * jj + 2 * h);
+      const float2 hm =
+          unpack_bf16(pack_bf16(c[jj][2 * h], c[jj][2 * h + 1]));
+      const float dx =
+          (mb & 1u) ? __fsub_rn(__fsub_rn(qv.x, hm.x), rc.x) : 0.f;
+      const float dy =
+          (mb & 2u) ? __fsub_rn(__fsub_rn(qv.y, hm.y), rc.y) : 0.f;
+      const uint32_t d = pack_bf16(dx, dy);
+      st32(Q3 + r * LDB + cc, d);
+      const float2 dd = unpack_bf16(d);
+      st32(DG + r * LDB + cc,
+           pack_bf16(__fmul_rn(dd.x, gk.x), __fmul_rn(dd.y, gk.y)));
+    }
+  }
+  named_sync(1 + (warp >> 1), 64);     // the pair: DG's rows whole, p2
+                                       // read by both
+  // q2 = bf16(dy2 gi2) bf16(W2)^T at this half's n-tiles; mq = m1 bf16(q2)
+  // over p2.
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) zero4(c[jj]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4];
+    ldsm4(a, a_rows_at(DG, rw, 16 * kk, lane));
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t b[4];
+      ldsm4(b, b_cols_at(W2s, 32 * hc + 16 * p, 16 * kk, lane));
+      mma_bf16(c[2 * p], a, b[0], b[1]);
+      mma_bf16(c[2 * p + 1], a, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      st32(P2 + (rw + g + 8 * h) * LDB + 32 * hc + 8 * jj + 2 * t,
+           pack_bf16(c[jj][2 * h], c[jj][2 * h + 1]) &
+               keep_halves(m1 >> (4 * jj + 2 * h)));
+}
+
+// U1_i += (m1 x_i)^T h1 for one k16 step from row k0: am is m1^T's A
+// fragment as masks, X the staged x (channel-major).
+template <int C0>
+__device__ __forceinline__ void s2f_u1(S2FAcc<C0>& A, const uint32_t am[4],
+                                       const uint32_t bh[4],
+                                       const __nv_bfloat16* X, int k0,
+                                       int t) {
+#pragma unroll
+  for (int i = 0; i < C0; ++i) {
+    const uint32_t x0 = ld32(X + i * S2F_XS + k0 + 2 * t);
+    const uint32_t x1 = ld32(X + i * S2F_XS + k0 + 8 + 2 * t);
+    const uint32_t a[4] = {am[0] & x0, am[1] & x0, am[2] & x1, am[3] & x1};
+    mma_bf16(A.u[i][0], a, bh[0], bh[1]);
+    mma_bf16(A.u[i][1], a, bh[2], bh[3]);
+  }
+}
+
+// The n8 tile [x | 1] (column C0 the ones) of one k16 step from row k0:
+// warps (m, 0) take dy2 and m1, (m, 1) h1 and mq, (0, 2) x.
+template <int C0>
+__device__ __forceinline__ void s2f_n8(S2FAcc<C0>& A, const uint32_t ad[4],
+                                       const uint32_t at[4],
+                                       const uint32_t ah[4],
+                                       const __nv_bfloat16* S, int k0,
+                                       int m, int n, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  if (n > 2 || (n == 2 && m != 0)) return;
+  const __nv_bfloat16* X = S + S2F_X;
+  const uint32_t bx0 = g < C0 ? ld32(X + g * S2F_XS + k0 + 2 * t)
+                              : (g == C0 ? BF16_ONES : 0u);
+  const uint32_t bx1 = g < C0 ? ld32(X + g * S2F_XS + k0 + 8 + 2 * t)
+                              : (g == C0 ? BF16_ONES : 0u);
+  if (n == 0) {
+    mma_bf16(A.e[0], ad, bx0, bx1);
+    mma_bf16(A.e[1], at, bx0, bx1);
+  } else if (n == 1) {
+    uint32_t aq[4];
+    ldsm4t(aq, a_cols_at(S + S2F_P2, 16 * m, k0, lane));
+    mma_bf16(A.e[0], ah, bx0, bx1);
+    mma_bf16(A.e[1], aq, bx0, bx1);
+  } else {
+    const uint32_t ax[4] = {bx0, 0u, bx1, 0u};   // rows x_g, g < C0
+    mma_bf16(A.e[0], ax, bx0, bx1);
+  }
+}
+
+// The contraction over the step's rows (nk k16 steps) for warp (m, n).
+template <int C0>
+__device__ __forceinline__ void s2f_contract(S2FAcc<C0>& A,
+                                             const __nv_bfloat16* S, int nk,
+                                             int m, int n, int lane) {
+  const int t = lane & 3;
+  const __nv_bfloat16* H1 = S + S2F_H1;
+  const __nv_bfloat16* DY = S + S2F_Q3;
+  for (int kk = 0; kk < nk; ++kk) {
+    const int k0 = 16 * kk;
+    uint32_t bh[4], ad[4], ah[4], am[4], at[4];
+    ldsm4t(bh, b_rows_at(H1, 16 * n, k0, lane));
+    ldsm4t(ad, a_cols_at(DY, 16 * m, k0, lane));
+    ldsm4t(ah, a_cols_at(H1, 16 * m, k0, lane));
+    mma_bf16(A.a2[0], ad, bh[0], bh[1]);
+    mma_bf16(A.a2[1], ad, bh[2], bh[3]);
+    mma_bf16(A.g1[0], ah, bh[0], bh[1]);
+    mma_bf16(A.g1[1], ah, bh[2], bh[3]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      am[q] = mask_of(ah[q]);
+      at[q] = am[q] & BF16_ONES;
+    }
+    mma_bf16(A.tm[0], at, bh[0], bh[1]);
+    mma_bf16(A.tm[1], at, bh[2], bh[3]);
+    s2f_u1<C0>(A, am, bh, S + S2F_X, k0, t);
+    s2f_n8<C0>(A, ad, at, ah, S, k0, m, n, lane);
+  }
+}
+
+// The accumulators added to (first: written as) the block's float64
+// partials, in the f32 kernel's layouts. Each batch of partials is read
+// whole before any is written, so its loads are in flight together.
+template <int C0>
+__device__ __forceinline__ void s2f_flush(const S2FAcc<C0>& A, bool first,
+                                          int m, int n, int lane,
+                                          double* __restrict__ partM,
+                                          double* __restrict__ partV,
+                                          double* __restrict__ partX,
+                                          double* __restrict__ partU) {
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t b = blockIdx.x;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 16 * m + g + 8 * h, j = 16 * n + 8 * nt + 2 * t;
+      double2* p[3 + C0];
+      const float* v[3 + C0];
+      p[0] = reinterpret_cast<double2*>(partM + ((b * 2) * CW + c) * CW + j);
+      p[1] = reinterpret_cast<double2*>(partM + ((b * 2 + 1) * CW + c) * CW +
+                                        j);
+      v[0] = A.a2[nt] + 2 * h;
+      v[1] = A.g1[nt] + 2 * h;
+#pragma unroll
+      for (int i = 0; i <= C0; ++i) {     // TM1, then U1_i
+        p[2 + i] = reinterpret_cast<double2*>(
+            partU + ((b * (C0 + 1) + i) * CW + c) * CW + j);
+        v[2 + i] = i == 0 ? A.tm[nt] + 2 * h : A.u[i - 1][nt] + 2 * h;
+      }
+      double2 o[3 + C0];
+#pragma unroll
+      for (int k = 0; k < 3 + C0; ++k)
+        o[k] = first ? make_double2(0.0, 0.0) : *p[k];
+#pragma unroll
+      for (int k = 0; k < 3 + C0; ++k)
+        *p[k] = make_double2(o[k].x + static_cast<double>(v[k][0]),
+                             o[k].y + static_cast<double>(v[k][1]));
+    }
+  if (n > 2 || (n == 2 && m != 0)) return;
+  // The n8 tile: a lane's four entries (rows c, columns k), each at most
+  // two partials (e0's, e1's; nullptr where none).
+  double* px = partX + b * (2 * CW * C0 + C0 * (C0 + 1));
+  double* pv = partV + b * 4 * CW;
+  double* p0[4];
+  double* p1[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int c = 16 * m + g + 8 * (q >> 1), k = 2 * t + (q & 1);
+    p0[q] = p1[q] = nullptr;
+    if (k > C0) continue;
+    if (n == 0) {                         // e0: dy2 (u2), e1: m1 (T1x, cnt1)
+      p0[q] = k == C0 ? pv + c : nullptr;
+      p1[q] = k == C0 ? pv + 2 * CW + c : px + c * C0 + k;
+    } else if (n == 1) {                  // e0: h1 (ch1), e1: mq (P1, acc1)
+      p0[q] = k == C0 ? pv + CW + c : nullptr;
+      p1[q] = k == C0 ? pv + 3 * CW + c : px + CW * C0 + c * C0 + k;
+    } else if (q < 2 && g < C0) {         // e0: x, rows x_g: Gx | cx
+      p0[q] = px + 2 * CW * C0 + g * (C0 + 1) + k;
+    }
+  }
+  double o0[4], o1[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    o0[q] = first || !p0[q] ? 0.0 : *p0[q];
+    o1[q] = first || !p1[q] ? 0.0 : *p1[q];
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (p0[q]) *p0[q] = o0[q] + static_cast<double>(A.e[0][q]);
+    if (p1[q]) *p1[q] = o1[q] + static_cast<double>(A.e[1][q]);
+  }
+}
+
+// xmode: 0 x channel-major in 16-byte copies (N % 8 == 0, x 16-byte
+// aligned), 1 x row-major (N == 1, aligned) copied as stored, 2 x read
+// value by value.
+template <int C0, bool FROM_X>
+__global__ void __launch_bounds__(S2F_NT, 1)
+bwd2_sweep2_bf16_kernel(const __nv_bfloat16* __restrict__ x, int64_t N,
+                        int64_t R, int xmode,
+                        const __nv_bfloat16* __restrict__ p1,
+                        const float* __restrict__ W1,
+                        const float* __restrict__ vec,
+                        const __nv_bfloat16* __restrict__ p2,
+                        const __nv_bfloat16* __restrict__ q3,
+                        const float* __restrict__ M3,
+                        const float* __restrict__ W2,
+                        double* __restrict__ partM,
+                        double* __restrict__ partV,
+                        double* __restrict__ partX,
+                        double* __restrict__ partU) {
+  using bf = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char smb[];
+  bf* stage = reinterpret_cast<bf*>(smb);        // S2F_STAGES x a stage
+  bf* DG = stage + S2F_STAGES * S2F_STAGE;       // (128, LDB)
+  bf* Ms = DG + S2F_TILE;                        // bf16(M3) [k][n]
+  bf* W2s = Ms + CW * LDB;                       // bf16(W2) [n][k]
+  float* W1s = reinterpret_cast<float*>(W2s + CW * LDB);   // C0MAX x CW
+  // b1 | mul1 | shift1 | mul2 | shift2 | rc3 | gi2 (b1, gi2 rounded)
+  float* v = W1s + C0MAX * CW;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t nsteps = (R + S2F_ROWS - 1) / S2F_ROWS;
+  const int64_t count =
+      nsteps > blockIdx.x ? (nsteps - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  auto row0 = [&](int64_t i) {
+    return (blockIdx.x + i * gridDim.x) * S2F_ROWS;
+  };
+  auto fetch = [&](int64_t i) {   // every thread: its copies of step i
+    if (i < count) {
+      bf* S = stage + (i % S2F_STAGES) * S2F_STAGE;
+      const int64_t r0 = row0(i);
+      const int nr = R - r0 < S2F_ROWS ? static_cast<int>(R - r0) : S2F_ROWS;
+      for (int e = threadIdx.x; e < nr * 8; e += S2F_NT) {
+        const int r = e >> 3, c = (e & 7) << 3;
+        const int64_t o = (r0 + r) * CW + c;
+        cp_async16(S + S2F_P2 + r * LDB + c, p2 + o);
+        cp_async16(S + S2F_Q3 + r * LDB + c, q3 + o);
+        if (!FROM_X) cp_async16(S + S2F_H1 + r * LDB + c, p1 + o);
+      }
+      if (xmode == 0) {
+        const int nc = nr >> 3;
+        for (int e = threadIdx.x; e < C0 * nc; e += S2F_NT) {
+          const int c = e / nc, j = e - c * nc;
+          const int64_t r = r0 + 8 * j, b = r / N, n = r - b * N;
+          cp_async16(S + S2F_X + c * S2F_XS + 8 * j,
+                     x + (b * C0 + c) * N + n);
+        }
+      } else if (xmode == 1) {
+        for (int e = threadIdx.x; e < nr * C0 / 8; e += S2F_NT)
+          cp_async16(S + S2F_XR + 8 * e, x + r0 * C0 + 8 * e);
+      } else {
+        for (int e = threadIdx.x; e < C0 * nr; e += S2F_NT) {
+          const int c = e / nr, j = e - c * nr;
+          const int64_t r = r0 + j, b = r / N, n = r - b * N;
+          S[S2F_X + c * S2F_XS + j] = x[(b * C0 + c) * N + n];
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  fetch(0);
+  for (int e = threadIdx.x; e < CW * CW; e += S2F_NT) {
+    const int r = e >> 6, c = e & 63;
+    Ms[r * LDB + c] = __float2bfloat16_rn(M3[e]);
+    W2s[r * LDB + c] = __float2bfloat16_rn(W2[e]);
+  }
+  if (FROM_X)
+    for (int e = threadIdx.x; e < C0 * CW; e += S2F_NT) W1s[e] = rb(W1[e]);
+  for (int e = threadIdx.x; e < 7 * CW; e += S2F_NT)
+    v[e] = e < CW || e >= 6 * CW ? rb(vec[e]) : vec[e];
+
+  const int m = warp & 3, n = warp >> 2;      // the contraction's block
+  auto nrows = [&](int64_t i) {
+    const int64_t r0 = row0(i);
+    return R - r0 < S2F_ROWS ? static_cast<int>(R - r0) : S2F_ROWS;
+  };
+  S2FAcc<C0> A;
+  s2f_zero<C0>(A);
+  bool first = true;
+  // Step i's row chain and step i - 1's contraction share a phase (one
+  // barrier a step) while step i + 1's copies are in flight. Warps 0-7
+  // take the row chain first, warps 8-15 the contraction, so that one
+  // half's products run beside the other half's row passes.
+  auto rows = [&](int64_t i) {
+    bf* S = stage + (i % S2F_STAGES) * S2F_STAGE;
+    // A pair whose 16 rows lie past R (the last step's second half) skips
+    // the row chain; the contraction reads the step's rows only.
+    if (16 * (warp >> 1) >= nrows(i)) return;
+    s2f_rows<C0, FROM_X>(S, xmode == 1, W1s, v, v + 3 * CW, Ms, W2s, DG,
+                         warp, lane);
+    if (xmode == 1 && (warp & 1) == 0)  // x channel-major for contract
+      for (int e = lane; e < 16 * C0; e += 32) {
+        const int r = 8 * warp + (e & 15), c = e >> 4;
+        S[S2F_X + c * S2F_XS + r] = S[S2F_XR + r * C0 + c];
+      }
+  };
+  auto contract = [&](int64_t j) {
+    s2f_contract<C0>(A, stage + (j % S2F_STAGES) * S2F_STAGE, nrows(j) / 16,
+                     m, n, lane);
+    // Blocks flush at staggered steps, so that their float64 traffic does
+    // not meet at device memory all at once.
+    if ((j + 1 + blockIdx.x) % S2F_FLUSH == 0 || j + 1 == count) {
+      s2f_flush<C0>(A, first, m, n, lane, partM, partV, partX, partU);
+      s2f_zero<C0>(A);
+      first = false;
+    }
+  };
+  const bool rows_first = warp < 8;
+  for (int64_t i = 0; i <= count; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (i < count) fetch(i + 1);
+    if (rows_first && i < count) rows(i);
+    if (i > 0) contract(i - 1);
+    if (!rows_first && i < count) rows(i);
+  }
+  if (count == 0)                       // a block with no step: zeros
+    s2f_flush<C0>(A, true, m, n, lane, partM, partV, partX, partU);
 }
 
 // -- launchers ---------------------------------------------------------
@@ -1331,13 +1760,12 @@ int launch_bwd2_sweep1(const RowT<BF>* p2, int64_t R, int pool,
 #undef S8_LAUNCH
 }
 
-template <bool BF>
-int launch_bwd2_sweep2(const RowT<BF>* x, int B, int C0, int N,
-                       const RowT<BF>* p1, const float* W1, const float* vec,
-                       const RowT<BF>* p2, const RowT<BF>* q3,
-                       const float* M3, const float* W2, double* partM,
-                       double* partV, double* partX, double* partU, int nblk,
-                       void* stream) {
+// B6 / B8b at f32 (p1 == nullptr: B6).
+int launch_bwd2_sweep2(const float* x, int B, int C0, int N, const float* p1,
+                       const float* W1, const float* vec, const float* p2,
+                       const float* q3, const float* M3, const float* W2,
+                       double* partM, double* partV, double* partX,
+                       double* partU, int nblk, void* stream) {
   const int64_t R = (int64_t)B * N;
   if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * (2 * CW * CW + 3 * TR * LD +
@@ -1346,27 +1774,80 @@ int launch_bwd2_sweep2(const RowT<BF>* x, int B, int C0, int N,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (p1 == nullptr) {
-    e = prepare(bwd2_sweep2_kernel<BF, true>, smem);
+    e = prepare(bwd2_sweep2_kernel<true>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    bwd2_sweep2_kernel<BF, true><<<grid, NT, smem, st>>>(
+    bwd2_sweep2_kernel<true><<<grid, NT, smem, st>>>(
         x, C0, N, R / TR, p1, W1, vec, p2, q3, M3, W2, partM, partV, partX,
         partU);
   } else {
-    e = prepare(bwd2_sweep2_kernel<BF, false>, smem);
+    e = prepare(bwd2_sweep2_kernel<false>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    bwd2_sweep2_kernel<BF, false><<<grid, NT, smem, st>>>(
+    bwd2_sweep2_kernel<false><<<grid, NT, smem, st>>>(
         x, C0, N, R / TR, p1, W1, vec, p2, q3, M3, W2, partM, partV, partX,
         partU);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int C0, bool FROM_X>
+int launch_s2f(const __nv_bfloat16* x, int64_t N, int64_t R, int xmode,
+               const __nv_bfloat16* p1, const float* W1, const float* vec,
+               const __nv_bfloat16* p2, const __nv_bfloat16* q3,
+               const float* M3, const float* W2, double* partM,
+               double* partV, double* partX, double* partU, int nblk,
+               cudaStream_t st) {
+  cudaError_t e = prepare(bwd2_sweep2_bf16_kernel<C0, FROM_X>, S2F_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bwd2_sweep2_bf16_kernel<C0, FROM_X><<<nblk, S2F_NT, S2F_SMEM, st>>>(
+      x, N, R, xmode, p1, W1, vec, p2, q3, M3, W2, partM, partV, partX,
+      partU);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// B6 / B8b at bf16: one 512-thread block an SM (nblk), p2, q3 and p1
+// 16-byte aligned (they arrive by 16-byte copies).
+int launch_bwd2_sweep2_bf16(const __nv_bfloat16* x, int B, int C0, int N,
+                            const __nv_bfloat16* p1, const float* W1,
+                            const float* vec, const __nv_bfloat16* p2,
+                            const __nv_bfloat16* q3, const float* M3,
+                            const float* W2, double* partM, double* partV,
+                            double* partX, double* partU, int nblk,
+                            void* stream) {
+  const int64_t R = (int64_t)B * N;
+  if (bad_shape(C0, R) || nblk < 1 || !aligned16(p2) || !aligned16(q3) ||
+      (p1 != nullptr && !aligned16(p1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int xmode = !aligned16(x) ? 2 : N % 8 == 0 ? 0 : N == 1 ? 1 : 2;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define S2F_LAUNCH(C)                                                       \
+  return p1 == nullptr                                                      \
+             ? launch_s2f<C, true>(x, N, R, xmode, p1, W1, vec, p2, q3, M3, \
+                                   W2, partM, partV, partX, partU, nblk, st) \
+             : launch_s2f<C, false>(x, N, R, xmode, p1, W1, vec, p2, q3,     \
+                                    M3, W2, partM, partV, partX, partU,      \
+                                    nblk, st)
+  switch (C0) {
+    case 1: S2F_LAUNCH(1);
+    case 2: S2F_LAUNCH(2);
+    case 3: S2F_LAUNCH(3);
+    case 4: S2F_LAUNCH(4);
+    case 5: S2F_LAUNCH(5);
+    case 6: S2F_LAUNCH(6);
+    default: S2F_LAUNCH(7);
+  }
+#undef S2F_LAUNCH
+}
+
 }  // namespace
 
 // Every launcher: nblk persistent blocks over R / 64 row tiles (times the
-// slices of bwd2_sweep2); returns cudaGetLastError() (0 on success). The
-// _bf16 entry points take the row tensors as bf16 and the same f32
-// parameters.
+// slices of the f32 bwd2_sweep2; 128-row steps for the bf16 one); returns
+// cudaGetLastError() (0 on success). The _bf16 entry points take the row
+// tensors as bf16 and the same f32 parameters.
 using bf16_t = __nv_bfloat16;
 
 extern "C" int facl_sa_fwd_layer(const float* in, int64_t R, int cin,
@@ -1430,8 +1911,9 @@ extern "C" int facl_sa_bwd2_sweep1_bf16(const bf16_t* p2, int64_t R,
                                   partu, partG, partc, nblk, stream);
 }
 
-// p1 == nullptr: B6 (h1 from x by h1_tile; x channel-major (B, C0, N)).
-// Otherwise B8b (h1 from p1; x row-major, passed as B = R, N = 1).
+// p1 == nullptr: B6 (h1 from x by h1_tile, at bf16 h1_pre_bf16; x
+// channel-major (B, C0, N)). Otherwise B8b (h1 from p1; x row-major,
+// passed as B = R, N = 1). At bf16 p1, p2 and q3 must be 16-byte aligned.
 extern "C" int facl_sa_bwd2_sweep2(const float* x, int B, int C0, int N,
                                    const float* p1, const float* W1,
                                    const float* vec, const float* p2,
@@ -1439,8 +1921,8 @@ extern "C" int facl_sa_bwd2_sweep2(const float* x, int B, int C0, int N,
                                    const float* W2, double* partM,
                                    double* partV, double* partX,
                                    double* partU, int nblk, void* stream) {
-  return launch_bwd2_sweep2<false>(x, B, C0, N, p1, W1, vec, p2, q3, M3, W2,
-                                   partM, partV, partX, partU, nblk, stream);
+  return launch_bwd2_sweep2(x, B, C0, N, p1, W1, vec, p2, q3, M3, W2, partM,
+                            partV, partX, partU, nblk, stream);
 }
 
 extern "C" int facl_sa_bwd2_sweep2_bf16(const bf16_t* x, int B, int C0,
@@ -1451,6 +1933,6 @@ extern "C" int facl_sa_bwd2_sweep2_bf16(const bf16_t* x, int B, int C0,
                                         double* partM, double* partV,
                                         double* partX, double* partU,
                                         int nblk, void* stream) {
-  return launch_bwd2_sweep2<true>(x, B, C0, N, p1, W1, vec, p2, q3, M3, W2,
-                                  partM, partV, partX, partU, nblk, stream);
+  return launch_bwd2_sweep2_bf16(x, B, C0, N, p1, W1, vec, p2, q3, M3, W2,
+                                 partM, partV, partX, partU, nblk, stream);
 }

@@ -612,6 +612,50 @@ __device__ __forceinline__ void relu_rows_bf16(const __nv_bfloat16* S,
   }
 }
 
+// h2 = relu(bf16(p2 mul2 + shift2)) as the A fragments (k steps kk) of
+// rows rw.. of a staged bf16 tile of p2 (stride LDB), by ldmatrix and the
+// chain, every rounding two values at once; returns h2's ReLU mask in the
+// accumulators' places, bit 8 kk + 2 q + e (n-tile 2 kk + q / 2, row
+// g + 8 (q % 2), column 2t + e).
+__device__ __forceinline__ uint32_t h2_frags_bf16(uint32_t (&ha2)[4][4],
+                                                  const __nv_bfloat16* P2,
+                                                  int rw, const float* mul2,
+                                                  const float* shift2,
+                                                  int lane) {
+  const int t = lane & 3;
+  uint32_t m2 = 0;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    ldsm4(ha2[kk], a_rows_at(P2, rw, 16 * kk, lane));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int cc = 16 * kk + 8 * (q >> 1) + 2 * t;
+      const float2 p = unpack_bf16(ha2[kk][q]);
+      float2 f;
+      uint32_t bits;
+      ha2[kk][q] = relu_packed(
+          pack_bf16(__fadd_rn(__fmul_rn(p.x, mul2[cc]), shift2[cc]),
+                    __fadd_rn(__fmul_rn(p.y, mul2[cc + 1]), shift2[cc + 1])),
+          f, bits);
+      m2 |= bits << (8 * kk + 2 * q);
+    }
+  }
+  return m2;
+}
+
+// Two bf16 values as one 32-bit word, stored or loaded (4-byte aligned).
+__device__ __forceinline__ void st32(__nv_bfloat16* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A named barrier (id 1-15) for n threads, whole warps.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
 // 16-byte asynchronous copies global -> shared (cp.async), each thread's
 // copies in groups it commits and waits for.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

@@ -1890,13 +1890,6 @@ constexpr int S2B_STAGES = 3;
 constexpr int S2B_TILE = S2B_ROWS * LDB;        // a padded (128, 64) tile
 constexpr int S2B_STAGE = 2 * S2B_TILE + C0MAX * S2B_ROWS;  // p2 | q3 | x
 
-__device__ __forceinline__ void st32(__nv_bfloat16* p, uint32_t v) {
-  *reinterpret_cast<uint32_t*>(p) = v;
-}
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // A2 += bf16(dy2)^T h1 and G1 += h1^T h1 over the 64 rows h.. of a step
 // (tiles Hb = h1, Db = bf16(dy2)), summed in f32 and carried in float64,
 // for the warp's (16, 32) block: rows (channels) 16 mt + g (+8), columns
@@ -2067,24 +2060,8 @@ bwd_sweep2_bf16_kernel(const __nv_bfloat16* __restrict__ x, int C0,
 
     // h2's A fragments from p2's, k steps kk, and its ReLU mask in the
     // accumulators' places (bit 4 j + 2 h + e, as m1).
-    uint32_t ha2[4][4], m2 = 0;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      ldsm4(ha2[kk], a_rows_at(S, rw, 16 * kk, lane));
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int cc = 16 * kk + 8 * (q >> 1) + 2 * t;
-        const float2 p = unpack_bf16(ha2[kk][q]);
-        float2 f;
-        uint32_t bits;
-        ha2[kk][q] = relu_packed(
-            pack_bf16(__fadd_rn(__fmul_rn(p.x, mul2[cc]), shift2[cc]),
-                      __fadd_rn(__fmul_rn(p.y, mul2[cc + 1]),
-                                shift2[cc + 1])),
-            f, bits);
-        m2 |= bits << (8 * kk + 2 * q);
-      }
-    }
+    uint32_t ha2[4][4];
+    uint32_t m2 = h2_frags_bf16(ha2, S, rw, mul2, shift2, lane);
     if (!live) m2 = 0;
     // h2 bf16(M3): n-tiles j, all 64 columns.
     float c[8][4];
@@ -2339,10 +2316,6 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(adesc), "l"(bdesc), "r"(1));
-}
-
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
 // An mbarrier of n arrivals a phase, and one arrival.

@@ -31,12 +31,16 @@ block an SM and takes a 16-byte aligned p2 (its tiles arrive by TMA bulk
 copies).
 
 At compute_dtype bfloat16 (``dtype=torch.bfloat16``) both sweeps have bf16
-instantiations (``sa_bwd2_sweep1_bf16``, ``sa_bwd2_sweep2_bf16``, entry
-points ``facl_sa_*_bf16``) that read x, p1, p2 and dpooled and store q3 in
-bf16, with every product on bf16 operands summed in f32; their twins
-define the cast points (below). hybrid's forward is then the bf16
-reference (ops/fused_sa.py), whose p1 and p2 are stored in bf16 as JAX's
-_forward_ps stores them. The host algebra stays f32.
+kernels (``sa_bwd2_sweep1_bf16``, ``sa_bwd2_sweep2_bf16``, entry points
+``facl_sa_*_bf16``) that read x, p1, p2 and dpooled and store q3 in bf16,
+with every product on bf16 operands summed in f32 on the bf16 tensor
+cores; their twins define the cast points (below). B8b's bf16 kernel
+(also B6's, ops/sa_pair.py) runs one 512-thread block an SM over 128-row
+steps and takes 16-byte aligned p1, p2 and q3 (16-byte copies); its f32
+accumulators are added to the float64 partials every 32 steps, so only
+the order of the sums differs from the twin's. hybrid's forward is then
+the bf16 reference (ops/fused_sa.py), whose p1 and p2 are stored in bf16
+as JAX's _forward_ps stores them. The host algebra stays f32.
 
 Input cotangent contract: ZERO (sa_bwd.py:37-39) — the grouped
 neighbourhoods are data in the training step; ``sa_impl="analytic"``
@@ -281,9 +285,11 @@ def sa_bwd2_sweep1_bf16(p2, mul2, shift2, w3, b3, mul3, shift3, gi3,
 def _launch_sweep2(x, B: int, C0: int, N: int, p1, w1, b1, mul1, shift1,
                    p2, mul2, shift2, q3, M3, rc3, gi2, w2, dt
                    ) -> Dict[str, torch.Tensor]:
-    """Launch csrc/sa_2sweep.cu::bwd2_sweep2 (B6 with p1=None, h1 from x;
+    """Launch csrc/sa_2sweep.cu's sweep 2 (B6 with p1=None, h1 from x;
     B8b with the stored p1) on rows stored as ``dt`` and unpack its
-    accumulators."""
+    accumulators: at f32 bwd2_sweep2_kernel (two 256-thread blocks an SM),
+    at bf16 bwd2_sweep2_bf16_kernel (one 512-thread block an SM, p1, p2
+    and q3 16-byte aligned)."""
     R = B * N
     C1, C2 = TRUNK[0], TRUNK[1]
     need(p2, (R, C2), "p2", dt)
@@ -296,7 +302,11 @@ def _launch_sweep2(x, B: int, C0: int, N: int, p1, w1, b1, mul1, shift1,
         need(p1, (R, C1), "p1", dt)
     vec = torch.cat([b1, mul1, shift1, mul2, shift2, rc3, gi2]).contiguous()
     need(vec, (7 * C1,), "vectors")
-    nblk = grid(x, R)
+    if dt == BF16:          # one 512-thread block an SM, 16-byte copies
+        for t, name in ((p2, "p2"), (q3, "q3"), (p1, "p1")):
+            if t is not None:
+                need_aligned(t, name)
+    nblk = grid(x, R, per_sm=1 if dt == BF16 else 2)
     dev = x.device
     nx = 2 * C1 * C0 + C0 * (C0 + 1)
     partM = torch.empty((nblk, 2, C2, C1), dtype=torch.float64, device=dev)
@@ -345,7 +355,8 @@ def sa_bwd2_sweep2(x, p1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3, gi2,
 
 def sa_bwd2_sweep2_bf16(x, p1, mul1, shift1, p2, mul2, shift2, q3, M3, rc3,
                         gi2, w2) -> Dict[str, torch.Tensor]:
-    """B8b at bf16: x, p1, p2, q3 bf16 -> the accumulators in f32."""
+    """B8b at bf16: x, p1, p2, q3 bf16 -> the accumulators in f32 (the
+    tensor-core kernel; p1, p2, q3 16-byte aligned or ValueError)."""
     if on_cpu(x):
         return sa_bwd2_sweep2_bf16_plain(x, p1, mul1, shift1, p2, mul2,
                                          shift2, q3, M3, rc3, gi2, w2)

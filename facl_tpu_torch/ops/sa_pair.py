@@ -38,8 +38,9 @@ torch.bfloat16``): the six sweeps then have bf16 forms
 ``sa_bwd_sweep2_full_bf16``, entry points ``facl_sa_*_bf16``) that store x,
 p2, q3 and mq (and B2b's max/min) in bf16: B2a, B2b, B3a, B3b and B3c as
 kernels of their own on bf16 tensor cores (mma.sync m16n8k16 bf16; B3a's
-dense q3 product as wgmma), B6 (csrc/sa_2sweep.cu) on CUDA cores. Their
-twins define the cast points (below). Everything outside the sweeps stays
+dense q3 product as wgmma), B6 with B8b's bf16 kernel (csrc/sa_2sweep.cu,
+mma.sync m16n8k16 bf16, h1 by B2a's and B3b's bf16 chain; p2 and q3
+16-byte aligned). Their twins define the cast points (below). Everything outside the sweeps stays
 f32, as XLA keeps it outside Pallas.
 
 Input cotangent contract: ZERO (facl_tpu/ops/pallas/sa_pair.py:67-68) —
@@ -500,7 +501,8 @@ def sa_bwd_sweep2_full(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3, M3,
 
 def sa_bwd_sweep2_full_bf16(x3, w1, b1, mul1, shift1, p2, mul2, shift2, q3,
                             M3, rc3, gi2, w2):
-    """B6 at bf16: x, p2, q3 bf16 -> the accumulators in f32."""
+    """B6 at bf16: x, p2, q3 bf16 -> the accumulators in f32 (B8b's bf16
+    kernel, h1 from x)."""
     if on_cpu(x3):
         return sa_bwd_sweep2_full_bf16_plain(x3, w1, b1, mul1, shift1, p2,
                                              mul2, shift2, q3, M3, rc3, gi2,

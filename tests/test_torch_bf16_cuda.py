@@ -1,9 +1,10 @@
 """The bf16 forms of the pair3 sweeps (B2a, B2b, B3a, B3b, B3c at
 compute_dtype bfloat16; each also at uneven row counts, B2b and B3b at
 unaligned rows), of B6, B7 and B8 (pair's sweep 2, hybrid2's
-forward, the two-sweep backward) and of B9 (the pallas stage's eight
-sweeps) against their bf16 twins, on the card; and the bf16 pair3 and
-pallas stages, card vs CPU.
+forward, the two-sweep backward; B6 and B8b's tensor-core kernel also at
+C0 = 1, 3, 4, 7, odd tile counts, fewer steps than blocks and unaligned
+rows) and of B9 (the pallas stage's eight sweeps) against their bf16
+twins, on the card; and the bf16 pair3 and pallas stages, card vs CPU.
 
 Marked ``cuda``: each test skips (with its reason) where no card is
 present; ``chip_smoke.py`` holds the same kernels at the main path's full
@@ -15,7 +16,9 @@ twin's on all but 1e-3 of its entries (where a bf16 rounding or ReLU
 decision upstream goes the other way between the two summation orders);
 pool indices equal except at near-ties (the twin's value at the kernel's
 index within one bf16 ulp of its best); f32 accumulators within 1e-3 of
-their max-abs; two calls bit-identical. B8a splits each pooled cotangent
+their max-abs, and B6's and B8b's in the tests of their shapes and
+alignments within chip_smoke.py phase 2's ACC2_BAR of it (cnt1 exact);
+two calls bit-identical. B8a splits each pooled cotangent
 among its group's exact ties of the f32 z inside the kernel, so its
 cotangent is zero on the near-tie pairs (a distinct z within 1e-5 of the
 largest |z| of a group's max, or a max within that of zero), where two
@@ -24,7 +27,9 @@ rtol = atol = 5e-2 and gradients at relative L2 < 0.15, cosine > 0.99
 (the JAX package's bf16 bars, tests/test_covar_bn.py:38-39,
 tests/test_sa_pair.py:109-135).
 """
+import importlib.util
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +37,19 @@ import torch
 
 pytestmark = pytest.mark.cuda
 BF16 = torch.bfloat16
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: chip_smoke.py phase 2's bar for the bf16 B6's and B8b's accumulators,
+#: a share of the twin's max-abs.
+ACC2_BAR = _chip_smoke().ACC2_BAR
 
 
 @pytest.fixture
@@ -265,6 +283,77 @@ def test_bf16_b8a_duplicated_rows_match_twins(dev, rng, K):
         _acc(a, b)
     assert k[4].dtype == BF16
     _rows(k[4], tw[4])
+
+
+def _sweep2_inputs(rng, dev, C0, R):
+    """B6's and B8b's bf16 arguments on R random rows, p1 and p2 from the
+    bf16 forward's layers (sa_fwd_layer_bf16's twin), q3 random bf16."""
+    from facl_tpu_torch.ops import sa_fwd as SF
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    vec = lambda n, s=1.0: t(s * rng.normal(size=(n,)))
+    w1, b1 = t(rng.normal(size=(C0, 64), scale=0.3)), vec(64, 0.1)
+    w2 = t(rng.normal(size=(64, 64), scale=0.3))
+    xr = t(rng.normal(size=(R, C0))).to(BF16)
+    mul1, shift1, mul2, shift2 = vec(64, 2), vec(64), vec(64, 2), vec(64)
+    p1 = SF.sa_fwd_layer_bf16_plain(xr, w1, b1)[0]
+    p2 = SF.sa_fwd_layer_bf16_plain(p1, w2, vec(64, 0.1), mul1, shift1)[0]
+    q3 = vec(R * 64).view(R, 64).to(BF16)
+    tail = (p2, mul2, shift2, q3, t(0.01 * rng.normal(size=(64, 64))),
+            vec(64, 0.1), vec(64), w2)
+    return xr, w1, b1, mul1, shift1, p1, tail
+
+
+def _sweep2_match(fn, args):
+    """A sweep-2 kernel against its twin: cnt1 exact, every accumulator
+    within ACC2_BAR of its max-abs; two calls bit-identical."""
+    plain = getattr(sys.modules[fn.__module__], fn.__name__ + "_plain")
+    k, again, tw = fn(*args), fn(*args), plain(*args)
+    assert set(k) == set(tw)
+    assert all(torch.equal(k[n], again[n]) for n in k)
+    assert torch.equal(k["cnt1"], tw["cnt1"])
+    for n in tw:
+        err = float((k[n] - tw[n]).abs().max())
+        assert err <= ACC2_BAR * float(tw[n].abs().max()), n
+
+
+@pytest.mark.parametrize("C0", [1, 3, 4, 7])
+@pytest.mark.parametrize("B,N", [(1, 64 * 1037), (1, 320), (16, 20),
+                                 (5, 64)])
+def test_bf16_sweep2_redesigned(dev, rng, C0, B, N):
+    """The bf16 B6 (sa_bwd_sweep2_full_bf16, x channel-major) and B8b
+    (sa_bwd2_sweep2_bf16, x row-major) of the tensor-core kernel against
+    their twins at C0 = 1, 3, 4 and 7: 1,037 row tiles (an odd count: the
+    last 128-row step half empty); 5 tiles (three steps for a grid of one
+    block an SM: most blocks take none); N = 20 (x not in 8-row pieces of
+    one cloud: read value by value); N = 64 over 5 clouds."""
+    from facl_tpu_torch.ops import sa_bwd as SB
+    from facl_tpu_torch.ops import sa_pair as SP
+    R = B * N
+    xr, w1, b1, mul1, shift1, p1, tail = _sweep2_inputs(rng, dev, C0, R)
+    x3 = xr.view(B, N, C0).transpose(1, 2).contiguous()
+    _sweep2_match(SB.sa_bwd2_sweep2_bf16, (xr, p1, mul1, shift1, *tail))
+    _sweep2_match(SP.sa_bwd_sweep2_full_bf16,
+                  (x3, w1, b1, mul1, shift1, *tail))
+
+
+def test_bf16_sweep2_misaligned(dev, rng):
+    """p1, p2 and q3 arrive by 16-byte copies and raise when not 16-byte
+    aligned; an unaligned x is read value by value and matches."""
+    from facl_tpu_torch.ops import sa_bwd as SB
+    R, C0 = 64 * 7, 4
+    xr, _, _, mul1, shift1, p1, tail = _sweep2_inputs(rng, dev, C0, R)
+
+    def shifted(a):          # the same values, 2 bytes off alignment
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
+        buf[1:] = a.reshape(-1)
+        return buf[1:].view(a.shape)
+    _sweep2_match(SB.sa_bwd2_sweep2_bf16,
+                  (shifted(xr), p1, mul1, shift1, *tail))
+    for i in (1, 4, 7):
+        args = [xr, p1, mul1, shift1, *tail]
+        args[i] = shifted(args[i])
+        with pytest.raises(ValueError, match="aligned"):
+            SB.sa_bwd2_sweep2_bf16(*args)
 
 
 @pytest.mark.parametrize("K", [64, 128])
