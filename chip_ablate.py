@@ -43,6 +43,15 @@ time on the card.
                                             # kernel) with one part cut
                                             # at a time (B8B_CUTS), in
                                             # turns
+    python3 chip_ablate.py b8b_f32          # the f32 B6 and B8b
+                                            # (sa_bwd2_sweep2's TF32
+                                            # kernel) with one part cut
+                                            # at a time, and trial forms
+                                            # (B8B_F32_CUTS), in turns
+    python3 chip_ablate.py --parent DIR b8b_f32
+                                            # + DIR's sa_2sweep.cu (its
+                                            # f32 B6 and B8b, its cnt1
+                                            # against the twin's)
     python3 chip_ablate.py b8a              # B8a (sa_bwd2_sweep1) at bf16
                                             # and f32 with one part cut at
                                             # a time (B8A_CUTS), in turns
@@ -1087,7 +1096,7 @@ def b8a(cs, out_dir) -> None:
 #: done (none ahead); "loads only" keeps the copies, the x transpose and
 #: the float64 flushes.
 B8B_SECTION = ("// B6 / B8b at bf16 (facl_sa_bwd2_sweep2_bf16)",
-               "// -- launchers")
+               "// B6 / B8b at f32 (facl_sa_bwd2_sweep2)")
 B8B_NO_PREFETCH = (
     ("  fetch(0);\n", ""),
     ("    cp_async_wait<0>();\n    __syncthreads();\n"
@@ -1210,6 +1219,182 @@ def b8b(cs, out_dir) -> None:
               f"{w:.3e} of their max-abs ({n}; bar {cs.ACC2_BAR:g})",
               flush=True)
     print(json.dumps({"b8b": times, "checked": checked, "ptxas": ptxas,
+                      "gpu": gpu}))
+
+
+#: b8b_f32: sa_2sweep.cu's f32 B6 / B8b (bwd2_sweep2_tf32_kernel) with one
+#: part cut at a time, as b8b: name -> (calls made void, text
+#: replacements); then trials of other forms (wgmma n chunks of 64 or 16;
+#: in place of tf32_mma.cuh's split, CUTLASS's, lo = a - hi left for the
+#: tensor cores to read in TF32; splits by truncation, hi the f32 value as
+#: the tensor cores read it and lo its exact remainder), each a split_v
+#: that the section's calls of split reach by a macro.
+B8B_F32_SECTION = ("// B6 / B8b at f32 (facl_sa_bwd2_sweep2)", "// -- launchers")
+B8B_F32_NO_PREFETCH = (
+    ("  fetch(0);\n", ""),
+    ("    cp_async_wait<0>();\n"
+     "    __syncthreads();                    // step i in; step i - 1 "
+     "contracted\n"
+     "    fetch(i + 1);                       // the next step's copies\n",
+     "    __syncthreads();\n    fetch(i);\n    cp_async_wait<0>();\n"
+     "    __syncthreads();\n"))
+B8B_F32_SINK = (
+    "      s2t_flush<C0, W>(A, first, v, lane, partM, partV, partX, partU);",
+    "      { float z = 0.f; const float* f = &A.acc[0][0];\n"
+    "#pragma unroll\n"
+    "        for (int q = 0; q < (int)(sizeof(A) / 4); ++q) z += f[q];\n"
+    "        if (z == 1.2345f) partM[0] = z; }")
+B8B_F32_AT = "constexpr int S2T_NT = 512;"
+
+
+def b8b_f32_split(body):
+    """The replacement that makes the section's split the body's."""
+    return ((B8B_F32_AT, "__device__ __forceinline__ Split split_v(float a) "
+             "{\n" + body + "}\n#define split split_v\n" + B8B_F32_AT),)
+
+
+B8B_F32_UNROUNDED = b8b_f32_split(
+    "  const uint32_t hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;\n"
+    "  return Split{hi, __float_as_uint(__fsub_rn(a, __uint_as_float(hi)))};"
+    "\n")
+B8B_F32_TRUNC = b8b_f32_split(
+    "  const uint32_t hi = __float_as_uint(a) & 0xffffe000u;\n"
+    "  return Split{__float_as_uint(a), __float_as_uint(\n"
+    "      __fsub_rn(a, __uint_as_float(hi)))};\n")
+B8B_F32_CUTS = {
+    "b8b_f32": ((), ()),
+    "b8b_f32 without the row chain": (("s2t_rows",), ()),
+    "b8b_f32 without the U1 products": ((), ((
+        "      for (int h = 0; h < S2T_NC; ++h) {",
+        "      for (int h = 0; h < (kind >= 3 ? 0 : S2T_NC); ++h) {"),)),
+    "b8b_f32 without the n8 tile": ((), (
+        ("    if constexpr (W == 3) {             // the n8 tile: mq, x",
+         "    if constexpr (false) {"),
+        ("      if (kind == 2)                    // m1^T [x | 1]",
+         "      if (false)"),
+        ("      else if (kind < 2)                // dy2^T 1, h1^T 1",
+         "      else if (false)"))),
+    "b8b_f32 without the contraction": (("s2t_contract",), ()),
+    "b8b_f32 without the float64 flushes": ((), (B8B_F32_SINK,)),
+    "b8b_f32 without the prefetch": ((), B8B_F32_NO_PREFETCH),
+    "b8b_f32 loads only": (("s2t_rows", "s2t_contract"), ()),
+    "b8b_f32 flushing every 64 steps": ((), (("S2T_FLUSH = 128;",
+                                              "S2T_FLUSH = 64;"),)),
+    "b8b_f32 flushing every 256 steps": ((), (("S2T_FLUSH = 128;",
+                                               "S2T_FLUSH = 256;"),)),
+    "b8b_f32 with n64 chunks": ((), (("S2T_NH = 32;", "S2T_NH = 64;"),)),
+    "b8b_f32 with n16 chunks": ((), (("S2T_NH = 32;", "S2T_NH = 16;"),)),
+    "b8b_f32 with unrounded lo splits": ((), B8B_F32_UNROUNDED),
+    "b8b_f32 with truncating splits": ((), B8B_F32_TRUNC),
+}
+#: b8b_f32: the builds whose outputs are held against the twins.
+B8B_F32_CHECKED = ("b8b_f32", "b8b_f32 flushing every 64 steps",
+                   "b8b_f32 flushing every 256 steps",
+                   "b8b_f32 with n64 chunks", "b8b_f32 with n16 chunks",
+                   "b8b_f32 with unrounded lo splits",
+                   "b8b_f32 with truncating splits")
+
+
+def b8b_f32(cs, out_dir, parent=None) -> None:
+    """The f32 B8b (sa_bwd2_sweep2, x row-major) and B6
+    (sa_bwd_sweep2_full, x channel-major) on the main path's shape (640
+    clouds x 4,096 rows, C0 = 4; p1 and p2 from the forward's twins on
+    randn rows, q3 randn) with each B8B_F32_CUTS build, twice, in turns. A
+    cut variant's outputs are wrong by design; only its time is read. The
+    B8B_F32_CHECKED builds' outputs are held against the twins (the widest
+    accumulator error over its max-abs printed beside phase 2's f32 bar,
+    1e-4; cnt1 exact for B8b; B6's h1 is the k-order chain and its twin's
+    a matmul, so B6's cnt1 is held to the full build's and its entries
+    off the twin's are counted), and ptxas use of each build's C0 = 4
+    kernels printed. With ``parent`` (a tree's root), that tree's
+    sa_2sweep.cu is built too and timed in the same turns at its own
+    wrapper's grid (two blocks an SM), and its outputs are compared the
+    same way, its cnt1 entries off the twin's and off the full build's
+    counted (not checked)."""
+    from facl_tpu_torch.ops import sa_bwd as SB
+    from facl_tpu_torch.ops import sa_fwd as SF
+    from facl_tpu_torch.ops import sa_pair as SP
+    if parent:                            # started before the cuts' nvccs
+        started = cs.start_parent_build(parent, ("sa_2sweep",))
+    libs, ptxas = build_cuts(out_dir, "sa_2sweep", B8B_F32_SECTION,
+                             B8B_F32_CUTS, "b8bf",
+                             {"bwd2_sweep2_tf32_kernelILi4ELb0E": "B8b",
+                              "bwd2_sweep2_tf32_kernelILi4ELb1E": "B6"})
+    checked_names = B8B_F32_CHECKED
+    grids = {}
+    if parent:
+        cs.load_parent(started)
+        libs["parent"] = cs.PARENT["sa_2sweep"]
+        ptxas["parent"] = []
+        grids["parent"] = cs.parent_grid_swaps("sa_2sweep", 2)
+        checked_names += ("parent",)
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def r(*shape, sc=1.0):
+        return sc * torch.randn(*shape, device=dev, generator=g)
+    R, C0 = 640 * 4096, 4
+    xr = r(R, C0)
+    w1, b1, w2 = r(C0, 64, sc=0.3), r(64, sc=0.1), r(64, 64, sc=0.3)
+    mul1, shift1, mul2, shift2 = r(64, sc=2.0), r(64), r(64, sc=2.0), r(64)
+    p1 = SF.sa_fwd_layer_plain(xr, w1, b1)[0]
+    p2 = SF.sa_fwd_layer_plain(p1, w2, r(64, sc=0.1), mul1, shift1)[0]
+    tail = (p2, mul2, shift2, r(R, 64), r(64, 64, sc=0.01), r(64, sc=0.1),
+            r(64), w2)
+    x3 = xr.view(640, 4096, C0).transpose(1, 2).contiguous()
+    runs = {"B8b": (SB.sa_bwd2_sweep2, SB.sa_bwd2_sweep2_plain,
+                    (xr, p1, mul1, shift1, *tail)),
+            "B6": (SP.sa_bwd_sweep2_full, SP.sa_bwd_sweep2_full_plain,
+                   (x3, w1, b1, mul1, shift1, *tail))}
+    key = ("sa_2sweep", "facl_sa_bwd2_sweep2")
+    for fn, _, args in runs.values():
+        fn(*args)                         # resolves this tree's launcher
+
+    def build(name):
+        """The block that runs the wrapper on build ``name``."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(using_lib(key, libs[name]))
+        stack.enter_context(cs.swapped(grids.get(name, [])))
+        return stack
+    checked = {}
+    for form, (fn, plain, args) in runs.items():
+        t = plain(*args)
+        acc = {n: v for n, v in t.items() if n != "cnt1"}
+        cnt = None
+        for name in checked_names:
+            with build(name):
+                k = fn(*args)
+            off = int((k["cnt1"] != t["cnt1"]).sum())
+            cnt = k["cnt1"] if cnt is None else cnt     # the full build's
+            if name == "parent":
+                print(f"parent {form}: cnt1 entries off the twin's {off}, "
+                      "off this tree's full build's "
+                      f"{int((k['cnt1'] != cnt).sum())}", flush=True)
+            elif form == "B8b":
+                cs.check(off == 0, f"{name} {form}: cnt1 not exact")
+            else:
+                cs.check(torch.equal(k["cnt1"], cnt),
+                         f"{name} {form}: cnt1 not the full build's")
+            checked[f"{name} {form}"] = cs.sweep2_share(k, acc) + (off,)
+            del k
+        del t
+    times = {name: {form: [] for form in runs} for name in libs}
+    for _ in range(2):
+        for name in libs:
+            for form, (fn, _, args) in runs.items():
+                with build(name):
+                    times[name][form].append(
+                        cs.device_ms(lambda: fn(*args))[0])
+    gpu = cs.gpu_name_power()
+    for name, by in times.items():
+        print(f"{name}: " + ", ".join(
+            f"{form} {a:.4f} / {b:.4f}" for form, (a, b) in by.items())
+            + f" ms on the device ({gpu}); ptxas {ptxas[name]}", flush=True)
+    for what, (w, n, off) in checked.items():
+        print(f"{what} against its twin: accumulators at most {w:.3e} of "
+              f"their max-abs ({n}; bar 1e-4); cnt1 entries off the twin's "
+              f"{off}", flush=True)
+    print(json.dumps({"b8b_f32": times, "checked": checked, "ptxas": ptxas,
                       "gpu": gpu}))
 
 
@@ -1541,6 +1726,9 @@ def main() -> None:
         return
     if only == ("b8b",):
         b8b(cs, out_dir)
+        return
+    if only == ("b8b_f32",):
+        b8b_f32(cs, out_dir, parent)
         return
     if only == ("tc_sums",):
         tc_sums(cs, out_dir)

@@ -6,26 +6,26 @@ every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py --profile   # + a torch.profiler breakdown of
                                       #   one main-path step
     python3 chip_smoke.py --parent DIR  # + B1, B2a, B2b, B3a, B3b, B3c
-                                        #   and the f32 B6, B7 and B8b of
-                                        #   the tree in DIR (a git
-                                        #   archive of another commit)
-                                        #   timed against this tree's, in
-                                        #   turns, their outputs bit-equal;
-                                        #   the f32 B8a and B9 alike,
+                                        #   and the f32 B7 of the tree in
+                                        #   DIR (a git archive of another
+                                        #   commit) timed against this
+                                        #   tree's, in turns, their
+                                        #   outputs bit-equal; the f32
+                                        #   B6, B8a, B8b and B9 alike,
                                         #   within phase 2's f32 bars of
                                         #   the parent's
-                                        #   (two_sweep_vs_parent,
+                                        #   (sweep2_vs_parent, cnt1
+                                        #   exact; two_sweep_vs_parent,
                                         #   b9_vs_parent); the bf16 B2a-B3c,
-                                        #   B8a and B9 within phase 2's
-                                        #   bf16 bars (B9's at its own
-                                        #   bars, b9_bf16_vs_parent), each
-                                        #   at its wrapper's grid; and the
-                                        #   pair3 bf16, pallas bf16 and
-                                        #   f32, and hybrid2 bf16 and f32
-                                        #   steps with the parent's bf16
-                                        #   B2a, B9 and B8a, in turns (with
-                                        #   --profile, three profiled steps
-                                        #   of each turn)
+                                        #   B6, B8a, B8b and B9 within
+                                        #   phase 2's bf16 bars (B9's at its
+                                        #   own bars, b9_bf16_vs_parent),
+                                        #   each at its wrapper's grid; and
+                                        #   the pair and hybrid2 f32 steps
+                                        #   with the parent's f32 B6 and
+                                        #   B8b, in turns (with --profile,
+                                        #   three profiled steps of each
+                                        #   turn)
 
 Phases (any failure exits nonzero, before the final line):
   1. build   every kernel from facl_tpu_torch/ops/csrc (one nvcc per
@@ -53,11 +53,11 @@ Phases (any failure exits nonzero, before the final line):
              queued behind a spin of the card, so the device time excludes
              the host's; the host's time per call beside it; beside B5a
              and B5b one library call (torch.gather, index_add_). B2a
-             (tensor cores, 6xTF32), B2b, B3b, B3c and B8a (3xTF32) print
-             two bounds:
+             (tensor cores, 6xTF32), B2b, B3b, B3c, B6, B8a and B8b
+             (3xTF32) print two bounds:
              the tensor-core one (bound_ms) and the f32 CUDA-core one
-             (bound_f32_ms). B2a, B2b, B3a-B3c and B8a are run to run
-             bit-identical; B2b and B3a-B3c are checked again on the fine
+             (bound_f32_ms). B2a, B2b, B3a-B3c, B6, B8a and B8b are run to
+             run bit-identical; B2b and B3a-B3c are checked again on the fine
              variant's K = 128. Then
              the five bf16 sweeps (B2a-B3c at compute_dtype bfloat16)
              against their bf16 twins on the same card tensors: bf16
@@ -107,10 +107,10 @@ Phases (any failure exits nonzero, before the final line):
              --profile adds one profiled step to each impl's path: kernel
              time (kernel_ms: user annotations left out) over that step's
              own span gives the device's idle share; with --parent the
-             pair3 bf16, pallas bf16 and f32, and hybrid2 bf16 and f32
-             steps run again, 20 steps each in turns with the parent's
-             bf16 B2a / B9 / B8a and with this tree's (parent_step_ab;
-             --profile: three profiled steps each);
+             pair and hybrid2 f32 steps run again, 20 steps each in turns
+             with the parent's f32 B6 / B8b and with this tree's
+             (parent_step_ab, PARENT_STEPS; --profile: three profiled
+             steps each);
   5. input   d(loss)/d(points) through each grouping route and the
              pallas SA stage with input_grad (B9's dx, B5b) at B=8: card
              kernels vs card twins vs CPU (phase_input_grad), with exact
@@ -348,16 +348,19 @@ def device_ms(fn, n: int = 20):
 
 
 def bound(nbytes: float, ops: float, tc_ops: float = 0.0, passes: int = 3,
-          bf16_ops: float = 0.0):
+          bf16_ops: float = 0.0, exact_ops: float = 0.0):
     """(ms, "bytes" or "operations"): the larger of bytes over the memory
     rate and the operations over their peak rates — ``ops`` f32 on CUDA
     cores, ``tc_ops`` (product flops) on tensor cores in ``passes`` TF32
     passes each (3xTF32, or B2a's 6xTF32), or with ``passes=0`` once at
     the bf16 rate (bf16 operands, f32 accumulation); ``bf16_ops``
     (product flops of bf16 operands) at the bf16 rate beside them (B9 at
-    bf16: its f32-operand products in 3xTF32)."""
+    bf16: its f32-operand products in 3xTF32); ``exact_ops`` (product
+    flops with one operand exact in TF32, its lo 0) in two TF32 passes
+    (B6 and B8b at f32: sweep2_exact)."""
     tb = nbytes / PEAK_BYTES * 1e3
     tc = passes * tc_ops / PEAK_TF32 if passes else tc_ops / PEAK_BF16
+    tc += 2 * exact_ops / PEAK_TF32
     to = (ops / PEAK_F32 + tc + bf16_ops / PEAK_BF16) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
@@ -595,9 +598,34 @@ IMPLS = ("pair3", "pair", "hybrid2", "hybrid")
 
 
 def sweep2_err(k, t, name):
-    """B6/B8b: every accumulator within 1e-4 of its max-abs, cnt1 exact."""
+    """B6/B8b: every accumulator within 1e-4 of its max-abs, cnt1 exact.
+    Returns (the largest absolute error, the widest error as a share of
+    its accumulator's max-abs, that accumulator's name)."""
     check(torch.equal(k["cnt1"], t["cnt1"]), f"{name}: cnt1 not exact")
-    return max(acc_err(k[n], t[n], f"{name} {n}") for n in t)
+    return (max(acc_err(k[n], t[n], f"{name} {n}") for n in t),
+            *sweep2_share(k, t))
+
+
+def sweep2_share(k, t):
+    """(the widest error of k's accumulators against t's as a share of
+    its max-abs, its name); t's names."""
+    return max((float((k[n] - t[n]).abs().max()) /
+                max(float(t[n].abs().max()), 1e-30), n) for n in t)
+
+
+def sweep2_checked(fn, args, plain, name):
+    """The f32 B6/B8b (3xTF32) against its twin at phase 2's f32 bar
+    (sweep2_err), and two calls bit-identical; prints the widest error as
+    a share of its accumulator's max-abs (the margin under the bar).
+    Returns the largest absolute error."""
+    k = fn(*args)
+    check(all(torch.equal(v, fn(*args)[n]) for n, v in k.items()),
+          f"{name}: two runs differ")
+    e, share, at = sweep2_err(k, plain(*args), name)
+    print(f"{name} (3xTF32): accumulators at most {share:.3e} of their "
+          f"max-abs ({at}; bar 1e-4), cnt1 exact, run to run "
+          "bit-identical", flush=True)
+    return e
 
 
 def sweep2_ops(C0, C1=64, C2=64):
@@ -622,6 +650,14 @@ def sweep2_n8(C0, C1=64):
     products of its n8 tile [x | 1] on the tensor cores: T1x, P1 (4 C1
     C0); the four colsums (4 C1); Gx (symmetric, C0 (C0 + 1)); cx."""
     return 4 * C1 * C0 + 4 * C1 + C0 * (C0 + 1) + C0
+
+
+def sweep2_exact(C0, C1=64):
+    """The part of sweep2_tc + sweep2_n8 with one operand exact in TF32,
+    which 3xTF32 runs in two passes: the products of m1 (0 or 1), TM1 (2
+    C1 C1) and T1x (2 C1 C0), and those of the ones column, the four
+    colsums (4 C1) and cx (C0)."""
+    return 2 * C1 * C1 + 2 * C1 * C0 + 4 * C1 + C0
 
 
 def b8a_ops(C2=64, C3=256, bf=False):
@@ -652,9 +688,10 @@ def two_sweep_rows(x3, layers, dpooled, K):
     xr = x3.transpose(1, 2).reshape(R, C0).contiguous()    # channels-last
     rows = []
 
-    def add(name, args, err, nbytes, ops, fn, replaces, tc_ops=0):
+    def add(name, args, err, nbytes, ops, fn, replaces, tc_ops=0,
+            exact_ops=0):
         rows.append(dict(name=name, args=args, err=err, nbytes=nbytes,
-                         ops=ops, tc_ops=tc_ops, fn=fn,
+                         ops=ops, tc_ops=tc_ops, exact_ops=exact_ops, fn=fn,
                          plain=getattr(SF if fn in SF.KERNELS else SB,
                                        fn.__name__ + "_plain"),
                          source=SRC2, replaces=replaces))
@@ -724,11 +761,17 @@ def two_sweep_rows(x3, layers, dpooled, K):
     t3 = _layer_terms(A3, u3, lp3, m3, v3, G2b, ch2b, R, eps)
     as2 = (xr, p1, mul1, shift1, p2, mul2, shift2, q3, t3["M"].contiguous(),
            t3["rc"], gi2, lp2.kernel)
+    # Products (and the n8 tile's, sweep2_n8) on the tensor cores in
+    # 3xTF32, those with an exact operand (sweep2_exact) in two passes,
+    # the rest on CUDA cores.
+    tc2 = sweep2_tc(C0) + sweep2_n8(C0, C1)
+    ex2 = sweep2_exact(C0, C1)
     add("sa_bwd2_sweep2", as2,
-        sweep2_err(SB.sa_bwd2_sweep2(*as2), SB.sa_bwd2_sweep2_plain(*as2),
-                   "B8b"),
-        R * (C0 + 3 * C1) * 4, R * (3 * C1 + sweep2_ops(C0)),
-        SB.sa_bwd2_sweep2, "facl_tpu/ops/pallas/sa_bwd.py:298")
+        sweep2_checked(SB.sa_bwd2_sweep2, as2, SB.sa_bwd2_sweep2_plain,
+                       "B8b"),
+        R * (C0 + 3 * C1) * 4, R * (3 * C1 + sweep2_ops(C0) - tc2),
+        SB.sa_bwd2_sweep2, "facl_tpu/ops/pallas/sa_bwd.py:298",
+        R * (tc2 - ex2), R * ex2)
     return rows
 
 
@@ -1732,16 +1775,20 @@ def phase_kernels(dev, model, points):
                          tc_ops=R * (2 * C1 * C1 + 2 * C1 * (C0 + 1)),
                          fn=SP.sa_bwd_sweep3, plain=SP.sa_bwd_sweep3_plain,
                          replaces="facl_tpu/ops/pallas/sa_pair.py:835"))
-        # B6: sweep 2 of the pair (non-slim) backward, on B3b's inputs.
-        km = SP.sa_bwd_sweep2_full(*as2)
-        e = sweep2_err(km, SP.sa_bwd_sweep2_full_plain(*as2), "B6")
+        # B6: sweep 2 of the pair (non-slim) backward, on B3b's inputs;
+        # its products (and its n8 tile's) on tensor cores (3xTF32; those
+        # with an exact operand in two passes).
+        e = sweep2_checked(SP.sa_bwd_sweep2_full, as2,
+                           SP.sa_bwd_sweep2_full_plain, "B6")
+        tc2 = sweep2_tc(C0) + sweep2_n8(C0, C1)
+        ex2 = sweep2_exact(C0, C1)
         rows.append(dict(name="sa_bwd_sweep2_full", args=as2, err=e,
                          nbytes=R * (C0 + 2 * C2) * 4,
-                         ops=R * (2 * C0 * C1 + C1 + sweep2_ops(C0)),
+                         ops=R * (2 * C0 * C1 + C1 + sweep2_ops(C0) - tc2),
+                         tc_ops=R * (tc2 - ex2), exact_ops=R * ex2,
                          fn=SP.sa_bwd_sweep2_full,
                          plain=SP.sa_bwd_sweep2_full_plain, source=SRC2,
                          replaces="facl_tpu/ops/pallas/sa_pair.py:863"))
-        del km
         rows += bf16_rows(x3, (lp1, lp2, lp3), dpooled, K)
         rows += two_sweep_rows(x3, (lp1, lp2, lp3), dpooled, K)
         rows += two_sweep_bf16_rows(x3, (lp1, lp2, lp3), dpooled, K)
@@ -1794,11 +1841,12 @@ def measure(r):
     lib = r.pop("library", None)
     r["library_ms"] = device_ms(lib)[0] if lib else None
     nbytes, ops, tc = r.pop("nbytes"), r.pop("ops"), r.pop("tc_ops", 0)
-    bf = r.pop("bf16_ops", 0)
+    bf, ex = r.pop("bf16_ops", 0), r.pop("exact_ops", 0)
     r["passes"] = r.pop("passes", 3)
-    r["bound_ms"], r["bound_by"] = bound(nbytes, ops, tc, r["passes"], bf)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, ops, tc, r["passes"], bf,
+                                         ex)
     if tc or bf:
-        r["bound_f32_ms"] = bound(nbytes, ops + tc + bf)[0]
+        r["bound_f32_ms"] = bound(nbytes, ops + tc + bf + ex)[0]
     r["rate"] = f"{r['passes']}xTF32" if r["passes"] and tc else "bf16"
     if tc and bf:
         r["rate"] = f"bf16 (bf16 operands) and {r['rate']} (an f32 operand)"
@@ -1828,32 +1876,31 @@ PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
              "sa_fwd_layer": ("sa_2sweep", "facl_sa_fwd_layer", None),
              "sa_fwd_gram": ("sa_2sweep", "facl_sa_fwd_gram", None),
              "sa_fwd_pool": ("sa_2sweep", "facl_sa_fwd_pool", None),
-             "sa_bwd2_sweep1": ("sa_2sweep", "facl_sa_bwd2_sweep1", 2),
+             "sa_bwd2_sweep1": ("sa_2sweep", "facl_sa_bwd2_sweep1", 1),
              "sa_bwd2_sweep1_bf16": ("sa_2sweep", "facl_sa_bwd2_sweep1_bf16",
-                                     2),
-             "sa_bwd2_sweep2": ("sa_2sweep", "facl_sa_bwd2_sweep2", None),
-             "sa_bwd_sweep2_full": ("sa_2sweep", "facl_sa_bwd2_sweep2",
-                                    None),
+                                     1),
+             "sa_bwd2_sweep2": ("sa_2sweep", "facl_sa_bwd2_sweep2", 2),
+             "sa_bwd_sweep2_full": ("sa_2sweep", "facl_sa_bwd2_sweep2", 2),
              "sa_bwd2_sweep2_bf16": ("sa_2sweep", "facl_sa_bwd2_sweep2_bf16",
-                                     2),
+                                     1),
              "sa_bwd_sweep2_full_bf16": ("sa_2sweep",
-                                         "facl_sa_bwd2_sweep2_bf16", 2),
-             **{n: ("sa_fused", "facl_sa_fused", 2) for n in
+                                         "facl_sa_bwd2_sweep2_bf16", 1),
+             **{n: ("sa_fused", "facl_sa_fused", 1) for n in
                 B9_NAMES},
-             **{f"{n}_bf16": ("sa_fused", "facl_sa_fused_bf16", 2) for n in
+             **{f"{n}_bf16": ("sa_fused", "facl_sa_fused_bf16", 1) for n in
                 B9_NAMES}}
 PARENT_LIBS = ("select", "sa_pair", "sa_2sweep", "sa_fused")
 
 
-def start_parent_build(root: str):
-    """Start nvcc on ``root``'s select.cu, sa_pair.cu, sa_2sweep.cu and
-    sa_fused.cu (a checkout of the parent commit) with this tree's flags;
-    returns
+def start_parent_build(root: str, names=PARENT_LIBS):
+    """Start nvcc on ``root``'s sources of ``names`` (by default
+    select.cu, sa_pair.cu, sa_2sweep.cu and sa_fused.cu; ``root`` a
+    checkout of the parent commit) with this tree's flags; returns
     {library: (process, output)}."""
     from facl_tpu_torch.ops import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
-    for name in PARENT_LIBS:
+    for name in names:
         src = os.path.join(root, "facl_tpu_torch", "ops", "csrc",
                            f"{name}.cu")
         check(os.path.exists(src), f"--parent: no {src}")
@@ -1888,7 +1935,10 @@ def parent_ab(fn, args):
     b9_bf16_vs_parent: the redesigned kernels sum in another order), or
     for B9 at f32 within phase 2's f32 B9 bars (b9_vs_parent: the TF32
     kernel sums in another order), or for B8a at f32 within phase 2's f32
-    bars (two_sweep_vs_parent: the TF32 kernel sums in another order). The
+    bars (two_sweep_vs_parent: the TF32 kernel sums in another order), or
+    for B6 and B8b at f32 within phase 2's f32 bar, cnt1 exact
+    (sweep2_vs_parent: the TF32 kernel sums in another order than the
+    parent's CUDA-core one). The
     parent's launcher runs at its own wrapper's grid (parent_grid_swaps).
     The launchers' C signatures are the
     same in both trees (pointers are void* to ctypes). (B6 and B8b return
@@ -1916,6 +1966,11 @@ def parent_ab(fn, args):
         return device_ms(lambda: fn(*args))[0]
     theirs = []
     ab = [run_parent(theirs), run_ours(), run_ours(), run_parent()]
+    if fn.__name__ in F32_SWEEP2:
+        print(f"  --parent {fn.__name__} against the parent's: "
+              f"{sweep2_vs_parent(fn.__name__, fn(*args), theirs[0])}",
+              flush=True)
+        return ab
     mine = _outputs(fn(*args))
     theirs = [t for o in theirs for t in _outputs(o)]
     if lib_name == "sa_fused":
@@ -1943,12 +1998,12 @@ def parent_ab(fn, args):
 def parent_grid_swaps(lib_name: str, blocks):
     """The (module, name, value) swaps that launch a parent launcher at the
     grid its own wrapper gave it: sa_pair's and sa_bwd's ``grid`` at
-    ``blocks`` blocks an SM (the parent's B8a at either dtype, and its
-    bf16 B6 and B8b, ran two 256-thread blocks an SM where this tree's
-    tensor-core kernels run one of 512); B9's ``_nblk`` at ``blocks`` blocks an SM (the parent's B9 at
-    either dtype ran two 256-thread blocks an SM where this tree's
-    tensor-core kernels run one of 512); none for a launcher that takes
-    no grid (blocks None)."""
+    ``blocks`` blocks an SM (the parent's f32 B6 and B8b ran two 256-thread
+    blocks an SM where this tree's TF32 kernel runs one of 512; its B8a at
+    either dtype and its bf16 B6 and B8b one of 512, as this tree's);
+    B9's ``_nblk`` at ``blocks`` blocks an SM (one 512-thread block an SM
+    at either dtype, as this tree's); none for a launcher that takes no
+    grid (blocks None)."""
     from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_bwd as SB
     from facl_tpu_torch.ops import sa_kernel as SK
@@ -2044,6 +2099,24 @@ def b9_vs_parent(name, mine, theirs):
         f"{worst:.3e} of the parent's max-abs"
 
 
+#: The f32 B8b and B6 wrappers (one TF32 kernel, sa_2sweep.cu).
+F32_SWEEP2 = ("sa_bwd2_sweep2", "sa_bwd_sweep2_full")
+
+
+def sweep2_vs_parent(name, mine, theirs):
+    """The f32 B8b's or B6's accumulators (dicts by name) against the
+    parent tree's at phase 2's f32 bar (sweep2_err: every accumulator
+    within 1e-4 of the parent's max-abs, cnt1 exact): the TF32 kernel sums
+    in another order than the parent's. Fails otherwise; returns a note of
+    the largest error."""
+    check(set(mine) == set(theirs), f"--parent: {name} returns "
+                                    f"{sorted(mine)}, the parent "
+                                    f"{sorted(theirs)}")
+    _, share, at = sweep2_err(mine, theirs, f"--parent: {name}")
+    return f"within phase 2's f32 bar, cnt1 exact, largest |this - " \
+        f"parent| {share:.3e} of the parent's max-abs ({at})"
+
+
 def two_sweep_vs_parent(name, mine, theirs):
     """The f32 B8a's outputs (``_outputs`` order: A3, u3, G2, ch2, q3)
     against the parent tree's at phase 2's f32 bars (two_sweep_rows): its
@@ -2108,7 +2181,8 @@ def print_row(r, label=""):
                  "within phase 2's f32 B9 bars of" if
                  r["source"] == SRC9 else
                  "within phase 2's f32 bars of" if
-                 r["fn"].__name__ == "sa_bwd2_sweep1" else "bit-equal to")
+                 r["fn"].__name__ in ("sa_bwd2_sweep1",) + F32_SWEEP2 else
+                 "bit-equal to")
               + " the parent's", flush=True)
 
 
@@ -2669,17 +2743,11 @@ def phase_main(dev, profile: bool, card: str):
 
 
 #: --parent: the Trainer steps parent_step_ab runs with the parent's
-#: launchers of the named kernels (the bf16 B2a of pair3, B9 of pallas at
-#: bf16 and at f32, B8a and B8b of hybrid2 at bf16, B8a of hybrid2 at
-#: f32, B6 of pair at bf16), each against this tree's: (BF16_PATHS label,
-#: "pallas f32" or "hybrid2 f32", kernels).
-PARENT_STEPS = (("pair3 bf16", ("sa_fwd_layer12_bf16",)),
-                ("pallas bf16", tuple(f"{n}_bf16" for n in B9_NAMES)),
-                ("pallas f32", B9_NAMES),
-                ("hybrid2 bf16", ("sa_bwd2_sweep1_bf16",
-                                  "sa_bwd2_sweep2_bf16")),
-                ("hybrid2 f32", ("sa_bwd2_sweep1",)),
-                ("pair bf16", ("sa_bwd_sweep2_full_bf16",)))
+#: launchers of the named kernels (the f32 B6 of pair and B8b of
+#: hybrid2), each against this tree's: (BF16_PATHS label, "pallas f32",
+#: "hybrid2 f32" or "pair f32", kernels).
+PARENT_STEPS = (("pair f32", ("sa_bwd_sweep2_full",)),
+                ("hybrid2 f32", ("sa_bwd2_sweep2",)))
 #: --parent --profile: profiled steps of each of parent_step_ab's runs.
 PARENT_PROF_STEPS = 3
 
@@ -2700,6 +2768,7 @@ def parent_step_ab(dev, batches, g, kernels, card, profile: bool):
              for label, impl, _, want in BF16_PATHS}
     paths["pallas f32"] = ("pallas", PALLAS_PATHS[0][4], "float32")
     paths["hybrid2 f32"] = ("hybrid2", PATHS["hybrid2"], "float32")
+    paths["pair f32"] = ("pair", PATHS["pair"], "float32")
     out = {}
     for label, names in PARENT_STEPS:
         impl, want, dtype = paths[label]

@@ -13,7 +13,7 @@
 //                    the stored p1
 //   B6 sa_pair.py::sa_backward_pair, slim=False (:711), sa_impl="pair"
 //     bwd2_sweep2 <- _make_sweep2_pair_kernel (:333, pallas_call :863), h1
-//                    recomputed from x by the forward's h1_tile
+//                    recomputed from x by the forward's chain (h1_pair)
 // Each returns the named accumulators (per-block float64 partials that
 // the caller sums in a fixed order, as in sa_pair.cu), not the TPU's
 // packed (Lw, Rw) or paired main/aux blocks.
@@ -26,12 +26,12 @@
 // bf16 with its CUDA-core passes; dy3 is dense on the main path, ~25 tied
 // rows a routed (group, channel)), bwd2_sweep2 by operations (two 64x64
 // products and C0 + 3 Grams of 64x64 per row, ~190 GFLOP: 2.8 ms on f32
-// CUDA cores, 0.31 ms on the bf16 tensor cores).
-// Design: sa_pair.cu's persistent blocks over 64-row tiles. B7 and the
-// f32 B6 and B8b keep their port-time form, register-tiled products on
-// CUDA cores (strict f32) with no copy/compute overlap; B8a at both
-// dtypes and B6 / B8b at bf16 run their products on the tensor cores in
-// kernels of their own (their sections below).
+// CUDA cores, 1.12-1.14 ms in 3xTF32, 0.31 ms on the bf16 tensor cores).
+// Design: sa_pair.cu's persistent blocks over 64-row tiles. B7 keeps its
+// port-time form, register-tiled products on CUDA cores (strict f32) with
+// no copy/compute overlap; B8a, B6 and B8b run their products on the
+// tensor cores in kernels of their own at each dtype (their sections
+// below: the f32 ones in 3xTF32).
 //
 // bf16 (the template flag BF of B7 and B8a, entry points facl_sa_*_bf16):
 // the row tensors (x, p1, p2, q3, dpooled, pooled) are __nv_bfloat16, the
@@ -934,233 +934,6 @@ bwd2_sweep1_kernel(const RowT<BF>* __restrict__ p2, int64_t ntiles, int upt,
 }
 
 // ---------------------------------------------------------------------
-// B6 / B8b: the layer-2 backward sweep with layer 1 left in third-order
-// moment form (sa_bwd.py:140-195, sa_pair.py:333-401). Per tile: h1 —
-// recomputed from x by h1_tile (FROM_X: B6, x channel-major) or from the
-// stored p1 (B8b, x row-major: B = R, N = 1) —, h2 from p2, dy2 = [h2 > 0]
-// (q3 - h2 M3 - rc3), q2 = (gi2 * dy2) W2^T and mq = m1 q2 (m1 = [h1 > 0]).
-// The accumulators are split over gridDim.y slices of blocks, each slice
-// walking every tile, so that no thread carries more than 32 float64
-// accumulators:
-//   slice 0:      A2 = dy2^T h1, G1 = h1^T h1    partM (blocks, 2, 64, 64)
-//                 u2, ch1, cnt1 = sum m1, acc1 = sum mq
-//                                                partV (blocks, 4, 64)
-//                 T1x = m1^T x, P1 = mq^T x (64, C0), [Gx | cx] (C0, C0+1)
-//                                                partX (blocks, NX)
-//   slice s >= 1: blocks v = 2 (s - 1) + {0, 1} of TM1 = m1^T h1 (v = 0)
-//                 and U1_i = (m1 x_i)^T h1 (v = 1 + i)
-//                                                partU (blocks, C0+1, 64, 64)
-// The U slices recompute only h1 (they read x, and p1 for B8b).
-// vec = [b1 | mul1 | shift1 | mul2 | shift2 | rc3 | gi2] (7*CW). The f32
-// form only; bf16 runs its own kernel (below).
-template <bool FROM_X>
-__device__ __forceinline__ void load_h1(const float* __restrict__ x, int C0,
-                                        int64_t N,
-                                        const float* __restrict__ p1,
-                                        int64_t r0, const float* W1s,
-                                        const float* v, float* xs,
-                                        float* h1s) {
-  load_x_tile(x, C0, N, r0, xs);
-  if (!FROM_X) load_h_tile(p1, r0, v + CW, v + 2 * CW, h1s);
-  __syncthreads();
-  if (FROM_X) {
-    h1_tile(xs, C0, W1s, v, h1s);
-    __syncthreads();
-  }
-}
-
-template <bool FROM_X>
-__device__ void sweep2_dy_slice(const float* __restrict__ x, int C0,
-                                int64_t N, int64_t ntiles,
-                                const float* __restrict__ p1,
-                                const float* __restrict__ p2,
-                                const float* __restrict__ q3, float* sm,
-                                double* __restrict__ partM,
-                                double* __restrict__ partV,
-                                double* __restrict__ partX) {
-  const float* M3s = sm;
-  const float* W2t = M3s + CW * CW;
-  float* h1s = sm + 2 * CW * CW;
-  float* h2s = h1s + TR * LD;           // h2, then the mq tile
-  float* dys = h2s + TR * LD;           // q3, then dy2
-  float* xs = dys + TR * LD;
-  const float* W1s = xs + TR * C0MAX;
-  const float* v = W1s + C0MAX * CW;
-  const float* mul2 = v + 3 * CW;
-  const float* shift2 = v + 4 * CW;
-  const float* rc3 = v + 5 * CW;
-  const float* gi2 = v + 6 * CW;
-
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int nx = 2 * CW * C0 + C0 * (C0 + 1);     // <= 4 * NT for C0 <= 7
-  double a2[4][4] = {}, g1[4][4] = {};
-  double colsum = 0.0;    // thread w*64 + c: [u2 | ch1 | cnt1 | acc1][c]
-  double sx[4] = {0.0, 0.0, 0.0, 0.0};
-
-  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int64_t r0 = t * TR;
-    load_h_tile(p2, r0, mul2, shift2, h2s);
-    load_tile(q3, r0, dys);
-    load_h1<FROM_X>(x, C0, N, p1, r0, W1s, v, xs, h1s);
-    float acc[4][4];
-    mm64(h2s, M3s, nullptr, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float dh =
-            __fsub_rn(__fsub_rn(dys[r * LD + c], acc[i][j]), rc3[c]);
-        dys[r * LD + c] = h2s[r * LD + c] > 0.f ? dh : 0.f;
-      }
-    __syncthreads();
-    mm64(dys, W2t, gi2, acc);    // q2
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        h2s[r * LD + c] = h1s[r * LD + c] > 0.f ? acc[i][j] : 0.f;
-      }
-    {
-      float ta[4][4];
-      zero_patch(ta);
-      acc_atb(dys, h1s, ta);
-      add_patch(a2, ta);
-      zero_patch(ta);
-      acc_atb(h1s, h1s, ta);
-      add_patch(g1, ta);
-    }
-    __syncthreads();
-    {
-      const int w = threadIdx.x / CW, c = threadIdx.x % CW;
-      float tc = 0.f;
-      if (w == 2) {
-        for (int r = 0; r < TR; ++r) tc += h1s[r * LD + c] > 0.f ? 1.f : 0.f;
-      } else {
-        const float* src = w == 0 ? dys : (w == 1 ? h1s : h2s);
-        for (int r = 0; r < TR; ++r) tc += src[r * LD + c];
-      }
-      colsum += tc;
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = threadIdx.x + q * NT;
-      if (e >= nx) continue;
-      float a = 0.f;
-      if (e < 2 * CW * C0) {            // T1x, then P1: [c][i]
-        const int e1 = e % (CW * C0), c = e1 / C0, i = e1 % C0;
-        if (e < CW * C0) {
-          for (int r = 0; r < TR; ++r)
-            a += h1s[r * LD + c] > 0.f ? xs[r * C0MAX + i] : 0.f;
-        } else {
-          for (int r = 0; r < TR; ++r)
-            a = fmaf(h2s[r * LD + c], xs[r * C0MAX + i], a);
-        }
-      } else {                          // [Gx | cx]: [i][k]
-        const int e2 = e - 2 * CW * C0, i = e2 / (C0 + 1), k = e2 % (C0 + 1);
-        if (k < C0) {
-          for (int r = 0; r < TR; ++r)
-            a = fmaf(xs[r * C0MAX + i], xs[r * C0MAX + k], a);
-        } else {
-          for (int r = 0; r < TR; ++r) a += xs[r * C0MAX + i];
-        }
-      }
-      sx[q] += a;
-    }
-    __syncthreads();
-  }
-  write_patch(a2, partM + (int64_t)blockIdx.x * 2 * CW * CW);
-  write_patch(g1, partM + ((int64_t)blockIdx.x * 2 + 1) * CW * CW);
-  partV[(int64_t)blockIdx.x * 4 * CW + threadIdx.x] = colsum;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int e = threadIdx.x + q * NT;
-    if (e < nx) partX[(int64_t)blockIdx.x * nx + e] = sx[q];
-  }
-}
-
-template <bool FROM_X>
-__device__ void sweep2_u_slice(const float* __restrict__ x, int C0,
-                               int64_t N, int64_t ntiles,
-                               const float* __restrict__ p1, float* sm,
-                               double* __restrict__ partU) {
-  float* h1s = sm + 2 * CW * CW;
-  float* xs = h1s + 3 * TR * LD;
-  const float* W1s = xs + TR * C0MAX;
-  const float* v = W1s + C0MAX * CW;
-
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int v0 = 2 * (blockIdx.y - 1);
-  const int nv = C0 + 1 - v0 < 2 ? C0 + 1 - v0 : 2;
-  double run[2][4][4] = {};
-  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    load_h1<FROM_X>(x, C0, N, p1, t * TR, W1s, v, xs, h1s);
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {       // unrolled: run[b] stays in registers
-      if (b >= nv) break;
-      const int vv = v0 + b;            // 0: TM1, 1 + i: U1 block i
-      float acc[4][4];
-      zero_patch(acc);
-#pragma unroll 4
-      for (int r = 0; r < TR; ++r) {
-        const float w = vv == 0 ? 1.f : xs[r * C0MAX + vv - 1];
-        float a[4], bb[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = h1s[r * LD + ty + 16 * i] > 0.f ? w : 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bb[j] = h1s[r * LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-      }
-      add_patch(run[b], acc);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int b = 0; b < 2; ++b)
-    if (b < nv)
-      write_patch(run[b], partU + ((int64_t)blockIdx.x * (C0 + 1) + v0 + b) *
-                                      CW * CW);
-}
-
-template <bool FROM_X>
-__global__ void __launch_bounds__(NT)
-bwd2_sweep2_kernel(const float* __restrict__ x, int C0, int64_t N,
-                   int64_t ntiles, const float* __restrict__ p1,
-                   const float* __restrict__ W1,
-                   const float* __restrict__ vec,
-                   const float* __restrict__ p2,
-                   const float* __restrict__ q3,
-                   const float* __restrict__ M3, const float* __restrict__ W2,
-                   double* __restrict__ partM, double* __restrict__ partV,
-                   double* __restrict__ partX, double* __restrict__ partU) {
-  extern __shared__ float sm[];
-  float* M3s = sm;                      // CW*CW
-  float* W2t = M3s + CW * CW;           // CW*CW, W2t[c][j] = W2[j][c]
-  float* W1s = W2t + CW * CW + 3 * TR * LD + TR * C0MAX;   // C0MAX*CW
-  float* v = W1s + C0MAX * CW;          // 7*CW
-  if (blockIdx.y == 0) {
-    copy_vec(M3s, M3, CW * CW);
-    for (int e = threadIdx.x; e < CW * CW; e += NT) {
-      const int c = e / CW, j = e % CW;
-      W2t[e] = W2[j * CW + c];
-    }
-  }
-  if (FROM_X) copy_vec(W1s, W1, C0 * CW);
-  copy_vec(v, vec, 7 * CW);
-  __syncthreads();
-  if (blockIdx.y == 0)
-    sweep2_dy_slice<FROM_X>(x, C0, N, ntiles, p1, p2, q3, sm, partM, partV,
-                            partX);
-  else
-    sweep2_u_slice<FROM_X>(x, C0, N, ntiles, p1, sm, partU);
-}
-
-// ---------------------------------------------------------------------
 // B6 / B8b at bf16 (facl_sa_bwd2_sweep2_bf16) on the bf16 tensor cores.
 // Replaces sa_bwd.py::_make_sweep2_kernel (:140, pallas_call :298; B8b, h1
 // from the stored p1) and sa_pair.py::_make_sweep2_pair_kernel (:333,
@@ -1680,6 +1453,705 @@ bwd2_sweep2_bf16_kernel(const __nv_bfloat16* __restrict__ x, int64_t N,
     s2f_flush<C0>(A, true, m, n, lane, partM, partV, partX, partU);
 }
 
+// ---------------------------------------------------------------------
+// B6 / B8b at f32 (facl_sa_bwd2_sweep2) on the TF32 tensor cores in
+// 3xTF32, by wgmma. Replaces sa_bwd.py::_make_sweep2_kernel (:140,
+// pallas_call :298; B8b, h1 from the stored p1) and
+// sa_pair.py::_make_sweep2_pair_kernel (:333, pallas_call :863; B6, h1
+// from x) at compute_dtype float32 (the twins: ops/sa_bwd.py::
+// _sweep2_plain and _sweep2_sums). h2 = relu(p2 mul2 + shift2); dy2 =
+// [h2 > 0] (q3 - h2 M3 - rc3); q2 = dy2 (gi2 W2^T) (gi2 folded into W2
+// once a block, as B3b does); h1 = relu(p1 mul1 + shift1) (B8b) or h1_pair's
+// k-order chain from x (B6), so that the layer-1 masks m1 = [h1 > 0], and
+// with them cnt1, are the forward's bit for bit; mq = m1 q2. Per block,
+// the TPU kernels' packed left^T right (sa_bwd.py:172-185), as the bf16
+// form: [dy2 | h1 | m1 | m1 x_i]^T h1 (A2, G1, TM1, U1_i) and [dy2 | m1 |
+// h1 | mq | x]^T [x | 1] (u2, T1x, cnt1, ch1, P1, acc1, Gx, cx), into
+// the same partials (s2t_flush).
+//
+// Bound on the card at the main path: 1.12-1.14 ms by operations (69,696
+// product flops a row at C0 = 4, plus the n8 tile's, in three TF32 passes
+// at 495 TFLOP/s, or two where an operand is exact, and ~0.04 ms of
+// CUDA-core passes); 2.8 ms on f32 CUDA cores. One 512-thread block an
+// SM (four warpgroups) walks 64-row steps in two stages of padded f32
+// tiles (stride LDT, sa_mma.cuh: the row-major float2 reads and the
+// transposed single reads are both free of bank conflicts), filled by
+// cp.async (16-byte copies, 4-byte ones for a tensor that is not 16-byte
+// aligned) while the step before runs. A step is two phases between block
+// barriers: its row chain, then its contraction.
+//  - the row chain (s2t_rows): warp w takes rows 16 (w % 4).. and columns
+//    16 (w / 4).. of h1, h2, dy2 and mq in the C fragments' places, and
+//    splits x and [x | 1] of its rows for the contraction. It writes h1
+//    split into the core-layout tiles the contraction's wgmmas read (h1
+//    from p1, or B6: from x) and h2 over p2; after the four warps of its
+//    rows meet at a named barrier, warpgroup w / 4 runs h2 M3 at its
+//    columns on wgmma m64n16k8 (A: h2's fragments of each warp's rows,
+//    split as they load; B: M3 split once a block), and the warp writes
+//    dy2 over the q3 it read; after a second named barrier, q2 = dy2 (gi2
+//    W2^T) the same way, and mq over h2. Both products chain their eight
+//    k8 steps in the tensor cores, as B3b's do.
+//  - the contraction over the step's 64 rows (s2t_contract): warpgroup W
+//    owns whole 64 x 64 products (S2TG: kinds W, W + 4, .. of A2, G1, TM1,
+//    U1_i; at C0 = 4 two each, one for warpgroup 3), their accumulators in
+//    wgmma's layout, 32 values a thread each. Each k8 step of rows and
+//    n chunk of S2T_NH columns is one wgmma m64nS2T_NHk8 a pass, A from
+//    registers (dy2^T split as it loads; h1^T from its split tiles; m1,
+//    exact in TF32, two passes; m1 x_i, x_i's split anded with the mask),
+//    B = h1 from its split tiles; the n8 tile [x | 1] rides as one more
+//    n8 chunk of warpgroups 0-2's first products (dy2 and h1 against the
+//    ones column alone, two passes) and as warpgroup 3's mq and x. Each k8
+//    step is summed on its own and added round-to-nearest: the tensor
+//    cores' own adds truncate, and chained over every row of a flush their
+//    bias would pull the sums away from the twin's (a chained form put G1
+//    3.8e-5 of its max-abs off the twin: chip_ablate.py b8b_f32 on an
+//    H100, PERF.md).
+// Operands split by tf32_mma.cuh's split, as every f32 tensor-core
+// product of the port is (hi and lo each rounded to TF32). The f32 sums
+// ride in registers for S2T_FLUSH steps, then are added to the block's
+// float64 partials (each partial owned by one thread: no atomics, a fixed
+// order, run to run bit-identical). 229,120 bytes of shared memory (S2T_SMEM).
+constexpr int S2T_NT = 512;
+constexpr int S2T_FLUSH = 128;                 // steps between float64 adds
+constexpr int S2T_XS = TR + 8;                 // x's channel stride
+constexpr int S2T_XP = 2 * TR + 8;             // x split's channel stride
+// A stage (floats): p2 (then h2, then mq) | q3 (then dy2) | p1, each (TR,
+// LDT) | x channel-major (C0MAX, S2T_XS), or row-major (TR, C0) as stored
+// when N == 1. Two stages, then (floats, from a 1024-byte boundary): h1
+// split, hi then lo, each (CW, TR) in wgmma's K-major core layout
+// (s2t_core); [x | 1] split likewise, (8, TR) each; the ones column
+// alone, (8, TR); x split (C0MAX, S2T_XP), (hi, lo) of row r at 2 r; M3
+// and gi2 W2^T split, hi then lo, each (CW, CW) in the core layout with
+// its k permuted (s2t_kslot); W1; vec.
+constexpr int S2T_P2 = 0, S2T_Q3 = TILE_F, S2T_P1 = 2 * TILE_F;
+constexpr int S2T_X = 3 * TILE_F;
+constexpr int S2T_STAGE = S2T_X + C0MAX * S2T_XS;
+constexpr int S2T_H1H = (2 * S2T_STAGE + 255) / 256 * 256;
+constexpr int S2T_H1L = S2T_H1H + CW * TR;
+constexpr int S2T_XBH = S2T_H1L + CW * TR;
+constexpr int S2T_XBL = S2T_XBH + 8 * TR;
+constexpr int S2T_ONE = S2T_XBL + 8 * TR;
+constexpr int S2T_XSP = S2T_ONE + 8 * TR;
+constexpr int S2T_MH = (S2T_XSP + C0MAX * S2T_XP + 255) / 256 * 256;
+constexpr int S2T_ML = S2T_MH + CW * CW;
+constexpr int S2T_WH = S2T_ML + CW * CW;
+constexpr int S2T_WL = S2T_WH + CW * CW;
+constexpr int S2T_W1 = S2T_WL + CW * CW;
+constexpr int S2T_V = S2T_W1 + C0MAX * CW;
+constexpr size_t S2T_SMEM = sizeof(float) * (S2T_V + 7 * CW);
+constexpr uint32_t TF32_ONE = 0x3f800000u;
+
+// 4-byte asynchronous copy global -> shared (a tensor that is not 16-byte
+// aligned), in the thread's cp.async groups.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Element (n, k) of a K-major (n, TR) tf32 wgmma operand without swizzle:
+// core matrices of 8 n and 4 k (128 contiguous bytes), the next 4 k at
+// +128 bytes (LBO), the next 8 n at +TR / 4 x 128 bytes (SBO).
+__device__ __forceinline__ int s2t_core(int n, int k) {
+  return ((n >> 3) * (TR / 4) + (k >> 2)) * 32 + (n & 7) * 4 + (k & 3);
+}
+constexpr uint32_t S2T_LBO = 128, S2T_SBO = TR / 4 * 128;
+
+// d (+)= a b for the warpgroup: A (64 x 8, tf32) in registers, each warp
+// its 16 rows in mma.sync's m16n8k8 A layout; B (8 x 64) by descriptor;
+// d in mma.sync's C layout, n-tile j in d[4 j ..]; acc 0: d = a b.
+__device__ __forceinline__ void s2t_wg64(float (&d)[32], const uint32_t a[4],
+                                         uint64_t bdesc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc), "r"(acc));
+}
+
+// The same for a (8 x 32) B: d (64 x 32), n-tile j in d[4 j ..].
+__device__ __forceinline__ void s2t_wg32(float (&d)[16], const uint32_t a[4],
+                                         uint64_t bdesc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc), "r"(acc));
+}
+
+// The same for a (8 x 16) B: d (64 x 16).
+__device__ __forceinline__ void s2t_wg16(float (&d)[8], const uint32_t a[4],
+                                         uint64_t bdesc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "
+      "1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc), "r"(acc));
+}
+
+// The same for an (8 x 8) B: d (64 x 8).
+__device__ __forceinline__ void s2t_wg8(float (&d)[4], const uint32_t a[4],
+                                        uint64_t bdesc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc), "r"(acc));
+}
+
+// An A fragment in its two pieces: hi[4], lo[4].
+struct S2TA {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ S2TA s2t_a(float v0, float v1, float v2,
+                                      float v3) {
+  const Split a = split(v0), b = split(v1), c = split(v2),
+              d = split(v3);
+  return S2TA{{a.hi, b.hi, c.hi, d.hi}, {a.lo, b.lo, c.lo, d.lo}};
+}
+
+// One wgmma pass of a chunk of N accumulator values a thread.
+template <int N>
+__device__ __forceinline__ void s2t_pass(float (&st)[N], const uint32_t a[4],
+                                         uint64_t b, int acc) {
+  if constexpr (N == 32)
+    s2t_wg64(st, a, b, acc);
+  else if constexpr (N == 16)
+    s2t_wg32(st, a, b, acc);
+  else if constexpr (N == 8)
+    s2t_wg16(st, a, b, acc);
+  else
+    s2t_wg8(st, a, b, acc);
+}
+
+// c (N values a thread) += the k8 step of a b in 3xTF32, st its scratch:
+// lo hi' + hi lo' + hi hi' summed on their own, then added round-to-
+// nearest; exact_a (m1's ones) or exact_b (the ones column): two passes.
+template <int N>
+__device__ __forceinline__ void s2t_step(float* c, float (&st)[N],
+                                         const S2TA& a, uint64_t bh,
+                                         uint64_t bl, bool exact_a,
+                                         bool exact_b) {
+  wgmma_fence();
+  if (exact_a) {
+    s2t_pass(st, a.hi, bl, 0);
+    s2t_pass(st, a.hi, bh, 1);
+  } else if (exact_b) {
+    s2t_pass(st, a.lo, bh, 0);
+    s2t_pass(st, a.hi, bh, 1);
+  } else {
+    s2t_pass(st, a.lo, bh, 0);
+    s2t_pass(st, a.hi, bl, 1);
+    s2t_pass(st, a.hi, bh, 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    pin(st[q]);
+    c[q] = __fadd_rn(c[q], st[q]);
+  }
+}
+
+// x_c of staged row r (channel-major, or row-major as stored).
+template <int C0>
+__device__ __forceinline__ float s2t_x(const float* S, bool rowx, int c,
+                                       int r) {
+  return rowx ? S[S2T_X + r * C0 + c] : S[S2T_X + c * S2T_XS + r];
+}
+
+// x_c of row r, split (the row chain's copy).
+__device__ __forceinline__ Split s2t_xs(const float* sm, int c, int r) {
+  const float2 u = ld2(sm + S2T_XSP + c * S2T_XP + 2 * r);
+  return Split{__float_as_uint(u.x), __float_as_uint(u.y)};
+}
+
+// The k slot of channel k in the row chain's B tiles: an A fragment's
+// float2 (row g, channels 8 kk + 2t, + 1) fills its k slots t and t + 4,
+// so the B operand holds channel 8 kk + 2t + j at slot 8 kk + t + 4 j.
+__device__ __forceinline__ int s2t_kslot(int k) {
+  return (k & ~7) + ((k & 7) >> 1) + 4 * (k & 1);
+}
+
+// One 64 x 64 row product of the warpgroup at its columns 16 q..: c (64 x
+// 16, mma.sync's C layout) = rows (X, stride LDT, warp v's rows rw..) B,
+// B split in the core tiles bh, bl (k permuted): eight k8 steps chained
+// in the tensor cores, three passes each (as B3b's mma3 chain), each step
+// waited for before its A registers are rebuilt.
+__device__ __forceinline__ void s2t_rowprod(float (&c)[8], const float* X,
+                                            int rw, const float* bh,
+                                            const float* bl, int q,
+                                            int lane) {
+  const uint64_t dh =
+      wgmma_desc(bh, S2T_LBO, S2T_SBO) + 2 * q * (S2T_SBO >> 4);
+  const uint64_t dl =
+      wgmma_desc(bl, S2T_LBO, S2T_SBO) + 2 * q * (S2T_SBO >> 4);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) c[i] = 0.f;
+#pragma unroll 1
+  for (int kb = 0; kb < 8; ++kb) {
+    const RawA r = raw_a_rows(X, rw, kb, lane);
+    const S2TA a = s2t_a(r.v[0], r.v[1], r.v[2], r.v[3]);
+    wgmma_fence();
+    s2t_wg16(c, a.lo, dh + 16 * kb, kb > 0);
+    s2t_wg16(c, a.hi, dl + 16 * kb, 1);
+    s2t_wg16(c, a.hi, dh + 16 * kb, 1);
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) pin(c[i]);
+}
+
+// The mask bits of two values at a C fragment's row half hh: bit 2 hh + e.
+__device__ __forceinline__ uint32_t s2t_bits(float2 h, int hh) {
+  return ((h.x > 0.f ? 1u : 0u) | (h.y > 0.f ? 2u : 0u)) << (2 * hh);
+}
+
+// h1 split into the core-layout tiles at rows r, r (+ 1 column).
+__device__ __forceinline__ void s2t_put_h1(float* sm, int col, int r,
+                                           float2 h) {
+  const Split a = split(h.x), b = split(h.y);
+  sm[S2T_H1H + s2t_core(col, r)] = __uint_as_float(a.hi);
+  sm[S2T_H1L + s2t_core(col, r)] = __uint_as_float(a.lo);
+  sm[S2T_H1H + s2t_core(col + 1, r)] = __uint_as_float(b.hi);
+  sm[S2T_H1L + s2t_core(col + 1, r)] = __uint_as_float(b.lo);
+}
+
+// The row chain of one warp on the step staged at S (module comment); sm
+// the block's shared memory (the contraction's operands). Masks: bit 4 nj
+// + 2 hh + e for the value c[nj][2 hh + e].
+template <int C0, bool FROM_X>
+__device__ __forceinline__ void s2t_rows(float* S, float* sm, bool rowx,
+                                         int warp, int lane) {
+  const float* W1s = sm + S2T_W1;
+  const float* v = sm + S2T_V;
+  const int g = lane >> 2, t = lane & 3;
+  // rows 16 sl.. (the four warps sharing them meet at named barrier 1 +
+  // sl), columns 16 q.. (warpgroup q runs their products on wgmma)
+  const int sl = warp & 3, q = warp >> 2, rw = 16 * sl;
+  float* Q3 = S + S2T_Q3;
+  float* P2 = S + S2T_P2;
+  {   // x of the warp's 16 rows split: x_c, and [x | 1]'s column c
+    const int e = 32 * q + lane, r = rw + (e & 15), cx = e >> 4;
+    const float xv = cx < C0 ? s2t_x<C0>(S, rowx, cx, r)
+                             : (cx == C0 ? 1.f : 0.f);
+    const Split s = split(xv);
+    if (cx < C0)
+      st2r(sm + S2T_XSP + cx * S2T_XP + 2 * r,
+           make_float2(__uint_as_float(s.hi), __uint_as_float(s.lo)));
+    sm[S2T_XBH + s2t_core(cx, r)] = __uint_as_float(s.hi);
+    sm[S2T_XBL + s2t_core(cx, r)] = __uint_as_float(s.lo);
+  }
+  uint32_t m1 = 0, m2 = 0;
+  if constexpr (FROM_X) {               // the forward's chain, h1_pair
+    float xa[C0MAX - 1], xb[C0MAX - 1];
+#pragma unroll
+    for (int k = 0; k < C0; ++k) {
+      xa[k] = s2t_x<C0>(S, rowx, k, rw + g);
+      xb[k] = s2t_x<C0>(S, rowx, k, rw + g + 8);
+    }
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      const int col = 16 * q + 8 * nj + 2 * t;
+      float2 ha, hb;
+      h1_pair<false>(xa, xb, C0, W1s, v, col, ha, hb);
+      s2t_put_h1(sm, col, rw + g, ha);
+      s2t_put_h1(sm, col, rw + g + 8, hb);
+      m1 |= (s2t_bits(ha, 0) | s2t_bits(hb, 1)) << (4 * nj);
+    }
+  }
+  // h1 = relu(p1 mul1 + shift1) (B8b) and h2 = relu(p2 mul2 + shift2)
+  // over p2, at this warp's columns, and their masks.
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj) {
+    const int col = 16 * q + 8 * nj + 2 * t;
+    const float2 mu2 = ld2(v + 3 * CW + col), sh2 = ld2(v + 4 * CW + col);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int o = (rw + g + 8 * hh) * LDT + col;
+      if constexpr (!FROM_X) {
+        const float2 mu1 = ld2(v + CW + col), sh1 = ld2(v + 2 * CW + col);
+        const float2 p = ld2(S + S2T_P1 + o);
+        const float2 h = make_float2(relu_affine(p.x, mu1.x, sh1.x),
+                                     relu_affine(p.y, mu1.y, sh1.y));
+        s2t_put_h1(sm, col, rw + g + 8 * hh, h);
+        m1 |= s2t_bits(h, hh) << (4 * nj);
+      }
+      const float2 p = ld2(P2 + o);
+      const float2 h = make_float2(relu_affine(p.x, mu2.x, sh2.x),
+                                   relu_affine(p.y, mu2.y, sh2.y));
+      st2r(P2 + o, h);
+      m2 |= s2t_bits(h, hh) << (4 * nj);
+    }
+  }
+  named_sync(1 + sl, 128);              // the rows' h2 whole
+  // h2 M3 at this warp's columns, h2's A fragments of all 64 channels
+  // (k8 step kb pairs channels 8 kb + 2t, + 1).
+  float c[8];
+  s2t_rowprod(c, P2, rw, sm + S2T_MH, sm + S2T_ML, q, lane);
+  // dy2 = [h2 > 0] (q3 - h2 M3 - rc3) over q3.
+  const float* rc3 = v + 5 * CW;
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj) {
+    const int cc = 16 * q + 8 * nj + 2 * t;
+    const float2 rc = ld2(rc3 + cc);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float* at = Q3 + (rw + g + 8 * hh) * LDT + cc;
+      const float2 qv = ld2(at);
+      const uint32_t mb = m2 >> (4 * nj + 2 * hh);
+      const float* hm = c + 4 * nj + 2 * hh;
+      st2r(at, make_float2(
+                   (mb & 1u) ? __fsub_rn(__fsub_rn(qv.x, hm[0]), rc.x) : 0.f,
+                   (mb & 2u) ? __fsub_rn(__fsub_rn(qv.y, hm[1]), rc.y)
+                             : 0.f));
+    }
+  }
+  named_sync(1 + sl, 128);              // the rows' dy2 whole, h2 read
+  // q2 = dy2 (gi2 W2^T) at this warp's columns; mq = m1 q2 over h2.
+  s2t_rowprod(c, Q3, rw, sm + S2T_WH, sm + S2T_WL, q, lane);
+#pragma unroll
+  for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const uint32_t mb = m1 >> (4 * nj + 2 * hh);
+      const float* qq = c + 4 * nj + 2 * hh;
+      st2r(P2 + (rw + g + 8 * hh) * LDT + 16 * q + 8 * nj + 2 * t,
+           make_float2((mb & 1u) ? qq[0] : 0.f, (mb & 2u) ? qq[1] : 0.f));
+    }
+  fence_async_smem();                   // h1, [x | 1]: read by wgmma
+}
+
+// A product's 64 columns in chunks of S2T_NH (one wgmma m64nS2T_NHk8 a
+// pass each; a chunk's scratch S2T_NH / 2 values a thread).
+constexpr int S2T_NH = 32;
+constexpr int S2T_NC = CW / S2T_NH;
+
+// The products of warpgroup W: kinds p = W, W + 4, .. < C0 + 3 (0 A2, 1
+// G1, 2 TM1, 3 + i U1_i), each a 64 x 64 accumulator over the group (32
+// values a thread). The n8 tile [x | 1]: warpgroups 0-2 run their first
+// product's left operand against one more n8 chunk (e8[0]: dy2 and h1
+// against the ones column alone, u2 and ch1; m1 against [x | 1], T1x and
+// cnt1); warpgroup 3 (the fewest products) the other two (e8[0]: mq, P1
+// and acc1; e8[1]: x, Gx and cx).
+template <int C0, int W>
+struct S2TG {
+  static constexpr int NP = (C0 + 3 - W + 3) / 4;
+  float acc[NP][32];
+  float e8[W == 3 ? 2 : 1][4];
+};
+
+template <int C0, int W>
+__device__ __forceinline__ void s2t_zero(S2TG<C0, W>& A) {
+#pragma unroll
+  for (int p = 0; p < S2TG<C0, W>::NP; ++p)
+#pragma unroll
+    for (int q = 0; q < 32; ++q) A.acc[p][q] = 0.f;
+#pragma unroll
+  for (int u = 0; u < (W == 3 ? 2 : 1); ++u) zero4(A.e8[u]);
+}
+
+// The contraction over the step's rows (eight k8 steps) for warpgroup W,
+// its warp v (rows 16 v.. of every product).
+template <int C0, int W>
+__device__ __forceinline__ void s2t_contract(S2TG<C0, W>& A, const float* S,
+                                             const float* sm, int v,
+                                             int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int c = 16 * v + g;             // the fragment's rows c, c + 8
+  const uint64_t dh = wgmma_desc(sm + S2T_H1H, S2T_LBO, S2T_SBO);
+  const uint64_t dl = wgmma_desc(sm + S2T_H1L, S2T_LBO, S2T_SBO);
+  const uint64_t xh = wgmma_desc(sm + S2T_XBH, S2T_LBO, S2T_SBO);
+  const uint64_t xl = wgmma_desc(sm + S2T_XBL, S2T_LBO, S2T_SBO);
+  const uint64_t one = wgmma_desc(sm + S2T_ONE, S2T_LBO, S2T_SBO);
+  float st[S2T_NH / 2], s8[4];          // the k8 steps' sums (scratch)
+#pragma unroll
+  for (int q = 0; q < S2T_NH / 2; ++q) st[q] = 0.f;
+  zero4(s8);
+#pragma unroll 1
+  for (int kk = 0; kk < TR / 8; ++kk) {
+    const int ra = 8 * kk + t, rb = ra + 4;
+    const int k0 = s2t_core(c, ra), k1 = s2t_core(c + 8, ra);
+    const int k2 = s2t_core(c, rb), k3 = s2t_core(c + 8, rb);
+    const float* H = sm + S2T_H1H;
+    uint32_t am[4];                     // m1 = [h1 > 0] (hi > 0 there)
+    am[0] = H[k0] > 0.f ? 0xffffffffu : 0u;
+    am[1] = H[k1] > 0.f ? 0xffffffffu : 0u;
+    am[2] = H[k2] > 0.f ? 0xffffffffu : 0u;
+    am[3] = H[k3] > 0.f ? 0xffffffffu : 0u;
+    const S2TA ones{{am[0] & TF32_ONE, am[1] & TF32_ONE, am[2] & TF32_ONE,
+                     am[3] & TF32_ONE},
+                    {0u, 0u, 0u, 0u}};
+#pragma unroll
+    for (int p = 0; p < S2TG<C0, W>::NP; ++p) {
+      const int kind = W + 4 * p;
+      S2TA a;
+      if (kind == 0) {                  // A2: dy2^T
+        const float* D = S + S2T_Q3;
+        a = s2t_a(D[ra * LDT + c], D[ra * LDT + c + 8], D[rb * LDT + c],
+                  D[rb * LDT + c + 8]);
+      } else if (kind == 1) {           // G1: h1^T, split in the tiles
+        const float* L = sm + S2T_H1L;
+        a = S2TA{{__float_as_uint(H[k0]), __float_as_uint(H[k1]),
+                  __float_as_uint(H[k2]), __float_as_uint(H[k3])},
+                 {__float_as_uint(L[k0]), __float_as_uint(L[k1]),
+                  __float_as_uint(L[k2]), __float_as_uint(L[k3])}};
+      } else if (kind == 2) {           // TM1: m1
+        a = ones;
+      } else {                          // U1_i: m1 x_i
+        const int i = kind - 3;
+        const Split xa = s2t_xs(sm, i, ra), xb = s2t_xs(sm, i, rb);
+        a = S2TA{{xa.hi & am[0], xa.hi & am[1], xb.hi & am[2],
+                  xb.hi & am[3]},
+                 {xa.lo & am[0], xa.lo & am[1], xb.lo & am[2],
+                  xb.lo & am[3]}};
+      }
+#pragma unroll
+      for (int h = 0; h < S2T_NC; ++h) {  // n chunk h: + S2T_NH / 8 SBOs
+        const uint64_t o = 16 * kk + h * (S2T_NH / 8) * (S2T_SBO >> 4);
+        s2t_step(A.acc[p] + h * (S2T_NH / 2), st, a, dh + o, dl + o,
+                 kind == 2, false);
+      }
+      if (kind == 2)                    // m1^T [x | 1]
+        s2t_step(A.e8[0], s8, a, xh + 16 * kk, xl + 16 * kk, true, false);
+      else if (kind < 2)                // dy2^T 1, h1^T 1
+        s2t_step(A.e8[0], s8, a, one + 16 * kk, one + 16 * kk, false, true);
+    }
+    if constexpr (W == 3) {             // the n8 tile: mq, x
+      const uint64_t yh = xh + 16 * kk, yl = xl + 16 * kk;
+      const float* Q = S + S2T_P2;
+      s2t_step(A.e8[0], s8, s2t_a(Q[ra * LDT + c], Q[ra * LDT + c + 8],
+                                  Q[rb * LDT + c], Q[rb * LDT + c + 8]),
+               yh, yl, false, false);
+      // x^T: rows x_c (c < C0: warp 0's first rows), others zero.
+      const bool xr = c < C0;
+      const Split xa = s2t_xs(sm, xr ? c : 0, ra);
+      const Split xb = s2t_xs(sm, xr ? c : 0, rb);
+      const S2TA ax{{xr ? xa.hi : 0u, 0u, xr ? xb.hi : 0u, 0u},
+                    {xr ? xa.lo : 0u, 0u, xr ? xb.lo : 0u, 0u}};
+      s2t_step(A.e8[1], s8, ax, yh, yl, false, false);
+    }
+  }
+}
+
+// Warpgroup W's accumulators added to (first: written as) the block's
+// float64 partials, in the bf16 form's layouts (s2f_flush).
+template <int C0, int W>
+__device__ __forceinline__ void s2t_flush(const S2TG<C0, W>& A, bool first,
+                                          int v, int lane,
+                                          double* __restrict__ partM,
+                                          double* __restrict__ partV,
+                                          double* __restrict__ partX,
+                                          double* __restrict__ partU) {
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t b = blockIdx.x;
+#pragma unroll
+  for (int p = 0; p < S2TG<C0, W>::NP; ++p) {
+    const int kind = W + 4 * p;
+    double* base = kind < 2 ? partM + (b * 2 + kind) * CW * CW
+                            : partU + (b * (C0 + 1) + kind - 2) * CW * CW;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 16 * v + g + 8 * h;
+      double2* pp = reinterpret_cast<double2*>(base + c * CW + 2 * t);
+      double2 o[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        o[j] = first ? make_double2(0.0, 0.0) : pp[4 * j];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        pp[4 * j] = make_double2(
+            o[j].x + static_cast<double>(A.acc[p][4 * j + 2 * h]),
+            o[j].y + static_cast<double>(A.acc[p][4 * j + 2 * h + 1]));
+    }
+  }
+  {
+    double* px = partX + b * (2 * CW * C0 + C0 * (C0 + 1));
+    double* pv = partV + b * 4 * CW;
+#pragma unroll
+    for (int s = 0; s < (W == 3 ? 2 : 1); ++s) {
+      const int u = W == 3 ? 3 + s : W;   // 0 dy2, 1 h1, 2 m1, 3 mq, 4 x
+      double* pp[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = 16 * v + g + 8 * (q >> 1), k = 2 * t + (q & 1);
+        pp[q] = nullptr;
+        if (u == 4) {
+          if (c < C0 && k <= C0) pp[q] = px + 2 * CW * C0 + c * (C0 + 1) + k;
+        } else if (k == C0) {           // u2 | ch1 | cnt1 | acc1
+          pp[q] = pv + (u == 0 ? 0 : u == 1 ? 1 : u == 2 ? 2 : 3) * CW + c;
+        } else if (k < C0 && u >= 2) {  // T1x | P1
+          pp[q] = px + (u == 3 ? CW * C0 : 0) + c * C0 + k;
+        }
+      }
+      double oo[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) oo[q] = first || !pp[q] ? 0.0 : *pp[q];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (pp[q]) *pp[q] = oo[q] + static_cast<double>(A.e8[s][q]);
+    }
+  }
+}
+
+// The step loop of warpgroup W (every warp runs the row chain; the
+// barriers are the block's).
+template <int C0, bool FROM_X, int W, typename Fetch>
+__device__ __forceinline__ void s2t_loop(float* sm, int64_t count,
+                                         bool rowx, int warp, int lane,
+                                         Fetch&& fetch,
+                                         double* __restrict__ partM,
+                                         double* __restrict__ partV,
+                                         double* __restrict__ partX,
+                                         double* __restrict__ partU) {
+  S2TG<C0, W> A;
+  s2t_zero<C0, W>(A);
+  const int v = warp & 3;
+  bool first = true;
+  // Two stages: step i + 1's copies fly while step i's row chain, then
+  // its contraction, run (two block barriers a step).
+  for (int64_t i = 0; i < count; ++i) {
+    float* S = sm + (i & 1) * S2T_STAGE;
+    cp_async_wait<0>();
+    __syncthreads();                    // step i in; step i - 1 contracted
+    fetch(i + 1);                       // the next step's copies
+    s2t_rows<C0, FROM_X>(S, sm, rowx, warp, lane);
+    __syncthreads();                    // the contraction's operands whole
+    s2t_contract<C0, W>(A, S, sm, v, lane);
+    // Blocks flush at staggered steps, so that their float64 traffic does
+    // not meet at device memory all at once.
+    if ((i + 1 + blockIdx.x) % S2T_FLUSH == 0 || i + 1 == count) {
+      s2t_flush<C0, W>(A, first, v, lane, partM, partV, partX, partU);
+      s2t_zero<C0, W>(A);
+      first = false;
+    }
+  }
+  if (count == 0)                       // a block with no step: zeros
+    s2t_flush<C0, W>(A, true, v, lane, partM, partV, partX, partU);
+}
+
+// xmode: 0 x channel-major in 16-byte copies (N % 4 == 0, x 16-byte
+// aligned), 1 x row-major (N == 1, aligned) copied as stored, 2 x value
+// by value. a16: bit 0 p2, bit 1 q3, bit 2 p1 16-byte aligned (else their
+// rows arrive by 4-byte copies).
+template <int C0, bool FROM_X>
+__global__ void __launch_bounds__(S2T_NT, 1)
+bwd2_sweep2_tf32_kernel(const float* __restrict__ x, int64_t N, int64_t R,
+                        int xmode, int a16, const float* __restrict__ p1,
+                        const float* __restrict__ W1,
+                        const float* __restrict__ vec,
+                        const float* __restrict__ p2,
+                        const float* __restrict__ q3,
+                        const float* __restrict__ M3,
+                        const float* __restrict__ W2,
+                        double* __restrict__ partM,
+                        double* __restrict__ partV,
+                        double* __restrict__ partX,
+                        double* __restrict__ partU) {
+  extern __shared__ __align__(1024) float smw[];
+  float* sm = smw;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t nsteps = R / TR;
+  const int64_t count =
+      nsteps > blockIdx.x ? (nsteps - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  auto row0 = [&](int64_t i) { return (blockIdx.x + i * gridDim.x) * TR; };
+  auto tile = [&](float* dst, const float* src, bool al) {   // (TR, CW)
+    if (al) {
+      for (int e = threadIdx.x; e < TR * CW / 4; e += S2T_NT) {
+        const int r = e >> 4, cc = (e & 15) << 2;
+        cp_async16(dst + r * LDT + cc, src + r * CW + cc);
+      }
+    } else {
+      for (int e = threadIdx.x; e < TR * CW; e += S2T_NT)
+        cp_async4(dst + (e >> 6) * LDT + (e & 63), src + e);
+    }
+  };
+  auto fetch = [&](int64_t i) {   // every thread: its copies of step i
+    if (i < count) {
+      float* S = sm + (i & 1) * S2T_STAGE;
+      const int64_t r0 = row0(i);
+      tile(S + S2T_P2, p2 + r0 * CW, a16 & 1);
+      tile(S + S2T_Q3, q3 + r0 * CW, a16 & 2);
+      if (!FROM_X) tile(S + S2T_P1, p1 + r0 * CW, a16 & 4);
+      if (xmode == 0) {
+        for (int e = threadIdx.x; e < C0 * TR / 4; e += S2T_NT) {
+          const int cx = e / (TR / 4), j = e % (TR / 4);
+          const int64_t r = r0 + 4 * j, b = r / N, nn = r - b * N;
+          cp_async16(S + S2T_X + cx * S2T_XS + 4 * j,
+                     x + (b * C0 + cx) * N + nn);
+        }
+      } else if (xmode == 1) {
+        for (int e = threadIdx.x; e < TR * C0 / 4; e += S2T_NT)
+          cp_async16(S + S2T_X + 4 * e, x + r0 * C0 + 4 * e);
+      } else {
+        for (int e = threadIdx.x; e < C0 * TR; e += S2T_NT) {
+          const int cx = e / TR, j = e % TR;
+          const int64_t r = r0 + j, b = r / N, nn = r - b * N;
+          cp_async4(S + S2T_X + cx * S2T_XS + j, x + (b * C0 + cx) * N + nn);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  fetch(0);
+  for (int e = threadIdx.x; e < CW * CW; e += S2T_NT) {   // M3, gi2 W2^T
+    const int k = e >> 6, nn = e & 63;
+    const int i = s2t_core(nn, s2t_kslot(k));
+    const Split m = split(M3[k * CW + nn]);
+    const Split w = split(__fmul_rn(vec[6 * CW + k], W2[nn * CW + k]));
+    sm[S2T_MH + i] = __uint_as_float(m.hi);
+    sm[S2T_ML + i] = __uint_as_float(m.lo);
+    sm[S2T_WH + i] = __uint_as_float(w.hi);
+    sm[S2T_WL + i] = __uint_as_float(w.lo);
+  }
+  for (int e = threadIdx.x; e < 8 * TR; e += S2T_NT)       // the ones column
+    sm[S2T_ONE + s2t_core(e / TR, e % TR)] = e / TR == C0 ? 1.f : 0.f;
+  if (FROM_X)
+    for (int e = threadIdx.x; e < C0 * CW; e += S2T_NT) sm[S2T_W1 + e] = W1[e];
+  for (int e = threadIdx.x; e < 7 * CW; e += S2T_NT) sm[S2T_V + e] = vec[e];
+  fence_async_smem();
+
+  const bool rowx = xmode == 1;
+  switch (warp >> 2) {
+    case 0:
+      s2t_loop<C0, FROM_X, 0>(sm, count, rowx, warp, lane, fetch, partM,
+                              partV, partX, partU);
+      break;
+    case 1:
+      s2t_loop<C0, FROM_X, 1>(sm, count, rowx, warp, lane, fetch, partM,
+                              partV, partX, partU);
+      break;
+    case 2:
+      s2t_loop<C0, FROM_X, 2>(sm, count, rowx, warp, lane, fetch, partM,
+                              partV, partX, partU);
+      break;
+    default:
+      s2t_loop<C0, FROM_X, 3>(sm, count, rowx, warp, lane, fetch, partM,
+                              partV, partX, partU);
+  }
+}
+
 // -- launchers ---------------------------------------------------------
 
 template <bool BF>
@@ -1760,35 +2232,6 @@ int launch_bwd2_sweep1(const RowT<BF>* p2, int64_t R, int pool,
 #undef S8_LAUNCH
 }
 
-// B6 / B8b at f32 (p1 == nullptr: B6).
-int launch_bwd2_sweep2(const float* x, int B, int C0, int N, const float* p1,
-                       const float* W1, const float* vec, const float* p2,
-                       const float* q3, const float* M3, const float* W2,
-                       double* partM, double* partV, double* partX,
-                       double* partU, int nblk, void* stream) {
-  const int64_t R = (int64_t)B * N;
-  if (bad_shape(C0, R)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (2 * CW * CW + 3 * TR * LD +
-                                       TR * C0MAX + C0MAX * CW + 7 * CW);
-  const dim3 grid(nblk, 1 + (C0 + 2) / 2);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (p1 == nullptr) {
-    e = prepare(bwd2_sweep2_kernel<true>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    bwd2_sweep2_kernel<true><<<grid, NT, smem, st>>>(
-        x, C0, N, R / TR, p1, W1, vec, p2, q3, M3, W2, partM, partV, partX,
-        partU);
-  } else {
-    e = prepare(bwd2_sweep2_kernel<false>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    bwd2_sweep2_kernel<false><<<grid, NT, smem, st>>>(
-        x, C0, N, R / TR, p1, W1, vec, p2, q3, M3, W2, partM, partV, partX,
-        partU);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int C0, bool FROM_X>
 int launch_s2f(const __nv_bfloat16* x, int64_t N, int64_t R, int xmode,
                const __nv_bfloat16* p1, const float* W1, const float* vec,
@@ -1806,6 +2249,54 @@ int launch_s2f(const __nv_bfloat16* x, int64_t N, int64_t R, int xmode,
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int C0, bool FROM_X>
+int launch_s2t(const float* x, int64_t N, int64_t R, int xmode, int a16,
+               const float* p1, const float* W1, const float* vec,
+               const float* p2, const float* q3, const float* M3,
+               const float* W2, double* partM, double* partV, double* partX,
+               double* partU, int nblk, cudaStream_t st) {
+  cudaError_t e = prepare(bwd2_sweep2_tf32_kernel<C0, FROM_X>, S2T_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bwd2_sweep2_tf32_kernel<C0, FROM_X><<<nblk, S2T_NT, S2T_SMEM, st>>>(
+      x, N, R, xmode, a16, p1, W1, vec, p2, q3, M3, W2, partM, partV, partX,
+      partU);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B6 / B8b at f32 (p1 == nullptr: B6): one 512-thread block an SM (nblk);
+// rows at any 4-byte alignment.
+int launch_bwd2_sweep2(const float* x, int B, int C0, int N, const float* p1,
+                       const float* W1, const float* vec, const float* p2,
+                       const float* q3, const float* M3, const float* W2,
+                       double* partM, double* partV, double* partX,
+                       double* partU, int nblk, void* stream) {
+  const int64_t R = (int64_t)B * N;
+  if (bad_shape(C0, R) || nblk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int a16 = (aligned16(p2) ? 1 : 0) | (aligned16(q3) ? 2 : 0) |
+                  (p1 != nullptr && aligned16(p1) ? 4 : 0);
+  const int xmode = !aligned16(x) ? 2 : N % 4 == 0 ? 0 : N == 1 ? 1 : 2;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define S2T_LAUNCH(C)                                                        \
+  return p1 == nullptr                                                       \
+             ? launch_s2t<C, true>(x, N, R, xmode, a16, p1, W1, vec, p2, q3, \
+                                   M3, W2, partM, partV, partX, partU, nblk, \
+                                   st)                                       \
+             : launch_s2t<C, false>(x, N, R, xmode, a16, p1, W1, vec, p2,    \
+                                    q3, M3, W2, partM, partV, partX, partU,  \
+                                    nblk, st)
+  switch (C0) {
+    case 1: S2T_LAUNCH(1);
+    case 2: S2T_LAUNCH(2);
+    case 3: S2T_LAUNCH(3);
+    case 4: S2T_LAUNCH(4);
+    case 5: S2T_LAUNCH(5);
+    case 6: S2T_LAUNCH(6);
+    default: S2T_LAUNCH(7);
+  }
+#undef S2T_LAUNCH
 }
 
 // B6 / B8b at bf16: one 512-thread block an SM (nblk), p2, q3 and p1
@@ -1844,8 +2335,8 @@ int launch_bwd2_sweep2_bf16(const __nv_bfloat16* x, int B, int C0, int N,
 
 }  // namespace
 
-// Every launcher: nblk persistent blocks over R / 64 row tiles (times the
-// slices of the f32 bwd2_sweep2; 128-row steps for the bf16 one); returns
+// Every launcher: nblk persistent blocks over R / 64 row tiles (128-row
+// steps for the bf16 bwd2_sweep2); returns
 // cudaGetLastError() (0 on success). The _bf16 entry points take the row
 // tensors as bf16 and the same f32 parameters.
 using bf16_t = __nv_bfloat16;
@@ -1911,7 +2402,7 @@ extern "C" int facl_sa_bwd2_sweep1_bf16(const bf16_t* p2, int64_t R,
                                   partu, partG, partc, nblk, stream);
 }
 
-// p1 == nullptr: B6 (h1 from x by h1_tile, at bf16 h1_pre_bf16; x
+// p1 == nullptr: B6 (h1 from x by h1_pair, at bf16 h1_pre_bf16; x
 // channel-major (B, C0, N)). Otherwise B8b (h1 from p1; x row-major,
 // passed as B = R, N = 1). At bf16 p1, p2 and q3 must be 16-byte aligned.
 extern "C" int facl_sa_bwd2_sweep2(const float* x, int B, int C0, int N,

@@ -24,8 +24,8 @@
 // per tile; the CUDA-core row passes below copy them into padded tiles.
 //
 // Nothing here decides a ReLU mask: the masks come from the CUDA-core op
-// chains of sa_tile.cuh (relu_affine, and h1_rows below with h1_tile's
-// exact chain), bit for bit as in the forward.
+// chains (sa_tile.cuh's relu_affine, and h1_rows and h1_pair below: x W1
+// summed in k order), bit for bit as in the forward.
 //
 // bf16: the bf16 sweeps (their own kernels, sa_pair.cu) store the row
 // tensors (x, p2, q3, mq) as __nv_bfloat16 and run their products on the
@@ -404,7 +404,7 @@ __device__ __forceinline__ void relu_split_rows(const float* S,
   }
 }
 
-// h1 from a = x W1 (summed in k order): h1_tile's chain relu((a + b1)
+// h1 from a = x W1 (summed in k order): the forward's chain relu((a + b1)
 // mul1 + shift1); at BF, with W1 and b1 rounded to bf16 (by the caller),
 // relu(bf16((bf16(a) + b1) mul1 + shift1)) (the TPU kernel's p1 sum is
 // not rounded: ops/sa_pair.py, _h1_bf16).
@@ -417,7 +417,7 @@ __device__ __forceinline__ float h1_of(float a, float b1, float mul,
 // h1 = relu((x W1 + b1) * mul1 + shift1) for one tile, from xs staged
 // channel-major (xs[c * TR + r]): its split into (TR, LDT) tiles hi/lo,
 // and its ReLU mask (h1 > 0) as bytes, mask[r * CW + c]. vec1 = [b1 |
-// mul1 | shift1]. The op chain is h1_tile's (sa_tile.cuh), so the masks
+// mul1 | shift1]. The op chain is h1_pair's (below), so the masks
 // are the forward's. Thread tid of nth (a multiple of 16) takes rows
 // tid / 16, + nth / 16, ...
 __device__ __forceinline__ void h1_rows(const float* xs, int C0,
@@ -488,7 +488,7 @@ __device__ __forceinline__ void h1_pre_bf16(const float (&xa)[C0MAX - 1],
 
 // h1 of two rows (x values xa, xb) at columns col, col + 1, in registers:
 // ha for row a, hb for row b. vec1 = [b1 | mul1 | shift1]. The op chain is
-// h1_tile's (and h1_rows'), so the masks are the ones every sweep that
+// h1_rows', so the masks are the ones every sweep that
 // recomputes h1 gets. BF: the bf16 chain (h1_of), by h1_pre_bf16.
 template <bool BF = false>
 __device__ __forceinline__ void h1_pair(const float (&xa)[C0MAX - 1],
@@ -654,6 +654,30 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 // A named barrier (id 1-15) for n threads, whole warps.
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// A wgmma matrix descriptor (no swizzle) of the operand at smem, its core
+// matrices lbo bytes apart along k and sbo bytes apart along m or n.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* smem, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(smem) >> 4) & 0x3fffu) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3fffu) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3fffu) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Pins a register's value at this point of the program: wgmma writes its
+// accumulators asynchronously, between the issue and the wait.
+__device__ __forceinline__ void pin(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
 }
 
 // 16-byte asynchronous copies global -> shared (cp.async), each thread's

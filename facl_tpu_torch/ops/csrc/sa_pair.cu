@@ -38,9 +38,10 @@
 // sweep2, h1 and dy1 in sweep3) split into hi/lo once; the pool reduced
 // from the accumulators (no p3 tile in shared memory); sweep2's mq leaving
 // by a TMA bulk store; layer12's h1 made in registers as its A fragments.
-// layer12 computes h1, and B3b and B3c recompute it, with h1_tile's op
-// chain (h1_pair and h1_rows in sa_mma.cuh), and the split products move
-// no ReLU mask: masks come from the CUDA-core chains only.
+// layer12 computes h1, and B3b and B3c recompute it, with one op chain
+// (h1_pair and h1_rows in sa_mma.cuh: x W1 summed in k order), and the
+// split products move no ReLU mask: masks come from the CUDA-core chains
+// only.
 //
 // The TPU grid runs in order and carries its accumulators across steps;
 // CUDA blocks run in parallel, so every block writes its own partial sums
@@ -66,8 +67,8 @@
 // on bf16 tensor cores (mma.sync m16n8k16, B3a's dense one as wgmma).
 //
 // The backward recomputes p1 -> h1 from x with the forward's exact op
-// chain (h1_tile in sa_tile.cuh, shared by every x-reading kernel, B6 in
-// sa_2sweep.cu too, and h1_rows in sa_mma.cuh), so the ReLU masks agree
+// chain (h1_pair and h1_rows in sa_mma.cuh, shared by every x-reading
+// kernel, B6 in sa_2sweep.cu too), so the ReLU masks agree
 // bit for bit with the forward's (sa_pair.py:316-330).
 #include <cstdint>
 #include "common.cuh"
@@ -115,8 +116,8 @@ __device__ __forceinline__ void load_x_rows(const float* __restrict__ x,
 // written, split, and read back as fragments by every warp next to W2's)
 // and by block barriers between those phases. So h1 never touches shared
 // memory: each warp computes the h1 values of its own A fragments in
-// registers with h1_tile's op chain (h1_pair in sa_mma.cuh; B3b, B3c and
-// B6 recompute h1 with the same chain, so the ReLU masks agree bit for
+// registers with the forward's op chain (h1_pair in sa_mma.cuh; B3b, B3c
+// and B6 recompute h1 with the same chain, so the ReLU masks agree bit for
 // bit) and splits them; W2's three pieces are split once per block. The
 // warps are independent: warp w of the block walks its own 64-row tiles
 // as four 16-row slices (16 x 64 of p2 in its accumulators), its x tile
@@ -2274,28 +2275,6 @@ __device__ __forceinline__ int core_k256(int r, int k) {
 }
 constexpr uint32_t K256_LBO = 128, K256_SBO = C3W / 8 * 128;
 
-// A wgmma matrix descriptor (no swizzle) of the operand at smem.
-__device__ __forceinline__ uint64_t wgmma_desc(const void* smem) {
-  return static_cast<uint64_t>((smem_addr(smem) >> 4) & 0x3fffu) |
-         static_cast<uint64_t>((K256_LBO >> 4) & 0x3fffu) << 16 |
-         static_cast<uint64_t>((K256_SBO >> 4) & 0x3fffu) << 32;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// Pins a register's value at this point of the program: wgmma writes its
-// accumulators asynchronously, between the issue and the wait.
-__device__ __forceinline__ void pin(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-
 // d += A B for the warpgroup, A (64 x 16) and B (16 x 64) bf16 by
 // descriptor, d (64 x 64, f32) in mma.sync's C layout: warp w of the
 // group holds rows 16 w + g (+8), n-tile j in d[4 j ..].
@@ -2482,7 +2461,7 @@ bwd_sweep1_bf16_kernel(const __nv_bfloat16* __restrict__ p2,
     // The q3 warpgroup: q3 = D bf16(W3)^T, its warp wr the rows
     // 16 wr + g (+8), all 64 columns.
     const int wr = warp;
-    const uint64_t bdesc = wgmma_desc(W3s);
+    const uint64_t bdesc = wgmma_desc(W3s, K256_LBO, K256_SBO);
     if (count > 0) {
       h2_pass(0, 0, h2q, threadIdx.x, S1B_MT);
       release(0);
@@ -2496,7 +2475,7 @@ bwd_sweep1_bf16_kernel(const __nv_bfloat16* __restrict__ p2,
         d[q] = 0.f;
         pin(d[q]);
       }
-      const uint64_t adesc = wgmma_desc(Ds + b * TR * C3W);
+      const uint64_t adesc = wgmma_desc(Ds + b * TR * C3W, K256_LBO, K256_SBO);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 16; ++kk)      // + two core matrices of k a step

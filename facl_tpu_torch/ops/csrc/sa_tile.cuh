@@ -2,8 +2,8 @@
 // a persistent block of NT threads walks 64-row tiles held in shared
 // memory, with register-tiled 64-wide products (thread (ty, tx) owns rows
 // ty + 16 i and columns tx + 16 j). Every sweep that recomputes h1 from x
-// calls the one h1_tile below, so its ReLU masks agree bit for bit with
-// the forward's.
+// sums x W1 in k order (sa_mma.cuh's h1_rows and h1_pair), so its ReLU
+// masks agree bit for bit with the forward's.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -28,40 +28,6 @@ __device__ __forceinline__ void copy_vec(float* dst, const float* src,
   for (int i = threadIdx.x; i < n; i += NT) dst[i] = src[i];
 }
 
-// xs[i][c] = x[b, c, n] for rows r0 + i (row r = b*N + n). A row-major
-// (R, C0) input is the case B = R, N = 1.
-__device__ __forceinline__ void load_x_tile(const float* __restrict__ x,
-                                            int C0, int64_t N, int64_t r0,
-                                            float* xs) {
-  for (int e = threadIdx.x; e < TR * C0; e += NT) {
-    const int i = e % TR, c = e / TR;
-    const int64_t r = r0 + i;
-    const int64_t b = r / N, n = r - b * N;
-    xs[i * C0MAX + c] = x[(b * C0 + c) * N + n];
-  }
-}
-
-// h1 = relu((x W1 + b1) * mul1 + shift1) for one tile. vec1 holds
-// [b1 | mul1 | shift1]. Every x-reading sweep calls this one function.
-__device__ __forceinline__ void h1_tile(const float* xs, int C0,
-                                        const float* W1s, const float* vec1,
-                                        float* h1s) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      float acc = 0.0f;
-      for (int k = 0; k < C0; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(xs[r * C0MAX + k], W1s[k * CW + c]));
-      const float p1 = __fadd_rn(acc, vec1[c]);
-      h1s[r * LD + c] = relu_affine(p1, vec1[CW + c], vec1[2 * CW + c]);
-    }
-  }
-}
-
 // h = relu(p * mul + shift) for a (TR, 64) tile of a stored residual.
 __device__ __forceinline__ void load_h_tile(const float* __restrict__ p,
                                             int64_t r0, const float* mul,
@@ -69,14 +35,6 @@ __device__ __forceinline__ void load_h_tile(const float* __restrict__ p,
   for (int e = threadIdx.x; e < TR * CW; e += NT) {
     const int r = e / CW, c = e % CW;
     hs[r * LD + c] = relu_affine(p[(r0 + r) * CW + c], mul[c], shift[c]);
-  }
-}
-
-__device__ __forceinline__ void load_tile(const float* __restrict__ src,
-                                          int64_t r0, float* dst) {
-  for (int e = threadIdx.x; e < TR * CW; e += NT) {
-    const int r = e / CW, c = e % CW;
-    dst[r * LD + c] = src[(r0 + r) * CW + c];
   }
 }
 

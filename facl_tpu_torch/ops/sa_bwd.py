@@ -28,7 +28,11 @@ in ``hybrid``, from B7c's k-order CUDA-core sums in ``hybrid2``), so at
 near-ties the backward may route to another row than the one the forward
 pooled — as in JAX (sa_bwd.py:30-35). Its wrapper launches one 512-thread
 block an SM and takes a 16-byte aligned p2 (its tiles arrive by TMA bulk
-copies).
+copies). B8b at f32 (also B6's, ops/sa_pair.py) runs its products on the
+TF32 tensor cores in 3xTF32 (wgmma), one 512-thread block an SM over
+64-row steps; its f32 sums, each k8 step of rows added round-to-nearest,
+go to the float64 partials every 128 steps, so only the order of the sums
+differs from the twin's, and it takes rows at any 4-byte alignment.
 
 At compute_dtype bfloat16 (``dtype=torch.bfloat16``) both sweeps have bf16
 kernels (``sa_bwd2_sweep1_bf16``, ``sa_bwd2_sweep2_bf16``, entry points
@@ -287,9 +291,9 @@ def _launch_sweep2(x, B: int, C0: int, N: int, p1, w1, b1, mul1, shift1,
                    ) -> Dict[str, torch.Tensor]:
     """Launch csrc/sa_2sweep.cu's sweep 2 (B6 with p1=None, h1 from x;
     B8b with the stored p1) on rows stored as ``dt`` and unpack its
-    accumulators: at f32 bwd2_sweep2_kernel (two 256-thread blocks an SM),
-    at bf16 bwd2_sweep2_bf16_kernel (one 512-thread block an SM, p1, p2
-    and q3 16-byte aligned)."""
+    accumulators: at f32 bwd2_sweep2_tf32_kernel (rows at any 4-byte
+    alignment), at bf16 bwd2_sweep2_bf16_kernel (p1, p2 and q3 16-byte
+    aligned), each one 512-thread block an SM."""
     R = B * N
     C1, C2 = TRUNK[0], TRUNK[1]
     need(p2, (R, C2), "p2", dt)
@@ -306,7 +310,7 @@ def _launch_sweep2(x, B: int, C0: int, N: int, p1, w1, b1, mul1, shift1,
         for t, name in ((p2, "p2"), (q3, "q3"), (p1, "p1")):
             if t is not None:
                 need_aligned(t, name)
-    nblk = grid(x, R, per_sm=1 if dt == BF16 else 2)
+    nblk = grid(x, R, per_sm=1)       # one 512-thread block an SM
     dev = x.device
     nx = 2 * C1 * C0 + C0 * (C0 + 1)
     partM = torch.empty((nblk, 2, C2, C1), dtype=torch.float64, device=dev)

@@ -20,8 +20,9 @@ sweeps:
                           ops/sa_bwd.py::_layer1_terms closes it)
 
 Each sweep has a CUDA kernel (``csrc/sa_pair.cu``; B6 shares B8b's
-template in ``csrc/sa_2sweep.cu``, with h1 recomputed from x by the
-forward's own h1_tile) and a plain PyTorch twin that returns the same
+template in ``csrc/sa_2sweep.cu``, on the TF32 tensor cores, with h1
+recomputed from x by the forward's own k-order chain, h1_pair) and a
+plain PyTorch twin that returns the same
 tensors. A wrapper runs the twin for a CPU tensor and launches the kernel
 for a CUDA tensor (or raises); it counts its launches in
 ``<wrapper>.launches``. The moments of layer 1 (from Gram(x)), the layer-3
