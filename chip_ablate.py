@@ -55,6 +55,11 @@ time on the card.
     python3 chip_ablate.py b8a              # B8a (sa_bwd2_sweep1) at bf16
                                             # and f32 with one part cut at
                                             # a time (B8A_CUTS), in turns
+    python3 chip_ablate.py b7c              # B7c (sa_fwd_pool) at bf16 and
+                                            # f32 with one part cut at a
+                                            # time (B7C_CUTS), in turns;
+                                            # W3's column negation held
+                                            # bit-equal to a min
 
 Each kernel is rebuilt from facl_tpu_torch/ops/csrc/sa_pair.cu with one
 part cut out (the pool, the Gram, a product, the CUDA-core row passes;
@@ -982,6 +987,139 @@ def b9_f32(cs, out_dir) -> None:
                       "gpu": gpu}))
 
 
+#: b7c: sa_2sweep.cu's B7c (fwd_pool_kernel<BF, LP>) with one part cut
+#: at a time: name -> (calls made void, text replacements). "without the
+#: product" fills the accumulators with a value of the thread and tile
+#: instead (so the max is not folded away); "without the max" keeps the
+#: products, folded by XOR into a store that never happens (so that ptxas
+#: keeps them), but neither the group maxima nor the affine, ReLU and
+#: stores; "loads only" keeps the TMA ring and the block barriers. "with
+#: the min where mul3 < 0" is no cut: W3's columns stay as they are and
+#: p7_pool negates the sums of a channel with mul3 < 0 instead (a min), so
+#: its pooled rows equal the shipped build's bit for bit exactly when the
+#: tensor cores' sums of negated products are the negated sums.
+B7C_MARK = "// B7c (facl_sa_fwd_pool, facl_sa_fwd_pool_bf16) on the tensor cores"
+B7C_SECTION = (B7C_MARK, "// -- launchers")
+B7C_POOL = ("    p7_pool<BF, LP>(c, n0, lane, neg, v + 2 * CW, walk, upt, run, "
+            "pooled);")
+B7C_SINK = ((B7C_POOL,
+             "    { uint32_t x = 0;\n#pragma unroll\n"
+             "      for (int q = 0; q < 32; ++q) x ^= __float_as_uint(c[q]);\n"
+             "      if (x == 0x2f3c4d5eu) pooled[0] = pooled[1]; }"),)
+B7C_FILL = (("    p7_p3<BF>(wa, hb, lane, c);",
+             "    for (int q = 0; q < 32; ++q)\n"
+             "      c[q] = __int_as_float((threadIdx.x << 5 | q) ^ (int)i);"),)
+B7C_MIN = (("const uint32_t na = neg[0] ? sb : 0u, nb = neg[1] ? sb : 0u;",
+            "const uint32_t na = 0u, nb = 0u;"),
+           ("          a[jj] = ES == 2 ? fmaxf(cj[0], cj[1]) : cj[0];",
+            "          const float s = neg[hh] ? -1.f : 1.f;\n"
+            "          a[jj] = ES == 2 ? fmaxf(s * cj[0], s * cj[1]) "
+            ": s * cj[0];"))
+B7C_CUTS = {
+    "b7c": ((), ()),
+    "b7c without the product": ((), B7C_FILL),
+    "b7c without the max": ((), B7C_SINK),
+    "b7c without the h2 pass": (("relu_rows_bf16", "p7_h2_split"), ()),
+    "b7c loads only": (("relu_rows_bf16", "p7_h2_split", "p7_p3",
+                        "p7_pool"), ()),
+    "b7c with two more stages": ((), (("STAGES = BF ? 4 : 3;",
+                                       "STAGES = BF ? 6 : 5;"),)),
+    "b7c with the min where mul3 < 0": ((), B7C_MIN),
+}
+
+
+def b7c(cs, out_dir) -> None:
+    """B7c at bf16 and f32 on a main-path shape (640 clouds x 4,096 rows,
+    pools 64 and 128; randn p2 with every other group padded as ball query
+    pads one, mul3 of both signs) with each B7C_CUTS build, twice, in
+    turns. A cut variant's outputs are wrong by design; only its time is
+    read. The full build's and the two-more-stages build's pooled rows are
+    held against the twins (f32: the largest |kernel - twin| over phase
+    2's bar, rtol 1e-5 / atol 1e-5 x scale; bf16: entries beyond one bf16
+    ulp), and each build's ptxas use of its pool-64 kernels printed. The
+    build with the min where mul3 < 0 is held bit-equal to the full
+    build's at pools 1, 16, 64 and 128 (pools 1 and 16 on the first 64
+    clouds): at pool 1 every row's p3 of a channel with mul3 < 0 is
+    compared, summed once with W3's column negated and once without."""
+    from facl_tpu_torch.ops import sa_fwd as SF
+    libs, ptxas = build_cuts(out_dir, "sa_2sweep", B7C_SECTION, B7C_CUTS,
+                             "b7c", {"fwd_pool_kernelILb1ELi6E": "bf16",
+                                     "fwd_pool_kernelILb0ELi6E": "f32"})
+    sign = libs.pop("b7c with the min where mul3 < 0")
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def r(*shape, sc=1.0):
+        return sc * torch.randn(*shape, device=dev, generator=g)
+    R = 640 * 4096
+    p2 = r(R, 64)
+    p2v = p2.view(-1, 64, 64)
+    p2v[::2, 32:] = p2v[::2, :1]
+    tail = (r(64, sc=0.3), r(64), r(64, 256, sc=0.125), r(256, sc=0.1),
+            r(256, sc=0.5), r(256))
+    runs, signs = {}, {}
+    for dt, fn in (("bf16", SF.sa_fwd_pool_bf16), ("f32", SF.sa_fwd_pool)):
+        x = p2.to(torch.bfloat16) if dt == "bf16" else p2
+        for pool in (1, 16, 64, 128):
+            rows = x if pool >= 64 else x[:64 * 4096]
+            signs[f"{dt} pool {pool}"] = (fn, "facl_" + fn.__name__,
+                                          (rows, *tail, pool))
+            if pool >= 64:
+                runs[f"{dt} pool {pool}"] = signs[f"{dt} pool {pool}"]
+    for fn, _, args in runs.values():
+        fn(*args)                         # resolves this tree's launchers
+    checked, unequal = {}, {}
+    for name in ("b7c", "b7c with two more stages"):
+        for key, (fn, launcher, args) in runs.items():
+            with using_lib(("sa_2sweep", launcher), libs[name]):
+                k = fn(*args)
+            t = getattr(SF, fn.__name__ + "_plain")(*args)
+            if key.startswith("bf16"):
+                a, b = k.float(), t.float()
+                checked[f"{name}, {key}"] = int(((a - b).abs() > cs.bf16_ulp(
+                    torch.maximum(a.abs(), b.abs()))).sum())
+            else:
+                bar = 1e-5 * t.abs() + 1e-5 * t.abs().max()
+                checked[f"{name}, {key}"] = float(((k - t).abs() / bar).max())
+            del k, t
+    for key, (fn, launcher, args) in signs.items():
+        with using_lib(("sa_2sweep", launcher), libs["b7c"]):
+            a = fn(*args)
+        with using_lib(("sa_2sweep", launcher), sign):
+            b = fn(*args)
+        neg = args[6] < 0                 # mul3
+        bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        a, b = a[:, neg].view(bits), b[:, neg].view(bits)
+        unequal[key] = (int((a != b).sum()), a.numel())
+        del a, b
+    times = {name: {key: [] for key in runs} for name in libs}
+    for _ in range(2):
+        for name, lib in libs.items():
+            for key, (fn, launcher, args) in runs.items():
+                with using_lib(("sa_2sweep", launcher), lib):
+                    times[name][key].append(
+                        cs.device_ms(lambda: fn(*args))[0])
+    gpu = cs.gpu_name_power()
+    for name, by in times.items():
+        print(f"{name}: " + ", ".join(
+            f"{key} {a:.4f} / {b:.4f}" for key, (a, b) in by.items())
+            + f" ms on the device ({gpu}); ptxas {ptxas[name]}", flush=True)
+    for name, v in checked.items():
+        print(f"{name} against its twin: " + (
+            f"{v} entries beyond one bf16 ulp" if " bf16 " in f" {name}"
+            else f"largest |kernel - twin| {v:.3f} of the bar"), flush=True)
+    for key, (n, of) in unequal.items():
+        print(f"b7c with the min where mul3 < 0, {key}: {n} of the {of} "
+              f"pooled entries of channels with mul3 < 0 differ from the "
+              f"full build's", flush=True)
+    print(json.dumps({"b7c": times, "checked": checked,
+                      "min_where_mul3_negative_unequal": unequal,
+                      "ptxas": ptxas, "gpu": gpu}))
+    if any(n for n, _ in unequal.values()):
+        raise SystemExit("chip_ablate: the sums of W3's negated columns are "
+                         "not the negated sums")
+
+
 #: b8a: sa_2sweep.cu's B8a (bwd2_sweep1_kernel) with one part cut at a
 #: time: name -> (calls made void, text replacements). "products only"
 #: keeps the TMA loads, the four products and the q3 store; "without the
@@ -1229,7 +1367,7 @@ def b8b(cs, out_dir) -> None:
 #: tensor cores to read in TF32; splits by truncation, hi the f32 value as
 #: the tensor cores read it and lo its exact remainder), each a split_v
 #: that the section's calls of split reach by a macro.
-B8B_F32_SECTION = ("// B6 / B8b at f32 (facl_sa_bwd2_sweep2)", "// -- launchers")
+B8B_F32_SECTION = ("// B6 / B8b at f32 (facl_sa_bwd2_sweep2)", B7C_MARK)
 B8B_F32_NO_PREFETCH = (
     ("  fetch(0);\n", ""),
     ("    cp_async_wait<0>();\n"
@@ -1723,6 +1861,9 @@ def main() -> None:
         return
     if only == ("b8a",):
         b8a(cs, out_dir)
+        return
+    if only == ("b7c",):
+        b7c(cs, out_dir)
         return
     if only == ("b8b",):
         b8b(cs, out_dir)

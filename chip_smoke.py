@@ -6,26 +6,26 @@ every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py --profile   # + a torch.profiler breakdown of
                                       #   one main-path step
     python3 chip_smoke.py --parent DIR  # + B1, B2a, B2b, B3a, B3b, B3c
-                                        #   and the f32 B7 of the tree in
-                                        #   DIR (a git archive of another
-                                        #   commit) timed against this
-                                        #   tree's, in turns, their
+                                        #   and the f32 B7a and B7b of the
+                                        #   tree in DIR (a git archive of
+                                        #   another commit) timed against
+                                        #   this tree's, in turns, their
                                         #   outputs bit-equal; the f32
-                                        #   B6, B8a, B8b and B9 alike,
+                                        #   B6, B7c, B8a, B8b and B9 alike,
                                         #   within phase 2's f32 bars of
                                         #   the parent's
                                         #   (sweep2_vs_parent, cnt1
                                         #   exact; two_sweep_vs_parent,
-                                        #   b9_vs_parent); the bf16 B2a-B3c,
-                                        #   B6, B8a, B8b and B9 within
-                                        #   phase 2's bf16 bars (B9's at its
-                                        #   own bars, b9_bf16_vs_parent),
-                                        #   each at its wrapper's grid; and
-                                        #   the pair and hybrid2 f32 steps
-                                        #   with the parent's f32 B6 and
-                                        #   B8b, in turns (with --profile,
-                                        #   three profiled steps of each
-                                        #   turn)
+                                        #   pool_vs_parent, b9_vs_parent);
+                                        #   the bf16 B2a-B3c, B6, B7c, B8a,
+                                        #   B8b and B9 within phase 2's
+                                        #   bf16 bars (B9's at its own
+                                        #   bars, b9_bf16_vs_parent), each
+                                        #   at its wrapper's grid; and the
+                                        #   hybrid2 f32 and bf16 steps with
+                                        #   the parent's B7c, in turns
+                                        #   (with --profile, three profiled
+                                        #   steps of each turn)
 
 Phases (any failure exits nonzero, before the final line):
   1. build   every kernel from facl_tpu_torch/ops/csrc (one nvcc per
@@ -53,11 +53,11 @@ Phases (any failure exits nonzero, before the final line):
              queued behind a spin of the card, so the device time excludes
              the host's; the host's time per call beside it; beside B5a
              and B5b one library call (torch.gather, index_add_). B2a
-             (tensor cores, 6xTF32), B2b, B3b, B3c, B6, B8a and B8b
+             (tensor cores, 6xTF32), B2b, B3b, B3c, B6, B7c, B8a and B8b
              (3xTF32) print two bounds:
              the tensor-core one (bound_ms) and the f32 CUDA-core one
-             (bound_f32_ms). B2a, B2b, B3a-B3c, B6, B8a and B8b are run to
-             run bit-identical; B2b and B3a-B3c are checked again on the fine
+             (bound_f32_ms). B2a, B2b, B3a-B3c, B6, B7c, B8a and B8b are
+             run to run bit-identical; B2b and B3a-B3c are checked again on the fine
              variant's K = 128. Then
              the five bf16 sweeps (B2a-B3c at compute_dtype bfloat16)
              against their bf16 twins on the same card tensors: bf16
@@ -107,8 +107,8 @@ Phases (any failure exits nonzero, before the final line):
              --profile adds one profiled step to each impl's path: kernel
              time (kernel_ms: user annotations left out) over that step's
              own span gives the device's idle share; with --parent the
-             pair and hybrid2 f32 steps run again, 20 steps each in turns
-             with the parent's f32 B6 / B8b and with this tree's
+             hybrid2 f32 and bf16 steps run again, 20 steps each in turns
+             with the parent's B7c and with this tree's
              (parent_step_ab, PARENT_STEPS; --profile: three profiled
              steps each);
   5. input   d(loss)/d(points) through each grouping route and the
@@ -726,10 +726,14 @@ def two_sweep_rows(x3, layers, dpooled, K):
     m3, v3 = SF._moments_from_gram(G2, ch2, lp3.kernel, lp3.bias, R)
     mul3, shift3 = _fold_affine(lp3, m3, v3, eps)
     ap = (p2, mul2, shift2, lp3.kernel, lp3.bias, mul3, shift3, K)
-    add("sa_fwd_pool", ap,
-        row_err(SF.sa_fwd_pool(*ap), SF.sa_fwd_pool_plain(*ap), "B7c pooled"),
-        R * C2 * 4 + P * C3 * 4, R * (3 * C2 + 2 * C2 * C3 + 4 * C3),
-        SF.sa_fwd_pool, "facl_tpu/ops/pallas/sa_fwd.py:242")
+    k = SF.sa_fwd_pool(*ap)
+    check(torch.equal(k, SF.sa_fwd_pool(*ap)), "B7c: two runs differ")
+    add("sa_fwd_pool", ap, row_err(k, SF.sa_fwd_pool_plain(*ap), "B7c pooled"),
+        R * C2 * 4 + P * C3 * 4,
+        R * (3 * C2 + C3) + P * 4 * C3,    # a max a p3, the affine a group
+        SF.sa_fwd_pool, "facl_tpu/ops/pallas/sa_fwd.py:242",
+        tc_ops=R * 2 * C2 * C3)
+    del k
 
     z = _z64(p2, [(m1, v1), (m2, v2), (m3, v3)], lp2, lp3)
     near = near_ties(z, K, 1e-5 * float(z.abs().max()))
@@ -1532,7 +1536,9 @@ def two_sweep_bf16_rows(x3, layers, dpooled, K):
     n, e = bf16_flips(k, t, "B7c bf16 pooled")
     notes.append(f"B7c pooled {n}")
     add("sa_fwd_pool [bf16]", SF.sa_fwd_pool_bf16, ap, e,
-        R * C2 * 2 + P * C3 * 2, R * (4 * C2 + 6 * C3), R * 2 * C2 * C3,
+        R * C2 * 2 + P * C3 * 2,
+        R * (4 * C2 + C3) + P * 6 * C3,    # a max a p3, the affine a group
+        R * 2 * C2 * C3,
         "facl_tpu/ops/pallas/sa_fwd.py:242")
 
     z = SB._z_bf16(SB._h_bf16(p2, mul2, shift2), lp3.kernel, lp3.bias, mul3,
@@ -1875,12 +1881,13 @@ PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
                  "bwd_sweep3")},
              "sa_fwd_layer": ("sa_2sweep", "facl_sa_fwd_layer", None),
              "sa_fwd_gram": ("sa_2sweep", "facl_sa_fwd_gram", None),
-             "sa_fwd_pool": ("sa_2sweep", "facl_sa_fwd_pool", None),
+             "sa_fwd_pool": ("sa_2sweep", "facl_sa_fwd_pool", 2),
+             "sa_fwd_pool_bf16": ("sa_2sweep", "facl_sa_fwd_pool_bf16", 2),
              "sa_bwd2_sweep1": ("sa_2sweep", "facl_sa_bwd2_sweep1", 1),
              "sa_bwd2_sweep1_bf16": ("sa_2sweep", "facl_sa_bwd2_sweep1_bf16",
                                      1),
-             "sa_bwd2_sweep2": ("sa_2sweep", "facl_sa_bwd2_sweep2", 2),
-             "sa_bwd_sweep2_full": ("sa_2sweep", "facl_sa_bwd2_sweep2", 2),
+             "sa_bwd2_sweep2": ("sa_2sweep", "facl_sa_bwd2_sweep2", 1),
+             "sa_bwd_sweep2_full": ("sa_2sweep", "facl_sa_bwd2_sweep2", 1),
              "sa_bwd2_sweep2_bf16": ("sa_2sweep", "facl_sa_bwd2_sweep2_bf16",
                                      1),
              "sa_bwd_sweep2_full_bf16": ("sa_2sweep",
@@ -1938,7 +1945,8 @@ def parent_ab(fn, args):
     bars (two_sweep_vs_parent: the TF32 kernel sums in another order), or
     for B6 and B8b at f32 within phase 2's f32 bar, cnt1 exact
     (sweep2_vs_parent: the TF32 kernel sums in another order than the
-    parent's CUDA-core one). The
+    parent's CUDA-core one), or for B7c at f32 within phase 2's f32 bar
+    (pool_vs_parent: the same). The
     parent's launcher runs at its own wrapper's grid (parent_grid_swaps).
     The launchers' C signatures are the
     same in both trees (pointers are void* to ctypes). (B6 and B8b return
@@ -1955,7 +1963,8 @@ def parent_ab(fn, args):
     def run_parent(out=None):
         _build._FUNCTIONS[key] = (lib, pfn)
         try:
-            with swapped(parent_grid_swaps(lib_name, parent_per_sm)):
+            with swapped(parent_grid_swaps(lib_name, parent_per_sm,
+                                           fn.__name__)):
                 if out is not None:
                     out.append(fn(*args))
                 return device_ms(lambda: fn(*args))[0]
@@ -1985,9 +1994,11 @@ def parent_ab(fn, args):
         print(f"  --parent {fn.__name__} against the parent's: "
               f"{bf16_vs_parent(fn.__name__, mine, theirs, p3)}", flush=True)
         return ab
-    if fn.__name__ == "sa_bwd2_sweep1":
+    if fn.__name__ in ("sa_bwd2_sweep1", "sa_fwd_pool"):
+        vs = two_sweep_vs_parent if fn.__name__ == "sa_bwd2_sweep1" else \
+            pool_vs_parent
         print(f"  --parent {fn.__name__} against the parent's: "
-              f"{two_sweep_vs_parent(fn.__name__, mine, theirs)}", flush=True)
+              f"{vs(fn.__name__, mine, theirs)}", flush=True)
         return ab
     check(len(mine) == len(theirs) and
           all(torch.equal(a, b) for a, b in zip(mine, theirs)),
@@ -1995,17 +2006,18 @@ def parent_ab(fn, args):
     return ab
 
 
-def parent_grid_swaps(lib_name: str, blocks):
+def parent_grid_swaps(lib_name: str, blocks, name: str = ""):
     """The (module, name, value) swaps that launch a parent launcher at the
-    grid its own wrapper gave it: sa_pair's and sa_bwd's ``grid`` at
-    ``blocks`` blocks an SM (the parent's f32 B6 and B8b ran two 256-thread
-    blocks an SM where this tree's TF32 kernel runs one of 512; its B8a at
-    either dtype and its bf16 B6 and B8b one of 512, as this tree's);
-    B9's ``_nblk`` at ``blocks`` blocks an SM (one 512-thread block an SM
-    at either dtype, as this tree's); none for a launcher that takes no
-    grid (blocks None)."""
+    grid its own wrapper gave it: sa_pair's ``grid``, sa_bwd's, or for
+    wrapper ``name`` of the forward sweeps (sa_fwd_*) sa_fwd's, at
+    ``blocks`` blocks an SM (the parent's B7c at either dtype asked for two
+    256-thread blocks an SM where this tree's tensor-core kernel runs one of
+    512; its B6, B8a and B8b one of 512, as this tree's); B9's ``_nblk`` at
+    ``blocks`` blocks an SM (one 512-thread block an SM at either dtype, as
+    this tree's); none for a launcher that takes no grid (blocks None)."""
     from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_bwd as SB
+    from facl_tpu_torch.ops import sa_fwd as SF
     from facl_tpu_torch.ops import sa_kernel as SK
     from facl_tpu_torch.ops import sa_pair as SP
     if not blocks:
@@ -2019,7 +2031,9 @@ def parent_grid_swaps(lib_name: str, blocks):
 
     def grid(t, R, per_sm=2):
         return min(R // 64, blocks * _build.sm_count(t.device))
-    return [({"sa_pair": SP, "sa_2sweep": SB}[lib_name], "grid", grid)]
+    if lib_name == "sa_2sweep":
+        return [(SF if name.startswith("sa_fwd_") else SB, "grid", grid)]
+    return [(SP, "grid", grid)]
 
 
 def b9_bf16_vs_parent(name, mine, theirs):
@@ -2143,6 +2157,24 @@ def two_sweep_vs_parent(name, mine, theirs):
         f"{worst:.3e} of the parent's max-abs"
 
 
+def pool_vs_parent(name, mine, theirs):
+    """The f32 B7c's pooled rows against the parent tree's at phase 2's f32
+    bar (row_err, rtol 1e-5 / atol 1e-5 x scale): its tensor-core sums run
+    in another order than the parent's CUDA-core kernel. Fails otherwise;
+    returns a note of the largest error."""
+    check(len(mine) == len(theirs) == 1, f"--parent: {name} returns "
+                                         f"{len(mine)} tensors, the parent "
+                                         f"{len(theirs)}")
+    a, b = mine[0], theirs[0]
+    check(a.dtype == b.dtype and a.shape == b.shape,
+          f"--parent: {name}: {a.dtype} {tuple(a.shape)} against the "
+          f"parent's {b.dtype} {tuple(b.shape)}")
+    err = row_err(a, b, f"--parent: {name}")
+    return f"within phase 2's f32 bar, largest |this - parent| {err:.3e} " \
+        f"({err / max(float(b.abs().max()), 1e-30):.3e} of the parent's " \
+        "max-abs)"
+
+
 def _outputs(out):
     """A wrapper's tensors: a dict's values, one tensor, or a tuple (its
     lists flattened, a None left out: B9's final sweep)."""
@@ -2181,7 +2213,8 @@ def print_row(r, label=""):
                  "within phase 2's f32 B9 bars of" if
                  r["source"] == SRC9 else
                  "within phase 2's f32 bars of" if
-                 r["fn"].__name__ in ("sa_bwd2_sweep1",) + F32_SWEEP2 else
+                 r["fn"].__name__ in ("sa_bwd2_sweep1", "sa_fwd_pool") +
+                 F32_SWEEP2 else
                  "bit-equal to")
               + " the parent's", flush=True)
 
@@ -2743,11 +2776,11 @@ def phase_main(dev, profile: bool, card: str):
 
 
 #: --parent: the Trainer steps parent_step_ab runs with the parent's
-#: launchers of the named kernels (the f32 B6 of pair and B8b of
-#: hybrid2), each against this tree's: (BF16_PATHS label, "pallas f32",
-#: "hybrid2 f32" or "pair f32", kernels).
-PARENT_STEPS = (("pair f32", ("sa_bwd_sweep2_full",)),
-                ("hybrid2 f32", ("sa_bwd2_sweep2",)))
+#: launchers of the named kernels (hybrid2's B7c at f32 and at bf16),
+#: each against this tree's: (BF16_PATHS label, "pallas f32", "hybrid2
+#: f32" or "pair f32", kernels).
+PARENT_STEPS = (("hybrid2 f32", ("sa_fwd_pool",)),
+                ("hybrid2 bf16", ("sa_fwd_pool_bf16",)))
 #: --parent --profile: profiled steps of each of parent_step_ab's runs.
 PARENT_PROF_STEPS = 3
 
@@ -2782,7 +2815,7 @@ def parent_step_ab(dev, batches, g, kernels, card, profile: bool):
             pfn = getattr(PARENT[lib_name], launcher)
             pfn.argtypes, pfn.restype = ours[1].argtypes, ctypes.c_int
             swaps[key] = (ours, (PARENT[lib_name], pfn))
-            grids += parent_grid_swaps(lib_name, per_sm)
+            grids += parent_grid_swaps(lib_name, per_sm, name)
         out[label] = _parent_step_turns(dev, batches, g, kernels, card,
                                         profile, label, impl, want, names,
                                         swaps, grids, dtype)

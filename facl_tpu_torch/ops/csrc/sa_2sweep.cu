@@ -19,40 +19,41 @@
 // packed (Lw, Rw) or paired main/aux blocks.
 //
 // Bounds on the card (R = 2,621,440 rows at the main path): fwd_layer and
-// fwd_gram by bytes (they stream 64-wide f32 rows), fwd_pool by f32
-// operations (the recomputed 64x256 product, ~86 GFLOP), bwd2_sweep1 by
-// operations (four dense products, h2 W3, Gram(h2), A3 = dy3^T h2 and q3
-// = D W3^T, 269 GFLOP on the tensor cores: 1.73 ms in 3xTF32, 0.38 ms at
-// bf16 with its CUDA-core passes; dy3 is dense on the main path, ~25 tied
-// rows a routed (group, channel)), bwd2_sweep2 by operations (two 64x64
-// products and C0 + 3 Grams of 64x64 per row, ~190 GFLOP: 2.8 ms on f32
-// CUDA cores, 1.12-1.14 ms in 3xTF32, 0.31 ms on the bf16 tensor cores).
-// Design: sa_pair.cu's persistent blocks over 64-row tiles. B7 keeps its
-// port-time form, register-tiled products on CUDA cores (strict f32) with
-// no copy/compute overlap; B8a, B6 and B8b run their products on the
-// tensor cores in kernels of their own at each dtype (their sections
-// below: the f32 ones in 3xTF32).
+// fwd_gram by bytes (they stream 64-wide f32 rows), fwd_pool by operations
+// (the recomputed 64x256 product, ~86 GFLOP: 0.54 ms in 3xTF32, 0.11 ms
+// at bf16 with its CUDA-core passes, 1.30 ms on f32 CUDA cores),
+// bwd2_sweep1 by operations (four dense products, h2 W3, Gram(h2), A3 =
+// dy3^T h2 and q3 = D W3^T, 269 GFLOP on the tensor cores: 1.73 ms in
+// 3xTF32, 0.38 ms at bf16 with its CUDA-core passes; dy3 is dense on the
+// main path, ~25 tied rows a routed (group, channel)), bwd2_sweep2 by
+// operations (two 64x64 products and C0 + 3 Grams of 64x64 per row, ~190
+// GFLOP: 2.8 ms on f32 CUDA cores, 1.12-1.14 ms in 3xTF32, 0.31 ms on the
+// bf16 tensor cores).
+// Design: sa_pair.cu's persistent blocks over 64-row tiles. B7a and B7b
+// keep their port-time form, register-tiled products on CUDA cores
+// (strict f32) with no copy/compute overlap; B7c, B8a, B6 and B8b run
+// their products on the tensor cores in kernels of their own at each
+// dtype (their sections below: the f32 ones in 3xTF32).
 //
-// bf16 (the template flag BF of B7 and B8a, entry points facl_sa_*_bf16):
-// the row tensors (x, p1, p2, q3, dpooled, pooled) are __nv_bfloat16, the
-// parameters the TPU kernels cast to the compute dtype (W1, b1, W2, W3,
-// b3, M3, gi2, gi3) are rounded to bf16 where they are staged, and the
-// results are rounded (rb) at the TPU kernels' cast points, listed by the
-// bf16 twins of ops/sa_fwd.py and ops/sa_bwd.py. Every product then has
-// two bf16 operands and is exact in f32, so the same f32 FMA chains sum
-// them (B8a, B6 and B8b: the bf16 tensor cores; only the order of the
-// sums differs from the twins), and the per-block float64 partials stay.
-// The ReLU masks are decided on the bf16-rounded h (relu_affine_p,
-// relu_packed); B6's h1 is sa_pair.cu's bf16 h1 bit for bit (h1_pre_bf16,
-// the same k-order chain). In B7 every f32 path is the code it was before
-// the template: the bf16 casts sit in `if constexpr (BF)` branches.
+// bf16 (the template flag BF of B7a, B7b and B8a, entry points
+// facl_sa_*_bf16): the row tensors (x, p1, p2, q3, dpooled, pooled) are
+// __nv_bfloat16, the parameters the TPU kernels cast to the compute dtype
+// (W1, b1, W2, W3, b3, M3, gi2, gi3) are rounded to bf16 where they are
+// staged, and the results are rounded (rb) at the TPU kernels' cast
+// points, listed by the bf16 twins of ops/sa_fwd.py and ops/sa_bwd.py.
+// Every product then has two bf16 operands and is exact in f32, so the
+// same f32 FMA chains sum them (B7c, B8a, B6 and B8b: the bf16 tensor
+// cores; only the order of the sums differs from the twins), and the
+// per-block float64 partials stay. The ReLU masks are decided on the
+// bf16-rounded h (relu_affine_p, relu_packed); B6's h1 is sa_pair.cu's
+// bf16 h1 bit for bit (h1_pre_bf16, the same k-order chain). In B7a and
+// B7b every f32 path is the code it was before the template: the bf16
+// casts sit in `if constexpr (BF)` branches.
 #include <cstdint>
 #include "common.cuh"
 #include "sa_mma.cuh"
 
 namespace {
-
-constexpr int LDZ = C3W + 1;   // padded stride of (TR, 256) tiles
 
 template <bool BF>
 using RowT = typename Row<BF>::T;
@@ -102,51 +103,6 @@ __device__ __forceinline__ void store_tile_p(const float* src, int64_t r0,
   } else {
     store_tile(src, r0, dst);
   }
-}
-
-// z = (h2 W3 + b3) * mul3 + shift3, the layer-3 BatchNorm output before
-// its ReLU, for one tile into zs (TR, LDZ); vec3 = [b3 | mul3 | shift3].
-// The pool sweep (B7c) sums h2 W3 in k order on CUDA cores; the
-// backward's sweep 1 (B8a) recomputes z on the tensor cores in its own
-// order and routes on that recompute, as the JAX backward does
-// (sa_bwd.py:70-91) and as hybrid does after its plain forward: at
-// near-ties of z a hybrid2 backward may route to another row than the
-// one B7c pooled. At BF p3 = bf16(h2 W3) + b3 (b3 staged rounded),
-// summed in f32, and z stays f32 (sa_bwd.py:76-78).
-template <bool BF>
-__device__ __forceinline__ void z_tile(const float* h2s, const float* W3s,
-                                       const float* vec3, float* zs) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[4][16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-  for (int k = 0; k < CW; ++k) {
-    float a[4], bb[16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = h2s[(ty + 16 * i) * LD + k];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) bb[j] = W3s[k * C3W + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = tx + 16 * j;
-      float p3;
-      if constexpr (BF)
-        p3 = __fadd_rn(rb(acc[i][j]), vec3[c]);
-      else
-        p3 = __fadd_rn(acc[i][j], vec3[c]);
-      zs[(ty + 16 * i) * LDZ + c] =
-          __fadd_rn(__fmul_rn(p3, vec3[C3W + c]), vec3[2 * C3W + c]);
-    }
 }
 
 // Per-block sums of a (TR, 64) tile's columns into red[16][64] rows ->
@@ -277,60 +233,6 @@ fwd_gram_kernel(const RowT<BF>* __restrict__ p2, int64_t ntiles,
   }
   write_patch(g, partG + (int64_t)blockIdx.x * CW * CW);
   if (threadIdx.x < CW) partc[(int64_t)blockIdx.x * CW + threadIdx.x] = ch;
-}
-
-// ---------------------------------------------------------------------
-// B7c: per tile, z (z_tile) and the max of relu(z) over each group of
-// `pool` consecutive rows (affine -> ReLU -> max, the JAX order); only
-// pooled (R / pool, 256) reaches device memory. Groups spanning tiles
-// (pool > TR) are walked in order by one block, thread c keeping channel
-// c's running max (NT == C3W).
-// vec = [mul2 | shift2 | b3 | mul3 | shift3]. At BF the affine is rounded
-// to bf16 before the ReLU, and pooled is stored bf16 (sa_fwd.py:127-131).
-template <bool BF>
-__global__ void __launch_bounds__(NT)
-fwd_pool_kernel(const RowT<BF>* __restrict__ p2, int64_t ntiles, int pool,
-                const float* __restrict__ vec, const float* __restrict__ W3,
-                RowT<BF>* __restrict__ pooled) {
-  extern __shared__ float sm[];
-  float* W3s = sm;                      // CW*C3W
-  float* zs = W3s + CW * C3W;           // TR*LDZ
-  float* h2s = zs + TR * LDZ;           // TR*LD
-  float* v = h2s + TR * LD;             // 2*CW + 3*C3W
-
-  copy_vec_p<BF>(W3s, W3, CW * C3W);
-  copy_vec(v, vec, 2 * CW);
-  copy_vec_p<BF>(v + 2 * CW, vec + 2 * CW, C3W);
-  copy_vec(v + 2 * CW + C3W, vec + 2 * CW + C3W, 2 * C3W);
-  __syncthreads();
-
-  const int gpt = pool <= TR ? TR / pool : 1;
-  const int upt = pool <= TR ? 1 : pool / TR;
-  for (int64_t u = blockIdx.x; u < ntiles / upt; u += gridDim.x) {
-    float run = 0.f;
-    for (int j = 0; j < upt; ++j) {
-      const int64_t t = u * upt + j;
-      load_h_tile_p<BF>(p2, t * TR, v, v + CW, h2s);
-      __syncthreads();
-      z_tile<BF>(h2s, W3s, v + 2 * CW, zs);
-      __syncthreads();
-      if (pool <= TR) {
-        for (int e = threadIdx.x; e < gpt * C3W; e += NT) {
-          const int gi = e / C3W, c = e % C3W;
-          float m = 0.f;
-          for (int r = 0; r < pool; ++r)
-            m = fmaxf(m, rb_if<BF>(zs[(gi * pool + r) * LDZ + c]));
-          put(pooled + (t * gpt + gi) * C3W + c, m);
-        }
-      } else {
-        const int c = threadIdx.x;
-        for (int r = 0; r < TR; ++r)
-          run = fmaxf(run, rb_if<BF>(zs[r * LDZ + c]));
-        if (j == upt - 1) put(pooled + u * C3W + c, run);
-      }
-      __syncthreads();
-    }
-  }
 }
 
 // ---------------------------------------------------------------------
@@ -2152,7 +2054,339 @@ bwd2_sweep2_tf32_kernel(const float* __restrict__ x, int64_t N, int64_t R,
   }
 }
 
+// ---------------------------------------------------------------------
+// B7c (facl_sa_fwd_pool, facl_sa_fwd_pool_bf16) on the tensor cores.
+// Replaces sa_fwd.py::_make_pool_sweep (:117, pallas_call :242): h2 =
+// relu(p2 mul2 + shift2), z = (h2 W3 + b3) mul3 + shift3, and the max of
+// relu(z) over each group of `pool` consecutive rows, (R / pool, 256);
+// only the pooled rows reach device memory (the twin: ops/sa_fwd.py::
+// sa_fwd_pool_plain). At BF h2 = relu(bf16(p2 mul2 + shift2)), p3 =
+// bf16(h2 bf16(W3)) + bf16(b3) in f32, z in f32 rounded to bf16 before
+// the ReLU, pooled stored bf16 (sa_fwd_pool_bf16_plain).
+//
+// Bound on the card at the main path: by operations, the 64 x 256
+// product (85.9 GFLOP) and the CUDA-core passes (h2 a row, a max a p3,
+// the affine a group): 0.108 ms at bf16, 0.539 ms in 3xTF32 (1.30 ms on
+// f32 CUDA cores); reading p2 takes 0.106 / 0.213 ms. One kernel,
+// fwd_pool_kernel<BF, LP>, one 512-thread block an SM. p2 tiles arrive
+// by TMA (one bulk copy a 64-row tile, P7::STAGES in flight; p2 16-byte
+// aligned, which the wrapper checks); all threads turn a tile into h2
+// in one of two buffers, so one block barrier a tile suffices (a warp
+// that has finished tile i goes on to tile i + 1's pass while others
+// still read tile i's h2).
+// Warp w then forms p3^T = W3^T h2^T for the channels 16 w.. over the
+// tile's 64 rows (m = channel, n = row), W3^T's fragments held in
+// registers for the whole sweep: lane (g, t) holds channel 16 w + 8 hh +
+// g at rows 8 j + 2 t + e, so a (group, channel)'s rows meet inside one
+// warp, in the lanes of one t group, and its max is reduced from the
+// accumulators there (p7_pool; B2b-bf16's pool_tile_t reduces p3 alike).
+// Only the h2 pass (p7_h2), W3^T's fragments (p7_w3) and the product
+// (p7_p3) differ between the dtypes:
+//   bf16: mma.sync m16n8k16, h2 a bf16 (TR, LDB) tile read by ldmatrix;
+//         four p2 stages (54,816 bytes of shared memory).
+//   f32:  wgmma m64n64k8 in 3xTF32 (tf32_mma.cuh's split): warpgroup W
+//         owns the channels 64 W.. (A = W3^T from registers, its hi and
+//         lo 64 values a thread; B = h2 split into hi and lo tiles as it
+//         is made, in s2t_core's K-major layout), the eight k8 steps'
+//         three passes (lo hi' + hi lo' + hi hi') chained in the tensor
+//         cores, as B2b's and B8a's mma3 chains; three p2 stages (118,296
+//         bytes).
+// The layer-3 affine, the roundings and the ReLU are applied to a group's
+// extreme p3 alone: each is monotone in p3 (non-decreasing, or
+// non-increasing where mul3 < 0), so the group's max of relu(y) is relu(y)
+// of its largest p3 (of its smallest where mul3 < 0), the twin's value
+// bit for bit for the same p3. W3's column is negated where mul3 < 0, so
+// every channel takes a max, one FMNMX a value (the products are exact
+// negations, and the tensor cores' sums, which truncate, are the negated
+// sums: chip_ablate.py b7c holds this build bit-equal to one that takes a
+// min there instead). A group spanning tiles (pool = upt TR) is walked
+// in order by one block, its running max in registers. At bf16 p3's
+// sums are B8a-bf16's (the same m16n8k16 steps on the same bf16
+// operands), so B8a routes on the z whose max B7c pooled; at f32 B8a
+// sums on mma.sync in its own order.
+constexpr int P7_NT = 512;                      // 16 warps
+constexpr uint32_t P7_FULL = 0xffffffffu;
+
+// Shared memory of B7c's block (bytes): STAGES p2 tiles | two h2 buffers
+// (bf16: a (TR, LDB) tile; f32: hi and lo core tiles) | vec | mbarriers.
+template <bool BF>
+struct P7 {
+  static constexpr int STAGES = BF ? 4 : 3;
+  static constexpr size_t STAGE = TR * CW * (BF ? 2 : 4);
+  static constexpr size_t HBUF = BF ? TR * LDB * 2 : 2 * TR * CW * 4;
+  static constexpr size_t H = STAGES * STAGE;
+  static constexpr size_t V = H + 2 * HBUF;
+  static constexpr size_t BARS = V + (2 * CW + 3 * C3W) * 4;
+  static constexpr size_t TOTAL = BARS + STAGES * 8;
+};
+
+// A block's walk over its tiles in order: whole units of upt tiles (a
+// pool group spanning tiles stays with one block), units strided over the
+// grid; tile = unit upt + j, advanced without a division.
+struct P7Walk {
+  int64_t unit;
+  int j;
+  __device__ __forceinline__ int64_t tile(int upt) const {
+    return unit * upt + j;
+  }
+  __device__ __forceinline__ void next(int upt) {
+    if (++j == upt) {
+      j = 0;
+      unit += gridDim.x;
+    }
+  }
+};
+
+// The group maxima of one tile from p3^T's accumulators c (lane (g, t):
+// channel n0 + 8 hh + g at the tile's rows 8 j + 2 t + e in c[4 j + 2 hh
+// + e], W3's column negated where neg[hh]) -> pooled. A group of 2^LP rows
+// spans JS of a lane's j and ES of its e, and the low TB bits of t: its
+// max over the lane's values (a tree), then over those lanes. pool > TR
+// (upt > 1, LP == 6): the unit's tile w.j merges its max into the running
+// max run[hh], stored at the unit's last tile. vp = [b3 | mul3 | shift3]
+// (b3 rounded at BF).
+template <bool BF, int LP>
+__device__ __forceinline__ void p7_pool(const float (&c)[32], int n0,
+                                        int lane, const bool neg[2],
+                                        const float* vp, const P7Walk& w,
+                                        int upt, float run[2],
+                                        RowT<BF>* __restrict__ pooled) {
+  constexpr int JS = LP > 3 ? 1 << (LP - 3) : 1;
+  constexpr int ES = LP > 0 ? 2 : 1;
+  constexpr int TB = LP > 2 ? 2 : (LP > 1 ? 1 : 0);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int ch = n0 + 8 * hh + g;
+#pragma unroll
+    for (int j0 = 0; j0 < 8; j0 += JS)
+#pragma unroll
+      for (int e0 = 0; e0 < 2; e0 += ES) {
+        float a[JS];
+#pragma unroll
+        for (int jj = 0; jj < JS; ++jj) {
+          const float* cj = c + 4 * (j0 + jj) + 2 * hh + e0;
+          a[jj] = ES == 2 ? fmaxf(cj[0], cj[1]) : cj[0];
+        }
+#pragma unroll
+        for (int sp = 1; sp < JS; sp *= 2)
+#pragma unroll
+          for (int jj = 0; jj < JS; jj += 2 * sp)
+            a[jj] = fmaxf(a[jj], a[jj + sp]);
+        float m = a[0];
+#pragma unroll
+        for (int b = 0; b < TB; ++b)
+          m = fmaxf(m, __shfl_xor_sync(P7_FULL, m, 1 << b));
+        int64_t o;
+        if (upt > 1) {
+          run[hh] = w.j == 0 ? m : fmaxf(run[hh], m);
+          if (w.j != upt - 1) continue;
+          m = run[hh];
+          o = w.unit * C3W + ch;
+        } else {
+          o = (w.unit * (TR >> LP) + ((8 * j0 + 2 * t + e0) >> LP)) * C3W +
+              ch;
+        }
+        if ((t & ((1 << TB) - 1)) != 0) continue;
+        const float p = rb_if<BF>(neg[hh] ? -m : m);     // p3's extreme
+        const float y = rb_if<BF>(__fadd_rn(
+            __fmul_rn(__fadd_rn(p, vp[ch]), vp[C3W + ch]), vp[2 * C3W + ch]));
+        put(pooled + o, fmaxf(y, 0.f));
+      }
+  }
+}
+
+// The number of tiles the block walks.
+__device__ __forceinline__ int64_t p7_count(int64_t ntiles, int upt) {
+  const int64_t units = ntiles / upt;
+  return units > blockIdx.x
+             ? ((units - 1 - blockIdx.x) / gridDim.x + 1) * upt
+             : 0;
+}
+
+// vec = [mul2 | shift2 | b3 | mul3 | shift3] -> v (b3 rounded at BF); neg:
+// mul3 < 0 at the warp's channels n0 + g (+ 8).
+template <bool BF>
+__device__ __forceinline__ void p7_vec(const float* __restrict__ vec,
+                                       float* v, int n0, int g,
+                                       bool neg[2]) {
+  for (int i = threadIdx.x; i < 2 * CW + 3 * C3W; i += P7_NT)
+    v[i] = BF && i >= 2 * CW && i < 2 * CW + C3W ? rb(vec[i]) : vec[i];
+  neg[0] = __float_as_uint(vec[2 * CW + C3W + n0 + g]) >> 31;
+  neg[1] = __float_as_uint(vec[2 * CW + C3W + n0 + 8 + g]) >> 31;
+}
+
+// h2 = relu(p2 mul2 + shift2) of a staged (TR, CW) f32 tile S, split into
+// the hi and lo core tiles (s2t_core(row, k)), four values a step: the
+// eight lanes of a phase take eight rows and eight column quads, so both
+// the staged reads and the core-tile writes are free of bank conflicts.
+__device__ __forceinline__ void p7_h2_split(const float* S, const float* v,
+                                            float* hi, float* lo) {
+  for (int e = threadIdx.x; e < TR * CW / 4; e += P7_NT) {
+    const int i = e & 7;
+    const int r = 8 * (e >> 7) + i;
+    const int k = 4 * (8 * ((e >> 6) & 1) + ((i + (e >> 3)) & 7));
+    const float4 p = *reinterpret_cast<const float4*>(S + r * CW + k);
+    store_split4(hi, lo, s2t_core(r, k), relu4(p, v, v + CW, k));
+  }
+}
+
+// h2 of a staged p2 tile S -> the h2 buffer hb (bf16: a (TR, LDB) tile;
+// f32: the hi and lo core tiles); v = [mul2 | shift2].
+template <bool BF>
+__device__ __forceinline__ void p7_h2(const RowT<BF>* S, const float* v,
+                                      unsigned char* hb) {
+  if constexpr (BF) {
+    relu_rows_bf16(S, v, reinterpret_cast<__nv_bfloat16*>(hb), threadIdx.x,
+                   P7_NT);
+  } else {
+    float* hi = reinterpret_cast<float*>(hb);
+    p7_h2_split(S, v, hi, hi + TR * CW);
+    fence_async_smem();                 // h2: read by wgmma
+  }
+}
+
+// W3^T's A fragments of the warp's channels n0.. (lane (g, t)), held for
+// the whole sweep, a column negated where its mul3 < 0 (neg): bf16(W3)^T
+// for m16n8k16 (k step kk), or W3^T split for m16n8k8's layout (k8 step
+// kb).
+template <bool BF>
+struct P7A;
+template <>
+struct P7A<true> {
+  uint32_t a[4][4];
+};
+template <>
+struct P7A<false> {
+  S2TA a[8];
+};
+
+template <bool BF>
+__device__ __forceinline__ P7A<BF> p7_w3(const float* __restrict__ W3,
+                                         int n0, int g, int t,
+                                         const bool neg[2]) {
+  const uint32_t sb = BF ? 0x80008000u : 0x80000000u;   // sign bits
+  const uint32_t na = neg[0] ? sb : 0u, nb = neg[1] ? sb : 0u;
+  P7A<BF> wa;
+  if constexpr (BF) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* w = W3 + (16 * kk + 2 * t) * C3W + n0 + g;
+      wa.a[kk][0] = pack_bf16(w[0], w[C3W]) ^ na;
+      wa.a[kk][1] = pack_bf16(w[8], w[C3W + 8]) ^ nb;
+      wa.a[kk][2] = pack_bf16(w[8 * C3W], w[9 * C3W]) ^ na;
+      wa.a[kk][3] = pack_bf16(w[8 * C3W + 8], w[9 * C3W + 8]) ^ nb;
+    }
+  } else {
+#pragma unroll
+    for (int kb = 0; kb < 8; ++kb) {
+      const float* w = W3 + (8 * kb + t) * C3W + n0 + g;
+      wa.a[kb] = s2t_a(w[0], w[8], w[4 * C3W], w[4 * C3W + 8]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        wa.a[kb].hi[q] ^= q & 1 ? nb : na;
+        wa.a[kb].lo[q] ^= q & 1 ? nb : na;
+      }
+    }
+  }
+  return wa;
+}
+
+// p3^T = W3^T h2^T of the warp's channels over the tile's rows from the
+// h2 buffer hb -> c (lane (g, t): channel n0 + 8 hh + g, row 8 j + 2 t +
+// e in c[4 j + 2 hh + e]). bf16: mma.sync m16n8k16, h2 by ldmatrix; f32:
+// warpgroup W's wgmma m64n64k8 over its channels 64 W.., the eight k8
+// steps' three passes (lo hi' + hi lo' + hi hi') chained.
+template <bool BF>
+__device__ __forceinline__ void p7_p3(const P7A<BF>& wa,
+                                      const unsigned char* hb, int lane,
+                                      float (&c)[32]) {
+#pragma unroll
+  for (int q = 0; q < 32; ++q) c[q] = 0.f;
+  if constexpr (BF) {
+    const __nv_bfloat16* H = reinterpret_cast<const __nv_bfloat16*>(hb);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm4(b, b_cols_at(H, 16 * np, 16 * kk, lane));
+        mma_bf16(c + 8 * np, wa.a[kk], b[0], b[1]);
+        mma_bf16(c + 8 * np + 4, wa.a[kk], b[2], b[3]);
+      }
+  } else {
+    const float* hi = reinterpret_cast<const float*>(hb);
+    const uint64_t dh = wgmma_desc(hi, S2T_LBO, S2T_SBO);
+    const uint64_t dl = wgmma_desc(hi + TR * CW, S2T_LBO, S2T_SBO);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < 8; ++kb) {
+      s2t_wg64(c, wa.a[kb].lo, dh + 16 * kb, kb > 0);
+      s2t_wg64(c, wa.a[kb].hi, dl + 16 * kb, 1);
+      s2t_wg64(c, wa.a[kb].hi, dh + 16 * kb, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int q = 0; q < 32; ++q) pin(c[q]);
+  }
+}
+
+template <bool BF, int LP>
+__global__ void __launch_bounds__(P7_NT, 1)
+fwd_pool_kernel(const RowT<BF>* __restrict__ p2, int64_t ntiles, int upt,
+                const float* __restrict__ vec, const float* __restrict__ W3,
+                RowT<BF>* __restrict__ pooled) {
+  using L = P7<BF>;
+  extern __shared__ __align__(1024) unsigned char smp[];
+  RowT<BF>* stage = reinterpret_cast<RowT<BF>*>(smp);
+  float* v = reinterpret_cast<float*>(smp + L::V);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smp + L::BARS);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = 16 * warp;             // f32: 64 (warp / 4) + 16 (warp % 4)
+  const int64_t count = p7_count(ntiles, upt);
+  P7Walk fetched{blockIdx.x, 0}, walk{blockIdx.x, 0};
+  auto fetch = [&](int64_t i) {               // thread 0: one bulk copy
+    uint64_t* bar = &bars[i % L::STAGES];
+    mbar_expect(bar, static_cast<uint32_t>(L::STAGE));
+    bulk_load(stage + (i % L::STAGES) * TR * CW,
+              p2 + fetched.tile(upt) * TR * CW,
+              static_cast<uint32_t>(L::STAGE), bar);
+    fetched.next(upt);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) mbar_init(&bars[s]);
+    for (int64_t i = 0; i < L::STAGES && i < count; ++i) fetch(i);
+  }
+  bool neg[2];
+  p7_vec<BF>(vec, v, n0, g, neg);
+  const P7A<BF> wa = p7_w3<BF>(W3, n0, g, t, neg);
+  __syncthreads();
+
+  float run[2] = {0.f, 0.f};
+  for (int64_t i = 0; i < count; ++i) {
+    unsigned char* hb = smp + L::H + (i & 1) * L::HBUF;
+    mbar_wait(&bars[i % L::STAGES],
+              static_cast<uint32_t>((i / L::STAGES) & 1));
+    p7_h2<BF>(stage + (i % L::STAGES) * TR * CW, v, hb);
+    __syncthreads();
+    if (threadIdx.x == 0 && i + L::STAGES < count) fetch(i + L::STAGES);
+
+    float c[32];
+    p7_p3<BF>(wa, hb, lane, c);
+    p7_pool<BF, LP>(c, n0, lane, neg, v + 2 * CW, walk, upt, run, pooled);
+    walk.next(upt);
+  }
+}
+
 // -- launchers ---------------------------------------------------------
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 
 template <bool BF>
 int launch_fwd_layer(const RowT<BF>* in, int64_t R, int cin, int affine,
@@ -2179,18 +2413,40 @@ int launch_fwd_gram(const RowT<BF>* p2, int64_t R, const float* vec2,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool BF, int LP>
+int launch_fwd_pool_lp(const RowT<BF>* p2, int64_t R, int upt,
+                       const float* vec, const float* W3, RowT<BF>* pooled,
+                       int nblk, cudaStream_t st) {
+  const size_t smem = P7<BF>::TOTAL;
+  cudaError_t e = prepare(fwd_pool_kernel<BF, LP>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fwd_pool_kernel<BF, LP><<<nblk, P7_NT, smem, st>>>(p2, R / TR, upt, vec, W3,
+                                                      pooled);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B7c: LP = log2(min(pool, TR)); a pool > TR spans upt = pool / TR tiles.
+// One 512-thread block an SM (nblk); p2 16-byte aligned (TMA bulk copies).
 template <bool BF>
 int launch_fwd_pool(const RowT<BF>* p2, int64_t R, int pool, const float* vec,
                     const float* W3, RowT<BF>* pooled, int nblk,
                     void* stream) {
-  if (bad_pool(R, pool)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (CW * C3W + TR * LDZ + TR * LD +
-                                       2 * CW + 3 * C3W);
-  cudaError_t e = prepare(fwd_pool_kernel<BF>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  fwd_pool_kernel<BF><<<nblk, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      p2, R / TR, pool, vec, W3, pooled);
-  return static_cast<int>(cudaGetLastError());
+  if (bad_pool(R, pool) || nblk < 1 || !aligned16(p2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int upt = pool <= TR ? 1 : pool / TR;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define P7_LAUNCH(LP) \
+  return launch_fwd_pool_lp<BF, LP>(p2, R, upt, vec, W3, pooled, nblk, st)
+  switch (pool <= TR ? pool : TR) {
+    case 1: P7_LAUNCH(0);
+    case 2: P7_LAUNCH(1);
+    case 4: P7_LAUNCH(2);
+    case 8: P7_LAUNCH(3);
+    case 16: P7_LAUNCH(4);
+    case 32: P7_LAUNCH(5);
+    default: P7_LAUNCH(6);
+  }
+#undef P7_LAUNCH
 }
 
 template <bool BF, int LP>
@@ -2245,10 +2501,6 @@ int launch_s2f(const __nv_bfloat16* x, int64_t N, int64_t R, int xmode,
       x, N, R, xmode, p1, W1, vec, p2, q3, M3, W2, partM, partV, partX,
       partU);
   return static_cast<int>(cudaGetLastError());
-}
-
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <int C0, bool FROM_X>

@@ -23,12 +23,15 @@ as the JAX side forces Precision.HIGHEST.
 Pool ties follow this kernel's rule (sa_bwd.py:70-91), not pair3's: the
 max is taken on the sweep's own recomputed f32 relu(z), and dpooled is
 split evenly among exact ties where z > 0. B8a recomputes p3 on the
-tensor cores in its own order (the forward's comes from a cuBLAS product
-in ``hybrid``, from B7c's k-order CUDA-core sums in ``hybrid2``), so at
-near-ties the backward may route to another row than the one the forward
-pooled — as in JAX (sa_bwd.py:30-35). Its wrapper launches one 512-thread
-block an SM and takes a 16-byte aligned p2 (its tiles arrive by TMA bulk
-copies). B8b at f32 (also B6's, ops/sa_pair.py) runs its products on the
+tensor cores and routes on that recompute, as JAX does (sa_bwd.py:30-35).
+The forward's p3 comes from a cuBLAS product in ``hybrid`` and from B7c's
+tensor-core sums in ``hybrid2``: at bf16 B7c sums h2 bf16(W3) in B8a's
+own m16n8k16 steps, so both reduce the same sums (B7c's negated where
+mul3 < 0, which chip_ablate.py b7c holds bit-equal to the sums negated);
+at f32 B7c chains wgmma in 3xTF32 and B8a mma.sync, so at near-ties
+of z the backward may route to another row than the one the forward
+pooled. B8a's wrapper launches one 512-thread block an SM and takes a
+16-byte aligned p2 (its tiles arrive by TMA bulk copies). B8b at f32 (also B6's, ops/sa_pair.py) runs its products on the
 TF32 tensor cores in 3xTF32 (wgmma), one 512-thread block an SM over
 64-row steps; its f32 sums, each k8 step of rows added round-to-nearest,
 go to the float64 partials every 128 steps, so only the order of the sums

@@ -14,10 +14,18 @@ p1 and p2 are the residuals the two-sweep backward (ops/sa_bwd.py, B8)
 reads. Each sweep has a CUDA kernel (``csrc/sa_2sweep.cu``) and a plain
 PyTorch twin; a CPU tensor takes the twin, a CUDA tensor launches the
 kernel or raises, and each wrapper counts its launches. At compute_dtype
-bfloat16 (``dtype=torch.bfloat16``) the three sweeps have bf16
-instantiations (``sa_fwd_layer_bf16``, ``sa_fwd_gram_bf16``,
-``sa_fwd_pool_bf16``) that store p1, p2 and the pooled rows in bf16; the
-moment finalizes stay f32, as XLA keeps them outside Pallas.
+bfloat16 (``dtype=torch.bfloat16``) the three sweeps have bf16 kernels
+(``sa_fwd_layer_bf16``, ``sa_fwd_gram_bf16``, ``sa_fwd_pool_bf16``) that
+store p1, p2 and the pooled rows in bf16; the moment finalizes stay f32,
+as XLA keeps them outside Pallas.
+
+B7a and B7b run their products on CUDA cores. B7c runs h2 W3 on the
+tensor cores (mma.sync at bf16, wgmma in 3xTF32 at f32), one 512-thread
+block an SM, its p2 tiles staged by TMA bulk copies (so p2 must be
+16-byte aligned; the wrapper raises otherwise), and reduces each group's
+max from the accumulators before the layer-3 affine, roundings and ReLU,
+which are monotone in p3: only the order of the f32 sums differs from
+the twin's.
 
 Input cotangent contract: ZERO, as for ``sa_train_hybrid``.
 """
@@ -28,7 +36,8 @@ from typing import Sequence, Tuple
 import torch
 
 from facl_tpu_torch.ops._launch import I, L, P, TILE, TRUNK, check_c0, \
-    check_pool, entry, grid, launch, need, on_cpu, ptr, reduce, stream_of
+    check_pool, entry, grid, launch, need, need_aligned, on_cpu, ptr, \
+    reduce, stream_of
 from facl_tpu_torch.ops.fused_sa import SALayerParams
 from facl_tpu_torch.ops.sa_bwd import BF16, _fold_affine, _h_bf16, \
     _h_from_p, _rb, _z_bf16, two_sweep_train
@@ -163,7 +172,9 @@ def _pool(p2, mul2, shift2, w3, b3, mul3, shift3, pool, dt):
     need(w3, (C2, C3), "w3")
     vec = torch.cat([mul2, shift2, b3, mul3, shift3]).contiguous()
     need(vec, (2 * C2 + 3 * C3,), "mul2|shift2|b3|mul3|shift3")
-    nblk = grid(p2, R)
+    need_aligned(p2, "p2")
+    nblk = grid(p2, R, per_sm=1)      # one 512-thread block an SM: its
+                                      # registers leave room for no second
     pooled = torch.empty((R // pool, C3), dtype=dt, device=p2.device)
     launch("sa_2sweep", entry("fwd_pool", dt), [P, L, I, P, P, P, I, P],
            ptr(p2), R, pool, ptr(vec), ptr(w3), ptr(pooled), nblk,
@@ -191,7 +202,8 @@ def sa_fwd_gram(p2, mul2, shift2):
 
 
 def sa_fwd_pool(p2, mul2, shift2, w3, b3, mul3, shift3, pool: int):
-    """B7c. -> pooled (R // pool, 256)."""
+    """B7c. -> pooled (R // pool, 256). On the card p2 must be 16-byte
+    aligned."""
     if on_cpu(p2):
         return sa_fwd_pool_plain(p2, mul2, shift2, w3, b3, mul3, shift3,
                                  pool)
@@ -220,7 +232,8 @@ def sa_fwd_gram_bf16(p2, mul2, shift2):
 
 
 def sa_fwd_pool_bf16(p2, mul2, shift2, w3, b3, mul3, shift3, pool: int):
-    """B7c at bf16: p2 bf16 -> pooled (R // pool, 256) bf16."""
+    """B7c at bf16: p2 bf16 -> pooled (R // pool, 256) bf16. On the card
+    p2 must be 16-byte aligned."""
     if on_cpu(p2):
         return sa_fwd_pool_bf16_plain(p2, mul2, shift2, w3, b3, mul3, shift3,
                                       pool)
