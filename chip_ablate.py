@@ -55,6 +55,10 @@ time on the card.
     python3 chip_ablate.py b8a              # B8a (sa_bwd2_sweep1) at bf16
                                             # and f32 with one part cut at
                                             # a time (B8A_CUTS), in turns
+    python3 chip_ablate.py b7a              # B7a (sa_fwd_layer) at bf16 and
+                                            # f32, both call shapes, with
+                                            # one part cut at a time
+                                            # (B7A_CUTS), in turns
     python3 chip_ablate.py b7c              # B7c (sa_fwd_pool) at bf16 and
                                             # f32 with one part cut at a
                                             # time (B7C_CUTS), in turns;
@@ -1149,6 +1153,124 @@ B8A_CUTS = {
 }
 
 
+#: b7a: sa_layer.cu's B7a (layer_x_kernel<BF, C0>, layer_p_bf16_kernel,
+#: layer_p_f32_kernel) with one part cut at a time: name -> (calls made
+#: void, text replacements). "without the product" keeps the operands'
+#: loads but adds them instead of multiplying them into the accumulators
+#: (no mma.sync, a fifth of the FMAs); "without the sums" drops the sums of
+#: p and p^2 and their shuffles; "without the h1 pass" takes p1 as h1;
+#: "loads and stores only" drops all three. A stage more does not fit the
+#: p1 -> p2 kernels' shared memory at 16 warps: they run with a stage
+#: fewer, x -> p1 with two more. A trial form: 8 warps a block (the grid
+#: still one block an SM).
+B7A_SECTION = ("// B7a: the layer sweep", "// -- launchers")
+B7A_NOPRODUCT = (
+    ("        for (int k = 0; k < C0; ++k) acc = fmaf(xr[k], w[k][c], acc);",
+     "        acc = xr[c % C0] + w[c % C0][c];"),
+    ("          mma_bf16(c[s][2 * np], a[s], b[0], b[1]);\n"
+     "          mma_bf16(c[s][2 * np + 1], a[s], b[2], b[3]);",
+     "          c[s][2 * np][0] += __uint_as_float((a[s][0] ^ b[0]) & "
+     "0x3f7fffffu);\n"
+     "          c[s][2 * np + 1][0] += __uint_as_float((a[s][1] ^ b[2]) & "
+     "0x3f7fffffu);"),
+    ("          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(hv, wv[c], "
+     "acc[r][c]);",
+     "          acc[r][kq] += hv + wv[2 * kq + (r & 1)];"))
+B7A_NOSUMS = (("    float v[2 * NC];", "    float v[2 * NC] = {};"),
+              ("    float vs[32];", "    float vs[32] = {};"),
+              ("    float v[16];", "    float v[16] = {};"))
+B7A_NOH1 = (
+    ("          a[s][q] = __vmaxs2(pack_bf16(__fadd_rn(__fmul_rn(u.x, m.x), "
+     "sh.x),\n"
+     "                                       __fadd_rn(__fmul_rn(u.y, m.y), "
+     "sh.y)),\n"
+     "                             0u);", ""),
+    ("      u.x = relu_affine(u.x, m1.x, s1.x);\n"
+     "      u.y = relu_affine(u.y, m1.y, s1.y);\n"
+     "      u.z = relu_affine(u.z, m1.z, s1.z);\n"
+     "      u.w = relu_affine(u.w, m1.w, s1.w);\n", ""))
+B7A_CUTS = {
+    "b7a": ((), ()),
+    "b7a without the product": ((), B7A_NOPRODUCT),
+    "b7a without the sums": (("add_sums", "halve"), B7A_NOSUMS),
+    "b7a without the h1 pass": ((), B7A_NOH1),
+    "b7a loads and stores only": (("add_sums", "halve"),
+                                  B7A_NOPRODUCT + B7A_NOSUMS + B7A_NOH1),
+    "b7a with a stage fewer / two more": ((), (
+        ("constexpr int LY_STAGES = 3;", "constexpr int LY_STAGES = 2;"),
+        ("constexpr int LX_STAGES = 4;", "constexpr int LX_STAGES = 6;"))),
+    "b7a at 8 warps a block": ((), (("constexpr int LY_NT = 512;",
+                                      "constexpr int LY_NT = 256;"),)),
+}
+
+
+def b7a(cs, out_dir) -> None:
+    """B7a's four forms (x -> p1 at C0 = 4 and p1 -> p2, bf16 and f32) on
+    a main-path shape (640 clouds x 4,096 rows; randn x, p1 with a third
+    of h1 zero) with each B7A_CUTS build, twice, in turns. A cut variant's
+    outputs are wrong by design; only its time is read. The full build's
+    and the stage variant's outputs are held against the twins (f32: the
+    largest |kernel - twin| over phase 2's bar, rtol 1e-5 / atol 1e-5 x
+    scale; bf16: entries beyond one bf16 ulp), and each build's ptxas use
+    of the four kernels printed."""
+    from facl_tpu_torch.ops import sa_fwd as SF
+    libs, ptxas = build_cuts(out_dir, "sa_layer", B7A_SECTION, B7A_CUTS,
+                             "b7a", {"layer_x_kernelILb1ELi4E": "x bf16",
+                                     "layer_x_kernelILb0ELi4E": "x f32",
+                                     "layer_p_bf16_kernel": "p bf16",
+                                     "layer_p_f32_kernel": "p f32"})
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def r(*shape, sc=1.0):
+        return sc * torch.randn(*shape, device=dev, generator=g)
+    R = 640 * 4096
+    x, p1 = r(R, 4), r(R, 64, sc=2.0) + 0.5
+    mul1 = 1.0 + r(64, sc=0.2)
+    w1, b1, w2, b2 = r(4, 64, sc=0.5), r(64, sc=0.1), r(64, 64, sc=0.125), \
+        r(64, sc=0.1)
+    runs = {}
+    for dt, fn in (("bf16", SF.sa_fwd_layer_bf16), ("f32", SF.sa_fwd_layer)):
+        cast = (lambda t: t.to(torch.bfloat16)) if dt == "bf16" else \
+            (lambda t: t)
+        runs[f"{dt} x->p1"] = (fn, (cast(x), w1, b1))
+        runs[f"{dt} p1->p2"] = (fn, (cast(p1), w2, b2, mul1, -0.5 * mul1))
+    for fn, args in runs.values():
+        fn(*args)                         # resolves this tree's launchers
+    checked = {}
+    for name in ("b7a", "b7a with a stage fewer / two more"):
+        for key, (fn, args) in runs.items():
+            with using_lib(("sa_layer", "facl_" + fn.__name__), libs[name]):
+                k = fn(*args)[0]
+            t = getattr(SF, fn.__name__ + "_plain")(*args)[0]
+            if key.startswith("bf16"):
+                a, b = k.float(), t.float()
+                checked[f"{name}, {key}"] = int(((a - b).abs() > cs.bf16_ulp(
+                    torch.maximum(a.abs(), b.abs()))).sum())
+            else:
+                bar = 1e-5 * t.abs() + 1e-5 * t.abs().max()
+                checked[f"{name}, {key}"] = float(((k - t).abs() / bar).max())
+            del k, t
+    times = {name: {key: [] for key in runs} for name in libs}
+    for _ in range(2):
+        for name, lib in libs.items():
+            for key, (fn, args) in runs.items():
+                with using_lib(("sa_layer", "facl_" + fn.__name__), lib):
+                    times[name][key].append(
+                        cs.device_ms(lambda: fn(*args))[0])
+    gpu = cs.gpu_name_power()
+    for name, by in times.items():
+        print(f"{name}: " + ", ".join(
+            f"{key} {a:.4f} / {b:.4f}" for key, (a, b) in by.items())
+            + f" ms on the device ({gpu}); ptxas {ptxas[name]}", flush=True)
+    for name, v in checked.items():
+        print(f"{name} against its twin: " + (
+            f"{v} entries beyond one bf16 ulp" if " bf16 " in f" {name}"
+            else f"largest |kernel - twin| {v:.3f} of the bar"), flush=True)
+    print(json.dumps({"b7a": times, "checked": checked, "ptxas": ptxas,
+                      "gpu": gpu}))
+
+
 def b8a(cs, out_dir) -> None:
     """B8a at bf16 and f32 on a main-path shape (640 clouds x 4,096 rows,
     pool 64; randn p2 with each group's last half a copy of its first row,
@@ -1864,6 +1986,9 @@ def main() -> None:
         return
     if only == ("b7c",):
         b7c(cs, out_dir)
+        return
+    if only == ("b7a",):
+        b7a(cs, out_dir)
         return
     if only == ("b8b",):
         b8b(cs, out_dir)

@@ -6,11 +6,16 @@ every hand-written kernel against its plain PyTorch twin.
     python3 chip_smoke.py --profile   # + a torch.profiler breakdown of
                                       #   one main-path step
     python3 chip_smoke.py --parent DIR  # + B1, B2a, B2b, B3a, B3b, B3c
-                                        #   and the f32 B7a and B7b of the
-                                        #   tree in DIR (a git archive of
-                                        #   another commit) timed against
-                                        #   this tree's, in turns, their
-                                        #   outputs bit-equal; the f32
+                                        #   and the f32 B7b of the tree in
+                                        #   DIR (a git archive of another
+                                        #   commit) timed against this
+                                        #   tree's, in turns, their outputs
+                                        #   bit-equal; B7a at both dtypes
+                                        #   and shapes (layer_vs_parent: p1
+                                        #   and the f32 p2 bit-equal, the
+                                        #   bf16 p2 within phase 2's bf16
+                                        #   bar, the sums within phase 2's
+                                        #   accumulator bars); the f32
                                         #   B6, B7c, B8a, B8b and B9 alike,
                                         #   within phase 2's f32 bars of
                                         #   the parent's
@@ -23,7 +28,7 @@ every hand-written kernel against its plain PyTorch twin.
                                         #   bars, b9_bf16_vs_parent), each
                                         #   at its wrapper's grid; and the
                                         #   hybrid2 f32 and bf16 steps with
-                                        #   the parent's B7c, in turns
+                                        #   the parent's B7a, in turns
                                         #   (with --profile, three profiled
                                         #   steps of each turn)
 
@@ -56,9 +61,10 @@ Phases (any failure exits nonzero, before the final line):
              (tensor cores, 6xTF32), B2b, B3b, B3c, B6, B7c, B8a and B8b
              (3xTF32) print two bounds:
              the tensor-core one (bound_ms) and the f32 CUDA-core one
-             (bound_f32_ms). B2a, B2b, B3a-B3c, B6, B7c, B8a and B8b are
-             run to run bit-identical; B2b and B3a-B3c are checked again on the fine
-             variant's K = 128. Then
+             (bound_f32_ms); B7a its bytes' and its operations'
+             (bound_ops_ms). B2a, B2b, B3a-B3c, B6, B7a, B7c, B8a and
+             B8b are run to run bit-identical; B2b and B3a-B3c are
+             checked again on the fine variant's K = 128. Then
              the five bf16 sweeps (B2a-B3c at compute_dtype bfloat16)
              against their bf16 twins on the same card tensors: bf16
              outputs within one bf16 ulp but at counted flips (at most
@@ -108,7 +114,7 @@ Phases (any failure exits nonzero, before the final line):
              time (kernel_ms: user annotations left out) over that step's
              own span gives the device's idle share; with --parent the
              hybrid2 f32 and bf16 steps run again, 20 steps each in turns
-             with the parent's B7c and with this tree's
+             with the parent's B7a and with this tree's
              (parent_step_ab, PARENT_STEPS; --profile: three profiled
              steps each);
   5. input   d(loss)/d(points) through each grouping route and the
@@ -593,6 +599,7 @@ def sa_chain_vs_f64(x3, layers, dpooled, pool, impl="pair3", dtype=None):
 
 
 SRC2 = "facl_tpu_torch/ops/csrc/sa_2sweep.cu"
+SRC_LAYER = "facl_tpu_torch/ops/csrc/sa_layer.cu"      # B7a
 #: The SA impls with kernels, in the order the main phase drives them.
 IMPLS = ("pair3", "pair", "hybrid2", "hybrid")
 
@@ -689,31 +696,35 @@ def two_sweep_rows(x3, layers, dpooled, K):
     rows = []
 
     def add(name, args, err, nbytes, ops, fn, replaces, tc_ops=0,
-            exact_ops=0):
+            exact_ops=0, source=SRC2):
         rows.append(dict(name=name, args=args, err=err, nbytes=nbytes,
                          ops=ops, tc_ops=tc_ops, exact_ops=exact_ops, fn=fn,
                          plain=getattr(SF if fn in SF.KERNELS else SB,
                                        fn.__name__ + "_plain"),
-                         source=SRC2, replaces=replaces))
+                         source=source, replaces=replaces))
+
+    def layer(args, name):
+        """B7a against its twin; two runs bit-identical."""
+        k = SF.sa_fwd_layer(*args)
+        check(all(torch.equal(a, b) for a, b in
+                  zip(k, SF.sa_fwd_layer(*args))), f"{name}: two runs differ")
+        t = SF.sa_fwd_layer_plain(*args)
+        return t, max(row_err(k[0], t[0], f"{name} p"),
+                      acc_err(k[1], t[1], f"{name} s"),
+                      acc_err(k[2], t[2], f"{name} ss"))
 
     a1 = (xr, lp1.kernel, lp1.bias)
-    p1, s1, ss1 = SF.sa_fwd_layer_plain(*a1)
-    k = SF.sa_fwd_layer(*a1)
-    add("sa_fwd_layer (x->p1)", a1,
-        max(row_err(k[0], p1, "B7a p1"), acc_err(k[1], s1, "B7a s1"),
-            acc_err(k[2], ss1, "B7a ss1")),
-        R * (C0 + C1) * 4, R * (2 * C0 * C1 + 4 * C1), SF.sa_fwd_layer,
-        "facl_tpu/ops/pallas/sa_fwd.py:189")
+    (p1, s1, ss1), e = layer(a1, "B7a x->p1")
+    add("sa_fwd_layer (x->p1)", a1, e, R * (C0 + C1) * 4,
+        R * (2 * C0 * C1 + 4 * C1), SF.sa_fwd_layer,
+        "facl_tpu/ops/pallas/sa_fwd.py:189", source=SRC_LAYER)
     m1, v1 = SF._finalize(s1, ss1, R)
     mul1, shift1 = _fold_affine(lp1, m1, v1, eps)
     a2 = (p1, lp2.kernel, lp2.bias, mul1, shift1)
-    p2, s2, ss2 = SF.sa_fwd_layer_plain(*a2)
-    k = SF.sa_fwd_layer(*a2)
-    add("sa_fwd_layer (p1->p2)", a2,
-        max(row_err(k[0], p2, "B7a p2"), acc_err(k[1], s2, "B7a s2"),
-            acc_err(k[2], ss2, "B7a ss2")),
-        R * (C1 + C2) * 4, R * (3 * C1 + 2 * C1 * C2 + 4 * C2),
-        SF.sa_fwd_layer, "facl_tpu/ops/pallas/sa_fwd.py:189")
+    (p2, s2, ss2), e = layer(a2, "B7a p1->p2")
+    add("sa_fwd_layer (p1->p2)", a2, e, R * (C1 + C2) * 4,
+        R * (3 * C1 + 2 * C1 * C2 + 4 * C2), SF.sa_fwd_layer,
+        "facl_tpu/ops/pallas/sa_fwd.py:189", source=SRC_LAYER)
     m2, v2 = SF._finalize(s2, ss2, R)
     mul2, shift2 = _fold_affine(lp2, m2, v2, eps)
     ag = (p2, mul2, shift2)
@@ -1498,10 +1509,11 @@ def two_sweep_bf16_rows(x3, layers, dpooled, K):
               f"{name}: two runs differ")
         return k, t
 
-    def add(name, fn, args, err, nbytes, ops, tc_ops, replaces):
+    def add(name, fn, args, err, nbytes, ops, tc_ops, replaces,
+            source=SRC2):
         rows.append(dict(name=name, args=args, err=err, nbytes=nbytes,
                          ops=ops, tc_ops=tc_ops, passes=0, fn=fn,
-                         plain=twin(fn), source=SRC2, replaces=replaces))
+                         plain=twin(fn), source=source, replaces=replaces))
 
     def layer_row(label, args, cin, cout, h_ops, tc):
         k, t = run(SF.sa_fwd_layer_bf16, args, f"B7a bf16 {label}")
@@ -1511,7 +1523,7 @@ def two_sweep_bf16_rows(x3, layers, dpooled, K):
         notes.append(f"B7a {label} {n}")
         add(f"sa_fwd_layer ({label}) [bf16]", SF.sa_fwd_layer_bf16, args, e,
             R * (cin + cout) * 2, R * (h_ops + 5 * cout), tc,
-            "facl_tpu/ops/pallas/sa_fwd.py:189")
+            "facl_tpu/ops/pallas/sa_fwd.py:189", source=SRC_LAYER)
         return t
     p1, s1, ss1 = layer_row("x->p1", (xr, lp1.kernel, lp1.bias), C0, C1,
                             2 * C0 * C1, 0)
@@ -1851,6 +1863,8 @@ def measure(r):
     r["passes"] = r.pop("passes", 3)
     r["bound_ms"], r["bound_by"] = bound(nbytes, ops, tc, r["passes"], bf,
                                          ex)
+    if r.get("source") == SRC_LAYER:     # B7a: its operations' bound too
+        r["bound_ops_ms"] = bound(0, ops, tc, r["passes"], bf, ex)[0]
     if tc or bf:
         r["bound_f32_ms"] = bound(nbytes, ops + tc + bf + ex)[0]
     r["rate"] = f"{r['passes']}xTF32" if r["passes"] and tc else "bf16"
@@ -1868,7 +1882,9 @@ B9_NAMES = ("sa_fused_stats", "sa_fused_pool", "sa_fused_bnsum",
 #: --parent: the parent tree's kernel libraries, and the kernels whose
 #: launchers are timed against this tree's (wrapper -> (library, launcher
 #: name, the blocks per SM the parent's wrapper launches it with; None
-#: for a launcher that takes no grid)).
+#: for a launcher that takes no grid)). The library is this tree's; a
+#: parent tree without it has the launcher where PARENT_MOVED says
+#: (parent_lib).
 PARENT = {}
 PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
              "sa_fwd_layer12": ("sa_pair", "facl_sa_fwd_layer12", 1),
@@ -1879,10 +1895,11 @@ PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
              **{f"sa_{n}_bf16": ("sa_pair", f"facl_sa_{n}_bf16", 1) for n in
                 ("fwd_layer12", "fwd_gram_pool", "bwd_sweep1", "bwd_sweep2",
                  "bwd_sweep3")},
-             "sa_fwd_layer": ("sa_2sweep", "facl_sa_fwd_layer", None),
+             "sa_fwd_layer": ("sa_layer", "facl_sa_fwd_layer", 1),
+             "sa_fwd_layer_bf16": ("sa_layer", "facl_sa_fwd_layer_bf16", 1),
              "sa_fwd_gram": ("sa_2sweep", "facl_sa_fwd_gram", None),
-             "sa_fwd_pool": ("sa_2sweep", "facl_sa_fwd_pool", 2),
-             "sa_fwd_pool_bf16": ("sa_2sweep", "facl_sa_fwd_pool_bf16", 2),
+             "sa_fwd_pool": ("sa_2sweep", "facl_sa_fwd_pool", 1),
+             "sa_fwd_pool_bf16": ("sa_2sweep", "facl_sa_fwd_pool_bf16", 1),
              "sa_bwd2_sweep1": ("sa_2sweep", "facl_sa_bwd2_sweep1", 1),
              "sa_bwd2_sweep1_bf16": ("sa_2sweep", "facl_sa_bwd2_sweep1_bf16",
                                      1),
@@ -1896,20 +1913,35 @@ PARENT_AB = {"select_gather": ("select", "facl_select_gather", None),
                 B9_NAMES},
              **{f"{n}_bf16": ("sa_fused", "facl_sa_fused_bf16", 1) for n in
                 B9_NAMES}}
-PARENT_LIBS = ("select", "sa_pair", "sa_2sweep", "sa_fused")
+PARENT_LIBS = ("select", "sa_pair", "sa_2sweep", "sa_layer", "sa_fused")
+#: A library of this tree that a parent tree may not have -> (the parent's
+#: library with its launchers, the blocks per SM its wrapper asked for):
+#: B7a's sa_layer.cu came out of sa_2sweep.cu, whose fwd_layer_kernel ran
+#: two 256-thread blocks an SM.
+PARENT_MOVED = {"sa_layer": ("sa_2sweep", 2)}
+
+
+def parent_lib(lib_name: str, per_sm):
+    """(the parent tree's library holding PARENT_AB's launcher of
+    ``lib_name``, the blocks per SM its wrapper launched it with)."""
+    if lib_name in PARENT_MOVED and lib_name not in PARENT:
+        return PARENT_MOVED[lib_name]
+    return lib_name, per_sm
 
 
 def start_parent_build(root: str, names=PARENT_LIBS):
     """Start nvcc on ``root``'s sources of ``names`` (by default
-    select.cu, sa_pair.cu, sa_2sweep.cu and sa_fused.cu; ``root`` a
-    checkout of the parent commit) with this tree's flags; returns
-    {library: (process, output)}."""
+    select.cu, sa_pair.cu, sa_2sweep.cu, sa_layer.cu where the tree has
+    it, and sa_fused.cu; ``root`` a checkout of the parent commit) with
+    this tree's flags; returns {library: (process, output)}."""
     from facl_tpu_torch.ops import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
     for name in names:
         src = os.path.join(root, "facl_tpu_torch", "ops", "csrc",
                            f"{name}.cu")
+        if name in PARENT_MOVED and not os.path.exists(src):
+            continue
         check(os.path.exists(src), f"--parent: no {src}")
         out = _build.BUILD_DIR / f"parent-{name}.so"
         started[name] = (subprocess.Popen(
@@ -1946,24 +1978,26 @@ def parent_ab(fn, args):
     for B6 and B8b at f32 within phase 2's f32 bar, cnt1 exact
     (sweep2_vs_parent: the TF32 kernel sums in another order than the
     parent's CUDA-core one), or for B7c at f32 within phase 2's f32 bar
-    (pool_vs_parent: the same). The
+    (pool_vs_parent: the same), or for B7a at either dtype by
+    layer_vs_parent. The
     parent's launcher runs at its own wrapper's grid (parent_grid_swaps).
     The launchers' C signatures are the
     same in both trees (pointers are void* to ctypes). (B6 and B8b return
     dicts, B7c one tensor: their values are compared.)"""
     import ctypes
     from facl_tpu_torch.ops import _build
-    lib_name, launcher, parent_per_sm = PARENT_AB[fn.__name__]
+    lib_name, launcher, per_sm = PARENT_AB[fn.__name__]
     key = (lib_name, launcher)
     ours = _build._FUNCTIONS[key]          # resolved by the timed calls
-    lib = PARENT[lib_name]
+    plib, parent_per_sm = parent_lib(lib_name, per_sm)
+    lib = PARENT[plib]
     pfn = getattr(lib, launcher)
     pfn.argtypes, pfn.restype = ours[1].argtypes, ctypes.c_int
 
     def run_parent(out=None):
         _build._FUNCTIONS[key] = (lib, pfn)
         try:
-            with swapped(parent_grid_swaps(lib_name, parent_per_sm,
+            with swapped(parent_grid_swaps(plib, parent_per_sm,
                                            fn.__name__)):
                 if out is not None:
                     out.append(fn(*args))
@@ -1982,6 +2016,11 @@ def parent_ab(fn, args):
         return ab
     mine = _outputs(fn(*args))
     theirs = [t for o in theirs for t in _outputs(o)]
+    if fn.__name__ in LAYER_NAMES:
+        print(f"  --parent {fn.__name__} against the parent's: "
+              f"{layer_vs_parent(fn.__name__, mine, theirs, len(args) > 3)}",
+              flush=True)
+        return ab
     if lib_name == "sa_fused":
         vs = b9_bf16_vs_parent if fn.__name__.endswith("_bf16") else \
             b9_vs_parent
@@ -2010,11 +2049,12 @@ def parent_grid_swaps(lib_name: str, blocks, name: str = ""):
     """The (module, name, value) swaps that launch a parent launcher at the
     grid its own wrapper gave it: sa_pair's ``grid``, sa_bwd's, or for
     wrapper ``name`` of the forward sweeps (sa_fwd_*) sa_fwd's, at
-    ``blocks`` blocks an SM (the parent's B7c at either dtype asked for two
-    256-thread blocks an SM where this tree's tensor-core kernel runs one of
-    512; its B6, B8a and B8b one of 512, as this tree's); B9's ``_nblk`` at
-    ``blocks`` blocks an SM (one 512-thread block an SM at either dtype, as
-    this tree's); none for a launcher that takes no grid (blocks None)."""
+    ``blocks`` blocks an SM (a parent's B7a from before sa_layer.cu asked
+    for two 256-thread blocks an SM where this tree's runs one of 512,
+    PARENT_MOVED; its B6, B7c, B8a and B8b one of 512, as this tree's);
+    B9's ``_nblk`` at ``blocks`` blocks an SM (one 512-thread block an SM
+    at either dtype, as this tree's); none for a launcher that takes no
+    grid (blocks None)."""
     from facl_tpu_torch.ops import _build
     from facl_tpu_torch.ops import sa_bwd as SB
     from facl_tpu_torch.ops import sa_fwd as SF
@@ -2031,7 +2071,7 @@ def parent_grid_swaps(lib_name: str, blocks, name: str = ""):
 
     def grid(t, R, per_sm=2):
         return min(R // 64, blocks * _build.sm_count(t.device))
-    if lib_name == "sa_2sweep":
+    if lib_name in ("sa_2sweep", "sa_layer"):
         return [(SF if name.startswith("sa_fwd_") else SB, "grid", grid)]
     return [(SP, "grid", grid)]
 
@@ -2157,6 +2197,45 @@ def two_sweep_vs_parent(name, mine, theirs):
         f"{worst:.3e} of the parent's max-abs"
 
 
+#: B7a's wrappers (sa_layer.cu): layer_vs_parent.
+LAYER_NAMES = ("sa_fwd_layer", "sa_fwd_layer_bf16")
+
+
+def layer_vs_parent(name, mine, theirs, affine: bool):
+    """B7a's outputs (p, sum p, sum p^2) against the parent tree's: p
+    bit-equal where both sum in k order on CUDA cores (p1 at either dtype,
+    the f32 p2); the bf16 p2 (``affine``) within phase 2's bf16 bar
+    (bf16_flips: the tensor cores add its k16 steps in another order than
+    a chain of FMAs); the sums within phase 2's accumulator bars (f32:
+    1e-4 of the parent's max-abs, acc_err; bf16: ACC2_BAR, acc_rel), as
+    they are taken in another order. Fails otherwise; returns a note."""
+    check(len(mine) == len(theirs) == 3, f"--parent: {name} returns "
+                                         f"{len(mine)} tensors, the parent "
+                                         f"{len(theirs)}")
+    (p, s, ss), (tp, ts, tss) = mine, theirs
+    check(p.dtype == tp.dtype and p.shape == tp.shape,
+          f"--parent: {name}: p {p.dtype} {tuple(p.shape)} against the "
+          f"parent's {tp.dtype} {tuple(tp.shape)}")
+    bf = p.dtype == BF16
+    if bf and affine:
+        note = f"p {bf16_flips(p, tp, f'--parent: {name} p')[0]} of " \
+            f"{p.numel()} entries beyond one bf16 ulp"
+    else:
+        check(torch.equal(p, tp), f"--parent: {name}: p differs from the "
+                                  "parent's")
+        note = "p bit-equal"
+    worst = 0.0
+    for a, b, what in ((s, ts, "sum p"), (ss, tss, "sum p^2")):
+        if bf:
+            acc_rel(a, b, f"--parent: {name} {what}", ACC2_BAR)
+        else:
+            acc_err(a, b, f"--parent: {name} {what}")
+        worst = max(worst, float((a - b).abs().max()) /
+                    max(float(b.abs().max()), 1e-30))
+    return f"{note}; sums within phase 2's bar, largest |this - parent| " \
+        f"{worst:.3e} of the parent's max-abs"
+
+
 def pool_vs_parent(name, mine, theirs):
     """The f32 B7c's pooled rows against the parent tree's at phase 2's f32
     bar (row_err, rtol 1e-5 / atol 1e-5 x scale): its tensor-core sums run
@@ -2194,13 +2273,15 @@ def print_row(r, label=""):
     dense = "" if "dense_ms" not in r else \
         f"; its dense q3 product alone {r['dense_ms']:.4f} ms at the bf16 " \
         "tensor-core rate"
+    ops = "" if "bound_ops_ms" not in r else \
+        f"; its operations alone {r['bound_ops_ms']:.4f} ms"
     prm = "" if "host_prm_us" not in r else \
         f" ({r['host_prm_us']:.1f} us with its flat weights built once a " \
         "stage call, as sa_train_*_unified call it)"
     print(f"kernel {r['name']}{label}: {r['ms']:.4f} ms on the device, "
           f"{r['host_us']:.1f} us on the host per call{prm} (twin "
           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-          f"{r['bound_by']}{tc}{lib}{dense}), max |kernel - twin| = "
+          f"{r['bound_by']}{tc}{ops}{lib}{dense}), max |kernel - twin| = "
           f"{r['max_abs_err']:.3e}", flush=True)
     if "parent_ab" in r:
         ab = r["parent_ab"]
@@ -2208,7 +2289,10 @@ def print_row(r, label=""):
               f"parent): {' / '.join(f'{v:.4f}' for v in ab)} ms on the "
               f"device; parent mean {(ab[0] + ab[3]) / 2:.4f}, this tree "
               f"{(ab[1] + ab[2]) / 2:.4f}; outputs "
-              + ("within phase 2's bf16 bars of" if
+              + ("p1 and the f32 p2 bit-equal to, the bf16 p2 and the "
+                 "sums within phase 2's bars of" if
+                 r["fn"].__name__ in LAYER_NAMES else
+                 "within phase 2's bf16 bars of" if
                  r["fn"].__name__.endswith("_bf16") else
                  "within phase 2's f32 B9 bars of" if
                  r["source"] == SRC9 else
@@ -2776,11 +2860,11 @@ def phase_main(dev, profile: bool, card: str):
 
 
 #: --parent: the Trainer steps parent_step_ab runs with the parent's
-#: launchers of the named kernels (hybrid2's B7c at f32 and at bf16),
-#: each against this tree's: (BF16_PATHS label, "pallas f32", "hybrid2
-#: f32" or "pair f32", kernels).
-PARENT_STEPS = (("hybrid2 f32", ("sa_fwd_pool",)),
-                ("hybrid2 bf16", ("sa_fwd_pool_bf16",)))
+#: launchers of the named kernels (hybrid2's B7a at f32 and at bf16, both
+#: its call shapes), each against this tree's: (BF16_PATHS label, "pallas
+#: f32", "hybrid2 f32" or "pair f32", kernels).
+PARENT_STEPS = (("hybrid2 f32", ("sa_fwd_layer",)),
+                ("hybrid2 bf16", ("sa_fwd_layer_bf16",)))
 #: --parent --profile: profiled steps of each of parent_step_ab's runs.
 PARENT_PROF_STEPS = 3
 
@@ -2812,10 +2896,11 @@ def parent_step_ab(dev, batches, g, kernels, card, profile: bool):
             if key in swaps:
                 continue
             ours = _build._FUNCTIONS[key]
-            pfn = getattr(PARENT[lib_name], launcher)
+            plib, per_sm = parent_lib(lib_name, per_sm)
+            pfn = getattr(PARENT[plib], launcher)
             pfn.argtypes, pfn.restype = ours[1].argtypes, ctypes.c_int
-            swaps[key] = (ours, (PARENT[lib_name], pfn))
-            grids += parent_grid_swaps(lib_name, per_sm, name)
+            swaps[key] = (ours, (PARENT[plib], pfn))
+            grids += parent_grid_swaps(plib, per_sm, name)
         out[label] = _parent_step_turns(dev, batches, g, kernels, card,
                                         profile, label, impl, want, names,
                                         swaps, grids, dtype)
@@ -5910,13 +5995,12 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of the parent commit: its select.cu, "
-                         "sa_pair.cu, sa_2sweep.cu and sa_fused.cu are "
-                         "built and its B1, B2a-B3c (f32 and bf16), the f32 "
-                         "B6, B7, B8 and B9 timed against this tree's in "
-                         "turns, their outputs bit-equal (the bf16 ones "
-                         "within phase 2's bf16 bars); and "
-                         "the pair3 bf16 step with the parent's bf16 B2b "
-                         "and B3b")
+                         "sa_pair.cu, sa_2sweep.cu, sa_layer.cu (where it "
+                         "has one) and sa_fused.cu are built and its B1, "
+                         "B2a-B3c, B6-B9 (f32 and bf16) timed against this "
+                         "tree's in turns, their outputs held to the "
+                         "parent's (parent_ab); and the hybrid2 f32 and "
+                         "bf16 steps with the parent's B7a (PARENT_STEPS)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script measures the "
@@ -5992,8 +6076,8 @@ def main() -> None:
                     "host_us": r["host_us"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
-                    **{k: r[k] for k in ("bound_f32_ms", "parent_ab")
-                       if k in r},
+                    **{k: r[k] for k in ("bound_f32_ms", "bound_ops_ms",
+                                         "parent_ab") if k in r},
                     "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": out}))
     print(gpu_name_power())

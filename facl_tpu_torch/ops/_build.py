@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "facl_tpu_torch"
-SOURCES = ("select", "sa_pair", "sa_2sweep", "gather", "sa_fused")
+SOURCES = ("select", "sa_pair", "sa_2sweep", "sa_layer", "gather",
+           "sa_fused")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -2,9 +2,9 @@
 // ReLU] x3 (C0 -> 64 -> 64 -> 256) + max-pool over K.
 //
 // Replaces the TPU kernels of facl_tpu/ops/pallas/:
-//   B7 sa_fwd.py::sa_forward_pallas (:148), sa_impl="hybrid2"
-//     fwd_layer   <- _make_layer_sweep  (:65, pallas_call :189), run twice:
-//                    x -> p1 and p1 -> p2
+//   B7 sa_fwd.py::sa_forward_pallas (:148), sa_impl="hybrid2" (its layer
+//     sweep, _make_layer_sweep :65, pallas_call :189, is B7a in
+//     sa_layer.cu)
 //     fwd_gram    <- _make_gram_sweep   (:97, pallas_call :219)
 //     fwd_pool    <- _make_pool_sweep   (:117, pallas_call :242)
 //   B8 sa_bwd.py::sa_backward_pallas (:232), sa_impl="hybrid"/"hybrid2"
@@ -18,8 +18,8 @@
 // the caller sums in a fixed order, as in sa_pair.cu), not the TPU's
 // packed (Lw, Rw) or paired main/aux blocks.
 //
-// Bounds on the card (R = 2,621,440 rows at the main path): fwd_layer and
-// fwd_gram by bytes (they stream 64-wide f32 rows), fwd_pool by operations
+// Bounds on the card (R = 2,621,440 rows at the main path): fwd_gram by
+// bytes (it streams 64-wide f32 rows), fwd_pool by operations
 // (the recomputed 64x256 product, ~86 GFLOP: 0.54 ms in 3xTF32, 0.11 ms
 // at bf16 with its CUDA-core passes, 1.30 ms on f32 CUDA cores),
 // bwd2_sweep1 by operations (four dense products, h2 W3, Gram(h2), A3 =
@@ -29,13 +29,13 @@
 // operations (two 64x64 products and C0 + 3 Grams of 64x64 per row, ~190
 // GFLOP: 2.8 ms on f32 CUDA cores, 1.12-1.14 ms in 3xTF32, 0.31 ms on the
 // bf16 tensor cores).
-// Design: sa_pair.cu's persistent blocks over 64-row tiles. B7a and B7b
-// keep their port-time form, register-tiled products on CUDA cores
-// (strict f32) with no copy/compute overlap; B7c, B8a, B6 and B8b run
+// Design: sa_pair.cu's persistent blocks over 64-row tiles. B7b keeps
+// its port-time form, register-tiled products on CUDA cores (strict f32)
+// with no copy/compute overlap; B7c, B8a, B6 and B8b run
 // their products on the tensor cores in kernels of their own at each
 // dtype (their sections below: the f32 ones in 3xTF32).
 //
-// bf16 (the template flag BF of B7a, B7b and B8a, entry points
+// bf16 (the template flag BF of B7b, B7c and B8a, entry points
 // facl_sa_*_bf16): the row tensors (x, p1, p2, q3, dpooled, pooled) are
 // __nv_bfloat16, the parameters the TPU kernels cast to the compute dtype
 // (W1, b1, W2, W3, b3, M3, gi2, gi3) are rounded to bf16 where they are
@@ -46,9 +46,9 @@
 // cores; only the order of the sums differs from the twins), and the
 // per-block float64 partials stay. The ReLU masks are decided on the
 // bf16-rounded h (relu_affine_p, relu_packed); B6's h1 is sa_pair.cu's
-// bf16 h1 bit for bit (h1_pre_bf16, the same k-order chain). In B7a and
-// B7b every f32 path is the code it was before the template: the bf16
-// casts sit in `if constexpr (BF)` branches.
+// bf16 h1 bit for bit (h1_pre_bf16, the same k-order chain). In B7b
+// every f32 path is the code it was before the template: the bf16 casts
+// sit in `if constexpr (BF)` branches.
 #include <cstdint>
 #include "common.cuh"
 #include "sa_mma.cuh"
@@ -61,18 +61,6 @@ using RowT = typename Row<BF>::T;
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-// copy_vec, each value rounded to bf16 at BF (a parameter the TPU kernel
-// casts to the compute dtype).
-template <bool BF>
-__device__ __forceinline__ void copy_vec_p(float* dst, const float* src,
-                                           int n) {
-  if constexpr (BF) {
-    for (int i = threadIdx.x; i < n; i += NT) dst[i] = rb(src[i]);
-  } else {
-    copy_vec(dst, src, n);
-  }
 }
 
 // sa_tile.cuh's row-tile loads and stores on rows stored as RowT<BF>;
@@ -90,115 +78,6 @@ __device__ __forceinline__ void load_h_tile_p(const RowT<BF>* __restrict__ p,
   } else {
     load_h_tile(p, r0, mul, shift, hs);
   }
-}
-
-template <bool BF>
-__device__ __forceinline__ void store_tile_p(const float* src, int64_t r0,
-                                             RowT<BF>* __restrict__ dst) {
-  if constexpr (BF) {
-    for (int e = threadIdx.x; e < TR * CW; e += NT) {
-      const int r = e / CW, c = e % CW;
-      put(dst + (r0 + r) * CW + c, src[r * LD + c]);
-    }
-  } else {
-    store_tile(src, r0, dst);
-  }
-}
-
-// Per-block sums of a (TR, 64) tile's columns into red[16][64] rows ->
-// part[2][64]; s/ss are this thread's running sums of columns tx + 16 j.
-__device__ __forceinline__ void write_sums(const double s[4],
-                                           const double ss[4], double* red,
-                                           double* __restrict__ part) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red[ty * CW + tx + 16 * j] = s[j];
-    red[(16 + ty) * CW + tx + 16 * j] = ss[j];
-  }
-  __syncthreads();
-  if (threadIdx.x < 2 * CW) {
-    const int w = threadIdx.x / CW, c = threadIdx.x % CW;
-    double a = 0.0;
-    for (int y = 0; y < 16; ++y) a += red[(w * 16 + y) * CW + c];
-    part[(int64_t)blockIdx.x * 2 * CW + w * CW + c] = a;
-  }
-}
-
-// ---------------------------------------------------------------------
-// B7a: p = h W + b, written (R, 64), with per-block sums of p and p^2.
-// affine == 0: h = x, row-major (R, cin), cin <= 7 (the cast-only input
-// sweep); affine == 1: h = relu(in * mul + shift), in = p1 (R, 64).
-// vec = [b | mul | shift] (3*CW); part: (blocks, 2, 64) float64. At BF p =
-// bf16(h W) + b in f32 is stored rounded and summed unrounded
-// (sa_fwd.py:86-91).
-template <bool BF>
-__global__ void __launch_bounds__(NT)
-fwd_layer_kernel(const RowT<BF>* __restrict__ in, int cin, int affine,
-                 int64_t ntiles, const float* __restrict__ W,
-                 const float* __restrict__ vec, RowT<BF>* __restrict__ p,
-                 double* __restrict__ part) {
-  extern __shared__ float sm[];
-  float* Ws = sm;                       // cin*CW (<= CW*CW)
-  float* hs = Ws + CW * CW;             // TR*LD: input tile, then p tile
-  float* v = hs + TR * LD;              // b | mul | shift
-  double* red = reinterpret_cast<double*>(v + 3 * CW);   // 2*16*CW
-
-  copy_vec_p<BF>(Ws, W, cin * CW);
-  copy_vec_p<BF>(v, vec, CW);
-  copy_vec(v + CW, vec + CW, 2 * CW);
-  __syncthreads();
-
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  double s[4] = {0.0, 0.0, 0.0, 0.0}, ss[4] = {0.0, 0.0, 0.0, 0.0};
-  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int64_t r0 = t * TR;
-    if (affine) {
-      load_h_tile_p<BF>(in, r0, v + CW, v + 2 * CW, hs);
-    } else {
-      for (int e = threadIdx.x; e < TR * cin; e += NT) {
-        const int r = e / cin, c = e % cin;
-        hs[r * LD + c] = to_f(in[(r0 + r) * cin + c]);
-      }
-    }
-    __syncthreads();
-    float acc[4][4];
-    if (affine) {
-      mm64(hs, Ws, nullptr, acc);
-    } else {
-      zero_patch(acc);
-      for (int k = 0; k < cin; ++k)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = fmaf(hs[(ty + 16 * i) * LD + k],
-                             Ws[k * CW + tx + 16 * j], acc[i][j]);
-    }
-    __syncthreads();                   // hs is reused as the p tile
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      float ts = 0.f, tss = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float val;
-        if constexpr (BF)
-          val = __fadd_rn(rb(acc[i][j]), v[c]);
-        else
-          val = __fadd_rn(acc[i][j], v[c]);
-        hs[(ty + 16 * i) * LD + c] = val;
-        ts += val;
-        tss = fmaf(val, val, tss);
-      }
-      s[j] += ts;
-      ss[j] += tss;
-    }
-    __syncthreads();
-    store_tile_p<BF>(hs, r0, p);
-    __syncthreads();
-  }
-  write_sums(s, ss, red, part);
 }
 
 // ---------------------------------------------------------------------
@@ -2389,21 +2268,6 @@ inline bool aligned16(const void* p) {
 
 
 template <bool BF>
-int launch_fwd_layer(const RowT<BF>* in, int64_t R, int cin, int affine,
-                     const float* W, const float* vec, RowT<BF>* p,
-                     double* part, int nblk, void* stream) {
-  if (R % TR != 0 || cin < 1 || (affine ? cin != CW : cin > C0MAX - 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (CW * CW + TR * LD + 3 * CW) +
-                      sizeof(double) * 2 * 16 * CW;
-  cudaError_t e = prepare(fwd_layer_kernel<BF>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  fwd_layer_kernel<BF><<<nblk, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      in, cin, affine, R / TR, W, vec, p, part);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool BF>
 int launch_fwd_gram(const RowT<BF>* p2, int64_t R, const float* vec2,
                     double* partG, double* partc, int nblk, void* stream) {
   if (R % TR != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -2592,22 +2456,6 @@ int launch_bwd2_sweep2_bf16(const __nv_bfloat16* x, int B, int C0, int N,
 // cudaGetLastError() (0 on success). The _bf16 entry points take the row
 // tensors as bf16 and the same f32 parameters.
 using bf16_t = __nv_bfloat16;
-
-extern "C" int facl_sa_fwd_layer(const float* in, int64_t R, int cin,
-                                 int affine, const float* W, const float* vec,
-                                 float* p, double* part, int nblk,
-                                 void* stream) {
-  return launch_fwd_layer<false>(in, R, cin, affine, W, vec, p, part, nblk,
-                                 stream);
-}
-
-extern "C" int facl_sa_fwd_layer_bf16(const bf16_t* in, int64_t R, int cin,
-                                      int affine, const float* W,
-                                      const float* vec, bf16_t* p,
-                                      double* part, int nblk, void* stream) {
-  return launch_fwd_layer<true>(in, R, cin, affine, W, vec, p, part, nblk,
-                                stream);
-}
 
 extern "C" int facl_sa_fwd_gram(const float* p2, int64_t R,
                                 const float* vec2, double* partG,

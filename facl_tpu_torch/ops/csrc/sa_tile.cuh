@@ -1,9 +1,9 @@
-// Tile helpers shared by the SA sweep kernels (sa_pair.cu, sa_2sweep.cu):
-// a persistent block of NT threads walks 64-row tiles held in shared
-// memory, with register-tiled 64-wide products (thread (ty, tx) owns rows
-// ty + 16 i and columns tx + 16 j). Every sweep that recomputes h1 from x
-// sums x W1 in k order (sa_mma.cuh's h1_rows and h1_pair), so its ReLU
-// masks agree bit for bit with the forward's.
+// Tile helpers shared by the SA sweep kernels (sa_pair.cu, sa_2sweep.cu,
+// sa_layer.cu): a persistent block of NT threads walks 64-row tiles held
+// in shared memory, with register-tiled 64-wide products (thread (ty, tx)
+// owns rows ty + 16 i and columns tx + 16 j). Every sweep that recomputes
+// h1 from x sums x W1 in k order (sa_mma.cuh's h1_rows and h1_pair), so
+// its ReLU masks agree bit for bit with the forward's.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,40 +35,6 @@ __device__ __forceinline__ void load_h_tile(const float* __restrict__ p,
   for (int e = threadIdx.x; e < TR * CW; e += NT) {
     const int r = e / CW, c = e % CW;
     hs[r * LD + c] = relu_affine(p[(r0 + r) * CW + c], mul[c], shift[c]);
-  }
-}
-
-__device__ __forceinline__ void store_tile(const float* src, int64_t r0,
-                                           float* __restrict__ dst) {
-  for (int e = threadIdx.x; e < TR * CW; e += NT) {
-    const int r = e / CW, c = e % CW;
-    dst[(r0 + r) * CW + c] = src[r * LD + c];
-  }
-}
-
-// acc[i][j] = sum_k A[r][k] * (scale ? scale[k] : 1) * Bm[k][c] for
-// r = ty + 16 i, c = tx + 16 j; A is a (TR, LD) tile, Bm (64, 64).
-__device__ __forceinline__ void mm64(const float* A, const float* Bm,
-                                     const float* scale, float acc[4][4]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-  for (int k = 0; k < CW; ++k) {
-    float a[4], bb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = A[(ty + 16 * i) * LD + k];
-      if (scale) a[i] = __fmul_rn(a[i], scale[k]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = Bm[k * CW + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
   }
 }
 

@@ -11,21 +11,26 @@ finalizes every SA forward shares (sa_fwd.py:138, :229-239).
                      over each ``pool``-row group (the JAX order)
 
 p1 and p2 are the residuals the two-sweep backward (ops/sa_bwd.py, B8)
-reads. Each sweep has a CUDA kernel (``csrc/sa_2sweep.cu``) and a plain
-PyTorch twin; a CPU tensor takes the twin, a CUDA tensor launches the
-kernel or raises, and each wrapper counts its launches. At compute_dtype
-bfloat16 (``dtype=torch.bfloat16``) the three sweeps have bf16 kernels
-(``sa_fwd_layer_bf16``, ``sa_fwd_gram_bf16``, ``sa_fwd_pool_bf16``) that
-store p1, p2 and the pooled rows in bf16; the moment finalizes stay f32,
-as XLA keeps them outside Pallas.
+reads. Each sweep has a CUDA kernel (B7a ``csrc/sa_layer.cu``, B7b and
+B7c ``csrc/sa_2sweep.cu``) and a plain PyTorch twin; a CPU tensor takes
+the twin, a CUDA tensor launches the kernel or raises, and each wrapper
+counts its launches. At compute_dtype bfloat16 (``dtype=torch.bfloat16``)
+the three sweeps have bf16 kernels (``sa_fwd_layer_bf16``,
+``sa_fwd_gram_bf16``, ``sa_fwd_pool_bf16``) that store p1, p2 and the
+pooled rows in bf16; the moment finalizes stay f32, as XLA keeps them
+outside Pallas.
 
-B7a and B7b run their products on CUDA cores. B7c runs h2 W3 on the
-tensor cores (mma.sync at bf16, wgmma in 3xTF32 at f32), one 512-thread
-block an SM, its p2 tiles staged by TMA bulk copies (so p2 must be
-16-byte aligned; the wrapper raises otherwise), and reduces each group's
-max from the accumulators before the layer-3 affine, roundings and ReLU,
-which are monotone in p3: only the order of the f32 sums differs from
-the twin's.
+B7a runs one 512-thread block an SM whose warps walk their own row
+steps, the input staged by cp.async (so x and p1 must be 16-byte aligned;
+the wrapper raises otherwise) and the output leaving in 16-byte stores:
+x -> p1 a stream, p1 -> p2 on the bf16 tensor cores at bf16 and on CUDA
+cores at f32, where p1 and p2 are the k-order FMA chain's bit for bit.
+B7b runs its product on CUDA cores. B7c runs h2 W3 on the tensor cores
+(mma.sync at bf16, wgmma in 3xTF32 at f32), one 512-thread block an SM,
+its p2 tiles staged by TMA bulk copies (so p2 must be 16-byte aligned;
+the wrapper raises otherwise), and reduces each group's max from the
+accumulators before the layer-3 affine, roundings and ReLU, which are
+monotone in p3: only the order of the f32 sums differs from the twin's.
 
 Input cotangent contract: ZERO, as for ``sa_train_hybrid``.
 """
@@ -114,10 +119,10 @@ def sa_fwd_pool_bf16_plain(p2, mul2, shift2, w3, b3, mul3, shift3,
 
 
 # -- kernel wrappers ----------------------------------------------------
-# Each sweep has an f32 and a bf16 instantiation of one CUDA template
-# (csrc/sa_2sweep.cu; entry points facl_sa_*, facl_sa_*_bf16), each with its
-# own wrapper, twin and launch counter. ``dt`` is the storage dtype of the
-# rows (x, p1, p2, pooled); a row tensor stored otherwise raises.
+# Each sweep has an f32 and a bf16 kernel (csrc/sa_layer.cu, sa_2sweep.cu;
+# entry points facl_sa_*, facl_sa_*_bf16), each with its own wrapper, twin
+# and launch counter. ``dt`` is the storage dtype of the rows (x, p1, p2,
+# pooled); a row tensor stored otherwise raises.
 
 def _layer(inp, w, b, mul, shift, dt):
     R, cin = inp.shape
@@ -131,14 +136,15 @@ def _layer(inp, w, b, mul, shift, dt):
     else:
         check_c0(cin, R)
     need(w, (cin, C), "w")
+    need_aligned(inp, "p1" if affine else "x")
     zero = torch.zeros(C, dtype=torch.float32, device=inp.device)
     vec = torch.cat([b, mul if affine else zero,
                      shift if affine else zero]).contiguous()
     need(vec, (3 * C,), "b|mul|shift")
-    nblk = grid(inp, R)
+    nblk = grid(inp, R, per_sm=1)     # one 512-thread block an SM
     p = torch.empty((R, C), dtype=dt, device=inp.device)
     part = torch.empty((nblk, 2, C), dtype=torch.float64, device=inp.device)
-    launch("sa_2sweep", entry("fwd_layer", dt), [P, L, I, I, P, P, P, P, I, P],
+    launch("sa_layer", entry("fwd_layer", dt), [P, L, I, I, P, P, P, P, I, P],
            ptr(inp), R, cin, int(affine), ptr(w), ptr(vec), ptr(p),
            ptr(part), nblk, stream_of(inp), what=entry("fwd_layer", dt))
     s = reduce(part)
@@ -184,7 +190,8 @@ def _pool(p2, mul2, shift2, w3, b3, mul3, shift3, pool, dt):
 
 def sa_fwd_layer(inp, w, b, mul=None, shift=None):
     """B7a. inp: x rows (R, C0) without ``mul``, or p1 (R, 64) with the
-    layer-1 folded affine. -> (p (R, 64), sum p, sum p^2)."""
+    layer-1 folded affine. -> (p (R, 64), sum p, sum p^2). On the card inp
+    must be 16-byte aligned."""
     if on_cpu(inp):
         return sa_fwd_layer_plain(inp, w, b, mul, shift)
     out = _layer(inp, w, b, mul, shift, torch.float32)
@@ -214,7 +221,7 @@ def sa_fwd_pool(p2, mul2, shift2, w3, b3, mul3, shift3, pool: int):
 
 def sa_fwd_layer_bf16(inp, w, b, mul=None, shift=None):
     """B7a at bf16: x rows or p1 bf16 -> (p (R, 64) bf16, sum p, sum p^2
-    in f32)."""
+    in f32). On the card inp must be 16-byte aligned."""
     if on_cpu(inp):
         return sa_fwd_layer_bf16_plain(inp, w, b, mul, shift)
     out = _layer(inp, w, b, mul, shift, BF16)
